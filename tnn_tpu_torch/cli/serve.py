@@ -1,0 +1,123 @@
+#!/usr/bin/env python
+"""Serving front end on stdin/stdout JSON lines (``tnn_tpu.cli.serve``).
+
+    echo '{"tokens": [464, 3616, 286], "max_new_tokens": 16}' | \
+        python -m tnn_tpu_torch.cli.serve --model gpt2_small
+
+Each stdin line is one request:
+
+    {"id": 3, "tokens": [464, 3616, 286], "max_new_tokens": 8,
+     "temperature": 0.8, "top_k": 40, "top_p": 0.9, "stop_token": 50256}
+
+``id`` defaults to the engine request id. Responses stream as the engine
+produces them, one JSON object per line, as the JAX front end emits them:
+
+    {"event": "token", "id": 3, "token": 257}
+    {"event": "done", "id": 3, "tokens": [...], "finish_reason": "length",
+     "ttft_ms": 12.3}
+    {"event": "error", "id": 3, "reason": "..."}
+
+New lines are read between engine steps, so requests join a running batch.
+EOF ends the input; the server then finishes every request and exits 0.
+Weights are seeded random (``--seed``); ``--device`` defaults to cuda and
+the server refuses to start without a card unless ``--device cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import select
+import sys
+
+from tnn_tpu_torch.models import zoo
+from tnn_tpu_torch.serving.engine import InferenceEngine
+
+def _emit(obj) -> None:
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+def _stdin_ready(fd: int, timeout) -> bool:
+    return bool(select.select([fd], [], [], timeout)[0])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="gpt2_small", choices=zoo.names())
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-blocks", type=int, default=64,
+                    help="KV pool size in blocks (1 is reserved scratch)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--max-batch-size", type=int, default=8)
+    ap.add_argument("--chunk-size", type=int, default=64)
+    ap.add_argument("--max-new-tokens", type=int, default=32,
+                    help="default for requests that omit it")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    model = zoo.create(args.model, device=args.device, seed=args.seed)
+    print(f"random-weight {args.model} on {model.device} "
+          f"(seed {args.seed})", file=sys.stderr)
+    engine = InferenceEngine(
+        model, num_blocks=args.num_blocks, block_size=args.block_size,
+        max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
+        seed=args.seed, device=args.device)
+    user_ids = {}
+
+    def handle_line(line: bytes) -> None:
+        try:
+            req = json.loads(line)
+        except json.JSONDecodeError as e:
+            _emit({"event": "error", "reason": f"bad json: {e}"})
+            return
+        if not isinstance(req, dict):
+            _emit({"event": "error", "reason": "a request is a JSON object"})
+            return
+        try:
+            rid = engine.submit(
+                req["tokens"],
+                int(req.get("max_new_tokens", args.max_new_tokens)),
+                temperature=float(req.get("temperature", 0.0)),
+                top_k=int(req.get("top_k", 0)),
+                top_p=float(req.get("top_p", 0.0)),
+                stop_token=req.get("stop_token"))
+        except (ValueError, KeyError, TypeError) as e:
+            _emit({"event": "error", "id": req.get("id"), "reason": str(e)})
+            return
+        user_ids[rid] = req.get("id", rid)
+
+    fd = sys.stdin.fileno()
+    pending = b""
+    eof = False
+    while not eof or engine.has_work:
+        # read whatever input has arrived; block only while the engine idles
+        while not eof and _stdin_ready(fd, 0.0 if engine.has_work else None):
+            data = os.read(fd, 1 << 16)
+            eof = not data
+            pending += data if data else b"\n"
+            *lines, pending = pending.split(b"\n")
+            for line in lines:
+                if line.strip():
+                    handle_line(line)
+        if not engine.has_work:
+            continue
+        events = engine.step()
+        for rid, tok in events["tokens"]:
+            _emit({"event": "token", "id": user_ids[rid], "token": tok})
+        for rid in events["finished"]:
+            r = engine.result(rid)
+            _emit({"event": "done", "id": user_ids[rid],
+                   "tokens": list(r.out_tokens),
+                   "finish_reason": r.finish_reason,
+                   "ttft_ms": round((r.ttft_s or 0.0) * 1e3, 3)})
+        for rid, error in events["failed"]:
+            _emit({"event": "error", "id": user_ids[rid], "reason": error})
+    print("serve summary: " + json.dumps(
+        {k: round(v, 3) if isinstance(v, float) else v
+         for k, v in engine.stats().items()}), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,256 @@
+"""Ragged paged attention over the KV pool, and its write half.
+
+Port of ``tnn_tpu/ops/pallas/paged_attention.py``. The pool keeps each
+request's KV cache in fixed-size pages
+
+    pages_k, pages_v : (L, num_blocks, H_kv, block_size, head_dim)
+
+and a per-request block table names its pages in logical order.
+
+``paged_attention`` is the kernel wrapper. On a CUDA tensor it launches the
+hand-written CUDA kernel (``csrc/paged_attention.cu``) on the current
+stream, or raises; on a CPU tensor it computes ``paged_attention_reference``,
+the plain PyTorch version with the same signature and masking (gather the
+tables contiguous, masked softmax). ``paged_attention.launches`` counts the
+kernel launches.
+
+``scatter_kv_rows`` / ``scatter_kv_chunk`` write the step's new K/V rows
+into their pages in place (the JAX package returns updated arrays and
+donates the old ones; here the pool tensors are mutated). Dead tokens and
+``-1`` table holes land in the pool's scratch block 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import runtime
+
+_NEG_INF = -1e30
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
+    if pages_k.ndim == 4:   # single-layer pages: add the unit layer axis
+        pages_k, pages_v = pages_k[None], pages_v[None]
+    if pages_k.shape != pages_v.shape or pages_k.ndim != 5:
+        raise ValueError(f"pages must both be (L, N, H_kv, bs, Dh); got "
+                         f"{tuple(pages_k.shape)} / {tuple(pages_v.shape)}")
+    was_3d = q.ndim == 3
+    if was_3d:
+        if q_lens is not None:
+            raise ValueError("q_lens requires multi-token q (B, Q, H, Dh); "
+                             f"got q {tuple(q.shape)}")
+        q = q[:, None]
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, H, Dh) or (B, Q, H, Dh); "
+                         f"got {tuple(q.shape)}")
+    b, qw, h, dh = q.shape
+    hkv = pages_k.shape[2]
+    if h % hkv or pages_k.shape[4] != dh:
+        raise ValueError(f"q has {h} heads / Dh {dh} but pages carry "
+                         f"{hkv} kv heads / Dh {pages_k.shape[4]}; "
+                         "need H % H_kv == 0 and equal head dims")
+    if block_tables.shape[0] != b or tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / kv_lens "
+                         f"{tuple(kv_lens.shape)} do not match batch {b}")
+    if q_lens is None:
+        q_lens = torch.full((b,), qw, dtype=torch.int32, device=q.device)
+    elif tuple(q_lens.shape) != (b,):
+        raise ValueError(f"q_lens {tuple(q_lens.shape)} does not match "
+                         f"batch {b}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    return q, was_3d, q_lens, pages_k, pages_v, scale
+
+
+def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
+                         layer, scale):
+    b, qw, h, dh = q.shape
+    _, _, hkv, bs, _ = pages_k.shape
+    g = h // hkv
+    t = block_tables.shape[1] * bs
+    tbl = block_tables.long().clamp_min(0)   # clamp -1 holes for the gather
+
+    def gather(pages):
+        x = pages[layer][tbl]                    # (B, nb, Hkv, bs, Dh)
+        return x.transpose(1, 2).reshape(b, hkv, t, dh)
+
+    k, v = gather(pages_k), gather(pages_v)
+    qg = q.reshape(b, qw, hkv, g, dh)
+    s = torch.einsum("bqhgd,bhtd->bqhgt", qg.float(), k.float()) * scale
+    kv_lens = kv_lens.long()
+    q_lens = q_lens.long()
+    start = (kv_lens - q_lens)[:, None]                    # (B, 1)
+    tpos = torch.arange(qw, device=q.device)[None, :]      # (1, Q)
+    kpos = torch.arange(t, device=q.device)
+    live = (kpos[None, None, :] <= (start + tpos)[:, :, None]) \
+        & (tpos < q_lens[:, None])[:, :, None]             # (B, Q, T)
+    live = live & torch.repeat_interleave(block_tables >= 0, bs,
+                                          dim=1)[:, None, :]
+    s = torch.where(live[:, :, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # fully-masked query rows (padding past q_lens, or q_lens/kv_lens == 0)
+    # output exactly 0, matching the kernel's l == 0 guard
+    row_live = (tpos < q_lens[:, None]) & (start + tpos >= 0) \
+        & live.any(dim=-1)                                 # (B, Q)
+    p = torch.where(row_live[:, :, None, None, None], p, 0.0)
+    out = torch.einsum("bqhgt,bhtd->bqhgd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype).reshape(b, qw, h, dh)
+
+
+def paged_attention_reference(q, pages_k, pages_v, block_tables, kv_lens, *,
+                              q_lens=None, layer: int = 0,
+                              scale: Optional[float] = None):
+    """Plain PyTorch paged attention: the kernel's parity oracle.
+
+    Same signature and semantics as ``paged_attention``. It gathers every
+    table entry into a contiguous cache, which is what the kernel exists to
+    avoid.
+    """
+    q, was_3d, q_lens, pages_k, pages_v, scale = _check_args(
+        q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale)
+    out = _attention_reference(q, pages_k, pages_v, block_tables, kv_lens,
+                               q_lens, layer, scale)
+    return out[:, 0] if was_3d else out
+
+
+def paged_attention(q, pages_k, pages_v, block_tables, kv_lens, *,
+                    q_lens=None, layer: int = 0,
+                    scale: Optional[float] = None):
+    """Ragged attention for the current step's query rows over paged KV.
+
+    q : (B, H, Dh) decode form, one token per row, or (B, Q, H, Dh) ragged
+        chunks with ``q_lens[b]`` live tokens per row (left-aligned; the
+        rest is padding and outputs exactly 0).
+    pages_k / pages_v : (L, N, H_kv, bs, Dh) pool pages, or one layer's
+        (N, H_kv, bs, Dh).
+    block_tables : (B, nb) int32 page ids in logical order; -1 entries are
+        holes whose positions are skipped.
+    kv_lens : (B,) int32 live KV positions per row, including this step's
+        rows (the caller scatters them first). A 0 row outputs exactly 0.
+    q_lens : (B,) int32 live query tokens per row (4-D q only). Token t of
+        row b sits at position ``kv_lens[b] - q_lens[b] + t`` and attends
+        causally.
+    layer : which layer's pages to read.
+
+    GQA: H % H_kv == 0. Returns q's shape and dtype. On CUDA tensors the
+    kernel takes bf16 or f32 pages of q's dtype, Dh 64 or 128 and block
+    sizes 4 to 32, all contiguous, and raises on anything else.
+    """
+    q, was_3d, q_lens, pages_k, pages_v, scale = _check_args(
+        q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale)
+    if q.device.type == "cpu":
+        out = _attention_reference(q, pages_k, pages_v, block_tables,
+                                   kv_lens, q_lens, layer, scale)
+    else:
+        out = _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
+                      layer, scale)
+    return out[:, 0] if was_3d else out
+
+
+paged_attention.launches = 0
+
+
+def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention kernel needs CUDA tensors; q is "
+                         f"on {q.device}")
+    tensors = {"q": q, "pages_k": pages_k, "pages_v": pages_v,
+               "block_tables": block_tables, "kv_lens": kv_lens,
+               "q_lens": q_lens}
+    for name, x in tensors.items():
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("block_tables", "kv_lens", "q_lens"):
+        if tensors[name].dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got "
+                             f"{tensors[name].dtype}")
+    if q.dtype not in _KERNEL_DTYPES or pages_k.dtype != q.dtype \
+            or pages_v.dtype != q.dtype:
+        raise ValueError(f"kernel takes bf16 or f32 q and pages of one "
+                         f"dtype; got q {q.dtype}, pages {pages_k.dtype} / "
+                         f"{pages_v.dtype}")
+    b, qw, h, dh = q.shape
+    nl, n, hkv, bs, _ = pages_k.shape
+    if dh not in (64, 128):
+        raise ValueError(f"kernel supports head_dim 64 or 128, got {dh}")
+    if not 4 <= bs <= 32:
+        raise ValueError(f"kernel supports block sizes 4..32, got {bs}")
+    if not 0 <= int(layer) < nl:
+        raise ValueError(f"layer {layer} out of range for {nl} layers")
+    out = torch.empty_like(q)
+    lib = _library()
+    err = lib.tnn_paged_attention(
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+        block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
+        out.data_ptr(), _KERNEL_DTYPES[q.dtype], b, qw, h, hkv, dh, n, bs,
+        block_tables.shape[1], int(layer), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+def _library():
+    lib = runtime.load("paged_attention")
+    fn = lib.tnn_paged_attention
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 7 + [i] * 10 + [ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def scatter_kv_rows(pages, block_tables, offsets, rows, *, layer=None):
+    """Write one new KV row per sequence at its decode position, in place.
+
+    ``pages`` is (L, N, H, bs, Dh) with ``layer`` naming the layer (or one
+    layer's (N, H, bs, Dh)); ``block_tables`` (B, nb); ``offsets`` (B,) the
+    position each row writes; ``rows`` (B, H, Dh). A -1 table hole writes
+    to the scratch page. Returns ``pages``.
+    """
+    bs = pages.shape[-2]
+    offsets = offsets.long()
+    blk = block_tables.long().gather(1, (offsets // bs)[:, None])[:, 0]
+    blk = blk.clamp_min(0)
+    target = _layer_view(pages, layer)
+    target[blk, :, offsets % bs, :] = rows
+    return pages
+
+
+def scatter_kv_chunk(pages, block_tables, starts, rows, q_lens, *,
+                     layer=None):
+    """Write a ragged chunk of new KV rows per sequence, in place.
+
+    ``rows`` is (B, Q, H, Dh): row b's tokens t < q_lens[b] land at
+    positions ``starts[b] + t`` through its block table; padding tokens
+    (and whole rows with q_lens == 0) and -1 holes go to the scratch page
+    0, which is never allocated to a request. Returns ``pages``.
+    """
+    bs = pages.shape[-2]
+    qw = rows.shape[1]
+    nbt = block_tables.shape[1]
+    steps = torch.arange(qw, device=rows.device)
+    pos = starts.long()[:, None] + steps                 # (B, Q)
+    live = steps[None, :] < q_lens.long()[:, None]       # (B, Q)
+    blk = block_tables.long().gather(1, (pos // bs).clamp(0, nbt - 1))
+    blk = torch.where(live, blk, 0).clamp_min(0)
+    target = _layer_view(pages, layer)
+    target[blk, :, pos % bs, :] = rows
+    return pages
+
+
+def _layer_view(pages, layer):
+    if pages.ndim == 5:
+        if layer is None:
+            raise ValueError("layer is required for (L, N, H, bs, Dh) pages")
+        return pages[layer]
+    return pages

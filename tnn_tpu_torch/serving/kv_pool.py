@@ -1,0 +1,152 @@
+"""Block-based paged KV pool (``tnn_tpu.serving.kv_pool``).
+
+The pool owns two device tensors of fixed-size token pages,
+
+    pages_k, pages_v : (L, num_blocks, H_kv, block_size, head_dim)
+
+plus host-side bookkeeping: a LIFO free list and a per-block refcount.
+Sequences hold a block table, the ordered list of their block ids; position
+``p`` lives at ``pages[layer, table[p // block_size], :, p % block_size]``.
+Block 0 is reserved scratch: padded rows of a batch point their tables at
+it, so their writes land somewhere harmless. The model writes new rows into
+the pages in place (``ops.paged_attention.scatter_kv_*``), where the JAX
+package donated the old arrays to each step.
+
+The prefix-cache parts of the JAX pool (fork, the evictable LRU, the demote
+hooks) are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from collections import Counter
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
+
+
+class PoolExhausted(RuntimeError):
+    """No free blocks: the scheduler preempts and retries."""
+
+
+class PagedKVPool:
+    SCRATCH = 0  # reserved block for padded/inactive batch rows
+
+    def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
+                 num_blocks: int, block_size: int = 16,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved scratch)")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_layers = int(num_layers)
+        self.num_kv_heads = int(num_kv_heads)
+        self.head_dim = int(head_dim)
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        shape = (self.num_layers, self.num_blocks, self.num_kv_heads,
+                 self.block_size, self.head_dim)
+        self.pages_k = torch.zeros(shape, dtype=dtype, device=device)
+        self.pages_v = torch.zeros(shape, dtype=dtype, device=device)
+        # LIFO free list: freshly freed blocks are reused first
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._ref: Dict[int, int] = {}
+
+    # -- bookkeeping ----------------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable blocks (all but the scratch block)."""
+        return self.num_blocks - 1
+
+    @property
+    def num_allocatable(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_allocated(self) -> int:
+        return self.capacity - len(self._free)
+
+    def blocks_for(self, num_tokens: int) -> int:
+        """Blocks needed to hold ``num_tokens`` cache positions."""
+        return max(1, math.ceil(num_tokens / self.block_size))
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted."""
+        if n > len(self._free):
+            raise PoolExhausted(f"need {n} blocks, {len(self._free)} free "
+                                f"(capacity {self.capacity})")
+        blocks = [self._free.pop() for _ in range(n)]
+        for b in blocks:
+            self._ref[b] = 1
+        return blocks
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Drop one reference per block; blocks reaching zero return to the
+        free list (deepest first, as the JAX pool orders them)."""
+        for b in reversed(list(blocks)):
+            r = self._ref.get(b)
+            if r is None:
+                raise KeyError(f"block {b} is not allocated (double free?)")
+            if r == 1:
+                del self._ref[b]
+                self._free.append(b)
+            else:
+                self._ref[b] = r - 1
+
+    def check_invariants(
+            self,
+            block_tables: Optional[Iterable[Sequence[int]]] = None,
+            seq_lens: Optional[Sequence[int]] = None) -> None:
+        """Verify the bookkeeping; raises ValueError on a violation.
+
+        Always: free + allocated == capacity with no block in both, no
+        duplicate free entries, the scratch block out of circulation, ids in
+        range, refcounts >= 1. With ``block_tables`` (every running
+        request's table): each allocated block appears in exactly refcount
+        tables and no table names a free block. With ``seq_lens`` (parallel
+        to the tables): each table covers its resident tokens and holds no
+        more than ``blocks_for(seq_len + 1)`` blocks.
+        """
+        free_set = set(self._free)
+        if len(free_set) != len(self._free):
+            raise ValueError(f"duplicate blocks in free list: {self._free}")
+        if self.SCRATCH in free_set or self.SCRATCH in self._ref:
+            raise ValueError("scratch block entered circulation")
+        if free_set & self._ref.keys():
+            raise ValueError(f"blocks both free and allocated: "
+                             f"{free_set & self._ref.keys()}")
+        if len(self._free) + len(self._ref) != self.capacity:
+            raise ValueError(f"free ({len(self._free)}) + allocated "
+                             f"({len(self._ref)}) != capacity "
+                             f"({self.capacity})")
+        bad = [b for b in free_set | self._ref.keys()
+               if not 0 < b < self.num_blocks]
+        if bad:
+            raise ValueError(f"block ids out of range: {bad}")
+        if any(r < 1 for r in self._ref.values()):
+            raise ValueError(f"refcount < 1: {self._ref}")
+        if block_tables is None:
+            return
+        block_tables = [list(t) for t in block_tables]
+        if seq_lens is not None:
+            for i, (table, n) in enumerate(zip(block_tables, seq_lens)):
+                if n > len(table) * self.block_size:
+                    raise ValueError(f"row {i}: {n} resident tokens exceed "
+                                     f"{len(table)} blocks")
+                if len(table) > self.blocks_for(n + 1):
+                    raise ValueError(f"row {i}: stale tail — {len(table)} "
+                                     f"blocks for {n} resident tokens")
+        usage: Counter = Counter()
+        for table in block_tables:
+            usage.update(table)
+        usage.pop(self.SCRATCH, None)
+        stale = set(usage) & free_set
+        if stale:
+            raise ValueError(f"live tables reference free blocks: "
+                             f"{sorted(stale)}")
+        if usage != Counter(self._ref):
+            raise ValueError(f"table/refcount mismatch: tables "
+                             f"{dict(usage)} vs refcounts {self._ref}")

@@ -1,0 +1,92 @@
+"""Host-side batch packing (``tnn_tpu.serving.step_build``), without the
+speculative-decoding drafts.
+
+``pack_mixed`` puts decode-phase rows first (one committed token each), then
+mid-prefill chunk rows, into a ragged (B, qw) batch whose width is the
+power-of-two bucket of the widest chunk; ``pack_decode`` is the pure-decode
+batch, one token per row. Padding rows point their tables at the pool's
+scratch block and carry q_len 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Sequence
+
+import numpy as np
+
+from ..utils.bucketing import pow2_bucket
+
+
+@dataclasses.dataclass
+class PackedStep:
+    """One step's host-side arrays."""
+    tables: np.ndarray              # (B, nb) block tables, scratch-padded
+    temps: np.ndarray               # (B,) sampling temperature per row
+    topks: np.ndarray               # (B,) top-k per row
+    topps: np.ndarray               # (B,) top-p per row
+
+
+@dataclasses.dataclass
+class MixedStep(PackedStep):
+    """The ragged mixed prefill+decode batch."""
+    toks: np.ndarray = None         # (B, qw) token matrix
+    starts: np.ndarray = None       # (B,) first write position per row
+    q_lens: np.ndarray = None       # (B,) live tokens per row
+
+
+@dataclasses.dataclass
+class DecodeStep(PackedStep):
+    """The pure-decode batch: one committed token per row."""
+    toks: np.ndarray = None         # (B,) this step's token per row
+    offsets: np.ndarray = None      # (B,) kv length before this token
+
+
+def _fill_row(step: PackedStep, i: int, req) -> None:
+    step.tables[i, :len(req.block_table)] = req.block_table
+    step.temps[i] = req.temperature
+    step.topks[i] = req.top_k
+    step.topps[i] = req.top_p
+
+
+def _alloc_common(b: int, nb: int, scratch: int):
+    return dict(tables=np.full((b, nb), scratch, np.int32),
+                temps=np.zeros((b,), np.float32),
+                topks=np.zeros((b,), np.int32),
+                topps=np.zeros((b,), np.float32))
+
+
+def pack_mixed(rows: Sequence[Any], n_dec: int, takes: Dict[int, int], *,
+               b: int, nb: int, scratch: int) -> MixedStep:
+    """Pack decode rows (the first ``n_dec`` of ``rows``, one token each)
+    and prompt-chunk rows (the rest, ``takes[rid]`` tokens each)."""
+    widest = max([takes[r.rid] for r in rows[n_dec:]] + [1])
+    qw = pow2_bucket(widest)
+    step = MixedStep(toks=np.zeros((b, qw), np.int32),
+                     starts=np.zeros((b,), np.int32),
+                     q_lens=np.zeros((b,), np.int32),
+                     **_alloc_common(b, nb, scratch))
+    for i, req in enumerate(rows):
+        step.starts[i] = req.cache_len
+        _fill_row(step, i, req)
+        if i < n_dec:
+            step.toks[i, 0] = req.next_token
+            step.q_lens[i] = 1
+        else:
+            take = takes[req.rid]
+            seq = req.resume_tokens
+            step.toks[i, :take] = seq[req.cache_len:req.cache_len + take]
+            step.q_lens[i] = take
+    return step
+
+
+def pack_decode(live: Sequence[Any], *, b: int, nb: int,
+                scratch: int) -> DecodeStep:
+    """Pack the pure-decode batch."""
+    step = DecodeStep(toks=np.zeros((b,), np.int32),
+                      offsets=np.zeros((b,), np.int32),
+                      **_alloc_common(b, nb, scratch))
+    for i, req in enumerate(live):
+        step.toks[i] = req.next_token
+        step.offsets[i] = req.cache_len
+        _fill_row(step, i, req)
+    return step
