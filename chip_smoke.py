@@ -32,11 +32,15 @@ import time
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core rate
             "float32": 67e12}        # float32 outside the tensor cores
-# kernel vs plain version: f32 keeps ~1e-5 relative (summation order only);
-# bf16 output is rounded to bf16 (8 bits of mantissa) and p is rounded to
-# bf16 before the PV product at a running max that depends on the order the
-# pages are visited, so differences reach a few bf16 ulps
-TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+# kernel vs plain version, element by element:
+#   |out - ref| <= atol + rtol * (|ref| + p.|v|),
+# as (atol, rtol), where p.|v| is the plain version over |V|. Both sides
+# round every p_j to the page dtype before the PV product (the kernel at its
+# running max, the plain version after normalising), each within half an ulp
+# (2^-8 relative in bf16), so their PV sums differ by at most 2^-7 p.|v|; the
+# two roundings of the output add at most 2^-7 |ref|. f32 differs in
+# summation order only.
+TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 2 ** -7)}
 
 
 def log(phase: str, **fields) -> None:
@@ -132,23 +136,32 @@ def paged_case(seed, *, batch, q_lens, kv_lens, heads, kv_heads, head_dim,
 
 
 def paged_work(args):
-    """(bytes, operations) the function needs for these inputs: live K/V
-    pages read once, q read once, out written once; QK and PV products."""
+    """(bytes, operations) this call's data needs. Bytes: each live K/V
+    position (below the row's kv_len, in no -1 hole) read once, each live
+    query token read and its output written once, the table entries the
+    rows use and the lengths read once. Operations: the QK and PV products
+    of every live query token with every live key it attends."""
+    import numpy as np
+
     q, pk = args["q"], args["pages_k"]
     elem = q.element_size()
     _, _, hkv, bs, dh = pk.shape
-    kv = args["kv_lens"].tolist()
-    tables = args["block_tables"].tolist()
     h = q.shape[-2]
+    kv = args["kv_lens"].tolist()
     ql = [1] * len(kv) if args["q_lens"] is None else args["q_lens"].tolist()
-    pages = sum(sum(1 for e in row[:math.ceil(n / bs)] if e >= 0)
-                for row, n in zip(tables, kv))
-    kv_bytes = pages * 2 * hkv * bs * dh * elem
-    qo_bytes = 2 * q.numel() * elem
-    meta = 4 * (args["block_tables"].numel() + 2 * len(kv))
-    keys = sum(n - m + t + 1 for n, m in zip(kv, ql) for t in range(m))
-    ops = 4 * keys * h * dh
-    return kv_bytes + qo_bytes + meta, ops
+    live_kv = live_q = entries = keys = 0
+    for row, n, m in zip(args["block_tables"].cpu().numpy(), kv, ql):
+        used = row[:math.ceil(n / bs)]
+        live = np.repeat(used >= 0, bs)[:n]
+        seen = np.cumsum(live)   # live keys at or before each position
+        live_kv += int(live.sum())
+        live_q += m
+        entries += len(used)
+        keys += int(seen[n - m:n].sum())
+    lens = len(kv) * (1 if args["q_lens"] is None else 2)
+    nbytes = (live_kv * 2 * hkv * dh * elem + live_q * 2 * h * dh * elem
+              + 4 * (entries + lens))
+    return nbytes, 4 * keys * h * dh
 
 
 def sdpa_inputs(args):
@@ -186,9 +199,9 @@ def phase_kernel(results):
                                                    paged_attention_reference)
 
     t0 = time.perf_counter()
-    libs = runtime.build_all(["paged_attention"])
+    lib = runtime.build("paged_attention")
     log("build", seconds=round(time.perf_counter() - t0, 3),
-        libraries=[str(p) for p in libs])
+        library=str(lib))
 
     bf16, f32 = torch.bfloat16, torch.float32
     rng_lens = [1000, 17, 512, 1, 333, 768, 64, 999]
@@ -212,6 +225,9 @@ def phase_kernel(results):
                                     dtype=bf16, holes=True, **small),
         "decode_f32": dict(decode_form=True, q_lens=[1] * 8,
                            kv_lens=rng_lens, dtype=f32, **small),
+        "decode_gqa4_f32": dict(decode_form=True, q_lens=[1] * 8,
+                                kv_lens=rng_lens, dtype=f32, heads=12,
+                                kv_heads=4, head_dim=64, block_size=16),
         "mixed_f32": dict(decode_form=False, q_lens=mixed_q,
                           kv_lens=mixed_kv, dtype=f32, holes=True, **small),
         "decode_hd128_bf16": dict(decode_form=True, q_lens=[1] * 8,
@@ -229,10 +245,15 @@ def phase_kernel(results):
         torch.cuda.synchronize()
         if paged_attention.launches != before + 1:
             raise AssertionError(f"{name}: kernel did not launch")
-        ref = paged_attention_reference(**args)
-        err = (out.float() - ref.float()).abs().max().item()
-        dname = str(spec["dtype"]).split(".")[-1]
-        tol = TOLERANCE[dname] * max(1.0, ref.float().abs().max().item())
+        ref = paged_attention_reference(**args).float()
+        ref_abs_v = paged_attention_reference(
+            **{**args, "pages_v": args["pages_v"].abs()}).float()
+        diff = (out.float() - ref).abs()
+        atol, rtol = TOLERANCE[str(spec["dtype"]).split(".")[-1]]
+        err = diff.max().item()
+        # the largest share of its own limit any element uses (<= 1 passes)
+        limit = atol + rtol * (ref.abs() + ref_abs_v)
+        used = (diff / limit).max().item()
         # rows with no live query token must be exactly zero
         ql = spec["q_lens"]
         dead_nonzero = 0.0
@@ -245,12 +266,14 @@ def phase_kernel(results):
             if n == 0:
                 dead_nonzero = max(dead_nonzero,
                                    out[bi].float().abs().max().item())
-        ok = math.isfinite(err) and err <= tol and dead_nonzero == 0.0
-        log("kernel", case=name, max_abs_err=err, tolerance=tol,
-            dead_rows_max=dead_nonzero, ok=ok)
+        ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
+        log("kernel", case=name, max_abs_err=err, atol=atol, rtol=rtol,
+            limit_used=used, dead_rows_max=dead_nonzero, ok=ok)
         if not ok:
-            raise AssertionError(f"paged_attention {name}: max |err| {err} "
-                                 f"> {tol} or dead rows {dead_nonzero}")
+            raise AssertionError(
+                f"paged_attention {name}: |err| exceeds {atol} + {rtol} "
+                f"(|ref| + p.|v|) ({used:.3g} of the limit) or dead rows "
+                f"{dead_nonzero}")
         worst = max(worst, err)
 
     # timing at the decode shape of the serving path (gpt2_small, B=8)
@@ -360,9 +383,12 @@ def serve_traffic(model, seed, num_requests=16, new_tokens=64):
 
 
 def profile_decode_steps(model, steps=10):
-    """A profiler window over steady decode steps of 8 rows: wall time per
-    step, device-busy time per step (summed kernel durations) and the
-    kernels that take the most device time."""
+    """Steady decode steps of 8 rows: wall time per step without the
+    profiler, then device-busy time per step (summed kernel durations) and
+    the kernels that take the most device time from a profiler window over
+    as many further steps. Idle share = 1 - busy / unprofiled step time:
+    the profiler slows the host, so its own window's wall time is printed
+    but not used."""
     import collections
 
     import numpy as np
@@ -376,26 +402,32 @@ def profile_decode_steps(model, steps=10):
                              device=model.device)
     rng = np.random.default_rng(5)
     for _ in range(8):
-        engine.submit(rng.integers(0, model.vocab_size, 500), steps + 8)
+        engine.submit(rng.integers(0, model.vocab_size, 500), 2 * steps + 8)
     while any(r.cache_len < r.prefill_len or not r.out_tokens
               for r in engine.requests.values()):
         engine.step()
     engine.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             engine.step()
-        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name[:60]] += e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / steps
-    step_ms = wall * 1e3 / steps
     log("serving_profile", decode_rows=8, kv_len=500, step_ms=step_ms,
-        device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+        profiled_step_ms=profiled_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / step_ms,
         top_kernels_ms=[(n, t / 1e3 / steps)
                         for n, t in by_name.most_common(6)])
 

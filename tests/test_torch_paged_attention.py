@@ -225,6 +225,10 @@ def test_kernel_matches_plain_on_card(dtype, head_dim):
     assert tpa.paged_attention.launches == before + 1
     plain = tpa.paged_attention_reference(q, pk, pv, tables, kv_lens,
                                           q_lens=q_lens, layer=1)
-    tol = 1e-5 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(out.float(), plain.float(), atol=tol * 4,
-                               rtol=0)
+    # |err| <= atol + rtol (|ref| + p.|v|), as chip_smoke.TOLERANCE states:
+    # f32 differs in summation order only; bf16 rounds p and the output
+    atol, rtol = (1e-5, 1e-5) if dtype == "float32" else (1e-4, 2 ** -7)
+    abs_v = tpa.paged_attention_reference(q, pk, pv.abs(), tables, kv_lens,
+                                          q_lens=q_lens, layer=1)
+    limit = atol + rtol * (plain.float().abs() + abs_v.float())
+    assert ((out.float() - plain.float()).abs() <= limit).all()

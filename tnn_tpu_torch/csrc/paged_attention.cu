@@ -36,21 +36,15 @@
 
 namespace {
 
-#ifndef TNN_PA_WARPS
-#define TNN_PA_WARPS 8
-#endif
-#ifndef TNN_PA_ROWS_PER_WARP
-#define TNN_PA_ROWS_PER_WARP 2
-#endif
-#ifndef TNN_PA_PAGES_PER_SET
-#define TNN_PA_PAGES_PER_SET 8
-#endif
-constexpr int kWarps = TNN_PA_WARPS;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxRowsPerWarp = TNN_PA_ROWS_PER_WARP;
+constexpr int kMaxRowsPerWarp = 2;
 constexpr int kMaxTileRows = kWarps * kMaxRowsPerWarp;
-// a tile of fewer rows than warps gives each row group a power of two of
-// warps >= half its rows, so two rows per warp always suffice
+constexpr int kPagesPerSet = 8;  // pages staged per set, over all warps
+// the launch splits the warps into nwr row warps x ks page groups, both
+// powers of two; a tile of fewer rows than warps gives its rows a power of
+// two of warps >= half its rows, so two rows per warp always suffice
+static_assert((kWarps & (kWarps - 1)) == 0, "warps must be a power of two");
 static_assert(kMaxRowsPerWarp >= 2, "rows per warp must be >= 2");
 constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
 constexpr size_t kStagingBudget = 160 * 1024;
@@ -410,7 +404,7 @@ extern "C" int tnn_paged_attention(
   const size_t set_page = 2 * 2 * static_cast<size_t>(BS) * row_stride * elem;
   p.ks = kWarps / nwr;
   while (p.ks > 1 && p.ks * set_page > kStagingBudget) p.ks /= 2;
-  p.ppw = TNN_PA_PAGES_PER_SET / p.ks > 1 ? TNN_PA_PAGES_PER_SET / p.ks : 1;
+  p.ppw = kPagesPerSet / p.ks > 1 ? kPagesPerSet / p.ks : 1;
   while (p.ppw > 1 && p.ks * p.ppw * set_page > kStagingBudget) p.ppw /= 2;
   const size_t staging = static_cast<size_t>(p.ks) * p.ppw * set_page;
   const size_t merge = static_cast<size_t>(p.ks) * p.tile_rows * (DH + 2) * 4;

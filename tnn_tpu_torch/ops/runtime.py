@@ -8,10 +8,6 @@ overrides), named by a hash of the source and the flags, so a changed
 source rebuilds and an unchanged one loads the existing library. Builds
 happen at first use, never at import: the CPU-only test host has no
 ``nvcc`` and imports every module.
-
-``build_all`` starts one ``nvcc`` per source at once, which is how a caller
-that needs every kernel (``chip_smoke.py``) keeps the build inside its time
-budget.
 """
 from __future__ import annotations
 
@@ -22,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,39 +52,29 @@ def library_path(name: str) -> Path:
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str]) -> List[Path]:
-    """Build every named kernel that is not built yet, all ``nvcc``
-    processes running at once; returns the library paths."""
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((proc, tmp, out, cmd))
-    errors = []
-    for proc, tmp, out, cmd in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, out)   # atomic: readers never see half a file
-        else:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed ({proc.returncode}): "
-                          f"{' '.join(cmd)}\n{log}")
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return [library_path(n) for n in names]
+def build(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` unless it is built already; returns the
+    library path."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, out)   # atomic: readers never see half a file
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path, = build_all([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
