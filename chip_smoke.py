@@ -4,17 +4,29 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the repository checkout around this file.
-It builds every kernel of the port's serving path from ``tnn_tpu_torch/csrc``
-and runs these phases, each printing its numbers on its own line:
+It builds every kernel of the port from ``tnn_tpu_torch/csrc`` (one ``nvcc``
+per source, all started together) and runs these phases, each printing its
+numbers on its own line:
 
 1. device: the card's name, the device count and its power limit;
-2. kernel: each kernel against its plain PyTorch version at the shapes of
-   ``gpt2_small`` serving, with the tolerance stated, and its time beside
-   the plain version's, a library call's and the card's bound;
-3. serving: ``InferenceEngine`` serving full-width ``gpt2_small`` (seeded
-   random weights) through the paged path, with every kernel's launch count
-   read over that run;
-4. cli: ``python -m tnn_tpu_torch.cli.serve`` on two JSON lines.
+2. kernel: the paged-attention kernel (K1) against its plain PyTorch
+   version at the shapes of ``gpt2_small`` serving, with the tolerance
+   stated, and its time beside the plain version's, a library call's and
+   the card's bound;
+3. flash: the flash-attention forward (K4) and backward (K7) against their
+   plain versions at the training shape and its variants, with their
+   times beside the plain versions', the library's and the bound;
+4. serving: ``InferenceEngine`` serving full-width ``gpt2_small`` (seeded
+   random weights) 8 requests through the paged path, with K1's launch
+   count read over that run;
+5. cli: ``python -m tnn_tpu_torch.cli.serve`` on two JSON lines;
+6. training: ``tnn_tpu_torch.cli.train_gpt2`` trains full-width
+   ``flash_gpt2_small`` for 30 steps on a seeded synthetic corpus, with K4's
+   and K7's launch counts, its steady step time and a profiler window read
+   over that run; then one step with the kernels against the same step
+   with the plain versions, under bf16 and FP32;
+7. train_cli: a byte-mode corpus from the card's Python stdlib, trained at
+   two layers with sampling (``generate`` through K4's ``kv_offset`` form).
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -94,6 +106,31 @@ def phase_device():
             "torch": torch.__version__, "cuda": torch.version.cuda}
     log("device", **info)
     return info
+
+
+def build_kernels():
+    """Build every kernel source at once: one nvcc per source, in parallel
+    (each waits in its own subprocess). Meanwhile the CUDA context, cuBLAS
+    and the profiler's device tracing start up, which would otherwise
+    delay the first phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tnn_tpu_torch.ops import runtime
+
+    names = sorted(p.stem for p in runtime.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = [pool.submit(runtime.build, n) for n in names]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            x = torch.ones(64, 64, device="cuda")
+            (x @ x).sum().item()
+        libs = [b.result() for b in builds]
+    log("build", seconds=round(time.perf_counter() - t0, 3),
+        libraries=[str(x) for x in libs])
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -194,14 +231,8 @@ def phase_kernel(results):
     import torch
     import torch.nn.functional as F
 
-    from tnn_tpu_torch.ops import runtime
     from tnn_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_reference)
-
-    t0 = time.perf_counter()
-    lib = runtime.build("paged_attention")
-    log("build", seconds=round(time.perf_counter() - t0, 3),
-        library=str(lib))
 
     bf16, f32 = torch.bfloat16, torch.float32
     rng_lens = [1000, 17, 512, 1, 333, 768, 64, 999]
@@ -304,6 +335,243 @@ def phase_kernel(results):
 
 
 # -- phase 3 ------------------------------------------------------------------
+#
+# K4 and K7 against their plain versions, element by element:
+#   |got - ref| <= atol + rtol * (|ref| + mag),  (atol, rtol) as TOLERANCE,
+# where mag is the same product taken over magnitudes. Forward O: mag =
+# p.|v| (the plain forward over |V|): both sides round every p to the input
+# dtype (the kernel at its running maximum, one 64-key tile at a time), each
+# within 2^-8 relative in bf16, and round O. Backward: both sides recompute
+# p from f32 logits that differ in summation order, so a rounding of p to
+# bf16 may land one ulp (2^-7 relative) apart; dV = sum round(p) dO has mag
+# = round(p)^T |dO|. ds = round(p (dP - delta) scale) may differ by one ulp
+# of itself plus the f32 error of dP - delta, both within
+# 2^-7 p scale (|dP| + |delta|) =: 2^-7 M, so dK and dQ have mag = M^T |Q|
+# and M |K|; dQ's atomicAdd order changes only f32 roundings. GQA sums the
+# per-head magnitudes too. The logsumexp is f32 on both sides: within
+# 1e-5 + 1e-6 |ref|, and +inf on exactly the same rows, whose O and dQ are
+# exactly 0.
+LSE_TOL = (1e-5, 1e-6)
+
+
+def flash_case(seed, *, b, h, hkv, sq, skv, d, dtype, causal, kv_offset=0,
+               mask_groups=None):
+    """Random inputs of one flash-attention call on the card, with the
+    grouped int8 mask (one fully masked row) where ``mask_groups`` is
+    "1", "B" or "BH"."""
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    mask = None
+    if mask_groups is not None:
+        shape = {"1": (1, 1, sq, skv), "B": (b, 1, sq, skv),
+                 "BH": (b, h, sq, skv)}[mask_groups]
+        full = torch.rand(shape, generator=gen, device=dev) > 0.25
+        full[0, 0, 5] = False                    # a row with no live key
+        mask = fa.norm_mask(full, b, h, sq, skv)
+    return dict(q=randn(b, h, sq, d), k=randn(b, hkv, skv, d),
+                v=randn(b, hkv, skv, d), do=randn(b, h, sq, d), mask=mask,
+                causal=causal, kv_offset=kv_offset)
+
+
+def flash_work(args):
+    """(bytes, operations) of K4 and of K7 on these inputs. Bytes: each
+    input read once and each output written once (forward: q, k, v, the
+    mask, O and the f32 logsumexp; backward: q, k, v, O, dO, the
+    logsumexp and the mask, then dQ, dK, dV). Operations: 2 D per product
+    per live (query, key) pair of this run's mask, 2 products forward (QK,
+    PV) and 5 backward."""
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    q, k = args["q"], args["k"]
+    elem = q.element_size()
+    pairs = int(fa._live(q, k, args["mask"], args["kv_offset"],
+                         args["causal"]).sum())
+    rows = q.shape[0] * q.shape[1] * q.shape[2]
+    mask = 0 if args["mask"] is None else args["mask"].numel()
+    qo, kv = q.numel() * elem, k.numel() * elem
+    fwd = (2 * qo + 2 * kv + 4 * rows + mask, 4 * q.shape[-1] * pairs)
+    bwd = (3 * qo + 2 * kv + 4 * rows + mask + qo + 2 * kv,
+           10 * q.shape[-1] * pairs)
+    return fwd, bwd
+
+
+def backward_magnitudes(q, k, v, o, lse, do, *, causal, mask, kv_offset):
+    """M^T |Q|, M |K| and round(p)^T |dO| (see the tolerance note)."""
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    scale = fa._scale(q, None)
+    s, _ = fa._logits(q, k, mask, kv_offset, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    del s
+    g = q.shape[1] // k.shape[1]
+    do32 = do.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32,
+                      v.repeat_interleave(g, dim=1).float())
+    delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
+    m = p * scale * (dp.abs() + delta.abs())
+    del dp
+    mag_dq = torch.einsum("bhqk,bhkd->bhqd", m,
+                          k.repeat_interleave(g, dim=1).float().abs())
+    mag_dk = torch.einsum("bhqk,bhqd->bhkd", m, q.float().abs())
+    mag_dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(),
+                          do32.abs())
+    b, h, skv, d = mag_dk.shape
+    hkv = k.shape[1]
+    mag_dk, mag_dv = (x.reshape(b, hkv, g, skv, d).sum(2)
+                      for x in (mag_dk, mag_dv))
+    return mag_dq, mag_dk, mag_dv
+
+
+def _limit_used(got, ref, mag, dtype):
+    atol, rtol = TOLERANCE[dtype]
+    diff = (got.float() - ref.float()).abs()
+    limit = atol + rtol * (ref.float().abs() + mag)
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def flash_check(name, args):
+    """One case: K4 and K7 once each, held against the plain versions."""
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = args["q"], args["k"], args["v"], args["do"]
+    kw = dict(causal=args["causal"], mask=args["mask"],
+              kv_offset=args["kv_offset"])
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    if (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) \
+            != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"flash {name}: a kernel did not launch")
+    dtype = str(q.dtype).split(".")[-1]
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    mag_o = fa.flash_attention_reference(q, k, v.abs(), **kw)[0].float()
+    errs = {"o": _limit_used(o, ref, mag_o, dtype)}
+    del mag_o
+    refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    mags = backward_magnitudes(q, k, v, o, lse, do, **kw)
+    for gname, got, r, mag in zip(("dq", "dk", "dv"), grads, refs, mags):
+        errs[gname] = _limit_used(got, r, mag, dtype)
+    del refs, mags
+    dead = torch.isinf(ref_lse)
+    same_dead = bool(torch.equal(torch.isinf(lse), dead)
+                     and (lse[dead] > 0).all())
+    live_lse = (lse[~dead] - ref_lse[~dead]).abs()
+    lse_used = (live_lse / (LSE_TOL[0] + LSE_TOL[1]
+                            * ref_lse[~dead].abs())).max().item()
+    dead_nonzero = max(o[dead].float().abs().max().item(),
+                       grads[0][dead].float().abs().max().item()) \
+        if dead.any() else 0.0
+    worst = max(u for _, u in errs.values())
+    ok = (math.isfinite(worst) and worst <= 1.0 and lse_used <= 1.0
+          and same_dead and dead_nonzero == 0.0)
+    log("flash", case=name, dtype=dtype, shape=list(q.shape),
+        kv_heads=k.shape[1], skv=k.shape[2], causal=args["causal"],
+        kv_offset=args["kv_offset"],
+        mask_groups=None if args["mask"] is None else args["mask"].shape[0],
+        **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+        **{f"{n}_limit_used": u for n, (_, u) in errs.items()},
+        lse_limit_used=lse_used, dead_rows=int(dead.sum()),
+        dead_rows_max=dead_nonzero, ok=ok)
+    if not ok:
+        raise AssertionError(f"flash {name}: kernel vs plain outside the "
+                             f"stated limit ({errs}, lse {lse_used}, dead "
+                             f"rows {same_dead} / {dead_nonzero})")
+    return errs["o"][0], max(errs[n][0] for n in ("dq", "dk", "dv"))
+
+
+def phase_flash(results):
+    import torch
+    import torch.nn.functional as F
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    train = dict(b=8, h=12, hkv=12, sq=1024, skv=1024, d=64)
+    cases = {
+        "train_bf16": dict(train, dtype=bf16, causal=True),
+        "noncausal_bf16": dict(train, dtype=bf16, causal=False),
+        "gqa12_4_bf16": dict(train, hkv=4, dtype=bf16, causal=True),
+        "hd128_6h_bf16": dict(train, h=6, hkv=6, d=128, dtype=bf16,
+                              causal=True),
+        "ragged1000_bf16": dict(train, sq=1000, skv=1000, dtype=bf16,
+                                causal=True),
+        "mask_g1_bf16": dict(train, b=4, dtype=bf16, causal=True,
+                             mask_groups="1"),
+        "mask_gB_bf16": dict(train, b=4, dtype=bf16, causal=False,
+                             mask_groups="B"),
+        "mask_gBH_bf16": dict(train, b=4, dtype=bf16, causal=True,
+                              mask_groups="BH"),
+        "offset_sq1_bf16": dict(train, sq=1, dtype=bf16, causal=True,
+                                kv_offset=700),
+        "offset_sq64_bf16": dict(train, sq=64, dtype=bf16, causal=True,
+                                 kv_offset=960),
+        "train_f32": dict(train, dtype=f32, causal=True),
+        "noncausal_f32": dict(train, dtype=f32, causal=False),
+        "gqa12_4_f32": dict(train, hkv=4, dtype=f32, causal=True),
+    }
+    worst_fwd = worst_bwd = 0.0
+    for i, (name, spec) in enumerate(cases.items()):
+        args = flash_case(200 + i, **spec)
+        e_fwd, e_bwd = flash_check(name, args)
+        worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
+        del args
+        torch.cuda.empty_cache()
+
+    # times at the training shape: B=8, H=12, S=1024, D=64, bf16, causal
+    args = flash_case(7, **cases["train_bf16"])
+    q, k, v, do = args["q"], args["k"], args["v"], args["do"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = flash_work(args)
+    lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    runs = {
+        "flash_attention_fwd": (fwd_bytes, fwd_ops, {
+            "": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            "plain_": lambda: fa.flash_attention_reference(q, k, v,
+                                                           causal=True),
+            "library_": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)}),
+        "flash_attention_bwd": (bwd_bytes, bwd_ops, {
+            "": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=True),
+            "plain_": lambda: fa.flash_attention_backward_reference(
+                q, k, v, o, lse, do, causal=True),
+            "library_": lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), do, retain_graph=True)}),
+    }
+    for name, (nbytes, ops, fns) in runs.items():
+        timed = {}
+        for prefix, fn in fns.items():
+            device, events = time_ms(fn, iters=20, warmup=3)
+            timed[prefix + "ms"] = events if device is None else device
+            timed[prefix + "events_ms"] = events
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
+        timed.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
+                     bound_by="bytes" if byte_ms >= op_ms else "operations")
+        log("flash_time", kernel=name, case="train_bf16", **timed)
+        results[name] = dict(timed, max_abs_err=worst_fwd
+                             if name.endswith("fwd") else worst_bwd)
+    # comparison launches do not count
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    del args, q, k, v, do, o, lse, lq, lk, lv, lib_out
+    torch.cuda.empty_cache()
+
+
+# -- phase 4 ------------------------------------------------------------------
 
 def mixed_logits_check(model, seed, tol):
     """One ragged mixed step (prompt chunks beside decode rows over earlier
@@ -361,7 +629,7 @@ def mixed_logits_check(model, seed, tol):
                              f"{tol * scale}")
 
 
-def serve_traffic(model, seed, num_requests=16, new_tokens=64):
+def serve_traffic(model, seed, num_requests=8, new_tokens=64):
     """One engine run over the smoke traffic; returns (engine, rids)."""
     import numpy as np
 
@@ -493,9 +761,9 @@ def phase_serving(results):
     torch.cuda.empty_cache()
 
 
-# -- phase 4 ------------------------------------------------------------------
+# -- phase 5 ------------------------------------------------------------------
 
-def phase_cli():
+def phase_cli(results):
     lines = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
               "max_new_tokens": 8},
              {"id": "sampled", "tokens": list(range(100, 140)),
@@ -519,6 +787,319 @@ def phase_cli():
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+TRAIN_STEPS = 30
+EVAL_STEPS = 10     # the trainer's held-out pass: 10 batches
+TRAIN_ARGS = dict(batch=8, seq=1024, layers=12, d_model=768, heads=12)
+# one step with the kernels against the same step with the plain versions,
+# from the same weights and batch (AdamW, lr 3e-4, no schedule): the loss
+# within `loss` relative, and the parameter update (new - old over every
+# parameter but the key bias, whose gradient is zero but for rounding and
+# which Adam scales up to +-lr) with a cosine above `cos` to the plain one.
+# Adam's first update is g / (|g| + eps) per element, so elements whose
+# gradient is at rounding level flip sign; FP32 differs only in summation
+# order, bf16 also in where p and ds are rounded.
+STEP_TOLERANCE = {"float32": dict(loss=1e-5, cos=0.999),
+                  "bfloat16": dict(loss=1e-3, cos=0.99)}
+PEAK_BF16 = PEAK_OPS["bfloat16"]
+
+
+def synthetic_corpus(path, vocab=50257, n_train=2_000_000, n_val=200_000,
+                     seed=0):
+    """uint16 tokens below ``vocab`` with structure to learn: one seeded
+    256-token segment repeated, 10% of positions replaced by noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    segment = rng.integers(0, vocab, 256)
+
+    def stream(n):
+        toks = np.tile(segment, n // 256 + 1)[:n]
+        noise = rng.random(n) < 0.1
+        toks[noise] = rng.integers(0, vocab, int(noise.sum()))
+        return toks.astype(np.uint16)
+
+    stream(n_train).tofile(path / "train.bin")
+    stream(n_val).tofile(path / "val.bin")
+    (path / "meta.json").write_text(json.dumps({
+        "mode": "synthetic", "vocab_size": vocab, "files": 0,
+        "train_tokens": n_train, "val_tokens": n_val}))
+
+
+def model_flops_per_step(layers, d_model, vocab, batch, seq):
+    """6 x (weights in matmuls, the tied head included: 12 L d^2 + V d) per
+    token, plus causal attention 6 L S d per token (QK and PV over S/2 keys
+    on average, forward and the backward's twice as much)."""
+    n = 12 * layers * d_model ** 2 + vocab * d_model
+    return (6 * n + 6 * layers * seq * d_model) * batch * seq
+
+
+def _flash_gpt2_small(policy=None):
+    """Seeded full-width flash_gpt2_small on the card."""
+    from tnn_tpu_torch.models import zoo
+
+    return zoo.create("flash_gpt2_small", device="cuda", seed=0,
+                      policy=policy)
+
+
+def _fresh_step(model):
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.train import create_train_state, make_train_step
+
+    opt = AdamW(lr=3e-4, weight_decay=0.01, grad_clip_norm=1.0)
+    return create_train_state(model, opt), make_train_step(model, opt)
+
+
+def _batch(loader, rng):
+    import torch
+
+    d, l = loader.random_windows(TRAIN_ARGS["batch"], rng)
+    return (torch.from_numpy(d).cuda().long(),
+            torch.from_numpy(l).cuda().long())
+
+
+def step_kernel_vs_plain(model, loader):
+    """One train step of ``model`` with K4/K7, then the same step with the
+    plain versions swapped into the autograd Function, from the same
+    weights."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    policy = model.policy
+    state, step = _fresh_step(model)
+    x, y = _batch(loader, np.random.default_rng(3))
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, m = step(state, x, y)
+    loss_k = float(m["loss"])
+    kern = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+    state, step = _fresh_step(model)
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_reference
+    fa.flash_attention_bwd = fa.flash_attention_backward_reference
+    try:
+        _, m = step(state, x, y)
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+    loss_p = float(m["loss"])
+    d = model.d_model
+    dk, dp = [], []
+    for n, p in model.named_parameters():
+        a, b = kern[n] - start[n], p.detach() - start[n]
+        if n.endswith("qkv_bias"):
+            a, b = torch.cat([a[:d], a[2 * d:]]), torch.cat([b[:d], b[2 * d:]])
+        dk.append(a.flatten())
+        dp.append(b.flatten())
+    dk, dp = torch.cat(dk).double(), torch.cat(dp).double()
+    cos = float(dk @ dp / (dk.norm() * dp.norm()))
+    tol = STEP_TOLERANCE[policy.compute]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = math.isfinite(loss_k) and rel <= tol["loss"] and cos > tol["cos"]
+    log("train_step_vs_plain", policy=policy.compute, loss_kernel=loss_k,
+        loss_plain=loss_p, loss_rel_diff=rel, update_cosine=cos,
+        update_norm=float(dk.norm()), tolerance=tol, ok=ok)
+    del model, state, step, start, kern
+    if not ok:
+        raise AssertionError(f"{policy.compute} train step kernel vs plain: "
+                             f"loss rel {rel}, update cosine {cos}")
+
+
+class StepRecorder:
+    """Wraps the trainer's step function: keeps every step's loss (on the
+    device), CUDA events around the steady steps ``timed`` and a profiler
+    window over the steps ``profiled`` (after the timed ones: the profiler
+    slows the host)."""
+
+    def __init__(self, timed=range(10, 20), profiled=range(22, 24)):
+        self.timed, self.profiled = timed, profiled
+        self.losses, self.events, self.prof = [], [], None
+
+    def wrap(self, make_train_step):
+        def make(*a, **kw):
+            step = make_train_step(*a, **kw)
+
+            def run(state, x, y):
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+
+                i = len(self.losses)
+                if i == self.profiled.start:
+                    torch.cuda.synchronize()
+                    self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    self.prof.start()
+                if i in self.timed:
+                    self.events.append(torch.cuda.Event(enable_timing=True))
+                    self.events[-1].record()
+                state, m = step(state, x, y)
+                self.losses.append(m["loss"])
+                if i == self.timed[-1]:
+                    self.events.append(torch.cuda.Event(enable_timing=True))
+                    self.events[-1].record()
+                if i == self.profiled[-1]:
+                    torch.cuda.synchronize()
+                    self.prof.stop()
+                return state, m
+            return run
+        return make
+
+    def step_ms(self):
+        return self.events[0].elapsed_time(self.events[-1]) / len(self.timed)
+
+    def device_ms(self):
+        """Summed kernel durations per profiled step, by kernel name."""
+        import collections
+
+        import torch
+
+        by_name = collections.Counter()
+        for e in self.prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name[:60]] += e.time_range.elapsed_us()
+        n = len(self.profiled)
+        return {k: v / 1e3 / n for k, v in by_name.items()}
+
+
+def phase_training(results):
+    import contextlib
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.cli import train_gpt2
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.data.token_stream import TokenStreamDataLoader
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = Path(tmp) / "corpus"
+        corpus.mkdir()
+        synthetic_corpus(corpus)
+        rec = StepRecorder()
+        real_make = train_gpt2.make_train_step
+
+        argv = ["--tokens", str(corpus), "--steps", str(TRAIN_STEPS),
+                "--backend", "pallas", "--sample", "0",
+                "--results", str(Path(tmp) / "results")]
+        for key, value in TRAIN_ARGS.items():
+            argv += [f"--{key.replace('_', '-')}", str(value)]
+        train_gpt2.make_train_step = rec.wrap(real_make)
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):   # its progress
+                out = train_gpt2.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            train_gpt2.make_train_step = real_make
+        fwd, bwd = fa.flash_attention_fwd.launches, \
+            fa.flash_attention_bwd.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(x) for x in rec.losses]
+        layers = TRAIN_ARGS["layers"]
+        want = (layers * (TRAIN_STEPS + EVAL_STEPS), layers * TRAIN_STEPS)
+        finite = all(math.isfinite(x) for x in losses)
+        falling = float(np.mean(losses[-5:])) < losses[0]
+        ok = (len(losses) == TRAIN_STEPS and finite and falling
+              and (fwd, bwd) == want
+              and math.isfinite(out.get("val_loss", math.nan)))
+        log("training", model="flash_gpt2_small", steps=TRAIN_STEPS,
+            **TRAIN_ARGS, first_loss=losses[0],
+            last5_mean_loss=float(np.mean(losses[-5:])), losses=losses,
+            val_loss=out.get("val_loss"), cli_train_tok_per_s=out[
+                "train_tok_per_s"], platform=out["platform"],
+            fwd_launches=fwd, bwd_launches=bwd, expected_launches=list(want),
+            wall_s=wall, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"training: {len(losses)} steps, finite {finite}, falling "
+                f"{falling}, launches {(fwd, bwd)} vs {want}")
+        results["flash_launches"] = {"flash_attention_fwd": fwd,
+                                     "flash_attention_bwd": bwd}
+        step_ms = rec.step_ms()
+        kernels = rec.device_ms()
+        busy = sum(kernels.values())
+        tokens = TRAIN_ARGS["batch"] * TRAIN_ARGS["seq"]
+        flops = model_flops_per_step(
+            TRAIN_ARGS["layers"], TRAIN_ARGS["d_model"], 50257,
+            TRAIN_ARGS["batch"], TRAIN_ARGS["seq"])
+        log("train_profile", steps_timed=len(rec.timed), step_ms=step_ms,
+            tokens_per_s=tokens / step_ms * 1e3, peak_mem_gb=peak,
+            model_flops_per_step=flops,
+            flops_formula="B*S*(6*(12*L*d^2 + V*d) + 6*L*S*d)",
+            mfu=flops / (step_ms * 1e-3 * PEAK_BF16),
+            device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
+            flash_kernels_ms=sum(t for n, t in kernels.items()
+                                 if "flash" in n),
+            top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+        loader = TokenStreamDataLoader(str(corpus / "train.bin"),
+                                       TRAIN_ARGS["seq"])
+        for policy in (dt.MIXED_BF16, dt.FP32):
+            step_kernel_vs_plain(_flash_gpt2_small(policy), loader)
+            torch.cuda.empty_cache()
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+def phase_train_cli(results):
+    import contextlib
+    import sysconfig
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tnn_tpu_torch.cli import prepare_corpus, train_gpt2
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    layers, steps, evals, sample = 2, 20, 10, 32
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):     # their progress
+        corpus, res = Path(tmp) / "corpus", Path(tmp) / "results"
+        t0 = time.perf_counter()
+        meta = prepare_corpus.main([
+            "--out", str(corpus), "--source",
+            sysconfig.get_paths()["stdlib"], "--max-mb", "8"])
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        out = train_gpt2.main([
+            "--tokens", str(corpus), "--steps", str(steps), "--batch", "8",
+            "--seq", "256", "--layers", str(layers), "--d-model", "768",
+            "--heads", "12", "--backend", "pallas", "--sample", str(sample),
+            "--results", str(res)])
+        fwd, bwd = fa.flash_attention_fwd.launches, \
+            fa.flash_attention_bwd.launches
+        saved = json.loads((res / "lm_gpt2_byte_pallas.json").read_text())
+    # K4 on every train, held-out, prompt and decode forward (generate's
+    # cached steps take its kv_offset form); K7 on every train backward
+    want = (layers * (steps + evals + 1 + (sample - 1)), layers * steps)
+    fields = {"metric", "backend", "platform", "model", "steps",
+              "steps_per_call", "train_tok_per_s", "final_train_loss",
+              "final_train_ppl", "curve", "val_loss", "val_ppl",
+              "decode_tok_per_s", "sample"}
+    ok = (saved == out and set(out) == fields
+          and out["platform"] == torch.cuda.get_device_name(0)
+          and all(math.isfinite(c["loss"]) for c in out["curve"])
+          and math.isfinite(out["val_loss"]) and len(out["sample"]) > 0
+          and out["decode_tok_per_s"] > 0 and (fwd, bwd) == want)
+    log("train_cli", corpus_tokens=meta["train_tokens"],
+        **{k: out.get(k) for k in ("final_train_loss", "val_loss",
+                                   "train_tok_per_s", "decode_tok_per_s")},
+        sample_chars=len(out.get("sample", "")), fwd_launches=fwd,
+        bwd_launches=bwd, expected_launches=list(want),
+        seconds=round(time.perf_counter() - t0, 3), ok=ok)
+    if not ok:
+        raise AssertionError(f"train CLI run failed: launches {(fwd, bwd)} "
+                             f"vs {want}; {out}")
+
+
 def main() -> int:
     import torch
 
@@ -532,18 +1113,32 @@ def main() -> int:
         print(f"chip_smoke: the tnn_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 3
+    t_start = time.perf_counter()
     info = phase_device()
     results = {}
-    phase_kernel(results)
-    phase_serving(results)
-    phase_cli()
+    build_kernels()
+    for phase in (phase_kernel, phase_flash, phase_serving, phase_cli,
+                  phase_training, phase_train_cli):
+        t0 = time.perf_counter()
+        phase(results)
+        log("phase_seconds", name=phase.__name__,
+            seconds=round(time.perf_counter() - t0, 3))
+    log("total_seconds", seconds=round(time.perf_counter() - t_start, 3))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    flash = "tnn_tpu/ops/pallas/flash_attention.py"
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "tnn_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "tnn_tpu/ops/pallas/paged_attention.py:203",
                 "launches": results["launches"],
-                **{k: results["paged_attention"][k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}]
+                **{k: results["paged_attention"][k] for k in keys}}]
+    for name, line in (("flash_attention_fwd", 262),
+                       ("flash_attention_bwd", 666)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "tnn_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": f"{flash}:{line}",
+                        "launches": results["flash_launches"][name],
+                        **{k: results[name][k] for k in keys}})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

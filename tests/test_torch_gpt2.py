@@ -41,7 +41,7 @@ def _pair(policy, num_kv_heads=None, seed=0):
 
 def _close(out, ref, policy):
     ref = np.asarray(ref, np.float32)
-    out = out.float().numpy()
+    out = out.detach().float().numpy()
     err = np.abs(out - ref).max()
     assert err <= REL_TOL[policy] * np.abs(ref).max(), err
 
@@ -110,7 +110,8 @@ def test_seeded_init_is_deterministic_and_load_checks_shapes():
     ids = torch.arange(10)[None]
     assert torch.equal(a(ids), b(ids))
     assert not torch.equal(a(ids), c(ids))
-    assert a.wte.table.dtype == torch.bfloat16          # compute dtype
+    assert a.wte.table.dtype == torch.float32           # f32 master
+    assert a.wte(ids).dtype == torch.bfloat16            # cast at use
     assert a.blocks[0].ln1.scale.dtype == torch.float32  # read in f32
     with pytest.raises(ValueError, match="shape"):
         a.load_jax_params({"wte": {"table": np.zeros((3, 3))}})

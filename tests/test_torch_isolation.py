@@ -76,6 +76,17 @@ def test_entry_points_raise_without_a_card():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
     assert "is_available() is False" in proc.stderr
+    # the trainer refuses before it reads the corpus (prepare_corpus
+    # computes nothing on a device: test_torch_train_cli runs it here)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tnn_tpu_torch.cli.train_gpt2", "--tokens",
+         "no-such-dir"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "is_available() is False" in proc.stderr
+    with pytest.raises(RuntimeError, match="is_available"):
+        from tnn_tpu_torch.cli import train_gpt2
+        train_gpt2.main(["--tokens", "no-such-dir"])
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -48,7 +48,7 @@ def _input(x, policy):
 
 def _check(out, ref, policy, bf16_atol):
     atol = FP32_TOL if policy == "fp32" else bf16_atol
-    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref),
+    np.testing.assert_allclose(out.detach().float().numpy(), np.asarray(ref),
                                atol=atol, rtol=FP32_TOL)
 
 
@@ -75,7 +75,8 @@ def test_dense_gelu(policy):
     dense = Dense(32, 64, activation="gelu", policy=POLICIES[policy],
                   device="cpu")
     _load(dense, params)
-    wj = np.asarray(dense.kernel.float())   # the weights the port computes with
+    # the weights the port computes with: the master cast at use
+    wj = np.asarray(dense.policy.cast_param(dense.kernel).detach().float())
     ref, _ = JDense(64, activation="gelu", policy=jdt.FP32).apply(
         {"params": {"kernel": wj, "bias": params["bias"]}}, jnp.asarray(xj))
     _check(dense(x), ref, policy, bf16_atol=3e-2)
@@ -87,11 +88,12 @@ def test_embedding_and_tied_attend(policy):
     ids = np.random.default_rng(7).integers(0, 50, (2, 6)).astype(np.int32)
     emb = Embedding(50, 32, policy=POLICIES[policy], device="cpu")
     _load(emb, {"table": table})
-    tj = np.asarray(emb.table.float())
+    tj = np.asarray(emb.policy.cast_param(emb.table).detach().float())
     jemb = JEmbedding(50, 32, policy=jdt.FP32)
     rows, _ = jemb.apply({"params": {"table": tj}}, jnp.asarray(ids))
     out = emb(torch.from_numpy(ids).long())
-    np.testing.assert_array_equal(out.float().numpy(), np.asarray(rows))
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  np.asarray(rows))
     x, xj = _input(_rand(8, 2, 6, 32), policy)
     logits = emb.attend(x)
     assert logits.dtype == torch.float32
@@ -105,7 +107,7 @@ def test_positional_embedding_per_row_offsets(policy):
     x, xj = _input(_rand(10, 3, 5, 16), policy)
     pe = PositionalEmbedding(40, 16, policy=POLICIES[policy], device="cpu")
     _load(pe, {"pos": pos})
-    pj = np.asarray(pe.pos.float())
+    pj = np.asarray(pe.policy.cast_param(pe.pos).detach().float())
     jpe = JPos(40, policy=jdt.FP32)
     offsets = np.array([0, 7, 35], np.int32)
     ref, _ = jpe.apply({"params": {"pos": pj}}, jnp.asarray(xj),
@@ -126,8 +128,9 @@ def _mha_pair(policy, *, heads=4, kv_heads=2, d=32, seed=0):
     tm = MultiHeadAttention(d, heads, num_kv_heads=kv_heads,
                             policy=POLICIES[policy], device="cpu")
     _load(tm, params)
-    # the JAX side computes with the values the port holds
-    params = {k: np.asarray(getattr(tm, k).float()) for k in params}
+    # the JAX side computes with the values the port casts its masters to
+    params = {k: np.asarray(tm.policy.cast_param(getattr(tm, k)).detach()
+                            .float()) for k in params}
     return jm, params, tm
 
 

@@ -1,10 +1,10 @@
 """The (io, param, compute) dtype policy triple of ``tnn_tpu.core.dtypes``.
 
 ``FP32`` computes everything in float32; ``MIXED_BF16`` (the default) runs
-activations and matmuls in bfloat16 with float32 master parameters. The
-JAX package casts a parameter to the compute dtype at every use
-(``cast_param``); the port casts it once, when the weights are loaded, into
-the dtype its use site reads, which gives the same numbers.
+activations and matmuls in bfloat16 with float32 master parameters. As in
+the JAX package, every layer keeps its parameters in ``param_dtype`` and
+casts them to the compute dtype at each use (``cast_param``), so training
+updates the float32 masters and the gradient flows back through the cast.
 """
 from __future__ import annotations
 
@@ -45,6 +45,10 @@ class DTypePolicy:
     def cast_in(self, x: torch.Tensor) -> torch.Tensor:
         """Cast a floating input to the compute dtype."""
         return x.to(self.compute_dtype) if x.is_floating_point() else x
+
+    def cast_param(self, p: torch.Tensor) -> torch.Tensor:
+        """Cast a (floating) parameter to the compute dtype at its use."""
+        return p.to(self.compute_dtype) if p.is_floating_point() else p
 
     def cast_out(self, y: torch.Tensor) -> torch.Tensor:
         return y.to(self.io_dtype) if y.is_floating_point() else y

@@ -1,5 +1,6 @@
 """GPT-2 (``tnn_tpu.models.gpt2``): wte + wpe -> n_layer x GPTBlock -> ln_f
--> tied-head logits, with the paged forwards the serving engine steps."""
+-> tied-head logits; the training forward, KV-cache ``generate``, and the
+paged forwards the serving engine steps."""
 from __future__ import annotations
 
 import math
@@ -11,29 +12,36 @@ from torch import nn
 
 from ..core import dtypes as dt
 from ..nn.embedding import Embedding, PositionalEmbedding
+from ..nn.layers import Dropout
 from ..nn.norms import LayerNorm
 from ..nn.transformer import GPTBlock
 from ..utils.device import resolve_device
+from .sampling import sample_ragged
 
 
 class GPT2(nn.Module):
     """Decoder-only LM with a tied output head.
 
     ``forward(ids)`` is the JAX model's ``apply``: (N, S) ids -> (N, S, V)
-    float32 logits over the whole sequence. ``apply_paged`` and
-    ``apply_decode_paged`` step the serving engine's ragged batches against
-    the paged KV pool, whose pages they update in place.
+    float32 logits over the whole sequence, differentiable in every
+    parameter (``train=True`` turns dropout on, drawing from
+    ``generator``). ``apply_cached`` steps a KV cache (``generate``);
+    ``apply_paged`` and ``apply_decode_paged`` step the serving engine's
+    ragged batches against the paged KV pool, whose pages they update in
+    place.
 
-    Weights come from ``seed`` (a numpy-seeded init with the JAX package's
-    initializer families; None leaves them zero) or from
-    ``load_jax_params``. ``device`` defaults to "cuda" and raises without a
-    card.
+    Parameters are float32 masters (the policy's param dtype), cast to the
+    compute dtype at use. Weights come from ``seed`` (``init_params``; None
+    leaves them zero) or from ``load_jax_params``. ``backend`` is the
+    attention backend ("xla", or "pallas" for the flash kernels).
+    ``device`` defaults to "cuda" and raises without a card.
     """
 
     def __init__(self, vocab_size: int = 50257, max_len: int = 1024,
                  num_layers: int = 12, d_model: int = 768,
                  num_heads: int = 12, num_kv_heads: Optional[int] = None,
-                 *, policy=None, device="cuda", seed: Optional[int] = 0):
+                 *, backend: str = "xla", dropout: float = 0.0, policy=None,
+                 device="cuda", seed: Optional[int] = 0):
         super().__init__()
         self.device = resolve_device(device)
         self.policy = p = policy or dt.default_policy()
@@ -44,12 +52,15 @@ class GPT2(nn.Module):
         self.num_heads = int(num_heads)
         self.num_kv_heads = int(num_kv_heads) if num_kv_heads \
             else self.num_heads
+        self.backend = backend
         dev = self.device
         self.wte = Embedding(vocab_size, d_model, policy=p, device=dev)
         self.wpe = PositionalEmbedding(max_len, d_model, policy=p, device=dev)
+        self.drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
             GPTBlock(d_model, num_heads, num_kv_heads=self.num_kv_heads,
-                     policy=p, device=dev) for _ in range(num_layers))
+                     backend=backend, dropout=dropout, policy=p, device=dev)
+            for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, policy=p, device=dev)
         if seed is not None:
             self.init_params(seed)
@@ -78,9 +89,8 @@ class GPT2(nn.Module):
         """Copy the JAX parameter tree (nested dicts of numpy arrays, e.g.
         ``jax.tree.map(np.asarray, params)``) into this model.
 
-        Kernels keep JAX's (in, out) layout, so nothing is transposed. Each
-        value is rounded once into its parameter's dtype, which is the dtype
-        the JAX model casts it to at its use site.
+        Kernels keep JAX's (in, out) layout, so nothing is transposed; the
+        f32 values are copied unrounded into the f32 masters.
         """
         for path, param in self.jax_param_paths():
             node = tree
@@ -93,27 +103,38 @@ class GPT2(nn.Module):
             param.copy_(value)
         return self
 
+    def jax_param_tree(self) -> Dict:
+        """The parameters as the JAX package's nested-dict tree of float32
+        numpy arrays (the inverse of ``load_jax_params``)."""
+        tree: Dict = {}
+        for path, param in self.jax_param_paths():
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = param.detach().float().cpu().numpy()
+        return tree
+
     @torch.no_grad()
     def init_params(self, seed: int) -> "GPT2":
-        """Seeded random weights: normal(0.02) embeddings, xavier-uniform
-        attention kernels, he-normal MLP kernels, zero biases, unit norms."""
-        rng = np.random.default_rng(seed)
+        """Seeded random weights, drawn on the model's device from a
+        ``torch.Generator``: normal(0.02) embeddings, xavier-uniform
+        attention kernels, he-normal MLP kernels, zero biases, unit norms
+        (the JAX package's initializer families; other bits than its)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         for path, param in self.jax_param_paths():
             name = path[-1]
             shape = tuple(param.shape)
             if name in ("table", "pos"):
-                value = rng.standard_normal(shape, dtype=np.float32) * 0.02
+                param.normal_(0.0, 0.02, generator=gen)
             elif name in ("qkv_kernel", "out_kernel"):
                 limit = math.sqrt(6.0 / (shape[0] + shape[1]))
-                value = rng.uniform(-limit, limit, shape).astype(np.float32)
+                param.uniform_(-limit, limit, generator=gen)
             elif name == "kernel":
-                value = rng.standard_normal(shape, dtype=np.float32) \
-                    * math.sqrt(2.0 / shape[0])
+                param.normal_(0.0, math.sqrt(2.0 / shape[0]), generator=gen)
             elif name == "scale":
-                value = np.ones(shape, np.float32)
+                param.fill_(1.0)
             else:
-                value = np.zeros(shape, np.float32)
-            param.copy_(torch.from_numpy(value))
+                param.zero_()
         return self
 
     # -- forwards -------------------------------------------------------------
@@ -121,10 +142,25 @@ class GPT2(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.wte.attend(self.ln_f(x))   # f32 logits
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.wpe(self.wte(ids))
+    def forward(self, ids: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop(self.wpe(self.wte(ids)), train=train,
+                      generator=generator)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train=train, generator=generator)
+        return self._head(x)
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None):
+        """One zeroed KV cache per block for ``apply_cached``."""
+        max_len = max_len or self.max_len
+        return [blk.init_cache(batch, max_len) for blk in self.blocks]
+
+    def apply_cached(self, ids, caches, offset):
+        """Forward ids (N, S_new) given caches covering [0, offset), which
+        it extends in place; returns the new positions' f32 logits."""
+        x = self.wpe(self.wte(ids), offset=offset)
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.apply_cached(x, cache, offset)
         return self._head(x)
 
     def apply_decode_paged(self, toks, pages_k, pages_v, block_tables,
@@ -157,6 +193,38 @@ class GPT2(nn.Module):
         return self._head(x)
 
 
+@torch.inference_mode()
+def generate(model: GPT2, prompt_ids, max_new_tokens: int,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             max_len: Optional[int] = None, top_k: int = 0,
+             top_p: float = 0.0) -> torch.Tensor:
+    """Autoregressive generation with a KV cache (``tnn_tpu.models.gpt2.
+    generate``): one prefill pass over the prompt, then one token per step.
+    temperature <= 0 is greedy; otherwise tokens are drawn with
+    ``generator`` (on the model's device) after top-k / top-p filtering.
+    The cache defaults to the request's length. Returns (batch,
+    max_new_tokens) int64 token ids."""
+    prompt = torch.as_tensor(prompt_ids, device=model.device).long()
+    if prompt.ndim == 1:
+        prompt = prompt[None]
+    batch, prompt_len = prompt.shape
+    max_len = max_len or min(model.max_len, prompt_len + max_new_tokens)
+    if prompt_len + max_new_tokens > max_len:
+        raise ValueError(f"prompt_len {prompt_len} + max_new_tokens "
+                         f"{max_new_tokens} exceeds max_len {max_len}")
+    caches = model.init_cache(batch, max_len)
+    last = model.apply_cached(prompt, caches, 0)[:, -1]
+    toks = []
+    for i in range(max_new_tokens):
+        tok = sample_ragged(last, generator, temperature, top_k, top_p)
+        toks.append(tok)
+        if i + 1 < max_new_tokens:   # the last token's logits are unused
+            last = model.apply_cached(tok[:, None], caches,
+                                      prompt_len + i)[:, -1]
+    return torch.stack(toks, dim=1)
+
+
 def gpt2_tiny(**kw) -> GPT2:
     """2L/128d/2h."""
     return GPT2(num_layers=2, d_model=128, num_heads=2, **kw)
@@ -176,3 +244,13 @@ def gpt2_small_gqa4(**kw) -> GPT2:
     """12L/768d/12h with 4 KV heads (grouped-query attention)."""
     return GPT2(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4,
                 **kw)
+
+
+def gpt2_medium(**kw) -> GPT2:
+    """24L/1024d/16h."""
+    return GPT2(num_layers=24, d_model=1024, num_heads=16, **kw)
+
+
+def gpt2_large(**kw) -> GPT2:
+    """36L/1280d/20h."""
+    return GPT2(num_layers=36, d_model=1280, num_heads=20, **kw)

@@ -11,8 +11,8 @@ class LayerNorm(nn.Module):
     """Layer norm over the last dim with the JAX package's single-pass
     statistics: mean and E[x^2] in f32, var = max(E[x^2] - mean^2, 0).
     ``F.layer_norm`` computes the variance another way and rounds
-    differently. Scale and bias stay in the policy's param dtype, as the
-    JAX layer reads them."""
+    differently. Scale and bias are trainable, in the policy's param dtype,
+    read in f32 as the JAX layer reads them."""
 
     def __init__(self, dim: int, eps: float = 1e-5, *, policy=None,
                  device="cuda"):
@@ -20,10 +20,8 @@ class LayerNorm(nn.Module):
         self.eps = float(eps)
         self.policy = policy or dt.default_policy()
         pd = self.policy.param_dtype
-        self.scale = nn.Parameter(torch.ones(dim, dtype=pd, device=device),
-                                  requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=pd, device=device),
-                                 requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim, dtype=pd, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=pd, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

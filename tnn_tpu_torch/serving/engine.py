@@ -176,7 +176,7 @@ class InferenceEngine:
             elif req.rid in chunks:
                 chunks[req.rid] = min(chunks[req.rid],
                                       req.prefill_len - req.cache_len)
-        with torch.no_grad():
+        with torch.inference_mode():
             rec = self._build(chunks, events)
             if rec is not None:
                 self.model_steps += 1
