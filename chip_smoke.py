@@ -26,7 +26,18 @@ numbers on its own line:
    over that run; then one step with the kernels against the same step
    with the plain versions, under bf16 and FP32;
 7. train_cli: a byte-mode corpus from the card's Python stdlib, trained at
-   two layers with sampling (``generate`` through K4's ``kv_offset`` form).
+   two layers with sampling (``generate`` through K4's ``kv_offset`` form);
+8. int8_kernel: the int8 paged-attention kernel (K2) against its plain
+   version at the serving shapes, with times beside the plain version's,
+   SDPA's on the gathered, dequantized K/V and the bound;
+9. int8_matmul: the weight-only int8 matmul (K3) against its plain version
+   at GPT-2 small's five matmul shapes at 512 rows, the head at the 8 rows
+   the serving path gives it, and a ragged case, with times beside the
+   plain version's, ``torch.mm``'s and the bound;
+10. serving_int8: the serving phase's traffic with ``kv_dtype="int8",
+   quant_weights=True``: K2 and K3 launch counts, the float model's
+   teacher-forced closeness gate and a decode profile; then the CLI with
+   ``--kv-dtype int8 --quant-weights``.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -174,15 +185,20 @@ def paged_case(seed, *, batch, q_lens, kv_lens, heads, kv_heads, head_dim,
 
 def paged_work(args):
     """(bytes, operations) this call's data needs. Bytes: each live K/V
-    position (below the row's kv_len, in no -1 hole) read once, each live
-    query token read and its output written once, the table entries the
-    rows use and the lengths read once. Operations: the QK and PV products
-    of every live query token with every live key it attends."""
+    position (below the row's kv_len, in no -1 hole) read once (int8 pages:
+    one byte an element and a 4-byte scale per position and head), each
+    live query token read and its output written once, the table entries
+    the rows use and the lengths read once. Operations: the QK and PV
+    products of every live query token with every live key it attends."""
     import numpy as np
+
+    from tnn_tpu_torch.ops.paged_attention import QuantPages
 
     q, pk = args["q"], args["pages_k"]
     elem = q.element_size()
-    _, _, hkv, bs, dh = pk.shape
+    quant = isinstance(pk, QuantPages)
+    _, _, hkv, bs, dh = (pk.data if quant else pk).shape
+    kv_row = dh + 4 if quant else dh * elem     # bytes per position, head
     h = q.shape[-2]
     kv = args["kv_lens"].tolist()
     ql = [1] * len(kv) if args["q_lens"] is None else args["q_lens"].tolist()
@@ -196,7 +212,7 @@ def paged_work(args):
         entries += len(used)
         keys += int(seen[n - m:n].sum())
     lens = len(kv) * (1 if args["q_lens"] is None else 2)
-    nbytes = (live_kv * 2 * hkv * dh * elem + live_q * 2 * h * dh * elem
+    nbytes = (live_kv * 2 * hkv * kv_row + live_q * 2 * h * dh * elem
               + 4 * (entries + lens))
     return nbytes, 4 * keys * h * dh
 
@@ -629,7 +645,7 @@ def mixed_logits_check(model, seed, tol):
                              f"{tol * scale}")
 
 
-def serve_traffic(model, seed, num_requests=8, new_tokens=64):
+def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
     """One engine run over the smoke traffic; returns (engine, rids)."""
     import numpy as np
 
@@ -637,7 +653,7 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64):
 
     engine = InferenceEngine(model, num_blocks=512, block_size=16,
                              max_batch_size=8, chunk_size=64, seed=seed,
-                             device=model.device)
+                             device=model.device, **engine_kw)
     rng = np.random.default_rng(seed)
     rids = []
     for i in range(num_requests):
@@ -650,37 +666,52 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64):
     return engine, rids
 
 
-def profile_decode_steps(model, steps=10):
-    """Steady decode steps of 8 rows: wall time per step without the
-    profiler, then device-busy time per step (summed kernel durations) and
-    the kernels that take the most device time from a profiler window over
-    as many further steps. Idle share = 1 - busy / unprofiled step time:
-    the profiler slows the host, so its own window's wall time is printed
-    but not used."""
-    import collections
-
+def steady_decode_engine(model, new_tokens, **engine_kw):
+    """An engine with 8 requests of 500-token prompts, past their prefill
+    and first decode step, with ``new_tokens`` tokens each to decode."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tnn_tpu_torch.serving.engine import InferenceEngine
 
     engine = InferenceEngine(model, num_blocks=512, block_size=16,
                              max_batch_size=8, chunk_size=64, seed=0,
-                             device=model.device)
+                             device=model.device, **engine_kw)
     rng = np.random.default_rng(5)
     for _ in range(8):
-        engine.submit(rng.integers(0, model.vocab_size, 500), 2 * steps + 8)
+        engine.submit(rng.integers(0, model.vocab_size, 500), new_tokens)
     while any(r.cache_len < r.prefill_len or not r.out_tokens
               for r in engine.requests.values()):
         engine.step()
     engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return engine
+
+
+def profile_decode_steps(model, steps=10, phase="serving_profile",
+                         **engine_kw):
+    """Steady decode steps of 8 rows: wall time per step without the
+    profiler in three windows of ``steps`` steps (their median is the step
+    time; their spread is the host's within one process), then from a
+    profiler window over as many further steps the device-busy time per
+    step (summed kernel durations), the kernels that take the most device
+    time, the outermost aten ops and the kernels per step, and the ops
+    that take the most host self time. Idle share = 1 - busy / unprofiled
+    step time: the profiler slows the host, so its own window's wall time
+    is printed but not used."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = steady_decode_engine(model, 4 * steps + 8, **engine_kw)
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / steps)
+    step_ms = sorted(windows)[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -689,15 +720,74 @@ def profile_decode_steps(model, steps=10):
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = collections.Counter()
+    host_self = collections.Counter()   # profiled host self time, us
+    ops = kernels = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name[:60]] += e.time_range.elapsed_us()
+            kernels += 1
+            continue
+        host_self[e.name[:40]] += e.self_cpu_time_total
+        parent = e.cpu_parent
+        ops += e.name.startswith("aten::") and not (
+            parent is not None and parent.name.startswith("aten::"))
     busy_ms = sum(by_name.values()) / 1e3 / steps
-    log("serving_profile", decode_rows=8, kv_len=500, step_ms=step_ms,
-        profiled_step_ms=profiled_ms, device_busy_ms=busy_ms,
+    # host cost per op: the unprofiled step over the step's outermost
+    # aten ops, which is what a path with more ops pays more of
+    log(phase, decode_rows=8, kv_len=500, step_ms=step_ms,
+        step_ms_windows=windows, profiled_step_ms=profiled_ms,
+        device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / step_ms,
+        aten_ops_per_step=ops / steps, kernels_per_step=kernels / steps,
+        step_us_per_op=step_ms * 1e3 * steps / max(ops, 1),
         top_kernels_ms=[(n, t / 1e3 / steps)
-                        for n, t in by_name.most_common(6)])
+                        for n, t in by_name.most_common(6)],
+        top_host_self_ms=[(n, t / 1e3 / steps)
+                          for n, t in host_self.most_common(8)])
+
+
+def host_ab(model, rounds=4, steps=5, launches=2000):
+    """The bf16 and the int8 decode step timed in alternating windows of
+    ``steps`` steps, each round also timing ``launches`` back-to-back tiny
+    kernel launches (the host's cost per launch at that moment), and one
+    last round with Python's garbage collector off. If the int8/bf16 ratio
+    holds while all three move together, the host's speed varies and the
+    int8 step pays for it per op; a ratio that moves alone is the int8
+    path's own."""
+    import gc
+
+    import torch
+
+    n = rounds + 1
+    engines = {"bf16": steady_decode_engine(model, n * steps + 8),
+               "int8": steady_decode_engine(model, n * steps + 8,
+                                            **INT8_SERVING)}
+    probe = torch.zeros(1024, device=model.device)
+
+    def window(fn, count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / count
+
+    rows = []
+    for r in range(n):
+        if r == rounds:
+            gc.disable()
+        try:
+            row = {"launch_us": window(lambda: probe.add_(1),
+                                       launches) * 1e6}
+            for name, eng in engines.items():
+                row[f"{name}_ms"] = window(eng.step, steps) * 1e3
+        finally:
+            gc.enable()
+        row["ratio"] = row["int8_ms"] / row["bf16_ms"]
+        rows.append(row)
+    log("serving_int8_host_ab", steps_per_window=steps,
+        launches_per_window=launches, rounds=rows[:rounds],
+        gc_off=rows[rounds])
 
 
 def phase_serving(results):
@@ -763,7 +853,8 @@ def phase_serving(results):
 
 # -- phase 5 ------------------------------------------------------------------
 
-def phase_cli(results):
+def cli_check(flags=()):
+    """The serving CLI on two JSON lines, with ``flags`` added."""
     lines = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
               "max_new_tokens": 8},
              {"id": "sampled", "tokens": list(range(100, 140)),
@@ -772,19 +863,26 @@ def phase_cli(results):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
-         "gpt2_small"], input="".join(json.dumps(x) + "\n" for x in lines),
+         "gpt2_small", *flags],
+        input="".join(json.dumps(x) + "\n" for x in lines),
         capture_output=True, text=True, timeout=600)
     events = [json.loads(x) for x in proc.stdout.splitlines() if x.strip()]
     done = {e["id"]: e for e in events if e.get("event") == "done"}
     ok = (proc.returncode == 0 and set(done) == {"greedy", "sampled"}
           and len(done["greedy"]["tokens"]) == 8
           and len(done["sampled"]["tokens"]) == 6)
-    log("cli", returncode=proc.returncode, done_events=len(done),
+    log("cli", flags=list(flags), returncode=proc.returncode,
+        done_events=len(done),
         token_events=sum(e.get("event") == "token" for e in events),
         seconds=round(time.perf_counter() - t0, 3), ok=ok)
     if not ok:
         raise AssertionError(f"CLI run failed: rc {proc.returncode}\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def phase_cli(results):
+    cli_check()
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -1100,6 +1198,369 @@ def phase_train_cli(results):
                              f"vs {want}; {out}")
 
 
+# -- phase 8 ------------------------------------------------------------------
+#
+# K2 against its plain version, element by element:
+#   |out - ref| <= atol + rtol * |ref| + 1e-5 * p.|v|,  (atol, rtol) below,
+# where p.|v| is the plain version over |V|. Both sides dequantize K/V to
+# f32 and leave p unrounded (v is f32), so their f32 sums differ in order
+# only, within 1e-5 p.|v|. A bf16 q is promoted to f32 exactly; the output
+# is then rounded to bf16 on both sides from f32 values that may straddle a
+# rounding point: one bf16 ulp, at most 2^-7 |ref|.
+INT8_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 2 ** -7)}
+
+
+def quant_case(seed, **spec):
+    """``paged_case`` with the pages quantized as the pool writes them."""
+    from tnn_tpu_torch.ops import paged_attention as pa
+
+    args = paged_case(seed, **spec)
+    for name in ("pages_k", "pages_v"):
+        args[name] = pa.QuantPages(*pa.quantize_kv_rows(args[name].float()))
+    return args
+
+
+def dequant_args(args):
+    """The same call over pages dequantized to q's dtype (for SDPA)."""
+    deq = {}
+    for name in ("pages_k", "pages_v"):
+        p = args[name]
+        deq[name] = (p.data.float() * p.scale).to(args["q"].dtype)
+    return {**args, **deq}
+
+
+def phase_int8_kernel(results):
+    import torch
+    import torch.nn.functional as F
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    kv500 = [500, 17, 512, 1, 333, 499, 64, 510]
+    mixed_q = [64, 64, 40, 64, 1, 1, 1, 1]
+    mixed_kv = [64, 448, 980, 704, 513, 100, 2, 1000]
+    small = dict(heads=12, kv_heads=12, head_dim=64, block_size=16)
+    cases = {
+        "decode_bf16": dict(decode_form=True, q_lens=[1] * 8,
+                            kv_lens=[500] * 8, dtype=bf16, **small),
+        "decode_ragged_bf16": dict(decode_form=True, q_lens=[1] * 8,
+                                   kv_lens=kv500, dtype=bf16, **small),
+        "mixed_bf16": dict(decode_form=False, q_lens=mixed_q,
+                           kv_lens=mixed_kv, dtype=bf16, **small),
+        "decode_gqa4_bf16": dict(decode_form=True, q_lens=[1] * 8,
+                                 kv_lens=kv500, dtype=bf16, heads=12,
+                                 kv_heads=4, head_dim=64, block_size=16),
+        "mixed_gqa4_f32": dict(decode_form=False, q_lens=mixed_q,
+                               kv_lens=mixed_kv, dtype=f32, heads=12,
+                               kv_heads=4, head_dim=64, block_size=16),
+        "holes_zero_len_bf16": dict(decode_form=False,
+                                    q_lens=[64, 0, 1, 0, 30, 1, 64, 1],
+                                    kv_lens=[300, 0, 200, 50, 90, 0, 64, 77],
+                                    dtype=bf16, holes=True, **small),
+        "decode_f32": dict(decode_form=True, q_lens=[1] * 8, kv_lens=kv500,
+                           dtype=f32, **small),
+        "mixed_holes_f32": dict(decode_form=False, q_lens=mixed_q,
+                                kv_lens=mixed_kv, dtype=f32, holes=True,
+                                **small),
+        "decode_bs4_bf16": dict(decode_form=True, q_lens=[1] * 8,
+                                kv_lens=kv500, dtype=bf16, heads=12,
+                                kv_heads=12, head_dim=64, block_size=4),
+        "mixed_bs4_f32": dict(decode_form=False, q_lens=mixed_q,
+                              kv_lens=mixed_kv, dtype=f32, heads=12,
+                              kv_heads=12, head_dim=64, block_size=4),
+        "decode_hd128_bf16": dict(decode_form=True, q_lens=[1] * 8,
+                                  kv_lens=kv500, dtype=bf16, heads=6,
+                                  kv_heads=6, head_dim=128, block_size=16),
+        "mixed_hd128_f32": dict(decode_form=False, q_lens=mixed_q,
+                                kv_lens=mixed_kv, dtype=f32, heads=6,
+                                kv_heads=6, head_dim=128, block_size=16),
+    }
+    worst = 0.0
+    for i, (name, spec) in enumerate(cases.items()):
+        args = quant_case(300 + i, batch=8, **spec)
+        before = (pa.paged_attention.launches,
+                  pa.paged_attention.int8_launches)
+        out = pa.paged_attention(**args)
+        torch.cuda.synchronize()
+        if (pa.paged_attention.launches, pa.paged_attention.int8_launches) \
+                != (before[0], before[1] + 1):
+            raise AssertionError(f"int8 {name}: K2 did not launch alone")
+        ref = pa.paged_attention_reference(**args).float()
+        v = args["pages_v"]
+        ref_abs_v = pa.paged_attention_reference(**{
+            **args, "pages_v": pa.QuantPages(v.data.abs(), v.scale)}).float()
+        diff = (out.float() - ref).abs()
+        atol, rtol = INT8_TOLERANCE[str(spec["dtype"]).split(".")[-1]]
+        limit = atol + rtol * ref.abs() + 1e-5 * ref_abs_v
+        used = (diff / limit).max().item()
+        err = diff.max().item()
+        dead_nonzero = 0.0
+        if not spec["decode_form"]:
+            for bi, n in enumerate(spec["q_lens"]):
+                if n < out.shape[1]:
+                    dead_nonzero = max(dead_nonzero,
+                                       out[bi, n:].float().abs().max().item())
+        for bi, n in enumerate(spec["kv_lens"]):
+            if n == 0:
+                dead_nonzero = max(dead_nonzero,
+                                   out[bi].float().abs().max().item())
+        ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
+        log("int8_kernel", case=name, block_size=spec["block_size"],
+            max_abs_err=err, atol=atol, rtol=rtol, limit_used=used,
+            dead_rows_max=dead_nonzero, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"int8 paged_attention {name}: |err| exceeds {atol} + {rtol} "
+                f"|ref| + 1e-5 p.|v| ({used:.3g} of the limit) or dead rows "
+                f"{dead_nonzero}")
+        worst = max(worst, err)
+
+    timed = {}
+    for name in ("decode_bf16", "mixed_bf16"):
+        args = quant_case(7, batch=8, **cases[name])
+        nbytes, ops = paged_work(args)
+        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                             ops / PEAK_OPS["bfloat16"])
+        sq, sk, sv, smask, gqa = sdpa_inputs(dequant_args(args))
+        runs = {"": lambda: pa.paged_attention(**args),
+                "plain_": lambda: pa.paged_attention_reference(**args),
+                "library_": lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
+        timed[name] = {}
+        for prefix, fn in runs.items():
+            device, events = time_ms(fn)
+            timed[name][prefix + "ms"] = events if device is None else device
+            timed[name][prefix + "events_ms"] = events
+        timed[name].update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
+                           bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                           >= ops / PEAK_OPS["bfloat16"] else "operations")
+        log("int8_kernel_time", case=name, **timed[name])
+    pa.paged_attention.int8_launches = 0   # comparison launches do not count
+    results["paged_attention_int8"] = dict(max_abs_err=worst,
+                                           **timed["decode_bf16"])
+
+
+# -- phase 9 ------------------------------------------------------------------
+#
+# K3 against its plain version, element by element:
+#   |got - ref| <= 1e-5 * mag + rtol * |ref|,  mag = |x| @ |dequant(W)|,
+# rtol 0 for an f32 result and 2^-7 for a bf16 one. Both sides sum the same
+# f32 products (int8 -> x's dtype is exact) in another order: for K up to
+# 3072 the two sums differ by about sqrt(K) 2^-24 mag (3.3e-6 mag), within
+# 1e-5 mag. A bf16 result rounds the two sums on each side of a rounding
+# point at most one ulp apart, 2^-7 |ref|.
+MATMUL_SHAPES = {   # (M, K, N, out f32): gpt2_small at 512 rows, the
+    # head as the serving path calls it (8 last rows), and a ragged case
+    "qkv": (512, 768, 2304, False), "out": (512, 768, 768, False),
+    "fc": (512, 768, 3072, False), "proj": (512, 3072, 768, False),
+    "head": (512, 768, 50257, True), "head8": (8, 768, 50257, True),
+    "ragged": (300, 300, 130, False)}
+
+
+def phase_int8_matmul(results):
+    import torch
+
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for i, (shape, (m, k, n, head)) in enumerate(MATMUL_SHAPES.items()):
+        gen = torch.Generator(device=dev).manual_seed(400 + i)
+        iw = qm.quantize_int8(torch.randn((k, n), generator=gen, device=dev)
+                              * 0.02)
+        x32 = torch.randn((m, k), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{shape}_{str(dtype).split('.')[-1]}"
+            x = x32.to(dtype)
+            out_dtype = torch.float32 if head else None
+            kw = dict(n=n, k=k, out_dtype=out_dtype)
+            before = qm.int8_matmul.launches
+            got = qm.int8_matmul(x, iw.q, iw.scale, **kw)
+            torch.cuda.synchronize()
+            if qm.int8_matmul.launches != before + 1:
+                raise AssertionError(f"int8_matmul {name}: K3 did not launch")
+            ref = qm.int8_matmul_reference(x, iw.q, iw.scale, **kw).float()
+            mag = x.float().abs() @ iw.dequant().abs()
+            rtol = 0.0 if got.dtype == torch.float32 else 2 ** -7
+            diff = (got.float() - ref).abs()
+            used = (diff / (1e-5 * mag + rtol * ref.abs())).max().item()
+            err = diff.max().item()
+            ok = math.isfinite(used) and used <= 1.0 \
+                and tuple(got.shape) == (m, n)
+            entry = dict(case=name, m=m, k=k, n=n, out=str(got.dtype),
+                         max_abs_err=err, limit_used=used, ok=ok)
+            if not ok:
+                log("int8_matmul", **entry)
+                raise AssertionError(f"int8_matmul {name}: |err| exceeds "
+                                     f"1e-5 mag + {rtol} |ref| ({used:.3g} "
+                                     "of the limit)")
+            worst = max(worst, err)
+            del ref, mag, diff
+            # time: the kernel, the plain version, and torch.mm of x with
+            # the weight dequantized ahead (int8 -> x's dtype), then the scale
+            wt = iw.q[:n, :k].to(dtype).t()
+            sc = iw.scale[:n]
+            odt = out_dtype or dtype
+            mm_kw = {} if odt == dtype else {"out_dtype": odt}
+            runs = {"": lambda: qm.int8_matmul(x, iw.q, iw.scale, **kw),
+                    "plain_": lambda: qm.int8_matmul_reference(
+                        x, iw.q, iw.scale, **kw),
+                    "library_": lambda: (torch.mm(x, wt, **mm_kw)
+                                         * sc).to(odt)}
+            for prefix, fn in runs.items():
+                device, events = time_ms(fn, iters=20, warmup=3)
+                entry[prefix + "ms"] = events if device is None else device
+                entry[prefix + "events_ms"] = events
+            nbytes = (m * k * x.element_size() + n * k + 4 * n
+                      + m * n * torch.empty((), dtype=odt).element_size())
+            ops = 2 * m * n * k
+            peak = PEAK_OPS[str(dtype).split(".")[-1]]
+            byte_ms, op_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+            entry.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
+                         bound_by="bytes" if byte_ms >= op_ms
+                         else "operations")
+            log("int8_matmul", **entry)
+            if name == "qkv_bfloat16":
+                results["int8_matmul"] = entry
+            del got, wt
+        del iw, x32
+        torch.cuda.empty_cache()
+    results["int8_matmul"]["max_abs_err"] = worst
+    qm.int8_matmul.launches = 0   # comparison launches do not count
+
+
+# -- phase 10 -----------------------------------------------------------------
+
+INT8_SERVING = dict(kv_dtype="int8", quant_weights=True)
+
+
+def count_wide_steps(fn):
+    """Run ``fn()`` counting the ragged mixed steps (``GPT2.apply_paged``
+    calls) of more than ``W8A8_MAX_ROWS`` token rows, whose matmuls take
+    K3; returns (fn's result, that count)."""
+    from tnn_tpu_torch.models.gpt2 import GPT2
+    from tnn_tpu_torch.ops.quant_matmul import W8A8_MAX_ROWS
+
+    real = GPT2.apply_paged
+    wide = [0]
+
+    def apply_paged(self, toks, *a, **kw):
+        wide[0] += toks.numel() > W8A8_MAX_ROWS
+        return real(self, toks, *a, **kw)
+
+    GPT2.apply_paged = apply_paged
+    try:
+        out = fn()
+    finally:
+        GPT2.apply_paged = real
+    return out, wide[0]
+
+
+def closeness_gate(model, engine, rids):
+    """The float model, teacher-forced over the int8 engine's greedy
+    sequences (tests/test_quant_serving.py:289-329): the chosen token is the
+    argmax in >= 75% of positions and trails it by < 0.25 everywhere else.
+    Returns (exact, total, largest margin)."""
+    import torch
+
+    exact = total = 0
+    margins = []
+    for rid in rids:
+        req = engine.result(rid)
+        seq = list(req.prompt) + list(req.out_tokens)
+        with torch.inference_mode():
+            logits = model(torch.tensor([seq], device=model.device))[0]
+        plen = len(req.prompt)
+        rows = logits[plen - 1:len(seq) - 1].double()
+        chosen = torch.tensor(req.out_tokens, device=rows.device)
+        best = rows.max(dim=-1).values
+        picked = rows.gather(1, chosen[:, None])[:, 0]
+        hit = rows.argmax(dim=-1) == chosen
+        exact += int(hit.sum())
+        total += len(chosen)
+        margins += (best - picked)[~hit].tolist()
+    return exact, total, max(margins, default=0.0)
+
+
+def phase_serving_int8(results):
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops import quant_matmul as qm
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    serve_traffic(model, seed=1, num_requests=2, new_tokens=4,
+                  **INT8_SERVING)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    qm.int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    (engine, rids), wide = count_wide_steps(
+        lambda: serve_traffic(model, seed=0, **INT8_SERVING))
+    wall = time.perf_counter() - t0
+    k1, k2 = pa.paged_attention.launches, pa.paged_attention.int8_launches
+    k3 = qm.int8_matmul.launches
+    stats = engine.stats()
+    steps = engine.model_steps
+    want = {"k1": 0, "k2": model.num_layers * steps,
+            "k3": (4 * model.num_layers + 1) * wide}
+    bf16_bytes = 2 * model.num_layers * model.num_kv_heads * (
+        model.d_model // model.num_heads) * 2
+    finished = [engine.result(r) for r in rids]
+    bad = [r.rid for r in finished if r.state is not RequestState.FINISHED
+           or len(r.out_tokens) != 64]
+    log("serving_int8", requests=len(rids), finished=len(rids) - len(bad),
+        model_steps=steps, wide_steps=wide, k1_launches=k1, k2_launches=k2,
+        k3_launches=k3, expected=want, wall_s=wall,
+        ttft_ms_p50=stats["ttft_ms_p50"], ttft_ms_p95=stats["ttft_ms_p95"],
+        decode_tok_per_s=stats["tok_per_s"],
+        step_ms_mean=stats["step_latency_ms_mean"], steps=stats["steps"],
+        preemptions=stats["preemptions"],
+        kv_bytes_per_token=stats["kv_bytes_per_token"],
+        kv_scale_bytes_per_token=stats["kv_scale_bytes_per_token"],
+        bf16_kv_bytes_per_token=bf16_bytes,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if bad:
+        raise AssertionError(f"int8 requests not FINISHED with 64 tokens: "
+                             f"{bad}")
+    if {"k1": k1, "k2": k2, "k3": k3} != want or wide == 0:
+        raise AssertionError(f"int8 serving launches K1 {k1}, K2 {k2}, K3 "
+                             f"{k3} over {steps} steps ({wide} wide); want "
+                             f"{want}")
+    if 2 * stats["kv_bytes_per_token"] != bf16_bytes \
+            or not stats["quant_weights"] or stats["kv_dtype"] != "int8":
+        raise AssertionError(f"int8 engine stats: {stats}")
+    results["int8_launches"] = {"k2": k2, "k3": k3}
+    engine.check_invariants()
+
+    engine2, rids2 = serve_traffic(model, seed=0, **INT8_SERVING)
+    greedy = [(a, b) for i, (a, b) in enumerate(zip(rids, rids2))
+              if i % 2 == 0]
+    same = all(engine.result(a).out_tokens == engine2.result(b).out_tokens
+               for a, b in greedy)
+    exact, total, worst = closeness_gate(model, engine,
+                                         [a for a, _ in greedy])
+    ok = same and exact >= 0.75 * total and worst < 0.25
+    log("serving_int8_close", greedy_requests=len(greedy), identical=same,
+        argmax_positions=exact, positions=total,
+        argmax_share=exact / max(total, 1), worst_margin=worst, ok=ok)
+    if not ok:
+        raise AssertionError(f"int8 serving: repeat identical {same}, "
+                             f"argmax {exact}/{total}, worst margin {worst}")
+    del engine, engine2
+    # the bf16 pool and weights at the same point of the process, beside
+    # the int8 path, so that the two differ only in the path
+    profile_decode_steps(model, phase="serving_int8_profile_bf16_beside")
+    profile_decode_steps(model, phase="serving_int8_profile", **INT8_SERVING)
+    host_ab(model)
+    del model
+    torch.cuda.empty_cache()
+    cli_check(("--kv-dtype", "int8", "--quant-weights"))
+
+
 def main() -> int:
     import torch
 
@@ -1118,7 +1579,8 @@ def main() -> int:
     results = {}
     build_kernels()
     for phase in (phase_kernel, phase_flash, phase_serving, phase_cli,
-                  phase_training, phase_train_cli):
+                  phase_training, phase_train_cli, phase_int8_kernel,
+                  phase_int8_matmul, phase_serving_int8):
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,
@@ -1139,6 +1601,16 @@ def main() -> int:
                         "replaces": f"{flash}:{line}",
                         "launches": results["flash_launches"][name],
                         **{k: results[name][k] for k in keys}})
+    kernels.append({"name": "paged_attention_int8", "route": "cuda",
+                    "source": "tnn_tpu_torch/csrc/paged_attention.cu",
+                    "replaces": "tnn_tpu/ops/pallas/paged_attention.py:115",
+                    "launches": results["int8_launches"]["k2"],
+                    **{k: results["paged_attention_int8"][k] for k in keys}})
+    kernels.append({"name": "int8_matmul", "route": "cuda",
+                    "source": "tnn_tpu_torch/csrc/quant_matmul.cu",
+                    "replaces": "tnn_tpu/ops/pallas/quant_matmul.py:152",
+                    "launches": results["int8_launches"]["k3"],
+                    **{k: results["int8_matmul"][k] for k in keys}})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,24 @@ def test_no_jax_or_tnn_tpu_import_statement(path):
             assert top not in ("jax", "jaxlib", "tnn_tpu"), (path, name)
 
 
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "tnn_tpu_torch" / "ops").glob("*.py")),
+    ids=lambda p: p.name)
+def test_ops_import_no_layer_above_them(path):
+    """The kernel wrappers and the matmul dispatch sit below the layers and
+    models that call them: no import, at any depth of the file, reaches
+    up."""
+    above = ("nn", "models", "serving", "train", "data", "cli")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level >= 2:
+            assert (node.module or "").split(".")[0] not in above, (
+                path, node.module)
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            parts = (node.module or "").split(".")
+            assert parts[0] != "tnn_tpu_torch" or parts[1:2] == ["ops"] \
+                or parts[1:2] == ["core"], (path, node.module)
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
@@ -96,3 +114,44 @@ def test_chip_smoke_refuses_without_a_card():
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+def test_kernel_sources_plain_c_and_int8_paths_run_without_nvcc():
+    """Every CUDA source has a plain C entry and no PyTorch header, and the
+    int8 modules compute their plain versions on CPU tensors without
+    building anything: a host without nvcc (this one) runs them."""
+    sources = sorted((ROOT / "tnn_tpu_torch" / "csrc").glob("*.cu"))
+    assert {p.name for p in sources} >= {"paged_attention.cu",
+                                         "quant_matmul.cu"}
+    for path in sources:
+        text = path.read_text()
+        assert 'extern "C"' in text and "torch/" not in text, path
+    assert 'tnn_paged_attention_int8' in (
+        ROOT / "tnn_tpu_torch" / "csrc" / "paged_attention.cu").read_text()
+    code = """
+import os, torch
+from tnn_tpu_torch.ops import paged_attention as pa, quant_matmul as qm
+from tnn_tpu_torch.ops import runtime
+from tnn_tpu_torch.nn import quant
+from tnn_tpu_torch.models.gpt2 import GPT2
+iw = qm.quantize_int8(torch.randn(256, 128))
+assert qm.qmatmul(torch.randn(300, 256), iw).shape == (300, 128)
+rows = torch.randn(2, 3, 4, 64)
+pages = pa.QuantPages(torch.zeros(1, 4, 4, 4, 64, dtype=torch.int8),
+                      torch.zeros(1, 4, 4, 4, 1))
+tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+starts = torch.zeros(2, dtype=torch.int32)
+q_lens = torch.tensor([3, 2], dtype=torch.int32)
+pa.scatter_kv_chunk(pages, tables, starts, rows, q_lens, layer=0)
+out = pa.paged_attention(torch.randn(2, 3, 8, 64), pages, pages, tables,
+                         q_lens, q_lens=q_lens)
+assert out.shape == (2, 3, 8, 64) and torch.isfinite(out).all()
+m = quant.quantize_for_decode(GPT2(vocab_size=256, max_len=16, num_layers=1,
+                                   d_model=128, num_heads=2, device="cpu"))
+assert m(torch.arange(8)[None]).shape == (1, 8, 256)
+assert runtime._loaded == {} and pa.paged_attention.int8_launches == 0
+assert qm.int8_matmul.launches == 0
+print("ok")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -56,7 +56,8 @@ from tnn_tpu.train import make_train_step as jmake_step
 from tnn_tpu_torch.core import dtypes as tdt
 from tnn_tpu_torch.data.token_stream import TokenStreamDataLoader
 from tnn_tpu_torch.models.gpt2 import GPT2
-from tnn_tpu_torch.nn import layers, losses, metrics, optimizers, schedulers
+from tnn_tpu_torch.nn import losses, metrics, optimizers, schedulers
+from tnn_tpu_torch.ops import quant_matmul
 from tnn_tpu_torch.train import (create_train_state, make_eval_step,
                                  make_train_step)
 
@@ -313,7 +314,7 @@ def test_tiny_flash_gpt2_train_steps_bf16_bound():
     assert loss <= 4e-5 and upd <= 0.04 and cos > 0.999, (loss, upd, cos)
 
 
-class _MatmulF32JaxBackward(layers._MatmulF32):
+class _MatmulF32JaxBackward(quant_matmul._MatmulF32):
     """JAX's transposition of the f32-output dot: the f32 output gradient
     times the other operand, in f32, rounded once at the end."""
 
@@ -362,7 +363,8 @@ def test_tiny_flash_gpt2_bf16_forward_backward_match_jax_bf16(
     JAX model in FP32 must fall outside them. ``cotangent="f32"`` measures
     the port with JAX's matmul transposition in place of its own."""
     if cotangent == "f32":
-        monkeypatch.setattr(layers, "_MatmulF32", _MatmulF32JaxBackward)
+        monkeypatch.setattr(quant_matmul, "_MatmulF32",
+                            _MatmulF32JaxBackward)
     port, f32 = _bf16_step_readings()
     bounds = (8e-6, 4e-3, grad_bound)
     assert all(r <= b for r, b in zip(port, bounds)), port
@@ -444,10 +446,10 @@ if __name__ == "__main__":
     port, f32 = _bf16_step_readings()
     print("one step (loss, logits, gradients): port %.3g %.3g %.3g, "
           "JAX FP32 %.3g %.3g %.3g" % (*port, *f32))
-    layers._MatmulF32 = _MatmulF32JaxBackward
+    quant_matmul._MatmulF32 = _MatmulF32JaxBackward
     print("  with the f32 output gradient: port %.3g %.3g %.3g"
           % _bf16_step_readings()[0])
-    layers._MatmulF32 = _MatmulF32JaxBackward.__base__
+    quant_matmul._MatmulF32 = _MatmulF32JaxBackward.__base__
     for name, policy in (("MIXED_BF16", tdt.MIXED_BF16), ("FP32", tdt.FP32)):
         print("three steps, port in %s (loss, update L2, cosine): "
               "%.3g %.4g %.5g" % (name, *_bf16_train_readings(policy)))

@@ -33,6 +33,7 @@ import sys
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.serving.engine import InferenceEngine
 
+
 def _emit(obj) -> None:
     sys.stdout.write(json.dumps(obj) + "\n")
     sys.stdout.flush()
@@ -53,6 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-size", type=int, default=64)
     ap.add_argument("--max-new-tokens", type=int, default=32,
                     help="default for requests that omit it")
+    ap.add_argument("--kv-dtype", default="f32", choices=("f32", "int8"),
+                    help="KV pool page dtype: int8 halves resident KV and "
+                         "decode page traffic (per-row f32 scale sidecar; "
+                         "output gated by closeness, not exactness)")
+    ap.add_argument("--quant-weights", action="store_true",
+                    help="serve projection/MLP matmuls from int8 weights "
+                         "via the in-kernel-dequant quant_matmul kernel")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -62,7 +70,8 @@ def main(argv=None) -> int:
     engine = InferenceEngine(
         model, num_blocks=args.num_blocks, block_size=args.block_size,
         max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
-        seed=args.seed, device=args.device)
+        seed=args.seed, kv_dtype=args.kv_dtype,
+        quant_weights=args.quant_weights, device=args.device)
     user_ids = {}
 
     def handle_line(line: bytes) -> None:

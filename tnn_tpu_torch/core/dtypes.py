@@ -46,9 +46,10 @@ class DTypePolicy:
         """Cast a floating input to the compute dtype."""
         return x.to(self.compute_dtype) if x.is_floating_point() else x
 
-    def cast_param(self, p: torch.Tensor) -> torch.Tensor:
-        """Cast a (floating) parameter to the compute dtype at its use."""
-        return p.to(self.compute_dtype) if p.is_floating_point() else p
+    def cast_param(self, p):
+        """Cast a floating parameter to the compute dtype at its use; a
+        leaf of another dtype (an ``Int8Weight``) passes through."""
+        return p.to(self.compute_dtype) if p.dtype.is_floating_point else p
 
     def cast_out(self, y: torch.Tensor) -> torch.Tensor:
         return y.to(self.io_dtype) if y.is_floating_point() else y

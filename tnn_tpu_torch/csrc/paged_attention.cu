@@ -1,8 +1,10 @@
-// Ragged paged attention for Hopper (sm_90a), bf16 or f32 pages.
+// Ragged paged attention for Hopper (sm_90a), over bf16 / f32 pages (K1) or
+// int8 pages with a per-(position, head) f32 scale (K2).
 //
 // Replaces the Pallas TPU kernel
 //   tnn_tpu/ops/pallas/paged_attention.py:_paged_attention_pallas / _attn_step
-// and computes exactly what _attn_step computes:
+// with both of its bodies, _attn_kernel (K1) and _attn_kernel_int8 (K2), and
+// computes exactly what _attn_step computes:
 //   * row b carries q_lens[b] query tokens; token t sits at absolute position
 //     kv_lens[b] - q_lens[b] + t and attends causally over every earlier
 //     position of the row, read through the row's block table in the pages
@@ -12,10 +14,17 @@
 //   * the online softmax (m, l, acc) runs in f32, p is rounded to the page
 //     dtype before the PV product (as the TPU kernel's p.astype(v.dtype)),
 //     rows with l == 0 output exactly 0, and the output has q's dtype.
+//   * int8 pages (K2): each K/V element dequantizes to f32 as int8 * its
+//     row's scale before it is used, as _attn_kernel_int8's load_kv does, so
+//     QK, p (left unrounded: v is f32) and PV all run in f32.
+// One templated body serves both: they differ only in the page type P, that
+// is in how a page is staged and how a staged element becomes an f32 value,
+// which keeps them in lockstep as _attn_step's load_kv keeps the TPU ones.
 //
 // What bounds it on the H100: bytes. A decode step at B=8, kv_len=512 on
-// gpt2_small reads 8*512*12*64*2*2 B = 12.6 MB of K/V per layer launch,
-// about 3.8 us at 3.35 TB/s, while its FLOPs are negligible.
+// gpt2_small reads 8*512*12*64*2*2 B = 12.6 MB of bf16 K/V per layer launch,
+// about 3.8 us at 3.35 TB/s, while its FLOPs are negligible; int8 pages
+// halve that and add 4 B of scale per (position, head) of K and of V.
 //
 // Design: the TPU grid's sequential page axis (whose VMEM scratch carries the
 // softmax state) has no counterpart across CUDA blocks, so one thread block
@@ -23,8 +32,10 @@
 // itself, reading its own table entries (no scalar prefetch). Pages are
 // staged through shared memory with 16-byte cp.async copies, up to 8 pages
 // per set, double-buffered so the next set is in flight while the current
-// one is computed. A block has 8 warps and a tile up to 16 query rows: each
-// warp owns two rows; when the tile has fewer rows than warps (decode), the
+// one is computed; int8 pages stage their scale rows (bs floats of K and of
+// V per page, 16 B at bs = 4) the same way, beside the pages. A block has 8
+// warps and a tile up to 16 query rows: each warp owns two rows; when the
+// tile has fewer rows than warps (decode), the
 // warps split the row's pages instead and merge their partial (m, l, acc)
 // at the end. B*H_kv = 96 blocks at the decode shape above fill less than
 // one wave of 132 SMs; splitting KV across blocks is the later fix, as are
@@ -52,14 +63,17 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* q;        // (B, QW, H, DH)
-  const void* pages_k;  // (L, N, HKV, BS, DH)
+  const void* pages_k;  // (L, N, HKV, BS, DH), bf16 / f32, or int8
   const void* pages_v;
+  const float* scales_k;  // int8 pages: (L, N, HKV, BS, 1) f32, else null
+  const float* scales_v;
   const int* tables;    // (B, NB)
   const int* kv_lens;   // (B,)
   const int* q_lens;    // (B,)
   void* out;            // (B, QW, H, DH)
   int QW, H, HKV, N, BS, NB, g;
   long long layer_off;  // elements to the first page of `layer`
+  long long layer_off_s;  // the same for the scales (layer_off / DH)
   float scale;
   int tile_rows;        // query rows (flattened t * g + gi) per block
   int nwr;              // warps sharing out the tile's rows
@@ -72,6 +86,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -83,21 +100,48 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 16 bytes of page data -> f32 values
-__device__ __forceinline__ void unpack16(const uint4& u, float* f, float) {
+// Page element types: P == the q dtype (K1), or int8_t (K2). kLoad is the
+// elements one lane converts at a time in the QK loop (16 B of f32 / bf16,
+// 8 B of int8, so that a lane's slice of the head dim, DH / lanes_per_key
+// >= 8 elements, holds whole loads).
+template <typename P>
+struct Page {
+  static constexpr bool kQuant = false;
+  static constexpr int kLoad = 16 / sizeof(P);
+};
+template <>
+struct Page<int8_t> {
+  static constexpr bool kQuant = true;
+  static constexpr int kLoad = 8;
+};
+
+// kLoad page elements from shared memory -> f32 values
+__device__ __forceinline__ void load_vec(const float* src, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
 }
-__device__ __forceinline__ void unpack16(const uint4& u, float* f,
-                                         __nv_bfloat16) {
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 v = __bfloat1622float2(h[i]);
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load_vec(const int8_t* src, float* f) {
+  const int2 u = *reinterpret_cast<const int2*>(src);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // byte i of each word, sign-extended
+    const int sh = 24 - 8 * i;
+    f[i] = static_cast<float>(
+        static_cast<int>(static_cast<unsigned>(u.x) << sh) >> 24);
+    f[4 + i] = static_cast<float>(
+        static_cast<int>(static_cast<unsigned>(u.y) << sh) >> 24);
   }
 }
 
@@ -116,11 +160,13 @@ __device__ __forceinline__ void cp_async_wait_0() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <typename T, int DH>
+template <typename T, typename P, int DH>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kVec = 16 / sizeof(T);       // elements per 16-byte copy
+  constexpr bool kQuant = Page<P>::kQuant;
+  constexpr int kLoad = Page<P>::kLoad;
+  constexpr int kVec = 16 / sizeof(P);       // elements per 16-byte copy
   constexpr int kRowStride = DH + kVec;      // 16-byte pad: no bank conflicts
   constexpr int kDimsPerLane = DH / 32;      // output dims each lane owns
 
@@ -143,11 +189,14 @@ __global__ void __launch_bounds__(kThreads)
     npages = min((start + t_last) / p.BS + 1, p.NB);
   }
 
-  // shared memory: the query tile in f32, then two stages of ks (K, V) pages
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  T* kv_s = reinterpret_cast<T*>(smem_raw + p.tile_rows * DH * sizeof(float));
-  const int page_elems = p.BS * kRowStride;
+  // shared memory: the query tile in f32, then (int8 pages) two stages of
+  // the pages' scale rows, then two stages of ks (K, V) pages
   const int set_pages = p.ks * p.ppw;
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* sc_s = q_s + p.tile_rows * DH;
+  const int stage_scales = kQuant ? set_pages * 2 * p.BS : 0;
+  P* kv_s = reinterpret_cast<P*>(sc_s + 2 * stage_scales);
+  const int page_elems = p.BS * kRowStride;
   const int stage_elems = set_pages * 2 * page_elems;
 
   const T* q = static_cast<const T*>(p.q);
@@ -159,8 +208,8 @@ __global__ void __launch_bounds__(kThreads)
     q_s[i] = to_f32(q[off]);
   }
 
-  const T* pk = static_cast<const T*>(p.pages_k) + p.layer_off;
-  const T* pv = static_cast<const T*>(p.pages_v) + p.layer_off;
+  const P* pk = static_cast<const P*>(p.pages_k) + p.layer_off;
+  const P* pv = static_cast<const P*>(p.pages_v) + p.layer_off;
   const int* table = p.tables + static_cast<size_t>(b) * p.NB;
   auto page_of = [&](int j) -> int {
     if (j >= npages) return -1;
@@ -172,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
     constexpr int kChunksPerRow = DH / kVec;
     const int per_page = p.BS * kChunksPerRow;
     const int total = set_pages * 2 * per_page;
-    T* base = kv_s + stage * stage_elems;
+    P* base = kv_s + stage * stage_elems;
     for (int c = threadIdx.x; c < total; c += kThreads) {
       const int s = c / (2 * per_page);
       const int rem = c % (2 * per_page);
@@ -181,12 +230,29 @@ __global__ void __launch_bounds__(kThreads)
       const int col = (rem % kChunksPerRow) * kVec;
       const int blk = page_of(set * set_pages + s);
       if (blk < 0) continue;
-      const T* src = (kv ? pv : pk) +
+      const P* src = (kv ? pv : pk) +
                      ((static_cast<size_t>(blk) * p.HKV + hk) * p.BS + row) *
                          DH +
                      col;
       cp_async16(base + (s * 2 + kv) * page_elems + row * kRowStride + col,
                  src);
+    }
+    if constexpr (kQuant) {
+      // a page's scale rows are BS contiguous floats (BS % 4 == 0)
+      const int per_scale = p.BS / 4;
+      float* sbase = sc_s + stage * stage_scales;
+      for (int c = threadIdx.x; c < set_pages * 2 * per_scale;
+           c += kThreads) {
+        const int s = c / (2 * per_scale);
+        const int kv = (c / per_scale) % 2;
+        const int col = (c % per_scale) * 4;
+        const int blk = page_of(set * set_pages + s);
+        if (blk < 0) continue;
+        const float* src = (kv ? p.scales_v : p.scales_k) + p.layer_off_s +
+                           (static_cast<size_t>(blk) * p.HKV + hk) * p.BS +
+                           col;
+        cp_async16(sbase + (s * 2 + kv) * p.BS + col, src);
+      }
     }
   };
 
@@ -219,9 +285,13 @@ __global__ void __launch_bounds__(kThreads)
       const int slot = ks_id * p.ppw + u;
       const int j = set * set_pages + slot;
       if (ks_id < p.ks && page_of(j) >= 0) {
-        const T* k_page =
+        const P* k_page =
             kv_s + (set & 1) * stage_elems + slot * 2 * page_elems;
-        const T* v_page = k_page + page_elems;
+        const P* v_page = k_page + page_elems;
+        // int8 pages: this page's K and V scale rows (unused otherwise)
+        const float* ks_page =
+            sc_s + (set & 1) * stage_scales + slot * 2 * p.BS;
+        const float* vs_page = ks_page + p.BS;
         const int kpos0 = j * p.BS;
 #pragma unroll
         for (int i = 0; i < kMaxRowsPerWarp; ++i) {
@@ -234,13 +304,18 @@ __global__ void __launch_bounds__(kThreads)
           const int nvalid = min(p.BS, pos - kpos0 + 1);
           float part_dot[4] = {0.f, 0.f, 0.f, 0.f};  // short FMA chains
           if (key < nvalid) {
-            const T* krow = k_page + key * kRowStride + part * dpl;
+            const P* krow = k_page + key * kRowStride + part * dpl;
             const float* qrow = q_s + rl * DH + part * dpl;
-            for (int d = 0; d < dpl; d += kVec) {
-              float kf[kVec];
-              unpack16(*reinterpret_cast<const uint4*>(krow + d), kf, T());
+            for (int d = 0; d < dpl; d += kLoad) {
+              float kf[kLoad];
+              load_vec(krow + d, kf);
+              if constexpr (kQuant) {   // k = int8 * scale, in f32
+                const float ksc = ks_page[key];
 #pragma unroll
-              for (int e = 0; e < kVec; ++e)
+                for (int e = 0; e < kLoad; ++e) kf[e] *= ksc;
+              }
+#pragma unroll
+              for (int e = 0; e < kLoad; ++e)
                 part_dot[e % 4] += qrow[d + e] * kf[e];
             }
           }
@@ -262,16 +337,22 @@ __global__ void __launch_bounds__(kThreads)
           const float alpha = expf(m[i] - m_new);
           l[i] = alpha * l[i] + psum;
           m[i] = m_new;
-          const float pt = to_f32(from_f32<T>(pr));
+          // p.astype(v.dtype): rounded to the page dtype; int8 pages
+          // dequantize to f32, so p stays f32
+          float pt = pr;
+          if constexpr (!kQuant) pt = to_f32(from_f32<P>(pr));
 #pragma unroll
           for (int e = 0; e < kDimsPerLane; ++e) acc[i][e] *= alpha;
 #pragma unroll 4
           for (int jj = 0; jj < nvalid; ++jj) {
             const float pj = __shfl_sync(kFull, pt, jj * L);
-            const T* vrow = v_page + jj * kRowStride;
+            const P* vrow = v_page + jj * kRowStride;
 #pragma unroll
-            for (int e = 0; e < kDimsPerLane; ++e)
-              acc[i][e] += pj * to_f32(vrow[lane + 32 * e]);
+            for (int e = 0; e < kDimsPerLane; ++e) {
+              float v = to_f32(vrow[lane + 32 * e]);
+              if constexpr (kQuant) v *= vs_page[jj];  // int8 * scale, f32
+              acc[i][e] += pj * v;
+            }
           }
         }
       }
@@ -342,39 +423,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DH>
+template <typename T, typename P, int DH>
 cudaError_t launch(const Params& p, dim3 grid, size_t smem,
                    cudaStream_t stream) {
   static size_t smem_opted_in = 48 * 1024;
   if (smem > smem_opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, DH>,
+        paged_attention_kernel<T, P, DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     smem_opted_in = smem;
   }
-  paged_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(p);
+  paged_attention_kernel<T, P, DH><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <typename T>
+cudaError_t dispatch(const Params& p, bool quant, int DH, dim3 grid,
+                     size_t smem, cudaStream_t st) {
+  if (quant) {
+    return DH == 64 ? launch<T, int8_t, 64>(p, grid, smem, st)
+                    : launch<T, int8_t, 128>(p, grid, smem, st);
+  }
+  return DH == 64 ? launch<T, T, 64>(p, grid, smem, st)
+                  : launch<T, T, 128>(p, grid, smem, st);
+}
 
-// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. Every pointer is a
-// device pointer of a contiguous tensor; the launch goes on `stream`.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int tnn_paged_attention(
-    const void* q, const void* pages_k, const void* pages_v,
-    const void* tables, const void* kv_lens, const void* q_lens, void* out,
-    int dtype, int B, int QW, int H, int HKV, int DH, int N, int BS, int NB,
-    int layer, float scale, void* stream) {
+int run(const void* q, const void* pages_k, const void* pages_v,
+        const float* scales_k, const float* scales_v, const void* tables,
+        const void* kv_lens, const void* q_lens, void* out, int dtype, int B,
+        int QW, int H, int HKV, int DH, int N, int BS, int NB, int layer,
+        float scale, void* stream) {
+  const bool quant = scales_k != nullptr;
   if ((DH != 64 && DH != 128) || (dtype != 0 && dtype != 1) || BS < 4 ||
-      BS > 32 || HKV < 1 || H % HKV != 0 || layer < 0)
+      BS > 32 || (quant && BS % 4 != 0) || HKV < 1 || H % HKV != 0 ||
+      layer < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || QW == 0) return static_cast<int>(cudaSuccess);
   Params p;
   p.q = q;
   p.pages_k = pages_k;
   p.pages_v = pages_v;
+  p.scales_k = scales_k;
+  p.scales_v = scales_v;
   p.tables = static_cast<const int*>(tables);
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.q_lens = static_cast<const int*>(q_lens);
@@ -386,7 +477,8 @@ extern "C" int tnn_paged_attention(
   p.BS = BS;
   p.NB = NB;
   p.g = H / HKV;
-  p.layer_off = static_cast<long long>(layer) * N * HKV * BS * DH;
+  p.layer_off_s = static_cast<long long>(layer) * N * HKV * BS;
+  p.layer_off = p.layer_off_s * DH;
   p.scale = scale;
   const int rows = QW * p.g;
   p.tile_rows = rows < kMaxTileRows ? rows : kMaxTileRows;
@@ -397,28 +489,57 @@ extern "C" int tnn_paged_attention(
   while (bsp < BS) bsp *= 2;
   p.lanes_per_key = 32 / bsp;
 
-  const size_t elem = dtype == 0 ? 4 : 2;
+  const size_t elem = quant ? 1 : (dtype == 0 ? 4 : 2);
   const size_t row_stride = DH + 16 / elem;
   // pages staged per set: one per idle-of-rows warp, within a 160 KB budget
-  // for the two stages (f32 pages of 128 dims are 16 KB per K+V pair)
-  const size_t set_page = 2 * 2 * static_cast<size_t>(BS) * row_stride * elem;
+  // for the two stages (f32 pages of 128 dims are 16 KB per K+V pair); the
+  // int8 pages' scale rows count against it too
+  const size_t page_data = 2 * 2 * static_cast<size_t>(BS) * row_stride * elem;
+  const size_t page_scales = quant ? 2 * 2 * static_cast<size_t>(BS) * 4 : 0;
+  const size_t set_page = page_data + page_scales;
   p.ks = kWarps / nwr;
   while (p.ks > 1 && p.ks * set_page > kStagingBudget) p.ks /= 2;
   p.ppw = kPagesPerSet / p.ks > 1 ? kPagesPerSet / p.ks : 1;
   while (p.ppw > 1 && p.ks * p.ppw * set_page > kStagingBudget) p.ppw /= 2;
-  const size_t staging = static_cast<size_t>(p.ks) * p.ppw * set_page;
+  const size_t staging = static_cast<size_t>(p.ks) * p.ppw * page_data;
   const size_t merge = static_cast<size_t>(p.ks) * p.tile_rows * (DH + 2) * 4;
   const size_t smem = static_cast<size_t>(p.tile_rows) * DH * 4 +
+                      static_cast<size_t>(p.ks) * p.ppw * page_scales +
                       (staging > merge ? staging : merge);
   const dim3 grid((rows + p.tile_rows - 1) / p.tile_rows, HKV, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = DH == 64 ? launch<float, 64>(p, grid, smem, st)
-                 : launch<float, 128>(p, grid, smem, st);
-  } else {
-    e = DH == 64 ? launch<__nv_bfloat16, 64>(p, grid, smem, st)
-                 : launch<__nv_bfloat16, 128>(p, grid, smem, st);
-  }
+  const cudaError_t e =
+      dtype == 0 ? dispatch<float>(p, quant, DH, grid, smem, st)
+                 : dispatch<__nv_bfloat16>(p, quant, DH, grid, smem, st);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// C entries for ctypes. dtype (of q and out): 0 = float32, 1 = bfloat16.
+// Every pointer is a device pointer of a contiguous tensor; the launch goes
+// on `stream`. Each returns the cudaError_t of the launch (0 = success).
+
+// K1: pages of q's dtype.
+extern "C" int tnn_paged_attention(
+    const void* q, const void* pages_k, const void* pages_v,
+    const void* tables, const void* kv_lens, const void* q_lens, void* out,
+    int dtype, int B, int QW, int H, int HKV, int DH, int N, int BS, int NB,
+    int layer, float scale, void* stream) {
+  return run(q, pages_k, pages_v, nullptr, nullptr, tables, kv_lens, q_lens,
+             out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale, stream);
+}
+
+// K2: int8 pages (L, N, HKV, BS, DH) with f32 scales (L, N, HKV, BS, 1).
+extern "C" int tnn_paged_attention_int8(
+    const void* q, const void* data_k, const void* data_v,
+    const void* scale_k, const void* scale_v, const void* tables,
+    const void* kv_lens, const void* q_lens, void* out, int dtype, int B,
+    int QW, int H, int HKV, int DH, int N, int BS, int NB, int layer,
+    float scale, void* stream) {
+  if (scale_k == nullptr || scale_v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, data_k, data_v, static_cast<const float*>(scale_k),
+             static_cast<const float*>(scale_v), tables, kv_lens, q_lens, out,
+             dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale, stream);
 }

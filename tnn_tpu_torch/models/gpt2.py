@@ -4,7 +4,7 @@ paged forwards the serving engine steps."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -14,7 +14,9 @@ from ..core import dtypes as dt
 from ..nn.embedding import Embedding, PositionalEmbedding
 from ..nn.layers import Dropout
 from ..nn.norms import LayerNorm
+from ..nn.quant import set_weight
 from ..nn.transformer import GPTBlock
+from ..ops.quant_matmul import Int8Weight
 from ..utils.device import resolve_device
 from .sampling import sample_ragged
 
@@ -67,22 +69,29 @@ class GPT2(nn.Module):
 
     # -- weights --------------------------------------------------------------
 
-    def jax_param_paths(self) -> Iterator[Tuple[Tuple[str, ...], nn.Parameter]]:
-        """Every parameter beside its path in the JAX parameter tree."""
-        yield ("wte", "table"), self.wte.table
-        yield ("wpe", "pos"), self.wpe.pos
-        yield ("ln_f", "scale"), self.ln_f.scale
-        yield ("ln_f", "bias"), self.ln_f.bias
+    def _param_slots(self) -> Iterator[Tuple[Tuple[str, ...], nn.Module,
+                                             str]]:
+        """(JAX tree path, owning module, attribute name) of every weight."""
+        yield ("wte", "table"), self.wte, "table"
+        yield ("wpe", "pos"), self.wpe, "pos"
+        yield ("ln_f", "scale"), self.ln_f, "scale"
+        yield ("ln_f", "bias"), self.ln_f, "bias"
         for i, blk in enumerate(self.blocks):
             h = f"h{i}"
             for ln in ("ln1", "ln2"):
-                yield (h, ln, "scale"), getattr(blk, ln).scale
-                yield (h, ln, "bias"), getattr(blk, ln).bias
+                yield (h, ln, "scale"), getattr(blk, ln), "scale"
+                yield (h, ln, "bias"), getattr(blk, ln), "bias"
             for name in ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias"):
-                yield (h, "attn", name), getattr(blk.attn, name)
+                yield (h, "attn", name), blk.attn, name
             for dense in ("fc", "proj"):
-                yield (h, dense, "kernel"), getattr(blk, dense).kernel
-                yield (h, dense, "bias"), getattr(blk, dense).bias
+                yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
+                yield (h, dense, "bias"), getattr(blk, dense), "bias"
+
+    def jax_param_paths(self) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+        """Every weight (a parameter, or an ``Int8Weight`` where the model
+        was quantized) beside its path in the JAX parameter tree."""
+        for path, module, name in self._param_slots():
+            yield path, getattr(module, name)
 
     @torch.no_grad()
     def load_jax_params(self, tree: Dict) -> "GPT2":
@@ -90,12 +99,30 @@ class GPT2(nn.Module):
         ``jax.tree.map(np.asarray, params)``) into this model.
 
         Kernels keep JAX's (in, out) layout, so nothing is transposed; the
-        f32 values are copied unrounded into the f32 masters.
+        f32 values are copied unrounded into the f32 masters. A leaf with
+        ``q``, ``scale``, ``n`` and ``k`` (an ``Int8Weight`` of a
+        ``quantize_for_decode`` tree, its arrays as numpy) replaces the
+        parameter by an ``Int8Weight`` of the same bytes.
         """
-        for path, param in self.jax_param_paths():
+        for path, module, name in self._param_slots():
             node = tree
             for key in path:
                 node = node[key]
+            param = getattr(module, name)
+            if all(hasattr(node, a) for a in ("q", "scale", "n", "k")):
+                dev = param.device
+                iw = Int8Weight(
+                    torch.tensor(np.asarray(node.q, np.int8), device=dev),
+                    torch.tensor(np.asarray(node.scale, np.float32),
+                                 device=dev), n=node.n, k=node.k)
+                # the table is quantized through its transpose
+                want = tuple(param.shape)[::-1] if name == "table" \
+                    else tuple(param.shape)
+                if iw.shape != want:
+                    raise ValueError(f"{'.'.join(path)}: int8 shape "
+                                     f"{iw.shape} != {want}")
+                set_weight(module, name, iw)
+                continue
             value = torch.tensor(np.asarray(node, dtype=np.float32))
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{'.'.join(path)}: shape {tuple(value.shape)}"
@@ -139,8 +166,11 @@ class GPT2(nn.Module):
 
     # -- forwards -------------------------------------------------------------
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wte.attend(self.ln_f(x))   # f32 logits
+    def _head(self, x: torch.Tensor,
+              rows: Optional[int] = None) -> torch.Tensor:
+        """f32 logits; ``rows`` is the row count an int8 head dispatches on
+        (``qmatmul``), where x holds only some rows of a larger call."""
+        return self.wte.attend(self.ln_f(x), rows=rows)
 
     def forward(self, ids: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -189,7 +219,9 @@ class GPT2(nn.Module):
         if last_only:
             idx = (q_lens.long() - 1).clamp_min(0)
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-            return self._head(x)[:, 0]
+            # the head runs on B rows but takes the int8 branch that the
+            # JAX engine's head over all B*Q positions takes
+            return self._head(x, rows=toks.numel())[:, 0]
         return self._head(x)
 
 

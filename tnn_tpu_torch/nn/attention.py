@@ -12,7 +12,8 @@ from torch import nn
 from ..core import dtypes as dt
 from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
-from .layers import Dropout, matmul_f32
+from ..ops.quant_matmul import qmatmul
+from .layers import Dropout
 
 _MASK_VALUE = -1e9   # tnn_tpu.core.dtypes.neg_inf
 
@@ -90,8 +91,10 @@ class MultiHeadAttention(nn.Module):
     Kernels keep JAX's (in, out) layout: ``qkv_kernel`` is (D, D + 2 * kv_d)
     with columns [q | k | v]. Every parameter is trainable and kept in the
     policy's param dtype; kernels and biases are cast to the compute dtype
-    at use, as the JAX layer does. ``backend`` picks ``sdpa``'s backend;
-    ``dropout`` applies to the output projection when training.
+    at use, as the JAX layer does. Either kernel may be an ``Int8Weight``
+    (``nn.quant``); both projections go through ``qmatmul``. ``backend``
+    picks ``sdpa``'s backend; ``dropout`` applies to the output projection
+    when training.
     """
 
     def __init__(self, d_model: int, num_heads: int, *,
@@ -130,7 +133,7 @@ class MultiHeadAttention(nn.Module):
         """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
         x = self.policy.cast_in(x)
         w = self.policy.cast_param(self.qkv_kernel)
-        qkv = matmul_f32(x, w).to(x.dtype)
+        qkv = qmatmul(x, w).to(x.dtype)
         qkv = qkv + self.qkv_bias.to(x.dtype)
         b, s, _ = x.shape
         d, kv_d, dh = self.d_model, self.kv_d, self.head_dim
@@ -143,7 +146,7 @@ class MultiHeadAttention(nn.Module):
         """(B, S, H, Dh) -> (B, S, D) in the io dtype."""
         y = attn.reshape(*attn.shape[:2], self.d_model)
         w = self.policy.cast_param(self.out_kernel)
-        y = matmul_f32(y, w).to(y.dtype) + self.out_bias.to(y.dtype)
+        y = qmatmul(y, w).to(y.dtype) + self.out_bias.to(y.dtype)
         y = self.drop(y, train=train, generator=generator)
         return self.policy.cast_out(y)
 
@@ -197,8 +200,10 @@ class MultiHeadAttention(nn.Module):
         """One step straight against the paged KV pool.
 
         x : (B, Q, D) this step's new tokens per row (Q = 1 for pure decode).
-        pages_k / pages_v : the pool's (L, N, H_kv, bs, Dh) tensors; the new
-            K/V rows of ``layer`` are written into them IN PLACE.
+        pages_k / pages_v : the pool's (L, N, H_kv, bs, Dh) tensors, or its
+            ``QuantPages`` bundles under int8; the new K/V rows of ``layer``
+            are written into them IN PLACE (an int8 pool quantizes them as
+            it writes, so they are not cast first).
         block_tables : (B, nb) int32; offsets : (B,) int32 the position each
             row writes first (its kv length before this step).
         q_lens : (B,) int32 live tokens per row, or None for the decode form
@@ -208,21 +213,23 @@ class MultiHeadAttention(nn.Module):
         Returns the attention block's output (B, Q, D).
         """
         q, k_new, v_new = self._project_qkv(x)
+        if not isinstance(pages_k, pa.QuantPages):
+            k_new, v_new = k_new.to(pages_k.dtype), v_new.to(pages_v.dtype)
         if q_lens is None:
             if x.shape[1] != 1:
                 raise ValueError("apply_paged with Q > 1 requires q_lens")
-            pa.scatter_kv_rows(pages_k, block_tables, offsets,
-                               k_new[:, 0].to(pages_k.dtype), layer=layer)
-            pa.scatter_kv_rows(pages_v, block_tables, offsets,
-                               v_new[:, 0].to(pages_v.dtype), layer=layer)
+            pa.scatter_kv_rows(pages_k, block_tables, offsets, k_new[:, 0],
+                               layer=layer)
+            pa.scatter_kv_rows(pages_v, block_tables, offsets, v_new[:, 0],
+                               layer=layer)
             out = pa.paged_attention(q[:, 0].contiguous(), pages_k, pages_v,
                                      block_tables, kv_lens=offsets + 1,
                                      layer=layer)
             return self._project_out(out[:, None])
-        pa.scatter_kv_chunk(pages_k, block_tables, offsets,
-                            k_new.to(pages_k.dtype), q_lens, layer=layer)
-        pa.scatter_kv_chunk(pages_v, block_tables, offsets,
-                            v_new.to(pages_v.dtype), q_lens, layer=layer)
+        pa.scatter_kv_chunk(pages_k, block_tables, offsets, k_new, q_lens,
+                            layer=layer)
+        pa.scatter_kv_chunk(pages_v, block_tables, offsets, v_new, q_lens,
+                            layer=layer)
         out = pa.paged_attention(q.contiguous(), pages_k, pages_v,
                                  block_tables, kv_lens=offsets + q_lens,
                                  q_lens=q_lens, layer=layer)

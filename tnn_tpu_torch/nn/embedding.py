@@ -1,18 +1,22 @@
 """Token and learned positional embeddings (``tnn_tpu.nn.embedding``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from ..core import dtypes as dt
-from .layers import matmul_f32
+from ..ops.quant_matmul import Int8Weight, qmatmul
 
 
 class Embedding(nn.Module):
     """Token embedding: int ids (..., S) -> (..., S, dim) in the compute
     dtype, plus the tied output head ``attend``. The table is a trainable
     parameter in the policy's param dtype, cast to the compute dtype at use
-    (the looked-up rows only, which gives the same values)."""
+    (the looked-up rows only, which gives the same values), or an
+    ``Int8Weight`` (``nn.quant``): (vocab, dim) int8 rows with a per-row
+    scale, which is both the gather layout and the head's (N, K) layout."""
 
     def __init__(self, vocab_size: int, dim: int, *, policy=None,
                  device="cuda"):
@@ -23,11 +27,22 @@ class Embedding(nn.Module):
                         device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.policy.cast_param(self.table[ids])
+        table = self.table
+        if isinstance(table, Int8Weight):
+            # dequantize just the looked-up rows, past the storage padding
+            rows = table.q[:, :table.k][ids].float() \
+                * table.scale[ids][..., None]
+            return rows.to(self.policy.compute_dtype)
+        return self.policy.cast_param(table[ids])
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied-softmax logits ``x @ table.T`` in float32."""
-        return matmul_f32(x, self.policy.cast_param(self.table).t())
+    def attend(self, x: torch.Tensor,
+               rows: Optional[int] = None) -> torch.Tensor:
+        """Tied-softmax logits ``x @ table.T`` in float32. ``rows`` is the
+        row count an int8 table dispatches on (``qmatmul``)."""
+        table = self.policy.cast_param(self.table)
+        if isinstance(table, Int8Weight):
+            return qmatmul(x, table, out_dtype=torch.float32, rows=rows)
+        return qmatmul(x, table.t())
 
 
 class PositionalEmbedding(nn.Module):

@@ -1,4 +1,4 @@
-"""Dense, Dropout and the f32-accumulating matmul (``tnn_tpu.nn.layers``)."""
+"""Dense and Dropout (``tnn_tpu.nn.layers``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,53 +7,8 @@ import torch
 from torch import nn
 
 from ..core import dtypes as dt
+from ..ops.quant_matmul import qmatmul
 from . import activations
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """2-D ``a @ b`` with an f32 result: on the card a bf16 product runs on
-    the tensor cores with f32 output; on the CPU the inputs are widened
-    first, which is exact for bf16 values."""
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-class _MatmulF32(torch.autograd.Function):
-    """``x @ w`` of compute-dtype operands with an f32 result. The backward
-    rounds the f32 output gradient to the operands' dtype and accumulates
-    both products in f32 before rounding them to the operands' dtype. JAX
-    transposes the f32-output dot the same way but for that first rounding:
-    it multiplies the f32 gradient by the bf16 operand. Rounding keeps both
-    products on the tensor cores; its effect on the gradients is measured
-    against JAX's in ``tests/test_torch_training.py``."""
-
-    @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(x2, w)
-        return _mm_f32(x2, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _mm_f32(g, w.t()).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = _mm_f32(x2.t(), g).to(w.dtype)
-        return dx, dw
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated and returned in float32: JAX's ``dot_general``
-    with ``preferred_element_type=float32`` (the float branch of
-    ``qmatmul``). Differentiable."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return x @ w
-    lead = x.shape[:-1]
-    y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
-    return y.reshape(*lead, w.shape[-1])
 
 
 class Dense(nn.Module):
@@ -62,7 +17,10 @@ class Dense(nn.Module):
 
     ``kernel`` keeps JAX's (in, out) layout. Both parameters are trainable
     and kept in the policy's param dtype; the kernel is cast to the compute
-    dtype at use, the bias read in f32, as the JAX layer does.
+    dtype at use, the bias read in f32, as the JAX layer does. A kernel
+    replaced by an ``Int8Weight`` (``nn.quant``) goes through ``qmatmul``'s
+    int8 branches, whose product comes back in x's dtype and so is rounded
+    before the f32 bias is added, as in the JAX layer.
     """
 
     def __init__(self, in_features: int, units: int, *,
@@ -78,8 +36,8 @@ class Dense(nn.Module):
             torch.zeros(units, dtype=pd, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = matmul_f32(self.policy.cast_in(x),
-                       self.policy.cast_param(self.kernel))
+        y = qmatmul(self.policy.cast_in(x),
+                    self.policy.cast_param(self.kernel))
         if self.bias is not None:
             y = y + self.bias.float()
         if self.activation:

@@ -7,12 +7,21 @@ request's KV cache in fixed-size pages
 
 and a per-request block table names its pages in logical order.
 
-``paged_attention`` is the kernel wrapper. On a CUDA tensor it launches the
-hand-written CUDA kernel (``csrc/paged_attention.cu``) on the current
-stream, or raises; on a CPU tensor it computes ``paged_attention_reference``,
-the plain PyTorch version with the same signature and masking (gather the
-tables contiguous, masked softmax). ``paged_attention.launches`` counts the
-kernel launches.
+``paged_attention`` is the kernel wrapper. On CUDA tensors it launches one
+of the hand-written CUDA kernels of ``csrc/paged_attention.cu`` on the
+current stream, or raises: over bf16/f32 pages the one that replaces the
+TPU kernel's ``_attn_kernel`` body (counted by ``paged_attention.launches``),
+over int8 ``QuantPages`` the one that replaces ``_attn_kernel_int8``
+(counted by ``paged_attention.int8_launches``). On CPU tensors it computes
+``paged_attention_reference``, the plain PyTorch version with the same
+signature and masking (gather the tables contiguous, masked softmax).
+
+INT8 PAGES: a ``QuantPages`` bundle holds the pages as int8 ``data`` and a
+per-(position, head) f32 ``scale`` in the same layout with the head dim
+collapsed to 1. The scatters quantize rows as they write them
+(``quantize_kv_rows``); both readers dequantize K/V to f32 (the plain
+version at its gather, the kernel as pages reach it), so with int8 pages q
+is promoted and QK, the softmax and PV all run in f32.
 
 ``scatter_kv_rows`` / ``scatter_kv_chunk`` write the step's new K/V rows
 into their pages in place (the JAX package returns updated arrays and
@@ -23,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,12 +42,50 @@ _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class QuantPages(NamedTuple):
+    """Int8 KV pages and their per-(position, head) f32 scale: ``scale[l,
+    n, h, s, 0]`` dequantizes row ``data[l, n, h, s, :]``. The two share
+    one block-id space, so the pool's bookkeeping needs no second ledger."""
+    data: torch.Tensor    # (L, N, H_kv, bs, Dh) int8
+    scale: torch.Tensor   # (L, N, H_kv, bs, 1) float32
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Symmetric per-row int8 over the last axis: scale = max(amax, 1e-8) /
+    127, q = round-half-even(x / scale) clipped to +-127. Returns (int8
+    values, f32 scales with the last axis 1)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _pages_shape(pages):
+    return tuple((pages.data if isinstance(pages, QuantPages)
+                  else pages).shape)
+
+
 def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
-    if pages_k.ndim == 4:   # single-layer pages: add the unit layer axis
+    quant = isinstance(pages_k, QuantPages)
+    if quant != isinstance(pages_v, QuantPages):
+        raise ValueError("pages_k / pages_v must both be QuantPages or "
+                         "both plain tensors")
+    if quant:
+        if pages_k.data.ndim == 4:   # single-layer: add the unit layer axis
+            pages_k = QuantPages(pages_k.data[None], pages_k.scale[None])
+            pages_v = QuantPages(pages_v.data[None], pages_v.scale[None])
+        for p in (pages_k, pages_v):
+            want = tuple(p.data.shape[:-1]) + (1,)
+            if tuple(p.scale.shape) != want:
+                raise ValueError(f"QuantPages scale {tuple(p.scale.shape)} "
+                                 f"must be pages {tuple(p.data.shape)} with "
+                                 "the last axis collapsed to 1")
+    elif pages_k.ndim == 4:   # single-layer pages: add the unit layer axis
         pages_k, pages_v = pages_k[None], pages_v[None]
-    if pages_k.shape != pages_v.shape or pages_k.ndim != 5:
+    pk_shape, pv_shape = _pages_shape(pages_k), _pages_shape(pages_v)
+    if pk_shape != pv_shape or len(pk_shape) != 5:
         raise ValueError(f"pages must both be (L, N, H_kv, bs, Dh); got "
-                         f"{tuple(pages_k.shape)} / {tuple(pages_v.shape)}")
+                         f"{pk_shape} / {pv_shape}")
     was_3d = q.ndim == 3
     if was_3d:
         if q_lens is not None:
@@ -49,10 +96,10 @@ def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
         raise ValueError(f"q must be (B, H, Dh) or (B, Q, H, Dh); "
                          f"got {tuple(q.shape)}")
     b, qw, h, dh = q.shape
-    hkv = pages_k.shape[2]
-    if h % hkv or pages_k.shape[4] != dh:
+    hkv = pk_shape[2]
+    if h % hkv or pk_shape[4] != dh:
         raise ValueError(f"q has {h} heads / Dh {dh} but pages carry "
-                         f"{hkv} kv heads / Dh {pages_k.shape[4]}; "
+                         f"{hkv} kv heads / Dh {pk_shape[4]}; "
                          "need H % H_kv == 0 and equal head dims")
     if block_tables.shape[0] != b or tuple(kv_lens.shape) != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / kv_lens "
@@ -70,13 +117,16 @@ def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
 def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
                          layer, scale):
     b, qw, h, dh = q.shape
-    _, _, hkv, bs, _ = pages_k.shape
+    _, _, hkv, bs, _ = _pages_shape(pages_k)
     g = h // hkv
     t = block_tables.shape[1] * bs
     tbl = block_tables.long().clamp_min(0)   # clamp -1 holes for the gather
 
     def gather(pages):
-        x = pages[layer][tbl]                    # (B, nb, Hkv, bs, Dh)
+        if isinstance(pages, QuantPages):    # dequantize AT the gather, f32
+            x = pages.data[layer][tbl].float() * pages.scale[layer][tbl]
+        else:
+            x = pages[layer][tbl]                # (B, nb, Hkv, bs, Dh)
         return x.transpose(1, 2).reshape(b, hkv, t, dh)
 
     k, v = gather(pages_k), gather(pages_v)
@@ -138,8 +188,9 @@ def paged_attention(q, pages_k, pages_v, block_tables, kv_lens, *,
     layer : which layer's pages to read.
 
     GQA: H % H_kv == 0. Returns q's shape and dtype. On CUDA tensors the
-    kernel takes bf16 or f32 pages of q's dtype, Dh 64 or 128 and block
-    sizes 4 to 32, all contiguous, and raises on anything else.
+    kernels take bf16 or f32 q, pages of q's dtype or ``QuantPages``, Dh 64
+    or 128 and block sizes 4 to 32 (a multiple of 4 for int8), all
+    contiguous, and raise on anything else.
     """
     q, was_3d, q_lens, pages_k, pages_v, scale = _check_args(
         q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale)
@@ -152,16 +203,22 @@ def paged_attention(q, pages_k, pages_v, block_tables, kv_lens, *,
     return out[:, 0] if was_3d else out
 
 
-paged_attention.launches = 0
+paged_attention.launches = 0         # bf16 / f32 pages (K1)
+paged_attention.int8_launches = 0    # QuantPages (K2)
 
 
 def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention kernel needs CUDA tensors; q is "
                          f"on {q.device}")
-    tensors = {"q": q, "pages_k": pages_k, "pages_v": pages_v,
-               "block_tables": block_tables, "kv_lens": kv_lens,
+    quant = isinstance(pages_k, QuantPages)
+    tensors = {"q": q, "block_tables": block_tables, "kv_lens": kv_lens,
                "q_lens": q_lens}
+    if quant:
+        tensors.update(data_k=pages_k.data, scale_k=pages_k.scale,
+                       data_v=pages_v.data, scale_v=pages_v.scale)
+    else:
+        tensors.update(pages_k=pages_k, pages_v=pages_v)
     for name, x in tensors.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -171,41 +228,57 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got "
                              f"{tensors[name].dtype}")
-    if q.dtype not in _KERNEL_DTYPES or pages_k.dtype != q.dtype \
-            or pages_v.dtype != q.dtype:
-        raise ValueError(f"kernel takes bf16 or f32 q and pages of one "
-                         f"dtype; got q {q.dtype}, pages {pages_k.dtype} / "
-                         f"{pages_v.dtype}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"kernel takes bf16 or f32 q, got {q.dtype}")
+    if quant:
+        if any(t.dtype != torch.int8 for t in (pages_k.data, pages_v.data)) \
+                or any(t.dtype != torch.float32
+                       for t in (pages_k.scale, pages_v.scale)):
+            raise ValueError("QuantPages must hold int8 data and f32 scales")
+    elif pages_k.dtype != q.dtype or pages_v.dtype != q.dtype:
+        raise ValueError(f"kernel takes pages of q's dtype; got q {q.dtype}, "
+                         f"pages {pages_k.dtype} / {pages_v.dtype}")
     b, qw, h, dh = q.shape
-    nl, n, hkv, bs, _ = pages_k.shape
+    nl, n, hkv, bs, _ = _pages_shape(pages_k)
     if dh not in (64, 128):
         raise ValueError(f"kernel supports head_dim 64 or 128, got {dh}")
-    if not 4 <= bs <= 32:
-        raise ValueError(f"kernel supports block sizes 4..32, got {bs}")
+    if not 4 <= bs <= 32 or (quant and bs % 4):
+        raise ValueError(f"kernel supports block sizes 4..32 (multiples of "
+                         f"4 over int8 pages), got {bs}")
     if not 0 <= int(layer) < nl:
         raise ValueError(f"layer {layer} out of range for {nl} layers")
     out = torch.empty_like(q)
     lib = _library()
-    err = lib.tnn_paged_attention(
-        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), _KERNEL_DTYPES[q.dtype], b, qw, h, hkv, dh, n, bs,
-        block_tables.shape[1], int(layer), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    common = (block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
+              out.data_ptr(), _KERNEL_DTYPES[q.dtype], b, qw, h, hkv, dh, n,
+              bs, block_tables.shape[1], int(layer), float(scale),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        err = lib.tnn_paged_attention_int8(
+            q.data_ptr(), pages_k.data.data_ptr(), pages_v.data.data_ptr(),
+            pages_k.scale.data_ptr(), pages_v.scale.data_ptr(), *common)
+    else:
+        err = lib.tnn_paged_attention(
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), *common)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    if quant:
+        paged_attention.int8_launches += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
 def _library():
     lib = runtime.load("paged_attention")
-    fn = lib.tnn_paged_attention
-    if fn.argtypes is None:
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 7 + [i] * 10 + [ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, pages in ((lib.tnn_paged_attention, 2),
+                      (lib.tnn_paged_attention_int8, 4)):
+        if fn.argtypes is None:
+            fn.argtypes = [ptr] * (5 + pages) + [i] * 10 + [ctypes.c_float,
+                                                            ptr]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -215,8 +288,16 @@ def scatter_kv_rows(pages, block_tables, offsets, rows, *, layer=None):
     ``pages`` is (L, N, H, bs, Dh) with ``layer`` naming the layer (or one
     layer's (N, H, bs, Dh)); ``block_tables`` (B, nb); ``offsets`` (B,) the
     position each row writes; ``rows`` (B, H, Dh). A -1 table hole writes
-    to the scratch page. Returns ``pages``.
+    to the scratch page. ``QuantPages`` quantize the rows here and write
+    the int8 values and their scales through the same indices. Returns
+    ``pages``.
     """
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize_kv_rows(rows)
+        scatter_kv_rows(pages.data, block_tables, offsets, qrows, layer=layer)
+        scatter_kv_rows(pages.scale, block_tables, offsets, srows,
+                        layer=layer)
+        return pages
     bs = pages.shape[-2]
     offsets = offsets.long()
     blk = block_tables.long().gather(1, (offsets // bs)[:, None])[:, 0]
@@ -233,8 +314,16 @@ def scatter_kv_chunk(pages, block_tables, starts, rows, q_lens, *,
     ``rows`` is (B, Q, H, Dh): row b's tokens t < q_lens[b] land at
     positions ``starts[b] + t`` through its block table; padding tokens
     (and whole rows with q_lens == 0) and -1 holes go to the scratch page
-    0, which is never allocated to a request. Returns ``pages``.
+    0, which is never allocated to a request. ``QuantPages`` quantize as
+    ``scatter_kv_rows`` does. Returns ``pages``.
     """
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize_kv_rows(rows)
+        scatter_kv_chunk(pages.data, block_tables, starts, qrows, q_lens,
+                         layer=layer)
+        scatter_kv_chunk(pages.scale, block_tables, starts, srows, q_lens,
+                         layer=layer)
+        return pages
     bs = pages.shape[-2]
     qw = rows.shape[1]
     nbt = block_tables.shape[1]

@@ -16,8 +16,11 @@ chunked prefill, recompute preemption (LIFO victims, a per-request
 preemption budget) and the per-row logit guard. Steps run synchronously
 (one host fetch of the sampled tokens per step), and a step that raises
 propagates to the caller: a kernel failure is never turned into failed
-requests. Speculative decoding, the overlapped loop, int8 pools and weights,
-tensor/sequence parallelism and the fault plan are not ported yet.
+requests. ``kv_dtype="int8"`` stores the pool as int8 pages with f32 scales
+(the attention kernel reads them in place), ``quant_weights=True`` serves a
+copy of the model with int8 matmul weights (``nn.quant``). Speculative
+decoding, the overlapped loop, tensor/sequence parallelism and the fault
+plan are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models import sampling
+from ..nn.quant import quantize_for_decode
 from ..utils.device import resolve_device
 from . import step_build
 from .kv_pool import PagedKVPool
@@ -46,6 +50,11 @@ class InferenceEngine:
     preemption_budget : recompute preemptions a request may take before it
         FAILs instead of requeueing (None = unlimited).
     seed : seeds the sampling ``torch.Generator``.
+    kv_dtype : "f32" (pages in the model's compute dtype) or "int8" (int8
+        pages with a per-(position, head) f32 scale).
+    quant_weights : serve from int8 weights: the engine quantizes a copy of
+        the model (``nn.quant.quantize_for_decode``) and leaves the
+        caller's unchanged.
 
     A request may hold up to min(model.max_len, pool capacity) positions,
     a step processes at most 2048 tokens (decode rows + prompt chunks), and
@@ -57,7 +66,11 @@ class InferenceEngine:
     def __init__(self, model, *, num_blocks: int = 64, block_size: int = 16,
                  max_batch_size: int = 8, chunk_size: int = 64,
                  preemption_budget: Optional[int] = 16, seed: int = 0,
+                 kv_dtype: str = "f32", quant_weights: bool = False,
                  device="cuda"):
+        if kv_dtype not in ("f32", "int8"):
+            raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
+                             f"got {kv_dtype!r}")
         self.device = resolve_device(device)
         param_dev = next(model.parameters()).device
         if param_dev != self.device:
@@ -65,13 +78,16 @@ class InferenceEngine:
                              f"device is {self.device}")
         if preemption_budget is not None and preemption_budget < 0:
             raise ValueError("preemption_budget must be >= 0 or None")
-        self.model = model
+        self.kv_dtype = kv_dtype
+        self.quant_weights = bool(quant_weights)
+        self.model = quantize_for_decode(model) if self.quant_weights \
+            else model
         self.preemption_budget = preemption_budget
         self.pool = PagedKVPool(
             num_layers=model.num_layers, num_kv_heads=model.num_kv_heads,
             head_dim=model.d_model // model.num_heads, num_blocks=num_blocks,
             block_size=block_size, dtype=model.policy.compute_dtype,
-            device=self.device)
+            device=self.device, kv_dtype=kv_dtype)
         self.max_seq_len = min(model.max_len,
                                self.pool.capacity * block_size)
         # fixed table width: every step passes this many blocks per row
@@ -79,6 +95,7 @@ class InferenceEngine:
         self.scheduler = Scheduler(max_batch_size=max_batch_size,
                                    chunk_size=chunk_size)
         self.metrics = ServingMetrics()
+        self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.requests: Dict[int, Request] = {}
@@ -133,7 +150,12 @@ class InferenceEngine:
         s.update({"queue_depth": self.scheduler.queue_depth,
                   "num_running": len(self.scheduler.running),
                   "pool_free_blocks": self.pool.num_allocatable,
-                  "model_steps": self.model_steps})
+                  "model_steps": self.model_steps,
+                  "kv_dtype": self.kv_dtype,
+                  "kv_bytes_per_token": self.pool.kv_bytes_per_token,
+                  "kv_scale_bytes_per_token":
+                      self.pool.kv_scale_bytes_per_token,
+                  "quant_weights": self.quant_weights})
         return s
 
     def check_invariants(self) -> None:

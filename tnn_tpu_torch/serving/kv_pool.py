@@ -12,6 +12,13 @@ it, so their writes land somewhere harmless. The model writes new rows into
 the pages in place (``ops.paged_attention.scatter_kv_*``), where the JAX
 package donated the old arrays to each step.
 
+With ``kv_dtype="int8"`` each ``pages_*`` is a ``QuantPages`` bundle: int8
+``data`` in the layout above and a per-(position, head) f32 ``scale`` of
+shape ``(L, N, H_kv, bs, 1)``. Rows are quantized as they are scattered and
+dequantized where attention reads them; the block-table bookkeeping never
+looks inside the bundle. ``kv_dtype="f32"`` (the JAX name) keeps pages in
+``dtype``, the model's compute dtype.
+
 The prefix-cache parts of the JAX pool (fork, the evictable LRU, the demote
 hooks) are not ported yet.
 """
@@ -23,6 +30,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from ..ops.paged_attention import QuantPages
+
 
 class PoolExhausted(RuntimeError):
     """No free blocks: the scheduler preempts and retries."""
@@ -33,20 +42,34 @@ class PagedKVPool:
 
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_blocks: int, block_size: int = 16,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda", *,
+                 kv_dtype: str = "f32"):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved scratch)")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if kv_dtype not in ("f32", "int8"):
+            raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
+                             f"got {kv_dtype!r}")
         self.num_layers = int(num_layers)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
+        self.dtype = dtype
+        self.kv_dtype = kv_dtype
         shape = (self.num_layers, self.num_blocks, self.num_kv_heads,
                  self.block_size, self.head_dim)
-        self.pages_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.pages_v = torch.zeros(shape, dtype=dtype, device=device)
+        if kv_dtype == "int8":
+            def fresh():
+                return QuantPages(
+                    torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                device=device))
+            self.pages_k, self.pages_v = fresh(), fresh()
+        else:
+            self.pages_k = torch.zeros(shape, dtype=dtype, device=device)
+            self.pages_v = torch.zeros(shape, dtype=dtype, device=device)
         # LIFO free list: freshly freed blocks are reused first
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._ref: Dict[int, int] = {}
@@ -65,6 +88,29 @@ class PagedKVPool:
     @property
     def num_allocated(self) -> int:
         return self.capacity - len(self._free)
+
+    @property
+    def page_itemsize(self) -> int:
+        """Bytes per stored KV element in the page arrays (1 under int8)."""
+        if self.kv_dtype == "int8":
+            return 1
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Page-array bytes one resident token costs (K + V, all layers),
+        without the int8 scales (``kv_scale_bytes_per_token``), which do
+        not shrink with the page dtype."""
+        return 2 * self.num_layers * self.num_kv_heads * self.head_dim \
+            * self.page_itemsize
+
+    @property
+    def kv_scale_bytes_per_token(self) -> int:
+        """Scale bytes per token: one f32 per (position, head) for K and V
+        each under int8; zero otherwise."""
+        if self.kv_dtype != "int8":
+            return 0
+        return 2 * self.num_layers * self.num_kv_heads * 4
 
     def blocks_for(self, num_tokens: int) -> int:
         """Blocks needed to hold ``num_tokens`` cache positions."""
@@ -104,12 +150,31 @@ class PagedKVPool:
 
         Always: free + allocated == capacity with no block in both, no
         duplicate free entries, the scratch block out of circulation, ids in
-        range, refcounts >= 1. With ``block_tables`` (every running
+        range, refcounts >= 1; under int8 both pages are ``QuantPages`` of
+        int8 data and f32 scales shaped as the data with the last axis 1. With ``block_tables`` (every running
         request's table): each allocated block appears in exactly refcount
         tables and no table names a free block. With ``seq_lens`` (parallel
         to the tables): each table covers its resident tokens and holds no
         more than ``blocks_for(seq_len + 1)`` blocks.
         """
+        if self.kv_dtype == "int8":
+            for name, p in (("pages_k", self.pages_k),
+                            ("pages_v", self.pages_v)):
+                if not isinstance(p, QuantPages):
+                    raise ValueError(
+                        f"{name}: int8 pool holds {type(p).__name__}, not "
+                        "QuantPages: pages without their scales")
+                if p.data.dtype != torch.int8 \
+                        or p.scale.dtype != torch.float32:
+                    raise ValueError(
+                        f"{name}: dtype drift: data {p.data.dtype} / scale "
+                        f"{p.scale.dtype}, want int8 / float32")
+                want = tuple(p.data.shape[:-1]) + (1,)
+                if tuple(p.scale.shape) != want:
+                    raise ValueError(
+                        f"{name}: scale {tuple(p.scale.shape)} does not "
+                        f"match pages {tuple(p.data.shape)} (want the last "
+                        "axis collapsed to 1)")
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             raise ValueError(f"duplicate blocks in free list: {self._free}")

@@ -1,6 +1,7 @@
 """Serving metrics (a small ``tnn_tpu.serving.metrics.ServingMetrics``):
-TTFT percentiles, decode tokens/s, step latency, preemptions and finished
-requests. All clocks are host wall clocks around synchronised steps."""
+TTFT percentiles, decode tokens/s, step latency, preemptions, finished
+requests and the pool's KV bytes per token. All clocks are host wall clocks
+around synchronised steps."""
 from __future__ import annotations
 
 import time
@@ -26,6 +27,9 @@ class ServingMetrics:
         self.preemptions = 0
         self.finished = 0
         self.failed = 0
+        # the pool's page bytes per resident token (K + V, all layers; int8
+        # scales excluded), set by the engine that owns the pool
+        self.kv_bytes_per_token = 0
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
@@ -88,4 +92,5 @@ class ServingMetrics:
             "preemptions": self.preemptions,
             "finished": self.finished,
             "failed": self.failed,
+            "kv_bytes_per_token": self.kv_bytes_per_token,
         }
