@@ -37,7 +37,18 @@ numbers on its own line:
 10. serving_int8: the serving phase's traffic with ``kv_dtype="int8",
    quant_weights=True``: K2 and K3 launch counts, the float model's
    teacher-forced closeness gate and a decode profile; then the CLI with
-   ``--kv-dtype int8 --quant-weights``.
+   ``--kv-dtype int8 --quant-weights``;
+11. flash_split (run after flash): the split backward, K5 (dQ) and K6 (dK,
+   dV), against the plain backward in K7's 13 cases and llama_small's
+   attention at S=4096; against K7 at S=32,768, where K5 must repeat its
+   dQ bit for bit; all four flash kernels under a mask of 4 x 2^30 bytes;
+   times at S=32,768 beside the plain version's at S=4096, SDPA's backward
+   and the bound;
+12. training_long (run after training): full-width ``flash_llama_small``
+   (vocab 32,000) trained at B=1, S=32,768 for 6 AdamW steps and 2
+   held-out batches, with K4 = 12 x 8, K5 = K6 = 12 x 6 and K7 = 0
+   launches, falling loss, step time, MFU, peak memory and a profiled
+   step. train_cli (7) also runs ``--arch llama`` at S=32,768, 2 layers.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -76,7 +87,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 10):
     ``iters`` calls, divided by ``iters``: the card's own time, without the
     host overhead between launches (None where the profiler records no
     device activity). ``events`` is CUDA-event time over ``iters`` calls
-    after warm-up, which includes any host gap between them."""
+    after warm-up, which includes any host gap between them.
+
+    The profiler can drop a kernel's record (one of three K5 launches at
+    S=32,768 went missing once, which read as two thirds of its time), so
+    ``device`` sums, per kernel name, the mean recorded duration times the
+    launches a call makes, the name's records over ``iters`` rounded up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -96,9 +112,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(kernels) / iters / 1e3 if kernels else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device = sum(sum(d) / len(d) * -(-len(d) // iters)
+                 for d in by_name.values()) / 1e3 if by_name else None
     return device, events
 
 
@@ -508,15 +527,14 @@ def flash_check(name, args):
     return errs["o"][0], max(errs[n][0] for n in ("dq", "dk", "dv"))
 
 
-def phase_flash(results):
+def flash_cases():
+    """The flash cases: gpt2_small's training shape (B=8, H=12, S=1024,
+    D=64) and its variants."""
     import torch
-    import torch.nn.functional as F
-
-    from tnn_tpu_torch.ops import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
     train = dict(b=8, h=12, hkv=12, sq=1024, skv=1024, d=64)
-    cases = {
+    return {
         "train_bf16": dict(train, dtype=bf16, causal=True),
         "noncausal_bf16": dict(train, dtype=bf16, causal=False),
         "gqa12_4_bf16": dict(train, hkv=4, dtype=bf16, causal=True),
@@ -538,6 +556,15 @@ def phase_flash(results):
         "noncausal_f32": dict(train, dtype=f32, causal=False),
         "gqa12_4_f32": dict(train, hkv=4, dtype=f32, causal=True),
     }
+
+
+def phase_flash(results):
+    import torch
+    import torch.nn.functional as F
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    cases = flash_cases()
     worst_fwd = worst_bwd = 0.0
     for i, (name, spec) in enumerate(cases.items()):
         args = flash_case(200 + i, **spec)
@@ -1091,6 +1118,8 @@ def phase_training(results):
         train_gpt2.make_train_step = rec.wrap(real_make)
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        fa.flash_attention_bwd_dq.launches = 0
+        fa.flash_attention_bwd_dkv.launches = 0
         try:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(sys.stderr):   # its progress
@@ -1100,14 +1129,17 @@ def phase_training(results):
             train_gpt2.make_train_step = real_make
         fwd, bwd = fa.flash_attention_fwd.launches, \
             fa.flash_attention_bwd.launches
+        split = (fa.flash_attention_bwd_dq.launches,
+                 fa.flash_attention_bwd_dkv.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses = [float(x) for x in rec.losses]
         layers = TRAIN_ARGS["layers"]
         want = (layers * (TRAIN_STEPS + EVAL_STEPS), layers * TRAIN_STEPS)
         finite = all(math.isfinite(x) for x in losses)
         falling = float(np.mean(losses[-5:])) < losses[0]
+        # S=1024 is inside the fused backward's budget: K5 and K6 stay idle
         ok = (len(losses) == TRAIN_STEPS and finite and falling
-              and (fwd, bwd) == want
+              and (fwd, bwd) == want and split == (0, 0)
               and math.isfinite(out.get("val_loss", math.nan)))
         log("training", model="flash_gpt2_small", steps=TRAIN_STEPS,
             **TRAIN_ARGS, first_loss=losses[0],
@@ -1115,11 +1147,11 @@ def phase_training(results):
             val_loss=out.get("val_loss"), cli_train_tok_per_s=out[
                 "train_tok_per_s"], platform=out["platform"],
             fwd_launches=fwd, bwd_launches=bwd, expected_launches=list(want),
-            wall_s=wall, ok=ok)
+            split_launches=list(split), wall_s=wall, ok=ok)
         if not ok:
             raise AssertionError(
                 f"training: {len(losses)} steps, finite {finite}, falling "
-                f"{falling}, launches {(fwd, bwd)} vs {want}")
+                f"{falling}, launches {(fwd, bwd)} vs {want}, K5/K6 {split}")
         results["flash_launches"] = {"flash_attention_fwd": fwd,
                                      "flash_attention_bwd": bwd}
         step_ms = rec.step_ms()
@@ -1196,6 +1228,61 @@ def phase_train_cli(results):
     if not ok:
         raise AssertionError(f"train CLI run failed: launches {(fwd, bwd)} "
                              f"vs {want}; {out}")
+    train_cli_llama(fields)
+
+
+def train_cli_llama(fields):
+    """``cli.train_gpt2 --arch llama`` at S=32,768 (2 layers of
+    llama_small's widths) on the stdlib byte corpus: K5 and K6 on every
+    train backward, K7 never, K4 on every train, held-out, prompt and
+    decode forward."""
+    import contextlib
+    import sysconfig
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tnn_tpu_torch.cli import prepare_corpus, train_gpt2
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    layers, steps, evals, sample = 2, 3, 10, 8
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):     # their progress
+        corpus, res = Path(tmp) / "corpus", Path(tmp) / "results"
+        t0 = time.perf_counter()
+        prepare_corpus.main([
+            "--out", str(corpus), "--source",
+            sysconfig.get_paths()["stdlib"], "--max-mb", "8"])
+        for c in counters:
+            c.launches = 0
+        out = train_gpt2.main([
+            "--tokens", str(corpus), "--arch", "llama", "--steps", str(steps),
+            "--batch", "1", "--seq", str(LONG_SEQ), "--layers", str(layers),
+            "--d-model", "768", "--heads", "12", "--kv-heads", "4",
+            "--backend", "pallas", "--sample", str(sample),
+            "--results", str(res)])
+        launches = tuple(c.launches for c in counters)
+        saved = json.loads((res / "lm_llama_byte_pallas.json").read_text())
+    want = (layers * (steps + evals + 1 + (sample - 1)), 0, layers * steps,
+            layers * steps)
+    ok = (saved == out and set(out) == fields
+          and out["metric"] == "llama_bytes_lm"
+          and out["platform"] == torch.cuda.get_device_name(0)
+          and all(math.isfinite(c["loss"]) for c in out["curve"])
+          and math.isfinite(out["val_loss"]) and len(out["sample"]) > 0
+          and launches == want)
+    log("train_cli_llama", seq=LONG_SEQ, layers=layers,
+        **{k: out.get(k) for k in ("platform", "final_train_loss",
+                                   "val_loss", "train_tok_per_s",
+                                   "decode_tok_per_s")},
+        k4_k7_k5_k6_launches=list(launches), expected_launches=list(want),
+        seconds=round(time.perf_counter() - t0, 3), ok=ok)
+    if not ok:
+        raise AssertionError(f"llama train CLI run failed: launches "
+                             f"{launches} vs {want}; {out}")
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -1561,6 +1648,434 @@ def phase_serving_int8(results):
     cli_check(("--kv-dtype", "int8", "--quant-weights"))
 
 
+# -- phase 11 -----------------------------------------------------------------
+#
+# K5 (dQ) and K6 (dK, dV) against the plain backward, element by element,
+# with K7's limit (the note above phase 3): both recompute p and ds from f32
+# logits and round them at the same points, and K5 sums dQ in registers
+# where K7 adds it with atomicAdd, which changes only f32 roundings. At the
+# long-context shape (B=1, H=12, H_kv=4, S=32,768, D=64, bf16, causal) the
+# whole plain version does not fit (one (H, S, S) f32 tensor is 51.5 GB),
+# but slices of it do, since the plain backward takes the kernels' own O
+# and logsumexp: dQ of a block of 64 rows needs only those rows against
+# every key (kv_offset = the block's first row), and dK/dV of a tile of 64
+# keys only the rows from the tile's first on against those keys. So K5's
+# dQ is held to the limit on the first, a middle and the last row block,
+# and K6's dK/dV on the first key tile (the longest sum, all 32,768 rows),
+# a middle and the last. K5 + K6 against K7 (relative L2 per gradient) is
+# then a sanity reading within one bf16 unit, 2^-8: K6 is K7 without the
+# dQ products, so dK and dV agree bit for bit, and K7's dQ differs by the
+# order of its atomicAdds only.
+LONG_SEQ = 32768
+SPLIT_SEQ = 4096
+LLAMA_ATTN = dict(b=1, h=12, hkv=4, d=64)   # llama_small's attention
+LONG_TILE = 64                              # rows / keys of one plain slice
+LONG_VS_K7_REL_L2 = 2.0 ** -8
+
+
+def live_pairs(args):
+    """Live (query, key) pairs of an unmasked call, from its shapes."""
+    import torch
+
+    q, k = args["q"], args["k"]
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    if args["mask"] is not None:
+        raise ValueError("live_pairs counts unmasked calls")
+    if not args["causal"]:
+        return b * h * sq * skv
+    rows = args["kv_offset"] + 1 + torch.arange(sq, dtype=torch.int64)
+    return b * h * int(rows.clamp(0, skv).sum())
+
+
+def split_work(args):
+    """{kernel: (bytes, operations)} of K5, K6 and K7 on these unmasked
+    inputs. Bytes: q, k, v, O, dO and the f32 logsumexp read once, then dQ
+    (K5), dK and dV (K6) or all three (K7) written once. Operations: 2 D
+    per product per live pair; K5 takes three products (S, dP, dQ), K6
+    four (S, dP, dV, dK), K7 five."""
+    q, k = args["q"], args["k"]
+    elem = q.element_size()
+    qo, kv = q.numel() * elem, k.numel() * elem
+    reads = 3 * qo + 2 * kv + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    per_product = 2 * q.shape[-1] * live_pairs(args)
+    return {"flash_attention_bwd_dq": (reads + qo, 3 * per_product),
+            "flash_attention_bwd_dkv": (reads + 2 * kv, 4 * per_product),
+            "flash_attention_bwd_long": (reads + qo + 2 * kv,
+                                         5 * per_product)}
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def split_check(name, args):
+    """One case: K4, then K5, K6 and K7 once each, K5 and K6 held against
+    the plain backward; returns ({gradient: (max |err|, share of the limit
+    used)}, {gradient: relative L2 of K5/K6 to the plain version},
+    {gradient: the same for K7})."""
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = args["q"], args["k"], args["v"], args["do"]
+    kw = dict(causal=args["causal"], mask=args["mask"],
+              kv_offset=args["kv_offset"])
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+    fused = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    if (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) != (before[0] + 1,
+                                                    before[1] + 1):
+        raise AssertionError(f"flash_split {name}: a kernel did not launch")
+    dtype = str(q.dtype).split(".")[-1]
+    refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    mags = backward_magnitudes(q, k, v, o, lse, do, **kw)
+    errs, split_l2, fused_l2 = {}, {}, {}
+    for gname, got, f, r, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), fused,
+                                     refs, mags):
+        errs[gname] = _limit_used(got, r, mag, dtype)
+        split_l2[gname], fused_l2[gname] = _rel_l2(got, r), _rel_l2(f, r)
+    del refs, mags
+    dead = torch.isinf(lse)
+    dead_nonzero = dq[dead].float().abs().max().item() if dead.any() else 0.0
+    worst = max(u for _, u in errs.values())
+    ok = math.isfinite(worst) and worst <= 1.0 and dead_nonzero == 0.0
+    log("flash_split", case=name, dtype=dtype, shape=list(q.shape),
+        kv_heads=k.shape[1], skv=k.shape[2], causal=args["causal"],
+        kv_offset=args["kv_offset"],
+        mask_groups=None if args["mask"] is None else args["mask"].shape[0],
+        **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+        **{f"{n}_limit_used": u for n, (_, u) in errs.items()},
+        split_rel_l2=split_l2, fused_rel_l2=fused_l2,
+        dead_rows=int(dead.sum()), dead_rows_max=dead_nonzero, ok=ok)
+    if not ok:
+        raise AssertionError(f"flash_split {name}: kernel vs plain outside "
+                             f"the stated limit ({errs}, dead rows "
+                             f"{dead_nonzero})")
+    return errs, split_l2, fused_l2
+
+
+def long_plain_slices(args, o, lse, dq, dk, dv):
+    """K5's dQ on the first, a middle and the last block of 64 rows, and
+    K6's dK/dV on the first, a middle and the last tile of 64 keys, of an
+    unmasked causal call at S=32,768, each against the plain backward of
+    its slice (see the note above LONG_SEQ); returns ({check: max |err|},
+    {check: share of the limit used})."""
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = args["q"], args["k"], args["v"], args["do"]
+    s, t = q.shape[2], LONG_TILE
+    dtype = str(q.dtype).split(".")[-1]
+    errs, used = {}, {}
+    for r in (0, s // 2, s - t):
+        rows = slice(r, r + t)
+        sl = [x[:, :, rows] for x in (q, o, lse, do)]
+        kw = dict(causal=True, mask=None, kv_offset=r)
+        ref = fa.flash_attention_backward_reference(sl[0], k, v, sl[1],
+                                                    sl[2], sl[3], **kw)[0]
+        mag = backward_magnitudes(sl[0], k, v, sl[1], sl[2], sl[3], **kw)[0]
+        errs[f"dq_rows_{r}"], used[f"dq_rows_{r}"] = _limit_used(
+            dq[:, :, rows], ref, mag, dtype)
+    for c in (0, s // 2, s - t):
+        rows, keys = slice(c, s), slice(c, c + t)
+        sl = [x[:, :, rows] for x in (q, o, lse, do)]
+        sk, sv = k[:, :, keys], v[:, :, keys]
+        refs = fa.flash_attention_backward_reference(
+            sl[0], sk, sv, sl[1], sl[2], sl[3], causal=True)
+        mags = backward_magnitudes(sl[0], sk, sv, sl[1], sl[2], sl[3],
+                                   causal=True, mask=None, kv_offset=0)
+        for name, got, ref, mag in (("dk", dk, refs[1], mags[1]),
+                                    ("dv", dv, refs[2], mags[2])):
+            key = f"{name}_keys_{c}"
+            errs[key], used[key] = _limit_used(got[:, :, keys], ref, mag,
+                                               dtype)
+        del refs, mags
+    return errs, used
+
+
+def mask_past_2_31():
+    """K4, K5, K6 and K7 under a grouped mask of 4 x 2^30 bytes (B=4, H=1,
+    S=32,768, causal, bf16), whose last group starts past 2^31 and whose
+    last rows end near 2^32: the last 64 rows of the last batch (O, lse
+    and dQ) and its last 64 keys (dK, dV, which only those rows see)
+    against the plain version of that slice (kv_offset S - 64), one row
+    fully masked."""
+    import torch
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    s, t = LONG_SEQ, 64
+    args = flash_case(11, b=4, h=1, hkv=1, sq=s, skv=s, d=64,
+                      dtype=torch.bfloat16, causal=True)
+    mask = torch.ones((4, s, s), dtype=torch.int8, device="cuda")
+    mask[3, :, 5::7] = 0
+    mask[3, s - 10] = 0                        # a row with no live key
+    q, k, v, do = args["q"], args["k"], args["v"], args["do"]
+    kw = dict(causal=True, mask=mask, kv_offset=0)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+    fused = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    rows = slice(s - t, s)
+    sq_, so, sdo = (x[3:, :, rows].contiguous() for x in (q, o, do))
+    slse = lse[3:, :, rows].contiguous()
+    skw = dict(causal=True, mask=mask[3:, rows].contiguous(),
+               kv_offset=s - t)
+    sk, sv = k[3:], v[3:]
+    ref_o, ref_lse = fa.flash_attention_reference(sq_, sk, sv, **skw)
+    mag_o = fa.flash_attention_reference(sq_, sk, sv.abs(), **skw)[0].float()
+    refs = fa.flash_attention_backward_reference(sq_, sk, sv, so, slse, sdo,
+                                                 **skw)
+    mags = backward_magnitudes(sq_, sk, sv, so, slse, sdo, **skw)
+    keys = slice(s - t, s)
+    used = {"o": _limit_used(o[3:, :, rows], ref_o, mag_o, "bfloat16")[1]}
+    for name, got, ref, mag in (
+            ("dq", dq[3:, :, rows], refs[0], mags[0]),
+            ("dq_k7", fused[0][3:, :, rows], refs[0], mags[0]),
+            ("dk", dk[3:, :, keys], refs[1][:, :, keys], mags[1][:, :, keys]),
+            ("dk_k7", fused[1][3:, :, keys], refs[1][:, :, keys],
+             mags[1][:, :, keys]),
+            ("dv", dv[3:, :, keys], refs[2][:, :, keys], mags[2][:, :, keys]),
+            ("dv_k7", fused[2][3:, :, keys], refs[2][:, :, keys],
+             mags[2][:, :, keys])):
+        used[name] = _limit_used(got, ref, mag, "bfloat16")[1]
+    dead = torch.isinf(lse[3, 0])
+    dead_ok = (bool(dead[s - 10]) and int(dead.sum()) == 1
+               and torch.equal(torch.isinf(slse), torch.isinf(ref_lse))
+               and o[3, 0, s - 10].abs().max().item() == 0.0
+               and dq[3, 0, s - 10].abs().max().item() == 0.0)
+    worst = max(used.values())
+    ok = math.isfinite(worst) and worst <= 1.0 and dead_ok
+    log("flash_split_mask_2_32", mask_bytes=mask.numel(),
+        last_group_offset=3 * s * s, limit_used=used, dead_row_ok=dead_ok,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"mask past 2^31: {used}, dead row {dead_ok}")
+
+
+def phase_flash_split(results):
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    cases = flash_cases()
+    cases["llama_s4096_bf16"] = dict(LLAMA_ATTN, sq=SPLIT_SEQ, skv=SPLIT_SEQ,
+                                     dtype=bf16, causal=True)
+    worst_dq = worst_dkv = 0.0
+    for i, (name, spec) in enumerate(cases.items()):
+        args = flash_case(500 + i, **spec)
+        errs, split_l2, fused_l2 = split_check(name, args)
+        worst_dq = max(worst_dq, errs["dq"][0])
+        worst_dkv = max(worst_dkv, errs["dk"][0], errs["dv"][0])
+        del args
+        torch.cuda.empty_cache()
+    # the long-context shape: K5 and K6 against plain slices, K5 repeated,
+    # and K5 + K6 against K7 as a sanity reading
+    long = flash_case(9, **LLAMA_ATTN, sq=LONG_SEQ, skv=LONG_SEQ, dtype=bf16,
+                      causal=True)
+    q, k, v, do = long["q"], long["k"], long["v"], long["do"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dq = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True)
+    fused = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(dq, dq2))
+    l2 = {n: _rel_l2(a, f) for n, a, f in zip(("dq", "dk", "dv"),
+                                              (dq, dk, dv), fused)}
+    finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    del dq2, fused
+    slice_errs, slice_used = long_plain_slices(long, o, lse, dq, dk, dv)
+    worst_dq = max([worst_dq] + [e for n, e in slice_errs.items()
+                                 if n.startswith("dq")])
+    worst_dkv = max([worst_dkv] + [e for n, e in slice_errs.items()
+                                   if not n.startswith("dq")])
+    worst_used = max(slice_used.values())
+    ok = (same and finite and math.isfinite(worst_used) and worst_used <= 1.0
+          and all(l2[n] <= LONG_VS_K7_REL_L2 for n in l2))
+    log("flash_split_long", shape=list(q.shape), kv_heads=k.shape[1],
+        plain_slices_max_abs_err=slice_errs,
+        plain_slices_limit_used=slice_used,
+        split_vs_fused_rel_l2=l2, split_vs_fused_limit=LONG_VS_K7_REL_L2,
+        readings_at_4096={"split": split_l2, "fused": fused_l2},
+        dq_bit_identical=same, finite=finite, ok=ok)
+    if not ok:
+        raise AssertionError(f"K5 + K6 at S={LONG_SEQ}: plain slices "
+                             f"{slice_used}, vs K7 {l2} (limit "
+                             f"{LONG_VS_K7_REL_L2}), repeat identical {same}")
+    mask_past_2_31()
+    torch.cuda.empty_cache()
+
+    # times at the long-context shape; the plain backward at S=4096 (the
+    # plain version of both K5 and K6), SDPA's backward at S=32,768 (all
+    # three gradients in one call, the library's nearest function)
+    small = flash_case(10, **LLAMA_ATTN, sq=SPLIT_SEQ, skv=SPLIT_SEQ,
+                       dtype=bf16, causal=True)
+    so, slse = fa.flash_attention_fwd(small["q"], small["k"], small["v"],
+                                      causal=True)
+    plain = (small["q"], small["k"], small["v"], so, slse, small["do"])
+    lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                 enable_gqa=True)
+    fns = {
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, o, lse, do, causal=True),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, o, lse, do, causal=True),
+        "flash_attention_bwd_long": lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True),
+        "plain": lambda: fa.flash_attention_backward_reference(
+            *plain, causal=True),
+        "library": lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                               retain_graph=True)}
+    times = {}
+    for name, fn in fns.items():
+        device, events = time_ms(fn, iters=3, warmup=1)
+        times[name] = (events if device is None else device, events)
+    worst = {"flash_attention_bwd_dq": worst_dq,
+             "flash_attention_bwd_dkv": worst_dkv}
+    for name, (nbytes, ops) in split_work(long).items():
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
+        timed = dict(ms=times[name][0], events_ms=times[name][1],
+                     plain_ms=times["plain"][0],
+                     plain_events_ms=times["plain"][1],
+                     library_ms=times["library"][0],
+                     library_events_ms=times["library"][1],
+                     bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
+                     bound_by="bytes" if byte_ms >= op_ms else "operations",
+                     seq=LONG_SEQ, plain_seq=SPLIT_SEQ)
+        log("flash_split_time", kernel=name, case="llama_s32768_bf16",
+            **timed)
+        if name in worst:     # K7 at this shape is logged only
+            results[name] = dict(timed, max_abs_err=worst[name])
+    # comparison launches do not count
+    for wrapper in (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                    fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        wrapper.launches = 0
+    del long, small, plain, q, k, v, do, o, lse, dq, dk, dv, lq, lk, lv
+    del lib_out
+    torch.cuda.empty_cache()
+
+
+# -- phase 12 -----------------------------------------------------------------
+
+LONG_TRAIN_STEPS = 6   # 2 warm-up, 3 timed, 1 profiled
+LONG_EVAL_STEPS = 2
+
+
+def llama_flops_per_step(model, batch, seq):
+    """6 x (weights in matmuls, the tied head included: per layer the qkv
+    projection d (d + 2 kv_d), the output d^2 and the SwiGLU 3 d hidden;
+    V d) per token, plus causal attention 6 L S d per token (QK and PV over
+    S/2 keys on average, forward and the backward's twice as much)."""
+    d, kv_d = model.d_model, model.num_kv_heads * (
+        model.d_model // model.num_heads)
+    per_layer = d * (d + 2 * kv_d) + d * d + 3 * d * model.mlp_hidden
+    n = model.num_layers * per_layer + model.vocab_size * d
+    return (6 * n + 6 * model.num_layers * seq * d) * batch * seq
+
+
+def phase_training_long(results):
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.data.token_stream import TokenStreamDataLoader
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.nn.schedulers import WarmupCosineAnnealing
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import (create_train_state, make_eval_step,
+                                     make_train_step)
+
+    t0 = time.perf_counter()
+    model = zoo.create("flash_llama_small", max_len=LONG_SEQ, device="cuda",
+                       seed=0)
+    init_s = time.perf_counter() - t0
+    steps, evals = LONG_TRAIN_STEPS, LONG_EVAL_STEPS
+    # the CLI's optimizer and schedule
+    opt = AdamW(lr=3e-4, weight_decay=0.01, grad_clip_norm=1.0)
+    sched = WarmupCosineAnnealing(warmup=max(10, steps // 20), t_max=steps)
+    state = create_train_state(model, opt, seed=0)
+    rec = StepRecorder(timed=range(2, steps - 1),
+                       profiled=range(steps - 1, steps))
+    step = rec.wrap(make_train_step)(model, opt, scheduler=sched)
+    ev = make_eval_step(model, compute_accuracy=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_corpus(Path(tmp), vocab=model.vocab_size)
+        train = TokenStreamDataLoader(str(Path(tmp) / "train.bin"), LONG_SEQ)
+        val = TokenStreamDataLoader(str(Path(tmp) / "val.bin"), LONG_SEQ)
+        rng = np.random.default_rng(0)
+
+        def batch(loader):
+            d, l = loader.random_windows(1, rng)
+            return (torch.from_numpy(d).cuda().long(),
+                    torch.from_numpy(l).cuda().long())
+
+        counters = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                    fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, *batch(train))
+        val_losses = [float(ev(state, *batch(val))["loss"])
+                      for _ in range(evals)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd, dq, dkv = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in rec.losses]
+    layers = model.num_layers
+    want = (layers * (steps + evals), 0, layers * steps, layers * steps)
+    finite = all(math.isfinite(x) for x in losses + val_losses)
+    falling = losses[-1] < losses[0]
+    ok = finite and falling and (fwd, bwd, dq, dkv) == want
+    log("training_long", model="flash_llama_small", batch=1, seq=LONG_SEQ,
+        layers=layers, d_model=model.d_model, heads=model.num_heads,
+        kv_heads=model.num_kv_heads, mlp_hidden=model.mlp_hidden,
+        vocab=model.vocab_size, policy=model.policy.compute,
+        init_s=init_s, steps=steps, losses=losses, val_losses=val_losses,
+        k4_launches=fwd, k7_launches=bwd, k5_launches=dq, k6_launches=dkv,
+        expected_launches=list(want), wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"long training: finite {finite}, falling {falling}, launches "
+            f"K4/K7/K5/K6 {(fwd, bwd, dq, dkv)} vs {want}")
+    results["split_launches"] = {"flash_attention_bwd_dq": dq,
+                                 "flash_attention_bwd_dkv": dkv}
+    step_ms = rec.step_ms()
+    kernels = rec.device_ms()
+    busy = sum(kernels.values())
+    flops = llama_flops_per_step(model, 1, LONG_SEQ)
+    log("training_long_profile", steps_timed=len(rec.timed), step_ms=step_ms,
+        tokens_per_s=LONG_SEQ / step_ms * 1e3, peak_mem_gb=peak,
+        model_flops_per_step=flops,
+        flops_formula="B*S*(6*(L*(d*(d+2*kv_d) + d^2 + 3*d*hidden) + V*d)"
+                      " + 6*L*S*d)",
+        mfu=flops / (step_ms * 1e-3 * PEAK_BF16), device_busy_ms=busy,
+        idle_share=1.0 - busy / step_ms,
+        flash_kernels_ms={n: t for n, t in kernels.items() if "flash" in n},
+        top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    del model, state, step, ev
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1578,8 +2093,9 @@ def main() -> int:
     info = phase_device()
     results = {}
     build_kernels()
-    for phase in (phase_kernel, phase_flash, phase_serving, phase_cli,
-                  phase_training, phase_train_cli, phase_int8_kernel,
+    for phase in (phase_kernel, phase_flash, phase_flash_split,
+                  phase_serving, phase_cli, phase_training,
+                  phase_training_long, phase_train_cli, phase_int8_kernel,
                   phase_int8_matmul, phase_serving_int8):
         t0 = time.perf_counter()
         phase(results)
@@ -1611,6 +2127,13 @@ def main() -> int:
                     "replaces": "tnn_tpu/ops/pallas/quant_matmul.py:152",
                     "launches": results["int8_launches"]["k3"],
                     **{k: results["int8_matmul"][k] for k in keys}})
+    for name, line in (("flash_attention_bwd_dq", 578),
+                       ("flash_attention_bwd_dkv", 618)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "tnn_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": f"{flash}:{line}",
+                        "launches": results["split_launches"][name],
+                        **{k: results[name][k] for k in keys}})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

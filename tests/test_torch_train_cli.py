@@ -2,7 +2,8 @@
 
 ``cli.prepare_corpus`` (byte mode) writes the same files as the JAX
 package's; ``cli.train_gpt2 --device cpu`` runs a few tiny steps through
-the flash backend and writes the results JSON with the JAX CLI's fields;
+the flash backend, for GPT-2 and for ``--arch llama``, and writes the
+results JSON with the JAX CLI's fields;
 ``generate`` (greedy, KV cache, the flash kernel's ``kv_offset`` form)
 gives the JAX package's tokens on the same weights under FP32, where both
 sides compute in float32 and greedy argmax is exact.
@@ -74,10 +75,34 @@ def test_train_gpt2_cli_on_cpu(sources, tmp_path):
     # CPU tensors run the plain versions: nothing launched
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd.launches) == before
-    for flag, value in (("--arch", "llama"), ("--fused-head-loss", "64")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_gpt2.main(["--tokens", str(corpus), flag, value,
-                             "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_gpt2.main(["--tokens", str(corpus), "--fused-head-loss", "64",
+                         "--device", "cpu"])
+
+
+def test_train_llama_cli_on_cpu(sources, tmp_path, monkeypatch):
+    """``--arch llama`` trains a few CPU steps through the flash backend,
+    its backward on the split path (forced: the tiny sequence is far below
+    the rule's length), samples in byte mode and writes its results."""
+    corpus, results = tmp_path / "corpus", tmp_path / "results"
+    prepare_corpus.main(["--out", str(corpus), "--source", str(sources),
+                         "--val-fraction", "0.2"])
+    monkeypatch.setenv("TNN_FLASH_FUSED_BWD", "0")
+    calls = []
+    real = fa.flash_attention_bwd_dq
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = train_gpt2.main([
+        "--tokens", str(corpus), "--arch", "llama", "--steps", "3",
+        "--batch", "2", "--seq", "32", "--layers", "2", "--d-model", "64",
+        "--heads", "4", "--kv-heads", "2", "--backend", "pallas",
+        "--sample", "8", "--device", "cpu", "--results", str(results)])
+    saved = json.loads((results / "lm_llama_byte_pallas.json").read_text())
+    assert saved == out and set(out) == JAX_CLI_FIELDS
+    assert out["metric"] == "llama_bytes_lm" and out["platform"] == "cpu"
+    assert out["steps"] == 3 and len(calls) == 2 * 3   # layers x steps
+    assert all(np.isfinite(c["loss"]) for c in out["curve"])
+    assert np.isfinite(out["val_loss"]) and isinstance(out["sample"], str)
 
 
 @pytest.mark.parametrize("kv_heads", [None, 1], ids=["mha", "gqa"])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""Train GPT-2 on a token stream (``tnn_tpu.cli.train_gpt2``): mmap token
-stream -> (B, S) windows -> train step (``--backend pallas``: the flash
-attention kernels, K4 forward and K7 backward) -> held-out loss -> KV-cache
-sampling in byte mode.
+"""Train a decoder LM, GPT-2 or Llama (``--arch``), on a token stream
+(``tnn_tpu.cli.train_gpt2``): mmap token stream -> (B, S) windows -> train
+step (``--backend pallas``: the flash attention kernels, K4 forward and the
+fused backward K7, or the split backward K5 + K6 at long sequences) ->
+held-out loss -> KV-cache sampling in byte mode.
 
     python -m tnn_tpu_torch.cli.prepare_corpus --out data/pytok \\
         --source /usr/lib/python3.12
@@ -25,6 +26,7 @@ import torch
 
 from tnn_tpu_torch.data.token_stream import TokenStreamDataLoader
 from tnn_tpu_torch.models.gpt2 import GPT2, generate
+from tnn_tpu_torch.models.llama import Llama
 from tnn_tpu_torch.nn.optimizers import AdamW
 from tnn_tpu_torch.nn.schedulers import WarmupCosineAnnealing
 from tnn_tpu_torch.train import (create_train_state, make_eval_step,
@@ -50,7 +52,9 @@ def main(argv=None):
     ap.add_argument("--kv-heads", type=int, default=0,
                     help="grouped-query attention: KV heads (< --heads, "
                          "divisor); 0 = full MHA")
-    ap.add_argument("--arch", default="gpt2", choices=["gpt2", "llama"])
+    ap.add_argument("--arch", default="gpt2", choices=["gpt2", "llama"],
+                    help="decoder family: gpt2 (learned positions, GELU MLP) "
+                         "or llama (RoPE + RMSNorm + SwiGLU)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--backend", default="xla", choices=["xla", "pallas"],
                     help="attention backend (pallas = the flash kernels)")
@@ -64,9 +68,6 @@ def main(argv=None):
     ap.add_argument("--results", default="benchmarks/results")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch == "llama":
-        raise NotImplementedError("--arch llama (models/llama.py) is not "
-                                  "ported yet (ROADMAP.md)")
     if args.fused_head_loss:
         raise NotImplementedError("--fused-head-loss (nn.lm_loss) is not "
                                   "ported yet (ROADMAP.md)")
@@ -89,10 +90,14 @@ def main(argv=None):
     total_steps = args.steps
     call_sizes = [spc] * n_full + ([rem] if rem else [])
 
-    model = GPT2(vocab_size=vocab, max_len=args.seq, num_layers=args.layers,
-                 d_model=args.d_model, num_heads=args.heads,
-                 num_kv_heads=args.kv_heads or None, backend=args.backend,
-                 dropout=0.0, device=device, seed=0)
+    model_kw = dict(vocab_size=vocab, max_len=args.seq,
+                    num_layers=args.layers, d_model=args.d_model,
+                    num_heads=args.heads, backend=args.backend,
+                    num_kv_heads=args.kv_heads or None, device=device, seed=0)
+    if args.arch == "llama":
+        model = Llama(**model_kw)
+    else:
+        model = GPT2(dropout=0.0, **model_kw)
     opt = AdamW(lr=args.lr, weight_decay=0.01, grad_clip_norm=1.0)
     sched = WarmupCosineAnnealing(warmup=max(10, total_steps // 20),
                                   t_max=total_steps)

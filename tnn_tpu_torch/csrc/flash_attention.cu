@@ -1,8 +1,13 @@
-// Flash attention for Hopper (sm_90a): the forward (K4) and the fused
-// one-sweep backward (K7), bf16 or f32, head dim 64 or 128.
+// Flash attention for Hopper (sm_90a): the forward (K4), the fused
+// one-sweep backward (K7) and the split backward (K5 dQ, K6 dK/dV), bf16 or
+// f32, head dim 64 or 128.
 //
 // Replaces the Pallas TPU kernels
 //   tnn_tpu/ops/pallas/flash_attention.py:_flash_fwd / _fwd_kernel       (K4)
+//   tnn_tpu/ops/pallas/flash_attention.py:_flash_bwd dQ pass /
+//                                        _bwd_dq_kernel                   (K5)
+//   tnn_tpu/ops/pallas/flash_attention.py:_flash_bwd dK/dV pass /
+//                                        _bwd_dkv_kernel                  (K6)
 //   tnn_tpu/ops/pallas/flash_attention.py:_flash_bwd_fused /
 //                                        _bwd_fused_kernel                (K7)
 // and computes what they compute, at the same rounding points:
@@ -18,17 +23,23 @@
 //     +inf on rows with no live key, whose output is exactly 0;
 //   * backward: p = exp(s - lse) recomputed per tile, delta = rowsum(dO*O)
 //     in a pre-pass, dV += round(p)^T dO, ds = round(p * (dP - delta) *
-//     scale) with dP = dO V^T, dK += ds^T Q and dQ += ds K: five products
-//     per live tile. Rounding to the input dtype matches the TPU kernel's
-//     p.astype(dO.dtype) and ds.astype(q.dtype).
+//     scale) with dP = dO V^T, dK += ds^T Q and dQ += ds K. Rounding to the
+//     input dtype matches the TPU kernels' p.astype(dO.dtype) and
+//     ds.astype(q.dtype). K7 takes five products per live tile; K5 (S, dP,
+//     dQ) and K6 (S, dP, dV, dK) take seven between them.
+//
+// Every offset that multiplies two lengths, or a length by B*H, is taken in
+// size_t: at S = 32,768 a mask of G groups spans G * 2^30 bytes.
 //
 // What bounds it on the H100: at gpt2_small's training shape (B=8, H=12,
 // S=1024, D=64, bf16, causal) the forward moves 50 MB and computes 12.9
 // GFLOP of causal QK and PV (0.015 ms at 3.35 TB/s vs 0.013 ms at 989
 // TFLOP/s: bytes, barely); the backward computes 32 GFLOP (0.033 ms,
-// operations). This first version computes in f32 on the CUDA cores (no
-// tensor cores: 67 TFLOP/s peak), so it is operations-bound far above
-// either line; mma/wgmma, TMA and warp specialisation are later work.
+// operations). At llama_small's long-context shape (B=1, H=12, H_kv=4,
+// S=32,768) every kernel is operations-bound: K5 2.47 TFLOP, K6 3.30, K7
+// 4.12. This first version computes in f32 on the CUDA cores (no tensor
+// cores: 67 TFLOP/s peak), so it is operations-bound far above either
+// line; mma/wgmma, TMA and warp specialisation are later work.
 //
 // Design. The TPU grid walks kv blocks in order and carries (m, l, acc) in
 // VMEM scratch; here one block of 256 threads owns one (batch*head, 64-row
@@ -41,15 +52,21 @@
 // The TPU's fused backward carries a full-sequence dQ scratch across a
 // SEQUENTIAL grid; CUDA blocks run in no order. Here one block owns one
 // (batch*q-head, 64-key tile), keeps K_j, V_j in shared memory and dK_j, dV_j
-// in registers, and walks the q tiles that can see it. Each q tile's dQ
-// contribution ds K_j is added into an f32 (B*H, Sq, D) buffer with
-// atomicAdd, so the low bits of dQ depend on the order the blocks finish
-// in and differ from run to run; dK and dV are deterministic. dK and dV are
-// written per q head; the caller sums each GQA group, as the TPU path does.
+// in registers, and walks the q tiles that can see it. K7 adds each q tile's
+// dQ contribution ds K_j into an f32 (B*H, Sq, D) buffer with atomicAdd, so
+// the low bits of its dQ depend on the order the blocks finish in and
+// differ from run to run; K6 is the same kernel without the dQ products.
+// K5 owns one (batch*q-head, 64-row q tile), as the forward does, walks the
+// live key tiles (causal: up to the row tile's last live key, the TPU's
+// dead-block clamp), keeps dQ in registers in f32 and writes it once: no
+// atomics, the same bits on every run. dK and dV are written per q head;
+// the caller sums each GQA group, as the TPU path does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -284,7 +301,183 @@ __global__ void flash_delta_kernel(const T* __restrict__ o,
   if (lane == 0) delta[row] = acc;
 }
 
+// lse and delta of q rows [q0, q0 + kTile) into shared memory; +inf on
+// padding rows makes their p exactly 0
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
+                                               const float* lsep,
+                                               const float* deltap, int q0,
+                                               int sq) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool in = q0 + i < sq;
+    lse_s[i] = in ? lsep[q0 + i] : INFINITY;
+    delta_s[i] = in ? deltap[q0 + i] : 0.f;
+  }
+}
+
+// One (64 q rows, 64 keys) tile of the backward, from Q, dO, K, V (f32,
+// row stride D + 1) in shared memory: S = Q K^T and dP = dO V^T for q rows
+// tr + 16 i and keys tc + 16 j, then p = exp(S scale - lse), stored rounded
+// to T in pts (when given), and ds = round(p (dP - delta) scale) in dss,
+// both (q row, key) with row stride kTile + 1.
 template <typename T, int D>
+__device__ __forceinline__ void bwd_tile(const Shape& s, const int8_t* mp,
+                                         int q0, int k0, const float* qs,
+                                         const float* dos, const float* ks,
+                                         const float* vs, const float* lse_s,
+                                         const float* delta_s, float* pts,
+                                         float* dss) {
+  constexpr int S = D + 1;
+  constexpr int PS = kTile + 1;
+  const int tr = threadIdx.x / 16;
+  const int tc = threadIdx.x % 16;
+  float sc[kSub][kSub], dp[kSub][kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      sc[i][j] = 0.f;
+      dp[i][j] = 0.f;
+    }
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[kSub], dov[kSub], kv[kSub], vv[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      qv[i] = qs[(tr + 16 * i) * S + d];
+      dov[i] = dos[(tr + 16 * i) * S + d];
+    }
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      kv[j] = ks[(tc + 16 * j) * S + d];
+      vv[j] = vs[(tc + 16 * j) * S + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int r = tr + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      const int c = tc + 16 * j;
+      const float sv =
+          is_live(s, mp, q0 + r, k0 + c) ? sc[i][j] * s.scale : kNegInf;
+      const float p = expf(sv - lse_s[r]);
+      if (pts != nullptr) pts[r * PS + c] = round_to<T>(p);
+      dss[r * PS + c] = round_to<T>(p * (dp[i][j] - delta_s[r]) * s.scale);
+    }
+  }
+}
+
+// acc[i][e] += sum_c dss[tr + 16 i, c] * ks[c, tc + 16 e]: the dQ product
+// of one tile, q rows tr + 16 i, dims tc + 16 e
+template <int D>
+__device__ __forceinline__ void add_ds_k(float acc[kSub][D / 16],
+                                         const float* dss, const float* ks) {
+  constexpr int S = D + 1;
+  constexpr int PS = kTile + 1;
+  const int tr = threadIdx.x / 16;
+  const int tc = threadIdx.x % 16;
+#pragma unroll 2
+  for (int c = 0; c < kTile; ++c) {
+    float dr[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) dr[i] = dss[(tr + 16 * i) * PS + c];
+#pragma unroll
+    for (int e = 0; e < D / 16; ++e) {
+      const float kv = ks[c * S + tc + 16 * e];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) acc[i][e] = fmaf(dr[i], kv, acc[i][e]);
+    }
+  }
+}
+
+// K5: dQ of one (batch*q-head, 64-row q tile), accumulated in registers
+// over the live key tiles and written once in T.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int8_t* __restrict__ mask,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const Shape s) {
+  constexpr int S = D + 1;
+  constexpr int PS = kTile + 1;
+  constexpr int kDims = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * S;
+  float* ks = dos + kTile * S;
+  float* vs = ks + kTile * S;
+  float* dss = vs + kTile * S;  // round(ds), (q row, key)
+  float* lse_s = dss + kTile * PS;
+  float* delta_s = lse_s + kTile;
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.H;
+  const int bkv = b * s.HKV + (bh % s.H) / s.g;
+  const int nq = (s.Sq + kTile - 1) / kTile;
+  const int qt = s.causal ? nq - 1 - static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x);
+  const int q0 = qt * kTile;
+  const int tr = threadIdx.x / 16;
+  const int tc = threadIdx.x % 16;
+
+  const T* kp = k + static_cast<size_t>(bkv) * s.Skv * D;
+  const T* vp = v + static_cast<size_t>(bkv) * s.Skv * D;
+  const int8_t* mp = mask_rows(mask, s, bh);
+
+  load_tile<T, D, S>(qs, q + static_cast<size_t>(bh) * s.Sq * D, q0, s.Sq);
+  load_tile<T, D, S>(dos, dout + static_cast<size_t>(bh) * s.Sq * D, q0,
+                     s.Sq);
+  load_row_stats(lse_s, delta_s, lse + static_cast<size_t>(bh) * s.Sq,
+                 delta + static_cast<size_t>(bh) * s.Sq, q0, s.Sq);
+
+  float acc[kSub][kDims];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) acc[i][e] = 0.f;
+
+  int nk = (s.Skv + kTile - 1) / kTile;
+  if (s.causal) {
+    const int last = s.off + q0 + kTile - 1;  // the tile's last position
+    nk = last < 0 ? 0 : min(nk, last / kTile + 1);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of ks / vs / dss are done
+    load_tile<T, D, S>(ks, kp, k0, s.Skv);
+    load_tile<T, D, S>(vs, vp, k0, s.Skv);
+    __syncthreads();
+    bwd_tile<T, D>(s, mp, q0, k0, qs, dos, ks, vs, lse_s, delta_s, nullptr,
+                   dss);
+    __syncthreads();
+    add_ds_k<D>(acc, dss, ks);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int qi = q0 + tr + 16 * i;
+    if (qi >= s.Sq) continue;
+    const size_t row = static_cast<size_t>(bh) * s.Sq + qi;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e)
+      dq[row * D + tc + 16 * e] = from_f32<T>(acc[i][e]);
+  }
+}
+
+// K7 (kDq) and K6 (!kDq): dK and dV of one (batch*q-head, 64-key tile)
+// over the q tiles that can see it; K7 also adds each tile's dQ product into
+// dq_acc with atomicAdd.
+template <typename T, int D, bool kDq>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int8_t* __restrict__ mask,
@@ -313,15 +506,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* qp = q + static_cast<size_t>(bh) * s.Sq * D;
   const T* dop = dout + static_cast<size_t>(bh) * s.Sq * D;
-  const T* kp = k + static_cast<size_t>(bkv) * s.Skv * D;
-  const T* vp = v + static_cast<size_t>(bkv) * s.Skv * D;
   const float* lsep = lse + static_cast<size_t>(bh) * s.Sq;
   const float* deltap = delta + static_cast<size_t>(bh) * s.Sq;
-  float* dqp = dq_acc + static_cast<size_t>(bh) * s.Sq * D;
   const int8_t* mp = mask_rows(mask, s, bh);
 
-  load_tile<T, D, S>(ks, kp, k0, s.Skv);
-  load_tile<T, D, S>(vs, vp, k0, s.Skv);
+  load_tile<T, D, S>(ks, k + static_cast<size_t>(bkv) * s.Skv * D, k0,
+                     s.Skv);
+  load_tile<T, D, S>(vs, v + static_cast<size_t>(bkv) * s.Skv * D, k0,
+                     s.Skv);
 
   float dk_acc[kSub][kDims], dv_acc[kSub][kDims];
 #pragma unroll
@@ -333,7 +525,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
   // the q tiles that can see this key tile: causal rows below k0 - off see
-  // none of its keys
+  // none of its keys (with Sq < Skv a trailing key tile may see no q tile)
   const int nq = (s.Sq + kTile - 1) / kTile;
   int qt0 = 0;
   if (s.causal && k0 - s.off > 0) qt0 = (k0 - s.off) / kTile;
@@ -343,57 +535,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous q tile's reads are done
     load_tile<T, D, S>(qs, qp, q0, s.Sq);
     load_tile<T, D, S>(dos, dop, q0, s.Sq);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool in = q0 + i < s.Sq;
-      // +inf on padding rows makes their p exactly 0
-      lse_s[i] = in ? lsep[q0 + i] : INFINITY;
-      delta_s[i] = in ? deltap[q0 + i] : 0.f;
-    }
+    load_row_stats(lse_s, delta_s, lsep, deltap, q0, s.Sq);
     __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: q rows tr + 16 i, keys tc + 16 j
-    float sc[kSub][kSub], dp[kSub][kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        sc[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kSub], dov[kSub], kv[kSub], vv[kSub];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        qv[i] = qs[(tr + 16 * i) * S + d];
-        dov[i] = dos[(tr + 16 * i) * S + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        kv[j] = ks[(tc + 16 * j) * S + d];
-        vv[j] = vs[(tc + 16 * j) * S + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int r = tr + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int c = tc + 16 * j;
-        const float sv =
-            is_live(s, mp, q0 + r, k0 + c) ? sc[i][j] * s.scale : kNegInf;
-        const float p = expf(sv - lse_s[r]);
-        pts[r * PS + c] = round_to<T>(p);
-        dss[r * PS + c] = round_to<T>(p * (dp[i][j] - delta_s[r]) * s.scale);
-      }
-    }
+    bwd_tile<T, D>(s, mp, q0, k0, qs, dos, ks, vs, lse_s, delta_s, pts, dss);
     __syncthreads();
 
     // dV += round(p)^T dO and dK += ds^T Q: keys tr + 16 i, dims tc + 16 e
@@ -417,31 +561,24 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // dQ += ds K over this key tile: q rows tr + 16 i, dims tc + 16 e
-    float dq[kSub][kDims];
+    if constexpr (kDq) {
+      // dQ += ds K over this key tile: q rows tr + 16 i, dims tc + 16 e
+      float dq[kSub][kDims];
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+      for (int i = 0; i < kSub; ++i)
 #pragma unroll
-      for (int e = 0; e < kDims; ++e) dq[i][e] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < kTile; ++c) {
-      float dr[kSub];
+        for (int e = 0; e < kDims; ++e) dq[i][e] = 0.f;
+      add_ds_k<D>(dq, dss, ks);
+      float* dqp = dq_acc + static_cast<size_t>(bh) * s.Sq * D;
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) dr[i] = dss[(tr + 16 * i) * PS + c];
+      for (int i = 0; i < kSub; ++i) {
+        const int qi = q0 + tr + 16 * i;
+        if (qi >= s.Sq) continue;
 #pragma unroll
-      for (int e = 0; e < kDims; ++e) {
-        const float kv = ks[c * S + tc + 16 * e];
-#pragma unroll
-        for (int i = 0; i < kSub; ++i) dq[i][e] = fmaf(dr[i], kv, dq[i][e]);
+        for (int e = 0; e < kDims; ++e)
+          atomicAdd(dqp + static_cast<size_t>(qi) * D + tc + 16 * e,
+                    dq[i][e]);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int qi = q0 + tr + 16 * i;
-      if (qi >= s.Sq) continue;
-#pragma unroll
-      for (int e = 0; e < kDims; ++e)
-        atomicAdd(dqp + static_cast<size_t>(qi) * D + tc + 16 * e, dq[i][e]);
     }
   }
 
@@ -468,6 +605,15 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// fn(T{}, std::integral_constant<int, D>{}) for the entry's dtype and D
+template <typename Fn>
+cudaError_t dispatch(int dtype, int D, Fn fn) {
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (dtype == 0) return D == 64 ? fn(float{}, D64{}) : fn(float{}, D128{});
+  return D == 64 ? fn(__nv_bfloat16{}, D64{}) : fn(__nv_bfloat16{}, D128{});
+}
+
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* o, float* lse, const Shape& s,
@@ -485,24 +631,31 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the delta pre-pass of every backward
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         const Shape& s, cudaStream_t st) {
+  const int rows = s.B * s.H * s.Sq;
+  constexpr int kRowsPerBlock = 8;  // warps of the delta pre-pass
+  if (rows == 0) return cudaSuccess;
+  flash_delta_kernel<T, D><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock,
+                             kRowsPerBlock * 32, 0, st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  return cudaGetLastError();
+}
+
+// K7 (dq_acc given) or K6 (dq_acc null), after the delta pre-pass
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* mask, const void* o, const void* dout,
                        const float* lse, float* delta, float* dq_acc, void* dk,
                        void* dv, const Shape& s, cudaStream_t st) {
-  const int rows = s.B * s.H * s.Sq;
-  constexpr int kRowsPerBlock = 8;  // warps of the delta pre-pass
-  cudaError_t e;
-  if (rows > 0) {
-    flash_delta_kernel<T, D><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock,
-                               kRowsPerBlock * 32, 0, st>>>(
-        static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = launch_delta<T, D>(o, dout, delta, s, st);
+  if (e != cudaSuccess) return e;
   const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
                                        2 * kTile * (kTile + 1) + 2 * kTile);
-  auto kernel = flash_bwd_kernel<T, D>;
+  auto kernel = dq_acc != nullptr ? &flash_bwd_kernel<T, D, true>
+                                  : &flash_bwd_kernel<T, D, false>;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s.Skv + kTile - 1) / kTile, s.B * s.H);
@@ -511,6 +664,27 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const int8_t*>(mask),
       static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
       static_cast<T*>(dv), s);
+  return cudaGetLastError();
+}
+
+// K5, after the delta pre-pass
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
+                          const void* mask, const void* o, const void* dout,
+                          const float* lse, float* delta, void* dq,
+                          const Shape& s, cudaStream_t st) {
+  cudaError_t e = launch_delta<T, D>(o, dout, delta, s, st);
+  if (e != cudaSuccess) return e;
+  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
+                                       kTile * (kTile + 1) + 2 * kTile);
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.Sq + kTile - 1) / kTile, s.B * s.H);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int8_t*>(mask),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), s);
   return cudaGetLastError();
 }
 
@@ -551,18 +725,12 @@ extern "C" int tnn_flash_fwd(const void* q, const void* k, const void* v,
   if (!make_shape(&s, B, H, HKV, Sq, Skv, D, dtype, mask_groups, causal, off,
                   scale))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = D == 64 ? launch_fwd<float, 64>(q, k, v, mask, o, l, s, st)
-                : launch_fwd<float, 128>(q, k, v, mask, o, l, s, st);
-  } else {
-    e = D == 64 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, mask, o, l, s, st)
-                : launch_fwd<__nv_bfloat16, 128>(q, k, v, mask, o, l, s, st);
-  }
-  return static_cast<int>(e);
+  if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
+    return launch_fwd<decltype(t), decltype(d)::value>(
+        q, k, v, mask, o, static_cast<float*>(lse), s, st);
+  }));
 }
 
 // K7: dq_acc (B, H, Sq, D) f32, zeroed by the caller, receives dQ; dk and
@@ -579,22 +747,57 @@ extern "C" int tnn_flash_bwd(const void* q, const void* k, const void* v,
   if (!make_shape(&s, B, H, HKV, Sq, Skv, D, dtype, mask_groups, causal, off,
                   scale))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  float* dq = static_cast<float*>(dq_acc);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = D == 64 ? launch_bwd<float, 64>(q, k, v, mask, o, dout, l, dl, dq, dk,
-                                        dv, s, st)
-                : launch_bwd<float, 128>(q, k, v, mask, o, dout, l, dl, dq,
-                                         dk, dv, s, st);
-  } else {
-    e = D == 64 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, mask, o, dout, l, dl,
-                                                dq, dk, dv, s, st)
-                : launch_bwd<__nv_bfloat16, 128>(q, k, v, mask, o, dout, l,
-                                                 dl, dq, dk, dv, s, st);
-  }
-  return static_cast<int>(e);
+  if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
+  if (dq_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
+    return launch_bwd<decltype(t), decltype(d)::value>(
+        q, k, v, mask, o, dout, static_cast<const float*>(lse),
+        static_cast<float*>(delta), static_cast<float*>(dq_acc), dk, dv, s,
+        st);
+  }));
+}
+
+// K5: dq (B, H, Sq, D) in the input dtype, written whole; delta (B, H, Sq)
+// f32 is scratch.
+extern "C" int tnn_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* mask, const void* o,
+                                const void* dout, const void* lse,
+                                void* delta, void* dq, int dtype, int B,
+                                int H, int HKV, int Sq, int Skv, int D,
+                                int mask_groups, int causal, int off,
+                                float scale, void* stream) {
+  Shape s;
+  if (!make_shape(&s, B, H, HKV, Sq, Skv, D, dtype, mask_groups, causal, off,
+                  scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
+    return launch_bwd_dq<decltype(t), decltype(d)::value>(
+        q, k, v, mask, o, dout, static_cast<const float*>(lse),
+        static_cast<float*>(delta), dq, s, st);
+  }));
+}
+
+// K6: dk and dv (B, H, Skv, D) per q head in the input dtype; delta
+// (B, H, Sq) f32 is scratch.
+extern "C" int tnn_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* mask, const void* o,
+                                 const void* dout, const void* lse,
+                                 void* delta, void* dk, void* dv, int dtype,
+                                 int B, int H, int HKV, int Sq, int Skv,
+                                 int D, int mask_groups, int causal, int off,
+                                 float scale, void* stream) {
+  Shape s;
+  if (!make_shape(&s, B, H, HKV, Sq, Skv, D, dtype, mask_groups, causal, off,
+                  scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
+    return launch_bwd<decltype(t), decltype(d)::value>(
+        q, k, v, mask, o, dout, static_cast<const float*>(lse),
+        static_cast<float*>(delta), nullptr, dk, dv, s, st);
+  }));
 }

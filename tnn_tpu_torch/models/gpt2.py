@@ -3,10 +3,8 @@
 paged forwards the serving engine steps."""
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -14,14 +12,13 @@ from ..core import dtypes as dt
 from ..nn.embedding import Embedding, PositionalEmbedding
 from ..nn.layers import Dropout
 from ..nn.norms import LayerNorm
-from ..nn.quant import set_weight
 from ..nn.transformer import GPTBlock
-from ..ops.quant_matmul import Int8Weight
 from ..utils.device import resolve_device
+from .params import JaxParamModule
 from .sampling import sample_ragged
 
 
-class GPT2(nn.Module):
+class GPT2(JaxParamModule):
     """Decoder-only LM with a tied output head.
 
     ``forward(ids)`` is the JAX model's ``apply``: (N, S) ids -> (N, S, V)
@@ -87,83 +84,6 @@ class GPT2(nn.Module):
                 yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
                 yield (h, dense, "bias"), getattr(blk, dense), "bias"
 
-    def jax_param_paths(self) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-        """Every weight (a parameter, or an ``Int8Weight`` where the model
-        was quantized) beside its path in the JAX parameter tree."""
-        for path, module, name in self._param_slots():
-            yield path, getattr(module, name)
-
-    @torch.no_grad()
-    def load_jax_params(self, tree: Dict) -> "GPT2":
-        """Copy the JAX parameter tree (nested dicts of numpy arrays, e.g.
-        ``jax.tree.map(np.asarray, params)``) into this model.
-
-        Kernels keep JAX's (in, out) layout, so nothing is transposed; the
-        f32 values are copied unrounded into the f32 masters. A leaf with
-        ``q``, ``scale``, ``n`` and ``k`` (an ``Int8Weight`` of a
-        ``quantize_for_decode`` tree, its arrays as numpy) replaces the
-        parameter by an ``Int8Weight`` of the same bytes.
-        """
-        for path, module, name in self._param_slots():
-            node = tree
-            for key in path:
-                node = node[key]
-            param = getattr(module, name)
-            if all(hasattr(node, a) for a in ("q", "scale", "n", "k")):
-                dev = param.device
-                iw = Int8Weight(
-                    torch.tensor(np.asarray(node.q, np.int8), device=dev),
-                    torch.tensor(np.asarray(node.scale, np.float32),
-                                 device=dev), n=node.n, k=node.k)
-                # the table is quantized through its transpose
-                want = tuple(param.shape)[::-1] if name == "table" \
-                    else tuple(param.shape)
-                if iw.shape != want:
-                    raise ValueError(f"{'.'.join(path)}: int8 shape "
-                                     f"{iw.shape} != {want}")
-                set_weight(module, name, iw)
-                continue
-            value = torch.tensor(np.asarray(node, dtype=np.float32))
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{'.'.join(path)}: shape {tuple(value.shape)}"
-                                 f" != {tuple(param.shape)}")
-            param.copy_(value)
-        return self
-
-    def jax_param_tree(self) -> Dict:
-        """The parameters as the JAX package's nested-dict tree of float32
-        numpy arrays (the inverse of ``load_jax_params``)."""
-        tree: Dict = {}
-        for path, param in self.jax_param_paths():
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = param.detach().float().cpu().numpy()
-        return tree
-
-    @torch.no_grad()
-    def init_params(self, seed: int) -> "GPT2":
-        """Seeded random weights, drawn on the model's device from a
-        ``torch.Generator``: normal(0.02) embeddings, xavier-uniform
-        attention kernels, he-normal MLP kernels, zero biases, unit norms
-        (the JAX package's initializer families; other bits than its)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for path, param in self.jax_param_paths():
-            name = path[-1]
-            shape = tuple(param.shape)
-            if name in ("table", "pos"):
-                param.normal_(0.0, 0.02, generator=gen)
-            elif name in ("qkv_kernel", "out_kernel"):
-                limit = math.sqrt(6.0 / (shape[0] + shape[1]))
-                param.uniform_(-limit, limit, generator=gen)
-            elif name == "kernel":
-                param.normal_(0.0, math.sqrt(2.0 / shape[0]), generator=gen)
-            elif name == "scale":
-                param.fill_(1.0)
-            else:
-                param.zero_()
-        return self
-
     # -- forwards -------------------------------------------------------------
 
     def _head(self, x: torch.Tensor,
@@ -226,13 +146,15 @@ class GPT2(nn.Module):
 
 
 @torch.inference_mode()
-def generate(model: GPT2, prompt_ids, max_new_tokens: int,
+def generate(model, prompt_ids, max_new_tokens: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              max_len: Optional[int] = None, top_k: int = 0,
              top_p: float = 0.0) -> torch.Tensor:
     """Autoregressive generation with a KV cache (``tnn_tpu.models.gpt2.
     generate``): one prefill pass over the prompt, then one token per step.
+    ``model`` is a ``GPT2`` or a ``Llama``: anything with ``init_cache``,
+    ``apply_cached``, ``max_len`` and ``device``.
     temperature <= 0 is greedy; otherwise tokens are drawn with
     ``generator`` (on the model's device) after top-k / top-p filtering.
     The cache defaults to the request's length. Returns (batch,

@@ -1,6 +1,7 @@
 """Multi-head attention (``tnn_tpu.nn.attention``): ``sdpa`` with its
-"xla" and "pallas" (flash kernel) backends, and the whole-sequence, cached
-and paged forms of ``MultiHeadAttention``."""
+"xla" and "pallas" (flash kernel) backends, rotary position embedding
+(``apply_rope``), and the whole-sequence, cached and paged forms of
+``MultiHeadAttention``."""
 from __future__ import annotations
 
 import math
@@ -16,6 +17,39 @@ from ..ops.quant_matmul import qmatmul
 from .layers import Dropout
 
 _MASK_VALUE = -1e9   # tnn_tpu.core.dtypes.neg_inf
+
+
+def apply_rope(x, offset=0, theta: float = 10000.0):
+    """Rotary position embedding over (B, H, S, Dh) (``tnn_tpu.nn.attention.
+    apply_rope``): half-split (NeoX) pairs rotated in f32 by the ABSOLUTE
+    position ``offset + s``, cast back to x's dtype. ``offset`` is an int, a
+    0-d tensor or a (B,) tensor of per-row positions of x[..., 0, :].
+
+    The inverse frequencies theta^(-i / half) take the exponent in f32 and
+    the power in f64, rounded once to f32: the correctly rounded values,
+    which are the JAX package's. A float32 ``pow`` may land one ulp off, and
+    at position 32,767 one ulp of a frequency turns the angle by up to
+    2e-3 rad."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"RoPE needs an even head dim, got {d}")
+    half = d // 2
+    steps = torch.arange(x.shape[-2], device=x.device)
+    if isinstance(offset, torch.Tensor) and offset.ndim:
+        pos = offset.to(x.device).long()[:, None] + steps       # (B, S)
+    else:
+        pos = int(offset) + steps
+    expo = -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    inv = torch.pow(torch.tensor(float(theta), dtype=torch.float64,
+                                 device=x.device), expo.double()).float()
+    freqs = pos[..., None].float() * inv                        # (.., S, half)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    if cos.ndim == 3:      # per-row: (B, S, half) over the head dim
+        cos, sin = cos[:, None], sin[:, None]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def local_attention(q, k, v, *, causal: bool = False, mask=None,
@@ -94,13 +128,16 @@ class MultiHeadAttention(nn.Module):
     at use, as the JAX layer does. Either kernel may be an ``Int8Weight``
     (``nn.quant``); both projections go through ``qmatmul``. ``backend``
     picks ``sdpa``'s backend; ``dropout`` applies to the output projection
-    when training.
+    when training. ``rope_theta`` rotates q and k by their absolute
+    positions after the projection split (Llama; None: no rotation), and
+    ``use_bias=False`` drops both biases.
     """
 
     def __init__(self, d_model: int, num_heads: int, *,
                  num_kv_heads: Optional[int] = None, causal: bool = True,
-                 backend: str = "xla", dropout: float = 0.0, policy=None,
-                 device="cuda"):
+                 backend: str = "xla", dropout: float = 0.0,
+                 rope_theta: Optional[float] = None, use_bias: bool = True,
+                 policy=None, device="cuda"):
         super().__init__()
         self.policy = policy or dt.default_policy()
         self.num_heads = int(num_heads)
@@ -114,6 +151,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"model dim {d_model} not divisible by "
                              f"num_heads {self.num_heads}")
         self.causal = bool(causal)
+        self.rope_theta = float(rope_theta) if rope_theta else None
         self.backend = backend
         self.drop = Dropout(dropout)
         self.d_model = int(d_model)
@@ -125,16 +163,17 @@ class MultiHeadAttention(nn.Module):
             return nn.Parameter(torch.zeros(*shape, dtype=pd, device=device))
 
         self.qkv_kernel = param(d_model, d_model + 2 * self.kv_d)
-        self.qkv_bias = param(d_model + 2 * self.kv_d)
+        self.qkv_bias = param(d_model + 2 * self.kv_d) if use_bias else None
         self.out_kernel = param(d_model, d_model)
-        self.out_bias = param(d_model)
+        self.out_bias = param(d_model) if use_bias else None
 
     def _project_qkv(self, x):
         """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
         x = self.policy.cast_in(x)
         w = self.policy.cast_param(self.qkv_kernel)
         qkv = qmatmul(x, w).to(x.dtype)
-        qkv = qkv + self.qkv_bias.to(x.dtype)
+        if self.qkv_bias is not None:
+            qkv = qkv + self.qkv_bias.to(x.dtype)
         b, s, _ = x.shape
         d, kv_d, dh = self.d_model, self.kv_d, self.head_dim
         q = qkv[..., :d].reshape(b, s, self.num_heads, dh)
@@ -146,16 +185,20 @@ class MultiHeadAttention(nn.Module):
         """(B, S, H, Dh) -> (B, S, D) in the io dtype."""
         y = attn.reshape(*attn.shape[:2], self.d_model)
         w = self.policy.cast_param(self.out_kernel)
-        y = qmatmul(y, w).to(y.dtype) + self.out_bias.to(y.dtype)
+        y = qmatmul(y, w).to(y.dtype)
+        if self.out_bias is not None:
+            y = y + self.out_bias.to(y.dtype)
         y = self.drop(y, train=train, generator=generator)
         return self.policy.cast_out(y)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Whole-sequence attention (JAX's ``_apply``)."""
-        q, k, v = self._project_qkv(x)
-        attn = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=self.causal, backend=self.backend)
+        q, k, v = (t.transpose(1, 2) for t in self._project_qkv(x))
+        if self.rope_theta:
+            q = apply_rope(q, 0, self.rope_theta)
+            k = apply_rope(k, 0, self.rope_theta)
+        attn = sdpa(q, k, v, causal=self.causal, backend=self.backend)
         return self._project_out(attn.transpose(1, 2), train, generator)
 
     # -- cached autoregressive decode -----------------------------------------
@@ -178,8 +221,14 @@ class MultiHeadAttention(nn.Module):
         package returns an updated copy); attention runs over the whole
         cache buffer with a causal mask at ``offset``, through the
         configured backend (the flash kernel with ``kv_offset`` under
-        "pallas"). Returns (out (N, S_new, D), cache)."""
+        "pallas"). With ``rope_theta`` q and the new keys are rotated at
+        their absolute positions, so the cache holds rotated keys. Returns
+        (out (N, S_new, D), cache)."""
         q, k_new, v_new = self._project_qkv(x)          # (N, S, H*, Dh)
+        if self.rope_theta:
+            q, k_new = (apply_rope(t.transpose(1, 2), offset,
+                                   self.rope_theta).transpose(1, 2)
+                        for t in (q, k_new))
         s = x.shape[1]
         if isinstance(offset, torch.Tensor) and offset.ndim:
             pos = offset.long()[:, None] + torch.arange(s, device=x.device)
@@ -210,8 +259,13 @@ class MultiHeadAttention(nn.Module):
             (Q must then be 1). Tokens past ``q_lens[b]`` are padding: their
             KV lands in the scratch page and their outputs are garbage.
 
-        Returns the attention block's output (B, Q, D).
+        Returns the attention block's output (B, Q, D). Rotary attention
+        (Llama serving) is not ported yet and raises.
         """
+        if self.rope_theta:
+            raise NotImplementedError("apply_paged with rope_theta (Llama "
+                                      "serving) is not ported yet; it is "
+                                      "queued in ROADMAP.md")
         q, k_new, v_new = self._project_qkv(x)
         if not isinstance(pages_k, pa.QuantPages):
             k_new, v_new = k_new.to(pages_k.dtype), v_new.to(pages_v.dtype)

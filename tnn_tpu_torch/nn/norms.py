@@ -1,4 +1,4 @@
-"""LayerNorm (``tnn_tpu.nn.norms.LayerNorm``)."""
+"""LayerNorm and RMSNorm (``tnn_tpu.nn.norms``)."""
 from __future__ import annotations
 
 import torch
@@ -30,4 +30,25 @@ class LayerNorm(nn.Module):
         var = (mean2 - mean * mean).clamp_min(0.0)
         y = (xf - mean) * (1.0 / torch.sqrt(var + self.eps))
         y = y * self.scale.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last dim (``tnn_tpu.nn.norms.RMSNorm``): in f32,
+    x / sqrt(mean(x^2) + eps) times the scale read in f32, cast back to x's
+    dtype. The scale is trainable, in the policy's param dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, policy=None,
+                 device="cuda"):
+        super().__init__()
+        self.eps = float(eps)
+        self.policy = policy or dt.default_policy()
+        self.scale = nn.Parameter(torch.ones(
+            dim, dtype=self.policy.param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.reciprocal(torch.sqrt(ms + self.eps)) \
+            * self.scale.float()
         return y.to(x.dtype)

@@ -1,14 +1,17 @@
-"""Flash attention: the forward (K4) and the fused backward (K7).
+"""Flash attention: the forward (K4), the fused backward (K7) and the split
+backward (K5 dQ, K6 dK/dV).
 
 Port of ``tnn_tpu/ops/pallas/flash_attention.py``. ``flash_attention`` is
 the differentiable entry: a ``torch.autograd.Function`` whose forward calls
-``flash_attention_fwd`` and whose backward calls ``flash_attention_bwd``.
-Those two are the kernel wrappers. On CUDA tensors they launch the
+``flash_attention_fwd`` and whose backward calls ``flash_attention_bwd``
+(K7), or ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (K5,
+K6) where the reference's rule (``use_fused_bwd``) takes the split path.
+Those four are the kernel wrappers. On CUDA tensors they launch the
 hand-written kernels of ``csrc/flash_attention.cu`` on the current stream,
 or raise; on CPU tensors they compute ``flash_attention_reference`` and
-``flash_attention_backward_reference``, the plain PyTorch versions with the
-same rounding points. ``flash_attention_fwd.launches`` and
-``flash_attention_bwd.launches`` count the kernel launches.
+(their part of) ``flash_attention_backward_reference``, the plain PyTorch
+versions with the same rounding points. Each wrapper's ``launches`` counts
+its kernel launches.
 
 Rounding points (those of the Pallas kernels): f32 logits; p rounded to
 v's dtype before the PV product; f32 accumulation; the per-row logsumexp
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -31,6 +35,52 @@ from . import runtime
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The reference's VMEM budget for its fused backward's resident set; above
+# it the split two-kernel path runs (``_FUSED_BWD_MAX_BYTES`` of the JAX
+# package). It has no meaning for this card's memory: it is read from the
+# reference's variable at import only so that both packages, run under the
+# same environment, pick the same backward at every shape.
+_FUSED_BWD_MAX_BYTES = int(
+    os.environ.get("TNN_FLASH_FUSED_BWD_MAX_BYTES", 12 * 2**20))
+
+
+def _block_geometry(sq: int, skv: int, block_q: int, block_k: int):
+    """Block sizes and padded lengths, as the JAX package computes them."""
+    bq = min(block_q, max(sq, 8))
+    bk = min(block_k, max(skv, 8))
+    return bq, bk, -(-sq // bq) * bq, -(-skv // bk) * bk
+
+
+def _fused_bwd_applicable(sq_p: int, d: int, bq: int = 512, bk: int = 512,
+                          itemsize: int = 4) -> bool:
+    """The JAX package's estimate of its fused backward's VMEM-resident set
+    (the full-sequence dQ output block and f32 scratch, double-buffered
+    q/o/dO/k/v blocks and dK/dV outputs, dK/dV f32 scratch) against
+    ``_FUSED_BWD_MAX_BYTES``; ``TNN_FLASH_FUSED_BWD=0`` (read per call)
+    forces the split path."""
+    if os.environ.get("TNN_FLASH_FUSED_BWD", "1") == "0":
+        return False
+    dq_bytes = sq_p * d * (itemsize + 4)
+    blk_in = (3 * bq + 2 * bk) * d * itemsize + bq * 4
+    blk_out = 2 * bk * d * itemsize
+    acc = 2 * bk * d * 4
+    resident = dq_bytes + 2 * (blk_in + blk_out) + acc
+    return resident <= _FUSED_BWD_MAX_BYTES
+
+
+def use_fused_bwd(q, k) -> bool:
+    """Whether the backward of attention over q (B, H, Sq, D) and k takes
+    the fused kernel (K7) or the split pair (K5, K6): the reference's rule
+    (``_flash_bwd``), its default (512, 512) blocks, the padded Sq and q's
+    itemsize. At D=64 in bf16 the fused path ends past S = 29,184.
+
+    On this card the rule is the reference's, not a memory limit: K7 keeps
+    dQ in an f32 buffer in device memory and could run at any length. The
+    port follows the rule so that a run takes the kernels the reference
+    takes at the same shape."""
+    bq, bk, sq_p, _ = _block_geometry(q.shape[2], k.shape[2], 512, 512)
+    return _fused_bwd_applicable(sq_p, q.shape[3], bq, bk, q.element_size())
 
 
 def norm_mask(mask, b, h, sq, skv):
@@ -188,6 +238,68 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
             q, k, v, o, lse, do, causal=causal, scale=scale, mask=mask,
             kv_offset=kv_offset)
     b, h, sq, d = q.shape
+    skv = k.shape[2]
+    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=q.device)
+    _launch_bwd(_library().tnn_flash_bwd, "backward", q, k, v, o, lse, do,
+                (dq_acc, dk, dv), causal, scale, mask, kv_offset)
+    flash_attention_bwd.launches += 1
+    dk, dv = group_sum_kv_grads(dk, dv, k.shape[1])
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=False, scale=None,
+                           mask=None, kv_offset=0):
+    """K5. dQ in q's dtype, from the same inputs as ``flash_attention_bwd``.
+    The kernel writes each row once from an f32 sum in registers: no
+    atomics, the same bits on every run."""
+    _check(q, k, v, mask)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, scale=scale, mask=mask,
+            kv_offset=kv_offset)[0]
+    dq = torch.empty_like(q)
+    _launch_bwd(_library().tnn_flash_bwd_dq, "dQ backward", q, k, v, o, lse,
+                do, (dq,), causal, scale, mask, kv_offset)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal=False, scale=None,
+                            mask=None, kv_offset=0):
+    """K6. (dK, dV) in k's and v's dtypes, per kv head: the kernel writes
+    them per q head and each GQA group is summed in f32 here."""
+    _check(q, k, v, mask)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, scale=scale, mask=mask,
+            kv_offset=kv_offset)[1:]
+    b, h, _, d = q.shape
+    skv = k.shape[2]
+    dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=q.device)
+    _launch_bwd(_library().tnn_flash_bwd_dkv, "dK/dV backward", q, k, v, o,
+                lse, do, (dk, dv), causal, scale, mask, kv_offset)
+    flash_attention_bwd_dkv.launches += 1
+    return group_sum_kv_grads(dk, dv, k.shape[1])
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def _launch_bwd(entry, what, q, k, v, o, lse, do, outs, causal, scale, mask,
+                kv_offset):
+    """Check a backward's CUDA inputs and launch its C ``entry``, whose
+    output pointers ``outs`` sit between the inputs (with the f32 delta
+    scratch) and the shape; raises if the launch fails."""
+    b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_kernel_args(q, k, v, mask)
     for name, x, dtype in (("o", o, q.dtype), ("do", do, q.dtype),
@@ -197,28 +309,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
                              f"{q.device}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq):
         raise ValueError("o / do must have q's shape and lse (B, H, Sq)")
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=q.device)
-    lib = _library()
-    err = lib.tnn_flash_bwd(
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, hkv, sq,
-        skv, d, 0 if mask is None else mask.shape[0], int(causal),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(x.data_ptr() for x in outs), _KERNEL_DTYPES[q.dtype], b, h, hkv,
+        sq, skv, d, 0 if mask is None else mask.shape[0], int(causal),
         int(kv_offset), _scale(q, scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
+        raise RuntimeError(f"flash attention {what} kernel launch failed: "
                            f"CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    dk, dv = group_sum_kv_grads(dk, dv, hkv)
-    return dq_acc.to(q.dtype), dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 def _check(q, k, v, mask):
@@ -265,11 +367,16 @@ def _library():
         lib.tnn_flash_fwd.restype = ctypes.c_int
         lib.tnn_flash_bwd.argtypes = [ptr] * 11 + [i] * 10 + [f, ptr]
         lib.tnn_flash_bwd.restype = ctypes.c_int
+        lib.tnn_flash_bwd_dq.argtypes = [ptr] * 9 + [i] * 10 + [f, ptr]
+        lib.tnn_flash_bwd_dq.restype = ctypes.c_int
+        lib.tnn_flash_bwd_dkv.argtypes = [ptr] * 10 + [i] * 10 + [f, ptr]
+        lib.tnn_flash_bwd_dkv.restype = ctypes.c_int
     return lib
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward, K7 backward; mask and kv_offset carry no gradient."""
+    """K4 forward; K7 backward, or K5 and K6 where ``use_fused_bwd`` says
+    so; mask and kv_offset carry no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, kv_offset, causal, scale):
@@ -283,9 +390,13 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, out, lse = ctx.saved_tensors
         causal, scale, kv_offset = ctx.args
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, do.contiguous(), causal=causal, scale=scale,
-            mask=mask, kv_offset=kv_offset)
+        args = (q, k, v, out, lse, do.contiguous())
+        kw = dict(causal=causal, scale=scale, mask=mask, kv_offset=kv_offset)
+        if use_fused_bwd(q, k):
+            dq, dk, dv = flash_attention_bwd(*args, **kw)
+        else:
+            dq = flash_attention_bwd_dq(*args, **kw)
+            dk, dv = flash_attention_bwd_dkv(*args, **kw)
         return dq, dk, dv, None, None, None, None
 
 
