@@ -50,6 +50,21 @@ numbers on its own line:
    launches, falling loss, step time, MFU, peak memory and a profiled
    step. train_cli (7) also runs ``--arch llama`` at S=32,768, 2 layers.
 
+13. decode_stack: the fused decode-stack kernel (K8) against its plain
+   version at gpt2_small's width in 48 cases (B 1 and 2, T 1024, three
+   positions, bf16 and f32, 1, 2, 4 and 8 MLP chunks), layer by layer,
+   with the 12-layer launch equal to the chain of one-layer launches;
+   times beside the plain version's and the unfused int8 blocks';
+14. fused_generate: ``cli.gpt2_inference --fused`` and ``--int8`` (64
+   tokens, tokens/s), ``fused_generate`` in process (K8 = 63 launches),
+   its teacher-forced logits against the unfused int8 step, and kernels
+   and aten ops per token of both;
+15. serving_fused: ``InferenceEngine(..., quant_weights=True,
+   decode_path="fused", max_batch_size=2)`` on 6 requests (lockstep pairs,
+   then a ragged pair): K8 = lockstep steps, K3 = 48 x wide standard
+   mixed steps, the closeness gate, steady decode profiles beside the
+   paged paths, and the CLI with ``--decode-path fused``.
+
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the one before it holds
@@ -65,6 +80,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core rate
+            "int8": 1979e12,         # dense int8 tensor-core rate
             "float32": 67e12}        # float32 outside the tensor cores
 # kernel vs plain version, element by element:
 #   |out - ref| <= atol + rtol * (|ref| + p.|v|),
@@ -693,18 +709,19 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
     return engine, rids
 
 
-def steady_decode_engine(model, new_tokens, **engine_kw):
-    """An engine with 8 requests of 500-token prompts, past their prefill
-    and first decode step, with ``new_tokens`` tokens each to decode."""
+def steady_decode_engine(model, new_tokens, batch=8, **engine_kw):
+    """An engine with ``batch`` requests of 500-token prompts, past their
+    prefill and first decode step, with ``new_tokens`` tokens each to
+    decode."""
     import numpy as np
 
     from tnn_tpu_torch.serving.engine import InferenceEngine
 
     engine = InferenceEngine(model, num_blocks=512, block_size=16,
-                             max_batch_size=8, chunk_size=64, seed=0,
+                             max_batch_size=batch, chunk_size=64, seed=0,
                              device=model.device, **engine_kw)
     rng = np.random.default_rng(5)
-    for _ in range(8):
+    for _ in range(batch):
         engine.submit(rng.integers(0, model.vocab_size, 500), new_tokens)
     while any(r.cache_len < r.prefill_len or not r.out_tokens
               for r in engine.requests.values()):
@@ -714,8 +731,8 @@ def steady_decode_engine(model, new_tokens, **engine_kw):
 
 
 def profile_decode_steps(model, steps=10, phase="serving_profile",
-                         **engine_kw):
-    """Steady decode steps of 8 rows: wall time per step without the
+                         batch=8, **engine_kw):
+    """Steady decode steps of ``batch`` rows: wall time per step without the
     profiler in three windows of ``steps`` steps (their median is the step
     time; their spread is the host's within one process), then from a
     profiler window over as many further steps the device-busy time per
@@ -729,7 +746,7 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine = steady_decode_engine(model, 4 * steps + 8, **engine_kw)
+    engine = steady_decode_engine(model, 4 * steps + 8, batch, **engine_kw)
     windows = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -761,7 +778,7 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
     busy_ms = sum(by_name.values()) / 1e3 / steps
     # host cost per op: the unprofiled step over the step's outermost
     # aten ops, which is what a path with more ops pays more of
-    log(phase, decode_rows=8, kv_len=500, step_ms=step_ms,
+    log(phase, decode_rows=batch, kv_len=500, step_ms=step_ms,
         step_ms_windows=windows, profiled_step_ms=profiled_ms,
         device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / step_ms,
@@ -770,7 +787,8 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
         top_kernels_ms=[(n, t / 1e3 / steps)
                         for n, t in by_name.most_common(6)],
         top_host_self_ms=[(n, t / 1e3 / steps)
-                          for n, t in host_self.most_common(8)])
+                          for n, t in host_self.most_common(8)],
+        program_steps=engine.stats()["program_steps"])
 
 
 def host_ab(model, rounds=4, steps=5, launches=2000):
@@ -2076,6 +2094,466 @@ def phase_training_long(results):
     torch.cuda.empty_cache()
 
 
+# -- phase 13 -----------------------------------------------------------------
+#
+# K8 against its plain version. Both compute in f32 at the same rounding
+# points, so they differ by summation order (LayerNorm's statistics, the
+# attention sums): about 1e-7 relative. Where such a difference meets a tie
+# of a rounding (a re-quantized activation's x / sx near k + 1/2, or a bf16
+# cache row), one value moves to its other neighbour, and every later
+# re-quantization of the stack can amplify that: over 12 layers one moved
+# bf16 row ended 88 code steps away in one case of 48 (NVIDIA H100 80GB
+# HBM3 at 700 W). So the stack is held against the plain
+# version layer by layer:
+#   * the L-layer launch equals the chain of L one-layer launches (f32
+#     between them, the residual's own type) bit for bit;
+#   * each one-layer launch, on the chain's input, against the plain
+#     version on the same input and caches: per element
+#       |k8 - plain| <= 1e-5 max|plain| + DECODE_FLIP_STEPS * U,
+#     U the largest code step (``code_steps``: one int8 step of the input
+#     times the largest weight it meets) of the matmuls that write the
+#     residual (out, proj); on row t of the caches the same with U of qkv,
+#     plus one unit of the cache dtype's rounding (2^-8 |plain| in bf16).
+#     Within one layer a moved code still spreads through LN2, fc, GELU
+#     and proj: the same run read at most 7.8 code steps in a layer, in 9
+#     of its 576 layers; the limit is twice that, and at most
+#     DECODE_MOVED_LAYERS of a case's 12 layers may leave the float term.
+DECODE_T = 1024
+DECODE_FLIP_STEPS = 16
+DECODE_MOVED_LAYERS = 4
+
+
+def decode_stack_inputs(model, *, batch, t, dtype, seed):
+    """Seeded caches (N(0, 0.5^2), the scale of this model's k and v) and x
+    from the model's own embedding of random tokens at position t."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (model.num_layers, batch, DECODE_T, model.d_model)
+    kc = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+    vc = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+    tok = torch.randint(0, model.vocab_size, (batch, 1), generator=gen,
+                        device="cuda")
+    with torch.inference_mode():
+        x = model.wpe(model.wte(tok), offset=t)[:, 0].to(dtype).contiguous()
+    return x, kc, vc
+
+
+def decode_stack_bytes(model, batch, t, itemsize):
+    """Bytes K8 must move: every int8 weight (12 D^2 a layer at F = 4D)
+    and f32 vector (22 D) once, cache rows 0..t of K and V (row t is the
+    write), x in and x_out."""
+    d, f, n_layers = model.d_model, 4 * model.d_model, model.num_layers
+    weights = n_layers * (4 * d * d + 2 * f * d + 4 * (14 * d + 2 * f))
+    return (weights + n_layers * 2 * batch * (t + 1) * d * itemsize
+            + 2 * batch * d * itemsize)
+
+
+def decode_stack_case(stacks, heads, x, t, kc, vc, chunks):
+    """One case: the L-layer launch, its repeat, the chain of one-layer
+    launches and each layer against the plain version. Returns the
+    reading."""
+    import torch
+
+    from tnn_tpu_torch.ops import decode_stack as ds
+
+    n_layers = kc.shape[0]
+    k0, v0 = kc.clone(), vc.clone()
+    before = ds.fused_decode_stack.launches
+    out, kc, vc = ds.fused_decode_stack(x, t, kc, vc, stacks,
+                                        num_heads=heads, chunks=chunks)
+    torch.cuda.synchronize()
+    launched = ds.fused_decode_stack.launches - before
+    others = all(torch.equal(a[:, :, :t], b[:, :, :t])
+                 and torch.equal(a[:, :, t + 1:], b[:, :, t + 1:])
+                 for a, b in ((kc, k0), (vc, v0)))
+    k2, v2 = k0.clone(), v0.clone()
+    again, k2, v2 = ds.fused_decode_stack(x, t, k2, v2, stacks,
+                                          num_heads=heads, chunks=chunks)
+    repeat = (torch.equal(again, out) and torch.equal(k2, kc)
+              and torch.equal(v2, vc))
+    cast = 2 ** -8 if kc.dtype == torch.bfloat16 else 0.0
+    h = x.float()
+    kch, vch = k0.clone(), v0.clone()
+    used = row_used = err = row_err = code_steps = 0.0
+    layers_past_float = 0
+    for layer in range(n_layers):
+        one = {k: v[layer:layer + 1] for k, v in stacks.items()}
+        kr, vr = k0[layer:layer + 1].clone(), v0[layer:layer + 1].clone()
+        steps = {}
+        ref, kr, vr = ds.fused_decode_stack_reference(
+            h, t, kr, vr, one, num_heads=heads, chunks=chunks,
+            code_steps=steps)
+        h, _, _ = ds.fused_decode_stack(h, t, kch[layer:layer + 1],
+                                        vch[layer:layer + 1], one,
+                                        num_heads=heads, chunks=chunks)
+        diff = (h - ref).abs()
+        floor = 1e-5 * ref.abs().max()
+        u_res = max(steps["out"] + steps["proj"])
+        used = max(used, (diff / (floor + DECODE_FLIP_STEPS * u_res))
+                   .max().item())
+        code_steps = max(code_steps, ((diff - floor) / u_res).max().item())
+        err = max(err, diff.max().item())
+        layers_past_float += bool((diff > floor).any())
+        for got, want in ((kch, kr), (vch, vr)):
+            g, w = got[layer, :, t].float(), want[0, :, t].float()
+            e = (g - w).abs()
+            lim = 1e-5 * w.abs().max() + cast * w.abs() \
+                + DECODE_FLIP_STEPS * max(steps["qkv"])
+            row_err = max(row_err, e.max().item())
+            row_used = max(row_used, (e / lim).max().item())
+    torch.cuda.synchronize()
+    chain = (torch.equal(h.to(out.dtype), out) and torch.equal(kch, kc)
+             and torch.equal(vch, vc))
+    ok = (launched == 1 and bool(torch.isfinite(out).all()) and others
+          and repeat and chain and used <= 1.0 and row_used <= 1.0
+          and layers_past_float <= DECODE_MOVED_LAYERS)
+    return dict(max_abs_err=err, limit_used=used, code_steps=code_steps,
+                row_t_err=row_err,
+                row_t_limit_used=row_used,
+                layers_past_float=layers_past_float, chain_bit_for_bit=chain,
+                other_rows_same=others, repeat_bit_for_bit=repeat, ok=ok)
+
+
+def phase_decode_stack(results):
+    import torch
+
+    from tnn_tpu_torch.models import fused_decode, zoo
+    from tnn_tpu_torch.nn.quant import quantize_for_decode
+    from tnn_tpu_torch.ops import decode_stack as ds
+
+    model = quantize_for_decode(zoo.create("gpt2_small", device="cuda",
+                                           seed=0))
+    stacks = fused_decode.stack_decode_weights(model)
+    heads = model.num_heads
+    failures = []
+    worst = 0.0
+    ncase = 0
+    for batch in (1, 2):
+        picked = fused_decode.pick_chunks(model.d_model, 4 * model.d_model,
+                                          batch, DECODE_T)
+        for dtype in (torch.bfloat16, torch.float32):
+            for t in (0, DECODE_T // 2 - 1, DECODE_T - 1):
+                for chunks in sorted({picked, 1, 2, 4, 8} - {None}):
+                    ncase += 1
+                    x, kc, vc = decode_stack_inputs(
+                        model, batch=batch, t=t, dtype=dtype,
+                        seed=1000 + ncase)
+                    reading = decode_stack_case(stacks, heads, x, t, kc, vc,
+                                                chunks)
+                    log("decode_stack", case=ncase, batch=batch,
+                        dtype=str(dtype).split(".")[-1], t=t, chunks=chunks,
+                        picked=chunks == picked, **reading)
+                    worst = max(worst, reading["max_abs_err"],
+                                reading["row_t_err"])
+                    if not reading["ok"]:
+                        failures.append(ncase)
+                    del x, kc, vc
+    if failures:
+        raise AssertionError(f"decode_stack cases failed: {failures}")
+
+    # times at the shape of the JSON line: B = 1, t = T - 1, bf16, the
+    # reference's chunk count; beside them the unfused w8a8 blocks of the
+    # same quantized model (GPTBlock.apply_cached: no single PyTorch call
+    # computes the stack)
+    batch, t, dtype = 1, DECODE_T - 1, torch.bfloat16
+    chunks = fused_decode.pick_chunks(model.d_model, 4 * model.d_model,
+                                      batch, DECODE_T)
+    x, kc, vc = decode_stack_inputs(model, batch=batch, t=t, dtype=dtype,
+                                    seed=7)
+    dh = model.d_model // heads
+    caches = [{"k": kc[i].view(batch, DECODE_T, heads, dh).transpose(1, 2),
+               "v": vc[i].view(batch, DECODE_T, heads, dh).transpose(1, 2)}
+              for i in range(model.num_layers)]
+
+    def unfused():
+        with torch.inference_mode():
+            h = x[:, None]
+            for blk, cache in zip(model.blocks, caches):
+                h, _ = blk.apply_cached(h, cache, t)
+        return h
+
+    entry = {"batch": batch, "t": t, "dtype": "bfloat16", "chunks": chunks,
+             "max_abs_err": worst}
+    runs = {"": lambda: ds.fused_decode_stack(
+                x, t, kc, vc, stacks, num_heads=heads, chunks=chunks),
+            "plain_": lambda: ds.fused_decode_stack_reference(
+                x, t, kc, vc, stacks, num_heads=heads, chunks=chunks),
+            "unfused_": unfused}
+    for prefix, fn in runs.items():
+        device, events = time_ms(fn, iters=20, warmup=3)
+        entry[prefix + "ms"] = events if device is None else device
+        entry[prefix + "events_ms"] = events
+    # the same launch at t = 0, where attention reads one row: the rest of
+    # the step (weights, row passes, grid syncs), at each chunk count: each
+    # chunk adds two grid syncs a layer and two matmul phases
+    entry["t0_ms_by_chunks"] = {
+        c: time_ms(lambda c=c: ds.fused_decode_stack(
+            x, 0, kc, vc, stacks, num_heads=heads, chunks=c),
+            iters=20, warmup=3)[0]
+        for c in (1, 2, 4, 8)}
+    nbytes = decode_stack_bytes(model, batch, t, 2)
+    d, n_layers = model.d_model, model.num_layers
+    int8_ops = n_layers * 2 * batch * 12 * d * d
+    f32_ops = n_layers * 4 * batch * (t + 1) * d
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * (int8_ops / PEAK_OPS["int8"] + f32_ops / PEAK_OPS["float32"])
+    entry.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes,
+                 int8_ops=int8_ops, f32_ops=f32_ops,
+                 bound_by="bytes" if byte_ms >= op_ms else "operations",
+                 library_ms=None, grid_syncs=n_layers * (3 + 2 * chunks) - 1)
+    log("decode_stack_time", **entry)
+    results["fused_decode_stack"] = entry
+    ds.fused_decode_stack.launches = 0   # comparison launches do not count
+    del model, stacks, caches, x, kc, vc
+    torch.cuda.empty_cache()
+
+
+# -- phase 14 -----------------------------------------------------------------
+
+PROMPT = "The meaning of life is"
+GENERATE_TOKENS = 64
+
+
+def generate_cli(flags):
+    """``cli.gpt2_inference`` on full-width gpt2_small; returns its
+    tokens/s line's numbers and the generated ids it prints."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tnn_tpu_torch.cli.gpt2_inference", "-n",
+         str(GENERATE_TOKENS), *flags], capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"gpt2_inference {flags} failed: rc "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    last = proc.stdout.strip().splitlines()[-1]       # "N tokens in X ms"
+    words = last.split()
+    ids = [ln for ln in proc.stdout.splitlines()
+           if ln.startswith("generated ids:")][0]
+    return {"tokens": int(words[0]), "ms": float(words[3]),
+            "tok_per_s": float(words[5].strip("(")), "ids": ids}
+
+
+def teacher_forced(model, stream, plen, chunks=None):
+    """Per-step logits over a fixed token stream: the unfused int8 step
+    (``apply_cached``) when ``chunks`` is None, else K8 (fused_generate's
+    body)."""
+    import torch
+
+    from tnn_tpu_torch.models import fused_decode
+    from tnn_tpu_torch.ops.decode_stack import fused_decode_stack
+
+    caches = model.init_cache(1, stream.shape[1])
+    out = []
+    with torch.inference_mode():
+        out.append(model.apply_cached(stream[:, :plen], caches, 0)[:, -1])
+        if chunks is not None:
+            stacks = fused_decode.decode_stacks(model)
+            kc, vc = fused_decode.caches_to_stacked(caches)
+        for pos in range(plen, stream.shape[1] - 1):
+            tok = stream[:, pos:pos + 1]
+            if chunks is None:
+                out.append(model.apply_cached(tok, caches, pos)[:, -1])
+                continue
+            x = model.wpe(model.wte(tok), offset=pos)[:, 0].contiguous()
+            x_out, kc, vc = fused_decode_stack(
+                x, pos, kc, vc, stacks, num_heads=model.num_heads,
+                chunks=chunks)
+            out.append(model._head(x_out[:, None, :])[:, -1])
+    return torch.stack(out, dim=1)[0].float()
+
+
+def per_token_profile(fn, tokens):
+    """Kernels and outermost aten ops per generated token of ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = ops = 0
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            busy += e.time_range.elapsed_us()
+            continue
+        parent = e.cpu_parent
+        ops += e.name.startswith("aten::") and not (
+            parent is not None and parent.name.startswith("aten::"))
+    return {"kernels_per_token": kernels / tokens,
+            "aten_ops_per_token": ops / tokens,
+            "busy_ms_per_token": busy / 1e3 / tokens,
+            "profiled_ms_per_token": wall * 1e3 / tokens}
+
+
+def phase_fused_generate(results):
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.models import fused_decode, zoo
+    from tnn_tpu_torch.models.gpt2 import generate
+    from tnn_tpu_torch.nn.quant import quantize_for_decode
+    from tnn_tpu_torch.ops import decode_stack as ds
+
+    fused_cli = generate_cli(["--fused"])
+    int8_cli = generate_cli(["--int8"])
+    model = quantize_for_decode(zoo.create("gpt2_small", device="cuda",
+                                           seed=0))
+    prompt = torch.from_numpy(np.frombuffer(PROMPT.encode(), np.uint8)
+                              .astype(np.int64))[None].to(model.device)
+    plen = prompt.shape[1]
+    fused_decode.fused_generate(model, prompt, 4)                # warm-up
+    torch.cuda.synchronize()
+    ds.fused_decode_stack.launches = 0
+    t0 = time.perf_counter()
+    toks = fused_decode.fused_generate(model, prompt, GENERATE_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ds.fused_decode_stack.launches
+    again = fused_decode.fused_generate(model, prompt, GENERATE_TOKENS)
+    chunks = fused_decode.pick_chunks(model.d_model, 4 * model.d_model, 1,
+                                      plen + GENERATE_TOKENS)
+    # fused against unfused int8, teacher-forced over the fused stream:
+    # JAX's bound for its kernel (tests/test_fused_decode.py:62-63)
+    stream = torch.cat([prompt, toks], dim=1)
+    fused = teacher_forced(model, stream, plen, chunks)
+    unfused = teacher_forced(model, stream, plen)
+    rel = ((fused - unfused).abs().amax(dim=-1)
+           / unfused.abs().amax(dim=-1)).max().item()
+    agree = (fused.argmax(-1) == unfused.argmax(-1)).float().mean().item()
+    n_prof = 16
+    prof = {"fused": per_token_profile(
+                lambda: fused_decode.fused_generate(model, prompt, n_prof),
+                n_prof),
+            "int8_unfused": per_token_profile(
+                lambda: generate(model, prompt, n_prof), n_prof)}
+    in_vocab = bool(((toks >= 0) & (toks < model.vocab_size)).all())
+    ok = (launches == GENERATE_TOKENS - 1 and in_vocab
+          and tuple(toks.shape) == (1, GENERATE_TOKENS)
+          and torch.equal(toks, again) and rel < 0.05
+          and fused_cli["tokens"] == int8_cli["tokens"] == GENERATE_TOKENS)
+    log("fused_generate", prompt_tokens=plen, new_tokens=GENERATE_TOKENS,
+        chunks=chunks, k8_launches=launches,
+        expected_launches=GENERATE_TOKENS - 1, wall_ms=wall * 1e3,
+        tok_per_s=GENERATE_TOKENS / wall, repeat_identical=torch.equal(
+            toks, again), teacher_forced_rel=rel,
+        teacher_forced_argmax_agree=agree, cli_fused=fused_cli,
+        cli_int8=int8_cli, profile=prof, ok=ok)
+    if not ok:
+        raise AssertionError("fused_generate failed its checks")
+    results["fused_generate_launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+
+
+# -- phase 15 -----------------------------------------------------------------
+
+FUSED_SERVING = dict(quant_weights=True, decode_path="fused",
+                     max_batch_size=2, num_blocks=512, block_size=16,
+                     chunk_size=256)
+
+
+def fused_traffic(model, seed):
+    """4 requests of 128-token prompts, admitted in pairs (equal lengths:
+    every decode step lockstep), then 2 of 150 and 200 tokens (ragged
+    offsets: standard decode steps, and 256-token chunks whose 512-row
+    mixed steps take K3); 64 greedy tokens each. Returns (engine, rids)."""
+    import numpy as np
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(model, seed=seed, device=model.device,
+                             **FUSED_SERVING)
+    rng = np.random.default_rng(seed)
+    rids = [engine.submit(rng.integers(0, model.vocab_size, n), 64)
+            for n in (128, 128, 128, 128, 150, 200)]
+    engine.run_until_complete()
+    return engine, rids
+
+
+def phase_serving_fused(results):
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import decode_stack as ds
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops import quant_matmul as qm
+    from tnn_tpu_torch.ops.quant_matmul import W8A8_MAX_ROWS
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    fused_traffic(model, seed=1)                                 # warm-up
+    real = InferenceEngine._mixed_standard
+    wide = [0]
+
+    def mixed_standard(self, toks, *a):
+        wide[0] += toks.numel() > W8A8_MAX_ROWS
+        return real(self, toks, *a)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ds.fused_decode_stack.launches = 0
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    qm.int8_matmul.launches = 0
+    InferenceEngine._mixed_standard = mixed_standard
+    t0 = time.perf_counter()
+    try:
+        engine, rids = fused_traffic(model, seed=0)
+    finally:
+        InferenceEngine._mixed_standard = real
+    wall = time.perf_counter() - t0
+    k8, k3 = ds.fused_decode_stack.launches, qm.int8_matmul.launches
+    k1, k2 = pa.paged_attention.launches, pa.paged_attention.int8_launches
+    stats = engine.stats()
+    steps = stats["program_steps"]
+    bad = [r for r in rids if engine.result(r).state
+           is not RequestState.FINISHED
+           or len(engine.result(r).out_tokens) != 64]
+    want_k3 = 4 * model.num_layers * wide[0]
+    exact, total, worst = closeness_gate(model, engine, rids)
+    ok = (not bad and k8 == steps.get("fdecode", 0) > 0
+          and steps.get("decode", 0) > 0 and k1 == k2 == 0
+          and k3 == want_k3 and wide[0] > 0
+          and stats["decode_path"] == "fused"
+          and exact >= 0.75 * total and worst < 0.25)
+    log("serving_fused", requests=len(rids), finished=len(rids) - len(bad),
+        chunks=engine._fused["chunks"], assembly_len=engine.assembly_len,
+        program_steps=steps, k8_launches=k8, wide_steps=wide[0],
+        k3_launches=k3, expected_k3=want_k3, k1_launches=k1,
+        k2_launches=k2, wall_s=wall, ttft_ms_p50=stats["ttft_ms_p50"],
+        ttft_ms_p95=stats["ttft_ms_p95"],
+        decode_tok_per_s=stats["tok_per_s"],
+        step_ms_mean=stats["step_latency_ms_mean"], steps=stats["steps"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        argmax_positions=exact, positions=total, worst_margin=worst, ok=ok)
+    if not ok:
+        raise AssertionError(f"fused serving failed its checks: {bad}")
+    results["fused_launches"] = k8
+    engine.check_invariants()
+    del engine
+    # steady decode at two rows: the fused path, the paged path on the same
+    # int8 weights, and the int8 pool's paged path
+    profile_decode_steps(model, phase="serving_fused_profile", batch=2,
+                         **{k: FUSED_SERVING[k] for k in
+                            ("quant_weights", "decode_path")})
+    profile_decode_steps(model, phase="serving_fused_profile_paged_beside",
+                         batch=2, quant_weights=True)
+    profile_decode_steps(model, phase="serving_fused_profile_int8_beside",
+                         batch=2, **INT8_SERVING)
+    del model
+    torch.cuda.empty_cache()
+    proc = cli_check(("--quant-weights", "--decode-path", "fused",
+                      "--max-batch-size", "2"))
+    summary = json.loads(proc.stderr.split("serve summary: ")[1])
+    if summary["decode_path"] != "fused":
+        raise AssertionError(f"CLI summary: {summary}")
+
+
 def main() -> int:
     import torch
 
@@ -2096,7 +2574,8 @@ def main() -> int:
     for phase in (phase_kernel, phase_flash, phase_flash_split,
                   phase_serving, phase_cli, phase_training,
                   phase_training_long, phase_train_cli, phase_int8_kernel,
-                  phase_int8_matmul, phase_serving_int8):
+                  phase_int8_matmul, phase_serving_int8, phase_decode_stack,
+                  phase_fused_generate, phase_serving_fused):
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,
@@ -2134,6 +2613,11 @@ def main() -> int:
                         "replaces": f"{flash}:{line}",
                         "launches": results["split_launches"][name],
                         **{k: results[name][k] for k in keys}})
+    kernels.append({"name": "fused_decode_stack", "route": "cuda",
+                    "source": "tnn_tpu_torch/csrc/decode_stack.cu",
+                    "replaces": "tnn_tpu/ops/pallas/decode_stack.py:173",
+                    "launches": results["fused_launches"],
+                    **{k: results["fused_decode_stack"][k] for k in keys}})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -122,12 +122,15 @@ def test_kernel_sources_plain_c_and_int8_paths_run_without_nvcc():
     building anything: a host without nvcc (this one) runs them."""
     sources = sorted((ROOT / "tnn_tpu_torch" / "csrc").glob("*.cu"))
     assert {p.name for p in sources} >= {"paged_attention.cu",
-                                         "quant_matmul.cu"}
+                                         "quant_matmul.cu",
+                                         "decode_stack.cu"}
     for path in sources:
         text = path.read_text()
         assert 'extern "C"' in text and "torch/" not in text, path
     assert 'tnn_paged_attention_int8' in (
         ROOT / "tnn_tpu_torch" / "csrc" / "paged_attention.cu").read_text()
+    assert 'tnn_fused_decode_stack' in (
+        ROOT / "tnn_tpu_torch" / "csrc" / "decode_stack.cu").read_text()
     code = """
 import os, torch
 from tnn_tpu_torch.ops import paged_attention as pa, quant_matmul as qm
@@ -151,6 +154,37 @@ m = quant.quantize_for_decode(GPT2(vocab_size=256, max_len=16, num_layers=1,
 assert m(torch.arange(8)[None]).shape == (1, 8, 256)
 assert runtime._loaded == {} and pa.paged_attention.int8_launches == 0
 assert qm.int8_matmul.launches == 0
+print("ok")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_fused_decode_path_runs_without_nvcc():
+    """The fused decode slice (``ops.decode_stack``, ``models.fused_decode``,
+    the engine's "fused" and "standard" paths, ``cli.gpt2_inference``)
+    computes its plain versions on CPU tensors without building anything,
+    and its modules import nothing of JAX (the tests above scan them)."""
+    code = """
+import torch
+from tnn_tpu_torch.ops import decode_stack as ds, runtime
+from tnn_tpu_torch.models.gpt2 import GPT2
+from tnn_tpu_torch.models.fused_decode import fused_generate
+from tnn_tpu_torch.nn.quant import quantize_for_decode
+from tnn_tpu_torch.serving.engine import InferenceEngine
+from tnn_tpu_torch.cli import gpt2_inference
+m = GPT2(vocab_size=256, max_len=32, num_layers=1, d_model=128,
+         num_heads=2, device="cpu")
+q = quantize_for_decode(m)
+assert fused_generate(q, torch.arange(4)[None], 3).shape == (1, 3)
+for path in ("fused", "standard"):
+    eng = InferenceEngine(m, num_blocks=8, block_size=4, max_batch_size=2,
+                          quant_weights=True, decode_path=path, device="cpu")
+    for _ in range(2):
+        eng.submit([1, 2, 3], 3)
+    out = eng.run_until_complete()
+    assert eng.stats()["decode_path"] == path and len(out) == 2
+assert runtime._loaded == {} and ds.fused_decode_stack.launches == 0
 print("ok")
 """
     proc = _run(code)

@@ -61,6 +61,12 @@ def main(argv=None) -> int:
     ap.add_argument("--quant-weights", action="store_true",
                     help="serve projection/MLP matmuls from int8 weights "
                          "via the in-kernel-dequant quant_matmul kernel")
+    ap.add_argument("--decode-path", default="auto",
+                    choices=("auto", "standard", "fused", "paged"),
+                    help="decode program: paged (the paged-attention "
+                         "kernel), standard (assembled caches), fused (the "
+                         "one-launch decode-stack kernel on lockstep "
+                         "batches; needs --quant-weights), or auto")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -71,7 +77,8 @@ def main(argv=None) -> int:
         model, num_blocks=args.num_blocks, block_size=args.block_size,
         max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
         seed=args.seed, kv_dtype=args.kv_dtype,
-        quant_weights=args.quant_weights, device=args.device)
+        quant_weights=args.quant_weights, decode_path=args.decode_path,
+        device=args.device)
     user_ids = {}
 
     def handle_line(line: bytes) -> None:

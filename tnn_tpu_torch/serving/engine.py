@@ -3,27 +3,42 @@ paged KV pool on one device.
 
     submit() --> Scheduler (FCFS queue) --> step():
         ONE mixed step packs decode rows (1 token each) and prefill CHUNKS
-        (up to chunk_size prompt tokens each) into a ragged batch through
-        GPT2.apply_paged; a step with no chunk work runs the pure-decode
-        GPT2.apply_decode_paged instead
+        (up to chunk_size prompt tokens each) into a ragged batch; a step
+        with no chunk work runs a pure-decode program instead
       --> streamed tokens / finished requests
 
-Every layer of either forward writes its new K/V rows into the pool pages in
-place and calls the ragged paged-attention kernel once
-(``ops.paged_attention``), so a step launches that kernel ``num_layers``
-times. This port runs the JAX engine's paged path with the prefix cache off:
-chunked prefill, recompute preemption (LIFO victims, a per-request
-preemption budget) and the per-row logit guard. Steps run synchronously
-(one host fetch of the sampled tokens per step), and a step that raises
-propagates to the caller: a kernel failure is never turned into failed
-requests. ``kv_dtype="int8"`` stores the pool as int8 pages with f32 scales
-(the attention kernel reads them in place), ``quant_weights=True`` serves a
-copy of the model with int8 matmul weights (``nn.quant``). Speculative
-decoding, the overlapped loop, tensor/sequence parallelism and the fault
-plan are not ported yet.
+Decode-path selection (``decode_path``), as in the JAX engine: "auto"
+probes the PAGED path first (the model decodes straight against the pool's
+pages: ``GPT2.apply_paged`` / ``apply_decode_paged``, every layer writing
+its new K/V rows in place and calling the ragged paged-attention kernel
+once, ``ops.paged_attention``). Where that path is off ("standard",
+"fused", or a model without ``apply_decode_paged``) the steps run on
+ASSEMBLED caches: ``kv_pool.gather_kv`` builds each row's contiguous cache
+from its block table, the model's ``apply_cached`` runs on it, and
+``scatter_chunk`` / ``scatter_token`` write the step's new rows back. The
+"fused" path adds one program: a pure-decode step whose live rows all sit
+at one offset (lockstep) runs every block in one launch of the fused
+decode-stack kernel (``models.fused_decode``, ``ops.decode_stack``);
+ragged decode steps and every prefill chunk run the standard programs. It
+needs decode-quantized weights (``quant_weights=True``), a compute-dtype
+pool, and a geometry ``pick_chunks`` accepts; "fused" raises otherwise,
+"auto" records why in ``fused_fallback_reason`` (``paged_fallback_reason``
+likewise for the paged probe).
+
+The engine runs the JAX engine's chunked prefill, recompute preemption
+(LIFO victims, a per-request preemption budget) and per-row logit guard,
+with the prefix cache off. Steps run synchronously (one host fetch of the
+sampled tokens per step), and a step that raises propagates to the
+caller: a kernel failure is never turned into failed requests.
+``kv_dtype="int8"`` stores the pool as int8 pages with f32 scales (the
+attention kernel reads them in place; the assembled paths dequantize at
+the gather), ``quant_weights=True`` serves a copy of the model with int8
+matmul weights (``nn.quant``). Speculative decoding, the overlapped loop,
+tensor/sequence parallelism and the fault plan are not ported yet.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -31,10 +46,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models import sampling
+from ..models import fused_decode, sampling
 from ..nn.quant import quantize_for_decode
+from ..ops.decode_stack import fused_decode_stack
 from ..utils.device import resolve_device
-from . import step_build
+from . import kv_pool, step_build
 from .kv_pool import PagedKVPool
 from .metrics import ServingMetrics
 from .scheduler import TERMINAL_STATES, Request, RequestState, Scheduler
@@ -55,6 +71,8 @@ class InferenceEngine:
     quant_weights : serve from int8 weights: the engine quantizes a copy of
         the model (``nn.quant.quantize_for_decode``) and leaves the
         caller's unchanged.
+    decode_path : "auto" | "standard" | "fused" | "paged" (module
+        docstring).
 
     A request may hold up to min(model.max_len, pool capacity) positions,
     a step processes at most 2048 tokens (decode rows + prompt chunks), and
@@ -67,10 +85,12 @@ class InferenceEngine:
                  max_batch_size: int = 8, chunk_size: int = 64,
                  preemption_budget: Optional[int] = 16, seed: int = 0,
                  kv_dtype: str = "f32", quant_weights: bool = False,
-                 device="cuda"):
+                 decode_path: str = "auto", device="cuda"):
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
+        if decode_path not in ("auto", "standard", "fused", "paged"):
+            raise ValueError(f"unknown decode_path {decode_path!r}")
         self.device = resolve_device(device)
         param_dev = next(model.parameters()).device
         if param_dev != self.device:
@@ -90,8 +110,10 @@ class InferenceEngine:
             device=self.device, kv_dtype=kv_dtype)
         self.max_seq_len = min(model.max_len,
                                self.pool.capacity * block_size)
-        # fixed table width: every step passes this many blocks per row
+        # fixed table width: every step passes this many blocks per row,
+        # and the assembled paths gather this many positions per row
         self.blocks_per_seq = self.pool.blocks_for(self.max_seq_len)
+        self.assembly_len = self.blocks_per_seq * block_size
         self.scheduler = Scheduler(max_batch_size=max_batch_size,
                                    chunk_size=chunk_size)
         self.metrics = ServingMetrics()
@@ -101,6 +123,69 @@ class InferenceEngine:
         self.requests: Dict[int, Request] = {}
         self._rid = itertools.count()
         self.model_steps = 0     # steps that ran a model forward
+        # model steps by program: "mixed" / "pdecode" on the paged path,
+        # "mixed_standard" / "decode" / "fdecode" (lockstep, the fused
+        # kernel) off it
+        self.program_steps: collections.Counter = collections.Counter()
+        self.paged_fallback_reason: Optional[str] = None
+        self.fused_fallback_reason: Optional[str] = None
+        self._paged = False
+        self._fused: Optional[Dict[str, Any]] = None
+        # auto probes paged first: it serves ragged batches natively and
+        # never assembles a cache
+        if decode_path in ("auto", "paged"):
+            try:
+                self._probe_paged()
+                self._paged = True
+            except ValueError as e:
+                if decode_path == "paged":
+                    raise
+                self.paged_fallback_reason = str(e)
+        else:
+            self.paged_fallback_reason = \
+                f"disabled (decode_path={decode_path!r})"
+        if self._paged:
+            self.fused_fallback_reason = "unused (paged decode path selected)"
+        elif decode_path in ("auto", "fused"):
+            try:
+                self._fused = self._probe_fused(max_batch_size)
+            except ValueError as e:
+                if decode_path == "fused":
+                    raise
+                self.fused_fallback_reason = str(e)
+        else:
+            self.fused_fallback_reason = \
+                f"disabled (decode_path={decode_path!r})"
+
+    # -- decode-path probes ---------------------------------------------------
+
+    def _probe_paged(self) -> None:
+        """Validate the paged decode path against this model; raises
+        ValueError (with the reason) when auto must fall back."""
+        if not hasattr(self.model, "apply_decode_paged"):
+            raise ValueError(
+                f"{type(self.model).__name__} has no apply_decode_paged: the "
+                "paged path needs the model to decode straight against pool "
+                "pages (see GPT2.apply_decode_paged)")
+
+    def _probe_fused(self, batch: int) -> Dict[str, Any]:
+        """Validate the fused decode kernel against this model and pool;
+        raises ValueError (with the reason) when the standard path must be
+        used. Tensor and sequence parallelism, which the JAX engine also
+        refuses here, do not exist in the port."""
+        if self.kv_dtype == "int8":
+            raise ValueError(
+                "fused decode assembles a contiguous compute-dtype cache: "
+                "int8 pages would dequantize outside the kernel with no "
+                "bandwidth win; int8 pools use the paged or standard path")
+        chunks = fused_decode.pick_chunks(
+            self.model.d_model, 4 * self.model.d_model, batch,
+            self.assembly_len)
+        if chunks is None:
+            raise ValueError("model too large for the fused kernel's VMEM "
+                             "budget at this batch/assembly geometry")
+        return {"stacks": fused_decode.stack_decode_weights(self.model),
+                "chunks": chunks}
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -155,7 +240,11 @@ class InferenceEngine:
                   "kv_bytes_per_token": self.pool.kv_bytes_per_token,
                   "kv_scale_bytes_per_token":
                       self.pool.kv_scale_bytes_per_token,
-                  "quant_weights": self.quant_weights})
+                  "quant_weights": self.quant_weights,
+                  "decode_path": ("paged" if self._paged
+                                  else "fused" if self._fused is not None
+                                  else "standard"),
+                  "program_steps": dict(self.program_steps)})
         return s
 
     def check_invariants(self) -> None:
@@ -287,23 +376,122 @@ class InferenceEngine:
             rows, len(dec), takes, b=self.scheduler.max_batch_size,
             nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH)
         put = self._put
-        logits = self.model.apply_paged(
-            put(step.toks), self.pool.pages_k, self.pool.pages_v,
-            put(step.tables), put(step.starts), put(step.q_lens),
-            last_only=True)
+        toks, tables = put(step.toks), put(step.tables)
+        starts, q_lens = put(step.starts), put(step.q_lens)
+        if self._paged:
+            self.program_steps["mixed"] += 1
+            logits = self.model.apply_paged(
+                toks, self.pool.pages_k, self.pool.pages_v, tables, starts,
+                q_lens, last_only=True)
+        else:
+            self.program_steps["mixed_standard"] += 1
+            logits = self._mixed_standard(toks, tables, starts, q_lens)
         return {"kind": "mixed", "dev": self._sample(logits, step),
                 "rows": rows, "n_dec": len(dec), "takes": takes}
 
     def _decode_launch(self, live: Sequence[Request]) -> Dict:
-        step = step_build.pack_decode(live, b=self.scheduler.max_batch_size,
-                                      nb=self.blocks_per_seq,
-                                      scratch=PagedKVPool.SCRATCH)
+        step = step_build.pack_decode(
+            live, b=self.scheduler.max_batch_size, nb=self.blocks_per_seq,
+            scratch=PagedKVPool.SCRATCH, paged=self._paged,
+            fused_available=self._fused is not None)
         put = self._put
-        logits = self.model.apply_decode_paged(
-            put(step.toks), self.pool.pages_k, self.pool.pages_v,
-            put(step.tables), put(step.offsets))
+        toks, tables = put(step.toks), put(step.tables)
+        self.program_steps[step.program] += 1
+        if step.program == "pdecode":
+            logits = self.model.apply_decode_paged(
+                toks, self.pool.pages_k, self.pool.pages_v, tables,
+                put(step.offsets))
+        elif step.program == "fdecode":
+            logits = self._fused_decode(toks, tables, int(step.offsets[0]))
+        else:
+            logits = self._decode_standard(toks, tables, put(step.offsets))
         return {"kind": "decode", "dev": self._sample(logits, step),
                 "live": list(live)}
+
+    # -- the assembled-cache programs (JAX's _mixed_standard_fn, _decode_fn,
+    # _fused_decode_fn) ---------------------------------------------------
+
+    def _gather(self, tables):
+        return kv_pool.gather_kv(self.pool.pages_k, self.pool.pages_v,
+                                 tables,
+                                 out_dtype=self.model.policy.compute_dtype)
+
+    def _mixed_standard(self, toks, tables, starts, q_lens):
+        """The ragged mixed step on assembled caches: each row's chunk runs
+        ``apply_cached`` at its own start; the head runs on each row's
+        last live position; the chunk's new rows go back to the pages."""
+        model = self.model
+        b, qw = toks.shape
+        kf, vf = self._gather(tables)
+        # pad the time axis by qw: a chunk ending at the assembly edge
+        # writes past it (the padded tail is never scattered back: its
+        # tokens are dead and scatter_chunk drops them)
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, qw))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, qw))
+        x = model.wpe(model.wte(toks), offset=starts)
+        rows = torch.arange(b, device=toks.device)[:, None]
+        pos = starts.long()[:, None] + torch.arange(qw, device=toks.device)
+        rows_k, rows_v = [], []
+        for i, blk in enumerate(model.blocks):
+            x, cache = blk.apply_cached(x, {"k": kf[i], "v": vf[i]}, starts)
+            rows_k.append(cache["k"][rows, :, pos])      # (B, Q, H, Dh)
+            rows_v.append(cache["v"][rows, :, pos])
+        last = x[rows[:, 0], (q_lens.long() - 1).clamp_min(0)]
+        logits = model._head(last[:, None])[:, 0]
+        kv_pool.scatter_chunk(self.pool.pages_k, tables, starts,
+                              torch.stack(rows_k), q_lens)
+        kv_pool.scatter_chunk(self.pool.pages_v, tables, starts,
+                              torch.stack(rows_v), q_lens)
+        return logits
+
+    def _decode_standard(self, toks, tables, offsets):
+        """The ragged pure-decode step on assembled caches."""
+        model = self.model
+        kf, vf = self._gather(tables)
+        x = model.wpe(model.wte(toks[:, None]), offset=offsets)
+        rows = torch.arange(toks.shape[0], device=toks.device)
+        pos = offsets.long()
+        rows_k, rows_v = [], []
+        for i, blk in enumerate(model.blocks):
+            x, cache = blk.apply_cached(x, {"k": kf[i], "v": vf[i]},
+                                        offsets)
+            rows_k.append(cache["k"][rows, :, pos])      # (B, H, Dh)
+            rows_v.append(cache["v"][rows, :, pos])
+        logits = model._head(x)[:, -1]
+        kv_pool.scatter_token(self.pool.pages_k, tables, offsets,
+                              torch.stack(rows_k))
+        kv_pool.scatter_token(self.pool.pages_v, tables, offsets,
+                              torch.stack(rows_v))
+        return logits
+
+    def _fused_decode(self, toks, tables, offset: int):
+        """The lockstep pure-decode step: every row at ``offset``; all
+        blocks in one fused decode-stack launch over the assembled caches,
+        then ln_f and the head; the new row of every layer goes back to the
+        pages."""
+        model = self.model
+        kf, vf = self._gather(tables)
+
+        def flat(c):   # (L, B, H, T, Dh) -> the kernel's (L, B, T, D)
+            n_layers, b, h, t, dh = c.shape
+            return c.transpose(2, 3).reshape(n_layers, b, t, h * dh)
+
+        kc, vc = flat(kf), flat(vf)
+        del kf, vf
+        x = model.wpe(model.wte(toks[:, None]), offset=offset)[:, 0]
+        x_out, kc, vc = fused_decode_stack(
+            x, offset, kc, vc, self._fused["stacks"],
+            num_heads=model.num_heads, chunks=self._fused["chunks"])
+        logits = model._head(x_out[:, None, :])[:, -1]
+        n_layers, b, _, d = kc.shape
+        h = model.num_kv_heads
+        offsets = torch.full((b,), offset, dtype=torch.int32,
+                             device=toks.device)
+        for pages, c in ((self.pool.pages_k, kc), (self.pool.pages_v, vc)):
+            kv_pool.scatter_token(pages, tables, offsets,
+                                  c[:, :, offset].reshape(n_layers, b, h,
+                                                          d // h))
+        return logits
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)

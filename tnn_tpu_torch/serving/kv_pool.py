@@ -19,6 +19,11 @@ dequantized where attention reads them; the block-table bookkeeping never
 looks inside the bundle. ``kv_dtype="f32"`` (the JAX name) keeps pages in
 ``dtype``, the model's compute dtype.
 
+The module's step-side helpers serve the assembled-cache ("standard" and
+"fused") decode paths: ``gather_kv`` builds each row's contiguous cache
+from its block table, and ``scatter_token`` / ``scatter_chunk`` write one
+step's new rows back for all layers at once.
+
 The prefix-cache parts of the JAX pool (fork, the evictable LRU, the demote
 hooks) are not ported yet.
 """
@@ -30,7 +35,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-from ..ops.paged_attention import QuantPages
+from ..ops.paged_attention import QuantPages, quantize_kv_rows
 
 
 class PoolExhausted(RuntimeError):
@@ -215,3 +220,93 @@ class PagedKVPool:
         if usage != Counter(self._ref):
             raise ValueError(f"table/refcount mismatch: tables "
                              f"{dict(usage)} vs refcounts {self._ref}")
+
+
+# -- the assembled-cache paths' gather and scatters ---------------------------
+
+
+def gather_kv(pages_k, pages_v, block_tables, out_dtype=None,
+              axis_name=None):
+    """Block tables -> contiguous ragged-batch caches.
+
+    pages_*: (L, N, H, bs, Dh) tensors or ``QuantPages``; block_tables: (B,
+    nb) int32. Returns two new (L, B, H, nb * bs, Dh) tensors: per layer
+    the cache layout ``MultiHeadAttention.apply_cached`` reads. Positions
+    past a row's length hold whatever their pages hold; the causal mask at
+    each row's offset keeps them out of the softmax. ``QuantPages`` are
+    dequantized at the gather, to ``out_dtype`` (default f32); plain pages
+    keep their dtype. ``axis_name`` names a sequence-parallel mesh axis,
+    which the port does not have yet: it raises.
+    """
+    if axis_name is not None:
+        raise NotImplementedError("gather_kv over a sequence-parallel mesh "
+                                  "is not ported yet (ROADMAP.md)")
+    tables = block_tables.long()
+    b, nb = tables.shape
+
+    def gather(pages):
+        if isinstance(pages, QuantPages):
+            x = pages.data[:, tables].float() * pages.scale[:, tables]
+            x = x.to(out_dtype or torch.float32)
+        else:
+            x = pages[:, tables]                  # (L, B, nb, H, bs, Dh)
+        n_layers, _, _, h, bs, dh = x.shape
+        return x.transpose(2, 3).reshape(n_layers, b, h, nb * bs, dh)
+
+    return gather(pages_k), gather(pages_v)
+
+
+def scatter_token(pages, block_tables, offsets, rows):
+    """Write one new KV row per sequence at its decode position, all layers
+    at once, in place.
+
+    pages: (L, N, H, bs, Dh); block_tables: (B, nb); offsets: (B,) the
+    position each row just wrote; rows: (L, B, H, Dh). Padded rows point
+    their tables at SCRATCH, so their writes land in the scratch block.
+    ``QuantPages`` quantize the rows here. Returns ``pages``.
+    """
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize_kv_rows(rows)
+        scatter_token(pages.data, block_tables, offsets, qrows)
+        scatter_token(pages.scale, block_tables, offsets, srows)
+        return pages
+    bs = pages.shape[3]
+    offsets = offsets.long()
+    blk = block_tables.long().gather(1, (offsets // bs)[:, None])[:, 0]
+    # the two advanced indices (blk, slot) around sliced axes put the batch
+    # dim first: the target is (B, L, H, Dh)
+    pages[:, blk.clamp_min(0), :, offsets % bs, :] = \
+        rows.transpose(0, 1).to(pages.dtype)
+    return pages
+
+
+def scatter_chunk(pages, block_tables, starts, rows, q_lens):
+    """Write a ragged chunk of new KV rows per sequence, all layers at
+    once, in place.
+
+    pages: (L, N, H, bs, Dh); block_tables: (B, nb); starts: (B,) the first
+    position each row writes; rows: (L, B, Q, H, Dh); q_lens: (B,) live
+    tokens per row. Row b's tokens q < q_lens[b] land at starts[b] + q;
+    padding tokens go to SCRATCH, which is never allocated to a request.
+    Which of several padding tokens lands last in a scratch slot is not
+    defined; nothing reads them. ``QuantPages`` quantize the rows here.
+    Returns ``pages``.
+    """
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize_kv_rows(rows)
+        scatter_chunk(pages.data, block_tables, starts, qrows, q_lens)
+        scatter_chunk(pages.scale, block_tables, starts, srows, q_lens)
+        return pages
+    bs = pages.shape[3]
+    qw = rows.shape[2]
+    nbt = block_tables.shape[1]
+    steps = torch.arange(qw, device=pages.device)
+    pos = starts.long()[:, None] + steps                       # (B, Q)
+    live = steps[None, :] < q_lens.long()[:, None]
+    blk = block_tables.long().gather(1, (pos // bs).clamp(0, nbt - 1))
+    blk = torch.where(live, blk, PagedKVPool.SCRATCH).clamp_min(0)
+    # advanced (blk, slot) indices of (B, Q) lead the target: (B, Q, L, H,
+    # Dh)
+    pages[:, blk, :, pos % bs, :] = rows.permute(1, 2, 0, 3, 4).to(
+        pages.dtype)
+    return pages

@@ -4,8 +4,11 @@ speculative-decoding drafts.
 ``pack_mixed`` puts decode-phase rows first (one committed token each), then
 mid-prefill chunk rows, into a ragged (B, qw) batch whose width is the
 power-of-two bucket of the widest chunk; ``pack_decode`` is the pure-decode
-batch, one token per row. Padding rows point their tables at the pool's
-scratch block and carry q_len 0.
+batch, one token per row, and names the program that runs it: "pdecode"
+(the paged path), "fdecode" (the fused kernel, when every live row sits at
+one offset: a lockstep batch) or "decode" (the assembled-cache standard
+path). Padding rows point their tables at the pool's scratch block and
+carry q_len 0.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ class DecodeStep(PackedStep):
     """The pure-decode batch: one committed token per row."""
     toks: np.ndarray = None         # (B,) this step's token per row
     offsets: np.ndarray = None      # (B,) kv length before this token
+    lockstep: bool = False          # every row at one offset (fused path)
+    program: str = ""               # "pdecode", "fdecode" or "decode"
 
 
 def _fill_row(step: PackedStep, i: int, req) -> None:
@@ -79,9 +84,12 @@ def pack_mixed(rows: Sequence[Any], n_dec: int, takes: Dict[int, int], *,
     return step
 
 
-def pack_decode(live: Sequence[Any], *, b: int, nb: int,
-                scratch: int) -> DecodeStep:
-    """Pack the pure-decode batch."""
+def pack_decode(live: Sequence[Any], *, b: int, nb: int, scratch: int,
+                paged: bool, fused_available: bool) -> DecodeStep:
+    """Pack the pure-decode batch. Off the paged path, with the fused
+    kernel available, a batch whose live rows share one offset is
+    lockstep: its padded rows take that offset too, so the kernel's one
+    position is uniform and their writes stay in the scratch block."""
     step = DecodeStep(toks=np.zeros((b,), np.int32),
                       offsets=np.zeros((b,), np.int32),
                       **_alloc_common(b, nb, scratch))
@@ -89,4 +97,10 @@ def pack_decode(live: Sequence[Any], *, b: int, nb: int,
         step.toks[i] = req.next_token
         step.offsets[i] = req.cache_len
         _fill_row(step, i, req)
+    step.lockstep = (not paged and fused_available
+                     and len(set(step.offsets[:len(live)].tolist())) == 1)
+    if step.lockstep:
+        step.offsets[len(live):] = step.offsets[0]
+    step.program = ("pdecode" if paged else "fdecode" if step.lockstep
+                    else "decode")
     return step
