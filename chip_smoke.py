@@ -63,7 +63,19 @@ numbers on its own line:
    decode_path="fused", max_batch_size=2)`` on 6 requests (lockstep pairs,
    then a ragged pair): K8 = lockstep steps, K3 = 48 x wide standard
    mixed steps, the closeness gate, steady decode profiles beside the
-   paged paths, and the CLI with ``--decode-path fused``.
+   paged paths, and the CLI with ``--decode-path fused``;
+16. paged_stats: the paged kernels' stats form (K1s: out and each row's
+   softmax max m and normalizer l) against its plain version in 36 cases
+   (both page types, bf16 and f32, decode and ragged chunks, Dh 64 and
+   128, block sizes 4 to 32, holes and dead rows), each also split
+   round-robin over 2 and 4 tables and merged against unsharded K1 / K2;
+   times at the serving decode shape beside K1's;
+17. serving_sp: ``InferenceEngine(sp=2, sp_devices=["cuda:0", "cuda:0"])``
+   serving full-width ``gpt2_small``: teacher-forced mixed-step logits
+   against sp=1, a 900-token prompt refused at sp=1 on one shard's pool
+   and served at sp=2, the serving traffic on the bf16 and int8 pools
+   (K1s = 2 x 12 x paged model steps, K1 = K2 = 0), the standard path,
+   steady decode profiles beside sp=1, and the CLI with ``--sp 2``.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -791,22 +803,24 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
         program_steps=engine.stats()["program_steps"])
 
 
-def host_ab(model, rounds=4, steps=5, launches=2000):
-    """The bf16 and the int8 decode step timed in alternating windows of
-    ``steps`` steps, each round also timing ``launches`` back-to-back tiny
-    kernel launches (the host's cost per launch at that moment), and one
-    last round with Python's garbage collector off. If the int8/bf16 ratio
-    holds while all three move together, the host's speed varies and the
-    int8 step pays for it per op; a ratio that moves alone is the int8
-    path's own."""
+def host_ab(model, rounds=4, steps=5, launches=2000,
+            phase="serving_int8_host_ab", paths=None):
+    """Two decode paths' steady steps timed in alternating windows of
+    ``steps`` steps (default: the bf16 path, then int8 pool and weights),
+    each round also timing ``launches`` back-to-back tiny kernel launches
+    (the host's cost per launch at that moment), and one last round with
+    Python's garbage collector off. If the second/first ratio holds while
+    all three move together, the host's speed varies and each path pays
+    for it per op; a ratio that moves alone is the second path's own."""
     import gc
 
     import torch
 
     n = rounds + 1
-    engines = {"bf16": steady_decode_engine(model, n * steps + 8),
-               "int8": steady_decode_engine(model, n * steps + 8,
-                                            **INT8_SERVING)}
+    paths = paths or {"bf16": {}, "int8": INT8_SERVING}
+    engines = {name: steady_decode_engine(model, n * steps + 8, **kw)
+               for name, kw in paths.items()}
+    first, second = paths
     probe = torch.zeros(1024, device=model.device)
 
     def window(fn, count):
@@ -828,9 +842,9 @@ def host_ab(model, rounds=4, steps=5, launches=2000):
                 row[f"{name}_ms"] = window(eng.step, steps) * 1e3
         finally:
             gc.enable()
-        row["ratio"] = row["int8_ms"] / row["bf16_ms"]
+        row["ratio"] = row[f"{second}_ms"] / row[f"{first}_ms"]
         rows.append(row)
-    log("serving_int8_host_ab", steps_per_window=steps,
+    log(phase, steps_per_window=steps,
         launches_per_window=launches, rounds=rows[:rounds],
         gc_off=rows[rounds])
 
@@ -2554,6 +2568,536 @@ def phase_serving_fused(results):
         raise AssertionError(f"CLI summary: {summary}")
 
 
+# -- phase 16 -----------------------------------------------------------------
+#
+# K1s (the paged kernels with return_stats) against the plain stats version
+# (``paged_attention_reference(..., return_stats=True)``), element by
+# element. out: K1's and K2's limits above (both normalize once, at the
+# end). m: both take the max of the same f32 scores summed in another order,
+# each within a few ulps of sum_d |q_d k_d| scale (about 7 at Dh 128 and
+# N(0, 1) inputs: 1e-6), so |m - m_ref| <= 1e-5 (1 + |m_ref|). l =
+# sum_j exp(s_j - m) moves by the error of s_j - m (2e-5 relative at most)
+# and one rounding per page rescale (at most 63 pages: 4e-6), so |l - l_ref|
+# <= 1e-4 l_ref. A row with no live key (kv_len 0, a padding token, every
+# block a -1 hole) must read exactly (0, -1e30, 0), and only those rows.
+#
+# The merge check splits each row's blocks round-robin over 2 and over 4
+# tables (-1 where another table holds the block, as the SP pool's local
+# tables), runs K1s on each and combines the partials with
+# ``softmax_merge.merge_shards``, against unsharded K1 (K2 over int8
+# pages). Each side lies within K1's limit of the exact value, so the two
+# lie within twice it: (1e-4, 2^-6) in bf16, (2e-5, 2e-5) in f32.
+STATS_M_TOL = 1e-5
+STATS_L_TOL = 1e-4
+MERGE_TOLERANCE = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 2 ** -6)}
+
+
+def stats_cases():
+    """{name: (int8 pages, paged_case spec, row made all -1 holes)}: both
+    page types, bf16 and f32, decode (3-D q) and ragged chunks of up to 16
+    tokens, Dh 64 and 128, block sizes 4 to 32, GQA, holes, a kv_len-0
+    row, padding tokens and a q_len-0 row."""
+    import torch
+
+    decode_kv = [0, 17, 512, 1, 333, 499, 64, 510]
+    ragged_q = [16, 16, 9, 16, 1, 1, 3, 0]
+    ragged_kv = [16, 448, 980, 704, 513, 100, 3, 40]
+    cases = {}
+    for quant in (False, True):
+        kind = "int8" if quant else "pages"
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            for bs in (4, 16, 32):
+                mha = dict(heads=12, kv_heads=12, head_dim=64, block_size=bs,
+                           dtype=dtype, holes=True)
+                cases[f"{kind}_decode_{dn}_bs{bs}"] = (quant, dict(
+                    decode_form=True, q_lens=[1] * 8, kv_lens=decode_kv,
+                    **mha), 3)
+                cases[f"{kind}_ragged_{dn}_bs{bs}"] = (quant, dict(
+                    decode_form=False, q_lens=ragged_q, kv_lens=ragged_kv,
+                    **mha), 5)
+            cases[f"{kind}_ragged_gqa4_{dn}"] = (quant, dict(
+                decode_form=False, q_lens=ragged_q, kv_lens=ragged_kv,
+                heads=12, kv_heads=4, head_dim=64, block_size=16,
+                dtype=dtype, holes=True), 5)
+            cases[f"{kind}_decode_hd128_{dn}"] = (quant, dict(
+                decode_form=True, q_lens=[1] * 8, kv_lens=decode_kv,
+                heads=6, kv_heads=6, head_dim=128, block_size=8, dtype=dtype,
+                holes=True), 3)
+            cases[f"{kind}_ragged_hd128_{dn}"] = (quant, dict(
+                decode_form=False, q_lens=ragged_q, kv_lens=ragged_kv,
+                heads=6, kv_heads=6, head_dim=128, block_size=32,
+                dtype=dtype), None)
+    return cases
+
+
+def split_tables(tables, n):
+    """Round-robin split of block tables over ``n`` shards: shard s keeps
+    positions j % n == s, -1 elsewhere."""
+    import torch
+
+    pos = torch.arange(tables.shape[1], device=tables.device)
+    return [torch.where(pos % n == s, tables, -1).contiguous()
+            for s in range(n)]
+
+
+def stats_check(name, quant, spec, args):
+    """One K1s case against the plain stats version, then the 2- and
+    4-way merge against unsharded K1 / K2. Returns the reading."""
+    import torch
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops.softmax_merge import merge_shards
+
+    counter = "int8_stats_launches" if quant else "stats_launches"
+    before = getattr(pa.paged_attention, counter)
+    out, m, l = pa.paged_attention(**args, return_stats=True)  # noqa: E741
+    torch.cuda.synchronize()
+    if getattr(pa.paged_attention, counter) != before + 1:
+        raise AssertionError(f"stats {name}: K1s did not launch")
+    ref, m_ref, l_ref = pa.paged_attention_reference(**args,
+                                                     return_stats=True)
+    v = args["pages_v"]
+    abs_v = pa.QuantPages(v.data.abs(), v.scale) if quant else v.abs()
+    ref_abs_v = pa.paged_attention_reference(
+        **{**args, "pages_v": abs_v}).float()
+    dt = str(spec["dtype"]).split(".")[-1]
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    if quant:
+        atol, rtol = INT8_TOLERANCE[dt]
+        limit = atol + rtol * ref.abs() + 1e-5 * ref_abs_v
+    else:
+        atol, rtol = TOLERANCE[dt]
+        limit = atol + rtol * (ref.abs() + ref_abs_v)
+    out_used = (diff / limit).max().item()
+    dead = l_ref == 0
+    live = ~dead
+    m_used = ((m - m_ref).abs()[live]
+              / (STATS_M_TOL * (1 + m_ref.abs()[live]))).max().item()
+    l_used = ((l - l_ref).abs()[live]
+              / (STATS_L_TOL * l_ref[live])).max().item()
+    dead_exact = bool((m[dead] == -1e30).all() and (l[dead] == 0).all()
+                      and (out.float()[dead.expand_as(out)] == 0).all()
+                      and (l[live] > 0).all())
+    # the merge over round-robin shards against the unsharded kernel
+    base = pa.paged_attention(**args).float()
+    matol, mrtol = MERGE_TOLERANCE[dt]
+    merge_used = {}
+    for n in (2, 4):
+        parts = [pa.paged_attention(**{**args, "block_tables": t},
+                                    return_stats=True)
+                 for t in split_tables(args["block_tables"], n)]
+        merged = merge_shards(*zip(*parts)).float()
+        mlimit = matol + mrtol * (base.abs() + ref_abs_v)
+        merge_used[n] = ((merged - base).abs() / mlimit).max().item()
+    used = [out_used, m_used, l_used, *merge_used.values()]
+    ok = all(math.isfinite(u) and u <= 1.0 for u in used) and dead_exact \
+        and int(dead.sum()) > 0
+    reading = dict(case=name, max_abs_err=diff.max().item(),
+                   out_limit_used=out_used,
+                   m_max_abs_err=(m - m_ref).abs()[live].max().item(),
+                   m_limit_used=m_used,
+                   l_max_rel_err=((l - l_ref).abs()[live]
+                                  / l_ref[live]).max().item(),
+                   l_limit_used=l_used, dead_rows=int(dead.sum()),
+                   dead_exact=dead_exact, merge2_limit_used=merge_used[2],
+                   merge4_limit_used=merge_used[4], ok=ok)
+    log("paged_stats", **reading)
+    if not ok:
+        raise AssertionError(f"paged_attention stats {name} failed: "
+                             f"{reading}")
+    return reading
+
+
+def phase_paged_stats(results):
+    import torch
+    import torch.nn.functional as F
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+
+    worst = {False: 0.0, True: 0.0}
+    for i, (name, (quant, spec, hole_row)) in enumerate(
+            stats_cases().items()):
+        make = quant_case if quant else paged_case
+        args = make(500 + i, batch=8, **spec)
+        if hole_row is not None:   # a live row whose blocks are all holes
+            args["block_tables"][hole_row] = -1
+        reading = stats_check(name, quant, spec, args)
+        worst[quant] = max(worst[quant], reading["max_abs_err"])
+
+    # time at the serving decode shape (gpt2_small heads, 8 rows, kv 500,
+    # bf16): K1s beside K1 (K2 over int8 pages) in one call
+    shape = dict(decode_form=True, q_lens=[1] * 8, kv_lens=[500] * 8,
+                 heads=12, kv_heads=12, head_dim=64, block_size=16,
+                 dtype=torch.bfloat16)
+    for quant, key in ((False, "paged_attention_stats"),
+                       (True, "paged_attention_int8_stats")):
+        args = (quant_case if quant else paged_case)(7, batch=8, **shape)
+        nbytes, ops = paged_work(args)
+        q = args["q"]
+        nbytes += 2 * 4 * q.shape[0] * q.shape[-2]   # m and l, f32
+        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                             ops / PEAK_OPS["bfloat16"])
+        sq, sk, sv, smask, gqa = sdpa_inputs(dequant_args(args) if quant
+                                             else args)
+        runs = {"": lambda: pa.paged_attention(**args, return_stats=True),
+                "nostats_": lambda: pa.paged_attention(**args),
+                "plain_": lambda: pa.paged_attention_reference(
+                    **args, return_stats=True),
+                "library_": lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
+        timed = {}
+        for prefix, fn in runs.items():
+            device, events = time_ms(fn)
+            timed[prefix + "ms"] = events if device is None else device
+            timed[prefix + "events_ms"] = events
+        timed.update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
+                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                     >= ops / PEAK_OPS["bfloat16"] else "operations")
+        log("paged_stats_time", kernel=key, **timed)
+        results[key] = dict(max_abs_err=worst[quant], **timed)
+    # comparison launches do not count
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    pa.paged_attention.stats_launches = 0
+    pa.paged_attention.int8_stats_launches = 0
+
+
+# -- phase 17 -----------------------------------------------------------------
+#
+# Sequence-parallel serving of full-width gpt2_small at sp = 2, both shards
+# on the one card (sp_devices cuda:0 twice: every SP code path, K1s
+# included, without a second card). Limits:
+# * teacher-forced mixed-step logits, sp = 2 against sp = 1 on the same KV
+#   (a ragged step of prompt chunks and decode rows): under FP32 the only
+#   difference is the reassociated softmax, about an ulp a layer, so 1e-4
+#   of max|logit| (the FP32 kernel-vs-plain bound of phase 4); in bf16 each
+#   shard rounds its partial output to bf16 before the merge, as K1 rounds
+#   its own, so the kernel-vs-plain bf16 bound, 3e-2 of max|logit|;
+# * greedy streams: identical to sp = 1's, or differing first at a token
+#   where either engine's top-2 logit gap is below the near-tie bound: 1e-3,
+#   or twice the largest bf16 logit difference the teacher-forced check
+#   read, where that is larger (a flip needs the gap below the difference).
+SP_DEVICES = ["cuda:0", "cuda:0"]
+SP_LOGIT_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+NEAR_TIE = 1e-3
+
+
+def gap_engine_class():
+    """An InferenceEngine that keeps, per request, every emitted token's
+    top-2 logit gap (the engine's own logits)."""
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    class GapEngine(InferenceEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.gaps = {}
+
+        def _build(self, chunks, events):
+            rec = super()._build(chunks, events)
+            if rec is not None:
+                self._rows = [r.rid for r in rec.get("rows",
+                                                     rec.get("live"))]
+            return rec
+
+        def _sample(self, logits, step):
+            top2 = logits.float().topk(2, dim=-1).values
+            self._gap = (top2[:, 0] - top2[:, 1]).cpu()
+            return super()._sample(logits, step)
+
+        def step(self):
+            events = super().step()
+            for rid, _ in events["tokens"]:
+                self.gaps.setdefault(rid, []).append(
+                    float(self._gap[self._rows.index(rid)]))
+            return events
+
+    return GapEngine
+
+
+def streams_agree(eng_a, rids_a, eng_b, rids_b, tie):
+    """Greedy streams of two engines: (equal streams, near-tie
+    divergences); raises on a divergence at a token whose gap is >= tie in
+    both engines."""
+    equal = flips = 0
+    for ra, rb in zip(rids_a, rids_b):
+        a, b = eng_a.result(ra).out_tokens, eng_b.result(rb).out_tokens
+        if a == b:
+            equal += 1
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = min(eng_a.gaps[ra][i], eng_b.gaps[rb][i])
+        if gap >= tie:
+            raise AssertionError(f"greedy streams differ at token {i} with "
+                                 f"top-2 gap {gap} >= {tie}: {a} vs {b}")
+        flips += 1
+    return equal, flips
+
+
+def sp_logits_check(model, seed, tol, kv_dtype="f32"):
+    """One ragged mixed step through the SP adapter over two shards of a
+    pool, then through the model over the same KV laid out as one pool
+    (the shards' pages side by side: global id = shard * N_l + local row).
+    Returns the max |logit difference| over live positions; fails past
+    ``tol`` of the largest logit."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.serving import step_build
+    from tnn_tpu_torch.serving.kv_pool import PagedKVPool
+    from tnn_tpu_torch.serving.sp import SPContext
+
+    dev = model.device
+    bs, b, qw = 16, 8, 64
+    starts = np.array([0, 0, 130, 700, 37, 512, 959, 3], np.int32)
+    q_lens = np.array([64, 17, 64, 40, 1, 1, 1, 0], np.int32)
+    ctx = SPContext(model, 2, devices=SP_DEVICES)
+    pool = PagedKVPool(model.num_layers, model.num_kv_heads,
+                       model.d_model // model.num_heads, 1200, bs,
+                       model.policy.compute_dtype, dev, kv_dtype=kv_dtype,
+                       sp=2, devices=ctx.devices)
+    nb = pool.blocks_for(model.max_len)
+    tables = np.zeros((b, nb), np.int32)
+    for i in range(b):
+        blocks = pool.alloc(pool.blocks_for(starts[i] + q_lens[i]))
+        tables[i, :len(blocks)] = blocks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for pages in pool.pages_k + pool.pages_v:   # the rows' earlier KV
+        if kv_dtype == "int8":
+            data, scale = pa.quantize_kv_rows(torch.randn(
+                pages.data.shape, generator=gen, device=dev))
+            pages.data.copy_(data)
+            pages.scale.copy_(scale)
+        else:
+            pages.copy_(torch.randn(pages.shape, generator=gen, device=dev))
+
+    def joined(side):   # the shards' pages as one (L, N, ...) pool
+        if kv_dtype == "int8":
+            return pa.QuantPages(torch.cat([p.data for p in side], 1),
+                                 torch.cat([p.scale for p in side], 1))
+        return torch.cat(side, 1)
+
+    one_k, one_v = joined(pool.pages_k), joined(pool.pages_v)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, model.vocab_size, (b, qw),
+                                         dtype=np.int32)).to(dev)
+    put = [torch.from_numpy(x).to(dev) for x in (tables, starts, q_lens)]
+    local = [torch.from_numpy(t).to(dev) for t in step_build.shard_tables(
+        tables, 2, pool.blocks_per_shard)]
+    with torch.inference_mode():
+        counts = (pa.paged_attention.stats_launches,
+                  pa.paged_attention.int8_stats_launches)
+        sharded = ctx.model.apply_paged(toks, pool.pages_k, pool.pages_v,
+                                        local, put[1], put[2])
+        after = (pa.paged_attention.stats_launches,
+                 pa.paged_attention.int8_stats_launches)
+        single = model.apply_paged(toks, one_k, one_v, *put)
+    want = 2 * model.num_layers
+    if sum(after) - sum(counts) != want:
+        raise AssertionError(f"SP mixed step launched K1s "
+                             f"{sum(after) - sum(counts)} times, want {want}")
+    live = torch.arange(qw, device=dev)[None, :] < put[2][:, None]
+    diff = (sharded - single).abs()[live].max().item()
+    scale = single[live].abs().max().item()
+    ok = math.isfinite(diff) and diff <= tol * scale
+    log("serving_sp_logits", policy=model.policy.compute, kv_dtype=kv_dtype,
+        max_abs_err=diff, max_abs_logit=scale, tolerance=tol * scale, ok=ok)
+    if not ok:
+        raise AssertionError(f"SP mixed-step logits against sp=1: {diff} > "
+                             f"{tol * scale}")
+    return diff
+
+
+def sp_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
+    """``serve_traffic`` on the gap-recording engine."""
+    import numpy as np
+
+    engine = gap_engine_class()(model, num_blocks=512, block_size=16,
+                                max_batch_size=8, chunk_size=64, seed=seed,
+                                device=model.device, **engine_kw)
+    rng = np.random.default_rng(seed)
+    rids = []
+    for i in range(num_requests):
+        prompt = rng.integers(0, model.vocab_size, int(rng.integers(16, 769)))
+        sampled = i % 2 == 1
+        rids.append(engine.submit(
+            prompt, new_tokens, temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 0.0))
+    engine.run_until_complete()
+    return engine, rids
+
+
+def pool_shard_bytes(pool):
+    """Bytes of one shard's K and V pages (and scales)."""
+    from tnn_tpu_torch.ops.paged_attention import QuantPages
+
+    total = 0
+    for p in pool.shard_pages()[0]:
+        for t in (p if isinstance(p, QuantPages) else (p,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def sp_run(model, tie, label, **kw):
+    """sp = 1 then sp = 2 over the serving traffic; launch counts of the
+    sp = 2 run (counts set to 0 just before it, read just after), its
+    streams against sp = 1's. Returns the sp = 2 launch counts."""
+    import torch
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    eng1, rids1 = sp_traffic(model, seed=0, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    pa.paged_attention.stats_launches = 0
+    pa.paged_attention.int8_stats_launches = 0
+    t0 = time.perf_counter()
+    eng2, rids2 = sp_traffic(model, seed=0, sp=2, sp_devices=SP_DEVICES,
+                             **kw)
+    wall = time.perf_counter() - t0
+    counts = {"k1": pa.paged_attention.launches,
+              "k2": pa.paged_attention.int8_launches,
+              "k1s": pa.paged_attention.stats_launches,
+              "k1s_int8": pa.paged_attention.int8_stats_launches}
+    stats = eng2.stats()
+    paged_steps = sum(stats["program_steps"].get(k, 0)
+                      for k in ("mixed", "pdecode"))
+    quant = kw.get("kv_dtype") == "int8"
+    want = {"k1": 0, "k2": 0,
+            "k1s": 0 if quant else 2 * model.num_layers * paged_steps,
+            "k1s_int8": 2 * model.num_layers * paged_steps if quant else 0}
+    bad = [r for r in rids2 if eng2.result(r).state
+           is not RequestState.FINISHED
+           or len(eng2.result(r).out_tokens) != 64]
+    greedy = [i for i in range(len(rids2)) if i % 2 == 0]
+    equal, flips = streams_agree(eng1, [rids1[i] for i in greedy], eng2,
+                                 [rids2[i] for i in greedy], tie)
+    ok = (not bad and counts == want and paged_steps > 0
+          and stats["sp_degree"] == 2
+          and stats["pool_blocks_per_shard"] == 256)
+    log("serving_sp", run=label, requests=len(rids2),
+        finished=len(rids2) - len(bad), model_steps=eng2.model_steps,
+        program_steps=stats["program_steps"], launches=counts,
+        expected=want, greedy_equal=equal, greedy_near_tie_flips=flips,
+        near_tie=tie, wall_s=wall, ttft_ms_p50=stats["ttft_ms_p50"],
+        ttft_ms_p95=stats["ttft_ms_p95"],
+        decode_tok_per_s=stats["tok_per_s"],
+        step_ms_mean=stats["step_latency_ms_mean"],
+        sp1_step_ms_mean=eng1.stats()["step_latency_ms_mean"],
+        preemptions=stats["preemptions"],
+        pool_bytes_per_shard=pool_shard_bytes(eng2.pool),
+        pool_bytes_sp1=pool_shard_bytes(eng1.pool),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, ok=ok)
+    if not ok:
+        raise AssertionError(f"SP serving {label}: launches {counts} (want "
+                             f"{want}), unfinished {bad}, stats {stats}")
+    eng2.check_invariants()
+    return counts
+
+
+def phase_serving_sp(results):
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    sp_logits_check(fp32, seed=4, tol=SP_LOGIT_TOL["fp32"])
+    del fp32
+    torch.cuda.empty_cache()
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    worst = max(sp_logits_check(model, seed=3, tol=SP_LOGIT_TOL["bf16"]),
+                sp_logits_check(model, seed=5, tol=SP_LOGIT_TOL["bf16"],
+                                kv_dtype="int8"))
+    tie = max(NEAR_TIE, 2 * worst)
+    sp_traffic(model, seed=1, num_requests=2, new_tokens=4, sp=2,
+               sp_devices=SP_DEVICES)                            # warm-up
+
+    # (a) the capability gate: a 900-token prompt on one shard's footprint
+    # (32 blocks of 16) is refused at sp = 1 and serves at sp = 2 on 64
+    rng = np.random.default_rng(11)
+    long_prompt = rng.integers(0, model.vocab_size, 900)
+    gate = dict(block_size=16, max_batch_size=8, chunk_size=64,
+                device=model.device)
+    refused = ""
+    try:
+        InferenceEngine(model, num_blocks=32, **gate).submit(long_prompt, 16)
+    except ValueError as e:
+        refused = str(e)
+    gap_engine = gap_engine_class()
+    eng_sp = gap_engine(model, num_blocks=64, sp=2, sp_devices=SP_DEVICES,
+                        **gate)
+    eng_ref = gap_engine(model, num_blocks=512, **gate)
+    rid_sp, rid_ref = (e.submit(long_prompt, 16) for e in (eng_sp, eng_ref))
+    for e in (eng_sp, eng_ref):
+        e.run_until_complete()
+    equal, flips = streams_agree(eng_ref, [rid_ref], eng_sp, [rid_sp], tie)
+    ok = ("exceeds" in refused and eng_sp.pool.blocks_per_shard == 32
+          and len(eng_sp.result(rid_sp).out_tokens) == 16)
+    log("serving_sp_gate", prompt=len(long_prompt), sp1_refusal=refused,
+        sp2_blocks_per_shard=eng_sp.pool.blocks_per_shard,
+        sp2_max_seq_len=eng_sp.max_seq_len, tokens=len(
+            eng_sp.result(rid_sp).out_tokens), equal_to_sp1_big_pool=equal,
+        near_tie_flips=flips, ok=ok)
+    if not ok:
+        raise AssertionError(f"SP capability gate: {refused!r}")
+    del eng_sp, eng_ref
+
+    # (b) parity on the bf16 pool, (c) on the int8 pool; greedy streams
+    # under FP32 too, where a flip needs a gap below 1e-3
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    sp_run(fp32, NEAR_TIE, "fp32_model")
+    del fp32
+    torch.cuda.empty_cache()
+    launches = sp_run(model, tie, "bf16_pool")
+    launches_int8 = sp_run(model, tie, "int8_pool", kv_dtype="int8")
+    results["sp_launches"] = {"stats": launches["k1s"],
+                              "int8_stats": launches_int8["k1s_int8"]}
+
+    # (d) a few steps of the standard path at sp = 2
+    std = gap_engine_class()
+    engines = [std(model, num_blocks=512, block_size=16, max_batch_size=8,
+                   chunk_size=64, decode_path="standard",
+                   device=model.device, **kw)
+               for kw in ({}, dict(sp=2, sp_devices=SP_DEVICES))]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, model.vocab_size, n) for n in (40, 300)]
+    before = pa.paged_attention.stats_launches
+    rids = [[e.submit(p, 8) for p in prompts] for e in engines]
+    for e in engines:
+        e.run_until_complete()
+    equal, flips = streams_agree(engines[0], rids[0], engines[1], rids[1],
+                                 tie)
+    steps = engines[1].stats()["program_steps"]
+    ok = (engines[1].stats()["decode_path"] == "standard"
+          and steps.get("decode", 0) > 0
+          and pa.paged_attention.stats_launches == before)
+    log("serving_sp_standard", program_steps=steps, greedy_equal=equal,
+        near_tie_flips=flips, ok=ok)
+    if not ok:
+        raise AssertionError(f"SP standard path: {steps}")
+    engines[1].check_invariants()
+    del engines
+
+    # steady decode at 8 rows, kv 500: sp = 1 and sp = 2 in alternating
+    # windows (the host's speed moves within a process), then each path's
+    # profile
+    sp2 = dict(sp=2, sp_devices=SP_DEVICES)
+    host_ab(model, phase="serving_sp_host_ab",
+            paths={"sp1": {}, "sp2": sp2})
+    profile_decode_steps(model, phase="serving_sp_profile", **sp2)
+    profile_decode_steps(model, phase="serving_sp_profile_sp1_beside")
+    del model
+    torch.cuda.empty_cache()
+    cli_check(("--sp", "2", "--sp-devices", ",".join(SP_DEVICES)))
+
+
 def main() -> int:
     import torch
 
@@ -2575,7 +3119,8 @@ def main() -> int:
                   phase_serving, phase_cli, phase_training,
                   phase_training_long, phase_train_cli, phase_int8_kernel,
                   phase_int8_matmul, phase_serving_int8, phase_decode_stack,
-                  phase_fused_generate, phase_serving_fused):
+                  phase_fused_generate, phase_serving_fused,
+                  phase_paged_stats, phase_serving_sp):
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,
@@ -2618,6 +3163,13 @@ def main() -> int:
                     "replaces": "tnn_tpu/ops/pallas/decode_stack.py:173",
                     "launches": results["fused_launches"],
                     **{k: results["fused_decode_stack"][k] for k in keys}})
+    for name, launches in (("paged_attention_stats", "stats"),
+                           ("paged_attention_int8_stats", "int8_stats")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "tnn_tpu_torch/csrc/paged_attention.cu",
+                        "replaces": "tnn_tpu/ops/pallas/paged_attention.py:203",
+                        "launches": results["sp_launches"][launches],
+                        **{k: results[name][k] for k in keys}})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

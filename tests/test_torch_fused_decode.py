@@ -220,3 +220,25 @@ def test_fused_generate_counts_one_launch_per_token_on_card():
     before = fused_decode_stack.launches
     out = tfd.fused_generate(qm, torch.zeros((1, 4), dtype=torch.long), 3)
     assert out.shape == (1, 3) and fused_decode_stack.launches == before
+
+
+def test_fused_generate_after_an_in_place_reload_uses_the_new_weights():
+    """The stacked weights are cached on the model; a weight load into the
+    same model (``load_jax_params`` of another int8 tree) must not leave
+    ``fused_generate`` on the old stacks."""
+    jm = JGPT2(**SMALL, policy=jdt.FP32)
+    trees = [jax.tree.map(np.asarray, jquant(
+        jm.init(jax.random.PRNGKey(s), (1, 8))["params"])) for s in (0, 1)]
+    prompt = torch.from_numpy(
+        np.random.RandomState(4).randint(0, 512, (2, 8)))
+
+    def fresh(tree):
+        return GPT2(**SMALL, policy=tdt.FP32, device="cpu",
+                    seed=None).load_jax_params(tree)
+
+    model = fresh(trees[0])
+    first = tfd.fused_generate(model, prompt, 5)    # stacks of tree A
+    model.load_jax_params(trees[1])
+    got = tfd.fused_generate(model, prompt, 5)
+    want = tfd.fused_generate(fresh(trees[1]), prompt, 5)
+    assert torch.equal(got, want) and not torch.equal(first, want)

@@ -234,3 +234,55 @@ def test_cli_serves_fused_on_cpu():
     summary = json.loads(proc.stderr.split("serve summary: ")[1])
     assert summary["decode_path"] == "fused"
     assert summary["program_steps"]["fdecode"] > 0
+
+
+def test_k8_geometry_refusals_are_one_function(small):
+    """K8's static limits live in ``check_kernel_geometry``, which the
+    kernel's launch and the engine's fused-path probe (on CUDA) both
+    call. 17 rows at gpt2_small's width pass the reference's chunk rule
+    (``pick_chunks(768, 3072, 17, 128)`` = 8) but not the kernel."""
+    from tnn_tpu_torch.models import fused_decode
+    from tnn_tpu_torch.ops.decode_stack import check_kernel_geometry
+
+    chunks = fused_decode.pick_chunks(768, 3072, 17, 128)
+    assert chunks == 8
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="at most 16 rows; got 17"):
+        check_kernel_geometry(17, 768, 3072 // chunks, 64, 128, bf16)
+    assert check_kernel_geometry(16, 768, 3072 // chunks, 64, 128, bf16) \
+        <= 227 * 1024
+    with pytest.raises(ValueError, match="multiples of 16"):
+        check_kernel_geometry(2, 776, 384, 8, 128, bf16)
+    with pytest.raises(ValueError, match="head dim"):
+        check_kernel_geometry(2, 768, 384, 48, 128, bf16)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_kernel_geometry(2, 768, 384, 64, 64 * 1024, bf16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        check_kernel_geometry(2, 768, 384, 64, 128, torch.float16)
+    # on the CPU the plain version serves any geometry, as JAX's does
+    _, _, sm = small
+    eng = InferenceEngine(sm, device="cpu", decode_path="fused",
+                          **{**FUSED, "max_batch_size": 17})
+    assert eng._fused is not None and eng.fused_fallback_reason is None
+
+
+@pytest.mark.cuda
+def test_fused_probe_refuses_k8_geometry_at_construction_on_card(
+        monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("the probe checks K8's limits only on a card")
+    model = GPT2(vocab_size=512, max_len=128, num_layers=1, d_model=768,
+                 num_heads=12, device="cuda")
+    kw = dict(quant_weights=True, max_batch_size=17, num_blocks=9,
+              block_size=16, device="cuda")
+    with pytest.raises(ValueError, match="at most 16 rows"):
+        InferenceEngine(model, decode_path="fused", **kw)
+
+    def no_paged(self):
+        raise ValueError("paged path off for this test")
+
+    monkeypatch.setattr(InferenceEngine, "_probe_paged", no_paged)
+    eng = InferenceEngine(model, decode_path="auto", **kw)
+    assert eng._fused is None
+    assert "at most 16 rows" in eng.fused_fallback_reason
+    assert eng.stats()["decode_path"] == "standard"

@@ -21,6 +21,12 @@ New lines are read between engine steps, so requests join a running batch.
 EOF ends the input; the server then finishes every request and exits 0.
 Weights are seeded random (``--seed``); ``--device`` defaults to cuda and
 the server refuses to start without a card unless ``--device cpu``.
+
+``--sp N`` serves with sequence parallelism: the KV pool's blocks split
+over N shards, a request's blocks round-robin over them, so the longest
+servable context is N times one shard's. ``--sp-devices`` names the
+shards' devices as a comma list (``cuda:0,cuda:0`` puts two shards on one
+card); the default is the first N cards, or N copies of the CPU.
 """
 from __future__ import annotations
 
@@ -41,6 +47,41 @@ def _emit(obj) -> None:
 
 def _stdin_ready(fd: int, timeout) -> bool:
     return bool(select.select([fd], [], [], timeout)[0])
+
+
+def _sp_preflight(ap, args, sp_devices) -> None:
+    """The JAX front end's fail-fast checks of an impossible SP setup, run
+    before any weight is built."""
+    if sp_devices is not None and len(sp_devices) != args.sp:
+        ap.error(f"--sp-devices names {len(sp_devices)} device(s) for "
+                 f"--sp {args.sp}")
+    if sp_devices is None and args.device.startswith("cuda"):
+        import torch
+        n_dev = torch.cuda.device_count()
+        if args.sp > n_dev:
+            ap.error(f"--sp {args.sp} exceeds the {n_dev} visible card(s); "
+                     "put several shards on one card with --sp-devices")
+    if args.num_blocks % args.sp:
+        ap.error(f"--num-blocks {args.num_blocks} does not divide evenly "
+                 f"over --sp {args.sp} shards")
+    if args.quant_weights:
+        ap.error("--quant-weights is incompatible with --sp > 1 (serve fp "
+                 "weights under SP)")
+    if args.decode_path == "fused":
+        ap.error("--decode-path fused is incompatible with --sp > 1 (the "
+                 "fused kernel assembles one chip's contiguous cache; use "
+                 "auto, paged, or standard)")
+    # the engine's assembly width, from the model's shape alone
+    max_len = zoo.create(args.model, device="meta", seed=None).max_len
+    cap = min(max_len, (args.num_blocks - args.sp) * args.block_size)
+    msl = min(args.max_seq_len or cap, cap)
+    nb = -(-msl // args.block_size)
+    if nb % args.sp:
+        ap.error(f"--sp {args.sp} does not divide the assembly width ({nb} "
+                 f"blocks/seq from max_seq_len {msl}, block size "
+                 f"{args.block_size}); pick --max-seq-len (or --num-blocks/"
+                 "--block-size) so ceil(max_seq_len / block_size) is a "
+                 "multiple of sp")
 
 
 def main(argv=None) -> int:
@@ -67,8 +108,20 @@ def main(argv=None) -> int:
                          "kernel), standard (assembled caches), fused (the "
                          "one-launch decode-stack kernel on lockstep "
                          "batches; needs --quant-weights), or auto")
+    ap.add_argument("--max-seq-len", type=int, default=0,
+                    help="longest request (prompt + new tokens); 0 = the "
+                         "model's or the pool's limit, whichever is less")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel degree: shard the KV pool's "
+                         "blocks over this many shards")
+    ap.add_argument("--sp-devices", default="",
+                    help="comma list of one device per shard, e.g. "
+                         "cuda:0,cuda:0 (default: the first --sp cards)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    sp_devices = [d for d in args.sp_devices.split(",") if d] or None
+    if args.sp > 1:
+        _sp_preflight(ap, args, sp_devices)
 
     model = zoo.create(args.model, device=args.device, seed=args.seed)
     print(f"random-weight {args.model} on {model.device} "
@@ -78,7 +131,14 @@ def main(argv=None) -> int:
         max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
         seed=args.seed, kv_dtype=args.kv_dtype,
         quant_weights=args.quant_weights, decode_path=args.decode_path,
-        device=args.device)
+        max_seq_len=args.max_seq_len or None, sp=args.sp,
+        sp_devices=sp_devices, device=args.device)
+    if args.sp > 1:
+        print(f"sequence parallel: sp={args.sp}, "
+              f"{engine.pool.blocks_per_shard} block(s)/shard, max context "
+              f"{engine.max_seq_len} tokens over "
+              f"{', '.join(str(d) for d in engine.pool.devices)}",
+              file=sys.stderr)
     user_ids = {}
 
     def handle_line(line: bytes) -> None:

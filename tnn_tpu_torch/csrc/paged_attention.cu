@@ -21,6 +21,16 @@
 // is in how a page is staged and how a staged element becomes an f32 value,
 // which keeps them in lockstep as _attn_step's load_kv keeps the TPU ones.
 //
+// K1s, the TPU kernel's stats=True form (_attn_step's m_ref / l_ref
+// outputs), is the same body over either page type with two more outputs:
+// given m_out / l_out (f32, (B, QW, H, 1)), every query row of the tile
+// writes its final online-softmax state after the page-split merge: m, the
+// max of its scaled, masked scores (natural-exp domain: dot * scale, expf),
+// and l, the normalizer at that max. A dead row (no live key: kv_len 0, a
+// padding token past q_lens, or every block a -1 hole) writes -1e30 and 0.
+// With null pointers nothing else changes. It adds 8 B of stats per
+// (token, head) to K1's bytes.
+//
 // What bounds it on the H100: bytes. A decode step at B=8, kv_len=512 on
 // gpt2_small reads 8*512*12*64*2*2 B = 12.6 MB of bf16 K/V per layer launch,
 // about 3.8 us at 3.35 TB/s, while its FLOPs are negligible; int8 pages
@@ -71,6 +81,8 @@ struct Params {
   const int* kv_lens;   // (B,)
   const int* q_lens;    // (B,)
   void* out;            // (B, QW, H, DH)
+  float* m_out;         // (B, QW, H, 1) f32 running max, or null (no stats)
+  float* l_out;         // (B, QW, H, 1) f32 normalizer, or null
   int QW, H, HKV, N, BS, NB, g;
   long long layer_off;  // elements to the first page of `layer`
   long long layer_off_s;  // the same for the scales (layer_off / DH)
@@ -390,6 +402,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int k = 1; k < p.ks; ++k)
           mm = fmaxf(mm, red[(k * p.tile_rows + rl) * (DH + 2) + DH]);
         const float a0 = expf(m[i] - mm);
+        m[i] = mm;
         l[i] *= a0;
 #pragma unroll
         for (int e = 0; e < kDimsPerLane; ++e) acc[i][e] *= a0;
@@ -419,6 +432,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < kDimsPerLane; ++e)
         dst[lane + 32 * e] = from_f32<T>(acc[i][e] / lsafe);
+      if (p.m_out != nullptr && lane == 0) {  // K1s: m, l are warp-uniform
+        p.m_out[row] = m[i];
+        p.l_out[row] = l[i];
+      }
     }
   }
 }
@@ -451,13 +468,14 @@ cudaError_t dispatch(const Params& p, bool quant, int DH, dim3 grid,
 
 int run(const void* q, const void* pages_k, const void* pages_v,
         const float* scales_k, const float* scales_v, const void* tables,
-        const void* kv_lens, const void* q_lens, void* out, int dtype, int B,
+        const void* kv_lens, const void* q_lens, void* out, void* m_out,
+        void* l_out, int dtype, int B,
         int QW, int H, int HKV, int DH, int N, int BS, int NB, int layer,
         float scale, void* stream) {
   const bool quant = scales_k != nullptr;
   if ((DH != 64 && DH != 128) || (dtype != 0 && dtype != 1) || BS < 4 ||
       BS > 32 || (quant && BS % 4 != 0) || HKV < 1 || H % HKV != 0 ||
-      layer < 0)
+      layer < 0 || (m_out == nullptr) != (l_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || QW == 0) return static_cast<int>(cudaSuccess);
   Params p;
@@ -470,6 +488,8 @@ int run(const void* q, const void* pages_k, const void* pages_v,
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.q_lens = static_cast<const int*>(q_lens);
   p.out = out;
+  p.m_out = static_cast<float*>(m_out);
+  p.l_out = static_cast<float*>(l_out);
   p.QW = QW;
   p.H = H;
   p.HKV = HKV;
@@ -519,27 +539,30 @@ int run(const void* q, const void* pages_k, const void* pages_v,
 // C entries for ctypes. dtype (of q and out): 0 = float32, 1 = bfloat16.
 // Every pointer is a device pointer of a contiguous tensor; the launch goes
 // on `stream`. Each returns the cudaError_t of the launch (0 = success).
+// m_out / l_out are both null (K1, K2) or both f32 (B, QW, H, 1) (K1s).
 
 // K1: pages of q's dtype.
 extern "C" int tnn_paged_attention(
     const void* q, const void* pages_k, const void* pages_v,
     const void* tables, const void* kv_lens, const void* q_lens, void* out,
-    int dtype, int B, int QW, int H, int HKV, int DH, int N, int BS, int NB,
-    int layer, float scale, void* stream) {
+    void* m_out, void* l_out, int dtype, int B, int QW, int H, int HKV,
+    int DH, int N, int BS, int NB, int layer, float scale, void* stream) {
   return run(q, pages_k, pages_v, nullptr, nullptr, tables, kv_lens, q_lens,
-             out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale, stream);
+             out, m_out, l_out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer,
+             scale, stream);
 }
 
 // K2: int8 pages (L, N, HKV, BS, DH) with f32 scales (L, N, HKV, BS, 1).
 extern "C" int tnn_paged_attention_int8(
     const void* q, const void* data_k, const void* data_v,
     const void* scale_k, const void* scale_v, const void* tables,
-    const void* kv_lens, const void* q_lens, void* out, int dtype, int B,
-    int QW, int H, int HKV, int DH, int N, int BS, int NB, int layer,
-    float scale, void* stream) {
+    const void* kv_lens, const void* q_lens, void* out, void* m_out,
+    void* l_out, int dtype, int B, int QW, int H, int HKV, int DH, int N,
+    int BS, int NB, int layer, float scale, void* stream) {
   if (scale_k == nullptr || scale_v == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return run(q, data_k, data_v, static_cast<const float*>(scale_k),
              static_cast<const float*>(scale_v), tables, kv_lens, q_lens, out,
-             dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale, stream);
+             m_out, l_out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale,
+             stream);
 }

@@ -114,9 +114,11 @@ def pick_chunks(d_model: int, mlp_hidden: int, batch: int, max_len: int,
 
 
 def decode_stacks(model) -> Dict[str, torch.Tensor]:
-    """``stack_decode_weights(model)``, built once per model object:
-    stacking copies every layer's weights. A ``quantize_for_decode`` copy
-    is a new object, so new weights never meet old stacks."""
+    """``stack_decode_weights(model)``, built once per model object and
+    weight load: stacking copies every layer's weights. A
+    ``quantize_for_decode`` copy is a new object, and ``load_jax_params``
+    / ``init_params`` drop the stacks of the weights they replace, so new
+    weights never meet old stacks."""
     stacks = getattr(model, "_fused_stacks", None)
     if stacks is None:
         stacks = model._fused_stacks = stack_decode_weights(model)

@@ -53,9 +53,11 @@ class JaxParamModule(nn.Module):
                     torch.tensor(np.asarray(node.q, np.int8), device=dev),
                     torch.tensor(np.asarray(node.scale, np.float32),
                                  device=dev), n=node.n, k=node.k)
-                # the table is quantized through its transpose
-                want = tuple(param.shape)[::-1] if name == "table" \
-                    else tuple(param.shape)
+                # the table is quantized through its transpose (an int8
+                # table being replaced already has the int8 layout)
+                want = tuple(param.shape)
+                if name == "table" and not isinstance(param, Int8Weight):
+                    want = want[::-1]
                 if iw.shape != want:
                     raise ValueError(f"{'.'.join(path)}: int8 shape "
                                      f"{iw.shape} != {want}")
@@ -66,6 +68,7 @@ class JaxParamModule(nn.Module):
                 raise ValueError(f"{'.'.join(path)}: shape {tuple(value.shape)}"
                                  f" != {tuple(param.shape)}")
             param.copy_(value)
+        self._drop_derived()
         return self
 
     def jax_param_tree(self) -> Dict:
@@ -100,4 +103,10 @@ class JaxParamModule(nn.Module):
                 param.fill_(1.0)
             else:
                 param.zero_()
+        self._drop_derived()
         return self
+
+    def _drop_derived(self) -> None:
+        """Forget what was built from the old weights: the fused decode
+        path's stacked copies (``models.fused_decode.decode_stacks``)."""
+        self.__dict__.pop("_fused_stacks", None)

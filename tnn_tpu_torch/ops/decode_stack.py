@@ -231,6 +231,34 @@ def _smem_bytes(batch: int, d_model: int, fc_width: int, max_len: int,
             + up16(head_dim * 4) + max_len * 4)
 
 
+def check_kernel_geometry(batch: int, d_model: int, fc_width: int,
+                          head_dim: int, max_len: int, dtype) -> int:
+    """Raise ValueError (with the reason) if K8 cannot run B = ``batch``
+    rows of width D = ``d_model``, F / chunks = ``fc_width``, heads of
+    ``head_dim`` over a cache of ``max_len`` positions in ``dtype``;
+    return the block's shared memory in bytes. ``_launch`` calls it, and
+    the serving engine's fused-path probe calls it with its own geometry,
+    so that a configuration the kernel refuses fails at construction."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"kernel takes f32 or bf16 x and caches; got "
+                         f"{dtype}")
+    if batch > MAX_BATCH:
+        raise ValueError(f"kernel takes at most {MAX_BATCH} rows; got "
+                         f"{batch}")
+    if d_model % 16 or fc_width % 16:
+        raise ValueError(f"kernel needs D ({d_model}) and F / chunks "
+                         f"({fc_width}) to be multiples of 16 (16-byte "
+                         "int8 loads)")
+    if head_dim not in (8, 16, 32, 64, 128, 256):
+        raise ValueError(f"kernel takes a head dim that is a power of two "
+                         f"from 8 to 256; got {head_dim}")
+    smem = _smem_bytes(batch, d_model, fc_width, max_len, head_dim)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K8 needs {smem} bytes of shared memory at "
+                         f"B={batch}, T={max_len}; a block has {_SMEM_LIMIT}")
+    return smem
+
+
 def _launch(x, t, k_cache, v_cache, stacks, num_heads, chunks):
     n_layers, b, t_max, d, f = (k_cache.shape[0], x.shape[0],
                                 k_cache.shape[2], x.shape[1],
@@ -245,22 +273,9 @@ def _launch(x, t, k_cache, v_cache, stacks, num_heads, chunks):
         if arr.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(the kernel's vector loads)")
-    if x.dtype not in _KERNEL_DTYPES or k_cache.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"kernel takes f32 or bf16 x and caches; got "
-                         f"{x.dtype}, {k_cache.dtype}")
-    if b > MAX_BATCH:
-        raise ValueError(f"kernel takes at most {MAX_BATCH} rows; got {b}")
-    if d % 16 or fc_w % 16:
-        raise ValueError(f"kernel needs D ({d}) and F / chunks ({fc_w}) "
-                         "to be multiples of 16 (16-byte int8 loads)")
     head_dim = d // num_heads
-    if head_dim not in (8, 16, 32, 64, 128, 256):
-        raise ValueError(f"kernel takes a head dim that is a power of two "
-                         f"from 8 to 256; got {head_dim}")
-    smem = _smem_bytes(b, d, fc_w, t_max, head_dim)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"K8 needs {smem} bytes of shared memory at B={b}, "
-                         f"T={t_max}; a block has {_SMEM_LIMIT}")
+    for dtype in (x.dtype, k_cache.dtype):   # x's and the caches' types
+        smem = check_kernel_geometry(b, d, fc_w, head_dim, t_max, dtype)
     x_out = torch.empty_like(x)
     # f32 scratch: x_acc, x_mid, q, ctx (B, D) each, then one MLP chunk of
     # GELU outputs (B, F / chunks)

@@ -12,9 +12,14 @@ of the hand-written CUDA kernels of ``csrc/paged_attention.cu`` on the
 current stream, or raises: over bf16/f32 pages the one that replaces the
 TPU kernel's ``_attn_kernel`` body (counted by ``paged_attention.launches``),
 over int8 ``QuantPages`` the one that replaces ``_attn_kernel_int8``
-(counted by ``paged_attention.int8_launches``). On CPU tensors it computes
-``paged_attention_reference``, the plain PyTorch version with the same
-signature and masking (gather the tables contiguous, masked softmax).
+(counted by ``paged_attention.int8_launches``). With ``return_stats`` the
+same kernels also write each query row's online-softmax state (m, l),
+which the TPU kernel emits with ``stats=True`` (K1s, counted by
+``paged_attention.stats_launches`` and ``int8_stats_launches``). On CPU
+tensors it computes ``paged_attention_reference``, the plain PyTorch
+version with the same signature and masking (gather the tables
+contiguous, masked softmax; with stats, the unnormalized form of JAX's
+stats reference).
 
 INT8 PAGES: a ``QuantPages`` bundle holds the pages as int8 ``data`` and a
 per-(position, head) f32 ``scale`` in the same layout with the head dim
@@ -115,7 +120,7 @@ def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
 
 
 def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
-                         layer, scale):
+                         layer, scale, stats=False):
     b, qw, h, dh = q.shape
     _, _, hkv, bs, _ = _pages_shape(pages_k)
     g = h // hkv
@@ -142,6 +147,19 @@ def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
     live = live & torch.repeat_interleave(block_tables >= 0, bs,
                                           dim=1)[:, None, :]
     s = torch.where(live[:, :, None, None, :], s, _NEG_INF)
+    if stats:
+        # the unnormalized form of JAX's _paged_attention_xla_mq(stats=
+        # True): the row max over the masked scores, p = exp(s - m) on live
+        # positions, l = sum(p); a row with no live key keeps m = -1e30,
+        # l = 0 and outputs 0
+        m = s.amax(dim=-1, keepdim=True)                   # (B,Q,Hkv,G,1)
+        p = torch.where(live[:, :, None, None, :], torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+        out = torch.einsum("bqhgt,bhtd->bqhgd", p.to(v.dtype).float(),
+                           v.float())
+        out = out / torch.where(l == 0, 1.0, l)
+        return (out.to(q.dtype).reshape(b, qw, h, dh),
+                m.reshape(b, qw, h, 1), l.reshape(b, qw, h, 1))
     p = torch.softmax(s, dim=-1)
     # fully-masked query rows (padding past q_lens, or q_lens/kv_lens == 0)
     # output exactly 0, matching the kernel's l == 0 guard
@@ -152,9 +170,19 @@ def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
     return out.to(q.dtype).reshape(b, qw, h, dh)
 
 
+def _decode_form(result, was_3d):
+    """Drop the unit query axis of the decode form from out (and m, l)."""
+    if not was_3d:
+        return result
+    if isinstance(result, tuple):
+        return tuple(x[:, 0] for x in result)
+    return result[:, 0]
+
+
 def paged_attention_reference(q, pages_k, pages_v, block_tables, kv_lens, *,
                               q_lens=None, layer: int = 0,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              return_stats: bool = False):
     """Plain PyTorch paged attention: the kernel's parity oracle.
 
     Same signature and semantics as ``paged_attention``. It gathers every
@@ -163,14 +191,15 @@ def paged_attention_reference(q, pages_k, pages_v, block_tables, kv_lens, *,
     """
     q, was_3d, q_lens, pages_k, pages_v, scale = _check_args(
         q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale)
-    out = _attention_reference(q, pages_k, pages_v, block_tables, kv_lens,
-                               q_lens, layer, scale)
-    return out[:, 0] if was_3d else out
+    return _decode_form(_attention_reference(
+        q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
+        return_stats), was_3d)
 
 
 def paged_attention(q, pages_k, pages_v, block_tables, kv_lens, *,
                     q_lens=None, layer: int = 0,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    return_stats: bool = False):
     """Ragged attention for the current step's query rows over paged KV.
 
     q : (B, H, Dh) decode form, one token per row, or (B, Q, H, Dh) ragged
@@ -186,28 +215,39 @@ def paged_attention(q, pages_k, pages_v, block_tables, kv_lens, *,
         row b sits at position ``kv_lens[b] - q_lens[b] + t`` and attends
         causally.
     layer : which layer's pages to read.
+    return_stats : also return each query row's online-softmax state, f32
+        and shaped like the output with the head dim collapsed to 1: ``m``,
+        the max of its scaled, masked scores, and ``l``, the normalizer at
+        that max. A row with no live key (kv_len 0, a padding token, all
+        its blocks -1 holes) gives exactly (0, -1e30, 0). This is what a
+        sequence-parallel shard hands ``ops.softmax_merge.merge_shards``.
 
-    GQA: H % H_kv == 0. Returns q's shape and dtype. On CUDA tensors the
-    kernels take bf16 or f32 q, pages of q's dtype or ``QuantPages``, Dh 64
-    or 128 and block sizes 4 to 32 (a multiple of 4 for int8), all
-    contiguous, and raise on anything else.
+    GQA: H % H_kv == 0. Returns q's shape and dtype, or ``(out, m, l)``.
+    On CUDA tensors the kernels take bf16 or f32 q, pages of q's dtype or
+    ``QuantPages``, Dh 64 or 128 and block sizes 4 to 32 (a multiple of 4
+    for int8), all contiguous, and raise on anything else.
     """
     q, was_3d, q_lens, pages_k, pages_v, scale = _check_args(
         q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale)
     if q.device.type == "cpu":
-        out = _attention_reference(q, pages_k, pages_v, block_tables,
-                                   kv_lens, q_lens, layer, scale)
+        result = _attention_reference(q, pages_k, pages_v, block_tables,
+                                      kv_lens, q_lens, layer, scale,
+                                      return_stats)
     else:
-        out = _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
-                      layer, scale)
-    return out[:, 0] if was_3d else out
+        result = _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
+                         layer, scale, return_stats)
+    return _decode_form(result, was_3d)
 
 
 paged_attention.launches = 0         # bf16 / f32 pages (K1)
 paged_attention.int8_launches = 0    # QuantPages (K2)
+# the same kernels with return_stats (K1s): counted apart by page type
+paged_attention.stats_launches = 0
+paged_attention.int8_stats_launches = 0
 
 
-def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
+def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
+            stats=False):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention kernel needs CUDA tensors; q is "
                          f"on {q.device}")
@@ -248,11 +288,16 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
     if not 0 <= int(layer) < nl:
         raise ValueError(f"layer {layer} out of range for {nl} layers")
     out = torch.empty_like(q)
+    m_ptr = l_ptr = None          # null: the kernel writes no stats
+    if stats:
+        m = torch.empty((b, qw, h, 1), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)  # noqa: E741
+        m_ptr, l_ptr = m.data_ptr(), l.data_ptr()
     lib = _library()
     common = (block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
-              out.data_ptr(), _KERNEL_DTYPES[q.dtype], b, qw, h, hkv, dh, n,
-              bs, block_tables.shape[1], int(layer), float(scale),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              out.data_ptr(), m_ptr, l_ptr, _KERNEL_DTYPES[q.dtype], b, qw,
+              h, hkv, dh, n, bs, block_tables.shape[1], int(layer),
+              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
         err = lib.tnn_paged_attention_int8(
             q.data_ptr(), pages_k.data.data_ptr(), pages_v.data.data_ptr(),
@@ -263,11 +308,11 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    if quant:
-        paged_attention.int8_launches += 1
-    else:
-        paged_attention.launches += 1
-    return out
+    counter = ("int8_" if quant else "") + ("stats_" if stats else "") \
+        + "launches"
+    setattr(paged_attention, counter,
+            getattr(paged_attention, counter) + 1)
+    return (out, m, l) if stats else out
 
 
 def _library():
@@ -276,7 +321,7 @@ def _library():
     for fn, pages in ((lib.tnn_paged_attention, 2),
                       (lib.tnn_paged_attention_int8, 4)):
         if fn.argtypes is None:
-            fn.argtypes = [ptr] * (5 + pages) + [i] * 10 + [ctypes.c_float,
+            fn.argtypes = [ptr] * (7 + pages) + [i] * 10 + [ctypes.c_float,
                                                             ptr]
             fn.restype = ctypes.c_int
     return lib

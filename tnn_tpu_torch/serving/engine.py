@@ -33,8 +33,20 @@ caller: a kernel failure is never turned into failed requests.
 ``kv_dtype="int8"`` stores the pool as int8 pages with f32 scales (the
 attention kernel reads them in place; the assembled paths dequantize at
 the gather), ``quant_weights=True`` serves a copy of the model with int8
-matmul weights (``nn.quant``). Speculative decoding, the overlapped loop,
-tensor/sequence parallelism and the fault plan are not ported yet.
+matmul weights (``nn.quant``).
+
+Sequence parallelism (``sp > 1``, ``serving/sp.py``): the pool's blocks
+split over sp shards on the devices ``sp_devices`` names (one card may
+hold several), a request's table positions draw their blocks round-robin,
+and each step stages every shard's local tables
+(``step_build.shard_tables``). On the paged path every layer sweeps each
+shard's pages with the paged kernel's stats form and merges the partials;
+on the standard path ``gather_kv`` sums the shards' owned positions into
+one cache and the scatters write each shard's own rows. As in the JAX
+engine, SP refuses ``quant_weights`` and the fused path, and needs
+``num_blocks`` and the table width ``blocks_per_seq`` to divide by sp.
+Speculative decoding, the overlapped loop, tensor parallelism and the
+fault plan are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,12 +60,13 @@ import torch
 
 from ..models import fused_decode, sampling
 from ..nn.quant import quantize_for_decode
-from ..ops.decode_stack import fused_decode_stack
+from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
 from ..utils.device import resolve_device
 from . import kv_pool, step_build
 from .kv_pool import PagedKVPool
 from .metrics import ServingMetrics
 from .scheduler import TERMINAL_STATES, Request, RequestState, Scheduler
+from .sp import SPContext
 
 
 class InferenceEngine:
@@ -73,8 +86,14 @@ class InferenceEngine:
         caller's unchanged.
     decode_path : "auto" | "standard" | "fused" | "paged" (module
         docstring).
+    max_seq_len : the longest request (prompt + new tokens); None or 0
+        takes min(model.max_len, pool capacity in positions), and a larger
+        value is cut to that. It sets the table width every step passes.
+    sp : sequence-parallel degree (module docstring); sp_devices names one
+        device per shard (default: the first sp cards, or sp copies of the
+        CPU), the first of them the model's.
 
-    A request may hold up to min(model.max_len, pool capacity) positions,
+    A request may hold up to max_seq_len positions,
     a step processes at most 2048 tokens (decode rows + prompt chunks), and
     a row whose logits are not finite FAILs its request while the rest of
     the batch keeps its tokens (the logit guard).
@@ -85,7 +104,10 @@ class InferenceEngine:
                  max_batch_size: int = 8, chunk_size: int = 64,
                  preemption_budget: Optional[int] = 16, seed: int = 0,
                  kv_dtype: str = "f32", quant_weights: bool = False,
-                 decode_path: str = "auto", device="cuda"):
+                 decode_path: str = "auto",
+                 max_seq_len: Optional[int] = None, sp: int = 1,
+                 sp_devices: Optional[Sequence[Any]] = None,
+                 device="cuda"):
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -100,19 +122,40 @@ class InferenceEngine:
             raise ValueError("preemption_budget must be >= 0 or None")
         self.kv_dtype = kv_dtype
         self.quant_weights = bool(quant_weights)
+        self.sp = int(sp)
+        if self.sp < 1:
+            raise ValueError(f"sp must be >= 1, got {sp}")
+        self._sp: Optional[SPContext] = None
+        if self.sp > 1:
+            if self.quant_weights:
+                raise ValueError(
+                    "quant_weights with sp>1 is unsupported, as in the JAX "
+                    "engine (its int8 leaves re-materialize off the context "
+                    "mesh); serve fp weights under SP")
+            self._sp = SPContext(model, self.sp, devices=sp_devices)
         self.model = quantize_for_decode(model) if self.quant_weights \
             else model
+        # what the paged programs step: the shard adapter under SP (same
+        # paged interface over lists of shard pages and tables)
+        self._step_model = self._sp.model if self._sp else self.model
         self.preemption_budget = preemption_budget
         self.pool = PagedKVPool(
             num_layers=model.num_layers, num_kv_heads=model.num_kv_heads,
             head_dim=model.d_model // model.num_heads, num_blocks=num_blocks,
             block_size=block_size, dtype=model.policy.compute_dtype,
-            device=self.device, kv_dtype=kv_dtype)
-        self.max_seq_len = min(model.max_len,
-                               self.pool.capacity * block_size)
+            device=self.device, kv_dtype=kv_dtype, sp=self.sp,
+            devices=self._sp.devices if self._sp else None)
+        cap = min(model.max_len, self.pool.capacity * block_size)
+        self.max_seq_len = min(max_seq_len or cap, cap)
         # fixed table width: every step passes this many blocks per row,
         # and the assembled paths gather this many positions per row
         self.blocks_per_seq = self.pool.blocks_for(self.max_seq_len)
+        if self.blocks_per_seq % self.sp:
+            raise ValueError(
+                f"assembly width blocks_per_seq={self.blocks_per_seq} does "
+                f"not divide over sp={self.sp} shards; pick max_seq_len (or "
+                "num_blocks/block_size) so ceil(max_seq_len / block_size) "
+                "is a multiple of sp")
         self.assembly_len = self.blocks_per_seq * block_size
         self.scheduler = Scheduler(max_batch_size=max_batch_size,
                                    chunk_size=chunk_size)
@@ -171,20 +214,33 @@ class InferenceEngine:
     def _probe_fused(self, batch: int) -> Dict[str, Any]:
         """Validate the fused decode kernel against this model and pool;
         raises ValueError (with the reason) when the standard path must be
-        used. Tensor and sequence parallelism, which the JAX engine also
-        refuses here, do not exist in the port."""
+        used: the JAX engine's refusals, then, on CUDA, every static limit
+        of K8 (``decode_stack.check_kernel_geometry``) at the geometry the
+        fused program always runs, ``batch`` rows (``pack_decode`` pads to
+        it) over the whole assembly. Tensor parallelism, which the JAX
+        engine also refuses here, does not exist in the port."""
         if self.kv_dtype == "int8":
             raise ValueError(
                 "fused decode assembles a contiguous compute-dtype cache: "
                 "int8 pages would dequantize outside the kernel with no "
                 "bandwidth win; int8 pools use the paged or standard path")
+        if self.sp > 1:
+            raise ValueError(
+                "fused decode assembles one chip's contiguous cache: a "
+                "block-sharded SP pool has no single-chip cache to "
+                "assemble; sp>1 serves the paged or standard path")
+        model = self.model
         chunks = fused_decode.pick_chunks(
-            self.model.d_model, 4 * self.model.d_model, batch,
-            self.assembly_len)
+            model.d_model, 4 * model.d_model, batch, self.assembly_len)
         if chunks is None:
             raise ValueError("model too large for the fused kernel's VMEM "
                              "budget at this batch/assembly geometry")
-        return {"stacks": fused_decode.stack_decode_weights(self.model),
+        if self.device.type == "cuda":
+            check_kernel_geometry(
+                batch, model.d_model, 4 * model.d_model // chunks,
+                model.d_model // model.num_heads, self.assembly_len,
+                model.policy.compute_dtype)
+        return {"stacks": fused_decode.stack_decode_weights(model),
                 "chunks": chunks}
 
     # -- request lifecycle ----------------------------------------------------
@@ -244,7 +300,9 @@ class InferenceEngine:
                   "decode_path": ("paged" if self._paged
                                   else "fused" if self._fused is not None
                                   else "standard"),
-                  "program_steps": dict(self.program_steps)})
+                  "program_steps": dict(self.program_steps),
+                  "sp_degree": self.sp,
+                  "pool_blocks_per_shard": self.pool.blocks_per_shard})
         return s
 
     def check_invariants(self) -> None:
@@ -331,7 +389,9 @@ class InferenceEngine:
         when the row still runs this step."""
         needed = self.pool.blocks_for(req.cache_len + new_tokens)
         grow = max(0, needed - len(req.block_table))
-        while grow and not self.pool.can_alloc(grow):
+        # under SP table position j's block comes from shard j % sp
+        while grow and not self.pool.can_alloc(
+                grow, start=len(req.block_table)):
             victim = self.scheduler.preempt_victim()
             if victim is None or (victim is req
                                   and len(self.scheduler.running) == 1):
@@ -349,7 +409,8 @@ class InferenceEngine:
         if req.state is not RequestState.RUNNING:
             return False
         if grow:
-            req.block_table.extend(self.pool.alloc(grow))
+            req.block_table.extend(
+                self.pool.alloc(grow, start=len(req.block_table)))
         return True
 
     def _build(self, chunks: Dict[int, int], events) -> Optional[Dict]:
@@ -376,11 +437,11 @@ class InferenceEngine:
             rows, len(dec), takes, b=self.scheduler.max_batch_size,
             nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH)
         put = self._put
-        toks, tables = put(step.toks), put(step.tables)
+        toks, tables = put(step.toks), self._put_tables(step.tables)
         starts, q_lens = put(step.starts), put(step.q_lens)
         if self._paged:
             self.program_steps["mixed"] += 1
-            logits = self.model.apply_paged(
+            logits = self._step_model.apply_paged(
                 toks, self.pool.pages_k, self.pool.pages_v, tables, starts,
                 q_lens, last_only=True)
         else:
@@ -395,10 +456,10 @@ class InferenceEngine:
             scratch=PagedKVPool.SCRATCH, paged=self._paged,
             fused_available=self._fused is not None)
         put = self._put
-        toks, tables = put(step.toks), put(step.tables)
+        toks, tables = put(step.toks), self._put_tables(step.tables)
         self.program_steps[step.program] += 1
         if step.program == "pdecode":
-            logits = self.model.apply_decode_paged(
+            logits = self._step_model.apply_decode_paged(
                 toks, self.pool.pages_k, self.pool.pages_v, tables,
                 put(step.offsets))
         elif step.program == "fdecode":
@@ -495,6 +556,16 @@ class InferenceEngine:
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
+
+    def _put_tables(self, tables: np.ndarray):
+        """A step's GLOBAL block tables as the programs take them: one
+        tensor, or under SP each shard's local tables on its device."""
+        if self._sp is None:
+            return self._put(tables)
+        local = step_build.shard_tables(tables, self.sp,
+                                        self.pool.blocks_per_shard)
+        return [torch.from_numpy(t).to(d)
+                for t, d in zip(local, self._sp.devices)]
 
     def _sample(self, logits: torch.Tensor, step) -> torch.Tensor:
         """(2, B) int64 device tensor: sampled tokens and the logit guard."""

@@ -19,10 +19,22 @@ dequantized where attention reads them; the block-table bookkeeping never
 looks inside the bundle. ``kv_dtype="f32"`` (the JAX name) keeps pages in
 ``dtype``, the model's compute dtype.
 
+SEQUENCE PARALLELISM (``sp > 1``): the block axis is range-partitioned
+over ``sp`` shards. Shard s owns global ids ``[s * N_l, (s + 1) * N_l)``
+(``N_l = blocks_per_shard``), its local row 0 is its scratch page, and
+``pages_k`` / ``pages_v`` are lists with one contiguous ``(L, N_l, H_kv,
+bs, Dh)`` tensor (or ``QuantPages``) per shard, on that shard's device
+(``devices``; one card may hold several shards). ``alloc(n, start=)``
+draws table position j's block from shard ``j % sp``; ``num_allocatable``
+is the bottleneck shard's. A step hands each shard its LOCAL table
+(``step_build.shard_tables``: local ids where it owns the block, -1
+holes elsewhere). At sp = 1 the pool holds one tensor per side, as before.
+
 The module's step-side helpers serve the assembled-cache ("standard" and
 "fused") decode paths: ``gather_kv`` builds each row's contiguous cache
 from its block table, and ``scatter_token`` / ``scatter_chunk`` write one
-step's new rows back for all layers at once.
+step's new rows back for all layers at once. Each takes one shard's pages
+and table, or under SP the lists of per-shard pages and local tables.
 
 The prefix-cache parts of the JAX pool (fork, the evictable LRU, the demote
 hooks) are not ported yet.
@@ -48,7 +60,8 @@ class PagedKVPool:
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_blocks: int, block_size: int = 16,
                  dtype: torch.dtype = torch.float32, device="cuda", *,
-                 kv_dtype: str = "f32"):
+                 kv_dtype: str = "f32", sp: int = 1,
+                 devices: Optional[Sequence] = None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved scratch)")
         if block_size < 1:
@@ -56,6 +69,15 @@ class PagedKVPool:
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
+        if sp < 1:
+            raise ValueError(f"sp must be >= 1, got {sp}")
+        if num_blocks % sp:
+            raise ValueError(f"num_blocks {num_blocks} must divide evenly "
+                             f"over sp {sp} shards")
+        if sp > 1 and num_blocks // sp < 2:
+            raise ValueError(f"num_blocks {num_blocks} leaves < 2 blocks "
+                             f"per shard at sp {sp} (each shard reserves "
+                             "one scratch block)")
         self.num_layers = int(num_layers)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
@@ -63,32 +85,61 @@ class PagedKVPool:
         self.block_size = int(block_size)
         self.dtype = dtype
         self.kv_dtype = kv_dtype
-        shape = (self.num_layers, self.num_blocks, self.num_kv_heads,
+        # sequence parallelism: shard s owns the GLOBAL block ids [s * N_l,
+        # (s + 1) * N_l), N_l = num_blocks // sp, and its local row 0
+        # (global id s * N_l) is its scratch page. The bookkeeping stays
+        # global; only where alloc draws a block from, and the per-shard
+        # capacity, know about shards.
+        self.sp = int(sp)
+        self.blocks_per_shard = self.num_blocks // self.sp
+        self._scratch = frozenset(s * self.blocks_per_shard
+                                  for s in range(self.sp))
+        devices = list(devices) if devices is not None \
+            else [device] * self.sp
+        if len(devices) != self.sp:
+            raise ValueError(f"{len(devices)} devices for sp {sp}")
+        shape = (self.num_layers, self.blocks_per_shard, self.num_kv_heads,
                  self.block_size, self.head_dim)
-        if kv_dtype == "int8":
-            def fresh():
+
+        def fresh(dev):
+            if kv_dtype == "int8":
                 return QuantPages(
-                    torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
-                                device=device))
-            self.pages_k, self.pages_v = fresh(), fresh()
-        else:
-            self.pages_k = torch.zeros(shape, dtype=dtype, device=device)
-            self.pages_v = torch.zeros(shape, dtype=dtype, device=device)
-        # LIFO free list: freshly freed blocks are reused first
-        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+                                device=dev))
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        # one contiguous page tensor (or bundle) per shard, on its device;
+        # at sp = 1 the pool holds the tensors themselves
+        pk = [fresh(d) for d in devices]
+        pv = [fresh(d) for d in devices]
+        self.devices = [(p.data if kv_dtype == "int8" else p).device
+                        for p in pk]
+        self.pages_k, self.pages_v = (pk, pv) if self.sp > 1 \
+            else (pk[0], pv[0])
+        # LIFO free list: freshly freed blocks are reused first; scratch
+        # blocks never enter it
+        self._free: List[int] = [b for b in range(self.num_blocks - 1, -1, -1)
+                                 if b not in self._scratch]
         self._ref: Dict[int, int] = {}
 
     # -- bookkeeping ----------------------------------------------------------
 
     @property
     def capacity(self) -> int:
-        """Allocatable blocks (all but the scratch block)."""
-        return self.num_blocks - 1
+        """Allocatable blocks: all but one scratch block per shard."""
+        return self.num_blocks - self.sp
 
     @property
     def num_allocatable(self) -> int:
-        return len(self._free)
+        """Blocks an alloc can take now. Under sequence parallelism table
+        position j's block must come from shard ``j % sp``, so the
+        BOTTLENECK shard gates it: ``sp * min_s(free_s)``, the longest run
+        of table positions allocatable from any start. The scheduler reads
+        only this, so admission follows the scarcest shard."""
+        if self.sp == 1:
+            return len(self._free)
+        return self.sp * min(self._shard_free(s) for s in range(self.sp))
 
     @property
     def num_allocated(self) -> int:
@@ -121,15 +172,62 @@ class PagedKVPool:
         """Blocks needed to hold ``num_tokens`` cache positions."""
         return max(1, math.ceil(num_tokens / self.block_size))
 
-    def can_alloc(self, n: int) -> bool:
-        return n <= len(self._free)
+    def owner(self, block: int) -> int:
+        """The sequence-parallel shard a global block id lives on."""
+        return block // self.blocks_per_shard
 
-    def alloc(self, n: int) -> List[int]:
-        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted."""
-        if n > len(self._free):
-            raise PoolExhausted(f"need {n} blocks, {len(self._free)} free "
-                                f"(capacity {self.capacity})")
-        blocks = [self._free.pop() for _ in range(n)]
+    def shard_pages(self):
+        """[(pages_k, pages_v)] of each shard, in shard order."""
+        if self.sp == 1:
+            return [(self.pages_k, self.pages_v)]
+        return list(zip(self.pages_k, self.pages_v))
+
+    def _shard_free(self, shard: int) -> int:
+        return sum(1 for b in self._free if self.owner(b) == shard)
+
+    def _shard_need(self, n: int, start: int) -> List[int]:
+        """Blocks each shard gives ``n`` table positions from ``start``."""
+        need = [0] * self.sp
+        for i in range(n):
+            need[(start + i) % self.sp] += 1
+        return need
+
+    def can_alloc(self, n: int, start: int = 0) -> bool:
+        if self.sp == 1:
+            return n <= len(self._free)
+        return all(need <= self._shard_free(s)
+                   for s, need in enumerate(self._shard_need(n, start)))
+
+    def _pick_free(self, shard: int) -> int:
+        """Pop the most recently freed block of ``shard`` (LIFO per
+        shard)."""
+        for i in range(len(self._free) - 1, -1, -1):
+            if self.owner(self._free[i]) == shard:
+                return self._free.pop(i)
+        raise AssertionError(f"shard {shard} has no free block")
+
+    def alloc(self, n: int, start: int = 0) -> List[int]:
+        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted.
+
+        ``start`` is the table position the first block will take: under
+        sequence parallelism block i comes from shard ``(start + i) % sp``,
+        so a sequence's pages spread round-robin over the shards. At sp = 1
+        it is ignored."""
+        if self.sp == 1:
+            if n > len(self._free):
+                raise PoolExhausted(f"need {n} blocks, {len(self._free)} "
+                                    f"free (capacity {self.capacity})")
+            blocks = [self._free.pop() for _ in range(n)]
+        else:
+            for s, need in enumerate(self._shard_need(n, start)):
+                have = self._shard_free(s)
+                if need > have:
+                    raise PoolExhausted(
+                        f"need {n} blocks from table position {start}, but "
+                        f"shard {s} can cover only {have} of its {need} "
+                        f"(capacity {self.capacity}, {self.sp} SP shards)")
+            blocks = [self._pick_free((start + i) % self.sp)
+                      for i in range(n)]
         for b in blocks:
             self._ref[b] = 1
         return blocks
@@ -153,18 +251,33 @@ class PagedKVPool:
             seq_lens: Optional[Sequence[int]] = None) -> None:
         """Verify the bookkeeping; raises ValueError on a violation.
 
-        Always: free + allocated == capacity with no block in both, no
-        duplicate free entries, the scratch block out of circulation, ids in
-        range, refcounts >= 1; under int8 both pages are ``QuantPages`` of
-        int8 data and f32 scales shaped as the data with the last axis 1. With ``block_tables`` (every running
+        Always: free + allocated == capacity, and the same within each
+        sequence-parallel shard, with no block in both, no duplicate free
+        entries, every shard's scratch block out of circulation, ids in
+        range, refcounts >= 1; each shard's pages contiguous, of its shape
+        and on its device; under int8 both pages are ``QuantPages`` of int8
+        data and f32 scales shaped as the data with the last axis 1. With
+        ``block_tables`` (every running
         request's table): each allocated block appears in exactly refcount
         tables and no table names a free block. With ``seq_lens`` (parallel
         to the tables): each table covers its resident tokens and holds no
         more than ``blocks_for(seq_len + 1)`` blocks.
         """
+        want_shape = (self.num_layers, self.blocks_per_shard,
+                      self.num_kv_heads, self.block_size, self.head_dim)
+        for s, (pk, pv) in enumerate(self.shard_pages()):
+            for name, p in (("pages_k", pk), ("pages_v", pv)):
+                data = p.data if isinstance(p, QuantPages) else p
+                if tuple(data.shape) != want_shape \
+                        or data.device != self.devices[s] \
+                        or not data.is_contiguous():
+                    raise ValueError(
+                        f"shard {s} {name}: {tuple(data.shape)} on "
+                        f"{data.device}; want contiguous {want_shape} on "
+                        f"{self.devices[s]}")
         if self.kv_dtype == "int8":
-            for name, p in (("pages_k", self.pages_k),
-                            ("pages_v", self.pages_v)):
+            for name, p in [(n, p) for pk, pv in self.shard_pages()
+                            for n, p in (("pages_k", pk), ("pages_v", pv))]:
                 if not isinstance(p, QuantPages):
                     raise ValueError(
                         f"{name}: int8 pool holds {type(p).__name__}, not "
@@ -183,8 +296,10 @@ class PagedKVPool:
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             raise ValueError(f"duplicate blocks in free list: {self._free}")
-        if self.SCRATCH in free_set or self.SCRATCH in self._ref:
-            raise ValueError("scratch block entered circulation")
+        leaked = self._scratch & (free_set | self._ref.keys())
+        if leaked:
+            raise ValueError(f"scratch block {min(leaked)} entered "
+                             "circulation")
         if free_set & self._ref.keys():
             raise ValueError(f"blocks both free and allocated: "
                              f"{free_set & self._ref.keys()}")
@@ -194,6 +309,12 @@ class PagedKVPool:
                              f"({self.capacity})")
         bad = [b for b in free_set | self._ref.keys()
                if not 0 < b < self.num_blocks]
+        for shard in range(self.sp):   # every shard accounted on its own
+            held = sum(1 for b in self._ref if self.owner(b) == shard)
+            if held + self._shard_free(shard) != self.blocks_per_shard - 1:
+                raise ValueError(
+                    f"shard {shard}: free ({self._shard_free(shard)}) + "
+                    f"allocated ({held}) != {self.blocks_per_shard - 1}")
         if bad:
             raise ValueError(f"block ids out of range: {bad}")
         if any(r < 1 for r in self._ref.values()):
@@ -212,7 +333,8 @@ class PagedKVPool:
         usage: Counter = Counter()
         for table in block_tables:
             usage.update(table)
-        usage.pop(self.SCRATCH, None)
+        for b in self._scratch:
+            usage.pop(b, None)
         stale = set(usage) & free_set
         if stale:
             raise ValueError(f"live tables reference free blocks: "
@@ -225,8 +347,16 @@ class PagedKVPool:
 # -- the assembled-cache paths' gather and scatters ---------------------------
 
 
-def gather_kv(pages_k, pages_v, block_tables, out_dtype=None,
-              axis_name=None):
+def _per_shard(pages) -> bool:
+    return isinstance(pages, (list, tuple)) \
+        and not isinstance(pages, QuantPages)
+
+
+def _pages_device(pages) -> torch.device:
+    return (pages.data if isinstance(pages, QuantPages) else pages).device
+
+
+def gather_kv(pages_k, pages_v, block_tables, out_dtype=None):
     """Block tables -> contiguous ragged-batch caches.
 
     pages_*: (L, N, H, bs, Dh) tensors or ``QuantPages``; block_tables: (B,
@@ -235,12 +365,28 @@ def gather_kv(pages_k, pages_v, block_tables, out_dtype=None,
     past a row's length hold whatever their pages hold; the causal mask at
     each row's offset keeps them out of the softmax. ``QuantPages`` are
     dequantized at the gather, to ``out_dtype`` (default f32); plain pages
-    keep their dtype. ``axis_name`` names a sequence-parallel mesh axis,
-    which the port does not have yet: it raises.
+    keep their dtype.
+
+    Under sequence parallelism ``pages_*`` and ``block_tables`` are lists
+    over the shards (local tables, -1 where another shard owns the block).
+    Each shard gathers the positions it owns and zeros its holes, and the
+    shards' caches are summed in shard order on the first shard's device:
+    every position has one owner, so the sum adds only zeros to it, which
+    is the JAX package's psum over the context mesh.
     """
-    if axis_name is not None:
-        raise NotImplementedError("gather_kv over a sequence-parallel mesh "
-                                  "is not ported yet (ROADMAP.md)")
+    if _per_shard(pages_k):
+        lead = _pages_device(pages_k[0])
+        total_k = total_v = None
+        for pk, pv, tables in zip(pages_k, pages_v, block_tables):
+            bs = (pk.data if isinstance(pk, QuantPages) else pk).shape[3]
+            dead = (tables < 0).repeat_interleave(bs, dim=1)  # (B, nb*bs)
+            dead = dead[None, :, None, :, None]
+            k, v = gather_kv(pk, pv, tables.clamp_min(0), out_dtype)
+            k = k.masked_fill(dead, 0).to(lead)
+            v = v.masked_fill(dead, 0).to(lead)
+            total_k = k if total_k is None else total_k + k
+            total_v = v if total_v is None else total_v + v
+        return total_k, total_v
     tables = block_tables.long()
     b, nb = tables.shape
 
@@ -262,9 +408,17 @@ def scatter_token(pages, block_tables, offsets, rows):
 
     pages: (L, N, H, bs, Dh); block_tables: (B, nb); offsets: (B,) the
     position each row just wrote; rows: (L, B, H, Dh). Padded rows point
-    their tables at SCRATCH, so their writes land in the scratch block.
-    ``QuantPages`` quantize the rows here. Returns ``pages``.
+    their tables at SCRATCH, so their writes land in the scratch block, as
+    do -1 holes. ``QuantPages`` quantize the rows here. Under sequence
+    parallelism ``pages`` and ``block_tables`` are per-shard lists: each
+    shard writes the rows it owns and sends the rest to its scratch row.
+    Returns ``pages``.
     """
+    if _per_shard(pages):
+        for shard, tables in zip(pages, block_tables):
+            dev = _pages_device(shard)
+            scatter_token(shard, tables, offsets.to(dev), rows.to(dev))
+        return pages
     if isinstance(pages, QuantPages):
         qrows, srows = quantize_kv_rows(rows)
         scatter_token(pages.data, block_tables, offsets, qrows)
@@ -287,11 +441,18 @@ def scatter_chunk(pages, block_tables, starts, rows, q_lens):
     pages: (L, N, H, bs, Dh); block_tables: (B, nb); starts: (B,) the first
     position each row writes; rows: (L, B, Q, H, Dh); q_lens: (B,) live
     tokens per row. Row b's tokens q < q_lens[b] land at starts[b] + q;
-    padding tokens go to SCRATCH, which is never allocated to a request.
-    Which of several padding tokens lands last in a scratch slot is not
-    defined; nothing reads them. ``QuantPages`` quantize the rows here.
-    Returns ``pages``.
+    padding tokens and -1 holes go to SCRATCH, which is never allocated to
+    a request. Which of several padding tokens lands last in a scratch
+    slot is not defined; nothing reads them. ``QuantPages`` quantize the
+    rows here. Under sequence parallelism ``pages`` and ``block_tables``
+    are per-shard lists, as for ``scatter_token``. Returns ``pages``.
     """
+    if _per_shard(pages):
+        for shard, tables in zip(pages, block_tables):
+            dev = _pages_device(shard)
+            scatter_chunk(shard, tables, starts.to(dev), rows.to(dev),
+                          q_lens.to(dev))
+        return pages
     if isinstance(pages, QuantPages):
         qrows, srows = quantize_kv_rows(rows)
         scatter_chunk(pages.data, block_tables, starts, qrows, q_lens)

@@ -9,7 +9,9 @@ request frees its blocks and re-queues at the front, carrying its generated
 tokens as an extended prompt; under greedy decoding the re-prefill
 reproduces its KV token for token. The scheduler is host-side policy only
 and copies the JAX scheduler's decisions exactly (with the prefix cache
-off).
+off). Its only view of the pool is ``pool.num_allocatable``, which under
+sequence parallelism is the bottleneck shard's (``sp * min_s(free_s)``),
+so SP admission needs no branch here.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ batch, one token per row, and names the program that runs it: "pdecode"
 (the paged path), "fdecode" (the fused kernel, when every live row sits at
 one offset: a lockstep batch) or "decode" (the assembled-cache standard
 path). Padding rows point their tables at the pool's scratch block and
-carry q_len 0.
+carry q_len 0. ``shard_tables`` turns a step's global tables into each
+sequence-parallel shard's local ones.
 """
 from __future__ import annotations
 
@@ -44,6 +45,25 @@ class DecodeStep(PackedStep):
     offsets: np.ndarray = None      # (B,) kv length before this token
     lockstep: bool = False          # every row at one offset (fused path)
     program: str = ""               # "pdecode", "fdecode" or "decode"
+
+
+def shard_tables(tables: np.ndarray, sp: int,
+                 blocks_per_shard: int) -> np.ndarray:
+    """GLOBAL block tables -> stacked per-shard LOCAL tables for sequence
+    parallelism (``tnn_tpu.serving.step_build.shard_tables``).
+
+    ``tables`` holds global block ids of any rank. Ownership comes from the
+    id range: shard ``g // blocks_per_shard`` holds block ``g``. Returns
+    (sp, *tables.shape) int32 where shard s's entry is the local row ``g %
+    blocks_per_shard`` if shard s owns ``g``, else ``-1``: the paged kernel
+    skips -1 blocks, the scatters send them to the shard's scratch row 0,
+    and ``kv_pool.gather_kv`` zeros them before it sums the shards.
+    """
+    owner = tables // blocks_per_shard
+    local = (tables % blocks_per_shard).astype(np.int32)
+    shards = np.arange(sp, dtype=np.int32).reshape(
+        (sp,) + (1,) * tables.ndim)
+    return np.where(owner[None] == shards, local[None], np.int32(-1))
 
 
 def _fill_row(step: PackedStep, i: int, req) -> None:
