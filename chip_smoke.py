@@ -15,7 +15,9 @@ numbers on its own line:
    the card's bound;
 3. flash: the flash-attention forward (K4) and backward (K7) against their
    plain versions at the training shape and its variants, with their
-   times beside the plain versions', the library's and the bound;
+   times beside the plain versions', the library's and the bound, and the
+   backward call's time split by kernel (delta pre-pass, K7, the zero-fill
+   of dQ's f32 buffer, the casts, the GQA group sum);
 4. serving: ``InferenceEngine`` serving full-width ``gpt2_small`` (seeded
    random weights) 8 requests through the paged path, with K1's launch
    count read over that run;
@@ -42,8 +44,8 @@ numbers on its own line:
    dV), against the plain backward in K7's 13 cases and llama_small's
    attention at S=4096; against K7 at S=32,768, where K5 must repeat its
    dQ bit for bit; all four flash kernels under a mask of 4 x 2^30 bytes;
-   times at S=32,768 beside the plain version's at S=4096, SDPA's backward
-   and the bound;
+   times at S=32,768 beside the plain version's at S=4096, SDPA's (forward
+   beside K4, backward beside the others) and the bound;
 12. training_long (run after training): full-width ``flash_llama_small``
    (vocab 32,000) trained at B=1, S=32,768 for 6 AdamW steps and 2
    held-out batches, with K4 = 12 x 8, K5 = K6 = 12 x 6 and K7 = 0
@@ -109,7 +111,7 @@ def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 10):
+def time_ms(fn, iters: int = 50, warmup: int = 10, split: bool = False):
     """Time of one ``fn()`` call, two ways: (device, events). ``device`` is
     the summed duration of the CUDA kernels ``torch.profiler`` records over
     ``iters`` calls, divided by ``iters``: the card's own time, without the
@@ -120,7 +122,9 @@ def time_ms(fn, iters: int = 50, warmup: int = 10):
     The profiler can drop a kernel's record (one of three K5 launches at
     S=32,768 went missing once, which read as two thirds of its time), so
     ``device`` sums, per kernel name, the mean recorded duration times the
-    launches a call makes, the name's records over ``iters`` rounded up."""
+    launches a call makes, the name's records over ``iters`` rounded up.
+    With ``split`` a third item maps each kernel name to its share of
+    ``device``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -144,9 +148,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 10):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    device = sum(sum(d) / len(d) * -(-len(d) // iters)
-                 for d in by_name.values()) / 1e3 if by_name else None
-    return device, events
+    per_name = {n: sum(d) / len(d) * -(-len(d) // iters) / 1e3
+                for n, d in by_name.items()}
+    device = sum(per_name.values()) if per_name else None
+    return (device, events, per_name) if split else (device, events)
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -586,6 +591,25 @@ def flash_cases():
     }
 
 
+# the kernels of one flash_attention_bwd call, by a part of their names: the
+# delta pre-pass, K7 (the tensor-core body in bf16), dq_acc's zero-fill, the
+# GQA group sum of dK / dV (none where H = H_kv) and the copies that cast dQ
+# (and, under GQA, the group sum's operands)
+BWD_PARTS = (("flash_delta_kernel", "delta"),
+             ("flash_bwd_wgmma_kernel", "k7"), ("flash_bwd_kernel", "k7"),
+             ("FillFunctor", "zero_fill"), ("reduce_kernel", "group_sum"),
+             ("copy", "cast"))
+
+
+def bwd_parts(per_name):
+    """{part: ms per call} of a flash_attention_bwd call's kernels."""
+    parts = {}
+    for name, ms in per_name.items():
+        part = next((p for key, p in BWD_PARTS if key in name), name[:80])
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
+
+
 def phase_flash(results):
     import torch
     import torch.nn.functional as F
@@ -626,9 +650,12 @@ def phase_flash(results):
     for name, (nbytes, ops, fns) in runs.items():
         timed = {}
         for prefix, fn in fns.items():
-            device, events = time_ms(fn, iters=20, warmup=3)
+            device, events, per_name = time_ms(fn, iters=20, warmup=3,
+                                               split=True)
             timed[prefix + "ms"] = events if device is None else device
             timed[prefix + "events_ms"] = events
+            if prefix == "" and name.endswith("bwd"):
+                timed["split_ms"] = bwd_parts(per_name)
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
         timed.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
@@ -1695,9 +1722,12 @@ def phase_serving_int8(results):
 # dQ is held to the limit on the first, a middle and the last row block,
 # and K6's dK/dV on the first key tile (the longest sum, all 32,768 rows),
 # a middle and the last. K5 + K6 against K7 (relative L2 per gradient) is
-# then a sanity reading within one bf16 unit, 2^-8: K6 is K7 without the
-# dQ products, so dK and dV agree bit for bit, and K7's dQ differs by the
-# order of its atomicAdds only.
+# then a sanity reading within one bf16 unit, 2^-8. In bf16, K7 runs on the
+# tensor cores and K5, K6 on the CUDA cores: both round p and ds at the same
+# points, from f32 logits and dP summed in other orders, so a rounding may
+# land one bf16 unit apart and dK, dV no longer agree bit for bit; K7's dQ
+# also differs by the order of its adds into dq_acc. Read (NVIDIA H100 80GB
+# HBM3, 700 W): dQ 1.4e-4, dK 7.2e-4, dV 7.5e-4.
 LONG_SEQ = 32768
 SPLIT_SEQ = 4096
 LLAMA_ATTN = dict(b=1, h=12, hkv=4, d=64)   # llama_small's attention
@@ -1721,17 +1751,21 @@ def live_pairs(args):
 
 
 def split_work(args):
-    """{kernel: (bytes, operations)} of K5, K6 and K7 on these unmasked
-    inputs. Bytes: q, k, v, O, dO and the f32 logsumexp read once, then dQ
-    (K5), dK and dV (K6) or all three (K7) written once. Operations: 2 D
-    per product per live pair; K5 takes three products (S, dP, dQ), K6
-    four (S, dP, dV, dK), K7 five."""
+    """{kernel: (bytes, operations)} of K4, K5, K6 and K7 on these unmasked
+    inputs. Bytes: K4 reads q, k, v and writes O and the f32 logsumexp;
+    the backward kernels read q, k, v, O, dO and the logsumexp, then write
+    dQ (K5), dK and dV (K6) or all three (K7), each once. Operations: 2 D
+    per product per live pair; K4 takes two products (S, PV), K5 three (S,
+    dP, dQ), K6 four (S, dP, dV, dK), K7 five."""
     q, k = args["q"], args["k"]
     elem = q.element_size()
     qo, kv = q.numel() * elem, k.numel() * elem
-    reads = 3 * qo + 2 * kv + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    rows = 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    reads = 3 * qo + 2 * kv + rows
     per_product = 2 * q.shape[-1] * live_pairs(args)
-    return {"flash_attention_bwd_dq": (reads + qo, 3 * per_product),
+    return {"flash_attention_fwd_long": (2 * qo + 2 * kv + rows,
+                                         2 * per_product),
+            "flash_attention_bwd_dq": (reads + qo, 3 * per_product),
             "flash_attention_bwd_dkv": (reads + 2 * kv, 4 * per_product),
             "flash_attention_bwd_long": (reads + qo + 2 * kv,
                                          5 * per_product)}
@@ -1959,7 +1993,18 @@ def phase_flash_split(results):
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
                                                  enable_gqa=True)
+
+    def sdpa_fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
     fns = {
+        "flash_attention_fwd_long": lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True),
+        "plain_fwd": lambda: fa.flash_attention_reference(
+            small["q"], small["k"], small["v"], causal=True),
+        "library_fwd": sdpa_fwd,
         "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
             q, k, v, o, lse, do, causal=True),
         "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
@@ -1979,17 +2024,18 @@ def phase_flash_split(results):
     for name, (nbytes, ops) in split_work(long).items():
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
+        ref = "_fwd" if name.endswith("fwd_long") else ""
         timed = dict(ms=times[name][0], events_ms=times[name][1],
-                     plain_ms=times["plain"][0],
-                     plain_events_ms=times["plain"][1],
-                     library_ms=times["library"][0],
-                     library_events_ms=times["library"][1],
+                     plain_ms=times["plain" + ref][0],
+                     plain_events_ms=times["plain" + ref][1],
+                     library_ms=times["library" + ref][0],
+                     library_events_ms=times["library" + ref][1],
                      bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
                      bound_by="bytes" if byte_ms >= op_ms else "operations",
                      seq=LONG_SEQ, plain_seq=SPLIT_SEQ)
         log("flash_split_time", kernel=name, case="llama_s32768_bf16",
             **timed)
-        if name in worst:     # K7 at this shape is logged only
+        if name in worst:     # K4 and K7 at this shape are logged only
             results[name] = dict(timed, max_abs_err=worst[name])
     # comparison launches do not count
     for wrapper in (fa.flash_attention_fwd, fa.flash_attention_bwd,

@@ -17,10 +17,11 @@
 //     `scale`; a key is live when it is below Skv, when `causal` is off or
 //     off + q_row >= key, and when the grouped int8 mask (G, Sq, Skv) with
 //     G in {1, B, B*H} holds a non-zero there; dead logits become -1e30;
-//   * forward: online softmax per 64-key tile in f32, p rounded to the input
-//     dtype before the PV product (the TPU kernel's p.astype(v.dtype)), f32
-//     accumulation; O in the input dtype and the f32 logsumexp per row,
-//     +inf on rows with no live key, whose output is exactly 0;
+//   * forward: online softmax per key tile in f32 (128 keys in bf16, 64 in
+//     f32), p rounded to the input dtype before the PV product (the TPU
+//     kernel's p.astype(v.dtype)), f32 accumulation; O in the input dtype
+//     and the f32 logsumexp per row, +inf on rows with no live key, whose
+//     output is exactly 0;
 //   * backward: p = exp(s - lse) recomputed per tile, delta = rowsum(dO*O)
 //     in a pre-pass, dV += round(p)^T dO, ds = round(p * (dP - delta) *
 //     scale) with dP = dO V^T, dK += ds^T Q and dQ += ds K. Rounding to the
@@ -36,17 +37,36 @@
 // GFLOP of causal QK and PV (0.015 ms at 3.35 TB/s vs 0.013 ms at 989
 // TFLOP/s: bytes, barely); the backward computes 32 GFLOP (0.033 ms,
 // operations). At llama_small's long-context shape (B=1, H=12, H_kv=4,
-// S=32,768) every kernel is operations-bound: K5 2.47 TFLOP, K6 3.30, K7
-// 4.12. This first version computes in f32 on the CUDA cores (no tensor
-// cores: 67 TFLOP/s peak), so it is operations-bound far above either
-// line; mma/wgmma, TMA and warp specialisation are later work.
+// S=32,768) every kernel is operations-bound: K4 1.65 TFLOP, K5 2.47, K6
+// 3.30, K7 4.12.
 //
-// Design. The TPU grid walks kv blocks in order and carries (m, l, acc) in
-// VMEM scratch; here one block of 256 threads owns one (batch*head, 64-row
-// query tile) and loops over the live key tiles itself: causal tiles above
-// the diagonal are neither read nor computed, and the heaviest causal tiles
-// are launched first. Each thread holds a 4 x 4 piece of the 64 x 64 logit
-// tile and 4 rows x D/16 dims of the accumulator; the 16 threads of a
+// Two bodies. bf16 K4 and K7 run on the tensor cores: wgmma products of
+// bf16 tiles with f32 accumulation, which is what the plain version's f32
+// products of the same bf16 values compute, up to summation order; TMA
+// tile loads and a producer warpgroup (hopper.cuh; the design is noted
+// above each kernel). f32 inputs, and K5 and K6 in both dtypes, run the
+// SIMT body in f32 on the CUDA cores (67 TFLOP/s peak): the tensor cores
+// have no exact f32 product, and TF32 keeps 10 bits of mantissa. The launch
+// code picks the body by dtype and kernel; nothing falls back from one to
+// the other. On the card (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py) the
+// tensor-core bodies take 0.07 ms (K4) and 0.22 ms (K7 alone) at the
+// training shape, against 0.75 and 1.58 ms for the SIMT body.
+//
+// nvcc -Xptxas -v (CUDA 12.9, sm_90a) of the tensor-core bodies: 168
+// registers a thread at launch (384 threads, one block an SM); setmaxnreg
+// gives the producer 24 and the consumers 240, of which K4 uses up to 188
+// (D=64) and 215 (D=128) with no spills, and K7 160 (D=64: an 8-byte stack
+// frame, 8 bytes spilled) and 219 (D=128: a 472-byte stack frame, 736
+// bytes spilled, and ptxas serializes its products for lack of registers;
+// D=128 is off the main paths). Shared memory: K4 83,008 bytes (D=64) and
+// 164,928 (D=128); K7 116,776 and 215,080.
+//
+// SIMT body. The TPU grid walks kv blocks in order and carries (m, l, acc)
+// in VMEM scratch; here one block of 256 threads owns one (batch*head,
+// 64-row query tile) and loops over the live key tiles itself: causal tiles
+// above the diagonal are neither read nor computed, and the heaviest causal
+// tiles are launched first. Each thread holds a 4 x 4 piece of the 64 x 64
+// logit tile and 4 rows x D/16 dims of the accumulator; the 16 threads of a
 // half-warp share a row, so row maxima and sums are half-warp shuffles.
 //
 // The TPU's fused backward carries a full-sequence dQ scratch across a
@@ -67,6 +87,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -123,6 +145,18 @@ __device__ __forceinline__ bool is_live(const Shape& s, const int8_t* m,
   if (m != nullptr && m[static_cast<size_t>(qi) * s.Skv + kj] == 0)
     return false;
   return true;
+}
+
+// key tiles of q rows [q0, q0 + rows): causal tiles past the diagonal are
+// neither loaded nor computed
+__device__ __forceinline__ int key_tiles(const Shape& s, int q0, int rows,
+                                         int keys) {
+  int nk = (s.Skv + keys - 1) / keys;
+  if (s.causal) {
+    const int last = s.off + q0 + rows - 1;  // the rows' last position
+    nk = last < 0 ? 0 : min(nk, last / keys + 1);
+  }
+  return nk;
 }
 
 // rows [row0, row0 + kTile) of a (rows, D) matrix into shared memory as f32,
@@ -194,11 +228,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kDims; ++e) acc[i][e] = 0.f;
   }
 
-  int nk = (s.Skv + kTile - 1) / kTile;
-  if (s.causal) {
-    const int last = s.off + q0 + kTile - 1;  // the tile's last position
-    nk = last < 0 ? 0 : min(nk, last / kTile + 1);
-  }
+  const int nk = key_tiles(s, q0, kTile, kTile);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's reads of ks / vs / ps are done
@@ -446,11 +476,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < kDims; ++e) acc[i][e] = 0.f;
 
-  int nk = (s.Skv + kTile - 1) / kTile;
-  if (s.causal) {
-    const int last = s.off + q0 + kTile - 1;  // the tile's last position
-    nk = last < 0 ? 0 : min(nk, last / kTile + 1);
-  }
+  const int nk = key_tiles(s, q0, kTile, kTile);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's reads of ks / vs / dss are done
@@ -595,6 +621,595 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- bf16 on the tensor cores --
+//
+// The bf16 forward (K4) and fused backward (K7) on wgmma, fed by TMA
+// (hopper.cuh). A block is three warpgroups: warpgroup 0 is the producer
+// (one thread issues the TMA loads; the warpgroup gives up its registers
+// with setmaxnreg), warpgroups 1 and 2 are consumers of 64 rows each.
+
+constexpr int kWg = 128;              // threads of a warpgroup
+constexpr int kWgBlock = 3 * kWg;     // producer + two consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBox = 64 * 128;        // bytes of a 64-row, 64-column box
+
+// K4. A persistent grid, one block per SM: block i takes the work items
+// (batch*head, 128-row q tile) i, i + grid, ..., heaviest causal tiles
+// first. The producer loads an item's Q tile once and streams its 128-key
+// K and V tiles through a two-stage ring (K and V on barriers of their own,
+// so S waits for K only), running ahead into the next item while the
+// consumers finish this one. Each consumer warpgroup owns 64 q rows and,
+// per key tile, computes S = Q K^T on wgmma (both from shared memory), the
+// online softmax on the accumulator fragments, and O += round(P) V with P
+// from registers; each tile's S product is issued beside the previous
+// tile's PV product, and the softmax waits for S only. At the training
+// shape on an H100 (flash_ab.py) each of the two took a quarter off the
+// time (0.133 -> 0.092 -> 0.068 ms); the consumers taking turns to issue
+// their products gained nothing.
+template <int D>
+struct FwdTiles {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kRows = 128;     // q rows of an item
+  static constexpr int kKeys = 128;     // keys of a tile
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = kBoxes * kRows * 128;
+  static constexpr int kKVBytes = kBoxes * kKeys * 128;  // K or V tile
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (2 + 3 * kStages);
+};
+
+// the q tile and batch*head of work item `item` (heaviest causal first)
+__device__ __forceinline__ void fwd_item(const Shape& s, int nq, int item,
+                                         int* qt, int* bh) {
+  const int bhs = s.B * s.H;
+  *bh = item % bhs;
+  *qt = s.causal ? nq - 1 - item / bhs : item / bhs;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgBlock, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const int8_t* __restrict__ mask,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, const Shape s) {
+  using C = FwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = hopper::align_1024(smem_raw);
+  uint8_t* ks = qs + C::kQBytes;
+  uint8_t* vs = ks + C::kStages * C::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + C::kStages *
+                                                 C::kKVBytes);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + C::kStages;
+  uint64_t* empty = v_full + C::kStages;
+
+  const int nq = (s.Sq + C::kRows - 1) / C::kRows;
+  const int items = nq * s.B * s.H;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 2 * kWg);  // every consumer thread
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&k_full[i], 1);
+      hopper::mbar_init(&v_full[i], 1);
+      hopper::mbar_init(&empty[i], 2 * kWg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {  // ------------------------------------------- producer --
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int g = 0;  // key tiles loaded so far, over all items
+      for (int item = blockIdx.x, n = 0; item < items;
+           item += gridDim.x, ++n) {
+        int qt, bh;
+        fwd_item(s, nq, item, &qt, &bh);
+        const int bkv = (bh / s.H) * s.HKV + (bh % s.H) / s.g;
+        const int q0 = qt * C::kRows;
+        hopper::mbar_wait(q_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(q_full, C::kQBytes);
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+          hopper::tma_load_3d(qs + bx * C::kRows * 128, &tq, q_full, 64 * bx,
+                              q0, bh);
+        const int nk = key_tiles(s, q0, C::kRows, C::kKeys);
+        for (int kt = 0; kt < nk; ++kt, ++g) {
+          const int st = g % C::kStages;
+          hopper::mbar_wait(&empty[st], ((g / C::kStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&k_full[st], C::kKVBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            hopper::tma_load_3d(ks + st * C::kKVBytes + bx * C::kKeys * 128,
+                                &tk, &k_full[st], 64 * bx, kt * C::kKeys,
+                                bkv);
+          hopper::mbar_arrive_expect_tx(&v_full[st], C::kKVBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            hopper::tma_load_3d(vs + st * C::kKVBytes + bx * C::kKeys * 128,
+                                &tv, &v_full[st], 64 * bx, kt * C::kKeys,
+                                bkv);
+        }
+      }
+    }
+  } else {  // ---------------------------------------------- consumers --
+    hopper::regs_inc<kConsumerRegs>();
+    const int cw = wg - 1;  // rows 64 cw .. 64 cw + 63 of an item
+    const int t = threadIdx.x % kWg;
+    const int lane = t % 32;
+    const int r16 = 16 * (t / 32) + lane / 4;  // fragment rows r16, r16 + 8
+    const int c2 = 2 * (lane % 4);
+    // p = exp2(S c - m c) with m the running maximum of the raw logits:
+    // the scale is positive, so m scale is the maximum of the scaled
+    // logits the plain version takes, bit for bit
+    const float c = s.scale * kLog2e;
+
+    float acc[C::kBoxes][32];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float sc[64];                   // S of a tile: 64 rows x 128 keys
+    uint32_t pa[C::kKeys / 16][4];  // round(P) of the previous tile
+    int q0 = 0, qa = 0, bh = 0;
+    const int8_t* mp = nullptr;
+
+    // S = Q K^T of the key tile in stage st into sc
+    auto issue_s = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int bx = kk / 4;
+        hopper::wgmma_ss_n128<0, 0>(
+            sc,
+            hopper::sw128_desc(
+                qs + bx * C::kRows * 128 + cw * kBox + (kk % 4) * 32, false),
+            hopper::sw128_desc(
+                ks + st * C::kKVBytes + bx * C::kKeys * 128 + (kk % 4) * 32,
+                false),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // O += round(P) V of the key tile in stage st: V read N-contiguous
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+        for (int kk = 0; kk < C::kKeys / 16; ++kk)
+          hopper::wgmma_rs_n64<1>(
+              acc[bx], pa[kk],
+              hopper::sw128_desc(vs + st * C::kKVBytes +
+                                     bx * C::kKeys * 128 + kk * 16 * 128,
+                                 true),
+              1);
+      hopper::wgmma_commit();
+    };
+    // the online softmax of key tile kt on sc (P left in sc); alpha
+    // rescales the earlier tiles' sums
+    float alpha[2];
+    auto softmax = [&](int kt) {
+      const int k0 = kt * C::kKeys;
+      const bool all_live =
+          mp == nullptr && k0 + C::kKeys <= s.Skv &&
+          (!s.causal || s.off + q0 + 64 * cw >= k0 + C::kKeys - 1);
+      if (!all_live) {  // dead logits -inf: p 0 at any running maximum
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (!is_live(s, mp, qa + hopper::acc_row(i),
+                       k0 + hopper::acc_col(i) + c2))
+            sc[i] = -INFINITY;
+      }
+      float mx[2] = {m[0], m[1]}, mc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        alpha[r] = exp2f((m[r] - mx[r]) * c);
+        m[r] = mx[r];
+        mc[r] = mx[r] * c;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float p = exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += p;
+        sc[i] = p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(kFull, rs[r], 1);
+        rs[r] += __shfl_xor_sync(kFull, rs[r], 2);
+        l[r] = alpha[r] * l[r] + rs[r];
+      }
+    };
+
+    int g = 0;  // key tiles consumed so far, over all items
+    for (int item = blockIdx.x, n = 0; item < items;
+         item += gridDim.x, ++n) {
+      int qt;
+      fwd_item(s, nq, item, &qt, &bh);
+      q0 = qt * C::kRows;
+      qa = q0 + 64 * cw + r16;
+      mp = mask_rows(mask, s, bh);
+      const int nk = key_tiles(s, q0, C::kRows, C::kKeys);
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[bx][i] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = kNegInf;
+        l[r] = 0.f;
+      }
+      hopper::mbar_wait(q_full, n & 1);
+      if (nk == 0) hopper::mbar_arrive(q_empty);
+      // one key tile; the first issues no PV product. Branches on data
+      // stay outside the spans where a product is in flight (the first
+      // tile's is a compile-time one), or ptxas serializes the products.
+      auto step = [&](int kt, auto first) {
+        const int st = g % C::kStages;
+        const int pst = (g + C::kStages - 1) % C::kStages;
+        hopper::mbar_wait(&k_full[st], (g / C::kStages) & 1);
+        if constexpr (!decltype(first)::value)
+          hopper::mbar_wait(&v_full[pst], ((g - 1) / C::kStages) & 1);
+        hopper::wgmma_fence();
+        issue_s(st);
+        if constexpr (decltype(first)::value) {
+          hopper::wgmma_wait<0>();
+        } else {
+          issue_pv(pst);
+          hopper::wgmma_wait<1>();
+        }
+        hopper::fence_regs(sc);
+        softmax(kt);
+        if constexpr (!decltype(first)::value) {
+          hopper::wgmma_wait<0>();
+#pragma unroll
+          for (int bx = 0; bx < C::kBoxes; ++bx) hopper::fence_regs(acc[bx]);
+#pragma unroll
+          for (int kk = 0; kk < C::kKeys / 16; ++kk)
+            hopper::fence_regs(pa[kk]);
+          hopper::mbar_arrive(&empty[pst]);
+        }
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[bx][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int kk = 0; kk < C::kKeys / 16; ++kk)
+          hopper::pack_a(sc, kk, pa[kk]);
+        if (kt == nk - 1) hopper::mbar_arrive(q_empty);  // S read Q last
+        ++g;
+      };
+      if (nk > 0) step(0, std::true_type{});
+      for (int kt = 1; kt < nk; ++kt) step(kt, std::false_type{});
+      if (nk > 0) {
+        const int pst = (g - 1) % C::kStages;
+        hopper::mbar_wait(&v_full[pst], ((g - 1) / C::kStages) & 1);
+        hopper::wgmma_fence();
+        issue_pv(pst);
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx) hopper::fence_regs(acc[bx]);
+        hopper::mbar_arrive(&empty[pst]);
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = qa + 8 * r;
+        if (qi >= s.Sq) continue;
+        const float lsafe = l[r] == 0.f ? 1.f : l[r];  // dead rows -> 0
+        const size_t row = static_cast<size_t>(bh) * s.Sq + qi;
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(o + row * D + 64 * bx +
+                                               8 * j + c2) =
+                __floats2bfloat162_rn(acc[bx][4 * j + 2 * r] / lsafe,
+                                      acc[bx][4 * j + 2 * r + 1] / lsafe);
+        if (lane % 4 == 0)
+          lse[row] =
+              l[r] > 0.f ? m[r] * s.scale + logf(lsafe) : INFINITY;
+      }
+    }
+  }
+}
+
+
+// K7. One block owns one (batch*q-head, 128-key tile); each consumer
+// warpgroup owns 64 of the keys, keeps their K and V in shared memory for
+// the whole sweep and dK, dV in registers. The producer streams 64-row Q
+// and dO tiles (TMA) and their lse and delta rows (plain loads by its first
+// warp: a (B, H, Sq) f32 row is 16-byte aligned only when Sq % 4 == 0, which
+// a bulk copy needs) through a two-stage ring. Per q tile a consumer takes
+// the five products of the TPU kernel, all on wgmma:
+//   S^T = K Q^T and dP^T = V dO^T (both operands from shared memory);
+//   P^T = exp(S^T scale - lse) and dS^T = round(P^T (dP^T - delta) scale)
+//   on the fragments; dV += round(P^T) dO and dK += dS^T Q with the left
+//   side from registers; dS^T stored to shared memory as bf16, then
+//   dQ = dS K with dS read M-contiguous.
+// The consumer's f32 64 x D dQ tile goes to shared memory row-major, and
+// one bulk reduce-add (cp.reduce.async.bulk ... add.f32) adds it into
+// dq_acc, where the SIMT body issues 64 D scalar atomicAdds; the order in
+// which blocks add differs from run to run, and with it dQ's low bits. Key
+// tiles are the grid's slow axis, so the heaviest causal blocks (the first
+// keys, seen by every q tile) of all heads run in the first wave: at the
+// training shape on an H100 (flash_ab.py) that took the call from 0.288 to
+// 0.260 ms.
+template <int D>
+struct BwdTiles {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kKeys = 128;     // keys of a block, 64 per consumer
+  static constexpr int kRows = 64;      // q rows of a streamed tile
+  static constexpr int kStages = 2;
+  static constexpr int kKVBytes = kBoxes * kKeys * 128;   // K or V
+  static constexpr int kQBytes = kBoxes * kRows * 128;    // Q or dO tile
+  static constexpr int kDSBytes = 64 * 128;               // dS^T, bf16
+  static constexpr int kDQBytes = kRows * D * 4;          // dQ tile, f32
+  static constexpr int kSmem = 1024 + 2 * kKVBytes + 2 * kStages * kQBytes +
+                               2 * kDSBytes + 2 * kDQBytes +
+                               kStages * 2 * kRows * 4 + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgBlock, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const int8_t* __restrict__ mask,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, const Shape s) {
+  using C = BwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = hopper::align_1024(smem_raw);
+  uint8_t* vs = ks + C::kKVBytes;
+  uint8_t* qs = vs + C::kKVBytes;                  // stages of Q
+  uint8_t* dos = qs + C::kStages * C::kQBytes;     // stages of dO
+  uint8_t* dss = dos + C::kStages * C::kQBytes;    // dS^T per consumer
+  float* dqs = reinterpret_cast<float*>(dss + 2 * C::kDSBytes);
+  float* stats = dqs + 2 * C::kRows * D;           // per stage: lse, delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + C::kStages * 2 *
+                                                  C::kRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::kStages;
+
+  const int bh = blockIdx.x;  // key tiles on the slow axis (see above)
+  const int b = bh / s.H;
+  const int bkv = b * s.HKV + (bh % s.H) / s.g;
+  const int k0 = blockIdx.y * C::kKeys;
+  // the q tiles that can see this key tile: causal rows below k0 - off see
+  // none of its keys (with Sq < Skv a trailing key tile may see no q tile)
+  const int nq = (s.Sq + C::kRows - 1) / C::kRows;
+  const int qt0 = s.causal && k0 - s.off > 0 ? (k0 - s.off) / C::kRows : 0;
+  const int iters = nq > qt0 ? nq - qt0 : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&full[i], 32);  // the producer's first warp
+      hopper::mbar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {  // ------------------------------------------- producer --
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * C::kKVBytes);
+        for (int bx = 0; bx < C::kBoxes; ++bx) {
+          hopper::tma_load_3d(ks + bx * C::kKeys * 128, &tk, kv_full,
+                              64 * bx, k0, bkv);
+          hopper::tma_load_3d(vs + bx * C::kKeys * 128, &tv, kv_full,
+                              64 * bx, k0, bkv);
+        }
+      }
+      const float* lsep = lse + static_cast<size_t>(bh) * s.Sq;
+      const float* deltap = delta + static_cast<size_t>(bh) * s.Sq;
+      for (int it = 0; it < iters; ++it) {
+        const int st = it % C::kStages;
+        const int q0 = (qt0 + it) * C::kRows;
+        hopper::mbar_wait(&empty[st], ((it / C::kStages) & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&full[st], 2 * C::kQBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx) {
+            hopper::tma_load_3d(qs + st * C::kQBytes + bx * kBox, &tq,
+                                &full[st], 64 * bx, q0, bh);
+            hopper::tma_load_3d(dos + st * C::kQBytes + bx * kBox, &tdo,
+                                &full[st], 64 * bx, q0, bh);
+          }
+        }
+        // padding rows: lse +inf makes their p exactly 0
+        float* ls = stats + st * 2 * C::kRows;
+        for (int i = lane; i < C::kRows; i += 32) {
+          const bool in = q0 + i < s.Sq;
+          ls[i] = in ? lsep[q0 + i] : INFINITY;
+          ls[C::kRows + i] = in ? deltap[q0 + i] : 0.f;
+        }
+        hopper::mbar_arrive(&full[st]);
+      }
+    }
+  } else {  // ---------------------------------------------- consumers --
+    hopper::regs_inc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % kWg;
+    const int lane = t % 32;
+    const int r16 = 16 * (t / 32) + lane / 4;  // fragment rows r16, r16 + 8
+    const int c2 = 2 * (lane % 4);
+    const int kb = k0 + 64 * cw;               // this warpgroup's first key
+    const int8_t* mp = mask_rows(mask, s, bh);
+    uint8_t* my_ds = dss + cw * C::kDSBytes;
+    float* my_dq = dqs + cw * C::kRows * D;
+
+    float dk_acc[C::kBoxes][32], dv_acc[C::kBoxes][32];
+#pragma unroll
+    for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dk_acc[bx][i] = 0.f;
+        dv_acc[bx][i] = 0.f;
+      }
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < iters; ++it) {
+      const int st = it % C::kStages;
+      const int q0 = (qt0 + it) * C::kRows;
+      hopper::mbar_wait(&full[st], (it / C::kStages) & 1);
+      const uint8_t* qst = qs + st * C::kQBytes;
+      const uint8_t* dost = dos + st * C::kQBytes;
+      const float* ls = stats + st * 2 * C::kRows;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows each
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int bx = kk / 4;
+        const int koff = bx * C::kKeys * 128 + cw * kBox + (kk % 4) * 32;
+        const int qoff = bx * kBox + (kk % 4) * 32;
+        hopper::wgmma_ss_n64<0, 0>(sc, hopper::sw128_desc(ks + koff, false),
+                                   hopper::sw128_desc(qst + qoff, false),
+                                   kk > 0);
+        hopper::wgmma_ss_n64<0, 0>(dp, hopper::sw128_desc(vs + koff, false),
+                                   hopper::sw128_desc(dost + qoff, false),
+                                   kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // P^T and dS^T on the fragments: row = key, column = q row
+      const bool all_live = mp == nullptr && kb + 64 <= s.Skv &&
+                            (!s.causal || s.off + q0 >= kb + 63);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(ls + 8 * j + c2);
+        const float2 dj =
+            *reinterpret_cast<const float2*>(ls + C::kRows + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float lv = (e & 1) ? lj.y : lj.x;
+          const float dv_ = (e & 1) ? dj.y : dj.x;
+          float p = exp2f((sc[i] * s.scale - lv) * kLog2e);
+          if (!all_live &&
+              !is_live(s, mp, q0 + 8 * j + c2 + (e & 1),
+                       kb + r16 + hopper::acc_row(i)))
+            p = 0.f;
+          sc[i] = p;
+          dp[i] = p * (dp[i] - dv_) * s.scale;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::pack_a(sc, kk, pa[kk]);
+        hopper::pack_a(dp, kk, da[kk]);
+      }
+      // dV += round(P^T) dO and dK += dS^T Q, dO and Q read N-contiguous
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int off = bx * kBox + kk * 16 * 128;
+          hopper::wgmma_rs_n64<1>(dv_acc[bx], pa[kk],
+                                  hopper::sw128_desc(dost + off, true), 1);
+          hopper::wgmma_rs_n64<1>(dk_acc[bx], da[kk],
+                                  hopper::sw128_desc(qst + off, true), 1);
+        }
+      hopper::wgmma_commit();
+
+      // dS^T to shared memory, rows = keys, 128-byte swizzle; its 16-column
+      // slice kk of A-fragment pairs: (r16, 16 kk + c2), (r16 + 8, ...),
+      // (r16, 16 kk + 8 + c2), (r16 + 8, ...)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = r16 + 8 * (j & 1);
+          const int c = 16 * kk + 8 * (j >> 1) + c2;
+          *reinterpret_cast<uint32_t*>(my_ds + hopper::sw128_offset(r, c)) =
+              da[kk][j];
+        }
+      if (t == 0) hopper::bulk_wait_read();  // the last dQ tile was read
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + cw, kWg);
+      hopper::wgmma_wait();
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx) {
+        hopper::fence_regs(dv_acc[bx]);
+        hopper::fence_regs(dk_acc[bx]);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+
+      // dQ = dS K over this warpgroup's 64 keys: dS read M-contiguous from
+      // its transpose, K N-contiguous; 64 columns at a time
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx) {
+        float dq[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_n64<1, 1>(
+              dq, hopper::sw128_desc(my_ds + kk * 16 * 128, true),
+              hopper::sw128_desc(ks + bx * C::kKeys * 128 + cw * kBox +
+                                     kk * 16 * 128,
+                                 true),
+              kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait();
+        hopper::fence_regs(dq);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          *reinterpret_cast<float2*>(my_dq + (r16 + hopper::acc_row(i)) * D +
+                                     64 * bx + hopper::acc_col(i) + c2) =
+              make_float2(dq[i], dq[i + 1]);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + cw, kWg);
+      if (t == 0) {
+        const int rows = min(C::kRows, s.Sq - q0);
+        hopper::bulk_reduce_add_f32(
+            dq_acc + (static_cast<size_t>(bh) * s.Sq + q0) * D, my_dq,
+            static_cast<uint32_t>(rows * D * 4));
+        hopper::bulk_commit();
+      }
+    }
+    if (t == 0) hopper::bulk_wait();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = kb + r16 + 8 * r;
+      if (kj >= s.Skv) continue;
+      const size_t row = static_cast<size_t>(bh) * s.Skv + kj;
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          const size_t at = row * D + 64 * bx + 8 * j + c2;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+              __floats2bfloat162_rn(dk_acc[bx][i], dk_acc[bx][i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dv_acc[bx][i], dv_acc[bx][i + 1]);
+        }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- launch --
 
 template <typename Kernel>
@@ -614,21 +1229,56 @@ cudaError_t dispatch(int dtype, int D, Fn fn) {
   return D == 64 ? fn(__nv_bfloat16{}, D64{}) : fn(__nv_bfloat16{}, D128{});
 }
 
+// the bf16 forward on wgmma (K4's tensor-core body)
+template <int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* mask, void* o, float* lse,
+                             const Shape& s, cudaStream_t st) {
+  using C = FwdTiles<D>;
+  if (s.Skv == 0) k = v = q;  // no key tile is read; any aligned base
+  CUtensorMap tq, tk, tv;
+  cudaError_t e =
+      hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tk, k, s.B * s.HKV, s.Skv, D, C::kKeys);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, s.Skv, D, C::kKeys);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  e = allow_smem(kernel, C::kSmem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int items = (s.Sq + C::kRows - 1) / C::kRows * s.B * s.H;
+  kernel<<<min(items, sms), kWgBlock, C::kSmem, st>>>(
+      tq, tk, tv, static_cast<const int8_t*>(mask),
+      static_cast<__nv_bfloat16*>(o), lse, s);
+  return cudaGetLastError();
+}
+
+// K4: bf16 on the tensor cores, f32 on the SIMT body
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* o, float* lse, const Shape& s,
                        cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1));
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s.Sq + kTile - 1) / kTile, s.B * s.H);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int8_t*>(mask),
-      static_cast<T*>(o), lse, s);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_fwd_wgmma<D>(q, k, v, mask, o, lse, s, st);
+  } else {
+    const size_t smem = sizeof(float) * (2 * kTile * (D + 1) + kTile * D +
+                                         kTile * (kTile + 1));
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((s.Sq + kTile - 1) / kTile, s.B * s.H);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int8_t*>(mask),
+        static_cast<T*>(o), lse, s);
+    return cudaGetLastError();
+  }
 }
 
 // the delta pre-pass of every backward
@@ -644,7 +1294,38 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-// K7 (dq_acc given) or K6 (dq_acc null), after the delta pre-pass
+// the bf16 fused backward on wgmma (K7's tensor-core body), after the
+// delta pre-pass
+template <int D>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* mask, const void* dout,
+                             const float* lse, const float* delta,
+                             float* dq_acc, void* dk, void* dv,
+                             const Shape& s, cudaStream_t st) {
+  using C = BwdTiles<D>;
+  if (s.Sq == 0) q = dout = k;  // no q tile is read; any aligned base
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e =
+      hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tdo, dout, s.B * s.H, s.Sq, D, C::kRows);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tk, k, s.B * s.HKV, s.Skv, D, C::kKeys);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, s.Skv, D, C::kKeys);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_bwd_wgmma_kernel<D>;
+  e = allow_smem(kernel, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(s.B * s.H, (s.Skv + C::kKeys - 1) / C::kKeys);
+  kernel<<<grid, kWgBlock, C::kSmem, st>>>(
+      tq, tk, tv, tdo, static_cast<const int8_t*>(mask), lse, delta, dq_acc,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s);
+  return cudaGetLastError();
+}
+
+// K7 (dq_acc given) or K6 (dq_acc null), after the delta pre-pass; bf16 K7
+// on the tensor cores, the rest on the SIMT body
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* mask, const void* o, const void* dout,
@@ -652,10 +1333,16 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        void* dv, const Shape& s, cudaStream_t st) {
   cudaError_t e = launch_delta<T, D>(o, dout, delta, s, st);
   if (e != cudaSuccess) return e;
+  auto kernel = &flash_bwd_kernel<T, D, false>;  // K6
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (dq_acc != nullptr)
+      return launch_bwd_wgmma<D>(q, k, v, mask, dout, lse, delta, dq_acc, dk,
+                                 dv, s, st);
+  } else {
+    if (dq_acc != nullptr) kernel = &flash_bwd_kernel<T, D, true>;
+  }
   const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
                                        2 * kTile * (kTile + 1) + 2 * kTile);
-  auto kernel = dq_acc != nullptr ? &flash_bwd_kernel<T, D, true>
-                                  : &flash_bwd_kernel<T, D, false>;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s.Skv + kTile - 1) / kTile, s.B * s.H);

@@ -19,8 +19,10 @@ in f32, ``+inf`` on rows with no live key (whose output is exactly 0). The
 backward recomputes p = exp(s - lse), rounds it to dO's dtype for dV and
 rounds ds = p (dP - delta) scale to q's dtype for dK and dQ. The plain
 forward normalises at the row's final maximum; the kernel rounds p at its
-running maximum, one 64-key tile at a time, as the TPU kernel does per kv
-block, so the two differ within the rounding of p.
+running maximum, one key tile at a time (128 keys in bf16, 64 in f32), as
+the TPU kernel does per kv block, so the two differ within the rounding of
+p. bf16 inputs take the kernels' tensor-core bodies (K4, K7), f32 inputs
+and the split pair their f32 bodies on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -209,6 +211,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, mask=None,
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_kernel_args(q, k, v, mask)
+    _check_tma_bases(q.dtype, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -239,6 +242,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
             kv_offset=kv_offset)
     b, h, sq, d = q.shape
     skv = k.shape[2]
+    _check_tma_bases(q.dtype, q=q, k=k, v=v, do=do)
     dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=q.device)
@@ -357,6 +361,17 @@ def _check_kernel_args(q, k, v, mask):
                          f"{q.shape[-1]}")
     if mask is not None and mask.dtype != torch.int8:
         raise ValueError(f"mask must be int8, got {mask.dtype}")
+
+
+def _check_tma_bases(dtype, **tensors):
+    """The bf16 bodies of K4 and K7 read these tensors through TMA, whose
+    tensor maps need 16-byte-aligned base addresses."""
+    if dtype != torch.bfloat16:
+        return
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"bf16 {name} must start on a 16-byte boundary "
+                             "(the kernel reads it through TMA)")
 
 
 def _library():

@@ -4,10 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries land in
 ``build/kernels/`` at the repository root (``TNN_TORCH_BUILD_DIR``
-overrides), named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads the existing library. Builds
-happen at first use, never at import: the CPU-only test host has no
-``nvcc`` and imports every module.
+overrides), named by a hash of the source, the headers beside it and the
+flags, so a changed source or header rebuilds and an unchanged one loads
+the existing library. Builds happen at first use, never at import: the
+CPU-only test host has no ``nvcc`` and imports every module.
 """
 from __future__ import annotations
 
@@ -48,8 +48,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the
+    flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
