@@ -111,8 +111,8 @@ def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 10, split: bool = False):
-    """Time of one ``fn()`` call, two ways: (device, events). ``device`` is
+def time_ms(fn, iters: int = 50, warmup: int = 10):
+    """Time of one ``fn()`` call: (device, events, per_name). ``device`` is
     the summed duration of the CUDA kernels ``torch.profiler`` records over
     ``iters`` calls, divided by ``iters``: the card's own time, without the
     host overhead between launches (None where the profiler records no
@@ -122,9 +122,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 10, split: bool = False):
     The profiler can drop a kernel's record (one of three K5 launches at
     S=32,768 went missing once, which read as two thirds of its time), so
     ``device`` sums, per kernel name, the mean recorded duration times the
-    launches a call makes, the name's records over ``iters`` rounded up.
-    With ``split`` a third item maps each kernel name to its share of
-    ``device``."""
+    launches a call makes, the name's records over ``iters`` rounded up;
+    ``per_name`` maps each kernel name to its share of ``device``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,7 +150,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 10, split: bool = False):
     per_name = {n: sum(d) / len(d) * -(-len(d) // iters) / 1e3
                 for n, d in by_name.items()}
     device = sum(per_name.values()) if per_name else None
-    return (device, events, per_name) if split else (device, events)
+    return device, events, per_name
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -389,7 +388,7 @@ def phase_kernel(results):
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
         timed[name] = {}
         for prefix, fn in runs.items():
-            device, events = time_ms(fn)
+            device, events, _ = time_ms(fn)
             # device time where the profiler saw the kernels, else events
             timed[name][prefix + "ms"] = events if device is None else device
             timed[name][prefix + "events_ms"] = events
@@ -650,8 +649,7 @@ def phase_flash(results):
     for name, (nbytes, ops, fns) in runs.items():
         timed = {}
         for prefix, fn in fns.items():
-            device, events, per_name = time_ms(fn, iters=20, warmup=3,
-                                               split=True)
+            device, events, per_name = time_ms(fn, iters=20, warmup=3)
             timed[prefix + "ms"] = events if device is None else device
             timed[prefix + "events_ms"] = events
             if prefix == "" and name.endswith("bwd"):
@@ -1474,7 +1472,7 @@ def phase_int8_kernel(results):
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
         timed[name] = {}
         for prefix, fn in runs.items():
-            device, events = time_ms(fn)
+            device, events, _ = time_ms(fn)
             timed[name][prefix + "ms"] = events if device is None else device
             timed[name][prefix + "events_ms"] = events
         timed[name].update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
@@ -1554,7 +1552,7 @@ def phase_int8_matmul(results):
                     "library_": lambda: (torch.mm(x, wt, **mm_kw)
                                          * sc).to(odt)}
             for prefix, fn in runs.items():
-                device, events = time_ms(fn, iters=20, warmup=3)
+                device, events, _ = time_ms(fn, iters=20, warmup=3)
                 entry[prefix + "ms"] = events if device is None else device
                 entry[prefix + "events_ms"] = events
             nbytes = (m * k * x.element_size() + n * k + 4 * n
@@ -2017,7 +2015,7 @@ def phase_flash_split(results):
                                                retain_graph=True)}
     times = {}
     for name, fn in fns.items():
-        device, events = time_ms(fn, iters=3, warmup=1)
+        device, events, _ = time_ms(fn, iters=3, warmup=1)
         times[name] = (events if device is None else device, events)
     worst = {"flash_attention_bwd_dq": worst_dq,
              "flash_attention_bwd_dkv": worst_dkv}
@@ -2341,7 +2339,7 @@ def phase_decode_stack(results):
                 x, t, kc, vc, stacks, num_heads=heads, chunks=chunks),
             "unfused_": unfused}
     for prefix, fn in runs.items():
-        device, events = time_ms(fn, iters=20, warmup=3)
+        device, events, _ = time_ms(fn, iters=20, warmup=3)
         entry[prefix + "ms"] = events if device is None else device
         entry[prefix + "events_ms"] = events
     # the same launch at t = 0, where attention reads one row: the rest of
@@ -2795,7 +2793,7 @@ def phase_paged_stats(results):
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
         timed = {}
         for prefix, fn in runs.items():
-            device, events = time_ms(fn)
+            device, events, _ = time_ms(fn)
             timed[prefix + "ms"] = events if device is None else device
             timed[prefix + "events_ms"] = events
         timed.update(bound_ms=bound_ms, bytes=nbytes, ops=ops,

@@ -158,6 +158,26 @@ def test_fully_masked_row_is_zero_with_infinite_lse_and_zero_grad():
     assert torch.isfinite(lse[0, :, :3]).all()
 
 
+def _check_empty_lengths(out, lse, grads, b, h, hkv, sq, skv, d):
+    """No key: O = 0 and lse = +inf, so dQ = 0; no q row: dK = dV = 0."""
+    assert out.shape == (b, h, sq, d) and lse.shape == (b, h, sq)
+    assert (out == 0).all() and torch.isinf(lse).all() and (lse > 0).all()
+    dq, dk, dv = grads
+    assert dq.shape == (b, h, sq, d) and (dq == 0).all()
+    assert dk.shape == dv.shape == (b, hkv, skv, d)
+    assert (dk == 0).all() and (dv == 0).all()
+
+
+@pytest.mark.parametrize("sq,skv", [(0, 48), (32, 0)])
+def test_empty_lengths(sq, skv):
+    q, k, v, g, _ = _case(3, 2, 4, 2, sq, skv)
+    tq, tk, tv, tg = (torch.tensor(x) for x in (q, k, v, g))
+    out, lse = fa.flash_attention_fwd(tq, tk, tv, causal=True, kv_offset=5)
+    grads = fa.flash_attention_bwd(tq, tk, tv, out, lse, tg, causal=True,
+                                   kv_offset=5)
+    _check_empty_lengths(out, lse, grads, 2, 4, 2, sq, skv, 16)
+
+
 @pytest.mark.parametrize("shape,groups", [
     ((1, 1, 8, 12), 1), ((2, 1, 8, 12), 2), ((2, 3, 8, 12), 6),
     ((8, 12), 1), ((1, 8, 12), 1), ((1, 3, 8, 12), 6)])
@@ -265,11 +285,12 @@ CARD_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
 def test_kernel_matches_plain_on_card(dtype, case):
-    """K4 and K7 once each against their plain versions, bf16 through the
-    tensor-core bodies and f32 through the SIMT ones, under the limits
+    """K4 and K7 against their plain versions, bf16 through the tensor-core
+    bodies and f32 through the SIMT ones, under the limits
     ``chip_smoke.flash_check`` states (O, dQ, dK and dV element by element,
-    the logsumexp, dead rows exactly 0 with lse +inf); then K7 twice more,
-    whose dQs may differ only by the order of the adds into dq_acc."""
+    the logsumexp, dead rows exactly 0 with lse +inf) and a bound on each
+    output's largest error; then K7 once more, whose dQ may differ from the
+    first only by the order of the adds into dq_acc."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a card")
     import chip_smoke
@@ -284,12 +305,44 @@ def test_kernel_matches_plain_on_card(dtype, case):
                                       causal=causal, kv_offset=off))
     kw = dict(causal=causal, mask=tm, kv_offset=off)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    dq1 = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)[0].float()
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    refs = fa.flash_attention_backward_reference(q, k, v, out, lse, g, **kw)
+    # beside flash_check's limits, the bound this test held before: the
+    # largest error against the largest reference element; f32 differs in
+    # summation order, bf16 rounds p (and ds) and the outputs
+    rel = 1e-5 if dtype == "float32" else 2 ** -6
+    assert ((out.float() - ref.float()).abs().max()
+            <= 1e-5 + rel * ref.float().abs().max())
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    for a, r in zip(grads, refs):
+        assert (a.float() - r.float()).abs().max() \
+            <= 1e-5 + rel * r.float().abs().max()
+    dq1 = grads[0].float()
     dq2 = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)[0].float()
     # the f32 sums in dq_acc differ in their last bits, which the cast to
     # bf16 may round one unit (2^-7 relative) apart; f32 keeps them
     rel = 1e-5 if dtype == "float32" else 2 ** -7
     assert ((dq1 - dq2).abs() <= 1e-5 + rel * dq1.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(0, 130), (100, 0)])
+def test_empty_lengths_on_card(dtype, d, sq, skv):
+    """Sq = 0 or Skv = 0 through both bodies: the kernels return what the
+    plain versions do (``test_empty_lengths``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    q, k, v, g, _ = _case(3, 2, 4, 2, sq, skv, d=d)
+    q, k, v, g = (torch.tensor(x, device="cuda").to(getattr(torch, dtype))
+                  for x in (q, k, v, g))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, kv_offset=30)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True,
+                                   kv_offset=30)
+    torch.cuda.synchronize()
+    _check_empty_lengths(out, lse, grads, 2, 4, 2, sq, skv, d)
 
 
 if __name__ == "__main__":

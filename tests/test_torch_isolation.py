@@ -1,6 +1,6 @@
-"""The port stands alone: ``tnn_tpu_torch`` (and ``chip_smoke.py``,
-``flash_ab.py``) import no ``jax`` and nothing of ``tnn_tpu``, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: ``tnn_tpu_torch`` (and ``chip_smoke.py``) import
+no ``jax`` and nothing of ``tnn_tpu``, and its entry points run on the card
+unless the caller asks for the CPU."""
 import ast
 import json
 import pathlib
@@ -12,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tnn_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_ab.py"]
+    ROOT / "chip_smoke.py"]
 
 
 def _run(code, **kw):

@@ -52,7 +52,8 @@
 // tensor-core bodies take 0.07 ms (K4) and 0.22 ms (K7 alone) at the
 // training shape, against 0.75 and 1.58 ms for the SIMT body.
 //
-// nvcc -Xptxas -v (CUDA 12.9, sm_90a) of the tensor-core bodies: 168
+// `nvcc -Xptxas -v` with runtime.NVCC_FLAGS on this file (CUDA 12.9), for
+// the tensor-core bodies: 168
 // registers a thread at launch (384 threads, one block an SM); setmaxnreg
 // gives the producer 24 and the consumers 240, of which K4 uses up to 188
 // (D=64) and 215 (D=128) with no spills, and K7 160 (D=64: an 8-byte stack
@@ -644,10 +645,7 @@ constexpr int kBox = 64 * 128;        // bytes of a 64-row, 64-column box
 // per key tile, computes S = Q K^T on wgmma (both from shared memory), the
 // online softmax on the accumulator fragments, and O += round(P) V with P
 // from registers; each tile's S product is issued beside the previous
-// tile's PV product, and the softmax waits for S only. At the training
-// shape on an H100 (flash_ab.py) each of the two took a quarter off the
-// time (0.133 -> 0.092 -> 0.068 ms); the consumers taking turns to issue
-// their products gained nothing.
+// tile's PV product, and the softmax waits for S only.
 template <int D>
 struct FwdTiles {
   static constexpr int kBoxes = D / 64;
@@ -937,9 +935,7 @@ __global__ void __launch_bounds__(kWgBlock, 1)
 // dq_acc, where the SIMT body issues 64 D scalar atomicAdds; the order in
 // which blocks add differs from run to run, and with it dQ's low bits. Key
 // tiles are the grid's slow axis, so the heaviest causal blocks (the first
-// keys, seen by every q tile) of all heads run in the first wave: at the
-// training shape on an H100 (flash_ab.py) that took the call from 0.288 to
-// 0.260 ms.
+// keys, seen by every q tile) of all heads run in the first wave.
 template <int D>
 struct BwdTiles {
   static constexpr int kBoxes = D / 64;
@@ -1235,14 +1231,17 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              const void* mask, void* o, float* lse,
                              const Shape& s, cudaStream_t st) {
   using C = FwdTiles<D>;
-  if (s.Skv == 0) k = v = q;  // no key tile is read; any aligned base
+  // Skv == 0: no key tile is read (every row is dead: O = 0, lse = +inf),
+  // but a map needs a row and an aligned base
+  const int kv_rows = max(s.Skv, 1);
+  if (s.Skv == 0) k = v = q;
   CUtensorMap tq, tk, tv;
   cudaError_t e =
       hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
   if (e == cudaSuccess)
-    e = hopper_host::bf16_rows_map(&tk, k, s.B * s.HKV, s.Skv, D, C::kKeys);
+    e = hopper_host::bf16_rows_map(&tk, k, s.B * s.HKV, kv_rows, D, C::kKeys);
   if (e == cudaSuccess)
-    e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, s.Skv, D, C::kKeys);
+    e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, kv_rows, D, C::kKeys);
   if (e != cudaSuccess) return e;
   auto kernel = flash_fwd_wgmma_kernel<D>;
   e = allow_smem(kernel, C::kSmem);
@@ -1303,7 +1302,6 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              float* dq_acc, void* dk, void* dv,
                              const Shape& s, cudaStream_t st) {
   using C = BwdTiles<D>;
-  if (s.Sq == 0) q = dout = k;  // no q tile is read; any aligned base
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e =
       hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
@@ -1436,6 +1434,13 @@ extern "C" int tnn_flash_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
+  if (Sq == 0) {  // no q row: dK = dV = 0 (and dq_acc, empty, may be null)
+    const size_t bytes = static_cast<size_t>(B) * H * Skv * D *
+                         (dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
+    cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
+    if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, bytes, st);
+    return static_cast<int>(e);
+  }
   if (dq_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
     return launch_bwd<decltype(t), decltype(d)::value>(

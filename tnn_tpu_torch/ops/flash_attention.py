@@ -151,7 +151,9 @@ def flash_attention_reference(q, k, v, *, causal=False, scale=None,
     None; ``kv_offset`` an int. The kernel's parity oracle."""
     scale = _scale(q, scale)
     s, live = _logits(q, k, mask, int(kv_offset), causal, scale)
-    m = s.amax(dim=-1, keepdim=True)
+    # with no key (Skv = 0) every row is dead: O = 0, lse = +inf
+    m = s.amax(dim=-1, keepdim=True) if s.shape[-1] else s.new_full(
+        (*s.shape[:-1], 1), -math.inf)
     p = torch.where(live, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     g = q.shape[1] // k.shape[1]
