@@ -45,12 +45,15 @@ numbers on its own line:
    attention at S=4096; against K7 at S=32,768, where K5 must repeat its
    dQ bit for bit; all four flash kernels under a mask of 4 x 2^30 bytes;
    times at S=32,768 beside the plain version's at S=4096, SDPA's (forward
-   beside K4, backward beside the others) and the bound;
+   beside K4, backward beside the others) and the bound, each backward
+   call split by kernel (delta pre-pass, body, group sum), and K5 + K6
+   beside K7 and SDPA's backward;
 12. training_long (run after training): full-width ``flash_llama_small``
    (vocab 32,000) trained at B=1, S=32,768 for 6 AdamW steps and 2
    held-out batches, with K4 = 12 x 8, K5 = K6 = 12 x 6 and K7 = 0
    launches, falling loss, step time, MFU, peak memory and a profiled
-   step. train_cli (7) also runs ``--arch llama`` at S=32,768, 2 layers.
+   step, whose flash kernels must be the tensor-core bodies of K4, K5 and
+   K6. train_cli (7) also runs ``--arch llama`` at S=32,768, 2 layers.
 
 13. decode_stack: the fused decode-stack kernel (K8) against its plain
    version at gpt2_small's width in 48 cases (B 1 and 2, T 1024, three
@@ -590,23 +593,32 @@ def flash_cases():
     }
 
 
-# the kernels of one flash_attention_bwd call, by a part of their names: the
-# delta pre-pass, K7 (the tensor-core body in bf16), dq_acc's zero-fill, the
-# GQA group sum of dK / dV (none where H = H_kv) and the copies that cast dQ
-# (and, under GQA, the group sum's operands)
-BWD_PARTS = (("flash_delta_kernel", "delta"),
-             ("flash_bwd_wgmma_kernel", "k7"), ("flash_bwd_kernel", "k7"),
-             ("FillFunctor", "zero_fill"), ("reduce_kernel", "group_sum"),
-             ("copy", "cast"))
+# the kernels of one backward call (K7, K5 or K6), by a part of their names:
+# the delta pre-pass, the body (every "flash_bwd" kernel: the tensor-core
+# one in bf16), dq_acc's zero-fill (K7), the GQA group sum of dK / dV (K7,
+# K6; none where H = H_kv) and the copies that cast dQ (K7) and, under GQA,
+# the group sum's operands
+BWD_PARTS = (("flash_delta_kernel", "delta"), ("FillFunctor", "zero_fill"),
+             ("reduce_kernel", "group_sum"), ("copy", "cast"))
 
 
-def bwd_parts(per_name):
-    """{part: ms per call} of a flash_attention_bwd call's kernels."""
+def bwd_parts(per_name, body):
+    """{part: ms per call} of a backward call's kernels, its body's time
+    under ``body``."""
     parts = {}
     for name, ms in per_name.items():
-        part = next((p for key, p in BWD_PARTS if key in name), name[:80])
+        part = body if "flash_bwd" in name else next(
+            (p for key, p in BWD_PARTS if key in name), name[:80])
         parts[part] = parts.get(part, 0.0) + ms
     return parts
+
+
+def kernel_label(name):
+    """A CUDA kernel's profiler name without its return type, namespace
+    and arguments: ``flash_bwd_wgmma_kernel<64, false>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name[5:].split("(")[0] if name.startswith("void ") else \
+        name.split("(")[0]
 
 
 def phase_flash(results):
@@ -653,7 +665,7 @@ def phase_flash(results):
             timed[prefix + "ms"] = events if device is None else device
             timed[prefix + "events_ms"] = events
             if prefix == "" and name.endswith("bwd"):
-                timed["split_ms"] = bwd_parts(per_name)
+                timed["split_ms"] = bwd_parts(per_name, "k7")
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
         timed.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
@@ -1132,6 +1144,13 @@ class StepRecorder:
 
     def step_ms(self):
         return self.events[0].elapsed_time(self.events[-1]) / len(self.timed)
+
+    def kernel_labels(self):
+        """The labels (``kernel_label``) of the profiled kernels."""
+        import torch
+
+        return sorted({kernel_label(e.name) for e in self.prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA})
 
     def device_ms(self):
         """Summed kernel durations per profiled step, by kernel name."""
@@ -1720,12 +1739,14 @@ def phase_serving_int8(results):
 # dQ is held to the limit on the first, a middle and the last row block,
 # and K6's dK/dV on the first key tile (the longest sum, all 32,768 rows),
 # a middle and the last. K5 + K6 against K7 (relative L2 per gradient) is
-# then a sanity reading within one bf16 unit, 2^-8. In bf16, K7 runs on the
-# tensor cores and K5, K6 on the CUDA cores: both round p and ds at the same
-# points, from f32 logits and dP summed in other orders, so a rounding may
-# land one bf16 unit apart and dK, dV no longer agree bit for bit; K7's dQ
-# also differs by the order of its adds into dq_acc. Read (NVIDIA H100 80GB
-# HBM3, 700 W): dQ 1.4e-4, dK 7.2e-4, dV 7.5e-4.
+# then a sanity reading within one bf16 unit, 2^-8. In bf16 all three run on
+# the tensor cores. K6 is K7's body without the dQ products, so its dK and
+# dV equal K7's bit for bit. K5 rounds p and ds at the same points as K7,
+# but from p = exp2(fma(S, scale log2(e), -lse log2(e))) where K7 takes
+# exp2((S scale - lse) log2(e)), and sums dQ over 128-key tiles where K7
+# adds 64-key pieces into dq_acc in an order that changes from run to run;
+# so a rounding of ds may land one bf16 unit apart. Read (NVIDIA H100 80GB
+# HBM3, 700 W): dQ 1.9e-4, dK 0, dV 0.
 LONG_SEQ = 32768
 SPLIT_SEQ = 4096
 LLAMA_ATTN = dict(b=1, h=12, hkv=4, d=64)   # llama_small's attention
@@ -2013,9 +2034,11 @@ def phase_flash_split(results):
             *plain, causal=True),
         "library": lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do,
                                                retain_graph=True)}
-    times = {}
+    times, per_names = {}, {}
+    bodies = {"flash_attention_bwd_dq": "k5", "flash_attention_bwd_dkv": "k6",
+              "flash_attention_bwd_long": "k7"}
     for name, fn in fns.items():
-        device, events, _ = time_ms(fn, iters=3, warmup=1)
+        device, events, per_names[name] = time_ms(fn, iters=3, warmup=1)
         times[name] = (events if device is None else device, events)
     worst = {"flash_attention_bwd_dq": worst_dq,
              "flash_attention_bwd_dkv": worst_dkv}
@@ -2031,10 +2054,23 @@ def phase_flash_split(results):
                      bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
                      bound_by="bytes" if byte_ms >= op_ms else "operations",
                      seq=LONG_SEQ, plain_seq=SPLIT_SEQ)
+        if name in bodies:
+            timed["split_ms"] = bwd_parts(per_names[name], bodies[name])
+            timed["kernels"] = sorted(map(kernel_label, per_names[name]))
         log("flash_split_time", kernel=name, case="llama_s32768_bf16",
             **timed)
         if name in worst:     # K4 and K7 at this shape are logged only
             results[name] = dict(timed, max_abs_err=worst[name])
+    # the pair against the two other ways to the same three gradients
+    split = (times["flash_attention_bwd_dq"][0]
+             + times["flash_attention_bwd_dkv"][0])
+    log("flash_split_vs_fused", case="llama_s32768_bf16", k5_ms=times[
+        "flash_attention_bwd_dq"][0], k6_ms=times[
+            "flash_attention_bwd_dkv"][0], k5_k6_ms=split,
+        k7_ms=times["flash_attention_bwd_long"][0],
+        sdpa_bwd_ms=times["library"][0],
+        k5_k6_over_k7=split / times["flash_attention_bwd_long"][0],
+        k5_k6_over_sdpa=split / times["library"][0])
     # comparison launches do not count
     for wrapper in (fa.flash_attention_fwd, fa.flash_attention_bwd,
                     fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
@@ -2139,6 +2175,15 @@ def phase_training_long(results):
     kernels = rec.device_ms()
     busy = sum(kernels.values())
     flops = llama_flops_per_step(model, 1, LONG_SEQ)
+    # which bodies ran: the profiled step's flash kernels by name; in bf16
+    # K4, K5 and K6 take the tensor-core bodies and nothing else
+    flash_bodies = [n for n in rec.kernel_labels() if n.startswith("flash_")]
+    ran = {k: any(n.split("<")[0] == body for n in flash_bodies)
+           for k, body in (("K4", "flash_fwd_wgmma_kernel"),
+                           ("K5", "flash_bwd_dq_wgmma_kernel"),
+                           ("K6", "flash_bwd_wgmma_kernel"))}
+    simt = [n for n in flash_bodies if n.split("<")[0] in (
+        "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_kernel")]
     log("training_long_profile", steps_timed=len(rec.timed), step_ms=step_ms,
         tokens_per_s=LONG_SEQ / step_ms * 1e3, peak_mem_gb=peak,
         model_flops_per_step=flops,
@@ -2147,7 +2192,11 @@ def phase_training_long(results):
         mfu=flops / (step_ms * 1e-3 * PEAK_BF16), device_busy_ms=busy,
         idle_share=1.0 - busy / step_ms,
         flash_kernels_ms={n: t for n, t in kernels.items() if "flash" in n},
+        flash_bodies=flash_bodies, tensor_core_bodies_ran=ran,
         top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    if not all(ran.values()) or simt:
+        raise AssertionError(f"long training's flash kernels {flash_bodies}: "
+                             f"tensor-core bodies {ran}, SIMT bodies {simt}")
     del model, state, step, ev
     torch.cuda.empty_cache()
 

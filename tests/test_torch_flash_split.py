@@ -25,8 +25,13 @@ readings: over the cases dK and dV are bit for bit equal and dQ reads at
 most 6.7e-8 relative L2 and 1.9e-7 of the largest element (f32 sums in
 another order); the JAX FP32 kernels read at least 2.11e-3.
 
-A spy on the three wrappers shows which backward ran. The CUDA kernels
-run only on the card: the ``cuda`` tests skip here.
+A spy on the three wrappers shows which backward ran. The wrappers
+return zeros at Sq = 0 or Skv = 0 and refuse bf16 tensors whose bases the
+tensor-core bodies' TMA maps cannot take. The CUDA kernels run only on
+the card: the ``cuda`` tests skip here; there they hold K5 and K6 (bf16
+on the tensor cores, f32 on the SIMT bodies) to
+``chip_smoke.split_check``'s limits at the shapes where their tiles break
+first.
 """
 import jax
 import jax.numpy as jnp
@@ -239,21 +244,112 @@ def test_split_backward_matches_jax_bf16(monkeypatch, case):
         assert f > BF16_REL_L2, (name, f)   # the bound rejects FP32 math
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", [(0, 48), (32, 0)])
+def test_split_wrappers_take_empty_lengths(dtype, sq, skv):
+    """Sq = 0 or Skv = 0: K5's and K6's wrappers return zeros of the
+    gradients' shapes and dtypes (no key: every row is dead, dQ = 0; no q
+    row: dK = dV = 0)."""
+    q, k, v, g, _ = _case(3, 2, 4, 2, sq, skv)
+    tq, tk, tv, tg = (torch.tensor(x).to(dtype) for x in (q, k, v, g))
+    _check_split_empty(tq, tk, tv, tg)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"])
+@pytest.mark.parametrize("tensor", ["q", "do"])
+def test_split_wrappers_refuse_unaligned_tma_bases(wrapper, tensor):
+    """The bf16 K5 and K6 read q, k, v and dO through TMA, whose maps need
+    16-byte-aligned bases: a tensor one element off is refused with a
+    ``ValueError`` before any launch."""
+    shape = (1, 2, 8, 64)
+    x = {n: torch.empty(shape, dtype=torch.bfloat16, device="meta")
+         for n in ("q", "k", "o", "do")}
+    flat = torch.empty(1 + x[tensor].numel(), dtype=torch.bfloat16,
+                       device="meta")
+    x[tensor] = flat[1:].view(shape)
+    lse = torch.empty(shape[:3], dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="16-byte"):
+        getattr(fa, wrapper)(x["q"], x["k"], x["k"], x["o"], lse, x["do"],
+                             causal=True)
+
+
+def _check_split_empty(q, k, v, g):
+    kw = dict(causal=True, kv_offset=5)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, g, **kw)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    assert dq.shape == q.shape and dq.dtype == q.dtype
+    assert dk.shape == dv.shape == k.shape
+    assert dk.dtype == dv.dtype == k.dtype
+    assert (dq == 0).all() and (dk == 0).all() and (dv == 0).all()
+
+
+# (name, B, H, H_kv, Sq, Skv, D, causal, kv_offset, mask groups): where the
+# tensor-core tiles (K5: 128 q rows x 128 keys at D = 64, 64 keys at D =
+# 128; K6: 128 keys x 64-row q tiles) break first. Every masked case holds
+# a fully masked row.
+CARD_CASES = [
+    ("mask_gB_offset30_gqa4_2", 2, 4, 2, 100, 130, 64, True, 30, "B"),
+    ("mask_gB_offset30_d128", 2, 2, 2, 100, 130, 128, True, 30, "B"),
+    ("s1", 2, 2, 2, 1, 1, 64, True, 0, None),
+    ("s127", 2, 2, 2, 127, 127, 64, True, 0, None),
+    ("s129", 2, 2, 2, 129, 129, 64, True, 0, None),
+    ("s1000", 1, 2, 2, 1000, 1000, 64, True, 0, None),
+    ("s1000_d128", 1, 2, 2, 1000, 1000, 128, True, 0, None),
+    ("sq64_skv1000_offset936", 1, 2, 2, 64, 1000, 64, True, 936, None),
+    ("sq1_skv700_offset699", 2, 2, 2, 1, 700, 64, True, 699, None),
+    ("sq100_skv300_offset150", 1, 2, 2, 100, 300, 64, True, 150, None),
+    ("sq100_skv300_offset150_d128", 1, 2, 2, 100, 300, 128, True, 150,
+     None),
+    ("d128_s300", 1, 2, 2, 300, 300, 128, True, 0, None),
+    ("d128_noncausal_s200", 1, 2, 2, 200, 200, 128, False, 0, None),
+    ("noncausal_sq130_skv333", 1, 2, 2, 130, 333, 64, False, 0, None),
+    ("gqa12_4", 1, 12, 4, 256, 256, 64, True, 0, None),
+    ("gqa12_4_d128", 1, 12, 4, 256, 256, 128, True, 0, None),
+    ("mask_g1", 2, 2, 2, 200, 200, 64, False, 0, "1"),
+    ("mask_gB", 2, 2, 2, 200, 200, 64, True, 0, "B"),
+    ("mask_gBH", 2, 2, 2, 200, 200, 64, True, 0, "BH"),
+    ("mask_gBH_d128", 2, 2, 2, 200, 200, 128, True, 0, "BH"),
+]
+
+
+def _card_case(b, h, hkv, sq, skv, d, groups):
+    """``_case`` with the "1" grouping too (one fully masked row)."""
+    q, k, v, g, mask = _case(2, b, h, hkv, sq, skv,
+                             None if groups is None else "B", d=d)
+    if groups == "1":
+        mask = mask[:1]
+    elif groups == "BH":
+        mask = np.broadcast_to(mask, (b, h, sq, skv)).copy()
+        mask[b - 1, h - 1, sq // 2, :] = False
+    return q, k, v, g, mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim,heads", [(64, (4, 2)), (128, (2, 2))])
-def test_split_kernels_match_plain_on_card(dtype, head_dim, heads):
-    """K5 and K6 against the plain backward, with a mask, kv_offset and a
-    ragged length; K5 twice gives the same bits."""
+@pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
+def test_split_kernels_match_plain_on_card(dtype, case):
+    """K5 and K6 against the plain backward, bf16 through the tensor-core
+    bodies and f32 through the SIMT ones, under the limits
+    ``chip_smoke.split_check`` states (dQ, dK and dV element by element,
+    dead rows' dQ exactly 0) and the bound this test held before on each
+    gradient's largest error; K5 twice gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a card")
+    import chip_smoke
+
+    name, b, h, hkv, sq, skv, d, causal, off, groups = case
     dt = getattr(torch, dtype)
-    q, k, v, g, mask = _case(2, 2, heads[0], heads[1], 100, 130, "B",
-                             d=head_dim)
+    q, k, v, g, mask = _card_case(b, h, hkv, sq, skv, d, groups)
     q, k, v, g = (torch.tensor(x, device="cuda").to(dt) for x in (q, k, v, g))
-    tm = fa.norm_mask(torch.tensor(mask, device="cuda"), 2, heads[0], 100,
-                      130)
-    kw = dict(causal=True, mask=tm, kv_offset=30)
+    tm = None if mask is None else fa.norm_mask(
+        torch.tensor(mask, device="cuda"), b, h, sq, skv)
+    chip_smoke.split_check(name, dict(q=q, k=k, v=v, do=g, mask=tm,
+                                      causal=causal, kv_offset=off))
+    kw = dict(causal=causal, mask=tm, kv_offset=off)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     before = (fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches)
@@ -266,13 +362,28 @@ def test_split_kernels_match_plain_on_card(dtype, head_dim, heads):
                                                      before[1] + 1)
     assert torch.equal(dq, dq2)
     refs = fa.flash_attention_backward_reference(q, k, v, out, lse, g, **kw)
-    # the bound of the K7 card test: f32 differs in summation order; bf16
-    # rounds p (and ds) and the outputs
+    # beside split_check's limits, the bound this test held before: f32
+    # differs in summation order; bf16 rounds p (and ds) and the outputs
     rel = 1e-5 if dtype == "float32" else 2 ** -6
     for a, r in zip((dq, dk, dv), refs):
         assert a.dtype == r.dtype and a.shape == r.shape
         assert (a.float() - r.float()).abs().max() \
             <= 1e-5 + rel * r.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(0, 130), (100, 0)])
+def test_split_empty_lengths_on_card(dtype, d, sq, skv):
+    """Sq = 0 or Skv = 0 through K5's and K6's bodies, whose tensor maps
+    cannot have 0 rows: the kernels return what the plain versions do
+    (``test_split_wrappers_take_empty_lengths``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    q, k, v, g, _ = _case(3, 2, 4, 2, sq, skv, d=d)
+    _check_split_empty(*(torch.tensor(x, device="cuda").to(
+        getattr(torch, dtype)) for x in (q, k, v, g)))
 
 
 if __name__ == "__main__":

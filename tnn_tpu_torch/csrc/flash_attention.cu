@@ -40,27 +40,29 @@
 // S=32,768) every kernel is operations-bound: K4 1.65 TFLOP, K5 2.47, K6
 // 3.30, K7 4.12.
 //
-// Two bodies. bf16 K4 and K7 run on the tensor cores: wgmma products of
-// bf16 tiles with f32 accumulation, which is what the plain version's f32
-// products of the same bf16 values compute, up to summation order; TMA
-// tile loads and a producer warpgroup (hopper.cuh; the design is noted
-// above each kernel). f32 inputs, and K5 and K6 in both dtypes, run the
-// SIMT body in f32 on the CUDA cores (67 TFLOP/s peak): the tensor cores
-// have no exact f32 product, and TF32 keeps 10 bits of mantissa. The launch
-// code picks the body by dtype and kernel; nothing falls back from one to
-// the other. On the card (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py) the
-// tensor-core bodies take 0.07 ms (K4) and 0.22 ms (K7 alone) at the
-// training shape, against 0.75 and 1.58 ms for the SIMT body.
+// Two bodies. bf16 inputs run on the tensor cores, in all four kernels:
+// wgmma products of bf16 tiles with f32 accumulation, which is what the
+// plain version's f32 products of the same bf16 values compute, up to
+// summation order; TMA tile loads and a producer warpgroup (hopper.cuh;
+// the design is noted above each kernel). f32 inputs run the SIMT body in
+// f32 on the CUDA cores (67 TFLOP/s peak): the tensor cores have no exact
+// f32 product, and TF32 keeps 10 bits of mantissa. The launch code picks
+// the body by dtype; nothing falls back from one to the other. On the card
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py) the tensor-core bodies
+// take 0.07 ms (K4) and 0.22 ms (K7 alone) at the training shape, against
+// 0.75 and 1.58 ms for the SIMT body; at llama_small's long-context shape
+// the K5 call takes 11.2 ms and the K6 call 14.7 ms, against 102.4 and
+// 128.3 ms on the SIMT body (the K7 call 19.3 ms there).
 //
 // `nvcc -Xptxas -v` with runtime.NVCC_FLAGS on this file (CUDA 12.9), for
-// the tensor-core bodies: 168
-// registers a thread at launch (384 threads, one block an SM); setmaxnreg
-// gives the producer 24 and the consumers 240, of which K4 uses up to 188
-// (D=64) and 215 (D=128) with no spills, and K7 160 (D=64: an 8-byte stack
-// frame, 8 bytes spilled) and 219 (D=128: a 472-byte stack frame, 736
-// bytes spilled, and ptxas serializes its products for lack of registers;
-// D=128 is off the main paths). Shared memory: K4 83,008 bytes (D=64) and
-// 164,928 (D=128); K7 116,776 and 215,080.
+// the tensor-core bodies: 168 registers a thread at launch (384 threads,
+// one block an SM); setmaxnreg gives the producer 24 and the consumers 240.
+// No spills in K4 and K5 at D = 64 and 128. K6 and K7 at D = 64 spill a
+// few bytes (8-byte stack frames; K6 stores 4 bytes, K7 8); at D = 128
+// both spill (K6 972 bytes, K7 736) and ptxas serializes their products
+// for lack of registers (C7512), off the main paths. Shared memory: K4
+// 83,008 bytes (D=64) and 164,928 (D=128); K5 132,184 and 164,952; K6
+// 67,624 and 133,160; K7 116,776 and 215,080.
 //
 // SIMT body. The TPU grid walks kv blocks in order and carries (m, l, acc)
 // in VMEM scratch; here one block of 256 threads owns one (batch*head,
@@ -71,17 +73,19 @@
 // half-warp share a row, so row maxima and sums are half-warp shuffles.
 //
 // The TPU's fused backward carries a full-sequence dQ scratch across a
-// SEQUENTIAL grid; CUDA blocks run in no order. Here one block owns one
-// (batch*q-head, 64-key tile), keeps K_j, V_j in shared memory and dK_j, dV_j
-// in registers, and walks the q tiles that can see it. K7 adds each q tile's
-// dQ contribution ds K_j into an f32 (B*H, Sq, D) buffer with atomicAdd, so
-// the low bits of its dQ depend on the order the blocks finish in and
-// differ from run to run; K6 is the same kernel without the dQ products.
-// K5 owns one (batch*q-head, 64-row q tile), as the forward does, walks the
-// live key tiles (causal: up to the row tile's last live key, the TPU's
-// dead-block clamp), keeps dQ in registers in f32 and writes it once: no
-// atomics, the same bits on every run. dK and dV are written per q head;
-// the caller sums each GQA group, as the TPU path does.
+// SEQUENTIAL grid; CUDA blocks run in no order. The SIMT K7 and K6 give one
+// block one (batch*q-head, 64-key tile): it keeps K_j, V_j in shared memory
+// and dK_j, dV_j in registers, and walks the q tiles that can see it. K7
+// adds each q tile's dQ contribution ds K_j into an f32 (B*H, Sq, D)
+// buffer with atomicAdd, so the low bits of its dQ depend on the order the
+// blocks finish in and differ from run to run; K6 is the same kernel
+// without the dQ products. The SIMT K5 owns one (batch*q-head, 64-row q
+// tile), as the forward does, walks the live key tiles (causal: up to the
+// row tile's last live key, the TPU's dead-block clamp), keeps dQ in
+// registers in f32 and writes it once: no atomics, the same bits on every
+// run. The tensor-core bodies keep these shapes of work (K5: 128-row q
+// tiles on a persistent grid). dK and dV are written per q head; the
+// caller sums each GQA group, as the TPU path does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -936,7 +940,13 @@ __global__ void __launch_bounds__(kWgBlock, 1)
 // which blocks add differs from run to run, and with it dQ's low bits. Key
 // tiles are the grid's slow axis, so the heaviest causal blocks (the first
 // keys, seen by every q tile) of all heads run in the first wave.
-template <int D>
+// K6 is this kernel with kDq = false: four products a q tile, and no dS^T
+// store, dQ product, dQ tile, bulk reduce-add or dq_acc (48 KiB less
+// shared memory at D = 64). Issuing the next q tile's S^T and dP^T beside
+// this tile's dV and dK products (K4's order) spilled and serialized the
+// products, much slower on the card; a third stage gained nothing. With
+// Sq = 0 (no map of 0 rows) the C entry writes dK = dV = 0.
+template <int D, bool kDq>
 struct BwdTiles {
   static constexpr int kBoxes = D / 64;
   static constexpr int kKeys = 128;     // keys of a block, 64 per consumer
@@ -944,14 +954,14 @@ struct BwdTiles {
   static constexpr int kStages = 2;
   static constexpr int kKVBytes = kBoxes * kKeys * 128;   // K or V
   static constexpr int kQBytes = kBoxes * kRows * 128;    // Q or dO tile
-  static constexpr int kDSBytes = 64 * 128;               // dS^T, bf16
-  static constexpr int kDQBytes = kRows * D * 4;          // dQ tile, f32
+  static constexpr int kDSBytes = kDq ? 64 * 128 : 0;     // dS^T, bf16
+  static constexpr int kDQBytes = kDq ? kRows * D * 4 : 0;  // dQ tile, f32
   static constexpr int kSmem = 1024 + 2 * kKVBytes + 2 * kStages * kQBytes +
                                2 * kDSBytes + 2 * kDQBytes +
                                kStages * 2 * kRows * 4 + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <int D, bool kDq>
 __global__ void __launch_bounds__(kWgBlock, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -963,7 +973,7 @@ __global__ void __launch_bounds__(kWgBlock, 1)
                            float* __restrict__ dq_acc,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, const Shape s) {
-  using C = BwdTiles<D>;
+  using C = BwdTiles<D, kDq>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = hopper::align_1024(smem_raw);
   uint8_t* vs = ks + C::kKVBytes;
@@ -971,7 +981,7 @@ __global__ void __launch_bounds__(kWgBlock, 1)
   uint8_t* dos = qs + C::kStages * C::kQBytes;     // stages of dO
   uint8_t* dss = dos + C::kStages * C::kQBytes;    // dS^T per consumer
   float* dqs = reinterpret_cast<float*>(dss + 2 * C::kDSBytes);
-  float* stats = dqs + 2 * C::kRows * D;           // per stage: lse, delta
+  float* stats = dqs + 2 * C::kDQBytes / 4;        // per stage: lse, delta
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + C::kStages * 2 *
                                                   C::kRows);
   uint64_t* full = kv_full + 1;
@@ -1128,21 +1138,23 @@ __global__ void __launch_bounds__(kWgBlock, 1)
         }
       hopper::wgmma_commit();
 
-      // dS^T to shared memory, rows = keys, 128-byte swizzle; its 16-column
-      // slice kk of A-fragment pairs: (r16, 16 kk + c2), (r16 + 8, ...),
-      // (r16, 16 kk + 8 + c2), (r16 + 8, ...)
+      if constexpr (kDq) {
+        // dS^T to shared memory, rows = keys, 128-byte swizzle; its
+        // 16-column slice kk of A-fragment pairs: (r16, 16 kk + c2),
+        // (r16 + 8, ...), (r16, 16 kk + 8 + c2), (r16 + 8, ...)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = r16 + 8 * (j & 1);
-          const int c = 16 * kk + 8 * (j >> 1) + c2;
-          *reinterpret_cast<uint32_t*>(my_ds + hopper::sw128_offset(r, c)) =
-              da[kk][j];
-        }
-      if (t == 0) hopper::bulk_wait_read();  // the last dQ tile was read
-      hopper::fence_proxy_async();
-      hopper::named_sync(1 + cw, kWg);
+          for (int j = 0; j < 4; ++j) {
+            const int r = r16 + 8 * (j & 1);
+            const int c = 16 * kk + 8 * (j >> 1) + c2;
+            *reinterpret_cast<uint32_t*>(my_ds + hopper::sw128_offset(r, c)) =
+                da[kk][j];
+          }
+        if (t == 0) hopper::bulk_wait_read();  // the last dQ tile was read
+        hopper::fence_proxy_async();
+        hopper::named_sync(1 + cw, kWg);
+      }
       hopper::wgmma_wait();
 #pragma unroll
       for (int bx = 0; bx < C::kBoxes; ++bx) {
@@ -1150,41 +1162,42 @@ __global__ void __launch_bounds__(kWgBlock, 1)
         hopper::fence_regs(dk_acc[bx]);
       }
       if (lane == 0) hopper::mbar_arrive(&empty[st]);
-
-      // dQ = dS K over this warpgroup's 64 keys: dS read M-contiguous from
-      // its transpose, K N-contiguous; 64 columns at a time
+      if constexpr (kDq) {
+        // dQ = dS K over this warpgroup's 64 keys: dS read M-contiguous from
+        // its transpose, K N-contiguous; 64 columns at a time
 #pragma unroll
-      for (int bx = 0; bx < C::kBoxes; ++bx) {
-        float dq[32];
-        hopper::wgmma_fence();
+        for (int bx = 0; bx < C::kBoxes; ++bx) {
+          float dq[32];
+          hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_ss_n64<1, 1>(
-              dq, hopper::sw128_desc(my_ds + kk * 16 * 128, true),
-              hopper::sw128_desc(ks + bx * C::kKeys * 128 + cw * kBox +
-                                     kk * 16 * 128,
-                                 true),
-              kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait();
-        hopper::fence_regs(dq);
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_ss_n64<1, 1>(
+                dq, hopper::sw128_desc(my_ds + kk * 16 * 128, true),
+                hopper::sw128_desc(ks + bx * C::kKeys * 128 + cw * kBox +
+                                       kk * 16 * 128,
+                                   true),
+                kk > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait();
+          hopper::fence_regs(dq);
 #pragma unroll
-        for (int i = 0; i < 32; i += 2)
-          *reinterpret_cast<float2*>(my_dq + (r16 + hopper::acc_row(i)) * D +
-                                     64 * bx + hopper::acc_col(i) + c2) =
-              make_float2(dq[i], dq[i + 1]);
-      }
-      hopper::fence_proxy_async();
-      hopper::named_sync(1 + cw, kWg);
-      if (t == 0) {
-        const int rows = min(C::kRows, s.Sq - q0);
-        hopper::bulk_reduce_add_f32(
-            dq_acc + (static_cast<size_t>(bh) * s.Sq + q0) * D, my_dq,
-            static_cast<uint32_t>(rows * D * 4));
-        hopper::bulk_commit();
+          for (int i = 0; i < 32; i += 2)
+            *reinterpret_cast<float2*>(my_dq + (r16 + hopper::acc_row(i)) * D +
+                                       64 * bx + hopper::acc_col(i) + c2) =
+                make_float2(dq[i], dq[i + 1]);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_sync(1 + cw, kWg);
+        if (t == 0) {
+          const int rows = min(C::kRows, s.Sq - q0);
+          hopper::bulk_reduce_add_f32(
+              dq_acc + (static_cast<size_t>(bh) * s.Sq + q0) * D, my_dq,
+              static_cast<uint32_t>(rows * D * 4));
+          hopper::bulk_commit();
+        }
       }
     }
-    if (t == 0) hopper::bulk_wait();
+    if (kDq && t == 0) hopper::bulk_wait();
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1202,6 +1215,270 @@ __global__ void __launch_bounds__(kWgBlock, 1)
           *reinterpret_cast<__nv_bfloat162*>(dv + at) =
               __floats2bfloat162_rn(dv_acc[bx][i], dv_acc[bx][i + 1]);
         }
+    }
+  }
+}
+
+// K5. K4's persistent grid and producer with K7's products: block i takes
+// the work items (batch*q-head, 128-row q tile) i, i + grid, ..., heaviest
+// causal tiles first (fwd_item). The producer loads an item's Q and dO
+// tiles once and streams its key tiles (K and V on barriers of their own)
+// through a three-stage ring, running ahead into the next item. Each
+// consumer warpgroup owns 64 q rows, holds their lse and delta in
+// registers (plain loads: a (B, H, Sq) f32 row is 16-byte aligned only
+// when Sq % 4 == 0) and, per key tile:
+//   S = Q K^T and dP = dO V^T, both operands from shared memory, S in a
+//   group of its own so that p = exp(S scale - lse) is computed while dP
+//   is in flight; ds = round(p (dP - delta) scale) on the fragments,
+//   packed into A fragments; dQ += ds K with K read MN-major.
+// dQ stays in registers in f32 and is written once in bf16: no atomics,
+// the same bits on every run. Key tiles are 128 keys at D = 64 and 64 at
+// D = 128, where 128 would hold S, dP (64 registers each) and dQ (64)
+// at once and spill. Where it could break, and what the design does:
+//   * registers: S, dP (kKeys / 2 each), dQ (D / 2) and the packed ds;
+//     ptxas reports no spill at either D. Issuing the next tile's S (and
+//     dP) beside this tile's dQ product, K4's order, was no faster on the
+//     card; the third stage and p as one fma and exp2 were.
+//   * ragged edges: the 3-D maps zero-fill rows past Sq and Skv within a
+//     head; is_live drops keys past Skv, above the causal diagonal (off +
+//     row, element by element: Sq < Skv with kv_offset, the diagonal
+//     inside a 128-row item) and where the int8 mask is 0, read at size_t
+//     offsets; padding rows take lse = +inf.
+//   * dead rows (lse = +inf): p = exp2(-inf) = 0, so ds = 0 and their dQ
+//     is exactly 0.
+//   * empty lengths: a map cannot have 0 rows; the C entry writes dQ = 0
+//     when Skv = 0 and launches nothing when Sq = 0.
+//   * TMA bases: the wrapper refuses q, k, v and dO that do not start on a
+//     16-byte boundary.
+//   * GQA: a q head h reads kv head h / g through the map's head index; the
+//     shared heads are never copied.
+template <int D>
+struct DqTiles {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kRows = 128;             // q rows of an item
+  static constexpr int kKeys = D == 64 ? 128 : 64;  // keys of a tile
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kBoxes * kRows * 128;   // Q or dO
+  static constexpr int kKVBytes = kBoxes * kKeys * 128;  // K or V tile
+  static constexpr int kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (2 + 3 * kStages);
+};
+
+// D (64 x N, f32) += A (64 x 16) B (16 x N), both K-major from shared
+// memory, N = 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    hopper::wgmma_ss_n128<0, 0>(d, da, db, scale_d);
+  } else {
+    hopper::wgmma_ss_n64<0, 0>(d, da, db, scale_d);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgBlock, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const int8_t* __restrict__ mask,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq,
+                              const Shape s) {
+  using C = DqTiles<D>;
+  constexpr int kN = C::kKeys / 2;   // accumulator registers of S or dP
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = hopper::align_1024(smem_raw);
+  uint8_t* dos = qs + C::kQBytes;
+  uint8_t* ks = dos + C::kQBytes;
+  uint8_t* vs = ks + C::kStages * C::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + C::kStages *
+                                                 C::kKVBytes);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + C::kStages;
+  uint64_t* empty = v_full + C::kStages;
+
+  const int nq = (s.Sq + C::kRows - 1) / C::kRows;
+  const int items = nq * s.B * s.H;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 2 * kWg);  // every consumer thread
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&k_full[i], 1);
+      hopper::mbar_init(&v_full[i], 1);
+      hopper::mbar_init(&empty[i], 2 * kWg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {  // ------------------------------------------- producer --
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int g = 0;  // key tiles loaded so far, over all items
+      for (int item = blockIdx.x, n = 0; item < items;
+           item += gridDim.x, ++n) {
+        int qt, bh;
+        fwd_item(s, nq, item, &qt, &bh);
+        const int bkv = (bh / s.H) * s.HKV + (bh % s.H) / s.g;
+        const int q0 = qt * C::kRows;
+        hopper::mbar_wait(q_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+        for (int bx = 0; bx < C::kBoxes; ++bx) {
+          hopper::tma_load_3d(qs + bx * C::kRows * 128, &tq, q_full, 64 * bx,
+                              q0, bh);
+          hopper::tma_load_3d(dos + bx * C::kRows * 128, &tdo, q_full,
+                              64 * bx, q0, bh);
+        }
+        const int nk = key_tiles(s, q0, C::kRows, C::kKeys);
+        for (int kt = 0; kt < nk; ++kt, ++g) {
+          const int st = g % C::kStages;
+          hopper::mbar_wait(&empty[st], ((g / C::kStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&k_full[st], C::kKVBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            hopper::tma_load_3d(ks + st * C::kKVBytes + bx * C::kKeys * 128,
+                                &tk, &k_full[st], 64 * bx, kt * C::kKeys,
+                                bkv);
+          hopper::mbar_arrive_expect_tx(&v_full[st], C::kKVBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            hopper::tma_load_3d(vs + st * C::kKVBytes + bx * C::kKeys * 128,
+                                &tv, &v_full[st], 64 * bx, kt * C::kKeys,
+                                bkv);
+        }
+      }
+    }
+  } else {  // ---------------------------------------------- consumers --
+    hopper::regs_inc<kConsumerRegs>();
+    const int cw = wg - 1;  // rows 64 cw .. 64 cw + 63 of an item
+    const int t = threadIdx.x % kWg;
+    const int lane = t % 32;
+    const int r16 = 16 * (t / 32) + lane / 4;  // fragment rows r16, r16 + 8
+    const int c2 = 2 * (lane % 4);
+    const float c = s.scale * kLog2e;  // p = exp2(S c - lse log2(e))
+
+    float acc[C::kBoxes][32];   // dQ: 64 rows x D
+    float sc[kN], dp[kN];       // S and dP of a tile: 64 rows x kKeys
+    uint32_t da[C::kKeys / 16][4];  // round(ds) as A fragments
+
+    int g = 0;  // key tiles consumed so far, over all items
+    for (int item = blockIdx.x, n = 0; item < items;
+         item += gridDim.x, ++n) {
+      int qt, bh;
+      fwd_item(s, nq, item, &qt, &bh);
+      const int q0 = qt * C::kRows;
+      const int qa = q0 + 64 * cw + r16;
+      const int8_t* mp = mask_rows(mask, s, bh);
+      const int nk = key_tiles(s, q0, C::kRows, C::kKeys);
+      // lse and delta of rows qa, qa + 8; +inf on padding rows makes their
+      // p exactly 0
+      float lr[2], dr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool in = qa + 8 * r < s.Sq;
+        const size_t row = static_cast<size_t>(bh) * s.Sq + qa + 8 * r;
+        lr[r] = in ? lse[row] * kLog2e : INFINITY;
+        dr[r] = in ? delta[row] : 0.f;
+      }
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[bx][i] = 0.f;
+      hopper::mbar_wait(q_full, n & 1);
+      if (nk == 0) hopper::mbar_arrive(q_empty);
+
+      for (int kt = 0; kt < nk; ++kt, ++g) {
+        const int st = g % C::kStages;
+        const int k0 = kt * C::kKeys;
+        const uint8_t* kst = ks + st * C::kKVBytes;
+        const uint8_t* vst = vs + st * C::kKVBytes;
+        hopper::mbar_wait(&k_full[st], (g / C::kStages) & 1);
+        hopper::mbar_wait(&v_full[st], (g / C::kStages) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int qoff = (kk / 4) * C::kRows * 128 + cw * kBox +
+                           (kk % 4) * 32;
+          const int koff = (kk / 4) * C::kKeys * 128 + (kk % 4) * 32;
+          wgmma_ss_k<C::kKeys>(sc, hopper::sw128_desc(qs + qoff, false),
+                               hopper::sw128_desc(kst + koff, false),
+                               kk > 0);
+        }
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int qoff = (kk / 4) * C::kRows * 128 + cw * kBox +
+                           (kk % 4) * 32;
+          const int koff = (kk / 4) * C::kKeys * 128 + (kk % 4) * 32;
+          wgmma_ss_k<C::kKeys>(dp, hopper::sw128_desc(dos + qoff, false),
+                               hopper::sw128_desc(vst + koff, false),
+                               kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+
+        // p on the fragments: row qa + acc_row(i), key k0 + acc_col(i) + c2
+        const bool all_live =
+            mp == nullptr && k0 + C::kKeys <= s.Skv &&
+            (!s.causal || s.off + q0 + 64 * cw >= k0 + C::kKeys - 1);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          float p = exp2f(fmaf(sc[i], c, -lr[(i >> 1) & 1]));
+          if (!all_live &&
+              !is_live(s, mp, qa + hopper::acc_row(i),
+                       k0 + hopper::acc_col(i) + c2))
+            p = 0.f;
+          sc[i] = p;
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        if (kt == nk - 1) hopper::mbar_arrive(q_empty);  // Q, dO read last
+#pragma unroll
+        for (int i = 0; i < kN; ++i)
+          dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]) * s.scale;
+#pragma unroll
+        for (int kk = 0; kk < C::kKeys / 16; ++kk)
+          hopper::pack_a(dp, kk, da[kk]);
+
+        // dQ += round(ds) K, K read N-contiguous
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+          for (int kk = 0; kk < C::kKeys / 16; ++kk)
+            hopper::wgmma_rs_n64<1>(
+                acc[bx], da[kk],
+                hopper::sw128_desc(kst + bx * C::kKeys * 128 + kk * 16 * 128,
+                                   true),
+                1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx) hopper::fence_regs(acc[bx]);
+#pragma unroll
+        for (int kk = 0; kk < C::kKeys / 16; ++kk) hopper::fence_regs(da[kk]);
+        hopper::mbar_arrive(&empty[st]);
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = qa + 8 * r;
+        if (qi >= s.Sq) continue;
+        const size_t row = static_cast<size_t>(bh) * s.Sq + qi;
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dq + row * D + 64 * bx +
+                                               8 * j + c2) =
+                __floats2bfloat162_rn(acc[bx][4 * j + 2 * r],
+                                      acc[bx][4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -1225,6 +1502,15 @@ cudaError_t dispatch(int dtype, int D, Fn fn) {
   return D == 64 ? fn(__nv_bfloat16{}, D64{}) : fn(__nv_bfloat16{}, D128{});
 }
 
+// the number of SMs of the current device: the size of a persistent grid
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 // the bf16 forward on wgmma (K4's tensor-core body)
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
@@ -1246,10 +1532,8 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
   auto kernel = flash_fwd_wgmma_kernel<D>;
   e = allow_smem(kernel, C::kSmem);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   const int items = (s.Sq + C::kRows - 1) / C::kRows * s.B * s.H;
   kernel<<<min(items, sms), kWgBlock, C::kSmem, st>>>(
@@ -1293,15 +1577,15 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-// the bf16 fused backward on wgmma (K7's tensor-core body), after the
+// the bf16 backward of K7 (kDq: dQ into dq_acc) or K6 on wgmma, after the
 // delta pre-pass
-template <int D>
+template <int D, bool kDq>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              const void* mask, const void* dout,
                              const float* lse, const float* delta,
                              float* dq_acc, void* dk, void* dv,
                              const Shape& s, cudaStream_t st) {
-  using C = BwdTiles<D>;
+  using C = BwdTiles<D, kDq>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e =
       hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
@@ -1312,7 +1596,7 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess)
     e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, s.Skv, D, C::kKeys);
   if (e != cudaSuccess) return e;
-  auto kernel = flash_bwd_wgmma_kernel<D>;
+  auto kernel = flash_bwd_wgmma_kernel<D, kDq>;
   e = allow_smem(kernel, C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid(s.B * s.H, (s.Skv + C::kKeys - 1) / C::kKeys);
@@ -1322,8 +1606,8 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// K7 (dq_acc given) or K6 (dq_acc null), after the delta pre-pass; bf16 K7
-// on the tensor cores, the rest on the SIMT body
+// K7 (dq_acc given) or K6 (dq_acc null), after the delta pre-pass; bf16 on
+// the tensor cores, f32 on the SIMT body
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* mask, const void* o, const void* dout,
@@ -1331,28 +1615,61 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        void* dv, const Shape& s, cudaStream_t st) {
   cudaError_t e = launch_delta<T, D>(o, dout, delta, s, st);
   if (e != cudaSuccess) return e;
-  auto kernel = &flash_bwd_kernel<T, D, false>;  // K6
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (dq_acc != nullptr)
-      return launch_bwd_wgmma<D>(q, k, v, mask, dout, lse, delta, dq_acc, dk,
-                                 dv, s, st);
+      return launch_bwd_wgmma<D, true>(q, k, v, mask, dout, lse, delta,
+                                       dq_acc, dk, dv, s, st);
+    return launch_bwd_wgmma<D, false>(q, k, v, mask, dout, lse, delta,
+                                      nullptr, dk, dv, s, st);
   } else {
-    if (dq_acc != nullptr) kernel = &flash_bwd_kernel<T, D, true>;
+    auto kernel = dq_acc != nullptr ? &flash_bwd_kernel<T, D, true>
+                                    : &flash_bwd_kernel<T, D, false>;
+    const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
+                                         2 * kTile * (kTile + 1) + 2 * kTile);
+    e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((s.Skv + kTile - 1) / kTile, s.B * s.H);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int8_t*>(mask),
+        static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+        static_cast<T*>(dv), s);
+    return cudaGetLastError();
   }
-  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
-                                       2 * kTile * (kTile + 1) + 2 * kTile);
-  e = allow_smem(kernel, smem);
+}
+
+// the bf16 dQ pass on wgmma (K5's tensor-core body), after the delta
+// pre-pass
+template <int D>
+cudaError_t launch_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                const void* mask, const void* dout,
+                                const float* lse, const float* delta,
+                                void* dq, const Shape& s, cudaStream_t st) {
+  using C = DqTiles<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e =
+      hopper_host::bf16_rows_map(&tq, q, s.B * s.H, s.Sq, D, C::kRows);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tdo, dout, s.B * s.H, s.Sq, D, C::kRows);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tk, k, s.B * s.HKV, s.Skv, D, C::kKeys);
+  if (e == cudaSuccess)
+    e = hopper_host::bf16_rows_map(&tv, v, s.B * s.HKV, s.Skv, D, C::kKeys);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Skv + kTile - 1) / kTile, s.B * s.H);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int8_t*>(mask),
-      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
-      static_cast<T*>(dv), s);
+  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  e = allow_smem(kernel, C::kSmem);
+  int sms = 0;
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int items = (s.Sq + C::kRows - 1) / C::kRows * s.B * s.H;
+  kernel<<<min(items, sms), kWgBlock, C::kSmem, st>>>(
+      tq, tk, tv, tdo, static_cast<const int8_t*>(mask), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), s);
   return cudaGetLastError();
 }
 
-// K5, after the delta pre-pass
+// K5, after the delta pre-pass; bf16 on the tensor cores, f32 on the SIMT
+// body
 template <typename T, int D>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const void* mask, const void* o, const void* dout,
@@ -1360,17 +1677,22 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const Shape& s, cudaStream_t st) {
   cudaError_t e = launch_delta<T, D>(o, dout, delta, s, st);
   if (e != cudaSuccess) return e;
-  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
-                                       kTile * (kTile + 1) + 2 * kTile);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s.Sq + kTile - 1) / kTile, s.B * s.H);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int8_t*>(mask),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), s);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_bwd_dq_wgmma<D>(q, k, v, mask, dout, lse, delta, dq, s,
+                                  st);
+  } else {
+    const size_t smem = sizeof(float) * (4 * kTile * (D + 1) +
+                                         kTile * (kTile + 1) + 2 * kTile);
+    auto kernel = flash_bwd_dq_kernel<T, D>;
+    e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((s.Sq + kTile - 1) / kTile, s.B * s.H);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int8_t*>(mask),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), s);
+    return cudaGetLastError();
+  }
 }
 
 bool make_shape(Shape* s, int B, int H, int HKV, int Sq, int Skv, int D,
@@ -1392,6 +1714,21 @@ bool make_shape(Shape* s, int B, int H, int HKV, int Sq, int Skv, int D,
   s->off = off;
   s->scale = scale;
   return true;
+}
+
+size_t elem_bytes(int dtype) {
+  return dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+}
+
+// dK = dV = 0, per q head: the backward of a call with no q row, whose
+// tensor maps would have no row
+cudaError_t zero_dkv(void* dk, void* dv, const Shape& s, int D, int dtype,
+                     cudaStream_t st) {
+  const size_t bytes =
+      static_cast<size_t>(s.B) * s.H * s.Skv * D * elem_bytes(dtype);
+  cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, bytes, st);
+  return e;
 }
 
 }  // namespace
@@ -1434,13 +1771,8 @@ extern "C" int tnn_flash_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
-  if (Sq == 0) {  // no q row: dK = dV = 0 (and dq_acc, empty, may be null)
-    const size_t bytes = static_cast<size_t>(B) * H * Skv * D *
-                         (dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
-    cudaError_t e = cudaMemsetAsync(dk, 0, bytes, st);
-    if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, bytes, st);
-    return static_cast<int>(e);
-  }
+  if (Sq == 0)  // no q row: dK = dV = 0 (and dq_acc, empty, may be null)
+    return static_cast<int>(zero_dkv(dk, dv, s, D, dtype, st));
   if (dq_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
     return launch_bwd<decltype(t), decltype(d)::value>(
@@ -1465,6 +1797,9 @@ extern "C" int tnn_flash_bwd_dq(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
+  if (Skv == 0)  // no key: every row is dead, dQ = 0
+    return static_cast<int>(cudaMemsetAsync(
+        dq, 0, static_cast<size_t>(B) * H * Sq * D * elem_bytes(dtype), st));
   return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
     return launch_bwd_dq<decltype(t), decltype(d)::value>(
         q, k, v, mask, o, dout, static_cast<const float*>(lse),
@@ -1487,6 +1822,8 @@ extern "C" int tnn_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Skv == 0) return static_cast<int>(cudaSuccess);
+  if (Sq == 0)  // no q row: dK = dV = 0
+    return static_cast<int>(zero_dkv(dk, dv, s, D, dtype, st));
   return static_cast<int>(dispatch(dtype, D, [&](auto t, auto d) {
     return launch_bwd<decltype(t), decltype(d)::value>(
         q, k, v, mask, o, dout, static_cast<const float*>(lse),

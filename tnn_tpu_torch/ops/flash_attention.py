@@ -21,8 +21,8 @@ rounds ds = p (dP - delta) scale to q's dtype for dK and dQ. The plain
 forward normalises at the row's final maximum; the kernel rounds p at its
 running maximum, one key tile at a time (128 keys in bf16, 64 in f32), as
 the TPU kernel does per kv block, so the two differ within the rounding of
-p. bf16 inputs take the kernels' tensor-core bodies (K4, K7), f32 inputs
-and the split pair their f32 bodies on the CUDA cores.
+p. bf16 inputs take the kernels' tensor-core bodies (K4, K5, K6, K7), f32
+inputs their f32 bodies on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -268,6 +268,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=False, scale=None,
         return flash_attention_backward_reference(
             q, k, v, o, lse, do, causal=causal, scale=scale, mask=mask,
             kv_offset=kv_offset)[0]
+    _check_tma_bases(q.dtype, q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     _launch_bwd(_library().tnn_flash_bwd_dq, "dQ backward", q, k, v, o, lse,
                 do, (dq,), causal, scale, mask, kv_offset)
@@ -287,6 +288,7 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal=False, scale=None,
         return flash_attention_backward_reference(
             q, k, v, o, lse, do, causal=causal, scale=scale, mask=mask,
             kv_offset=kv_offset)[1:]
+    _check_tma_bases(q.dtype, q=q, k=k, v=v, do=do)
     b, h, _, d = q.shape
     skv = k.shape[2]
     dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=q.device)
@@ -366,7 +368,7 @@ def _check_kernel_args(q, k, v, mask):
 
 
 def _check_tma_bases(dtype, **tensors):
-    """The bf16 bodies of K4 and K7 read these tensors through TMA, whose
+    """The bf16 bodies of K4-K7 read these tensors through TMA, whose
     tensor maps need 16-byte-aligned base addresses."""
     if dtype != torch.bfloat16:
         return
