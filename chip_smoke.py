@@ -11,8 +11,8 @@ numbers on its own line:
 1. device: the card's name, the device count and its power limit;
 2. kernel: the paged-attention kernel (K1) against its plain PyTorch
    version at the shapes of ``gpt2_small`` serving, with the tolerance
-   stated, and its time beside the plain version's, a library call's and
-   the card's bound;
+   stated and each call's split-KV count, and its time beside the plain
+   version's, a library call's and the card's bound;
 3. flash: the flash-attention forward (K4) and backward (K7) against their
    plain versions at the training shape and its variants, with their
    times beside the plain versions', the library's and the bound, and the
@@ -34,8 +34,11 @@ numbers on its own line:
    SDPA's on the gathered, dequantized K/V and the bound;
 9. int8_matmul: the weight-only int8 matmul (K3) against its plain version
    at GPT-2 small's five matmul shapes at 512 rows, the head at the 8 rows
-   the serving path gives it, and a ragged case, with times beside the
-   plain version's, ``torch.mm``'s and the bound;
+   the serving path gives it, and a ragged case, with each shape's body,
+   tile and K split (bf16 GPT-2 shapes must run the tensor-core body, as
+   the profiler's kernel names show), the repeat equal bit for bit, times
+   beside the plain version's, ``torch.mm``'s and the bound, and K3's time
+   over the 49 calls of one 512-row int8 serving step;
 10. serving_int8: the serving phase's traffic with ``kv_dtype="int8",
    quant_weights=True``: K2 and K3 launch counts, the float model's
    teacher-forced closeness gate and a decode profile; then the CLI with
@@ -271,6 +274,19 @@ def paged_work(args):
     return nbytes, 4 * keys * h * dh
 
 
+def paged_splits(args):
+    """How many blocks share each row's table in this call
+    (``plan_paged_splits`` on the call's shapes and the card's SMs)."""
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops import runtime
+
+    q, pk = args["q"], args["pages_k"]
+    hkv = (pk.data if isinstance(pk, pa.QuantPages) else pk).shape[2]
+    return pa.plan_paged_splits(
+        q.shape[0], 1 if q.ndim == 3 else q.shape[1], q.shape[-2], hkv,
+        args["block_tables"].shape[1], runtime.sm_count(q.device))[0]
+
+
 def sdpa_inputs(args):
     """The same attention as dense tensors for F.scaled_dot_product_attention:
     gathered contiguous K/V (B, H_kv, T, Dh) and a boolean mask."""
@@ -368,8 +384,9 @@ def phase_kernel(results):
                 dead_nonzero = max(dead_nonzero,
                                    out[bi].float().abs().max().item())
         ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
-        log("kernel", case=name, max_abs_err=err, atol=atol, rtol=rtol,
-            limit_used=used, dead_rows_max=dead_nonzero, ok=ok)
+        log("kernel", case=name, splits=paged_splits(args), max_abs_err=err,
+            atol=atol, rtol=rtol, limit_used=used,
+            dead_rows_max=dead_nonzero, ok=ok)
         if not ok:
             raise AssertionError(
                 f"paged_attention {name}: |err| exceeds {atol} + {rtol} "
@@ -389,12 +406,15 @@ def phase_kernel(results):
                 "plain_": lambda: paged_attention_reference(**args),
                 "library_": lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
-        timed[name] = {}
+        timed[name] = {"splits": paged_splits(args)}
         for prefix, fn in runs.items():
-            device, events, _ = time_ms(fn)
+            device, events, per_name = time_ms(fn)
             # device time where the profiler saw the kernels, else events
             timed[name][prefix + "ms"] = events if device is None else device
             timed[name][prefix + "events_ms"] = events
+            if prefix == "":   # the call's time by kernel
+                timed[name]["split_ms"] = {kernel_label(n): v
+                                           for n, v in per_name.items()}
         timed[name].update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                            >= ops / PEAK_OPS["bfloat16"] else "operations")
@@ -1469,8 +1489,8 @@ def phase_int8_kernel(results):
                                    out[bi].float().abs().max().item())
         ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
         log("int8_kernel", case=name, block_size=spec["block_size"],
-            max_abs_err=err, atol=atol, rtol=rtol, limit_used=used,
-            dead_rows_max=dead_nonzero, ok=ok)
+            splits=paged_splits(args), max_abs_err=err, atol=atol, rtol=rtol,
+            limit_used=used, dead_rows_max=dead_nonzero, ok=ok)
         if not ok:
             raise AssertionError(
                 f"int8 paged_attention {name}: |err| exceeds {atol} + {rtol} "
@@ -1489,11 +1509,14 @@ def phase_int8_kernel(results):
                 "plain_": lambda: pa.paged_attention_reference(**args),
                 "library_": lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
-        timed[name] = {}
+        timed[name] = {"splits": paged_splits(args)}
         for prefix, fn in runs.items():
-            device, events, _ = time_ms(fn)
+            device, events, per_name = time_ms(fn)
             timed[name][prefix + "ms"] = events if device is None else device
             timed[name][prefix + "events_ms"] = events
+            if prefix == "":   # the call's time by kernel
+                timed[name]["split_ms"] = {kernel_label(n): v
+                                           for n, v in per_name.items()}
         timed[name].update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                            >= ops / PEAK_OPS["bfloat16"] else "operations")
@@ -1518,6 +1541,33 @@ MATMUL_SHAPES = {   # (M, K, N, out f32): gpt2_small at 512 rows, the
     "fc": (512, 768, 3072, False), "proj": (512, 3072, 768, False),
     "head": (512, 768, 50257, True), "head8": (8, 768, 50257, True),
     "ragged": (300, 300, 130, False)}
+# the kernel names of K3's two bodies (csrc/quant_matmul.cu)
+K3_BODIES = {"wgmma": "int8_matmul_wgmma_kernel",
+             "simt": "int8_matmul_kernel<"}
+
+
+def k3_wide_step(dev):
+    """The 49 K3 calls of one 512-row int8 serving step of gpt2_small
+    (qkv, out, fc and proj in each of 12 layers, then the head on the 8
+    rows the mixed step heads), on seeded weights: a function that makes
+    them, for ``time_ms``."""
+    import torch
+
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(449)
+    calls = {}
+    for name in ("qkv", "out", "fc", "proj", "head8"):
+        m, k, n, head = MATMUL_SHAPES[name]
+        iw = qm.quantize_int8(torch.randn((k, n), generator=gen, device=dev)
+                              * 0.02)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        calls[name] = (x, iw, dict(n=n, k=k, out_dtype=torch.float32
+                                   if head else None))
+    step = [calls[s] for s in ("qkv", "out", "fc", "proj")] * 12 \
+        + [calls["head8"]]
+    return lambda: [qm.int8_matmul(x, iw.q, iw.scale, **kw)
+                    for x, iw, kw in step]
 
 
 def phase_int8_matmul(results):
@@ -1537,11 +1587,15 @@ def phase_int8_matmul(results):
             x = x32.to(dtype)
             out_dtype = torch.float32 if head else None
             kw = dict(n=n, k=k, out_dtype=out_dtype)
+            plan = qm.plan_int8_matmul(m, n, k, dtype)
             before = qm.int8_matmul.launches
             got = qm.int8_matmul(x, iw.q, iw.scale, **kw)
             torch.cuda.synchronize()
             if qm.int8_matmul.launches != before + 1:
                 raise AssertionError(f"int8_matmul {name}: K3 did not launch")
+            # split partials sum in a fixed order: the same bits again
+            repeat_equal = torch.equal(
+                got, qm.int8_matmul(x, iw.q, iw.scale, **kw))
             ref = qm.int8_matmul_reference(x, iw.q, iw.scale, **kw).float()
             mag = x.float().abs() @ iw.dequant().abs()
             rtol = 0.0 if got.dtype == torch.float32 else 2 ** -7
@@ -1549,14 +1603,18 @@ def phase_int8_matmul(results):
             used = (diff / (1e-5 * mag + rtol * ref.abs())).max().item()
             err = diff.max().item()
             ok = math.isfinite(used) and used <= 1.0 \
-                and tuple(got.shape) == (m, n)
+                and tuple(got.shape) == (m, n) and repeat_equal
             entry = dict(case=name, m=m, k=k, n=n, out=str(got.dtype),
-                         max_abs_err=err, limit_used=used, ok=ok)
+                         body=plan.body, tile_m=plan.tile_m,
+                         splits=plan.splits,
+                         blocks=plan.blocks(m, n), max_abs_err=err,
+                         limit_used=used, repeat_equal=repeat_equal, ok=ok)
             if not ok:
                 log("int8_matmul", **entry)
                 raise AssertionError(f"int8_matmul {name}: |err| exceeds "
                                      f"1e-5 mag + {rtol} |ref| ({used:.3g} "
-                                     "of the limit)")
+                                     f"of the limit), or the repeat differs "
+                                     f"({repeat_equal})")
             worst = max(worst, err)
             del ref, mag, diff
             # time: the kernel, the plain version, and torch.mm of x with
@@ -1571,9 +1629,22 @@ def phase_int8_matmul(results):
                     "library_": lambda: (torch.mm(x, wt, **mm_kw)
                                          * sc).to(odt)}
             for prefix, fn in runs.items():
-                device, events, _ = time_ms(fn, iters=20, warmup=3)
+                device, events, per_name = time_ms(fn, iters=20, warmup=3)
                 entry[prefix + "ms"] = events if device is None else device
                 entry[prefix + "events_ms"] = events
+                if prefix == "":
+                    entry["kernels"] = sorted(kernel_label(kn)
+                                              for kn in per_name)
+            # the profiler saw the body the plan names (bf16 GPT-2 shapes:
+            # the tensor cores; f32 and K % 8 != 0: SIMT)
+            want = K3_BODIES[plan.body]
+            if (dtype == torch.bfloat16 and shape != "ragged"
+                    and plan.body != "wgmma") \
+                    or not any(want in kn for kn in entry["kernels"]):
+                log("int8_matmul", **entry)
+                raise AssertionError(f"int8_matmul {name}: the plan {plan} "
+                                     f"and the profiled kernels "
+                                     f"{entry['kernels']} disagree")
             nbytes = (m * k * x.element_size() + n * k + 4 * n
                       + m * n * torch.empty((), dtype=odt).element_size())
             ops = 2 * m * n * k
@@ -1589,6 +1660,11 @@ def phase_int8_matmul(results):
         del iw, x32
         torch.cuda.empty_cache()
     results["int8_matmul"]["max_abs_err"] = worst
+    # K3's device time in one 512-row int8 serving step (49 calls)
+    step_ms, step_events, per_name = time_ms(k3_wide_step(dev), iters=10,
+                                             warmup=2)
+    log("int8_matmul_wide_step", calls=49, ms=step_ms, events_ms=step_events,
+        kernels={kernel_label(kn): v for kn, v in per_name.items()})
     qm.int8_matmul.launches = 0   # comparison launches do not count
 
 
@@ -2787,7 +2863,8 @@ def stats_check(name, quant, spec, args):
     used = [out_used, m_used, l_used, *merge_used.values()]
     ok = all(math.isfinite(u) and u <= 1.0 for u in used) and dead_exact \
         and int(dead.sum()) > 0
-    reading = dict(case=name, max_abs_err=diff.max().item(),
+    reading = dict(case=name, splits=paged_splits(args),
+                   max_abs_err=diff.max().item(),
                    out_limit_used=out_used,
                    m_max_abs_err=(m - m_ref).abs()[live].max().item(),
                    m_limit_used=m_used,
@@ -2840,11 +2917,14 @@ def phase_paged_stats(results):
                     **args, return_stats=True),
                 "library_": lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
-        timed = {}
+        timed = {"splits": paged_splits(args)}
         for prefix, fn in runs.items():
-            device, events, _ = time_ms(fn)
+            device, events, per_name = time_ms(fn)
             timed[prefix + "ms"] = events if device is None else device
             timed[prefix + "events_ms"] = events
+            if prefix == "":   # the call's time by kernel
+                timed["split_ms"] = {kernel_label(n): v
+                                     for n, v in per_name.items()}
         timed.update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
                      bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                      >= ops / PEAK_OPS["bfloat16"] else "operations")

@@ -4,11 +4,15 @@ The port's plain PyTorch version (what the kernel wrapper computes on CPU
 tensors) is held against the JAX package's Pallas kernel run in interpret
 mode and against its XLA reference, on the same numpy-seeded inputs. The
 CUDA kernel itself runs only on the card: ``test_kernel_matches_plain_on_card``
-carries the ``cuda`` marker and skips here.
+carries the ``cuda`` marker and skips here. The split-KV rule, which
+decides from shapes alone how many blocks share a row's table, is checked
+here: its ranges cover the table, and the plain version's partials over
+them merge to the whole row.
 
 Tolerance: both sides compute in float32 on the CPU and differ only in
 summation order, so outputs agree to 2e-5 absolute on O(1) values.
 """
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ import torch
 
 from tnn_tpu.ops.pallas import paged_attention as jpa
 from tnn_tpu_torch.ops import paged_attention as tpa
+from tnn_tpu_torch.ops.softmax_merge import merge_shards
 
 ATOL = 2e-5
 
@@ -205,12 +210,80 @@ def test_wrapper_rejects_bad_shapes():
         tpa.paged_attention(q[:, 0], pk, pv, tables, kv_lens, q_lens=q_lens)
 
 
+# -- split-KV -----------------------------------------------------------------
+
+def force_splits(monkeypatch, splits):
+    """Make the wrapper split every row's table into ``splits`` ranges
+    (None keeps the rule)."""
+    if splits is not None:
+        monkeypatch.setattr(tpa, "plan_paged_splits",
+                            lambda b, qw, h, hkv, nb, sms=None:
+                            (splits, -(-nb // splits)))
+
+
+@pytest.mark.parametrize("batch,q_width,heads,table_width", [
+    (8, 1, (12, 12), 63), (8, 1, (12, 4), 63), (8, 1, (12, 12), 32),
+    (8, 64, (12, 12), 63), (1, 1, (12, 12), 2048), (4, 8, (4, 2), 8),
+    (8, 1, (12, 12), 0), (3, 16, (4, 1), 1), (4096, 1, (1, 1), 4096)])
+def test_split_rule_covers_the_table(batch, q_width, heads, table_width):
+    h, hkv = heads
+    splits, pps = tpa.plan_paged_splits(batch, q_width, h, hkv, table_width)
+    assert (splits, pps) == tpa.plan_paged_splits(batch, q_width, h, hkv,
+                                                  table_width)
+    assert splits >= 1 and splits * pps >= table_width
+    if table_width:
+        assert (splits - 1) * pps < table_width     # no empty range
+    if splits > 1:
+        assert pps >= tpa.MIN_SPLIT_PAGES
+    assert batch * splits <= 65535                 # the grid's z limit
+
+
+def test_split_rule_reads_host_shapes_only():
+    # never kv_lens: the launch needs no sync, so a CUDA graph can hold it
+    assert list(inspect.signature(tpa.plan_paged_splits).parameters) == [
+        "batch", "q_width", "heads", "kv_heads", "table_width", "sms"]
+    # the serving decode shape: 96 (row, kv head) blocks, 63-entry tables
+    splits, pps = tpa.plan_paged_splits(8, 1, 12, 12, 63)
+    assert splits > 1 and 8 * 12 * splits >= 132
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8])
+def test_split_ranges_merge_to_the_whole_row(splits):
+    """What the kernel computes with split-KV, in plain PyTorch: each range
+    of the table gives a partial (the stats form over a table with -1
+    outside the range: empty where the range is all holes or past the live
+    length), and merging them in order gives the unsplit attention."""
+    q, pk, pv, tables, kv_lens, q_lens = _torch(*_case(
+        5, block_size=4, heads=(4, 2), q_width=4, blocks_per_row=8,
+        num_blocks=40, holes=True))
+    pps = -(-tables.shape[1] // splits)
+    cols = torch.arange(tables.shape[1])
+    parts = []
+    for sp in range(splits):
+        inside = (cols >= sp * pps) & (cols < (sp + 1) * pps)
+        part = torch.where(inside, tables, -1).contiguous()
+        parts.append(tpa.paged_attention(q, pk, pv, part, kv_lens,
+                                         q_lens=q_lens, layer=1,
+                                         return_stats=True))
+    merged = merge_shards(*zip(*parts))
+    whole = tpa.paged_attention(q, pk, pv, tables, kv_lens, q_lens=q_lens,
+                                layer=1)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), atol=ATOL,
+                               rtol=0)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 2, 3, 8],
+                         ids=["rule", "split2", "split3", "split8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_kernel_matches_plain_on_card(dtype, head_dim):
+def test_kernel_matches_plain_on_card(dtype, head_dim, splits, monkeypatch):
+    """Split cases: 8 table entries over 2, 3 or 8 blocks, with a kv_len-0
+    row, a full row beside a one-token row, and (at 8 splits) a range that
+    is only a -1 hole and ranges past the short rows' live length."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a card")
+    force_splits(monkeypatch, splits)
     dt = getattr(torch, dtype)
     q, pk, pv, tables, kv_lens, q_lens = [
         x.cuda() for x in _torch(*_case(2, block_size=16, heads=(4, 2),
@@ -232,3 +305,4 @@ def test_kernel_matches_plain_on_card(dtype, head_dim):
                                           q_lens=q_lens, layer=1)
     limit = atol + rtol * (plain.float().abs() + abs_v.float())
     assert ((out.float() - plain.float()).abs() <= limit).all()
+    assert (out[0] == 0).all()          # the kv_len-0 row: exactly 0

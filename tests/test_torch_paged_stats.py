@@ -35,6 +35,15 @@ ATOL = 2e-5
 STAT_RTOL = 1e-5
 
 
+def force_splits(monkeypatch, splits):
+    """Make the wrapper split every row's table into ``splits`` ranges
+    (None keeps the rule)."""
+    if splits is not None:
+        monkeypatch.setattr(tpa, "plan_paged_splits",
+                            lambda b, qw, h, hkv, nb, sms=None:
+                            (splits, -(-nb // splits)))
+
+
 def _case(seed, *, block_size, heads, q_width, batch=5, num_layers=2,
           num_blocks=30, head_dim=16, blocks_per_row=4, holes=True):
     """Pages, tables and ragged lengths: a kv_len-0 row, a full row, a
@@ -211,12 +220,18 @@ def test_stats_launch_nothing_on_the_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3, 8],
+                         ids=["rule", "split3", "split8"])
 @pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_stats_kernel_matches_plain_on_card(quant, dtype, head_dim):
+def test_stats_kernel_matches_plain_on_card(quant, dtype, head_dim, splits,
+                                            monkeypatch):
+    """Split cases: the merged (m, l) of 3 and 8 blocks a row, with a
+    kv_len-0 row, a row of only holes and a hole in the full row."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a card")
+    force_splits(monkeypatch, splits)
     dt = getattr(torch, dtype)
     q, pk, pv, tables, kv_lens, q_lens = _case(
         2, block_size=16, heads=(4, 2), q_width=8, blocks_per_row=8,

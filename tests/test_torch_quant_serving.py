@@ -54,6 +54,15 @@ ATOL = 1e-5
 MARGIN = 1e-3
 
 
+def force_splits(monkeypatch, splits):
+    """Make the wrapper split every row's table into ``splits`` ranges
+    (None keeps the rule)."""
+    if splits is not None:
+        monkeypatch.setattr(tpa, "plan_paged_splits",
+                            lambda b, qw, h, hkv, nb, sms=None:
+                            (splits, -(-nb // splits)))
+
+
 # -- the int8 pool ------------------------------------------------------------
 
 def _pool(**kw):
@@ -441,11 +450,15 @@ def test_cli_serves_int8_on_cpu():
 # -- on the card --------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3, 8],
+                         ids=["rule", "split3", "split8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_int8_attention_kernel_matches_plain_on_card(dtype, head_dim):
+def test_int8_attention_kernel_matches_plain_on_card(dtype, head_dim, splits,
+                                                     monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a card")
+    force_splits(monkeypatch, splits)   # K1's split-KV, over int8 pages
     q, k, v, tables, kv_lens, q_lens = _quant_case(
         2, heads=(4, 2), q_width=8, block_size=16, blocks_per_row=8,
         num_blocks=40, head_dim=head_dim, holes=True)
@@ -469,9 +482,69 @@ def test_int8_attention_kernel_matches_plain_on_card(dtype, head_dim):
     assert ((out.float() - plain).abs() <= limit).all()
 
 
+# K3's launch plan: the fixed rule that picks the body, tile and K split
+GPT2_SMALL_MATMULS = {"qkv": (768, 2304), "out": (768, 768),
+                      "fc": (768, 3072), "proj": (3072, 768),
+                      "head": (768, 50257)}
+
+
+@pytest.mark.parametrize("rows", [8, 257, 512, 2048])
+@pytest.mark.parametrize("shape", sorted(GPT2_SMALL_MATMULS))
+def test_int8_matmul_plan_puts_bf16_gpt2_on_the_tensor_cores(shape, rows):
+    k, n = GPT2_SMALL_MATMULS[shape]
+    plan = tqm.plan_int8_matmul(rows, n, k, torch.bfloat16)
+    assert plan == tqm.plan_int8_matmul(rows, n, k, torch.bfloat16)
+    assert plan.body == "wgmma"
+    assert plan.tile_m in tqm.TC_TILES_M
+    if rows <= 64:   # the serving head's 8 rows: the smallest wgmma N
+        assert plan.tile_m == min(t for t in tqm.TC_TILES_M if t >= rows)
+    # what the C entry accepts: 1 <= splits <= chunks, and no empty slice
+    chunks = -(-k // tqm.TC_TILE_K)
+    per = -(-chunks // plan.splits)
+    assert 1 <= plan.splits <= chunks and (plan.splits - 1) * per < chunks
+    if plan.splits > 1:
+        assert per >= tqm.MIN_SPLIT_CHUNKS
+    if rows == 512:
+        # every wide-step shape keeps the H100's 132 SMs busy: at least a
+        # block for every two SMs, and a block for each where K is long
+        # enough to split (proj, K = 3072)
+        assert plan.blocks(rows, n) >= 132 // 2
+        if chunks >= 2 * tqm.MIN_SPLIT_CHUNKS:
+            assert plan.blocks(rows, n) >= 132
+
+
+@pytest.mark.parametrize("m,k,n,xdtype", [
+    (512, 768, 2304, torch.float32), (512, 3072, 768, torch.float32),
+    (8, 768, 50257, torch.float32), (300, 300, 130, torch.bfloat16),
+    (64, 12, 256, torch.bfloat16), (16, 0, 16, torch.bfloat16)])
+def test_int8_matmul_plan_keeps_f32_and_unaligned_k_on_simt(m, k, n, xdtype):
+    plan = tqm.plan_int8_matmul(m, n, k, xdtype)
+    assert plan == tqm.MatmulPlan("simt", tqm.SIMT_TILE_M, 1)
+
+
+def test_int8_matmul_plan_reads_the_sm_count():
+    # a smaller card fills with fewer blocks: no K split, larger tiles
+    big = tqm.plan_int8_matmul(512, 768, 3072, torch.bfloat16, sms=132)
+    small = tqm.plan_int8_matmul(512, 768, 3072, torch.bfloat16, sms=24)
+    assert small.splits == 1 and big.splits > 1
+    assert small.tile_m == 128 and big.tile_m == 64
+    assert small.blocks(512, 768) >= 24 and big.blocks(512, 768) >= 132
+
+
+def test_int8_matmul_plan_splits_only_long_k():
+    # out (K = 768) stays whole at 96 blocks; a 2056-deep K splits
+    assert tqm.plan_int8_matmul(512, 768, 768, torch.bfloat16).splits == 1
+    plan = tqm.plan_int8_matmul(40, 200, 2056, torch.bfloat16)
+    assert plan.splits == 2 and plan.tile_m == 64
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(512, 768, 2304), (300, 300, 130),
-                                   (8, 768, 50257)])
+                                   (8, 768, 50257), (512, 768, 768),
+                                   (512, 768, 3072), (512, 3072, 768),
+                                   (512, 768, 50257), (40, 2056, 200)],
+                         ids=["qkv", "ragged", "head8", "out", "fc", "proj",
+                              "head512", "split_edges"])
 @pytest.mark.parametrize("xdtype,out", [("bfloat16", None),
                                         ("bfloat16", "float32"),
                                         ("float32", None)])
@@ -484,10 +557,17 @@ def test_int8_matmul_kernel_matches_plain_on_card(m, k, n, xdtype, out):
         .to(getattr(torch, xdtype))
     iw = tqm.quantize_int8(w)
     odt = None if out is None else getattr(torch, out)
+    plan = tqm.plan_int8_matmul(m, n, k, x.dtype)
+    if (m, k, n) == (40, 2056, 200):   # M, N and K edges, split over K
+        assert plan.body == "simt" or plan.splits > 1
     before = tqm.int8_matmul.launches
     got = tqm.int8_matmul(x, iw.q, iw.scale, n=n, k=k, out_dtype=odt)
     torch.cuda.synchronize()
     assert tqm.int8_matmul.launches == before + 1
+    # the same bits on every run: split partials sum in a fixed order
+    again = tqm.int8_matmul(x, iw.q, iw.scale, n=n, k=k, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ref = tqm.int8_matmul_reference(x, iw.q, iw.scale, n=n, k=k,
                                     out_dtype=odt).float()
     # f32 sums in another order (|err| <= 1e-5 of sum |x| |w| s); a bf16

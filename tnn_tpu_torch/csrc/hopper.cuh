@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
-// TMA tile loads, bulk reduce-adds, warpgroup matrix products (wgmma) and
-// their shared-memory descriptors, register reallocation, and the host-side
+// TMA tile loads (2-D and 3-D maps), bulk reduce-adds, the arrival counter
+// of split reductions, warpgroup matrix products (wgmma) and their
+// shared-memory descriptors, register reallocation, and the host-side
 // encoding of TMA tensor maps. Device code in inline PTX; the host part
 // reaches the driver's cuTensorMapEncodeTiled through the runtime, so a
 // library built from this needs no -lcuda.
@@ -107,6 +108,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box (c0, c1) of a 2-D tensor map into shared memory, completing
+// transaction bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma, bulk copies) of them
 __device__ __forceinline__ void fence_proxy_async() {
@@ -137,6 +150,30 @@ __device__ __forceinline__ void bulk_wait_read() {
 // this thread's bulk groups have completed
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------------- split counters --
+
+// One block's arrival at a counter shared by the blocks of a split
+// reduction: called by one thread after a barrier of the whole block, so
+// that the release fence publishes every thread's partial before the
+// count moves (the pattern of CUTLASS's semaphore). Returns the count
+// before this arrival; the block that sees the number of splits minus 1
+// is the last, and calls acquire_fence() before reading the others'
+// partials.
+__device__ __forceinline__ int arrive_count(int* counter) {
+  int prev;
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "atom.relaxed.gpu.global.add.s32 %0, [%1], 1;\n"
+      : "=r"(prev)
+      : "l"(counter)
+      : "memory");
+  return prev;
+}
+
+__device__ __forceinline__ void acquire_fence() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ warpgroups --
@@ -303,6 +340,102 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "n"(TB));
 }
 
+// D (64 x N, f32) += A (64 x 16) B (16 x N) for N in {8, 16, 32, 64, 128}:
+// A from registers as bf16 pairs in the accumulator's layout (see pack_a),
+// B K-contiguous through a descriptor. A product of 64 rows by N columns
+// holds N / 2 accumulators a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<8>(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3 "
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  wgmma_rs_n64<0>(d, a, db, scale_d);
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------------------ host --
@@ -352,6 +485,32 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base,
                         const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D map over a row-major (rows, cols) tensor of `type` whose rows lie
+// `row_bytes` apart (a multiple of 16), read in boxes of box_cols x box_rows
+// with the given swizzle. Reads past `rows` or `cols` fill zeros, so the
+// padding of a tensor wider than its logical shape is never read.
+inline cudaError_t rows_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                               const void* base, int rows, int cols,
+                               long long row_bytes, int box_cols,
+                               int box_rows, CUtensorMapSwizzle swizzle) {
+  auto fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || row_bytes % 16 != 0 ||
+      rows < 1 || cols < 1)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
+                        box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

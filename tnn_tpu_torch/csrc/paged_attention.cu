@@ -23,8 +23,9 @@
 //
 // K1s, the TPU kernel's stats=True form (_attn_step's m_ref / l_ref
 // outputs), is the same body over either page type with two more outputs:
-// given m_out / l_out (f32, (B, QW, H, 1)), every query row of the tile
-// writes its final online-softmax state after the page-split merge: m, the
+// given m_out / l_out (f32, (B, QW, H, 1)), every query row writes its
+// final online-softmax state after the merges (the warps' page split, and
+// the splits across blocks where there are several): m, the
 // max of its scaled, masked scores (natural-exp domain: dot * scale, expf),
 // and l, the normalizer at that max. A dead row (no live key: kv_len 0, a
 // padding token past q_lens, or every block a -1 hole) writes -1e30 and 0.
@@ -37,23 +38,46 @@
 // halve that and add 4 B of scale per (position, head) of K and of V.
 //
 // Design: the TPU grid's sequential page axis (whose VMEM scratch carries the
-// softmax state) has no counterpart across CUDA blocks, so one thread block
-// handles one (row, kv head, query tile) and loops over the row's LIVE pages
-// itself, reading its own table entries (no scalar prefetch). Pages are
-// staged through shared memory with 16-byte cp.async copies, up to 8 pages
-// per set, double-buffered so the next set is in flight while the current
-// one is computed; int8 pages stage their scale rows (bs floats of K and of
-// V per page, 16 B at bs = 4) the same way, beside the pages. A block has 8
+// softmax state) becomes split-KV across blocks. The grid is (query tile,
+// kv head, row x split): a block takes split sp's fixed range of the row's
+// table, entries [sp * pps, (sp + 1) * pps), and loops over the LIVE pages
+// of that range itself, reading its own table entries (no scalar
+// prefetch). The caller picks the split count from host-known shapes only
+// (B, QW, H, H_kv, the table width NB and the SM count; never kv_lens), so
+// the launch needs no sync. A block reads kv_lens and finds how many splits
+// hold a live entry of its tile: splits past that leave at once, and a
+// tile that one split holds (or none: split 0 writes its dead rows) needs
+// no merge, so its block normalizes and writes the output. Otherwise each
+// live split writes its partial (m, l, acc) in f32 to a workspace (B,
+// splits, QW * H, DH + 2), and the last of them to arrive (an integer
+// atomic on the tile's counter, which it resets to 0) merges the partials
+// in split order with the same merge the block uses for its warps'
+// partials (merge_partials), divides and casts: the same bits whatever the
+// arrival order. A split range of only -1 holes gives the empty partial
+// (-1e30, 0, 0). Each split rounds p at its own running max, as the warps'
+// page split below already does.
+//
+// Pages are staged through shared memory with 16-byte cp.async copies, up
+// to 8 pages per set, double-buffered when a split holds more than one set
+// (one stage otherwise) so the next set is in flight while the current one
+// is computed; int8 pages stage their scale rows (bs floats of K and of V
+// per page, 16 B at bs = 4) the same way, beside the pages. A block has 8
 // warps and a tile up to 16 query rows: each warp owns two rows; when the
-// tile has fewer rows than warps (decode), the
-// warps split the row's pages instead and merge their partial (m, l, acc)
-// at the end. B*H_kv = 96 blocks at the decode shape above fill less than
-// one wave of 132 SMs; splitting KV across blocks is the later fix, as are
-// tensor-core QK/PV (mma/wgmma) and TMA.
+// tile has fewer rows than warps (decode), the warps split the block's
+// pages instead and merge their partial (m, l, acc) at the end. At the
+// decode shape above, 8 rows x 12 kv heads made 96 blocks, less than one
+// wave of 132 SMs, and the row of 1000 positions walked its 63 pages in one
+// block; with splits of 8 entries (one set) it is 8 blocks. What holds the
+// decode call back now is each block's chain of dependent steps (kv_lens,
+// the table, the pages, the warps' merge, the count), about 4.8 us on the
+// H100 with one page a row, not the bytes. Tensor-core QK / PV (mma.sync)
+// for chunk rows and TMA are not used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,7 +103,7 @@ struct Params {
   const float* scales_v;
   const int* tables;    // (B, NB)
   const int* kv_lens;   // (B,)
-  const int* q_lens;    // (B,)
+  const int* q_lens;    // (B,), or null: every row carries QW tokens
   void* out;            // (B, QW, H, DH)
   float* m_out;         // (B, QW, H, 1) f32 running max, or null (no stats)
   float* l_out;         // (B, QW, H, 1) f32 normalizer, or null
@@ -92,6 +116,11 @@ struct Params {
   int ks;               // warp groups splitting the pages (nwr * ks <= warps)
   int ppw;              // consecutive pages each group takes per staged set
   int lanes_per_key;    // lanes that split one key's dot product
+  int splits;           // blocks splitting each row's table (grid z = B x)
+  int pps;              // table entries a split takes
+  int stages;           // staged page sets in flight: 1 or 2
+  float* ws;            // splits > 1: (B, splits, QW * H, DH + 2) partials
+  int* counters;        // splits > 1: one per (query tile, kv head, row), 0
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -172,6 +201,52 @@ __device__ __forceinline__ void cp_async_wait_0() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// Merges online-softmax partials into the holder's own (m, l, acc), which
+// is partial 0: m becomes the max of every m_k, and l and acc the sums of
+// l_k e^(m_k - m) and acc_k e^(m_k - m), in the order k = 0, 1, ..., n - 1.
+// part(k, i) reads element i of partial k >= 1: this lane's dims at i =
+// lane + 32 e, m at i = DH, l at i = DH + 1. The empty partial (-1e30, 0, 0)
+// adds nothing. Both merges use it: the block's warps' page split and the
+// splits across blocks.
+template <int DH, typename Part>
+__device__ __forceinline__ void merge_partials(float& m, float& l,
+                                               float (&acc)[DH / 32], int n,
+                                               int lane, Part part) {
+  // unrolled so that the reads of several partials are in flight at once
+  float mm = m;
+#pragma unroll 8
+  for (int k = 1; k < n; ++k) mm = fmaxf(mm, part(k, DH));
+  const float a0 = expf(m - mm);
+  m = mm;
+  l *= a0;
+#pragma unroll
+  for (int e = 0; e < DH / 32; ++e) acc[e] *= a0;
+#pragma unroll 8
+  for (int k = 1; k < n; ++k) {
+    const float a = expf(part(k, DH) - mm);
+    l += part(k, DH + 1) * a;
+#pragma unroll
+    for (int e = 0; e < DH / 32; ++e) acc[e] += part(k, lane + 32 * e) * a;
+  }
+}
+
+// The final state of query row `row` (index into (B, QW, H)): out = acc / l
+// in T (exactly 0 where l == 0: a dead row) and, for K1s, m and l.
+template <typename T, int DH>
+__device__ __forceinline__ void write_row(const Params& p, size_t row,
+                                          int lane, float m, float l,
+                                          const float (&acc)[DH / 32]) {
+  const float lsafe = l == 0.f ? 1.f : l;
+  T* dst = static_cast<T*>(p.out) + row * DH;
+#pragma unroll
+  for (int e = 0; e < DH / 32; ++e)
+    dst[lane + 32 * e] = from_f32<T>(acc[e] / lsafe);
+  if (p.m_out != nullptr && lane == 0) {  // K1s: m, l are warp-uniform
+    p.m_out[row] = m;
+    p.l_out[row] = l;
+  }
+}
+
 template <typename T, typename P, int DH>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Params p) {
@@ -182,7 +257,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kRowStride = DH + kVec;      // 16-byte pad: no bank conflicts
   constexpr int kDimsPerLane = DH / 32;      // output dims each lane owns
 
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / p.splits;
+  const int sp = blockIdx.z % p.splits;
   const int hk = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -190,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = blockIdx.x * p.tile_rows;
   const int tr = min(p.tile_rows, p.QW * g - r0);
   const int kv_len = p.kv_lens[b];
-  const int q_len = p.q_lens[b];
+  const int q_len = p.q_lens != nullptr ? p.q_lens[b] : p.QW;
   const int start = kv_len - q_len;  // absolute position of token 0
 
   // pages this tile needs: keys up to its last live token's position
@@ -200,14 +276,23 @@ __global__ void __launch_bounds__(kThreads)
   if (t_last >= t_first && start + t_last >= 0) {
     npages = min((start + t_last) / p.BS + 1, p.NB);
   }
+  // this split's table entries [j0, jend): live ones only. Splits past
+  // the tile's last live entry hold nothing and leave at once; a tile whose
+  // live entries one split holds (or none: split 0 writes its dead rows)
+  // needs no merge.
+  const int live_splits = npages > 0 ? (npages + p.pps - 1) / p.pps : 1;
+  if (sp >= live_splits) return;
+  const bool merged = live_splits > 1;
+  const int j0 = sp * p.pps;
+  const int jend = min(npages, j0 + p.pps);
 
-  // shared memory: the query tile in f32, then (int8 pages) two stages of
-  // the pages' scale rows, then two stages of ks (K, V) pages
+  // shared memory: the query tile in f32, then (int8 pages) the stages of
+  // the pages' scale rows, then the stages of ks (K, V) pages
   const int set_pages = p.ks * p.ppw;
   float* q_s = reinterpret_cast<float*>(smem_raw);
   float* sc_s = q_s + p.tile_rows * DH;
   const int stage_scales = kQuant ? set_pages * 2 * p.BS : 0;
-  P* kv_s = reinterpret_cast<P*>(sc_s + 2 * stage_scales);
+  P* kv_s = reinterpret_cast<P*>(sc_s + p.stages * stage_scales);
   const int page_elems = p.BS * kRowStride;
   const int stage_elems = set_pages * 2 * page_elems;
 
@@ -224,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
   const P* pv = static_cast<const P*>(p.pages_v) + p.layer_off;
   const int* table = p.tables + static_cast<size_t>(b) * p.NB;
   auto page_of = [&](int j) -> int {
-    if (j >= npages) return -1;
+    if (j >= jend) return -1;
     const int blk = table[j];
     return (blk >= 0 && blk < p.N) ? blk : -1;
   };
@@ -240,7 +325,7 @@ __global__ void __launch_bounds__(kThreads)
       const int kv = rem / per_page;
       const int row = (rem % per_page) / kChunksPerRow;
       const int col = (rem % kChunksPerRow) * kVec;
-      const int blk = page_of(set * set_pages + s);
+      const int blk = page_of(j0 + set * set_pages + s);
       if (blk < 0) continue;
       const P* src = (kv ? pv : pk) +
                      ((static_cast<size_t>(blk) * p.HKV + hk) * p.BS + row) *
@@ -258,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
         const int s = c / (2 * per_scale);
         const int kv = (c / per_scale) % 2;
         const int col = (c % per_scale) * 4;
-        const int blk = page_of(set * set_pages + s);
+        const int blk = page_of(j0 + set * set_pages + s);
         if (blk < 0) continue;
         const float* src = (kv ? p.scales_v : p.scales_k) + p.layer_off_s +
                            (static_cast<size_t>(blk) * p.HKV + hk) * p.BS +
@@ -285,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kDimsPerLane; ++e) acc[i][e] = 0.f;
   }
 
-  const int nsets = (npages + set_pages - 1) / set_pages;
+  const int nsets = jend > j0 ? (jend - j0 + set_pages - 1) / set_pages : 0;
   if (nsets > 0) issue(0, 0);
   cp_async_commit();
   for (int set = 0; set < nsets; ++set) {
@@ -295,7 +380,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     for (int u = 0; u < p.ppw; ++u) {
       const int slot = ks_id * p.ppw + u;
-      const int j = set * set_pages + slot;
+      const int j = j0 + set * set_pages + slot;
       if (ks_id < p.ks && page_of(j) >= 0) {
         const P* k_page =
             kv_s + (set & 1) * stage_elems + slot * 2 * page_elems;
@@ -398,46 +483,79 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kMaxRowsPerWarp; ++i) {
         const int rl = rg + i * p.nwr;
         if (rl >= tr) break;
-        float mm = m[i];
-        for (int k = 1; k < p.ks; ++k)
-          mm = fmaxf(mm, red[(k * p.tile_rows + rl) * (DH + 2) + DH]);
-        const float a0 = expf(m[i] - mm);
-        m[i] = mm;
-        l[i] *= a0;
-#pragma unroll
-        for (int e = 0; e < kDimsPerLane; ++e) acc[i][e] *= a0;
-        for (int k = 1; k < p.ks; ++k) {
-          const float* src = red + (k * p.tile_rows + rl) * (DH + 2);
-          const float a = expf(src[DH] - mm);
-          l[i] += src[DH + 1] * a;
-#pragma unroll
-          for (int e = 0; e < kDimsPerLane; ++e)
-            acc[i][e] += src[lane + 32 * e] * a;
-        }
+        const float* base = red + rl * (DH + 2);
+        const int stride = p.tile_rows * (DH + 2);
+        merge_partials<DH>(m[i], l[i], acc[i], p.ks, lane,
+                           [&](int k, int e) { return base[k * stride + e]; });
       }
     }
   }
 
+  // query row (index into (B, QW, H)) of the tile's row rl
+  auto row_of = [&](int rl) -> size_t {
+    const int r = r0 + rl;
+    return (static_cast<size_t>(b) * p.QW + r / g) * p.H + hk * g + r % g;
+  };
+  if (!merged) {
+    if (ks_id == 0) {
+#pragma unroll
+      for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+        const int rl = rg + i * p.nwr;
+        if (rl >= tr) break;
+        write_row<T, DH>(p, row_of(rl), lane, m[i], l[i], acc[i]);
+      }
+    }
+    return;
+  }
+  // this split's partials, unnormalized, to (B, splits, QW * H, DH + 2)
+  const int qwh = p.QW * p.H;
+  const size_t stride = static_cast<size_t>(qwh) * (DH + 2);
+  auto partial = [&](int rl) {  // the row's partial of split 0
+    return p.ws + static_cast<size_t>(b) * p.splits * stride +
+           row_of(rl) % qwh * (DH + 2);
+  };
   if (ks_id == 0) {
-    T* out = static_cast<T*>(p.out);
 #pragma unroll
     for (int i = 0; i < kMaxRowsPerWarp; ++i) {
       const int rl = rg + i * p.nwr;
       if (rl >= tr) break;
-      const int r = r0 + rl;
-      const float lsafe = l[i] == 0.f ? 1.f : l[i];  // dead rows -> 0
-      const size_t row = (static_cast<size_t>(b) * p.QW + r / g) * p.H +
-                         hk * g + r % g;
-      T* dst = out + row * DH;
+      float* dst = partial(rl) + sp * stride;
 #pragma unroll
-      for (int e = 0; e < kDimsPerLane; ++e)
-        dst[lane + 32 * e] = from_f32<T>(acc[i][e] / lsafe);
-      if (p.m_out != nullptr && lane == 0) {  // K1s: m, l are warp-uniform
-        p.m_out[row] = m[i];
-        p.l_out[row] = l[i];
+      for (int e = 0; e < kDimsPerLane; ++e) dst[lane + 32 * e] = acc[i][e];
+      if (lane == 0) {
+        dst[DH] = m[i];
+        dst[DH + 1] = l[i];
       }
     }
   }
+  __syncthreads();
+  __shared__ int last_split;
+  const int group = (b * p.HKV + hk) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) {
+    last_split =
+        hopper::arrive_count(&p.counters[group]) == live_splits - 1;
+    if (last_split) hopper::acquire_fence();
+  }
+  __syncthreads();
+  if (!last_split) return;
+  if (ks_id == 0) {   // the last split merges every split's partial
+#pragma unroll
+    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+      const int rl = rg + i * p.nwr;
+      if (rl >= tr) break;
+      const float* base = partial(rl);
+      float mm = __ldcg(base + DH), ll = __ldcg(base + DH + 1);
+      float aa[kDimsPerLane];
+#pragma unroll
+      for (int e = 0; e < kDimsPerLane; ++e)
+        aa[e] = __ldcg(base + lane + 32 * e);
+      merge_partials<DH>(mm, ll, aa, live_splits, lane, [&](int k, int e) {
+        return __ldcg(base + k * stride + e);
+      });
+      write_row<T, DH>(p, row_of(rl), lane, mm, ll, aa);
+    }
+  }
+  if (threadIdx.x == 0) p.counters[group] = 0;  // ready for the next call
 }
 
 template <typename T, typename P, int DH>
@@ -471,11 +589,13 @@ int run(const void* q, const void* pages_k, const void* pages_v,
         const void* kv_lens, const void* q_lens, void* out, void* m_out,
         void* l_out, int dtype, int B,
         int QW, int H, int HKV, int DH, int N, int BS, int NB, int layer,
-        float scale, void* stream) {
+        float scale, int splits, void* ws, void* counters, void* stream) {
   const bool quant = scales_k != nullptr;
   if ((DH != 64 && DH != 128) || (dtype != 0 && dtype != 1) || BS < 4 ||
       BS > 32 || (quant && BS % 4 != 0) || HKV < 1 || H % HKV != 0 ||
-      layer < 0 || (m_out == nullptr) != (l_out == nullptr))
+      layer < 0 || (m_out == nullptr) != (l_out == nullptr) || splits < 1 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr || splits > NB)) ||
+      static_cast<long long>(B) * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || QW == 0) return static_cast<int>(cudaSuccess);
   Params p;
@@ -500,6 +620,10 @@ int run(const void* q, const void* pages_k, const void* pages_v,
   p.layer_off_s = static_cast<long long>(layer) * N * HKV * BS;
   p.layer_off = p.layer_off_s * DH;
   p.scale = scale;
+  p.splits = splits;
+  p.pps = (NB + splits - 1) / splits;
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
   const int rows = QW * p.g;
   p.tile_rows = rows < kMaxTileRows ? rows : kMaxTileRows;
   int nwr = 1;
@@ -512,21 +636,25 @@ int run(const void* q, const void* pages_k, const void* pages_v,
   const size_t elem = quant ? 1 : (dtype == 0 ? 4 : 2);
   const size_t row_stride = DH + 16 / elem;
   // pages staged per set: one per idle-of-rows warp, within a 160 KB budget
-  // for the two stages (f32 pages of 128 dims are 16 KB per K+V pair); the
-  // int8 pages' scale rows count against it too
-  const size_t page_data = 2 * 2 * static_cast<size_t>(BS) * row_stride * elem;
-  const size_t page_scales = quant ? 2 * 2 * static_cast<size_t>(BS) * 4 : 0;
-  const size_t set_page = page_data + page_scales;
+  // for two stages (f32 pages of 128 dims are 16 KB per K+V pair); the int8
+  // pages' scale rows count against it too. A split of at most one set
+  // needs one stage.
+  const size_t page_data = 2 * static_cast<size_t>(BS) * row_stride * elem;
+  const size_t page_scales = quant ? 2 * static_cast<size_t>(BS) * 4 : 0;
+  const size_t set_page = 2 * (page_data + page_scales);
   p.ks = kWarps / nwr;
   while (p.ks > 1 && p.ks * set_page > kStagingBudget) p.ks /= 2;
   p.ppw = kPagesPerSet / p.ks > 1 ? kPagesPerSet / p.ks : 1;
   while (p.ppw > 1 && p.ks * p.ppw * set_page > kStagingBudget) p.ppw /= 2;
-  const size_t staging = static_cast<size_t>(p.ks) * p.ppw * page_data;
+  p.stages = p.pps <= p.ks * p.ppw ? 1 : 2;
+  const size_t staging =
+      static_cast<size_t>(p.stages) * p.ks * p.ppw * page_data;
   const size_t merge = static_cast<size_t>(p.ks) * p.tile_rows * (DH + 2) * 4;
   const size_t smem = static_cast<size_t>(p.tile_rows) * DH * 4 +
-                      static_cast<size_t>(p.ks) * p.ppw * page_scales +
+                      static_cast<size_t>(p.stages) * p.ks * p.ppw *
+                          page_scales +
                       (staging > merge ? staging : merge);
-  const dim3 grid((rows + p.tile_rows - 1) / p.tile_rows, HKV, B);
+  const dim3 grid((rows + p.tile_rows - 1) / p.tile_rows, HKV, B * splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       dtype == 0 ? dispatch<float>(p, quant, DH, grid, smem, st)
@@ -537,19 +665,25 @@ int run(const void* q, const void* pages_k, const void* pages_v,
 }  // namespace
 
 // C entries for ctypes. dtype (of q and out): 0 = float32, 1 = bfloat16.
-// Every pointer is a device pointer of a contiguous tensor; the launch goes
-// on `stream`. Each returns the cudaError_t of the launch (0 = success).
+// Every pointer is a device pointer of a contiguous tensor; the launches go
+// on `stream`. Each returns the cudaError_t of the launches (0 = success).
 // m_out / l_out are both null (K1, K2) or both f32 (B, QW, H, 1) (K1s).
+// q_lens may be null: every row then carries QW tokens (the decode form).
+// splits (1 to NB, B * splits <= 65535) blocks share each row's table; with
+// splits > 1, ws is an f32 workspace of B * splits * QW * H * (DH + 2) and
+// counters B * H_kv * ceil(QW * H / H_kv / 16) int32 zeros (the kernel
+// leaves them 0).
 
 // K1: pages of q's dtype.
 extern "C" int tnn_paged_attention(
     const void* q, const void* pages_k, const void* pages_v,
     const void* tables, const void* kv_lens, const void* q_lens, void* out,
     void* m_out, void* l_out, int dtype, int B, int QW, int H, int HKV,
-    int DH, int N, int BS, int NB, int layer, float scale, void* stream) {
+    int DH, int N, int BS, int NB, int layer, float scale, int splits,
+    void* ws, void* counters, void* stream) {
   return run(q, pages_k, pages_v, nullptr, nullptr, tables, kv_lens, q_lens,
              out, m_out, l_out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer,
-             scale, stream);
+             scale, splits, ws, counters, stream);
 }
 
 // K2: int8 pages (L, N, HKV, BS, DH) with f32 scales (L, N, HKV, BS, 1).
@@ -558,11 +692,12 @@ extern "C" int tnn_paged_attention_int8(
     const void* scale_k, const void* scale_v, const void* tables,
     const void* kv_lens, const void* q_lens, void* out, void* m_out,
     void* l_out, int dtype, int B, int QW, int H, int HKV, int DH, int N,
-    int BS, int NB, int layer, float scale, void* stream) {
+    int BS, int NB, int layer, float scale, int splits, void* ws,
+    void* counters, void* stream) {
   if (scale_k == nullptr || scale_v == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return run(q, data_k, data_v, static_cast<const float*>(scale_k),
              static_cast<const float*>(scale_v), tables, kv_lens, q_lens, out,
              m_out, l_out, dtype, B, QW, H, HKV, DH, N, BS, NB, layer, scale,
-             stream);
+             splits, ws, counters, stream);
 }

@@ -15,7 +15,10 @@ over int8 ``QuantPages`` the one that replaces ``_attn_kernel_int8``
 (counted by ``paged_attention.int8_launches``). With ``return_stats`` the
 same kernels also write each query row's online-softmax state (m, l),
 which the TPU kernel emits with ``stats=True`` (K1s, counted by
-``paged_attention.stats_launches`` and ``int8_stats_launches``). On CPU
+``paged_attention.stats_launches`` and ``int8_stats_launches``; a call
+is one launch, whatever its split-KV count).
+``plan_paged_splits`` is the rule that splits each row's table over
+blocks (split-KV), from host-known shapes only. On CPU
 tensors it computes ``paged_attention_reference``, the plain PyTorch
 version with the same signature and masking (gather the tables
 contiguous, masked softmax; with stats, the unnormalized form of JAX's
@@ -45,6 +48,34 @@ from . import runtime
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel's blocks (csrc/paged_attention.cu): a tile of up to 16 query
+# rows (token t, head of the GQA group) of one row and kv head. Split-KV
+# gives each split MIN_SPLIT_PAGES table entries (one staged set of 8
+# pages), unless that makes more than SPLIT_BLOCKS_PER_SM blocks per SM.
+TILE_ROWS = 16
+SPLIT_BLOCKS_PER_SM = 12
+MIN_SPLIT_PAGES = 8
+
+
+def plan_paged_splits(batch: int, q_width: int, heads: int, kv_heads: int,
+                      table_width: int, sms: int = runtime.H100_SMS):
+    """(splits, pages per split): how many blocks share each row's block
+    table, from shapes the host knows (never ``kv_lens``, so the launch
+    needs no sync). Split sp takes table entries [sp * pps, (sp + 1) *
+    pps). Each split takes ``MIN_SPLIT_PAGES`` entries, one staged set,
+    as long as the query tiles x kv heads x rows x splits stay within
+    ``SPLIT_BLOCKS_PER_SM`` x ``sms`` blocks; then the split count is cut
+    to the fewest slices of that length, so none is empty."""
+    g = heads // kv_heads
+    tiles = -(-q_width * g // TILE_ROWS) * kv_heads * batch
+    if tiles == 0 or table_width <= MIN_SPLIT_PAGES:
+        return 1, table_width
+    splits = min(SPLIT_BLOCKS_PER_SM * sms // tiles,
+                 -(-table_width // MIN_SPLIT_PAGES), 65535 // batch)
+    splits = max(splits, 1)
+    pps = -(-table_width // splits)
+    return -(-table_width // pps), pps
 
 
 class QuantPages(NamedTuple):
@@ -109,9 +140,7 @@ def _check_args(q, pages_k, pages_v, block_tables, kv_lens, q_lens, scale):
     if block_tables.shape[0] != b or tuple(kv_lens.shape) != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / kv_lens "
                          f"{tuple(kv_lens.shape)} do not match batch {b}")
-    if q_lens is None:
-        q_lens = torch.full((b,), qw, dtype=torch.int32, device=q.device)
-    elif tuple(q_lens.shape) != (b,):
+    if q_lens is not None and tuple(q_lens.shape) != (b,):
         raise ValueError(f"q_lens {tuple(q_lens.shape)} does not match "
                          f"batch {b}")
     if scale is None:
@@ -138,7 +167,8 @@ def _attention_reference(q, pages_k, pages_v, block_tables, kv_lens, q_lens,
     qg = q.reshape(b, qw, hkv, g, dh)
     s = torch.einsum("bqhgd,bhtd->bqhgt", qg.float(), k.float()) * scale
     kv_lens = kv_lens.long()
-    q_lens = q_lens.long()
+    q_lens = torch.full_like(kv_lens, qw) if q_lens is None \
+        else q_lens.long()
     start = (kv_lens - q_lens)[:, None]                    # (B, 1)
     tpos = torch.arange(qw, device=q.device)[None, :]      # (1, Q)
     kpos = torch.arange(t, device=q.device)
@@ -252,8 +282,10 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
         raise ValueError(f"paged_attention kernel needs CUDA tensors; q is "
                          f"on {q.device}")
     quant = isinstance(pages_k, QuantPages)
-    tensors = {"q": q, "block_tables": block_tables, "kv_lens": kv_lens,
-               "q_lens": q_lens}
+    # q_lens None (every row QW tokens) goes to the kernel as a null pointer
+    tensors = {"q": q, "block_tables": block_tables, "kv_lens": kv_lens}
+    if q_lens is not None:
+        tensors["q_lens"] = q_lens
     if quant:
         tensors.update(data_k=pages_k.data, scale_k=pages_k.scale,
                        data_v=pages_v.data, scale_v=pages_v.scale)
@@ -265,7 +297,7 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name in ("block_tables", "kv_lens", "q_lens"):
-        if tensors[name].dtype != torch.int32:
+        if name in tensors and tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got "
                              f"{tensors[name].dtype}")
     if q.dtype not in _KERNEL_DTYPES:
@@ -288,16 +320,29 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
     if not 0 <= int(layer) < nl:
         raise ValueError(f"layer {layer} out of range for {nl} layers")
     out = torch.empty_like(q)
+    nb = block_tables.shape[1]
+    splits, _ = plan_paged_splits(b, qw, h, hkv, nb,
+                                  runtime.sm_count(q.device))
+    ws = counters = None
+    if splits > 1:   # the partials, and one counter per (tile, kv head, row)
+        ws = torch.empty((b, splits, qw * h, dh + 2), dtype=torch.float32,
+                         device=q.device)
+        tiles = -(-qw * (h // hkv) // TILE_ROWS)
+        counters = runtime.zeroed_counters("paged_attention", q.device,
+                                           tiles * hkv * b)
     m_ptr = l_ptr = None          # null: the kernel writes no stats
     if stats:
         m = torch.empty((b, qw, h, 1), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)  # noqa: E741
         m_ptr, l_ptr = m.data_ptr(), l.data_ptr()
     lib = _library()
-    common = (block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
+    common = (block_tables.data_ptr(), kv_lens.data_ptr(),
+              None if q_lens is None else q_lens.data_ptr(),
               out.data_ptr(), m_ptr, l_ptr, _KERNEL_DTYPES[q.dtype], b, qw,
-              h, hkv, dh, n, bs, block_tables.shape[1], int(layer),
-              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+              h, hkv, dh, n, bs, nb, int(layer), float(scale), splits,
+              None if ws is None else ws.data_ptr(),
+              None if counters is None else counters.data_ptr(),
+              torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
         err = lib.tnn_paged_attention_int8(
             q.data_ptr(), pages_k.data.data_ptr(), pages_v.data.data_ptr(),
@@ -321,8 +366,8 @@ def _library():
     for fn, pages in ((lib.tnn_paged_attention, 2),
                       (lib.tnn_paged_attention_int8, 4)):
         if fn.argtypes is None:
-            fn.argtypes = [ptr] * (7 + pages) + [i] * 10 + [ctypes.c_float,
-                                                            ptr]
+            fn.argtypes = [ptr] * (7 + pages) + [i] * 10 + [
+                ctypes.c_float, i, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
     return lib
 

@@ -20,6 +20,10 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
+# the H100 SXM's streaming multiprocessors: what the launch plans of the
+# wrappers assume where no card is at hand (the CPU tests)
+H100_SMS = 132
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # --split-compile=0 spreads each source's device-code optimisation over
 # every core (on an 8-core H100 host: 7.5 s -> 5.7 s for flash_attention.cu)
@@ -85,3 +89,38 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached): the launch
+    plans size their grids by it."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+_counters: Dict[tuple, "object"] = {}
+
+
+def zeroed_counters(name: str, device, n: int):
+    """A persistent int32 tensor of at least ``n`` zeros on ``device``, one
+    per kernel name: the arrival counters of a kernel whose last block of a
+    group reduces the group's partials. Such a kernel leaves its counters 0
+    again, so the buffer is filled once, when it is made or grown."""
+    import torch
+
+    key = (name, str(torch.device(device)))
+    t = _counters.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = t
+    return t
