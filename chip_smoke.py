@@ -35,10 +35,11 @@ numbers on its own line:
 9. int8_matmul: the weight-only int8 matmul (K3) against its plain version
    at GPT-2 small's five matmul shapes at 512 rows, the head at the 8 rows
    the serving path gives it, and a ragged case, with each shape's body,
-   tile and K split (bf16 GPT-2 shapes must run the tensor-core body, as
-   the profiler's kernel names show), the repeat equal bit for bit, times
+   tile (bf16 GPT-2 shapes must run the tensor-core body, as the
+   profiler's kernel names show), the repeat equal bit for bit, times
    beside the plain version's, ``torch.mm``'s and the bound, and K3's time
-   over the 49 calls of one 512-row int8 serving step;
+   over the 49 calls of one 512-row int8 serving step, on the planned
+   bodies and on the SIMT body alone;
 10. serving_int8: the serving phase's traffic with ``kv_dtype="int8",
    quant_weights=True``: K2 and K3 launch counts, the float model's
    teacher-forced closeness gate and a decode profile; then the CLI with
@@ -1593,7 +1594,7 @@ def phase_int8_matmul(results):
             torch.cuda.synchronize()
             if qm.int8_matmul.launches != before + 1:
                 raise AssertionError(f"int8_matmul {name}: K3 did not launch")
-            # split partials sum in a fixed order: the same bits again
+            # each K sum runs in a fixed order: the same bits again
             repeat_equal = torch.equal(
                 got, qm.int8_matmul(x, iw.q, iw.scale, **kw))
             ref = qm.int8_matmul_reference(x, iw.q, iw.scale, **kw).float()
@@ -1606,7 +1607,6 @@ def phase_int8_matmul(results):
                 and tuple(got.shape) == (m, n) and repeat_equal
             entry = dict(case=name, m=m, k=k, n=n, out=str(got.dtype),
                          body=plan.body, tile_m=plan.tile_m,
-                         splits=plan.splits,
                          blocks=plan.blocks(m, n), max_abs_err=err,
                          limit_used=used, repeat_equal=repeat_equal, ok=ok)
             if not ok:
@@ -1660,11 +1660,23 @@ def phase_int8_matmul(results):
         del iw, x32
         torch.cuda.empty_cache()
     results["int8_matmul"]["max_abs_err"] = worst
-    # K3's device time in one 512-row int8 serving step (49 calls)
-    step_ms, step_events, per_name = time_ms(k3_wide_step(dev), iters=10,
-                                             warmup=2)
-    log("int8_matmul_wide_step", calls=49, ms=step_ms, events_ms=step_events,
-        kernels={kernel_label(kn): v for kn, v in per_name.items()})
+    # K3's device time in one 512-row int8 serving step (49 calls): on the
+    # bodies the plan picks, and on the SIMT body alone, which ran every
+    # shape before the tensor-core body came (the same kernel, unchanged)
+    step = k3_wide_step(dev)
+    plan = qm.plan_int8_matmul
+    try:
+        for before in (False, True):
+            if before:
+                qm.plan_int8_matmul = lambda *a, **kw: qm.MatmulPlan(
+                    "simt", qm.SIMT_TILE_M)
+            step_ms, step_events, per_name = time_ms(step, iters=10,
+                                                     warmup=2)
+            log("int8_matmul_wide_step", calls=49, all_simt=before,
+                ms=step_ms, events_ms=step_events,
+                kernels={kernel_label(kn): v for kn, v in per_name.items()})
+    finally:
+        qm.plan_int8_matmul = plan
     qm.int8_matmul.launches = 0   # comparison launches do not count
 
 

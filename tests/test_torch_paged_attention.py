@@ -214,7 +214,8 @@ def test_wrapper_rejects_bad_shapes():
 
 def force_splits(monkeypatch, splits):
     """Make the wrapper split every row's table into ``splits`` ranges
-    (None keeps the rule)."""
+    (None keeps the rule). The paged-stats and int8 serving tests import
+    it too."""
     if splits is not None:
         monkeypatch.setattr(tpa, "plan_paged_splits",
                             lambda b, qw, h, hkv, nb, sms=None:

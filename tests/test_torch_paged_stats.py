@@ -30,18 +30,10 @@ import torch
 from tnn_tpu.ops.pallas import paged_attention as jpa
 from tnn_tpu_torch.ops import paged_attention as tpa
 from tnn_tpu_torch.ops.softmax_merge import NEG_INF, merge_shards
+from test_torch_paged_attention import force_splits
 
 ATOL = 2e-5
 STAT_RTOL = 1e-5
-
-
-def force_splits(monkeypatch, splits):
-    """Make the wrapper split every row's table into ``splits`` ranges
-    (None keeps the rule)."""
-    if splits is not None:
-        monkeypatch.setattr(tpa, "plan_paged_splits",
-                            lambda b, qw, h, hkv, nb, sms=None:
-                            (splits, -(-nb // splits)))
 
 
 def _case(seed, *, block_size, heads, q_width, batch=5, num_layers=2,

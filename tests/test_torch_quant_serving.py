@@ -43,6 +43,7 @@ from tnn_tpu_torch.ops import paged_attention as tpa
 from tnn_tpu_torch.ops import quant_matmul as tqm
 from tnn_tpu_torch.serving.engine import InferenceEngine
 from tnn_tpu_torch.serving.kv_pool import PagedKVPool
+from test_torch_paged_attention import force_splits
 
 TINY = dict(vocab_size=128, max_len=64, num_layers=2, d_model=32,
             num_heads=2)
@@ -52,15 +53,6 @@ ENGINE = dict(num_blocks=14, block_size=4, max_batch_size=4, chunk_size=8)
 QENGINE = dict(num_blocks=48, block_size=8, max_batch_size=8, chunk_size=64)
 ATOL = 1e-5
 MARGIN = 1e-3
-
-
-def force_splits(monkeypatch, splits):
-    """Make the wrapper split every row's table into ``splits`` ranges
-    (None keeps the rule)."""
-    if splits is not None:
-        monkeypatch.setattr(tpa, "plan_paged_splits",
-                            lambda b, qw, h, hkv, nb, sms=None:
-                            (splits, -(-nb // splits)))
 
 
 # -- the int8 pool ------------------------------------------------------------
@@ -482,7 +474,7 @@ def test_int8_attention_kernel_matches_plain_on_card(dtype, head_dim, splits,
     assert ((out.float() - plain).abs() <= limit).all()
 
 
-# K3's launch plan: the fixed rule that picks the body, tile and K split
+# K3's launch plan: the fixed rule that picks the body and the tile
 GPT2_SMALL_MATMULS = {"qkv": (768, 2304), "out": (768, 768),
                       "fc": (768, 3072), "proj": (3072, 768),
                       "head": (768, 50257)}
@@ -498,19 +490,10 @@ def test_int8_matmul_plan_puts_bf16_gpt2_on_the_tensor_cores(shape, rows):
     assert plan.tile_m in tqm.TC_TILES_M
     if rows <= 64:   # the serving head's 8 rows: the smallest wgmma N
         assert plan.tile_m == min(t for t in tqm.TC_TILES_M if t >= rows)
-    # what the C entry accepts: 1 <= splits <= chunks, and no empty slice
-    chunks = -(-k // tqm.TC_TILE_K)
-    per = -(-chunks // plan.splits)
-    assert 1 <= plan.splits <= chunks and (plan.splits - 1) * per < chunks
-    if plan.splits > 1:
-        assert per >= tqm.MIN_SPLIT_CHUNKS
     if rows == 512:
-        # every wide-step shape keeps the H100's 132 SMs busy: at least a
-        # block for every two SMs, and a block for each where K is long
-        # enough to split (proj, K = 3072)
+        # every wide-step shape gives at least a block for every two of the
+        # H100's 132 SMs
         assert plan.blocks(rows, n) >= 132 // 2
-        if chunks >= 2 * tqm.MIN_SPLIT_CHUNKS:
-            assert plan.blocks(rows, n) >= 132
 
 
 @pytest.mark.parametrize("m,k,n,xdtype", [
@@ -519,23 +502,26 @@ def test_int8_matmul_plan_puts_bf16_gpt2_on_the_tensor_cores(shape, rows):
     (64, 12, 256, torch.bfloat16), (16, 0, 16, torch.bfloat16)])
 def test_int8_matmul_plan_keeps_f32_and_unaligned_k_on_simt(m, k, n, xdtype):
     plan = tqm.plan_int8_matmul(m, n, k, xdtype)
-    assert plan == tqm.MatmulPlan("simt", tqm.SIMT_TILE_M, 1)
+    assert plan == tqm.MatmulPlan("simt", tqm.SIMT_TILE_M)
 
 
 def test_int8_matmul_plan_reads_the_sm_count():
-    # a smaller card fills with fewer blocks: no K split, larger tiles
+    # a smaller card fills with fewer blocks: larger tiles
     big = tqm.plan_int8_matmul(512, 768, 3072, torch.bfloat16, sms=132)
     small = tqm.plan_int8_matmul(512, 768, 3072, torch.bfloat16, sms=24)
-    assert small.splits == 1 and big.splits > 1
     assert small.tile_m == 128 and big.tile_m == 64
-    assert small.blocks(512, 768) >= 24 and big.blocks(512, 768) >= 132
+    assert small.blocks(512, 768) == 48 and big.blocks(512, 768) == 96
 
 
-def test_int8_matmul_plan_splits_only_long_k():
-    # out (K = 768) stays whole at 96 blocks; a 2056-deep K splits
-    assert tqm.plan_int8_matmul(512, 768, 768, torch.bfloat16).splits == 1
-    plan = tqm.plan_int8_matmul(40, 200, 2056, torch.bfloat16)
-    assert plan.splits == 2 and plan.tile_m == 64
+@pytest.mark.parametrize("rows,n,tile_m", [
+    (1, 768, 8), (8, 50257, 8), (9, 768, 16), (17, 768, 32), (33, 768, 64),
+    (64, 2304, 64), (65, 768, 64), (65, 50257, 128), (300, 768, 64),
+    (512, 2304, 128)])
+def test_int8_matmul_plan_tile_follows_rows(rows, n, tile_m):
+    # up to 64 rows the smallest wgmma N that holds them; above, 128 where
+    # that still gives half the SMs a block
+    assert tqm.plan_int8_matmul(rows, n, 768, torch.bfloat16) \
+        == tqm.MatmulPlan("wgmma", tile_m)
 
 
 @pytest.mark.cuda
@@ -544,7 +530,7 @@ def test_int8_matmul_plan_splits_only_long_k():
                                    (512, 768, 3072), (512, 3072, 768),
                                    (512, 768, 50257), (40, 2056, 200)],
                          ids=["qkv", "ragged", "head8", "out", "fc", "proj",
-                              "head512", "split_edges"])
+                              "head512", "edges"])
 @pytest.mark.parametrize("xdtype,out", [("bfloat16", None),
                                         ("bfloat16", "float32"),
                                         ("float32", None)])
@@ -557,14 +543,11 @@ def test_int8_matmul_kernel_matches_plain_on_card(m, k, n, xdtype, out):
         .to(getattr(torch, xdtype))
     iw = tqm.quantize_int8(w)
     odt = None if out is None else getattr(torch, out)
-    plan = tqm.plan_int8_matmul(m, n, k, x.dtype)
-    if (m, k, n) == (40, 2056, 200):   # M, N and K edges, split over K
-        assert plan.body == "simt" or plan.splits > 1
     before = tqm.int8_matmul.launches
     got = tqm.int8_matmul(x, iw.q, iw.scale, n=n, k=k, out_dtype=odt)
     torch.cuda.synchronize()
     assert tqm.int8_matmul.launches == before + 1
-    # the same bits on every run: split partials sum in a fixed order
+    # the same bits on every run: each output's K sum in a fixed order
     again = tqm.int8_matmul(x, iw.q, iw.scale, n=n, k=k, out_dtype=odt)
     torch.cuda.synchronize()
     assert torch.equal(got, again)

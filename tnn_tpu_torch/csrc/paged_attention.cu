@@ -584,6 +584,21 @@ cudaError_t dispatch(const Params& p, bool quant, int DH, dim3 grid,
                   : launch<T, T, 128>(p, grid, smem, st);
 }
 
+// Query rows a block takes: a row's QW tokens times the g heads of a kv
+// head's group, flattened, up to kMaxTileRows.
+int tile_rows_of(int QW, int g) {
+  return QW * g < kMaxTileRows ? QW * g : kMaxTileRows;
+}
+
+// Blocks of one split: query tiles x kv heads x rows, each with its own
+// arrival counter when the table splits.
+long long groups_of(int B, int QW, int H, int HKV) {
+  const int rows = QW * (H / HKV);
+  if (rows == 0) return 0;
+  const int tr = tile_rows_of(QW, H / HKV);
+  return static_cast<long long>((rows + tr - 1) / tr) * HKV * B;
+}
+
 int run(const void* q, const void* pages_k, const void* pages_v,
         const float* scales_k, const float* scales_v, const void* tables,
         const void* kv_lens, const void* q_lens, void* out, void* m_out,
@@ -625,7 +640,7 @@ int run(const void* q, const void* pages_k, const void* pages_v,
   p.ws = static_cast<float*>(ws);
   p.counters = static_cast<int*>(counters);
   const int rows = QW * p.g;
-  p.tile_rows = rows < kMaxTileRows ? rows : kMaxTileRows;
+  p.tile_rows = tile_rows_of(QW, p.g);
   int nwr = 1;
   while (nwr * 2 <= kWarps && nwr * 2 <= p.tile_rows) nwr *= 2;
   p.nwr = nwr;
@@ -671,8 +686,16 @@ int run(const void* q, const void* pages_k, const void* pages_v,
 // q_lens may be null: every row then carries QW tokens (the decode form).
 // splits (1 to NB, B * splits <= 65535) blocks share each row's table; with
 // splits > 1, ws is an f32 workspace of B * splits * QW * H * (DH + 2) and
-// counters B * H_kv * ceil(QW * H / H_kv / 16) int32 zeros (the kernel
-// leaves them 0).
+// counters tnn_paged_attention_counters(B, QW, H, HKV) int32 zeros (the
+// kernel leaves them 0).
+
+// The arrival counters a split launch of these shapes needs (-1 for shapes
+// no launch takes).
+extern "C" long long tnn_paged_attention_counters(int B, int QW, int H,
+                                                  int HKV) {
+  if (B < 0 || QW < 0 || HKV < 1 || H % HKV != 0) return -1;
+  return groups_of(B, QW, H, HKV);
+}
 
 // K1: pages of q's dtype.
 extern "C" int tnn_paged_attention(

@@ -15,7 +15,7 @@
 // hundreds the operations (2*M*N*K on the bf16 tensor cores).
 //
 // Two bodies; the caller (ops/quant_matmul.py:plan_int8_matmul) picks one
-// by a fixed rule, with its tile and split, and this entry refuses what the
+// by a fixed rule, with its tile, and this entry refuses what the
 // chosen body cannot run:
 //
 // * the tensor-core body (bf16 x, K a positive multiple of 8, which TMA's
@@ -30,11 +30,8 @@
 //   per-accumulator-row multiply in the epilogue, and the stores are masked
 //   (the head's f32 rows, 50257 x 4 B, are not 16-byte aligned, so no TMA
 //   store). tile_m, the wgmma N, is 8 to 128, so the serving head's 8 rows
-//   stream the weight at full width. Where the output tiles are too few to
-//   fill the card and K is long, the K chunks split over blocks; each split
-//   writes an f32 partial to a workspace and the tile's last split sums the
-//   partials in split order, scales and casts: no float atomics, the same
-//   bits on every run.
+//   stream the weight at full width. Each block runs the whole K, so the
+//   same bits come out on every run.
 // * the SIMT body (f32 x, or bf16 x with K % 8 != 0): the TPU grid's
 //   sequential K axis (an f32 VMEM accumulator carried across grid steps)
 //   becomes a loop inside each block. One block of 256 threads computes a
@@ -47,11 +44,12 @@
 //
 // On the H100 (700 W): 64 weight rows a block (one consumer warpgroup) beat
 // 128 (two) at every GPT-2 shape; a 128-row x tile beat 64 where it still
-// gives half the SMs a block; a K split paid only at K = 3072 (and there
-// barely: the 64 x 64 tiles re-read x from L2 for every 64 output
-// columns). ptxas (-Xptxas -v): 64 to 123 registers without a split, 143
-// and 240 with one (tile_m 64 and 128, the sums of the partials beside the
-// accumulators), no spills, no serialized products.
+// gives half the SMs a block; K is not split: a K split (f32 partials
+// summed in split order by the tile's last split) gained nothing beyond
+// the noise at any GPT-2 shape, and 3 splits of proj (K = 3072) cost
+// about 20%.
+// ptxas (-Xptxas -v): 64 to 123 registers, no spills, no serialized
+// products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,26 +182,18 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w, uint32_t sel) {
 }
 
 // One block: output columns (weight rows) n0 .. n0 + 63, x rows m0 .. m0 +
-// BM - 1, the K chunks of split blockIdx.z. The consumer warpgroup widens
-// the next chunk's A fragments while the tensor cores take this chunk's
-// four products (two register sets; the next stage is waited for before
-// the products are issued, so no branch lies between issue and wait).
-// With kSplit, every split writes its unscaled f32 sums to the (splits, M,
-// N) workspace, and the last split of an output tile to arrive (an integer
-// atomic on the tile's counter, which it resets to 0) sums the tile's
-// partials in split order, scales and casts: the same bits on every run
-// whatever the arrival order.
-template <int BM, typename TO, bool kSplit>
+// BM - 1, the whole K. The consumer warpgroup widens the next chunk's A
+// fragments while the tensor cores take this chunk's four products (two
+// register sets; the next stage is waited for before the products are
+// issued, so no branch lies between issue and wait).
+template <int BM, typename TO>
 __global__ void __launch_bounds__(kTcThreads)
     int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
                              const __grid_constant__ CUtensorMap tx,
                              const float* __restrict__ scale,
-                             TO* __restrict__ out, float* __restrict__ ws,
-                             int* __restrict__ counters, int M, int N, int K,
-                             int chunks_per_split) {
+                             TO* __restrict__ out, int M, int N, int K) {
   using C = TcTiles<BM>;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ int last_split;
   uint8_t* wsm = hopper::align_1024(smem_raw);
   uint8_t* xsm = wsm + kStages * kWBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(xsm + kStages * C::kXBytes);
@@ -211,9 +201,7 @@ __global__ void __launch_bounds__(kTcThreads)
 
   const int n0 = blockIdx.x * kTileN;
   const int m0 = blockIdx.y * BM;
-  const int nchunks = (K + kTileK - 1) / kTileK;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int nk = max(0, min(nchunks, c_begin + chunks_per_split) - c_begin);
+  const int nk = (K + kTileK - 1) / kTileK;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -230,7 +218,7 @@ __global__ void __launch_bounds__(kTcThreads)
     if (lane == 0) {
       for (int i = 0; i < nk; ++i) {
         const int st = i % kStages;
-        const int k0 = (c_begin + i) * kTileK;
+        const int k0 = i * kTileK;
         hopper::mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[st], C::kStageBytes);
         hopper::tma_load_2d(wsm + st * kWBytes, &tw, &full[st], k0, n0);
@@ -313,57 +301,13 @@ __global__ void __launch_bounds__(kTcThreads)
   const int na = n0 + ra;
   const float sc[2] = {na < N ? scale[na] : 0.f,
                        na + 8 < N ? scale[na + 8] : 0.f};
-  if constexpr (kSplit) {
-    const size_t plane = static_cast<size_t>(M) * N;
 #pragma unroll
-    for (int e = 0; e < BM / 2; ++e) {
-      const int n = na + hopper::acc_row(e);
-      const int m = m0 + hopper::acc_col(e) + 2 * c;
-      if (n < N && m < M)
-        ws[blockIdx.z * plane + static_cast<size_t>(m) * N + n] = acc[e];
-    }
-    hopper::named_sync(1, kWg);
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    if (threadIdx.x == 0) {
-      last_split = hopper::arrive_count(&counters[tile]) == gridDim.z - 1;
-      if (last_split) hopper::acquire_fence();
-    }
-    hopper::named_sync(1, kWg);
-    if (!last_split) return;
-    // sum in split order, this split's own sums from registers; per split
-    // the reads of all BM / 2 elements are in flight at once
-    float sum[BM / 2];
-    for (unsigned k = 0; k < gridDim.z; ++k) {
-#pragma unroll
-      for (int e = 0; e < BM / 2; ++e) {
-        const int n = na + hopper::acc_row(e);
-        const int m = m0 + hopper::acc_col(e) + 2 * c;
-        float v = acc[e];
-        if (k != blockIdx.z)
-          v = n < N && m < M
-                  ? __ldcg(ws + k * plane + static_cast<size_t>(m) * N + n)
-                  : 0.f;
-        sum[e] = k == 0 ? v : sum[e] + v;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < BM / 2; ++e) {
-      const int n = na + hopper::acc_row(e);
-      const int m = m0 + hopper::acc_col(e) + 2 * c;
-      if (n < N && m < M)
-        out[static_cast<size_t>(m) * N + n] =
-            from_f32<TO>(sum[e] * sc[(e >> 1) & 1]);
-    }
-    if (threadIdx.x == 0) counters[tile] = 0;  // ready for the next call
-  } else {
-#pragma unroll
-    for (int e = 0; e < BM / 2; ++e) {
-      const int n = na + hopper::acc_row(e);
-      const int m = m0 + hopper::acc_col(e) + 2 * c;
-      if (n < N && m < M)
-        out[static_cast<size_t>(m) * N + n] =
-            from_f32<TO>(acc[e] * sc[(e >> 1) & 1]);
-    }
+  for (int e = 0; e < BM / 2; ++e) {
+    const int n = na + hopper::acc_row(e);
+    const int m = m0 + hopper::acc_col(e) + 2 * c;
+    if (n < N && m < M)
+      out[static_cast<size_t>(m) * N + n] =
+          from_f32<TO>(acc[e] * sc[(e >> 1) & 1]);
   }
 }
 
@@ -385,16 +329,13 @@ struct TcArgs {
   const void* q;
   const float* scale;
   void* out;
-  float* ws;
-  int* counters;
-  int M, N, K, Kp, splits;
+  int M, N, K, Kp;
 };
 
-template <int BM, typename TO, bool kSplit>
-cudaError_t launch_tc_kernel(const CUtensorMap& tw, const CUtensorMap& tx,
-                             const TcArgs& a, int cps, cudaStream_t st) {
+template <int BM, typename TO>
+cudaError_t launch_tc(const TcArgs& a, cudaStream_t st) {
   using C = TcTiles<BM>;
-  auto kernel = int8_matmul_wgmma_kernel<BM, TO, kSplit>;
+  auto kernel = int8_matmul_wgmma_kernel<BM, TO>;
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -402,16 +343,6 @@ cudaError_t launch_tc_kernel(const CUtensorMap& tw, const CUtensorMap& tx,
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  const dim3 grid((a.N + kTileN - 1) / kTileN, (a.M + BM - 1) / BM,
-                  a.splits);
-  kernel<<<grid, kTcThreads, C::kSmem, st>>>(
-      tw, tx, a.scale, static_cast<TO*>(a.out), a.ws, a.counters, a.M, a.N,
-      a.K, cps);
-  return cudaGetLastError();
-}
-
-template <int BM, typename TO>
-cudaError_t launch_tc(const TcArgs& a, cudaStream_t st) {
   CUtensorMap tw, tx;
   cudaError_t e = hopper_host::rows_map_2d(
       &tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, a.N, a.K, a.Kp, kTileK,
@@ -421,10 +352,10 @@ cudaError_t launch_tc(const TcArgs& a, cudaStream_t st) {
                                  a.M, a.K, 2LL * a.K, kTileK, BM,
                                  CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return e;
-  const int nchunks = (a.K + kTileK - 1) / kTileK;
-  const int cps = (nchunks + a.splits - 1) / a.splits;
-  return a.splits == 1 ? launch_tc_kernel<BM, TO, false>(tw, tx, a, cps, st)
-                       : launch_tc_kernel<BM, TO, true>(tw, tx, a, cps, st);
+  const dim3 grid((a.N + kTileN - 1) / kTileN, (a.M + BM - 1) / BM);
+  kernel<<<grid, kTcThreads, C::kSmem, st>>>(
+      tw, tx, a.scale, static_cast<TO*>(a.out), a.M, a.N, a.K);
+  return cudaGetLastError();
 }
 
 template <typename TO>
@@ -444,31 +375,23 @@ cudaError_t dispatch_tc(int tile_m, const TcArgs& a, cudaStream_t st) {
 // bf16 out needs a bf16 x). x (M, K), q (N' >= N, Kp >= K) int8 with row
 // stride Kp, scale (N') f32, out (M, N); all device pointers of contiguous
 // tensors; the launch goes on `stream`. body 0 is the SIMT body (tiles 64 x
-// 64, one split); body 1 the tensor-core body: bf16 x, K a positive
-// multiple of 8, Kp a multiple of 16, x and q 16-byte aligned, tile_m 8,
-// 16, 32, 64 or 128, splits 1 to the number of 64-deep K chunks, and with
-// splits > 1 a (splits, M, N) f32 workspace `ws` and `counters`, one int32
-// per 64-column output tile, all 0 (the kernel leaves them 0).
+// 64); body 1 the tensor-core body: bf16 x, K a positive multiple of 8, Kp
+// a multiple of 16, x and q 16-byte aligned, tile_m 8, 16, 32, 64 or 128.
 // Returns the cudaError_t of the launch (0 = success); a request the body
 // cannot run is cudaErrorInvalidValue.
 extern "C" int tnn_int8_matmul(const void* x, const void* q, const void* scale,
                                void* out, int x_dtype, int out_dtype, int M,
                                int N, int K, int Kp, int body, int tile_m,
-                               int splits, void* ws, void* counters,
                                void* stream) {
   if (M < 0 || N < 0 || K < 0 || Kp < K || (x_dtype != 0 && x_dtype != 1) ||
       (out_dtype != 0 && out_dtype != x_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (body == 0) {
-    if (tile_m != kBM || splits != 1)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (tile_m != kBM) return static_cast<int>(cudaErrorInvalidValue);
   } else if (body == 1) {
-    const int nchunks = (K + kTileK - 1) / kTileK;
     const bool tile_ok = tile_m == 8 || tile_m == 16 || tile_m == 32 ||
                          tile_m == 64 || tile_m == 128;
     if (x_dtype != 1 || K == 0 || K % 8 != 0 || Kp % 16 != 0 || !tile_ok ||
-        splits < 1 || splits > nchunks ||
-        (splits > 1 && (ws == nullptr || counters == nullptr)) ||
         reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(q) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -479,9 +402,8 @@ extern "C" int tnn_int8_matmul(const void* x, const void* q, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (body == 1) {
-    const TcArgs a{x, q, static_cast<const float*>(scale), out,
-                   static_cast<float*>(ws), static_cast<int*>(counters),
-                   M, N, K, Kp, splits};
+    const TcArgs a{x, q, static_cast<const float*>(scale), out, M, N, K,
+                   Kp};
     e = out_dtype == 1 ? dispatch_tc<__nv_bfloat16>(tile_m, a, st)
                        : dispatch_tc<float>(tile_m, a, st);
   } else if (x_dtype == 0) {

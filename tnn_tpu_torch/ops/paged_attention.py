@@ -50,9 +50,10 @@ _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernel's blocks (csrc/paged_attention.cu): a tile of up to 16 query
-# rows (token t, head of the GQA group) of one row and kv head. Split-KV
-# gives each split MIN_SPLIT_PAGES table entries (one staged set of 8
-# pages), unless that makes more than SPLIT_BLOCKS_PER_SM blocks per SM.
+# rows (token t, head of the GQA group) of one row and kv head; the split
+# rule counts blocks with it. Split-KV gives each split MIN_SPLIT_PAGES
+# table entries (one staged set of 8 pages), unless that makes more than
+# SPLIT_BLOCKS_PER_SM blocks per SM.
 TILE_ROWS = 16
 SPLIT_BLOCKS_PER_SM = 12
 MIN_SPLIT_PAGES = 8
@@ -323,19 +324,19 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
     nb = block_tables.shape[1]
     splits, _ = plan_paged_splits(b, qw, h, hkv, nb,
                                   runtime.sm_count(q.device))
+    lib = _library()
     ws = counters = None
     if splits > 1:   # the partials, and one counter per (tile, kv head, row)
         ws = torch.empty((b, splits, qw * h, dh + 2), dtype=torch.float32,
                          device=q.device)
-        tiles = -(-qw * (h // hkv) // TILE_ROWS)
-        counters = runtime.zeroed_counters("paged_attention", q.device,
-                                           tiles * hkv * b)
+        counters = runtime.zeroed_counters(
+            "paged_attention", q.device,
+            lib.tnn_paged_attention_counters(b, qw, h, hkv))
     m_ptr = l_ptr = None          # null: the kernel writes no stats
     if stats:
         m = torch.empty((b, qw, h, 1), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)  # noqa: E741
         m_ptr, l_ptr = m.data_ptr(), l.data_ptr()
-    lib = _library()
     common = (block_tables.data_ptr(), kv_lens.data_ptr(),
               None if q_lens is None else q_lens.data_ptr(),
               out.data_ptr(), m_ptr, l_ptr, _KERNEL_DTYPES[q.dtype], b, qw,
@@ -369,6 +370,10 @@ def _library():
             fn.argtypes = [ptr] * (7 + pages) + [i] * 10 + [
                 ctypes.c_float, i, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
+    fn = lib.tnn_paged_attention_counters
+    if fn.argtypes is None:
+        fn.argtypes = [i] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -13,7 +13,7 @@ or raises; on a CPU tensor it computes ``int8_matmul_reference``, the plain
 PyTorch version (the int8 weight converted to x's dtype, an f32 product,
 the scale, then ``out_dtype``). ``int8_matmul.launches`` counts the kernel
 launches. ``plan_int8_matmul`` is the fixed rule that picks the kernel's
-body (tensor cores or SIMT), its tile and its K split from the shapes.
+body (tensor cores or SIMT) and its tile from the shapes.
 
 ``w8a8_matmul`` quantizes the activation per row and takes an exact
 int8 x int8 -> int32 product: ``torch._int_mm`` on the card (a library
@@ -35,59 +35,45 @@ from . import runtime
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernel's tiles (csrc/quant_matmul.cu): both bodies take 64 weight rows
-# (output columns) a block; the tensor-core body TC_TILES_M x rows, 64 deep
-# a stage (one consumer warpgroup), the SIMT body 64 x rows
+# (output columns) a block; the tensor-core body TC_TILES_M x rows (one
+# consumer warpgroup), the SIMT body 64 x rows
 TILE_N = 64
-TC_TILE_K = 64
 TC_TILES_M = (8, 16, 32, 64, 128)
 SIMT_TILE_M = 64
-# a K split leaves each block at least this many 64-deep chunks
-MIN_SPLIT_CHUNKS = 16
 
 
 class MatmulPlan(NamedTuple):
     """How ``int8_matmul`` runs on the card: ``body`` "wgmma" (bf16 x on
     the tensor cores) or "simt"; ``tile_m`` x rows a block (by ``TILE_N``
-    output columns); ``splits`` K slices, which each output tile's last
-    slice to finish sums in split order."""
+    output columns), each block over the whole K."""
     body: str
     tile_m: int
-    splits: int
 
     def blocks(self, m: int, n: int) -> int:
-        return (-(-m // self.tile_m)) * (-(-n // TILE_N)) * self.splits
+        return (-(-m // self.tile_m)) * (-(-n // TILE_N))
 
 
 def plan_int8_matmul(m: int, n: int, k: int, x_dtype,
                      sms: int = runtime.H100_SMS) -> MatmulPlan:
-    """The body, tile and split of an (m, k) x (k, n) int8 matmul, from
-    the shapes alone (a fixed rule, not a fallback):
+    """The body and tile of an (m, k) x (k, n) int8 matmul, from the
+    shapes alone (a fixed rule, not a fallback):
 
     * f32 x, or bf16 x whose K is not a positive multiple of 8 (TMA needs
-      16-byte rows), takes the SIMT body, 64 x 64 tiles, no split;
+      16-byte rows), takes the SIMT body, 64 x 64 tiles;
     * bf16 x takes the tensor-core body: the smallest wgmma N of
       ``TC_TILES_M`` that holds m rows up to 64; above 64 rows 128, unless
       128-row tiles give fewer blocks than half the card's SMs (``sms``),
       then 64 (on the H100 a 128-row tile at 144 blocks beat a 64-row one
-      at 288, and 96 blocks of 64 rows beat 192 of 32). Where the output
-      tiles number fewer than ``sms`` and K is long, K splits into as many
-      slices as fill the card, each at least ``MIN_SPLIT_CHUNKS`` chunks
-      of 64 deep: a split adds the partials' round trip, which a short K
-      does not repay."""
+      at 288, and 96 blocks of 64 rows beat 192 of 32). K is not split:
+      f32 partials summed in a fixed order gained nothing at the GPT-2
+      shapes that give fewer blocks than SMs."""
     if x_dtype != torch.bfloat16 or k <= 0 or k % 8:
-        return MatmulPlan("simt", SIMT_TILE_M, 1)
-    tiles_n = -(-n // TILE_N)
+        return MatmulPlan("simt", SIMT_TILE_M)
     if m <= TC_TILES_M[-2]:
-        tile_m = next(t for t in TC_TILES_M if t >= m)
-    else:
-        tile_m = 128 if 2 * tiles_n * -(-m // 128) >= sms else 64
-    tiles = tiles_n * -(-m // tile_m)
-    chunks = -(-k // TC_TILE_K)
-    splits = 1
-    if tiles < sms and chunks >= 2 * MIN_SPLIT_CHUNKS:
-        splits = min(-(-sms // tiles), chunks // MIN_SPLIT_CHUNKS)
-        splits = -(-chunks // -(-chunks // splits))   # no empty slice
-    return MatmulPlan("wgmma", tile_m, splits)
+        return MatmulPlan("wgmma", next(t for t in TC_TILES_M if t >= m))
+    tiles_n = -(-n // TILE_N)
+    return MatmulPlan("wgmma",
+                      128 if 2 * tiles_n * -(-m // 128) >= sms else 64)
 
 
 _BODIES = {"simt": 0, "wgmma": 1}
@@ -228,18 +214,10 @@ def _launch(x, q, scale, n, k, out_dtype):
     m = x2.shape[0]
     plan = plan_int8_matmul(m, n, k, x.dtype, runtime.sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    ws = counters = None
-    if plan.splits > 1:   # the partials, and one counter per output tile
-        ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
-                         device=x.device)
-        counters = runtime.zeroed_counters(
-            "int8_matmul", x.device, plan.blocks(m, n) // plan.splits)
     err = _library().tnn_int8_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype], m, n, k,
-        q.shape[1], _BODIES[plan.body], plan.tile_m, plan.splits,
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(),
+        q.shape[1], _BODIES[plan.body], plan.tile_m,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed ({plan}): "
@@ -253,7 +231,7 @@ def _library():
     fn = lib.tnn_int8_matmul
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i] * 9 + [ptr] * 3
+        fn.argtypes = [ptr] * 4 + [i] * 8 + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
