@@ -63,7 +63,10 @@ numbers on its own line:
    version at gpt2_small's width in 48 cases (B 1 and 2, T 1024, three
    positions, bf16 and f32, 1, 2, 4 and 8 MLP chunks), layer by layer,
    with the 12-layer launch equal to the chain of one-layer launches;
-   times beside the plain version's and the unfused int8 blocks';
+   its launch plan (each block's rows and ring stages, the kernel's own
+   ring depth) and each case's split count; times beside the plain
+   version's and the unfused int8 blocks', and the step split into its
+   five phases by one stamped launch;
 14. fused_generate: ``cli.gpt2_inference --fused`` and ``--int8`` (64
    tokens, tokens/s), ``fused_generate`` in process (K8 = 63 launches),
    its teacher-forced logits against the unfused int8 step, and kernels
@@ -2410,6 +2413,57 @@ def decode_stack_case(stacks, heads, x, t, kc, vc, chunks):
                 other_rows_same=others, repeat_bit_for_bit=repeat, ok=ok)
 
 
+def decode_stack_plan(model, blocks):
+    """K8's launch plan at gpt2_small's width (shapes only): each block's
+    rows and ring stages of every matrix, its weight bytes a layer, the
+    kernel's own shared memory and ring depth at 1, 2 and 16 rows."""
+    import torch
+
+    from tnn_tpu_torch.ops import decode_stack as ds
+
+    d, f, heads = model.d_model, 4 * model.d_model, model.num_heads
+    plan = {"blocks": blocks, "barriers_per_step": ds.barriers_per_step(
+        model.num_layers, 2)}
+    share = [0] * blocks
+    for name, (n_rows, row_bytes) in ds.matrix_shapes(d, f).items():
+        ranges = ds.plan_partition(n_rows, blocks)
+        rows = [r1 - r0 for r0, r1 in ranges]
+        stages = [ds.plan_stages(r, row_bytes)[0] for r in rows]
+        plan[name] = {"rows_per_block": [min(rows), max(rows)],
+                      "row_bytes": row_bytes,
+                      "stages_per_block": [min(stages), max(stages)]}
+        for i, r in enumerate(rows):
+            share[i] += r * row_bytes
+    plan["share_bytes_per_layer"] = [min(share), max(share)]
+    plan["smem"] = {}
+    for batch, chunks in ((1, 2), (2, 2), (16, 8)):
+        smem = ds.check_kernel_geometry(batch, d, f, chunks, d // heads,
+                                        torch.bfloat16, blocks=blocks)
+        plan["smem"][f"B{batch}_C{chunks}"] = {
+            "bytes": smem, **ds.kernel_plan(batch, d, f, chunks, heads,
+                                            blocks, smem)}
+    return plan
+
+
+def decode_stack_phases(ds, x, t, kc, vc, stacks, heads, chunks):
+    """One K8 launch with stamps (block 0's %globaltimer after each grid
+    barrier): ms per phase kind summed over the layers, and the whole."""
+    import torch
+
+    n_layers = kc.shape[0]
+    stamps = torch.zeros(ds.barriers_per_step(n_layers, chunks) + 2,
+                         dtype=torch.int64, device="cuda")
+    for _ in range(3):           # warm, then the stamped launch read last
+        ds.fused_decode_stack(x, t, kc, vc, stacks, num_heads=heads,
+                              chunks=chunks, stamps=stamps)
+    torch.cuda.synchronize()
+    gaps = stamps.diff().double().cpu() / 1e6
+    names = ("qkv", "attention", "out", "fc", "proj")
+    out = {f"{n}_ms": float(gaps[i::5].sum()) for i, n in enumerate(names)}
+    out["step_ms"] = float(gaps.sum())
+    return out
+
+
 def phase_decode_stack(results):
     import torch
 
@@ -2417,10 +2471,14 @@ def phase_decode_stack(results):
     from tnn_tpu_torch.nn.quant import quantize_for_decode
     from tnn_tpu_torch.ops import decode_stack as ds
 
+    from tnn_tpu_torch.ops import runtime
+
     model = quantize_for_decode(zoo.create("gpt2_small", device="cuda",
                                            seed=0))
     stacks = fused_decode.stack_decode_weights(model)
     heads = model.num_heads
+    blocks = runtime.sm_count("cuda")
+    log("decode_stack_plan", **decode_stack_plan(model, blocks))
     failures = []
     worst = 0.0
     ncase = 0
@@ -2438,7 +2496,9 @@ def phase_decode_stack(results):
                                                 chunks)
                     log("decode_stack", case=ncase, batch=batch,
                         dtype=str(dtype).split(".")[-1], t=t, chunks=chunks,
-                        picked=chunks == picked, **reading)
+                        picked=chunks == picked,
+                        splits=ds.plan_splits(batch, heads, t, blocks)[0],
+                        **reading)
                     worst = max(worst, reading["max_abs_err"],
                                 reading["row_t_err"])
                     if not reading["ok"]:
@@ -2480,13 +2540,19 @@ def phase_decode_stack(results):
         entry[prefix + "ms"] = events if device is None else device
         entry[prefix + "events_ms"] = events
     # the same launch at t = 0, where attention reads one row: the rest of
-    # the step (weights, row passes, grid syncs), at each chunk count: each
-    # chunk adds two grid syncs a layer and two matmul phases
+    # the step (weights, row passes, grid barriers), at each chunk count:
+    # the chunks share the fc and proj phases, so they add no barrier
     entry["t0_ms_by_chunks"] = {
         c: time_ms(lambda c=c: ds.fused_decode_stack(
             x, 0, kc, vc, stacks, num_heads=heads, chunks=c),
             iters=20, warmup=3)[0]
         for c in (1, 2, 4, 8)}
+    # one stamped launch each at t = T - 1 and t = 0: block 0's clock after
+    # every grid barrier splits the step into its five phases
+    for tt in (t, 0):
+        log("decode_stack_phases", batch=batch, t=tt, chunks=chunks,
+            splits=ds.plan_splits(batch, heads, tt, blocks)[0],
+            **decode_stack_phases(ds, x, tt, kc, vc, stacks, heads, chunks))
     nbytes = decode_stack_bytes(model, batch, t, 2)
     d, n_layers = model.d_model, model.num_layers
     int8_ops = n_layers * 2 * batch * 12 * d * d
@@ -2496,7 +2562,9 @@ def phase_decode_stack(results):
     entry.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes,
                  int8_ops=int8_ops, f32_ops=f32_ops,
                  bound_by="bytes" if byte_ms >= op_ms else "operations",
-                 library_ms=None, grid_syncs=n_layers * (3 + 2 * chunks) - 1)
+                 library_ms=None,
+                 grid_syncs=ds.barriers_per_step(n_layers, chunks),
+                 splits=ds.plan_splits(batch, heads, t, blocks)[0])
     log("decode_stack_time", **entry)
     results["fused_decode_stack"] = entry
     ds.fused_decode_stack.launches = 0   # comparison launches do not count

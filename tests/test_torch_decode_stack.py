@@ -198,34 +198,248 @@ def test_wrapper_checks_and_cpu_path_counts_nothing(small):
                               chunks=2)
 
 
+def test_stamps_are_the_kernel_clock(small):
+    _, _, _, stacks = small
+    x, kc, vc = (torch.from_numpy(a) for a in _inputs(1))
+    with pytest.raises(ValueError, match="stamps"):
+        ds.fused_decode_stack(x, 3, kc, vc, stacks, num_heads=4, chunks=2,
+                              stamps=torch.zeros(16, dtype=torch.int64))
+
+
+# -- the launch plan: shapes only ---------------------------------------------
+
+GPT2_SMALL = dict(d_model=768, d_ff=3072, heads=12)
+TINY = dict(d_model=SMALL["d_model"], d_ff=4 * SMALL["d_model"],
+            heads=SMALL["num_heads"])
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 132])
+@pytest.mark.parametrize("widths", [GPT2_SMALL, TINY],
+                         ids=["gpt2_small", "tiny"])
+def test_partition_covers_each_matrix_once_in_order(widths, blocks):
+    """Each block owns one contiguous range of every matrix's output rows
+    (so its share of a phase is one byte range of the stack); the ranges
+    follow block order and cover each row once; each ring stage holds
+    whole rows within STAGE_BYTES."""
+    shapes = ds.matrix_shapes(widths["d_model"], widths["d_ff"])
+    share = [0] * blocks
+    for n_rows, row_bytes in shapes.values():
+        ranges = ds.plan_partition(n_rows, blocks)
+        assert len(ranges) == blocks
+        assert ranges[0][0] == 0 and ranges[-1][1] == n_rows
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+        assert [r for r0, r1 in ranges for r in range(r0, r1)] \
+            == list(range(n_rows))
+        sizes = [r1 - r0 for r0, r1 in ranges]
+        assert max(sizes) - min(sizes) <= 1
+        for i, (r0, r1) in enumerate(ranges):
+            share[i] += (r1 - r0) * row_bytes
+            stages, rps = ds.plan_stages(r1 - r0, row_bytes)
+            assert (stages - 1) * rps < r1 - r0 <= stages * rps
+            assert rps * row_bytes <= ds.STAGE_BYTES
+    d = widths["d_model"]
+    assert sum(share) == 4 * d * d + 2 * widths["d_ff"] * d
+    if widths is GPT2_SMALL and blocks == 132:   # 53.6 KB a layer
+        assert round(sum(share) / blocks) == 53_620
+        assert max(share) - min(share) <= 3 * d + widths["d_ff"]
+
+
+def test_split_plan_reads_shapes_only():
+    """Attention's split count comes from (B, H, t, blocks), host ints, so
+    the launch needs no sync: at most one split per MIN_SPLIT_LEN
+    positions and B H S <= blocks items, none empty, none past
+    MAX_SPLIT_LEN."""
+    import inspect
+
+    assert list(inspect.signature(ds.plan_splits).parameters) == [
+        "batch", "heads", "t", "blocks"]
+    assert ds.plan_splits(1, 12, 1023, 132) == (11, 94)
+    assert ds.plan_splits(2, 12, 1023, 132) == (5, 205)
+    assert ds.plan_splits(16, 12, 1023, 132) == (1, 1024)
+    assert ds.plan_splits(1, 12, 0, 132) == (1, 1)
+    assert ds.plan_splits(np.int64(1), np.int64(12), np.int64(1023),
+                          np.int64(132)) == (11, 94)
+    for batch in (1, 2, 16):
+        for heads in (4, 12):
+            for t in (0, 1, 63, 64, 127, 511, 1023, 4095):
+                for blocks in (1, 7, 132):
+                    s, pps = ds.plan_splits(batch, heads, t, blocks)
+                    n = t + 1
+                    assert (s - 1) * pps < n <= s * pps
+                    assert pps <= ds.MAX_SPLIT_LEN and s <= ds.MAX_SPLITS
+                    if pps < n:      # split: by the blocks or the smem cap
+                        assert (batch * heads * s <= blocks
+                                and s <= -(-n // ds.MIN_SPLIT_LEN)
+                                or s == -(-n // ds.MAX_SPLIT_LEN))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8])
+def test_barriers_per_step_five_a_layer(chunks):
+    for n_layers in (1, 2, 12, 24):
+        assert ds.barriers_per_step(n_layers, chunks) == 5 * n_layers - 1
+    assert ds.barriers_per_step(12, chunks) == 59
+
+
+@pytest.mark.parametrize("batch", [1, 2, 16])
+def test_smem_rule_matches_check_kernel_geometry(batch):
+    """The block's shared memory is the fixed layout plus as many 24 KB
+    ring stages as fit (at least 2), whatever the cache length; the hand
+    counts below follow csrc/decode_stack.cu's plan_layout."""
+    bf16 = torch.bfloat16
+    for chunks in (1, 2, 4, 8):
+        for w in (GPT2_SMALL, TINY):
+            dh = w["d_model"] // w["heads"]
+            fixed = ds._smem_bytes(batch, w["d_model"], w["d_ff"], chunks,
+                                   dh, 132)
+            smem = ds.check_kernel_geometry(batch, w["d_model"], w["d_ff"],
+                                            chunks, dh, bf16, blocks=132)
+            ring = ds.ring_stages(smem, fixed)
+            assert smem == fixed + ring * ds.STAGE_BYTES <= 227 * 1024
+            assert ds.MIN_RING_STAGES <= ring <= ds.MAX_RING_STAGES
+            assert smem == ds.check_kernel_geometry(
+                batch, w["d_model"], w["d_ff"], chunks, dh, torch.float32,
+                blocks=132)
+    # gpt2_small on 132 blocks: bars 256, codes 768 B, union 8192 (an
+    # attention split's scores and p @ V partials), LN vectors 6144, two
+    # vector buffers 576, residual 32, sums 96, small 2048 = 18112, then 8
+    # stages; at 16 rows and 8 chunks 73920 and 6
+    hand = {1: (2, 18112, 8), 16: (8, 73920, 6)}
+    if batch in hand:
+        chunks, fixed, ring = hand[batch]
+        assert ds._smem_bytes(batch, 768, 3072, chunks, 64, 132) == fixed
+        assert ds.check_kernel_geometry(batch, 768, 3072, chunks, 64, bf16) \
+            == fixed + ring * ds.STAGE_BYTES
+
+
 # -- on the card --------------------------------------------------------------
 
+CARD_T = 256
+# t at split edges (MIN_SPLIT_LEN = 64 positions) and the cache's end
+CARD_TS = (0, 63, 64, CARD_T - 1)
+FORCED_SPLITS = (2, 3, 7)
+
+
+def _card_inputs(seed, batch, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, SMALL["d_model"])).astype(np.float32)
+    shape = (SMALL["num_layers"], batch, CARD_T, SMALL["d_model"])
+    kc = (rng.normal(size=shape) * 0.5).astype(np.float32)
+    vc = (rng.normal(size=shape) * 0.5).astype(np.float32)
+    return (torch.from_numpy(a).cuda().to(dtype) for a in (x, kc, vc))
+
+
+def _card_case(stacks, x, t, kc, vc, chunks):
+    """The L-layer launch (one launch, its repeat bit for bit, the other
+    cache rows untouched) against the chain of one-layer launches (bit
+    for bit), and each layer against the plain version: within 1e-5
+    max|plain| plus 16 code steps (chip_smoke.py's per-layer limit,
+    DECODE_FLIP_STEPS), row t of both caches likewise (plus one bf16
+    rounding)."""
+    k0, v0 = kc.clone(), vc.clone()
+    before = ds.fused_decode_stack.launches
+    out, kc, vc = ds.fused_decode_stack(x, t, kc, vc, stacks, num_heads=4,
+                                        chunks=chunks)
+    torch.cuda.synchronize()
+    assert ds.fused_decode_stack.launches == before + 1
+    for got, want in ((kc, k0), (vc, v0)):
+        assert torch.equal(got[:, :, :t], want[:, :, :t])
+        assert torch.equal(got[:, :, t + 1:], want[:, :, t + 1:])
+    k2, v2 = k0.clone(), v0.clone()
+    again, k2, v2 = ds.fused_decode_stack(x, t, k2, v2, stacks, num_heads=4,
+                                          chunks=chunks)
+    assert torch.equal(again, out) and torch.equal(k2, kc) \
+        and torch.equal(v2, vc)
+    cast = 2 ** -8 if kc.dtype == torch.bfloat16 else 0.0
+    h = x.float()
+    kch, vch = k0.clone(), v0.clone()
+    for layer in range(SMALL["num_layers"]):
+        one = {k: v[layer:layer + 1] for k, v in stacks.items()}
+        kr, vr = k0[layer:layer + 1].clone(), v0[layer:layer + 1].clone()
+        steps = {}
+        ref, kr, vr = ds.fused_decode_stack_reference(
+            h, t, kr, vr, one, num_heads=4, chunks=chunks, code_steps=steps)
+        h, _, _ = ds.fused_decode_stack(h, t, kch[layer:layer + 1],
+                                        vch[layer:layer + 1], one,
+                                        num_heads=4, chunks=chunks)
+        lim = 1e-5 * ref.abs().max() + 16 * max(steps["out"] + steps["proj"])
+        assert ((h - ref).abs() <= lim).all(), (h - ref).abs().max()
+        for got, want in ((kch, kr), (vch, vr)):
+            g, w = got[layer, :, t].float(), want[0, :, t].float()
+            lim = 1e-5 * w.abs().max() + cast * w.abs() \
+                + 16 * max(steps["qkv"])
+            assert ((g - w).abs() <= lim).all(), (g - w).abs().max()
+    torch.cuda.synchronize()
+    assert torch.equal(h.to(out.dtype), out)
+    assert torch.equal(kch, kc) and torch.equal(vch, vc)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 16])
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_one_layer_matches_plain_on_card(small, dtype):
-    """K8 on the tiny stacks, one layer at a time (where a moved code
-    cannot cascade through later layers), against the plain version:
-    within 1e-5 max|plain| plus 16 code steps (chip_smoke.py's
-    per-layer limit, DECODE_FLIP_STEPS)."""
+def test_kernel_one_layer_matches_plain_on_card(small, monkeypatch, dtype,
+                                                chunks, batch):
+    """K8 on the tiny stacks (T = 256), one layer at a time (where a moved
+    code cannot cascade through later layers) against the plain version,
+    at t on the split rule's edges and with the split count forced to 2,
+    3 and 7 (a monkeypatch of ``plan_splits``, as ``force_splits`` does
+    for K1); each case also repeats bit for bit and equals the chain of
+    one-layer launches bit for bit (``_card_case``)."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel runs only on a card")
     _, _, _, stacks = small
-    x, kc, vc = (torch.from_numpy(a).cuda() for a in _inputs(2))
     stacks = {k: v.cuda() for k, v in stacks.items()}
     tdtype = getattr(torch, dtype)
-    kc, vc = kc.to(tdtype), vc.to(tdtype)
-    h = x
-    for layer in range(SMALL["num_layers"]):
-        one = {k: v[layer:layer + 1] for k, v in stacks.items()}
-        kr, vr = kc[layer:layer + 1].clone(), vc[layer:layer + 1].clone()
-        steps = {}
-        ref, _, _ = ds.fused_decode_stack_reference(
-            h, 8, kr, vr, one, num_heads=4, chunks=2, code_steps=steps)
-        before = ds.fused_decode_stack.launches
-        h, _, _ = ds.fused_decode_stack(h, 8, kc[layer:layer + 1],
-                                        vc[layer:layer + 1], one,
-                                        num_heads=4, chunks=2)
-        torch.cuda.synchronize()
-        assert ds.fused_decode_stack.launches == before + 1
-        lim = 1e-5 * ref.abs().max() + 16 * max(steps["out"] + steps["proj"])
-        assert ((h - ref).abs() <= lim).all()
+    for i, t in enumerate(CARD_TS):
+        x, kc, vc = _card_inputs(10 * i + chunks, batch, tdtype)
+        _card_case(stacks, x, t, kc, vc, chunks)
+    rule = ds.plan_splits
+    t = CARD_T - 1
+    for s in FORCED_SPLITS:
+        monkeypatch.setattr(ds, "plan_splits",
+                            lambda b, h, t, n, s=s: (s, -(-(t + 1) // s)))
+        x, kc, vc = _card_inputs(100 + s, batch, tdtype)
+        _card_case(stacks, x, t, kc, vc, chunks)
+    monkeypatch.setattr(ds, "plan_splits", rule)
+
+
+@pytest.mark.cuda
+def test_kernel_plan_and_counters_on_card(small):
+    """The kernel's own shared-memory plan equals this module's mirror at
+    the GPT-2 small and tiny widths; after launches with split attention
+    the zeroed counters are all 0 again (the barrier's reset by the last
+    block out, the splits' by their mergers); stamps rise through the
+    5 L - 1 barriers and cost the output nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a card")
+    from tnn_tpu_torch.ops import runtime
+
+    blocks = runtime.sm_count("cuda")
+    for batch in (1, 2, 16):
+        for chunks in (1, 2, 4, 8):
+            for w in (GPT2_SMALL, TINY):
+                dh = w["d_model"] // w["heads"]
+                smem = ds.check_kernel_geometry(
+                    batch, w["d_model"], w["d_ff"], chunks, dh,
+                    torch.bfloat16, blocks=blocks)
+                fixed = ds._smem_bytes(batch, w["d_model"], w["d_ff"],
+                                       chunks, dh, blocks)
+                assert ds.kernel_plan(batch, w["d_model"], w["d_ff"], chunks,
+                                      w["heads"], blocks, smem) == {
+                    "fixed": fixed, "ring": ds.ring_stages(smem, fixed)}
+    _, _, _, stacks = small
+    stacks = {k: v.cuda() for k, v in stacks.items()}
+    x, kc, vc = _card_inputs(5, 1, torch.bfloat16)
+    assert ds.plan_splits(1, 4, CARD_T - 1, blocks)[0] > 1
+    out, _, _ = ds.fused_decode_stack(x, CARD_T - 1, kc.clone(), vc.clone(),
+                                      stacks, num_heads=4, chunks=2)
+    n_bar = ds.barriers_per_step(SMALL["num_layers"], 2)
+    stamps = torch.zeros(n_bar + 2, dtype=torch.int64, device="cuda")
+    again, _, _ = ds.fused_decode_stack(x, CARD_T - 1, kc.clone(), vc.clone(),
+                                        stacks, num_heads=4, chunks=2,
+                                        stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert (stamps.diff() >= 0).all() and stamps[0] > 0
+    counters = runtime.zeroed_counters("decode_stack", "cuda", 1)
+    assert not counters.any()

@@ -120,6 +120,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes of global memory into shared memory, completing
+// transaction bytes on `bar`; both addresses 16-byte aligned, bytes a
+// multiple of 16 (and the phase's transaction count below 2^20)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma, bulk copies) of them
 __device__ __forceinline__ void fence_proxy_async() {

@@ -60,6 +60,7 @@ import torch
 
 from ..models import fused_decode, sampling
 from ..nn.quant import quantize_for_decode
+from ..ops import runtime
 from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
 from ..utils.device import resolve_device
 from . import kv_pool, step_build
@@ -237,9 +238,10 @@ class InferenceEngine:
                              "budget at this batch/assembly geometry")
         if self.device.type == "cuda":
             check_kernel_geometry(
-                batch, model.d_model, 4 * model.d_model // chunks,
-                model.d_model // model.num_heads, self.assembly_len,
-                model.policy.compute_dtype)
+                batch, model.d_model, 4 * model.d_model, chunks,
+                model.d_model // model.num_heads,
+                model.policy.compute_dtype,
+                blocks=runtime.sm_count(self.device))
         return {"stacks": fused_decode.stack_decode_weights(model),
                 "chunks": chunks}
 
