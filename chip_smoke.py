@@ -88,6 +88,20 @@ numbers on its own line:
    and served at sp=2, the serving traffic on the bf16 and int8 pools
    (K1s = 2 x 12 x paged model steps, K1 = K2 = 0), the standard path,
    steady decode profiles beside sp=1, and the CLI with ``--sp 2``.
+18. serving_prefix_spec: K1 at the speculative verify shape (8 rows of
+   q_len 5, kv 100-1000, bf16 and f32, MHA and GQA 4) against its plain
+   version and timed beside SDPA and the bound, and K2 over pages that
+   ``kv_pool.copy_blocks`` cloned; then full-width ``gpt2_small``: a
+   512-token shared prefix with 8 tails, the cache on against off (bf16
+   and FP32; ``prefill_tokens_saved`` = 7 x 512, the sharers' TTFT, model
+   steps by program, K1 = 12 x paged steps), a full-cover hit's
+   copy-on-write clone, the int8 pool and weights (K2, K3) and sp=2 (K1s);
+   8 cyclic prompts with ``spec="ngram"`` against spec off on the paged
+   and fused paths and one ``spec="draft"`` pass (acceptance, committed
+   tokens per step, decode tokens/s); FP32 streams token-exact on
+   tie-free prompts, bf16 ones without a divergence above a 1e-2 gap; the
+   CLI on two identical lines and with ``--spec ngram``. Its launches join
+   K1's, K2's, K3's, K1s' and K8's on the kernels line.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -317,12 +331,88 @@ def sdpa_inputs(args):
             mask[:, None], h != hkv)
 
 
-def phase_kernel(results):
+def paged_check(name, spec, args, phase="kernel"):
+    """One K1 call against its plain version (the TOLERANCE note): logs
+    the case and returns its max |error|; raises past the limit or on a
+    row with no live query that is not exactly zero."""
     import torch
+
+    from tnn_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_reference)
+
+    before = paged_attention.launches
+    out = paged_attention(**args)
+    torch.cuda.synchronize()
+    if paged_attention.launches != before + 1:
+        raise AssertionError(f"{name}: kernel did not launch")
+    ref = paged_attention_reference(**args).float()
+    ref_abs_v = paged_attention_reference(
+        **{**args, "pages_v": args["pages_v"].abs()}).float()
+    diff = (out.float() - ref).abs()
+    atol, rtol = TOLERANCE[str(spec["dtype"]).split(".")[-1]]
+    err = diff.max().item()
+    # the largest share of its own limit any element uses (<= 1 passes)
+    limit = atol + rtol * (ref.abs() + ref_abs_v)
+    used = (diff / limit).max().item()
+    # rows with no live query token must be exactly zero
+    ql = spec["q_lens"]
+    dead_nonzero = 0.0
+    if not spec["decode_form"]:
+        for bi, n in enumerate(ql):
+            dead_nonzero = max(dead_nonzero,
+                               out[bi, n:].float().abs().max().item()
+                               if n < out.shape[1] else 0.0)
+    for bi, n in enumerate(spec["kv_lens"]):
+        if n == 0:
+            dead_nonzero = max(dead_nonzero,
+                               out[bi].float().abs().max().item())
+    ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
+    log(phase, case=name, splits=paged_splits(args), max_abs_err=err,
+        atol=atol, rtol=rtol, limit_used=used,
+        dead_rows_max=dead_nonzero, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"paged_attention {name}: |err| exceeds {atol} + {rtol} "
+            f"(|ref| + p.|v|) ({used:.3g} of the limit) or dead rows "
+            f"{dead_nonzero}")
+    return err
+
+
+def paged_timing(args):
+    """K1's device time on ``args`` beside the plain version's, SDPA's on
+    the gathered K/V and the bound (bf16 rates)."""
     import torch.nn.functional as F
 
     from tnn_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_reference)
+
+    nbytes, ops = paged_work(args)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[
+        "bfloat16"])
+    sq, sk, sv, smask, gqa = sdpa_inputs(args)
+    runs = {"": lambda: paged_attention(**args),
+            "plain_": lambda: paged_attention_reference(**args),
+            "library_": lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
+    timed = {"splits": paged_splits(args)}
+    for prefix, fn in runs.items():
+        device, events, per_name = time_ms(fn)
+        # device time where the profiler saw the kernels, else events
+        timed[prefix + "ms"] = events if device is None else device
+        timed[prefix + "events_ms"] = events
+        if prefix == "":   # the call's time by kernel
+            timed["split_ms"] = {kernel_label(n): v
+                                 for n, v in per_name.items()}
+    timed.update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
+                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                 >= ops / PEAK_OPS["bfloat16"] else "operations")
+    return timed
+
+
+def phase_kernel(results):
+    import torch
+
+    from tnn_tpu_torch.ops.paged_attention import paged_attention
 
     bf16, f32 = torch.bfloat16, torch.float32
     rng_lens = [1000, 17, 512, 1, 333, 768, 64, 999]
@@ -361,67 +451,12 @@ def phase_kernel(results):
     worst = 0.0
     for i, (name, spec) in enumerate(cases.items()):
         args = paged_case(100 + i, batch=8, **spec)
-        before = paged_attention.launches
-        out = paged_attention(**args)
-        torch.cuda.synchronize()
-        if paged_attention.launches != before + 1:
-            raise AssertionError(f"{name}: kernel did not launch")
-        ref = paged_attention_reference(**args).float()
-        ref_abs_v = paged_attention_reference(
-            **{**args, "pages_v": args["pages_v"].abs()}).float()
-        diff = (out.float() - ref).abs()
-        atol, rtol = TOLERANCE[str(spec["dtype"]).split(".")[-1]]
-        err = diff.max().item()
-        # the largest share of its own limit any element uses (<= 1 passes)
-        limit = atol + rtol * (ref.abs() + ref_abs_v)
-        used = (diff / limit).max().item()
-        # rows with no live query token must be exactly zero
-        ql = spec["q_lens"]
-        dead_nonzero = 0.0
-        if not spec["decode_form"]:
-            for bi, n in enumerate(ql):
-                dead_nonzero = max(dead_nonzero,
-                                   out[bi, n:].float().abs().max().item()
-                                   if n < out.shape[1] else 0.0)
-        for bi, n in enumerate(spec["kv_lens"]):
-            if n == 0:
-                dead_nonzero = max(dead_nonzero,
-                                   out[bi].float().abs().max().item())
-        ok = math.isfinite(used) and used <= 1.0 and dead_nonzero == 0.0
-        log("kernel", case=name, splits=paged_splits(args), max_abs_err=err,
-            atol=atol, rtol=rtol, limit_used=used,
-            dead_rows_max=dead_nonzero, ok=ok)
-        if not ok:
-            raise AssertionError(
-                f"paged_attention {name}: |err| exceeds {atol} + {rtol} "
-                f"(|ref| + p.|v|) ({used:.3g} of the limit) or dead rows "
-                f"{dead_nonzero}")
-        worst = max(worst, err)
+        worst = max(worst, paged_check(name, spec, args))
 
     # timing at the decode shape of the serving path (gpt2_small, B=8)
     timed = {}
     for name in ("decode_bf16", "mixed_bf16"):
-        args = paged_case(7, batch=8, **cases[name])
-        nbytes, ops = paged_work(args)
-        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[
-            "bfloat16"])
-        sq, sk, sv, smask, gqa = sdpa_inputs(args)
-        runs = {"": lambda: paged_attention(**args),
-                "plain_": lambda: paged_attention_reference(**args),
-                "library_": lambda: F.scaled_dot_product_attention(
-                    sq, sk, sv, attn_mask=smask, enable_gqa=gqa)}
-        timed[name] = {"splits": paged_splits(args)}
-        for prefix, fn in runs.items():
-            device, events, per_name = time_ms(fn)
-            # device time where the profiler saw the kernels, else events
-            timed[name][prefix + "ms"] = events if device is None else device
-            timed[name][prefix + "events_ms"] = events
-            if prefix == "":   # the call's time by kernel
-                timed[name]["split_ms"] = {kernel_label(n): v
-                                           for n, v in per_name.items()}
-        timed[name].update(bound_ms=bound_ms, bytes=nbytes, ops=ops,
-                           bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                           >= ops / PEAK_OPS["bfloat16"] else "operations")
+        timed[name] = paged_timing(paged_case(7, batch=8, **cases[name]))
         log("kernel_time", case=name, **timed[name])
     paged_attention.launches = 0   # comparison launches do not count
     results["paged_attention"] = dict(max_abs_err=worst, **timed[
@@ -782,10 +817,11 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
     return engine, rids
 
 
-def steady_decode_engine(model, new_tokens, batch=8, **engine_kw):
-    """An engine with ``batch`` requests of 500-token prompts, past their
-    prefill and first decode step, with ``new_tokens`` tokens each to
-    decode."""
+def steady_decode_engine(model, new_tokens, batch=8, prompts=None,
+                         **engine_kw):
+    """An engine with ``batch`` requests (``prompts``, or 500 random
+    tokens each), past their prefill and first decode step, with
+    ``new_tokens`` tokens each to decode."""
     import numpy as np
 
     from tnn_tpu_torch.serving.engine import InferenceEngine
@@ -794,8 +830,9 @@ def steady_decode_engine(model, new_tokens, batch=8, **engine_kw):
                              max_batch_size=batch, chunk_size=64, seed=0,
                              device=model.device, **engine_kw)
     rng = np.random.default_rng(5)
-    for _ in range(batch):
-        engine.submit(rng.integers(0, model.vocab_size, 500), new_tokens)
+    for i in range(batch):
+        engine.submit(rng.integers(0, model.vocab_size, 500)
+                      if prompts is None else prompts[i], new_tokens)
     while any(r.cache_len < r.prefill_len or not r.out_tokens
               for r in engine.requests.values()):
         engine.step()
@@ -804,7 +841,8 @@ def steady_decode_engine(model, new_tokens, batch=8, **engine_kw):
 
 
 def profile_decode_steps(model, steps=10, phase="serving_profile",
-                         batch=8, **engine_kw):
+                         batch=8, prompts=None, new_tokens=None,
+                         **engine_kw):
     """Steady decode steps of ``batch`` rows: wall time per step without the
     profiler in three windows of ``steps`` steps (their median is the step
     time; their spread is the host's within one process), then from a
@@ -813,19 +851,23 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
     time, the outermost aten ops and the kernels per step, and the ops
     that take the most host self time. Idle share = 1 - busy / unprofiled
     step time: the profiler slows the host, so its own window's wall time
-    is printed but not used."""
+    is printed but not used. ``prompts`` and ``new_tokens`` (default 4 x
+    steps + 8) set the requests; tokens per step counts what the steps
+    emitted (more than the rows where speculative decoding accepts)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine = steady_decode_engine(model, 4 * steps + 8, batch, **engine_kw)
+    engine = steady_decode_engine(model, new_tokens or 4 * steps + 8, batch,
+                                  prompts, **engine_kw)
     windows = []
+    emitted = 0
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            emitted += len(engine.step()["tokens"])
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) * 1e3 / steps)
     step_ms = sorted(windows)[1]
@@ -851,7 +893,9 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
     busy_ms = sum(by_name.values()) / 1e3 / steps
     # host cost per op: the unprofiled step over the step's outermost
     # aten ops, which is what a path with more ops pays more of
-    log(phase, decode_rows=batch, kv_len=500, step_ms=step_ms,
+    log(phase, decode_rows=batch,
+        kv_len=500 if prompts is None else len(prompts[0]), step_ms=step_ms,
+        tokens_per_step=emitted / (3 * steps),
         step_ms_windows=windows, profiled_step_ms=profiled_ms,
         device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / step_ms,
@@ -973,13 +1017,16 @@ def phase_serving(results):
 
 # -- phase 5 ------------------------------------------------------------------
 
-def cli_check(flags=()):
-    """The serving CLI on two JSON lines, with ``flags`` added."""
-    lines = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
+CLI_LINES = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
               "max_new_tokens": 8},
              {"id": "sampled", "tokens": list(range(100, 140)),
               "max_new_tokens": 6, "temperature": 0.8, "top_k": 50,
               "top_p": 0.95}]
+
+
+def cli_check(flags=(), lines=CLI_LINES):
+    """The serving CLI on two JSON lines (ids "greedy" and "sampled", 8 and
+    6 new tokens), with ``flags`` added."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
@@ -3351,6 +3398,421 @@ def phase_serving_sp(results):
     cli_check(("--sp", "2", "--sp-devices", ",".join(SP_DEVICES)))
 
 
+# -- phase 18 -----------------------------------------------------------------
+#
+# The prefix cache and speculative decoding at gpt2_small's width (bf16 pool
+# of 512 x 16-token blocks, 8 rows, 64-token chunks). A cache hit skips
+# prefill but not exactness: a sharer's tail chunk starts at position 512
+# in both runs (512 is a whole number of chunks). A verify row is a chunk
+# where spec-off runs a decode row, so the step's q width, and with it K1's
+# split plan and summation order, differs between the runs; under bf16 a
+# near-tie may flip. So FP32 runs must be token-exact on every prompt whose
+# cache-off stream is tie-free (each token its position's argmax in the
+# model's own forward, beating the runner-up by more than NEAR_TIE); bf16
+# runs report the share of equal tokens and fail on a divergence whose
+# top-2 gap is above SPEC_FLIP_GAP.
+PREFIX_LEN = 512
+SPEC_FLIP_GAP = 1e-2
+K1_VERIFY_KV = [100, 1000, 517, 333, 768, 250, 904, 640]
+
+
+def shared_prefix_prompts(vocab, seed=21):
+    """One 512-token system prefix, then 8 distinct tails of 16-64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    return [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+            for n in rng.integers(16, 65, 8)]
+
+
+def cyclic_prompts(vocab, seed=22):
+    """8 prompts of 96 tokens, each a 3-token pattern repeated."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [np.tile(rng.integers(0, vocab, 3), 32) for _ in range(8)]
+
+
+def reset_launches():
+    from tnn_tpu_torch.ops import decode_stack as ds
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    pa.paged_attention.stats_launches = 0
+    pa.paged_attention.int8_stats_launches = 0
+    qm.int8_matmul.launches = ds.fused_decode_stack.launches = 0
+
+
+def read_launches():
+    from tnn_tpu_torch.ops import decode_stack as ds
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    return {"k1": pa.paged_attention.launches,
+            "k2": pa.paged_attention.int8_launches,
+            "k1s": pa.paged_attention.stats_launches,
+            "k1s_int8": pa.paged_attention.int8_stats_launches,
+            "k3": qm.int8_matmul.launches,
+            "k8": ds.fused_decode_stack.launches}
+
+
+def prefix_spec_run(model, prompts, stagger=False, **kw):
+    """One engine over ``prompts`` (64 greedy tokens each), launches
+    counted over it alone. ``stagger``: the first prompt steps until its
+    512-token prefix is resident (and, with the cache on, published), then
+    the other seven join. Returns (engine, rids, wall seconds, launches,
+    wide mixed steps)."""
+    import torch
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = dict(num_blocks=512, block_size=16, max_batch_size=8,
+               chunk_size=64)
+    engine = InferenceEngine(model, device=model.device, **{**cfg, **kw})
+
+    def drive():
+        rids = [engine.submit(prompts[0], 64)]
+        if stagger:
+            while engine.result(rids[0]).cache_len < PREFIX_LEN:
+                engine.step()
+        rids += [engine.submit(p, 64) for p in prompts[1:]]
+        engine.run_until_complete()
+        return rids
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids, wide = count_wide_steps(drive)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    engine.check_invariants()
+    return engine, rids, wall, launches, wide
+
+
+def expected_launches(model, engine, wide):
+    """K1 (K2 on an int8 pool) = layers x paged model steps, K1s = shards
+    x that under SP; K3 = 49 x mixed steps of more than 256 rows; K8 = the
+    fused path's lockstep steps."""
+    st = engine.stats()
+    steps = st["program_steps"]
+    paged = sum(steps.get(k, 0) for k in ("mixed", "pdecode", "spec"))
+    per = model.num_layers * paged * st["sp_degree"]
+    quant = st["kv_dtype"] == "int8"
+    sp = st["sp_degree"] > 1
+    return {"k1": 0 if quant or sp else per,
+            "k2": per if quant and not sp else 0,
+            "k1s": per if sp and not quant else 0,
+            "k1s_int8": per if sp and quant else 0,
+            "k3": (4 * model.num_layers + 1) * wide if st["quant_weights"]
+            else 0,
+            "k8": steps.get("fdecode", 0)}
+
+
+def emitted_gaps(model, prompt, out):
+    """(top-2 logit gap, argmax) at each emitted token of ``out``, from
+    the model's own forward over prompt + out."""
+    import numpy as np
+    import torch
+
+    seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(seq).to(model.device)[None])[
+            0, len(prompt) - 1:].float()
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist(), logits.argmax(-1).tolist()
+
+
+def compare_streams(model, prompts, ref, got, gate):
+    """Greedy streams of a run against its reference run: the share of
+    equal tokens and each divergence's top-2 gap in the model's forward
+    over the common prefix. ``gate`` "exact" (FP32): token for token on
+    every prompt whose reference stream is tie-free at NEAR_TIE; "flip"
+    (bf16): no divergence at a gap above SPEC_FLIP_GAP; "report": none
+    (paths whose numerics differ by design). Raises on a breach."""
+    equal = total = tie_free = 0
+    flips = []
+    for p, a, b in zip(prompts, ref, got):
+        a, b = list(a), list(b)
+        total += len(a)
+        equal += sum(x == y for x, y in zip(a, b))
+        if gate == "exact":
+            gaps, arg = emitted_gaps(model, p, a)
+            if min(gaps) > NEAR_TIE and arg == a:
+                tie_free += 1
+                if a != b:
+                    raise AssertionError(f"FP32 stream differs on a "
+                                         f"tie-free prompt: {a} vs {b}")
+        if a != b:
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            flips.append(emitted_gaps(model, p, a[:i + 1])[0][i])
+            if gate == "flip" and flips[-1] > SPEC_FLIP_GAP:
+                raise AssertionError(f"bf16 stream differs at token {i} "
+                                     f"with top-2 gap {flips[-1]}")
+    return {"equal_share": equal / max(total, 1), "tie_free_prompts":
+            tie_free if gate == "exact" else None,
+            "divergence_gaps": flips}
+
+
+def run_fields(model, engine, rids, wall, launches, wide):
+    """One run's log fields; raises unless every request finished with 64
+    tokens and the launches are the expected ones."""
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    st = engine.stats()
+    want = expected_launches(model, engine, wide)
+    bad = [r for r in rids if engine.result(r).state
+           is not RequestState.FINISHED
+           or len(engine.result(r).out_tokens) != 64]
+    if bad or launches != want:
+        raise AssertionError(f"unfinished {bad}; launches {launches}, "
+                             f"want {want}; {st['program_steps']}")
+    return dict(wall_s=wall, model_steps=engine.model_steps,
+                program_steps=st["program_steps"], launches=launches,
+                prefill_tokens=st["prefill_tokens"],
+                prefill_tokens_saved=st["prefill_tokens_saved"],
+                prefix_cows=st["prefix_cows"],
+                prefix_hit_rate=st["prefix_hit_rate"],
+                decode_tok_per_s=st["tok_per_s"],
+                step_ms_mean=st["step_latency_ms_mean"],
+                spec_acceptance_rate=st["spec_acceptance_rate"],
+                mean_accepted_per_step=st["mean_accepted_per_step"],
+                pool_evictable_blocks=st["pool_evictable_blocks"])
+
+
+def sharer_ttft(engine, rids):
+    ttft = sorted(engine.result(r).ttft_s * 1e3 for r in rids[1:])
+    return {"sharer_ttft_ms_p50": ttft[len(ttft) // 2],
+            "sharer_ttft_ms_p95": ttft[-1]}
+
+
+def k1_verify_check(results):
+    """K1 at the spec verify shape (8 rows of q_len 5, kv 100-1000) in bf16
+    and f32, MHA and GQA 4, against its plain version, and timed beside
+    SDPA and the bound; then K2 over pages copy_blocks cloned: the clone's
+    table gives the source's output bit for bit."""
+    import torch
+
+    from tnn_tpu_torch.ops import paged_attention as pa
+    from tnn_tpu_torch.serving import kv_pool
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for kv_heads in (12, 4):
+            spec = dict(decode_form=False, q_lens=[5] * 8,
+                        kv_lens=K1_VERIFY_KV, dtype=dtype, heads=12,
+                        kv_heads=kv_heads, head_dim=64, block_size=16)
+            name = f"verify_{'mha' if kv_heads == 12 else 'gqa4'}_" \
+                f"{str(dtype).split('.')[-1]}"
+            worst = max(worst, paged_check(
+                name, spec, paged_case(500 + kv_heads, batch=8, **spec),
+                phase="kernel_verify"))
+    spec = dict(decode_form=False, q_lens=[5] * 8, kv_lens=K1_VERIFY_KV,
+                dtype=torch.bfloat16, heads=12, kv_heads=12, head_dim=64,
+                block_size=16)
+    timed = paged_timing(paged_case(7, batch=8, **spec))
+    log("kernel_verify_time", case="verify_mha_bfloat16", **timed)
+
+    args = quant_case(511, batch=8, **spec)
+    tables = args["block_tables"]
+    row = tables[1]                       # kv 1000: 63 blocks
+    used = set(tables.flatten().tolist())
+    spare = [b for b in range(args["pages_k"].data.shape[1])
+             if b not in used][:8]
+    src = row[:len(spare)].tolist()
+    for pages in (args["pages_k"], args["pages_v"]):
+        kv_pool.copy_blocks(pages, src, spare)
+    cloned = tables.clone()
+    cloned[1, :len(spare)] = torch.tensor(spare, device=tables.device)
+    before = pa.paged_attention.int8_launches
+    out = pa.paged_attention(**args)
+    out_clone = pa.paged_attention(**{**args, "block_tables": cloned})
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_reference(**{**args, "block_tables": cloned})
+    same = torch.equal(out, out_clone)
+    atol, rtol = INT8_TOLERANCE["bfloat16"]
+    v = args["pages_v"]
+    ref_abs_v = pa.paged_attention_reference(**{
+        **args, "pages_v": pa.QuantPages(v.data.abs(), v.scale)}).float()
+    limit = atol + rtol * ref.float().abs() + 1e-5 * ref_abs_v
+    used_limit = ((out_clone.float() - ref.float()).abs() / limit).max()
+    ok = (same and pa.paged_attention.int8_launches == before + 2
+          and used_limit.item() <= 1.0 and len(spare) == 8)
+    log("kernel_verify_cow_int8", cloned_blocks=len(spare),
+        identical_to_source=same, limit_used=used_limit.item(), ok=ok)
+    if not ok:
+        raise AssertionError("K2 over copy_blocks clones: identical "
+                             f"{same}, limit used {used_limit.item()}")
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    return worst, timed
+
+
+def phase_serving_prefix_spec(results):
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+
+    k1_verify_check(results)
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    vocab = model.vocab_size
+    shared = shared_prefix_prompts(vocab)
+    cyclic = cyclic_prompts(vocab)
+    # warm-up: the whole traffic once, so no measured run pays the
+    # process's first allocations and library handles
+    prefix_spec_run(model, shared, stagger=True, prefix_cache=False)
+    added = dict.fromkeys(("k1", "k2", "k3", "k1s", "k8"), 0)
+
+    def run(*a, **kw):
+        """A counted run: its launches join the kernels line's."""
+        out = prefix_spec_run(*a, **kw)
+        for k in added:
+            added[k] += out[3][k]
+        return out
+
+    def ab(m, prompts, on_kw, off_kw, repeat=False, **kw):
+        """Off, then on; with ``repeat`` on and off again (ABBA: the host's
+        speed moves within a process). Returns the first on and off runs
+        and each run's wall time and decode tokens/s."""
+        off = run(m, prompts, **kw, **off_kw)
+        on = run(m, prompts, **kw, **on_kw)
+        runs = [("off", off), ("on", on)]
+        if repeat:
+            runs += [("on", run(m, prompts, **kw, **on_kw)),
+                     ("off", run(m, prompts, **kw, **off_kw))]
+        reads = {f"{side}_{name}": [r[0].stats()[key] if key else r[2]
+                                   for s_, r in runs if s_ == side]
+                 for side in ("on", "off")
+                 for name, key in (("wall_s", None),
+                                   ("tok_per_s", "tok_per_s"))}
+        return on, off, reads
+
+    # (a) shared-prefix traffic: cache on against off, bf16 and FP32
+    for label, m in (("bf16", model), ("fp32", fp32)):
+        on, off, reads = ab(m, shared, {}, dict(prefix_cache=False),
+                            repeat=label == "bf16", stagger=True)
+        outs = [[e.result(r).out_tokens for r in rids]
+                for e, rids, *_ in (off, on)]
+        cmp = compare_streams(m, shared, outs[0], outs[1],
+                              "exact" if label == "fp32" else "flip")
+        saved = on[0].stats()["prefill_tokens_saved"]
+        ok = saved == 7 * PREFIX_LEN
+        log("prefix_shared", run=label, expected_saved=7 * PREFIX_LEN,
+            on={**run_fields(m, *on), **sharer_ttft(*on[:2])},
+            off={**run_fields(m, *off), **sharer_ttft(*off[:2])}, **cmp,
+            abba=reads, ok=ok)
+        if not ok:
+            raise AssertionError(f"prefill_tokens_saved {saved}, want "
+                                 f"{7 * PREFIX_LEN}")
+        if label == "bf16":
+            # a full-cover hit: the prefix alone forks 31 blocks and clones
+            # the last, which its recomputed last token writes into
+            eng = on[0]
+            paged = ("mixed", "pdecode")
+            steps = sum(eng.program_steps[k] for k in paged)
+            rid = eng.submit(shared[0][:PREFIX_LEN], 16)
+            reset_launches()
+            eng.run_until_complete()
+            counts = read_launches()
+            steps = sum(eng.program_steps[k] for k in paged) - steps
+            if counts["k1"] != model.num_layers * steps:
+                raise AssertionError(f"full-cover hit: K1 {counts['k1']} "
+                                     f"over {steps} paged steps")
+            for k in added:
+                added[k] += counts[k]
+            ref = run(model, [shared[0][:PREFIX_LEN]], prefix_cache=False)
+            cow_cmp = compare_streams(
+                model, [shared[0][:PREFIX_LEN]],
+                [ref[0].result(ref[1][0]).out_tokens[:16]],
+                [eng.result(rid).out_tokens], "flip")
+            cows = eng.stats()["prefix_cows"]
+            log("prefix_cow", prefix_cows=cows,
+                prefill_tokens_saved=eng.stats()["prefill_tokens_saved"],
+                **cow_cmp)
+            if cows != 1:
+                raise AssertionError("the full-cover hit did not clone")
+        del on, off
+
+    # the int8 pool and weights (K2, K3), and sp = 2 on one card (K1s)
+    for label, kw in (("int8", INT8_SERVING),
+                      ("sp2", dict(sp=2, sp_devices=SP_DEVICES))):
+        on = run(model, shared, stagger=True, **kw)
+        saved = on[0].stats()["prefill_tokens_saved"]
+        log("prefix_shared", run=label, on={**run_fields(model, *on),
+                                            **sharer_ttft(*on[:2])},
+            ok=saved == 7 * PREFIX_LEN)
+        if saved != 7 * PREFIX_LEN:
+            raise AssertionError(f"{label}: prefill_tokens_saved {saved}")
+        del on
+
+    # (b) spec traffic: ngram against spec off on the paged and the fused
+    # paths; one draft-model pass (a random drafter accepts about nothing:
+    # exactness is its gate)
+    draft = zoo.create("gpt2_tiny", vocab_size=vocab, max_len=model.max_len,
+                       device="cuda", seed=1)
+    # the fused path's draft steps run the standard spec program, whose
+    # numerics differ from K8's by design: the int8 closeness gate holds
+    # it, as serving_fused's
+    fused = dict(quant_weights=True, decode_path="fused", max_batch_size=2)
+    for label, m, kw, gate in (("paged_bf16", model, {}, "flip"),
+                               ("paged_fp32", fp32, {}, "exact"),
+                               ("fused", model, fused, "report"),
+                               ("draft_fp32", fp32, {}, "exact")):
+        spec = dict(spec="draft", draft_model=draft) \
+            if label.startswith("draft") else dict(spec="ngram")
+        on, off, reads = ab(m, cyclic, dict(spec_k=4, **spec), {},
+                            repeat=label == "paged_bf16", **kw)
+        outs = [[e.result(r).out_tokens for r in rids]
+                for e, rids, *_ in (off, on)]
+        cmp = compare_streams(m, cyclic, outs[0], outs[1], gate)
+        close = None
+        if gate == "report":
+            exact, total, worst = closeness_gate(m, on[0], on[1])
+            close = {"argmax_share": exact / total, "worst_margin": worst}
+            if exact < 0.75 * total or worst >= 0.25:
+                raise AssertionError(f"{label}: closeness {close}")
+        log("spec", run=label, spec=spec["spec"], on=run_fields(m, *on),
+            off=run_fields(m, *off), closeness=close, abba=reads, **cmp)
+        del on, off
+    # steady steps of the cyclic traffic, spec on beside off: step time,
+    # tokens a step, device busy time, aten ops and kernels a step
+    for phase, kw in (("spec_profile", dict(spec="ngram", spec_k=4)),
+                      ("spec_profile_off_beside", {})):
+        profile_decode_steps(model, phase=phase, prompts=cyclic,
+                             new_tokens=200, **kw)
+    del draft, fp32, model
+    torch.cuda.empty_cache()
+
+    # (c) the CLI: two identical lines, then spec
+    same = [{"id": "greedy", "tokens": list(range(300, 340)),
+             "max_new_tokens": 8},
+            {"id": "sampled", "tokens": list(range(300, 340)),
+             "max_new_tokens": 6}]
+    for flags, lines, key in ((("--block-size", "4"), same,
+                               "prefix_indexed_blocks"),
+                              (("--spec", "ngram", "--spec-k", "4"),
+                               CLI_LINES, "spec_draft_tokens")):
+        proc = cli_check(flags, lines)
+        summary = json.loads(proc.stderr.split("serve summary: ")[1])
+        gauges = {k: v for k, v in summary.items()
+                  if k.startswith(("prefix", "spec", "pool_evictable",
+                                   "mean_accepted", "prefill_tokens_saved"))}
+        log("cli_gauges", flags=list(flags), **gauges)
+        if key not in summary or (key == "prefix_indexed_blocks"
+                                  and summary[key] < 10):
+            raise AssertionError(f"CLI summary lacks {key}: {summary}")
+
+    results["launches"] += added["k1"]
+    results["int8_launches"]["k2"] += added["k2"]
+    results["int8_launches"]["k3"] += added["k3"]
+    results["sp_launches"]["stats"] += added["k1s"]
+    results["fused_launches"] += added["k8"]
+    log("prefix_spec_launches", **added)
+
+
 def main() -> int:
     import torch
 
@@ -3373,7 +3835,8 @@ def main() -> int:
                   phase_training_long, phase_train_cli, phase_int8_kernel,
                   phase_int8_matmul, phase_serving_int8, phase_decode_stack,
                   phase_fused_generate, phase_serving_fused,
-                  phase_paged_stats, phase_serving_sp):
+                  phase_paged_stats, phase_serving_sp,
+                  phase_serving_prefix_spec):
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,

@@ -1,10 +1,10 @@
 """Port parity: the serving slice (pool, scheduler, engine, CLI).
 
 The headline gate: under FP32 the port's ``InferenceEngine`` emits the same
-greedy tokens as the JAX engine (``prefix_cache=False,
-decode_path="paged"``) on the tiny GPT-2, over a workload with chunked
-prefill, decode and a pool small enough to force recompute preemption. The
-seed is checked free of greedy near-ties: every emitted token beats the
+greedy tokens as the JAX engine, both with ``prefix_cache=False`` (the
+cached engines are held in ``test_torch_prefix_cache.py``), on the tiny
+GPT-2, over a workload with chunked prefill, decode and a pool small enough
+to force recompute preemption. The seed is checked free of greedy near-ties: every emitted token beats the
 runner-up logit by more than 1e-4, a hundred times the ~1e-6 that summation
 order moves an f32 logit, so the comparison tests the engine, not rounding.
 """
@@ -137,7 +137,7 @@ def test_engine_greedy_token_exact_vs_jax_with_preemption():
                    **ENGINE)
     jrids = [jeng.submit(p, 10) for p in prompts]
     jout = jeng.run_until_complete()
-    eng = InferenceEngine(tm, device="cpu", **ENGINE)
+    eng = InferenceEngine(tm, device="cpu", prefix_cache=False, **ENGINE)
     rids = [eng.submit(p, 10) for p in prompts]
     out = eng.run_until_complete()
     eng.check_invariants()

@@ -27,6 +27,14 @@ over N shards, a request's blocks round-robin over them, so the longest
 servable context is N times one shard's. ``--sp-devices`` names the
 shards' devices as a comma list (``cuda:0,cuda:0`` puts two shards on one
 card); the default is the first N cards, or N copies of the CPU.
+
+The prefix cache is on (``--no-prefix-cache`` turns it off): requests that
+share a prompt prefix fork its KV blocks instead of prefilling them.
+``--spec ngram`` or ``--spec draft`` serves with speculative decoding
+(``--spec-k`` drafted tokens verified per decode row and step); the draft
+model is a seeded random ``gpt2_tiny`` with the target's vocabulary.
+Greedy output is token-exact either way. The stderr summary carries the
+``prefix_*`` and ``spec_*`` gauges.
 """
 from __future__ import annotations
 
@@ -117,6 +125,20 @@ def main(argv=None) -> int:
     ap.add_argument("--sp-devices", default="",
                     help="comma list of one device per shard, e.g. "
                          "cuda:0,cuda:0 (default: the first --sp cards)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable automatic prefix caching (content-"
+                         "addressed KV block reuse across requests)")
+    ap.add_argument("--prefix-cache-min-hit-blocks", type=int, default=1,
+                    help="ignore prefix-cache matches shorter than this "
+                         "many full KV blocks")
+    ap.add_argument("--spec", default="off",
+                    choices=("off", "ngram", "draft"),
+                    help="speculative decoding: 'ngram' self-drafts from the "
+                         "request's own context, 'draft' drafts with a "
+                         "seeded random gpt2_tiny of the target's vocab")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max drafted tokens verified per decode row per "
+                         "step (the mixed step widens to k+1)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sp_devices = [d for d in args.sp_devices.split(",") if d] or None
@@ -126,13 +148,23 @@ def main(argv=None) -> int:
     model = zoo.create(args.model, device=args.device, seed=args.seed)
     print(f"random-weight {args.model} on {model.device} "
           f"(seed {args.seed})", file=sys.stderr)
+    draft_model = None
+    if args.spec == "draft":
+        draft_model = zoo.create("gpt2_tiny", vocab_size=model.vocab_size,
+                                 max_len=model.max_len, device=args.device,
+                                 seed=args.seed + 1)
+        print("spec=draft: random-weight gpt2_tiny drafter (seed "
+              f"{args.seed + 1})", file=sys.stderr)
     engine = InferenceEngine(
         model, num_blocks=args.num_blocks, block_size=args.block_size,
         max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
         seed=args.seed, kv_dtype=args.kv_dtype,
         quant_weights=args.quant_weights, decode_path=args.decode_path,
         max_seq_len=args.max_seq_len or None, sp=args.sp,
-        sp_devices=sp_devices, device=args.device)
+        sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
+        prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
+        spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
+        device=args.device)
     if args.sp > 1:
         print(f"sequence parallel: sp={args.sp}, "
               f"{engine.pool.blocks_per_shard} block(s)/shard, max context "

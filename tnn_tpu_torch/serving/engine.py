@@ -26,10 +26,35 @@ pool, and a geometry ``pick_chunks`` accepts; "fused" raises otherwise,
 likewise for the paged probe).
 
 The engine runs the JAX engine's chunked prefill, recompute preemption
-(LIFO victims, a per-request preemption budget) and per-row logit guard,
-with the prefix cache off. Steps run synchronously (one host fetch of the
-sampled tokens per step), and a step that raises propagates to the
-caller: a kernel failure is never turned into failed requests.
+(LIFO victims, a per-request preemption budget) and per-row logit guard.
+Steps run synchronously (one host fetch of the sampled tokens per step),
+and a step that raises propagates to the caller: a kernel failure is never
+turned into failed requests.
+
+Automatic prefix caching (``prefix_cache=True``, the default, as in the
+JAX engine): admission probes a content-addressed index of full KV blocks
+(``serving/prefix_cache.py``) with the request's prompt, forks the matched
+blocks into its table, and prefills only the uncached tail. Every block a
+prefill chunk fills is published back at the end of the step. A released
+block the index still names parks in the pool's evictable LRU and is
+reclaimed on demand, so the cache never shrinks the pool. A fully cached
+prompt keeps its last token out of the match (its recomputation gives the
+first-token logits) and takes a copy-on-write clone of the block that
+token writes into (``kv_pool.copy_blocks``), on the source block's shard
+under SP: indexed blocks are immutable. Publishing is suspended while live
+requests hold more than ``prefix_publish_max_occupancy`` of the pool.
+
+Speculative decoding (``spec="ngram"``, ``"draft"`` or a
+``spec_decode.Drafter``): each decode row packs its pending token and up
+to ``spec_k`` drafted candidates as a ragged ``q_len = 1 + k`` row of the
+mixed step, whose full (B, Q, V) logits feed verification: greedy rows
+accept the longest draft prefix that matches the argmax at each position,
+stochastic rows run rejection sampling with ``self.generator``. Accepted
+tokens commit as a prefill chunk's do, and ``pool.truncate`` rolls the
+rejected tail's blocks back. On the paged path the verify rows run through
+the paged-attention kernel; a draft step of the fused path runs the
+standard spec program, and its draft-free lockstep steps still run the
+fused kernel. Device drafts come back in the step's one fetch.
 ``kv_dtype="int8"`` stores the pool as int8 pages with f32 scales (the
 attention kernel reads them in place; the assembled paths dequantize at
 the gather), ``quant_weights=True`` serves a copy of the model with int8
@@ -45,8 +70,8 @@ on the standard path ``gather_kv`` sums the shards' owned positions into
 one cache and the scatters write each shard's own rows. As in the JAX
 engine, SP refuses ``quant_weights`` and the fused path, and needs
 ``num_blocks`` and the table width ``blocks_per_seq`` to divide by sp.
-Speculative decoding, the overlapped loop, tensor parallelism and the
-fault plan are not ported yet.
+The overlapped loop, tensor parallelism and the fault plan are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -63,9 +88,10 @@ from ..nn.quant import quantize_for_decode
 from ..ops import runtime
 from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
 from ..utils.device import resolve_device
-from . import kv_pool, step_build
-from .kv_pool import PagedKVPool
+from . import kv_pool, spec_decode, step_build
+from .kv_pool import PagedKVPool, PoolExhausted
 from .metrics import ServingMetrics
+from .prefix_cache import PrefixCache
 from .scheduler import TERMINAL_STATES, Request, RequestState, Scheduler
 from .sp import SPContext
 
@@ -93,6 +119,18 @@ class InferenceEngine:
     sp : sequence-parallel degree (module docstring); sp_devices names one
         device per shard (default: the first sp cards, or sp copies of the
         CPU), the first of them the model's.
+    prefix_cache : automatic prefix caching (module docstring); False
+        turns off matching, publishing and the evictable pool.
+    prefix_cache_min_hit_blocks : ignore matches shorter than this many
+        full blocks.
+    prefix_publish_max_occupancy : suspend publishes while live requests
+        hold more than this share of the pool (counted in
+        ``stats()["publish_suspended"]``); matching stays on.
+    spec : "off", "ngram" (self-drafting from each row's context), "draft"
+        (``draft_model`` proposes) or a ``spec_decode.Drafter``.
+    spec_k : the most drafted tokens a decode row verifies per step.
+    draft_model : a GPT2-family model on the engine's device sharing the
+        target's vocabulary, for ``spec="draft"``.
 
     A request may hold up to max_seq_len positions,
     a step processes at most 2048 tokens (decode rows + prompt chunks), and
@@ -108,6 +146,10 @@ class InferenceEngine:
                  decode_path: str = "auto",
                  max_seq_len: Optional[int] = None, sp: int = 1,
                  sp_devices: Optional[Sequence[Any]] = None,
+                 prefix_cache: bool = True,
+                 prefix_cache_min_hit_blocks: int = 1,
+                 prefix_publish_max_occupancy: float = 0.95,
+                 spec: Any = "off", spec_k: int = 4, draft_model=None,
                  device="cuda"):
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
@@ -121,6 +163,35 @@ class InferenceEngine:
                              f"device is {self.device}")
         if preemption_budget is not None and preemption_budget < 0:
             raise ValueError("preemption_budget must be >= 0 or None")
+        if prefix_cache_min_hit_blocks < 1:
+            raise ValueError("prefix_cache_min_hit_blocks must be >= 1")
+        self.drafter: Optional[spec_decode.Drafter] = None
+        self.spec_mode = spec if isinstance(spec, str) else \
+            getattr(spec, "name", "custom")
+        self.spec_k = int(spec_k)
+        if isinstance(spec, spec_decode.Drafter):
+            self.drafter = spec
+        elif spec == "ngram":
+            self.drafter = spec_decode.NGramDrafter()
+        elif spec == "draft":
+            if draft_model is None:
+                raise ValueError("spec='draft' needs draft_model")
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft model vocab {draft_model.vocab_size} != target "
+                    f"vocab {model.vocab_size}: drafted token ids must be "
+                    "meaningful to the target")
+            draft_dev = next(draft_model.parameters()).device
+            if draft_dev != self.device:
+                raise ValueError(f"draft model parameters live on "
+                                 f"{draft_dev}, engine device is "
+                                 f"{self.device}")
+            self.drafter = spec_decode.DraftModelDrafter(draft_model)
+        elif spec != "off":
+            raise ValueError(f"unknown spec {spec!r} (off | ngram | draft | "
+                             "a spec_decode.Drafter)")
+        if self.drafter is not None and self.spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
         self.kv_dtype = kv_dtype
         self.quant_weights = bool(quant_weights)
         self.sp = int(sp)
@@ -158,8 +229,23 @@ class InferenceEngine:
                 "num_blocks/block_size) so ceil(max_seq_len / block_size) "
                 "is a multiple of sp")
         self.assembly_len = self.blocks_per_seq * block_size
-        self.scheduler = Scheduler(max_batch_size=max_batch_size,
-                                   chunk_size=chunk_size)
+        self.scheduler = Scheduler(
+            max_batch_size=max_batch_size, chunk_size=chunk_size,
+            spec_tokens=self.spec_k if self.drafter is not None else 0)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(
+                block_size=block_size,
+                min_hit_blocks=prefix_cache_min_hit_blocks)
+            # free() parks still-indexed blocks in the evictable LRU;
+            # alloc() reports the reclaimed ones so the index forgets them
+            self.pool.evictable_filter = self.prefix_cache.contains_block
+            self.pool.reclaim_hook = self.prefix_cache.drop_blocks
+        # admission probes the cache (read-only) to budget its grants
+        self.scheduler.prefix_cache = self.prefix_cache
+        self.prefix_publish_max_occupancy = float(prefix_publish_max_occupancy)
+        # prefix publishes queued by a step's commit, run at its end
+        self._deferred: List[Any] = []
         self.metrics = ServingMetrics()
         self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
         self.generator = torch.Generator(device=self.device)
@@ -292,7 +378,19 @@ class InferenceEngine:
                 1 for r in self.requests.values() if r.state is st)
         s.update({"queue_depth": self.scheduler.queue_depth,
                   "num_running": len(self.scheduler.running),
-                  "pool_free_blocks": self.pool.num_allocatable,
+                  "pool_free_blocks": self.pool.num_free,
+                  "pool_allocated_blocks": self.pool.num_allocated,
+                  "pool_evictable_blocks": self.pool.num_evictable,
+                  "prefix_cache_enabled": self.prefix_cache is not None,
+                  "prefix_indexed_blocks": (len(self.prefix_cache)
+                                            if self.prefix_cache is not None
+                                            else 0),
+                  "prefix_publish_suspended_now": (
+                      self.prefix_cache is not None
+                      and self.pool.occupancy
+                      > self.prefix_publish_max_occupancy),
+                  "spec": self.spec_mode,
+                  "spec_k": self.spec_k if self.drafter is not None else 0,
                   "model_steps": self.model_steps,
                   "kv_dtype": self.kv_dtype,
                   "kv_bytes_per_token": self.pool.kv_bytes_per_token,
@@ -331,7 +429,8 @@ class InferenceEngine:
 
     def step(self) -> Dict[str, List]:
         """Run one serving step: admit, then one mixed prefill+decode step
-        (or a pure-decode step). Returns the step's events::
+        (or a pure-decode step), then the step's prefix publishes. Returns
+        the step's events::
 
             {"tokens": [(rid, token), ...], "finished": [rid, ...],
              "failed": [(rid, error), ...]}
@@ -341,21 +440,25 @@ class InferenceEngine:
                                    "failed": []}
         plan = self.scheduler.schedule(self.pool)
         chunks = dict(plan.chunks)
-        for req in plan.prefills:
-            if not self._admit(req, events):
-                chunks.pop(req.rid, None)
-            elif req.rid in chunks:
-                chunks[req.rid] = min(chunks[req.rid],
-                                      req.prefill_len - req.cache_len)
         with torch.inference_mode():
+            for req in plan.prefills:
+                if not self._admit(req, events):
+                    chunks.pop(req.rid, None)
+                elif req.rid in chunks:
+                    # the grant was budgeted against the scheduler's probe:
+                    # clamp it to the tail the fork left (a clone that found
+                    # no block admitted uncached)
+                    chunks[req.rid] = min(chunks[req.rid],
+                                          req.prefill_len - req.cache_len)
             rec = self._build(chunks, events)
             if rec is not None:
                 self.model_steps += 1
-                newtok, ok = rec["dev"].cpu().numpy()   # the step's one fetch
-                if rec["kind"] == "mixed":
-                    self._mixed_commit(rec, newtok, ok, events)
+                out = rec["dev"].cpu().numpy()   # the step's one fetch
+                if rec["kind"] == "decode":
+                    self._decode_commit(rec, out, events)
                 else:
-                    self._decode_commit(rec, newtok, ok, events)
+                    self._mixed_commit(rec, out, events)
+        self._run_deferred()
         self.metrics.observe_step_latency(time.perf_counter() - t0)
         return events
 
@@ -367,8 +470,41 @@ class InferenceEngine:
                        events)
             return False
         req.cache_len = 0
+        if self.prefix_cache is not None:
+            self._match_prefix(req)
         self.scheduler.admit(req)
         return True
+
+    def _match_prefix(self, req: Request) -> None:
+        """Admission-time cache hit: fork the matched blocks into the
+        request's table and mark their positions resident, so the chunked
+        prefill pushes only the uncached tail. A full-cover hit forks all
+        but its last block and clones that one (the recomputed last token
+        writes inside it; indexed blocks are immutable). If the clone finds
+        no block, the forks are released and the request admits uncached:
+        a cache miss, not a failure."""
+        seq = req.resume_tokens
+        blocks, cached, cow = self.prefix_cache.probe(seq)
+        self.metrics.observe_prefix_lookup(cached if blocks else 0, len(seq))
+        if not blocks:
+            return
+        table = self.pool.fork(blocks[:-1] if cow else blocks)
+        if cow:
+            # alloc's start is a table position: the owner shard's index
+            # puts the clone on its source's shard, where the copy runs
+            try:
+                copy = self.pool.alloc(1, start=self.pool.owner(blocks[-1]))
+            except PoolExhausted:
+                if table:
+                    self.pool.free(table)
+                return
+            n = self.pool.blocks_per_shard
+            for pages in self.pool.shard_pages()[self.pool.owner(copy[0])]:
+                kv_pool.copy_blocks(pages, [blocks[-1] % n], [copy[0] % n])
+            table = table + copy
+            self.metrics.observe_prefix_cow()
+        req.block_table = table
+        req.cache_len = cached
 
     def _fail(self, req: Request, error: str, events) -> None:
         if req.block_table:
@@ -415,9 +551,39 @@ class InferenceEngine:
                 self.pool.alloc(grow, start=len(req.block_table)))
         return True
 
+    def _propose_drafts(self) -> Dict[int, Any]:
+        """Up to ``spec_k`` drafted tokens per decode-phase row, clamped so
+        the accepted drafts plus the verifier's token never pass
+        ``max_new_tokens`` or the position cap; empty proposals are
+        dropped (those rows run as plain decode rows). A drafter returns
+        host tokens or a ``DeviceDraft``, already clamped into the
+        vocabulary on the device."""
+        drafts: Dict[int, Any] = {}
+        vocab = self.model.vocab_size
+        for req in self.scheduler.running:
+            if req.state is not RequestState.RUNNING or \
+                    req.cache_len < req.prefill_len:
+                continue
+            rem = req.max_new_tokens - req.num_generated
+            k = min(self.spec_k, rem - 1,
+                    self.max_seq_len - req.cache_len - 1)
+            if k < 1:
+                continue
+            d = self.drafter.draft(req, k)
+            if not isinstance(d, spec_decode.DeviceDraft):
+                d = [int(t) % vocab for t in d][:k]
+            if len(d):
+                drafts[req.rid] = d
+        return drafts
+
     def _build(self, chunks: Dict[int, int], events) -> Optional[Dict]:
-        """Capacity pass, packing and launch. Returns the launched step's
-        record (device results unfetched) or None when nothing ran."""
+        """Drafts, capacity pass, packing and launch. Returns the launched
+        step's record (device results unfetched) or None when nothing
+        ran."""
+        spec_on = self.drafter is not None
+        # drafts come first, so decode rows reserve blocks for every
+        # drafted position in the capacity pass
+        drafts = self._propose_drafts() if spec_on else {}
         for req in list(self.scheduler.running):
             if req.state is not RequestState.RUNNING:
                 continue        # preempted or failed as an earlier victim
@@ -425,22 +591,62 @@ class InferenceEngine:
                 take = chunks.get(req.rid)
                 if take and not self._grow_blocks(req, take, events):
                     chunks.pop(req.rid, None)
-            else:
-                self._grow_blocks(req, 1, events)
+                continue
+            d = drafts.get(req.rid)
+            if d:
+                # speculation degrades first: a draft whose blocks are not
+                # free is shed before its row would preempt a peer for it
+                grow = self.pool.blocks_for(req.cache_len + 1 + len(d)) \
+                    - len(req.block_table)
+                if grow > 0 and not self.pool.can_alloc(
+                        grow, start=len(req.block_table)):
+                    drafts.pop(req.rid)
+                    d = None
+            if not self._grow_blocks(req, 1 + (len(d) if d else 0), events):
+                drafts.pop(req.rid, None)
         live = self.scheduler.running
         dec = [r for r in live if r.cache_len >= r.prefill_len]
         chk = [r for r in live
                if r.cache_len < r.prefill_len and r.rid in chunks]
-        if not chk:
-            return self._decode_launch(dec) if dec else None
+        n_spec = sum(len(drafts.get(r.rid, ())) for r in dec)
+        if not chk and not n_spec:
+            if not dec:
+                return None
+            rec = self._decode_launch(dec)
+            if spec_on:
+                # draft-free rows still count in the acceptance statistics
+                rec["spec_rows"] = len(dec)
+            return rec
         rows = dec + chk
         takes = {r.rid: chunks[r.rid] for r in chk}
         step = step_build.pack_mixed(
-            rows, len(dec), takes, b=self.scheduler.max_batch_size,
+            rows, len(dec), drafts, takes, b=self.scheduler.max_batch_size,
             nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH)
         put = self._put
         toks, tables = put(step.toks), self._put_tables(step.tables)
+        for i, d in step.dev_drafts:   # device drafts, spliced on the device
+            toks[i, 1:1 + len(d)] = d.toks.to(toks.device)
         starts, q_lens = put(step.starts), put(step.q_lens)
+        rec = {"kind": "spec" if spec_on else "mixed", "rows": rows,
+               "n_dec": len(dec), "takes": takes, "n_draft": step.n_draft}
+        if spec_on:
+            # verification reads every position: the full (B, Q, V) cube
+            if self._paged:
+                self.program_steps["spec"] += 1
+                logits = self._step_model.apply_paged(
+                    toks, self.pool.pages_k, self.pool.pages_v, tables,
+                    starts, q_lens)
+            else:
+                self.program_steps["spec_standard"] += 1
+                logits = self._mixed_standard(toks, tables, starts, q_lens,
+                                              last_only=False)
+            accepts, newtok, ok = self._spec_verify(
+                logits, toks, q_lens, put(step.n_draft), step)
+            # one bundle: the token matrix brings device drafts' values
+            rec["dev"] = torch.cat([torch.stack([accepts, newtok,
+                                                 ok.long()]),
+                                    toks.long().T])
+            return rec
         if self._paged:
             self.program_steps["mixed"] += 1
             logits = self._step_model.apply_paged(
@@ -449,8 +655,8 @@ class InferenceEngine:
         else:
             self.program_steps["mixed_standard"] += 1
             logits = self._mixed_standard(toks, tables, starts, q_lens)
-        return {"kind": "mixed", "dev": self._sample(logits, step),
-                "rows": rows, "n_dec": len(dec), "takes": takes}
+        rec["dev"] = self._sample(logits, step)
+        return rec
 
     def _decode_launch(self, live: Sequence[Request]) -> Dict:
         step = step_build.pack_decode(
@@ -479,10 +685,13 @@ class InferenceEngine:
                                  tables,
                                  out_dtype=self.model.policy.compute_dtype)
 
-    def _mixed_standard(self, toks, tables, starts, q_lens):
+    def _mixed_standard(self, toks, tables, starts, q_lens, *,
+                        last_only: bool = True):
         """The ragged mixed step on assembled caches: each row's chunk runs
         ``apply_cached`` at its own start; the head runs on each row's
-        last live position; the chunk's new rows go back to the pages."""
+        last live position (on every position without ``last_only``: the
+        spec step's verification); the chunk's new rows go back to the
+        pages."""
         model = self.model
         b, qw = toks.shape
         kf, vf = self._gather(tables)
@@ -499,8 +708,11 @@ class InferenceEngine:
             x, cache = blk.apply_cached(x, {"k": kf[i], "v": vf[i]}, starts)
             rows_k.append(cache["k"][rows, :, pos])      # (B, Q, H, Dh)
             rows_v.append(cache["v"][rows, :, pos])
-        last = x[rows[:, 0], (q_lens.long() - 1).clamp_min(0)]
-        logits = model._head(last[:, None])[:, 0]
+        if last_only:
+            last = x[rows[:, 0], (q_lens.long() - 1).clamp_min(0)]
+            logits = model._head(last[:, None])[:, 0]
+        else:
+            logits = model._head(x)
         kv_pool.scatter_chunk(self.pool.pages_k, tables, starts,
                               torch.stack(rows_k), q_lens)
         kv_pool.scatter_chunk(self.pool.pages_v, tables, starts,
@@ -577,6 +789,65 @@ class InferenceEngine:
             self._put(step.topks), self._put(step.topps))
         return torch.stack([newtok, ok.long()])
 
+    def _spec_verify(self, logits, toks, q_lens, n_draft, step):
+        """Verify a ragged speculative step from its full (B, Q, V) logits.
+
+        Row i is ``[x_0, d_1..d_k, pad]`` with ``q_lens = 1 + n_draft``:
+        position j's logits judge token j + 1. Greedy rows (t <= 0) accept
+        the longest draft prefix that matches the argmax, the tokens
+        token-by-token decode would emit. Stochastic rows run rejection
+        sampling: the drafters are deterministic, so accepting d with
+        probability p_target(d) and redrawing a rejection from the target
+        with d masked out leaves the target's distribution. Chunk rows
+        (n_draft 0) reduce to the plain last-position sample. Returns
+        (accepts, next token, all live logits finite), int64 and bool."""
+        logits = logits.float()
+        b, q, v = logits.shape
+        dev = logits.device
+        q_lens, n_draft = q_lens.long(), n_draft.long()
+        pos = torch.arange(q, device=dev)[None]
+        live = pos < q_lens[:, None]
+        ok = torch.where(live[:, :, None], torch.isfinite(logits),
+                         True).flatten(1).all(1)
+        # drafted[:, j]: the token position j's logits must predict
+        drafted = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])],
+                            1).long()
+        greedy = logits.argmax(-1)
+        match = greedy == drafted
+        # the host's sampling parameters say whether any row samples; an
+        # all-greedy step filters and draws nothing
+        sampled = bool((step.temps > 0.0).any())
+        if sampled:
+            t, k, p = (self._put(step.temps), self._put(step.topks),
+                       self._put(step.topps))
+            filtered = sampling.filter_logits(logits, t[:, None],
+                                              k[:, None], p[:, None])
+            p_draft = torch.softmax(filtered, -1).gather(
+                -1, drafted[..., None])[..., 0]
+            u = torch.rand(p_draft.shape, generator=self.generator,
+                           device=dev)
+            match = torch.where(t[:, None] > 0.0, u < p_draft, match)
+        match &= pos < n_draft[:, None]
+        accepts = match.long().cumprod(1).sum(1)
+        # the verifier's token: at the first unaccepted position, which is
+        # position a on a decode row and the last live one on a chunk row
+        s = (accepts + q_lens - 1 - n_draft).clamp(0, q - 1)
+        newtok = greedy.gather(1, s[:, None])[:, 0]
+        if sampled:
+            fsel = filtered.gather(1, s[:, None, None].expand(b, 1, v))[:, 0]
+            # the rejection residual: the refused draft masked out of the
+            # target before the redraw
+            rej_tok = toks.long().gather(1,
+                                         (s + 1).clamp_max(q - 1)[:, None])
+            refused = (accepts < n_draft)[:, None] & (
+                torch.arange(v, device=dev)[None] == rej_tok)
+            fres = fsel.masked_fill(refused, sampling.NEG_INF)
+            noise = torch.empty_like(fres).exponential_(
+                generator=self.generator)
+            newtok = torch.where(t > 0.0, (fres - noise.log()).argmax(-1),
+                                 newtok)
+        return accepts, newtok, ok
+
     # -- commit ---------------------------------------------------------------
 
     def _emit(self, req: Request, tok: int, events) -> None:
@@ -585,7 +856,8 @@ class InferenceEngine:
         events["tokens"].append((req.rid, tok))
         self._maybe_finish(req, tok, events)
 
-    def _decode_commit(self, rec, newtok, ok, events) -> None:
+    def _decode_commit(self, rec, out, events) -> None:
+        newtok, ok = out
         emitted = 0
         for i, req in enumerate(rec["live"]):
             if req.state in TERMINAL_STATES:
@@ -597,8 +869,15 @@ class InferenceEngine:
             self._emit(req, int(newtok[i]), events)
             emitted += 1
         self.metrics.observe_decode(emitted)
+        if rec.get("spec_rows"):
+            self.metrics.observe_spec(0, 0, emitted, rows=rec["spec_rows"])
 
-    def _mixed_commit(self, rec, newtok, ok, events) -> None:
+    def _mixed_commit(self, rec, out, events) -> None:
+        spec_on = rec["kind"] == "spec"
+        if spec_on:
+            accepts, newtok, ok, toks = out[0], out[1], out[2], out[3:].T
+        else:
+            newtok, ok = out
         n_dec = rec["n_dec"]
         now = time.perf_counter()
         emitted = 0
@@ -610,14 +889,42 @@ class InferenceEngine:
                            if i < n_dec else
                            "non-finite logits in prefill chunk", events)
                 continue
-            if i < n_dec:
+            if i < n_dec and not spec_on:
                 req.cache_len += 1
                 self._emit(req, int(newtok[i]), events)
                 emitted += 1
                 continue
+            if i < n_dec:
+                # the accepted drafts, then the verifier's token, stopping
+                # at the first finish, where token-by-token decode stops
+                a = int(accepts[i])
+                committed = 0
+                for tok in [int(x) for x in toks[i, 1:1 + a]] + \
+                        [int(newtok[i])]:
+                    req.cache_len += 1
+                    committed += 1
+                    self._emit(req, tok, events)
+                    if req.state is not RequestState.RUNNING:
+                        break
+                self.metrics.observe_spec(int(rec["n_draft"][i]), a,
+                                          committed)
+                emitted += committed
+                if req.state is RequestState.RUNNING:
+                    # roll the rejected drafts' blocks back
+                    req.block_table = self.pool.truncate(req.block_table,
+                                                         req.cache_len)
+                continue
             take = rec["takes"][req.rid]
             req.cache_len += take
             self.metrics.observe_prefill_chunk(take)
+            if self.prefix_cache is not None:
+                # every block this chunk filled is immutable now; publishing
+                # is suspended while live requests crowd the pool (a larger
+                # evictable set would only churn reclaims)
+                if self.pool.occupancy > self.prefix_publish_max_occupancy:
+                    self.metrics.observe_publish_suspended()
+                else:
+                    self._defer_publish(req)
             if req.cache_len < req.prefill_len or req.out_tokens:
                 # more chunks to go; or a preempted request whose pending
                 # next_token survives (its final chunk's sample is redundant)
@@ -628,6 +935,44 @@ class InferenceEngine:
         if n_dec:
             self.metrics.observe_decode(emitted)
 
+    def _defer_publish(self, req: Request) -> None:
+        """Queue a publish of the request's full blocks for the end of the
+        step. It checks its snapshot when it runs: the request still
+        RUNNING, its cache no shorter and its table's prefix unchanged;
+        otherwise the blocks may be reused already, and it does nothing. A
+        request that finishes in the same commit runs its own publishes
+        first (``_flush_deferred_for``)."""
+        cache = self.prefix_cache
+        tokens = req.resume_tokens
+        snap = list(req.block_table)
+        clen = req.cache_len
+
+        def run() -> None:
+            if (req.state is not RequestState.RUNNING
+                    or req.cache_len < clen
+                    or req.block_table[:len(snap)] != snap):
+                return
+            cache.publish(tokens, snap, clen)
+
+        run.rid = req.rid
+        self._deferred.append(run)
+
+    def _flush_deferred_for(self, req: Request) -> None:
+        """Run this request's queued publishes now, before its blocks are
+        freed: a request can fill its last block and finish in one
+        commit."""
+        keep = []
+        for fn in self._deferred:
+            if fn.rid == req.rid:
+                fn()
+            else:
+                keep.append(fn)
+        self._deferred = keep
+
+    def _run_deferred(self) -> None:
+        while self._deferred:
+            self._deferred.pop(0)()
+
     def _maybe_finish(self, req: Request, tok: int, events) -> None:
         if req.stop_token is not None and tok == req.stop_token:
             reason = "stop_token"
@@ -635,6 +980,8 @@ class InferenceEngine:
             reason = "length"
         else:
             return
+        if self._deferred:
+            self._flush_deferred_for(req)
         self.pool.free(req.block_table)
         req.block_table = []
         self.scheduler.finish(req, reason)

@@ -36,14 +36,22 @@ from its block table, and ``scatter_token`` / ``scatter_chunk`` write one
 step's new rows back for all layers at once. Each takes one shard's pages
 and table, or under SP the lists of per-shard pages and local tables.
 
-The prefix-cache parts of the JAX pool (fork, the evictable LRU, the demote
-hooks) are not ported yet.
+Prefix caching (``serving.prefix_cache``): ``fork`` shares blocks between
+tables by refcount. A block whose last reference drops while the cache
+still indexes it (``evictable_filter``) parks in an evictable LRU instead
+of the free list; it counts as allocatable, ``alloc`` reclaims the oldest
+such blocks when the free list runs short (``reclaim_hook`` tells the cache
+to forget them), and ``fork`` revives one a hit names. ``truncate`` drops a
+table's tail (speculative decoding's rollback), and ``copy_blocks`` clones
+whole pages (the copy-on-write of a full-cover hit). Under SP each shard
+reclaims and revives its own blocks: a block never changes shard. The JAX
+pool's host-tier demote hook is not ported.
 """
 from __future__ import annotations
 
 import math
-from collections import Counter
-from typing import Dict, Iterable, List, Optional, Sequence
+from collections import Counter, OrderedDict
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -122,6 +130,14 @@ class PagedKVPool:
         self._free: List[int] = [b for b in range(self.num_blocks - 1, -1, -1)
                                  if b not in self._scratch]
         self._ref: Dict[int, int] = {}
+        # evictable LRU (insertion order = reclaim order, oldest first):
+        # zero-ref blocks whose content the prefix cache still indexes
+        self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        # prefix-cache hooks, None with the cache off: free() parks a
+        # zero-ref block iff evictable_filter(block); reclaim_hook(blocks)
+        # hears of every evictable block recycled
+        self.evictable_filter: Optional[Callable[[int], bool]] = None
+        self.reclaim_hook: Optional[Callable[[List[int]], None]] = None
 
     # -- bookkeeping ----------------------------------------------------------
 
@@ -131,19 +147,35 @@ class PagedKVPool:
         return self.num_blocks - self.sp
 
     @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_evictable(self) -> int:
+        """Zero-ref blocks parked for the prefix cache (reclaimable)."""
+        return len(self._evictable)
+
+    @property
     def num_allocatable(self) -> int:
-        """Blocks an alloc can take now. Under sequence parallelism table
-        position j's block must come from shard ``j % sp``, so the
-        BOTTLENECK shard gates it: ``sp * min_s(free_s)``, the longest run
-        of table positions allocatable from any start. The scheduler reads
-        only this, so admission follows the scarcest shard."""
+        """Blocks an alloc can take now: free + evictable. Under sequence
+        parallelism table position j's block must come from shard ``j %
+        sp``, so the BOTTLENECK shard gates it: ``sp * min_s(avail_s)``,
+        the longest run of table positions allocatable from any start. The
+        scheduler reads only this, so admission follows the scarcest
+        shard."""
         if self.sp == 1:
-            return len(self._free)
-        return self.sp * min(self._shard_free(s) for s in range(self.sp))
+            return len(self._free) + len(self._evictable)
+        return self.sp * min(self._shard_avail(s) for s in range(self.sp))
 
     @property
     def num_allocated(self) -> int:
-        return self.capacity - len(self._free)
+        return self.capacity - len(self._free) - len(self._evictable)
+
+    @property
+    def occupancy(self) -> float:
+        """Share of capacity live requests hold (evictable blocks count as
+        available)."""
+        return self.num_allocated / max(self.capacity, 1)
 
     @property
     def page_itemsize(self) -> int:
@@ -182,8 +214,10 @@ class PagedKVPool:
             return [(self.pages_k, self.pages_v)]
         return list(zip(self.pages_k, self.pages_v))
 
-    def _shard_free(self, shard: int) -> int:
-        return sum(1 for b in self._free if self.owner(b) == shard)
+    def _shard_avail(self, shard: int) -> int:
+        """Free + evictable blocks of one shard."""
+        return (sum(1 for b in self._free if self.owner(b) == shard)
+                + sum(1 for b in self._evictable if self.owner(b) == shard))
 
     def _shard_need(self, n: int, start: int) -> List[int]:
         """Blocks each shard gives ``n`` table positions from ``start``."""
@@ -194,56 +228,128 @@ class PagedKVPool:
 
     def can_alloc(self, n: int, start: int = 0) -> bool:
         if self.sp == 1:
-            return n <= len(self._free)
-        return all(need <= self._shard_free(s)
+            return n <= len(self._free) + len(self._evictable)
+        return all(need <= self._shard_avail(s)
                    for s, need in enumerate(self._shard_need(n, start)))
 
-    def _pick_free(self, shard: int) -> int:
+    def is_evictable(self, block: int) -> bool:
+        return block in self._evictable
+
+    def _pick_free(self, shard: int) -> Optional[int]:
         """Pop the most recently freed block of ``shard`` (LIFO per
-        shard)."""
+        shard), or None."""
         for i in range(len(self._free) - 1, -1, -1):
             if self.owner(self._free[i]) == shard:
                 return self._free.pop(i)
-        raise AssertionError(f"shard {shard} has no free block")
+        return None
+
+    def _reclaim_shard(self, shard: int) -> None:
+        """Reclaim the LRU-oldest evictable block of ``shard`` into the free
+        list, telling ``reclaim_hook``."""
+        b = next(b for b in self._evictable if self.owner(b) == shard)
+        del self._evictable[b]
+        self._free.append(b)
+        if self.reclaim_hook is not None:
+            self.reclaim_hook([b])
+
+    def _reclaim(self, n: int) -> List[int]:
+        """Move the ``n`` LRU-oldest evictable blocks to the free list and
+        tell ``reclaim_hook``: their cached KV is gone for good."""
+        taken = []
+        for _ in range(n):
+            b, _ = self._evictable.popitem(last=False)
+            taken.append(b)
+            self._free.append(b)
+        if taken and self.reclaim_hook is not None:
+            self.reclaim_hook(taken)
+        return taken
 
     def alloc(self, n: int, start: int = 0) -> List[int]:
-        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted.
+        """Take ``n`` blocks (refcount 1 each); raises PoolExhausted. When
+        the free list runs short, LRU-oldest evictable blocks are reclaimed
+        first, so cached pages are recycled before an allocation fails.
 
         ``start`` is the table position the first block will take: under
         sequence parallelism block i comes from shard ``(start + i) % sp``,
         so a sequence's pages spread round-robin over the shards. At sp = 1
         it is ignored."""
         if self.sp == 1:
+            if n > len(self._free) + len(self._evictable):
+                raise PoolExhausted(
+                    f"need {n} blocks, {len(self._free)} free + "
+                    f"{len(self._evictable)} evictable "
+                    f"(capacity {self.capacity})")
             if n > len(self._free):
-                raise PoolExhausted(f"need {n} blocks, {len(self._free)} "
-                                    f"free (capacity {self.capacity})")
+                self._reclaim(n - len(self._free))
             blocks = [self._free.pop() for _ in range(n)]
         else:
             for s, need in enumerate(self._shard_need(n, start)):
-                have = self._shard_free(s)
+                have = self._shard_avail(s)
                 if need > have:
                     raise PoolExhausted(
                         f"need {n} blocks from table position {start}, but "
                         f"shard {s} can cover only {have} of its {need} "
                         f"(capacity {self.capacity}, {self.sp} SP shards)")
-            blocks = [self._pick_free((start + i) % self.sp)
-                      for i in range(n)]
+            blocks = []
+            for i in range(n):
+                s = (start + i) % self.sp
+                b = self._pick_free(s)
+                if b is None:
+                    self._reclaim_shard(s)
+                    b = self._pick_free(s)
+                blocks.append(b)
         for b in blocks:
             self._ref[b] = 1
         return blocks
 
+    def fork(self, blocks: Sequence[int]) -> List[int]:
+        """Share ``blocks`` with another table: one more reference each. An
+        evictable block is revived to refcount 1 (a prefix hit on a block
+        no live request holds)."""
+        for b in blocks:
+            if b in self._ref:
+                self._ref[b] += 1
+            elif b in self._evictable:
+                del self._evictable[b]
+                self._ref[b] = 1
+            else:
+                raise KeyError(f"block {b} is not allocated")
+        return list(blocks)
+
     def free(self, blocks: Sequence[int]) -> None:
-        """Drop one reference per block; blocks reaching zero return to the
-        free list (deepest first, as the JAX pool orders them)."""
+        """Drop one reference per block. A block reaching zero returns to
+        the free list, or parks in the evictable LRU while the prefix cache
+        indexes it. Deepest first, as the JAX pool: a table's chain tail
+        parks nearer the reclaim end than its parents."""
         for b in reversed(list(blocks)):
             r = self._ref.get(b)
             if r is None:
                 raise KeyError(f"block {b} is not allocated (double free?)")
             if r == 1:
                 del self._ref[b]
-                self._free.append(b)
+                if (self.evictable_filter is not None
+                        and self.evictable_filter(b)):
+                    self._evictable[b] = None    # newest = reclaimed last
+                else:
+                    self._free.append(b)
             else:
                 self._ref[b] = r - 1
+
+    def truncate(self, block_table: Sequence[int],
+                 num_tokens: int) -> List[int]:
+        """Keep the blocks covering a table's first ``num_tokens`` positions
+        and free the tail (speculative decoding's rollback of a rejected
+        draft suffix). Returns the kept prefix as a new list."""
+        keep = self.blocks_for(num_tokens) if num_tokens > 0 else 0
+        if keep >= len(block_table):
+            return list(block_table)
+        self.free(block_table[keep:])
+        return list(block_table[:keep])
+
+    def purge_evictable(self) -> List[int]:
+        """Reclaim every evictable block (the pages' content became
+        untrustworthy)."""
+        return self._reclaim(len(self._evictable))
 
     def check_invariants(
             self,
@@ -251,17 +357,20 @@ class PagedKVPool:
             seq_lens: Optional[Sequence[int]] = None) -> None:
         """Verify the bookkeeping; raises ValueError on a violation.
 
-        Always: free + allocated == capacity, and the same within each
-        sequence-parallel shard, with no block in both, no duplicate free
+        Always: free + allocated + evictable == capacity, and the same
+        within each sequence-parallel shard, a strict partition (no block in
+        two sets, an evictable block holds no reference), no duplicate free
         entries, every shard's scratch block out of circulation, ids in
         range, refcounts >= 1; each shard's pages contiguous, of its shape
         and on its device; under int8 both pages are ``QuantPages`` of int8
         data and f32 scales shaped as the data with the last axis 1. With
         ``block_tables`` (every running
         request's table): each allocated block appears in exactly refcount
-        tables and no table names a free block. With ``seq_lens`` (parallel
-        to the tables): each table covers its resident tokens and holds no
-        more than ``blocks_for(seq_len + 1)`` blocks.
+        tables and no table names a free or evictable block. With
+        ``seq_lens`` (parallel to the tables): each table covers its
+        resident tokens and holds no more than ``blocks_for(seq_len + 1)``
+        blocks, so a rejected draft suffix left untruncated shows as a
+        stale tail.
         """
         want_shape = (self.num_layers, self.blocks_per_shard,
                       self.num_kv_heads, self.block_size, self.head_dim)
@@ -296,25 +405,31 @@ class PagedKVPool:
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             raise ValueError(f"duplicate blocks in free list: {self._free}")
-        leaked = self._scratch & (free_set | self._ref.keys())
+        evict_set = set(self._evictable)
+        leaked = self._scratch & (free_set | self._ref.keys() | evict_set)
         if leaked:
             raise ValueError(f"scratch block {min(leaked)} entered "
                              "circulation")
-        if free_set & self._ref.keys():
-            raise ValueError(f"blocks both free and allocated: "
-                             f"{free_set & self._ref.keys()}")
-        if len(self._free) + len(self._ref) != self.capacity:
+        for name, both in (("free and allocated", free_set & self._ref.keys()),
+                           ("evictable and allocated",
+                            evict_set & self._ref.keys()),
+                           ("evictable and free", evict_set & free_set)):
+            if both:
+                raise ValueError(f"blocks both {name}: {sorted(both)}")
+        if len(self._free) + len(self._ref) + len(evict_set) != self.capacity:
             raise ValueError(f"free ({len(self._free)}) + allocated "
-                             f"({len(self._ref)}) != capacity "
+                             f"({len(self._ref)}) + evictable "
+                             f"({len(evict_set)}) != capacity "
                              f"({self.capacity})")
-        bad = [b for b in free_set | self._ref.keys()
+        bad = [b for b in free_set | self._ref.keys() | evict_set
                if not 0 < b < self.num_blocks]
         for shard in range(self.sp):   # every shard accounted on its own
             held = sum(1 for b in self._ref if self.owner(b) == shard)
-            if held + self._shard_free(shard) != self.blocks_per_shard - 1:
+            if held + self._shard_avail(shard) != self.blocks_per_shard - 1:
                 raise ValueError(
-                    f"shard {shard}: free ({self._shard_free(shard)}) + "
-                    f"allocated ({held}) != {self.blocks_per_shard - 1}")
+                    f"shard {shard}: free + evictable "
+                    f"({self._shard_avail(shard)}) + allocated ({held}) != "
+                    f"{self.blocks_per_shard - 1}")
         if bad:
             raise ValueError(f"block ids out of range: {bad}")
         if any(r < 1 for r in self._ref.values()):
@@ -335,10 +450,10 @@ class PagedKVPool:
             usage.update(table)
         for b in self._scratch:
             usage.pop(b, None)
-        stale = set(usage) & free_set
+        stale = set(usage) & (free_set | evict_set)
         if stale:
-            raise ValueError(f"live tables reference free blocks: "
-                             f"{sorted(stale)}")
+            raise ValueError(f"live tables reference evictable or free "
+                             f"blocks (use-after-free): {sorted(stale)}")
         if usage != Counter(self._ref):
             raise ValueError(f"table/refcount mismatch: tables "
                              f"{dict(usage)} vs refcounts {self._ref}")
@@ -470,4 +585,17 @@ def scatter_chunk(pages, block_tables, starts, rows, q_lens):
     # Dh)
     pages[:, blk, :, pos % bs, :] = rows.permute(1, 2, 0, 3, 4).to(
         pages.dtype)
+    return pages
+
+
+def copy_blocks(pages, src, dst):
+    """Copy whole pages ``src -> dst`` in place, across every layer (the
+    device half of a copy-on-write clone). pages: (L, N, H, bs, Dh) of one
+    shard; src, dst: (n,) block ids local to it. ``QuantPages`` copy their
+    scales with the data, so a clone dequantizes as its source does."""
+    if isinstance(pages, QuantPages):
+        copy_blocks(pages.data, src, dst)
+        copy_blocks(pages.scale, src, dst)
+        return pages
+    pages[:, dst] = pages[:, src]
     return pages

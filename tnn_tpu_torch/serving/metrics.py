@@ -1,7 +1,8 @@
 """Serving metrics (a small ``tnn_tpu.serving.metrics.ServingMetrics``):
 TTFT percentiles, decode tokens/s, step latency, preemptions, finished
-requests and the pool's KV bytes per token. All clocks are host wall clocks
-around synchronised steps."""
+requests, the pool's KV bytes per token, and the prefix cache's and
+speculative decoding's counters. All clocks are host wall clocks around
+synchronised steps."""
 from __future__ import annotations
 
 import time
@@ -30,6 +31,19 @@ class ServingMetrics:
         # the pool's page bytes per resident token (K + V, all layers; int8
         # scales excluded), set by the engine that owns the pool
         self.kv_bytes_per_token = 0
+        # prefix cache: admission-time lookups against the block index
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_total = 0     # prompt tokens the lookups covered
+        self.prefill_tokens_saved = 0    # of those, served from cached KV
+        self.prefix_cows = 0             # clones at full-cover hits
+        self.publish_suspended = 0       # publishes skipped under pressure
+        # speculative decoding: drafted and accepted candidates, committed
+        # tokens (accepted + the verifier's own) per decode-row step
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_committed_tokens = 0
+        self.spec_row_steps = 0
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
@@ -50,6 +64,37 @@ class ServingMetrics:
         """A step that emitted ``num_tokens`` decode-phase tokens."""
         self._mark()
         self.decode_tokens += num_tokens
+
+    def observe_prefix_lookup(self, tokens_saved: int, total: int) -> None:
+        """One admission probe over a ``total``-token prompt, of which
+        ``tokens_saved`` positions came from cached KV."""
+        self.prefix_lookups += 1
+        self.prefix_tokens_total += total
+        if tokens_saved > 0:
+            self.prefix_hits += 1
+            self.prefill_tokens_saved += tokens_saved
+
+    def observe_prefix_cow(self) -> None:
+        """A full-cover hit cloned its last block (copy-on-write)."""
+        self.prefix_cows += 1
+
+    def observe_publish_suspended(self) -> None:
+        """A prefix publish was skipped: the pool was above the engine's
+        ``prefix_publish_max_occupancy``."""
+        self.publish_suspended += 1
+
+    def observe_spec(self, drafted: int, accepted: int, committed: int,
+                     rows: int = 1) -> None:
+        """Speculative outcome of ``rows`` decode-row steps: ``drafted``
+        candidates, ``accepted`` of them verified, ``committed`` tokens
+        emitted (accepted + the verifier's own, cut by a stop or the
+        length). Rows that drafted nothing count too, so a drafter that
+        never fires shows about one token a step."""
+        self._mark()
+        self.spec_draft_tokens += drafted
+        self.spec_accepted_tokens += accepted
+        self.spec_committed_tokens += committed
+        self.spec_row_steps += rows
 
     def observe_step_latency(self, seconds: float) -> None:
         self.steps += 1
@@ -93,4 +138,21 @@ class ServingMetrics:
             "finished": self.finished,
             "failed": self.failed,
             "kv_bytes_per_token": self.kv_bytes_per_token,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_cows": self.prefix_cows,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+            # token-weighted: saved positions over all looked-up ones
+            "prefix_hit_rate": (self.prefill_tokens_saved
+                                / self.prefix_tokens_total)
+            if self.prefix_tokens_total else 0.0,
+            "publish_suspended": self.publish_suspended,
+            "spec_draft_tokens": self.spec_draft_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_acceptance_rate": (self.spec_accepted_tokens
+                                     / self.spec_draft_tokens)
+            if self.spec_draft_tokens else 0.0,
+            "mean_accepted_per_step": (self.spec_committed_tokens
+                                       / self.spec_row_steps)
+            if self.spec_row_steps else 0.0,
         }

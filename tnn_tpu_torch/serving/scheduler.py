@@ -8,10 +8,13 @@ and the pool has blocks. When the pool runs dry the latest-admitted running
 request frees its blocks and re-queues at the front, carrying its generated
 tokens as an extended prompt; under greedy decoding the re-prefill
 reproduces its KV token for token. The scheduler is host-side policy only
-and copies the JAX scheduler's decisions exactly (with the prefix cache
-off). Its only view of the pool is ``pool.num_allocatable``, which under
-sequence parallelism is the bottleneck shard's (``sp * min_s(free_s)``),
-so SP admission needs no branch here.
+and copies the JAX scheduler's decisions exactly. Its view of the pool is
+``pool.num_allocatable``, which under sequence parallelism is the
+bottleneck shard's (``sp * min_s(avail_s)``), so SP admission needs no
+branch here, and, with a prefix cache, ``pool.is_evictable``: admission
+probes the cache (read-only) so that cached positions cost no budget and
+forked blocks no allocation. With speculative decoding (``spec_tokens``)
+each decode row reserves ``1 + spec_tokens`` of the budget.
 """
 from __future__ import annotations
 
@@ -90,22 +93,31 @@ class StepPlan:
 
 class Scheduler:
     """FCFS continuous batching over a PagedKVPool with Sarathi-style
-    chunked prefill: each decode-phase row costs 1 budget token, rows still
-    mid-prefill take up to ``chunk_size`` more of their prompt, and what is
-    left admits queued requests at chunk granularity. The oldest mid-prefill
-    row always advances; a sole request is admitted even over budget."""
+    chunked prefill: each decode-phase row costs ``1 + spec_tokens`` budget
+    tokens (its pending token and the drafted candidates scored beside it),
+    rows still mid-prefill take up to ``chunk_size`` more of their prompt,
+    and what is left admits queued requests at chunk granularity. The
+    oldest mid-prefill row always advances; a sole request is admitted even
+    over budget."""
 
     def __init__(self, max_batch_size: int = 8, token_budget: int = 2048,
-                 chunk_size: int = 64):
+                 chunk_size: int = 64, spec_tokens: int = 0):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        if spec_tokens < 0:
+            raise ValueError("spec_tokens must be >= 0")
         self.max_batch_size = int(max_batch_size)
         self.token_budget = int(token_budget)
         self.chunk_size = int(chunk_size)
+        self.spec_tokens = int(spec_tokens)
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []  # admission order (oldest first)
+        # the engine's PrefixCache or None; admission only probes it, and
+        # the engine forks at admit with nothing run in between, so both
+        # see the same index
+        self.prefix_cache = None
 
     @property
     def has_work(self) -> bool:
@@ -123,13 +135,16 @@ class Scheduler:
     def schedule(self, pool) -> StepPlan:
         """Plan one step: the chunk grants of running mid-prefill rows and
         the queued requests to admit (strictly FCFS: a blocked queue head
-        blocks everyone behind it)."""
+        blocks everyone behind it). A cache hit's positions cost no budget
+        and its forked blocks no allocation; reviving an evictable matched
+        block takes reclaimable capacity, so it counts against
+        ``pool.num_allocatable`` beside fresh blocks."""
         chunks: Dict[int, int] = {}
         budget = self.token_budget
         prefilling: List[Request] = []
         for req in self.running:
             if req.cache_len >= req.prefill_len:
-                budget -= 1
+                budget -= 1 + self.spec_tokens
             else:
                 prefilling.append(req)
         for i, req in enumerate(prefilling):
@@ -149,14 +164,23 @@ class Scheduler:
             sole = not self.running and not prefills
             if budget < 1 and not sole:
                 break
-            take = min(self.chunk_size, total, max(budget, 1))
-            nb = pool.blocks_for(take)
-            if planned_blocks + nb > pool.num_allocatable:
+            cached = forked = revive = 0
+            if self.prefix_cache is not None:
+                mb, cached, cow = self.prefix_cache.probe(req.resume_tokens)
+                if mb:
+                    # a full-cover hit forks all but its last block, whose
+                    # copy-on-write clone counts in nb below
+                    shared = mb[:-1] if cow else mb
+                    forked = len(shared)
+                    revive = sum(1 for b in shared if pool.is_evictable(b))
+            take = min(self.chunk_size, total - cached, max(budget, 1))
+            nb = pool.blocks_for(cached + take) - forked
+            if planned_blocks + nb + revive > pool.num_allocatable:
                 break
             req.prefill_len = total
             chunks[req.rid] = take
             budget -= take
-            planned_blocks += nb
+            planned_blocks += nb + revive
             prefills.append(self.waiting.popleft())
         return StepPlan(prefills=prefills, decodes=list(self.running),
                         chunks=chunks)

@@ -1,9 +1,11 @@
-"""Host-side batch packing (``tnn_tpu.serving.step_build``), without the
-speculative-decoding drafts.
+"""Host-side batch packing (``tnn_tpu.serving.step_build``).
 
-``pack_mixed`` puts decode-phase rows first (one committed token each), then
-mid-prefill chunk rows, into a ragged (B, qw) batch whose width is the
-power-of-two bucket of the widest chunk; ``pack_decode`` is the pure-decode
+``pack_mixed`` puts decode-phase rows first (one committed token each, plus
+any speculative draft), then mid-prefill chunk rows, into a ragged (B, qw)
+batch whose width is the power-of-two bucket of the widest row. Host
+drafts land in the token matrix here; device drafts (``spec_decode.
+DeviceDraft``) are listed for the engine to splice on the device, so their
+values never pass through the host. ``pack_decode`` is the pure-decode
 batch, one token per row, and names the program that runs it: "pdecode"
 (the paged path), "fdecode" (the fused kernel, when every live row sits at
 one offset: a lockstep batch) or "decode" (the assembled-cache standard
@@ -14,11 +16,12 @@ sequence-parallel shard's local ones.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from ..utils.bucketing import pow2_bucket
+from .spec_decode import DeviceDraft
 
 
 @dataclasses.dataclass
@@ -36,6 +39,10 @@ class MixedStep(PackedStep):
     toks: np.ndarray = None         # (B, qw) token matrix
     starts: np.ndarray = None       # (B,) first write position per row
     q_lens: np.ndarray = None       # (B,) live tokens per row
+    n_draft: np.ndarray = None      # (B,) drafted lookahead per decode row
+    # (row index, DeviceDraft) pairs spliced in on the device
+    dev_drafts: List[Tuple[int, Any]] = dataclasses.field(
+        default_factory=list)
 
 
 @dataclasses.dataclass
@@ -80,22 +87,32 @@ def _alloc_common(b: int, nb: int, scratch: int):
                 topps=np.zeros((b,), np.float32))
 
 
-def pack_mixed(rows: Sequence[Any], n_dec: int, takes: Dict[int, int], *,
-               b: int, nb: int, scratch: int) -> MixedStep:
-    """Pack decode rows (the first ``n_dec`` of ``rows``, one token each)
-    and prompt-chunk rows (the rest, ``takes[rid]`` tokens each)."""
-    widest = max([takes[r.rid] for r in rows[n_dec:]] + [1])
+def pack_mixed(rows: Sequence[Any], n_dec: int, drafts: Dict[int, Any],
+               takes: Dict[int, int], *, b: int, nb: int,
+               scratch: int) -> MixedStep:
+    """Pack decode rows (the first ``n_dec`` of ``rows``, one token each
+    plus ``drafts[rid]`` when drafted) and prompt-chunk rows (the rest,
+    ``takes[rid]`` tokens each)."""
+    widest = max([takes[r.rid] for r in rows[n_dec:]]
+                 + [1 + len(drafts.get(r.rid, ())) for r in rows[:n_dec]])
     qw = pow2_bucket(widest)
     step = MixedStep(toks=np.zeros((b, qw), np.int32),
                      starts=np.zeros((b,), np.int32),
                      q_lens=np.zeros((b,), np.int32),
+                     n_draft=np.zeros((b,), np.int32),
                      **_alloc_common(b, nb, scratch))
     for i, req in enumerate(rows):
         step.starts[i] = req.cache_len
         _fill_row(step, i, req)
         if i < n_dec:
+            d = drafts.get(req.rid, [])
             step.toks[i, 0] = req.next_token
-            step.q_lens[i] = 1
+            if isinstance(d, DeviceDraft):
+                step.dev_drafts.append((i, d))
+            elif d:
+                step.toks[i, 1:1 + len(d)] = d
+            step.q_lens[i] = 1 + len(d)
+            step.n_draft[i] = len(d)
         else:
             take = takes[req.rid]
             seq = req.resume_tokens
