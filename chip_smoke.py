@@ -102,6 +102,19 @@ numbers on its own line:
    tie-free prompts, bf16 ones without a divergence above a 1e-2 gap; the
    CLI on two identical lines and with ``--spec ngram``. Its launches join
    K1's, K2's, K3's, K1s' and K8's on the kernels line.
+19. serving_overlap: the serving traffic through the overlapped loop with
+   every pdecode step a CUDA graph replay, against synchronous eager
+   steps, on the bf16 pool and on the int8 pool and weights: token-exact
+   on every request (half of them sampled), the graph count and capture
+   time, adopted speculative steps and rebuilds, host gap p50 / p99,
+   decode tokens/s, and K1 (or K2) = 12 x paged dispatches = 12 x (paged
+   steps + rebuilds); steady decode steps of both in ABBA windows with
+   device busy, idle share and aten ops from a profiled window, and one
+   staged step through the eager program and one replay, equal bit for
+   bit; the fused path with overlap on (eager K8) against off; the CLI
+   by default and with ``--no-overlap``, the same tokens. Its overlapped
+   runs' launches join K1's, K2's and K3's on the kernels line. Every
+   earlier serving phase's pdecode steps replay graphs too.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -796,8 +809,12 @@ def mixed_logits_check(model, seed, tol):
                              f"{tol * scale}")
 
 
-def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
-    """One engine run over the smoke traffic; returns (engine, rids)."""
+def serve_traffic(model, seed, num_requests=8, new_tokens=64,
+                  eager_steps=False, **engine_kw):
+    """One engine run over the smoke traffic, through the overlapped loop
+    when ``engine_kw`` turns it on; returns (engine, rids).
+    ``eager_steps`` runs pdecode steps eagerly instead of replaying their
+    graph."""
     import numpy as np
 
     from tnn_tpu_torch.serving.engine import InferenceEngine
@@ -805,6 +822,7 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
     engine = InferenceEngine(model, num_blocks=512, block_size=16,
                              max_batch_size=8, chunk_size=64, seed=seed,
                              device=model.device, **engine_kw)
+    engine._eager_steps = eager_steps
     rng = np.random.default_rng(seed)
     rids = []
     for i in range(num_requests):
@@ -818,7 +836,7 @@ def serve_traffic(model, seed, num_requests=8, new_tokens=64, **engine_kw):
 
 
 def steady_decode_engine(model, new_tokens, batch=8, prompts=None,
-                         **engine_kw):
+                         eager_steps=False, **engine_kw):
     """An engine with ``batch`` requests (``prompts``, or 500 random
     tokens each), past their prefill and first decode step, with
     ``new_tokens`` tokens each to decode."""
@@ -829,6 +847,7 @@ def steady_decode_engine(model, new_tokens, batch=8, prompts=None,
     engine = InferenceEngine(model, num_blocks=512, block_size=16,
                              max_batch_size=batch, chunk_size=64, seed=0,
                              device=model.device, **engine_kw)
+    engine._eager_steps = eager_steps
     rng = np.random.default_rng(5)
     for i in range(batch):
         engine.submit(rng.integers(0, model.vocab_size, 500)
@@ -840,42 +859,36 @@ def steady_decode_engine(model, new_tokens, batch=8, prompts=None,
     return engine
 
 
-def profile_decode_steps(model, steps=10, phase="serving_profile",
-                         batch=8, prompts=None, new_tokens=None,
-                         **engine_kw):
-    """Steady decode steps of ``batch`` rows: wall time per step without the
-    profiler in three windows of ``steps`` steps (their median is the step
-    time; their spread is the host's within one process), then from a
-    profiler window over as many further steps the device-busy time per
-    step (summed kernel durations), the kernels that take the most device
-    time, the outermost aten ops and the kernels per step, and the ops
-    that take the most host self time. Idle share = 1 - busy / unprofiled
-    step time: the profiler slows the host, so its own window's wall time
-    is printed but not used. ``prompts`` and ``new_tokens`` (default 4 x
-    steps + 8) set the requests; tokens per step counts what the steps
-    emitted (more than the rows where speculative decoding accepts)."""
+def drive_step(engine):
+    """One turn of the engine's drive loop: with ``overlap`` the
+    overlapped loop's begin (unless a speculative step was adopted),
+    speculate, deferred work, finish; else one synchronous step. Returns
+    the committed step's events."""
+    if not engine.overlap:
+        return engine.step()
+    if engine.in_flight is None:
+        engine.begin_step()
+    engine.try_speculate()
+    engine.run_deferred()
+    return engine.finish_step()
+
+
+def profile_window(engine, steps):
+    """``steps`` drive turns under the profiler: device-busy time per
+    step (summed kernel durations, graph replays' kernels included), the
+    kernels that take the most device time, the outermost aten ops and
+    the kernels per step, the ops that take the most host self time, and
+    the window's own wall time per step (slowed by the profiler)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine = steady_decode_engine(model, new_tokens or 4 * steps + 8, batch,
-                                  prompts, **engine_kw)
-    windows = []
-    emitted = 0
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            emitted += len(engine.step()["tokens"])
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / steps)
-    step_ms = sorted(windows)[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            drive_step(engine)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = collections.Counter()
@@ -890,40 +903,81 @@ def profile_decode_steps(model, steps=10, phase="serving_profile",
         parent = e.cpu_parent
         ops += e.name.startswith("aten::") and not (
             parent is not None and parent.name.startswith("aten::"))
-    busy_ms = sum(by_name.values()) / 1e3 / steps
+    return dict(
+        device_busy_ms=sum(by_name.values()) / 1e3 / steps,
+        aten_ops_per_step=ops / steps, kernels_per_step=kernels / steps,
+        profiled_step_ms=profiled_ms,
+        top_kernels_ms=[(n, t / 1e3 / steps)
+                        for n, t in by_name.most_common(6)],
+        top_host_self_ms=[(n, t / 1e3 / steps)
+                          for n, t in host_self.most_common(8)])
+
+
+def profile_decode_steps(model, steps=10, phase="serving_profile",
+                         batch=8, prompts=None, new_tokens=None,
+                         **engine_kw):
+    """Steady decode steps of ``batch`` rows (driven by ``drive_step``, so
+    an engine with ``overlap`` runs the overlapped loop): wall time per
+    step without the profiler in three windows of ``steps`` steps (their
+    median is the step time; their spread is the host's within one
+    process), then ``profile_window`` over as many further steps. Idle
+    share = 1 - busy / unprofiled step time: the profiler slows the host,
+    so its own window's wall time is printed but not used. ``prompts`` and
+    ``new_tokens`` (default 4 x steps + 8) set the requests; tokens per
+    step counts what the steps emitted (more than the rows where
+    speculative decoding accepts)."""
+    import torch
+
+    engine = steady_decode_engine(model, new_tokens or 4 * steps + 8, batch,
+                                  prompts, **engine_kw)
+    windows = []
+    emitted = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            emitted += len(drive_step(engine)["tokens"])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / steps)
+    step_ms = sorted(windows)[1]
+    prof = profile_window(engine, steps)
     # host cost per op: the unprofiled step over the step's outermost
     # aten ops, which is what a path with more ops pays more of
     log(phase, decode_rows=batch,
         kv_len=500 if prompts is None else len(prompts[0]), step_ms=step_ms,
         tokens_per_step=emitted / (3 * steps),
-        step_ms_windows=windows, profiled_step_ms=profiled_ms,
-        device_busy_ms=busy_ms,
-        idle_share=1.0 - busy_ms / step_ms,
-        aten_ops_per_step=ops / steps, kernels_per_step=kernels / steps,
-        step_us_per_op=step_ms * 1e3 * steps / max(ops, 1),
-        top_kernels_ms=[(n, t / 1e3 / steps)
-                        for n, t in by_name.most_common(6)],
-        top_host_self_ms=[(n, t / 1e3 / steps)
-                          for n, t in host_self.most_common(8)],
+        step_ms_windows=windows, profiled_step_ms=prof["profiled_step_ms"],
+        device_busy_ms=prof["device_busy_ms"],
+        idle_share=1.0 - prof["device_busy_ms"] / step_ms,
+        aten_ops_per_step=prof["aten_ops_per_step"],
+        kernels_per_step=prof["kernels_per_step"],
+        step_us_per_op=step_ms * 1e3 / max(prof["aten_ops_per_step"], 1),
+        top_kernels_ms=prof["top_kernels_ms"],
+        top_host_self_ms=prof["top_host_self_ms"],
         program_steps=engine.stats()["program_steps"])
 
 
 def host_ab(model, rounds=4, steps=5, launches=2000,
-            phase="serving_int8_host_ab", paths=None):
+            phase="serving_int8_host_ab", paths=None, abba=False, spare=0):
     """Two decode paths' steady steps timed in alternating windows of
-    ``steps`` steps (default: the bf16 path, then int8 pool and weights),
-    each round also timing ``launches`` back-to-back tiny kernel launches
-    (the host's cost per launch at that moment), and one last round with
-    Python's garbage collector off. If the second/first ratio holds while
-    all three move together, the host's speed varies and each path pays
-    for it per op; a ratio that moves alone is the second path's own."""
+    ``steps`` steps (default: the bf16 path, then int8 pool and weights;
+    ``abba`` reverses the order every other round), each round also
+    timing ``launches`` back-to-back tiny kernel launches (the host's
+    cost per launch at that moment), and one last round with Python's
+    garbage collector off. If the second/first ratio holds while all
+    three move together, the host's speed varies and each path pays for
+    it per op; a ratio that moves alone is the second path's own. Steps
+    are ``drive_step`` turns; ``spare`` more tokens a request leave the
+    engines that many steady steps after the windows. Returns the
+    engines and the rounds."""
     import gc
 
     import torch
 
     n = rounds + 1
     paths = paths or {"bf16": {}, "int8": INT8_SERVING}
-    engines = {name: steady_decode_engine(model, n * steps + 8, **kw)
+    engines = {name: steady_decode_engine(model, n * steps + 8 + spare,
+                                          **kw)
                for name, kw in paths.items()}
     first, second = paths
     probe = torch.zeros(1024, device=model.device)
@@ -943,8 +997,12 @@ def host_ab(model, rounds=4, steps=5, launches=2000,
         try:
             row = {"launch_us": window(lambda: probe.add_(1),
                                        launches) * 1e6}
-            for name, eng in engines.items():
-                row[f"{name}_ms"] = window(eng.step, steps) * 1e3
+            order = list(engines.items())
+            if abba and r % 2:
+                order.reverse()
+            for name, eng in order:
+                row[f"{name}_ms"] = window(lambda: drive_step(eng),
+                                           steps) * 1e3
         finally:
             gc.enable()
         row["ratio"] = row[f"{second}_ms"] / row[f"{first}_ms"]
@@ -952,6 +1010,7 @@ def host_ab(model, rounds=4, steps=5, launches=2000,
     log(phase, steps_per_window=steps,
         launches_per_window=launches, rounds=rows[:rounds],
         gc_off=rows[rounds])
+    return engines, rows
 
 
 def phase_serving(results):
@@ -2767,7 +2826,7 @@ FUSED_SERVING = dict(quant_weights=True, decode_path="fused",
                      chunk_size=256)
 
 
-def fused_traffic(model, seed):
+def fused_traffic(model, seed, **engine_kw):
     """4 requests of 128-token prompts, admitted in pairs (equal lengths:
     every decode step lockstep), then 2 of 150 and 200 tokens (ragged
     offsets: standard decode steps, and 256-token chunks whose 512-row
@@ -2777,7 +2836,7 @@ def fused_traffic(model, seed):
     from tnn_tpu_torch.serving.engine import InferenceEngine
 
     engine = InferenceEngine(model, seed=seed, device=model.device,
-                             **FUSED_SERVING)
+                             **FUSED_SERVING, **engine_kw)
     rng = np.random.default_rng(seed)
     rids = [engine.submit(rng.integers(0, model.vocab_size, n), 64)
             for n in (128, 128, 128, 128, 150, 200)]
@@ -3085,13 +3144,16 @@ NEAR_TIE = 1e-3
 
 def gap_engine_class():
     """An InferenceEngine that keeps, per request, every emitted token's
-    top-2 logit gap (the engine's own logits)."""
+    top-2 logit gap (the engine's own logits). It reads each step's logits
+    on the host, which a graph replay does not expose, so its pdecode
+    steps run eagerly."""
     from tnn_tpu_torch.serving.engine import InferenceEngine
 
     class GapEngine(InferenceEngine):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.gaps = {}
+            self._eager_steps = True
 
         def _build(self, chunks, events):
             rec = super()._build(chunks, events)
@@ -3813,6 +3875,225 @@ def phase_serving_prefix_spec(results):
     log("prefix_spec_launches", **added)
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+OVERLAP_STEPS = 10      # steps per timed window of the steady A/B
+
+
+def replay_vs_eager(engine):
+    """One staged pdecode step of a steady engine through the eager
+    program and through one replay of its captured graph, the generator
+    at the same state before each: logits, bundle and the generator's
+    state after must be equal bit for bit. The engine commits neither;
+    both write the same K/V rows."""
+    import torch
+
+    from tnn_tpu_torch.serving import step_build, step_graph
+    from tnn_tpu_torch.serving.kv_pool import PagedKVPool
+
+    graph = engine._decode_graph()
+    step = step_build.pack_decode(
+        list(engine.scheduler.running), b=engine.scheduler.max_batch_size,
+        nb=engine.blocks_per_seq, scratch=PagedKVPool.SCRATCH, paged=True,
+        fused_available=False)
+    # every other row samples, so the replay's draws are compared too
+    step.temps[1::2], step.topks[1::2], step.topps[1::2] = 0.8, 50, 0.95
+    arrays = step_graph.decode_arrays(step)
+    state = engine.generator.get_state()
+    with torch.inference_mode():
+        views = step_build.split_inputs(
+            step_graph.stage(arrays).to(engine.device), arrays)
+        logits, bundle = engine._pdecode(*views)
+        logits, bundle = logits.clone(), bundle.clone()
+        drawn = engine.generator.get_state()
+        engine.generator.set_state(state)
+        graph.run(step_graph.stage(arrays))
+        torch.cuda.synchronize()
+    return {"logits_equal": torch.equal(graph.logits, logits),
+            "bundle_equal": torch.equal(graph.bundle, bundle),
+            "generator_equal": torch.equal(engine.generator.get_state(),
+                                           drawn),
+            "max_abs_logit_diff": (graph.logits.float()
+                                   - logits.float()).abs().max().item(),
+            "rows_sampled": int((step.temps > 0).sum())}
+
+
+def replay_times(engine, count=20):
+    """The device time of one replay of the engine's pdecode graph on an
+    idle card and of ``count`` replays back to back (CUDA events), and
+    the host time one launch takes."""
+    import torch
+
+    graph = engine._decode_graph().graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    graph.replay()
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    one_ms = start.elapsed_time(end)
+    start.record()
+    for _ in range(count):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return {"replay_device_ms": one_ms,
+            "replays_back_to_back_ms": start.elapsed_time(end) / count,
+            "replay_launch_host_ms": launch_ms}
+
+
+def overlap_traffic_pair(model, label, **kw):
+    """The serving traffic through the overlapped loop with graphs (A) and
+    through synchronous eager steps (B), after a short warm-up run of
+    each, in the order A B B A: token-exact on every request of every run
+    (half of them sampled), launches counted over each run against the
+    identities (K1 or K2 = 12 x paged dispatches = 12 x (paged steps +
+    rebuilds)). Returns the first A run's launches."""
+    import torch
+
+    for overlap in (True, False):       # first-use costs off the clock
+        serve_traffic(model, seed=1, num_requests=2, new_tokens=4,
+                      overlap=overlap, eager_steps=not overlap, **kw)
+    runs, counted = [], None
+    for name in ("overlap_graphs", "sync_eager", "sync_eager",
+                 "overlap_graphs"):
+        overlap = name == "overlap_graphs"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        (engine, rids), wide = count_wide_steps(lambda: serve_traffic(
+            model, seed=0, overlap=overlap, eager_steps=not overlap, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = engine.stats()
+        steps = st["program_steps"]
+        paged = sum(steps.get(k, 0) for k in ("mixed", "pdecode", "spec"))
+        want = expected_launches(model, engine, wide)
+        graph = next(iter(engine._graphs.values()), None)
+        ok = (launches == want
+              and paged == engine.model_steps + st["overlap_rebuilds"]
+              and all(len(engine.result(r).out_tokens) == 64
+                      for r in rids)
+              and (not overlap or (st["graph_replays"] > 0
+                                   and st["overlap_adopted"] > 0)))
+        runs.append((engine, rids))
+        counted = counted or launches
+        log("serving_overlap_run", path=label, run=name, wall_s=wall,
+            model_steps=engine.model_steps, program_steps=steps,
+            launches=launches, expected_launches=want,
+            step_graphs=st["step_graphs"], graph_replays=st["graph_replays"],
+            capture_ms=None if graph is None else graph.capture_s * 1e3,
+            overlap_adopted=st["overlap_adopted"],
+            overlap_rebuilds=st["overlap_rebuilds"],
+            host_gap_ms_p50=st["host_gap_ms_p50"],
+            host_gap_ms_p99=st["host_gap_ms_p99"],
+            decode_tok_per_s=st["tok_per_s"],
+            step_ms_mean=st["step_latency_ms_mean"],
+            ttft_ms_p50=st["ttft_ms_p50"], ok=ok)
+        if not ok:
+            raise AssertionError(f"{label} {name}: launches {launches}, "
+                                 f"want {want}; {steps}; model steps "
+                                 f"{engine.model_steps}; {st}")
+    ref, ref_rids = runs[1]
+    same = [[eng.result(a).out_tokens == ref.result(b).out_tokens
+             for a, b in zip(rids, ref_rids)] for eng, rids in runs]
+    log("serving_overlap_exact", path=label, runs=len(runs),
+        requests=len(ref_rids), identical=[sum(x) for x in same],
+        sampled_requests=len(ref_rids) // 2)
+    if not all(all(x) for x in same):
+        raise AssertionError(f"{label}: overlap with graphs differs from "
+                             f"synchronous eager steps: {same}")
+    return counted
+
+
+def overlap_steady_ab(model, label, **kw):
+    """Steady decode (8 rows, kv 500): the overlapped loop with graphs
+    against synchronous eager steps in alternating windows (ABBA), then a
+    profiled window of each: step time, device busy, idle share, aten
+    ops and kernels per step, decode tokens/s."""
+    paths = {"overlap_graphs": dict(overlap=True, **kw),
+             "sync_eager": dict(eager_steps=True, **kw)}
+    # spare tokens: the profiled window's steps are steady ones too
+    engines, rows = host_ab(model, rounds=4, steps=OVERLAP_STEPS,
+                            phase=f"serving_overlap_ab_{label}",
+                            paths=paths, abba=True, spare=2 * OVERLAP_STEPS)
+    out = {"path": label}
+    for name, eng in engines.items():
+        step_ms = sorted(r[f"{name}_ms"] for r in rows[:4])[1:3]
+        step_ms = sum(step_ms) / 2
+        prof = profile_window(eng, OVERLAP_STEPS)
+        out[name] = dict(
+            step_ms=step_ms, device_busy_ms=prof["device_busy_ms"],
+            idle_share=1.0 - prof["device_busy_ms"] / step_ms,
+            aten_ops_per_step=prof["aten_ops_per_step"],
+            kernels_per_step=prof["kernels_per_step"],
+            decode_tok_per_s=8 * 1e3 / step_ms,
+            top_kernels_ms=prof["top_kernels_ms"][:4],
+            top_host_self_ms=prof["top_host_self_ms"][:5])
+        if name == "overlap_graphs":
+            # last: both replay the graph outside the engine's stream of
+            # steps, and the engine is not driven after them
+            out["replay_vs_eager"] = replay_vs_eager(eng)
+            out[name].update(replay_times(eng))
+    log("serving_overlap_steady", **out)
+    r = out["replay_vs_eager"]
+    if not (r["logits_equal"] and r["bundle_equal"]
+            and r["generator_equal"]):
+        raise AssertionError(f"{label}: graph replay differs from the "
+                             f"eager pdecode program: {r}")
+
+
+def phase_serving_overlap(results):
+    """The overlapped loop with pdecode graphs on the serving traffic (bf16
+    pool, then int8 pool and weights), the steady A/B with replay against
+    eager, the fused path with overlap on, and the CLI with and without
+    --no-overlap."""
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    for label, kw in (("bf16", {}), ("int8", INT8_SERVING)):
+        # the overlapped run's launches join the kernels line
+        added = overlap_traffic_pair(model, label, **kw)
+        results["launches"] += added["k1"]
+        results["int8_launches"]["k2"] += added["k2"]
+        results["int8_launches"]["k3"] += added["k3"]
+        overlap_steady_ab(model, label, **kw)
+    # the fused path: eager K8 under the overlapped loop
+    reset_launches()
+    on, rids_on = fused_traffic(model, seed=0, overlap=True)
+    k8_on = read_launches()["k8"]
+    reset_launches()
+    off, rids_off = fused_traffic(model, seed=0)
+    k8_off = read_launches()["k8"]
+    same = all(on.result(a).out_tokens == off.result(b).out_tokens
+               for a, b in zip(rids_on, rids_off))
+    log("serving_overlap_fused", identical=same, k8_overlap=k8_on,
+        k8_sync=k8_off, fdecode_steps=on.stats()["program_steps"].get(
+            "fdecode", 0), host_gap_ms_p50=on.stats()["host_gap_ms_p50"])
+    if not same or k8_on != k8_off or k8_on == 0:
+        raise AssertionError(f"fused path: overlap identical {same}, K8 "
+                             f"{k8_on} against {k8_off}")
+    del on, off
+    torch.cuda.empty_cache()
+    # the CLI: overlap on by default, --no-overlap the same tokens
+    tokens = []
+    for flags in ((), ("--no-overlap",)):
+        proc = cli_check(flags)
+        done = {e["id"]: e["tokens"] for e in map(json.loads,
+                                                  proc.stdout.splitlines())
+                if e.get("event") == "done"}
+        tokens.append(done)
+    log("serving_overlap_cli", identical=tokens[0] == tokens[1])
+    if tokens[0] != tokens[1]:
+        raise AssertionError(f"CLI --no-overlap differs: {tokens}")
+
+
 def main() -> int:
     import torch
 
@@ -3836,7 +4117,7 @@ def main() -> int:
                   phase_int8_matmul, phase_serving_int8, phase_decode_stack,
                   phase_fused_generate, phase_serving_fused,
                   phase_paged_stats, phase_serving_sp,
-                  phase_serving_prefix_spec):
+                  phase_serving_prefix_spec, phase_serving_overlap):
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,

@@ -258,3 +258,61 @@ def test_engine_requires_model_on_its_device():
     tm = GPT2(**TINY, device="cpu", seed=1)
     with pytest.raises(ValueError, match="live on"):
         InferenceEngine(tm, device=torch.device("meta"), **ENGINE)
+
+
+def _cli(lines, *flags):
+    proc = subprocess.run(
+        [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
+         "gpt2_tiny", "--device", "cpu", "--num-blocks", "16", *flags],
+        input="".join(json.dumps(x) + "\n" for x in lines),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return [json.loads(x) for x in proc.stdout.splitlines()], proc.stderr
+
+
+def test_cli_no_overlap_gives_the_same_tokens():
+    """The CLI serves with the overlapped loop by default; --no-overlap
+    runs each step synchronously and streams the same tokens."""
+    lines = [{"id": "g", "tokens": [1, 2, 3, 4], "max_new_tokens": 6},
+             {"id": "s", "tokens": [9, 8, 7], "max_new_tokens": 5,
+              "temperature": 0.8, "top_k": 10}]
+    runs = [_cli(lines), _cli(lines, "--no-overlap")]
+    streams = []
+    for events, err in runs:
+        streams.append([(e["event"], e["id"], e.get("token"),
+                         e.get("tokens")) for e in events])
+        assert sum(e["event"] == "done" for e in events) == 2
+    assert streams[0] == streams[1]
+    assert '"overlap": true' in runs[0][1]
+    assert '"overlap": false' in runs[1][1]
+
+
+def test_cli_deadline_line_times_out():
+    lines = [{"id": "late", "tokens": [1, 2, 3], "max_new_tokens": 8,
+              "deadline_s": 1e-9},
+             {"id": "fine", "tokens": [4, 5], "max_new_tokens": 3}]
+    events, err = _cli(lines)
+    timeouts = [e for e in events if e["event"] == "timeout"]
+    assert [e["id"] for e in timeouts] == ["late"]
+    assert "deadline" in timeouts[0]["reason"]
+    assert [e["id"] for e in events if e["event"] == "done"] == ["fine"]
+    assert '"requests_timed_out": 1' in err
+    # --deadline-s is every line's default
+    events, _ = _cli(lines[1:], "--deadline-s", "1e-9")
+    assert [e["event"] for e in events] == ["timeout"]
+
+
+def test_cli_cancel_line():
+    lines = [{"id": "x", "tokens": [1, 2, 3], "max_new_tokens": 20},
+             {"op": "cancel", "id": "x"}, {"op": "cancel", "id": "x"},
+             {"op": "cancel", "id": "never"},
+             {"id": 7, "tokens": [3, 2], "max_new_tokens": 2}]
+    events, err = _cli(lines)
+    assert [e for e in events if e["event"] == "cancelled"] == [
+        {"event": "cancelled", "id": "x", "reason": "cancelled by client"}]
+    errors = [e["id"] for e in events if e["event"] == "error"]
+    assert errors == ["x", "never"]         # already terminal; unknown
+    assert [e["id"] for e in events if e["event"] == "done"] == [7]
+    assert not [e for e in events if e["id"] == "x"
+                and e["event"] == "token"]
+    assert '"requests_cancelled": 1' in err

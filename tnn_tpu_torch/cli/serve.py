@@ -4,21 +4,30 @@
     echo '{"tokens": [464, 3616, 286], "max_new_tokens": 16}' | \
         python -m tnn_tpu_torch.cli.serve --model gpt2_small
 
-Each stdin line is one request:
+Each stdin line is one request, or a cancel:
 
     {"id": 3, "tokens": [464, 3616, 286], "max_new_tokens": 8,
-     "temperature": 0.8, "top_k": 40, "top_p": 0.9, "stop_token": 50256}
+     "temperature": 0.8, "top_k": 40, "top_p": 0.9, "stop_token": 50256,
+     "deadline_s": 30.0, "max_queue_s": 5.0}
+    {"op": "cancel", "id": 3}
 
-``id`` defaults to the engine request id. Responses stream as the engine
-produces them, one JSON object per line, as the JAX front end emits them:
+``id`` defaults to the engine request id; ``deadline_s`` defaults to
+``--deadline-s`` (0: none). Responses stream as the engine produces them,
+one JSON object per line, as the JAX front end emits them:
 
     {"event": "token", "id": 3, "token": 257}
     {"event": "done", "id": 3, "tokens": [...], "finish_reason": "length",
      "ttft_ms": 12.3}
     {"event": "error", "id": 3, "reason": "..."}
+    {"event": "timeout", "id": 3, "reason": "..."}     (deadline expired)
+    {"event": "cancelled", "id": 3, "reason": "..."}
 
 New lines are read between engine steps, so requests join a running batch.
 EOF ends the input; the server then finishes every request and exits 0.
+The engine runs its overlapped loop, as the JAX front end's does: a step
+is on the card while the host commits the one before and runs the
+deferred work (``--no-overlap`` runs each step synchronously; the tokens
+are the same).
 Weights are seeded random (``--seed``); ``--device`` defaults to cuda and
 the server refuses to start without a card unless ``--device cpu``.
 
@@ -139,6 +148,12 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="max drafted tokens verified per decode row per "
                          "step (the mixed step widens to k+1)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="default per-request wall deadline (0 = none)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="run the synchronous engine loop (one blocking "
+                         "fetch per step, no step in flight during host "
+                         "bookkeeping)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sp_devices = [d for d in args.sp_devices.split(",") if d] or None
@@ -164,7 +179,7 @@ def main(argv=None) -> int:
         sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
         prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
         spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
-        device=args.device)
+        overlap=not args.no_overlap, device=args.device)
     if args.sp > 1:
         print(f"sequence parallel: sp={args.sp}, "
               f"{engine.pool.blocks_per_shard} block(s)/shard, max context "
@@ -172,6 +187,7 @@ def main(argv=None) -> int:
               f"{', '.join(str(d) for d in engine.pool.devices)}",
               file=sys.stderr)
     user_ids = {}
+    rid_by_user = {}
 
     def handle_line(line: bytes) -> None:
         try:
@@ -182,25 +198,53 @@ def main(argv=None) -> int:
         if not isinstance(req, dict):
             _emit({"event": "error", "reason": "a request is a JSON object"})
             return
+        if req.get("op") == "cancel":
+            user_id = req.get("id")
+            rid = rid_by_user.get(json.dumps(user_id))
+            reason = "cancelled by client"
+            if rid is None or not engine.cancel(rid, reason):
+                _emit({"event": "error", "id": user_id,
+                       "reason": "cancel: unknown or already-terminal id"})
+            else:
+                _emit({"event": "cancelled", "id": user_id,
+                       "reason": reason})
+            return
         try:
+            deadline = req.get("deadline_s", args.deadline_s or None)
             rid = engine.submit(
                 req["tokens"],
                 int(req.get("max_new_tokens", args.max_new_tokens)),
                 temperature=float(req.get("temperature", 0.0)),
                 top_k=int(req.get("top_k", 0)),
                 top_p=float(req.get("top_p", 0.0)),
-                stop_token=req.get("stop_token"))
+                stop_token=req.get("stop_token"),
+                deadline_s=float(deadline) if deadline else None,
+                max_queue_s=(float(req["max_queue_s"])
+                             if req.get("max_queue_s") else None))
         except (ValueError, KeyError, TypeError) as e:
             _emit({"event": "error", "id": req.get("id"), "reason": str(e)})
             return
         user_ids[rid] = req.get("id", rid)
+        rid_by_user[json.dumps(user_ids[rid])] = rid
+
+    def step() -> dict:
+        """One turn of the engine: the overlapped loop's begin, speculate,
+        deferred work, finish; or one synchronous step."""
+        if args.no_overlap:
+            return engine.step()
+        if engine.in_flight is None:
+            engine.begin_step()
+        engine.try_speculate()
+        engine.run_deferred()
+        return engine.finish_step()
 
     fd = sys.stdin.fileno()
     pending = b""
     eof = False
-    while not eof or engine.has_work:
+    while not eof or engine.has_work or engine.in_flight is not None:
+        busy = engine.has_work or engine.in_flight is not None
         # read whatever input has arrived; block only while the engine idles
-        while not eof and _stdin_ready(fd, 0.0 if engine.has_work else None):
+        while not eof and _stdin_ready(fd, 0.0 if busy else None):
             data = os.read(fd, 1 << 16)
             eof = not data
             pending += data if data else b"\n"
@@ -208,9 +252,10 @@ def main(argv=None) -> int:
             for line in lines:
                 if line.strip():
                     handle_line(line)
-        if not engine.has_work:
+            busy = engine.has_work or engine.in_flight is not None
+        if not busy:
             continue
-        events = engine.step()
+        events = step()
         for rid, tok in events["tokens"]:
             _emit({"event": "token", "id": user_ids[rid], "token": tok})
         for rid in events["finished"]:
@@ -221,6 +266,9 @@ def main(argv=None) -> int:
                    "ttft_ms": round((r.ttft_s or 0.0) * 1e3, 3)})
         for rid, error in events["failed"]:
             _emit({"event": "error", "id": user_ids[rid], "reason": error})
+        for rid, error in events["timed_out"]:
+            _emit({"event": "timeout", "id": user_ids[rid], "reason": error})
+    engine.run_deferred()
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v
          for k, v in engine.stats().items()}), file=sys.stderr)

@@ -124,3 +124,14 @@ def zeroed_counters(name: str, device, n: int):
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = t
     return t
+
+
+def counter_buffers(device) -> list:
+    """Every counter tensor ``zeroed_counters`` holds on ``device``. A CUDA
+    graph that captured launches using them keeps this list: a later
+    regrowth replaces a buffer in the table but never frees one the graph
+    writes."""
+    import torch
+
+    dev = str(torch.device(device))
+    return [t for (_, d), t in _counters.items() if d == dev]

@@ -26,10 +26,31 @@ pool, and a geometry ``pick_chunks`` accepts; "fused" raises otherwise,
 likewise for the paged probe).
 
 The engine runs the JAX engine's chunked prefill, recompute preemption
-(LIFO victims, a per-request preemption budget) and per-row logit guard.
-Steps run synchronously (one host fetch of the sampled tokens per step),
-and a step that raises propagates to the caller: a kernel failure is never
-turned into failed requests.
+(LIFO victims, a per-request preemption budget) and per-row logit guard,
+``cancel`` and the per-request ``deadline_s`` / ``max_queue_s`` (expired
+at the top of each step's build: TIMED_OUT). A step that raises
+propagates to the caller: a kernel failure is never turned into failed
+requests.
+
+The overlapped loop (``overlap=True``; off by default, the CLI turns it
+on), as in the JAX engine: ``begin_step`` builds and dispatches a step
+and stages its one fetch (on CUDA a non-blocking copy of the small result
+bundle into one of two pinned host buffers, then an event);
+``finish_step`` waits on that event and commits; ``run_deferred`` runs
+the prefix publishes the commit queued. The drive loop
+(``run_until_complete``, the CLI) runs deferred work while the step is on
+the card, and ``try_speculate`` dispatches a pure-decode step N+1 from
+the predicted row state before step N commits, reading N's sampled
+tokens on the device. ``finish_step`` adopts it when the prediction held
+and rolls it back otherwise (its pre-grown blocks freed, the sampling
+generator's state restored, so stochastic rows draw what overlap-off
+draws). A direct ``step()`` stays synchronous either way. Inputs reach
+the card through pinned memory in one non-blocking copy a step.
+
+On a CUDA device at sp = 1 every "pdecode" step replays a CUDA graph of
+the program, captured once per compile key (``serving/step_graph.py``):
+the counterpart of the JAX engine's jitted program. The other programs
+run eagerly.
 
 Automatic prefix caching (``prefix_cache=True``, the default, as in the
 JAX engine): admission probes a content-addressed index of full KV blocks
@@ -70,15 +91,14 @@ on the standard path ``gather_kv`` sums the shards' owned positions into
 one cache and the scatters write each shard's own rows. As in the JAX
 engine, SP refuses ``quant_weights`` and the fused path, and needs
 ``num_blocks`` and the table width ``blocks_per_seq`` to divide by sp.
-The overlapped loop, tensor parallelism and the fault plan are not ported
-yet.
+Tensor parallelism and the fault plan are not ported yet.
 """
 from __future__ import annotations
 
 import collections
 import itertools
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,12 +108,37 @@ from ..nn.quant import quantize_for_decode
 from ..ops import runtime
 from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
 from ..utils.device import resolve_device
-from . import kv_pool, spec_decode, step_build
+from . import kv_pool, spec_decode, step_build, step_graph
 from .kv_pool import PagedKVPool, PoolExhausted
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import TERMINAL_STATES, Request, RequestState, Scheduler
 from .sp import SPContext
+
+
+class SampleInputs(NamedTuple):
+    """A step's token matrix and per-row sampling parameters on the
+    device: what ``_sample`` reads."""
+    toks: torch.Tensor
+    temps: torch.Tensor
+    topks: torch.Tensor
+    topps: torch.Tensor
+
+
+class StepInFlight:
+    """One dispatched, uncommitted step (``tnn_tpu.serving.engine.
+    StepInFlight``): its event buckets, the launched program's record
+    (device results and their staged fetch) and, after ``try_speculate``,
+    a speculatively dispatched successor."""
+
+    __slots__ = ("t0", "events", "rec", "spec")
+
+    def __init__(self, t0: float):
+        self.t0 = t0
+        self.events: Dict[str, List] = {"tokens": [], "finished": [],
+                                        "failed": [], "timed_out": []}
+        self.rec: Optional[Dict[str, Any]] = None
+        self.spec: Optional[Dict[str, Any]] = None
 
 
 class InferenceEngine:
@@ -131,6 +176,8 @@ class InferenceEngine:
     spec_k : the most drafted tokens a decode row verifies per step.
     draft_model : a GPT2-family model on the engine's device sharing the
         target's vocabulary, for ``spec="draft"``.
+    overlap : the overlapped loop (module docstring); a direct ``step()``
+        stays synchronous.
 
     A request may hold up to max_seq_len positions,
     a step processes at most 2048 tokens (decode rows + prompt chunks), and
@@ -150,7 +197,7 @@ class InferenceEngine:
                  prefix_cache_min_hit_blocks: int = 1,
                  prefix_publish_max_occupancy: float = 0.95,
                  spec: Any = "off", spec_k: int = 4, draft_model=None,
-                 device="cuda"):
+                 overlap: bool = False, device="cuda"):
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -250,12 +297,23 @@ class InferenceEngine:
         self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.overlap = bool(overlap)
+        self._flight: Optional[StepInFlight] = None
+        self._t_fetch_done: Optional[float] = None
+        # the two pinned host buffers the steps' bundles land in, in turn
+        self._pinned: List[Optional[torch.Tensor]] = [None, None]
+        self._pinned_slot = 0
+        # captured pdecode programs by compile key (step_graph.py); only
+        # the card comparison sets _eager_steps to run them eagerly
+        self._graphs: Dict[tuple, step_graph.DecodeGraph] = {}
+        self._eager_steps = False
         self.requests: Dict[int, Request] = {}
         self._rid = itertools.count()
-        self.model_steps = 0     # steps that ran a model forward
-        # model steps by program: "mixed" / "pdecode" on the paged path,
+        self.model_steps = 0     # committed steps that ran a model forward
+        # dispatched programs: "mixed" / "pdecode" on the paged path,
         # "mixed_standard" / "decode" / "fdecode" (lockstep, the fused
-        # kernel) off it
+        # kernel) off it; a rolled-back speculative dispatch counts here,
+        # not in model_steps
         self.program_steps: collections.Counter = collections.Counter()
         self.paged_fallback_reason: Optional[str] = None
         self.fused_fallback_reason: Optional[str] = None
@@ -335,8 +393,12 @@ class InferenceEngine:
 
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-               stop_token: Optional[int] = None) -> int:
-        """Queue a generation request; returns its request id."""
+               stop_token: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               max_queue_s: Optional[float] = None) -> int:
+        """Queue a generation request; returns its request id.
+        ``deadline_s`` bounds its wall time from submit, ``max_queue_s``
+        any one stretch it waits QUEUED; past either it is TIMED_OUT."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -359,14 +421,31 @@ class InferenceEngine:
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), stop_token=stop_token,
-                      submit_time=time.perf_counter())
+                      submit_time=time.perf_counter(),
+                      deadline_s=deadline_s, max_queue_s=max_queue_s)
         self.requests[rid] = req
         self.scheduler.submit(req)
         return rid
 
+    def cancel(self, rid: int, reason: str = "cancelled by client") -> bool:
+        """Abort a queued or running request: its blocks are freed and it
+        is CANCELLED, with ``reason`` as its error. Returns False when the
+        id is unknown or already terminal. A step in flight skips its
+        row at commit."""
+        req = self.requests.get(rid)
+        if req is None or req.state in TERMINAL_STATES:
+            return False
+        self._terminate(req, RequestState.CANCELLED, reason)
+        return True
+
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+    @property
+    def in_flight(self) -> Optional[StepInFlight]:
+        """The dispatched, uncommitted step, when one is pending."""
+        return self._flight
 
     def result(self, rid: int) -> Request:
         return self.requests[rid]
@@ -401,6 +480,10 @@ class InferenceEngine:
                                   else "fused" if self._fused is not None
                                   else "standard"),
                   "program_steps": dict(self.program_steps),
+                  "overlap": self.overlap,
+                  "step_graphs": len(self._graphs),
+                  "graph_replays": sum(g.replays
+                                       for g in self._graphs.values()),
                   "sp_degree": self.sp,
                   "pool_blocks_per_shard": self.pool.blocks_per_shard})
         return s
@@ -415,59 +498,291 @@ class InferenceEngine:
     def run_until_complete(self, max_steps: int = 100_000) \
             -> Dict[int, List[int]]:
         """Step until every request is terminal; returns {rid: generated
-        tokens} of the FINISHED ones."""
+        tokens} of the FINISHED ones. With ``overlap`` this is the
+        overlapped drive loop: dispatch, speculate, deferred work, then
+        fetch and commit."""
         steps = 0
-        while self.has_work:
-            self.step()
+        while self.has_work or self._flight is not None:
+            if self.overlap:
+                if self._flight is None:
+                    self.begin_step()
+                self.try_speculate()
+                self.run_deferred()
+                self.finish_step()
+            else:
+                self.step()
             steps += 1
             if steps > max_steps:
                 raise RuntimeError(f"no convergence after {max_steps} steps")
+        self.run_deferred()
         return {rid: list(r.out_tokens) for rid, r in self.requests.items()
                 if r.state is RequestState.FINISHED}
 
     # -- engine step ----------------------------------------------------------
 
     def step(self) -> Dict[str, List]:
-        """Run one serving step: admit, then one mixed prefill+decode step
-        (or a pure-decode step), then the step's prefix publishes. Returns
-        the step's events::
+        """Run one serving step: expire deadlines, admit, then one mixed
+        prefill+decode step (or a pure-decode step), then the step's prefix
+        publishes. Returns the step's events::
 
             {"tokens": [(rid, token), ...], "finished": [rid, ...],
-             "failed": [(rid, error), ...]}
-        """
-        t0 = time.perf_counter()
-        events: Dict[str, List] = {"tokens": [], "finished": [],
-                                   "failed": []}
+             "failed": [(rid, error), ...], "timed_out": [(rid, error), ...]}
+
+        Always synchronous: a step already in flight (an overlapped drive
+        dispatched it) is finished, else one is begun and finished; the
+        deferred publishes run before it returns."""
+        if self._flight is None:
+            self.begin_step()
+        events = self.finish_step()
+        self.run_deferred()
+        return events
+
+    def begin_step(self) -> StepInFlight:
+        """Build and dispatch one step without fetching its results:
+        deadlines, scheduling, admission, staging and the launch; the
+        step's one fetch is staged, not waited on. Raises RuntimeError
+        when a step is in flight already."""
+        if self._flight is not None:
+            raise RuntimeError("a step is already in flight: finish_step() "
+                               "first")
+        flight = StepInFlight(time.perf_counter())
+        with torch.inference_mode():
+            self._build_step(flight)
+        self._flight = flight
+        return flight
+
+    def finish_step(self) -> Dict[str, List]:
+        """Wait for the in-flight step's bundle and commit it; then adopt
+        or roll back a speculative successor, so that ``in_flight`` is the
+        adopted step or None. Returns the step's events."""
+        flight = self._flight
+        if flight is None:
+            raise RuntimeError("no step in flight")
+        try:
+            with torch.inference_mode():
+                self._commit_step(flight)
+        finally:
+            self._flight = None
+        self.metrics.observe_step_latency(time.perf_counter() - flight.t0)
+        self._resolve_speculation(flight)
+        return flight.events
+
+    def run_deferred(self) -> None:
+        """Run the queued prefix publishes (work no commit depends on).
+        The overlapped loop runs them while a step is on the card."""
+        while self._deferred:
+            self._deferred.pop(0)()
+
+    def _build_step(self, flight: StepInFlight) -> None:
+        events = flight.events
+        self._enforce_deadlines(events)
         plan = self.scheduler.schedule(self.pool)
         chunks = dict(plan.chunks)
-        with torch.inference_mode():
-            for req in plan.prefills:
-                if not self._admit(req, events):
-                    chunks.pop(req.rid, None)
-                elif req.rid in chunks:
-                    # the grant was budgeted against the scheduler's probe:
-                    # clamp it to the tail the fork left (a clone that found
-                    # no block admitted uncached)
-                    chunks[req.rid] = min(chunks[req.rid],
-                                          req.prefill_len - req.cache_len)
-            rec = self._build(chunks, events)
-            if rec is not None:
-                self.model_steps += 1
-                out = rec["dev"].cpu().numpy()   # the step's one fetch
-                if rec["kind"] == "decode":
-                    self._decode_commit(rec, out, events)
-                else:
-                    self._mixed_commit(rec, out, events)
-        self._run_deferred()
-        self.metrics.observe_step_latency(time.perf_counter() - t0)
-        return events
+        for req in plan.prefills:
+            if not self._admit(req, events):
+                chunks.pop(req.rid, None)
+            elif req.rid in chunks:
+                # the grant was budgeted against the scheduler's probe:
+                # clamp it to the tail the fork left (a clone that found no
+                # block admitted uncached)
+                chunks[req.rid] = min(chunks[req.rid],
+                                      req.prefill_len - req.cache_len)
+        flight.rec = self._build(chunks, events)
+        if flight.rec is not None:
+            self._stage_fetch(flight.rec)
+
+    def _commit_step(self, flight: StepInFlight) -> None:
+        rec = flight.rec
+        if rec is None:
+            return
+        out = self._fetch_bundle(rec)
+        self.model_steps += 1
+        if rec["kind"] == "decode":
+            self._decode_commit(rec, out, flight.events)
+        else:
+            self._mixed_commit(rec, out, flight.events)
+
+    def _stage_fetch(self, rec: Dict[str, Any]) -> None:
+        """Queue the step's one fetch behind its launch: on CUDA a
+        non-blocking copy of the bundle into the next of two pinned host
+        buffers (a step and its speculative successor are in flight at
+        most), then an event ``_fetch_bundle`` waits on."""
+        dev = rec["dev"]
+        if dev.device.type != "cuda":
+            return
+        slot = self._pinned_slot
+        self._pinned_slot ^= 1
+        buf = self._pinned[slot]
+        if buf is None or buf.numel() < dev.numel():
+            buf = self._pinned[slot] = torch.empty(
+                max(dev.numel(), 1024), dtype=torch.int64, pin_memory=True)
+        host = buf[:dev.numel()].view(dev.shape)
+        host.copy_(dev, non_blocking=True)
+        rec["host"] = host
+        rec["ready"] = torch.cuda.Event()
+        rec["ready"].record()
+
+    def _fetch_bundle(self, rec: Dict[str, Any]) -> np.ndarray:
+        """The step's one device-to-host fetch."""
+        if "ready" in rec:
+            rec["ready"].synchronize()
+            out = rec["host"].numpy().copy()
+        else:
+            out = rec["dev"].numpy().copy()
+        self._t_fetch_done = time.perf_counter()
+        return out
+
+    def _mark_dispatch(self) -> None:
+        """Before a step's launch: the wall gap since the previous bundle
+        fetch is the host gap the overlapped loop exists to close. A
+        speculative dispatch precedes the fetch it would wait for; its
+        adoption records a zero gap instead."""
+        t = self._t_fetch_done
+        if t is None:
+            return
+        self._t_fetch_done = None
+        self.metrics.observe_host_gap(time.perf_counter() - t)
+
+    def _enforce_deadlines(self, events) -> None:
+        now = time.perf_counter()
+        for req in list(self.scheduler.waiting):
+            if req.deadline_s is not None and \
+                    now - req.submit_time > req.deadline_s:
+                self._terminate(
+                    req, RequestState.TIMED_OUT,
+                    f"deadline {req.deadline_s}s exceeded while queued",
+                    events, "timed_out")
+            elif req.max_queue_s is not None and \
+                    now - req.queued_time > req.max_queue_s:
+                self._terminate(
+                    req, RequestState.TIMED_OUT,
+                    f"max_queue_s {req.max_queue_s}s exceeded",
+                    events, "timed_out")
+        for req in list(self.scheduler.running):
+            if req.deadline_s is not None and \
+                    now - req.submit_time > req.deadline_s:
+                self._terminate(
+                    req, RequestState.TIMED_OUT,
+                    f"deadline {req.deadline_s}s exceeded after "
+                    f"{req.num_generated} tokens", events, "timed_out")
+
+    # -- speculative step pipelining ------------------------------------------
+
+    def try_speculate(self) -> bool:
+        """Dispatch step N+1 while step N is in flight, when N+1's build
+        is fixed by committed state and N's unfetched tokens: a pure
+        decode step N whose rows all survive its commit (no stop token, no
+        deadline, room for two more tokens), the same rows still running,
+        KV growth that fits without preemption, no drafter, an empty wait
+        queue, and not the fused path. The dispatch reads N's sampled
+        tokens on the device, so nothing syncs; ``finish_step`` adopts it
+        or rolls it back. Its KV writes land at positions at or past every
+        surviving row's committed length, or in blocks a rollback frees:
+        always overwritten before they are read. Returns True when a step
+        was dispatched."""
+        flight = self._flight
+        if (not self.overlap or flight is None or flight.spec is not None or self.drafter is not None
+                or self.scheduler.waiting or flight.rec is None
+                or flight.rec["kind"] != "decode"
+                or not (self._paged or self._fused is None)):
+            return False
+        rec = flight.rec
+        live = rec["live"]
+        if live != [r for r in self.scheduler.running
+                    if r.state is RequestState.RUNNING]:
+            return False
+        grows = []
+        for req in live:
+            if (req.cache_len < req.prefill_len
+                    or req.stop_token is not None
+                    or req.deadline_s is not None
+                    or req.num_generated + 1 >= req.max_new_tokens
+                    or req.cache_len + 2 > self.max_seq_len):
+                return False
+            grows.append(max(0, self.pool.blocks_for(req.cache_len + 2)
+                             - len(req.block_table)))
+        if sum(grows) and not self.pool.can_alloc(sum(grows)):
+            return False
+        rollback: List[Any] = []
+
+        def undo() -> None:
+            for req, orig, ext in rollback:
+                self.pool.free(ext)
+                del req.block_table[orig:]
+
+        try:
+            for req, g in zip(live, grows):
+                if g:
+                    ext = self.pool.alloc(g, start=len(req.block_table))
+                    rollback.append((req, len(req.block_table), ext))
+                    req.block_table.extend(ext)
+        except PoolExhausted:
+            undo()
+            return False
+        # the predicted row state: each offset one token on
+        step = step_build.pack_decode(
+            live, b=self.scheduler.max_batch_size, nb=self.blocks_per_seq,
+            scratch=PagedKVPool.SCRATCH, paged=self._paged,
+            fused_available=False, speculative=True)
+        gen_state = self.generator.get_state()
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                nxt = self._decode_launch(live, step,
+                                          toks=rec["dev"][0])
+                self._stage_fetch(nxt)
+        except BaseException:
+            undo()
+            self.generator.set_state(gen_state)
+            raise
+        flight.spec = {"rec": nxt, "t0": t0, "rollback": rollback,
+                       "gen_state": gen_state,
+                       "offsets": {r.rid: int(step.offsets[i])
+                                   for i, r in enumerate(live)}}
+        return True
+
+    def _resolve_speculation(self, flight: StepInFlight) -> None:
+        """After ``flight`` committed: adopt its speculative successor when
+        the prediction held (the same rows, each exactly one token on,
+        still running, the queue still empty), else roll it back: free its
+        pre-grown blocks and restore the generator's state, so the rebuilt
+        step draws what overlap-off draws."""
+        spec = flight.spec
+        if spec is None:
+            return
+        flight.spec = None
+        rec = spec["rec"]
+        live = rec["live"]
+        predicted = (
+            not self.scheduler.waiting
+            and live == [r for r in self.scheduler.running
+                         if r.state is RequestState.RUNNING]
+            and all(req.cache_len == spec["offsets"][req.rid]
+                    for req in live))
+        if not predicted:
+            for req, orig, ext in spec["rollback"]:
+                if req.block_table[orig:orig + len(ext)] == ext:
+                    # a terminated or preempted row freed its whole table
+                    # already, extension included
+                    self.pool.free(ext)
+                    del req.block_table[orig:]
+            self.generator.set_state(spec["gen_state"])
+            self.metrics.observe_overlap_rebuild()
+            return
+        nxt = StepInFlight(spec["t0"])
+        nxt.rec = rec
+        self._flight = nxt
+        self.metrics.observe_overlap_adopted()
+        self.metrics.observe_host_gap(0.0)
+        self._t_fetch_done = None
 
     def _admit(self, req: Request, events) -> bool:
         nb_total = self.pool.blocks_for(req.prefill_len)
         if nb_total > self.blocks_per_seq:
-            self._fail(req, f"oversized resume: {req.prefill_len} tokens "
-                       f"need {nb_total} blocks > {self.blocks_per_seq}",
-                       events)
+            self._terminate(req, RequestState.FAILED,
+                            f"oversized resume: {req.prefill_len} tokens "
+                            f"need {nb_total} blocks > {self.blocks_per_seq}",
+                            events, "failed")
             return False
         req.cache_len = 0
         if self.prefix_cache is not None:
@@ -506,13 +821,24 @@ class InferenceEngine:
         req.block_table = table
         req.cache_len = cached
 
-    def _fail(self, req: Request, error: str, events) -> None:
+    def _terminate(self, req: Request, state: RequestState, error: str,
+                   events=None, bucket: Optional[str] = None) -> None:
+        """A non-FINISHED exit: free the request's blocks, move it to
+        ``state`` (FAILED, CANCELLED or TIMED_OUT), count it and, mid-step,
+        report it in the step's ``bucket``. Its queued publishes are
+        dropped by their own check when they run."""
         if req.block_table:
             self.pool.free(req.block_table)
             req.block_table = []
-        self.scheduler.fail(req, error)
-        self.metrics.observe_failed()
-        events["failed"].append((req.rid, error))
+        self.scheduler.terminate(req, state, error)
+        if state is RequestState.FAILED:
+            self.metrics.observe_failed()
+        elif state is RequestState.CANCELLED:
+            self.metrics.observe_cancelled()
+        else:
+            self.metrics.observe_timeout()
+        if events is not None and bucket is not None:
+            events[bucket].append((req.rid, error))
 
     def _preempt(self, req: Request) -> None:
         self.pool.free(req.block_table)
@@ -537,9 +863,11 @@ class InferenceEngine:
                                    "can free enough blocks")
             if self.preemption_budget is not None and \
                     victim.preemptions >= self.preemption_budget:
-                self._fail(victim, f"preemption budget exhausted "
-                           f"({victim.preemptions} >= "
-                           f"{self.preemption_budget})", events)
+                self._terminate(victim, RequestState.FAILED,
+                                f"preemption budget exhausted "
+                                f"({victim.preemptions} >= "
+                                f"{self.preemption_budget})",
+                                events, "failed")
             else:
                 self._preempt(victim)
             if victim is req:
@@ -622,13 +950,15 @@ class InferenceEngine:
         step = step_build.pack_mixed(
             rows, len(dec), drafts, takes, b=self.scheduler.max_batch_size,
             nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH)
-        put = self._put
-        toks, tables = put(step.toks), self._put_tables(step.tables)
+        toks, starts, q_lens, n_draft, temps, topks, topps, tables = \
+            self._put_step([step.toks, step.starts, step.q_lens,
+                            step.n_draft, step.temps, step.topks,
+                            step.topps], step.tables)
         for i, d in step.dev_drafts:   # device drafts, spliced on the device
             toks[i, 1:1 + len(d)] = d.toks.to(toks.device)
-        starts, q_lens = put(step.starts), put(step.q_lens)
         rec = {"kind": "spec" if spec_on else "mixed", "rows": rows,
                "n_dec": len(dec), "takes": takes, "n_draft": step.n_draft}
+        self._mark_dispatch()
         if spec_on:
             # verification reads every position: the full (B, Q, V) cube
             if self._paged:
@@ -641,7 +971,7 @@ class InferenceEngine:
                 logits = self._mixed_standard(toks, tables, starts, q_lens,
                                               last_only=False)
             accepts, newtok, ok = self._spec_verify(
-                logits, toks, q_lens, put(step.n_draft), step)
+                logits, toks, q_lens, n_draft, step)
             # one bundle: the token matrix brings device drafts' values
             rec["dev"] = torch.cat([torch.stack([accepts, newtok,
                                                  ok.long()]),
@@ -655,27 +985,73 @@ class InferenceEngine:
         else:
             self.program_steps["mixed_standard"] += 1
             logits = self._mixed_standard(toks, tables, starts, q_lens)
-        rec["dev"] = self._sample(logits, step)
+        rec["dev"] = self._sample(logits,
+                                  SampleInputs(toks, temps, topks, topps))
         return rec
 
-    def _decode_launch(self, live: Sequence[Request]) -> Dict:
-        step = step_build.pack_decode(
-            live, b=self.scheduler.max_batch_size, nb=self.blocks_per_seq,
-            scratch=PagedKVPool.SCRATCH, paged=self._paged,
-            fused_available=self._fused is not None)
-        put = self._put
-        toks, tables = put(step.toks), self._put_tables(step.tables)
+    def _decode_launch(self, live: Sequence[Request],
+                       step: Optional[step_build.DecodeStep] = None,
+                       toks: Optional[torch.Tensor] = None) -> Dict:
+        """Pack (unless ``step`` is given) and launch a pure-decode step.
+        ``toks``, a device tensor, replaces the packed token column: a
+        speculative step's tokens are step N's unfetched samples. A pdecode
+        step replays its captured graph where graphs run."""
+        if step is None:
+            step = step_build.pack_decode(
+                live, b=self.scheduler.max_batch_size,
+                nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH,
+                paged=self._paged, fused_available=self._fused is not None)
         self.program_steps[step.program] += 1
+        rec = {"kind": "decode", "live": list(live)}
+        if step.program == "pdecode" and self._graph_steps:
+            graph = self._decode_graph()
+            host = step_graph.stage(step_graph.decode_arrays(step))
+            self._mark_dispatch()
+            rec["dev"] = graph.run(host, toks)
+            return rec
+        put_toks, offsets, temps, topks, topps, tables = self._put_step(
+            [step.toks, step.offsets, step.temps, step.topks, step.topps],
+            step.tables)
+        if toks is None:
+            toks = put_toks
+        else:
+            toks = toks.to(torch.int32)
+        self._mark_dispatch()
         if step.program == "pdecode":
-            logits = self._step_model.apply_decode_paged(
-                toks, self.pool.pages_k, self.pool.pages_v, tables,
-                put(step.offsets))
-        elif step.program == "fdecode":
+            rec["dev"] = self._pdecode(toks, offsets, tables, temps, topks,
+                                       topps)[1]
+            return rec
+        if step.program == "fdecode":
             logits = self._fused_decode(toks, tables, int(step.offsets[0]))
         else:
-            logits = self._decode_standard(toks, tables, put(step.offsets))
-        return {"kind": "decode", "dev": self._sample(logits, step),
-                "live": list(live)}
+            logits = self._decode_standard(toks, tables, offsets)
+        rec["dev"] = self._sample(logits,
+                                  SampleInputs(toks, temps, topks, topps))
+        return rec
+
+    def _pdecode(self, toks, offsets, tables, temps, topks, topps):
+        """The paged pure-decode program, the one that is captured:
+        (logits, (2, B) bundle)."""
+        logits = self._step_model.apply_decode_paged(
+            toks, self.pool.pages_k, self.pool.pages_v, tables, offsets)
+        return logits, self._sample(logits,
+                                    SampleInputs(toks, temps, topks, topps))
+
+    @property
+    def _graph_steps(self) -> bool:
+        """pdecode steps replay captured graphs: on CUDA at sp = 1."""
+        return (self.device.type == "cuda" and self._sp is None
+                and not self._eager_steps)
+
+    def _decode_graph(self) -> step_graph.DecodeGraph:
+        key = (self.scheduler.max_batch_size, self.blocks_per_seq)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = step_graph.DecodeGraph(
+                self._pdecode, self.generator, batch=key[0],
+                blocks_per_seq=key[1], scratch=PagedKVPool.SCRATCH,
+                device=self.device)
+        return graph
 
     # -- the assembled-cache programs (JAX's _mixed_standard_fn, _decode_fn,
     # _fused_decode_fn) ---------------------------------------------------
@@ -768,25 +1144,40 @@ class InferenceEngine:
                                                           d // h))
         return logits
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(x).to(self.device)
+    def _put_step(self, arrays: Sequence[np.ndarray],
+                  tables: Optional[np.ndarray] = None) -> List[Any]:
+        """A step's host arrays on the engine's device (on CUDA one
+        non-blocking copy from pinned memory), then, with ``tables``, the
+        step's tables as the programs take them (``_put_tables``)."""
+        arrays = list(arrays)
+        if tables is not None and self._sp is None:
+            arrays.append(tables)
+        if self.device.type == "cuda":
+            flat = step_graph.stage(arrays).to(self.device,
+                                               non_blocking=True)
+            out = step_build.split_inputs(flat, arrays)
+        else:
+            out = [torch.from_numpy(a).to(self.device) for a in arrays]
+        if tables is not None and self._sp is not None:
+            out.append(self._put_tables(tables))
+        return out
 
     def _put_tables(self, tables: np.ndarray):
-        """A step's GLOBAL block tables as the programs take them: one
-        tensor, or under SP each shard's local tables on its device."""
-        if self._sp is None:
-            return self._put(tables)
+        """A step's GLOBAL block tables under SP: each shard's local tables
+        on its device."""
         local = step_build.shard_tables(tables, self.sp,
                                         self.pool.blocks_per_shard)
-        return [torch.from_numpy(t).to(d)
+        return [torch.from_numpy(t).pin_memory().to(d, non_blocking=True)
+                if torch.device(d).type == "cuda"
+                else torch.from_numpy(t).to(d)
                 for t, d in zip(local, self._sp.devices)]
 
-    def _sample(self, logits: torch.Tensor, step) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor,
+                step: SampleInputs) -> torch.Tensor:
         """(2, B) int64 device tensor: sampled tokens and the logit guard."""
         ok = torch.isfinite(logits).all(dim=-1)
-        newtok = sampling.sample_ragged(
-            logits, self.generator, self._put(step.temps),
-            self._put(step.topks), self._put(step.topps))
+        newtok = sampling.sample_ragged(logits, self.generator, step.temps,
+                                        step.topks, step.topps)
         return torch.stack([newtok, ok.long()])
 
     def _spec_verify(self, logits, toks, q_lens, n_draft, step):
@@ -800,7 +1191,8 @@ class InferenceEngine:
         probability p_target(d) and redrawing a rejection from the target
         with d masked out leaves the target's distribution. Chunk rows
         (n_draft 0) reduce to the plain last-position sample. Returns
-        (accepts, next token, all live logits finite), int64 and bool."""
+        Returns (accepts, next token, all live logits finite), int64 and
+        bool."""
         logits = logits.float()
         b, q, v = logits.shape
         dev = logits.device
@@ -818,8 +1210,7 @@ class InferenceEngine:
         # all-greedy step filters and draws nothing
         sampled = bool((step.temps > 0.0).any())
         if sampled:
-            t, k, p = (self._put(step.temps), self._put(step.topks),
-                       self._put(step.topps))
+            t, k, p = self._put_step([step.temps, step.topks, step.topps])
             filtered = sampling.filter_logits(logits, t[:, None],
                                               k[:, None], p[:, None])
             p_draft = torch.softmax(filtered, -1).gather(
@@ -863,7 +1254,9 @@ class InferenceEngine:
             if req.state in TERMINAL_STATES:
                 continue
             if not ok[i]:
-                self._fail(req, "non-finite logits in decode step", events)
+                self._terminate(req, RequestState.FAILED,
+                                "non-finite logits in decode step", events,
+                                "failed")
                 continue
             req.cache_len += 1
             self._emit(req, int(newtok[i]), events)
@@ -885,9 +1278,11 @@ class InferenceEngine:
             if req.state in TERMINAL_STATES:
                 continue
             if not ok[i]:
-                self._fail(req, "non-finite logits in decode step"
-                           if i < n_dec else
-                           "non-finite logits in prefill chunk", events)
+                self._terminate(req, RequestState.FAILED,
+                                "non-finite logits in decode step"
+                                if i < n_dec else
+                                "non-finite logits in prefill chunk",
+                                events, "failed")
                 continue
             if i < n_dec and not spec_on:
                 req.cache_len += 1
@@ -968,10 +1363,6 @@ class InferenceEngine:
             else:
                 keep.append(fn)
         self._deferred = keep
-
-    def _run_deferred(self) -> None:
-        while self._deferred:
-            self._deferred.pop(0)()
 
     def _maybe_finish(self, req: Request, tok: int, events) -> None:
         if req.stop_token is not None and tok == req.stop_token:

@@ -1,8 +1,9 @@
 """Serving metrics (a small ``tnn_tpu.serving.metrics.ServingMetrics``):
 TTFT percentiles, decode tokens/s, step latency, preemptions, finished
-requests, the pool's KV bytes per token, and the prefix cache's and
-speculative decoding's counters. All clocks are host wall clocks around
-synchronised steps."""
+requests, cancelled and timed-out requests, the pool's KV bytes per
+token, the prefix cache's and speculative decoding's counters, and the
+overlapped loop's host gap, adopted speculative steps and rebuilds. All
+clocks are host wall clocks."""
 from __future__ import annotations
 
 import time
@@ -28,6 +29,13 @@ class ServingMetrics:
         self.preemptions = 0
         self.finished = 0
         self.failed = 0
+        self.cancelled = 0
+        self.timed_out = 0
+        # the overlapped loop: wall gaps between a step's bundle fetch and
+        # the next dispatch, speculative steps adopted and rolled back
+        self.host_gap_s: List[float] = []
+        self.overlap_adopted = 0
+        self.overlap_rebuilds = 0
         # the pool's page bytes per resident token (K + V, all layers; int8
         # scales excluded), set by the engine that owns the pool
         self.kv_bytes_per_token = 0
@@ -109,6 +117,27 @@ class ServingMetrics:
     def observe_failed(self) -> None:
         self.failed += 1
 
+    def observe_cancelled(self) -> None:
+        self.cancelled += 1
+
+    def observe_timeout(self) -> None:
+        self.timed_out += 1
+
+    def observe_host_gap(self, seconds: float) -> None:
+        """Wall gap between a step's bundle fetch and the next dispatch:
+        the window where the device waits on host bookkeeping, which the
+        overlapped loop exists to close."""
+        self.host_gap_s.append(seconds)
+
+    def observe_overlap_adopted(self) -> None:
+        """A speculatively dispatched step N+1 became the next step."""
+        self.overlap_adopted += 1
+
+    def observe_overlap_rebuild(self) -> None:
+        """A speculatively dispatched step N+1 was rolled back: step N's
+        commit changed the row set it predicted."""
+        self.overlap_rebuilds += 1
+
     @property
     def elapsed_s(self) -> float:
         if self._t_first is None or self._t_last is None:
@@ -137,6 +166,14 @@ class ServingMetrics:
             "preemptions": self.preemptions,
             "finished": self.finished,
             "failed": self.failed,
+            "cancelled": self.cancelled,
+            "timed_out": self.timed_out,
+            "host_gap_ms_mean": (sum(self.host_gap_s) / len(self.host_gap_s)
+                                 * 1e3) if self.host_gap_s else 0.0,
+            "host_gap_ms_p50": percentile(self.host_gap_s, 50) * 1e3,
+            "host_gap_ms_p99": percentile(self.host_gap_s, 99) * 1e3,
+            "overlap_adopted": self.overlap_adopted,
+            "overlap_rebuilds": self.overlap_rebuilds,
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "prefix_lookups": self.prefix_lookups,
             "prefix_hits": self.prefix_hits,

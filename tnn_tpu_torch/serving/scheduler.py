@@ -32,9 +32,12 @@ class RequestState(enum.Enum):
     RUNNING = "running"      # holds pool blocks; decodes every step
     FINISHED = "finished"    # completed normally (length | stop_token)
     FAILED = "failed"        # non-finite logits, alloc failure, budget
+    CANCELLED = "cancelled"  # the client called engine.cancel(rid)
+    TIMED_OUT = "timed_out"  # deadline_s or max_queue_s expired
 
 
-TERMINAL_STATES = frozenset({RequestState.FINISHED, RequestState.FAILED})
+TERMINAL_STATES = frozenset({RequestState.FINISHED, RequestState.FAILED,
+                             RequestState.CANCELLED, RequestState.TIMED_OUT})
 
 
 @dataclass
@@ -48,6 +51,8 @@ class Request:
     top_p: float = 0.0
     stop_token: Optional[int] = None
     submit_time: float = 0.0
+    deadline_s: Optional[float] = None   # wall budget from submit
+    max_queue_s: Optional[float] = None  # longest stretch spent QUEUED
 
     # -- engine-managed --
     state: RequestState = RequestState.QUEUED
@@ -61,8 +66,9 @@ class Request:
     preemptions: int = 0
     ttft_s: Optional[float] = None
     finish_reason: str = ""
-    error: str = ""
-    queued_time: float = 0.0
+    error: str = ""                     # detail for FAILED, CANCELLED and
+    #                                     TIMED_OUT
+    queued_time: float = 0.0            # the last move into QUEUED
 
     @property
     def is_terminal(self) -> bool:
@@ -196,15 +202,19 @@ class Scheduler:
         req.finish_reason = reason
         self.running.remove(req)
 
-    def fail(self, req: Request, error: str) -> None:
-        """Move a request to FAILED from wherever it lives (the engine frees
-        its blocks first)."""
+    def terminate(self, req: Request, state: RequestState,
+                  error: str = "") -> None:
+        """Move a request to FAILED, CANCELLED or TIMED_OUT from wherever
+        it lives (the engine frees its blocks first)."""
+        if state not in TERMINAL_STATES or state is RequestState.FINISHED:
+            raise ValueError(f"terminate() is for failure states, got "
+                             f"{state}")
         if req in self.running:
             self.running.remove(req)
         elif req in self.waiting:
             self.waiting.remove(req)
-        req.state = RequestState.FAILED
-        req.finish_reason = RequestState.FAILED.value
+        req.state = state
+        req.finish_reason = state.value
         req.error = error
 
     def preempt_victim(self) -> Optional[Request]:

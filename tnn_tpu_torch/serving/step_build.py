@@ -11,7 +11,9 @@ batch, one token per row, and names the program that runs it: "pdecode"
 one offset: a lockstep batch) or "decode" (the assembled-cache standard
 path). Padding rows point their tables at the pool's scratch block and
 carry q_len 0. ``shard_tables`` turns a step's global tables into each
-sequence-parallel shard's local ones.
+sequence-parallel shard's local ones. ``flat_inputs`` / ``split_inputs``
+put a step's int32 and float32 arrays into one int32 buffer and back, so
+a step's inputs reach the card in one copy.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.bucketing import pow2_bucket
 from .spec_decode import DeviceDraft
@@ -73,6 +76,29 @@ def shard_tables(tables: np.ndarray, sp: int,
     return np.where(owner[None] == shards, local[None], np.int32(-1))
 
 
+def flat_inputs(arrays: Sequence[np.ndarray]) -> np.ndarray:
+    """int32 and float32 arrays back to back in one flat int32 array
+    (floats by their bits)."""
+    for a in arrays:
+        if a.dtype not in (np.int32, np.float32):
+            raise TypeError(f"step inputs are int32 or float32, got "
+                            f"{a.dtype}")
+    return np.concatenate([np.ascontiguousarray(a).view(np.int32).ravel()
+                           for a in arrays])
+
+
+def split_inputs(flat: torch.Tensor,
+                 like: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    """Views of ``flat`` (what ``flat_inputs(like)`` made, on any device)
+    with each array's shape and dtype."""
+    out, at = [], 0
+    for a in like:
+        v = flat[at:at + a.size].view(a.shape)
+        out.append(v.view(torch.float32) if a.dtype == np.float32 else v)
+        at += a.size
+    return out
+
+
 def _fill_row(step: PackedStep, i: int, req) -> None:
     step.tables[i, :len(req.block_table)] = req.block_table
     step.temps[i] = req.temperature
@@ -122,19 +148,25 @@ def pack_mixed(rows: Sequence[Any], n_dec: int, drafts: Dict[int, Any],
 
 
 def pack_decode(live: Sequence[Any], *, b: int, nb: int, scratch: int,
-                paged: bool, fused_available: bool) -> DecodeStep:
+                paged: bool, fused_available: bool,
+                speculative: bool = False) -> DecodeStep:
     """Pack the pure-decode batch. Off the paged path, with the fused
     kernel available, a batch whose live rows share one offset is
     lockstep: its padded rows take that offset too, so the kernel's one
-    position is uniform and their writes stay in the scratch block."""
+    position is uniform and their writes stay in the scratch block.
+    ``speculative=True`` packs the overlapped engine's predicted step N+1:
+    each offset assumes one more committed token, the token column stays
+    zero (the program reads step N's sampled tokens on the device), and
+    the batch is never lockstep."""
     step = DecodeStep(toks=np.zeros((b,), np.int32),
                       offsets=np.zeros((b,), np.int32),
                       **_alloc_common(b, nb, scratch))
     for i, req in enumerate(live):
-        step.toks[i] = req.next_token
-        step.offsets[i] = req.cache_len
+        if not speculative:
+            step.toks[i] = req.next_token
+        step.offsets[i] = req.cache_len + (1 if speculative else 0)
         _fill_row(step, i, req)
-    step.lockstep = (not paged and fused_available
+    step.lockstep = (not paged and fused_available and not speculative
                      and len(set(step.offsets[:len(live)].tolist())) == 1)
     if step.lockstep:
         step.offsets[len(live):] = step.offsets[0]

@@ -1,0 +1,146 @@
+"""The paged pure-decode program as a captured CUDA graph: the port's
+counterpart of the JAX engine's ``_jit_step`` and its ``self._jit`` cache
+(``tnn_tpu.serving.engine``).
+
+The JAX engine dispatches one compiled program per step. On a CUDA device
+at sp = 1 the port captures its "pdecode" program (``apply_decode_paged``,
+the logit guard and ``sample_ragged``) once per compile key
+(``max_batch_size``, ``blocks_per_seq``) and replays it on every
+pure-decode step, in place of some 1,400 eager dispatches. A step copies
+its inputs into the graph's static buffer in one host-to-device copy (a
+speculative step then copies step N's sampled tokens over the token
+column on the device) and replays on the current stream; the static
+``(2, B)`` bundle holds the sampled tokens and the logit guard.
+
+Capture rules:
+
+- The warm-up and the capture run on scratch inputs: every table entry
+  the pool's scratch block, offsets 0, so the warm-up's K/V writes land in
+  that block only (the capture itself runs nothing).
+- The sampling generator's state is saved before them and restored after,
+  so they consume no draws. The generator is registered with the graph,
+  and each replay advances it by what the captured draws take, as the
+  eager step would.
+- The warm-up runs eagerly, outside the capture, on the stream the
+  capture uses: it builds and loads every kernel library, passes each
+  one-time ``cudaFuncSetAttribute`` and makes every arrival-counter buffer
+  (``runtime.zeroed_counters``) at the size the program needs. The graph
+  keeps those buffers, so a later regrowth never frees memory it writes.
+- The wrappers count their launches in Python, which a replay does not
+  run: the launches the warm-up and the capture counted are taken back
+  out, and each replay adds the capture's count again.
+
+A failed capture or replay raises; nothing falls back to eager steps.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import runtime
+from . import step_build
+
+
+def _launch_counters() -> List[Tuple[object, str]]:
+    """(wrapper, attribute) of every kernel launch counter of the port."""
+    from ..ops import decode_stack, paged_attention, quant_matmul
+
+    pa = paged_attention.paged_attention
+    return [(pa, "launches"), (pa, "int8_launches"), (pa, "stats_launches"),
+            (pa, "int8_stats_launches"),
+            (quant_matmul.int8_matmul, "launches"),
+            (decode_stack.fused_decode_stack, "launches")]
+
+
+def read_launches() -> Dict[Tuple[int, str], int]:
+    return {(id(fn), attr): getattr(fn, attr)
+            for fn, attr in _launch_counters()}
+
+
+def _set_launches(counts: Dict[Tuple[int, str], int]) -> None:
+    for fn, attr in _launch_counters():
+        setattr(fn, attr, counts[(id(fn), attr)])
+
+
+def decode_arrays(step: step_build.DecodeStep) -> List[np.ndarray]:
+    """A pdecode step's host inputs in the order the program takes them
+    and the graph's static buffer holds them: tokens, offsets, tables,
+    temperatures, top-k, top-p."""
+    return [step.toks, step.offsets, step.tables, step.temps, step.topks,
+            step.topps]
+
+
+class DecodeGraph:
+    """One captured pdecode program.
+
+    program(toks, offsets, tables, temps, topks, topps) -> (logits, bundle)
+    runs the step on device tensors. ``inputs`` is the static int32
+    buffer whose views the graph reads, ``logits`` and ``bundle`` its
+    static outputs, ``launches`` the kernel launches one replay makes,
+    ``capture_s`` the wall time of the warm-up and the capture."""
+
+    def __init__(self, program: Callable, generator: torch.Generator, *,
+                 batch: int, blocks_per_seq: int, scratch: int, device):
+        self.device = torch.device(device)
+        # scratch inputs: no rows, every table entry the scratch block
+        like = decode_arrays(step_build.pack_decode(
+            [], b=batch, nb=blocks_per_seq, scratch=scratch, paged=True,
+            fused_available=False))
+        self.inputs = torch.from_numpy(step_build.flat_inputs(like)).to(
+            self.device)
+        self.views = step_build.split_inputs(self.inputs, like)
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        saved = generator.get_state()
+        before = read_launches()
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                program(*self.views)                 # the warm-up
+                warm = read_launches()
+                self.graph = torch.cuda.CUDAGraph()
+                self.graph.register_generator_state(generator)
+                self.graph.capture_begin()
+                try:
+                    self.logits, self.bundle = program(*self.views)
+                finally:
+                    self.graph.capture_end()
+            current.wait_stream(stream)
+            stream.synchronize()
+            captured = read_launches()
+        finally:
+            generator.set_state(saved)
+            _set_launches(before)
+        self.launches = [(fn, attr, captured[(id(fn), attr)]
+                          - warm[(id(fn), attr)])
+                         for fn, attr in _launch_counters()]
+        self.counters = runtime.counter_buffers(self.device)
+        self.replays = 0
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, host: torch.Tensor, toks: torch.Tensor = None) \
+            -> torch.Tensor:
+        """Replay on ``host``, the step's flat inputs (pinned, as
+        ``step_build.flat_inputs`` lays them out); ``toks``, a device
+        tensor, replaces the token column. Returns the static bundle."""
+        self.inputs.copy_(host, non_blocking=True)
+        if toks is not None:
+            self.views[0].copy_(toks)
+        self.graph.replay()
+        for fn, attr, n in self.launches:
+            if n:
+                setattr(fn, attr, getattr(fn, attr) + n)
+        self.replays += 1
+        return self.bundle
+
+
+def stage(arrays: Sequence[np.ndarray]) -> torch.Tensor:
+    """A step's host arrays as one pinned int32 tensor, ready for a
+    non-blocking copy to the card. PyTorch's caching host allocator records
+    the copy's event, so the block is not handed out again until the copy
+    has run."""
+    return torch.from_numpy(step_build.flat_inputs(arrays)).pin_memory()
