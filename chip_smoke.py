@@ -115,6 +115,27 @@ numbers on its own line:
    by default and with ``--no-overlap``, the same tokens. Its overlapped
    runs' launches join K1's, K2's and K3's on the kernels line. Every
    earlier serving phase's pdecode steps replay graphs too.
+20. serving_whole_prompt: full-width ``gpt2_small`` (seeded) written with
+   ``checkpoint.save_model`` and loaded back on the card bit for bit
+   (save and load seconds); a BPE vocab trained on the card's stdlib
+   text; the serving traffic with ``chunked_prefill=False`` (each prompt
+   one prefill program, ``apply_cached`` over its padded width, then
+   ``scatter_prefill``) on the bf16 pool against chunked prefill in ABBA
+   order (TTFT p50 / p95, decode tokens/s, wall), one prefill program's
+   time and device-busy time at each padded width the traffic used, on
+   the int8 pool and
+   weights (K2, K3 = 49 x prefills of more than 256 padded rows) and on
+   ``flash_gpt2_small`` (K4 = 12 x prefills, in ``apply_cached``'s
+   ``kv_offset`` form); K1 / K2 = 12 x pdecode dispatches; FP32 streams
+   token-exact against synchronous eager steps (sampled requests
+   included); bounded admission at ``max_queue_depth=2`` under "reject"
+   and "block"; the CLI with ``--model-file``, ``--vocab`` and
+   ``--no-chunked-prefill`` on text lines. Its runs' launches join K1's,
+   K2's, K3's and K4's on the kernels line.
+
+``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
+comma-separated, without the ``phase_`` prefix) runs the device phase, the
+build and those phases alone and prints no kernels line and no result.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -4094,6 +4115,352 @@ def phase_serving_overlap(results):
         raise AssertionError(f"CLI --no-overlap differs: {tokens}")
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+WHOLE_PROMPT = dict(chunked_prefill=False, overlap=True)
+
+
+def prefill_widths(fn):
+    """Run ``fn()`` recording each whole-prompt prefill program's padded
+    width; returns (fn's result, the widths)."""
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    real = InferenceEngine._prefill
+    widths = []
+
+    def _prefill(self, ids, length, tables, step):
+        widths.append(int(ids.shape[1]))
+        return real(self, ids, length, tables, step)
+
+    InferenceEngine._prefill = _prefill
+    try:
+        out = fn()
+    finally:
+        InferenceEngine._prefill = real
+    return out, widths
+
+
+def read_all_launches():
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    return {**read_launches(), "k4": fa.flash_attention_fwd.launches}
+
+
+def reset_all_launches():
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    reset_launches()
+    fa.flash_attention_fwd.launches = 0
+
+
+def whole_prompt_expected(model, engine, widths):
+    """K1 (K2 on an int8 pool) = layers x pdecode dispatches; K3 = 49 x
+    prefills wider than ``W8A8_MAX_ROWS`` (every matmul and the head run
+    on all padded rows); K4 = layers x prefills on a flash model."""
+    from tnn_tpu_torch.ops.quant_matmul import W8A8_MAX_ROWS
+
+    st = engine.stats()
+    per = model.num_layers * st["program_steps"].get("pdecode", 0)
+    quant = st["kv_dtype"] == "int8"
+    wide = sum(w > W8A8_MAX_ROWS for w in widths)
+    return {"k1": 0 if quant else per, "k2": per if quant else 0,
+            "k1s": 0, "k1s_int8": 0,
+            "k3": (4 * model.num_layers + 1) * wide
+            if st["quant_weights"] else 0, "k8": 0,
+            "k4": model.num_layers * len(widths)
+            if model.backend == "pallas" else 0}
+
+
+def whole_prompt_run(model, label, run_name, **kw):
+    """The serving traffic through one engine, launches counted over it
+    alone and held against the identities; returns (engine, rids, log
+    fields)."""
+    import torch
+
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    (engine, rids), widths = prefill_widths(
+        lambda: serve_traffic(model, seed=0, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_all_launches()
+    st = engine.stats()
+    finished = all(engine.result(r).state is RequestState.FINISHED
+                   and len(engine.result(r).out_tokens) == 64
+                   for r in rids)
+    want = whole_prompt_expected(model, engine, widths) \
+        if not engine.chunked_prefill else None
+    fields = dict(path=label, run=run_name, wall_s=wall,
+                  ttft_ms_p50=st["ttft_ms_p50"],
+                  ttft_ms_p95=st["ttft_ms_p95"],
+                  decode_tok_per_s=st["tok_per_s"],
+                  step_ms_mean=st["step_latency_ms_mean"],
+                  prefills=st["prefills"],
+                  prefill_ms_mean=st["prefill_ms_mean"],
+                  prefill_widths=sorted(widths),
+                  program_steps=st["program_steps"],
+                  preemptions=st["preemptions"],
+                  overlap_adopted=st["overlap_adopted"],
+                  graph_replays=st["graph_replays"], launches=launches,
+                  expected_launches=want,
+                  ok=finished and (want is None or launches == want))
+    log("serving_whole_prompt_run", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"{label} {run_name}: finished {finished}, "
+                             f"launches {launches}, want {want}")
+    engine.check_invariants()
+    return engine, rids, fields
+
+
+def prefill_times(engine, widths, iters=10):
+    """One whole-prompt prefill program at each padded width, its table
+    all scratch (the model forward, the sample and the scatter): CUDA
+    event time per call, the summed kernel time per call (``time_ms``),
+    the idle share between them, and the kernels that take the most
+    device time."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.serving.engine import SampleInputs
+
+    out = {}
+    bs = engine.pool.block_size
+    for w in sorted(set(widths)):
+        ids, temps, topks, topps, tables = engine._put_step(
+            [np.zeros((1, w), np.int32), np.zeros(1, np.float32),
+             np.zeros(1, np.int32), np.zeros(1, np.float32)],
+            np.zeros((1, w // bs), np.int32))
+        step = SampleInputs(ids, temps, topks, topps)
+        with torch.inference_mode():
+            device, events, per_name = time_ms(
+                lambda: engine._prefill(ids, w, tables, step), iters=iters,
+                warmup=3)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
+        out[w] = {"ms": events, "device_busy_ms": device,
+                  "idle_share": None if device is None
+                  else 1.0 - device / events,
+                  "kernels": len(per_name),
+                  "top_kernels_ms": [[n[:60], t] for n, t in top]}
+    return out
+
+
+def model_file_round_trip(model, path):
+    """``save_model`` then ``load_model`` on the card: seconds of each and
+    every weight equal bit for bit."""
+    import os
+
+    import torch
+
+    from tnn_tpu_torch import checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_model(path, model)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_model(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(model.jax_param_paths(), loaded.jax_param_paths()))
+    exact = all(pa == pb and a.device.type == "cuda" and torch.equal(a, b)
+                for (pa, a), (pb, b) in pairs)
+    fields = dict(file_mb=os.path.getsize(path) / 1e6, save_s=save_s,
+                  load_s=load_s, tensors=len(pairs), bit_exact=exact,
+                  config_equal=loaded.get_config() == model.get_config())
+    log("serving_whole_prompt_file", **fields)
+    if not (exact and fields["config_equal"]):
+        raise AssertionError(f".tnn round trip not bit-exact: {fields}")
+    return loaded
+
+
+def stdlib_vocab(path, max_bytes=120_000, vocab_size=400):
+    """A BPE vocab trained on the card's Python stdlib text (the first
+    ``max_bytes`` of its .py files), saved to ``path``."""
+    import sysconfig
+
+    from tnn_tpu_torch.cli.prepare_corpus import iter_files
+    from tnn_tpu_torch.data.tokenizer import train_bpe
+
+    texts = []
+    for f in iter_files([sysconfig.get_paths()["stdlib"]], "*.py",
+                        max_bytes):
+        with open(f, encoding="utf-8", errors="ignore") as fh:
+            texts.append(fh.read())
+    t0 = time.perf_counter()
+    tok = train_bpe(texts, vocab_size=vocab_size)
+    tok.save(path)
+    log("serving_whole_prompt_vocab", files=len(texts),
+        chars=sum(map(len, texts)), vocab_size=tok.vocab_size,
+        train_s=time.perf_counter() - t0)
+    return tok
+
+
+def admission_check(model):
+    """``max_queue_depth=2``: "reject" refuses the 6 equal-priority
+    submits past a full queue and serves the 2 queued; "block" steps the
+    engine inside ``submit`` and serves all 8."""
+    import numpy as np
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+    from tnn_tpu_torch.serving.scheduler import (AdmissionRejected,
+                                                 RequestState)
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, model.vocab_size, int(rng.integers(16, 257)))
+               for _ in range(8)]
+    out = {}
+    for policy in ("reject", "block"):
+        engine = InferenceEngine(model, num_blocks=512, block_size=16,
+                                 max_batch_size=8, device=model.device,
+                                 max_queue_depth=2, admission_policy=policy,
+                                 **WHOLE_PROMPT)
+        rids, rejected = [], 0
+        for p in prompts:
+            try:
+                rids.append(engine.submit(p, 16))
+            except AdmissionRejected:
+                rejected += 1
+        engine.run_until_complete()
+        done = sum(engine.result(r).state is RequestState.FINISHED
+                   for r in rids)
+        out[policy] = dict(submitted=len(rids), rejected=rejected,
+                           finished=done,
+                           metrics_rejected=engine.stats()["rejected"])
+    log("serving_whole_prompt_admission", **out)
+    if out["reject"] != dict(submitted=2, rejected=6, finished=2,
+                             metrics_rejected=6) or \
+            out["block"] != dict(submitted=8, rejected=0, finished=8,
+                                 metrics_rejected=0):
+        raise AssertionError(f"bounded admission: {out}")
+
+
+def whole_prompt_cli(model_path, vocab_path, tok):
+    lines = [{"id": "text", "prompt": "def main(argv=None):\n    return",
+              "max_new_tokens": 8},
+             {"id": "sampled", "prompt": "import os\nimport sys\n",
+              "max_new_tokens": 6, "temperature": 0.8, "top_k": 50}]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model-file",
+         model_path, "--vocab", vocab_path, "--no-chunked-prefill"],
+        input="".join(json.dumps(x) + "\n" for x in lines),
+        capture_output=True, text=True, timeout=600)
+    events = [json.loads(x) for x in proc.stdout.splitlines() if x.strip()]
+    done = {e["id"]: e for e in events if e.get("event") == "done"}
+    ok = (proc.returncode == 0 and set(done) == {"text", "sampled"}
+          and len(done["text"]["tokens"]) == 8
+          and len(done["sampled"]["tokens"]) == 6
+          and all(e["text"] == tok.decode(e["tokens"])
+                  for e in done.values())
+          and '"prefills": 2' in proc.stderr)
+    log("serving_whole_prompt_cli", returncode=proc.returncode,
+        done_events=len(done),
+        texts={k: e.get("text") for k, e in done.items()},
+        seconds=round(time.perf_counter() - t0, 3), ok=ok)
+    if not ok:
+        raise AssertionError(f"whole-prompt CLI failed: rc "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+
+
+def phase_serving_whole_prompt(results):
+    """The whole-prompt path on full-width gpt2_small: the .tnn round
+    trip, a trained vocab, the traffic against chunked prefill (ABBA),
+    prefill program times, the int8 pool and weights, flash_gpt2_small,
+    FP32 exactness against synchronous eager steps, bounded admission and
+    the CLI on text lines."""
+    import tempfile
+
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+
+    added = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+
+    def count(fields):
+        for k in added:
+            added[k] += fields["launches"][k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = zoo.create("gpt2_small", device="cuda", seed=0)
+        model_path, vocab_path = f"{tmp}/gpt2_small.tnn", f"{tmp}/vocab.bin"
+        model = model_file_round_trip(model, model_path)
+        tok = stdlib_vocab(vocab_path)
+        # first-use costs off the clock, then whole-prompt (A) against
+        # chunked prefill (B) in the order A B B A
+        for chunked in (False, True):
+            serve_traffic(model, seed=1, num_requests=2, new_tokens=4,
+                          **{**WHOLE_PROMPT, "chunked_prefill": chunked})
+        runs = {}
+        for i, chunked in enumerate((False, True, True, False)):
+            name = "chunked" if chunked else "whole_prompt"
+            engine, rids, fields = whole_prompt_run(
+                model, "bf16", f"{name}_{i}",
+                **{**WHOLE_PROMPT, "chunked_prefill": chunked})
+            runs.setdefault(name, []).append((engine, rids, fields))
+            if not chunked and i == 0:
+                count(fields)
+        a, b = runs["whole_prompt"][0], runs["chunked"][0]
+        greedy = [(x, y) for j, (x, y) in enumerate(zip(a[1], b[1]))
+                  if j % 2 == 0]
+        log("serving_whole_prompt_ab", **{
+            name: {k: [f[2][k] for f in rs] for k in
+                   ("wall_s", "ttft_ms_p50", "ttft_ms_p95",
+                    "decode_tok_per_s")} for name, rs in runs.items()},
+            greedy_equal_to_chunked=sum(
+                a[0].result(x).out_tokens == b[0].result(y).out_tokens
+                for x, y in greedy), greedy_requests=len(greedy))
+        times = prefill_times(a[0], a[2]["prefill_widths"])
+        log("serving_whole_prompt_prefill",
+            **{str(w): t for w, t in times.items()})
+        del runs, a, b
+        torch.cuda.empty_cache()
+        # int8 pool and weights: K2 every decode step, K3 in wide prefills
+        _, _, fields = whole_prompt_run(model, "int8", "whole_prompt",
+                                        **WHOLE_PROMPT, **INT8_SERVING)
+        count(fields)
+        if fields["launches"]["k3"] == 0:
+            raise AssertionError("no prefill wider than 256 rows ran K3")
+        admission_check(model)
+        whole_prompt_cli(model_path, vocab_path, tok)
+        del model
+        torch.cuda.empty_cache()
+    # flash_gpt2_small: K4 in every prefill, K1 in every decode step
+    flash = zoo.create("flash_gpt2_small", device="cuda", seed=0)
+    _, _, fields = whole_prompt_run(flash, "flash", "whole_prompt",
+                                    **WHOLE_PROMPT)
+    count(fields)
+    if fields["launches"]["k4"] == 0:
+        raise AssertionError("K4 never launched on flash_gpt2_small")
+    del flash
+    torch.cuda.empty_cache()
+    # FP32: overlap with graphs against synchronous eager steps
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    eng_a, rids_a, _ = whole_prompt_run(fp32, "fp32", "overlap_graphs",
+                                        **WHOLE_PROMPT)
+    eng_b, rids_b, _ = whole_prompt_run(
+        fp32, "fp32", "sync_eager", eager_steps=True,
+        **{**WHOLE_PROMPT, "overlap": False})
+    same = [eng_a.result(x).out_tokens == eng_b.result(y).out_tokens
+            for x, y in zip(rids_a, rids_b)]
+    log("serving_whole_prompt_exact", requests=len(same),
+        identical=sum(same), sampled_requests=len(same) // 2)
+    if not all(same):
+        raise AssertionError(f"FP32 whole-prompt streams differ between "
+                             f"overlap with graphs and eager steps: {same}")
+    del fp32, eng_a, eng_b
+    torch.cuda.empty_cache()
+    results["launches"] += added["k1"]
+    results["int8_launches"]["k2"] += added["k2"]
+    results["int8_launches"]["k3"] += added["k3"]
+    results["flash_launches"]["flash_attention_fwd"] += added["k4"]
+    log("serving_whole_prompt_launches", **added)
+
+
 def main() -> int:
     import torch
 
@@ -4107,22 +4474,39 @@ def main() -> int:
         print(f"chip_smoke: the tnn_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 3
+    phases = (phase_kernel, phase_flash, phase_flash_split,
+              phase_serving, phase_cli, phase_training,
+              phase_training_long, phase_train_cli, phase_int8_kernel,
+              phase_int8_matmul, phase_serving_int8, phase_decode_stack,
+              phase_fused_generate, phase_serving_fused,
+              phase_paged_stats, phase_serving_sp,
+              phase_serving_prefix_spec, phase_serving_overlap,
+              phase_serving_whole_prompt)
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = [f"phase_{n}" for n in sys.argv[2].split(",")]
+        phases = [p for p in phases if p.__name__ in only]
+        if len(phases) != len(only):
+            print(f"chip_smoke: unknown phase in {sys.argv[2]}",
+                  file=sys.stderr)
+            return 4
     t_start = time.perf_counter()
     info = phase_device()
-    results = {}
+    # the counters the later phases add to, as the earlier ones leave them
+    results = {} if only is None else {
+        "launches": 0, "int8_launches": {"k2": 0, "k3": 0},
+        "sp_launches": {"stats": 0, "int8_stats": 0}, "fused_launches": 0,
+        "flash_launches": {"flash_attention_fwd": 0,
+                           "flash_attention_bwd": 0}}
     build_kernels()
-    for phase in (phase_kernel, phase_flash, phase_flash_split,
-                  phase_serving, phase_cli, phase_training,
-                  phase_training_long, phase_train_cli, phase_int8_kernel,
-                  phase_int8_matmul, phase_serving_int8, phase_decode_stack,
-                  phase_fused_generate, phase_serving_fused,
-                  phase_paged_stats, phase_serving_sp,
-                  phase_serving_prefix_spec, phase_serving_overlap):
+    for phase in phases:
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,
             seconds=round(time.perf_counter() - t0, 3))
     log("total_seconds", seconds=round(time.perf_counter() - t_start, 3))
+    if only is not None:
+        return 0
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     flash = "tnn_tpu/ops/pallas/flash_attention.py"

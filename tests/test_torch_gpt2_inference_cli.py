@@ -63,10 +63,13 @@ def test_int8_cli_runs_generate_on_the_int8_copy(capsys, tiny_int8):
 
 
 @pytest.mark.parametrize("flag", ["--vocab", "--model-file"])
-def test_unported_inputs_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+def test_unported_inputs_raise(flag, tmp_path):
+    """Both flags are ported now: the file they name is read, never
+    ignored, so a missing one raises (tests/test_torch_serving.py serves
+    real ones)."""
+    with pytest.raises(FileNotFoundError):
         gpt2_inference.main(["--model", "gpt2_tiny", "--device", "cpu",
-                             flag, "x"])
+                             flag, str(tmp_path / "missing")])
 
 
 def test_default_device_raises_without_a_card():
@@ -74,3 +77,31 @@ def test_default_device_raises_without_a_card():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="is_available"):
         gpt2_inference.main(["--model", "gpt2_tiny", "-n", "1"])
+
+
+def test_model_file_and_vocab(capsys, tmp_path):
+    """``--model-file`` loads a port-written ``.tnn``, ``--vocab`` encodes
+    the prompt and prints the text; the tokens are ``generate``'s on the
+    loaded model."""
+    from tnn_tpu_torch import checkpoint
+    from tnn_tpu_torch.data.tokenizer import Tokenizer, train_bpe
+
+    train_bpe([PROMPT * 3, "life is a long walk in the park. " * 3],
+              300).save(str(tmp_path / "vocab.bin"))
+    tok = Tokenizer().load(str(tmp_path / "vocab.bin"))
+    model = zoo.create("gpt2_tiny", vocab_size=tok.vocab_size, max_len=64,
+                       device="cpu", seed=6)
+    checkpoint.save_model(str(tmp_path / "m.tnn"), model)
+    assert gpt2_inference.main(["--device", "cpu", "-n", "3",
+                                "--model-file", str(tmp_path / "m.tnn"),
+                                "--vocab", str(tmp_path / "vocab.bin")]) == 0
+    out = capsys.readouterr().out
+    assert "no --" not in out
+    text = out.split("---\n", 1)[1].rsplit("\n---", 1)[0]
+    lines = out.splitlines()
+    ids = tok.encode(PROMPT)
+    want = generate(checkpoint.load_model(str(tmp_path / "m.tnn"),
+                                          device="cpu"),
+                    torch.tensor([ids]), 3)[0].tolist()
+    assert text == tok.decode(ids + want)
+    assert lines[-1].startswith("3 tokens in ")

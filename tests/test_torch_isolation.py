@@ -189,3 +189,44 @@ print("ok")
 """
     proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_text_and_model_file_modules_run_with_jax_unimportable(tmp_path):
+    """The tokenizer, the ``.tnn`` reader and writer and the config
+    registry run with jax and tnn_tpu blocked: a vocab is trained, saved,
+    loaded and used; a model is saved, loaded back bit for bit and served
+    whole-prompt on the CPU."""
+    code = f"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tnn_tpu"):
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+import torch
+from tnn_tpu_torch import checkpoint
+from tnn_tpu_torch.core.module import module_from_config
+from tnn_tpu_torch.data.tokenizer import Tokenizer, train_bpe
+from tnn_tpu_torch.models.gpt2 import GPT2
+from tnn_tpu_torch.serving.engine import InferenceEngine
+train_bpe(["one two three two one"] * 3, 270).save({str(tmp_path)!r} + "/v.bin")
+tok = Tokenizer().load({str(tmp_path)!r} + "/v.bin")
+assert tok.decode(tok.encode("two one")) == "two one"
+m = GPT2(vocab_size=tok.vocab_size, max_len=32, num_layers=1, d_model=16,
+         num_heads=2, device="cpu")
+checkpoint.save_model({str(tmp_path)!r} + "/m.tnn", m)
+m2 = checkpoint.load_model({str(tmp_path)!r} + "/m.tnn", device="cpu")
+assert all(torch.equal(a, b) for (_, a), (_, b) in
+           zip(m.jax_param_paths(), m2.jax_param_paths()))
+assert module_from_config(m.get_config(), device="cpu").get_config() == \
+    m.get_config()
+eng = InferenceEngine(m2, num_blocks=8, block_size=4, device="cpu",
+                      chunked_prefill=False)
+rid = eng.submit(tok.encode("one two"), 3)
+assert len(eng.run_until_complete()[rid]) == 3
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "tnn_tpu")]
+print("ok", bad)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok []", \
+        proc.stderr

@@ -316,3 +316,71 @@ def test_cli_cancel_line():
     assert not [e for e in events if e["id"] == "x"
                 and e["event"] == "token"]
     assert '"requests_cancelled": 1' in err
+
+
+# -- a .tnn model file, a vocab, whole-prompt prefill, bounded admission ------
+
+@pytest.fixture(scope="module")
+def model_and_vocab(tmp_path_factory):
+    """A seeded 2L/32d GPT-2 written by the port's ``save_model`` with a
+    vocabulary the size of a BPE vocab trained on a little text."""
+    from tnn_tpu_torch import checkpoint
+    from tnn_tpu_torch.data.tokenizer import train_bpe
+
+    d = tmp_path_factory.mktemp("served")
+    tok = train_bpe(["the cat sat on the mat. " * 4,
+                     "a dog ran to the park and sat down. " * 3], 300)
+    tok.save(str(d / "vocab.bin"))
+    model = GPT2(vocab_size=tok.vocab_size, max_len=64, num_layers=2,
+                 d_model=32, num_heads=2, policy=tdt.FP32, device="cpu",
+                 seed=4)
+    checkpoint.save_model(str(d / "model.tnn"), model)
+    return d, tok
+
+
+def test_cli_serves_text_lines_from_a_model_file(model_and_vocab):
+    """``--model-file`` + ``--vocab`` + ``--no-chunked-prefill``: "prompt"
+    lines are BPE-encoded, done events carry the decoded text, and the
+    tokens are the in-process whole-prompt engine's on the same file."""
+    from tnn_tpu_torch import checkpoint
+
+    d, tok = model_and_vocab
+    lines = [{"id": "t", "prompt": "the cat sat on the", "max_new_tokens": 5},
+             {"id": "ids", "tokens": tok.encode("a dog ran"),
+              "max_new_tokens": 4}]
+    events, err = _cli(lines, "--model-file", str(d / "model.tnn"),
+                       "--vocab", str(d / "vocab.bin"),
+                       "--no-chunked-prefill", "--no-logit-guard",
+                       "--preemption-budget", "-1")
+    done = {e["id"]: e for e in events if e["event"] == "done"}
+    assert set(done) == {"t", "ids"}
+    for e in done.values():
+        assert e["text"] == tok.decode(e["tokens"])
+    model = checkpoint.load_model(str(d / "model.tnn"), device="cpu")
+    eng = InferenceEngine(model, device="cpu", num_blocks=16,
+                          chunked_prefill=False)
+    rids = [eng.submit(tok.encode("the cat sat on the"), 5),
+            eng.submit(tok.encode("a dog ran"), 4)]
+    out = eng.run_until_complete()
+    assert [done["t"]["tokens"], done["ids"]["tokens"]] == \
+        [out[r] for r in rids]
+    assert '"chunked_prefill": false' in err and '"prefills": 2' in err
+
+
+def test_cli_rejected_and_shed_lines_keep_serving():
+    """``--max-queue-depth 1``: an important line sheds the queued
+    background one (an error event naming the shed), an equal one is
+    rejected with ``"rejected": true``; serving goes on, and a byte-level
+    "prompt" line (no vocab) is served."""
+    lines = [{"id": "bg", "tokens": [1, 2, 3], "max_new_tokens": 3,
+              "priority": 5},
+             {"id": "fg", "prompt": "hi there", "max_new_tokens": 3},
+             {"id": "late", "tokens": [4, 5], "max_new_tokens": 3}]
+    events, err = _cli(lines, "--max-queue-depth", "1")
+    errors = {e["id"]: e for e in events if e["event"] == "error"}
+    assert set(errors) == {"bg", "late"}
+    assert "shed under overload" in errors["bg"]["reason"]
+    assert errors["late"]["rejected"] is True
+    assert "queue full" in errors["late"]["reason"]
+    assert [e["id"] for e in events if e["event"] == "done"] == ["fg"]
+    assert '"rejected": 1' in err and '"shed_requests": 1' in err

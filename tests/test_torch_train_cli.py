@@ -51,9 +51,14 @@ def test_prepare_corpus_byte_mode_matches_jax(sources, tmp_path, capsys):
         assert (tmp_path / "port" / name).read_bytes() == \
             (tmp_path / "jax" / name).read_bytes(), name
     assert meta["vocab_size"] == 257 and meta["files"] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_corpus.main(["--out", str(tmp_path / "b"), "--mode", "bpe",
-                             "--source", str(sources)])
+    # --mode bpe is ported: a vocab trained on the corpus, the same files
+    bpe = args + ["--mode", "bpe", "--train-vocab-size", "300"]
+    jprep.main(["--out", str(tmp_path / "jax_bpe")] + bpe)
+    meta = prepare_corpus.main(["--out", str(tmp_path / "bpe")] + bpe)
+    for name in ("train.bin", "val.bin", "meta.json", "vocab.bin"):
+        assert (tmp_path / "bpe" / name).read_bytes() == \
+            (tmp_path / "jax_bpe" / name).read_bytes(), name
+    assert meta["mode"] == "bpe" and meta["vocab_size"] == 300
 
 
 def test_train_gpt2_cli_on_cpu(sources, tmp_path):

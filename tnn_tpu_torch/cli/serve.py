@@ -4,21 +4,29 @@
     echo '{"tokens": [464, 3616, 286], "max_new_tokens": 16}' | \
         python -m tnn_tpu_torch.cli.serve --model gpt2_small
 
+    python -m tnn_tpu_torch.cli.serve --model-file gpt2.tnn \
+        --vocab vocab.bin --no-chunked-prefill
+
 Each stdin line is one request, or a cancel:
 
     {"id": 3, "tokens": [464, 3616, 286], "max_new_tokens": 8,
      "temperature": 0.8, "top_k": 40, "top_p": 0.9, "stop_token": 50256,
-     "deadline_s": 30.0, "max_queue_s": 5.0}
+     "deadline_s": 30.0, "max_queue_s": 5.0, "priority": 0}
+    {"id": 4, "prompt": "The meaning of life is"}
     {"op": "cancel", "id": 3}
 
-``id`` defaults to the engine request id; ``deadline_s`` defaults to
-``--deadline-s`` (0: none). Responses stream as the engine produces them,
-one JSON object per line, as the JAX front end emits them:
+A ``"prompt"`` line is encoded with ``--vocab`` when one is given and as
+its UTF-8 bytes otherwise. ``id`` defaults to the engine request id;
+``deadline_s`` defaults to ``--deadline-s`` (0: none). Responses stream
+as the engine produces them, one JSON object per line, as the JAX front
+end emits them:
 
     {"event": "token", "id": 3, "token": 257}
     {"event": "done", "id": 3, "tokens": [...], "finish_reason": "length",
-     "ttft_ms": 12.3}
+     "ttft_ms": 12.3, "text": "..."}                   ("text" with --vocab)
     {"event": "error", "id": 3, "reason": "..."}
+    {"event": "error", "id": 5, "reason": "queue full: ...",
+     "rejected": true}                  (--max-queue-depth; serving goes on)
     {"event": "timeout", "id": 3, "reason": "..."}     (deadline expired)
     {"event": "cancelled", "id": 3, "reason": "..."}
 
@@ -28,8 +36,15 @@ The engine runs its overlapped loop, as the JAX front end's does: a step
 is on the card while the host commits the one before and runs the
 deferred work (``--no-overlap`` runs each step synchronously; the tokens
 are the same).
-Weights are seeded random (``--seed``); ``--device`` defaults to cuda and
-the server refuses to start without a card unless ``--device cpu``.
+Weights come from a ``.tnn`` file (``--model-file``, written by either
+package's ``save_model``) or are seeded random (``--model``, ``--seed``);
+``--device`` defaults to cuda and the server refuses to start without a
+card unless ``--device cpu``. ``--no-chunked-prefill`` serves the JAX
+engine's whole-prompt prefill (and so runs without the prefix cache);
+``--max-queue-depth`` bounds the wait queue (a full queue sheds a queued
+request of larger ``priority`` value, else rejects the line);
+``--preemption-budget`` caps recompute preemptions per request (-1:
+none); ``--no-logit-guard`` lets a row with non-finite logits go on.
 
 ``--sp N`` serves with sequence parallelism: the KV pool's blocks split
 over N shards, a request's blocks round-robin over them, so the longest
@@ -53,8 +68,13 @@ import os
 import select
 import sys
 
+import numpy as np
+
+from tnn_tpu_torch import checkpoint
+from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.serving.engine import InferenceEngine
+from tnn_tpu_torch.serving.scheduler import AdmissionRejected, RequestState
 
 
 def _emit(obj) -> None:
@@ -89,7 +109,11 @@ def _sp_preflight(ap, args, sp_devices) -> None:
                  "fused kernel assembles one chip's contiguous cache; use "
                  "auto, paged, or standard)")
     # the engine's assembly width, from the model's shape alone
-    max_len = zoo.create(args.model, device="meta", seed=None).max_len
+    if args.model_file:
+        max_len = checkpoint.read_tensor_file_header(
+            args.model_file)[1]["model_config"]["max_len"]
+    else:
+        max_len = zoo.create(args.model, device="meta", seed=None).max_len
     cap = min(max_len, (args.num_blocks - args.sp) * args.block_size)
     msl = min(args.max_seq_len or cap, cap)
     nb = -(-msl // args.block_size)
@@ -103,13 +127,31 @@ def _sp_preflight(ap, args, sp_devices) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="gpt2_small", choices=zoo.names())
+    ap.add_argument("--model", default="gpt2_small", choices=zoo.names(),
+                    help="zoo name (used when --model-file is absent)")
+    ap.add_argument("--model-file", default="", help=".tnn snapshot")
+    ap.add_argument("--vocab", default="",
+                    help="vocab.bin (the reference format)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--num-blocks", type=int, default=64,
                     help="KV pool size in blocks (1 is reserved scratch)")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-batch-size", type=int, default=8)
     ap.add_argument("--chunk-size", type=int, default=64)
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="whole-prompt prefill: one prefill program per "
+                         "admitted prompt (also turns the prefix cache "
+                         "off)")
+    ap.add_argument("--max-queue-depth", type=int, default=0,
+                    help="bounded admission: reject submits past this many "
+                         "waiting requests (0 = unbounded); a more "
+                         "important arrival sheds a less important queued "
+                         "request")
+    ap.add_argument("--preemption-budget", type=int, default=16,
+                    help="recompute preemptions a request may take before "
+                         "it fails (-1 = unlimited)")
+    ap.add_argument("--no-logit-guard", action="store_true",
+                    help="disable per-row non-finite logit detection")
     ap.add_argument("--max-new-tokens", type=int, default=32,
                     help="default for requests that omit it")
     ap.add_argument("--kv-dtype", default="f32", choices=("f32", "int8"),
@@ -160,9 +202,14 @@ def main(argv=None) -> int:
     if args.sp > 1:
         _sp_preflight(ap, args, sp_devices)
 
-    model = zoo.create(args.model, device=args.device, seed=args.seed)
-    print(f"random-weight {args.model} on {model.device} "
-          f"(seed {args.seed})", file=sys.stderr)
+    tokenizer = Tokenizer().load(args.vocab) if args.vocab else None
+    if args.model_file:
+        model = checkpoint.load_model(args.model_file, device=args.device)
+        print(f"{args.model_file} on {model.device}", file=sys.stderr)
+    else:
+        model = zoo.create(args.model, device=args.device, seed=args.seed)
+        print(f"random-weight {args.model} on {model.device} "
+              f"(seed {args.seed})", file=sys.stderr)
     draft_model = None
     if args.spec == "draft":
         draft_model = zoo.create("gpt2_tiny", vocab_size=model.vocab_size,
@@ -173,6 +220,11 @@ def main(argv=None) -> int:
     engine = InferenceEngine(
         model, num_blocks=args.num_blocks, block_size=args.block_size,
         max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
+        chunked_prefill=not args.no_chunked_prefill,
+        max_queue_depth=args.max_queue_depth,
+        preemption_budget=(None if args.preemption_budget < 0
+                           else args.preemption_budget),
+        logit_guard=not args.no_logit_guard,
         seed=args.seed, kv_dtype=args.kv_dtype,
         quant_weights=args.quant_weights, decode_path=args.decode_path,
         max_seq_len=args.max_seq_len or None, sp=args.sp,
@@ -188,6 +240,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
     user_ids = {}
     rid_by_user = {}
+    open_rids = set()     # submitted, not yet reported terminal
 
     def handle_line(line: bytes) -> None:
         try:
@@ -210,22 +263,41 @@ def main(argv=None) -> int:
                        "reason": reason})
             return
         try:
+            if "tokens" in req:
+                ids = req["tokens"]
+            elif tokenizer is not None:
+                ids = tokenizer.encode(req["prompt"])
+            else:
+                ids = np.frombuffer(req["prompt"].encode(), np.uint8) \
+                    .astype(np.int32) % model.vocab_size
             deadline = req.get("deadline_s", args.deadline_s or None)
             rid = engine.submit(
-                req["tokens"],
-                int(req.get("max_new_tokens", args.max_new_tokens)),
+                ids, int(req.get("max_new_tokens", args.max_new_tokens)),
                 temperature=float(req.get("temperature", 0.0)),
                 top_k=int(req.get("top_k", 0)),
                 top_p=float(req.get("top_p", 0.0)),
                 stop_token=req.get("stop_token"),
                 deadline_s=float(deadline) if deadline else None,
                 max_queue_s=(float(req["max_queue_s"])
-                             if req.get("max_queue_s") else None))
+                             if req.get("max_queue_s") else None),
+                priority=int(req.get("priority", 0)))
+        except AdmissionRejected as e:
+            _emit({"event": "error", "id": req.get("id"), "reason": str(e),
+                   "rejected": True})
+            return
         except (ValueError, KeyError, TypeError) as e:
             _emit({"event": "error", "id": req.get("id"), "reason": str(e)})
             return
         user_ids[rid] = req.get("id", rid)
         rid_by_user[json.dumps(user_ids[rid])] = rid
+        # a queued request this submit shed ended outside any step
+        for other in list(open_rids):
+            r = engine.result(other)
+            if r.state is RequestState.FAILED:
+                open_rids.discard(other)
+                _emit({"event": "error", "id": user_ids[other],
+                       "reason": r.error})
+        open_rids.add(rid)
 
     def step() -> dict:
         """One turn of the engine: the overlapped loop's begin, speculate,
@@ -260,14 +332,20 @@ def main(argv=None) -> int:
             _emit({"event": "token", "id": user_ids[rid], "token": tok})
         for rid in events["finished"]:
             r = engine.result(rid)
-            _emit({"event": "done", "id": user_ids[rid],
-                   "tokens": list(r.out_tokens),
-                   "finish_reason": r.finish_reason,
-                   "ttft_ms": round((r.ttft_s or 0.0) * 1e3, 3)})
+            done = {"event": "done", "id": user_ids[rid],
+                    "tokens": list(r.out_tokens),
+                    "finish_reason": r.finish_reason,
+                    "ttft_ms": round((r.ttft_s or 0.0) * 1e3, 3)}
+            if tokenizer is not None:
+                done["text"] = tokenizer.decode(r.out_tokens)
+            _emit(done)
         for rid, error in events["failed"]:
             _emit({"event": "error", "id": user_ids[rid], "reason": error})
         for rid, error in events["timed_out"]:
             _emit({"event": "timeout", "id": user_ids[rid], "reason": error})
+        for rid in list(open_rids):
+            if engine.result(rid).is_terminal:
+                open_rids.discard(rid)
     engine.run_deferred()
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v

@@ -54,6 +54,15 @@ class DTypePolicy:
     def cast_out(self, y: torch.Tensor) -> torch.Tensor:
         return y.to(self.io_dtype) if y.is_floating_point() else y
 
+    def to_config(self) -> dict:
+        """The JAX policy's config dict (a model config's ``"policy"``)."""
+        return {"io": self.io, "param": self.param, "compute": self.compute}
+
+    @classmethod
+    def from_config(cls, cfg) -> "DTypePolicy":
+        """``to_config``'s inverse; None gives the default policy."""
+        return default_policy() if cfg is None else cls(**cfg)
+
 
 FP32 = DTypePolicy(io="float32", param="float32", compute="float32")
 MIXED_BF16 = DTypePolicy(io="bfloat16", param="float32", compute="bfloat16")

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ..core import dtypes as dt
+from ..core.module import model_config, register_module
 from ..nn.embedding import Embedding, PositionalEmbedding
 from ..nn.layers import Dropout
 from ..nn.norms import LayerNorm
@@ -18,6 +19,7 @@ from .params import JaxParamModule
 from .sampling import sample_ragged
 
 
+@register_module("gpt2")
 class GPT2(JaxParamModule):
     """Decoder-only LM with a tied output head.
 
@@ -34,14 +36,20 @@ class GPT2(JaxParamModule):
     leaves them zero) or from ``load_jax_params``. ``backend`` is the
     attention backend ("xla", or "pallas" for the flash kernels).
     ``device`` defaults to "cuda" and raises without a card.
+    ``get_config()`` is the JAX model's config dict (``core.module``); the
+    head is always tied, and ``tie_embeddings=False`` raises.
     """
 
     def __init__(self, vocab_size: int = 50257, max_len: int = 1024,
                  num_layers: int = 12, d_model: int = 768,
                  num_heads: int = 12, num_kv_heads: Optional[int] = None,
-                 *, backend: str = "xla", dropout: float = 0.0, policy=None,
+                 *, backend: str = "xla", dropout: float = 0.0,
+                 tie_embeddings: bool = True, policy=None,
                  device="cuda", seed: Optional[int] = 0):
         super().__init__()
+        if not tie_embeddings:
+            raise ValueError("an untied GPT-2 head is not ported: the port's "
+                             "GPT2 shares wte with the head")
         self.device = resolve_device(device)
         self.policy = p = policy or dt.default_policy()
         self.vocab_size = int(vocab_size)
@@ -52,6 +60,7 @@ class GPT2(JaxParamModule):
         self.num_kv_heads = int(num_kv_heads) if num_kv_heads \
             else self.num_heads
         self.backend = backend
+        self.dropout = float(dropout)
         dev = self.device
         self.wte = Embedding(vocab_size, d_model, policy=p, device=dev)
         self.wpe = PositionalEmbedding(max_len, d_model, policy=p, device=dev)
@@ -83,6 +92,15 @@ class GPT2(JaxParamModule):
             for dense in ("fc", "proj"):
                 yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
                 yield (h, dense, "bias"), getattr(blk, dense), "bias"
+
+    def get_config(self):
+        cfg = {"vocab_size": self.vocab_size, "max_len": self.max_len,
+               "num_layers": self.num_layers, "d_model": self.d_model,
+               "num_heads": self.num_heads, "dropout": self.dropout,
+               "backend": self.backend, "tie_embeddings": True}
+        if self.num_kv_heads != self.num_heads:
+            cfg["num_kv_heads"] = self.num_kv_heads
+        return model_config(self, cfg)
 
     # -- forwards -------------------------------------------------------------
 

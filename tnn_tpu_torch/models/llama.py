@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import dtypes as dt
+from ..core.module import model_config, register_module
 from ..nn.attention import MultiHeadAttention
 from ..nn.embedding import Embedding
 from ..nn.layers import Dense
@@ -68,6 +69,7 @@ class LlamaBlock(nn.Module):
         return x + self._swiglu(self.ln2(x)), cache
 
 
+@register_module("llama")
 class Llama(JaxParamModule):
     """Decoder-only LM: wte -> n x LlamaBlock -> RMSNorm -> head.
 
@@ -131,6 +133,17 @@ class Llama(JaxParamModule):
                 yield (h, "attn", name), blk.attn, name
             for dense in ("gate", "up", "down"):
                 yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
+
+    def get_config(self):
+        """The JAX model's config dict (``core.module``)."""
+        cfg = {"vocab_size": self.vocab_size, "max_len": self.max_len,
+               "num_layers": self.num_layers, "d_model": self.d_model,
+               "num_heads": self.num_heads, "mlp_hidden": self.mlp_hidden,
+               "rope_theta": self.rope_theta, "backend": self.backend,
+               "tie_embeddings": self.head is None}
+        if self.num_kv_heads != self.num_heads:
+            cfg["num_kv_heads"] = self.num_kv_heads
+        return model_config(self, cfg)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final hidden state."""

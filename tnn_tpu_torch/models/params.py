@@ -37,7 +37,9 @@ class JaxParamModule(nn.Module):
         ``jax.tree.map(np.asarray, params)``) into this model.
 
         Kernels keep JAX's (in, out) layout, so nothing is transposed; the
-        f32 values are copied unrounded into the f32 masters. A leaf with
+        f32 values are copied unrounded into the f32 masters (a torch
+        tensor leaf, as ``checkpoint.load_model`` passes, is copied as it
+        is, onto the model's device and into its dtype). A leaf with
         ``q``, ``scale``, ``n`` and ``k`` (an ``Int8Weight`` of a
         ``quantize_for_decode`` tree, its arrays as numpy) replaces the
         parameter by an ``Int8Weight`` of the same bytes.
@@ -63,7 +65,8 @@ class JaxParamModule(nn.Module):
                                      f"{iw.shape} != {want}")
                 set_weight(module, name, iw)
                 continue
-            value = torch.tensor(np.asarray(node, dtype=np.float32))
+            value = node if isinstance(node, torch.Tensor) else \
+                torch.tensor(np.asarray(node, dtype=np.float32))
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{'.'.join(path)}: shape {tuple(value.shape)}"
                                  f" != {tuple(param.shape)}")
@@ -73,13 +76,15 @@ class JaxParamModule(nn.Module):
 
     def jax_param_tree(self) -> Dict:
         """The parameters as the JAX package's nested-dict tree of float32
-        numpy arrays (the inverse of ``load_jax_params``)."""
+        numpy arrays (the inverse of ``load_jax_params``); an
+        ``Int8Weight`` leaf stays as it is."""
         tree: Dict = {}
         for path, param in self.jax_param_paths():
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = param.detach().float().cpu().numpy()
+            node[path[-1]] = param if isinstance(param, Int8Weight) else \
+                param.detach().float().cpu().numpy()
         return tree
 
     @torch.no_grad()

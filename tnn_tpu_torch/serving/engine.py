@@ -26,11 +26,28 @@ pool, and a geometry ``pick_chunks`` accepts; "fused" raises otherwise,
 likewise for the paged probe).
 
 The engine runs the JAX engine's chunked prefill, recompute preemption
-(LIFO victims, a per-request preemption budget) and per-row logit guard,
-``cancel`` and the per-request ``deadline_s`` / ``max_queue_s`` (expired
-at the top of each step's build: TIMED_OUT). A step that raises
+(LIFO victims, a per-request preemption budget) and per-row logit guard
+(``logit_guard=False`` lets a non-finite row go on), ``cancel``,
+``abort_all`` and the per-request ``deadline_s`` / ``max_queue_s``
+(expired at the top of each step's build: TIMED_OUT). Bounded admission
+(``max_queue_depth``): a submit to a full queue sheds a queued request of
+larger ``priority`` value or raises ``AdmissionRejected`` ("reject"), or
+steps the engine until the queue has room ("block"). A step that raises
 propagates to the caller: a kernel failure is never turned into failed
-requests.
+requests (a whole-prompt prefill the step had not admitted yet FAILs, so
+that no request is lost).
+
+Whole-prompt prefill (``chunked_prefill=False``, the JAX engine's legacy
+path, which its CLI's ``--no-chunked-prefill`` serves): each admitted
+prompt runs one prefill program, ``model.apply_cached`` over the prompt
+padded to a power of two of blocks (capped at ``blocks_per_seq``), its
+last live row's logits checked and sampled, every layer's cache written
+into the prompt's blocks by ``kv_pool.scatter_prefill`` (the bucket's
+tail into the scratch block); the step's decode rows then run the
+pure-decode program. All of a step's programs come back in its one fetch;
+a row admitted this way takes its first decode token in the next step.
+This path turns the prefix cache off and refuses speculative decoding,
+as the JAX engine does.
 
 The overlapped loop (``overlap=True``; off by default, the CLI turns it
 on), as in the JAX engine: ``begin_step`` builds and dispatches a step
@@ -107,12 +124,14 @@ from ..models import fused_decode, sampling
 from ..nn.quant import quantize_for_decode
 from ..ops import runtime
 from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
+from ..utils.bucketing import pow2_bucket
 from ..utils.device import resolve_device
 from . import kv_pool, spec_decode, step_build, step_graph
 from .kv_pool import PagedKVPool, PoolExhausted
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
-from .scheduler import TERMINAL_STATES, Request, RequestState, Scheduler
+from .scheduler import (TERMINAL_STATES, AdmissionRejected, Request,
+                        RequestState, Scheduler)
 from .sp import SPContext
 
 
@@ -127,17 +146,21 @@ class SampleInputs(NamedTuple):
 
 class StepInFlight:
     """One dispatched, uncommitted step (``tnn_tpu.serving.engine.
-    StepInFlight``): its event buckets, the launched program's record
-    (device results and their staged fetch) and, after ``try_speculate``,
-    a speculatively dispatched successor."""
+    StepInFlight``): its event buckets, one record per launched program
+    (whole-prompt prefills, then the decode; or the one mixed step), the
+    staged fetch of all their results and, after ``try_speculate``, a
+    speculatively dispatched successor. ``prefills`` lists the requests
+    its whole-prompt prefills admit at commit."""
 
-    __slots__ = ("t0", "events", "rec", "spec")
+    __slots__ = ("t0", "events", "recs", "prefills", "fetch", "spec")
 
     def __init__(self, t0: float):
         self.t0 = t0
         self.events: Dict[str, List] = {"tokens": [], "finished": [],
                                         "failed": [], "timed_out": []}
-        self.rec: Optional[Dict[str, Any]] = None
+        self.recs: List[Dict[str, Any]] = []
+        self.prefills: List[Request] = []
+        self.fetch: Optional[Dict[str, Any]] = None
         self.spec: Optional[Dict[str, Any]] = None
 
 
@@ -147,7 +170,17 @@ class InferenceEngine:
     model : a ``models.gpt2.GPT2`` whose parameters live on ``device``.
     num_blocks, block_size : KV pool geometry (block 0 is reserved scratch).
     max_batch_size : rows per step.
+    token_budget : the most model tokens a step processes (decode rows +
+        prompt chunks, or whole prompts).
     chunk_size : prompt tokens a request may push per mixed step.
+    chunked_prefill : False serves whole-prompt prefill (module
+        docstring); it turns the prefix cache off and refuses ``spec``.
+    max_queue_depth : bounded admission; 0 leaves the queue unbounded.
+    admission_policy : "reject" (shed a less important queued request, or
+        raise ``AdmissionRejected``) or "block" (``submit`` steps the
+        engine until the queue has room).
+    logit_guard : a row whose logits are not finite FAILs its request
+        while the rest of the batch keeps its tokens; False lets it go on.
     preemption_budget : recompute preemptions a request may take before it
         FAILs instead of requeueing (None = unlimited).
     seed : seeds the sampling ``torch.Generator``.
@@ -179,15 +212,14 @@ class InferenceEngine:
     overlap : the overlapped loop (module docstring); a direct ``step()``
         stays synchronous.
 
-    A request may hold up to max_seq_len positions,
-    a step processes at most 2048 tokens (decode rows + prompt chunks), and
-    a row whose logits are not finite FAILs its request while the rest of
-    the batch keeps its tokens (the logit guard).
     device : "cuda" by default; raises without a card.
     """
 
     def __init__(self, model, *, num_blocks: int = 64, block_size: int = 16,
-                 max_batch_size: int = 8, chunk_size: int = 64,
+                 max_batch_size: int = 8, token_budget: int = 2048,
+                 chunk_size: int = 64, chunked_prefill: bool = True,
+                 max_queue_depth: int = 0, admission_policy: str = "reject",
+                 logit_guard: bool = True,
                  preemption_budget: Optional[int] = 16, seed: int = 0,
                  kv_dtype: str = "f32", quant_weights: bool = False,
                  decode_path: str = "auto",
@@ -208,8 +240,15 @@ class InferenceEngine:
         if param_dev != self.device:
             raise ValueError(f"model parameters live on {param_dev}, engine "
                              f"device is {self.device}")
+        if admission_policy not in ("reject", "block"):
+            raise ValueError(
+                f"unknown admission_policy {admission_policy!r}")
+        if max_queue_depth < 0:
+            raise ValueError("max_queue_depth must be >= 0 (0 = unbounded)")
         if preemption_budget is not None and preemption_budget < 0:
             raise ValueError("preemption_budget must be >= 0 or None")
+        if chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
         if prefix_cache_min_hit_blocks < 1:
             raise ValueError("prefix_cache_min_hit_blocks must be >= 1")
         self.drafter: Optional[spec_decode.Drafter] = None
@@ -237,8 +276,16 @@ class InferenceEngine:
         elif spec != "off":
             raise ValueError(f"unknown spec {spec!r} (off | ngram | draft | "
                              "a spec_decode.Drafter)")
-        if self.drafter is not None and self.spec_k < 1:
-            raise ValueError("spec_k must be >= 1")
+        if self.drafter is not None:
+            if not chunked_prefill:
+                raise ValueError(
+                    "speculative decoding requires chunked_prefill: the "
+                    "ragged mixed step is its verification primitive")
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+        self.max_queue_depth = int(max_queue_depth)
+        self.admission_policy = admission_policy
+        self.logit_guard = bool(logit_guard)
         self.kv_dtype = kv_dtype
         self.quant_weights = bool(quant_weights)
         self.sp = int(sp)
@@ -276,11 +323,15 @@ class InferenceEngine:
                 "num_blocks/block_size) so ceil(max_seq_len / block_size) "
                 "is a multiple of sp")
         self.assembly_len = self.blocks_per_seq * block_size
+        self.chunked_prefill = bool(chunked_prefill)
         self.scheduler = Scheduler(
-            max_batch_size=max_batch_size, chunk_size=chunk_size,
+            max_batch_size=max_batch_size, token_budget=token_budget,
+            chunk_size=chunk_size if self.chunked_prefill else 0,
             spec_tokens=self.spec_k if self.drafter is not None else 0)
         self.prefix_cache: Optional[PrefixCache] = None
-        if prefix_cache:
+        # whole-prompt prefill scatters whole prompts over fresh tables, so
+        # it shares no blocks: the cache is off there, as in the JAX engine
+        if prefix_cache and self.chunked_prefill:
             self.prefix_cache = PrefixCache(
                 block_size=block_size,
                 min_hit_blocks=prefix_cache_min_hit_blocks)
@@ -312,8 +363,8 @@ class InferenceEngine:
         self.model_steps = 0     # committed steps that ran a model forward
         # dispatched programs: "mixed" / "pdecode" on the paged path,
         # "mixed_standard" / "decode" / "fdecode" (lockstep, the fused
-        # kernel) off it; a rolled-back speculative dispatch counts here,
-        # not in model_steps
+        # kernel) off it, "prefill" for a whole-prompt prefill; a
+        # rolled-back speculative dispatch counts here, not in model_steps
         self.program_steps: collections.Counter = collections.Counter()
         self.paged_fallback_reason: Optional[str] = None
         self.fused_fallback_reason: Optional[str] = None
@@ -395,10 +446,16 @@ class InferenceEngine:
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                stop_token: Optional[int] = None,
                deadline_s: Optional[float] = None,
-               max_queue_s: Optional[float] = None) -> int:
+               max_queue_s: Optional[float] = None,
+               priority: int = 0) -> int:
         """Queue a generation request; returns its request id.
         ``deadline_s`` bounds its wall time from submit, ``max_queue_s``
-        any one stretch it waits QUEUED; past either it is TIMED_OUT."""
+        any one stretch it waits QUEUED; past either it is TIMED_OUT.
+
+        With ``max_queue_depth`` set and the queue full, "reject" FAILs the
+        queued request ``shed_victim`` names (a larger ``priority`` value
+        is less important) or raises ``AdmissionRejected``; "block" runs
+        ``step()`` until the queue has room."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -416,13 +473,33 @@ class InferenceEngine:
             raise ValueError(
                 f"request needs {self.pool.blocks_for(total)} blocks but the "
                 f"pool only has {self.pool.capacity}")
+        if self.max_queue_depth and \
+                self.scheduler.queue_depth >= self.max_queue_depth:
+            if self.admission_policy == "reject":
+                victim = self.scheduler.shed_victim(int(priority))
+                if victim is None:
+                    self.metrics.observe_rejected()
+                    raise AdmissionRejected(self.scheduler.queue_depth,
+                                            self.max_queue_depth)
+                self._terminate(
+                    victim, RequestState.FAILED,
+                    f"shed under overload: queued at priority "
+                    f"{victim.priority}, displaced by a priority "
+                    f"{int(priority)} arrival")
+                self.metrics.observe_shed()
+            # "block": every step admits or expires work, and the queue
+            # head fits an empty pool (checked above), so this ends
+            while self.has_work and \
+                    self.scheduler.queue_depth >= self.max_queue_depth:
+                self.step()
         rid = next(self._rid)
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), stop_token=stop_token,
                       submit_time=time.perf_counter(),
-                      deadline_s=deadline_s, max_queue_s=max_queue_s)
+                      deadline_s=deadline_s, max_queue_s=max_queue_s,
+                      priority=int(priority))
         self.requests[rid] = req
         self.scheduler.submit(req)
         return rid
@@ -450,6 +527,39 @@ class InferenceEngine:
     def result(self, rid: int) -> Request:
         return self.requests[rid]
 
+    def output_tokens(self, rid: int) -> List[int]:
+        return list(self.requests[rid].out_tokens)
+
+    def abort_all(self, reason: str, *,
+                  state: RequestState = RequestState.FAILED,
+                  include_queued: bool = False,
+                  reset_pages: bool = True) -> Dict[str, List]:
+        """Terminate every RUNNING request (with ``include_queued`` every
+        QUEUED one too) in ``state`` with ``reason``; with ``reset_pages``
+        zero the pool's pages and drop the prefix index (zeroed pages no
+        longer hold the indexed KV). A step in flight is dropped, its
+        whole-prompt prefills terminated with the rest. Returns step-shaped
+        event buckets."""
+        events: Dict[str, List] = {"tokens": [], "finished": [],
+                                   "failed": [], "timed_out": []}
+        bucket = "timed_out" if state is RequestState.TIMED_OUT \
+            else "failed"
+        if self._flight is not None:
+            self._abort_flight(self._flight, reason, state, events, bucket)
+        self._flight = None
+        self._deferred.clear()
+        for req in list(self.scheduler.running):
+            self._terminate(req, state, reason, events, bucket)
+        if include_queued:
+            for req in list(self.scheduler.waiting):
+                self._terminate(req, state, reason, events, bucket)
+        if reset_pages:
+            self.pool.reset_pages()
+            if self.prefix_cache is not None:
+                self.pool.purge_evictable()
+                self.prefix_cache.clear()
+        return events
+
     def stats(self) -> Dict[str, Any]:
         s: Dict[str, Any] = dict(self.metrics.summary())
         for st in RequestState:
@@ -468,6 +578,7 @@ class InferenceEngine:
                       self.prefix_cache is not None
                       and self.pool.occupancy
                       > self.prefix_publish_max_occupancy),
+                  "chunked_prefill": self.chunked_prefill,
                   "spec": self.spec_mode,
                   "spec_k": self.spec_k if self.drafter is not None else 0,
                   "model_steps": self.model_steps,
@@ -546,8 +657,12 @@ class InferenceEngine:
             raise RuntimeError("a step is already in flight: finish_step() "
                                "first")
         flight = StepInFlight(time.perf_counter())
-        with torch.inference_mode():
-            self._build_step(flight)
+        try:
+            with torch.inference_mode():
+                self._build_step(flight)
+        except BaseException as e:
+            self._abort_flight(flight, f"step failed: {e}")
+            raise
         self._flight = flight
         return flight
 
@@ -577,60 +692,108 @@ class InferenceEngine:
         events = flight.events
         self._enforce_deadlines(events)
         plan = self.scheduler.schedule(self.pool)
-        chunks = dict(plan.chunks)
-        for req in plan.prefills:
-            if not self._admit(req, events):
-                chunks.pop(req.rid, None)
-            elif req.rid in chunks:
-                # the grant was budgeted against the scheduler's probe:
-                # clamp it to the tail the fork left (a clone that found no
-                # block admitted uncached)
-                chunks[req.rid] = min(chunks[req.rid],
-                                      req.prefill_len - req.cache_len)
-        flight.rec = self._build(chunks, events)
-        if flight.rec is not None:
-            self._stage_fetch(flight.rec)
+        if self.chunked_prefill:
+            chunks = dict(plan.chunks)
+            for req in plan.prefills:
+                if not self._admit(req, events):
+                    chunks.pop(req.rid, None)
+                elif req.rid in chunks:
+                    # the grant was budgeted against the scheduler's probe:
+                    # clamp it to the tail the fork left (a clone that
+                    # found no block admitted uncached)
+                    chunks[req.rid] = min(chunks[req.rid],
+                                          req.prefill_len - req.cache_len)
+            rec = self._build(chunks, events)
+            if rec is not None:
+                flight.recs.append(rec)
+        else:
+            # whole-prompt prefills launch before the step's decode and
+            # commit from the same fetch: a row admitted here takes its
+            # first decode token next step
+            flight.prefills = list(plan.prefills)
+            for req in plan.prefills:
+                self._prefill_build(req, flight)
+            self._ensure_decode_capacity(events)
+            live = [r for r in self.scheduler.running
+                    if r.state is RequestState.RUNNING
+                    and r.cache_len >= r.prefill_len]
+            if live:
+                flight.recs.append(self._decode_launch(live))
+        if flight.recs:
+            flight.fetch = self._stage_fetch(flight.recs)
 
     def _commit_step(self, flight: StepInFlight) -> None:
-        rec = flight.rec
-        if rec is None:
+        if not flight.recs:
             return
-        out = self._fetch_bundle(rec)
+        try:
+            outs = self._fetch_bundle(flight.fetch)
+        except BaseException as e:
+            self._abort_flight(flight, f"step fetch failed: {e}")
+            raise
         self.model_steps += 1
-        if rec["kind"] == "decode":
-            self._decode_commit(rec, out, flight.events)
-        else:
-            self._mixed_commit(rec, out, flight.events)
+        for rec, out in zip(flight.recs, outs):
+            if rec["kind"] == "prefill":
+                self._prefill_commit(rec, out, flight.events)
+            elif rec["kind"] == "decode":
+                self._decode_commit(rec, out, flight.events)
+            else:
+                self._mixed_commit(rec, out, flight.events)
 
-    def _stage_fetch(self, rec: Dict[str, Any]) -> None:
-        """Queue the step's one fetch behind its launch: on CUDA a
-        non-blocking copy of the bundle into the next of two pinned host
-        buffers (a step and its speculative successor are in flight at
-        most), then an event ``_fetch_bundle`` waits on."""
-        dev = rec["dev"]
+    def _abort_flight(self, flight: StepInFlight, error: str,
+                      state: RequestState = RequestState.FAILED,
+                      events=None, bucket: str = "failed") -> None:
+        """A step that cannot commit: the requests its whole-prompt
+        prefills were to admit (popped from the queue, in neither the queue
+        nor the running set) end in ``state``, their blocks freed, so that
+        no request is lost. Rows the scheduler holds are left to the
+        caller."""
+        for req in flight.prefills:
+            if req.state is RequestState.QUEUED:
+                self._terminate(req, state, error,
+                                flight.events if events is None else events,
+                                bucket)
+
+    def _stage_fetch(self, recs: Sequence[Dict[str, Any]]) -> Dict:
+        """Queue the step's one fetch behind its launches: every record's
+        int64 results back to back in one device tensor; on CUDA a
+        non-blocking copy of it into the next of two pinned host buffers
+        (a step and its speculative successor are in flight at most),
+        then an event ``_fetch_bundle`` waits on."""
+        devs = [rec["dev"].reshape(-1) for rec in recs]
+        dev = devs[0] if len(devs) == 1 else torch.cat(devs)
+        fetch: Dict[str, Any] = {"dev": dev,
+                                 "shapes": [tuple(r["dev"].shape)
+                                            for r in recs]}
         if dev.device.type != "cuda":
-            return
+            return fetch
         slot = self._pinned_slot
         self._pinned_slot ^= 1
         buf = self._pinned[slot]
         if buf is None or buf.numel() < dev.numel():
             buf = self._pinned[slot] = torch.empty(
                 max(dev.numel(), 1024), dtype=torch.int64, pin_memory=True)
-        host = buf[:dev.numel()].view(dev.shape)
+        host = buf[:dev.numel()]
         host.copy_(dev, non_blocking=True)
-        rec["host"] = host
-        rec["ready"] = torch.cuda.Event()
-        rec["ready"].record()
+        fetch["host"] = host
+        fetch["ready"] = torch.cuda.Event()
+        fetch["ready"].record()
+        return fetch
 
-    def _fetch_bundle(self, rec: Dict[str, Any]) -> np.ndarray:
-        """The step's one device-to-host fetch."""
-        if "ready" in rec:
-            rec["ready"].synchronize()
-            out = rec["host"].numpy().copy()
+    def _fetch_bundle(self, fetch: Dict[str, Any]) -> List[np.ndarray]:
+        """The step's one device-to-host fetch, split back into each
+        record's results."""
+        if "ready" in fetch:
+            fetch["ready"].synchronize()
+            flat = fetch["host"].numpy().copy()
         else:
-            out = rec["dev"].numpy().copy()
+            flat = fetch["dev"].numpy().copy()
         self._t_fetch_done = time.perf_counter()
-        return out
+        outs, at = [], 0
+        for shape in fetch["shapes"]:
+            n = int(np.prod(shape))
+            outs.append(flat[at:at + n].reshape(shape))
+            at += n
+        return outs
 
     def _mark_dispatch(self) -> None:
         """Before a step's launch: the wall gap since the previous bundle
@@ -681,12 +844,13 @@ class InferenceEngine:
         always overwritten before they are read. Returns True when a step
         was dispatched."""
         flight = self._flight
-        if (not self.overlap or flight is None or flight.spec is not None or self.drafter is not None
-                or self.scheduler.waiting or flight.rec is None
-                or flight.rec["kind"] != "decode"
+        if (not self.overlap or flight is None or flight.spec is not None
+                or self.drafter is not None or self.scheduler.waiting
+                or len(flight.recs) != 1
+                or flight.recs[0]["kind"] != "decode"
                 or not (self._paged or self._fused is None)):
             return False
-        rec = flight.rec
+        rec = flight.recs[0]
         live = rec["live"]
         if live != [r for r in self.scheduler.running
                     if r.state is RequestState.RUNNING]:
@@ -730,12 +894,13 @@ class InferenceEngine:
             with torch.inference_mode():
                 nxt = self._decode_launch(live, step,
                                           toks=rec["dev"][0])
-                self._stage_fetch(nxt)
+                fetch = self._stage_fetch([nxt])
         except BaseException:
             undo()
             self.generator.set_state(gen_state)
             raise
-        flight.spec = {"rec": nxt, "t0": t0, "rollback": rollback,
+        flight.spec = {"rec": nxt, "fetch": fetch, "t0": t0,
+                       "rollback": rollback,
                        "gen_state": gen_state,
                        "offsets": {r.rid: int(step.offsets[i])
                                    for i, r in enumerate(live)}}
@@ -770,7 +935,8 @@ class InferenceEngine:
             self.metrics.observe_overlap_rebuild()
             return
         nxt = StepInFlight(spec["t0"])
-        nxt.rec = rec
+        nxt.recs = [rec]
+        nxt.fetch = spec["fetch"]
         self._flight = nxt
         self.metrics.observe_overlap_adopted()
         self.metrics.observe_host_gap(0.0)
@@ -846,6 +1012,13 @@ class InferenceEngine:
         req.cache_len = 0
         self.scheduler.requeue(req)
         self.metrics.observe_preemption()
+
+    def _ensure_decode_capacity(self, events) -> None:
+        """Whole-prompt mode: every running row gets the block its next
+        token writes into, preempting (LIFO) when the pool runs dry."""
+        for req in list(self.scheduler.running):
+            if req.state is RequestState.RUNNING:
+                self._grow_blocks(req, 1, events)
 
     def _grow_blocks(self, req: Request, new_tokens: int, events) -> bool:
         """Grow ``req.block_table`` to cover ``cache_len + new_tokens``
@@ -988,6 +1161,85 @@ class InferenceEngine:
         rec["dev"] = self._sample(logits,
                                   SampleInputs(toks, temps, topks, topps))
         return rec
+
+    # -- whole-prompt prefill (JAX's _prefill_fn, _prefill_build,
+    # _prefill_commit) --------------------------------------------------------
+
+    def _prefill_build(self, req: Request, flight: StepInFlight) -> None:
+        """Allocate the resume sequence's blocks and launch its prefill
+        program; the record joins ``flight``. A row that cannot start
+        FAILs."""
+        events = flight.events
+        t0 = time.perf_counter()
+        seq = req.resume_tokens
+        nb = self.pool.blocks_for(len(seq))
+        if nb > self.blocks_per_seq:
+            self._terminate(req, RequestState.FAILED,
+                            f"oversized resume: {len(seq)} tokens need {nb} "
+                            f"blocks > {self.blocks_per_seq}", events,
+                            "failed")
+            return
+        try:
+            req.block_table = self.pool.alloc(nb)
+        except PoolExhausted as e:
+            self._terminate(req, RequestState.FAILED,
+                            f"prefill failed: {e}", events, "failed")
+            return
+        # the program's width is a power of two of blocks, so N prompt
+        # lengths take O(log N) shapes; only nb blocks are real, the
+        # bucket's tail rows land in the scratch block
+        nb_bucket = pow2_bucket(nb, cap=self.blocks_per_seq)
+        ids = np.zeros((1, nb_bucket * self.pool.block_size), np.int32)
+        ids[0, :len(seq)] = seq
+        table = np.asarray([self.pool.padded_table(req.block_table,
+                                                   nb_bucket)], np.int32)
+        ids, temps, topks, topps, tables = self._put_step(
+            [ids, np.asarray([req.temperature], np.float32),
+             np.asarray([req.top_k], np.int32),
+             np.asarray([req.top_p], np.float32)], table)
+        self._mark_dispatch()
+        self.program_steps["prefill"] += 1
+        flight.recs.append({
+            "kind": "prefill", "req": req, "t0": t0, "seq_len": len(seq),
+            "dev": self._prefill(ids, len(seq), tables,
+                                 SampleInputs(ids, temps, topks, topps))})
+
+    def _prefill(self, ids, length: int, tables, step: SampleInputs):
+        """The whole-prompt program: ``apply_cached`` over the padded
+        prompt on fresh caches, the logit guard and a sample at row
+        ``length - 1``, every layer's cache scattered into the blocks.
+        Returns the (2, 1) bundle."""
+        model = self.model
+        caches = model.init_cache(1, ids.shape[1])
+        logits = model.apply_cached(ids, caches, 0)
+        bundle = self._sample(logits[0, length - 1][None], step)
+        blocks = tables[0] if self._sp is None else [t[0] for t in tables]
+        for pages, key in ((self.pool.pages_k, "k"),
+                           (self.pool.pages_v, "v")):
+            kv_pool.scatter_prefill(
+                pages, blocks, torch.stack([c[key][0] for c in caches]))
+        return bundle
+
+    def _prefill_commit(self, rec, out, events) -> None:
+        """Admit the prefilled row and emit its first token (a preempted
+        request keeps its pending token: the prefill's sample is not
+        used)."""
+        req = rec["req"]
+        if req.state in TERMINAL_STATES:
+            return                      # cancelled while in flight
+        tok, ok = int(out[0, 0]), bool(out[1, 0])
+        if self.logit_guard and not ok:
+            self._terminate(req, RequestState.FAILED,
+                            "non-finite logits in prefill", events, "failed")
+            return
+        req.cache_len = rec["seq_len"]
+        self.scheduler.admit(req)
+        now = time.perf_counter()
+        self.metrics.observe_prefill(rec["seq_len"], now - rec["t0"])
+        if not req.out_tokens:
+            req.ttft_s = now - req.submit_time
+            self.metrics.observe_ttft(req.ttft_s)
+            self._emit(req, tok, events)
 
     def _decode_launch(self, live: Sequence[Request],
                        step: Optional[step_build.DecodeStep] = None,
@@ -1253,7 +1505,7 @@ class InferenceEngine:
         for i, req in enumerate(rec["live"]):
             if req.state in TERMINAL_STATES:
                 continue
-            if not ok[i]:
+            if self.logit_guard and not ok[i]:
                 self._terminate(req, RequestState.FAILED,
                                 "non-finite logits in decode step", events,
                                 "failed")
@@ -1277,7 +1529,7 @@ class InferenceEngine:
         for i, req in enumerate(rec["rows"]):
             if req.state in TERMINAL_STATES:
                 continue
-            if not ok[i]:
+            if self.logit_guard and not ok[i]:
                 self._terminate(req, RequestState.FAILED,
                                 "non-finite logits in decode step"
                                 if i < n_dec else

@@ -346,6 +346,25 @@ class PagedKVPool:
         self.free(block_table[keep:])
         return list(block_table[:keep])
 
+    def padded_table(self, block_table: Sequence[int],
+                     width: int) -> List[int]:
+        """Right-pad a block table with SCRATCH to ``width``."""
+        if len(block_table) > width:
+            raise ValueError(f"block table of {len(block_table)} exceeds "
+                             f"assembly width {width}")
+        return list(block_table) + [self.SCRATCH] * (width - len(block_table))
+
+    def reset_pages(self) -> None:
+        """Zero every page, in place (captured step graphs hold the
+        pages' addresses). The bookkeeping is untouched: the caller has
+        released every block that held KV, and with a prefix cache must
+        also ``purge_evictable()`` and clear the index."""
+        for pages in (self.pages_k, self.pages_v):
+            for shard in (pages if self.sp > 1 else [pages]):
+                for t in ((shard.data, shard.scale)
+                          if isinstance(shard, QuantPages) else (shard,)):
+                    t.zero_()
+
     def purge_evictable(self) -> List[int]:
         """Reclaim every evictable block (the pages' content became
         untrustworthy)."""
@@ -515,6 +534,34 @@ def gather_kv(pages_k, pages_v, block_tables, out_dtype=None):
         return x.transpose(2, 3).reshape(n_layers, b, h, nb * bs, dh)
 
     return gather(pages_k), gather(pages_v)
+
+
+def scatter_prefill(pages, blocks, kv):
+    """Write one sequence's contiguous prefill cache into its blocks, all
+    layers at once, in place (the whole-prompt prefill's write).
+
+    pages: (L, N, H, bs, Dh); blocks: (nb,) int block ids; kv: (L, H, nb *
+    bs, Dh). ``QuantPages`` quantize the rows here (``quantize_kv_rows``).
+    A -1 block goes to the scratch row 0; under sequence parallelism
+    ``pages`` and ``blocks`` are per-shard lists (local ids, -1 where
+    another shard owns the block), so each shard keeps only its own
+    blocks. A padded tail pointing at SCRATCH lands there too. Returns
+    ``pages``."""
+    if _per_shard(pages):
+        for shard, local in zip(pages, blocks):
+            dev = _pages_device(shard)
+            scatter_prefill(shard, local.to(dev), kv.to(dev))
+        return pages
+    if isinstance(pages, QuantPages):
+        qkv, skv = quantize_kv_rows(kv)
+        scatter_prefill(pages.data, blocks, qkv)
+        scatter_prefill(pages.scale, blocks, skv)
+        return pages
+    n_layers, _, h, bs, dh = pages.shape
+    nb = blocks.shape[0]
+    x = kv.reshape(n_layers, h, nb, bs, dh).transpose(1, 2)  # (L, nb, H, ...)
+    pages[:, blocks.long().clamp_min(0)] = x.to(pages.dtype)
+    return pages
 
 
 def scatter_token(pages, block_tables, offsets, rows):

@@ -1,7 +1,7 @@
 """Serving metrics (a small ``tnn_tpu.serving.metrics.ServingMetrics``):
 TTFT percentiles, decode tokens/s, step latency, preemptions, finished
-requests, cancelled and timed-out requests, the pool's KV bytes per
-token, the prefix cache's and speculative decoding's counters, and the
+requests, cancelled and timed-out requests, whole-prompt prefills,
+rejected and shed submits, the pool's KV bytes per token, the prefix cache's and speculative decoding's counters, and the
 overlapped loop's host gap, adopted speculative steps and rebuilds. All
 clocks are host wall clocks."""
 from __future__ import annotations
@@ -31,6 +31,12 @@ class ServingMetrics:
         self.failed = 0
         self.cancelled = 0
         self.timed_out = 0
+        # whole-prompt prefills (chunked prefill counts its chunks in
+        # prefill_tokens only) and bounded admission's refusals
+        self.prefills = 0
+        self.prefill_s = 0.0
+        self.rejected = 0
+        self.shed = 0
         # the overlapped loop: wall gaps between a step's bundle fetch and
         # the next dispatch, speculative steps adopted and rolled back
         self.host_gap_s: List[float] = []
@@ -64,6 +70,22 @@ class ServingMetrics:
     def observe_ttft(self, seconds: float) -> None:
         self._mark()
         self.ttft_s.append(seconds)
+
+    def observe_prefill(self, num_tokens: int, seconds: float) -> None:
+        """One whole-prompt prefill of ``num_tokens``, ``seconds`` from its
+        launch to its commit."""
+        self._mark()
+        self.prefills += 1
+        self.prefill_tokens += num_tokens
+        self.prefill_s += seconds
+
+    def observe_rejected(self) -> None:
+        """A submit refused by bounded admission (``AdmissionRejected``)."""
+        self.rejected += 1
+
+    def observe_shed(self) -> None:
+        """A queued request displaced by a more important arrival."""
+        self.shed += 1
 
     def observe_prefill_chunk(self, num_tokens: int) -> None:
         self.prefill_tokens += num_tokens
@@ -159,6 +181,11 @@ class ServingMetrics:
             "tok_per_s": self.tokens_per_s,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
+            "prefills": self.prefills,
+            "prefill_ms_mean": (self.prefill_s / self.prefills * 1e3)
+            if self.prefills else 0.0,
+            "rejected": self.rejected,
+            "shed_requests": self.shed,
             "steps": self.steps,
             "step_latency_ms_mean": (sum(lat) / len(lat) * 1e3) if lat
             else 0.0,

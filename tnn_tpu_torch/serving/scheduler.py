@@ -1,6 +1,7 @@
 """Continuous-batching scheduler (``tnn_tpu.serving.scheduler``): FCFS
-admission, a per-step token budget, chunked prefill and LIFO recompute
-preemption.
+admission, a per-step token budget, chunked prefill (or, with
+``chunk_size=0``, whole-prompt admission), LIFO recompute preemption and
+priority shedding under bounded admission.
 
 Running requests decode one token every step; queued requests are admitted
 whenever the batch has a free slot, the step's token budget allows a chunk
@@ -14,7 +15,12 @@ bottleneck shard's (``sp * min_s(avail_s)``), so SP admission needs no
 branch here, and, with a prefix cache, ``pool.is_evictable``: admission
 probes the cache (read-only) so that cached positions cost no budget and
 forked blocks no allocation. With speculative decoding (``spec_tokens``)
-each decode row reserves ``1 + spec_tokens`` of the budget.
+each decode row reserves ``1 + spec_tokens`` of the budget. With
+``chunk_size=0`` a request is admitted only when its whole prompt fits the
+step's budget (decode rows first take one token each) and its blocks fit
+the pool; a prompt over the whole budget runs when it is the only work.
+``shed_victim`` picks the queued request that a more important arrival
+displaces when the engine's queue is full.
 """
 from __future__ import annotations
 
@@ -40,6 +46,19 @@ TERMINAL_STATES = frozenset({RequestState.FINISHED, RequestState.FAILED,
                              RequestState.CANCELLED, RequestState.TIMED_OUT})
 
 
+class AdmissionRejected(RuntimeError):
+    """``InferenceEngine.submit`` backpressure: the wait queue is at
+    ``max_queue_depth`` under the "reject" policy and no queued request is
+    less important than the arrival."""
+
+    def __init__(self, queue_depth: int, max_queue_depth: int):
+        self.queue_depth = queue_depth
+        self.max_queue_depth = max_queue_depth
+        super().__init__(
+            f"queue full: {queue_depth} waiting >= max_queue_depth "
+            f"{max_queue_depth}")
+
+
 @dataclass
 class Request:
     """One generation request plus its engine-managed lifecycle state."""
@@ -53,6 +72,8 @@ class Request:
     submit_time: float = 0.0
     deadline_s: Optional[float] = None   # wall budget from submit
     max_queue_s: Optional[float] = None  # longest stretch spent QUEUED
+    priority: int = 0                    # smaller = more important; read
+    #                                      only when shedding under overload
 
     # -- engine-managed --
     state: RequestState = RequestState.QUEUED
@@ -104,14 +125,15 @@ class Scheduler:
     rows still mid-prefill take up to ``chunk_size`` more of their prompt,
     and what is left admits queued requests at chunk granularity. The
     oldest mid-prefill row always advances; a sole request is admitted even
-    over budget."""
+    over budget. ``chunk_size=0`` admits whole prompts instead (the JAX
+    scheduler's legacy mode)."""
 
     def __init__(self, max_batch_size: int = 8, token_budget: int = 2048,
                  chunk_size: int = 64, spec_tokens: int = 0):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
-        if chunk_size < 1:
-            raise ValueError("chunk_size must be >= 1")
+        if chunk_size < 0:
+            raise ValueError("chunk_size must be >= 0")
         if spec_tokens < 0:
             raise ValueError("spec_tokens must be >= 0")
         self.max_batch_size = int(max_batch_size)
@@ -139,7 +161,33 @@ class Scheduler:
         self.waiting.append(req)
 
     def schedule(self, pool) -> StepPlan:
-        """Plan one step: the chunk grants of running mid-prefill rows and
+        """Plan one step (``_schedule_chunked`` unless ``chunk_size`` is
+        0). Whole-prompt mode: running rows take one budget token each; a
+        queued request is admitted when its resume sequence fits what is
+        left (or it is the only work) and its blocks fit the pool, in
+        strict FCFS order."""
+        if self.chunk_size:
+            return self._schedule_chunked(pool)
+        budget = self.token_budget - len(self.running)
+        prefills: List[Request] = []
+        planned_blocks = 0
+        while self.waiting and \
+                len(self.running) + len(prefills) < self.max_batch_size:
+            req = self.waiting[0]
+            need = len(req.resume_tokens)
+            nb = pool.blocks_for(need)
+            if planned_blocks + nb > pool.num_allocatable:
+                break
+            if need > budget and (prefills or self.running):
+                break
+            budget -= need
+            planned_blocks += nb
+            req.prefill_len = need
+            prefills.append(self.waiting.popleft())
+        return StepPlan(prefills=prefills, decodes=list(self.running))
+
+    def _schedule_chunked(self, pool) -> StepPlan:
+        """Plan one chunked step: the chunk grants of running mid-prefill rows and
         the queued requests to admit (strictly FCFS: a blocked queue head
         blocks everyone behind it). A cache hit's positions cost no budget
         and its forked blocks no allocation; reviving an evictable matched
@@ -216,6 +264,18 @@ class Scheduler:
         req.state = state
         req.finish_reason = state.value
         req.error = error
+
+    def shed_victim(self, priority: int) -> Optional[Request]:
+        """The queued request an arrival of ``priority`` displaces when the
+        queue is full: the one with the largest priority value, and only
+        when strictly larger than ``priority``; among equals the newest.
+        Running requests are never shed."""
+        victim: Optional[Request] = None
+        for req in self.waiting:
+            if req.priority > priority and \
+                    (victim is None or req.priority >= victim.priority):
+                victim = req
+        return victim
 
     def preempt_victim(self) -> Optional[Request]:
         """LIFO: the latest-admitted running request loses its blocks first
