@@ -1701,6 +1701,42 @@ def k3_wide_step(dev):
                     for x, iw, kw in step]
 
 
+def k3_check(name, x, iw, kw):
+    """K3 once on ``x`` against its plain version, element by element at
+    the limit above, and once more for the same bits; returns the log
+    entry, raising on a breach."""
+    import torch
+
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    (m, k), n = x.shape, kw["n"]
+    plan = qm.plan_int8_matmul(m, n, k, x.dtype)
+    before = qm.int8_matmul.launches
+    got = qm.int8_matmul(x, iw.q, iw.scale, **kw)
+    torch.cuda.synchronize()
+    if qm.int8_matmul.launches != before + 1:
+        raise AssertionError(f"int8_matmul {name}: K3 did not launch")
+    # each K sum runs in a fixed order: the same bits again
+    repeat_equal = torch.equal(got, qm.int8_matmul(x, iw.q, iw.scale, **kw))
+    ref = qm.int8_matmul_reference(x, iw.q, iw.scale, **kw).float()
+    mag = x.float().abs() @ iw.dequant().abs()
+    rtol = 0.0 if got.dtype == torch.float32 else 2 ** -7
+    diff = (got.float() - ref).abs()
+    used = (diff / (1e-5 * mag + rtol * ref.abs())).max().item()
+    ok = math.isfinite(used) and used <= 1.0 \
+        and tuple(got.shape) == (m, n) and repeat_equal
+    entry = dict(case=name, m=m, k=k, n=n, out=str(got.dtype),
+                 body=plan.body, tile_m=plan.tile_m,
+                 blocks=plan.blocks(m, n), max_abs_err=diff.max().item(),
+                 limit_used=used, repeat_equal=repeat_equal, ok=ok)
+    if not ok:
+        log("int8_matmul", **entry)
+        raise AssertionError(f"int8_matmul {name}: |err| exceeds 1e-5 mag "
+                             f"+ {rtol} |ref| ({used:.3g} of the limit), or "
+                             f"the repeat differs ({repeat_equal})")
+    return entry
+
+
 def phase_int8_matmul(results):
     import torch
 
@@ -1719,34 +1755,8 @@ def phase_int8_matmul(results):
             out_dtype = torch.float32 if head else None
             kw = dict(n=n, k=k, out_dtype=out_dtype)
             plan = qm.plan_int8_matmul(m, n, k, dtype)
-            before = qm.int8_matmul.launches
-            got = qm.int8_matmul(x, iw.q, iw.scale, **kw)
-            torch.cuda.synchronize()
-            if qm.int8_matmul.launches != before + 1:
-                raise AssertionError(f"int8_matmul {name}: K3 did not launch")
-            # each K sum runs in a fixed order: the same bits again
-            repeat_equal = torch.equal(
-                got, qm.int8_matmul(x, iw.q, iw.scale, **kw))
-            ref = qm.int8_matmul_reference(x, iw.q, iw.scale, **kw).float()
-            mag = x.float().abs() @ iw.dequant().abs()
-            rtol = 0.0 if got.dtype == torch.float32 else 2 ** -7
-            diff = (got.float() - ref).abs()
-            used = (diff / (1e-5 * mag + rtol * ref.abs())).max().item()
-            err = diff.max().item()
-            ok = math.isfinite(used) and used <= 1.0 \
-                and tuple(got.shape) == (m, n) and repeat_equal
-            entry = dict(case=name, m=m, k=k, n=n, out=str(got.dtype),
-                         body=plan.body, tile_m=plan.tile_m,
-                         blocks=plan.blocks(m, n), max_abs_err=err,
-                         limit_used=used, repeat_equal=repeat_equal, ok=ok)
-            if not ok:
-                log("int8_matmul", **entry)
-                raise AssertionError(f"int8_matmul {name}: |err| exceeds "
-                                     f"1e-5 mag + {rtol} |ref| ({used:.3g} "
-                                     f"of the limit), or the repeat differs "
-                                     f"({repeat_equal})")
-            worst = max(worst, err)
-            del ref, mag, diff
+            entry = k3_check(name, x, iw, kw)
+            worst = max(worst, entry["max_abs_err"])
             # time: the kernel, the plain version, and torch.mm of x with
             # the weight dequantized ahead (int8 -> x's dtype), then the scale
             wt = iw.q[:n, :k].to(dtype).t()
@@ -1786,7 +1796,7 @@ def phase_int8_matmul(results):
             log("int8_matmul", **entry)
             if name == "qkv_bfloat16":
                 results["int8_matmul"] = entry
-            del got, wt
+            del wt
         del iw, x32
         torch.cuda.empty_cache()
     results["int8_matmul"]["max_abs_err"] = worst
@@ -4247,6 +4257,56 @@ def prefill_times(engine, widths, iters=10):
     return out
 
 
+def prefill_k4_checks(model, widths):
+    """K4 (and K7) against the plain versions at the calls a whole-prompt
+    prefill makes on ``model``: one row, every head, the padded width as
+    both query and key length, causal at ``kv_offset`` 0, in the compute
+    dtype; returns the worst forward |err|."""
+    import torch
+
+    worst = 0.0
+    heads = model.num_heads
+    for i, w in enumerate(sorted(set(widths))):
+        args = flash_case(600 + i, b=1, h=heads, hkv=model.num_kv_heads,
+                          sq=w, skv=w, d=model.d_model // heads,
+                          dtype=model.policy.compute_dtype, causal=True,
+                          kv_offset=0)
+        worst = max(worst, flash_check(f"prefill_{w}", args)[0])
+        del args
+        torch.cuda.empty_cache()
+    return worst
+
+
+def prefill_k3_checks(model, widths):
+    """K3 against its plain version at the 49 calls of each whole-prompt
+    prefill wider than ``W8A8_MAX_ROWS`` on int8 gpt2_small: qkv, out, fc
+    and proj, and the head with its f32 logits, at the padded width's
+    rows in the compute dtype, on seeded weights; returns the worst
+    |err|."""
+    import torch
+
+    from tnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for i, w in enumerate(sorted(w for w in set(widths)
+                                 if w > qm.W8A8_MAX_ROWS)):
+        gen = torch.Generator(device=dev).manual_seed(650 + i)
+        for shape in ("qkv", "out", "fc", "proj", "head"):
+            _, k, n, head = MATMUL_SHAPES[shape]
+            iw = qm.quantize_int8(torch.randn((k, n), generator=gen,
+                                              device=dev) * 0.02)
+            x = torch.randn((w, k), generator=gen, device=dev).to(
+                model.policy.compute_dtype)
+            entry = k3_check(f"prefill_{w}_{shape}", x, iw, dict(
+                n=n, k=k, out_dtype=torch.float32 if head else None))
+            log("serving_whole_prompt_k3", **entry)
+            worst = max(worst, entry["max_abs_err"])
+            del iw, x
+        torch.cuda.empty_cache()
+    return worst
+
+
 def model_file_round_trip(model, path):
     """``save_model`` then ``load_model`` on the card: seconds of each and
     every weight equal bit for bit."""
@@ -4370,8 +4430,9 @@ def phase_serving_whole_prompt(results):
     """The whole-prompt path on full-width gpt2_small: the .tnn round
     trip, a trained vocab, the traffic against chunked prefill (ABBA),
     prefill program times, the int8 pool and weights, flash_gpt2_small,
-    FP32 exactness against synchronous eager steps, bounded admission and
-    the CLI on text lines."""
+    K3 and K4 against their plain versions at the prefill calls' shapes,
+    FP32 exactness against synchronous eager steps and against chunked
+    prefill, bounded admission and the CLI on text lines."""
     import tempfile
 
     import torch
@@ -4425,6 +4486,7 @@ def phase_serving_whole_prompt(results):
         count(fields)
         if fields["launches"]["k3"] == 0:
             raise AssertionError("no prefill wider than 256 rows ran K3")
+        k3_err = prefill_k3_checks(model, fields["prefill_widths"])
         admission_check(model)
         whole_prompt_cli(model_path, vocab_path, tok)
         del model
@@ -4436,24 +4498,48 @@ def phase_serving_whole_prompt(results):
     count(fields)
     if fields["launches"]["k4"] == 0:
         raise AssertionError("K4 never launched on flash_gpt2_small")
+    k4_err = prefill_k4_checks(flash, fields["prefill_widths"])
     del flash
     torch.cuda.empty_cache()
-    # FP32: overlap with graphs against synchronous eager steps
+    # FP32: whole-prompt with overlap and graphs against synchronous eager
+    # steps (every request), and against chunked prefill, the path the
+    # earlier phases hold against the plain model (greedy, tie-free)
     fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
     eng_a, rids_a, _ = whole_prompt_run(fp32, "fp32", "overlap_graphs",
                                         **WHOLE_PROMPT)
     eng_b, rids_b, _ = whole_prompt_run(
         fp32, "fp32", "sync_eager", eager_steps=True,
         **{**WHOLE_PROMPT, "overlap": False})
+    eng_c, rids_c, _ = whole_prompt_run(
+        fp32, "fp32", "chunked", **{**WHOLE_PROMPT, "chunked_prefill": True})
     same = [eng_a.result(x).out_tokens == eng_b.result(y).out_tokens
             for x, y in zip(rids_a, rids_b)]
+    greedy = rids_a[::2]
+    cmp = compare_streams(
+        fp32, [eng_a.result(r).prompt for r in greedy],
+        [eng_c.result(r).out_tokens for r in rids_c[::2]],
+        [eng_a.result(r).out_tokens for r in greedy], "exact")
     log("serving_whole_prompt_exact", requests=len(same),
-        identical=sum(same), sampled_requests=len(same) // 2)
+        identical=sum(same), sampled_requests=len(same) // 2,
+        greedy_vs_chunked=cmp, sampled_equal_to_chunked=sum(
+            eng_a.result(x).out_tokens == eng_c.result(y).out_tokens
+            for x, y in zip(rids_a[1::2], rids_c[1::2])))
     if not all(same):
         raise AssertionError(f"FP32 whole-prompt streams differ between "
                              f"overlap with graphs and eager steps: {same}")
-    del fp32, eng_a, eng_b
+    # every greedy stream: token-exact on the tie-free ones (raised in
+    # compare_streams), and elsewhere a divergence only at a near-tie
+    if not cmp["tie_free_prompts"] or \
+            any(g > NEAR_TIE for g in cmp["divergence_gaps"]):
+        raise AssertionError(f"FP32 whole-prompt against chunked prefill: "
+                             f"{cmp}")
+    del fp32, eng_a, eng_b, eng_c
     torch.cuda.empty_cache()
+    for name, err in (("flash_attention_fwd", k4_err),
+                      ("int8_matmul", k3_err)):
+        if name in results:
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
     results["launches"] += added["k1"]
     results["int8_launches"]["k2"] += added["k2"]
     results["int8_launches"]["k3"] += added["k3"]

@@ -391,6 +391,20 @@ def test_admission_shed_by_priority_matches_jax(tiny):
     assert eng.stats()["shed_requests"] == 1
 
 
+def test_shed_reported_in_next_step_events(tiny):
+    """A request shed by a submit appears once, in the next step's
+    "failed" events, with its error; later steps do not repeat it."""
+    _, _, tm = tiny
+    p = np.arange(5, dtype=np.int32)
+    eng = InferenceEngine(tm, device="cpu", max_queue_depth=1, **ENGINE)
+    bg = eng.submit(p, 4, priority=5)
+    eng.submit(p + 1, 4, priority=0)
+    ev = eng.step()
+    assert ev["failed"] == [(bg, eng.result(bg).error)]
+    assert "shed under overload" in ev["failed"][0][1]
+    assert all(bg not in dict(eng.step()["failed"]) for _ in range(3))
+
+
 def test_admission_block_drains_then_accepts(tiny):
     p = np.arange(4, dtype=np.int32)
     outs = []

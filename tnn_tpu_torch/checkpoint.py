@@ -105,13 +105,24 @@ def _tensor(buf: bytearray, dtype: str, shape) -> torch.Tensor:
         shape)
 
 
+def _read_header(f, path: str) -> Dict:
+    if f.read(len(_MAGIC)) != _MAGIC:
+        raise ValueError(f"{path}: not a TNNTPU tensor file")
+    (hlen,) = struct.unpack("<Q", f.read(8))
+    return json.loads(f.read(hlen))
+
+
+def read_tensor_file_header(path: str) -> Tuple[list, Dict]:
+    """(tensor entries, meta) of a ``.tnn`` file, without its data."""
+    with open(path, "rb") as f:
+        header = _read_header(f, path)
+    return header["tensors"], header.get("meta", {})
+
+
 def read_tensor_file(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """({key: CPU tensor}, meta) of a ``.tnn`` file."""
     with open(path, "rb") as f:
-        if f.read(len(_MAGIC)) != _MAGIC:
-            raise ValueError(f"{path}: not a TNNTPU tensor file")
-        (hlen,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(hlen))
+        header = _read_header(f, path)
         base = f.tell()
         out = {}
         for e in header["tensors"]:
@@ -140,6 +151,11 @@ def load_tensors(path: str, templates: Dict[str, Any]) \
     whose leaves have ``.shape``). The keys must match exactly and every
     shape must agree: a mismatch raises, never loads in part."""
     flat, meta = read_tensor_file(path)
+    return _sections(flat, templates), meta
+
+
+def _sections(flat: Dict[str, torch.Tensor], templates: Dict[str, Any]) \
+        -> Dict[str, Any]:
     out = {}
     for section, template in templates.items():
         tmpl = _flatten(template)
@@ -157,7 +173,7 @@ def load_tensors(path: str, templates: Dict[str, Any]) \
                                  f"!= template {tuple(leaf.shape)}")
         out[section] = _nest({k[len(section) + 1:]: v
                               for k, v in flat.items() if k in want})
-    return out, meta
+    return out
 
 
 def save_model(path: str, model) -> None:
@@ -170,19 +186,8 @@ def save_model(path: str, model) -> None:
 def load_model(path: str, device="cuda"):
     """The model a ``.tnn`` file describes, with the file's weights, on
     ``device`` ("cuda" by default; raises without a card)."""
-    _, meta = read_tensor_file_header(path)
+    flat, meta = read_tensor_file(path)
     model = module_from_config(meta["model_config"], device=device)
     template = _nest({"/".join(p): w for p, w in model.jax_param_paths()})
-    loaded, _ = load_tensors(path, {"params": template})
-    model.load_jax_params(loaded["params"])
+    model.load_jax_params(_sections(flat, {"params": template})["params"])
     return model
-
-
-def read_tensor_file_header(path: str) -> Tuple[list, Dict]:
-    """(tensor entries, meta) of a ``.tnn`` file, without its data."""
-    with open(path, "rb") as f:
-        if f.read(len(_MAGIC)) != _MAGIC:
-            raise ValueError(f"{path}: not a TNNTPU tensor file")
-        (hlen,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(hlen))
-    return header["tensors"], header.get("meta", {})

@@ -74,7 +74,7 @@ from tnn_tpu_torch import checkpoint
 from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.serving.engine import InferenceEngine
-from tnn_tpu_torch.serving.scheduler import AdmissionRejected, RequestState
+from tnn_tpu_torch.serving.scheduler import AdmissionRejected
 
 
 def _emit(obj) -> None:
@@ -240,7 +240,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
     user_ids = {}
     rid_by_user = {}
-    open_rids = set()     # submitted, not yet reported terminal
 
     def handle_line(line: bytes) -> None:
         try:
@@ -290,14 +289,6 @@ def main(argv=None) -> int:
             return
         user_ids[rid] = req.get("id", rid)
         rid_by_user[json.dumps(user_ids[rid])] = rid
-        # a queued request this submit shed ended outside any step
-        for other in list(open_rids):
-            r = engine.result(other)
-            if r.state is RequestState.FAILED:
-                open_rids.discard(other)
-                _emit({"event": "error", "id": user_ids[other],
-                       "reason": r.error})
-        open_rids.add(rid)
 
     def step() -> dict:
         """One turn of the engine: the overlapped loop's begin, speculate,
@@ -343,9 +334,6 @@ def main(argv=None) -> int:
             _emit({"event": "error", "id": user_ids[rid], "reason": error})
         for rid, error in events["timed_out"]:
             _emit({"event": "timeout", "id": user_ids[rid], "reason": error})
-        for rid in list(open_rids):
-            if engine.result(rid).is_terminal:
-                open_rids.discard(rid)
     engine.run_deferred()
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v

@@ -115,7 +115,8 @@ from __future__ import annotations
 import collections
 import itertools
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -344,6 +345,9 @@ class InferenceEngine:
         self.prefix_publish_max_occupancy = float(prefix_publish_max_occupancy)
         # prefix publishes queued by a step's commit, run at its end
         self._deferred: List[Any] = []
+        # (rid, error) of queued requests a submit shed: reported in the
+        # next step's "failed" events
+        self._shed: List[Tuple[int, str]] = []
         self.metrics = ServingMetrics()
         self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
         self.generator = torch.Generator(device=self.device)
@@ -454,8 +458,9 @@ class InferenceEngine:
 
         With ``max_queue_depth`` set and the queue full, "reject" FAILs the
         queued request ``shed_victim`` names (a larger ``priority`` value
-        is less important) or raises ``AdmissionRejected``; "block" runs
-        ``step()`` until the queue has room."""
+        is less important), reported in the next step's "failed" events,
+        or raises ``AdmissionRejected``; "block" runs ``step()`` until the
+        queue has room."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -485,7 +490,8 @@ class InferenceEngine:
                     victim, RequestState.FAILED,
                     f"shed under overload: queued at priority "
                     f"{victim.priority}, displaced by a priority "
-                    f"{int(priority)} arrival")
+                    f"{int(priority)} arrival", {"failed": self._shed},
+                    "failed")
                 self.metrics.observe_shed()
             # "block": every step admits or expires work, and the queue
             # head fits an empty pool (checked above), so this ends
@@ -680,7 +686,11 @@ class InferenceEngine:
             self._flight = None
         self.metrics.observe_step_latency(time.perf_counter() - flight.t0)
         self._resolve_speculation(flight)
-        return flight.events
+        events = flight.events
+        if self._shed:
+            events["failed"][:0] = self._shed
+            self._shed = []
+        return events
 
     def run_deferred(self) -> None:
         """Run the queued prefix publishes (work no commit depends on).
