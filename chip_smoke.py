@@ -133,6 +133,47 @@ numbers on its own line:
    ``--no-chunked-prefill`` on text lines. Its runs' launches join K1's,
    K2's, K3's and K4's on the kernels line.
 
+21. attention_int8_rope: ``generate`` (64 tokens after a 128-token prompt)
+   over the per-model int8 contiguous cache (``kv_cache_dtype="int8"``)
+   beside the float cache on full-width ``gpt2_small`` and
+   ``flash_gpt2_small`` (K4 = 12 x 64 in its ``kv_offset`` form): tokens/s
+   of each in the order float, int8, int8, float, the int8 greedy tokens
+   against the float model teacher-forced
+   over them (>= 75%, the reference's closeness gate); then
+   ``apply_paged`` with RoPE on ``flash_llama_small``'s first layer (12 q
+   / 4 kv heads, bf16), decode and chunk forms at per-row offsets, K1
+   against the same layer's ``apply_cached`` within 2^-5 of the largest
+   output (the share of that limit printed). Its K4 launches join the
+   kernels line.
+22. serving_supervised: the serving traffic under a started
+   ``EngineSupervisor`` (the engine on its worker thread, overlap on):
+   token-exact on all 8 streams against the same engine driven by the
+   overlapped loop and against the same supervisor driven inline
+   (``run_sync``), timed in the order A B C C B A; one staged pdecode step with a NaN row through the
+   eager program and one graph replay, equal bit for bit, the guard down
+   for that row only; the seeded ``CHAOS_PLAN`` (a NaN prefill chunk, a
+   transient and a persistent decode fault, an allocation failure, a NaN
+   row through the graph, one crash mid-traffic) at 2 rows a step on the
+   bf16 pool, on the int8 pool and weights, and under FP32: the planned
+   states and migrations, one terminal event per request, no leaked
+   block; the untouched and the migrated greedy streams token-exact
+   under FP32 on tie-free prompts (apart only at near-ties elsewhere),
+   in bf16 and int8 their equal tokens and divergence gaps reported and
+   the closeness gate held; the watchdog after a warm-up (one restart, a
+   "watchdog" dump); the restart budget (FAILED, exit code 1, every
+   request terminal); a drain mid-traffic (STOPPED, exit code 0, its
+   duration) and a 1 ms drain deadline (TIMED_OUT stragglers); traced
+   against untraced in ABBA order (the same tokens, step time, the Chrome
+   trace's spans and instants by name); the CLI as a subprocess with
+   ``--watchdog-s``, ``--flight-dir`` and ``--trace`` on text lines,
+   ended by SIGTERM mid-stream and by EOF (one terminal event a line,
+   exit code 0). Every paged run holds K1 (K2 on the int8 pool) = 12 x
+   paged dispatches and K3 = 49 x steps of more than 256 rows; a crash or
+   an injected fault fires on the host before any launch, so a crashed
+   step launches nothing and dispatches nothing. The fault-free run's K1,
+   the bf16 chaos run's K1 and the int8 chaos run's K2 and K3 join the
+   kernels line.
+
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
 build and those phases alone and prints no kernels line and no result.
@@ -4239,11 +4280,12 @@ def prefill_times(engine, widths, iters=10):
     out = {}
     bs = engine.pool.block_size
     for w in sorted(set(widths)):
-        ids, temps, topks, topps, tables = engine._put_step(
+        ids, temps, topks, topps, poison, tables = engine._put_step(
             [np.zeros((1, w), np.int32), np.zeros(1, np.float32),
-             np.zeros(1, np.int32), np.zeros(1, np.float32)],
+             np.zeros(1, np.int32), np.zeros(1, np.float32),
+             np.zeros(1, np.float32)],
             np.zeros((1, w // bs), np.int32))
-        step = SampleInputs(ids, temps, topks, topps)
+        step = SampleInputs(ids, temps, topks, topps, poison)
         with torch.inference_mode():
             device, events, per_name = time_ms(
                 lambda: engine._prefill(ids, w, tables, step), iters=iters,
@@ -4547,6 +4589,720 @@ def phase_serving_whole_prompt(results):
     log("serving_whole_prompt_launches", **added)
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+INT8_CACHE_TOKENS = 64
+INT8_CACHE_PROMPT = 128
+# apply_paged with RoPE (K1) against apply_cached on a contiguous cache,
+# bf16: both round K/V to bf16 and sum in f32, in other orders (the
+# kernel split-KV, the plain path one softmax), and the outputs are bf16;
+# the limit is 2^-5 of the largest |output|, 4 bf16 ulps at that scale
+ROPE_LIMIT = 2 ** -5
+
+
+def closeness_hits(model, prompt, out):
+    """The float model over prompt + out (one forward): (positions where
+    its argmax is the chosen token, positions)."""
+    import torch
+
+    seq = list(prompt) + list(out)
+    with torch.inference_mode():
+        logits = model(torch.tensor([seq], device=model.device))[0]
+    rows = logits[len(prompt) - 1:len(seq) - 1]
+    chosen = torch.tensor(list(out), device=rows.device)
+    return int((rows.argmax(-1) == chosen).sum()), len(out)
+
+
+def int8_cache_generate(name, prompt):
+    """``generate`` over the float and the int8 contiguous cache of a
+    seeded full-width zoo model, after one warm-up each, timed in the order
+    float, int8, int8, float (CUDA-synchronized wall clock; tokens/s of
+    each run); the int8 greedy tokens held against the float model
+    teacher-forced over them (>= 75%); K4's launches in each run (12 x 64
+    on a flash model: the prefill and 63 decode steps, each ``kv_offset``
+    form, the same in every run). Returns one int8 run's K4 launches."""
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.models.gpt2 import generate
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.tensor(prompt, device="cuda")[None]
+    models = {cache: zoo.create(name, device="cuda", seed=0,
+                                kv_cache_dtype="int8" if cache == "int8"
+                                else None) for cache in ("float", "int8")}
+    for model in models.values():
+        generate(model, ids, 4)                     # first-use costs
+    fields = {"model": name, "float_tok_per_s": [], "int8_tok_per_s": []}
+    toks, k4 = {}, {"float": set(), "int8": set()}
+    for cache in ("float", "int8", "int8", "float"):
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        toks[cache] = generate(models[cache], ids,
+                               INT8_CACHE_TOKENS)[0].tolist()
+        torch.cuda.synchronize()
+        fields[f"{cache}_tok_per_s"].append(
+            INT8_CACHE_TOKENS / (time.perf_counter() - t0))
+        k4[cache].add(fa.flash_attention_fwd.launches)
+    model = models["float"]
+    hit, total = closeness_hits(model, prompt, toks["int8"])
+    fields.update(
+        int8_over_float=sum(fields["int8_tok_per_s"])
+        / sum(fields["float_tok_per_s"]),
+        float_int8_equal_positions=sum(
+            a == b for a, b in zip(toks["float"], toks["int8"])),
+        closeness=hit / total, tokens=total,
+        k4_launches={c: sorted(v) for c, v in k4.items()},
+        cache_bytes_per_token=[
+            2 * model.num_layers * model.d_model * 2,            # bf16
+            2 * model.num_layers * (model.d_model + 4 * model.num_heads)])
+    want_k4 = [model.num_layers * INT8_CACHE_TOKENS
+               if model.backend == "pallas" else 0]
+    fields["ok"] = (hit / total >= 0.75
+                    and fields["k4_launches"] == {"float": want_k4,
+                                                  "int8": want_k4})
+    log("attention_int8_generate", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"int8 cache on {name}: {fields}")
+    del models, model
+    torch.cuda.empty_cache()
+    return want_k4[0]
+
+
+def rope_paged_check():
+    """``MultiHeadAttention.apply_paged`` with RoPE on flash_llama_small's
+    first layer (12 q / 4 kv heads, Dh 64, bf16): 8 rows of prior tokens
+    (kv 100-900) written through the chunk form, then a decode token at
+    per-row offsets (the decode form) and a ragged chunk (1-16 tokens a
+    row, the chunk form), each against the same layer's ``apply_cached``
+    over a contiguous cache holding the same tokens. K1 must launch."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import paged_attention as pa
+
+    model = zoo.create("flash_llama_small", device="cuda", seed=0)
+    attn = model.blocks[0].attn
+    cd = model.policy.compute_dtype
+    rng = np.random.default_rng(21)
+    b, bs, hkv, dh, d = 8, 16, attn.num_kv_heads, attn.head_dim, 768
+    prior = rng.integers(100, 901, b)
+    q, width, nb = 16, 960, 64        # 64 blocks of 16: 1024 positions
+    tables = torch.arange(1, 1 + b * nb, dtype=torch.int32,
+                          device="cuda").view(b, nb)
+    pk = torch.zeros(1, 1 + b * nb, hkv, bs, dh, dtype=cd, device="cuda")
+    pv = torch.zeros_like(pk)
+    cache = attn.init_cache(b, nb * bs)
+    x0 = torch.from_numpy(rng.normal(size=(b, width, d))).to(
+        device="cuda", dtype=cd)
+    lens = torch.from_numpy(prior).to(device="cuda", dtype=torch.int32)
+    zero = torch.zeros(b, dtype=torch.int32, device="cuda")
+    out = {}
+    before = pa.paged_attention.launches
+    with torch.inference_mode():
+        attn.apply_paged(x0, pk, pv, tables, zero, q_lens=lens)
+        attn.apply_cached(x0, cache, 0)
+        x1 = torch.from_numpy(rng.normal(size=(b, 1, d))).to(
+            device="cuda", dtype=cd)
+        got = attn.apply_paged(x1, pk, pv, tables, lens)
+        ref, _ = attn.apply_cached(x1, cache, lens)
+        out["decode"] = (got.float(), ref.float())
+        lens1 = lens + 1
+        ql = torch.from_numpy(rng.integers(1, q + 1, b)).to(
+            device="cuda", dtype=torch.int32)
+        x2 = torch.from_numpy(rng.normal(size=(b, q, d))).to(
+            device="cuda", dtype=cd)
+        got = attn.apply_paged(x2, pk, pv, tables, lens1, q_lens=ql)
+        ref, _ = attn.apply_cached(x2, cache, lens1)
+        live = torch.arange(q, device="cuda")[None] < ql[:, None]
+        out["chunk"] = (got.float()[live], ref.float()[live])
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches - before
+    fields = {"layer": "flash_llama_small.h0", "heads": attn.num_heads,
+              "kv_heads": hkv, "dtype": str(cd).replace("torch.", ""),
+              "prior_kv": prior.tolist(), "k1_launches": launches}
+    ok = launches == 3
+    for form, (got, ref) in out.items():
+        err = (got - ref).abs().max().item()
+        limit = ROPE_LIMIT * ref.abs().max().item()
+        fields[form] = {"max_abs_err": err, "limit": limit,
+                        "share_of_limit": err / limit}
+        ok = ok and math.isfinite(err) and err <= limit
+    fields["ok"] = ok
+    log("attention_rope_paged", **fields)
+    if not ok:
+        raise AssertionError(f"apply_paged with RoPE: {fields}")
+    del model, pk, pv, cache
+    torch.cuda.empty_cache()
+
+
+def phase_attention_int8_rope(results):
+    """The per-model int8 contiguous cache (``generate`` on gpt2_small and
+    flash_gpt2_small, K4 in its ``kv_offset`` form on the flash model) and
+    RoPE in ``apply_paged`` (K1 with GQA heads at the layer level)."""
+    import numpy as np
+
+    prompt = np.random.default_rng(20).integers(
+        0, 50257, INT8_CACHE_PROMPT).tolist()
+    int8_cache_generate("gpt2_small", prompt)
+    k4 = int8_cache_generate("flash_gpt2_small", prompt)
+    results["flash_launches"]["flash_attention_fwd"] += k4
+    rope_paged_check()
+
+
+# -- phase 22 -----------------------------------------------------------------
+
+SUPERVISED_WAIT_S = 120.0     # the longest any wait of the phase may take
+
+
+def traffic_requests(vocab, seed, num_requests=8, new_tokens=64):
+    """The serving traffic's requests (``serve_traffic``'s prompts and
+    sampling), as (prompt, max_new, submit kwargs)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(num_requests):
+        prompt = rng.integers(0, vocab, int(rng.integers(16, 769)))
+        sampled = i % 2 == 1
+        out.append((prompt, new_tokens, dict(
+            temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 0.0)))
+    return out
+
+
+def supervised_run(model, seed=0, plan=None, drain_after=None,
+                   sup_kw=None, traced=False, threaded=True, **engine_kw):
+    """The serving traffic under a started ``EngineSupervisor`` (the engine
+    on its worker thread, overlap on): submit every request from this
+    thread, wait for one terminal event each, drain, join. With
+    ``drain_after`` the drain starts once that many token events arrived.
+    Launches are counted over the run alone (wide mixed steps too).
+    ``threaded=False`` drives the same supervisor inline (``run_sync``,
+    then the drain) on this thread instead of starting its worker.
+    Returns (engine, supervisor, rids, terminal events by rid, fields)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+    from tnn_tpu_torch.serving.supervisor import EngineSupervisor
+
+    engine = InferenceEngine(
+        model, num_blocks=512, block_size=16, seed=seed,
+        device=model.device, overlap=True, faults=plan, trace=traced,
+        **{"max_batch_size": 8, "chunk_size": 64, **engine_kw})
+    reqs = traffic_requests(model.vocab_size, seed)
+    events, tokens, done = [], [0], threading.Event()
+    term, finish_steps, token_times = {}, {}, {}
+
+    def sink(ev):                  # on the worker thread
+        events.append(ev)
+        if ev["event"] == "token":
+            token_times.setdefault(ev["id"], []).append(time.perf_counter())
+        if ev["event"] != "token":
+            finish_steps[ev["id"]] = engine.step_seq
+        if ev["event"] == "token":
+            tokens[0] += 1
+            if drain_after is not None and tokens[0] == drain_after:
+                sup.request_drain("mid-traffic drain")
+        elif ev["id"] in term:
+            raise AssertionError(f"two terminal events for {ev['id']}")
+        else:
+            term[ev["id"]] = ev
+            if len(term) == len(reqs):
+                done.set()
+
+    sup = EngineSupervisor(engine, event_sink=sink, restart_backoff_s=0.0,
+                           idle_wait_s=0.005, **(sup_kw or {}))
+    restart_s = []
+    restart = sup._restart
+
+    def timed_restart(reason):      # the crash recovery's own wall time
+        t = time.perf_counter()
+        restart(reason)
+        restart_s.append(time.perf_counter() - t)
+
+    sup._restart = timed_restart
+    torch.cuda.synchronize()
+    reset_all_launches()
+
+    def drive():
+        if not threaded:
+            rids = [sup.submit(p, n, **kw) for p, n, kw in reqs]
+            sup.run_sync()
+            sup.request_drain("traffic done")
+            sup.run_sync()
+            return rids
+        sup.start()
+        # one command: every request is queued before the first step, as
+        # serve_traffic queues them before run_until_complete
+        rids = sup.execute(lambda: [sup.submit(p, n, **kw)
+                                    for p, n, kw in reqs])
+        if not done.wait(SUPERVISED_WAIT_S):
+            raise AssertionError(f"terminal events: {len(term)} of "
+                                 f"{len(reqs)} after {SUPERVISED_WAIT_S}s")
+        sup.request_drain("traffic done")
+        if not sup.join(SUPERVISED_WAIT_S):
+            raise AssertionError("the supervisor did not stop")
+        return rids
+
+    t0 = time.perf_counter()
+    rids, wide = count_wide_steps(drive)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_all_launches()
+    engine.check_invariants()
+    st = engine.stats()
+    fields = dict(wall_s=wall, state=sup.state.value, exit_code=sup.exit_code,
+                  restarts=sup.restarts, launches=launches,
+                  expected_launches={**expected_launches(model, engine,
+                                                         wide), "k4": 0},
+                  program_steps=st["program_steps"],
+                  graph_replays=st["graph_replays"],
+                  step_ms_mean=st["step_latency_ms_mean"],
+                  decode_tok_per_s=st["tok_per_s"],
+                  ttft_ms_p50=st["ttft_ms_p50"],
+                  pool_allocated=engine.pool.num_allocated,
+                  terminal={k: sum(e["event"] == k for e in term.values())
+                            for k in ("done", "error", "timeout",
+                                      "cancelled")},
+                  drain_duration_s=sup.drain_duration_s,
+                  restart_ms=[t * 1e3 for t in restart_s],
+                  finish_steps=[finish_steps[r] for r in rids],
+                  # each request's longest wait between two of its tokens
+                  token_gap_ms_max=[max(np.diff(token_times.get(r, [0, 0])),
+                                        default=0.0) * 1e3 for r in rids])
+    return engine, sup, rids, term, fields
+
+
+def launches_hold(fields):
+    return fields["launches"] == fields["expected_launches"]
+
+
+# The chaos plan, placed on the traffic at 2 rows a step and 256-token
+# chunks, whose schedule depends only on the prompt lengths (no stop
+# tokens), so the same calls hit the same requests on any card and dtype:
+# the second prefill chunk row is NaN (request 1 fails), decode call 3
+# raises a transient fault (retried), the 14th allocation fails (request
+# 3, at its first chunk), step 96 crashes (requests 4 and 5 migrate and
+# finish), decode call 132 poisons row 0 of a pdecode graph step (request
+# 6 fails), and decode calls 160 and 161 raise (the retry fails too: the
+# running batch, request 7 alone, aborts). Requests 0 and 2 finish
+# untouched.
+CHAOS_PLAN = dict(seed=14, nan_prefill_calls=(2,),
+                  decode_exc_calls=(3, 160, 161), transient_exc=True,
+                  alloc_fail_calls=(14,), step_crash_calls=(96,),
+                  nan_logit_calls=(132,))
+CHAOS_STATES = ["finished", "failed", "finished", "failed", "finished",
+                "finished", "failed", "failed"]
+CHAOS_MIGRATED = [0, 0, 0, 0, 1, 1, 0, 0]
+
+
+def chaos_run(model, label, exact, **engine_kw):
+    """The traffic at 2 rows a step and 256-token chunks (the requests
+    queue, so the batch abort leaves the rest of the traffic, and prefill
+    steps have 512 rows: K3 on int8 weights), fault-free and under
+    ``CHAOS_PLAN``: the planned request states and migrations, the plan's
+    firings, one terminal event per request, invariants clean, no leaked
+    block, the launch identities in both runs. The greedy streams of the
+    requests no fault touched (0 and 2) and of the one the crash migrated
+    (4), against the fault-free run: with ``exact`` (FP32) token for token,
+    as the reference's CPU tests hold them (the tie-free prompts and each
+    divergence's gap are reported too). In bf16 a fault
+    changes which requests share a step, and with it the programs and
+    shapes a request's tokens go through (a decode token in a mixed step
+    or a pdecode graph; with int8 weights w8a8 or K3 by the step's rows),
+    so rounding moves and greedy streams may part at a close logit gap:
+    there the equal tokens and each divergence's gap are reported, and
+    the streams are held by the closeness gate (the float model,
+    teacher-forced over them, agrees at >= 75% of positions). Returns the
+    chaos run's fields."""
+    from tnn_tpu_torch.serving.faults import FaultPlan
+    from tnn_tpu_torch.serving.scheduler import RequestState
+
+    kw = dict(max_batch_size=2, chunk_size=256, **engine_kw)
+    ref, _, ref_rids, ref_term, ref_fields = supervised_run(model, **kw)
+    plan = FaultPlan(**CHAOS_PLAN)
+    eng, sup, rids, term, fields = supervised_run(model, plan=plan, **kw)
+    groups = {"untouched": [], "migrated": []}
+    for i in range(0, len(rids), 2):            # the greedy requests
+        req = eng.result(rids[i])
+        if req.state is RequestState.FINISHED:
+            groups["migrated" if req.migrations else "untouched"].append(i)
+    hit = total = 0
+    for name, idx in groups.items():
+        got = [eng.result(rids[i]).out_tokens for i in idx]
+        fields[f"{name}_greedy"] = idx
+        fields[f"{name}_compare"] = compare_streams(
+            model, [eng.result(rids[i]).prompt for i in idx],
+            [ref.result(ref_rids[i]).out_tokens for i in idx], got,
+            "exact" if exact else "report")
+        for i, out in zip(idx, got):
+            h, t = closeness_hits(model, eng.result(rids[i]).prompt, out)
+            hit, total = hit + h, total + t
+    fired = dict(plan.fired)
+    fields.update(path=label, faults_fired=fired,
+                  ref_steps=ref.step_seq, steps=eng.step_seq,
+                  step_retries=eng.metrics.step_retries,
+                  migrated_requests=eng.metrics.migrated_requests,
+                  states=[eng.result(r).state.value for r in rids],
+                  errors=[eng.result(r).error[:48] for r in rids],
+                  migrations=[eng.result(r).migrations for r in rids],
+                  closeness=hit / max(total, 1),
+                  flight_records=len(sup.flight))
+    near_ties_only = all(
+        g <= NEAR_TIE for name in groups
+        for g in fields[f"{name}_compare"]["divergence_gaps"])
+    ok = (len(term) == len(rids) and fields["pool_allocated"] == 0
+          and fields["states"] == CHAOS_STATES
+          and fields["migrations"] == CHAOS_MIGRATED
+          and groups == {"untouched": [0, 2], "migrated": [4]}
+          and launches_hold(fields) and launches_hold(ref_fields)
+          and sup.restarts == 1 and eng.metrics.step_retries == 2
+          and fired == {"prefill.logits": 1, "decode": 3, "pool.alloc": 1,
+                        "engine.step": 1, "decode.logits": 1}
+          and fields["closeness"] >= 0.75
+          and (not exact or (near_ties_only and all(
+              fields[f"{name}_compare"]["equal_share"] == 1.0
+              for name in groups)))
+          and all(ref_term[r]["event"] == "done" for r in ref_rids))
+    fields["ok"] = ok
+    log("serving_supervised_chaos", ref_launches=ref_fields["launches"],
+        **fields)
+    if not ok:
+        raise AssertionError(f"chaos run {label}: {fields}")
+    return fields
+
+
+def watchdog_check(model, tmp):
+    """After a warm-up run on the same engine, a step delayed past
+    ``watchdog_step_s`` trips the watchdog: one restart, a "watchdog"
+    flight dump, every request still served."""
+    import os
+
+    from tnn_tpu_torch.serving.faults import FaultPlan
+    from tnn_tpu_torch.serving.supervisor import EngineSupervisor
+
+    plan = FaultPlan()
+    serve = serve_traffic(model, seed=1, num_requests=2, new_tokens=4,
+                          overlap=True, faults=plan)[0]
+    events = []
+    # the engine is warm (kernels built, its graph captured): arm now
+    plan.step_delay_s, plan.step_delay_calls = 0.5, (
+        plan.calls["engine.step"] + 6,)
+    sup = EngineSupervisor(serve, event_sink=events.append,
+                           restart_backoff_s=0.0, watchdog_step_s=0.25,
+                           flight_dir=os.path.join(tmp, "watchdog"))
+    rids = [sup.submit(p, n, **kw)
+            for p, n, kw in traffic_requests(model.vocab_size, 2)]
+    reset_all_launches()
+    before = dict(serve.program_steps)
+    sup.run_sync()
+    launches = read_all_launches()
+    term = {e["id"]: e for e in events if e["event"] != "token"}
+    dumps = [os.path.basename(p) for p in sup.flight_dumps]
+    paged = sum(serve.program_steps[k] - before.get(k, 0)
+                for k in ("mixed", "pdecode", "spec"))
+    fields = dict(restarts=sup.restarts, flight_dumps=dumps,
+                  terminal=[term[r]["event"] for r in rids],
+                  step_ms_max=max(serve.metrics.step_latency_s) * 1e3,
+                  launches=launches, paged_dispatches=paged)
+    fields["ok"] = (sup.restarts == 1 and dumps[:1] ==
+                    ["flight_001_watchdog.jsonl"]
+                    and fields["terminal"] == ["done"] * len(rids)
+                    and launches["k1"] == model.num_layers * paged
+                    and launches["k3"] == 0)
+    log("serving_supervised_watchdog", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"watchdog: {fields}")
+
+
+def restart_budget_check(model):
+    """Three crashes against ``max_restarts=2``: FAILED, exit code 1,
+    every request terminal (errors), the pool empty."""
+    from tnn_tpu_torch.serving.faults import FaultPlan
+
+    plan = FaultPlan(step_crash_calls=(8, 12, 16))
+    eng, sup, rids, term, fields = supervised_run(
+        model, plan=plan, sup_kw=dict(max_restarts=2))
+    fields["ok"] = (sup.state.value == "failed" and sup.exit_code == 1
+                    and sup.restarts == 3 and len(term) == len(rids)
+                    and fields["pool_allocated"] == 0
+                    and launches_hold(fields))
+    log("serving_supervised_budget", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"restart budget: {fields}")
+
+
+def drain_checks(model):
+    """A drain mid-traffic: STOPPED, exit code 0, every request finished,
+    ``drain_duration_s``; with a 1 ms drain deadline the stragglers time
+    out."""
+    runs = {}
+    for name, sup_kw in (("drain", {}),
+                         ("deadline_1ms", dict(drain_deadline_s=1e-3))):
+        eng, sup, rids, term, fields = supervised_run(
+            model, drain_after=40, sup_kw=sup_kw)
+        runs[name] = fields
+    a, b = runs["drain"], runs["deadline_1ms"]
+    ok = (a["state"] == "stopped" and a["exit_code"] == 0
+          and a["terminal"]["done"] == 8 and a["drain_duration_s"] > 0
+          and b["state"] == "stopped" and b["exit_code"] == 0
+          and b["terminal"]["timeout"] >= 1
+          and b["terminal"]["done"] + b["terminal"]["timeout"] == 8
+          and launches_hold(a) and launches_hold(b))
+    log("serving_supervised_drain", ok=ok, **runs)
+    if not ok:
+        raise AssertionError(f"drain: {runs}")
+
+
+def traced_ab(model, tmp):
+    """The traffic traced (A) and untraced (B) in the order A B B A: the
+    same tokens, step time and wall of each; the first traced run's
+    Chrome trace written and its spans and instants counted by name."""
+    import collections
+    import os
+
+    runs = []
+    for traced in (True, False, False, True):
+        eng, sup, rids, term, fields = supervised_run(model, traced=traced)
+        runs.append((traced, eng, rids, fields))
+    toks = [[e.result(r).out_tokens for r in rids] for _, e, rids, _ in runs]
+    eng = runs[0][1]
+    path = os.path.join(tmp, "trace.json")
+    eng.profiler.to_chrome_trace(path)
+    names = collections.Counter(
+        (ev.name.split(" ")[0], ev.start == ev.end)
+        for ev in eng.profiler.events)
+    fields = dict(
+        step_ms_mean={("traced" if t else "untraced") + f"_{i}":
+                      f["step_ms_mean"] for i, (t, _, _, f) in
+                      enumerate(runs)},
+        wall_s=[f["wall_s"] for _, _, _, f in runs],
+        identical=all(t == toks[0] for t in toks),
+        trace_bytes=os.path.getsize(path),
+        instants={n: c for (n, inst), c in sorted(names.items()) if inst},
+        spans={n: c for (n, inst), c in sorted(names.items()) if not inst})
+    fields["ok"] = fields["identical"] and all(
+        launches_hold(f) for _, _, _, f in runs) and all(
+        fields["instants"].get(n) for n in (
+            "serve.submit", "serve.admit", "serve.prefill_chunk",
+            "serve.first_token", "serve.finish", "serve.publish",
+            "serve.host_gap", "sup.admit")) and all(
+        fields["spans"].get(n) for n in ("serve.mixed", "serve.decode_paged",
+                                         "serve.fetch", "serve.decode_spec"))
+    log("serving_supervised_traced", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"traced against untraced: {fields}")
+
+
+SUPERVISED_CLI_LINES = [{"id": i, "prompt": f"request {i}: the supervisor "
+                         "drains", "max_new_tokens": 48} for i in range(4)]
+
+
+def supervised_cli(tmp):
+    """``cli.serve`` as a subprocess with ``--watchdog-s``, ``--flight-dir``
+    and ``--trace`` on text lines: SIGTERM after the first token with stdin
+    still open, then a run ended by EOF. Each accepted line gets one
+    terminal event; both exit 0; the trace and the drain dump exist."""
+    import os
+    import signal
+    import threading
+
+    base = [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
+            "gpt2_small", "--watchdog-s", "30"]
+    out = {}
+    for how in ("sigterm", "eof"):
+        flight = os.path.join(tmp, f"cli_{how}")
+        trace = os.path.join(tmp, f"cli_{how}.json")
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, f"cli_{how}.err"), "w+") as err:
+            proc = subprocess.Popen(
+                base + ["--flight-dir", flight, "--trace", trace],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+            lines, first = [], threading.Event()
+
+            def read():
+                for line in proc.stdout:
+                    lines.append(line)
+                    first.set()
+
+            reader = threading.Thread(target=read, daemon=True)
+            reader.start()
+            try:
+                proc.stdin.write("".join(json.dumps(x) + "\n"
+                                         for x in SUPERVISED_CLI_LINES))
+                proc.stdin.flush()
+                if not first.wait(300):
+                    raise AssertionError(f"CLI ({how}): no event in 300 s")
+                if how == "sigterm":
+                    proc.send_signal(signal.SIGTERM)
+                else:
+                    proc.stdin.close()
+                proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                if not proc.stdin.closed:
+                    proc.stdin.close()
+                reader.join(30)
+            err.seek(0)
+            stderr = err.read()
+        events = [json.loads(x) for x in lines if x.strip()]
+        term = collections_count(events)
+        out[how] = dict(
+            returncode=proc.returncode, seconds=time.perf_counter() - t0,
+            terminal=term, tokens=sum(e["event"] == "token" for e in events),
+            flight_dumps=sorted(os.listdir(flight))
+            if os.path.isdir(flight) else [],
+            trace=os.path.exists(trace),
+            first_event=events[0]["event"] if events else None)
+        ok = (proc.returncode == 0 and out[how]["trace"]
+              and sorted(term) == list(range(len(SUPERVISED_CLI_LINES)))
+              and all(v == 1 for v in term.values())
+              and out[how]["flight_dumps"] == ["flight_001_drain.jsonl"])
+        out[how]["ok"] = ok
+        if not ok:
+            log("serving_supervised_cli", **out)
+            raise AssertionError(f"supervised CLI ({how}): {out[how]}\n"
+                                 f"{stderr[-3000:]}")
+    log("serving_supervised_cli", **out)
+
+
+def collections_count(events):
+    """{id: terminal events} over a CLI's event lines."""
+    term = {}
+    for e in events:
+        if e.get("event") in ("done", "error", "timeout", "cancelled"):
+            term[e["id"]] = term.get(e["id"], 0) + 1
+    return term
+
+
+def graph_poison_check(model):
+    """One staged pdecode step with a NaN in row 0's poison column through
+    the eager program and through one replay of the captured graph: equal
+    bit for bit (the NaN row's logits included, compared as bits), the
+    logit guard down for row 0 only."""
+    import torch
+
+    from tnn_tpu_torch.serving import step_build, step_graph
+    from tnn_tpu_torch.serving.kv_pool import PagedKVPool
+
+    engine = steady_decode_engine(model, 8, overlap=True)
+    graph = engine._decode_graph()
+    step = step_build.pack_decode(
+        list(engine.scheduler.running), b=engine.scheduler.max_batch_size,
+        nb=engine.blocks_per_seq, scratch=PagedKVPool.SCRATCH, paged=True,
+        fused_available=False)
+    step.poison[0] = float("nan")
+    arrays = step_graph.decode_arrays(step)
+    state = engine.generator.get_state()
+    with torch.inference_mode():
+        views = step_build.split_inputs(
+            step_graph.stage(arrays).to(engine.device), arrays)
+        logits, bundle = engine._pdecode(*views)
+        logits, bundle = logits.clone(), bundle.clone()
+        engine.generator.set_state(state)
+        graph.run(step_graph.stage(arrays))
+        torch.cuda.synchronize()
+    fields = dict(
+        logits_bits_equal=torch.equal(graph.logits.view(torch.int32),
+                                      logits.view(torch.int32)),
+        bundle_equal=torch.equal(graph.bundle, bundle),
+        guard=bundle[1].tolist())
+    fields["ok"] = (fields["logits_bits_equal"] and fields["bundle_equal"]
+                    and fields["guard"] == [0] + [1] * (len(fields["guard"])
+                                                        - 1))
+    log("serving_supervised_graph_poison", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"poisoned replay against eager: {fields}")
+
+
+def phase_serving_supervised(results):
+    """The serving traffic under ``EngineSupervisor.start()``: fault-free
+    against the overlapped loop (token-exact, sampled streams too), a NaN
+    row through the pdecode graph against the eager program, one seeded
+    fault plan on the bf16 pool, on the int8 pool and weights and under
+    FP32, the watchdog after a warm-up, the restart budget, the drain
+    (and a 1 ms drain deadline), traced against untraced (ABBA) and the
+    supervised CLI (SIGTERM and EOF)."""
+    import tempfile
+
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    # first-use costs off the clock: kernels, one graph capture
+    serve_traffic(model, seed=1, num_requests=2, new_tokens=4, overlap=True)
+    # the supervised traffic on its worker thread (A), the overlapped loop
+    # (B) and the same supervisor driven inline by run_sync (C), in the
+    # order A B C C B A: where the supervisor's step time goes
+    runs, sup_fields = {"supervised": [], "loop": [], "inline": []}, []
+    for name in ("supervised", "loop", "inline", "inline", "loop",
+                 "supervised"):
+        if name != "loop":
+            eng, _, rids, _, f = supervised_run(
+                model, threaded=name == "supervised")
+            sup_fields.append(f)
+            runs[name].append((eng, rids, f["wall_s"]))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop, loop_rids = serve_traffic(model, seed=0, overlap=True)
+            torch.cuda.synchronize()
+            runs[name].append((loop, loop_rids, time.perf_counter() - t0))
+    ref, ref_rids, _ = runs["loop"][0]
+    same = [eng.result(a).out_tokens == ref.result(b).out_tokens
+            for eng, rids, _ in runs["supervised"] + runs["inline"]
+            for a, b in zip(rids, ref_rids)]
+    fields = dict(sup_fields[0])
+    fields.update(identical_to_loop=sum(same), requests=len(same),
+                  sampled_requests=len(same) // 2, ab={
+                      name: {"wall_s": [w for _, _, w in rs],
+                             "step_ms_mean": [
+                                 e.stats()["step_latency_ms_mean"]
+                                 for e, _, _ in rs]}
+                      for name, rs in runs.items()})
+    fields["ok"] = len(same) == 32 and all(same) and all(
+        launches_hold(f) and f["terminal"]["done"] == 8
+        and f["state"] == "stopped" and f["exit_code"] == 0
+        for f in sup_fields)
+    log("serving_supervised_run", **fields)
+    if not fields["ok"]:
+        raise AssertionError(f"supervised against the loop: {fields}")
+    results["launches"] += fields["launches"]["k1"]
+    del runs, eng, loop
+    graph_poison_check(model)
+    bf16 = chaos_run(model, "bf16", exact=False)
+    results["launches"] += bf16["launches"]["k1"]
+    i8 = chaos_run(model, "int8", exact=False, **INT8_SERVING)
+    results["int8_launches"]["k2"] += i8["launches"]["k2"]
+    results["int8_launches"]["k3"] += i8["launches"]["k3"]
+    if i8["launches"]["k3"] == 0:
+        raise AssertionError("the int8 chaos run launched no K3")
+    with tempfile.TemporaryDirectory() as tmp:
+        watchdog_check(model, tmp)
+        restart_budget_check(model)
+        drain_checks(model)
+        traced_ab(model, tmp)
+        torch.cuda.empty_cache()
+        supervised_cli(tmp)
+    del model
+    torch.cuda.empty_cache()
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    chaos_run(fp32, "fp32", exact=True)
+    del fp32
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4567,7 +5323,8 @@ def main() -> int:
               phase_fused_generate, phase_serving_fused,
               phase_paged_stats, phase_serving_sp,
               phase_serving_prefix_spec, phase_serving_overlap,
-              phase_serving_whole_prompt)
+              phase_serving_whole_prompt, phase_attention_int8_rope,
+              phase_serving_supervised)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]

@@ -230,3 +230,17 @@ print("ok", bad)
     proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok []", \
         proc.stderr
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A later phase's helper must not shadow an earlier phase's: the
+    script is one module, and a second ``def`` of a name silently replaces
+    the first for every phase."""
+    names = [n.name if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+             else t.id
+             for n in ast.parse((ROOT / "chip_smoke.py").read_text()).body
+             for t in ([n] if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                       else getattr(n, "targets", []))
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+             or isinstance(t, ast.Name)]
+    assert sorted({n for n in names if names.count(n) > 1}) == []

@@ -308,7 +308,10 @@ def test_cli_cancel_line():
              {"op": "cancel", "id": "never"},
              {"id": 7, "tokens": [3, 2], "max_new_tokens": 2}]
     events, err = _cli(lines)
-    assert [e for e in events if e["event"] == "cancelled"] == [
+    # the supervisor's terminal events also carry the trace id and the
+    # latency breakdown
+    assert [{k: e[k] for k in ("event", "id", "reason")}
+            for e in events if e["event"] == "cancelled"] == [
         {"event": "cancelled", "id": "x", "reason": "cancelled by client"}]
     errors = [e["id"] for e in events if e["event"] == "error"]
     assert errors == ["x", "never"]         # already terminal; unknown

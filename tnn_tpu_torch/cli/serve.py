@@ -29,9 +29,31 @@ end emits them:
      "rejected": true}                  (--max-queue-depth; serving goes on)
     {"event": "timeout", "id": 3, "reason": "..."}     (deadline expired)
     {"event": "cancelled", "id": 3, "reason": "..."}
+    {"event": "error", "id": 6, "reason": "supervisor is draining: ...",
+     "draining": true}                 (a line read after the drain began)
 
-New lines are read between engine steps, so requests join a running batch.
-EOF ends the input; the server then finishes every request and exits 0.
+Terminal events also carry ``trace_id`` and ``latency_breakdown`` (queued,
+prefill, decode, stalled and host-gap ms; preemptions, migrations).
+
+The server runs under ``serving.supervisor.EngineSupervisor``, as the JAX
+front end does: the engine steps on the supervisor's worker thread (which
+owns it and the card) while this main thread reads stdin, submits and
+cancels through the supervisor's command queue and alone writes stdout,
+from the events the worker puts on a queue. The supervisor adds crash
+recovery (a step that raises restarts the engine: running requests migrate
+and continue token-exact under greedy decoding, ``--migration-budget``
+migrations each; ``--max-restarts`` restarts with backoff, then every
+request fails and the process exits 1), an optional step-latency watchdog
+(``--watchdog-s``: a slower step counts as a crash; the first steps of a
+cold process build the kernels with nvcc and capture the pdecode CUDA
+graph, so set it above that or leave it off) and one graceful drain:
+SIGINT, SIGTERM and EOF all close admissions, let the requests in flight
+finish (or time out after ``--drain-deadline-s``), flush every event and
+exit 0. Each request gets exactly one terminal event. ``--trace PATH``
+writes the engine's spans and instants as a Chrome / Perfetto trace at
+exit; ``--flight-dir DIR`` receives the flight recorder's JSONL dumps (the
+last steps' records) on a crash, a watchdog trip, the restart budget's end
+and the drain.
 The engine runs its overlapped loop, as the JAX front end's does: a step
 is on the card while the host commits the one before and runs the
 deferred work (``--no-overlap`` runs each step synchronously; the tokens
@@ -65,7 +87,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import select
+import signal
 import sys
 
 import numpy as np
@@ -75,6 +99,7 @@ from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.serving.engine import InferenceEngine
 from tnn_tpu_torch.serving.scheduler import AdmissionRejected
+from tnn_tpu_torch.serving.supervisor import EngineSupervisor, ShuttingDown
 
 
 def _emit(obj) -> None:
@@ -196,6 +221,28 @@ def main(argv=None) -> int:
                     help="run the synchronous engine loop (one blocking "
                          "fetch per step, no step in flight during host "
                          "bookkeeping)")
+    ap.add_argument("--watchdog-s", type=float, default=0.0,
+                    help="step-latency watchdog: a step exceeding this wall "
+                         "time restarts the engine (0 = off; set it above "
+                         "the cold start: the first steps build the CUDA "
+                         "kernels with nvcc and capture the decode graph)")
+    ap.add_argument("--max-restarts", type=int, default=2,
+                    help="engine crash/watchdog recoveries before the "
+                         "supervisor gives up and fails all requests")
+    ap.add_argument("--migration-budget", type=int, default=3,
+                    help="crash migrations one request may absorb before "
+                         "it fails as poison (-1 = unlimited)")
+    ap.add_argument("--drain-deadline-s", type=float, default=30.0,
+                    help="graceful-drain budget: in-flight work past this "
+                         "deadline times out (0 = wait forever)")
+    ap.add_argument("--trace", default="",
+                    help="enable request-scoped tracing and write the "
+                         "engine's spans and instants as a Chrome/Perfetto "
+                         "trace to this path on exit")
+    ap.add_argument("--flight-dir", default="",
+                    help="directory for the flight recorder's JSONL dumps "
+                         "(the last steps' records) on crash, watchdog "
+                         "trip, restart-budget exhaustion and drain")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sp_devices = [d for d in args.sp_devices.split(",") if d] or None
@@ -224,6 +271,8 @@ def main(argv=None) -> int:
         max_queue_depth=args.max_queue_depth,
         preemption_budget=(None if args.preemption_budget < 0
                            else args.preemption_budget),
+        migration_budget=(None if args.migration_budget < 0
+                          else args.migration_budget),
         logit_guard=not args.no_logit_guard,
         seed=args.seed, kv_dtype=args.kv_dtype,
         quant_weights=args.quant_weights, decode_path=args.decode_path,
@@ -231,36 +280,53 @@ def main(argv=None) -> int:
         sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
         prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
         spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
-        overlap=not args.no_overlap, device=args.device)
+        overlap=not args.no_overlap, trace=bool(args.trace),
+        device=args.device)
     if args.sp > 1:
         print(f"sequence parallel: sp={args.sp}, "
               f"{engine.pool.blocks_per_shard} block(s)/shard, max context "
               f"{engine.max_seq_len} tokens over "
               f"{', '.join(str(d) for d in engine.pool.devices)}",
               file=sys.stderr)
+    supervisor = EngineSupervisor(
+        engine, watchdog_step_s=args.watchdog_s or None,
+        max_restarts=args.max_restarts,
+        drain_deadline_s=args.drain_deadline_s or None,
+        flight_dir=args.flight_dir or None)
+    code = _serve_stdin(supervisor, model, tokenizer, args)
+    if args.trace:
+        engine.profiler.to_chrome_trace(args.trace)
+        print(f"trace written to {args.trace}", file=sys.stderr)
+    return code
+
+
+def _serve_stdin(supervisor, model, tokenizer, args) -> int:
+    """The stdin JSON-lines loop as a client of the supervisor (the JAX
+    front end's ``_serve_stdin``): requests go to the worker through the
+    command queue, events come back through the sink queue, and SIGINT,
+    SIGTERM and EOF all start the one graceful drain."""
+    out_q: "queue.Queue" = queue.Queue()
+    supervisor.event_sink = out_q.put
     user_ids = {}
     rid_by_user = {}
 
-    def handle_line(line: bytes) -> None:
+    def handle_line(line: bytes):
+        """Submit or cancel (on the worker, inside ``handle_lines``'s
+        command); returns the error event of a bad line, None otherwise.
+        A bad line never kills the server."""
         try:
             req = json.loads(line)
         except json.JSONDecodeError as e:
-            _emit({"event": "error", "reason": f"bad json: {e}"})
-            return
+            return {"event": "error", "reason": f"bad json: {e}"}
         if not isinstance(req, dict):
-            _emit({"event": "error", "reason": "a request is a JSON object"})
-            return
+            return {"event": "error", "reason": "a request is a JSON object"}
         if req.get("op") == "cancel":
             user_id = req.get("id")
             rid = rid_by_user.get(json.dumps(user_id))
-            reason = "cancelled by client"
-            if rid is None or not engine.cancel(rid, reason):
-                _emit({"event": "error", "id": user_id,
-                       "reason": "cancel: unknown or already-terminal id"})
-            else:
-                _emit({"event": "cancelled", "id": user_id,
-                       "reason": reason})
-            return
+            if rid is None or not supervisor.cancel(rid):
+                return {"event": "error", "id": user_id,
+                        "reason": "cancel: unknown or already-terminal id"}
+            return None    # the sweep emits the cancelled event
         try:
             if "tokens" in req:
                 ids = req["tokens"]
@@ -270,7 +336,7 @@ def main(argv=None) -> int:
                 ids = np.frombuffer(req["prompt"].encode(), np.uint8) \
                     .astype(np.int32) % model.vocab_size
             deadline = req.get("deadline_s", args.deadline_s or None)
-            rid = engine.submit(
+            rid = supervisor.submit(
                 ids, int(req.get("max_new_tokens", args.max_new_tokens)),
                 temperature=float(req.get("temperature", 0.0)),
                 top_k=int(req.get("top_k", 0)),
@@ -281,64 +347,83 @@ def main(argv=None) -> int:
                              if req.get("max_queue_s") else None),
                 priority=int(req.get("priority", 0)))
         except AdmissionRejected as e:
-            _emit({"event": "error", "id": req.get("id"), "reason": str(e),
-                   "rejected": True})
-            return
+            return {"event": "error", "id": req.get("id"), "reason": str(e),
+                    "rejected": True}
+        except ShuttingDown as e:
+            return {"event": "error", "id": req.get("id"), "reason": str(e),
+                    "draining": True}
         except (ValueError, KeyError, TypeError) as e:
-            _emit({"event": "error", "id": req.get("id"), "reason": str(e)})
-            return
+            return {"event": "error", "id": req.get("id"), "reason": str(e)}
         user_ids[rid] = req.get("id", rid)
         rid_by_user[json.dumps(user_ids[rid])] = rid
+        return None
 
-    def step() -> dict:
-        """One turn of the engine: the overlapped loop's begin, speculate,
-        deferred work, finish; or one synchronous step."""
-        if args.no_overlap:
-            return engine.step()
-        if engine.in_flight is None:
-            engine.begin_step()
-        engine.try_speculate()
-        engine.run_deferred()
-        return engine.finish_step()
+    def handle_lines(lines) -> None:
+        """The lines of one read in one command on the worker, so that no
+        step runs between them (requests that arrive together join the
+        same step, as they did before the supervisor)."""
+        errors = supervisor.execute(
+            lambda: [handle_line(x) for x in lines if x.strip()])
+        flush_events()
+        for ev in errors:
+            if ev is not None:
+                _emit(ev)
 
+    def emit_event(ev) -> None:
+        out = dict(ev)
+        rid = out.get("id")
+        out["id"] = user_ids.get(rid, rid)
+        if ev.get("event") == "done" and tokenizer is not None:
+            out["text"] = tokenizer.decode(ev["tokens"])
+        _emit(out)
+
+    def flush_events() -> None:
+        while True:
+            try:
+                emit_event(out_q.get_nowait())
+            except queue.Empty:
+                return
+
+    supervisor.start()
+    old_handlers = {}
+    try:
+        for signum in (signal.SIGINT, signal.SIGTERM):
+            old_handlers[signum] = signal.signal(
+                signum, lambda sig, frame: supervisor.request_drain(
+                    f"{signal.Signals(sig).name} received"))
+    except ValueError:
+        pass     # not the main thread (embedded use): signals stay external
     fd = sys.stdin.fileno()
     pending = b""
-    eof = False
-    while not eof or engine.has_work or engine.in_flight is not None:
-        busy = engine.has_work or engine.in_flight is not None
-        # read whatever input has arrived; block only while the engine idles
-        while not eof and _stdin_ready(fd, 0.0 if busy else None):
+    try:
+        eof = False
+        while not supervisor.finished:
+            flush_events()
+            if eof or supervisor.draining:
+                supervisor.join(0.05)      # a drain runs: wait for it
+                continue
+            if not _stdin_ready(fd, 0.05):
+                continue
             data = os.read(fd, 1 << 16)
-            eof = not data
-            pending += data if data else b"\n"
+            if not data:
+                eof = True
+                data = b"\n"
+            pending += data
             *lines, pending = pending.split(b"\n")
-            for line in lines:
-                if line.strip():
-                    handle_line(line)
-            busy = engine.has_work or engine.in_flight is not None
-        if not busy:
-            continue
-        events = step()
-        for rid, tok in events["tokens"]:
-            _emit({"event": "token", "id": user_ids[rid], "token": tok})
-        for rid in events["finished"]:
-            r = engine.result(rid)
-            done = {"event": "done", "id": user_ids[rid],
-                    "tokens": list(r.out_tokens),
-                    "finish_reason": r.finish_reason,
-                    "ttft_ms": round((r.ttft_s or 0.0) * 1e3, 3)}
-            if tokenizer is not None:
-                done["text"] = tokenizer.decode(r.out_tokens)
-            _emit(done)
-        for rid, error in events["failed"]:
-            _emit({"event": "error", "id": user_ids[rid], "reason": error})
-        for rid, error in events["timed_out"]:
-            _emit({"event": "timeout", "id": user_ids[rid], "reason": error})
-    engine.run_deferred()
+            handle_lines(lines)
+            if eof:
+                # EOF drains: the work in flight finishes instead of being
+                # dropped by the process's exit
+                supervisor.request_drain("stdin EOF")
+        supervisor.join(30.0)
+        flush_events()
+    finally:
+        for signum, handler in old_handlers.items():
+            signal.signal(signum, handler)
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v
-         for k, v in engine.stats().items()}), file=sys.stderr)
-    return 0
+         for k, v in supervisor.stats().items()}), file=sys.stderr)
+    return supervisor.exit_code if supervisor.exit_code is not None else 0
 
 
 if __name__ == "__main__":

@@ -21,8 +21,6 @@ _REGISTRY: Dict[str, type] = {}
 _UNPORTED = {
     "moe_experts": "mixture-of-experts blocks (nn/moe.py) are ROADMAP "
                    "section 1 item 11",
-    "kv_cache_dtype": "the per-model int8 contiguous cache is ROADMAP "
-                      "section 1 item 4",
 }
 
 

@@ -38,13 +38,16 @@ class GPT2(JaxParamModule):
     ``device`` defaults to "cuda" and raises without a card.
     ``get_config()`` is the JAX model's config dict (``core.module``); the
     head is always tied, and ``tie_embeddings=False`` raises.
+    ``kv_cache_dtype="int8"`` gives every block an int8 decode cache
+    (``generate``); the serving engine refuses such a model.
     """
 
     def __init__(self, vocab_size: int = 50257, max_len: int = 1024,
                  num_layers: int = 12, d_model: int = 768,
                  num_heads: int = 12, num_kv_heads: Optional[int] = None,
                  *, backend: str = "xla", dropout: float = 0.0,
-                 tie_embeddings: bool = True, policy=None,
+                 tie_embeddings: bool = True,
+                 kv_cache_dtype: Optional[str] = None, policy=None,
                  device="cuda", seed: Optional[int] = 0):
         super().__init__()
         if not tie_embeddings:
@@ -61,13 +64,15 @@ class GPT2(JaxParamModule):
             else self.num_heads
         self.backend = backend
         self.dropout = float(dropout)
+        self.kv_cache_dtype = kv_cache_dtype
         dev = self.device
         self.wte = Embedding(vocab_size, d_model, policy=p, device=dev)
         self.wpe = PositionalEmbedding(max_len, d_model, policy=p, device=dev)
         self.drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
             GPTBlock(d_model, num_heads, num_kv_heads=self.num_kv_heads,
-                     backend=backend, dropout=dropout, policy=p, device=dev)
+                     backend=backend, dropout=dropout,
+                     kv_cache_dtype=kv_cache_dtype, policy=p, device=dev)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, policy=p, device=dev)
         if seed is not None:
@@ -100,6 +105,8 @@ class GPT2(JaxParamModule):
                "backend": self.backend, "tie_embeddings": True}
         if self.num_kv_heads != self.num_heads:
             cfg["num_kv_heads"] = self.num_kv_heads
+        if self.kv_cache_dtype:
+            cfg["kv_cache_dtype"] = self.kv_cache_dtype
         return model_config(self, cfg)
 
     # -- forwards -------------------------------------------------------------

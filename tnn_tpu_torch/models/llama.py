@@ -2,8 +2,10 @@
 SwiGLU and grouped-query attention, with tied embeddings by default.
 
 ``models.gpt2.generate`` drives it as it drives GPT-2 (duck-typed on
-``init_cache`` / ``apply_cached`` / ``max_len``). Paged serving of a Llama
-(``apply_paged`` with RoPE) is not ported yet.
+``init_cache`` / ``apply_cached`` / ``max_len``); ``kv_cache_dtype="int8"``
+quantizes that cache. ``MultiHeadAttention.apply_paged`` rotates at each
+row's positions, but the engine serves no Llama, as the JAX engine does
+not.
 """
 from __future__ import annotations
 
@@ -33,14 +35,15 @@ class LlamaBlock(nn.Module):
     def __init__(self, d_model: int, num_heads: int, mlp_hidden: int, *,
                  num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, backend: str = "xla",
-                 policy=None, device="cuda"):
+                 kv_cache_dtype: Optional[str] = None, policy=None,
+                 device="cuda"):
         super().__init__()
         p = policy or dt.default_policy()
         self.ln1 = RMSNorm(d_model, policy=p, device=device)
         self.attn = MultiHeadAttention(
             d_model, num_heads, num_kv_heads=num_kv_heads, causal=True,
             backend=backend, rope_theta=rope_theta, use_bias=False,
-            policy=p, device=device)
+            kv_cache_dtype=kv_cache_dtype, policy=p, device=device)
         self.ln2 = RMSNorm(d_model, policy=p, device=device)
         self.gate = Dense(d_model, mlp_hidden, use_bias=False, policy=p,
                           device=device)
@@ -83,6 +86,7 @@ class Llama(JaxParamModule):
     f32 master parameter; ``apply_cached`` steps a KV cache. Weights come
     from ``seed`` (None leaves them zero) or ``load_jax_params``.
     ``device`` defaults to "cuda" and raises without a card.
+    ``kv_cache_dtype="int8"`` gives every block an int8 decode cache.
     """
 
     def __init__(self, vocab_size: int = 32000, max_len: int = 2048,
@@ -90,8 +94,9 @@ class Llama(JaxParamModule):
                  num_heads: int = 12, num_kv_heads: Optional[int] = None,
                  mlp_hidden: Optional[int] = None,
                  rope_theta: float = 10000.0, *, backend: str = "xla",
-                 tie_embeddings: bool = True, policy=None, device="cuda",
-                 seed: Optional[int] = 0):
+                 tie_embeddings: bool = True,
+                 kv_cache_dtype: Optional[str] = None, policy=None,
+                 device="cuda", seed: Optional[int] = 0):
         super().__init__()
         self.device = resolve_device(device)
         self.policy = p = policy or dt.default_policy()
@@ -106,12 +111,14 @@ class Llama(JaxParamModule):
             (8 * self.d_model // 3 + 127) // 128 * 128)
         self.rope_theta = float(rope_theta)
         self.backend = backend
+        self.kv_cache_dtype = kv_cache_dtype
         dev = self.device
         self.wte = Embedding(vocab_size, d_model, policy=p, device=dev)
         self.blocks = nn.ModuleList(
             LlamaBlock(d_model, num_heads, self.mlp_hidden,
                        num_kv_heads=self.num_kv_heads, rope_theta=rope_theta,
-                       backend=backend, policy=p, device=dev)
+                       backend=backend, kv_cache_dtype=kv_cache_dtype,
+                       policy=p, device=dev)
             for _ in range(num_layers))
         self.ln_f = RMSNorm(d_model, policy=p, device=dev)
         self.head = None if tie_embeddings else Dense(
@@ -143,6 +150,8 @@ class Llama(JaxParamModule):
                "tie_embeddings": self.head is None}
         if self.num_kv_heads != self.num_heads:
             cfg["num_kv_heads"] = self.num_kv_heads
+        if self.kv_cache_dtype:
+            cfg["kv_cache_dtype"] = self.kv_cache_dtype
         return model_config(self, cfg)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:

@@ -137,8 +137,13 @@ class MultiHeadAttention(nn.Module):
                  num_kv_heads: Optional[int] = None, causal: bool = True,
                  backend: str = "xla", dropout: float = 0.0,
                  rope_theta: Optional[float] = None, use_bias: bool = True,
-                 policy=None, device="cuda"):
+                 kv_cache_dtype: Optional[str] = None, policy=None,
+                 device="cuda"):
         super().__init__()
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: only "
+                             "None (compute dtype) or 'int8' supported")
+        self.kv_cache_dtype = kv_cache_dtype
         self.policy = policy or dt.default_policy()
         self.num_heads = int(num_heads)
         self.num_kv_heads = int(num_kv_heads) if num_kv_heads \
@@ -205,12 +210,31 @@ class MultiHeadAttention(nn.Module):
 
     def init_cache(self, batch: int, max_len: int):
         """A zeroed (k, v) cache of (batch, H_kv, max_len, Dh) in the
-        compute dtype (the int8 cache waits for the int8 slice)."""
+        compute dtype; with ``kv_cache_dtype="int8"`` int8 ``k`` / ``v``
+        beside f32 ``k_scale`` / ``v_scale`` of (batch, H_kv, max_len, 1)."""
         shape = (batch, self.num_kv_heads, max_len, self.head_dim)
         dev = self.qkv_kernel.device
+        if self.kv_cache_dtype == "int8":
+            def z(dtype, last):
+                return torch.zeros(shape[:-1] + (last,), dtype=dtype,
+                                   device=dev)
+            return {"k": z(torch.int8, self.head_dim),
+                    "v": z(torch.int8, self.head_dim),
+                    "k_scale": z(torch.float32, 1),
+                    "v_scale": z(torch.float32, 1)}
         cd = self.policy.compute_dtype
         return {"k": torch.zeros(shape, dtype=cd, device=dev),
                 "v": torch.zeros(shape, dtype=cd, device=dev)}
+
+    @staticmethod
+    def _quant_rows(x):
+        """Symmetric per-row (per position, per head) int8: scale = amax /
+        127, amax clamped at 1e-8; ``torch.round`` rounds half to even, as
+        ``jnp.round`` does."""
+        xf = x.float()
+        scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+        return q, scale
 
     def apply_cached(self, x, cache, offset):
         """Decode step: x (N, S_new, D); ``cache`` holds keys and values for
@@ -222,8 +246,10 @@ class MultiHeadAttention(nn.Module):
         cache buffer with a causal mask at ``offset``, through the
         configured backend (the flash kernel with ``kv_offset`` under
         "pallas"). With ``rope_theta`` q and the new keys are rotated at
-        their absolute positions, so the cache holds rotated keys. Returns
-        (out (N, S_new, D), cache)."""
+        their absolute positions, so the cache holds rotated keys. An int8
+        cache stores the new rows quantized and attention reads the whole
+        cache dequantized to the compute dtype. Returns (out (N, S_new, D),
+        cache)."""
         q, k_new, v_new = self._project_qkv(x)          # (N, S, H*, Dh)
         if self.rope_theta:
             q, k_new = (apply_rope(t.transpose(1, 2), offset,
@@ -233,15 +259,29 @@ class MultiHeadAttention(nn.Module):
         if isinstance(offset, torch.Tensor) and offset.ndim:
             pos = offset.long()[:, None] + torch.arange(s, device=x.device)
             rows = torch.arange(x.shape[0], device=x.device)[:, None]
-            cache["k"][rows, :, pos] = k_new.to(cache["k"].dtype)
-            cache["v"][rows, :, pos] = v_new.to(cache["v"].dtype)
+
+            def put(buf, new):                   # new (N, S, H, last)
+                buf[rows, :, pos] = new.to(buf.dtype)
         else:
             off = int(offset)
-            cache["k"][:, :, off:off + s] = k_new.transpose(1, 2)
-            cache["v"][:, :, off:off + s] = v_new.transpose(1, 2)
+
+            def put(buf, new):
+                buf[:, :, off:off + s] = new.transpose(1, 2).to(buf.dtype)
+        if self.kv_cache_dtype == "int8":
+            for name, new in (("k", k_new), ("v", v_new)):
+                codes, scale = self._quant_rows(new)
+                put(cache[name], codes)
+                put(cache[name + "_scale"], scale)
+            cd = self.policy.compute_dtype
+            k = (cache["k"].float() * cache["k_scale"]).to(cd)
+            v = (cache["v"].float() * cache["v_scale"]).to(cd)
+        else:
+            put(cache["k"], k_new)
+            put(cache["v"], v_new)
+            k, v = cache["k"], cache["v"]
         backend = self.backend if self.backend != "ring" else "xla"
-        out = sdpa(q.transpose(1, 2), cache["k"], cache["v"], causal=True,
-                   kv_offset=offset, backend=backend)
+        out = sdpa(q.transpose(1, 2), k, v, causal=True, kv_offset=offset,
+                   backend=backend)
         return self._project_out(out.transpose(1, 2)), cache
 
     def apply_paged(self, x, pages_k, pages_v, block_tables, offsets,
@@ -259,14 +299,22 @@ class MultiHeadAttention(nn.Module):
             (Q must then be 1). Tokens past ``q_lens[b]`` are padding: their
             KV lands in the scratch page and their outputs are garbage.
 
-        Returns the attention block's output (B, Q, D). Rotary attention
-        (Llama serving) is not ported yet and raises.
+        With ``rope_theta`` q and the new keys are rotated at their
+        absolute positions, ``offsets + arange(Q)`` per row, so the pages
+        hold rotated keys. A model with ``kv_cache_dtype`` raises: the pool
+        stores its own pages (``kv_dtype="int8"`` quantizes those).
+
+        Returns the attention block's output (B, Q, D).
         """
-        if self.rope_theta:
-            raise NotImplementedError("apply_paged with rope_theta (Llama "
-                                      "serving) is not ported yet; it is "
-                                      "queued in ROADMAP.md")
+        if self.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "paged decode with int8 KV pages is future work: pool pages "
+                "are compute-dtype (quantize the pool with kv_dtype='int8')")
         q, k_new, v_new = self._project_qkv(x)
+        if self.rope_theta:
+            q, k_new = (apply_rope(t.transpose(1, 2), offsets,
+                                   self.rope_theta).transpose(1, 2)
+                        for t in (q, k_new))
         if not isinstance(pages_k, pa.QuantPages):
             k_new, v_new = k_new.to(pages_k.dtype), v_new.to(pages_v.dtype)
         if q_lens is None:

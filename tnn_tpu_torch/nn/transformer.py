@@ -19,17 +19,20 @@ class GPTBlock(nn.Module):
     ``backend`` picks the attention backend ("xla" or "pallas", the flash
     kernels); ``dropout`` applies, when training, inside the attention
     block and after each residual branch, drawing from the caller's
-    generator in that order."""
+    generator in that order. ``kv_cache_dtype="int8"`` quantizes the
+    decode cache (``MultiHeadAttention``)."""
 
     def __init__(self, d_model: int, num_heads: int, *, mlp_ratio: int = 4,
                  num_kv_heads: Optional[int] = None, backend: str = "xla",
-                 dropout: float = 0.0, policy=None, device="cuda"):
+                 dropout: float = 0.0, kv_cache_dtype: Optional[str] = None,
+                 policy=None, device="cuda"):
         super().__init__()
         p = policy or dt.default_policy()
         self.ln1 = LayerNorm(d_model, policy=p, device=device)
         self.attn = MultiHeadAttention(d_model, num_heads,
                                        num_kv_heads=num_kv_heads,
                                        backend=backend, dropout=dropout,
+                                       kv_cache_dtype=kv_cache_dtype,
                                        policy=p, device=device)
         self.drop = Dropout(dropout)
         self.ln2 = LayerNorm(d_model, policy=p, device=device)

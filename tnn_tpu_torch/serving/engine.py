@@ -108,7 +108,28 @@ on the standard path ``gather_kv`` sums the shards' owned positions into
 one cache and the scatters write each shard's own rows. As in the JAX
 engine, SP refuses ``quant_weights`` and the fused path, and needs
 ``num_blocks`` and the table width ``blocks_per_seq`` to divide by sp.
-Tensor parallelism and the fault plan are not ported yet.
+Tensor parallelism is not ported yet.
+
+Fault isolation, as in the JAX engine (``faults=`` takes a seeded
+``faults.FaultPlan``): an injected allocation failure at a chunk boundary
+or in decode growth FAILs only its request; a NaN the plan adds to a row's
+logits (every program adds the step's ``poison`` column before the logit
+guard, the pdecode graph included) FAILs only that row; an injected step
+exception (``FaultInjected``, raised on the host before the launch) is
+retried once with the same inputs and sampling state when transient, and
+otherwise aborts the batch and zeroes the pages (``_abort_batch``); the
+plan's ``EngineCrash`` escapes ``step()`` for a supervisor to recover
+(``serving/supervisor.py``, through ``migrate_running``). An exception the
+plan did not inject (a kernel error on the card) still propagates: a CUDA
+error may be sticky, so only a supervisor's restart can tell. The overlap
+loop does not speculate under a fault plan. Each step leaves a
+flight-recorder note (``last_step_record``, ``last_finished_record``:
+programs, rows, fill, pool occupancy, latency, faults fired), finalized
+even when the step crashes. ``trace=True`` records the JAX engine's
+instants (``serve.submit``, ``serve.admit``, ...) and ``profiled`` spans
+(``serve.mixed``, ``serve.decode_paged``, ``serve.fetch``, ...) into
+``profiler``; spans time host dispatch, never the device. Every request
+carries a ``trace_id`` and the clocks behind ``latency_breakdown``.
 """
 from __future__ import annotations
 
@@ -125,37 +146,49 @@ from ..models import fused_decode, sampling
 from ..nn.quant import quantize_for_decode
 from ..ops import runtime
 from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
+from ..profiling.profiler import EventType, Profiler, profiled
 from ..utils.bucketing import pow2_bucket
 from ..utils.device import resolve_device
 from . import kv_pool, spec_decode, step_build, step_graph
+from .faults import FaultInjected, FaultPlan
 from .kv_pool import PagedKVPool, PoolExhausted
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import (TERMINAL_STATES, AdmissionRejected, Request,
                         RequestState, Scheduler)
 from .sp import SPContext
+from .tracing import Tracer
 
 
 class SampleInputs(NamedTuple):
-    """A step's token matrix and per-row sampling parameters on the
-    device: what ``_sample`` reads."""
+    """A step's token matrix, per-row sampling parameters and logit poison
+    column on the device: what ``_sample`` reads."""
     toks: torch.Tensor
     temps: torch.Tensor
     topks: torch.Tensor
     topps: torch.Tensor
+    poison: torch.Tensor
 
 
 class StepInFlight:
     """One dispatched, uncommitted step (``tnn_tpu.serving.engine.
-    StepInFlight``): its event buckets, one record per launched program
-    (whole-prompt prefills, then the decode; or the one mixed step), the
-    staged fetch of all their results and, after ``try_speculate``, a
-    speculatively dispatched successor. ``prefills`` lists the requests
-    its whole-prompt prefills admit at commit."""
+    StepInFlight``): its flight-recorder note, event buckets, one record
+    per launched program (whole-prompt prefills, then the decode; or the
+    one mixed step), the staged fetch of all their results and, after
+    ``try_speculate``, a speculatively dispatched successor. ``prefills``
+    lists the requests its whole-prompt prefills admit at commit;
+    ``gen_before`` each decode-phase row's generated count when the step
+    began (the stall clock)."""
 
-    __slots__ = ("t0", "events", "recs", "prefills", "fetch", "spec")
+    __slots__ = ("note", "fired_before", "gen_before", "latency_s", "t0",
+                 "events", "recs", "prefills", "fetch", "spec")
 
-    def __init__(self, t0: float):
+    def __init__(self, t0: float, note: Dict[str, Any],
+                 fired_before: Optional[collections.Counter] = None):
+        self.note = note
+        self.fired_before = fired_before
+        self.gen_before: Dict[int, int] = {}
+        self.latency_s = 0.0
         self.t0 = t0
         self.events: Dict[str, List] = {"tokens": [], "finished": [],
                                         "failed": [], "timed_out": []}
@@ -212,6 +245,15 @@ class InferenceEngine:
         target's vocabulary, for ``spec="draft"``.
     overlap : the overlapped loop (module docstring); a direct ``step()``
         stays synchronous.
+    faults : a ``faults.FaultPlan`` (module docstring); the pool's
+        ``alloc`` consults it too.
+    migration_budget : crash re-admissions (``migrate_running``) a request
+        may take before it FAILs as poison (None = unlimited).
+    profiler : a ``profiling.Profiler`` the metrics tick into and the
+        ``profiled`` spans land in.
+    trace : request-scoped tracing (module docstring); creates a
+        ``Profiler(source="engine")`` when none is given. Host-side only:
+        traced runs are token-exact against untraced ones.
 
     device : "cuda" by default; raises without a card.
     """
@@ -230,7 +272,16 @@ class InferenceEngine:
                  prefix_cache_min_hit_blocks: int = 1,
                  prefix_publish_max_occupancy: float = 0.95,
                  spec: Any = "off", spec_k: int = 4, draft_model=None,
-                 overlap: bool = False, device="cuda"):
+                 overlap: bool = False,
+                 faults: Optional[FaultPlan] = None,
+                 migration_budget: Optional[int] = 3,
+                 profiler: Optional[Profiler] = None, trace: bool = False,
+                 device="cuda"):
+        if getattr(model, "kv_cache_dtype", None):
+            raise ValueError(
+                "the paged pool stores compute-dtype pages; "
+                f"kv_cache_dtype={model.kv_cache_dtype!r} models are not "
+                "servable — quantize the POOL instead (kv_dtype='int8')")
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -248,6 +299,8 @@ class InferenceEngine:
             raise ValueError("max_queue_depth must be >= 0 (0 = unbounded)")
         if preemption_budget is not None and preemption_budget < 0:
             raise ValueError("preemption_budget must be >= 0 or None")
+        if migration_budget is not None and migration_budget < 0:
+            raise ValueError("migration_budget must be >= 0 or None")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         if prefix_cache_min_hit_blocks < 1:
@@ -306,12 +359,15 @@ class InferenceEngine:
         # paged interface over lists of shard pages and tables)
         self._step_model = self._sp.model if self._sp else self.model
         self.preemption_budget = preemption_budget
+        self.migration_budget = migration_budget
+        self.faults = faults
         self.pool = PagedKVPool(
             num_layers=model.num_layers, num_kv_heads=model.num_kv_heads,
             head_dim=model.d_model // model.num_heads, num_blocks=num_blocks,
             block_size=block_size, dtype=model.policy.compute_dtype,
             device=self.device, kv_dtype=kv_dtype, sp=self.sp,
             devices=self._sp.devices if self._sp else None)
+        self.pool.fault_plan = faults
         cap = min(model.max_len, self.pool.capacity * block_size)
         self.max_seq_len = min(max_seq_len or cap, cap)
         # fixed table width: every step passes this many blocks per row,
@@ -348,8 +404,27 @@ class InferenceEngine:
         # (rid, error) of queued requests a submit shed: reported in the
         # next step's "failed" events
         self._shed: List[Tuple[int, str]] = []
-        self.metrics = ServingMetrics()
+        if trace and profiler is None:
+            profiler = Profiler(source="engine")
+        self.profiler = profiler
+        self.metrics = ServingMetrics(profiler)
         self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
+        self.tracer = Tracer(profiler if trace else None)
+        self.step_seq = 0                # begun steps, adopted ones included
+        self._step_note: Optional[Dict[str, Any]] = None
+        self._finished_note: Optional[Dict[str, Any]] = None
+        self._last_step_latency_s = 0.0
+        # host-side gauges cached at submit and commit (the static ones
+        # once): the supervisor's health_gauges serves them to other
+        # threads without an engine touch
+        self._gauge_extras = {"kv_dtype": self.kv_dtype,
+                              "kv_bytes_per_token":
+                                  self.pool.kv_bytes_per_token,
+                              "quant_weights": int(self.quant_weights),
+                              "sp_degree": self.sp,
+                              "pool_blocks_per_shard":
+                                  self.pool.blocks_per_shard}
+        self._refresh_gauges()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.overlap = bool(overlap)
@@ -446,15 +521,26 @@ class InferenceEngine:
 
     # -- request lifecycle ----------------------------------------------------
 
+    def _refresh_gauges(self) -> None:
+        self._health_gauges = {
+            "queue_depth": self.scheduler.queue_depth,
+            "num_running": len(self.scheduler.running),
+            "step_latency_s": self._last_step_latency_s,
+            **self._gauge_extras}
+
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                stop_token: Optional[int] = None,
                deadline_s: Optional[float] = None,
                max_queue_s: Optional[float] = None,
-               priority: int = 0) -> int:
+               priority: int = 0,
+               migration_budget: Optional[int] = None,
+               trace_id: Optional[str] = None) -> int:
         """Queue a generation request; returns its request id.
         ``deadline_s`` bounds its wall time from submit, ``max_queue_s``
         any one stretch it waits QUEUED; past either it is TIMED_OUT.
+        ``migration_budget`` caps its crash re-admissions (None: the
+        engine's); ``trace_id`` names its trace (default ``t<rid>``).
 
         With ``max_queue_depth`` set and the queue full, "reject" FAILs the
         queued request ``shed_victim`` names (a larger ``priority`` value
@@ -505,9 +591,16 @@ class InferenceEngine:
                       top_p=float(top_p), stop_token=stop_token,
                       submit_time=time.perf_counter(),
                       deadline_s=deadline_s, max_queue_s=max_queue_s,
-                      priority=int(priority))
+                      priority=int(priority),
+                      migration_budget=(self.migration_budget
+                                        if migration_budget is None
+                                        else int(migration_budget)))
+        req.trace_id = trace_id if trace_id else f"t{rid}"
         self.requests[rid] = req
         self.scheduler.submit(req)
+        self._refresh_gauges()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.submit", trace=req.trace_id, rid=rid)
         return rid
 
     def cancel(self, rid: int, reason: str = "cancelled by client") -> bool:
@@ -560,10 +653,62 @@ class InferenceEngine:
             for req in list(self.scheduler.waiting):
                 self._terminate(req, state, reason, events, bucket)
         if reset_pages:
-            self.pool.reset_pages()
-            if self.prefix_cache is not None:
-                self.pool.purge_evictable()
-                self.prefix_cache.clear()
+            self._reset_pages()
+        return events
+
+    def _reset_pages(self) -> None:
+        """Zero the pool's pages and drop the prefix index: zeroed pages no
+        longer hold the indexed KV."""
+        self.pool.reset_pages()
+        if self.prefix_cache is not None:
+            self.pool.purge_evictable()
+            self.prefix_cache.clear()
+
+    def migrate_running(self, reason: str) -> Dict[str, List]:
+        """Crash re-admission (the supervisor's restart): every RUNNING
+        request loses its KV but not its progress. Its committed tokens
+        become an extended prompt through the scheduler's resume path, so
+        its stream goes on from the last emitted token, token-exact under
+        greedy decoding; a request whose ``migration_budget`` is spent
+        FAILs instead (a poison request must not wedge the restart loop).
+        A step in flight (with its speculative successor) is dropped, the
+        pages are zeroed and the prefix index dropped, as in ``abort_all``.
+        Returns step-shaped buckets holding only the budget failures."""
+        events: Dict[str, List] = {"tokens": [], "finished": [],
+                                   "failed": [], "timed_out": []}
+        if self._flight is not None:
+            # whole-prompt prefills the dropped step launched were never
+            # admitted: back to the queue's front, in their order, blocks
+            # freed (no migration is charged)
+            for req in reversed(self._flight.prefills):
+                if req.state is RequestState.QUEUED \
+                        and req not in self.scheduler.waiting:
+                    if req.block_table:
+                        self.pool.free(req.block_table)
+                        req.block_table = []
+                    req.cache_len = 0
+                    self.scheduler.waiting.appendleft(req)
+        self._flight = None
+        self._deferred.clear()
+        now = time.perf_counter()
+        for req in list(self.scheduler.running):
+            budget = req.migration_budget
+            if budget is not None and req.migrations >= budget:
+                self._terminate(
+                    req, RequestState.FAILED,
+                    f"migration budget exhausted ({budget}) — last "
+                    f"failure: {reason}", events, "failed")
+                continue
+            self._note_leave_running(req, now)
+            self.pool.free(req.block_table)
+            req.block_table = []
+            req.cache_len = 0
+            self.scheduler.migrate(req)
+            self.metrics.observe_migration(len(req.resume_tokens))
+            if self.tracer.enabled:
+                self.tracer.instant("serve.migrate", trace=req.trace_id,
+                                    rid=req.rid, step=self.step_seq)
+        self._reset_pages()
         return events
 
     def stats(self) -> Dict[str, Any]:
@@ -602,7 +747,8 @@ class InferenceEngine:
                   "graph_replays": sum(g.replays
                                        for g in self._graphs.values()),
                   "sp_degree": self.sp,
-                  "pool_blocks_per_shard": self.pool.blocks_per_shard})
+                  "pool_blocks_per_shard": self.pool.blocks_per_shard,
+                  "step_seq": self.step_seq})
         return s
 
     def check_invariants(self) -> None:
@@ -662,11 +808,27 @@ class InferenceEngine:
         if self._flight is not None:
             raise RuntimeError("a step is already in flight: finish_step() "
                                "first")
-        flight = StepInFlight(time.perf_counter())
+        self.step_seq += 1
+        fired_before = (collections.Counter(self.faults.fired)
+                        if self.faults is not None else None)
+        # made before the body runs: a crash at the step's very top
+        # (faults.on_step) still leaves a record naming the batch
+        note: Dict[str, Any] = {
+            "step_seq": self.step_seq,
+            "queued": self.scheduler.queue_depth,
+            "running_rids": [r.rid for r in self.scheduler.running],
+            "programs": []}
+        self._step_note = note
+        flight = StepInFlight(time.perf_counter(), note, fired_before)
+        flight.gen_before = {
+            r.rid: r.num_generated for r in self.scheduler.running
+            if r.state is RequestState.RUNNING
+            and r.cache_len >= r.prefill_len}
         try:
             with torch.inference_mode():
                 self._build_step(flight)
         except BaseException as e:
+            self._finalize_note(flight)
             self._abort_flight(flight, f"step failed: {e}")
             raise
         self._flight = flight
@@ -684,7 +846,16 @@ class InferenceEngine:
                 self._commit_step(flight)
         finally:
             self._flight = None
-        self.metrics.observe_step_latency(time.perf_counter() - flight.t0)
+            self._finalize_note(flight)
+            self._finished_note = flight.note
+        self.metrics.observe_step_latency(flight.latency_s)
+        self._last_step_latency_s = flight.latency_s
+        # a decode-phase row that survived the step without a token spent
+        # it stalled (a retried fault, a step behind peer prefills)
+        for r in self.scheduler.running:
+            if r.state is RequestState.RUNNING and \
+                    r.num_generated == flight.gen_before.get(r.rid, -1):
+                r.stall_s += flight.latency_s
         self._resolve_speculation(flight)
         events = flight.events
         if self._shed:
@@ -698,8 +869,76 @@ class InferenceEngine:
         while self._deferred:
             self._deferred.pop(0)()
 
+    # -- the flight recorder's notes (JAX's _finalize_note, last_step_record,
+    # last_finished_record, _note_program) ------------------------------------
+
+    def _finalize_note(self, flight: StepInFlight) -> None:
+        dt = time.perf_counter() - flight.t0
+        flight.latency_s = dt
+        note = flight.note
+        note["step_latency_s"] = round(dt, 6)
+        note["pool_allocated"] = self.pool.num_allocated
+        note["pool_evictable"] = self.pool.num_evictable
+        before = flight.fired_before
+        note["faults_fired"] = {} if before is None else {
+            k: int(v - before.get(k, 0))
+            for k, v in self.faults.fired.items() if v - before.get(k, 0)}
+
+    def last_step_record(self) -> Optional[Dict[str, Any]]:
+        """The newest step's flight-recorder record: each launched program's
+        kind, compile key, rows and fill, queue depth, pool occupancy, step
+        latency, faults fired. None before the first step. A crashing step
+        still finalizes its record."""
+        return dict(self._step_note) if self._step_note is not None \
+            else None
+
+    def last_finished_record(self) -> Optional[Dict[str, Any]]:
+        """The record of the newest step that committed: under overlap the
+        newest note may belong to a step still in flight."""
+        return dict(self._finished_note) \
+            if self._finished_note is not None else None
+
+    def _note_program(self, kind: str, key, rids: List[int],
+                      fill: float) -> None:
+        """Attach one launched program to the current step's note."""
+        if self._step_note is not None:
+            self._step_note["programs"].append(
+                {"kind": kind, "compile_key": list(key),
+                 "rids": list(rids), "fill": round(fill, 4)})
+
+    # -- per-request latency clocks (JAX's _note_admit, _note_prefill_done,
+    # _note_leave_running) ----------------------------------------------------
+
+    def _note_admit(self, req: Request, now: float) -> None:
+        """Close the queued clock at admission, open the prefill phase."""
+        wait = max(0.0, now - req.queued_time)
+        req.queued_s += wait
+        self.metrics.observe_queue_wait(wait)
+        req.phase = "prefill"
+        req.phase_t0 = now
+        if self.tracer.enabled:
+            self.tracer.instant("serve.admit", trace=req.trace_id,
+                                rid=req.rid, step=self.step_seq)
+
+    def _note_prefill_done(self, req: Request, now: float) -> None:
+        if req.phase == "prefill":
+            req.prefill_s += max(0.0, now - req.phase_t0)
+        req.phase = "decode"
+        req.phase_t0 = now
+
+    def _note_leave_running(self, req: Request, now: float) -> None:
+        """Close the open phase clock: preemption, migration or a terminal
+        exit ends the running stretch alike."""
+        if req.phase == "prefill":
+            req.prefill_s += max(0.0, now - req.phase_t0)
+        elif req.phase == "decode":
+            req.decode_s += max(0.0, now - req.phase_t0)
+        req.phase = ""
+
     def _build_step(self, flight: StepInFlight) -> None:
         events = flight.events
+        if self.faults is not None:
+            self.faults.on_step()
         self._enforce_deadlines(events)
         plan = self.scheduler.schedule(self.pool)
         if self.chunked_prefill:
@@ -728,7 +967,10 @@ class InferenceEngine:
                     if r.state is RequestState.RUNNING
                     and r.cache_len >= r.prefill_len]
             if live:
-                flight.recs.append(self._decode_launch(live))
+                rec = self._decode_launch(live, events=events,
+                                          pending=flight.prefills)
+                if rec is not None:
+                    flight.recs.append(rec)
         if flight.recs:
             flight.fetch = self._stage_fetch(flight.recs)
 
@@ -748,6 +990,7 @@ class InferenceEngine:
                 self._decode_commit(rec, out, flight.events)
             else:
                 self._mixed_commit(rec, out, flight.events)
+        self._refresh_gauges()
 
     def _abort_flight(self, flight: StepInFlight, error: str,
                       state: RequestState = RequestState.FAILED,
@@ -792,11 +1035,12 @@ class InferenceEngine:
     def _fetch_bundle(self, fetch: Dict[str, Any]) -> List[np.ndarray]:
         """The step's one device-to-host fetch, split back into each
         record's results."""
-        if "ready" in fetch:
-            fetch["ready"].synchronize()
-            flat = fetch["host"].numpy().copy()
-        else:
-            flat = fetch["dev"].numpy().copy()
+        with profiled("serve.fetch", EventType.COMPUTE, self.profiler):
+            if "ready" in fetch:
+                fetch["ready"].synchronize()
+                flat = fetch["host"].numpy().copy()
+            else:
+                flat = fetch["dev"].numpy().copy()
         self._t_fetch_done = time.perf_counter()
         outs, at = [], 0
         for shape in fetch["shapes"]:
@@ -814,7 +1058,14 @@ class InferenceEngine:
         if t is None:
             return
         self._t_fetch_done = None
-        self.metrics.observe_host_gap(time.perf_counter() - t)
+        gap = time.perf_counter() - t
+        self.metrics.observe_host_gap(gap)
+        for r in self.scheduler.running:
+            if r.state is RequestState.RUNNING:
+                r.host_gap_s += gap
+        if self.tracer.enabled:
+            self.tracer.instant("serve.host_gap", step=self.step_seq,
+                                ms=round(gap * 1e3, 3))
 
     def _enforce_deadlines(self, events) -> None:
         now = time.perf_counter()
@@ -846,15 +1097,16 @@ class InferenceEngine:
         is fixed by committed state and N's unfetched tokens: a pure
         decode step N whose rows all survive its commit (no stop token, no
         deadline, room for two more tokens), the same rows still running,
-        KV growth that fits without preemption, no drafter, an empty wait
-        queue, and not the fused path. The dispatch reads N's sampled
-        tokens on the device, so nothing syncs; ``finish_step`` adopts it
-        or rolls it back. Its KV writes land at positions at or past every
-        surviving row's committed length, or in blocks a rollback frees:
-        always overwritten before they are read. Returns True when a step
-        was dispatched."""
+        KV growth that fits without preemption, no drafter, no fault
+        plan, an empty wait queue, and not the fused path. The dispatch
+        reads N's sampled tokens on the device, so nothing syncs;
+        ``finish_step`` adopts it or rolls it back. Its KV writes land at
+        positions at or past every surviving row's committed length, or in
+        blocks a rollback frees: always overwritten before they are read.
+        Returns True when a step was dispatched."""
         flight = self._flight
         if (not self.overlap or flight is None or flight.spec is not None
+                or self.faults is not None
                 or self.drafter is not None or self.scheduler.waiting
                 or len(flight.recs) != 1
                 or flight.recs[0]["kind"] != "decode"
@@ -901,7 +1153,9 @@ class InferenceEngine:
         gen_state = self.generator.get_state()
         t0 = time.perf_counter()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), \
+                    profiled("serve.decode_spec", EventType.COMPUTE,
+                             self.profiler):
                 nxt = self._decode_launch(live, step,
                                           toks=rec["dev"][0])
                 fetch = self._stage_fetch([nxt])
@@ -909,11 +1163,18 @@ class InferenceEngine:
             undo()
             self.generator.set_state(gen_state)
             raise
+        b = self.scheduler.max_batch_size
         flight.spec = {"rec": nxt, "fetch": fetch, "t0": t0,
                        "rollback": rollback,
                        "gen_state": gen_state,
                        "offsets": {r.rid: int(step.offsets[i])
-                                   for i, r in enumerate(live)}}
+                                   for i, r in enumerate(live)},
+                       "prog": {"kind": "decode_paged" if self._paged
+                                else "decode",
+                                "compile_key": [step.program, b,
+                                                self.blocks_per_seq],
+                                "rids": [r.rid for r in live],
+                                "fill": round(len(live) / b, 4)}}
         return True
 
     def _resolve_speculation(self, flight: StepInFlight) -> None:
@@ -944,7 +1205,18 @@ class InferenceEngine:
             self.generator.set_state(spec["gen_state"])
             self.metrics.observe_overlap_rebuild()
             return
-        nxt = StepInFlight(spec["t0"])
+        # the dispatched step is the next step: its step number and note
+        # are given at adoption
+        self.step_seq += 1
+        note: Dict[str, Any] = {
+            "step_seq": self.step_seq,
+            "queued": self.scheduler.queue_depth,
+            "running_rids": [r.rid for r in live],
+            "programs": [dict(spec["prog"])],
+            "speculative": True}
+        self._step_note = note
+        nxt = StepInFlight(spec["t0"], note)
+        nxt.gen_before = {r.rid: r.num_generated for r in live}
         nxt.recs = [rec]
         nxt.fetch = spec["fetch"]
         self._flight = nxt
@@ -963,6 +1235,7 @@ class InferenceEngine:
         req.cache_len = 0
         if self.prefix_cache is not None:
             self._match_prefix(req)
+        self._note_admit(req, time.perf_counter())
         self.scheduler.admit(req)
         return True
 
@@ -1003,10 +1276,19 @@ class InferenceEngine:
         ``state`` (FAILED, CANCELLED or TIMED_OUT), count it and, mid-step,
         report it in the step's ``bucket``. Its queued publishes are
         dropped by their own check when they run."""
+        now = time.perf_counter()
+        if req.state is RequestState.QUEUED:
+            req.queued_s += max(0.0, now - req.queued_time)
+        else:
+            self._note_leave_running(req, now)
         if req.block_table:
             self.pool.free(req.block_table)
             req.block_table = []
         self.scheduler.terminate(req, state, error)
+        if self.tracer.enabled:
+            self.tracer.instant("serve.terminal", trace=req.trace_id,
+                                rid=req.rid, state=state.value,
+                                step=self.step_seq)
         if state is RequestState.FAILED:
             self.metrics.observe_failed()
         elif state is RequestState.CANCELLED:
@@ -1017,23 +1299,30 @@ class InferenceEngine:
             events[bucket].append((req.rid, error))
 
     def _preempt(self, req: Request) -> None:
+        self._note_leave_running(req, time.perf_counter())
         self.pool.free(req.block_table)
         req.block_table = []
         req.cache_len = 0
         self.scheduler.requeue(req)
         self.metrics.observe_preemption()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.preempt", trace=req.trace_id,
+                                rid=req.rid, step=self.step_seq)
 
     def _ensure_decode_capacity(self, events) -> None:
         """Whole-prompt mode: every running row gets the block its next
         token writes into, preempting (LIFO) when the pool runs dry."""
         for req in list(self.scheduler.running):
             if req.state is RequestState.RUNNING:
-                self._grow_blocks(req, 1, events)
+                self._grow_blocks(req, 1, events, chunk=False)
 
-    def _grow_blocks(self, req: Request, new_tokens: int, events) -> bool:
+    def _grow_blocks(self, req: Request, new_tokens: int, events, *,
+                     chunk: bool) -> bool:
         """Grow ``req.block_table`` to cover ``cache_len + new_tokens``
         positions, preempting (LIFO) when the pool runs dry. Returns True
-        when the row still runs this step."""
+        when the row still runs this step. An allocation that fails all the
+        same (an injected fault) FAILs only this request; ``chunk`` marks a
+        prompt-chunk boundary, the fault plan's prefill site."""
         needed = self.pool.blocks_for(req.cache_len + new_tokens)
         grow = max(0, needed - len(req.block_table))
         # under SP table position j's block comes from shard j % sp
@@ -1057,9 +1346,18 @@ class InferenceEngine:
                 return False
         if req.state is not RequestState.RUNNING:
             return False
-        if grow:
-            req.block_table.extend(
-                self.pool.alloc(grow, start=len(req.block_table)))
+        try:
+            if chunk and self.faults is not None:
+                self.faults.on_prefill()
+            if grow:
+                req.block_table.extend(
+                    self.pool.alloc(grow, start=len(req.block_table)))
+        except (PoolExhausted, FaultInjected) as e:
+            where = "at chunk boundary" if chunk else "mid-decode"
+            self._terminate(req, RequestState.FAILED,
+                            f"pool allocation failed {where}: {e}",
+                            events, "failed")
+            return False
         return True
 
     def _propose_drafts(self) -> Dict[int, Any]:
@@ -1068,7 +1366,8 @@ class InferenceEngine:
         ``max_new_tokens`` or the position cap; empty proposals are
         dropped (those rows run as plain decode rows). A drafter returns
         host tokens or a ``DeviceDraft``, already clamped into the
-        vocabulary on the device."""
+        vocabulary on the device. The fault plan's ``draft.poison`` site
+        shifts a proposal by one token id."""
         drafts: Dict[int, Any] = {}
         vocab = self.model.vocab_size
         for req in self.scheduler.running:
@@ -1083,8 +1382,16 @@ class InferenceEngine:
             d = self.drafter.draft(req, k)
             if not isinstance(d, spec_decode.DeviceDraft):
                 d = [int(t) % vocab for t in d][:k]
-            if len(d):
-                drafts[req.rid] = d
+            if not len(d):
+                continue
+            if self.faults is not None and self.faults.poison_draft():
+                # a corrupted draft: verification must reject it, at the
+                # cost of acceptance only
+                if isinstance(d, spec_decode.DeviceDraft):
+                    d = spec_decode.DeviceDraft((d.toks + 1) % vocab)
+                else:
+                    d = [(t + 1) % vocab for t in d]
+            drafts[req.rid] = d
         return drafts
 
     def _build(self, chunks: Dict[int, int], events) -> Optional[Dict]:
@@ -1100,7 +1407,8 @@ class InferenceEngine:
                 continue        # preempted or failed as an earlier victim
             if req.cache_len < req.prefill_len:
                 take = chunks.get(req.rid)
-                if take and not self._grow_blocks(req, take, events):
+                if take and not self._grow_blocks(req, take, events,
+                                                  chunk=True):
                     chunks.pop(req.rid, None)
                 continue
             d = drafts.get(req.rid)
@@ -1113,7 +1421,8 @@ class InferenceEngine:
                         grow, start=len(req.block_table)):
                     drafts.pop(req.rid)
                     d = None
-            if not self._grow_blocks(req, 1 + (len(d) if d else 0), events):
+            if not self._grow_blocks(req, 1 + (len(d) if d else 0), events,
+                                     chunk=False):
                 drafts.pop(req.rid, None)
         live = self.scheduler.running
         dec = [r for r in live if r.cache_len >= r.prefill_len]
@@ -1123,54 +1432,114 @@ class InferenceEngine:
         if not chk and not n_spec:
             if not dec:
                 return None
-            rec = self._decode_launch(dec)
+            rec = self._decode_launch(dec, events=events)
+            if rec is None:
+                return None
             if spec_on:
                 # draft-free rows still count in the acceptance statistics
                 rec["spec_rows"] = len(dec)
             return rec
         rows = dec + chk
         takes = {r.rid: chunks[r.rid] for r in chk}
+        b = self.scheduler.max_batch_size
         step = step_build.pack_mixed(
-            rows, len(dec), drafts, takes, b=self.scheduler.max_batch_size,
+            rows, len(dec), drafts, takes, b=b,
             nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH)
-        toks, starts, q_lens, n_draft, temps, topks, topps, tables = \
-            self._put_step([step.toks, step.starts, step.q_lens,
-                            step.n_draft, step.temps, step.topks,
-                            step.topps], step.tables)
+        if self.faults is not None:
+            if dec:
+                step.poison[:len(dec)][
+                    self.faults.poison_rows(len(dec))] = np.nan
+            for i in range(len(dec), len(rows)):
+                if self.faults.poison_prefill():
+                    step.poison[i] = np.nan
+        kind = "spec" if spec_on else "mixed"
+        self._note_program(kind, (kind, b, step.toks.shape[1],
+                                  self.blocks_per_seq),
+                           [r.rid for r in rows], fill=len(rows) / b)
+        toks, starts, q_lens, n_draft, temps, topks, topps, poison, \
+            tables = self._put_step([step.toks, step.starts, step.q_lens,
+                                     step.n_draft, step.temps, step.topks,
+                                     step.topps, step.poison], step.tables)
         for i, d in step.dev_drafts:   # device drafts, spliced on the device
             toks[i, 1:1 + len(d)] = d.toks.to(toks.device)
-        rec = {"kind": "spec" if spec_on else "mixed", "rows": rows,
+        rec = {"kind": kind, "rows": rows,
                "n_dec": len(dec), "takes": takes, "n_draft": step.n_draft}
         self._mark_dispatch()
-        if spec_on:
-            # verification reads every position: the full (B, Q, V) cube
+        if not self._decode_site(rows, events):
+            return None
+        with profiled("serve.mixed", EventType.COMPUTE, self.profiler):
+            if spec_on:
+                # verification reads every position: the (B, Q, V) cube
+                if self._paged:
+                    self.program_steps["spec"] += 1
+                    logits = self._step_model.apply_paged(
+                        toks, self.pool.pages_k, self.pool.pages_v, tables,
+                        starts, q_lens)
+                else:
+                    self.program_steps["spec_standard"] += 1
+                    logits = self._mixed_standard(toks, tables, starts,
+                                                  q_lens, last_only=False)
+                accepts, newtok, ok = self._spec_verify(
+                    logits, toks, q_lens, n_draft, step, poison)
+                # one bundle: the token matrix brings device drafts' values
+                rec["dev"] = torch.cat([torch.stack([accepts, newtok,
+                                                     ok.long()]),
+                                        toks.long().T])
+                return rec
             if self._paged:
-                self.program_steps["spec"] += 1
+                self.program_steps["mixed"] += 1
                 logits = self._step_model.apply_paged(
                     toks, self.pool.pages_k, self.pool.pages_v, tables,
-                    starts, q_lens)
+                    starts, q_lens, last_only=True)
             else:
-                self.program_steps["spec_standard"] += 1
-                logits = self._mixed_standard(toks, tables, starts, q_lens,
-                                              last_only=False)
-            accepts, newtok, ok = self._spec_verify(
-                logits, toks, q_lens, n_draft, step)
-            # one bundle: the token matrix brings device drafts' values
-            rec["dev"] = torch.cat([torch.stack([accepts, newtok,
-                                                 ok.long()]),
-                                    toks.long().T])
-            return rec
-        if self._paged:
-            self.program_steps["mixed"] += 1
-            logits = self._step_model.apply_paged(
-                toks, self.pool.pages_k, self.pool.pages_v, tables, starts,
-                q_lens, last_only=True)
-        else:
-            self.program_steps["mixed_standard"] += 1
-            logits = self._mixed_standard(toks, tables, starts, q_lens)
-        rec["dev"] = self._sample(logits,
-                                  SampleInputs(toks, temps, topks, topps))
+                self.program_steps["mixed_standard"] += 1
+                logits = self._mixed_standard(toks, tables, starts, q_lens)
+            rec["dev"] = self._sample(
+                logits, SampleInputs(toks, temps, topks, topps, poison))
         return rec
+
+    def _decode_site(self, rows: Sequence[Request], events,
+                     pending: Sequence[Request] = ()) -> bool:
+        """The fault plan's decode site, on the host before a step's
+        launch: a transient ``FaultInjected`` is retried once (nothing was
+        launched, so the retry runs the same inputs with the same sampling
+        state), a persistent one aborts the batch (``_abort_batch``; the
+        whole-prompt prefills ``pending`` this step launched fail with it).
+        Returns True when the launch goes ahead."""
+        if self.faults is None:
+            return True
+        for attempt in (0, 1):
+            try:
+                self.faults.on_decode()
+                return True
+            except FaultInjected as e:
+                if attempt == 0 and e.transient:
+                    self.metrics.observe_step_retry()
+                    continue
+                self._abort_batch(rows, f"decode step failed: {e}", events,
+                                  pending)
+        return False
+
+    def _abort_batch(self, rows: Sequence[Request], error: str, events,
+                     pending: Sequence[Request] = ()) -> None:
+        """A step failure no row can be blamed for (JAX's ``_abort_batch``
+        and ``_recover_pages_if_dead``): every running row of the batch
+        FAILs, then the pages are zeroed and every request still holding
+        KV FAILs too (``abort_all``). Queued requests keep the engine
+        serving; they re-prefill from scratch. The whole-prompt prefills
+        the step launched (``pending``, not admitted yet) wrote into the
+        zeroed pages, so they FAIL as well."""
+        for req in rows:
+            if req.state is RequestState.RUNNING:
+                self._terminate(req, RequestState.FAILED, error, events,
+                                "failed")
+        for req in pending:
+            if req.state is RequestState.QUEUED:
+                self._terminate(req, RequestState.FAILED, error, events,
+                                "failed")
+        ev = self.abort_all("KV pages lost to a failed step")
+        for bucket in ("failed", "timed_out"):
+            events[bucket].extend(ev[bucket])
 
     # -- whole-prompt prefill (JAX's _prefill_fn, _prefill_build,
     # _prefill_commit) --------------------------------------------------------
@@ -1190,8 +1559,10 @@ class InferenceEngine:
                             "failed")
             return
         try:
+            if self.faults is not None:
+                self.faults.on_prefill()
             req.block_table = self.pool.alloc(nb)
-        except PoolExhausted as e:
+        except (PoolExhausted, FaultInjected) as e:
             self._terminate(req, RequestState.FAILED,
                             f"prefill failed: {e}", events, "failed")
             return
@@ -1203,16 +1574,25 @@ class InferenceEngine:
         ids[0, :len(seq)] = seq
         table = np.asarray([self.pool.padded_table(req.block_table,
                                                    nb_bucket)], np.int32)
-        ids, temps, topks, topps, tables = self._put_step(
+        poison = np.float32("nan") if (
+            self.faults is not None and self.faults.poison_prefill()) \
+            else np.float32(0.0)
+        width = nb_bucket * self.pool.block_size
+        self._note_program("prefill", ("prefill", width), [req.rid],
+                           fill=len(seq) / width)
+        ids, temps, topks, topps, poison, tables = self._put_step(
             [ids, np.asarray([req.temperature], np.float32),
              np.asarray([req.top_k], np.int32),
-             np.asarray([req.top_p], np.float32)], table)
+             np.asarray([req.top_p], np.float32),
+             np.asarray([poison], np.float32)], table)
         self._mark_dispatch()
         self.program_steps["prefill"] += 1
-        flight.recs.append({
-            "kind": "prefill", "req": req, "t0": t0, "seq_len": len(seq),
-            "dev": self._prefill(ids, len(seq), tables,
-                                 SampleInputs(ids, temps, topks, topps))})
+        with profiled("serve.prefill", EventType.COMPUTE, self.profiler):
+            dev = self._prefill(ids, len(seq), tables,
+                                SampleInputs(ids, temps, topks, topps,
+                                             poison))
+        flight.recs.append({"kind": "prefill", "req": req, "t0": t0,
+                            "seq_len": len(seq), "dev": dev})
 
     def _prefill(self, ids, length: int, tables, step: SampleInputs):
         """The whole-prompt program: ``apply_cached`` over the padded
@@ -1243,61 +1623,89 @@ class InferenceEngine:
                             "non-finite logits in prefill", events, "failed")
             return
         req.cache_len = rec["seq_len"]
+        # the queued clock closes at the launch, so the whole-prompt
+        # forward counts as prefill time
+        self._note_admit(req, rec["t0"])
         self.scheduler.admit(req)
         now = time.perf_counter()
+        self._note_prefill_done(req, now)
         self.metrics.observe_prefill(rec["seq_len"], now - rec["t0"])
         if not req.out_tokens:
             req.ttft_s = now - req.submit_time
             self.metrics.observe_ttft(req.ttft_s)
+            if self.tracer.enabled:
+                self.tracer.instant("serve.first_token", trace=req.trace_id,
+                                    rid=req.rid, step=self.step_seq)
             self._emit(req, tok, events)
+
+    _DECODE_SPANS = {"pdecode": "serve.decode_paged",
+                     "fdecode": "serve.decode_fused",
+                     "decode": "serve.decode"}
 
     def _decode_launch(self, live: Sequence[Request],
                        step: Optional[step_build.DecodeStep] = None,
-                       toks: Optional[torch.Tensor] = None) -> Dict:
+                       toks: Optional[torch.Tensor] = None, events=None,
+                       pending: Sequence[Request] = ()) -> Optional[Dict]:
         """Pack (unless ``step`` is given) and launch a pure-decode step.
         ``toks``, a device tensor, replaces the packed token column: a
-        speculative step's tokens are step N's unfetched samples. A pdecode
-        step replays its captured graph where graphs run."""
+        speculative step's tokens are step N's unfetched samples (its
+        program note is made at adoption, and no fault site runs: the
+        engine does not speculate under a fault plan). A pdecode step
+        replays its captured graph where graphs run. Returns None when the
+        fault plan's decode site aborted the batch (into ``events``, with
+        the step's ``pending`` whole-prompt prefills)."""
         if step is None:
             step = step_build.pack_decode(
                 live, b=self.scheduler.max_batch_size,
                 nb=self.blocks_per_seq, scratch=PagedKVPool.SCRATCH,
                 paged=self._paged, fused_available=self._fused is not None)
-        self.program_steps[step.program] += 1
+        label = self._DECODE_SPANS[step.program]
+        speculative = toks is not None
+        if not speculative:
+            if self.faults is not None:
+                step.poison[:len(live)][
+                    self.faults.poison_rows(len(live))] = np.nan
+            b = step.toks.shape[0]
+            self._note_program(label.split(".", 1)[1],
+                               (step.program, b, self.blocks_per_seq),
+                               [r.rid for r in live], fill=len(live) / b)
         rec = {"kind": "decode", "live": list(live)}
-        if step.program == "pdecode" and self._graph_steps:
-            graph = self._decode_graph()
+        graph = step.program == "pdecode" and self._graph_steps
+        if graph:
             host = step_graph.stage(step_graph.decode_arrays(step))
-            self._mark_dispatch()
-            rec["dev"] = graph.run(host, toks)
-            return rec
-        put_toks, offsets, temps, topks, topps, tables = self._put_step(
-            [step.toks, step.offsets, step.temps, step.topks, step.topps],
-            step.tables)
-        if toks is None:
-            toks = put_toks
         else:
-            toks = toks.to(torch.int32)
+            put_toks, offsets, temps, topks, topps, poison, tables = \
+                self._put_step([step.toks, step.offsets, step.temps,
+                                step.topks, step.topps, step.poison],
+                               step.tables)
+            toks = toks.to(torch.int32) if speculative else put_toks
         self._mark_dispatch()
-        if step.program == "pdecode":
-            rec["dev"] = self._pdecode(toks, offsets, tables, temps, topks,
-                                       topps)[1]
-            return rec
-        if step.program == "fdecode":
-            logits = self._fused_decode(toks, tables, int(step.offsets[0]))
-        else:
-            logits = self._decode_standard(toks, tables, offsets)
-        rec["dev"] = self._sample(logits,
-                                  SampleInputs(toks, temps, topks, topps))
+        if not speculative and not self._decode_site(live, events,
+                                                     pending):
+            return None
+        self.program_steps[step.program] += 1
+        with profiled(label, EventType.COMPUTE, self.profiler):
+            if graph:
+                rec["dev"] = self._decode_graph().run(host, toks)
+            elif step.program == "pdecode":
+                rec["dev"] = self._pdecode(toks, offsets, tables, temps,
+                                           topks, topps, poison)[1]
+            else:
+                logits = self._fused_decode(
+                    toks, tables, int(step.offsets[0])) \
+                    if step.program == "fdecode" \
+                    else self._decode_standard(toks, tables, offsets)
+                rec["dev"] = self._sample(
+                    logits, SampleInputs(toks, temps, topks, topps, poison))
         return rec
 
-    def _pdecode(self, toks, offsets, tables, temps, topks, topps):
+    def _pdecode(self, toks, offsets, tables, temps, topks, topps, poison):
         """The paged pure-decode program, the one that is captured:
         (logits, (2, B) bundle)."""
         logits = self._step_model.apply_decode_paged(
             toks, self.pool.pages_k, self.pool.pages_v, tables, offsets)
-        return logits, self._sample(logits,
-                                    SampleInputs(toks, temps, topks, topps))
+        return logits, self._sample(
+            logits, SampleInputs(toks, temps, topks, topps, poison))
 
     @property
     def _graph_steps(self) -> bool:
@@ -1436,13 +1844,17 @@ class InferenceEngine:
 
     def _sample(self, logits: torch.Tensor,
                 step: SampleInputs) -> torch.Tensor:
-        """(2, B) int64 device tensor: sampled tokens and the logit guard."""
+        """(2, B) int64 device tensor: sampled tokens and the logit guard,
+        over the logits plus the step's poison column (zero but where a
+        fault plan poisons a row: adding 0.0 changes no logit)."""
+        logits = logits + step.poison[:, None]
         ok = torch.isfinite(logits).all(dim=-1)
         newtok = sampling.sample_ragged(logits, self.generator, step.temps,
                                         step.topks, step.topps)
         return torch.stack([newtok, ok.long()])
 
-    def _spec_verify(self, logits, toks, q_lens, n_draft, step):
+    def _spec_verify(self, logits, toks, q_lens, n_draft, step,
+                     poison=None):
         """Verify a ragged speculative step from its full (B, Q, V) logits.
 
         Row i is ``[x_0, d_1..d_k, pad]`` with ``q_lens = 1 + n_draft``:
@@ -1454,8 +1866,11 @@ class InferenceEngine:
         with d masked out leaves the target's distribution. Chunk rows
         (n_draft 0) reduce to the plain last-position sample. Returns
         Returns (accepts, next token, all live logits finite), int64 and
-        bool."""
+        bool. ``poison`` (B,), when given, is added to every position of
+        its row first."""
         logits = logits.float()
+        if poison is not None:
+            logits = logits + poison[:, None, None]
         b, q, v = logits.shape
         dev = logits.device
         q_lens, n_draft = q_lens.long(), n_draft.long()
@@ -1574,6 +1989,12 @@ class InferenceEngine:
             take = rec["takes"][req.rid]
             req.cache_len += take
             self.metrics.observe_prefill_chunk(take)
+            if self.faults is not None:
+                self.faults.prefill_delay(take)
+            if self.tracer.enabled:
+                self.tracer.instant("serve.prefill_chunk",
+                                    trace=req.trace_id, rid=req.rid,
+                                    step=self.step_seq, take=take)
             if self.prefix_cache is not None:
                 # every block this chunk filled is immutable now; publishing
                 # is suspended while live requests crowd the pool (a larger
@@ -1582,12 +2003,18 @@ class InferenceEngine:
                     self.metrics.observe_publish_suspended()
                 else:
                     self._defer_publish(req)
-            if req.cache_len < req.prefill_len or req.out_tokens:
-                # more chunks to go; or a preempted request whose pending
-                # next_token survives (its final chunk's sample is redundant)
+            if req.cache_len < req.prefill_len:
+                continue                    # more chunks to go
+            self._note_prefill_done(req, now)
+            if req.out_tokens:
+                # a preempted or migrated request keeps its pending
+                # next_token (its final chunk's sample is redundant)
                 continue
             req.ttft_s = now - req.submit_time
             self.metrics.observe_ttft(req.ttft_s)
+            if self.tracer.enabled:
+                self.tracer.instant("serve.first_token", trace=req.trace_id,
+                                    rid=req.rid, step=self.step_seq)
             self._emit(req, int(newtok[i]), events)
         if n_dec:
             self.metrics.observe_decode(emitted)
@@ -1603,6 +2030,7 @@ class InferenceEngine:
         tokens = req.resume_tokens
         snap = list(req.block_table)
         clen = req.cache_len
+        step = self.step_seq
 
         def run() -> None:
             if (req.state is not RequestState.RUNNING
@@ -1610,6 +2038,9 @@ class InferenceEngine:
                     or req.block_table[:len(snap)] != snap):
                 return
             cache.publish(tokens, snap, clen)
+            if self.tracer.enabled:
+                self.tracer.instant("serve.publish", trace=req.trace_id,
+                                    rid=req.rid, step=step)
 
         run.rid = req.rid
         self._deferred.append(run)
@@ -1633,10 +2064,15 @@ class InferenceEngine:
             reason = "length"
         else:
             return
+        self._note_leave_running(req, time.perf_counter())
         if self._deferred:
             self._flush_deferred_for(req)
         self.pool.free(req.block_table)
         req.block_table = []
         self.scheduler.finish(req, reason)
         self.metrics.observe_finish()
+        if self.tracer.enabled:
+            self.tracer.instant("serve.finish", trace=req.trace_id,
+                                rid=req.rid, reason=reason,
+                                step=self.step_seq)
         events["finished"].append(req.rid)

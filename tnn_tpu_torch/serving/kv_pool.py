@@ -138,6 +138,9 @@ class PagedKVPool:
         # hears of every evictable block recycled
         self.evictable_filter: Optional[Callable[[int], bool]] = None
         self.reclaim_hook: Optional[Callable[[List[int]], None]] = None
+        # chaos hook (a serving.faults.FaultPlan): alloc() consults it and
+        # may raise an injected PoolExhausted before any state changes
+        self.fault_plan = None
 
     # -- bookkeeping ----------------------------------------------------------
 
@@ -272,13 +275,18 @@ class PagedKVPool:
         ``start`` is the table position the first block will take: under
         sequence parallelism block i comes from shard ``(start + i) % sp``,
         so a sequence's pages spread round-robin over the shards. At sp = 1
-        it is ignored."""
+        it is ignored. With ``fault_plan`` set, an injected ``PoolExhausted``
+        may be raised before anything changes."""
         if self.sp == 1:
             if n > len(self._free) + len(self._evictable):
                 raise PoolExhausted(
                     f"need {n} blocks, {len(self._free)} free + "
                     f"{len(self._evictable)} evictable "
                     f"(capacity {self.capacity})")
+            if self.fault_plan is not None:
+                # before any bookkeeping changes: an injected failure never
+                # half-takes blocks, nor reclaims cached ones for nothing
+                self.fault_plan.on_alloc(n, self.num_allocatable)
             if n > len(self._free):
                 self._reclaim(n - len(self._free))
             blocks = [self._free.pop() for _ in range(n)]
@@ -290,6 +298,8 @@ class PagedKVPool:
                         f"need {n} blocks from table position {start}, but "
                         f"shard {s} can cover only {have} of its {need} "
                         f"(capacity {self.capacity}, {self.sp} SP shards)")
+            if self.fault_plan is not None:
+                self.fault_plan.on_alloc(n, self.num_allocatable)
             blocks = []
             for i in range(n):
                 s = (start + i) % self.sp

@@ -2,12 +2,21 @@
 TTFT percentiles, decode tokens/s, step latency, preemptions, finished
 requests, cancelled and timed-out requests, whole-prompt prefills,
 rejected and shed submits, the pool's KV bytes per token, the prefix cache's and speculative decoding's counters, and the
-overlapped loop's host gap, adopted speculative steps and rebuilds. All
-clocks are host wall clocks."""
+overlapped loop's host gap, adopted speculative steps and rebuilds, and
+the supervised server's restarts, crash migrations, transient-fault retries,
+queue waits and drain time. All clocks are host wall clocks.
+
+``ServingMetrics(profiler)`` also ticks each observation into the
+profiler's counters under the JAX package's keys (``serve.ttft_s``,
+``serve.engine_restarts``, ...; ``_tick``), so a traced run's counters
+sit beside its spans. ``Reservoir``, ``Histogram`` and the Prometheus
+exposition are not ported yet (ROADMAP.md)."""
 from __future__ import annotations
 
 import time
 from typing import Dict, List, Optional
+
+from ..profiling.profiler import Profiler
 
 
 def percentile(xs: List[float], q: float) -> float:
@@ -20,7 +29,8 @@ def percentile(xs: List[float], q: float) -> float:
 
 
 class ServingMetrics:
-    def __init__(self):
+    def __init__(self, profiler: Optional[Profiler] = None):
+        self.profiler = profiler
         self.ttft_s: List[float] = []
         self.step_latency_s: List[float] = []
         self.decode_tokens = 0
@@ -58,6 +68,15 @@ class ServingMetrics:
         self.spec_accepted_tokens = 0
         self.spec_committed_tokens = 0
         self.spec_row_steps = 0
+        # the supervised server: restarts, crash migrations (and the resume
+        # tokens they re-prefill), transient-fault retries, queue waits,
+        # the last drain's duration
+        self.engine_restarts = 0
+        self.migrated_requests = 0
+        self.migration_resume_tokens = 0
+        self.step_retries = 0
+        self.queue_wait_s: List[float] = []
+        self.drain_duration_s: Optional[float] = None
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
@@ -67,9 +86,14 @@ class ServingMetrics:
             self._t_first = now
         self._t_last = now
 
+    def _tick(self, metric: str, value: float) -> None:
+        if self.profiler is not None:
+            self.profiler.tick(metric, value)
+
     def observe_ttft(self, seconds: float) -> None:
         self._mark()
         self.ttft_s.append(seconds)
+        self._tick("serve.ttft_s", seconds)
 
     def observe_prefill(self, num_tokens: int, seconds: float) -> None:
         """One whole-prompt prefill of ``num_tokens``, ``seconds`` from its
@@ -78,17 +102,21 @@ class ServingMetrics:
         self.prefills += 1
         self.prefill_tokens += num_tokens
         self.prefill_s += seconds
+        self._tick("serve.prefill_s", seconds)
 
     def observe_rejected(self) -> None:
         """A submit refused by bounded admission (``AdmissionRejected``)."""
         self.rejected += 1
+        self._tick("serve.rejected", 1)
 
     def observe_shed(self) -> None:
         """A queued request displaced by a more important arrival."""
         self.shed += 1
+        self._tick("serve.shed", 1)
 
     def observe_prefill_chunk(self, num_tokens: int) -> None:
         self.prefill_tokens += num_tokens
+        self._tick("serve.prefill_chunks", 1)
 
     def observe_decode(self, num_tokens: int) -> None:
         """A step that emitted ``num_tokens`` decode-phase tokens."""
@@ -103,15 +131,18 @@ class ServingMetrics:
         if tokens_saved > 0:
             self.prefix_hits += 1
             self.prefill_tokens_saved += tokens_saved
+        self._tick("serve.prefix_tokens_saved", tokens_saved)
 
     def observe_prefix_cow(self) -> None:
         """A full-cover hit cloned its last block (copy-on-write)."""
         self.prefix_cows += 1
+        self._tick("serve.prefix_cows", 1)
 
     def observe_publish_suspended(self) -> None:
         """A prefix publish was skipped: the pool was above the engine's
         ``prefix_publish_max_occupancy``."""
         self.publish_suspended += 1
+        self._tick("serve.publish_suspended", 1)
 
     def observe_spec(self, drafted: int, accepted: int, committed: int,
                      rows: int = 1) -> None:
@@ -125,31 +156,68 @@ class ServingMetrics:
         self.spec_accepted_tokens += accepted
         self.spec_committed_tokens += committed
         self.spec_row_steps += rows
+        self._tick("serve.spec_accepted", accepted)
 
     def observe_step_latency(self, seconds: float) -> None:
         self.steps += 1
         self.step_latency_s.append(seconds)
+        self._tick("serve.step_latency_s", seconds)
+
+    def observe_queue_wait(self, seconds: float) -> None:
+        """One stretch QUEUED, ended by an admission (a re-admission after
+        preemption or migration observes its own)."""
+        self.queue_wait_s.append(seconds)
+        self._tick("serve.queue_wait_s", seconds)
 
     def observe_preemption(self) -> None:
         self.preemptions += 1
+        self._tick("serve.preemptions", 1)
 
     def observe_finish(self) -> None:
         self.finished += 1
 
     def observe_failed(self) -> None:
         self.failed += 1
+        self._tick("serve.failed", 1)
 
     def observe_cancelled(self) -> None:
         self.cancelled += 1
+        self._tick("serve.cancelled", 1)
 
     def observe_timeout(self) -> None:
         self.timed_out += 1
+        self._tick("serve.timed_out", 1)
+
+    def observe_restart(self) -> None:
+        """The supervisor reset the engine after a crash or watchdog trip."""
+        self.engine_restarts += 1
+        self._tick("serve.engine_restarts", 1)
+
+    def observe_migration(self, resume_tokens: int) -> None:
+        """One running request re-admitted through the resume path after
+        an engine restart; ``resume_tokens`` is what its re-prefill
+        pushes."""
+        self.migrated_requests += 1
+        self.migration_resume_tokens += resume_tokens
+        self._tick("serve.migrated_requests", 1)
+
+    def observe_step_retry(self) -> None:
+        """A transient step fault was retried (same inputs, same sampling
+        state)."""
+        self.step_retries += 1
+        self._tick("serve.step_retries", 1)
+
+    def observe_drain(self, seconds: float) -> None:
+        """A graceful drain finished after ``seconds``."""
+        self.drain_duration_s = seconds
+        self._tick("serve.drain_duration_s", seconds)
 
     def observe_host_gap(self, seconds: float) -> None:
         """Wall gap between a step's bundle fetch and the next dispatch:
         the window where the device waits on host bookkeeping, which the
         overlapped loop exists to close."""
         self.host_gap_s.append(seconds)
+        self._tick("serve.host_gap_s", seconds)
 
     def observe_overlap_adopted(self) -> None:
         """A speculatively dispatched step N+1 became the next step."""
@@ -159,6 +227,7 @@ class ServingMetrics:
         """A speculatively dispatched step N+1 was rolled back: step N's
         commit changed the row set it predicted."""
         self.overlap_rebuilds += 1
+        self._tick("serve.overlap_rebuild", 1)
 
     @property
     def elapsed_s(self) -> float:
@@ -195,6 +264,13 @@ class ServingMetrics:
             "failed": self.failed,
             "cancelled": self.cancelled,
             "timed_out": self.timed_out,
+            "step_retries": self.step_retries,
+            "engine_restarts": self.engine_restarts,
+            "migrated_requests": self.migrated_requests,
+            "migration_resume_tokens": self.migration_resume_tokens,
+            "drain_duration_s": self.drain_duration_s,
+            "queue_wait_ms_p50": percentile(self.queue_wait_s, 50) * 1e3,
+            "queue_wait_ms_p99": percentile(self.queue_wait_s, 99) * 1e3,
             "host_gap_ms_mean": (sum(self.host_gap_s) / len(self.host_gap_s)
                                  * 1e3) if self.host_gap_s else 0.0,
             "host_gap_ms_p50": percentile(self.host_gap_s, 50) * 1e3,

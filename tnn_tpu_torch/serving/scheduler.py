@@ -20,7 +20,10 @@ each decode row reserves ``1 + spec_tokens`` of the budget. With
 step's budget (decode rows first take one token each) and its blocks fit
 the pool; a prompt over the whole budget runs when it is the only work.
 ``shed_victim`` picks the queued request that a more important arrival
-displaces when the engine's queue is full.
+displaces when the engine's queue is full. ``migrate`` re-admits a running
+request after an engine restart (the supervisor's crash recovery), charged
+to its ``migration_budget``; ``Request.latency_breakdown`` is the per-request
+time attribution the terminal events carry.
 """
 from __future__ import annotations
 
@@ -85,15 +88,46 @@ class Request:
     next_token: Optional[int] = None    # sampled but not yet fed back
     out_tokens: List[int] = field(default_factory=list)
     preemptions: int = 0
+    migrations: int = 0                 # crash re-admissions
+    migration_budget: Optional[int] = None  # migrations before the request
+    #                                     FAILs as poison (None: unlimited)
     ttft_s: Optional[float] = None
     finish_reason: str = ""
     error: str = ""                     # detail for FAILED, CANCELLED and
     #                                     TIMED_OUT
     queued_time: float = 0.0            # the last move into QUEUED
+    trace_id: str = ""                  # set at submit, kept across
+    #                                     migrations
+    # -- latency breakdown: wall seconds summed over requeues --
+    queued_s: float = 0.0               # time spent QUEUED
+    prefill_s: float = 0.0              # (re-)prefill time
+    decode_s: float = 0.0               # decode-phase time
+    stall_s: float = 0.0                # decode-phase steps that emitted no
+    #                                     token for this row (part of
+    #                                     decode_s: a retried fault, a step
+    #                                     behind peer prefills)
+    host_gap_s: float = 0.0             # time between a step's fetch and
+    #                                     the next dispatch while running
+    phase: str = ""                     # "", "prefill" or "decode": the
+    phase_t0: float = 0.0               # open clock of the accumulators
 
     @property
     def is_terminal(self) -> bool:
         return self.state in TERMINAL_STATES
+
+    def latency_breakdown(self) -> Dict[str, float]:
+        """Where this request's lifetime went, in ms (terminal events carry
+        it): queued, prefill, decode, stalled and host-gap time, and its
+        preemption and migration counts."""
+        return {
+            "queued_ms": round(self.queued_s * 1e3, 3),
+            "prefill_ms": round(self.prefill_s * 1e3, 3),
+            "decode_ms": round(self.decode_s * 1e3, 3),
+            "stalled_ms": round(self.stall_s * 1e3, 3),
+            "host_gap_ms": round(self.host_gap_s * 1e3, 3),
+            "preemptions": self.preemptions,
+            "migrations": self.migrations,
+        }
 
     @property
     def num_generated(self) -> int:
@@ -289,4 +323,16 @@ class Scheduler:
         req.state = RequestState.QUEUED
         req.queued_time = time.perf_counter()
         req.preemptions += 1
+        self.waiting.appendleft(req)
+
+    def migrate(self, req: Request) -> None:
+        """Crash re-admission: the motion of ``requeue``, charged to the
+        request's ``migrations`` (its migration budget), not to
+        ``preemptions``. The engine frees the blocks first; the resume
+        sequence and the pending ``next_token`` make the resumed stream
+        token-exact under greedy decoding."""
+        self.running.remove(req)
+        req.state = RequestState.QUEUED
+        req.queued_time = time.perf_counter()
+        req.migrations += 1
         self.waiting.appendleft(req)

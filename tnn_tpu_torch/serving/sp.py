@@ -33,6 +33,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from ..nn.attention import apply_rope
 from ..ops import paged_attention as pa
 from ..ops.softmax_merge import merge_shards
 
@@ -144,12 +145,13 @@ class SPAttention:
             raise NotImplementedError(
                 "paged decode with a model-level int8 KV cache is not "
                 "served: quantize the pool instead (kv_dtype='int8')")
-        if base.rope_theta:
-            raise NotImplementedError("apply_paged with rope_theta (Llama "
-                                      "serving) is not ported yet")
         if q_lens is None and x.shape[1] != 1:
             raise ValueError("apply_paged with Q > 1 requires q_lens")
         q, k_new, v_new = base._project_qkv(x)
+        if base.rope_theta:
+            q, k_new = (apply_rope(t.transpose(1, 2), offsets,
+                                   base.rope_theta).transpose(1, 2)
+                        for t in (q, k_new))
         if not isinstance(pages_k[0], pa.QuantPages):
             k_new = k_new.to(pages_k[0].dtype)
             v_new = v_new.to(pages_v[0].dtype)

@@ -10,7 +10,10 @@ batch, one token per row, and names the program that runs it: "pdecode"
 (the paged path), "fdecode" (the fused kernel, when every live row sits at
 one offset: a lockstep batch) or "decode" (the assembled-cache standard
 path). Padding rows point their tables at the pool's scratch block and
-carry q_len 0. ``shard_tables`` turns a step's global tables into each
+carry q_len 0. Every packed step carries a (B,) f32 ``poison`` column,
+zero, which the engine's fault plan sets to NaN on the rows it poisons and
+every step program adds to its logits before the logit guard (as in the
+JAX package). ``shard_tables`` turns a step's global tables into each
 sequence-parallel shard's local ones. ``flat_inputs`` / ``split_inputs``
 put a step's int32 and float32 arrays into one int32 buffer and back, so
 a step's inputs reach the card in one copy.
@@ -34,6 +37,9 @@ class PackedStep:
     temps: np.ndarray               # (B,) sampling temperature per row
     topks: np.ndarray               # (B,) top-k per row
     topps: np.ndarray               # (B,) top-p per row
+    # (B,) f32 added to each row's logits before the logit guard: zero in
+    # every packed step, NaN where a fault plan poisons a row
+    poison: np.ndarray
 
 
 @dataclasses.dataclass
@@ -110,7 +116,8 @@ def _alloc_common(b: int, nb: int, scratch: int):
     return dict(tables=np.full((b, nb), scratch, np.int32),
                 temps=np.zeros((b,), np.float32),
                 topks=np.zeros((b,), np.int32),
-                topps=np.zeros((b,), np.float32))
+                topps=np.zeros((b,), np.float32),
+                poison=np.zeros((b,), np.float32))
 
 
 def pack_mixed(rows: Sequence[Any], n_dec: int, drafts: Dict[int, Any],

@@ -10,7 +10,10 @@ pure-decode step, in place of some 1,400 eager dispatches. A step copies
 its inputs into the graph's static buffer in one host-to-device copy (a
 speculative step then copies step N's sampled tokens over the token
 column on the device) and replays on the current stream; the static
-``(2, B)`` bundle holds the sampled tokens and the logit guard.
+``(2, B)`` bundle holds the sampled tokens and the logit guard. The logit
+poison column (zero unless a fault plan poisons a row) is one more static
+input of the same copy, so a NaN row fails through the replay exactly as
+through the eager program.
 
 Capture rules:
 
@@ -29,6 +32,13 @@ Capture rules:
 - The wrappers count their launches in Python, which a replay does not
   run: the launches the warm-up and the capture counted are taken back
   out, and each replay adds the capture's count again.
+
+- The capture runs with ``capture_error_mode="thread_local"``. Under the
+  supervised server the engine steps on the supervisor's worker thread
+  while the main thread reads input and prints; the default "global" mode
+  would let a CUDA call from another thread invalidate the capture. (The
+  supervisor also keeps every engine touch on the worker: ``worker_only``,
+  and ``stats()`` marshalled through it.)
 
 A failed capture or replay raises; nothing falls back to eager steps.
 """
@@ -68,15 +78,16 @@ def _set_launches(counts: Dict[Tuple[int, str], int]) -> None:
 def decode_arrays(step: step_build.DecodeStep) -> List[np.ndarray]:
     """A pdecode step's host inputs in the order the program takes them
     and the graph's static buffer holds them: tokens, offsets, tables,
-    temperatures, top-k, top-p."""
+    temperatures, top-k, top-p, the logit poison column."""
     return [step.toks, step.offsets, step.tables, step.temps, step.topks,
-            step.topps]
+            step.topps, step.poison]
 
 
 class DecodeGraph:
     """One captured pdecode program.
 
-    program(toks, offsets, tables, temps, topks, topps) -> (logits, bundle)
+    program(toks, offsets, tables, temps, topks, topps, poison)
+    -> (logits, bundle)
     runs the step on device tensors. ``inputs`` is the static int32
     buffer whose views the graph reads, ``logits`` and ``bundle`` its
     static outputs, ``launches`` the kernel launches one replay makes,
@@ -104,7 +115,8 @@ class DecodeGraph:
                 warm = read_launches()
                 self.graph = torch.cuda.CUDAGraph()
                 self.graph.register_generator_state(generator)
-                self.graph.capture_begin()
+                self.graph.capture_begin(
+                    capture_error_mode="thread_local")
                 try:
                     self.logits, self.bundle = program(*self.views)
                 finally:
