@@ -173,6 +173,42 @@ numbers on its own line:
    step launches nothing and dispatches nothing. The fault-free run's K1,
    the bf16 chaos run's K1 and the int8 chaos run's K2 and K3 join the
    kernels line.
+23. serving_fleet: the replica fleet (``serving/router.py``), each
+   replica an ``InferenceEngine`` with its own 512 x 16-block pool on
+   ``cuda:0`` under its own ``EngineSupervisor`` worker, all sharing
+   full-width ``gpt2_small``'s weights: the serving traffic on 2 replicas
+   under ``Router.start()`` against one supervised engine and a router
+   over one replica (bf16, in the order fleet, one, router, router, one,
+   fleet: decode tokens/s, mean step time, the placements, bf16
+   agreement and gaps) and FP32 (greedy streams token
+   for token); two replicas started together, each one's staged pdecode
+   step through its graph equal to its eager program bit for bit;
+   ``kill_replica`` after 16 streamed tokens (FP32: migrated
+   streams exact, nothing duplicated or dropped, the survivor's pool
+   empty, the migrated streams' longest token gap); roles prefill +
+   decode at a 256-token threshold, four 512-token prompts and two short
+   ones, with the KV handoff and with recompute (FP32 exact; blocks
+   shipped, the receiver's saved prefill, the first-to-second token gap),
+   the wire's bytes and export / adopt ms per block on the bf16, f32 and
+   int8 pools (the adopted blocks read back byte-equal) and the int8 pool
+   and weights through the same fleet (K2, K3; the decode replica's
+   adopted blocks byte-equal to the prefill replica's); the host tier on a
+   64-block pool (64 MiB): a 512-token prefix evicted and asked for
+   again, tier on against off (readmits, tokens saved, the return's TTFT,
+   the demote cost per block, the host gap, a pdecode replay after the
+   readmit equal to the eager program); ``fleet_prefix`` (a prefix on
+   replica 0 pulled by a sharer on replica 1); hedging against
+   ``slow_replica(1, 0.2)``; an autoscaler 1..3 under a burst of 24
+   requests (the replica count over time, every request done once, device
+   memory before and after the retired pools are released); ``cli.serve
+   --replicas 2 --http 127.0.0.1:0`` (SSE, non-stream, one-at-a-time
+   tokens against an in-process router, health, stats, /metrics with
+   replica labels and buckets, cancel, SIGTERM: 503 while draining, exit
+   0); ``cli.serve`` on stdin with ``--roles``, ``--host-tier-bytes``,
+   ``--fleet-prefix`` and ``--compile-cache DIR`` twice (the second start
+   runs no nvcc, the same tokens). Every fleet run holds K1 (K2) = 12 x
+   the paged dispatches summed over its replicas and K3 = 49 x its wide
+   steps; its K1, K2 and K3 join the kernels line.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -5303,6 +5339,1039 @@ def phase_serving_supervised(results):
     torch.cuda.empty_cache()
 
 
+# -- phase 23 -----------------------------------------------------------------
+
+FLEET_ENGINE = dict(num_blocks=512, block_size=16, max_batch_size=8,
+                    chunk_size=64)
+FLEET_WAIT_S = 180.0          # the longest any wait of the phase may take
+DISAGG_THRESHOLD = 256
+
+
+class FleetSink:
+    """A router's event sink (on the replicas' worker threads): every
+    event, each stream's tokens and their arrival times, one terminal
+    event per request (a second raises), ``done`` set when ``expect``
+    terminals arrived, ``tokens_seen`` set at the ``token_mark``-th token
+    event."""
+
+    def __init__(self, expect, token_mark=None):
+        import threading
+
+        self.expect, self.token_mark = expect, token_mark
+        self.streamed, self.times, self.term = {}, {}, {}
+        self.tokens = 0
+        self.done = threading.Event()
+        self.tokens_seen = threading.Event()
+        self.errors = []
+
+    def __call__(self, ev):
+        gid = ev["id"]
+        if ev["event"] == "token":
+            self.streamed.setdefault(gid, []).append(ev["token"])
+            self.times.setdefault(gid, []).append(time.perf_counter())
+            self.tokens += 1
+            if self.token_mark is not None and \
+                    self.tokens == self.token_mark:
+                self.tokens_seen.set()
+        elif gid in self.term:
+            self.errors.append(f"two terminal events for {gid}")
+        else:
+            self.term[gid] = ev
+            if len(self.term) >= self.expect:
+                self.done.set()
+
+    def exactly_once(self, gids):
+        """Every request one terminal event, ``done``, with its streamed
+        tokens equal to its final ones (none duplicated or dropped)."""
+        return not self.errors and all(
+            self.term.get(g, {}).get("event") == "done"
+            and self.term[g]["tokens"] == self.streamed.get(g, [])
+            for g in gids)
+
+    def gap_ms(self, gid):
+        t = self.times.get(gid, [])
+        return max((b - a for a, b in zip(t, t[1:])), default=0.0) * 1e3
+
+
+def fleet_engines(model, n, seed=0, **engine_kw):
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+    from tnn_tpu_torch.serving.supervisor import EngineSupervisor
+
+    kw = {**FLEET_ENGINE, "overlap": True, **engine_kw}
+    engines = [InferenceEngine(model, seed=seed, device=model.device, **kw)
+               for _ in range(n)]
+    sups = [EngineSupervisor(e, restart_backoff_s=0.0, idle_wait_s=0.005)
+            for e in engines]
+    return engines, sups
+
+
+def fleet_expected(model, engines, wide):
+    """The launch identities summed over a fleet's engines (every engine
+    that stepped, a killed one included); K3 = 49 x the fleet's wide
+    mixed steps."""
+    want = {}
+    for e in engines:
+        for k, v in expected_launches(model, e, 0).items():
+            want[k] = want.get(k, 0) + v
+    if engines[0].quant_weights:
+        want["k3"] = (4 * model.num_layers + 1) * wide
+    want["k4"] = 0
+    return want
+
+
+def fleet_run(model, reqs, n=2, *, router_kw=None, engine_kw=None,
+              kill_after=None, before=None):
+    """``reqs`` through a started ``Router`` over ``n`` supervised replicas
+    (overlap on, pools of 512 x 16): submit all, wait for one terminal
+    each, drain, join. ``kill_after``: once that many token events
+    arrived, ``kill_replica`` the replica holding the most live streams.
+    ``before(router)`` runs after the start, before the submits. Launches
+    are counted over the run alone. Returns a dict of the run."""
+    import torch
+
+    from tnn_tpu_torch.serving.router import Router
+
+    engines, sups = fleet_engines(model, n, **(engine_kw or {}))
+    sink = FleetSink(len(reqs), token_mark=kill_after)
+    # the monitor probes at the router's default interval (the CLI's)
+    # unless a step asks for a faster one
+    router = Router(sups, event_sink=sink, seed=0, **(router_kw or {}))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    out = {}
+
+    def drive():
+        router.start()
+        if before is not None:
+            before(router)
+        out["t0"] = time.perf_counter()
+        gids, placed = [], []
+        for p, m, kw in reqs:
+            gids.append(router.submit(p, m, **kw))
+            rec = router._open.get(gids[-1])
+            placed.append(None if rec is None else rec.replica)
+        if kill_after is not None:
+            if not sink.tokens_seen.wait(FLEET_WAIT_S):
+                raise AssertionError("fleet: the kill mark never came")
+            victim = max(router.replicas, key=lambda h: len(h.live))
+            out["victim"] = victim.idx
+            out["victim_streams"] = sorted(victim.live)
+            router.kill_replica(victim.idx)
+        if not sink.done.wait(FLEET_WAIT_S):
+            raise AssertionError(f"fleet: {len(sink.term)} of {len(reqs)} "
+                                 f"terminal events after {FLEET_WAIT_S}s")
+        out["served_s"] = time.perf_counter() - out["t0"]
+        router.request_drain("traffic done")
+        if not router.join(FLEET_WAIT_S):
+            raise AssertionError("fleet: the router did not stop")
+        out["wall_s"] = time.perf_counter() - out["t0"]
+        return gids, placed
+
+    (gids, placed), wide = count_wide_steps(drive)
+    torch.cuda.synchronize()
+    launches = read_all_launches()
+    st = router.stats()
+    decode = sum(e.stats()["decode_tokens"] for e in engines)
+    steps = [(e.stats()["steps"], e.stats()["step_latency_ms_mean"])
+             for e in engines]
+    out.update(
+        router=router, engines=engines, sink=sink, gids=gids,
+        fields=dict(
+            placed=placed, state=router.state.value,
+            exit_code=router.exit_code, launches=launches,
+            expected_launches=fleet_expected(model, engines, wide),
+            program_steps=[e.stats()["program_steps"] for e in engines],
+            graph_replays=[e.stats()["graph_replays"] for e in engines],
+            served_s=out["served_s"], wall_s=out["wall_s"],
+            decode_tok_per_s=decode / out["wall_s"],
+            step_ms_mean=sum(s * m for s, m in steps)
+            / max(1, sum(s for s, _ in steps)),
+            terminal={k: sum(e["event"] == k for e in sink.term.values())
+                      for k in ("done", "error", "timeout", "cancelled")},
+            exactly_once=sink.exactly_once(gids),
+            migrated=st["migrated_requests"],
+            router_retries=st["router_retries"],
+            boundary_handoffs=st["boundary_handoffs"],
+            handoff_fallbacks=st["handoff_fallbacks"],
+            fleet_prefix_pulls=st["fleet_prefix_pulls"],
+            hedges={k: st[k] for k in ("hedges_fired", "hedges_won",
+                                       "hedges_cancelled")},
+            degraded_ejections=st["degraded_ejections"]))
+    out["fields"]["launches_hold"] = \
+        launches == out["fields"]["expected_launches"]
+    return out
+
+
+def done_tokens(run, gids=None):
+    sink = run["sink"]
+    return [sink.term[g]["tokens"] for g in (gids or run["gids"])]
+
+
+def single_run(model, reqs, **engine_kw):
+    """``reqs`` through one engine (the fleet's engine settings, the
+    overlapped loop); returns (engine, tokens per request, wall)."""
+    import torch
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(model, seed=0, device=model.device,
+                             **{**FLEET_ENGINE, "overlap": True,
+                                **engine_kw})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, m, **kw) for p, m, kw in reqs]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    return engine, [engine.result(r).out_tokens for r in rids], \
+        time.perf_counter() - t0
+
+
+def greedy(reqs):
+    return [i for i, (_, _, kw) in enumerate(reqs)
+            if kw.get("temperature", 0.0) == 0.0]
+
+
+def fleet_streams(model, reqs, ref, got, gate):
+    idx = greedy(reqs)
+    return compare_streams(model, [reqs[i][0] for i in idx],
+                           [ref[i] for i in idx], [got[i] for i in idx],
+                           gate)
+
+
+def fleet_check(name, ok, fields):
+    fields["ok"] = bool(ok)
+    log(name, **fields)
+    if not ok:
+        raise AssertionError(f"{name}: {fields}")
+
+
+def fleet_traffic_ab(model, fp32, results):
+    """Step 1: the serving traffic on a fleet of 2 under ``Router.start()``
+    against one supervised engine, bf16 in the order fleet, one, router
+    over one replica, router over one, one, fleet (where the fleet's time
+    goes: the router alone, then the second replica); then FP32 once
+    each, greedy streams token for token."""
+    reqs = traffic_requests(model.vocab_size, 0)
+    arms = {"fleet": [], "single": [], "router1": []}
+    for name in ("fleet", "single", "router1", "router1", "single",
+                 "fleet"):
+        if name != "single":
+            run = fleet_run(model, reqs, n=2 if name == "fleet" else 1)
+            arms[name].append(run)
+        else:
+            eng, _, rids, _, f = supervised_run(model)
+            arms[name].append((eng, rids, f))
+    ref_eng, ref_rids, _ = arms["single"][0]
+    ref = [ref_eng.result(r).out_tokens for r in ref_rids]
+    a = arms["fleet"][0]
+    agree = fleet_streams(model, reqs, ref, done_tokens(a), "report")
+    fields = dict(
+        placements=[r["fields"]["placed"] for r in arms["fleet"]],
+        fleet=[{k: r["fields"][k] for k in (
+            "decode_tok_per_s", "step_ms_mean", "wall_s", "launches",
+            "program_steps", "graph_replays", "terminal", "exactly_once",
+            "launches_hold")} for r in arms["fleet"]],
+        router1=[{k: r["fields"][k] for k in (
+            "decode_tok_per_s", "step_ms_mean", "wall_s", "launches_hold")}
+            for r in arms["router1"]],
+        single=[{"decode_tok_per_s": e.stats()["decode_tokens"]
+                 / f["wall_s"], "step_ms_mean": f["step_ms_mean"],
+                 "wall_s": f["wall_s"]} for e, _, f in arms["single"]],
+        bf16_agreement=agree)
+    ok = all(r["fields"]["launches_hold"] and r["fields"]["exactly_once"]
+             and r["fields"]["terminal"]["done"] == 8
+             and r["fields"]["exit_code"] == 0
+             and len(set(r["fields"]["placed"])) == 2
+             for r in arms["fleet"]) and all(
+        r["fields"]["launches_hold"] and r["fields"]["exactly_once"]
+        for r in arms["router1"])
+    fleet_check("serving_fleet_traffic", ok, fields)
+    results["launches"] += sum(r["fields"]["launches"]["k1"]
+                               for r in arms["fleet"] + arms["router1"])
+    del arms
+    # FP32: the fleet's greedy streams against one engine's
+    _, fref, _ = single_run(fp32, reqs)
+    run = fleet_run(fp32, reqs)
+    exact = fleet_streams(fp32, reqs, fref, done_tokens(run), "exact")
+    fleet_check("serving_fleet_fp32", run["fields"]["launches_hold"]
+                and run["fields"]["exactly_once"], dict(
+                    streams=exact, placed=run["fields"]["placed"],
+                    launches=run["fields"]["launches"]))
+    results["launches"] += run["fields"]["launches"]["k1"]
+    return reqs, fref
+
+
+def fleet_replay_check(model, results):
+    """Two replicas started together, each capturing its pdecode graph on
+    its own worker (captures serialized by ``step_graph._CAPTURE_LOCK``):
+    once both stream, each replica's next staged step through the graph
+    is equal to its eager program bit for bit (``replay_vs_eager`` on the
+    replica's own worker, between steps: synchronous engines, so no step
+    is in flight)."""
+    import numpy as np
+
+    from tnn_tpu_torch.serving import step_graph
+    from tnn_tpu_torch.serving.router import Router
+
+    engines, sups = fleet_engines(model, 2, overlap=False)
+    rng = np.random.default_rng(11)
+    # prompts of 16k + 2 tokens: a row's next position opens a block (and
+    # the staged step, which grows no table, would write the scratch page)
+    # only 15 tokens in, well after the check
+    reqs = [(rng.integers(0, model.vocab_size, 66 + 16 * i), 48, {})
+            for i in range(4)]
+    sink = FleetSink(len(reqs), token_mark=12)
+    router = Router(sups, event_sink=sink, seed=0, probe_interval_s=0.01)
+    reset_all_launches()
+    router.start()
+    for p, m, kw in reqs:
+        router.submit(p, m, **kw)
+    if not sink.tokens_seen.wait(FLEET_WAIT_S):
+        raise AssertionError("replay check: the replicas never streamed")
+    def locked_check(engine):
+        # replay_vs_eager synchronizes the device, which fails while the
+        # other replica's worker is inside a capture: hold the capture
+        # lock (reentrant: the check may capture the graph itself)
+        with step_graph._CAPTURE_LOCK:
+            return replay_vs_eager(engine)
+
+    checks = [sup.execute(lambda e=e: locked_check(e))
+              for e, sup in zip(engines, sups)]
+    if not sink.done.wait(FLEET_WAIT_S):
+        raise AssertionError("replay check: the traffic never finished")
+    router.request_drain("check done")
+    router.join(FLEET_WAIT_S)
+    launches = read_all_launches()
+    want = fleet_expected(model, engines, 0)
+    # the checks' eager programs and replays launch K1 off the books of
+    # program_steps: 12 each
+    extra = 2 * model.num_layers * len(checks)
+    fields = dict(checks=checks, graphs=[e.stats()["step_graphs"]
+                                         for e in engines],
+                  replays=[e.stats()["graph_replays"] for e in engines],
+                  launches=launches, expected_k1=want["k1"] + extra,
+                  exactly_once=sink.exactly_once(sorted(sink.term)))
+    fleet_check("serving_fleet_replay",
+                all(c["logits_equal"] and c["bundle_equal"]
+                    and c["generator_equal"] for c in checks)
+                and launches["k1"] == want["k1"] + extra
+                and all(g == 1 for g in fields["graphs"])
+                and fields["exactly_once"], fields)
+    results["launches"] += launches["k1"]
+
+
+def fleet_kill(fp32, reqs, fref, results):
+    """Step 2: ``kill_replica`` mid-stream after 16 streamed tokens (FP32):
+    the migrated streams token-exact, nothing duplicated or dropped, the
+    survivor leaks no block; the longest token gap of the migrated
+    streams."""
+    run = fleet_run(fp32, reqs, kill_after=16)
+    router, sink = run["router"], run["sink"]
+    exact = fleet_streams(fp32, reqs, fref, done_tokens(run), "exact")
+    victim = run["victim"]
+    survivors = [e for i, e in enumerate(run["engines"]) if i != victim]
+    for e in survivors:
+        e.check_invariants()
+    migrated = run["victim_streams"]
+    fields = dict(victim=victim, migrated_streams=migrated,
+                  migrated=run["fields"]["migrated"],
+                  streams=exact, exactly_once=run["fields"]["exactly_once"],
+                  survivor_pool_allocated=[e.pool.num_allocated
+                                           for e in survivors],
+                  migrated_token_gap_ms_max=[sink.gap_ms(g)
+                                             for g in migrated],
+                  released=[h.released for h in router.replicas],
+                  launches=run["fields"]["launches"],
+                  launches_hold=run["fields"]["launches_hold"])
+    fleet_check("serving_fleet_kill",
+                run["fields"]["exactly_once"] and migrated
+                and run["fields"]["migrated"] >= len(migrated)
+                and all(e.pool.num_allocated == 0 for e in survivors)
+                and run["fields"]["launches_hold"], fields)
+    results["launches"] += run["fields"]["launches"]["k1"]
+
+
+def handoff_costs(model, label, **engine_kw):
+    """One engine prefills a 512-token prompt; its chain is exported
+    (``export_prefix``) and adopted by a second engine (``adopt_prefix``),
+    both timed (the export is one synchronous copy to the host); the
+    adopted blocks read back byte-equal to the wire."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    kw = {**FLEET_ENGINE, **engine_kw}
+    a = InferenceEngine(model, device=model.device, **kw)
+    b = InferenceEngine(model, device=model.device, **kw)
+    prompt = np.random.default_rng(31).integers(0, model.vocab_size, 512)
+    a.submit(prompt, 1)
+    a.run_until_complete()
+    times = {"export": [], "adopt": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex = a.export_prefix(prompt)
+        times["export"].append(time.perf_counter() - t0)
+        fresh = InferenceEngine(model, device=model.device, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.adopt_prefix(ex)
+        torch.cuda.synchronize()
+        times["adopt"].append(time.perf_counter() - t0)
+        del fresh
+    b.adopt_prefix(ex)
+    equal = all(
+        all(np.array_equal(x, y) for x, y in zip(
+            b.pool.export_blocks([b.prefix_cache.block_of(k)])[0], lv))
+        for k, lv, _ in ex)
+    blocks = len(ex)
+    fields = dict(
+        pool=label, blocks=blocks,
+        wire_bytes_per_block=sum(x.nbytes for x in ex[0][1]),
+        leaves=[str(x.dtype) for x in ex[0][1]],
+        export_ms_per_block=[t * 1e3 / blocks for t in times["export"]],
+        adopt_ms_per_block=[t * 1e3 / blocks for t in times["adopt"]],
+        read_back_byte_equal=equal)
+    return fields
+
+
+def fleet_disagg(model, fp32, results):
+    """Step 3: roles prefill + decode, threshold 256: four 512-token
+    prompts and two short ones, FP32, with the KV handoff and without
+    (recompute), token-exact against one engine; blocks shipped, the
+    receiver's saved prefill, the long streams' first-to-second token gap;
+    the wire's bytes and export / adopt ms per block on the bf16, f32 and
+    int8 pools (the adopted int8 block byte-equal); the int8 pool and
+    weights through the same fleet (K2, K3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    reqs = [(rng.integers(0, model.vocab_size, 512), 32, {})
+            for _ in range(4)]
+    reqs += [(rng.integers(0, model.vocab_size, 64), 32, {})
+             for _ in range(2)]
+    _, ref, _ = single_run(fp32, reqs)
+    rkw = dict(roles=["prefill", "decode"],
+               disagg_prompt_threshold=DISAGG_THRESHOLD)
+    out, ok = {}, True
+    for kv in (True, False):
+        run = fleet_run(fp32, reqs, router_kw=dict(rkw, handoff_kv=kv))
+        recv, send = (e.stats() for e in run["engines"][::-1])
+        long_gaps = [(t[1] - t[0]) * 1e3 for t in
+                     (run["sink"].times[g] for g in run["gids"][:4])]
+        f = run["fields"]
+        out["kv" if kv else "recompute"] = dict(
+            streams=fleet_streams(fp32, reqs, ref, done_tokens(run),
+                                  "exact"),
+            placed=f["placed"], boundary_handoffs=f["boundary_handoffs"],
+            handoff_fallbacks=f["handoff_fallbacks"],
+            exported_blocks=send["handoff_exported_blocks"],
+            adopted_blocks=recv["handoff_adopted_blocks"],
+            receiver_prefill_tokens_saved=recv["prefill_tokens_saved"],
+            first_to_second_token_ms=long_gaps,
+            launches=f["launches"], launches_hold=f["launches_hold"],
+            exactly_once=f["exactly_once"])
+        ok = ok and f["launches_hold"] and f["exactly_once"] \
+            and f["boundary_handoffs"] == 4 \
+            and f["placed"] == [0, 0, 0, 0, 1, 1]
+        if kv:
+            ok = ok and f["handoff_fallbacks"] == 0 \
+                and recv["handoff_adopted_blocks"] > 0 \
+                and recv["prefill_tokens_saved"] > 0
+        results["launches"] += f["launches"]["k1"]
+    costs = [handoff_costs(model, "bf16"), handoff_costs(fp32, "f32"),
+             handoff_costs(model, "int8", kv_dtype="int8")]
+    # K and V of one block over every layer and head (gpt2_small: 589,824
+    # B bf16, 1,179,648 f32, 313,344 int8 with its f32 scales)
+    page = model.num_layers * model.num_kv_heads * FLEET_ENGINE[
+        "block_size"] * (model.d_model // model.num_heads)
+    scales = model.num_layers * model.num_kv_heads * FLEET_ENGINE[
+        "block_size"] * 4
+    want_bytes = {"bf16": 2 * 2 * page, "f32": 2 * 4 * page,
+                  "int8": 2 * (page + scales)}
+    out["wire_bytes_expected"] = want_bytes
+    ok = ok and all(c["wire_bytes_per_block"] == want_bytes[c["pool"]]
+                    and c["read_back_byte_equal"] and c["blocks"] == 32
+                    for c in costs)
+    run = fleet_run(model, reqs, router_kw=rkw, engine_kw=INT8_SERVING)
+    f = run["fields"]
+    # the prefill replica's chain of each long prompt against the blocks
+    # the decode replica adopted, leaf for leaf (int8 data and scales)
+    send, recv = run["engines"]
+    equal = []
+    for p, _, _ in reqs[:4]:
+        a, b = send.export_prefix(p), recv.export_prefix(p)
+        equal.append(len(a) == len(b) == 32 and all(
+            x[0] == y[0] and x[2] == y[2] and all(
+                np.array_equal(u, v) for u, v in zip(x[1], y[1]))
+            for x, y in zip(a, b)))
+    out["int8_fleet"] = dict(launches=f["launches"],
+                             expected=f["expected_launches"],
+                             boundary_handoffs=f["boundary_handoffs"],
+                             handoff_fallbacks=f["handoff_fallbacks"],
+                             adopted_blocks_byte_equal=equal,
+                             exactly_once=f["exactly_once"])
+    ok = ok and f["launches_hold"] and f["exactly_once"] and all(equal) \
+        and f["launches"]["k2"] > 0 and f["launches"]["k3"] > 0
+    results["int8_launches"]["k2"] += f["launches"]["k2"]
+    results["int8_launches"]["k3"] += f["launches"]["k3"]
+    out["wire"] = costs
+    fleet_check("serving_fleet_disagg", ok, out)
+
+
+def tier_sequence(fp32, tier_bytes):
+    """A 512-token prefix served, evicted by fillers of 480, 480 and 32
+    tokens (the last pushes the prefix's first block out too: a readmit
+    walk whose allocation reclaimed a still-resident first block would
+    break its own chain, as in the JAX engine), then asked for again with
+    another tail, one at a time on a 64-block pool (FP32); returns
+    (engine, prompts, tokens, the return's TTFT, demote times, the
+    replay-against-eager check)."""
+    import numpy as np
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(fp32, num_blocks=64, block_size=16,
+                             max_batch_size=8, chunk_size=64, seed=0,
+                             device=fp32.device, overlap=True,
+                             host_tier_bytes=tier_bytes)
+    demotes = []
+    if tier_bytes:
+        hook = engine.pool.demote_hook
+
+        def timed(blocks):
+            t0 = time.perf_counter()
+            hook(blocks)
+            demotes.append((len(blocks), time.perf_counter() - t0))
+
+        engine.pool.demote_hook = timed
+    rng = np.random.default_rng(41)
+    prefix = rng.integers(0, fp32.vocab_size, 512)
+    prompts = [np.concatenate([prefix, rng.integers(0, fp32.vocab_size,
+                                                    16)])]
+    prompts += [rng.integers(0, fp32.vocab_size, n) for n in (480, 480, 32)]
+    tokens = []
+    for p in prompts:
+        rid = engine.submit(p, 32)
+        engine.run_until_complete()
+        tokens.append(engine.result(rid).out_tokens)
+    back = np.concatenate([prefix, rng.integers(0, fp32.vocab_size, 16)])
+    rid = engine.submit(back, 32)
+    # two tokens in: its next position lies in a block its table holds (at
+    # the first, position 528 opens a block the next step would grow, and
+    # a staged step would write it into the scratch page the padded rows
+    # share)
+    while len(engine.result(rid).out_tokens) < 2:
+        engine.step()
+    replay = replay_vs_eager(engine)
+    engine.run_until_complete()
+    tokens.append(engine.result(rid).out_tokens)
+    engine.check_invariants()
+    return engine, prompts + [back], tokens, \
+        engine.result(rid).ttft_s * 1e3, demotes, replay
+
+
+def fleet_tier(fp32):
+    """Step 4: the host tier on one replica (64 blocks, 64 MiB of host
+    RAM), tier on against off: the readmitted blocks, the tokens saved,
+    the return's TTFT, token-exact streams, the demote cost per block,
+    the host gap and step time; a pdecode replay after the readmit equal
+    to the eager program."""
+    on, prompts, got, ttft_on, demotes, replay = tier_sequence(fp32, 64 << 20)
+    off, _, ref, ttft_off, _, replay_off = tier_sequence(fp32, 0)
+    s_on, s_off = on.stats(), off.stats()
+    blocks = sum(n for n, _ in demotes)
+    fields = dict(
+        streams=compare_streams(fp32, prompts, ref, got, "exact"),
+        tier_demotions=s_on["tier_demotions"],
+        tier_readmits=s_on["tier_readmits"],
+        tier_bytes=s_on["tier_bytes"],
+        prefill_tokens_saved={"on": s_on["prefill_tokens_saved"],
+                              "off": s_off["prefill_tokens_saved"]},
+        return_ttft_ms={"on": ttft_on, "off": ttft_off},
+        demote_ms_per_block=sum(t for _, t in demotes) * 1e3
+        / max(blocks, 1), demote_calls=len(demotes),
+        host_gap_ms_mean={"on": s_on["host_gap_ms_mean"],
+                          "off": s_off["host_gap_ms_mean"]},
+        step_ms_mean={"on": s_on["step_latency_ms_mean"],
+                      "off": s_off["step_latency_ms_mean"]},
+        replay_after_readmit=replay)
+    fleet_check("serving_fleet_tier",
+                s_on["tier_readmits"] >= 32
+                and s_on["prefill_tokens_saved"] >= 512
+                > s_off["prefill_tokens_saved"]
+                and replay["logits_equal"] and replay["bundle_equal"]
+                and replay["generator_equal"]
+                and s_on["tier_corrupt_dropped"] == 0, fields)
+
+
+def fleet_prefix_pull(fp32, results):
+    """Step 5: ``fleet_prefix=True``: a 512-token prefix computed on
+    replica 0 (the prefill role: 608 tokens, over the 600 threshold) is
+    pulled by a sharer placed on replica 1 (544 tokens); token-exact
+    against one engine."""
+    import numpy as np
+
+    rng = np.random.default_rng(51)
+    prefix = rng.integers(0, fp32.vocab_size, 512)
+    seeder = (np.concatenate([prefix, rng.integers(0, fp32.vocab_size,
+                                                   96)]), 1, {})
+    sharer = (np.concatenate([prefix, rng.integers(0, fp32.vocab_size,
+                                                   32)]), 16, {})
+    _, ref, _ = single_run(fp32, [seeder, sharer])
+
+    def before(router):
+        sink = router.event_sink
+        sink.expect = 1
+        router.submit(*seeder[:2])
+        if not sink.done.wait(FLEET_WAIT_S):
+            raise AssertionError("fleet prefix: the seeder never finished")
+        router._refresh_prefix_dir()
+        sink.done.clear()
+        sink.expect = 2
+
+    run = fleet_run(fp32, [sharer], router_kw=dict(
+        roles=["prefill", "decode"], disagg_prompt_threshold=600,
+        fleet_prefix=True), before=before)
+    recv = run["engines"][1].stats()
+    got = [run["sink"].term[g]["tokens"] for g in sorted(run["sink"].term)]
+    fields = dict(
+        fleet_prefix_pulls=run["fields"]["fleet_prefix_pulls"],
+        adopted_blocks=recv["handoff_adopted_blocks"],
+        receiver_prefill_tokens_saved=recv["prefill_tokens_saved"],
+        placed=run["fields"]["placed"],
+        streams=compare_streams(fp32, [seeder[0], sharer[0]], ref, got,
+                                "exact"),
+        launches_hold=run["fields"]["launches_hold"])
+    fleet_check("serving_fleet_prefix",
+                run["fields"]["fleet_prefix_pulls"] == 1
+                and recv["handoff_adopted_blocks"] >= 32
+                and recv["prefill_tokens_saved"] >= 512
+                and run["fields"]["placed"] == [1]
+                and run["fields"]["launches_hold"], fields)
+    results["launches"] += run["fields"]["launches"]["k1"]
+
+
+def fleet_hedge(model, results):
+    """Step 6: hedging on a fleet of 2 with replica 1 slowed by 0.2 s a
+    step (``slow_replica``) and ``hedge_ttft_s=0.05``: hedges fired and
+    won, every stream exactly once."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    reqs = [(rng.integers(0, model.vocab_size, 64), 16, {})
+            for _ in range(4)]
+
+    def before(router):
+        # warm both replicas (their first decode steps capture graphs)
+        sink = router.event_sink
+        sink.expect = 2
+        for _ in range(2):
+            router.submit(rng.integers(0, model.vocab_size, 32), 2)
+        if not sink.done.wait(FLEET_WAIT_S):
+            raise AssertionError("hedge: the warm-up never finished")
+        sink.done.clear()
+        sink.expect = 6
+        router.slow_replica(1, 0.2)
+
+    run = fleet_run(model, reqs, router_kw=dict(
+        hedge_ttft_s=0.05, hedge_budget=1.0, probe_interval_s=0.01),
+        before=before)
+    f = run["fields"]
+    fields = dict(hedges=f["hedges"], placed=f["placed"],
+                  degraded_ejections=f["degraded_ejections"],
+                  migrated=f["migrated"], served_s=f["served_s"],
+                  exactly_once=f["exactly_once"], terminal=f["terminal"],
+                  launches=f["launches"], launches_hold=f["launches_hold"])
+    fleet_check("serving_fleet_hedge",
+                f["hedges"]["hedges_fired"] >= 1
+                and f["hedges"]["hedges_won"] >= 1
+                and f["exactly_once"] and f["launches_hold"], fields)
+    results["launches"] += f["launches"]["k1"]
+
+
+def fleet_autoscale(model, results):
+    """Step 7: an autoscaler 1..3 over a started router under a burst of
+    24 requests: the replica count over time, every request ``done`` once
+    (zero-loss scale-down), device memory with the fleet at its largest
+    and after the retired replicas gave their pools back."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.serving.autoscaler import Autoscaler
+    from tnn_tpu_torch.serving.router import Router
+
+    engines, sups = fleet_engines(model, 1)
+    built = list(engines)
+
+    def factory():
+        e, s = fleet_engines(model, 1)
+        built.extend(e)
+        return s[0]
+
+    rng = np.random.default_rng(71)
+    reqs = [(rng.integers(0, model.vocab_size, int(rng.integers(64, 257))),
+             32, {}) for _ in range(24)]
+    sink = FleetSink(len(reqs))
+    router = Router(sups, event_sink=sink, seed=0, probe_interval_s=0.01)
+    scaler = Autoscaler(router, factory, min_replicas=1, max_replicas=3,
+                        up_load=4.0, down_load=1.0, hysteresis_s=0.25,
+                        cooldown_s=0.5)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    timeline, mem = [], {}
+
+    def drive():
+        router.start()
+        scaler.start()
+        t0 = time.perf_counter()
+        gids = [router.submit(p, m, **kw) for p, m, kw in reqs]
+        last = None
+        while time.perf_counter() - t0 < FLEET_WAIT_S:
+            n = router.num_active_replicas()
+            if n != last:
+                timeline.append((round(time.perf_counter() - t0, 3), n))
+                last = n
+            if n == 3 and "largest" not in mem:
+                mem["largest"] = torch.cuda.memory_allocated()
+            if sink.done.is_set() and n == 1 and all(
+                    h.released for h in router.replicas if h.retired):
+                break
+            time.sleep(0.02)
+        mem["after_retire"] = torch.cuda.memory_allocated()
+        scaler.stop()
+        router.request_drain("traffic done")
+        if not router.join(FLEET_WAIT_S):
+            raise AssertionError("autoscale: the router did not stop")
+        return gids
+
+    gids, wide = count_wide_steps(drive)
+    torch.cuda.synchronize()
+    launches = read_all_launches()
+    want = fleet_expected(model, built, wide)
+    st = scaler.stats()
+    fields = dict(replicas_over_time=timeline, scaler=st,
+                  exactly_once=sink.exactly_once(gids),
+                  terminal={k: sum(e["event"] == k
+                                   for e in sink.term.values())
+                            for k in ("done", "error")},
+                  memory_allocated_mb={k: v / 2 ** 20
+                                       for k, v in mem.items()},
+                  released=[h.released for h in router.replicas],
+                  launches=launches, launches_hold=launches == want)
+    fleet_check("serving_fleet_autoscale",
+                st["scale_ups"] >= 1 and st["scale_downs"] >= 1
+                and sink.exactly_once(gids) and launches == want
+                and "largest" in mem
+                and mem["after_retire"] < mem["largest"], fields)
+    results["launches"] += launches["k1"]
+
+
+def http_call(port, method, path, body=None, timeout=120):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read().decode()
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), data
+
+
+def sse_stream(port, body, on_event=None, timeout=300):
+    """POST /v1/generate with SSE; returns (status, events)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/v1/generate", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events = []
+    while True:
+        line = resp.fp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            ev = json.loads(line[6:])
+            events.append(ev)
+            if on_event is not None:
+                on_event(ev)
+            if ev.get("event") not in ("start", "token"):
+                break
+    conn.close()
+    return resp.status, events
+
+
+def prometheus_samples(text):
+    types, samples = {}, []
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+        elif ln and not ln.startswith("#"):
+            metric, value = ln.rsplit(" ", 1)
+            labels = {}
+            if "{" in metric:
+                metric, _, rest = metric.partition("{")
+                for pair in rest.rstrip("}").split(","):
+                    k, _, v = pair.partition("=")
+                    labels[k] = v.strip('"')
+            samples.append((metric, labels, float(value)))
+    return types, samples
+
+
+HTTP_CLI_ENGINE = dict(num_blocks=64, block_size=16, max_batch_size=8,
+                       chunk_size=64)
+
+
+def fleet_http(model):
+    """Step 8: ``cli.serve --replicas 2 --http 127.0.0.1:0`` as a
+    subprocess: SSE on 4 concurrent requests and one non-stream request;
+    one-at-a-time greedy tokens against an in-process router of the same
+    engines; health, stats, /metrics (replica labels, histogram buckets),
+    cancel; SIGTERM mid-stream: health 503 while draining, the stream
+    done, exit code 0."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from tnn_tpu_torch.serving.router import Router
+
+    rng = np.random.default_rng(81)
+    prompts = [rng.integers(0, model.vocab_size, 32).tolist()
+               for _ in range(4)]
+    # the in-process router over the CLI's engine settings, one at a time
+    engines, sups = fleet_engines(model, 2, **HTTP_CLI_ENGINE)
+    sink = FleetSink(1)
+    router = Router(sups, event_sink=sink, seed=0).start()
+    want = []
+    for i, p in enumerate(prompts):
+        sink.expect = i + 1
+        sink.done.clear()
+        gid = router.submit(np.asarray(p), 16)
+        if not sink.done.wait(FLEET_WAIT_S):
+            raise AssertionError("http: the in-process router stalled")
+        want.append(sink.term[gid]["tokens"])
+    router.request_drain("reference done")
+    router.join(FLEET_WAIT_S)
+    del engines, sups, router
+    out = {}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
+         "gpt2_small", "--replicas", "2", "--http", "127.0.0.1:0"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        port = None
+        t0 = time.perf_counter()
+        for line in proc.stderr:
+            lines.append(line)
+            if "listening on http://" in line:
+                port = int(line.rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError("http: no listening line: "
+                                 + "".join(lines)[-3000:])
+        out["start_s"] = time.perf_counter() - t0
+        pump = threading.Thread(
+            target=lambda: lines.extend(proc.stderr), daemon=True)
+        pump.start()
+        got = [sse_stream(port, {"tokens": p, "max_new_tokens": 16})
+               for p in prompts]
+        out["one_at_a_time_equal"] = [
+            s == 200 and ev[-1]["event"] == "done"
+            and ev[-1]["tokens"] == w
+            and [e["token"] for e in ev if e["event"] == "token"] == w
+            for (s, ev), w in zip(got, want)]
+        conc = [None] * 4
+
+        def stream(i):
+            conc[i] = sse_stream(port, {"tokens": prompts[i],
+                                        "max_new_tokens": 16})
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FLEET_WAIT_S)
+        out["concurrent_s"] = time.perf_counter() - t0
+        out["concurrent_done"] = [c is not None and c[0] == 200
+                                  and c[1][-1]["event"] == "done"
+                                  for c in conc]
+        status, _, body = http_call(port, "POST", "/v1/generate", {
+            "tokens": prompts[0], "max_new_tokens": 16,
+            "stream": False})
+        out["nonstream"] = status == 200 and \
+            json.loads(body)["tokens"] == want[0]
+        out["health"] = http_call(port, "GET", "/v1/health")[0]
+        st, _, stats = http_call(port, "GET", "/v1/stats")
+        out["stats"] = {"status": st, **{k: json.loads(stats)[k] for k in (
+            "router_replicas", "requests_finished", "router_retries")}}
+        st, ctype, text = http_call(port, "GET", "/metrics")
+        types, samples = prometheus_samples(text)
+        out["metrics"] = dict(
+            status=st, content_type=ctype, families=len(types),
+            replica_labels=sorted({lb.get("replica", "")
+                                   for _, lb, _ in samples}),
+            ttft_buckets=sum(m == "tnn_serve_ttft_seconds_bucket"
+                             for m, _, _ in samples),
+            finished=sum(v for m, lb, v in samples
+                         if m == "tnn_serve_requests_finished_total"
+                         and lb.get("replica") in ("0", "1")))
+        ids = []
+
+        def take_id(ev):
+            if ev["event"] == "start":
+                ids.append(ev["id"])
+                http_call(port, "POST", "/v1/cancel", {"id": ev["id"]})
+
+        _, cev = sse_stream(port, {"tokens": prompts[1],
+                                   "max_new_tokens": 400}, take_id)
+        out["cancel"] = cev[-1]["event"]
+        health_draining = []
+
+        def on_token(ev):
+            if ev["event"] == "token" and not health_draining:
+                proc.send_signal(signal.SIGTERM)
+                time.sleep(0.05)
+                health_draining.append(
+                    http_call(port, "GET", "/v1/health")[0])
+
+        _, dev = sse_stream(port, {"tokens": prompts[2],
+                                   "max_new_tokens": 400}, on_token)
+        out["drain_stream"] = dev[-1]["event"]
+        out["drain_stream_tokens"] = len(dev[-1].get("tokens", []))
+        out["health_while_draining"] = health_draining
+        out["returncode"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    m = out["metrics"]
+    fleet_check("serving_fleet_http",
+                all(out["one_at_a_time_equal"]) and all(
+                    out["concurrent_done"]) and out["nonstream"]
+                and out["health"] == 200 and m["status"] == 200
+                and {"router", "0", "1"} <= set(m["replica_labels"])
+                and m["ttft_buckets"] >= 14 and m["finished"] >= 9
+                and out["cancel"] == "cancelled"
+                and out["health_while_draining"] == [503]
+                and out["drain_stream"] == "done"
+                and out["drain_stream_tokens"] == 400
+                and out["returncode"] == 0, out)
+
+
+def fleet_cli_warm():
+    """Step 9: ``cli.serve`` on stdin with ``--replicas 2 --roles
+    prefill,decode --host-tier-bytes --fleet-prefix --compile-cache DIR``,
+    twice with one new DIR: the first start builds the kernels into it,
+    the second finds them (no nvcc) and gives the same tokens."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(91)
+    lines = [{"id": 0, "tokens": rng.integers(0, 50257, 300).tolist(),
+              "max_new_tokens": 16},
+             {"id": 1, "tokens": rng.integers(0, 50257, 16).tolist(),
+              "max_new_tokens": 16}]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with open(os.path.join(tmp, "err"), "w+") as err:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "tnn_tpu_torch.cli.serve",
+                     "--model", "gpt2_small", "--replicas", "2", "--roles",
+                     "prefill,decode", "--disagg-prompt-threshold", "256",
+                     "--host-tier-bytes", str(64 << 20), "--fleet-prefix",
+                     "--compile-cache", os.path.join(tmp, "kernels")],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=err, text=True)
+                events = []
+                try:
+                    proc.stdin.write("".join(json.dumps(x) + "\n"
+                                             for x in lines))
+                    proc.stdin.flush()
+                    # stdin stays open until both are done: an EOF drains,
+                    # and a draining fleet hands nothing off
+                    for line in proc.stdout:
+                        events.append(json.loads(line))
+                        if sum(e["event"] == "done" for e in events) == 2:
+                            break
+                    proc.stdin.close()
+                    proc.wait(timeout=300)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait(timeout=30)
+                err.seek(0)
+                stderr = err.read()
+            cache = [x for x in stderr.splitlines()
+                     if x.startswith("compile cache:")]
+            runs.append(dict(
+                returncode=proc.returncode,
+                seconds=time.perf_counter() - t0, cache_lines=cache,
+                done={e["id"]: e["tokens"] for e in events
+                      if e["event"] == "done"},
+                handoffs=next((json.loads(x.split(": ", 1)[1])[
+                    "boundary_handoffs"] for x in stderr.splitlines()
+                    if x.startswith("serve summary:")), None)))
+            if proc.returncode != 0:
+                log("serving_fleet_cli", runs=runs)
+                raise AssertionError(stderr[-3000:])
+    cold, warm = runs
+    fleet_check("serving_fleet_cli",
+                "(cold)" in cold["cache_lines"][0]
+                and "nvcc ran 0 " not in cold["cache_lines"][-1]
+                and "(warm," in warm["cache_lines"][0]
+                and "nvcc ran 0 time(s)" in warm["cache_lines"][-1]
+                and cold["done"] == warm["done"]
+                and sorted(cold["done"]) == [0, 1]
+                and cold["handoffs"] == 1, dict(runs=runs))
+
+
+def phase_serving_fleet(results):
+    """The replica fleet: the serving traffic on 2 replicas under
+    ``Router.start()`` (against one engine, ABBA, and FP32 token-exact),
+    a kill mid-stream, disaggregation with and without the KV handoff,
+    the host tier, the fleet prefix directory, hedging, the autoscaler,
+    HTTP and the CLI with a warm kernel cache."""
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    fp32 = zoo.create("gpt2_small", device="cuda", seed=0, policy=dt.FP32)
+    # first-use costs off the clock
+    serve_traffic(model, seed=1, num_requests=2, new_tokens=4, overlap=True)
+    reqs, fref = fleet_traffic_ab(model, fp32, results)
+    fleet_replay_check(model, results)
+    torch.cuda.empty_cache()
+    fleet_kill(fp32, reqs, fref, results)
+    torch.cuda.empty_cache()
+    fleet_disagg(model, fp32, results)
+    torch.cuda.empty_cache()
+    fleet_tier(fp32)
+    fleet_prefix_pull(fp32, results)
+    torch.cuda.empty_cache()
+    fleet_hedge(model, results)
+    fleet_autoscale(model, results)
+    del fp32
+    torch.cuda.empty_cache()
+    fleet_http(model)
+    del model
+    torch.cuda.empty_cache()
+    fleet_cli_warm()
+
+
 def main() -> int:
     import torch
 
@@ -5324,7 +6393,7 @@ def main() -> int:
               phase_paged_stats, phase_serving_sp,
               phase_serving_prefix_spec, phase_serving_overlap,
               phase_serving_whole_prompt, phase_attention_int8_rope,
-              phase_serving_supervised)
+              phase_serving_supervised, phase_serving_fleet)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]

@@ -43,6 +43,32 @@ print(len(names), bad)
     assert int(count) >= 15 and bad.strip() == "[]"
 
 
+def test_serving_exports_every_reference_name_without_jax():
+    """``tnn_tpu_torch.serving`` exports every name of the JAX package's
+    ``tnn_tpu.serving.__all__`` (read from its source, not imported), with
+    jax and tnn_tpu unimportable."""
+    tree = ast.parse((ROOT / "tnn_tpu" / "serving" / "__init__.py")
+                     .read_text())
+    want = next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "__all__")
+    code = f"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tnn_tpu"):
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+import tnn_tpu_torch.serving as s
+want = {want!r}
+missing = [n for n in want if not hasattr(s, n)]
+print(sorted(set(want) - set(s.__all__)), missing)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] []"
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_or_tnn_tpu_import_statement(path):
     for node in ast.walk(ast.parse(path.read_text())):

@@ -1,8 +1,14 @@
 """The kernel build's cache key (``ops/runtime.library_path``): a library
 is named by a hash of its source, every ``csrc/*.cuh`` header and the nvcc
 flags, so that editing a header a source includes rebuilds the library.
-Nothing is compiled here (the CPU host has no ``nvcc``)."""
+Nothing is compiled here (the CPU host has no ``nvcc``). Also the launch
+counts under threads (``count_launch``) and the build directory that
+``serving.compile_cache`` sets."""
+import sys
+import threading
+
 from tnn_tpu_torch.ops import runtime
+from tnn_tpu_torch.serving import compile_cache
 
 
 def _csrc(tmp_path, monkeypatch):
@@ -36,3 +42,52 @@ def test_library_path_changes_with_the_source_and_flags(tmp_path,
     assert second != first
     monkeypatch.setattr(runtime, "NVCC_FLAGS", [*runtime.NVCC_FLAGS, "-G"])
     assert runtime.library_path("kern") not in (first, second)
+
+
+def test_launch_counts_lose_no_update_under_threads():
+    """More threads than cores bump one counter with a tiny switch
+    interval: the total is exact and each thread's tally is its own."""
+    def fn():
+        pass
+
+    fn.launches = 0
+    tallies = {}
+
+    def work(i):
+        before = runtime.thread_launches()[(id(fn), "launches")]
+        for _ in range(2000):
+            runtime.count_launch(fn)
+        tallies[i] = runtime.thread_launches()[(id(fn), "launches")] - before
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert fn.launches == 16 * 2000
+    assert tallies == {i: 2000 for i in range(16)}
+
+
+def test_compile_cache_sets_the_build_directory(tmp_path):
+    try:
+        cache = compile_cache.enable(str(tmp_path / "kernels"))
+        assert runtime.build_dir() == tmp_path / "kernels"
+        assert compile_cache.active_dir() == cache
+        assert runtime.library_path("paged_attention").parent == \
+            tmp_path / "kernels"
+        assert compile_cache.entry_count(cache) == 0
+        (tmp_path / "kernels" / "paged_attention-0123.so").write_bytes(b"")
+        (tmp_path / "kernels" / "tmpabc.txt").write_bytes(b"")
+        assert compile_cache.entry_count(cache) == 1
+        assert compile_cache.entry_count(str(tmp_path / "missing")) == 0
+    finally:
+        compile_cache.disable()
+    assert compile_cache.active_dir() is None
+    assert runtime.build_dir() != tmp_path / "kernels"

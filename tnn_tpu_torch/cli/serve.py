@@ -1,11 +1,15 @@
 #!/usr/bin/env python
-"""Serving front end on stdin/stdout JSON lines (``tnn_tpu.cli.serve``).
+"""Serving front end: stdin/stdout JSON lines, or HTTP/SSE with --http
+(``tnn_tpu.cli.serve``).
 
     echo '{"tokens": [464, 3616, 286], "max_new_tokens": 16}' | \
         python -m tnn_tpu_torch.cli.serve --model gpt2_small
 
     python -m tnn_tpu_torch.cli.serve --model-file gpt2.tnn \
         --vocab vocab.bin --no-chunked-prefill
+
+    python -m tnn_tpu_torch.cli.serve --model gpt2_small --replicas 2 \
+        --http 127.0.0.1:8100
 
 Each stdin line is one request, or a cancel:
 
@@ -81,6 +85,29 @@ share a prompt prefix fork its KV blocks instead of prefilling them.
 model is a seeded random ``gpt2_tiny`` with the target's vocabulary.
 Greedy output is token-exact either way. The stderr summary carries the
 ``prefix_*`` and ``spec_*`` gauges.
+
+``--http HOST:PORT`` serves HTTP/SSE (``serving/server.py``: ``POST
+/v1/generate``, ``POST /v1/cancel``, ``GET /v1/health``, ``GET /v1/stats``,
+``GET /metrics``) instead of stdin; the bound address is printed as
+``tnn-serve: listening on http://HOST:PORT`` on stderr (port 0 picks a
+free one). SIGINT and SIGTERM drain and exit 0.
+
+The fleet: ``--replicas N`` runs N supervised replicas behind
+``serving.router.Router`` (join-shortest-queue placement, breakers,
+retries, token-exact migration when a replica dies, ``--hedge-ttft-s`` /
+``--hedge-budget`` hedging, ``--degrade-factor`` ejection). The replicas
+share the model's weights on the card; each has its own engine, pool and
+worker thread. ``--roles prefill,decode`` (or ``auto``) disaggregates:
+prompts of at least ``--disagg-prompt-threshold`` tokens prefill on a
+prefill replica and move to a decode replica at their first token,
+carrying their KV blocks (``--no-handoff-kv``: recompute instead);
+``--fleet-prefix`` pulls a prefix's KV from the replica that holds it.
+``--autoscale MIN:MAX`` sizes the fleet by load (zero-loss scale-down).
+``--host-tier-bytes`` gives each engine a host-RAM KV tier for evicted
+prefix blocks. ``--compile-cache DIR`` builds and loads the CUDA kernels
+in DIR, so a second start with the same DIR runs no nvcc. Impossible
+fleets are refused before any weight is built, with the JAX front end's
+messages. Tensor parallelism (``--tp``) is not ported.
 """
 from __future__ import annotations
 
@@ -97,8 +124,14 @@ import numpy as np
 from tnn_tpu_torch import checkpoint
 from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
+from tnn_tpu_torch.ops import runtime
+from tnn_tpu_torch.profiling.profiler import Profiler
+from tnn_tpu_torch.serving import compile_cache
+from tnn_tpu_torch.serving.autoscaler import Autoscaler
 from tnn_tpu_torch.serving.engine import InferenceEngine
+from tnn_tpu_torch.serving.router import Router
 from tnn_tpu_torch.serving.scheduler import AdmissionRejected
+from tnn_tpu_torch.serving.server import run_server
 from tnn_tpu_torch.serving.supervisor import EngineSupervisor, ShuttingDown
 
 
@@ -123,6 +156,10 @@ def _sp_preflight(ap, args, sp_devices) -> None:
         if args.sp > n_dev:
             ap.error(f"--sp {args.sp} exceeds the {n_dev} visible card(s); "
                      "put several shards on one card with --sp-devices")
+    if args.host_tier_bytes:
+        ap.error("--host-tier-bytes is incompatible with --sp > 1 "
+                 "(a demoted block's pages live on one context-mesh "
+                 "shard; run the host tier on single-chip replicas)")
     if args.num_blocks % args.sp:
         ap.error(f"--num-blocks {args.num_blocks} does not divide evenly "
                  f"over --sp {args.sp} shards")
@@ -243,11 +280,84 @@ def main(argv=None) -> int:
                     help="directory for the flight recorder's JSONL dumps "
                          "(the last steps' records) on crash, watchdog "
                          "trip, restart-budget exhaustion and drain")
+    ap.add_argument("--http", default="",
+                    help="serve HTTP+SSE on HOST:PORT instead of stdin "
+                         "JSON lines (e.g. 127.0.0.1:8100; port 0 picks "
+                         "a free one)")
+    ap.add_argument("--compile-cache", default="",
+                    help="kernel build directory: CUDA kernels built by a "
+                         "previous run (or a sibling replica on shared "
+                         "storage) are loaded instead of rebuilt with "
+                         "nvcc; keyed by source, headers and flags, so a "
+                         "changed source misses cleanly")
+    ap.add_argument("--host-tier-bytes", type=int, default=0,
+                    help="host-RAM KV tier capacity in bytes (0 = off): "
+                         "prefix-cache blocks the pool would reclaim are "
+                         "demoted to host memory and re-admitted on a later "
+                         "prefix hit after a digest check (a corrupt block "
+                         "degrades to an uncached miss, never wrong KV); "
+                         "requires the prefix cache and chunked prefill")
+    ap.add_argument("--autoscale", default="",
+                    help="MIN:MAX — run a load-driven autoscaler over the "
+                         "replica fleet: scale up under queue pressure, "
+                         "scale down after a hysteresis-guarded quiet "
+                         "period by draining the least-loaded replica with "
+                         "its live streams migrated token-exact; "
+                         "--replicas sets the starting size (clamped into "
+                         "[MIN, MAX])")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run N supervised engine replicas behind a failover "
+                         "router: join-shortest-queue placement, per-replica "
+                         "circuit breakers, bounded retries, and token-exact "
+                         "mid-stream migration when a replica dies")
+    ap.add_argument("--hedge-ttft-s", type=float, default=-1.0,
+                    help="router hedging: duplicate a request onto the "
+                         "next-best replica when its first token is this "
+                         "late (-1 = adaptive, the fleet's rolling TTFT "
+                         "p95). First token wins; the loser is cancelled "
+                         "and never charges a breaker")
+    ap.add_argument("--hedge-budget", type=float, default=0.1,
+                    help="max concurrent hedges as a fraction of open "
+                         "requests, consulted before every fire "
+                         "(0 = hedging off)")
+    ap.add_argument("--degrade-factor", type=float, default=2.0,
+                    help="eject a replica from placement as DEGRADED when "
+                         "its health score stays worse than this multiple "
+                         "of the fleet median (0 = ejection off); its live "
+                         "streams proactively migrate token-exact")
+    ap.add_argument("--roles", default="",
+                    help="disaggregated prefill/decode serving: comma-"
+                         "separated per-replica roles (prefill|decode|mixed) "
+                         "matching the fleet size, or 'auto' to let the "
+                         "router rank replicas by health score and dedicate "
+                         "the healthiest half to decode")
+    ap.add_argument("--disagg-prompt-threshold", type=int, default=128,
+                    help="with --roles: prompts at least this many tokens "
+                         "long prefer a prefill replica; the router hands "
+                         "the stream to a decode replica at the first-token "
+                         "boundary (token-exact)")
+    ap.add_argument("--no-handoff-kv", action="store_true",
+                    help="disable the KV-block handoff at the prefill/"
+                         "decode boundary — the stream still moves, via "
+                         "token-exact recompute-resume (A/B baseline)")
+    ap.add_argument("--fleet-prefix", action="store_true",
+                    help="fleet-wide shared prefix cache: the router tracks "
+                         "which replica holds which prefix chain keys and "
+                         "pulls blocks from a peer on a local miss through "
+                         "the digest-verified export/adopt path")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sp_devices = [d for d in args.sp_devices.split(",") if d] or None
+    autoscale, roles = _fleet_preflight(ap, args)
     if args.sp > 1:
         _sp_preflight(ap, args, sp_devices)
+    if args.compile_cache:
+        # before any kernel library loads: every build lands in the cache
+        cache_dir = compile_cache.enable(args.compile_cache)
+        warm = compile_cache.entry_count(cache_dir)
+        print(f"compile cache: {cache_dir} "
+              f"({'warm, %d entries' % warm if warm else 'cold'})",
+              file=sys.stderr)
 
     tokenizer = Tokenizer().load(args.vocab) if args.vocab else None
     if args.model_file:
@@ -264,40 +374,198 @@ def main(argv=None) -> int:
                                  seed=args.seed + 1)
         print("spec=draft: random-weight gpt2_tiny drafter (seed "
               f"{args.seed + 1})", file=sys.stderr)
-    engine = InferenceEngine(
-        model, num_blocks=args.num_blocks, block_size=args.block_size,
-        max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
-        chunked_prefill=not args.no_chunked_prefill,
-        max_queue_depth=args.max_queue_depth,
-        preemption_budget=(None if args.preemption_budget < 0
-                           else args.preemption_budget),
-        migration_budget=(None if args.migration_budget < 0
-                          else args.migration_budget),
-        logit_guard=not args.no_logit_guard,
-        seed=args.seed, kv_dtype=args.kv_dtype,
-        quant_weights=args.quant_weights, decode_path=args.decode_path,
-        max_seq_len=args.max_seq_len or None, sp=args.sp,
-        sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
-        prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
-        spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
-        overlap=not args.no_overlap, trace=bool(args.trace),
-        device=args.device)
+    fleet = args.replicas > 1 or autoscale is not None
+    profilers = []
+
+    def build_engine(idx=0):
+        prof = None
+        if args.trace and fleet:
+            prof = Profiler(source=f"replica{idx}")
+            profilers.append(prof)
+        return InferenceEngine(
+            model, num_blocks=args.num_blocks, block_size=args.block_size,
+            max_batch_size=args.max_batch_size, chunk_size=args.chunk_size,
+            chunked_prefill=not args.no_chunked_prefill,
+            max_queue_depth=args.max_queue_depth,
+            preemption_budget=(None if args.preemption_budget < 0
+                               else args.preemption_budget),
+            migration_budget=(None if args.migration_budget < 0
+                              else args.migration_budget),
+            logit_guard=not args.no_logit_guard,
+            seed=args.seed, kv_dtype=args.kv_dtype,
+            quant_weights=args.quant_weights, decode_path=args.decode_path,
+            max_seq_len=args.max_seq_len or None, sp=args.sp,
+            sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
+            prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
+            spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
+            overlap=not args.no_overlap, profiler=prof,
+            trace=bool(args.trace), host_tier_bytes=args.host_tier_bytes,
+            device=args.device)
+
+    def build_supervisor(eng, idx=0):
+        # each replica dumps into its own subdirectory, so the sequence
+        # numbers of different replicas never collide
+        flight_dir = args.flight_dir or None
+        if flight_dir and fleet:
+            flight_dir = os.path.join(flight_dir, f"replica{idx}")
+        return EngineSupervisor(
+            eng, watchdog_step_s=args.watchdog_s or None,
+            max_restarts=args.max_restarts,
+            drain_deadline_s=args.drain_deadline_s or None,
+            flight_dir=flight_dir)
+
+    engine = build_engine()
+    if args.host_tier_bytes:
+        print(f"host KV tier: {args.host_tier_bytes} bytes, verified "
+              "re-admission (corrupt blocks degrade to uncached misses)",
+              file=sys.stderr)
     if args.sp > 1:
         print(f"sequence parallel: sp={args.sp}, "
               f"{engine.pool.blocks_per_shard} block(s)/shard, max context "
               f"{engine.max_seq_len} tokens over "
               f"{', '.join(str(d) for d in engine.pool.devices)}",
               file=sys.stderr)
-    supervisor = EngineSupervisor(
-        engine, watchdog_step_s=args.watchdog_s or None,
-        max_restarts=args.max_restarts,
-        drain_deadline_s=args.drain_deadline_s or None,
-        flight_dir=args.flight_dir or None)
-    code = _serve_stdin(supervisor, model, tokenizer, args)
+    scaler = None
+    router_prof = None
+    if fleet:
+        # replicas share the model's weights; each has its own engine,
+        # pool and supervised worker thread. With --autoscale the fleet
+        # starts at the clamped --replicas size
+        n0 = args.replicas
+        if autoscale is not None:
+            n0 = min(max(args.replicas, autoscale[0]), autoscale[1])
+        if isinstance(roles, list) and len(roles) != n0:
+            ap.error(f"--roles names {len(roles)} replica(s) but the "
+                     f"fleet starts at {n0} — give one role per replica "
+                     "or use --roles auto")
+        sups = [build_supervisor(engine)] + [
+            build_supervisor(build_engine(i), i) for i in range(1, n0)]
+        router_prof = Profiler(source="router") if args.trace else None
+        supervisor = Router(
+            sups,
+            migration_budget=(10 ** 9 if args.migration_budget < 0
+                              else args.migration_budget),
+            hedge_ttft_s=(None if args.hedge_ttft_s < 0
+                          else args.hedge_ttft_s),
+            hedge_budget=args.hedge_budget,
+            degrade_factor=args.degrade_factor, roles=roles,
+            disagg_prompt_threshold=args.disagg_prompt_threshold,
+            handoff_kv=not args.no_handoff_kv,
+            fleet_prefix=args.fleet_prefix, seed=args.seed,
+            profiler=router_prof)
+        print(f"router: {n0} supervised replicas", file=sys.stderr)
+        if roles is not None:
+            kv = "recompute-resume only" if args.no_handoff_kv \
+                else "verified KV-block handoff"
+            print(f"disaggregated serving: roles="
+                  f"{roles if roles == 'auto' else ','.join(roles)}, "
+                  f"prompt threshold {args.disagg_prompt_threshold}, {kv}",
+                  file=sys.stderr)
+        if args.fleet_prefix:
+            print("fleet prefix cache: content-addressed directory + "
+                  "peer block pulls (verified)", file=sys.stderr)
+        if autoscale is not None:
+            next_idx = [n0]
+
+            def scale_factory():
+                idx = next_idx[0]
+                next_idx[0] += 1
+                return build_supervisor(build_engine(idx), idx)
+
+            scaler = Autoscaler(supervisor, scale_factory,
+                                min_replicas=autoscale[0],
+                                max_replicas=autoscale[1]).start()
+            print(f"autoscaler: {autoscale[0]}..{autoscale[1]} replicas, "
+                  "zero-loss scale-down (live streams migrate token-exact "
+                  "before a replica drains)", file=sys.stderr)
+    else:
+        supervisor = build_supervisor(engine)
+
+    try:
+        if args.http:
+            host, _, port = args.http.rpartition(":")
+            code = run_server(supervisor, host=host or "127.0.0.1",
+                              port=int(port), tokenizer=tokenizer,
+                              default_max_new=args.max_new_tokens)
+            supervisor.join(30.0)   # the workers exit before teardown
+            _print_summary(supervisor)
+        else:
+            code = _serve_stdin(supervisor, model, tokenizer, args)
+    finally:
+        if scaler is not None:
+            scaler.stop()
     if args.trace:
-        engine.profiler.to_chrome_trace(args.trace)
+        trace = engine.profiler
+        if router_prof is not None:
+            # one merged view: the router's instants and every replica's
+            # spans, each source on its own track
+            trace = router_prof
+            for prof in profilers:
+                trace.merge(prof)
+        trace.to_chrome_trace(args.trace)
         print(f"trace written to {args.trace}", file=sys.stderr)
+    if args.compile_cache:
+        print(f"compile cache: {compile_cache.entry_count(cache_dir)} "
+              f"kernel libraries in {cache_dir}; nvcc ran "
+              f"{runtime.nvcc_runs} time(s) in this process",
+              file=sys.stderr)
     return code
+
+
+def _fleet_preflight(ap, args):
+    """The JAX front end's fail-fast checks of an impossible fleet, run
+    before any weight is built; returns (autoscale bounds or None, roles
+    or None)."""
+    autoscale = None
+    if args.autoscale:
+        lo, sep, hi = args.autoscale.partition(":")
+        try:
+            autoscale = (int(lo), int(hi))
+        except ValueError:
+            autoscale = None
+        if not sep or autoscale is None:
+            ap.error(f"--autoscale {args.autoscale!r} is not MIN:MAX "
+                     "(two integers, e.g. --autoscale 1:4)")
+        if autoscale[0] < 1:
+            ap.error(f"--autoscale MIN must be >= 1, got {autoscale[0]}")
+        if autoscale[1] < autoscale[0]:
+            ap.error(f"--autoscale MAX ({autoscale[1]}) must be >= MIN "
+                     f"({autoscale[0]})")
+    if args.host_tier_bytes < 0:
+        ap.error(f"--host-tier-bytes must be >= 0, got "
+                 f"{args.host_tier_bytes}")
+    if args.host_tier_bytes and (args.no_prefix_cache
+                                 or args.no_chunked_prefill):
+        ap.error("--host-tier-bytes needs the prefix cache (the tier "
+                 "is keyed by its rolling-hash chain) — drop "
+                 "--no-prefix-cache/--no-chunked-prefill or the tier")
+    roles = None
+    if args.roles:
+        if args.replicas <= 1 and not args.autoscale:
+            ap.error("--roles needs a replica fleet "
+                     "(--replicas N > 1 or --autoscale MIN:MAX)")
+        if args.roles == "auto":
+            roles = "auto"
+        else:
+            roles = [r.strip() for r in args.roles.split(",")]
+            bad = sorted(set(r for r in roles
+                             if r not in ("prefill", "decode", "mixed")))
+            if bad:
+                ap.error(f"--roles: unknown role(s) {', '.join(bad)} "
+                         "(choose prefill, decode, or mixed)")
+            if "prefill" in roles and not any(
+                    r in ("decode", "mixed") for r in roles):
+                ap.error("--roles: a disaggregated fleet needs at least "
+                         "one decode or mixed replica")
+    if args.disagg_prompt_threshold < 1:
+        ap.error(f"--disagg-prompt-threshold must be >= 1, got "
+                 f"{args.disagg_prompt_threshold}")
+    if args.fleet_prefix and (args.no_prefix_cache
+                              or args.no_chunked_prefill):
+        ap.error("--fleet-prefix needs the prefix cache (pulled blocks "
+                 "are keyed by its rolling-hash chain) — drop "
+                 "--no-prefix-cache/--no-chunked-prefill")
+    return autoscale, roles
 
 
 def _serve_stdin(supervisor, model, tokenizer, args) -> int:
@@ -361,9 +629,14 @@ def _serve_stdin(supervisor, model, tokenizer, args) -> int:
     def handle_lines(lines) -> None:
         """The lines of one read in one command on the worker, so that no
         step runs between them (requests that arrive together join the
-        same step, as they did before the supervisor)."""
-        errors = supervisor.execute(
-            lambda: [handle_line(x) for x in lines if x.strip()])
+        same step, as they did before the supervisor). A router places
+        each line on its own replica, so it takes them one by one."""
+        execute = getattr(supervisor, "execute", None)
+
+        def run():
+            return [handle_line(x) for x in lines if x.strip()]
+
+        errors = execute(run) if execute is not None else run()
         flush_events()
         for ev in errors:
             if ev is not None:
@@ -420,10 +693,14 @@ def _serve_stdin(supervisor, model, tokenizer, args) -> int:
     finally:
         for signum, handler in old_handlers.items():
             signal.signal(signum, handler)
+    _print_summary(supervisor)
+    return supervisor.exit_code if supervisor.exit_code is not None else 0
+
+
+def _print_summary(supervisor) -> None:
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v
          for k, v in supervisor.stats().items()}), file=sys.stderr)
-    return supervisor.exit_code if supervisor.exit_code is not None else 0
 
 
 if __name__ == "__main__":

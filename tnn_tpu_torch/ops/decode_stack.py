@@ -424,7 +424,7 @@ def _launch(x, t, k_cache, v_cache, stacks, num_heads, chunks, stamps):
     if err != 0:
         raise RuntimeError(f"fused_decode_stack kernel launch failed: CUDA "
                            f"error {err}")
-    fused_decode_stack.launches += 1
+    runtime.count_launch(fused_decode_stack)
     return x_out, k_cache, v_cache
 
 

@@ -356,8 +356,7 @@ def _launch(q, pages_k, pages_v, block_tables, kv_lens, q_lens, layer, scale,
                            f"error {err}")
     counter = ("int8_" if quant else "") + ("stats_" if stats else "") \
         + "launches"
-    setattr(paged_attention, counter,
-            getattr(paged_attention, counter) + 1)
+    runtime.count_launch(paged_attention, counter)
     return (out, m, l) if stats else out
 
 

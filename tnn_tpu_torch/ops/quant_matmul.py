@@ -222,7 +222,7 @@ def _launch(x, q, scale, n, k, out_dtype):
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed ({plan}): "
                            f"CUDA error {err}")
-    int8_matmul.launches += 1
+    runtime.count_launch(int8_matmul)
     return out.reshape(*lead, n)
 
 

@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries land in
 ``build/kernels/`` at the repository root (``TNN_TORCH_BUILD_DIR``
-overrides), named by a hash of the source, the headers beside it and the
-flags, so a changed source or header rebuilds and an unchanged one loads
-the existing library. Builds happen at first use, never at import: the
+overrides, and ``serving.compile_cache.enable`` overrides both), named by
+a hash of the source, the headers beside it and the flags, so a changed
+source or header rebuilds and an unchanged one loads the existing
+library. Builds happen at first use, never at import: the
 CPU-only test host has no ``nvcc`` and imports every module.
 """
 from __future__ import annotations
@@ -17,8 +18,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 # the H100 SXM's streaming multiprocessors: what the launch plans of the
 # wrappers assume where no card is at hand (the CPU tests)
@@ -31,13 +34,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# set by serving.compile_cache.enable; wins over TNN_TORCH_BUILD_DIR
+_build_dir_override: Optional[Path] = None
+# nvcc processes this process ran (a warm build directory runs none)
+nvcc_runs = 0
 
 
 def build_dir() -> Path:
+    if _build_dir_override is not None:
+        return _build_dir_override
     env = os.environ.get("TNN_TORCH_BUILD_DIR")
     if env:
         return Path(env)
     return CSRC.parent.parent / "build" / "kernels"
+
+
+def loaded_libraries() -> list:
+    """Names of the kernel libraries this process has loaded."""
+    return sorted(_loaded)
 
 
 def find_nvcc() -> str:
@@ -73,6 +87,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    global nvcc_runs
+    nvcc_runs += 1
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
@@ -83,11 +99,19 @@ def build(name: str) -> Path:
     return out
 
 
+_load_lock = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    One lock: replicas stepping on threads of their own build a library
+    once between them."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
 
 
@@ -135,3 +159,31 @@ def counter_buffers(device) -> list:
 
     dev = str(torch.device(device))
     return [t for (_, d), t in _counters.items() if d == dev]
+
+
+# -- launch counts ------------------------------------------------------------
+#
+# Each kernel wrapper counts its launches in an attribute of its own
+# (``paged_attention.launches``, ...). Replicas of a fleet step on threads of
+# their own, so the counts go through one lock, and each thread also keeps
+# its own tally: a pdecode graph capture takes back out exactly the launches
+# its own thread made (serving/step_graph.py), never another replica's.
+
+_count_lock = threading.Lock()
+_tally = threading.local()
+
+
+def count_launch(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to the launch counter ``fn.<attr>`` (and to this thread's
+    tally)."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + n)
+    tally = getattr(_tally, "counts", None)
+    if tally is None:
+        tally = _tally.counts = Counter()
+    tally[(id(fn), attr)] += n
+
+
+def thread_launches() -> Counter:
+    """A copy of this thread's launch tally, by (id(fn), attr)."""
+    return Counter(getattr(_tally, "counts", None) or {})

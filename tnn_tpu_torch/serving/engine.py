@@ -130,6 +130,20 @@ instants (``serve.submit``, ``serve.admit``, ...) and ``profiled`` spans
 (``serve.mixed``, ``serve.decode_paged``, ``serve.fetch``, ...) into
 ``profiler``; spans time host dispatch, never the device. Every request
 carries a ``trace_id`` and the clocks behind ``latency_breakdown``.
+
+Host KV tier (``host_tier_bytes > 0``, ``serving/kv_tier.py``): a block the
+pool reclaims while the prefix cache still indexes it is copied to a
+bounded host buffer first (``_demote_blocks``, the pool's ``demote_hook``:
+one synchronous batched copy on the allocation path), and admission walks
+the prompt's chain keys to write demoted blocks back (``_tier_readmit``)
+before it probes, digest-verified, in place, so the captured pdecode
+graphs read them. Cross-replica KV handoff: ``export_prefix`` serializes
+the longest exportable chain prefix of a token sequence as digest-carrying
+host wire blocks, queued on the current stream after every step that
+wrote the pages; ``adopt_prefix`` verifies and writes them into this
+pool's index; ``prefix_keys`` lists what this replica can export (the
+router's fleet directory). A block that fails its digest or geometry
+check is dropped and the request recomputes it: counted, never wrong.
 """
 from __future__ import annotations
 
@@ -152,6 +166,7 @@ from ..utils.device import resolve_device
 from . import kv_pool, spec_decode, step_build, step_graph
 from .faults import FaultInjected, FaultPlan
 from .kv_pool import PagedKVPool, PoolExhausted
+from .kv_tier import HostKVTier, leaf_dtype_name, tier_digest
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import (TERMINAL_STATES, AdmissionRejected, Request,
@@ -249,6 +264,9 @@ class InferenceEngine:
         ``alloc`` consults it too.
     migration_budget : crash re-admissions (``migrate_running``) a request
         may take before it FAILs as poison (None = unlimited).
+    host_tier_bytes : the host KV tier's bound in bytes (module
+        docstring); 0 turns it off. Needs the prefix cache and chunked
+        prefill, and refuses sp > 1, as the JAX engine does.
     profiler : a ``profiling.Profiler`` the metrics tick into and the
         ``profiled`` spans land in.
     trace : request-scoped tracing (module docstring); creates a
@@ -276,7 +294,7 @@ class InferenceEngine:
                  faults: Optional[FaultPlan] = None,
                  migration_budget: Optional[int] = 3,
                  profiler: Optional[Profiler] = None, trace: bool = False,
-                 device="cuda"):
+                 host_tier_bytes: int = 0, device="cuda"):
         if getattr(model, "kv_cache_dtype", None):
             raise ValueError(
                 "the paged pool stores compute-dtype pages; "
@@ -305,6 +323,19 @@ class InferenceEngine:
             raise ValueError("chunk_size must be >= 1")
         if prefix_cache_min_hit_blocks < 1:
             raise ValueError("prefix_cache_min_hit_blocks must be >= 1")
+        if host_tier_bytes < 0:
+            raise ValueError("host_tier_bytes must be >= 0 (0 = no tier)")
+        if host_tier_bytes and not (prefix_cache and chunked_prefill):
+            raise ValueError(
+                "host_tier_bytes requires the prefix cache (tier entries "
+                "are addressed by its chain keys) — enable prefix_cache "
+                "and chunked_prefill, or set host_tier_bytes=0")
+        if host_tier_bytes and sp > 1:
+            raise ValueError(
+                "host_tier_bytes with sp>1 is unsupported — a demoted "
+                "block's pages live on one context-mesh shard and the "
+                "re-admission write would need per-shard routing; run the "
+                "host tier on single-chip replicas")
         self.drafter: Optional[spec_decode.Drafter] = None
         self.spec_mode = spec if isinstance(spec, str) else \
             getattr(spec, "name", "custom")
@@ -396,6 +427,12 @@ class InferenceEngine:
             # alloc() reports the reclaimed ones so the index forgets them
             self.pool.evictable_filter = self.prefix_cache.contains_block
             self.pool.reclaim_hook = self.prefix_cache.drop_blocks
+        # the host KV tier: demote_hook runs BEFORE reclaim_hook, while the
+        # cache still maps block -> chain key
+        self.kv_tier: Optional[HostKVTier] = None
+        if host_tier_bytes:
+            self.kv_tier = HostKVTier(int(host_tier_bytes), fault_plan=faults)
+            self.pool.demote_hook = self._demote_blocks
         # admission probes the cache (read-only) to budget its grants
         self.scheduler.prefix_cache = self.prefix_cache
         self.prefix_publish_max_occupancy = float(prefix_publish_max_occupancy)
@@ -408,7 +445,6 @@ class InferenceEngine:
             profiler = Profiler(source="engine")
         self.profiler = profiler
         self.metrics = ServingMetrics(profiler)
-        self.metrics.kv_bytes_per_token = self.pool.kv_bytes_per_token
         self.tracer = Tracer(profiler if trace else None)
         self.step_seq = 0                # begun steps, adopted ones included
         self._step_note: Optional[Dict[str, Any]] = None
@@ -526,6 +562,8 @@ class InferenceEngine:
             "queue_depth": self.scheduler.queue_depth,
             "num_running": len(self.scheduler.running),
             "step_latency_s": self._last_step_latency_s,
+            "tier_blocks": len(self.kv_tier) if self.kv_tier is not None
+            else 0,
             **self._gauge_extras}
 
     def submit(self, prompt_ids, max_new_tokens: int, *,
@@ -661,8 +699,13 @@ class InferenceEngine:
         longer hold the indexed KV."""
         self.pool.reset_pages()
         if self.prefix_cache is not None:
+            # purge without demoting: zeroed pages are never salvaged
             self.pool.purge_evictable()
             self.prefix_cache.clear()
+        if self.kv_tier is not None:
+            # entries demoted before the failure derive from pages that can
+            # no longer be cross-checked: nothing pre-failure re-admits
+            self.kv_tier.clear()
 
     def migrate_running(self, reason: str) -> Dict[str, List]:
         """Crash re-admission (the supervisor's restart): every RUNNING
@@ -711,6 +754,18 @@ class InferenceEngine:
         self._reset_pages()
         return events
 
+    def release(self) -> None:
+        """Drop the pool's pages, the captured graphs and the host tier:
+        the engine serves nothing afterwards (a retired replica's end).
+        Its bookkeeping and metrics stay readable. Under the capture lock:
+        another replica's worker may be capturing, and a graph's teardown
+        must not land inside its capture."""
+        with step_graph._CAPTURE_LOCK:
+            self._graphs.clear()
+            self.pool.release_pages()
+        if self.kv_tier is not None:
+            self.kv_tier.clear()
+
     def stats(self) -> Dict[str, Any]:
         s: Dict[str, Any] = dict(self.metrics.summary())
         for st in RequestState:
@@ -748,7 +803,14 @@ class InferenceEngine:
                                        for g in self._graphs.values()),
                   "sp_degree": self.sp,
                   "pool_blocks_per_shard": self.pool.blocks_per_shard,
-                  "step_seq": self.step_seq})
+                  "step_seq": self.step_seq,
+                  "host_tier_enabled": self.kv_tier is not None})
+        # tier counters: live with a tier, zeroed keys without one
+        s.update(self.kv_tier.stats() if self.kv_tier is not None else {
+            "tier_blocks": 0, "tier_bytes": 0, "tier_max_bytes": 0,
+            "tier_demotions": 0, "tier_demote_failures": 0,
+            "tier_readmits": 0, "tier_corrupt_dropped": 0,
+            "tier_evictions": 0})
         return s
 
     def check_invariants(self) -> None:
@@ -757,6 +819,8 @@ class InferenceEngine:
         running = [r for r in self.scheduler.running if r.block_table]
         self.pool.check_invariants([r.block_table for r in running],
                                    [r.cache_len for r in running])
+        if self.kv_tier is not None:
+            self.kv_tier.check_invariants()
 
     def run_until_complete(self, max_steps: int = 100_000) \
             -> Dict[int, List[int]]:
@@ -990,6 +1054,12 @@ class InferenceEngine:
                 self._decode_commit(rec, out, flight.events)
             else:
                 self._mixed_commit(rec, out, flight.events)
+        self.metrics.observe_gauges(
+            self.scheduler.queue_depth, self.pool.occupancy,
+            self.pool.kv_bytes_per_token, sp_degree=self.sp,
+            tier_blocks=len(self.kv_tier) if self.kv_tier is not None else 0,
+            tier_bytes=self.kv_tier.bytes_used if self.kv_tier is not None
+            else 0.0)
         self._refresh_gauges()
 
     def _abort_flight(self, flight: StepInFlight, error: str,
@@ -1248,6 +1318,8 @@ class InferenceEngine:
         no block, the forks are released and the request admits uncached:
         a cache miss, not a failure."""
         seq = req.resume_tokens
+        if self.kv_tier is not None and len(self.kv_tier):
+            self._tier_readmit(seq)
         blocks, cached, cow = self.prefix_cache.probe(seq)
         self.metrics.observe_prefix_lookup(cached if blocks else 0, len(seq))
         if not blocks:
@@ -1269,6 +1341,217 @@ class InferenceEngine:
             self.metrics.observe_prefix_cow()
         req.block_table = table
         req.cache_len = cached
+
+    # -- the host KV tier -----------------------------------------------------
+
+    def _demote_blocks(self, blocks: List[int]) -> None:
+        """``pool.demote_hook``: copy reclaimed-but-indexed blocks to the
+        host tier before ``reclaim_hook`` unindexes them, in one batched
+        copy (``export_blocks``). Best-effort: an unindexed block, the
+        tier's bound or an injected ``tier.demote_fail`` each leave the
+        plain eviction that would have happened without a tier."""
+        if self.kv_tier is None or self.pool.pages_deleted():
+            return
+        pairs = [(b, self.prefix_cache.key_of(b)) for b in blocks]
+        pairs = [(b, k) for b, k in pairs if k is not None]
+        if not pairs:
+            return
+        host = self.pool.export_blocks([b for b, _ in pairs])
+        for (b, key), leaves in zip(pairs, host):
+            if self.kv_tier.demote(key, leaves) and self.tracer.enabled:
+                self.tracer.instant("tier.demote", block=b,
+                                    tier_blocks=len(self.kv_tier),
+                                    tier_bytes=self.kv_tier.bytes_used)
+
+    def _tier_readmit(self, seq) -> None:
+        """Walk this prompt's chain keys and write back every demoted
+        block the device index lacks: allocate a block, digest-verify the
+        tier entry (a corrupt one frees the block again and ends the walk:
+        an uncached miss), write its pages in place, index it
+        (``prefix_cache.adopt``) and release it into the evictable LRU,
+        from where ``probe`` and ``fork`` revive it as if it had never
+        left. Pool pressure (or an injected alloc fault) ends the walk
+        early: the tier only ever adds hits."""
+        readmitted = 0
+        for key in self.prefix_cache.chain_keys(seq):
+            if self.prefix_cache.contains_key(key):
+                continue            # on the card; deeper keys may be tiered
+            if key not in self.kv_tier:
+                break               # the chain broke: nothing deeper matches
+            try:
+                blk = self.pool.alloc(1)
+            except (PoolExhausted, FaultInjected):
+                break
+            if key not in self.kv_tier:
+                # the alloc's own reclaim demoted blocks and displaced this
+                # entry: an ordinary miss, not corruption
+                self.pool.free(blk)
+                break
+            leaves = self.kv_tier.verify_readmit(key)
+            if leaves is None:
+                self.metrics.observe_tier_corrupt()
+                self.pool.free(blk)
+                break
+            payload_k, payload_v = self.pool.host_payload(leaves, blk[0])
+            self.pool.adopt_blocks([(blk[0], payload_k, payload_v)])
+            self.prefix_cache.adopt(key, blk[0])
+            self.pool.free(blk)     # indexed: parks evictable, probe sees it
+            readmitted += 1
+        if readmitted:
+            self.metrics.observe_tier_hit(readmitted)
+            if self.tracer.enabled:
+                self.tracer.instant("tier.readmit", blocks=readmitted,
+                                    tier_blocks=len(self.kv_tier),
+                                    tier_bytes=self.kv_tier.bytes_used)
+
+    # -- cross-replica KV handoff (disaggregated serving) ---------------------
+
+    def export_prefix(self, tokens: Sequence[int],
+                      max_blocks: Optional[int] = None) -> List[tuple]:
+        """Serialize the longest exportable chain prefix of ``tokens``: a
+        list of ``(chain_key, leaves, digest)`` wire blocks in chain order
+        (``leaves`` as ``pool.export_blocks`` gives them, ``digest =
+        tier_digest(key, leaves)``), with a 4th element under sp > 1: the
+        shard that held the block. Each key comes from the device index or
+        from the host tier (``peek``: verified, not consumed); the walk
+        stops at the first key neither holds. Read-only: no refcount
+        moves; an empty result means the receiver recomputes.
+
+        The deferred publishes run first (a boundary export right after
+        the first-token commit must find the chain this request just
+        prefilled), and the page copy is queued on the current stream
+        after every step this thread launched, a step in flight included,
+        so it reads what they wrote."""
+        if self.prefix_cache is None or self.pool.pages_deleted():
+            return []
+        self.run_deferred()
+        keys = self.prefix_cache.chain_keys(tokens)
+        if max_blocks is not None:
+            keys = keys[:max_blocks]
+        sources: List[tuple] = []      # (key, device block | None, leaves)
+        for key in keys:
+            blk = self.prefix_cache.block_of(key)
+            if blk is not None:
+                sources.append((key, blk, None))
+                continue
+            leaves = (self.kv_tier.peek(key)
+                      if self.kv_tier is not None else None)
+            if leaves is None:
+                break
+            sources.append((key, None, leaves))
+        fetched = iter(self.pool.export_blocks(
+            [b for _, b, _ in sources if b is not None]))
+        exports = []
+        for i, (key, blk, leaves) in enumerate(sources):
+            if blk is not None:
+                leaves = next(fetched)
+            if self.pool.sp > 1:
+                exports.append((key, leaves, tier_digest(key, leaves),
+                                self.pool.owner(blk) if blk is not None
+                                else i % self.pool.sp))
+            else:
+                exports.append((key, leaves, tier_digest(key, leaves)))
+        if exports:
+            self.metrics.observe_handoff_export(len(exports))
+            if self.tracer.enabled:
+                self.tracer.instant("handoff.export", blocks=len(exports),
+                                    wire_bytes=sum(
+                                        sum(x.nbytes for x in ex[1])
+                                        for ex in exports))
+        return exports
+
+    def _wire_leaves_ok(self, leaves) -> bool:
+        """Geometry guard for wire payloads: a digest proves only that the
+        bytes are what the SENDER exported, and a sender with another pool
+        geometry or page width would still verify. Shapes as in the JAX
+        engine; float leaves must also carry this pool's page dtype (bf16
+        as ``BF16_WIRE``). A mismatch degrades to recompute-resume."""
+        shape = (self.pool.num_layers, self.pool.num_kv_heads,
+                 self.pool.block_size, self.pool.head_dim)
+        if self.pool.kv_dtype == "int8":
+            return (len(leaves) == 4
+                    and leaves[0].shape == shape
+                    and leaves[2].shape == shape
+                    and leaves[0].dtype == np.int8
+                    and leaves[2].dtype == np.int8
+                    and leaves[1].shape == shape[:-1] + (1,)
+                    and leaves[3].shape == shape[:-1] + (1,)
+                    and leaves[1].dtype == np.float32
+                    and leaves[3].dtype == np.float32)
+        want = self.pool.wire_dtype_name()
+        return (len(leaves) == 2
+                and leaves[0].shape == shape and leaves[1].shape == shape
+                and leaf_dtype_name(leaves[0]) == want
+                and leaf_dtype_name(leaves[1]) == want)
+
+    def adopt_prefix(self, exports: Sequence[tuple]) -> int:
+        """Adopt wire blocks into this replica's prefix index; returns how
+        many of the chain are RESIDENT afterwards (fresh adopts plus keys
+        already held: the caller asks "will the resume hit here?"; the
+        ``handoff_adopted_blocks`` metric counts real writes only). Per
+        block, in chain order: skip a key already held; recompute
+        ``tier_digest`` over the wire bytes against the shipped digest (a
+        mismatch, real or the seeded ``handoff.corrupt``, drops the block
+        and stops the walk: a chain cannot adopt past a hole); check the
+        geometry; allocate a block (on the sender's shard mod sp); write
+        it in place; index it and park it evictable, from where probe and
+        fork serve it like local KV. Every degradation returns a smaller
+        count, and the router recomputes: never a wrong token."""
+        if self.prefix_cache is None or self.pool.pages_deleted():
+            return 0
+        adopted = resident = 0
+        for i, ex in enumerate(exports):
+            key, leaves, digest = ex[0], ex[1], ex[2]
+            shard = (ex[3] if len(ex) > 3 else i) % self.pool.sp
+            if self.prefix_cache.contains_key(key):
+                resident += 1       # dedupe: served here, keep walking
+                continue
+            if self.faults is not None:
+                if self.faults.handoff_slow():
+                    time.sleep(self.faults.handoff_slow_s)
+                if self.faults.handoff_corrupt():
+                    # flip one byte of a COPY: the digest check below must
+                    # catch planted damage as it would real wire rot
+                    leaves = tuple(np.array(x, copy=True) for x in leaves)
+                    flat = leaves[0].reshape(-1).view(np.uint8)
+                    flat[0] ^= 0xFF
+            leaves = tuple(np.asarray(x) for x in leaves)
+            if tier_digest(key, leaves) != digest:
+                self.metrics.observe_handoff_corrupt()
+                break
+            if not self._wire_leaves_ok(leaves):
+                break               # geometry mismatch: recompute instead
+            try:
+                blk = self.pool.alloc(1, start=shard)
+            except (PoolExhausted, FaultInjected):
+                break
+            payload_k, payload_v = self.pool.host_payload(leaves, blk[0])
+            self.pool.adopt_blocks([(blk[0], payload_k, payload_v)])
+            if not self.prefix_cache.adopt(key, blk[0]):
+                # raced a local publish of the same chain: served either way
+                self.pool.free(blk)
+                resident += 1
+                continue
+            self.pool.free(blk)     # indexed: parks evictable
+            adopted += 1
+            resident += 1
+        if adopted:
+            self.metrics.observe_handoff_adopt(adopted)
+            if self.tracer.enabled:
+                self.tracer.instant("handoff.adopt", blocks=adopted)
+        return resident
+
+    def prefix_keys(self) -> List[bytes]:
+        """Chain keys this replica can export now: the device index plus
+        the host tier's entries (the router's fleet directory refreshes
+        from this; keys are content addresses, alike on every replica)."""
+        if self.prefix_cache is None:
+            return []
+        keys = self.prefix_cache.keys()
+        if self.kv_tier is not None:
+            have = set(keys)
+            keys.extend(k for k in self.kv_tier.keys() if k not in have)
+        return keys
 
     def _terminate(self, req: Request, state: RequestState, error: str,
                    events=None, bucket: Optional[str] = None) -> None:
@@ -1304,7 +1587,7 @@ class InferenceEngine:
         req.block_table = []
         req.cache_len = 0
         self.scheduler.requeue(req)
-        self.metrics.observe_preemption()
+        self.metrics.observe_preemption(req.rid)
         if self.tracer.enabled:
             self.tracer.instant("serve.preempt", trace=req.trace_id,
                                 rid=req.rid, step=self.step_seq)
@@ -2070,7 +2353,7 @@ class InferenceEngine:
         self.pool.free(req.block_table)
         req.block_table = []
         self.scheduler.finish(req, reason)
-        self.metrics.observe_finish()
+        self.metrics.observe_finish(req.ttft_s)
         if self.tracer.enabled:
             self.tracer.instant("serve.finish", trace=req.trace_id,
                                 rid=req.rid, reason=reason,

@@ -44,8 +44,14 @@ such blocks when the free list runs short (``reclaim_hook`` tells the cache
 to forget them), and ``fork`` revives one a hit names. ``truncate`` drops a
 table's tail (speculative decoding's rollback), and ``copy_blocks`` clones
 whole pages (the copy-on-write of a full-cover hit). Under SP each shard
-reclaims and revives its own blocks: a block never changes shard. The JAX
-pool's host-tier demote hook is not ported.
+reclaims and revives its own blocks: a block never changes shard.
+
+Host tier and KV handoff: ``demote_hook`` hears of reclaimed blocks before
+``reclaim_hook`` (while the cache still names their keys), and the engine
+copies their pages to the host with ``export_blocks`` (one batched copy a
+shard); ``adopt_blocks`` writes host payloads back into allocated blocks
+IN PLACE (``write_block``), never rebinding ``pages_k`` / ``pages_v``,
+whose addresses the captured pdecode graphs hold.
 """
 from __future__ import annotations
 
@@ -55,7 +61,10 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+import numpy as np
+
 from ..ops.paged_attention import QuantPages, quantize_kv_rows
+from .kv_tier import BF16_WIRE
 
 
 class PoolExhausted(RuntimeError):
@@ -138,6 +147,10 @@ class PagedKVPool:
         # hears of every evictable block recycled
         self.evictable_filter: Optional[Callable[[int], bool]] = None
         self.reclaim_hook: Optional[Callable[[List[int]], None]] = None
+        # host-tier hook: hears of the blocks a reclaim recycles BEFORE
+        # reclaim_hook unindexes them, while the pages still hold their KV;
+        # never called from purge_evictable (the pages are untrusted there)
+        self.demote_hook: Optional[Callable[[List[int]], None]] = None
         # chaos hook (a serving.faults.FaultPlan): alloc() consults it and
         # may raise an injected PoolExhausted before any state changes
         self.fault_plan = None
@@ -248,21 +261,28 @@ class PagedKVPool:
 
     def _reclaim_shard(self, shard: int) -> None:
         """Reclaim the LRU-oldest evictable block of ``shard`` into the free
-        list, telling ``reclaim_hook``."""
+        list, telling ``demote_hook`` and then ``reclaim_hook``."""
         b = next(b for b in self._evictable if self.owner(b) == shard)
         del self._evictable[b]
         self._free.append(b)
+        if self.demote_hook is not None:
+            self.demote_hook([b])
         if self.reclaim_hook is not None:
             self.reclaim_hook([b])
 
-    def _reclaim(self, n: int) -> List[int]:
+    def _reclaim(self, n: int, demote: bool = True) -> List[int]:
         """Move the ``n`` LRU-oldest evictable blocks to the free list and
-        tell ``reclaim_hook``: their cached KV is gone for good."""
+        tell ``reclaim_hook``: their cached KV leaves the card. With
+        ``demote`` and a ``demote_hook`` (the host tier), the hook hears of
+        them first, while the cache still maps block -> key; whatever it
+        does, the reclaim goes on alike."""
         taken = []
         for _ in range(n):
             b, _ = self._evictable.popitem(last=False)
             taken.append(b)
             self._free.append(b)
+        if taken and demote and self.demote_hook is not None:
+            self.demote_hook(taken)
         if taken and self.reclaim_hook is not None:
             self.reclaim_hook(taken)
         return taken
@@ -375,10 +395,110 @@ class PagedKVPool:
                           if isinstance(shard, QuantPages) else (shard,)):
                     t.zero_()
 
+    def release_pages(self) -> None:
+        """Replace every page tensor by an empty one on its device, so its
+        memory goes back to the allocator (a retired replica). The pool
+        serves no step afterwards."""
+        def empty(p):
+            if isinstance(p, QuantPages):
+                return QuantPages(p.data.new_empty(0), p.scale.new_empty(0))
+            return p.new_empty(0)
+
+        if self.sp > 1:
+            self.pages_k = [empty(p) for p in self.pages_k]
+            self.pages_v = [empty(p) for p in self.pages_v]
+        else:
+            self.pages_k = empty(self.pages_k)
+            self.pages_v = empty(self.pages_v)
+
     def purge_evictable(self) -> List[int]:
         """Reclaim every evictable block (the pages' content became
-        untrustworthy)."""
-        return self._reclaim(len(self._evictable))
+        untrustworthy), without demoting it."""
+        return self._reclaim(len(self._evictable), demote=False)
+
+    def pages_deleted(self) -> bool:
+        """The JAX pool's check for pages donated into a step that died.
+        The port writes its pages in place and never gives them away, so
+        they are never deleted."""
+        return False
+
+    def _locate(self, block: int):
+        """(pages_k, pages_v, local id) of a global block id."""
+        s = self.owner(block)
+        pk, pv = self.shard_pages()[s]
+        return pk, pv, block - s * self.blocks_per_shard
+
+    def export_blocks(self, blocks: Sequence[int]) -> List[tuple]:
+        """Copy whole pages to the host, one leaf tuple per block: ``(k,
+        v)``, or ``(k_data, k_scale, v_data, v_scale)`` under int8, each
+        leaf (L, H_kv, bs, Dh) (scales (L, H_kv, bs, 1)) as numpy, bf16 as
+        its raw bits (``kv_tier.BF16_WIRE``). The leaf order is what
+        ``adopt_blocks`` writes and the host tier stores. Each shard's
+        blocks leave the card in ONE copy, queued on the current stream
+        after every step that wrote the pages, so the copy waits for them
+        (the demote hook and the handoff export, never a step-path call)."""
+        out: List[Optional[tuple]] = [None] * len(blocks)
+        by_shard: Dict[int, List[int]] = {}
+        for i, b in enumerate(blocks):
+            by_shard.setdefault(self.owner(b), []).append(i)
+        for s, idxs in by_shard.items():
+            pk, pv = self.shard_pages()[s]
+            local = [blocks[i] - s * self.blocks_per_shard for i in idxs]
+            srcs = ((pk.data, pk.scale, pv.data, pv.scale)
+                    if isinstance(pk, QuantPages) else (pk, pv))
+            idx = torch.tensor(local, dtype=torch.long,
+                               device=srcs[0].device)
+            # (n, L, H, bs, Dh) per leaf: each block's slice contiguous
+            parts = [t.index_select(1, idx).transpose(0, 1).contiguous()
+                     for t in srcs]
+            flat = torch.cat([p.reshape(-1).view(torch.uint8)
+                              for p in parts])
+            host = flat.cpu().numpy()
+            off = 0
+            leaves = []
+            for p in parts:
+                nbytes = p.numel() * p.element_size()
+                arr = host[off:off + nbytes].view(_np_dtype(p.dtype))
+                leaves.append(arr.reshape(tuple(p.shape)))
+                off += nbytes
+            for j, i in enumerate(idxs):
+                out[i] = tuple(leaf[j].copy() for leaf in leaves)
+        return out
+
+    def adopt_blocks(self, items: Sequence[tuple]) -> None:
+        """Write payloads into already-allocated blocks, in place: the
+        device half of a tier re-admission or a handoff adopt. ``items``
+        holds ``(block_id, payload_k, payload_v)`` with the payloads as
+        ``host_payload`` makes them (``QuantPages`` of slices under int8,
+        so data and scales land together). Callers digest-verify wire
+        payloads (``kv_tier.tier_digest``) before they come here."""
+        for blk, payload_k, payload_v in items:
+            pk, pv, local = self._locate(int(blk))
+            write_block(pk, local, payload_k)
+            write_block(pv, local, payload_v)
+
+    def host_payload(self, leaves: Sequence[np.ndarray], block: int):
+        """Host leaves (``export_blocks``' form) -> the two payloads
+        ``adopt_blocks`` writes, on the device of ``block``'s shard."""
+        dev = self.devices[self.owner(int(block))]
+
+        def put(a):
+            a = np.ascontiguousarray(a)
+            if a.dtype.metadata and a.dtype.metadata.get("dtype") \
+                    == "bfloat16":
+                return torch.from_numpy(a.view(np.int16)).to(dev).view(
+                    torch.bfloat16)
+            return torch.from_numpy(a).to(dev)
+
+        if len(leaves) == 4:
+            return (QuantPages(put(leaves[0]), put(leaves[1])),
+                    QuantPages(put(leaves[2]), put(leaves[3])))
+        return put(leaves[0]), put(leaves[1])
+
+    def wire_dtype_name(self) -> str:
+        """The dtype name float page leaves carry (``kv_tier.
+        leaf_dtype_name``): the pages' own, "bfloat16" for bf16."""
+        return str(self.dtype).replace("torch.", "")
 
     def check_invariants(
             self,
@@ -642,6 +762,28 @@ def scatter_chunk(pages, block_tables, starts, rows, q_lens):
     # Dh)
     pages[:, blk, :, pos % bs, :] = rows.permute(1, 2, 0, 3, 4).to(
         pages.dtype)
+    return pages
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """numpy dtype of a page leaf; bf16 as raw bits (``BF16_WIRE``)."""
+    if dtype == torch.bfloat16:
+        return BF16_WIRE
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def write_block(pages, block: int, payload):
+    """Write one whole page at ``block`` across every layer, in place
+    (the host tier's and the handoff's device half). pages: (L, N, H, bs,
+    Dh) of one shard; block: an id local to it; payload: (L, H, bs, Dh).
+    Under ``QuantPages`` the payload is a ``QuantPages`` of slices, so the
+    int8 data and its scales land together and a readmitted block never
+    dequantizes against stale scales."""
+    if isinstance(pages, QuantPages):
+        write_block(pages.data, block, payload.data)
+        write_block(pages.scale, block, payload.scale)
+        return pages
+    pages[:, block].copy_(payload)
     return pages
 
 

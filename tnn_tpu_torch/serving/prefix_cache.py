@@ -31,7 +31,7 @@ clone is allocated on its source's shard.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -81,6 +81,31 @@ class PrefixCache:
     def contains_block(self, block: int) -> bool:
         """Is this pool block indexed? (The pool's ``evictable_filter``.)"""
         return block in self._key_of
+
+    def contains_key(self, key: bytes) -> bool:
+        """Is this chain key device-resident? (The host tier's readmit walk
+        skips keys the index already covers.)"""
+        return key in self._index
+
+    def key_of(self, block: int) -> Optional[bytes]:
+        """The chain key a pool block is indexed under, or None. The pool's
+        ``demote_hook`` runs before ``reclaim_hook``, so at demote time this
+        still names every reclaimed block."""
+        return self._key_of.get(block)
+
+    def block_of(self, key: bytes) -> Optional[int]:
+        """The pool block a chain key is indexed at, or None (the export
+        half of a cross-replica handoff reads pages by key)."""
+        return self._index.get(key)
+
+    def keys(self) -> List[bytes]:
+        """Every device-resident chain key (the fleet directory's view of
+        what this replica can export)."""
+        return list(self._index.keys())
+
+    def chain_keys(self, tokens: Sequence[int]) -> List[bytes]:
+        """Chain keys of every FULL block of ``tokens``."""
+        return chain_keys(tokens, self.block_size)
 
     def probe(self, tokens: Sequence[int]) -> Tuple[List[int], int, bool]:
         """Longest cached prefix of ``tokens`` at full-block granularity:

@@ -30,8 +30,18 @@ Capture rules:
   (``runtime.zeroed_counters``) at the size the program needs. The graph
   keeps those buffers, so a later regrowth never frees memory it writes.
 - The wrappers count their launches in Python, which a replay does not
-  run: the launches the warm-up and the capture counted are taken back
-  out, and each replay adds the capture's count again.
+  run: the launches the warm-up and the capture counted on this thread
+  (``runtime.thread_launches``) are taken back out, and each replay adds
+  the capture's count again. Launches other replicas' workers make
+  meanwhile stay counted.
+- Replicas of a fleet share a card and step on threads of their own: one
+  process-wide lock (``_CAPTURE_LOCK``) serializes their warm-ups and
+  captures, so no two captures run at once. While any thread captures,
+  a device-wide ``torch.cuda.synchronize()`` from another thread fails
+  ("operation not permitted when stream is capturing") and the process
+  aborts: the engine's own paths wait on events only, and code that
+  must synchronize the device beside running replicas holds the lock
+  (it is reentrant, so that code may itself capture).
 
 - The capture runs with ``capture_error_mode="thread_local"``. Under the
   supervised server the engine steps on the supervisor's worker thread
@@ -44,8 +54,9 @@ A failed capture or replay raises; nothing falls back to eager steps.
 """
 from __future__ import annotations
 
+import threading
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,14 +76,17 @@ def _launch_counters() -> List[Tuple[object, str]]:
             (decode_stack.fused_decode_stack, "launches")]
 
 
-def read_launches() -> Dict[Tuple[int, str], int]:
-    return {(id(fn), attr): getattr(fn, attr)
-            for fn, attr in _launch_counters()}
+#: one capture at a time in the process (the fleet's workers share a card)
+_CAPTURE_LOCK = threading.RLock()
 
 
-def _set_launches(counts: Dict[Tuple[int, str], int]) -> None:
+def _take_back(since, until) -> None:
+    """Subtract from the global counters the launches this thread
+    counted between two ``runtime.thread_launches()`` readings."""
     for fn, attr in _launch_counters():
-        setattr(fn, attr, counts[(id(fn), attr)])
+        n = until[(id(fn), attr)] - since[(id(fn), attr)]
+        if n:
+            runtime.count_launch(fn, attr, -n)
 
 
 def decode_arrays(step: step_build.DecodeStep) -> List[np.ndarray]:
@@ -104,29 +118,31 @@ class DecodeGraph:
             self.device)
         self.views = step_build.split_inputs(self.inputs, like)
         t0 = time.perf_counter()
-        stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        saved = generator.get_state()
-        before = read_launches()
-        stream.wait_stream(current)
-        try:
-            with torch.cuda.stream(stream):
-                program(*self.views)                 # the warm-up
-                warm = read_launches()
-                self.graph = torch.cuda.CUDAGraph()
-                self.graph.register_generator_state(generator)
-                self.graph.capture_begin(
-                    capture_error_mode="thread_local")
-                try:
-                    self.logits, self.bundle = program(*self.views)
-                finally:
-                    self.graph.capture_end()
-            current.wait_stream(stream)
-            stream.synchronize()
-            captured = read_launches()
-        finally:
-            generator.set_state(saved)
-            _set_launches(before)
+        with _CAPTURE_LOCK:
+            stream = torch.cuda.Stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            saved = generator.get_state()
+            before = runtime.thread_launches()
+            captured = before
+            stream.wait_stream(current)
+            try:
+                with torch.cuda.stream(stream):
+                    program(*self.views)                 # the warm-up
+                    warm = runtime.thread_launches()
+                    self.graph = torch.cuda.CUDAGraph()
+                    self.graph.register_generator_state(generator)
+                    self.graph.capture_begin(
+                        capture_error_mode="thread_local")
+                    try:
+                        self.logits, self.bundle = program(*self.views)
+                    finally:
+                        self.graph.capture_end()
+                current.wait_stream(stream)
+                stream.synchronize()
+            finally:
+                generator.set_state(saved)
+                captured = runtime.thread_launches()
+                _take_back(before, captured)
         self.launches = [(fn, attr, captured[(id(fn), attr)]
                           - warm[(id(fn), attr)])
                          for fn, attr in _launch_counters()]
@@ -145,7 +161,7 @@ class DecodeGraph:
         self.graph.replay()
         for fn, attr, n in self.launches:
             if n:
-                setattr(fn, attr, getattr(fn, attr) + n)
+                runtime.count_launch(fn, attr, n)
         self.replays += 1
         return self.bundle
 

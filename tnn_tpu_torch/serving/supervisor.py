@@ -73,9 +73,10 @@ at every restart (the page reset is a CUDA call), so the supervisor ends
 FAILED with exit code 1 within ``max_restarts`` and never rebuilds the
 CUDA context. ``_run`` catches ``BaseException`` so that no client hangs.
 
-The Prometheus series (``prometheus_series``) wait for the port's metrics
-exposition, and the fleet's ``export_prefix`` / ``adopt_prefix`` /
-``prefix_keys`` for its router (ROADMAP.md).
+``prometheus_series`` is the ``GET /metrics`` backend; ``export_prefix``,
+``adopt_prefix`` and ``prefix_keys`` are the router's KV handoff and fleet
+directory calls. Each runs on the worker between steps, like every other
+engine touch.
 
 The supervisor also owns the crash **flight recorder** (``self.flight``):
 every step's record (``engine.last_step_record``) lands in a bounded ring
@@ -261,6 +262,40 @@ class EngineSupervisor:
         (marshalled through the worker, so the dict is consistent)."""
         return self._execute(self._stats)
 
+    def prometheus_series(self) -> List[Any]:
+        """Thread-safe snapshot of the engine's Prometheus metric families
+        (``metrics.ServingMetrics.prometheus_series``) plus the supervisor's
+        lifecycle counters: the ``GET /metrics`` backend."""
+        return self._execute(self._prometheus_series)
+
+    def export_prefix(self, tokens, max_blocks: Optional[int] = None) \
+            -> List[Any]:
+        """Thread-safe ``engine.export_prefix``: the longest exportable
+        chain prefix of ``tokens`` as digest-carrying wire blocks, read on
+        the worker between steps."""
+        return self._execute(
+            lambda: self.engine.export_prefix(tokens, max_blocks))
+
+    def adopt_prefix(self, exports) -> int:
+        """Thread-safe ``engine.adopt_prefix``: verify and adopt wire
+        blocks; returns how many are resident (a short count makes the
+        router recompute)."""
+        return self._execute(lambda: self.engine.adopt_prefix(exports))
+
+    def prefix_keys(self) -> List[bytes]:
+        """Thread-safe ``engine.prefix_keys``: the chain keys this replica
+        can export (the router's fleet directory)."""
+        return self._execute(lambda: self.engine.prefix_keys())
+
+    def release(self) -> bool:
+        """Give back the engine's device memory (its pool's pages and
+        captured graphs) once the worker has exited: a retired or killed
+        replica's last act. Returns False while the worker still runs."""
+        if not self.finished or not self.join(0):
+            return False
+        self.engine.release()
+        return True
+
     def execute(self, fn: Callable[[], Any]) -> Any:
         """Run ``fn()`` on the worker between steps and return its result
         (thread-safe; inline when called from the worker or without one).
@@ -440,6 +475,19 @@ class EngineSupervisor:
         s["supervisor_restarts"] = self.restarts
         s["flight_dumps"] = self.flight.dumps
         return s
+
+    @worker_only
+    def _prometheus_series(self) -> List[Any]:
+        fams = list(self.engine.metrics.prometheus_series())
+        fams.append({
+            "name": "tnn_serve_supervisor_restarts", "type": "counter",
+            "help": "Supervisor crash/watchdog restarts",
+            "samples": [("", {}, float(self.restarts))]})
+        fams.append({
+            "name": "tnn_serve_flight_dumps", "type": "counter",
+            "help": "Flight-recorder JSONL dumps written",
+            "samples": [("", {}, float(self.flight.dumps))]})
+        return fams
 
     @worker_only
     def _do_kill(self, reason: str) -> None:
