@@ -57,7 +57,14 @@ numbers on its own line:
    held-out batches, with K4 = 12 x 8, K5 = K6 = 12 x 6 and K7 = 0
    launches, falling loss, step time, MFU, peak memory and a profiled
    step, whose flash kernels must be the tensor-core bodies of K4, K5 and
-   K6. train_cli (7) also runs ``--arch llama`` at S=32,768, 2 layers.
+   K6; then the same cell from the same weights on the same 3 batches
+   with ``lm_head_chunk=8192`` and with remat "full", "dots" and
+   "offload_dots" against none: steady step time, peak memory, the losses
+   against none's (bounds at ``LONG_VARIANTS``), K4 = 12 x steps (twice
+   that under remat) and K5 = K6 = 12 x steps. train_cli (7) also runs
+   ``--arch llama`` at S=32,768, 2 layers, and ``flash_gpt2_small`` at
+   B=8, S=1024 through the CLI with ``--fused-head-loss 8192`` against the
+   default: peak memory, tokens/s and a falling loss curve of each.
 
 13. decode_stack: the fused decode-stack kernel (K8) against its plain
    version at gpt2_small's width in 48 cases (B 1 and 2, T 1024, three
@@ -209,6 +216,17 @@ numbers on its own line:
    runs no nvcc, the same tokens). Every fleet run holds K1 (K2) = 12 x
    the paged dispatches summed over its replicas and K3 = 49 x its wide
    steps; its K1, K2 and K3 join the kernels line.
+24. training_loop (run after train_cli): ``train_model`` on full-width
+   ``flash_gpt2_small`` (B=8, S=1024) from a ``TrainingConfig`` (AdamW
+   and warmup-cosine from its dicts) over ``OpenWebTextDataLoader`` on a
+   synthetic uint16 corpus: 2 epochs of 4 steps with validation, ``best/``
+   and per-epoch ``block=False`` snapshots, K4 = 12 x (train + eval
+   steps) and K7 = 12 x train steps; a blocking save, an async save and a
+   restore timed with their bytes; then a run cut after 3 steps and
+   resumed from its snapshot against two unbroken 6-step runs: the
+   restored state byte-equal to the saved one, the losses within the
+   unbroken runs' spread (``RESUME_SPREAD``). Its K4 and K7 join the
+   kernels line.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -1533,6 +1551,89 @@ def phase_train_cli(results):
         raise AssertionError(f"train CLI run failed: launches {(fwd, bwd)} "
                              f"vs {want}; {out}")
     train_cli_llama(fields)
+    train_cli_fused_head(results)
+
+
+FUSED_CLI_STEPS = 20       # 5 warm-up, 15 timed by CUDA events
+
+
+def train_cli_fused_head(results):
+    """``cli.train_gpt2`` at full width (flash_gpt2_small, B=8, S=1024, the
+    synthetic corpus) with ``--fused-head-loss 8192`` against the default
+    materialized loss: peak memory, tokens/s (the CLI's and from the steady
+    steps' CUDA events) and each step's loss, finite and falling. K4 = 12
+    x (train + held-out steps) and K7 = 12 x train steps in each run; they
+    join the kernels line."""
+    import contextlib
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.cli import train_gpt2
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    layers, steps = TRAIN_ARGS["layers"], FUSED_CLI_STEPS
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = Path(tmp) / "corpus"
+        corpus.mkdir()
+        synthetic_corpus(corpus, n_train=400_000, n_val=100_000)
+        real_make = train_gpt2.make_train_step
+        for name, flags in (("materialized", []),
+                            ("fused_head_loss", ["--fused-head-loss",
+                                                 "8192"])):
+            rec = StepRecorder(timed=range(5, steps),
+                               profiled=range(steps + 1, steps + 2))
+            argv = ["--tokens", str(corpus), "--steps", str(steps),
+                    "--backend", "pallas", "--sample", "0",
+                    "--results", str(Path(tmp) / name)] + flags
+            for key, value in TRAIN_ARGS.items():
+                argv += [f"--{key.replace('_', '-')}", str(value)]
+            train_gpt2.make_train_step = rec.wrap(real_make)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fa.flash_attention_fwd.launches = 0
+            fa.flash_attention_bwd.launches = 0
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    out = train_gpt2.main(argv)
+            finally:
+                train_gpt2.make_train_step = real_make
+            k4, k7 = fa.flash_attention_fwd.launches, \
+                fa.flash_attention_bwd.launches
+            results["flash_launches"]["flash_attention_fwd"] += k4
+            results["flash_launches"]["flash_attention_bwd"] += k7
+            losses = [float(x) for x in rec.losses]
+            step_ms = rec.step_ms()
+            want = [layers * (steps + EVAL_STEPS), layers * steps]
+            ok = (len(losses) == steps
+                  and all(math.isfinite(v) for v in losses)
+                  and float(np.mean(losses[-3:])) < losses[0]
+                  and [k4, k7] == want and math.isfinite(out["val_loss"]))
+            rows[name] = dict(
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                step_ms=step_ms,
+                tokens_per_s=TRAIN_ARGS["batch"] * TRAIN_ARGS["seq"]
+                / step_ms * 1e3,
+                cli_train_tok_per_s=out["train_tok_per_s"], losses=losses,
+                val_loss=out["val_loss"], launches=[k4, k7],
+                expected_launches=want, ok=ok)
+            log("train_cli_fused_head", run=name, **TRAIN_ARGS,
+                **rows[name])
+    first_rel = abs(rows["fused_head_loss"]["losses"][0]
+                    - rows["materialized"]["losses"][0]) \
+        / rows["materialized"]["losses"][0]
+    log("train_cli_fused_head_memory",
+        saving_gb=rows["materialized"]["peak_mem_gb"]
+        - rows["fused_head_loss"]["peak_mem_gb"],
+        f32_logits_and_grad_gb=2 * TRAIN_ARGS["batch"] * TRAIN_ARGS["seq"]
+        * 50257 * 4 / 2**30, first_loss_rel=first_rel)
+    if not all(r["ok"] for r in rows.values()) \
+            or first_rel > LM_CHUNK_FIRST_REL:
+        raise AssertionError(f"--fused-head-loss runs failed: {rows}")
 
 
 def train_cli_llama(fields):
@@ -1587,6 +1688,190 @@ def train_cli_llama(fields):
     if not ok:
         raise AssertionError(f"llama train CLI run failed: launches "
                              f"{launches} vs {want}; {out}")
+
+
+# -- phase 24 -----------------------------------------------------------------
+#
+# ``train_model`` at full width: flash_gpt2_small, B=8, S=1024, the
+# optimizer and schedule from a ``TrainingConfig``, ``OpenWebTextDataLoader``
+# over a synthetic uint16 corpus. The resumed run cannot be held bit for
+# bit against an unbroken one here: K7's dQ low bits vary from run to run
+# (its bulk reduce-add). So the restored state (params, moments, step,
+# generator, scheduler, loader cursor) must equal what was saved byte for
+# byte, and the resumed steps' losses must lie within RESUME_SPREAD times
+# the largest gap between two unbroken runs, or RESUME_FLOOR_REL of the
+# loss where the two unbroken runs happen to agree.
+LOOP_CONFIG = dict(epochs=2, batch_size=8, max_steps=4,
+                   progress_print_interval=1,
+                   optimizer={"type": "adamw", "lr": 3e-4,
+                              "weight_decay": 0.01, "grad_clip_norm": 1.0},
+                   scheduler={"type": "warmup_cosine", "warmup": 2,
+                              "t_max": 8},
+                   io_dtype="bfloat16", seed=0)
+RESUME_STEPS = 6             # the unbroken runs; the cut one stops at 3
+RESUME_SPREAD = 2.0
+RESUME_FLOOR_REL = 1e-4
+
+
+def phase_training_loop(results):
+    import logging
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tnn_tpu_torch.checkpoint import Checkpoint
+    from tnn_tpu_torch.data.token_stream import OpenWebTextDataLoader
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import (create_train_state, train_model,
+                                     train_state_trees)
+    from tnn_tpu_torch.utils.config import TrainingConfig
+    from tnn_tpu_torch.utils.logging import get_logger
+
+    # the loop's progress lines go to stderr: stdout carries the JSON lines
+    for h in logging.getLogger(get_logger("tnn.train")._log.name).handlers:
+        if isinstance(h, logging.StreamHandler) \
+                and not isinstance(h, logging.FileHandler):
+            h.setStream(sys.stderr)
+    seq, batch = TRAIN_ARGS["seq"], LOOP_CONFIG["batch_size"]
+    layers = TRAIN_ARGS["layers"]
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+
+    def run(tmp, name, validate=True, **kw):
+        cfg = TrainingConfig().update({**LOOP_CONFIG,
+                                       "snapshot_dir": str(tmp / name),
+                                       **kw})
+        train = OpenWebTextDataLoader(str(tmp / "train.bin"), seq)
+        val = OpenWebTextDataLoader(str(tmp / "val.bin"), seq) \
+            if validate else None
+        model = _flash_gpt2_small()
+        losses = []
+        state, hist = train_model(
+            model, cfg, train, val,
+            metric_hook=lambda step, m: losses.append(m["loss"]))
+        return model, state, hist, losses, train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # two validation batches: 1024 + 16 tokens give 16 windows
+        synthetic_corpus(tmp, n_train=400_000, n_val=seq + 2 * batch)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        model, state, hist, losses, train = run(tmp, "main")
+        main_s = time.perf_counter() - t0
+        k4, k7 = (c.launches for c in counters)
+        results["flash_launches"]["flash_attention_fwd"] += k4
+        results["flash_launches"]["flash_attention_bwd"] += k7
+        steps = LOOP_CONFIG["epochs"] * LOOP_CONFIG["max_steps"]
+        evals = LOOP_CONFIG["epochs"] * 2
+        want = [layers * (steps + evals), layers * steps]
+        snaps = sorted(os.listdir(tmp / "main"))
+        ok = ([h["batches"] for h in hist] == [4, 4] and state.step == steps
+              and [k4, k7] == want
+              and all(math.isfinite(v) for v in losses)
+              and all(math.isfinite(h["val_loss"]) for h in hist)
+              and "best" in snaps and f"step_{steps}" in snaps)
+        log("training_loop", model="flash_gpt2_small", batch=batch, seq=seq,
+            epochs=len(hist), losses=losses,
+            epoch_seconds=[h["epoch_seconds"] for h in hist],
+            val_losses=[h["val_loss"] for h in hist], snapshots=snaps,
+            launches=[k4, k7], expected_launches=want, wall_s=main_s, ok=ok)
+        if not ok:
+            raise AssertionError(f"train_model run failed: {hist}, "
+                                 f"launches {[k4, k7]} vs {want}, {snaps}")
+        shutil.rmtree(tmp / "main")     # 1.5 GB a snapshot: keep few
+
+        # a blocking save, an async save (its return after the host copy,
+        # then its write) and a restore, timed, with their bytes
+        ckpt = Checkpoint(str(tmp / "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(state, model=model, loader=train)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "state.tnn"))
+        t0 = time.perf_counter()
+        ckpt.save(state, model=model, loader=train, best=True, block=False)
+        async_return_s = time.perf_counter() - t0
+        ckpt.wait()
+        async_total_s = time.perf_counter() - t0
+        fresh = create_train_state(model, state_optimizer(LOOP_CONFIG))
+        t0 = time.perf_counter()
+        fresh, _ = ckpt.restore(fresh, path=path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = trees_equal(train_state_trees(fresh), train_state_trees(state))
+        log("training_loop_checkpoint", bytes=nbytes, save_s=save_s,
+            async_return_s=async_return_s, async_total_s=async_total_s,
+            restore_s=restore_s, restored_equal=same)
+        del model, state, fresh, ckpt
+        shutil.rmtree(tmp / "timed")
+        torch.cuda.empty_cache()
+
+        # mid-epoch resume against two unbroken runs
+        one = dict(epochs=1, validate=False)
+        unbroken = [run(tmp, f"unbroken{i}", max_steps=RESUME_STEPS, **one)[3]
+                    for i in range(2)]
+        for i in range(2):
+            shutil.rmtree(tmp / f"unbroken{i}")
+        torch.cuda.empty_cache()
+        cut_model, cut, _, cut_losses, cut_train = run(
+            tmp, "cut", max_steps=RESUME_STEPS // 2, **one)
+        saved = train_state_trees(cut)
+        saved_rng = cut.generator.get_state()
+        cursor = cut_train.state_dict()["cursor"]
+        del cut_model, cut
+        torch.cuda.empty_cache()
+        snap = str(tmp / "cut" / f"step_{RESUME_STEPS // 2}")
+        # the restored state against the one the cut run ended with
+        probe_model = _flash_gpt2_small()
+        probe = create_train_state(probe_model, state_optimizer(LOOP_CONFIG))
+        probe_train = OpenWebTextDataLoader(str(tmp / "train.bin"), seq)
+        probe, _ = Checkpoint(snap).restore(probe, loader=probe_train)
+        restored_equal = trees_equal(train_state_trees(probe), saved) \
+            and torch.equal(probe.generator.get_state(), saved_rng)
+        cursor_equal = probe_train.state_dict()["cursor"] == cursor
+        del probe_model, probe
+        torch.cuda.empty_cache()
+        _, resumed, _, res_losses, _ = run(
+            tmp, "resumed", max_steps=RESUME_STEPS // 2, resume=snap, **one)
+        # the cut run and then the resumed one against the first unbroken
+        spread = max(abs(a - b) for a, b in zip(*unbroken))
+        joined = cut_losses + res_losses
+        gaps = [abs(a - b) for a, b in zip(joined, unbroken[0])]
+        bound = [max(RESUME_SPREAD * spread, RESUME_FLOOR_REL * abs(b))
+                 for b in unbroken[0]]
+        ok = (restored_equal and cursor_equal and resumed.step == RESUME_STEPS
+              and len(joined) == RESUME_STEPS
+              and all(g <= b for g, b in zip(gaps, bound)))
+        log("training_loop_resume", unbroken_losses=unbroken,
+            cut_losses=cut_losses, resumed_losses=res_losses,
+            unbroken_spread=spread, gaps=gaps, bounds=bound,
+            restored_equal=restored_equal, cursor=cursor,
+            cursor_equal=cursor_equal, ok=ok)
+        del resumed
+        torch.cuda.empty_cache()
+        if not (ok and same):
+            raise AssertionError("train_model resume check failed")
+
+
+def state_optimizer(cfg):
+    from tnn_tpu_torch.nn import optimizers
+
+    return optimizers.from_config(cfg["optimizer"])
+
+
+def trees_equal(a, b):
+    """Two ``train_state_trees``, key for key and byte for byte."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            trees_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a, b))
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -2456,6 +2741,8 @@ def phase_training_long(results):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd, dq, dkv = (c.launches for c in counters)
+        # the batches every variant below trains on
+        variant_batches = [batch(train) for _ in range(LONG_VARIANT_STEPS)]
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in rec.losses]
     layers = model.num_layers
@@ -2502,8 +2789,113 @@ def phase_training_long(results):
     if not all(ran.values()) or simt:
         raise AssertionError(f"long training's flash kernels {flash_bodies}: "
                              f"tensor-core bodies {ran}, SIMT bodies {simt}")
-    del model, state, step, ev
+    del state, step, ev
     torch.cuda.empty_cache()
+    training_long_variants(model, variant_batches, results)
+    del model
+    torch.cuda.empty_cache()
+
+
+# The long-context step's memory knobs, each from the same weights on the
+# same batches as "none" (AdamW, no accuracy): the chunked LM-head loss
+# (``lm_head_chunk``) and three remat policies. Bounds (bf16 policy, f32
+# logits both ways): the chunked loss equals the materialized one at the
+# first step within LM_CHUNK_FIRST_REL (summation order only); later steps
+# within LM_CHUNK_LATER_REL, as the two backwards round the logits'
+# gradient at different points (the materialized product rounds it to
+# bf16, the chunked one keeps it in f32); remat reruns the same kernels
+# on the same values, so every loss within REMAT_REL of "none" (the
+# split backward K5 + K6 is deterministic; 0 is what it should read).
+LONG_VARIANT_STEPS = 3          # 1 warm-up, 2 timed
+LONG_VARIANTS = (("none", {}), ("lm_head_chunk", {"lm_head_chunk": 8192}),
+                 ("remat_full", {"remat": "full"}),
+                 ("remat_dots", {"remat": "dots"}),
+                 ("remat_offload_dots", {"remat": "offload_dots"}))
+LM_CHUNK_FIRST_REL = 1e-4
+LM_CHUNK_LATER_REL = 2e-2
+REMAT_REL = 1e-3
+
+
+def training_long_variants(model, batches, results):
+    """The Llama cell with each of ``LONG_VARIANTS``: steady step time
+    (CUDA events), peak memory, losses, K4 / K5 / K6 / K7 launches (K4
+    twice a layer under remat: the backward runs the attention forward
+    again) and which backward kernels ran."""
+    import torch
+
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import create_train_state, make_train_step
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    layers, steps = model.num_layers, len(batches)
+    rows = {}
+    for name, kw in LONG_VARIANTS:
+        model.load_state_dict(init)
+        opt = AdamW(lr=3e-4, weight_decay=0.01, grad_clip_norm=1.0)
+        state = create_train_state(model, opt, seed=0)
+        step = make_train_step(model, opt, compute_accuracy=False, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        events, losses = [], []
+        for i, (x, y) in enumerate(batches):
+            if i == 1:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            state, m = step(state, x, y)
+            losses.append(m["loss"])
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        torch.cuda.synchronize()
+        k4, k7, k5, k6 = (c.launches for c in counters)
+        remat = "remat" in kw
+        want = (layers * steps * (2 if remat else 1), 0, layers * steps,
+                layers * steps)
+        losses = [float(v) for v in losses]
+        rows[name] = dict(
+            step_ms=events[0].elapsed_time(events[1]) / (steps - 1),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            losses=losses, launches=[k4, k7, k5, k6],
+            expected_launches=list(want),
+            backward_kernels=[n for n, c in (("flash_attention_bwd_dq", k5),
+                                             ("flash_attention_bwd_dkv", k6),
+                                             ("flash_attention_bwd", k7))
+                              if c])
+        results["flash_launches"]["flash_attention_fwd"] += k4
+        split = results.setdefault("split_launches", {
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+        split["flash_attention_bwd_dq"] += k5
+        split["flash_attention_bwd_dkv"] += k6
+        del state, step, opt
+    base = rows["none"]["losses"]
+    fails = []
+    for name, row in rows.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(row["losses"], base)]
+        if name == "lm_head_chunk":
+            ok = rel[0] <= LM_CHUNK_FIRST_REL and max(rel) <= \
+                LM_CHUNK_LATER_REL
+        else:
+            ok = max(rel) <= REMAT_REL
+        ok = ok and all(math.isfinite(v) for v in row["losses"]) and \
+            row["launches"] == row["expected_launches"]
+        row.update(max_rel_to_none=max(rel), ok=ok)
+        log("training_long_variant", variant=name, batch=1, seq=LONG_SEQ,
+            tokens_per_s=LONG_SEQ / row["step_ms"] * 1e3, **row)
+        if not ok:
+            fails.append(name)
+    log("training_long_memory", peak_mem_gb={
+        n: r["peak_mem_gb"] for n, r in rows.items()},
+        lm_head_chunk_saving_gb=rows["none"]["peak_mem_gb"]
+        - rows["lm_head_chunk"]["peak_mem_gb"],
+        f32_logits_and_grad_gb=2 * LONG_SEQ * model.vocab_size * 4 / 2**30,
+        step_ms={n: r["step_ms"] for n, r in rows.items()})
+    if fails:
+        raise AssertionError(f"long training variants failed: {fails}")
 
 
 # -- phase 13 -----------------------------------------------------------------
@@ -6387,7 +6779,8 @@ def main() -> int:
         return 3
     phases = (phase_kernel, phase_flash, phase_flash_split,
               phase_serving, phase_cli, phase_training,
-              phase_training_long, phase_train_cli, phase_int8_kernel,
+              phase_training_long, phase_train_cli, phase_training_loop,
+              phase_int8_kernel,
               phase_int8_matmul, phase_serving_int8, phase_decode_stack,
               phase_fused_generate, phase_serving_fused,
               phase_paged_stats, phase_serving_sp,

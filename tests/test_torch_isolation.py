@@ -69,6 +69,37 @@ print(sorted(set(want) - set(s.__all__)), missing)
     assert proc.stdout.strip() == "[] []"
 
 
+TRAINING_MODULES = ["utils.env", "utils.logging", "utils.hardware",
+                    "utils.config", "nn.optimizers", "nn.schedulers",
+                    "nn.losses", "nn.metrics", "nn.lm_loss", "models.gpt2",
+                    "models.llama", "models.sampling", "train.step",
+                    "train.loop", "data.loader", "data.token_stream",
+                    "checkpoint", "cli.train_gpt2"]
+
+
+def test_training_slice_imports_torch_and_no_jax():
+    """The LM-training slice's modules import with jax and tnn_tpu
+    unimportable, and bring torch in; ``train_model`` and ``Checkpoint``
+    are reachable from the package."""
+    code = f"""
+import importlib, importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tnn_tpu"):
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+for name in {TRAINING_MODULES!r}:
+    importlib.import_module("tnn_tpu_torch." + name)
+from tnn_tpu_torch.train import train_model, make_predict
+from tnn_tpu_torch.checkpoint import Checkpoint
+print("torch" in sys.modules,
+      [m for m in sys.modules if m.split(".")[0] in ("jax", "tnn_tpu")])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "True []"
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_or_tnn_tpu_import_statement(path):
     for node in ast.walk(ast.parse(path.read_text())):

@@ -2,8 +2,9 @@
 
 ``cli.prepare_corpus`` (byte mode) writes the same files as the JAX
 package's; ``cli.train_gpt2 --device cpu`` runs a few tiny steps through
-the flash backend, for GPT-2 and for ``--arch llama``, and writes the
-results JSON with the JAX CLI's fields;
+the flash backend, for GPT-2 (with and without ``--fused-head-loss``) and
+for ``--arch llama``, and writes the results JSON with the JAX CLI's
+fields;
 ``generate`` (greedy, KV cache, the flash kernel's ``kv_offset`` form)
 gives the JAX package's tokens on the same weights under FP32, where both
 sides compute in float32 and greedy argmax is exact.
@@ -80,9 +81,18 @@ def test_train_gpt2_cli_on_cpu(sources, tmp_path):
     # CPU tensors run the plain versions: nothing launched
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd.launches) == before
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gpt2.main(["--tokens", str(corpus), "--fused-head-loss", "64",
-                         "--device", "cpu"])
+    # --fused-head-loss: the chunked LM-head loss (vocab 257 in tiles of
+    # 64, the last one ragged), no accuracy; the first step's loss is the
+    # materialized one's (same weights and batch) to f32 rounding
+    fused = train_gpt2.main([
+        "--tokens", str(corpus), "--steps", "5", "--steps-per-call", "2",
+        "--batch", "2", "--seq", "32", "--layers", "2", "--d-model", "64",
+        "--heads", "2", "--kv-heads", "1", "--backend", "pallas",
+        "--sample", "0", "--fused-head-loss", "64", "--device", "cpu",
+        "--results", str(tmp_path / "fused")])
+    assert fused["curve"][0]["loss"] == pytest.approx(
+        out["curve"][0]["loss"], rel=1e-4)
+    assert all(np.isfinite(c["loss"]) for c in fused["curve"])
 
 
 def test_train_llama_cli_on_cpu(sources, tmp_path, monkeypatch):

@@ -100,7 +100,8 @@ def test_softmax_cross_entropy_soft_targets_and_registry():
                                        torch.tensor(onehot))
     _rel_close(got, ref, REL)
     with pytest.raises(KeyError, match="unknown loss"):
-        losses.get("mse")
+        losses.get("no_such_loss")
+    assert losses.get("mse") is losses.mse
 
 
 @pytest.mark.parametrize("ignore", [True, False])
@@ -419,11 +420,16 @@ def test_grad_accum_and_steps_per_call():
     assert 0 <= int(ev["corrects"]) <= x.numel()
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True), dict(lm_head_chunk=64),
+@pytest.mark.parametrize("kw", [dict(remat="typo"), dict(lm_head_chunk=64),
                                 dict(augment=lambda d: d)])
 def test_unported_step_options_raise(kw):
+    """The step's refusals: ``augment`` is not ported (ROADMAP.md); a remat
+    name that is no policy, and ``lm_head_chunk`` with accuracy on, raise
+    ValueError as in the JAX package."""
     m = GPT2(**TINY, device="cpu", seed=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = (NotImplementedError, "ROADMAP") if "augment" in kw else \
+        (ValueError, "unknown remat policy|compute_accuracy=False")
+    with pytest.raises(err, match=match):
         make_train_step(m, optimizers.AdamW(), **kw)
 
 

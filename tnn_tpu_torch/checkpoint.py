@@ -15,16 +15,30 @@ as int16 and reinterpreted as ``torch.bfloat16``: no ``ml_dtypes``
 needed. Files store float weights: ``save_tensors`` refuses an
 ``Int8Weight`` leaf (quantize after loading, ``nn.quant``).
 
-The JAX package's training ``Checkpoint`` (optimizer moments, step, rng,
-loader cursor) is not ported: it comes with ``train/loop.py``, ROADMAP
-section 1 item 10.
+``Checkpoint`` snapshots the whole training state in the JAX package's
+directory layout: ``<dir>/step_<N>/state.tnn`` and then ``meta.json``,
+whose presence marks a complete snapshot; ``<dir>/best/`` for the best
+validation; the newest ``keep`` step directories kept. ``state.tnn``
+holds ``params`` and ``opt_state`` under the JAX tree paths (the mapping
+``save_model`` uses), ``step`` as a 0-d int32 and ``rng``, the port's
+generator state (uint8); ``meta.json`` the step, the model config, the
+scheduler's config and state, the loader's ``state_dict`` and the
+caller's extras. Either package's directory restores into the port: a
+JAX-written ``rng`` (a PRNG key, two uint32 words k0, k1) seeds the
+port's generator with ``manual_seed((k0 << 32) | k1)``, since a JAX key
+cannot set a ``torch.Generator``'s state; params, moments and step load
+as written.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import struct
-from typing import Any, Dict, Tuple
+import sys
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,3 +205,146 @@ def load_model(path: str, device="cuda"):
     template = _nest({"/".join(p): w for p, w in model.jax_param_paths()})
     model.load_jax_params(_sections(flat, {"params": template})["params"])
     return model
+
+
+class Checkpoint:
+    """Directory checkpoints of the whole training state, with retention
+    of the newest ``keep`` step directories."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = int(keep)
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        # a block=False save still writing at exit would be cut off (its
+        # thread is a daemon): join it
+        atexit.register(self._join_at_exit)
+
+    def _join_at_exit(self) -> None:
+        try:
+            self.wait()
+        except Exception as e:  # noqa: BLE001 — exit path: report only
+            print(f"checkpoint: async save failed at exit: {e}",
+                  file=sys.stderr)
+
+    def save(self, train_state, model=None, scheduler=None, loader=None,
+             extra: Optional[Dict] = None, best: bool = False,
+             block: bool = True) -> str:
+        """Snapshot the training state; returns the snapshot's directory.
+
+        Every parameter and moment is copied to the host before this call
+        returns, with or without ``block``: the optimizer updates them in
+        place, so a writer that read them later would race the next step.
+        ``block=False`` then writes the file on a thread (one save at a
+        time; a new save joins the previous one); ``wait()`` joins it and
+        raises its failure."""
+        from .train.step import train_state_trees
+
+        step = int(train_state.step)
+        target = os.path.join(self.directory,
+                              "best" if best else f"step_{step}")
+        meta: Dict[str, Any] = {"step": step, "extra": extra or {}}
+        if model is not None:
+            meta["model_config"] = model.get_config()
+        if scheduler is not None:
+            meta["scheduler"] = {"config": scheduler.get_config(),
+                                 "state": scheduler.state_dict()}
+        if loader is not None:
+            meta["loader"] = loader.state_dict()
+        trees = train_state_trees(train_state)
+        trees["rng"] = train_state.generator.get_state()
+
+        def write():
+            os.makedirs(target, exist_ok=True)
+            save_tensors(os.path.join(target, "state.tnn"), trees, meta=meta)
+            with open(os.path.join(target, "meta.json"), "w") as f:
+                json.dump(meta, f, indent=2, default=str)
+            if not best:
+                self._gc()
+
+        self.wait()     # writes stay in order
+        if block:
+            write()
+        else:
+            def guarded():
+                try:
+                    write()
+                except BaseException as e:  # noqa: BLE001 — for wait()
+                    self._error = e
+
+            self._pending = threading.Thread(target=guarded, daemon=True)
+            self._pending.start()
+        return target
+
+    def wait(self) -> None:
+        """Join a ``block=False`` save in flight and raise its failure (a
+        missing checkpoint must not pass for a written one)."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+            err, self._error = self._error, None
+            if err is not None:
+                raise err
+
+    def _gc(self) -> None:
+        steps = sorted(self._step_dirs())
+        for s in steps[:max(0, len(steps) - self.keep)]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)
+
+    def _step_dirs(self):
+        if not os.path.isdir(self.directory):
+            return []
+        out = []
+        for d in os.listdir(self.directory):
+            # meta.json is written after state.tnn: a directory without it
+            # is a torn snapshot, neither restorable nor counted
+            if not d.startswith("step_") or not os.path.isfile(
+                    os.path.join(self.directory, d, "meta.json")):
+                continue
+            try:
+                out.append(int(d[5:]))
+            except ValueError:
+                pass
+        return out
+
+    def latest_path(self) -> Optional[str]:
+        """The newest complete step directory; else ``directory`` itself
+        when it holds a snapshot (``.../best``, ``.../step_120``)."""
+        steps = self._step_dirs()
+        if steps:
+            return os.path.join(self.directory, f"step_{max(steps)}")
+        if os.path.isfile(os.path.join(self.directory, "state.tnn")):
+            return self.directory
+        return None
+
+    def restore(self, train_state, path: Optional[str] = None,
+                scheduler=None, loader=None):
+        """Fill ``train_state`` (a fresh ``create_train_state``) from the
+        newest snapshot, or ``path``, in place; set the scheduler's and
+        the loader's state too. Returns ``(train_state, meta)``. Every key
+        and shape must match the state's: a mismatch raises before
+        anything is copied."""
+        from .train.step import load_jax_train_state, train_state_trees
+
+        path = path or self.latest_path()
+        if path is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        flat, meta = read_tensor_file(os.path.join(path, "state.tnn"))
+        want = train_state_trees(train_state)
+        loaded = _sections(flat, {"params": want["params"],
+                                  "opt_state": want["opt_state"]})
+        load_jax_train_state(train_state, params=loaded["params"],
+                             opt_state=loaded["opt_state"],
+                             step=flat["step"])
+        rng = flat["rng"]
+        if rng.dtype == torch.uint8:
+            train_state.generator.set_state(rng.contiguous())
+        else:
+            k0, k1 = (int(w) & 0xFFFFFFFF for w in rng.reshape(-1)[:2])
+            train_state.generator.manual_seed((k0 << 32) | k1)
+        if scheduler is not None and "scheduler" in meta:
+            scheduler.load_state_dict(meta["scheduler"].get("state") or {})
+        if loader is not None and "loader" in meta:
+            loader.load_state_dict(meta["loader"])
+        return train_state, meta

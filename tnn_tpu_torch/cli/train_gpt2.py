@@ -2,7 +2,9 @@
 """Train a decoder LM, GPT-2 or Llama (``--arch``), on a token stream
 (``tnn_tpu.cli.train_gpt2``): mmap token stream -> (B, S) windows -> train
 step (``--backend pallas``: the flash attention kernels, K4 forward and the
-fused backward K7, or the split backward K5 + K6 at long sequences) ->
+fused backward K7, or the split backward K5 + K6 at long sequences;
+``--fused-head-loss CHUNK``: the loss in vocab tiles of CHUNK rows without
+the (tokens, vocab) logits, ``nn.lm_loss``) ->
 held-out loss -> KV-cache sampling in byte mode.
 
     python -m tnn_tpu_torch.cli.prepare_corpus --out data/pytok \\
@@ -61,16 +63,13 @@ def main(argv=None):
     ap.add_argument("--sample", type=int, default=128,
                     help="tokens to sample after training (0 = skip)")
     ap.add_argument("--fused-head-loss", type=int, default=0, metavar="CHUNK",
-                    help="vocab chunk for the streaming LM-head loss (not "
-                         "ported yet); 0 = materialized logits")
+                    help="vocab chunk for the streaming LM-head loss "
+                         "(nn.lm_loss); 0 = materialized logits")
     ap.add_argument("--steps-per-call", type=int, default=1,
                     help="optimizer steps per call of the step function")
     ap.add_argument("--results", default="benchmarks/results")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.fused_head_loss:
-        raise NotImplementedError("--fused-head-loss (nn.lm_loss) is not "
-                                  "ported yet (ROADMAP.md)")
     device = resolve_device(args.device)
 
     with open(os.path.join(args.tokens, "meta.json")) as f:
@@ -105,7 +104,9 @@ def main(argv=None):
 
     def make_step(n):
         return make_train_step(model, opt, scheduler=sched,
-                               compute_accuracy=True, steps_per_call=n)
+                               compute_accuracy=not args.fused_head_loss,
+                               lm_head_chunk=args.fused_head_loss or None,
+                               steps_per_call=n)
 
     step = make_step(spc)
     step_rem = make_step(rem) if rem else None

@@ -1,8 +1,8 @@
 """Memory-mapped token-stream loader for LM training
 (``tnn_tpu.data.token_stream``): (B, S) windows over a flat token file,
-with the shifted next-token labels as int32 ids. The numpy memmap path
-only; the JAX package's threaded native reader is not ported, and gives
-the same windows."""
+with the shifted next-token labels as int32 ids, and the OpenWebText
+loader over a uint16 file. The numpy memmap path only; the JAX package's
+threaded native reader is not ported, and gives the same windows."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -23,6 +23,8 @@ class TokenStreamDataLoader(DataLoader):
         self.pad_token_id = pad_token_id
         # valid starts are 0..L-S-1: S tokens plus one label lookahead
         self._num_samples = max(0, len(self.tokens) - self.context_length)
+        self._data_shape = (self.context_length,)
+        self._label_shape = (self.context_length,)
 
     def _get(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         s = self.context_length
@@ -49,3 +51,10 @@ class TokenStreamDataLoader(DataLoader):
         rng = rng or self._rng
         starts = rng.integers(0, self._num_samples, batch_size)
         return self._get(starts)
+
+
+class OpenWebTextDataLoader(TokenStreamDataLoader):
+    """A uint16 token file such as OpenWebText's GPT-2-encoded ``.bin``."""
+
+    def __init__(self, path: str, context_length: int = 1024, seed: int = 0):
+        super().__init__(path, context_length, dtype=np.uint16, seed=seed)

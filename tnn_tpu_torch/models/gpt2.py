@@ -117,13 +117,27 @@ class GPT2(JaxParamModule):
         (``qmatmul``), where x holds only some rows of a larger call."""
         return self.wte.attend(self.ln_f(x), rows=rows)
 
-    def forward(self, ids: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def apply_hidden(self, ids: torch.Tensor, *, train: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """(N, S) ids -> the post-ln_f hidden state (N, S, D), without the
+        head: what ``nn.lm_loss.lm_head_loss`` contracts against
+        ``head_table()`` in vocab tiles."""
         x = self.drop(self.wpe(self.wte(ids)), train=train,
                       generator=generator)
         for blk in self.blocks:
             x = blk(x, train=train, generator=generator)
-        return self._head(x)
+        return self.ln_f(x)
+
+    def head_table(self) -> torch.Tensor:
+        """The (V, D) matrix the head contracts against: the tied table in
+        the compute dtype, differentiable into the f32 master."""
+        return self.policy.cast_param(self.wte.table)
+
+    def forward(self, ids: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.wte.attend(self.apply_hidden(ids, train=train,
+                                                 generator=generator))
 
     def init_cache(self, batch: int, max_len: Optional[int] = None):
         """One zeroed KV cache per block for ``apply_cached``."""

@@ -154,20 +154,38 @@ class Llama(JaxParamModule):
             cfg["kv_cache_dtype"] = self.kv_cache_dtype
         return model_config(self, cfg)
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits of the final hidden state."""
-        x = self.ln_f(x)
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the post-ln_f hidden state."""
         if self.head is None:
             return self.wte.attend(x)
         return qmatmul(x, self.policy.cast_param(self.head.kernel),
                        out_dtype=torch.float32)
 
-    def forward(self, ids: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final hidden state."""
+        return self._project(self.ln_f(x))
+
+    def apply_hidden(self, ids: torch.Tensor, *, train: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """(N, S) ids -> the post-ln_f hidden state (N, S, D), without the
+        head (``nn.lm_loss.lm_head_loss``)."""
         x = self.wte(ids)
         for blk in self.blocks:
             x = blk(x, train=train, generator=generator)
-        return self._head(x)
+        return self.ln_f(x)
+
+    def head_table(self) -> torch.Tensor:
+        """The (V, D) matrix the head contracts against, in the compute
+        dtype: the tied table or the head kernel's transpose."""
+        if self.head is None:
+            return self.policy.cast_param(self.wte.table)
+        return self.policy.cast_param(self.head.kernel).t()
+
+    def forward(self, ids: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._project(self.apply_hidden(ids, train=train,
+                                               generator=generator))
 
     def init_cache(self, batch: int, max_len: Optional[int] = None):
         """One zeroed KV cache per block for ``apply_cached``."""

@@ -1,6 +1,7 @@
 """Token sampling with per-row parameters (``tnn_tpu.models.sampling``).
 
 ``filter_logits`` gives the distribution a row samples from;
+``make_sampler`` binds the parameters of one sampler;
 ``sample_ragged`` draws from it with an explicit ``torch.Generator``
 (Gumbel-max, as ``jax.random.categorical``), greedy where temperature <= 0.
 The two frameworks' random bits differ, so streams agree token for token
@@ -64,3 +65,23 @@ def sample_ragged(logits, generator: torch.Generator, temperature, top_k,
     noise = torch.empty_like(x).exponential_(generator=generator)
     sampled = (x - noise.log()).argmax(dim=-1)   # Gumbel-max
     return torch.where(t > 0.0, sampled, greedy)
+
+
+def make_sampler(temperature=0.0, top_k=0, top_p=0.0):
+    """A ``(logits (..., V), generator) -> (...,)`` int64 sampler.
+
+    temperature <= 0 is greedy (top_k / top_p ignored). Otherwise the
+    logits are scaled by the temperature, filtered to the k largest
+    (top_k > 0) and then to the smallest set whose probability reaches
+    top_p (0 < top_p < 1), and a token is drawn with ``generator``. Any
+    parameter may be a per-row tensor or array broadcastable to the
+    logits' row dims (rows with temperature <= 0 stay greedy)."""
+    per_row = any(getattr(x, "ndim", 0) for x in (temperature, top_k, top_p))
+    if not per_row and float(temperature) <= 0.0:
+        def greedy(logits, generator=None):
+            return logits.argmax(dim=-1)
+        return greedy
+
+    def sample(logits, generator):
+        return sample_ragged(logits, generator, temperature, top_k, top_p)
+    return sample

@@ -1,5 +1,6 @@
 """Losses (``tnn_tpu.nn.losses``): the fused log-softmax cross entropy the
-LM trainer uses, and the ``get`` registry. All reductions in float32."""
+LM trainer uses, cross entropy on probabilities, MSE, MAE and Huber, and
+the ``get`` / ``names`` registry. All reductions in float32."""
 from __future__ import annotations
 
 import functools
@@ -31,6 +32,16 @@ def get(name) -> Callable:
         raise KeyError(f"unknown loss {name!r}; known: {sorted(_REGISTRY)}")
     fn = _REGISTRY[name]
     return functools.partial(fn, **kwargs) if kwargs else fn
+
+
+def names():
+    return sorted(_REGISTRY)
+
+
+def _to_onehot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    if labels.dtype.is_floating_point:
+        return labels.float()
+    return torch.nn.functional.one_hot(labels.long(), num_classes).float()
 
 
 @register("softmax_cross_entropy")
@@ -65,3 +76,35 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+@register("cross_entropy")
+def cross_entropy(probs: torch.Tensor, labels: torch.Tensor,
+                  eps: float = 1e-7) -> torch.Tensor:
+    """Cross entropy on probabilities (clipped to [eps, 1]); ``labels`` are
+    class ids or one-hot / soft targets."""
+    probs = probs.float()
+    onehot = _to_onehot(labels, probs.shape[-1])
+    return (-(onehot * torch.log(probs.clamp(eps, 1.0))).sum(dim=-1)).mean()
+
+
+@register("mse")
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    d = pred.float() - target.float()
+    return (d * d).mean()
+
+
+@register("mae")
+def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred.float() - target.float()).abs().mean()
+
+
+@register("huber")
+def huber(pred: torch.Tensor, target: torch.Tensor,
+          delta: float = 1.0) -> torch.Tensor:
+    """Quadratic within ``delta`` of the target, linear beyond."""
+    d = pred.float() - target.float()
+    a = d.abs()
+    quad = 0.5 * d * d
+    lin = delta * (a - 0.5 * delta)
+    return torch.where(a <= delta, quad, lin).mean()

@@ -1,4 +1,5 @@
-"""Metrics (``tnn_tpu.nn.metrics``): argmax accuracy. Integer labels < 0
+"""Metrics (``tnn_tpu.nn.metrics``): argmax and top-k accuracy, and
+perplexity. Integer labels < 0
 mark ignored positions and are left out of numerator and denominator, as
 the loss leaves them out."""
 from __future__ import annotations
@@ -33,3 +34,17 @@ def accuracy(logits, labels) -> torch.Tensor:
     labels, mask = _labels_mask(labels, pred.ndim)
     hits = ((pred == labels) & mask).sum(dtype=torch.float32)
     return hits / mask.sum(dtype=torch.float32).clamp_min(1.0)
+
+
+def topk_accuracy(logits, labels, k: int = 5) -> torch.Tensor:
+    """Share of live positions whose label is among the k largest logits
+    (float32)."""
+    labels, mask = _labels_mask(labels, logits.ndim - 1)
+    topk = logits.topk(k, dim=-1).indices
+    hit = (topk == labels[..., None]).any(dim=-1)
+    return (hit & mask).sum(dtype=torch.float32) / \
+        mask.sum(dtype=torch.float32).clamp_min(1.0)
+
+
+def perplexity(mean_nll) -> torch.Tensor:
+    return torch.exp(torch.as_tensor(mean_nll, dtype=torch.float32))

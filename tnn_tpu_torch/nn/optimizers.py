@@ -7,6 +7,10 @@ another order).
     state = opt.init(params)
     params, state = opt.update(grads, state, params, lr_scale=1.0)
 
+``register`` / ``from_config`` / ``get_config`` round-trip an optimizer
+through its config dict, ``{"type": "adamw", "lr": ..., ...}``, under the
+JAX package's names ("sgd", "adam", "adamw").
+
 ``params`` and ``grads`` are trees: nested dicts (or lists) of tensors.
 ``update`` writes the new values INTO the parameter tensors and the state
 tensors, in place (the JAX package returns new trees and donates the old
@@ -17,6 +21,27 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+
+_REGISTRY: Dict[str, type] = {}
+
+
+def register(name: str):
+    def wrap(cls):
+        _REGISTRY[name] = cls
+        cls.opt_name = name
+        return cls
+
+    return wrap
+
+
+def from_config(cfg: Dict[str, Any]) -> "Optimizer":
+    """The optimizer a config dict names: ``{"type": name, **kwargs}``."""
+    cfg = dict(cfg)
+    name = cfg.pop("type")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**cfg)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -37,6 +62,8 @@ def tree_map(fn, tree, *rest):
 
 
 class Optimizer:
+    opt_name = "base"
+
     def __init__(self, lr: float = 1e-3, weight_decay: float = 0.0,
                  grad_clip_norm: Optional[float] = None):
         self.lr = float(lr)
@@ -68,6 +95,17 @@ class Optimizer:
     def _update(self, grads, state, params, lr, step):
         raise NotImplementedError
 
+    def get_config(self) -> Dict[str, Any]:
+        cfg = {"type": self.opt_name, "lr": self.lr,
+               "weight_decay": self.weight_decay}
+        if self.grad_clip_norm is not None:
+            cfg["grad_clip_norm"] = self.grad_clip_norm
+        cfg.update(self._config())
+        return cfg
+
+    def _config(self) -> Dict[str, Any]:
+        return {}
+
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squared entries, in float32."""
@@ -88,6 +126,7 @@ def _assign(p, value):
     p.copy_(value.to(p.dtype))
 
 
+@register("sgd")
 class SGD(Optimizer):
     """SGD with optional momentum / nesterov; ``weight_decay`` adds wd * p
     to the gradient."""
@@ -123,7 +162,11 @@ class SGD(Optimizer):
 
         tree_map(one, params, grads, state["velocity"])
 
+    def _config(self):
+        return {"momentum": self.momentum, "nesterov": self.nesterov}
 
+
+@register("adam")
 class Adam(Optimizer):
     """Adam with bias correction and optional AMSGrad. ``weight_decay`` here
     is L2 added to the gradient (classic Adam)."""
@@ -178,7 +221,12 @@ class Adam(Optimizer):
         else:
             tree_map(one, params, grads, state["m"], state["v"], vmax)
 
+    def _config(self):
+        return {"beta1": self.beta1, "beta2": self.beta2, "eps": self.eps,
+                "amsgrad": self.amsgrad}
 
+
+@register("adamw")
 class AdamW(Adam):
     """Adam with decoupled weight decay: p -= lr * wd * p_old."""
 

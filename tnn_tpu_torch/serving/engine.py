@@ -457,9 +457,19 @@ class InferenceEngine:
                               "kv_bytes_per_token":
                                   self.pool.kv_bytes_per_token,
                               "quant_weights": int(self.quant_weights),
+                              "tp_degree": 1,
+                              # (kv + scale bytes) // tp, at tp = 1
+                              "kv_bytes_per_token_per_shard":
+                                  self.pool.kv_bytes_per_token
+                                  + self.pool.kv_scale_bytes_per_token,
                               "sp_degree": self.sp,
                               "pool_blocks_per_shard":
-                                  self.pool.blocks_per_shard}
+                                  self.pool.blocks_per_shard,
+                              "host_tier_max_bytes": int(host_tier_bytes)}
+        # the stall clock: the last step that emitted decode-phase tokens
+        self._last_decode_emit: Optional[float] = None
+        # distinct program compile keys run (JAX's len(self._jit))
+        self._compile_keys: set = set()
         self._refresh_gauges()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -698,6 +708,7 @@ class InferenceEngine:
         """Zero the pool's pages and drop the prefix index: zeroed pages no
         longer hold the indexed KV."""
         self.pool.reset_pages()
+        self._last_decode_emit = None
         if self.prefix_cache is not None:
             # purge without demoting: zeroed pages are never salvaged
             self.pool.purge_evictable()
@@ -793,6 +804,10 @@ class InferenceEngine:
                   "kv_scale_bytes_per_token":
                       self.pool.kv_scale_bytes_per_token,
                   "quant_weights": self.quant_weights,
+                  "tp_degree": 1,
+                  "kv_bytes_per_token_per_shard":
+                      self._gauge_extras["kv_bytes_per_token_per_shard"],
+                  "compiled_step_signatures": len(self._compile_keys),
                   "decode_path": ("paged" if self._paged
                                   else "fused" if self._fused is not None
                                   else "standard"),
@@ -965,6 +980,7 @@ class InferenceEngine:
     def _note_program(self, kind: str, key, rids: List[int],
                       fill: float) -> None:
         """Attach one launched program to the current step's note."""
+        self._compile_keys.add(tuple(key))
         if self._step_note is not None:
             self._step_note["programs"].append(
                 {"kind": kind, "compile_key": list(key),
@@ -1054,6 +1070,12 @@ class InferenceEngine:
                 self._decode_commit(rec, out, flight.events)
             else:
                 self._mixed_commit(rec, out, flight.events)
+        if not any(r.state is RequestState.RUNNING
+                   and r.cache_len >= r.prefill_len
+                   for r in self.scheduler.running):
+            # no decode-phase rows left: the next decode token starts a new
+            # stream, so the stall clock must not span the idle gap
+            self._last_decode_emit = None
         self.metrics.observe_gauges(
             self.scheduler.queue_depth, self.pool.occupancy,
             self.pool.kv_bytes_per_token, sp_degree=self.sp,
@@ -1234,6 +1256,7 @@ class InferenceEngine:
             self.generator.set_state(gen_state)
             raise
         b = self.scheduler.max_batch_size
+        self._compile_keys.add((step.program, b, self.blocks_per_seq))
         flight.spec = {"rec": nxt, "fetch": fetch, "t0": t0,
                        "rollback": rollback,
                        "gen_state": gen_state,
@@ -1681,6 +1704,7 @@ class InferenceEngine:
         """Drafts, capacity pass, packing and launch. Returns the launched
         step's record (device results unfetched) or None when nothing
         ran."""
+        t0 = time.perf_counter()
         spec_on = self.drafter is not None
         # drafts come first, so decode rows reserve blocks for every
         # drafted position in the capacity pass
@@ -1746,7 +1770,9 @@ class InferenceEngine:
         for i, d in step.dev_drafts:   # device drafts, spliced on the device
             toks[i, 1:1 + len(d)] = d.toks.to(toks.device)
         rec = {"kind": kind, "rows": rows,
-               "n_dec": len(dec), "takes": takes, "n_draft": step.n_draft}
+               "n_dec": len(dec), "takes": takes, "n_draft": step.n_draft,
+               "n_spec": n_spec, "t0": t0, "b": b,
+               "qw": step.toks.shape[1]}
         self._mark_dispatch()
         if not self._decode_site(rows, events):
             return None
@@ -1937,6 +1963,7 @@ class InferenceEngine:
         replays its captured graph where graphs run. Returns None when the
         fault plan's decode site aborted the batch (into ``events``, with
         the step's ``pending`` whole-prompt prefills)."""
+        t0 = time.perf_counter()
         if step is None:
             step = step_build.pack_decode(
                 live, b=self.scheduler.max_batch_size,
@@ -1952,7 +1979,8 @@ class InferenceEngine:
             self._note_program(label.split(".", 1)[1],
                                (step.program, b, self.blocks_per_seq),
                                [r.rid for r in live], fill=len(live) / b)
-        rec = {"kind": "decode", "live": list(live)}
+        rec = {"kind": "decode", "live": list(live), "t0": t0,
+               "b": step.toks.shape[0]}
         graph = step.program == "pdecode" and self._graph_steps
         if graph:
             host = step_graph.stage(step_graph.decode_arrays(step))
@@ -2207,6 +2235,14 @@ class InferenceEngine:
         events["tokens"].append((req.rid, tok))
         self._maybe_finish(req, tok, events)
 
+    def _mark_decode_emit(self) -> None:
+        """Stamp a step that emitted decode-phase tokens: the gap between
+        consecutive stamps is the decode stall that chunking bounds."""
+        now = time.perf_counter()
+        if self._last_decode_emit is not None:
+            self.metrics.observe_decode_stall(now - self._last_decode_emit)
+        self._last_decode_emit = now
+
     def _decode_commit(self, rec, out, events) -> None:
         newtok, ok = out
         emitted = 0
@@ -2221,7 +2257,10 @@ class InferenceEngine:
             req.cache_len += 1
             self._emit(req, int(newtok[i]), events)
             emitted += 1
-        self.metrics.observe_decode(emitted)
+        self._mark_decode_emit()
+        self.metrics.observe_decode(len(rec["live"]),
+                                    time.perf_counter() - rec["t0"],
+                                    rec["b"])
         if rec.get("spec_rows"):
             self.metrics.observe_spec(0, 0, emitted, rows=rec["spec_rows"])
 
@@ -2294,13 +2333,19 @@ class InferenceEngine:
                 # next_token (its final chunk's sample is redundant)
                 continue
             req.ttft_s = now - req.submit_time
-            self.metrics.observe_ttft(req.ttft_s)
+            self.metrics.observe_ttft(req.ttft_s, under_load=n_dec > 0)
             if self.tracer.enabled:
                 self.tracer.instant("serve.first_token", trace=req.trace_id,
                                     rid=req.rid, step=self.step_seq)
             self._emit(req, int(newtok[i]), events)
+        self.metrics.observe_mixed_step(
+            n_dec + rec["n_spec"] + sum(rec["takes"].values()),
+            rec["b"] * rec["qw"])
         if n_dec:
-            self.metrics.observe_decode(emitted)
+            self._mark_decode_emit()
+            self.metrics.observe_decode(
+                emitted if spec_on else n_dec,
+                time.perf_counter() - rec["t0"], rec["b"])
 
     def _defer_publish(self, req: Request) -> None:
         """Queue a publish of the request's full blocks for the end of the

@@ -1,0 +1,256 @@
+"""The training loop (``tnn_tpu.train.loop``): epochs, progress lines,
+validation, best-validation and per-epoch snapshots, resume.
+
+``train_model`` runs ``config.epochs`` epochs of ``make_train_step`` over
+the train loader (shuffled unless ``config.shuffle`` is off), at most
+``config.max_steps`` batches an epoch, limited at the source so the
+loader's cursor never runs ahead of the steps taken. Batches reach the
+device through ``data.loader.prefetch`` (a producer thread, pinned host
+tensors, a ``non_blocking`` copy). Every ``progress_print_interval``
+batches it logs the loss and, with ``print_memory_usage``, the host's
+RSS, and calls ``metric_hook`` and ``state_hook``. After each epoch it
+validates (``evaluate``), feeds a plateau scheduler's ``observe``, saves a
+blocking ``best/`` snapshot on a new best and a ``block=False`` step
+snapshot. ``config.resume`` restores the whole state from a checkpoint
+directory, the port's or the JAX package's, and a restored cursor in the
+middle of an epoch continues that epoch. ``config.profiler_type`` NORMAL
+records one event a step into ``profiling.GlobalProfiler``, CUMULATIVE
+only a running total (``tick``); both log a summary at the end.
+
+The port trains on one device: ``mesh_axes`` with any axis above 1
+raises (data, tensor, sequence and pipeline parallelism are ROADMAP.md
+items 9 and 11.4).
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..checkpoint import Checkpoint
+from ..core import dtypes as dt
+from ..data.loader import DataLoader, prefetch, stage_batch
+from ..profiling import EventType, GlobalProfiler, profiled
+from ..profiling import profiler as _prof_mod
+from ..utils.config import TrainingConfig
+from ..utils.hardware import memory_usage_kb
+from ..utils.logging import get_logger
+from .step import (TrainState, create_train_state, make_eval_step,
+                   make_train_step)
+
+
+def _staged_batches(loader: DataLoader, batch_size: int,
+                    config: TrainingConfig, device, reset: bool = True,
+                    limit: int = -1):
+    """One epoch of the loader's batches on ``device``, floating data cast
+    to ``config.io_dtype``, through ``prefetch``. ``limit`` bounds the
+    batches at the source: the producer must not move the cursor past
+    what the steps consume, or a mid-epoch snapshot would record a
+    position ahead of the model."""
+    io_dtype = dt.DTypePolicy(io=config.io_dtype).io_dtype
+
+    def gen():
+        it = loader.batches(batch_size, reset=reset)
+        if limit >= 0:
+            it = itertools.islice(it, limit)
+        yield from it
+
+    def place(batch):
+        data, labels = stage_batch(batch, device)
+        if data.is_floating_point():
+            data = data.to(io_dtype)
+        return data, labels
+
+    return prefetch(gen(), to_device=place)
+
+
+def evaluate(eval_step, state: TrainState, loader: DataLoader,
+             batch_size: int, config: Optional[TrainingConfig] = None,
+             device=None) -> Dict[str, float]:
+    """Loss (and accuracy where the step counts corrects) over every
+    complete batch of ``loader``; a loader smaller than one batch gives
+    ``{"loss": nan}``."""
+    cfg = config or TrainingConfig()
+    device = device if device is not None else \
+        next(iter(state.params.values())).device
+    total, corrects, loss_sum, batches = 0, 0.0, 0.0, 0
+    for data, labels in _staged_batches(loader, batch_size, cfg, device):
+        m = eval_step(state, data, labels)
+        loss_sum += float(m["loss"])
+        if "corrects" in m:
+            corrects += float(m["corrects"])
+        total += len(labels)
+        batches += 1
+    if batches == 0:
+        # NaN never wins the best-validation comparison
+        return {"loss": float("nan")}
+    out = {"loss": loss_sum / batches}
+    if total:
+        out["accuracy"] = corrects / total
+    return out
+
+
+def train_model(
+    model,
+    config: TrainingConfig,
+    train_loader: DataLoader,
+    val_loader: Optional[DataLoader] = None,
+    optimizer=None,
+    scheduler=None,
+    augment: Optional[Callable] = None,
+    state: Optional[TrainState] = None,
+    metric_hook: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+    state_hook: Optional[Callable[[TrainState], None]] = None,
+) -> Tuple[TrainState, List[Dict[str, Any]]]:
+    """Train ``model`` per ``config``; returns (final state, per-epoch
+    history). ``state`` continues a given state (otherwise a fresh one,
+    its generator seeded with ``config.seed``). ``state_hook`` sees the
+    live state at set-up, at every progress line and at each epoch's
+    end."""
+    log = get_logger("tnn.train")
+    if config.log_file:
+        log.set_file_sink(config.log_file)
+    axes = {k: int(v) for k, v in (config.mesh_axes or {}).items()
+            if int(v) > 1}
+    if axes:
+        raise NotImplementedError(
+            f"mesh_axes={axes}: the port trains on one device; data, "
+            "tensor, sequence and pipeline parallelism are not ported yet "
+            "(ROADMAP.md items 9 and 11.4)")
+    profiler_mode = config.profiler_type.upper()
+    profiling_on = profiler_mode not in ("", "NONE")
+    cumulative_prof = profiler_mode == "CUMULATIVE"
+    optimizer = optimizer or config.make_optimizer()
+    scheduler = scheduler or config.make_scheduler()
+    plateau = getattr(scheduler, "host_driven", False)
+    batch_size = int(config.batch_size)
+    device = next(model.parameters()).device
+
+    if state is None:
+        state = create_train_state(model, optimizer, seed=config.seed)
+    step_fn = make_train_step(
+        model, optimizer, loss_fn=config.loss, scheduler=scheduler,
+        grad_accum=config.gradient_accumulation_steps, augment=augment,
+        remat=config.remat)
+    eval_fn = make_eval_step(model, loss_fn=config.loss)
+
+    ckpt = Checkpoint(config.snapshot_dir)
+    best_val = -float("inf")
+    resumed = False
+    if config.resume:
+        state, meta = Checkpoint(config.resume).restore(
+            state, scheduler=scheduler, loader=train_loader)
+        best_val = float(meta.get("extra", {}).get("best_val",
+                                                   -float("inf")))
+        resumed = True
+        log.info("resumed from %s at step %d", config.resume,
+                 int(state.step))
+
+    history: List[Dict[str, Any]] = []
+    if state_hook:
+        state_hook(state)
+    if config.shuffle and not resumed:
+        train_loader.shuffle()
+
+    # the global profiler is touched only when this run profiles, and put
+    # back in the finally
+    if profiling_on:
+        GlobalProfiler.clear()
+        _prof_mod.enable(True)
+    try:
+        for epoch in range(int(config.epochs)):
+            t_epoch = time.perf_counter()
+            window_t0 = time.perf_counter()
+            n_batches = 0
+            m: Dict[str, Any] = {}
+            # a resumed first epoch goes on from the restored cursor (an
+            # end-of-epoch snapshot has no batches left: a fresh epoch)
+            continue_epoch = (resumed and epoch == 0
+                              and train_loader.remaining_batches(
+                                  batch_size) > 0)
+            for data, labels in _staged_batches(
+                    train_loader, batch_size, config, device,
+                    reset=not continue_epoch, limit=config.max_steps):
+                if cumulative_prof:
+                    t_step = time.perf_counter()
+                    state, m = step_fn(state, data, labels)
+                    GlobalProfiler.tick("train_step",
+                                        time.perf_counter() - t_step)
+                else:
+                    with profiled(f"train_step/epoch{epoch}",
+                                  EventType.COMPUTE):
+                        state, m = step_fn(state, data, labels)
+                n_batches += 1
+                # metrics are read at the print interval only
+                if n_batches % max(1, config.progress_print_interval) == 0:
+                    loss = float(m["loss"])
+                    acc = float(m.get("accuracy", 0.0))
+                    dt_batch = (time.perf_counter() - window_t0) * 1e3 / max(
+                        1, config.progress_print_interval)
+                    window_t0 = time.perf_counter()
+                    log.info("epoch %d batch %d: loss=%.4f acc=%.4f %.1f "
+                             "ms/batch (%.0f samples/s)", epoch, n_batches,
+                             loss, acc, dt_batch,
+                             batch_size * 1e3 / max(dt_batch, 1e-9))
+                    if config.print_memory_usage:
+                        log.info("host RSS: %.1f MiB",
+                                 memory_usage_kb() / 1024)
+                    if metric_hook:
+                        metric_hook(int(state.step), {"loss": loss,
+                                                      "accuracy": acc,
+                                                      "epoch": epoch})
+                    if state_hook:
+                        state_hook(state)
+
+            if state_hook:
+                state_hook(state)
+            epoch_metrics: Dict[str, Any] = {
+                "epoch": epoch,
+                "train_loss": float(m["loss"]) if n_batches
+                else float("nan"),
+                "train_accuracy": float(m.get("accuracy", 0.0))
+                if n_batches else 0.0,
+                "batches": n_batches,
+                "epoch_seconds": time.perf_counter() - t_epoch,
+            }
+            if val_loader is not None:
+                val = evaluate(eval_fn, state, val_loader, batch_size,
+                               config, device)
+                epoch_metrics["val_loss"] = val["loss"]
+                epoch_metrics["val_accuracy"] = val.get("accuracy", 0.0)
+                if plateau and np.isfinite(val["loss"]):
+                    scheduler.observe(val["loss"])
+                score = val.get("accuracy", -val["loss"])
+                if score > best_val:
+                    best_val = score
+                    path = ckpt.save(state, model=model, scheduler=scheduler,
+                                     loader=train_loader,
+                                     extra={"epoch": epoch, **val},
+                                     best=True)
+                    log.info("new best val %.4f -> %s", score, path)
+            # the per-epoch snapshot writes while the next epoch runs; the
+            # best-val save above blocks (its path may be read at once)
+            ckpt.save(state, model=model, scheduler=scheduler,
+                      loader=train_loader,
+                      extra={**epoch_metrics, "best_val": best_val},
+                      block=False)
+            log.info("epoch %d done in %.1fs: train loss=%.4f acc=%.4f%s",
+                     epoch, epoch_metrics["epoch_seconds"],
+                     epoch_metrics["train_loss"],
+                     epoch_metrics["train_accuracy"],
+                     (f" | val loss={epoch_metrics['val_loss']:.4f} "
+                      f"acc={epoch_metrics.get('val_accuracy', 0):.4f}")
+                     if val_loader is not None else "")
+            history.append(epoch_metrics)
+    finally:
+        ckpt.wait()     # the last epoch's snapshot lands before the return
+        if profiling_on:
+            for name, s in sorted(GlobalProfiler.summary().items()):
+                log.info("profile %s: n=%d total=%.3fs mean=%.1fms", name,
+                         int(s["count"]), s["total_s"], s["mean_s"] * 1e3)
+            for key, total in sorted(GlobalProfiler.counters.items()):
+                log.info("profile counter %s: total=%.3fs", key, total)
+            _prof_mod.enable(False)
+    return state, history
