@@ -172,8 +172,15 @@ def test_refusals(tmp_path):
                 num_heads=2, device="cpu", seed=0)
     with pytest.raises(ValueError, match="Int8Weight"):
         ck.save_model(str(tmp_path / "q.tnn"), quantize_for_decode(wide))
-    with pytest.raises(ValueError, match="untied"):
-        GPT2(**GPT_TINY, tie_embeddings=False, device="cpu")
+    # ported since: an untied head loads, its config that of JAX's model
+    # (tests/test_torch_moe.py holds its logits against JAX)
+    jm, params = _jax_model("gpt2", jdt.FP32, tie_embeddings=False)
+    untied = str(tmp_path / "untied.tnn")
+    jck.save_model(untied, jm, params)
+    model = ck.load_model(untied, device="cpu")
+    assert model.get_config() == jm.get_config()
+    assert np.array_equal(model.head.kernel.detach().numpy(),
+                          np.asarray(params["head"]["kernel"]))
 
 
 @pytest.mark.parametrize("extra,item", [(dict(moe_experts=2), "item 11"),
@@ -183,15 +190,16 @@ def test_unported_configs_refuse_to_load(tmp_path, extra, item):
     jm, params = _jax_model("gpt2", jdt.FP32, **extra)
     path = str(tmp_path / "m.tnn")
     jck.save_model(path, jm, params)
+    # both ported since: each loads, its config that of JAX's model (the
+    # int8 cache is held against JAX in tests/test_torch_attention_int8_
+    # rope.py, the MoE blocks in tests/test_torch_moe.py)
+    model = ck.load_model(path, device="cpu")
+    assert model.get_config() == jm.get_config()
     if item == "item 4":
-        # ported since: the per-model int8 cache loads, its config intact
-        # (tests/test_torch_attention_int8_rope.py holds it against JAX)
-        model = ck.load_model(path, device="cpu")
-        assert model.get_config() == jm.get_config()
         assert model.blocks[0].attn.kv_cache_dtype == "int8"
-        return
-    with pytest.raises(ValueError, match=item):
-        ck.load_model(path, device="cpu")
+    else:
+        assert all(blk.moe is not None and blk.moe.num_experts == 2
+                   for blk in model.blocks)
 
 
 def test_load_model_places_weights_on_the_default_card(tmp_path):

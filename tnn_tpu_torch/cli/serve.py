@@ -77,6 +77,11 @@ over N shards, a request's blocks round-robin over them, so the longest
 servable context is N times one shard's. ``--sp-devices`` names the
 shards' devices as a comma list (``cuda:0,cuda:0`` puts two shards on one
 card); the default is the first N cards, or N copies of the CPU.
+``--tp N`` serves with tensor parallelism: attention heads, the MLP's
+columns and the KV pool's heads split over N shards, with two all-reduces
+a layer; ``--tp-devices`` names the shards' devices as ``--sp-devices``
+does. Its stderr line gives the heads and the KV bytes a token costs per
+shard.
 
 The prefix cache is on (``--no-prefix-cache`` turns it off): requests that
 share a prompt prefix fork its KV blocks instead of prefilling them.
@@ -107,7 +112,7 @@ carrying their KV blocks (``--no-handoff-kv``: recompute instead);
 prefix blocks. ``--compile-cache DIR`` builds and loads the CUDA kernels
 in DIR, so a second start with the same DIR runs no nvcc. Impossible
 fleets are refused before any weight is built, with the JAX front end's
-messages. Tensor parallelism (``--tp``) is not ported.
+messages.
 """
 from __future__ import annotations
 
@@ -187,6 +192,36 @@ def _sp_preflight(ap, args, sp_devices) -> None:
                  "multiple of sp")
 
 
+def _tp_preflight(ap, args, tp_devices) -> None:
+    """The JAX front end's fail-fast checks of an impossible TP setup, run
+    before any weight is built."""
+    if tp_devices is not None and len(tp_devices) != args.tp:
+        ap.error(f"--tp-devices names {len(tp_devices)} device(s) for "
+                 f"--tp {args.tp}")
+    if tp_devices is None and args.device.startswith("cuda"):
+        import torch
+        n_dev = torch.cuda.device_count()
+        if args.tp > n_dev:
+            ap.error(f"--tp {args.tp} exceeds the {n_dev} visible card(s); "
+                     "put several shards on one card with --tp-devices")
+    if args.model_file:
+        cfg = checkpoint.read_tensor_file_header(
+            args.model_file)[1]["model_config"]
+    else:
+        cfg = zoo.create(args.model, device="meta", seed=None).get_config()
+    h_kv = cfg.get("num_kv_heads") or cfg["num_heads"]
+    if h_kv % args.tp:
+        ap.error(f"--tp {args.tp} does not divide the model's {h_kv} KV "
+                 "head(s); head-sharded TP needs num_kv_heads % tp == 0")
+    if args.quant_weights:
+        ap.error("--quant-weights is incompatible with --tp > 1 "
+                 "(int8 weight leaves don't column-shard)")
+    if args.decode_path == "fused":
+        ap.error("--decode-path fused is incompatible with --tp > 1 "
+                 "(the fused kernel stacks whole-model weights; use "
+                 "auto, paged, or standard)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="gpt2_small", choices=zoo.names(),
@@ -238,6 +273,14 @@ def main(argv=None) -> int:
     ap.add_argument("--sp-devices", default="",
                     help="comma list of one device per shard, e.g. "
                          "cuda:0,cuda:0 (default: the first --sp cards)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: shard attention heads and "
+                         "the paged KV pool head-wise over this many shards "
+                         "(two all-reduces a layer; needs num_kv_heads %% "
+                         "tp == 0; token-exact vs tp=1)")
+    ap.add_argument("--tp-devices", default="",
+                    help="comma list of one device per TP shard, e.g. "
+                         "cuda:0,cuda:0 (default: the first --tp cards)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable automatic prefix caching (content-"
                          "addressed KV block reuse across requests)")
@@ -348,8 +391,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sp_devices = [d for d in args.sp_devices.split(",") if d] or None
+    tp_devices = [d for d in args.tp_devices.split(",") if d] or None
     autoscale, roles = _fleet_preflight(ap, args)
+    if args.tp < 1:
+        ap.error(f"--tp must be >= 1, got {args.tp}")
+    if args.tp > 1:
+        _tp_preflight(ap, args, tp_devices)
     if args.sp > 1:
+        if args.tp > 1:
+            ap.error(f"--sp {args.sp} with --tp {args.tp} is unsupported "
+                     "this engine — the context mesh and the head mesh "
+                     "would need a 2-D shard_map; pick ONE of --sp / --tp "
+                     "per replica")
         _sp_preflight(ap, args, sp_devices)
     if args.compile_cache:
         # before any kernel library loads: every build lands in the cache
@@ -395,7 +448,8 @@ def main(argv=None) -> int:
             seed=args.seed, kv_dtype=args.kv_dtype,
             quant_weights=args.quant_weights, decode_path=args.decode_path,
             max_seq_len=args.max_seq_len or None, sp=args.sp,
-            sp_devices=sp_devices, prefix_cache=not args.no_prefix_cache,
+            sp_devices=sp_devices, tp=args.tp, tp_devices=tp_devices,
+            prefix_cache=not args.no_prefix_cache,
             prefix_cache_min_hit_blocks=args.prefix_cache_min_hit_blocks,
             spec=args.spec, spec_k=args.spec_k, draft_model=draft_model,
             overlap=not args.no_overlap, profiler=prof,
@@ -418,6 +472,12 @@ def main(argv=None) -> int:
     if args.host_tier_bytes:
         print(f"host KV tier: {args.host_tier_bytes} bytes, verified "
               "re-admission (corrupt blocks degrade to uncached misses)",
+              file=sys.stderr)
+    if args.tp > 1:
+        print(f"tensor parallel: tp={args.tp}, "
+              f"{model.num_heads // args.tp} head(s)/shard, per-shard KV "
+              f"{engine.stats()['kv_bytes_per_token_per_shard']} B/token "
+              f"over {', '.join(str(d) for d in engine.pool.devices)}",
               file=sys.stderr)
     if args.sp > 1:
         print(f"sequence parallel: sp={args.sp}, "
@@ -539,6 +599,10 @@ def _fleet_preflight(ap, args):
         ap.error("--host-tier-bytes needs the prefix cache (the tier "
                  "is keyed by its rolling-hash chain) — drop "
                  "--no-prefix-cache/--no-chunked-prefill or the tier")
+    if args.host_tier_bytes and args.tp > 1:
+        ap.error("--host-tier-bytes is incompatible with --tp > 1 "
+                 "(demoted page slices would need a cross-shard "
+                 "gather/scatter)")
     roles = None
     if args.roles:
         if args.replicas <= 1 and not args.autoscale:

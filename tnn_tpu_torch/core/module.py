@@ -5,9 +5,7 @@ model again from it.
 
 The port registers its ``GPT2`` ("gpt2") and ``Llama`` ("llama"), whose
 ``get_config()`` returns exactly the JAX model's dict, so that a file
-written by either package is read by the other. Options the port has not
-ported are refused here, with the ROADMAP item that ports them, rather than
-loaded into a model that computes something else.
+written by either package is read by the other.
 """
 from __future__ import annotations
 
@@ -16,12 +14,6 @@ from typing import Any, Dict, Optional
 from . import dtypes as dt
 
 _REGISTRY: Dict[str, type] = {}
-
-# config keys the port cannot honour yet, and where ROADMAP.md queues them
-_UNPORTED = {
-    "moe_experts": "mixture-of-experts blocks (nn/moe.py) are ROADMAP "
-                   "section 1 item 11",
-}
 
 
 def register_module(name: str):
@@ -49,12 +41,6 @@ def module_from_config(cfg: Dict[str, Any], *, device="cuda",
     if type_name not in _REGISTRY:
         raise KeyError(f"unknown module type {type_name!r}; the port "
                        f"knows {sorted(_REGISTRY)}")
-    for key, why in _UNPORTED.items():
-        if cfg.get(key):
-            raise ValueError(f"{type_name} config has {key}="
-                             f"{cfg[key]!r}, which the port does not "
-                             f"serve: {why}")
-        cfg.pop(key, None)
     policy = dt.DTypePolicy.from_config(cfg.pop("policy", None))
     name = cfg.pop("name", None)
     model = _REGISTRY[type_name](**cfg, policy=policy, device=device,

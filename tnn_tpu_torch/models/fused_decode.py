@@ -53,7 +53,7 @@ def stack_decode_weights(model) -> Dict[str, torch.Tensor]:
                          "attention (num_kv_heads != num_heads)")
     blocks = list(model.blocks)
     for blk in blocks:
-        if hasattr(blk, "moe"):
+        if getattr(blk, "moe", None) is not None:
             raise ValueError("fused decode does not support MoE blocks")
 
     def stack(get):

@@ -1,6 +1,6 @@
 """GPT-2 (``tnn_tpu.models.gpt2``): wte + wpe -> n_layer x GPTBlock -> ln_f
--> tied-head logits; the training forward, KV-cache ``generate``, and the
-paged forwards the serving engine steps."""
+-> head logits (tied to wte, or an untied ``head``); the training forward,
+KV-cache ``generate``, and the paged forwards the serving engine steps."""
 from __future__ import annotations
 
 from typing import Iterator, Optional, Tuple
@@ -11,9 +11,10 @@ from torch import nn
 from ..core import dtypes as dt
 from ..core.module import model_config, register_module
 from ..nn.embedding import Embedding, PositionalEmbedding
-from ..nn.layers import Dropout
+from ..nn.layers import Dense, Dropout
 from ..nn.norms import LayerNorm
 from ..nn.transformer import GPTBlock
+from ..ops.quant_matmul import qmatmul
 from ..utils.device import resolve_device
 from .params import JaxParamModule
 from .sampling import sample_ragged
@@ -21,7 +22,7 @@ from .sampling import sample_ragged
 
 @register_module("gpt2")
 class GPT2(JaxParamModule):
-    """Decoder-only LM with a tied output head.
+    """Decoder-only LM with a tied or untied output head.
 
     ``forward(ids)`` is the JAX model's ``apply``: (N, S) ids -> (N, S, V)
     float32 logits over the whole sequence, differentiable in every
@@ -36,8 +37,13 @@ class GPT2(JaxParamModule):
     leaves them zero) or from ``load_jax_params``. ``backend`` is the
     attention backend ("xla", or "pallas" for the flash kernels).
     ``device`` defaults to "cuda" and raises without a card.
-    ``get_config()`` is the JAX model's config dict (``core.module``); the
-    head is always tied, and ``tie_embeddings=False`` raises.
+    ``get_config()`` is the JAX model's config dict (``core.module``).
+    ``tie_embeddings=False`` gives the model its own (D, V) ``head``
+    kernel (``params["head"]["kernel"]``), whose f32 logits come from
+    ``qmatmul``, so ``quantize_for_decode`` quantizes it as any kernel.
+    ``moe_experts > 0`` makes every block's MLP a top-2 mixture of that
+    many experts (``nn.moe``); ``net_state()`` then holds each block's
+    load-balancing loss of the last training forward.
     ``kv_cache_dtype="int8"`` gives every block an int8 decode cache
     (``generate``); the serving engine refuses such a model.
     """
@@ -46,13 +52,10 @@ class GPT2(JaxParamModule):
                  num_layers: int = 12, d_model: int = 768,
                  num_heads: int = 12, num_kv_heads: Optional[int] = None,
                  *, backend: str = "xla", dropout: float = 0.0,
-                 tie_embeddings: bool = True,
+                 tie_embeddings: bool = True, moe_experts: int = 0,
                  kv_cache_dtype: Optional[str] = None, policy=None,
                  device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if not tie_embeddings:
-            raise ValueError("an untied GPT-2 head is not ported: the port's "
-                             "GPT2 shares wte with the head")
         self.device = resolve_device(device)
         self.policy = p = policy or dt.default_policy()
         self.vocab_size = int(vocab_size)
@@ -64,6 +67,8 @@ class GPT2(JaxParamModule):
             else self.num_heads
         self.backend = backend
         self.dropout = float(dropout)
+        self.tie_embeddings = bool(tie_embeddings)
+        self.moe_experts = int(moe_experts)
         self.kv_cache_dtype = kv_cache_dtype
         dev = self.device
         self.wte = Embedding(vocab_size, d_model, policy=p, device=dev)
@@ -72,9 +77,12 @@ class GPT2(JaxParamModule):
         self.blocks = nn.ModuleList(
             GPTBlock(d_model, num_heads, num_kv_heads=self.num_kv_heads,
                      backend=backend, dropout=dropout,
-                     kv_cache_dtype=kv_cache_dtype, policy=p, device=dev)
+                     kv_cache_dtype=kv_cache_dtype,
+                     moe_experts=self.moe_experts, policy=p, device=dev)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, policy=p, device=dev)
+        self.head = None if self.tie_embeddings else Dense(
+            d_model, vocab_size, use_bias=False, policy=p, device=dev)
         if seed is not None:
             self.init_params(seed)
 
@@ -94,15 +102,25 @@ class GPT2(JaxParamModule):
                 yield (h, ln, "bias"), getattr(blk, ln), "bias"
             for name in ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias"):
                 yield (h, "attn", name), blk.attn, name
+            if blk.moe is not None:
+                yield (h, "moe", "gate", "kernel"), blk.moe, "gate_kernel"
+                for name in ("w_in", "b_in", "w_out", "b_out"):
+                    yield (h, "moe", name), blk.moe, name
+                continue
             for dense in ("fc", "proj"):
                 yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
                 yield (h, dense, "bias"), getattr(blk, dense), "bias"
+        if self.head is not None:
+            yield ("head", "kernel"), self.head, "kernel"
 
     def get_config(self):
         cfg = {"vocab_size": self.vocab_size, "max_len": self.max_len,
                "num_layers": self.num_layers, "d_model": self.d_model,
                "num_heads": self.num_heads, "dropout": self.dropout,
-               "backend": self.backend, "tie_embeddings": True}
+               "backend": self.backend,
+               "tie_embeddings": self.tie_embeddings}
+        if self.moe_experts:
+            cfg["moe_experts"] = self.moe_experts
         if self.num_kv_heads != self.num_heads:
             cfg["num_kv_heads"] = self.num_kv_heads
         if self.kv_cache_dtype:
@@ -113,9 +131,18 @@ class GPT2(JaxParamModule):
 
     def _head(self, x: torch.Tensor,
               rows: Optional[int] = None) -> torch.Tensor:
-        """f32 logits; ``rows`` is the row count an int8 head dispatches on
-        (``qmatmul``), where x holds only some rows of a larger call."""
-        return self.wte.attend(self.ln_f(x), rows=rows)
+        """ln_f, then the f32 logits; ``rows`` is the row count an int8
+        head dispatches on (``qmatmul``), where x holds only some rows of a
+        larger call."""
+        return self._logits(self.ln_f(x), rows=rows)
+
+    def _logits(self, h: torch.Tensor,
+                rows: Optional[int] = None) -> torch.Tensor:
+        """The head over post-ln_f hidden states: f32 logits."""
+        if self.head is None:
+            return self.wte.attend(h, rows=rows)
+        w = self.policy.cast_param(self.head.kernel)
+        return qmatmul(h, w, out_dtype=torch.float32, rows=rows)
 
     def apply_hidden(self, ids: torch.Tensor, *, train: bool = False,
                      generator: Optional[torch.Generator] = None
@@ -130,14 +157,24 @@ class GPT2(JaxParamModule):
         return self.ln_f(x)
 
     def head_table(self) -> torch.Tensor:
-        """The (V, D) matrix the head contracts against: the tied table in
-        the compute dtype, differentiable into the f32 master."""
+        """The (V, D) matrix the head contracts against: the tied table or
+        the untied kernel's transpose, in the compute dtype,
+        differentiable into the f32 master."""
+        if self.head is not None:
+            return self.policy.cast_param(self.head.kernel).t()
         return self.policy.cast_param(self.wte.table)
+
+    def net_state(self):
+        """The JAX model's mutable state after the last training forward:
+        ``{"h{i}": {"aux_loss": ...}}`` for each MoE block (empty for a
+        dense model)."""
+        return {f"h{i}": blk.net_state for i, blk in enumerate(self.blocks)
+                if blk.net_state}
 
     def forward(self, ids: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.wte.attend(self.apply_hidden(ids, train=train,
-                                                 generator=generator))
+        return self._logits(self.apply_hidden(ids, train=train,
+                                              generator=generator))
 
     def init_cache(self, batch: int, max_len: Optional[int] = None):
         """One zeroed KV cache per block for ``apply_cached``."""

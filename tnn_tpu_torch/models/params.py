@@ -91,7 +91,8 @@ class JaxParamModule(nn.Module):
     def init_params(self, seed: int) -> "JaxParamModule":
         """Seeded random weights, drawn on the model's device from a
         ``torch.Generator``: normal(0.02) embeddings, xavier-uniform
-        attention kernels, he-normal MLP kernels, zero biases, unit norms
+        attention kernels and MoE gates and experts, he-normal MLP kernels
+        (an untied head's too), zero biases, unit norms
         (the JAX package's initializer families; other bits than its)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for path, param in self.jax_param_paths():
@@ -99,8 +100,10 @@ class JaxParamModule(nn.Module):
             shape = tuple(param.shape)
             if name in ("table", "pos"):
                 param.normal_(0.0, 0.02, generator=gen)
-            elif name in ("qkv_kernel", "out_kernel"):
-                limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+            elif name in ("qkv_kernel", "out_kernel", "w_in", "w_out") \
+                    or path[-2:] == ("gate", "kernel"):
+                # the MoE experts' fans are their last two axes
+                limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
                 param.uniform_(-limit, limit, generator=gen)
             elif name == "kernel":
                 param.normal_(0.0, math.sqrt(2.0 / shape[0]), generator=gen)

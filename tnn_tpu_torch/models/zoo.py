@@ -1,6 +1,7 @@
 """Model zoo (``tnn_tpu.models.zoo``): the GPT-2 and Llama entries of the
 port. The "flash" variants select the flash-attention kernels (backend
-"pallas")."""
+"pallas"); ``moe_gpt2_small`` is gpt2_small with an 8-expert top-2 MoE in
+every block."""
 from __future__ import annotations
 
 import functools
@@ -17,6 +18,7 @@ _REGISTRY = {
     "gpt2_small_gqa4": gpt2.gpt2_small_gqa4,
     "gpt2_medium": gpt2.gpt2_medium,
     "gpt2_large": gpt2.gpt2_large,
+    "moe_gpt2_small": functools.partial(gpt2.gpt2_small, moe_experts=8),
     "llama_small": llama.llama_small,
     "llama_1b": llama.llama_1b,
 }

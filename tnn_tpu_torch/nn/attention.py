@@ -171,6 +171,9 @@ class MultiHeadAttention(nn.Module):
         self.qkv_bias = param(d_model + 2 * self.kv_d) if use_bias else None
         self.out_kernel = param(d_model, d_model)
         self.out_bias = param(d_model) if use_bias else None
+        # the paged scatters' last-writer rule (ops.paged_attention.
+        # scatter_kv_rows): set by a block whose rows interact (MoE)
+        self.last_writer_scatter = False
 
     def _project_qkv(self, x):
         """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
@@ -321,17 +324,19 @@ class MultiHeadAttention(nn.Module):
             if x.shape[1] != 1:
                 raise ValueError("apply_paged with Q > 1 requires q_lens")
             pa.scatter_kv_rows(pages_k, block_tables, offsets, k_new[:, 0],
-                               layer=layer)
+                               layer=layer,
+                               last_writer=self.last_writer_scatter)
             pa.scatter_kv_rows(pages_v, block_tables, offsets, v_new[:, 0],
-                               layer=layer)
+                               layer=layer,
+                               last_writer=self.last_writer_scatter)
             out = pa.paged_attention(q[:, 0].contiguous(), pages_k, pages_v,
                                      block_tables, kv_lens=offsets + 1,
                                      layer=layer)
             return self._project_out(out[:, None])
         pa.scatter_kv_chunk(pages_k, block_tables, offsets, k_new, q_lens,
-                            layer=layer)
+                            layer=layer, last_writer=self.last_writer_scatter)
         pa.scatter_kv_chunk(pages_v, block_tables, offsets, v_new, q_lens,
-                            layer=layer)
+                            layer=layer, last_writer=self.last_writer_scatter)
         out = pa.paged_attention(q.contiguous(), pages_k, pages_v,
                                  block_tables, kv_lens=offsets + q_lens,
                                  q_lens=q_lens, layer=layer)

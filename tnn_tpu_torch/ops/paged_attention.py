@@ -376,49 +376,71 @@ def _library():
     return lib
 
 
-def scatter_kv_rows(pages, block_tables, offsets, rows, *, layer=None):
+def _last_writers(dest: torch.Tensor) -> torch.Tensor:
+    """For each write of a flat list of destinations (in row-major order),
+    the index of the LAST write to the same destination. Writing every
+    duplicate with that row leaves what a sequential scatter leaves (the
+    CPU's, and the JAX package's on the CPU), whatever order the card runs
+    the writes in."""
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    last = torch.searchsorted(sorted_dest, sorted_dest, side="right") - 1
+    win = torch.empty_like(order)
+    win[order] = order[last]
+    return win
+
+
+def _scatter(pages, layer, blk, slot, rows, last_writer):
+    """``pages[layer][blk, :, slot] = rows`` over flat (n,) destinations
+    and (n, H, last) rows; with ``last_writer`` duplicates take their last
+    writer's row. Under ``QuantPages`` the rows are quantized and the codes
+    and scales written through the same indices."""
+    if last_writer:
+        win = _last_writers(blk * _pages_shape(pages)[-2] + slot)
+        rows = rows[win]
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize_kv_rows(rows)
+        _layer_view(pages.data, layer)[blk, :, slot, :] = qrows
+        _layer_view(pages.scale, layer)[blk, :, slot, :] = srows
+    else:
+        _layer_view(pages, layer)[blk, :, slot, :] = rows
+    return pages
+
+
+def scatter_kv_rows(pages, block_tables, offsets, rows, *, layer=None,
+                    last_writer: bool = False):
     """Write one new KV row per sequence at its decode position, in place.
 
     ``pages`` is (L, N, H, bs, Dh) with ``layer`` naming the layer (or one
     layer's (N, H, bs, Dh)); ``block_tables`` (B, nb); ``offsets`` (B,) the
     position each row writes; ``rows`` (B, H, Dh). A -1 table hole writes
-    to the scratch page. ``QuantPages`` quantize the rows here and write
+    to the scratch page. Padding rows all write one slot of the scratch
+    page; on the card which of them lands is not defined, and with
+    ``last_writer`` it is the last such row, as on the CPU (a model whose
+    rows interact, MoE, reads it back: its capacity tells identical
+    padding rows apart). ``QuantPages`` quantize the rows here and write
     the int8 values and their scales through the same indices. Returns
     ``pages``.
     """
-    if isinstance(pages, QuantPages):
-        qrows, srows = quantize_kv_rows(rows)
-        scatter_kv_rows(pages.data, block_tables, offsets, qrows, layer=layer)
-        scatter_kv_rows(pages.scale, block_tables, offsets, srows,
-                        layer=layer)
-        return pages
-    bs = pages.shape[-2]
+    bs = _pages_shape(pages)[-2]
     offsets = offsets.long()
     blk = block_tables.long().gather(1, (offsets // bs)[:, None])[:, 0]
-    blk = blk.clamp_min(0)
-    target = _layer_view(pages, layer)
-    target[blk, :, offsets % bs, :] = rows
-    return pages
+    return _scatter(pages, layer, blk.clamp_min(0), offsets % bs, rows,
+                    last_writer)
 
 
 def scatter_kv_chunk(pages, block_tables, starts, rows, q_lens, *,
-                     layer=None):
+                     layer=None, last_writer: bool = False):
     """Write a ragged chunk of new KV rows per sequence, in place.
 
     ``rows`` is (B, Q, H, Dh): row b's tokens t < q_lens[b] land at
     positions ``starts[b] + t`` through its block table; padding tokens
     (and whole rows with q_lens == 0) and -1 holes go to the scratch page
-    0, which is never allocated to a request. ``QuantPages`` quantize as
-    ``scatter_kv_rows`` does. Returns ``pages``.
+    0, which is never allocated to a request. ``last_writer`` and
+    ``QuantPages`` as for ``scatter_kv_rows`` (row-major order). Returns
+    ``pages``.
     """
-    if isinstance(pages, QuantPages):
-        qrows, srows = quantize_kv_rows(rows)
-        scatter_kv_chunk(pages.data, block_tables, starts, qrows, q_lens,
-                         layer=layer)
-        scatter_kv_chunk(pages.scale, block_tables, starts, srows, q_lens,
-                         layer=layer)
-        return pages
-    bs = pages.shape[-2]
+    bs = _pages_shape(pages)[-2]
     qw = rows.shape[1]
     nbt = block_tables.shape[1]
     steps = torch.arange(qw, device=rows.device)
@@ -426,9 +448,8 @@ def scatter_kv_chunk(pages, block_tables, starts, rows, q_lens, *,
     live = steps[None, :] < q_lens.long()[:, None]       # (B, Q)
     blk = block_tables.long().gather(1, (pos // bs).clamp(0, nbt - 1))
     blk = torch.where(live, blk, 0).clamp_min(0)
-    target = _layer_view(pages, layer)
-    target[blk, :, pos % bs, :] = rows
-    return pages
+    return _scatter(pages, layer, blk.reshape(-1), (pos % bs).reshape(-1),
+                    rows.reshape(-1, *rows.shape[2:]), last_writer)
 
 
 def _layer_view(pages, layer):

@@ -108,7 +108,16 @@ on the standard path ``gather_kv`` sums the shards' owned positions into
 one cache and the scatters write each shard's own rows. As in the JAX
 engine, SP refuses ``quant_weights`` and the fused path, and needs
 ``num_blocks`` and the table width ``blocks_per_seq`` to divide by sp.
-Tensor parallelism is not ported yet.
+
+Tensor parallelism (``tp > 1``, ``serving/tp.py``): attention heads, the
+MLP's columns and the pool's KV heads split over tp shards on the devices
+``tp_devices`` names (one card may hold several); every shard holds every
+block, so the host-side bookkeeping is that of tp = 1. The paged, standard
+and whole-prompt programs run over the shards with two all-reduces a
+layer, and each dispatch records one ``serve.allreduce`` span. As in the
+JAX engine, TP refuses ``quant_weights``, MoE models, the host tier, sp >
+1 and the fused path. pdecode steps replay CUDA graphs when every shard
+sits on the engine's device, and run eagerly otherwise.
 
 Fault isolation, as in the JAX engine (``faults=`` takes a seeded
 ``faults.FaultPlan``): an injected allocation failure at a chunk boundary
@@ -148,6 +157,7 @@ check is dropped and the request recomputes it: counted, never wrong.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import time
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
@@ -172,6 +182,7 @@ from .prefix_cache import PrefixCache
 from .scheduler import (TERMINAL_STATES, AdmissionRejected, Request,
                         RequestState, Scheduler)
 from .sp import SPContext
+from .tp import TPContext
 from .tracing import Tracer
 
 
@@ -246,6 +257,8 @@ class InferenceEngine:
     sp : sequence-parallel degree (module docstring); sp_devices names one
         device per shard (default: the first sp cards, or sp copies of the
         CPU), the first of them the model's.
+    tp : tensor-parallel degree (module docstring); tp_devices names one
+        device per shard, as sp_devices does.
     prefix_cache : automatic prefix caching (module docstring); False
         turns off matching, publishing and the evictable pool.
     prefix_cache_min_hit_blocks : ignore matches shorter than this many
@@ -285,7 +298,8 @@ class InferenceEngine:
                  kv_dtype: str = "f32", quant_weights: bool = False,
                  decode_path: str = "auto",
                  max_seq_len: Optional[int] = None, sp: int = 1,
-                 sp_devices: Optional[Sequence[Any]] = None,
+                 sp_devices: Optional[Sequence[Any]] = None, tp: int = 1,
+                 tp_devices: Optional[Sequence[Any]] = None,
                  prefix_cache: bool = True,
                  prefix_cache_min_hit_blocks: int = 1,
                  prefix_publish_max_occupancy: float = 0.95,
@@ -330,6 +344,11 @@ class InferenceEngine:
                 "host_tier_bytes requires the prefix cache (tier entries "
                 "are addressed by its chain keys) — enable prefix_cache "
                 "and chunked_prefill, or set host_tier_bytes=0")
+        if host_tier_bytes and tp > 1:
+            raise ValueError(
+                "host_tier_bytes with tp>1 is unsupported — demoted page "
+                "slices would need a cross-shard gather/scatter; run the "
+                "host tier on single-chip replicas")
         if host_tier_bytes and sp > 1:
             raise ValueError(
                 "host_tier_bytes with sp>1 is unsupported — a demoted "
@@ -373,22 +392,52 @@ class InferenceEngine:
         self.logit_guard = bool(logit_guard)
         self.kv_dtype = kv_dtype
         self.quant_weights = bool(quant_weights)
+        moe = bool(getattr(model, "moe_experts", 0))
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        self._tp: Optional[TPContext] = None
+        if self.tp > 1:
+            if self.quant_weights:
+                raise ValueError(
+                    "quant_weights with tp>1 is unsupported — Int8Weight "
+                    "leaves don't column-shard; serve fp weights under TP")
+            if moe:
+                raise ValueError(
+                    "tensor-parallel serving does not support MoE models "
+                    "(expert dispatch is not head-sharded)")
         self.sp = int(sp)
         if self.sp < 1:
             raise ValueError(f"sp must be >= 1, got {sp}")
         self._sp: Optional[SPContext] = None
         if self.sp > 1:
+            if self.tp > 1:
+                raise ValueError(
+                    "sp>1 with tp>1 is unsupported, as in the JAX engine: "
+                    "pick ONE of sp / tp per replica")
             if self.quant_weights:
                 raise ValueError(
                     "quant_weights with sp>1 is unsupported, as in the JAX "
                     "engine (its int8 leaves re-materialize off the context "
                     "mesh); serve fp weights under SP")
+            if moe:
+                raise ValueError(
+                    "sequence-parallel serving does not support MoE models "
+                    "(expert dispatch is not sequence-sharded)")
             self._sp = SPContext(model, self.sp, devices=sp_devices)
+        if self.tp > 1:
+            self._tp = TPContext(model, self.tp, devices=tp_devices)
         self.model = quantize_for_decode(model) if self.quant_weights \
             else model
-        # what the paged programs step: the shard adapter under SP (same
-        # paged interface over lists of shard pages and tables)
-        self._step_model = self._sp.model if self._sp else self.model
+        # what the paged programs step: the shard adapter under SP or TP
+        # (same paged interface over lists of shard pages)
+        self._step_model = self._sp.model if self._sp \
+            else self._tp.model if self._tp else self.model
+        # the JAX engine's compile-key suffix: int8 pools and sharded
+        # replicas run other programs than the f32 single-device one
+        self._kv_key = (("int8",) if kv_dtype == "int8" else ()) + \
+            ((f"tp{self.tp}",) if self.tp > 1 else ()) + \
+            ((f"sp{self.sp}",) if self.sp > 1 else ())
         self.preemption_budget = preemption_budget
         self.migration_budget = migration_budget
         self.faults = faults
@@ -396,8 +445,9 @@ class InferenceEngine:
             num_layers=model.num_layers, num_kv_heads=model.num_kv_heads,
             head_dim=model.d_model // model.num_heads, num_blocks=num_blocks,
             block_size=block_size, dtype=model.policy.compute_dtype,
-            device=self.device, kv_dtype=kv_dtype, sp=self.sp,
-            devices=self._sp.devices if self._sp else None)
+            device=self.device, kv_dtype=kv_dtype, sp=self.sp, tp=self.tp,
+            devices=(self._sp.devices if self._sp
+                     else self._tp.devices if self._tp else None))
         self.pool.fault_plan = faults
         cap = min(model.max_len, self.pool.capacity * block_size)
         self.max_seq_len = min(max_seq_len or cap, cap)
@@ -446,6 +496,8 @@ class InferenceEngine:
         self.profiler = profiler
         self.metrics = ServingMetrics(profiler)
         self.tracer = Tracer(profiler if trace else None)
+        if self._tp is not None:
+            self._tp.tracer = self.tracer
         self.step_seq = 0                # begun steps, adopted ones included
         self._step_note: Optional[Dict[str, Any]] = None
         self._finished_note: Optional[Dict[str, Any]] = None
@@ -457,11 +509,12 @@ class InferenceEngine:
                               "kv_bytes_per_token":
                                   self.pool.kv_bytes_per_token,
                               "quant_weights": int(self.quant_weights),
-                              "tp_degree": 1,
-                              # (kv + scale bytes) // tp, at tp = 1
+                              "tp_degree": self.tp,
+                              # each shard holds 1/tp of every page's heads
                               "kv_bytes_per_token_per_shard":
-                                  self.pool.kv_bytes_per_token
-                                  + self.pool.kv_scale_bytes_per_token,
+                                  (self.pool.kv_bytes_per_token
+                                   + self.pool.kv_scale_bytes_per_token)
+                                  // self.tp,
                               "sp_degree": self.sp,
                               "pool_blocks_per_shard":
                                   self.pool.blocks_per_shard,
@@ -538,13 +591,20 @@ class InferenceEngine:
         used: the JAX engine's refusals, then, on CUDA, every static limit
         of K8 (``decode_stack.check_kernel_geometry``) at the geometry the
         fused program always runs, ``batch`` rows (``pack_decode`` pads to
-        it) over the whole assembly. Tensor parallelism, which the JAX
-        engine also refuses here, does not exist in the port."""
+        it) over the whole assembly."""
+        if any(getattr(b, "moe", None) is not None
+               for b in self.model.blocks):
+            raise ValueError("fused decode does not support MoE blocks")
         if self.kv_dtype == "int8":
             raise ValueError(
                 "fused decode assembles a contiguous compute-dtype cache: "
                 "int8 pages would dequantize outside the kernel with no "
                 "bandwidth win; int8 pools use the paged or standard path")
+        if self.tp > 1:
+            raise ValueError(
+                "fused decode stacks whole-model weights into one kernel "
+                "invocation — head-sharded TP params cannot stack; tp>1 "
+                "serves the paged or standard path")
         if self.sp > 1:
             raise ValueError(
                 "fused decode assembles one chip's contiguous cache: a "
@@ -804,7 +864,7 @@ class InferenceEngine:
                   "kv_scale_bytes_per_token":
                       self.pool.kv_scale_bytes_per_token,
                   "quant_weights": self.quant_weights,
-                  "tp_degree": 1,
+                  "tp_degree": self.tp,
                   "kv_bytes_per_token_per_shard":
                       self._gauge_extras["kv_bytes_per_token_per_shard"],
                   "compiled_step_signatures": len(self._compile_keys),
@@ -979,8 +1039,10 @@ class InferenceEngine:
 
     def _note_program(self, kind: str, key, rids: List[int],
                       fill: float) -> None:
-        """Attach one launched program to the current step's note."""
-        self._compile_keys.add(tuple(key))
+        """Attach one launched program to the current step's note; the
+        key gains the engine's ``_kv_key`` suffix."""
+        key = tuple(key) + self._kv_key
+        self._compile_keys.add(key)
         if self._step_note is not None:
             self._step_note["programs"].append(
                 {"kind": kind, "compile_key": list(key),
@@ -1078,7 +1140,8 @@ class InferenceEngine:
             self._last_decode_emit = None
         self.metrics.observe_gauges(
             self.scheduler.queue_depth, self.pool.occupancy,
-            self.pool.kv_bytes_per_token, sp_degree=self.sp,
+            self.pool.kv_bytes_per_token, tp_degree=self.tp,
+            sp_degree=self.sp,
             tier_blocks=len(self.kv_tier) if self.kv_tier is not None else 0,
             tier_bytes=self.kv_tier.bytes_used if self.kv_tier is not None
             else 0.0)
@@ -1256,7 +1319,8 @@ class InferenceEngine:
             self.generator.set_state(gen_state)
             raise
         b = self.scheduler.max_batch_size
-        self._compile_keys.add((step.program, b, self.blocks_per_seq))
+        key = (step.program, b, self.blocks_per_seq) + self._kv_key
+        self._compile_keys.add(key)
         flight.spec = {"rec": nxt, "fetch": fetch, "t0": t0,
                        "rollback": rollback,
                        "gen_state": gen_state,
@@ -1264,8 +1328,7 @@ class InferenceEngine:
                                    for i, r in enumerate(live)},
                        "prog": {"kind": "decode_paged" if self._paged
                                 else "decode",
-                                "compile_key": [step.program, b,
-                                                self.blocks_per_seq],
+                                "compile_key": list(key),
                                 "rids": [r.rid for r in live],
                                 "fill": round(len(live) / b, 4)}}
         return True
@@ -1357,9 +1420,7 @@ class InferenceEngine:
                 if table:
                     self.pool.free(table)
                 return
-            n = self.pool.blocks_per_shard
-            for pages in self.pool.shard_pages()[self.pool.owner(copy[0])]:
-                kv_pool.copy_blocks(pages, [blocks[-1] % n], [copy[0] % n])
+            self.pool.copy_block(blocks[-1], copy[0])
             table = table + copy
             self.metrics.observe_prefix_cow()
         req.block_table = table
@@ -1776,7 +1837,8 @@ class InferenceEngine:
         self._mark_dispatch()
         if not self._decode_site(rows, events):
             return None
-        with profiled("serve.mixed", EventType.COMPUTE, self.profiler):
+        with profiled("serve.mixed", EventType.COMPUTE, self.profiler), \
+                self._dispatch_span():
             if spec_on:
                 # verification reads every position: the (B, Q, V) cube
                 if self._paged:
@@ -1896,7 +1958,8 @@ class InferenceEngine:
              np.asarray([poison], np.float32)], table)
         self._mark_dispatch()
         self.program_steps["prefill"] += 1
-        with profiled("serve.prefill", EventType.COMPUTE, self.profiler):
+        with profiled("serve.prefill", EventType.COMPUTE, self.profiler), \
+                self._dispatch_span():
             dev = self._prefill(ids, len(seq), tables,
                                 SampleInputs(ids, temps, topks, topps,
                                              poison))
@@ -1908,10 +1971,18 @@ class InferenceEngine:
         prompt on fresh caches, the logit guard and a sample at row
         ``length - 1``, every layer's cache scattered into the blocks.
         Returns the (2, 1) bundle."""
-        model = self.model
+        model = self._tp.model if self._tp is not None else self.model
         caches = model.init_cache(1, ids.shape[1])
         logits = model.apply_cached(ids, caches, 0)
         bundle = self._sample(logits[0, length - 1][None], step)
+        if self._tp is not None:     # caches[layer][shard]: each its pages
+            for s, (pk, pv) in enumerate(self.pool.shard_pages()):
+                dev = self._tp.devices[s]
+                for pages, key in ((pk, "k"), (pv, "v")):
+                    kv_pool.scatter_prefill(
+                        pages, tables[0].to(dev),
+                        torch.stack([c[s][key][0] for c in caches]))
+            return bundle
         blocks = tables[0] if self._sp is None else [t[0] for t in tables]
         for pages, key in ((self.pool.pages_k, "k"),
                            (self.pool.pages_v, "v")):
@@ -1981,6 +2052,13 @@ class InferenceEngine:
                                [r.rid for r in live], fill=len(live) / b)
         rec = {"kind": "decode", "live": list(live), "t0": t0,
                "b": step.toks.shape[0]}
+        if speculative:
+            # padding rows take token 0, as in a packed step: a MoE
+            # block's routing reads every row (the JAX engine passes them
+            # step N's samples, so its MoE models lose overlap-exactness)
+            toks = torch.where(
+                torch.arange(toks.shape[0], device=toks.device) < len(live),
+                toks, 0)
         graph = step.program == "pdecode" and self._graph_steps
         if graph:
             host = step_graph.stage(step_graph.decode_arrays(step))
@@ -1995,7 +2073,8 @@ class InferenceEngine:
                                                      pending):
             return None
         self.program_steps[step.program] += 1
-        with profiled(label, EventType.COMPUTE, self.profiler):
+        with profiled(label, EventType.COMPUTE, self.profiler), \
+                self._dispatch_span():
             if graph:
                 rec["dev"] = self._decode_graph().run(host, toks)
             elif step.program == "pdecode":
@@ -2010,6 +2089,13 @@ class InferenceEngine:
                     logits, SampleInputs(toks, temps, topks, topps, poison))
         return rec
 
+    def _dispatch_span(self):
+        """The ``serve.allreduce`` span of one TP dispatch (tp= and
+        count=, the all-reduces it runs), traced engines only."""
+        if self._tp is None or not self.tracer.enabled:
+            return contextlib.nullcontext()
+        return self._tp.span()
+
     def _pdecode(self, toks, offsets, tables, temps, topks, topps, poison):
         """The paged pure-decode program, the one that is captured:
         (logits, (2, B) bundle)."""
@@ -2020,8 +2106,11 @@ class InferenceEngine:
 
     @property
     def _graph_steps(self) -> bool:
-        """pdecode steps replay captured graphs: on CUDA at sp = 1."""
+        """pdecode steps replay captured graphs: on CUDA at sp = 1, with
+        every TP shard on the engine's device."""
         return (self.device.type == "cuda" and self._sp is None
+                and (self._tp is None
+                     or all(d == self.device for d in self._tp.devices))
                 and not self._eager_steps)
 
     def _decode_graph(self) -> step_graph.DecodeGraph:
@@ -2049,6 +2138,10 @@ class InferenceEngine:
         last live position (on every position without ``last_only``: the
         spec step's verification); the chunk's new rows go back to the
         pages."""
+        if self._tp is not None:
+            return self._tp.model.mixed_standard(
+                toks, self.pool.pages_k, self.pool.pages_v, tables, starts,
+                q_lens, last_only=last_only)
         model = self.model
         b, qw = toks.shape
         kf, vf = self._gather(tables)
@@ -2078,6 +2171,9 @@ class InferenceEngine:
 
     def _decode_standard(self, toks, tables, offsets):
         """The ragged pure-decode step on assembled caches."""
+        if self._tp is not None:
+            return self._tp.model.decode_standard(
+                toks, self.pool.pages_k, self.pool.pages_v, tables, offsets)
         model = self.model
         kf, vf = self._gather(tables)
         x = model.wpe(model.wte(toks[:, None]), offset=offsets)

@@ -30,6 +30,16 @@ is the bottleneck shard's. A step hands each shard its LOCAL table
 (``step_build.shard_tables``: local ids where it owns the block, -1
 holes elsewhere). At sp = 1 the pool holds one tensor per side, as before.
 
+TENSOR PARALLELISM (``tp > 1``, ``serving/tp.py``): the HEAD axis splits
+over ``tp`` shards instead. ``pages_k`` / ``pages_v`` are lists with one
+``(L, N, H_kv / tp, bs, Dh)`` tensor (or ``QuantPages``, whose scales
+travel with their heads) per shard, on that shard's device, in shard
+order. Every shard holds every block, so block ids, refcounts, the free
+list and ``kv_bytes_per_token`` stay those of tp = 1, and a step hands
+every shard the same table. ``copy_block``, ``reset_pages`` and the
+export / adopt pair work on every shard; an export joins the head axis, so
+its wire format equals tp = 1's, and an adopt splits it again.
+
 The module's step-side helpers serve the assembled-cache ("standard" and
 "fused") decode paths: ``gather_kv`` builds each row's contiguous cache
 from its block table, and ``scatter_token`` / ``scatter_chunk`` write one
@@ -77,7 +87,7 @@ class PagedKVPool:
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_blocks: int, block_size: int = 16,
                  dtype: torch.dtype = torch.float32, device="cuda", *,
-                 kv_dtype: str = "f32", sp: int = 1,
+                 kv_dtype: str = "f32", sp: int = 1, tp: int = 1,
                  devices: Optional[Sequence] = None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved scratch)")
@@ -88,6 +98,14 @@ class PagedKVPool:
                              f"got {kv_dtype!r}")
         if sp < 1:
             raise ValueError(f"sp must be >= 1, got {sp}")
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if sp > 1 and tp > 1:
+            raise ValueError("a pool splits its blocks (sp) or its heads "
+                             "(tp), not both")
+        if num_kv_heads % tp:
+            raise ValueError(f"num_kv_heads {num_kv_heads} must divide "
+                             f"evenly over tp {tp} shards")
         if num_blocks % sp:
             raise ValueError(f"num_blocks {num_blocks} must divide evenly "
                              f"over sp {sp} shards")
@@ -111,12 +129,17 @@ class PagedKVPool:
         self.blocks_per_shard = self.num_blocks // self.sp
         self._scratch = frozenset(s * self.blocks_per_shard
                                   for s in range(self.sp))
+        # tensor parallelism: shard s holds heads [s * H_l, (s + 1) * H_l)
+        # of every block, H_l = num_kv_heads // tp
+        self.tp = int(tp)
+        self.heads_per_shard = self.num_kv_heads // self.tp
+        n_shards = max(self.sp, self.tp)
         devices = list(devices) if devices is not None \
-            else [device] * self.sp
-        if len(devices) != self.sp:
-            raise ValueError(f"{len(devices)} devices for sp {sp}")
-        shape = (self.num_layers, self.blocks_per_shard, self.num_kv_heads,
-                 self.block_size, self.head_dim)
+            else [device] * n_shards
+        if len(devices) != n_shards:
+            raise ValueError(f"{len(devices)} devices for {n_shards} shards")
+        shape = (self.num_layers, self.blocks_per_shard,
+                 self.heads_per_shard, self.block_size, self.head_dim)
 
         def fresh(dev):
             if kv_dtype == "int8":
@@ -127,12 +150,12 @@ class PagedKVPool:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         # one contiguous page tensor (or bundle) per shard, on its device;
-        # at sp = 1 the pool holds the tensors themselves
+        # unsharded, the pool holds the tensors themselves
         pk = [fresh(d) for d in devices]
         pv = [fresh(d) for d in devices]
         self.devices = [(p.data if kv_dtype == "int8" else p).device
                         for p in pk]
-        self.pages_k, self.pages_v = (pk, pv) if self.sp > 1 \
+        self.pages_k, self.pages_v = (pk, pv) if n_shards > 1 \
             else (pk[0], pv[0])
         # LIFO free list: freshly freed blocks are reused first; scratch
         # blocks never enter it
@@ -224,11 +247,30 @@ class PagedKVPool:
         """The sequence-parallel shard a global block id lives on."""
         return block // self.blocks_per_shard
 
+    @property
+    def sharded(self) -> bool:
+        """The pages are per-shard lists (sp > 1 or tp > 1)."""
+        return self.sp > 1 or self.tp > 1
+
     def shard_pages(self):
         """[(pages_k, pages_v)] of each shard, in shard order."""
-        if self.sp == 1:
+        if not self.sharded:
             return [(self.pages_k, self.pages_v)]
         return list(zip(self.pages_k, self.pages_v))
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Clone block ``src`` into ``dst`` in place (a copy-on-write): on
+        the owning shard under SP (both ids must live there), on every
+        shard's heads under TP."""
+        if self.owner(src) != self.owner(dst):
+            raise ValueError(f"blocks {src} and {dst} live on different "
+                             "SP shards")
+        s = self.owner(src)
+        n = self.blocks_per_shard
+        pairs = self.shard_pages()
+        for pk, pv in (pairs if self.tp > 1 else [pairs[s]]):
+            for pages in (pk, pv):
+                copy_blocks(pages, [src - s * n], [dst - s * n])
 
     def _shard_avail(self, shard: int) -> int:
         """Free + evictable blocks of one shard."""
@@ -390,7 +432,7 @@ class PagedKVPool:
         released every block that held KV, and with a prefix cache must
         also ``purge_evictable()`` and clear the index."""
         for pages in (self.pages_k, self.pages_v):
-            for shard in (pages if self.sp > 1 else [pages]):
+            for shard in (pages if self.sharded else [pages]):
                 for t in ((shard.data, shard.scale)
                           if isinstance(shard, QuantPages) else (shard,)):
                     t.zero_()
@@ -404,7 +446,7 @@ class PagedKVPool:
                 return QuantPages(p.data.new_empty(0), p.scale.new_empty(0))
             return p.new_empty(0)
 
-        if self.sp > 1:
+        if self.sharded:
             self.pages_k = [empty(p) for p in self.pages_k]
             self.pages_v = [empty(p) for p in self.pages_v]
         else:
@@ -442,15 +484,19 @@ class PagedKVPool:
         for i, b in enumerate(blocks):
             by_shard.setdefault(self.owner(b), []).append(i)
         for s, idxs in by_shard.items():
-            pk, pv = self.shard_pages()[s]
             local = [blocks[i] - s * self.blocks_per_shard for i in idxs]
-            srcs = ((pk.data, pk.scale, pv.data, pv.scale)
-                    if isinstance(pk, QuantPages) else (pk, pv))
-            idx = torch.tensor(local, dtype=torch.long,
-                               device=srcs[0].device)
-            # (n, L, H, bs, Dh) per leaf: each block's slice contiguous
-            parts = [t.index_select(1, idx).transpose(0, 1).contiguous()
-                     for t in srcs]
+            pairs = self.shard_pages()
+            heads = []        # the leaves of each head shard, in order
+            for pk, pv in (pairs if self.tp > 1 else [pairs[s]]):
+                heads.append((pk.data, pk.scale, pv.data, pv.scale)
+                             if isinstance(pk, QuantPages) else (pk, pv))
+            lead = heads[0][0].device
+            # (n, L, H, bs, Dh) per leaf: each block's slice contiguous,
+            # the TP shards' heads joined on the lead device
+            parts = [torch.cat([t.index_select(1, torch.tensor(
+                local, dtype=torch.long, device=t.device)).transpose(0, 1)
+                .to(lead) for t in leaf], dim=2).contiguous()
+                for leaf in zip(*heads)]
             flat = torch.cat([p.reshape(-1).view(torch.uint8)
                               for p in parts])
             host = flat.cpu().numpy()
@@ -473,13 +519,22 @@ class PagedKVPool:
         so data and scales land together). Callers digest-verify wire
         payloads (``kv_tier.tier_digest``) before they come here."""
         for blk, payload_k, payload_v in items:
+            if self.tp > 1:      # each shard takes its heads of the block
+                hl = self.heads_per_shard
+                for s, (pk, pv) in enumerate(self.shard_pages()):
+                    write_block(pk, int(blk),
+                                _head_slice(payload_k, s * hl, hl))
+                    write_block(pv, int(blk),
+                                _head_slice(payload_v, s * hl, hl))
+                continue
             pk, pv, local = self._locate(int(blk))
             write_block(pk, local, payload_k)
             write_block(pv, local, payload_v)
 
     def host_payload(self, leaves: Sequence[np.ndarray], block: int):
         """Host leaves (``export_blocks``' form) -> the two payloads
-        ``adopt_blocks`` writes, on the device of ``block``'s shard."""
+        ``adopt_blocks`` writes, on the device of ``block``'s shard (the
+        lead shard's under TP, with every head)."""
         dev = self.devices[self.owner(int(block))]
 
         def put(a):
@@ -522,7 +577,7 @@ class PagedKVPool:
         stale tail.
         """
         want_shape = (self.num_layers, self.blocks_per_shard,
-                      self.num_kv_heads, self.block_size, self.head_dim)
+                      self.heads_per_shard, self.block_size, self.head_dim)
         for s, (pk, pv) in enumerate(self.shard_pages()):
             for name, p in (("pages_k", pk), ("pages_v", pv)):
                 data = p.data if isinstance(p, QuantPages) else p
@@ -770,6 +825,15 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     if dtype == torch.bfloat16:
         return BF16_WIRE
     return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _head_slice(payload, start: int, n: int):
+    """Heads ``[start, start + n)`` of a (L, H, bs, Dh) block payload (or a
+    ``QuantPages`` of them, scales with their heads)."""
+    if isinstance(payload, QuantPages):
+        return QuantPages(payload.data[:, start:start + n],
+                          payload.scale[:, start:start + n])
+    return payload[:, start:start + n]
 
 
 def write_block(pages, block: int, payload):

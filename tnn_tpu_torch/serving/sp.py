@@ -123,7 +123,7 @@ class SPBlock:
         h = self.attn.apply_paged(base.ln1(x), pages_k, pages_v,
                                   block_tables, offsets, layer=layer,
                                   q_lens=q_lens)
-        return base._mlp(x + h)
+        return base._mlp(x + h)[0]
 
 
 class SPAttention:

@@ -125,6 +125,21 @@ def load_jax_train_state(state: TrainState, params=None, opt_state=None,
     return state
 
 
+def aux_loss_sum(net_state) -> torch.Tensor:
+    """The sum of every "aux_loss" leaf a layer reported in a model's state
+    (``GPT2.net_state()``, nested dicts): the load-balancing term of MoE
+    layers, which ``make_train_step`` adds into the loss (JAX's
+    ``aux_loss_sum``). A state without such leaves sums to 0."""
+    total = torch.zeros((), dtype=torch.float32)
+    for key, leaf in net_state.items():
+        if isinstance(leaf, dict):
+            leaf = aux_loss_sum(leaf)
+        elif key != "aux_loss":
+            continue
+        total = total.to(leaf.device) + leaf.float()
+    return total
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet; it is queued in "
                               "ROADMAP.md")
@@ -270,7 +285,10 @@ def make_train_step(
     with ``nn.lm_loss.lm_head_loss`` over the model's ``apply_hidden`` and
     ``head_table`` in vocab tiles of that many rows, without the
     (tokens, vocab) logits; it replaces ``loss_fn`` and needs
-    ``compute_accuracy=False``. ``augment`` is not ported yet and raises.
+    ``compute_accuracy=False``. A model with a ``net_state()`` that holds
+    MoE layers' "aux_loss" leaves (``aux_loss_sum``) trains on the loss
+    plus their sum, and its metrics carry the sum as ``aux_loss``.
+    ``augment`` is not ported yet and raises.
     """
     if augment is not None:
         _not_ported("augment (on-device augmentation)")
@@ -290,48 +308,54 @@ def make_train_step(
     grad_accum = int(grad_accum)
     steps_per_call = int(steps_per_call)
 
-    if lm_head_chunk is None:
-        def apply_model(data, generator):
-            return model(data, train=True, generator=generator)
-    else:
-        def apply_model(data, generator):
-            return model.apply_hidden(data, train=True, generator=generator)
+    forward = model if lm_head_chunk is None else model.apply_hidden
+    moe = any(getattr(m, "moe", None) is not None for m in model.modules())
+
+    def apply_model(data, generator):
+        out = forward(data, train=True, generator=generator)
+        # the MoE layers' state of this very forward
+        return out, aux_loss_sum(model.net_state()) if moe else None
 
     def forward_backward(state, data, labels):
         gen = state.generator
         if remat:
-            out = remat_call(lambda d: apply_model(d, gen), policy, gen,
-                             data)
+            out, aux = remat_call(lambda d: apply_model(d, gen), policy, gen,
+                                  data)
         else:
-            out = apply_model(data, gen)
+            out, aux = apply_model(data, gen)
         if lm_head_chunk is not None:
             loss = lm_head_loss(out, model.head_table(), labels,
                                 lm_head_chunk)
         else:
             loss = loss_fn(out, labels)
+        if aux is not None:
+            loss = loss + aux
+            aux = aux.detach()
         loss.backward()
         acc = metrics_lib.accuracy(out.detach(), labels) \
             if compute_accuracy else None
-        return loss.detach(), acc
+        return loss.detach(), acc, aux
 
     def one_step(state: TrainState, data, labels, lr_scale=None):
         for p in state.params.values():
             p.grad = None
         if grad_accum == 1:
-            loss, acc = forward_backward(state, data, labels)
+            loss, acc, aux = forward_backward(state, data, labels)
         else:
             if data.shape[0] % grad_accum:
                 raise ValueError(f"batch size {data.shape[0]} not divisible "
                                  f"by grad_accum {grad_accum}")
             inv = 1.0 / grad_accum
-            loss = acc = 0.0
+            loss = acc = aux = 0.0
             # each microbatch's backward adds into .grad; the sum is scaled
             for d, l in zip(data.chunk(grad_accum), labels.chunk(grad_accum)):
-                mb_loss, mb_acc = forward_backward(state, d, l)
+                mb_loss, mb_acc, mb_aux = forward_backward(state, d, l)
                 loss = loss + mb_loss
                 if compute_accuracy:
                     acc = acc + mb_acc
-            loss, acc = loss * inv, acc * inv
+                if moe:
+                    aux = aux + mb_aux
+            loss, acc, aux = loss * inv, acc * inv, aux * inv
             with torch.no_grad():
                 for p in state.params.values():
                     p.grad.mul_(inv)
@@ -347,6 +371,8 @@ def make_train_step(
         metrics = {"loss": loss, "lr_scale": lr_scale}
         if compute_accuracy:
             metrics["accuracy"] = acc
+        if moe:
+            metrics["aux_loss"] = aux
         return state, metrics
 
     def host_scale():
