@@ -14,8 +14,10 @@ numbers on its own line:
    stated and each call's split-KV count, and its time beside the plain
    version's, a library call's and the card's bound;
 3. flash: the flash-attention forward (K4) and backward (K7) against their
-   plain versions at the training shape and its variants, with their
-   times beside the plain versions', the library's and the bound, and the
+   plain versions at the training shape and its variants and at
+   ``flash_vit``'s (B=128, H=6, S=65, D=64, non-causal, bf16 and f32),
+   with their times at the training shape and at flash_vit's bf16 shape
+   beside the plain versions', the library's and the bound, and the
    backward call's time split by kernel (delta pre-pass, K7, the zero-fill
    of dQ's f32 buffer, the casts, the GQA group sum);
 4. serving: ``InferenceEngine`` serving full-width ``gpt2_small`` (seeded
@@ -260,6 +262,29 @@ numbers on its own line:
    the closeness gate, and K3 on the head at 512 rows against its plain
    version. Its K1 and K3 join the kernels line.
 
+27. training_image: the image stack at the zoo's published widths, seeded
+   weights, every line with the card's name and power limit: (a)
+   ``cli.trainer --model cifar100_wrn16_8 --dataset cifar100`` on synthetic
+   CIFAR-100 binaries (5,120 train and 1,024 test records of class
+   patterns plus noise) with ``configs/digits_wrn16_8.json``'s optimizer
+   and scheduler at B=128 for 2 epochs (steady step time, images/s, peak
+   memory, each epoch's mean loss, which must fall, validation accuracy,
+   the best snapshot), then ``cli.inferencer`` on that snapshot (its
+   accuracy equal to the trainer's best validation, samples/s); (b)
+   ``train_model`` of the same model with ``cifar_train_pipeline().apply``
+   as ``augment`` against none, from the same weights, in the order none,
+   pipeline, pipeline, none (step times, the pipeline's own time and
+   share); (c) ``flash_vit`` (64 x 64 x 3, B=128) through ``train_model``
+   over 200 ``images.npy`` class folders, 6 steps and one held-out batch:
+   K4 = 6 x (train + eval forwards), K7 = 6 x train steps, K5 = K6 = 0, a
+   profiled step whose flash kernels are the tensor-core bodies; then one
+   step with K4 / K7 against the same step with the plain versions, bf16
+   and FP32 (loss and gradient bounds at ``VIT_STEP_TOLERANCE``); (d)
+   ``resnet50_imagenet`` at 224 x 224 x 3, B=64, 3 steps (step time,
+   images/s, peak memory, the stem's and its max pool's asymmetric pads);
+   (e) ``cli.hardware_info``. flash_vit's launches join K4's and K7's on
+   the kernels line.
+
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
 build and those phases alone and prints no kernels line and no result.
@@ -276,6 +301,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core rate
@@ -798,7 +824,7 @@ def flash_check(name, args):
 
 def flash_cases():
     """The flash cases: gpt2_small's training shape (B=8, H=12, S=1024,
-    D=64) and its variants."""
+    D=64) and its variants, and flash_vit's (B=128, H=6, S=65, D=64)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -824,6 +850,12 @@ def flash_cases():
         "train_f32": dict(train, dtype=f32, causal=True),
         "noncausal_f32": dict(train, dtype=f32, causal=False),
         "gqa12_4_f32": dict(train, hkv=4, dtype=f32, causal=True),
+        # flash_vit's attention: 64 patches and the class token, one partial
+        # key tile in bf16 (128 keys) and two in f32 (64 keys)
+        "vit_bf16": dict(b=128, h=6, hkv=6, sq=65, skv=65, d=64, dtype=bf16,
+                         causal=False),
+        "vit_f32": dict(b=128, h=6, hkv=6, sq=65, skv=65, d=64, dtype=f32,
+                        causal=False),
     }
 
 
@@ -857,7 +889,6 @@ def kernel_label(name):
 
 def phase_flash(results):
     import torch
-    import torch.nn.functional as F
 
     from tnn_tpu_torch.ops import flash_attention as fa
 
@@ -870,28 +901,51 @@ def phase_flash(results):
         del args
         torch.cuda.empty_cache()
 
-    # times at the training shape: B=8, H=12, S=1024, D=64, bf16, causal
-    args = flash_case(7, **cases["train_bf16"])
+    # times at the training shape (B=8, H=12, S=1024, D=64, bf16, causal),
+    # the kernels line's, and at flash_vit's (B=128, H=6, S=65, non-causal)
+    for case in ("train_bf16", "vit_bf16"):
+        args = flash_case(7, **cases[case])
+        for name, timed in flash_times(case, args, results["card"]).items():
+            if case == "train_bf16":
+                results[name] = dict(timed, max_abs_err=worst_fwd
+                                     if name.endswith("fwd") else worst_bwd)
+        del args
+        torch.cuda.empty_cache()
+    # comparison launches do not count
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+
+
+def flash_times(case, args, card):
+    """K4's and K7's times on one case's inputs beside the plain versions',
+    SDPA's and the bound, each logged as a ``flash_time`` line; returns
+    them by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from tnn_tpu_torch.ops import flash_attention as fa
+
     q, k, v, do = args["q"], args["k"], args["v"], args["do"]
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    causal = args["causal"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = flash_work(args)
     lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
     runs = {
         "flash_attention_fwd": (fwd_bytes, fwd_ops, {
-            "": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            "": lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
             "plain_": lambda: fa.flash_attention_reference(q, k, v,
-                                                           causal=True),
+                                                           causal=causal),
             "library_": lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)}),
+                q, k, v, is_causal=causal)}),
         "flash_attention_bwd": (bwd_bytes, bwd_ops, {
             "": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                               causal=True),
+                                               causal=causal),
             "plain_": lambda: fa.flash_attention_backward_reference(
-                q, k, v, o, lse, do, causal=True),
+                q, k, v, o, lse, do, causal=causal),
             "library_": lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), do, retain_graph=True)}),
     }
+    out = {}
     for name, (nbytes, ops, fns) in runs.items():
         timed = {}
         for prefix, fn in fns.items():
@@ -904,13 +958,10 @@ def phase_flash(results):
         op_ms = 1e3 * ops / PEAK_OPS["bfloat16"]
         timed.update(bound_ms=max(byte_ms, op_ms), bytes=nbytes, ops=ops,
                      bound_by="bytes" if byte_ms >= op_ms else "operations")
-        log("flash_time", kernel=name, case="train_bf16", **timed)
-        results[name] = dict(timed, max_abs_err=worst_fwd
-                             if name.endswith("fwd") else worst_bwd)
-    # comparison launches do not count
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
-    del args, q, k, v, do, o, lse, lq, lk, lv, lib_out
-    torch.cuda.empty_cache()
+        log("flash_time", kernel=name, case=case, shape=list(q.shape),
+            causal=causal, card=card, **timed)
+        out[name] = timed
+    return out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -1406,7 +1457,7 @@ class StepRecorder:
     """Wraps the trainer's step function: keeps every step's loss (on the
     device), CUDA events around the steady steps ``timed`` and a profiler
     window over the steps ``profiled`` (after the timed ones: the profiler
-    slows the host)."""
+    slows the host; no window where the range is empty)."""
 
     def __init__(self, timed=range(10, 20), profiled=range(22, 24)):
         self.timed, self.profiled = timed, profiled
@@ -1421,7 +1472,7 @@ class StepRecorder:
                 from torch.profiler import ProfilerActivity, profile
 
                 i = len(self.losses)
-                if i == self.profiled.start:
+                if self.profiled and i == self.profiled.start:
                     torch.cuda.synchronize()
                     self.prof = profile(activities=[ProfilerActivity.CPU,
                                                     ProfilerActivity.CUDA])
@@ -1434,7 +1485,7 @@ class StepRecorder:
                 if i == self.timed[-1]:
                     self.events.append(torch.cuda.Event(enable_timing=True))
                     self.events[-1].record()
-                if i == self.profiled[-1]:
+                if self.profiled and i == self.profiled[-1]:
                     torch.cuda.synchronize()
                     self.prof.stop()
                 return state, m
@@ -1767,7 +1818,6 @@ RESUME_FLOOR_REL = 1e-4
 
 
 def phase_training_loop(results):
-    import logging
     import os
     import shutil
     import tempfile
@@ -1781,13 +1831,8 @@ def phase_training_loop(results):
     from tnn_tpu_torch.train import (create_train_state, train_model,
                                      train_state_trees)
     from tnn_tpu_torch.utils.config import TrainingConfig
-    from tnn_tpu_torch.utils.logging import get_logger
 
-    # the loop's progress lines go to stderr: stdout carries the JSON lines
-    for h in logging.getLogger(get_logger("tnn.train")._log.name).handlers:
-        if isinstance(h, logging.StreamHandler) \
-                and not isinstance(h, logging.FileHandler):
-            h.setStream(sys.stderr)
+    train_logs_to_stderr()
     seq, batch = TRAIN_ARGS["seq"], LOOP_CONFIG["batch_size"]
     layers = TRAIN_ARGS["layers"]
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
@@ -2595,7 +2640,9 @@ def phase_flash_split(results):
     from tnn_tpu_torch.ops import flash_attention as fa
 
     bf16 = torch.bfloat16
-    cases = flash_cases()
+    # K7's cases at the training shape (flash_vit's take the fused path)
+    cases = {k: v for k, v in flash_cases().items()
+             if not k.startswith("vit_")}
     cases["llama_s4096_bf16"] = dict(LLAMA_ATTN, sq=SPLIT_SEQ, skv=SPLIT_SEQ,
                                      dtype=bf16, causal=True)
     worst_dq = worst_dkv = 0.0
@@ -7393,6 +7440,411 @@ def phase_serving_moe(results):
     torch.cuda.empty_cache()
 
 
+# -- phase 27 -----------------------------------------------------------------
+
+IMAGE_BATCH = 128
+IMAGE_RECORDS = (5120, 1024)        # synthetic CIFAR-100 train / test records
+IMAGE_EPOCHS = 2
+IMAGE_TIMED, IMAGE_PROFILED = range(10, 30), range(32, 34)   # of 80 steps
+AUG_STEPS = 12                      # per run of (b); the last 8 timed
+VIT_CLASSES, VIT_PER_CLASS = 200, 4  # (c): 800 training images, 6 steps
+VIT_LAYERS = 6
+RESNET50_BATCH, RESNET50_STEPS = 64, 3
+# (c) one flash_vit step with K4 / K7 against the same step with their plain
+# versions, from the same weights and batch: the loss within `loss`
+# relative and the gradient (every parameter's, concatenated) within `grad`
+# relative L2. FP32 differs in summation order only; bf16 also in where the
+# probabilities and the output are rounded (2^-8 relative each), through 6
+# layers.
+VIT_STEP_TOLERANCE = {"float32": dict(loss=1e-5, grad=1e-4),
+                      "bfloat16": dict(loss=5e-3, grad=5e-2)}
+
+
+def train_logs_to_stderr():
+    """Send the training loop's progress lines to stderr: stdout carries
+    the JSON lines."""
+    import logging
+
+    from tnn_tpu_torch.utils.logging import get_logger
+
+    for h in logging.getLogger(get_logger("tnn.train")._log.name).handlers:
+        if isinstance(h, logging.StreamHandler) \
+                and not isinstance(h, logging.FileHandler):
+            h.setStream(sys.stderr)
+
+
+def cifar100_files(path, classes=100, seed=0):
+    """CIFAR-100 ``train.bin`` and ``test.bin`` (coarse byte, fine byte,
+    3072 CHW pixel bytes a record) of learnable synthetic images: each
+    class a fixed random pattern, each record 0.6 of its class's pattern
+    plus 0.4 of noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    patterns = rng.integers(0, 256, (classes, 3072))
+    for name, n in zip(("train.bin", "test.bin"), IMAGE_RECORDS):
+        fine = rng.integers(0, classes, n)
+        pixels = 0.6 * patterns[fine] + 0.4 * rng.integers(0, 256, (n, 3072))
+        records = np.concatenate(
+            [(fine // 5)[:, None], fine[:, None], pixels], axis=1)
+        records.astype(np.uint8).tofile(path / name)
+
+
+def image_folders(path, classes, per_class, size, seed):
+    """``<path>/class{c}/images.npy`` of uint8 (per_class, H, W, 3)
+    images, each class a pattern plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        d = path / f"class{c:03d}"
+        d.mkdir(parents=True)
+        pattern = rng.integers(0, 256, size + (3,))
+        noise = rng.integers(0, 256, (per_class,) + size + (3,))
+        np.save(d / "images.npy", (0.6 * pattern + 0.4 * noise)
+                .astype(np.uint8))
+
+
+def reset_flash_launches():
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd,
+              fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        f.launches = 0
+
+
+def image_trainer_cli(tmp, card):
+    """(a): ``cli.trainer`` on full-width cifar100_wrn16_8 over the
+    synthetic CIFAR-100 files, then ``cli.inferencer`` on its best
+    snapshot."""
+    import contextlib
+    import json as json_lib
+
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.cli import inferencer, trainer
+    from tnn_tpu_torch.train import loop
+
+    data = tmp / "cifar100"
+    data.mkdir()
+    cifar100_files(data)
+    with open(Path(__file__).resolve().parent / "configs"
+              / "digits_wrn16_8.json") as f:
+        ref = json_lib.load(f)
+    cfg_path = tmp / "wrn.json"
+    cfg_path.write_text(json_lib.dumps({
+        "optimizer": ref["optimizer"], "scheduler": ref["scheduler"],
+        "progress_print_interval": 40}))
+    steps = IMAGE_RECORDS[0] // IMAGE_BATCH
+    rec = StepRecorder(timed=IMAGE_TIMED, profiled=IMAGE_PROFILED)
+    real = loop.make_train_step
+    loop.make_train_step = rec.wrap(real)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            state, history = trainer.main([
+                "--config", str(cfg_path), "--model", "cifar100_wrn16_8",
+                "--dataset", "cifar100", "--data-path", str(data),
+                "--epochs", str(IMAGE_EPOCHS), "--batch-size",
+                str(IMAGE_BATCH), "--snapshot-dir", str(tmp / "snaps")])
+        wall = time.perf_counter() - t0
+    finally:
+        loop.make_train_step = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in rec.losses]
+    epoch_loss = [float(np.mean(losses[i * steps:(i + 1) * steps]))
+                  for i in range(IMAGE_EPOCHS)]
+    val = [h["val_accuracy"] for h in history]
+    step_ms = rec.step_ms()
+    kernels = rec.device_ms()
+    busy = sum(kernels.values())
+    best = tmp / "snaps" / "best" / "state.tnn"
+    ok = (len(losses) == steps * IMAGE_EPOCHS
+          and all(math.isfinite(x) for x in losses)
+          and all(b < a for a, b in zip(epoch_loss, epoch_loss[1:]))
+          and best.exists() and state.step == steps * IMAGE_EPOCHS)
+    log("training_image_trainer", card=card, model="cifar100_wrn16_8",
+        batch=IMAGE_BATCH, records=list(IMAGE_RECORDS), epochs=IMAGE_EPOCHS,
+        optimizer=ref["optimizer"], scheduler=ref["scheduler"],
+        steps_timed=len(rec.timed), step_ms=step_ms,
+        images_per_s=IMAGE_BATCH / step_ms * 1e3, peak_mem_gb=peak,
+        device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
+        top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:8],
+        epoch_mean_loss=epoch_loss,
+        epoch_last_loss=[h["train_loss"] for h in history],
+        val_accuracy=val, val_loss=[h["val_loss"] for h in history],
+        snapshot=str(best.relative_to(tmp)), wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError(f"image trainer: {len(losses)} steps, epoch "
+                             f"losses {epoch_loss}, snapshot {best.exists()}")
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = inferencer.main(["--model-file", str(best), "--dataset",
+                               "cifar100", "--data-path", str(data),
+                               "--batch-size", str(IMAGE_BATCH)])
+    # the best snapshot scores the test split as the trainer's validation
+    # did, up to a prediction that cuDNN's algorithms round the other way
+    ok = (out["samples"] == IMAGE_RECORDS[1]
+          and abs(out["accuracy"] - max(val)) <= 2 / IMAGE_RECORDS[1])
+    log("training_image_inferencer", card=card, **out,
+        trainer_best_val_accuracy=max(val), ok=ok)
+    if not ok:
+        raise AssertionError(f"inferencer on the best snapshot: {out}, "
+                             f"trainer's best {max(val)}")
+    del state
+
+
+def image_augment_ab(tmp, card):
+    """(b): ``train_model`` on cifar100_wrn16_8 with the CIFAR pipeline
+    as ``augment`` against none, from the same weights, in the order none,
+    pipeline, pipeline, none."""
+    import torch
+
+    from tnn_tpu_torch.data.augmentation import cifar_train_pipeline
+    from tnn_tpu_torch.data.datasets import CIFAR100DataLoader
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.train import loop, train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    model = zoo.create("cifar100_wrn16_8", device="cuda", seed=0)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    loader = CIFAR100DataLoader(str(tmp / "cifar100"), train=True)
+    pipe = cifar_train_pipeline()
+    real = loop.make_train_step
+    runs = {"none": [], "cifar_pipeline": []}
+    for i, label in enumerate(("none", "cifar_pipeline", "cifar_pipeline",
+                               "none")):
+        model.load_state_dict(start)
+        rec = StepRecorder(timed=range(4, AUG_STEPS), profiled=range(0))
+        cfg = TrainingConfig().update({
+            "epochs": 1, "batch_size": IMAGE_BATCH, "max_steps": AUG_STEPS,
+            "optimizer": {"type": "sgd", "lr": 0.05, "momentum": 0.9},
+            "snapshot_dir": str(tmp / f"aug{i}"), "seed": i})
+        loop.make_train_step = rec.wrap(real)
+        try:
+            train_model(model, cfg, loader, augment=pipe.apply
+                        if label == "cifar_pipeline" else None)
+        finally:
+            loop.make_train_step = real
+        if not all(math.isfinite(float(x)) for x in rec.losses):
+            raise AssertionError(f"augment A/B {label}: loss not finite")
+        runs[label].append(rec.step_ms())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = torch.rand((IMAGE_BATCH, 32, 32, 3), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    device, events, _ = time_ms(lambda: pipe.apply(gen, batch), iters=20,
+                                warmup=3)
+    none_ms = sum(runs["none"]) / 2
+    aug_ms = sum(runs["cifar_pipeline"]) / 2
+    pipe_ms = events if device is None else device
+    log("training_image_augment", card=card, model="cifar100_wrn16_8",
+        batch=IMAGE_BATCH, order="none, pipeline, pipeline, none",
+        step_ms=runs, none_step_ms=none_ms, pipeline_step_ms=aug_ms,
+        step_difference_share=(aug_ms - none_ms) / aug_ms,
+        pipeline_alone_ms=pipe_ms, pipeline_alone_events_ms=events,
+        pipeline_share=pipe_ms / aug_ms, ops=pipe.get_config())
+    del model, start
+
+
+def vit_step_vs_plain(policy):
+    """One flash_vit forward and backward with K4 / K7, then the same with
+    the plain versions swapped into the autograd Function, from the same
+    weights and batch."""
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.nn import losses
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    model = zoo.create("flash_vit", device="cuda", seed=0, policy=policy)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand((IMAGE_BATCH, 64, 64, 3), generator=gen, device="cuda")
+    y = torch.randint(0, VIT_CLASSES, (IMAGE_BATCH,), generator=gen,
+                      device="cuda")
+    ce = losses.get("softmax_cross_entropy")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = ce(model(x.to(policy.io_dtype), train=True), y)
+        loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.double().flatten()
+                                       for p in model.parameters()])
+
+    loss_k, g_k = grads()
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_reference
+    fa.flash_attention_bwd = fa.flash_attention_backward_reference
+    try:
+        loss_p, g_p = grads()
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+    tol = VIT_STEP_TOLERANCE[policy.compute]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = float((g_k - g_p).norm() / g_p.norm())
+    ok = math.isfinite(loss_k) and rel <= tol["loss"] \
+        and grad_rel <= tol["grad"]
+    return dict(policy=policy.compute, loss_kernel=loss_k,
+                loss_plain=loss_p, loss_rel_diff=rel, grad_rel_l2=grad_rel,
+                tolerance=tol, ok=ok)
+
+
+def image_flash_vit(tmp, card, results):
+    """(c): flash_vit through ``train_model`` over image folders, its
+    launches and profile, then one step with the kernels against the plain
+    versions under bf16 and FP32."""
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.data.datasets import ImageFolderDataLoader
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import loop, train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    image_folders(tmp / "vit_train", VIT_CLASSES, VIT_PER_CLASS, (64, 64),
+                  seed=1)
+    image_folders(tmp / "vit_val", VIT_CLASSES, 1, (64, 64), seed=2)
+    train = ImageFolderDataLoader(str(tmp / "vit_train"), (64, 64))
+    val = ImageFolderDataLoader(str(tmp / "vit_val"), (64, 64))
+    model = zoo.create("flash_vit", device="cuda", seed=0)
+    cfg = TrainingConfig().update({
+        "epochs": 1, "batch_size": IMAGE_BATCH,
+        "optimizer": {"type": "adamw", "lr": 1e-3, "weight_decay": 0.05},
+        "snapshot_dir": str(tmp / "vit_snaps")})
+    steps = len(train) // IMAGE_BATCH
+    evals = len(val) // IMAGE_BATCH
+    rec = StepRecorder(timed=range(1, 4), profiled=range(4, 6))
+    real = loop.make_train_step
+    loop.make_train_step = rec.wrap(real)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    try:
+        _, history = train_model(model, cfg, train, val)
+    finally:
+        loop.make_train_step = real
+    k4, k7 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    split = (fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = (VIT_LAYERS * (steps + evals), VIT_LAYERS * steps)
+    labels = rec.kernel_labels()
+    flash = [n for n in labels if n.startswith("flash_")]
+    bodies = {"K4": any(n.split("<")[0] == "flash_fwd_wgmma_kernel"
+                        for n in flash),
+              "K7": any(n.split("<")[0] == "flash_bwd_wgmma_kernel"
+                        for n in flash)}
+    simt = [n for n in flash if n.split("<")[0] in (
+        "flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_kernel")]
+    losses = [float(x) for x in rec.losses]
+    kernels = rec.device_ms()
+    step_ms = rec.step_ms()
+    busy = sum(kernels.values())
+    ok = ((k4, k7) == want and split == (0, 0) and all(bodies.values())
+          and not simt and len(losses) == steps
+          and all(math.isfinite(x) for x in losses)
+          and math.isfinite(history[0]["val_loss"]))
+    log("training_image_vit", card=card, model="flash_vit",
+        input=[64, 64, 3], batch=IMAGE_BATCH, seq=65, heads=6, head_dim=64,
+        steps=steps, eval_steps=evals, losses=losses,
+        val_loss=history[0]["val_loss"], k4_launches=k4, k7_launches=k7,
+        expected_launches=list(want), split_launches=list(split),
+        step_ms=step_ms, images_per_s=IMAGE_BATCH / step_ms * 1e3,
+        peak_mem_gb=peak, device_busy_ms=busy, idle_share=1 - busy / step_ms,
+        flash_bodies=flash, tensor_core_bodies_ran=bodies,
+        flash_kernels_ms={n: t for n, t in kernels.items() if "flash" in n},
+        top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:8],
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"flash_vit: launches {(k4, k7)} vs {want}, "
+                             f"K5/K6 {split}, bodies {bodies}, SIMT {simt}")
+    results["flash_launches"]["flash_attention_fwd"] += k4
+    results["flash_launches"]["flash_attention_bwd"] += k7
+    del model
+    for policy in (dt.MIXED_BF16, dt.FP32):
+        fields = vit_step_vs_plain(policy)
+        log("training_image_vit_vs_plain", card=card, **fields)
+        if not fields["ok"]:
+            raise AssertionError(f"flash_vit step kernel vs plain: {fields}")
+        torch.cuda.empty_cache()
+
+
+def image_resnet50(card):
+    """(d): resnet50_imagenet at 224 x 224 x 3, three train steps."""
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.nn.optimizers import SGD
+    from tnn_tpu_torch.train import create_train_state, make_train_step
+
+    model = zoo.create("resnet50_imagenet", device="cuda", seed=0)
+    opt = SGD(lr=0.025, momentum=0.9, weight_decay=1e-4)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((RESNET50_BATCH, 224, 224, 3), generator=gen,
+                   device="cuda").to(torch.bfloat16)
+    y = torch.randint(0, 1000, (RESNET50_BATCH,), generator=gen,
+                      device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(RESNET50_STEPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, m = step(state, x, y)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+        losses.append(float(m["loss"]))
+    steady = sum(times[1:]) / len(times[1:])
+    stem, pool = model.layers[0], model.layers[3]
+    ok = all(math.isfinite(x) for x in losses)
+    log("training_image_resnet50", card=card, model="resnet50_imagenet",
+        batch=RESNET50_BATCH, input=[224, 224, 3], step_ms=times,
+        steady_step_ms=steady, images_per_s=RESNET50_BATCH / steady * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        losses=losses, stem_pads=stem.pads(224, 224),
+        stem_pool_pads=pool.pads(112, 112), ok=ok)
+    if not ok:
+        raise AssertionError(f"resnet50_imagenet: losses {losses}")
+    del model, state, step
+
+
+def phase_training_image(results):
+    import contextlib
+    import io
+    import json as json_lib
+    import tempfile
+
+    import torch
+
+    from tnn_tpu_torch.cli import hardware_info
+
+    train_logs_to_stderr()
+    card = results["card"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        image_trainer_cli(tmp, card)
+        torch.cuda.empty_cache()
+        image_augment_ab(tmp, card)
+        torch.cuda.empty_cache()
+        image_flash_vit(tmp, card, results)
+        torch.cuda.empty_cache()
+    image_resnet50(card)
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        hardware_info.main(["--json"])
+    info = json_lib.loads(out.getvalue())
+    ok = bool(info["devices"]) and all(d["sm_count"] > 0 and d["power_limit"]
+                                       for d in info["devices"])
+    log("hardware_info", card=card, **info, ok=ok)
+    if not ok:
+        raise AssertionError(f"hardware_info: {info['devices']}")
+
+
 def main() -> int:
     import torch
 
@@ -7416,7 +7868,7 @@ def main() -> int:
               phase_serving_prefix_spec, phase_serving_overlap,
               phase_serving_whole_prompt, phase_attention_int8_rope,
               phase_serving_supervised, phase_serving_fleet,
-              phase_serving_tp, phase_serving_moe)
+              phase_serving_tp, phase_serving_moe, phase_training_image)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -7433,6 +7885,7 @@ def main() -> int:
         "sp_launches": {"stats": 0, "int8_stats": 0}, "fused_launches": 0,
         "flash_launches": {"flash_attention_fwd": 0,
                            "flash_attention_bwd": 0}}
+    results["card"] = info["nvidia_smi"]
     build_kernels()
     for phase in phases:
         t0 = time.perf_counter()

@@ -91,3 +91,37 @@ def test_compile_cache_sets_the_build_directory(tmp_path):
         compile_cache.disable()
     assert compile_cache.active_dir() is None
     assert runtime.build_dir() != tmp_path / "kernels"
+
+
+def test_private_counters_are_the_threads_own():
+    """Inside ``private_counters`` a thread's kernels take arrival-counter
+    buffers of their own (a pdecode graph's warm-up and capture run beside
+    other replicas' launches), while every other thread, and this one
+    after the block, keeps the shared buffer."""
+    shared = runtime.zeroed_counters("test_kernel", "cpu", 8)
+    inside, other = {}, {}
+    entered, checked = threading.Event(), threading.Event()
+
+    def capture():
+        with runtime.private_counters() as own:
+            inside["t"] = runtime.zeroed_counters("test_kernel", "cpu", 8)
+            inside["again"] = runtime.zeroed_counters("test_kernel", "cpu", 8)
+            inside["own"] = dict(own)
+            entered.set()
+            assert checked.wait(10)
+
+    def replica():
+        assert entered.wait(10)
+        other["t"] = runtime.zeroed_counters("test_kernel", "cpu", 8)
+        checked.set()
+
+    threads = [threading.Thread(target=f) for f in (capture, replica)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert inside["t"] is inside["again"] and inside["t"] is not shared
+    assert inside["own"] == {("test_kernel", "cpu"): inside["t"]}
+    assert other["t"] is shared
+    assert runtime.zeroed_counters("test_kernel", "cpu", 8) is shared

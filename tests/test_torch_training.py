@@ -421,15 +421,30 @@ def test_grad_accum_and_steps_per_call():
 
 
 @pytest.mark.parametrize("kw", [dict(remat="typo"), dict(lm_head_chunk=64),
-                                dict(augment=lambda d: d)])
+                                dict(augment=True)])
 def test_unported_step_options_raise(kw):
-    """The step's refusals: ``augment`` is not ported (ROADMAP.md); a remat
-    name that is no policy, and ``lm_head_chunk`` with accuracy on, raise
-    ValueError as in the JAX package."""
+    """The step's refusals: a remat name that is no policy, and
+    ``lm_head_chunk`` with accuracy on, raise ValueError as in the JAX
+    package. ``augment`` is ported and raises no more: the step runs it on
+    each call's batch, once, with the state's generator."""
     m = GPT2(**TINY, device="cpu", seed=None)
-    err, match = (NotImplementedError, "ROADMAP") if "augment" in kw else \
-        (ValueError, "unknown remat policy|compute_accuracy=False")
-    with pytest.raises(err, match=match):
+    if "augment" in kw:
+        seen = []
+
+        def augment(generator, data):
+            seen.append(generator)
+            return data
+
+        opt = optimizers.AdamW()
+        state = create_train_state(m, opt)
+        step = make_train_step(m, opt, augment=augment)
+        ids = torch.randint(0, TINY["vocab_size"], (2, 8))
+        state, out = step(state, ids, ids)
+        assert seen == [state.generator] and state.step == 1
+        assert np.isfinite(float(out["loss"]))
+        return
+    with pytest.raises(ValueError,
+                       match="unknown remat policy|compute_accuracy=False"):
         make_train_step(m, optimizers.AdamW(), **kw)
 
 

@@ -6,9 +6,13 @@ JSON header ``{"tensors": [{"key", "dtype", "shape", "offset", "nbytes"},
 ...], "meta": {...}}``, then each tensor's raw C-order bytes back to back.
 Keys are tree paths ("params/h0/attn/qkv_kernel"), dict keys in sorted
 order as JAX flattens them. ``save_model`` stores the model's config
-(``get_config()``) as ``meta["model_config"]``; ``load_model`` rebuilds
-the model from it (``core.module.module_from_config``) and copies the
-file's weights in through ``load_jax_params``.
+(``get_config()``) as ``meta["model_config"]``, and a model with state
+(BatchNorm's running statistics) its ``net_state`` section;
+``load_model`` rebuilds the model from the config
+(``core.module.module_from_config``; an image model also needs the
+``input_shape`` it was sized for, as the JAX package's ``load_model``
+does) and copies the file's weights in through ``load_jax_params`` and
+its ``net_state``, where the file has one, through ``load_jax_state``.
 
 Tensors come back as CPU ``torch`` tensors. A ``bfloat16`` entry is read
 as int16 and reinterpreted as ``torch.bfloat16``: no ``ml_dtypes``
@@ -20,10 +24,10 @@ directory layout: ``<dir>/step_<N>/state.tnn`` and then ``meta.json``,
 whose presence marks a complete snapshot; ``<dir>/best/`` for the best
 validation; the newest ``keep`` step directories kept. ``state.tnn``
 holds ``params`` and ``opt_state`` under the JAX tree paths (the mapping
-``save_model`` uses), ``step`` as a 0-d int32 and ``rng``, the port's
-generator state (uint8); ``meta.json`` the step, the model config, the
-scheduler's config and state, the loader's ``state_dict`` and the
-caller's extras. Either package's directory restores into the port: a
+``save_model`` uses), ``net_state`` where the model has state buffers,
+``step`` as a 0-d int32 and ``rng``, the port's generator state (uint8);
+``meta.json`` the step, the model config, the scheduler's config and
+state, the loader's ``state_dict`` and the caller's extras. Either package's directory restores into the port: a
 JAX-written ``rng`` (a PRNG key, two uint32 words k0, k1) seeds the
 port's generator with ``manual_seed((k0 << 32) | k1)``, since a JAX key
 cannot set a ``torch.Generator``'s state; params, moments and step load
@@ -191,19 +195,32 @@ def _sections(flat: Dict[str, torch.Tensor], templates: Dict[str, Any]) \
 
 
 def save_model(path: str, model) -> None:
-    """One-file snapshot of a port ``GPT2`` or ``Llama``: its config and
-    its parameters as the JAX package's tree."""
-    save_tensors(path, {"params": model.jax_param_tree()},
-                 meta={"model_config": model.get_config()})
+    """One-file snapshot of a port model: its config, its parameters as
+    the JAX package's tree and, where it has state, its ``net_state``."""
+    trees = {"params": model.jax_param_tree()}
+    net_state = model.jax_state_tree()
+    if net_state:
+        trees["net_state"] = net_state
+    save_tensors(path, trees, meta={"model_config": model.get_config()})
 
 
-def load_model(path: str, device="cuda"):
-    """The model a ``.tnn`` file describes, with the file's weights, on
-    ``device`` ("cuda" by default; raises without a card)."""
+def load_model(path: str, device="cuda", input_shape=None):
+    """The model a ``.tnn`` file (``save_model``'s, or a ``Checkpoint``'s
+    ``state.tnn``) describes, with the file's weights and state, on
+    ``device`` ("cuda" by default; raises without a card). An image
+    model is sized for per-sample inputs of ``input_shape``."""
     flat, meta = read_tensor_file(path)
-    model = module_from_config(meta["model_config"], device=device)
-    template = _nest({"/".join(p): w for p, w in model.jax_param_paths()})
-    model.load_jax_params(_sections(flat, {"params": template})["params"])
+    model = module_from_config(meta["model_config"], device=device,
+                               input_shape=input_shape)
+    templates = {"params": _nest({"/".join(p): w
+                                  for p, w in model.jax_param_paths()})}
+    state = {"/".join(p): b for p, b in model.jax_state_paths()}
+    if state and any(k.startswith("net_state/") for k in flat):
+        templates["net_state"] = _nest(state)
+    loaded = _sections(flat, templates)
+    model.load_jax_params(loaded["params"])
+    if "net_state" in loaded:
+        model.load_jax_state(loaded["net_state"])
     return model
 
 
@@ -332,10 +349,12 @@ class Checkpoint:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         flat, meta = read_tensor_file(os.path.join(path, "state.tnn"))
         want = train_state_trees(train_state)
-        loaded = _sections(flat, {"params": want["params"],
-                                  "opt_state": want["opt_state"]})
+        loaded = _sections(flat, {k: want[k] for k in
+                                  ("params", "opt_state", "net_state")
+                                  if k in want})
         load_jax_train_state(train_state, params=loaded["params"],
                              opt_state=loaded["opt_state"],
+                             net_state=loaded.get("net_state"),
                              step=flat["step"])
         rng = flat["rng"]
         if rng.dtype == torch.uint8:

@@ -96,20 +96,8 @@ class GPT2(JaxParamModule):
         yield ("ln_f", "scale"), self.ln_f, "scale"
         yield ("ln_f", "bias"), self.ln_f, "bias"
         for i, blk in enumerate(self.blocks):
-            h = f"h{i}"
-            for ln in ("ln1", "ln2"):
-                yield (h, ln, "scale"), getattr(blk, ln), "scale"
-                yield (h, ln, "bias"), getattr(blk, ln), "bias"
-            for name in ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias"):
-                yield (h, "attn", name), blk.attn, name
-            if blk.moe is not None:
-                yield (h, "moe", "gate", "kernel"), blk.moe, "gate_kernel"
-                for name in ("w_in", "b_in", "w_out", "b_out"):
-                    yield (h, "moe", name), blk.moe, name
-                continue
-            for dense in ("fc", "proj"):
-                yield (h, dense, "kernel"), getattr(blk, dense), "kernel"
-                yield (h, dense, "bias"), getattr(blk, dense), "bias"
+            for path, module, name in blk.param_slots():
+                yield (f"h{i}",) + path, module, name
         if self.head is not None:
             yield ("head", "kernel"), self.head, "kernel"
 

@@ -1,9 +1,13 @@
 """Models whose weights map to the JAX package's parameter tree.
 
-``JaxParamModule`` is the base of the port's ``GPT2`` and ``Llama``: a
-subclass lists every weight as (JAX tree path, owning module, attribute)
-in ``_param_slots``, and inherits from it the tree's round trip
-(``load_jax_params``, ``jax_param_tree``) and the seeded initialisation.
+``JaxParamModule`` is the base of the port's ``GPT2`` and ``Llama`` and of
+the image stack's layers (``core.module.Module``): a subclass lists every
+weight as (JAX tree path, owning module, attribute) in ``_param_slots``,
+and inherits from it the tree's round trip (``load_jax_params``,
+``jax_param_tree``) and the seeded initialisation. A model with mutable
+state (BatchNorm's running statistics) lists its buffers the same way in
+``_state_slots``, in the layout of the JAX package's ``net_state``
+(``load_jax_state``, ``jax_state_tree``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,10 @@ class JaxParamModule(nn.Module):
                                              str]]:
         raise NotImplementedError
 
+    def _state_slots(self) -> Iterator[Tuple[Tuple[str, ...], nn.Module,
+                                             str]]:
+        return iter(())
+
     def jax_param_paths(self) -> Iterator[Tuple[Tuple[str, ...], Any]]:
         """Every weight (a parameter, or an ``Int8Weight`` where the model
         was quantized) beside its path in the JAX parameter tree."""
@@ -45,9 +53,7 @@ class JaxParamModule(nn.Module):
         parameter by an ``Int8Weight`` of the same bytes.
         """
         for path, module, name in self._param_slots():
-            node = tree
-            for key in path:
-                node = node[key]
+            node = _leaf(tree, path)
             param = getattr(module, name)
             if all(hasattr(node, a) for a in ("q", "scale", "n", "k")):
                 dev = param.device
@@ -68,7 +74,8 @@ class JaxParamModule(nn.Module):
             value = node if isinstance(node, torch.Tensor) else \
                 torch.tensor(np.asarray(node, dtype=np.float32))
             if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{'.'.join(path)}: shape {tuple(value.shape)}"
+                raise ValueError(f"{'.'.join(path)}: shape "
+                                 f"{tuple(value.shape)}"
                                  f" != {tuple(param.shape)}")
             param.copy_(value)
         self._drop_derived()
@@ -78,14 +85,34 @@ class JaxParamModule(nn.Module):
         """The parameters as the JAX package's nested-dict tree of float32
         numpy arrays (the inverse of ``load_jax_params``); an
         ``Int8Weight`` leaf stays as it is."""
-        tree: Dict = {}
-        for path, param in self.jax_param_paths():
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = param if isinstance(param, Int8Weight) else \
-                param.detach().float().cpu().numpy()
-        return tree
+        return _nest((path, param if isinstance(param, Int8Weight)
+                      else param.detach().float().cpu().numpy())
+                     for path, param in self.jax_param_paths())
+
+    def jax_state_paths(self) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+        """Every state buffer beside its path in the JAX ``net_state``."""
+        for path, module, name in self._state_slots():
+            yield path, getattr(module, name)
+
+    @torch.no_grad()
+    def load_jax_state(self, tree: Dict) -> "JaxParamModule":
+        """Copy the JAX package's ``net_state`` tree (numpy arrays or
+        tensors) into the model's state buffers."""
+        for path, buf in self.jax_state_paths():
+            value = _leaf(tree, path)
+            value = value if isinstance(value, torch.Tensor) else \
+                torch.tensor(np.asarray(value, dtype=np.float32))
+            if tuple(value.shape) != tuple(buf.shape):
+                raise ValueError(f"{'.'.join(path)}: shape "
+                                 f"{tuple(value.shape)} != {tuple(buf.shape)}")
+            buf.copy_(value)
+        return self
+
+    def jax_state_tree(self) -> Dict:
+        """The state buffers as the JAX ``net_state`` tree of float32 numpy
+        arrays (empty for a model without state)."""
+        return _nest((path, buf.detach().float().cpu().numpy())
+                     for path, buf in self.jax_state_paths())
 
     @torch.no_grad()
     def init_params(self, seed: int) -> "JaxParamModule":
@@ -118,3 +145,20 @@ class JaxParamModule(nn.Module):
         """Forget what was built from the old weights: the fused decode
         path's stacked copies (``models.fused_decode.decode_stacks``)."""
         self.__dict__.pop("_fused_stacks", None)
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _nest(items) -> Dict:
+    """{path tuple: leaf} pairs as nested dicts."""
+    tree: Dict = {}
+    for path, leaf in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree

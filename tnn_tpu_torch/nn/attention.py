@@ -175,6 +175,12 @@ class MultiHeadAttention(nn.Module):
         # scatter_kv_rows): set by a block whose rows interact (MoE)
         self.last_writer_scatter = False
 
+    def param_initializers(self):
+        """The JAX layer's initializers (seeded ``Module.init_params``);
+        the biases start at zero."""
+        return {"qkv_kernel": "xavier_uniform",
+                "out_kernel": "xavier_uniform"}
+
     def _project_qkv(self, x):
         """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
         x = self.policy.cast_in(x)

@@ -1,4 +1,5 @@
-"""Token and learned positional embeddings (``tnn_tpu.nn.embedding``)."""
+"""Token and learned positional embeddings and the class token
+(``tnn_tpu.nn.embedding``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,9 @@ import torch
 from torch import nn
 
 from ..core import dtypes as dt
+from ..core.module import Module, register_module
 from ..ops.quant_matmul import Int8Weight, qmatmul
+from . import initializers
 
 
 class Embedding(nn.Module):
@@ -45,18 +48,40 @@ class Embedding(nn.Module):
         return qmatmul(x, table.t())
 
 
-class PositionalEmbedding(nn.Module):
-    """Learned positional embedding added to (N, S, D) activations."""
+@register_module("positional_embedding")
+class PositionalEmbedding(Module):
+    """Learned positional embedding added to (N, S, D) activations.
 
-    def __init__(self, max_len: int, dim: int, *, policy=None,
-                 device="cuda"):
-        super().__init__()
-        self.policy = policy or dt.default_policy()
-        self.pos = nn.Parameter(
-            torch.zeros(max_len, dim, dtype=self.policy.param_dtype,
-                        device=device))
+    With ``max_len`` and ``dim`` the (max_len, dim) table is made at once
+    on ``device``; otherwise ``build`` makes it, ``max_len=None`` sizing it
+    from the input's sequence length (a ViT's patches and class token).
+    """
 
-    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+    _params = ("pos",)
+
+    def __init__(self, max_len: Optional[int] = None,
+                 dim: Optional[int] = None, *, kernel_init="normal",
+                 name=None, policy=None, device="cuda"):
+        super().__init__(name=name, policy=policy)
+        self.max_len = None if max_len is None else int(max_len)
+        self.kernel_init = kernel_init
+        self.pos = None
+        if self.max_len is not None and dim is not None:
+            self.build((1, self.max_len, int(dim)), device)
+
+    def _build(self, input_shape, device):
+        rows = self.max_len if self.max_len is not None else input_shape[-2]
+        self.pos = self._new_param((rows, input_shape[-1]), device)
+
+    def param_initializers(self):
+        return {"pos": initializers.name_of(self.kernel_init)}
+
+    def _config(self):
+        return {"max_len": self.max_len,
+                "kernel_init": initializers.name_of(self.kernel_init)}
+
+    def forward(self, x: torch.Tensor, offset=0, *, train: bool = False,
+                generator=None) -> torch.Tensor:
         """``offset`` is an int or a (B,) tensor of per-row first positions.
 
         Positions past the table clamp to its last row. Only padding tokens
@@ -72,3 +97,22 @@ class PositionalEmbedding(nn.Module):
             idx = int(offset) + steps
         idx = idx.clamp_max(self.pos.shape[0] - 1)
         return x + self.policy.cast_param(self.pos[idx])
+
+
+@register_module("class_token")
+class ClassToken(Module):
+    """Prepend a learned [CLS] token: (N, S, D) -> (N, S + 1, D). The
+    (1, 1, D) token starts at zero, as in the JAX package."""
+
+    _params = ("token",)
+
+    def _build(self, input_shape, device):
+        self.token = self._new_param((1, 1, input_shape[-1]), device)
+
+    def forward(self, x, *, train=False, generator=None):
+        tok = self.policy.cast_param(self.token).to(x.dtype)
+        return torch.cat([tok.expand(x.shape[0], 1, x.shape[-1]), x], dim=1)
+
+    def output_shape(self, input_shape):
+        n, s, d = input_shape
+        return (n, s + 1, d)

@@ -1,5 +1,7 @@
-"""Pre-LN GPT decoder block (``tnn_tpu.nn.transformer.GPTBlock``), with a
-dense MLP or a mixture-of-experts FFN (``moe_experts > 0``)."""
+"""Pre-LN transformer blocks (``tnn_tpu.nn.transformer``): the GPT
+decoder block, with a dense MLP or a mixture-of-experts FFN
+(``moe_experts > 0``), and the ViT encoder block, the same block without
+the causal mask."""
 from __future__ import annotations
 
 from typing import Optional
@@ -36,7 +38,7 @@ class GPTBlock(nn.Module):
                  num_kv_heads: Optional[int] = None, backend: str = "xla",
                  dropout: float = 0.0, kv_cache_dtype: Optional[str] = None,
                  moe_experts: int = 0, moe_top_k: int = 2,
-                 policy=None, device="cuda"):
+                 causal: bool = True, policy=None, device="cuda"):
         super().__init__()
         p = policy or dt.default_policy()
         self.mlp_ratio = int(mlp_ratio)
@@ -46,7 +48,8 @@ class GPTBlock(nn.Module):
         self.ln1 = LayerNorm(d_model, policy=p, device=device)
         self.attn = MultiHeadAttention(d_model, num_heads,
                                        num_kv_heads=num_kv_heads,
-                                       backend=backend, dropout=dropout,
+                                       causal=causal, backend=backend,
+                                       dropout=dropout,
                                        kv_cache_dtype=kv_cache_dtype,
                                        policy=p, device=device)
         self.drop = Dropout(dropout)
@@ -65,6 +68,23 @@ class GPTBlock(nn.Module):
                             activation="gelu", policy=p, device=device)
             self.proj = Dense(mlp_ratio * d_model, d_model, policy=p,
                               device=device)
+
+    def param_slots(self):
+        """(path in the block's JAX tree, owning module, attribute) of each
+        weight."""
+        for ln in ("ln1", "ln2"):
+            yield (ln, "scale"), getattr(self, ln), "scale"
+            yield (ln, "bias"), getattr(self, ln), "bias"
+        for name in ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias"):
+            yield ("attn", name), self.attn, name
+        if self.moe is not None:
+            yield ("moe", "gate", "kernel"), self.moe, "gate_kernel"
+            for name in ("w_in", "b_in", "w_out", "b_out"):
+                yield ("moe", name), self.moe, name
+            return
+        for dense in ("fc", "proj"):
+            yield (dense, "kernel"), getattr(self, dense), "kernel"
+            yield (dense, "bias"), getattr(self, dense), "bias"
 
     def _ffn(self, h):
         """The MLP or the MoE over ln2's output: (out, the layer's
@@ -103,3 +123,16 @@ class GPTBlock(nn.Module):
                                   block_tables, offsets, layer=layer,
                                   q_lens=q_lens)
         return self._mlp(x + h)[0]
+
+
+class EncoderBlock(GPTBlock):
+    """The non-causal pre-LN encoder block of a ViT
+    (``tnn_tpu.nn.transformer.EncoderBlock``): ``GPTBlock`` with
+    ``causal=False``."""
+
+    def __init__(self, d_model: int, num_heads: int, *, mlp_ratio: int = 4,
+                 backend: str = "xla", dropout: float = 0.0, policy=None,
+                 device="cuda"):
+        super().__init__(d_model, num_heads, mlp_ratio=mlp_ratio,
+                         backend=backend, dropout=dropout, causal=False,
+                         policy=policy, device=device)

@@ -133,32 +133,50 @@ def sm_count(device) -> int:
 
 
 _counters: Dict[tuple, "object"] = {}
+# a table of this thread's own, in place of ``_counters``, inside
+# ``private_counters``
+_scope = threading.local()
 
 
 def zeroed_counters(name: str, device, n: int):
     """A persistent int32 tensor of at least ``n`` zeros on ``device``, one
     per kernel name: the arrival counters of a kernel whose last block of a
     group reduces the group's partials. Such a kernel leaves its counters 0
-    again, so the buffer is filled once, when it is made or grown."""
+    again, so the buffer is filled once, when it is made or grown. Two
+    launches that may run at once must not share it: launches in stream
+    order share the process's table; inside ``private_counters`` a thread
+    takes buffers of its own."""
     import torch
 
+    table = getattr(_scope, "table", None)
+    if table is None:
+        table = _counters
     key = (name, str(torch.device(device)))
-    t = _counters.get(key)
+    t = table.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[key] = t
+        table[key] = t
     return t
 
 
-def counter_buffers(device) -> list:
-    """Every counter tensor ``zeroed_counters`` holds on ``device``. A CUDA
-    graph that captured launches using them keeps this list: a later
-    regrowth replaces a buffer in the table but never frees one the graph
-    writes."""
-    import torch
+class private_counters:
+    """``with private_counters() as own:`` the kernels this thread launches
+    inside the block take counter buffers of their own, held in ``own``
+    (kernel name and device -> tensor). A pdecode graph's warm-up and
+    capture run on a side stream while other replicas' workers launch the
+    same kernels on the default stream: with one shared buffer their
+    arrival counts would mix, so a group could reduce before its last
+    partial and leave a counter off zero for a later launch. The graph
+    keeps ``own``; its replays run on the default stream, in turn with
+    every other launch there."""
 
-    dev = str(torch.device(device))
-    return [t for (_, d), t in _counters.items() if d == dev]
+    def __enter__(self) -> Dict[tuple, "object"]:
+        self._outer = getattr(_scope, "table", None)
+        _scope.table = {}
+        return _scope.table
+
+    def __exit__(self, *exc) -> None:
+        _scope.table = self._outer
 
 
 # -- launch counts ------------------------------------------------------------

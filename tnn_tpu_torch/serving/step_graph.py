@@ -27,8 +27,11 @@ Capture rules:
 - The warm-up runs eagerly, outside the capture, on the stream the
   capture uses: it builds and loads every kernel library, passes each
   one-time ``cudaFuncSetAttribute`` and makes every arrival-counter buffer
-  (``runtime.zeroed_counters``) at the size the program needs. The graph
-  keeps those buffers, so a later regrowth never frees memory it writes.
+  (``runtime.zeroed_counters``) at the size the program needs. The
+  buffers are the graph's own (``runtime.private_counters``): the warm-up
+  runs beside other replicas' launches of the same kernels on the default
+  stream, and shared arrival counters would mix their counts. The graph
+  keeps them, so nothing frees memory it writes.
 - The wrappers count their launches in Python, which a replay does not
   run: the launches the warm-up and the capture counted on this thread
   (``runtime.thread_launches``) are taken back out, and each replay adds
@@ -118,7 +121,7 @@ class DecodeGraph:
             self.device)
         self.views = step_build.split_inputs(self.inputs, like)
         t0 = time.perf_counter()
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, runtime.private_counters() as own:
             stream = torch.cuda.Stream(self.device)
             current = torch.cuda.current_stream(self.device)
             saved = generator.get_state()
@@ -146,7 +149,7 @@ class DecodeGraph:
         self.launches = [(fn, attr, captured[(id(fn), attr)]
                           - warm[(id(fn), attr)])
                          for fn, attr in _launch_counters()]
-        self.counters = runtime.counter_buffers(self.device)
+        self.counters = list(own.values())
         self.replays = 0
         self.capture_s = time.perf_counter() - t0
 

@@ -5,9 +5,19 @@ eagerly: the model's f32 master parameters are updated in place by the
 ported optimizer (``nn.optimizers``), with the scheduler's scale taken from
 the step counter (or, for a host-driven scheduler, read once per call).
 ``TrainState`` carries the parameters, the optimizer state, the step
-counter, the ``torch.Generator`` that dropout draws from and each
-parameter's path in the JAX package's tree. Metrics stay tensors on the
-device; reading one syncs.
+counter, the ``torch.Generator`` that augmentation and dropout draw from,
+each parameter's path in the JAX package's tree, and the model's state
+buffers (BatchNorm's running statistics, the JAX ``net_state``) with
+theirs. Metrics stay tensors on the device; reading one syncs.
+
+``augment`` is an on-device ``(generator, data) -> data`` transform (an
+``AugmentationPipeline.apply``, ``data.augmentation``), run on the batch
+inside the step before the forward, as the JAX step runs it on its
+``aug_rng``: it draws from the state's generator first, dropout after it.
+A training forward leaves BatchNorm's new statistics pending; the step
+commits them after each microbatch's backward (``Module.commit_state``),
+so the microbatches of ``grad_accum`` thread the state in order and a
+forward recomputed under ``remat`` does not update it twice.
 
 ``remat`` recomputes the forward in the backward (``torch.utils.checkpoint``,
 non-reentrant): True / "full" saves nothing inside the model; "dots" saves
@@ -34,6 +44,7 @@ import torch
 import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..core.rng import make_generator
 from ..nn import losses as losses_lib
 from ..nn import metrics as metrics_lib
 from ..nn.lm_loss import lm_head_loss
@@ -50,21 +61,37 @@ class TrainState:
     # parameter name -> its path in the JAX package's parameter tree
     jax_paths: Dict[str, Tuple[str, ...]] = dataclasses.field(
         default_factory=dict)
+    # the model's state buffers by name, and each one's path in the JAX
+    # package's net_state
+    buffers: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    state_paths: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+
+
+def _paths(named: Dict[str, torch.Tensor], jax_paths) -> Dict:
+    """{name: JAX path} of the tensors in ``named`` that a model's
+    ``jax_param_paths`` / ``jax_state_paths`` lists."""
+    names = {id(t): n for n, t in named.items()}
+    return {names[id(t)]: tuple(path) for path, t in jax_paths
+            if id(t) in names}
 
 
 def create_train_state(model, optimizer: Optimizer, seed: int = 0
                        ) -> TrainState:
-    """The train state of an initialised ``model``: its parameters by name,
-    the optimizer's zeroed state and a seeded generator on its device."""
+    """The train state of an initialised ``model``: its parameters and
+    state buffers by name, the optimizer's zeroed state and a seeded
+    generator on its device."""
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
-    names = {id(p): n for n, p in params.items()}
-    paths = {names[id(p)]: tuple(path)
-             for path, p in getattr(model, "jax_param_paths", list)()
-             if id(p) in names}
+    buffers = dict(model.named_buffers())
+    state_paths = _paths(buffers, getattr(model, "jax_state_paths", list)())
     return TrainState(params=params, opt_state=optimizer.init(params),
-                      step=0, generator=torch.Generator(device=device)
-                      .manual_seed(seed), jax_paths=paths)
+                      step=0, generator=make_generator(seed, device),
+                      jax_paths=_paths(params, getattr(
+                          model, "jax_param_paths", list)()),
+                      buffers={n: buffers[n] for n in state_paths},
+                      state_paths=state_paths)
 
 
 def _leaf(tree, path):
@@ -80,14 +107,16 @@ def _as_tensor(x) -> torch.Tensor:
 def train_state_trees(state: TrainState) -> Dict[str, Any]:
     """The state as the JAX package's trees, on the host: ``params`` and
     every per-parameter entry of ``opt_state`` (``m``, ``v``, ``vmax``,
-    ``velocity``) nested by the JAX parameter paths, the optimizer's
-    ``step`` and the train ``step`` as 0-d int32 tensors. Copies: the
-    optimizer's in-place updates do not reach them."""
+    ``velocity``) nested by the JAX parameter paths, the model's
+    ``net_state`` (where it has state buffers) by their JAX paths, the
+    optimizer's ``step`` and the train ``step`` as 0-d int32 tensors, in
+    the JAX package's section order. Copies: the optimizer's in-place
+    updates do not reach them."""
 
-    def nest(flat):
+    def nest(flat, paths=state.jax_paths):
         tree: Dict[str, Any] = {}
         for name, t in flat.items():
-            path = state.jax_paths[name]
+            path = paths[name]
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
@@ -98,17 +127,21 @@ def train_state_trees(state: TrainState) -> Dict[str, Any]:
     for key, val in state.opt_state.items():
         opt[key] = nest(val) if isinstance(val, dict) \
             else val.detach().to("cpu", copy=True)
-    return {"params": nest(state.params), "opt_state": opt,
-            "step": torch.tensor(int(state.step), dtype=torch.int32)}
+    trees = {"params": nest(state.params), "opt_state": opt}
+    if state.buffers:
+        trees["net_state"] = nest(state.buffers, state.state_paths)
+    trees["step"] = torch.tensor(int(state.step), dtype=torch.int32)
+    return trees
 
 
 @torch.no_grad()
 def load_jax_train_state(state: TrainState, params=None, opt_state=None,
-                         step=None) -> TrainState:
+                         step=None, net_state=None) -> TrainState:
     """Copy the JAX package's training state into ``state`` in place:
     ``params`` (its parameter tree), ``opt_state`` (its optimizer state:
-    trees under ``m``, ``v``, ``vmax`` or ``velocity`` beside ``step``) and
-    ``step``, as numpy arrays or tensors. Returns ``state``."""
+    trees under ``m``, ``v``, ``vmax`` or ``velocity`` beside ``step``),
+    ``step`` and ``net_state`` (the state buffers' tree), as numpy arrays
+    or tensors. Returns ``state``."""
     if params is not None:
         for name, path in state.jax_paths.items():
             state.params[name].copy_(_as_tensor(_leaf(params, path)))
@@ -120,6 +153,9 @@ def load_jax_train_state(state: TrainState, params=None, opt_state=None,
                                              state.jax_paths[name])))
             else:
                 val.copy_(_as_tensor(opt_state[key]))
+    if net_state is not None:
+        for name, path in state.state_paths.items():
+            state.buffers[name].copy_(_as_tensor(_leaf(net_state, path)))
     if step is not None:
         state.step = int(_as_tensor(step))
     return state
@@ -138,11 +174,6 @@ def aux_loss_sum(net_state) -> torch.Tensor:
             continue
         total = total.to(leaf.device) + leaf.float()
     return total
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet; it is queued in "
-                              "ROADMAP.md")
 
 
 # -- rematerialisation --------------------------------------------------------
@@ -288,10 +319,9 @@ def make_train_step(
     ``compute_accuracy=False``. A model with a ``net_state()`` that holds
     MoE layers' "aux_loss" leaves (``aux_loss_sum``) trains on the loss
     plus their sum, and its metrics carry the sum as ``aux_loss``.
-    ``augment`` is not ported yet and raises.
+    ``augment(generator, data)`` transforms each call's batch on the
+    device before the forward (the module docstring).
     """
-    if augment is not None:
-        _not_ported("augment (on-device augmentation)")
     if lm_head_chunk is not None:
         if compute_accuracy:
             raise ValueError("lm_head_chunk computes no logits; pass "
@@ -310,6 +340,7 @@ def make_train_step(
 
     forward = model if lm_head_chunk is None else model.apply_hidden
     moe = any(getattr(m, "moe", None) is not None for m in model.modules())
+    commit_state = getattr(model, "commit_state", None)
 
     def apply_model(data, generator):
         out = forward(data, train=True, generator=generator)
@@ -332,6 +363,8 @@ def make_train_step(
             loss = loss + aux
             aux = aux.detach()
         loss.backward()
+        if commit_state is not None:
+            commit_state()
         acc = metrics_lib.accuracy(out.detach(), labels) \
             if compute_accuracy else None
         return loss.detach(), acc, aux
@@ -339,6 +372,8 @@ def make_train_step(
     def one_step(state: TrainState, data, labels, lr_scale=None):
         for p in state.params.values():
             p.grad = None
+        if augment is not None:
+            data = augment(state.generator, data)
         if grad_accum == 1:
             loss, acc, aux = forward_backward(state, data, labels)
         else:

@@ -1,13 +1,18 @@
-"""Host and device memory readings (``tnn_tpu.utils.hardware``).
+"""Host and device readings (``tnn_tpu.utils.hardware``).
 
 ``memory_usage_kb`` is the process's resident set; ``device_memory_stats``
 reads the card's allocator through ``torch.cuda.memory_stats``, where the
-JAX package's ``hbm_stats`` reads the TPU's. ``cpu_info`` and
-``device_info`` come with ``cli/hardware_info`` (ROADMAP.md).
+JAX package's ``hbm_stats`` reads the TPU's; ``cpu_info`` summarizes the
+host from ``/proc``, and ``device_info`` lists the CUDA cards with their
+memory, SM count and ``nvidia-smi`` power limit (``cli.hardware_info``).
+The JAX package's sysfs topology report (sockets, caches, P/E cores) and
+its IO cpu set (``utils.affinity``) are not ported.
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+import subprocess
+from typing import Any, Dict, List
 
 import torch
 
@@ -39,3 +44,51 @@ def device_memory_stats(device=None) -> Dict[str, int]:
             "bytes_limit": int(torch.cuda.get_device_properties(
                 dev if dev is not None else torch.cuda.current_device())
                 .total_memory)}
+
+
+def cpu_info() -> Dict[str, Any]:
+    """The host CPU's model, logical core count and memory (KiB), where
+    ``/proc`` has them."""
+    info: Dict[str, Any] = {"logical_cores": os.cpu_count() or 0}
+    for path, key, field in (("/proc/cpuinfo", "model name", "model"),
+                             ("/proc/meminfo", "MemTotal:", "mem_total_kb")):
+        try:
+            with open(path, "r") as f:
+                for line in f:
+                    if line.startswith(key):
+                        value = line.partition(":")[2].strip()
+                        info[field] = int(value.split()[0]) \
+                            if field == "mem_total_kb" else value
+                        break
+        except OSError:
+            pass
+    return info
+
+
+def _power_limits() -> List[str]:
+    """Each card's ``power.limit`` as ``nvidia-smi`` gives it (empty
+    where it cannot be read)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return out.stdout.strip().splitlines() if out.returncode == 0 else []
+
+
+def device_info() -> List[Dict[str, Any]]:
+    """One entry per CUDA card: index, name, memory in bytes, SM count,
+    compute capability and power limit (empty without a card)."""
+    if not torch.cuda.is_available():
+        return []
+    limits = _power_limits()
+    out = []
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        out.append({"id": i, "platform": "gpu", "kind": props.name,
+                    "memory_bytes": int(props.total_memory),
+                    "sm_count": int(props.multi_processor_count),
+                    "compute_capability": f"{props.major}.{props.minor}",
+                    "power_limit": limits[i] if i < len(limits) else ""})
+    return out
