@@ -284,6 +284,33 @@ numbers on its own line:
    images/s, peak memory, the stem's and its max pool's asymmetric pads);
    (e) ``cli.hardware_info``. flash_vit's launches join K4's and K7's on
    the kernels line.
+28. training_parallel: parallel training with every mesh position on
+   ``cuda:0`` (code paths, not interconnect): (A) ``cifar100_wrn16_8``
+   at B=128 through ``train_model`` with ``{"pipe": 4}`` over 4
+   microbatches against single-device ``grad_accum=4`` from the same
+   weights, 3 SGD steps: FP32 (cuDNN's TF32 off, its deterministic
+   algorithms on) loss within 1e-5
+   relative at each step and every BatchNorm running statistic within
+   1e-5 + 1e-5 |accum| of the single-device one (with the gap a second
+   single-device run leaves beside it), bf16 loss within 2e-2 and the
+   statistics' gap reported; then the README's ``cli.trainer --mesh
+   data=2,pipe=4 --num-microbatches 8 --pipeline-virtual 2`` (8 stages)
+   against the same command without ``--mesh``, 2 epochs of 10 steps on
+   synthetic CIFAR-100 records: the loss falls, step time, images/s and
+   peak memory of both; (B) ``flash_gpt2_small`` (B=8, S=1024, AdamW)
+   through ``train_model`` at ``{"data": 2}`` and ``{"data": 2, "fsdp":
+   2}`` against no mesh, 3 steps and one validation batch: FP32 loss
+   within 1e-5, bf16 within 2e-2, K4 = 12 x replicas x (3 + 1), K7 = 12
+   x replicas x 3, the step time of steps 1-2 (CUDA events) and each
+   run's peak allocated memory; (C) a ``LayerBuilder`` LM at GPT-2 small's width
+   (embedding 50257 x 768, positional, 12 x ``flash_gpt_block(12)``,
+   layernorm, dense 50257) through ``StagePipeline`` on 4 stages from
+   ``partition_model``, 4 microbatches of 2 x 1024, 5 AdamW steps on a
+   repeating token stream: the loss falls, K4 = K7 = 12 x 4 a step; (D)
+   one ``make_pipeline_train_step`` step at ``{"pipe": 4}`` over a float
+   input (dense 768, 12 x ``flash_gpt_block(12)``, a 64-class head per
+   position) against gradient accumulation from the same weights: K4 =
+   K7 = 12 x 4. The mesh runs' K4 and K7 join the kernels line.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -7473,16 +7500,17 @@ def train_logs_to_stderr():
             h.setStream(sys.stderr)
 
 
-def cifar100_files(path, classes=100, seed=0):
+def cifar100_files(path, classes=100, seed=0, records=None):
     """CIFAR-100 ``train.bin`` and ``test.bin`` (coarse byte, fine byte,
-    3072 CHW pixel bytes a record) of learnable synthetic images: each
-    class a fixed random pattern, each record 0.6 of its class's pattern
-    plus 0.4 of noise."""
+    3072 CHW pixel bytes a record; ``records`` train / test, by default
+    ``IMAGE_RECORDS``) of learnable synthetic images: each class a fixed
+    random pattern, each record 0.6 of its class's pattern plus 0.4 of
+    noise."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     patterns = rng.integers(0, 256, (classes, 3072))
-    for name, n in zip(("train.bin", "test.bin"), IMAGE_RECORDS):
+    for name, n in zip(("train.bin", "test.bin"), records or IMAGE_RECORDS):
         fine = rng.integers(0, classes, n)
         pixels = 0.6 * patterns[fine] + 0.4 * rng.integers(0, 256, (n, 3072))
         records = np.concatenate(
@@ -7845,6 +7873,444 @@ def phase_training_image(results):
         raise AssertionError(f"hardware_info: {info['devices']}")
 
 
+# -- phase 28 -----------------------------------------------------------------
+#
+# Parallel training on one card: every mesh position is ``cuda:0``, so the
+# runs drive every code path of the layouts (replicas in lockstep, global
+# BatchNorm statistics, the collectives, the pipeline schedules and their
+# hops) and measure no interconnect. (A) the pipelined WRN-16-8 against
+# single-device gradient accumulation and the README's ``--mesh`` command;
+# (B) flash_gpt2_small under data parallelism and FSDP; (C) a builder LM
+# through ``StagePipeline``; (D) a float-input flash stack through the
+# compiled pipeline.
+PAR_BATCH, PAR_MB, PAR_STEPS = 128, 4, 3
+PAR_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # relative loss gap
+PAR_CLI_RECORDS = (1280, 256)       # 10 train steps an epoch at B=128
+PAR_CLI_MESH = ["--mesh", "data=2,pipe=4", "--num-microbatches", "8",
+                "--pipeline-virtual", "2"]
+# of the 20 steps: epoch 2's steady steps timed, then two profiled
+PAR_CLI_TIMED, PAR_CLI_PROFILED = range(12, 18), range(18, 20)
+PAR_LM_STEPS, PAR_LM_MB = 5, 4      # (C): 4 microbatches of 2 x 1024
+PAR_LM_TIMED = range(1, PAR_STEPS)  # (B): the steps after the first
+# (A), FP32: the running statistics element-wise, |pipe - accum| <=
+# atol + rtol * |accum|
+PAR_BN_ATOL, PAR_BN_RTOL = 1e-5, 1e-5
+PAR_D_CLASSES = 64                  # (D): the per-position head's width
+
+
+def par_wrn_run(data_dir, policy, mesh, tmp):
+    """cifar100_wrn16_8 (seed 0) through ``train_model`` for PAR_STEPS
+    steps: ``{"pipe": 4}`` over PAR_MB microbatches, or single-device
+    gradient accumulation over as many: (losses, running statistics)."""
+    import torch
+
+    from tnn_tpu_torch.data.datasets import CIFAR100DataLoader
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.train import train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    model = zoo.create("cifar100_wrn16_8", device="cuda", seed=0,
+                       policy=policy)
+    cfg = {"epochs": 1, "batch_size": PAR_BATCH, "max_steps": PAR_STEPS,
+           "progress_print_interval": 1, "shuffle": False,
+           "optimizer": {"type": "sgd", "lr": 0.05, "momentum": 0.9},
+           "io_dtype": policy.io, "snapshot_dir": str(tmp), "seed": 0}
+    if mesh:
+        cfg.update(mesh_axes={"pipe": 4}, num_microbatches=PAR_MB)
+    else:
+        cfg.update(gradient_accumulation_steps=PAR_MB)
+    losses = []
+    train_model(model, TrainingConfig().update(cfg),
+                CIFAR100DataLoader(str(data_dir), train=True),
+                metric_hook=lambda step, m: losses.append(m["loss"]),
+                devices=["cuda:0"] * 4 if mesh else None)
+    stats = torch.cat([b.detach().flatten() for _, b in
+                       sorted(model.jax_state_paths())])
+    del model
+    torch.cuda.empty_cache()
+    return losses, stats
+
+
+def par_trainer_cli(data_dir, tmp, mesh):
+    """The README's pipelined WRN through ``cli.trainer`` (every position
+    on cuda:0), or the same command without ``--mesh``: history, peak
+    memory, wall seconds and the steps' recorder (CUDA events over epoch
+    2's steady steps, a profiled window after them)."""
+    import contextlib
+
+    import torch
+
+    from tnn_tpu_torch.cli import trainer
+    from tnn_tpu_torch.parallel import pipeline
+    from tnn_tpu_torch.train import loop
+
+    cfg = tmp / "wrn_par.json"
+    cfg.write_text(json.dumps({"optimizer": {"type": "sgd", "lr": 0.05,
+                                             "momentum": 0.9},
+                               "progress_print_interval": 5}))
+    args = ["--config", str(cfg), "--model", "cifar100_wrn16_8",
+            "--dataset", "cifar100", "--data-path", str(data_dir),
+            "--epochs", "2", "--batch-size", str(PAR_BATCH),
+            "--snapshot-dir", str(tmp / ("cli_mesh" if mesh
+                                         else "cli_plain"))]
+    if mesh:
+        args += PAR_CLI_MESH + ["--mesh-devices", ",".join(["cuda:0"] * 8)]
+    rec = StepRecorder(timed=PAR_CLI_TIMED, profiled=PAR_CLI_PROFILED)
+    real_pipe, real_step = (pipeline.make_pipeline_train_step,
+                            loop.make_train_step)
+
+    def make_pipe(*a, **kw):
+        pipe, step_fn, init_fn = real_pipe(*a, **kw)
+        return pipe, rec.wrap(lambda: step_fn)(), init_fn
+
+    pipeline.make_pipeline_train_step = make_pipe
+    loop.make_train_step = rec.wrap(real_step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            state, history = trainer.main(args)
+    finally:
+        pipeline.make_pipeline_train_step = real_pipe
+        loop.make_train_step = real_step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    return history, peak, wall, rec
+
+
+def par_image(tmp, card):
+    """(A)."""
+    from tnn_tpu_torch.core import dtypes as dt
+
+    data = tmp / "cifar100"
+    data.mkdir()
+    cifar100_files(data)
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.deterministic
+    for policy in (dt.FP32, dt.MIXED_BF16):
+        fp32 = policy.compute == "float32"
+        # FP32 convs in float32: cuDNN's TF32 default rounds every input
+        # to 10 mantissa bits, which turns the runs' 1e-7 parameter
+        # differences (gradient summation order) into 1e-4 ones; and
+        # deterministic algorithms: two single-device runs with cuDNN's
+        # default ones differ by 2.9e-5 in the running statistics, as
+        # much as the pipeline from either
+        cudnn.allow_tf32 = not fp32
+        cudnn.deterministic = fp32
+        try:
+            pipe_l, pipe_s = par_wrn_run(data, policy, True, tmp / "a_pipe")
+            acc_l, acc_s = par_wrn_run(data, policy, False, tmp / "a_acc")
+            # the same single-device run again: the gap cuDNN's own
+            # run-to-run differences leave, beside the pipeline's
+            rerun_s = par_wrn_run(data, policy, False, tmp / "a_rerun")[1] \
+                if fp32 else None
+        finally:
+            cudnn.allow_tf32, cudnn.deterministic = saved
+        rel = [abs(a - b) / abs(b) for a, b in zip(pipe_l, acc_l)]
+        gap = (pipe_s - acc_s).abs()
+        # each element against atol + rtol * |accum|: > 1 fails
+        ratio = gap / (PAR_BN_ATOL + PAR_BN_RTOL * acc_s.abs())
+        worst = int(ratio.argmax())
+        tol = PAR_TOL[policy.compute]
+        ok = (len(pipe_l) == len(acc_l) == PAR_STEPS
+              and all(math.isfinite(x) for x in pipe_l)
+              and max(rel) <= tol
+              and (not fp32 or float(ratio.max()) <= 1.0))
+        log("training_parallel_pipe_vs_accum", card=card,
+            model="cifar100_wrn16_8", policy=policy.compute,
+            batch=PAR_BATCH, microbatches=PAR_MB, mesh={"pipe": 4},
+            devices=["cuda:0"] * 4, pipe_losses=pipe_l, accum_losses=acc_l,
+            loss_rel_gap=rel, loss_tolerance=tol,
+            batchnorm_elements=int(acc_s.numel()),
+            batchnorm_max_abs_gap=float(gap.max()),
+            batchnorm_max_abs=float(acc_s.abs().max()),
+            batchnorm_worst_ratio=float(ratio.max()),
+            batchnorm_worst_element=[float(pipe_s[worst]),
+                                     float(acc_s[worst])],
+            batchnorm_over_limit=int((ratio > 1.0).sum()),
+            batchnorm_atol=PAR_BN_ATOL if fp32 else None,
+            batchnorm_rtol=PAR_BN_RTOL if fp32 else None,
+            accum_rerun_max_abs_gap=None if rerun_s is None
+            else float((rerun_s - acc_s).abs().max()),
+            cudnn_tf32=not fp32, cudnn_deterministic=fp32, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"pipe vs grad accum ({policy.compute}): losses {pipe_l} "
+                f"vs {acc_l}, BatchNorm worst |gap| / (atol + rtol|b|) "
+                f"{float(ratio.max())}")
+    small = tmp / "cifar100_small"
+    small.mkdir()
+    cifar100_files(small, records=PAR_CLI_RECORDS)
+    runs = {}
+    for mesh in (True, False):
+        hist, peak, wall, rec = par_trainer_cli(small, tmp, mesh)
+        step_ms = rec.step_ms()
+        kernels = rec.device_ms()
+        busy = sum(kernels.values())
+        runs["mesh" if mesh else "plain"] = dict(
+            epoch_loss=[h["train_loss"] for h in hist],
+            val_loss=[h["val_loss"] for h in hist],
+            batches=[h["batches"] for h in hist],
+            epoch_seconds=[h["epoch_seconds"] for h in hist],
+            step_ms=step_ms, images_per_s=PAR_BATCH / step_ms * 1e3,
+            peak_mem_gb=peak, device_busy_ms=busy,
+            idle_share=1.0 - busy / step_ms,
+            top_kernels_ms=sorted(kernels.items(),
+                                  key=lambda kv: -kv[1])[:6],
+            wall_s=wall)
+    # the trainer's epoch loss is the epoch's last step's: each must fall
+    m = runs["mesh"]
+    ok = (all(math.isfinite(x) for x in m["epoch_loss"])
+          and m["epoch_loss"][1] < m["epoch_loss"][0]
+          and m["batches"] == [PAR_CLI_RECORDS[0] // PAR_BATCH] * 2)
+    log("training_parallel_readme_cli", card=card, model="cifar100_wrn16_8",
+        command=["python", "-m", "tnn_tpu_torch.cli.trainer"]
+        + PAR_CLI_MESH, batch=PAR_BATCH, records=list(PAR_CLI_RECORDS),
+        stages=8, runs=runs,
+        step_time_ratio=runs["mesh"]["step_ms"] / runs["plain"]["step_ms"],
+        note="8 positions on one card: code paths, not interconnect",
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"README --mesh command: {runs['mesh']}")
+
+
+def par_lm_run(tmp, policy, axes, counters):
+    """flash_gpt2_small (seed 0) through ``train_model`` for PAR_STEPS
+    steps and one validation batch under ``axes``: (losses, K4, K7,
+    replicas, wall seconds, step ms, peak GiB). The step time is CUDA
+    events over steps PAR_LM_TIMED; the peak is the run's allocated
+    peak, the model's weights included."""
+    import torch
+
+    from tnn_tpu_torch import parallel
+    from tnn_tpu_torch.data.token_stream import OpenWebTextDataLoader
+    from tnn_tpu_torch.train import loop, train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _flash_gpt2_small(policy)
+    cfg = TrainingConfig().update({
+        "epochs": 1, "batch_size": batch, "max_steps": PAR_STEPS,
+        "progress_print_interval": 1, "shuffle": False,
+        "optimizer": {"type": "adamw", "lr": 3e-4},
+        "io_dtype": policy.io, "snapshot_dir": str(tmp / "b"), "seed": 0,
+        "mesh_axes": axes})
+    replicas = 1
+    for v in axes.values():
+        replicas *= v
+    for c in counters:
+        c.launches = 0
+    rec = StepRecorder(timed=PAR_LM_TIMED, profiled=range(0))
+    real_dp, real_step = parallel.make_dp_train_step, loop.make_train_step
+
+    def make_dp(*a, **kw):
+        step, place_state, place_batch = real_dp(*a, **kw)
+        run = rec.wrap(lambda: step)()
+        run.eval_step = step.eval_step
+        return run, place_state, place_batch
+
+    parallel.make_dp_train_step = make_dp
+    loop.make_train_step = rec.wrap(real_step)
+    losses = []
+    t0 = time.perf_counter()
+    try:
+        train_model(model, cfg,
+                    OpenWebTextDataLoader(str(tmp / "train.bin"), seq),
+                    OpenWebTextDataLoader(str(tmp / "val.bin"), seq),
+                    metric_hook=lambda step, m: losses.append(m["loss"]),
+                    devices=["cuda:0"] * replicas if axes else None)
+    finally:
+        parallel.make_dp_train_step = real_dp
+        loop.make_train_step = real_step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k4, k7 = (c.launches for c in counters)
+    del model
+    torch.cuda.empty_cache()
+    return losses, k4, k7, replicas, wall, rec.step_ms(), peak
+
+
+def par_lm(tmp, card, results):
+    """(B)."""
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
+    layers = TRAIN_ARGS["layers"]
+    synthetic_corpus(tmp, n_train=200_000, n_val=seq + batch)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for policy in (dt.FP32, dt.MIXED_BF16):
+        ref, _, _, _, _, ref_ms, ref_peak = par_lm_run(tmp, policy, {},
+                                                       counters)
+        for axes in ({"data": 2}, {"data": 2, "fsdp": 2}):
+            losses, k4, k7, r, wall, step_ms, peak = par_lm_run(
+                tmp, policy, axes, counters)
+            results["flash_launches"]["flash_attention_fwd"] += k4
+            results["flash_launches"]["flash_attention_bwd"] += k7
+            want = [layers * r * (PAR_STEPS + 1), layers * r * PAR_STEPS]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+            tol = PAR_TOL[policy.compute]
+            ok = ([k4, k7] == want and len(losses) == PAR_STEPS
+                  and all(math.isfinite(x) for x in losses)
+                  and max(rel) <= tol)
+            log("training_parallel_dp", card=card, model="flash_gpt2_small",
+                policy=policy.compute, batch=batch, seq=seq, mesh=axes,
+                devices=["cuda:0"] * r, losses=losses, no_mesh_losses=ref,
+                loss_rel_gap=rel, loss_tolerance=tol, launches=[k4, k7],
+                expected_launches=want, wall_s=wall,
+                timed_steps=list(PAR_LM_TIMED), step_ms=step_ms,
+                no_mesh_step_ms=ref_ms, peak_mem_gb=peak,
+                no_mesh_peak_mem_gb=ref_peak, ok=ok)
+            if not ok:
+                raise AssertionError(f"{axes} ({policy.compute}): losses "
+                                     f"{losses} vs {ref}, launches "
+                                     f"{[k4, k7]} vs {want}")
+
+
+def par_builder_lm(card, results):
+    """(C): the builder LM through ``StagePipeline`` on 4 stages."""
+    import numpy as np
+    import torch
+
+    from tnn_tpu_torch.nn.builder import LayerBuilder
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.parallel import StagePipeline, partition_model
+
+    seq, mb = TRAIN_ARGS["seq"], 2
+    layers, width = TRAIN_ARGS["layers"], TRAIN_ARGS["d_model"]
+    b = LayerBuilder((seq,)).embedding(50257, width).positional_embedding()
+    for _ in range(layers):
+        b = b.flash_gpt_block(TRAIN_ARGS["heads"])
+    model = b.layernorm().dense(50257).build(name="builder_lm")
+    stages = partition_model(model, 4, (mb, seq))
+    cuts = [len(s.layers) for s in stages]
+    sp = StagePipeline(stages, AdamW(lr=1e-3), "softmax_cross_entropy",
+                       devices=["cuda:0"] * 4)
+    sp.init((mb, seq), torch.int64, seed=0)
+    rng = np.random.default_rng(7)
+    stream = np.tile(rng.integers(0, 50257, 256), 64)
+    starts = rng.integers(0, len(stream) - seq - 1, PAR_LM_MB * mb)
+    x = torch.tensor(np.stack([stream[s:s + seq] for s in starts]),
+                     device="cuda")
+    y = torch.tensor(np.stack([stream[s + 1:s + seq + 1] for s in starts]),
+                     device="cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(PAR_LM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(sp.train_batch(x, y, PAR_LM_MB)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    k4, k7 = (c.launches for c in counters)
+    want = [layers * PAR_LM_MB * PAR_LM_STEPS] * 2
+    results["flash_launches"]["flash_attention_fwd"] += k4
+    results["flash_launches"]["flash_attention_bwd"] += k7
+    ok = ([k4, k7] == want and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0])
+    log("training_parallel_stage_pipeline", card=card,
+        model="LayerBuilder LM (embedding 50257 x 768, positional, 12 x "
+        "flash_gpt_block(12), layernorm, dense 50257)", stages=4,
+        layers_per_stage=cuts, microbatches=PAR_LM_MB, microbatch=[mb, seq],
+        losses=losses, step_ms=times, launches=[k4, k7],
+        expected_launches=want, ok=ok)
+    if not ok:
+        raise AssertionError(f"StagePipeline LM: losses {losses}, "
+                             f"launches {[k4, k7]} vs {want}")
+    del sp, stages, model
+    torch.cuda.empty_cache()
+
+
+def par_compiled_pipeline(card, results):
+    """(D): one ``make_pipeline_train_step`` step over a float-input flash
+    stack at {"pipe": 4}, against single-device gradient accumulation from
+    the same weights."""
+    import torch
+
+    from tnn_tpu_torch.nn.builder import LayerBuilder
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.parallel import (make_mesh, make_pipeline_train_step,
+                                        partition_model)
+    from tnn_tpu_torch.train import create_train_state, make_train_step
+
+    seq, mb, width = TRAIN_ARGS["seq"], 2, TRAIN_ARGS["d_model"]
+    layers = TRAIN_ARGS["layers"]
+    b = LayerBuilder((seq, width)).dense(width)
+    for _ in range(layers):
+        b = b.flash_gpt_block(TRAIN_ARGS["heads"])
+    model = b.dense(PAR_D_CLASSES).build(name="flash_stack")
+    model.init((seq, width), device="cuda", seed=0)
+    stages = partition_model(model, 4, (mb, seq, width))
+    mesh = make_mesh(pipe=4, devices=["cuda:0"] * 4)
+    pipe, step_fn, init_fn = make_pipeline_train_step(
+        stages, AdamW(lr=3e-4), mesh, (mb, seq, width),
+        num_microbatches=PAR_MB, input_dtype=torch.bfloat16)
+    pipe.load_from(model)
+    state = init_fn(None)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = PAR_MB * mb
+    x = torch.randn((n, seq, width), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    y = torch.randint(0, PAR_D_CLASSES, (n, seq), generator=gen,
+                      device="cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, x, y)
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    k4, k7 = (c.launches for c in counters)
+    results["flash_launches"]["flash_attention_fwd"] += k4
+    results["flash_launches"]["flash_attention_bwd"] += k7
+    opt = AdamW(lr=3e-4)
+    ref_state, ref = make_train_step(model, opt, grad_accum=PAR_MB)(
+        create_train_state(model, opt), x, y)
+    ref_loss = float(ref["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    want = [layers * PAR_MB] * 2
+    ok = ([k4, k7] == want and math.isfinite(loss)
+          and rel <= PAR_TOL["bfloat16"])
+    log("training_parallel_compiled", card=card,
+        model=f"dense {width} + {layers} x flash_gpt_block(12) + dense "
+        f"{PAR_D_CLASSES} per position", mesh={"pipe": 4},
+        devices=["cuda:0"] * 4, microbatches=PAR_MB,
+        microbatch=[mb, seq, width], stage_layers=[len(s.layers)
+                                                   for s in stages],
+        buffer_dtype=str(pipe.buf_dtype), loss=loss,
+        grad_accum_loss=ref_loss, loss_rel_gap=rel,
+        loss_tolerance=PAR_TOL["bfloat16"], step_ms=step_ms,
+        launches=[k4, k7], expected_launches=want, ok=ok)
+    if not ok:
+        raise AssertionError(f"compiled pipeline: loss {loss} vs "
+                             f"{ref_loss}, launches {[k4, k7]} vs {want}")
+    del pipe, state, model, ref_state
+    torch.cuda.empty_cache()
+
+
+def phase_training_parallel(results):
+    import tempfile
+
+    train_logs_to_stderr()
+    card = results["card"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        par_image(tmp, card)
+        par_lm(tmp, card, results)
+    par_builder_lm(card, results)
+    par_compiled_pipeline(card, results)
+
+
 def main() -> int:
     import torch
 
@@ -7868,7 +8334,8 @@ def main() -> int:
               phase_serving_prefix_spec, phase_serving_overlap,
               phase_serving_whole_prompt, phase_attention_int8_rope,
               phase_serving_supervised, phase_serving_fleet,
-              phase_serving_tp, phase_serving_moe, phase_training_image)
+              phase_serving_tp, phase_serving_moe, phase_training_image,
+              phase_training_parallel)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]

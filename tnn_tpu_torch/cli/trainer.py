@@ -12,8 +12,20 @@ environment <- ``--config`` JSON <- flags. The model runs on the card;
 A vision model is sized for the loader's samples and its weights drawn
 from the config's seed. ``--dataset synthetic`` trains on fixed random
 data. Snapshots (``best/`` and per epoch) go to the config's
-``snapshot_dir``; ``cli.inferencer`` reads their ``state.tnn``. The port
-trains on one device: ``--mesh`` with an axis above 1 is refused.
+``snapshot_dir``; ``cli.inferencer`` reads their ``state.tnn``.
+
+``--mesh`` lays the run out over a mesh (``train.loop``): data, fsdp and
+pipe, with ``--num-microbatches`` and ``--pipeline-virtual`` for a
+pipeline; ``--mesh-devices`` names its devices, a card as often as it
+holds positions. The README's pipelined WRN on one card:
+
+    python -m tnn_tpu_torch.cli.trainer --model cifar100_wrn16_8 \
+        --dataset cifar100 --data-path data/cifar100 --mesh data=2,pipe=4 \
+        --num-microbatches 8 --pipeline-virtual 2 \
+        --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0
+
+Positions that share a card run every code path of the layout; they
+measure no interconnect.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from tnn_tpu_torch.data.loader import SyntheticDataLoader
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.train import train_model
 from tnn_tpu_torch.utils.config import TrainingConfig
+from tnn_tpu_torch.utils.device import resolve_device
 from tnn_tpu_torch.utils.env import load_env_file
 from tnn_tpu_torch.utils.platform import apply_env_platform
 
@@ -82,8 +95,22 @@ def main(argv=None):
     ap.add_argument("--num-classes", type=int, default=10,
                     help="classes for synthetic data")
     ap.add_argument("--mesh", default=None,
-                    help="parallel layout, e.g. data=2 (refused: the port "
-                         "trains on one device)")
+                    help="parallel layout, e.g. data=2,pipe=4 or "
+                         "data=2,fsdp=2 (axes: data fsdp pipe; model, seq "
+                         "and expert are not ported yet)")
+    ap.add_argument("--num-microbatches", type=int, default=None,
+                    help="pipeline microbatches per step (with --mesh "
+                         "pipe=N)")
+    ap.add_argument("--pipeline-virtual", type=int, default=None,
+                    help="interleaved virtual stages per pipe position "
+                         "(v>1 splits the model into v*pp stages)")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="comma-separated devices of the mesh's positions, "
+                         "e.g. cuda:0,cuda:0 (default: the first N cards, "
+                         "or the CPU with --device cpu)")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="where the model runs (default: the card, or "
+                         "TNN_PLATFORM=cpu)")
     ap.add_argument("--history-out", default=None,
                     help="write the per-epoch metrics history to this "
                          "JSON file")
@@ -106,16 +133,24 @@ def main(argv=None):
     if args.mesh is not None:
         cfg.mesh_axes = {k: int(v) for k, v in
                          (kv.split("=") for kv in args.mesh.split(",") if kv)}
+    if args.num_microbatches is not None:
+        cfg.num_microbatches = args.num_microbatches
+    if args.pipeline_virtual is not None:
+        cfg.pipeline_virtual = args.pipeline_virtual
+    devices = [d for d in args.mesh_devices.split(",") if d] \
+        if args.mesh_devices else None
     if args.history_out:
         # an unwritable path fails before the run, not after it
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)
         open(args.history_out, "a").close()
 
-    device = apply_env_platform()
+    device = resolve_device(args.device) if args.device \
+        else apply_env_platform()
     train_loader, val_loader = build_loaders(cfg, args.num_classes)
     model = create_model(cfg, train_loader.data_shape, device)
-    state, history = train_model(model, cfg, train_loader, val_loader)
+    state, history = train_model(model, cfg, train_loader, val_loader,
+                                 devices=devices)
     if args.history_out:
         name = torch.cuda.get_device_name(device) \
             if device.type == "cuda" else device.type

@@ -55,8 +55,8 @@ def register_module(name: str):
 def _registered(type_name: str) -> type:
     # the decorators of these modules register their classes
     from ..models import gpt2, llama, resnet, vit  # noqa: F401
-    from ..nn import (activations, blocks, embedding, layers,  # noqa: F401
-                      norms)
+    from ..nn import (activations, attention, blocks, embedding,  # noqa: F401
+                      graph, layers, moe, norms, transformer)
 
     if type_name not in _REGISTRY:
         raise KeyError(f"unknown module type {type_name!r}; the port "

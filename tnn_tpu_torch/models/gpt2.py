@@ -96,7 +96,7 @@ class GPT2(JaxParamModule):
         yield ("ln_f", "scale"), self.ln_f, "scale"
         yield ("ln_f", "bias"), self.ln_f, "bias"
         for i, blk in enumerate(self.blocks):
-            for path, module, name in blk.param_slots():
+            for path, module, name in blk._param_slots():
                 yield (f"h{i}",) + path, module, name
         if self.head is not None:
             yield ("head", "kernel"), self.head, "kernel"

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import dtypes as dt
-from ..core.module import model_config, register_module
+from ..core.module import Module, model_config, register_module
 from ..nn.attention import MultiHeadAttention
 from ..nn.embedding import Embedding
 from ..nn.layers import Dense
@@ -26,31 +26,62 @@ from ..utils.device import resolve_device
 from .params import JaxParamModule
 
 
-class LlamaBlock(nn.Module):
+@register_module("llama_block")
+class LlamaBlock(Module):
     """Pre-RMSNorm decoder block: x + attn(rms(x)), then x + swiglu(rms(x))
     with swiglu(h) = down(silu(gate(h)) * up(h)), three bias-free
     projections; silu in f32, cast to up's dtype before the product, as in
-    the JAX block. Attention is causal, bias-free and rotary."""
+    the JAX block. Attention is causal, bias-free and rotary. With
+    ``d_model`` the weights are made at once on ``device``; with None
+    (registered as "llama_block") ``build`` sizes them from the input."""
 
-    def __init__(self, d_model: int, num_heads: int, mlp_hidden: int, *,
+    def __init__(self, d_model: Optional[int] = None,
+                 num_heads: Optional[int] = None,
+                 mlp_hidden: Optional[int] = None, *,
                  num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, backend: str = "xla",
-                 kv_cache_dtype: Optional[str] = None, policy=None,
-                 device="cuda"):
-        super().__init__()
-        p = policy or dt.default_policy()
-        self.ln1 = RMSNorm(d_model, policy=p, device=device)
+                 kv_cache_dtype: Optional[str] = None, name=None,
+                 policy=None, device="cuda"):
+        super().__init__(name=name, policy=policy)
+        p = self.policy
+        self.num_heads = int(num_heads)
+        self.mlp_hidden = int(mlp_hidden)
+        self.num_kv_heads = int(num_kv_heads) if num_kv_heads \
+            else self.num_heads
+        self.rope_theta = float(rope_theta)
+        self.backend = backend
+        self.kv_cache_dtype = kv_cache_dtype
+        self.ln1 = RMSNorm(None, policy=p)
         self.attn = MultiHeadAttention(
-            d_model, num_heads, num_kv_heads=num_kv_heads, causal=True,
+            None, num_heads, num_kv_heads=num_kv_heads, causal=True,
             backend=backend, rope_theta=rope_theta, use_bias=False,
-            kv_cache_dtype=kv_cache_dtype, policy=p, device=device)
-        self.ln2 = RMSNorm(d_model, policy=p, device=device)
-        self.gate = Dense(d_model, mlp_hidden, use_bias=False, policy=p,
-                          device=device)
-        self.up = Dense(d_model, mlp_hidden, use_bias=False, policy=p,
-                        device=device)
-        self.down = Dense(mlp_hidden, d_model, use_bias=False, policy=p,
-                          device=device)
+            kv_cache_dtype=kv_cache_dtype, policy=p)
+        self.ln2 = RMSNorm(None, policy=p)
+        self.gate = Dense(None, self.mlp_hidden, use_bias=False, policy=p)
+        self.up = Dense(None, self.mlp_hidden, use_bias=False, policy=p)
+        self.down = None
+        if d_model is not None:
+            self.build((1, int(d_model)), device)
+
+    def _build(self, input_shape, device):
+        for part in (self.ln1, self.attn, self.ln2, self.gate, self.up):
+            part.build(input_shape, device)
+        self.down = Dense(self.mlp_hidden, int(input_shape[-1]),
+                          use_bias=False, policy=self.policy, device=device)
+
+    def _param_slots(self):
+        for key in ("ln1", "attn", "ln2", "gate", "up", "down"):
+            for path, owner, attr in getattr(self, key)._param_slots():
+                yield (key,) + path, owner, attr
+
+    def _config(self):
+        cfg = {"num_heads": self.num_heads, "mlp_hidden": self.mlp_hidden,
+               "rope_theta": self.rope_theta, "backend": self.backend}
+        if self.num_kv_heads != self.num_heads:
+            cfg["num_kv_heads"] = self.num_kv_heads
+        if self.kv_cache_dtype:
+            cfg["kv_cache_dtype"] = self.kv_cache_dtype
+        return cfg
 
     def _swiglu(self, h):
         u = self.up(h)

@@ -70,7 +70,7 @@ class ViT(Module):
             for path, owner, attr in part._param_slots():
                 yield (key,) + path, owner, attr
         for i, blk in enumerate(self.blocks):
-            for path, owner, attr in blk.param_slots():
+            for path, owner, attr in blk._param_slots():
                 yield (f"h{i}",) + path, owner, attr
 
     def forward(self, x, *, train=False, generator=None):

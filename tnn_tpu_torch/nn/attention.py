@@ -10,10 +10,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core import dtypes as dt
+from ..core.module import Module, register_module
 from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
 from ..ops.quant_matmul import qmatmul
+from . import initializers
 from .layers import Dropout
 
 _MASK_VALUE = -1e9   # tnn_tpu.core.dtypes.neg_inf
@@ -118,7 +119,8 @@ def sdpa(q, k, v, *, causal: bool = False, mask=None,
                            kv_offset=kv_offset)
 
 
-class MultiHeadAttention(nn.Module):
+@register_module("multihead_attention")
+class MultiHeadAttention(Module):
     """Multi-head self-attention over (N, S, D) with a fused qkv projection
     and grouped-query attention (``num_kv_heads`` < ``num_heads``).
 
@@ -131,20 +133,27 @@ class MultiHeadAttention(nn.Module):
     when training. ``rope_theta`` rotates q and k by their absolute
     positions after the projection split (Llama; None: no rotation), and
     ``use_bias=False`` drops both biases.
+
+    With ``d_model`` the weights are made at once on ``device``; with None
+    (a ``Sequential`` child, or a layer rebuilt from its config, registered
+    as "multihead_attention") ``build`` sizes them from the input.
     """
 
-    def __init__(self, d_model: int, num_heads: int, *,
+    _params = ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias")
+
+    def __init__(self, d_model: Optional[int] = None,
+                 num_heads: Optional[int] = None, *,
                  num_kv_heads: Optional[int] = None, causal: bool = True,
                  backend: str = "xla", dropout: float = 0.0,
                  rope_theta: Optional[float] = None, use_bias: bool = True,
-                 kv_cache_dtype: Optional[str] = None, policy=None,
+                 kv_cache_dtype: Optional[str] = None,
+                 kernel_init="xavier_uniform", name=None, policy=None,
                  device="cuda"):
-        super().__init__()
+        super().__init__(name=name, policy=policy)
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: only "
                              "None (compute dtype) or 'int8' supported")
         self.kv_cache_dtype = kv_cache_dtype
-        self.policy = policy or dt.default_policy()
         self.num_heads = int(num_heads)
         self.num_kv_heads = int(num_kv_heads) if num_kv_heads \
             else self.num_heads
@@ -152,34 +161,53 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"num_kv_heads {self.num_kv_heads} must be a "
                              f"positive divisor of num_heads "
                              f"{self.num_heads}")
-        if d_model % self.num_heads:
-            raise ValueError(f"model dim {d_model} not divisible by "
-                             f"num_heads {self.num_heads}")
         self.causal = bool(causal)
         self.rope_theta = float(rope_theta) if rope_theta else None
+        self.use_bias = bool(use_bias)
         self.backend = backend
+        self.dropout = float(dropout)
+        self.kernel_init = kernel_init
         self.drop = Dropout(dropout)
-        self.d_model = int(d_model)
-        self.head_dim = d_model // self.num_heads
-        self.kv_d = self.head_dim * self.num_kv_heads
-        pd = self.policy.param_dtype
-
-        def param(*shape):
-            return nn.Parameter(torch.zeros(*shape, dtype=pd, device=device))
-
-        self.qkv_kernel = param(d_model, d_model + 2 * self.kv_d)
-        self.qkv_bias = param(d_model + 2 * self.kv_d) if use_bias else None
-        self.out_kernel = param(d_model, d_model)
-        self.out_bias = param(d_model) if use_bias else None
+        self.qkv_kernel = self.qkv_bias = None
+        self.out_kernel = self.out_bias = None
         # the paged scatters' last-writer rule (ops.paged_attention.
         # scatter_kv_rows): set by a block whose rows interact (MoE)
         self.last_writer_scatter = False
+        if d_model is not None:
+            self.build((1, int(d_model)), device)
+
+    def _build(self, input_shape, device):
+        d = int(input_shape[-1])
+        if d % self.num_heads:
+            raise ValueError(f"model dim {d} not divisible by "
+                             f"num_heads {self.num_heads}")
+        self.d_model = d
+        self.head_dim = d // self.num_heads
+        self.kv_d = self.head_dim * self.num_kv_heads
+        self.qkv_kernel = self._new_param((d, d + 2 * self.kv_d), device)
+        self.out_kernel = self._new_param((d, d), device)
+        if self.use_bias:
+            self.qkv_bias = self._new_param((d + 2 * self.kv_d,), device)
+            self.out_bias = self._new_param((d,), device)
+
+    def _config(self):
+        cfg = {"num_heads": self.num_heads, "causal": self.causal,
+               "dropout": self.dropout, "backend": self.backend,
+               "num_kv_heads": self.num_kv_heads,
+               "kernel_init": initializers.config_name(self.kernel_init)}
+        if self.kv_cache_dtype:
+            cfg["kv_cache_dtype"] = self.kv_cache_dtype
+        if self.rope_theta:
+            cfg["rope_theta"] = self.rope_theta
+        if not self.use_bias:
+            cfg["use_bias"] = False
+        return cfg
 
     def param_initializers(self):
         """The JAX layer's initializers (seeded ``Module.init_params``);
         the biases start at zero."""
-        return {"qkv_kernel": "xavier_uniform",
-                "out_kernel": "xavier_uniform"}
+        name = initializers.name_of(self.kernel_init)
+        return {"qkv_kernel": name, "out_kernel": name}
 
     def _project_qkv(self, x):
         """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
@@ -214,6 +242,9 @@ class MultiHeadAttention(nn.Module):
             k = apply_rope(k, 0, self.rope_theta)
         attn = sdpa(q, k, v, causal=self.causal, backend=self.backend)
         return self._project_out(attn.transpose(1, 2), train, generator)
+
+    def output_shape(self, input_shape):
+        return tuple(input_shape)
 
     # -- cached autoregressive decode -----------------------------------------
 

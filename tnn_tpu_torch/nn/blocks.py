@@ -94,6 +94,10 @@ class Residual(_Container):
         y = self.layers[0](x, train=train, generator=generator)
         short = self.layers[1](x, train=train, generator=generator) \
             if len(self.layers) == 2 else x
+        return self.merge(y, short)
+
+    def merge(self, y, short):
+        """The block's output from its main and shortcut outputs."""
         y = y + short
         if self.activation:
             y = activations.get(self.activation)(y)
@@ -119,7 +123,11 @@ class Parallel(_Container):
         self.join = join
 
     def forward(self, x, *, train=False, generator=None):
-        outs = [c(x, train=train, generator=generator) for c in self.layers]
+        return self.merge([c(x, train=train, generator=generator)
+                           for c in self.layers])
+
+    def merge(self, outs):
+        """The branches' outputs joined."""
         if self.join == "concat":
             return torch.cat(outs, dim=-1)
         y = outs[0]

@@ -5,31 +5,56 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
-from ..core import dtypes as dt
 from ..core.module import Module, register_module
 from ..ops.quant_matmul import Int8Weight, qmatmul
 from . import initializers
 
 
-class Embedding(nn.Module):
+@register_module("embedding")
+class Embedding(Module):
     """Token embedding: int ids (..., S) -> (..., S, dim) in the compute
     dtype, plus the tied output head ``attend``. The table is a trainable
     parameter in the policy's param dtype, cast to the compute dtype at use
     (the looked-up rows only, which gives the same values), or an
     ``Int8Weight`` (``nn.quant``): (vocab, dim) int8 rows with a per-row
-    scale, which is both the gather layout and the head's (N, K) layout."""
+    scale, which is both the gather layout and the head's (N, K) layout.
 
-    def __init__(self, vocab_size: int, dim: int, *, policy=None,
-                 device="cuda"):
-        super().__init__()
-        self.policy = policy or dt.default_policy()
-        self.table = nn.Parameter(
-            torch.zeros(vocab_size, dim, dtype=self.policy.param_dtype,
-                        device=device))
+    The table is made at once on ``device``; ``device=None`` leaves it to
+    ``build`` (a ``Sequential`` child, or a layer rebuilt from its
+    config)."""
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    _params = ("table",)
+
+    def __init__(self, vocab_size: int, dim: int, kernel_init="normal", *,
+                 name=None, policy=None, device="cuda"):
+        super().__init__(name=name, policy=policy)
+        self.vocab_size = int(vocab_size)
+        self.dim = int(dim)
+        self.kernel_init = kernel_init
+        self.table = None
+        if device is not None:
+            self.build((1, 1), device)
+
+    def _build(self, input_shape, device):
+        self.table = self._new_param((self.vocab_size, self.dim), device)
+
+    def param_initializers(self):
+        return {"table": initializers.name_of(self.kernel_init)}
+
+    def output_shape(self, input_shape):
+        return tuple(input_shape) + (self.dim,)
+
+    def _config(self):
+        return {"vocab_size": self.vocab_size, "dim": self.dim,
+                "kernel_init": initializers.config_name(self.kernel_init)}
+
+    @classmethod
+    def from_config(cls, cfg):
+        return super().from_config({**cfg, "device": None})
+
+    def forward(self, ids: torch.Tensor, *, train: bool = False,
+                generator=None) -> torch.Tensor:
         table = self.table
         if isinstance(table, Int8Weight):
             # dequantize just the looked-up rows, past the storage padding
@@ -78,7 +103,7 @@ class PositionalEmbedding(Module):
 
     def _config(self):
         return {"max_len": self.max_len,
-                "kernel_init": initializers.name_of(self.kernel_init)}
+                "kernel_init": initializers.config_name(self.kernel_init)}
 
     def forward(self, x: torch.Tensor, offset=0, *, train: bool = False,
                 generator=None) -> torch.Tensor:

@@ -37,6 +37,15 @@ def get(name_or_fn) -> Initializer:
     return _REGISTRY[name_or_fn]
 
 
+def config_name(fn) -> str:
+    """The ``kernel_init`` a layer's config carries, the JAX package's
+    value: a registered function's ``init_name``, else "he_normal". Its
+    ``name_of`` reads no name given as a string, so a layer configured
+    with "normal" writes "he_normal", and a layer rebuilt from that config
+    draws by he_normal, in either package."""
+    return getattr(fn, "init_name", "he_normal")
+
+
 def name_of(fn) -> str:
     """The registered name of ``fn`` (a name passes through);
     "he_normal" for an unnamed callable, as in the JAX package."""

@@ -123,7 +123,7 @@ class Dense(Module):
     def _config(self):
         return {"units": self.units, "use_bias": self.use_bias,
                 "activation": self.activation,
-                "kernel_init": initializers.name_of(self.kernel_init)}
+                "kernel_init": initializers.config_name(self.kernel_init)}
 
     @classmethod
     def from_config(cls, cfg):
@@ -220,7 +220,7 @@ class Conv2D(Module):
                 "strides": list(self.strides), "padding": pad,
                 "use_bias": self.use_bias, "dilation": list(self.dilation),
                 "groups": self.groups, "activation": self.activation,
-                "kernel_init": initializers.name_of(self.kernel_init)}
+                "kernel_init": initializers.config_name(self.kernel_init)}
 
 
 class _Pool2D(Module):

@@ -29,14 +29,14 @@ import math
 from typing import Optional, Tuple
 
 import torch
-from torch import nn
 
-from ..core import dtypes as dt
+from ..core.module import Module, register_module
 from ..ops.quant_matmul import matmul_f32
 from . import activations
 
 
-class MoE(nn.Module):
+@register_module("moe")
+class MoE(Module):
     """Top-k routed expert FFN over (N, S, D) activations.
 
     Parameters (the JAX tree's leaves under ``moe``): ``gate_kernel`` (D,
@@ -44,14 +44,27 @@ class MoE(nn.Module):
     (E, D), kept in the policy's param dtype and cast to the compute dtype
     at use. ``hidden`` defaults to ``hidden_ratio * D``. With one expert,
     top-1 and room for every token this is exactly Dense -> act -> Dense.
+
+    With ``d_model`` the weights are made at once on ``device``; with None
+    ``build`` sizes them from the input. Called bare, ``moe(x)`` returns
+    (out, aux); called as a layer (``train=`` given, as a ``Sequential``
+    calls it) it returns the output alone and leaves the aux loss pending
+    in its state ("aux_loss", the JAX layer's state). Either way
+    ``last_aux`` holds the last forward's aux loss, which the train step
+    adds into the loss (``train.step.moe_aux_loss``).
     """
 
-    def __init__(self, d_model: int, num_experts: int,
+    _params = ("gate_kernel", "w_in", "b_in", "w_out", "b_out")
+    _state = ("aux_loss",)
+
+    def __init__(self, d_model: Optional[int] = None,
+                 num_experts: Optional[int] = None,
                  hidden: Optional[int] = None, top_k: int = 2,
                  capacity_factor: float = 2.0, activation: str = "gelu",
                  aux_weight: float = 0.01, hidden_ratio: int = 4,
-                 dispatch: str = "einsum", policy=None, device="cuda"):
-        super().__init__()
+                 dispatch: str = "einsum", *, name=None, policy=None,
+                 device="cuda"):
+        super().__init__(name=name, policy=policy)
         self.num_experts = int(num_experts)
         self.hidden = hidden if hidden is None else int(hidden)
         self.hidden_ratio = int(hidden_ratio)
@@ -64,19 +77,37 @@ class MoE(nn.Module):
         if dispatch not in ("einsum", "sort"):
             raise ValueError(f"dispatch {dispatch!r} not in (einsum, sort)")
         self.dispatch = dispatch
-        self.policy = policy or dt.default_policy()
-        d, e = int(d_model), self.num_experts
+        self.gate_kernel = self.w_in = self.b_in = None
+        self.w_out = self.b_out = None
+        self.last_aux: Optional[torch.Tensor] = None
+        if d_model is not None:
+            self.build((1, int(d_model)), device)
+
+    def _build(self, input_shape, device):
+        d, e = int(input_shape[-1]), self.num_experts
         h = self.hidden or self.hidden_ratio * d
-        pd = self.policy.param_dtype
+        self.gate_kernel = self._new_param((d, e), device)
+        self.w_in = self._new_param((e, d, h), device)
+        self.b_in = self._new_param((e, h), device)
+        self.w_out = self._new_param((e, h, d), device)
+        self.b_out = self._new_param((e, d), device)
+        self.register_buffer("aux_loss", torch.zeros(
+            (), dtype=torch.float32, device=device))
 
-        def param(*shape):
-            return nn.Parameter(torch.zeros(*shape, dtype=pd, device=device))
+    def _param_slots(self):
+        yield ("gate", "kernel"), self, "gate_kernel"
+        for name in self._params[1:]:
+            yield (name,), self, name
 
-        self.gate_kernel = param(d, e)
-        self.w_in = param(e, d, h)
-        self.b_in = param(e, h)
-        self.w_out = param(e, h, d)
-        self.b_out = param(e, d)
+    def param_initializers(self):
+        return {"gate_kernel": "xavier_uniform", "w_in": "xavier_uniform",
+                "w_out": "xavier_uniform"}
+
+    def _config(self):
+        return {"num_experts": self.num_experts, "hidden": self.hidden,
+                "top_k": self.top_k, "capacity_factor": self.capacity_factor,
+                "activation": self.activation, "aux_weight": self.aux_weight,
+                "hidden_ratio": self.hidden_ratio, "dispatch": self.dispatch}
 
     def _capacity(self, tokens: int) -> int:
         cap = math.ceil(self.top_k * tokens / self.num_experts
@@ -106,8 +137,19 @@ class MoE(nn.Module):
         kept = rank < cap
         return top_e * cap + rank.clamp_max(cap - 1), kept
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (N, S, D) -> (out (N, S, D) in x's dtype, aux loss f32)."""
+    def forward(self, x: torch.Tensor, *, train: Optional[bool] = None,
+                generator=None):
+        """x (N, S, D) -> (out (N, S, D) in x's dtype, aux loss f32);
+        called as a layer, the output alone (the class docstring)."""
+        out, aux = self._route(x)
+        self.last_aux = aux
+        if train is None:
+            return out, aux
+        if train:
+            self.pending_state = {"aux_loss": aux.detach()}
+        return out
+
+    def _route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         n, s, d = x.shape
         t, e, k = n * s, self.num_experts, self.top_k
         cap = self._capacity(t)

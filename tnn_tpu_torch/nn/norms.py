@@ -10,9 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
-from ..core import dtypes as dt
 from ..core.module import Module, register_module
 
 
@@ -71,25 +69,40 @@ class LayerNorm(_Affine):
         return {"eps": self.eps, "affine": self.affine}
 
 
-class RMSNorm(nn.Module):
+@register_module("rmsnorm")
+class RMSNorm(Module):
     """RMS norm over the last dim (``tnn_tpu.nn.norms.RMSNorm``): in f32,
     x / sqrt(mean(x^2) + eps) times the scale read in f32, cast back to x's
-    dtype. The scale is trainable, in the policy's param dtype."""
+    dtype. The scale is trainable, in the policy's param dtype. With
+    ``dim`` it is made at once on ``device``; with None, by ``build``."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, policy=None,
-                 device="cuda"):
-        super().__init__()
+    _params = ("scale",)
+
+    def __init__(self, dim: Optional[int] = None, eps: float = 1e-6, *,
+                 name=None, policy=None, device="cuda"):
+        super().__init__(name=name, policy=policy)
         self.eps = float(eps)
-        self.policy = policy or dt.default_policy()
-        self.scale = nn.Parameter(torch.ones(
-            dim, dtype=self.policy.param_dtype, device=device))
+        self.scale = None
+        if dim is not None:
+            self.build((1, int(dim)), device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _build(self, input_shape, device):
+        self.scale = self._new_param((input_shape[-1],), device)
+        self.scale.data.fill_(1.0)
+
+    def param_initializers(self):
+        return {"scale": "ones"}
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator=None) -> torch.Tensor:
         xf = x.float()
         ms = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.reciprocal(torch.sqrt(ms + self.eps)) \
             * self.scale.float()
         return y.to(x.dtype)
+
+    def _config(self):
+        return {"eps": self.eps}
 
 
 @register_module("batchnorm")
@@ -123,17 +136,22 @@ class BatchNorm(_Affine):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator=None) -> torch.Tensor:
-        xf = x.float()
+        if not train:
+            return self.normalize(x, self.mean, self.var, train=False)
+        mean, var = _stats(x.float(), tuple(range(x.ndim - 1)))
+        return self.normalize(x, mean.reshape(-1), var.reshape(-1))
+
+    def normalize(self, x, mean, var, train: bool = True) -> torch.Tensor:
+        """x normalized by (C,) statistics ``mean`` and ``var``; in
+        training they are the batch's, and the running buffers' update
+        from them is left pending (data parallelism passes the global
+        batch's, ``parallel.data_parallel``)."""
         if train:
-            mean, var = _stats(xf, tuple(range(x.ndim - 1)))
-            mean, var = mean.reshape(-1), var.reshape(-1)
             m = self.momentum
             self.pending_state = {
                 "mean": (m * self.mean + (1 - m) * mean).detach(),
                 "var": (m * self.var + (1 - m) * var).detach()}
-        else:
-            mean, var = self.mean, self.var
-        y = (xf - mean) * (1.0 / torch.sqrt(var + self.eps))
+        y = (x.float() - mean) * (1.0 / torch.sqrt(var + self.eps))
         return self._affine(y).to(x.dtype)
 
     def _config(self):

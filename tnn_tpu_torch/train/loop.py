@@ -17,15 +17,25 @@ middle of an epoch continues that epoch. ``config.profiler_type`` NORMAL
 records one event a step into ``profiling.GlobalProfiler``, CUMULATIVE
 only a running total (``tick``); both log a summary at the end.
 
-The port trains on one device: ``mesh_axes`` with any axis above 1
-raises (data, tensor, sequence and pipeline parallelism are ROADMAP.md
-items 9 and 11.4).
+``config.mesh_axes`` lays the run out over a mesh of ``devices`` (by
+default the first N cards, or N copies of the CPU for a model there; a
+card may be named several times, as in ``["cuda:0"] * 4``):
+``{"data": N}`` and ``{"data": N, "fsdp": M}`` run
+``parallel.make_dp_train_step`` (global-batch BatchNorm statistics; fsdp
+shards the large leaves' optimizer state, every replica keeping the whole
+parameters); ``{"pipe": N}`` and ``{"data": N, "pipe": M}``
+split the model (``partition_model``, "balanced") into ``pipeline_virtual
+x N`` stages of ``parallel.make_pipeline_train_step`` over
+``config.num_microbatches``, starting from the model's weights and writing
+the trained ones back into it at the end. A checkpoint of a pipeline run
+holds the JAX package's packed rows. The "model", "seq" and "expert" axes
+raise ``NotImplementedError`` (ROADMAP.md item 11.4).
 """
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -92,6 +102,86 @@ def evaluate(eval_step, state: TrainState, loader: DataLoader,
     return out
 
 
+def _mesh(axes, devices, model):
+    from ..parallel import make_mesh
+
+    return make_mesh(**{k: axes.get(k, 1) for k in ("data", "fsdp", "pipe")},
+                     devices=devices, device=next(model.parameters()).device)
+
+
+def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
+                  devices, sample_shape, log):
+    """The pipeline's (pipe, state, step, eval step) from the model's
+    weights (the JAX loop's checks and messages)."""
+    from ..parallel import partitioner
+    from ..parallel.pipeline import (make_pipeline_eval_step,
+                                     make_pipeline_train_step)
+
+    bad = set(axes) - {"pipe", "data"}
+    if bad:
+        raise ValueError(f"pipeline runs compose with 'data' only; got "
+                         f"{axes}")
+    pp, dp = axes["pipe"], axes.get("data", 1)
+    if int(config.gradient_accumulation_steps) > 1:
+        raise ValueError(
+            "pipeline runs accumulate over num_microbatches; "
+            "gradient_accumulation_steps > 1 would be silently ignored — "
+            "set num_microbatches instead")
+    batch_size = int(config.batch_size)
+    num_mb = max(1, int(config.num_microbatches))
+    if batch_size % (num_mb * dp):
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"num_microbatches*data = {num_mb}*{dp}")
+    mb_global = batch_size // num_mb
+    mesh = _mesh(axes, devices, model)
+    virtual = max(1, int(getattr(config, "pipeline_virtual", 1)))
+    stages = partitioner.partition_model(
+        model, virtual * pp, (mb_global,) + sample_shape,
+        strategy="balanced")
+    io_dtype = dt.DTypePolicy(io=config.io_dtype).io_dtype
+    pipe, step_fn, init_fn = make_pipeline_train_step(
+        stages, optimizer, mesh, (mb_global,) + sample_shape,
+        loss_fn=config.loss, num_microbatches=num_mb, input_dtype=io_dtype,
+        scheduler=scheduler, data_axis="data" if dp > 1 else None,
+        augment=augment, remat=config.remat, virtual=virtual)
+    pipe.load_from(model)
+    if state is None:
+        state = init_fn(None)
+        state.generator.manual_seed(int(config.seed))
+    log.info("pipeline mesh %s: %d stages x %d microbatches (dp=%d, v=%d)",
+             {k: v for k, v in mesh.shape.items() if v > 1}, virtual * pp,
+             num_mb, dp, virtual)
+    return pipe, state, step_fn, make_pipeline_eval_step(pipe)
+
+
+def _data_parallel_run(model, config, axes, optimizer, scheduler, augment,
+                       state, devices, log):
+    """The data-parallel (state, step, eval step)."""
+    from ..parallel import make_dp_train_step
+
+    unsupported = set(axes) - {"data", "fsdp"}
+    if unsupported:
+        raise ValueError(f"train_model auto-sharding handles data/fsdp/"
+                         f"pipe axes; got {axes}.")
+    shard_ways = axes.get("data", 1) * axes.get("fsdp", 1)
+    if int(config.batch_size) % shard_ways:
+        raise ValueError(
+            f"batch_size {config.batch_size} not divisible by the "
+            f"data*fsdp mesh size {shard_ways} (mesh_axes={axes})")
+    mesh = _mesh(axes, devices, model)
+    if state is None:
+        state = create_train_state(model, optimizer, seed=config.seed)
+    step_fn, place_state, _ = make_dp_train_step(
+        model, optimizer, mesh, loss_fn=config.loss, scheduler=scheduler,
+        fsdp=axes.get("fsdp", 1) > 1,
+        grad_accum=config.gradient_accumulation_steps, augment=augment,
+        remat=config.remat)
+    state = place_state(state)
+    log.info("mesh %s: batch sharded over %d positions",
+             {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size)
+    return state, step_fn, step_fn.eval_step(config.loss)
+
+
 def train_model(
     model,
     config: TrainingConfig,
@@ -103,22 +193,24 @@ def train_model(
     state: Optional[TrainState] = None,
     metric_hook: Optional[Callable[[int, Dict[str, Any]], None]] = None,
     state_hook: Optional[Callable[[TrainState], None]] = None,
+    devices: Optional[Sequence] = None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Train ``model`` per ``config``; returns (final state, per-epoch
     history). ``state`` continues a given state (otherwise a fresh one,
     its generator seeded with ``config.seed``). ``state_hook`` sees the
     live state at set-up, at every progress line and at each epoch's
-    end."""
+    end. ``devices`` lays out ``config.mesh_axes`` (the module
+    docstring)."""
     log = get_logger("tnn.train")
     if config.log_file:
         log.set_file_sink(config.log_file)
     axes = {k: int(v) for k, v in (config.mesh_axes or {}).items()
             if int(v) > 1}
-    if axes:
+    later = sorted(set(axes) & {"model", "seq", "expert"})
+    if later:
         raise NotImplementedError(
-            f"mesh_axes={axes}: the port trains on one device; data, "
-            "tensor, sequence and pipeline parallelism are not ported yet "
-            "(ROADMAP.md items 9 and 11.4)")
+            f"mesh_axes={axes}: the {', '.join(later)} axis is not ported "
+            "yet (ROADMAP.md item 11.4); data, fsdp and pipe are")
     profiler_mode = config.profiler_type.upper()
     profiling_on = profiler_mode not in ("", "NONE")
     cumulative_prof = profiler_mode == "CUMULATIVE"
@@ -128,13 +220,23 @@ def train_model(
     batch_size = int(config.batch_size)
     device = next(model.parameters()).device
 
-    if state is None:
-        state = create_train_state(model, optimizer, seed=config.seed)
-    step_fn = make_train_step(
-        model, optimizer, loss_fn=config.loss, scheduler=scheduler,
-        grad_accum=config.gradient_accumulation_steps, augment=augment,
-        remat=config.remat)
-    eval_fn = make_eval_step(model, loss_fn=config.loss)
+    pipe = None
+    if "pipe" in axes:
+        pipe, state, step_fn, eval_fn = _pipeline_run(
+            model, config, axes, optimizer, scheduler, augment, state,
+            devices, tuple(train_loader.data_shape), log)
+    elif axes:
+        state, step_fn, eval_fn = _data_parallel_run(
+            model, config, axes, optimizer, scheduler, augment, state,
+            devices, log)
+    else:
+        if state is None:
+            state = create_train_state(model, optimizer, seed=config.seed)
+        step_fn = make_train_step(
+            model, optimizer, loss_fn=config.loss, scheduler=scheduler,
+            grad_accum=config.gradient_accumulation_steps, augment=augment,
+            remat=config.remat)
+        eval_fn = make_eval_step(model, loss_fn=config.loss)
 
     ckpt = Checkpoint(config.snapshot_dir)
     best_val = -float("inf")
@@ -246,6 +348,8 @@ def train_model(
             history.append(epoch_metrics)
     finally:
         ckpt.wait()     # the last epoch's snapshot lands before the return
+        if pipe is not None:
+            pipe.write_back(model)
         if profiling_on:
             for name, s in sorted(GlobalProfiler.summary().items()):
                 log.info("profile %s: n=%d total=%.3fs mean=%.1fms", name,

@@ -67,6 +67,9 @@ class TrainState:
         default_factory=dict)
     state_paths: Dict[str, Tuple[str, ...]] = dataclasses.field(
         default_factory=dict)
+    # a parallel run's placement (``parallel.data_parallel``,
+    # ``parallel.pipeline``): it gives and takes the JAX-layout trees
+    layout: Any = None
 
 
 def _paths(named: Dict[str, torch.Tensor], jax_paths) -> Dict:
@@ -111,7 +114,10 @@ def train_state_trees(state: TrainState) -> Dict[str, Any]:
     ``net_state`` (where it has state buffers) by their JAX paths, the
     optimizer's ``step`` and the train ``step`` as 0-d int32 tensors, in
     the JAX package's section order. Copies: the optimizer's in-place
-    updates do not reach them."""
+    updates do not reach them. A parallel run's state gives its layout's
+    trees: sharded leaves gathered, a pipeline's packed rows."""
+    if state.layout is not None:
+        return state.layout.trees(state)
 
     def nest(flat, paths=state.jax_paths):
         tree: Dict[str, Any] = {}
@@ -141,7 +147,15 @@ def load_jax_train_state(state: TrainState, params=None, opt_state=None,
     ``params`` (its parameter tree), ``opt_state`` (its optimizer state:
     trees under ``m``, ``v``, ``vmax`` or ``velocity`` beside ``step``),
     ``step`` and ``net_state`` (the state buffers' tree), as numpy arrays
-    or tensors. Returns ``state``."""
+    or tensors. A parallel run's state loads through its layout (shards
+    and replicas placed, a pipeline's packed rows unpacked). Returns
+    ``state``."""
+    if state.layout is not None:
+        state.layout.load(state, params=params, opt_state=opt_state,
+                          net_state=net_state)
+        if step is not None:
+            state.step = int(_as_tensor(step))
+        return state
     if params is not None:
         for name, path in state.jax_paths.items():
             state.params[name].copy_(_as_tensor(_leaf(params, path)))
@@ -173,6 +187,26 @@ def aux_loss_sum(net_state) -> torch.Tensor:
         elif key != "aux_loss":
             continue
         total = total.to(leaf.device) + leaf.float()
+    return total
+
+
+def has_moe(model) -> bool:
+    from ..nn.moe import MoE
+
+    return any(isinstance(m, MoE) for m in model.modules())
+
+
+def moe_aux_loss(model) -> torch.Tensor:
+    """The sum of the aux losses of every MoE layer's last forward in
+    ``model`` (``MoE.last_aux``), in the order of ``model.modules()``:
+    the JAX step's ``aux_loss_sum`` over the new ``net_state``."""
+    from ..nn.moe import MoE
+
+    total = None
+    for m in model.modules():
+        if isinstance(m, MoE) and m.last_aux is not None:
+            total = m.last_aux if total is None else \
+                total + m.last_aux.to(total.device)
     return total
 
 
@@ -263,29 +297,81 @@ def _contexts(policy: RematPolicy):
             _ReplayOutputs(ops, store))
 
 
-def remat_call(fn: Callable, policy: Optional[RematPolicy],
-               generator: Optional[torch.Generator], *args):
+def remat_call(fn: Callable, policy: Optional[RematPolicy], generators,
+               *args):
     """``fn(*args)`` under a non-reentrant checkpoint with ``policy``
     (None = full recompute); the recompute draws what the forward drew
-    from ``generator``."""
-    snapshot = generator.get_state() if generator is not None else None
+    from ``generators`` (one generator, a sequence of them, or None)."""
+    if isinstance(generators, torch.Generator):
+        generators = [generators]
+    gens = list({id(g): g for g in generators or () if g is not None}
+                .values())
+    snapshot = [g.get_state() for g in gens]
     calls = [0]
 
     def body(*a):
         calls[0] += 1
-        if calls[0] == 1 or snapshot is None:
+        if calls[0] == 1 or not gens:
             return fn(*a)
-        live = generator.get_state()
-        generator.set_state(snapshot)
+        live = [g.get_state() for g in gens]
+        for g, s in zip(gens, snapshot):
+            g.set_state(s)
         try:
             return fn(*a)
         finally:
-            generator.set_state(live)
+            for g, s in zip(gens, live):
+                g.set_state(s)
 
     kw = {} if policy is None else {
         "context_fn": functools.partial(_contexts, policy)}
     return torch.utils.checkpoint.checkpoint(body, *args,
                                              use_reentrant=False, **kw)
+
+
+# -- the pieces every train step shares ---------------------------------------
+
+
+def microbatches(data, labels, n: int):
+    """The ``n`` microbatches of a batch (``grad_accum``), cut in order."""
+    if data.shape[0] % n:
+        raise ValueError(f"batch size {data.shape[0]} not divisible by "
+                         f"grad_accum {n}")
+    return zip(data.chunk(n), labels.chunk(n))
+
+
+def host_scale(scheduler) -> Optional[torch.Tensor]:
+    """A host-driven scheduler's current scale, else None (read once per
+    call: the plateau scheduler moves between calls)."""
+    if not getattr(scheduler, "host_driven", False):
+        return None
+    return torch.tensor(scheduler.current_scale(), dtype=torch.float32)
+
+
+def apply_update(optimizer: Optimizer, scheduler: Scheduler,
+                 state: TrainState, grads, params, lr_scale=None):
+    """One optimizer update of ``params`` by ``grads``, in place, at
+    ``lr_scale`` (by default the scheduler's: ``host_scale`` or its scale
+    at ``state.step``); advances ``state.step``. Returns the scale."""
+    if lr_scale is None:
+        lr_scale = host_scale(scheduler)
+    if lr_scale is None:
+        lr_scale = scheduler.scale(state.step)
+    with torch.no_grad():
+        optimizer.update(grads, state.opt_state, params, lr_scale=lr_scale)
+    state.step += 1
+    return lr_scale
+
+
+def step_metrics(loss, lr_scale, accuracy=None, aux_loss=None
+                 ) -> Dict[str, Any]:
+    """A train step's metrics: the loss and the scale, and the accuracy
+    and the MoE aux loss where the step has them."""
+    metrics = {"loss": loss, "lr_scale": lr_scale}
+    if accuracy is not None:
+        metrics["accuracy"] = accuracy
+    if aux_loss is not None:
+        metrics["aux_loss"] = aux_loss
+    return metrics
 
 
 # -- steps --------------------------------------------------------------------
@@ -334,18 +420,17 @@ def make_train_step(
     if isinstance(loss_fn, (str, dict)):
         loss_fn = losses_lib.get(loss_fn)
     scheduler = scheduler or NoOp()
-    host_driven = getattr(scheduler, "host_driven", False)
     grad_accum = int(grad_accum)
     steps_per_call = int(steps_per_call)
 
     forward = model if lm_head_chunk is None else model.apply_hidden
-    moe = any(getattr(m, "moe", None) is not None for m in model.modules())
+    moe = has_moe(model)
     commit_state = getattr(model, "commit_state", None)
 
     def apply_model(data, generator):
         out = forward(data, train=True, generator=generator)
-        # the MoE layers' state of this very forward
-        return out, aux_loss_sum(model.net_state()) if moe else None
+        # the MoE layers' aux losses of this very forward
+        return out, moe_aux_loss(model) if moe else None
 
     def forward_backward(state, data, labels):
         gen = state.generator
@@ -377,13 +462,10 @@ def make_train_step(
         if grad_accum == 1:
             loss, acc, aux = forward_backward(state, data, labels)
         else:
-            if data.shape[0] % grad_accum:
-                raise ValueError(f"batch size {data.shape[0]} not divisible "
-                                 f"by grad_accum {grad_accum}")
             inv = 1.0 / grad_accum
             loss = acc = aux = 0.0
             # each microbatch's backward adds into .grad; the sum is scaled
-            for d, l in zip(data.chunk(grad_accum), labels.chunk(grad_accum)):
+            for d, l in microbatches(data, labels, grad_accum):
                 mb_loss, mb_acc, mb_aux = forward_backward(state, d, l)
                 loss = loss + mb_loss
                 if compute_accuracy:
@@ -394,34 +476,20 @@ def make_train_step(
             with torch.no_grad():
                 for p in state.params.values():
                     p.grad.mul_(inv)
-        if lr_scale is None:
-            lr_scale = scheduler.scale(state.step)
         grads = {name: p.grad for name, p in state.params.items()}
-        with torch.no_grad():
-            optimizer.update(grads, state.opt_state, state.params,
-                             lr_scale=lr_scale)
+        lr_scale = apply_update(optimizer, scheduler, state, grads,
+                                state.params, lr_scale)
         for p in state.params.values():
             p.grad = None
-        state.step += 1
-        metrics = {"loss": loss, "lr_scale": lr_scale}
-        if compute_accuracy:
-            metrics["accuracy"] = acc
-        if moe:
-            metrics["aux_loss"] = aux
-        return state, metrics
-
-    def host_scale():
-        # read once per call: the plateau scheduler moves between calls
-        return torch.tensor(scheduler.current_scale(), dtype=torch.float32) \
-            if host_driven else None
+        return state, step_metrics(loss, lr_scale,
+                                   acc if compute_accuracy else None,
+                                   aux if moe else None)
 
     if steps_per_call == 1:
-        def step(state: TrainState, data, labels):
-            return one_step(state, data, labels, host_scale())
-        return step
+        return one_step
 
     def multi_step(state: TrainState, data, labels):
-        scale = host_scale()
+        scale = host_scale(scheduler)
         trace = []
         for i in range(data.shape[0]):
             state, m = one_step(state, data[i], labels[i], scale)

@@ -4,8 +4,10 @@ JSON file (``load_from_json``, where an unknown key raises). The same
 fields as the JAX package's, so one JSON file configures either package;
 ``make_optimizer``, ``make_scheduler`` and ``make_policy`` build the
 port's optimizer, scheduler and ``core.dtypes.DTypePolicy``.
-``mesh_axes`` with any axis above 1 is refused by ``train.loop``: the
-port trains on one device (ROADMAP.md items 9 and 11.4).
+``mesh_axes`` lays a run out over a mesh (``train.loop``): "data",
+"fsdp" and "pipe" (with ``num_microbatches`` and ``pipeline_virtual``);
+"model", "seq" and "expert" raise until ROADMAP.md item 11.4's second
+half.
 """
 from __future__ import annotations
 
