@@ -311,10 +311,42 @@ numbers on its own line:
    input (dense 768, 12 x ``flash_gpt_block(12)``, a 64-class head per
    position) against gradient accumulation from the same weights: K4 =
    K7 = 12 x 4. The mesh runs' K4 and K7 join the kernels line.
+29. training_parallel_axes: tensor, sequence and expert parallelism and
+   FSDP's parameter sharding, every position on ``cuda:0`` (code paths,
+   not interconnect), 2 steps a run from the same seeded weights and
+   batches; FP32 runs (SGD at lr 1, TF32 off) gate the loss gap per step
+   against the single-device step at 1e-5 relative and each leaf's first
+   update (its gradient) beyond the f32 rounding of the new weights at
+   1e-3 of the largest entry of the single-device step's, the worst
+   leaf's gap; bf16 runs (AdamW)
+   report the loss gap. A planted fault (every LayerNorm scale's
+   gradient doubled, as if a replicated leaf's gradient were summed over
+   the two "model" positions) at ``{"model": 2}`` must fail the update
+   gate. Every run logs its step time (CUDA events) and peak memory:
+   ``flash_gpt2_small`` (B=8, S=1024) at ``{"model": 2}``, ``{"model":
+   4}``, ``{"data": 2, "model": 2}`` (K4 = K7 = 12 x positions x 2) and
+   ``{"data": 2, "model": 2, "seq": 2}`` with the ring (no kernel);
+   ``flash_llama_small`` (B=1) with Ulysses at seq 2 and 4, bf16 at S =
+   32,768 (K4 = K5 = K6 = 12 x sp x 2, K5 and K6's tensor-core bodies in
+   the profiled step) and FP32 at 4,096 (K7), and with the ring at seq 2
+   and 4 (FP32 at 4,096, bf16 at 8,192); ``moe_gpt2_small`` (B=4) at
+   ``{"data": 2}`` and ``{"data": 2, "expert": 4}``; ``flash_gpt2_small``
+   FP32 at ``{"data": 2, "fsdp": 2}`` equal to ``{"data": 4}`` bit for
+   bit (the backward on K5 + K6, which repeat their bits: K7's dQ
+   atomics do not; data 4 twice), with the bytes each position holds
+   between steps beside
+   ``{"data": 2}``'s; ``cli.trainer --mesh data=2,seq=2
+   --seq-parallel-method ulysses`` on ``gpt2_tiny`` (the Ulysses body
+   runs, and launches K4 on a model whose backend is "xla"). Its K4, K7,
+   K5 and K6 launches join the kernels line.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
 build and those phases alone and prints no kernels line and no result.
+
+The serving CLI runs of phases 5, 10, 15, 17, 18, 19 and 25 are queued
+and made together after the last phase (``run_deferred_clis``, 8 at a
+time), each checked and read by its phase's code there.
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -323,6 +355,7 @@ the kernels' numbers as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1330,28 +1363,61 @@ CLI_LINES = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
               "top_p": 0.95}]
 
 
-def cli_check(flags=(), lines=CLI_LINES):
-    """The serving CLI on two JSON lines (ids "greedy" and "sampled", 8 and
-    6 new tokens), with ``flags`` added."""
+# The serving CLI runs are queued where their phase asks for them and made
+# together at the end of the run (``run_deferred_clis``, CLI_WORKERS at a
+# time): each process spends seconds reaching the card, and one after
+# another they took a fifth of the run. Their checks, and each phase's own
+# reading of the output (``then``), run there in queue order.
+CLI_WORKERS = 8
+_DEFERRED_CLIS = []
+
+
+def cli_check(flags=(), lines=CLI_LINES, then=None):
+    """Queue the serving CLI on two JSON lines (ids "greedy" and
+    "sampled", 8 and 6 new tokens), with ``flags`` added; ``then(proc)``
+    reads the finished process."""
+    _DEFERRED_CLIS.append((tuple(flags), list(lines), then))
+
+
+def _cli_run(flags, lines):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tnn_tpu_torch.cli.serve", "--model",
          "gpt2_small", *flags],
         input="".join(json.dumps(x) + "\n" for x in lines),
         capture_output=True, text=True, timeout=600)
-    events = [json.loads(x) for x in proc.stdout.splitlines() if x.strip()]
-    done = {e["id"]: e for e in events if e.get("event") == "done"}
-    ok = (proc.returncode == 0 and set(done) == {"greedy", "sampled"}
-          and len(done["greedy"]["tokens"]) == 8
-          and len(done["sampled"]["tokens"]) == 6)
-    log("cli", flags=list(flags), returncode=proc.returncode,
-        done_events=len(done),
-        token_events=sum(e.get("event") == "token" for e in events),
-        seconds=round(time.perf_counter() - t0, 3), ok=ok)
-    if not ok:
-        raise AssertionError(f"CLI run failed: rc {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return proc
+    return proc, time.perf_counter() - t0
+
+
+def run_deferred_clis():
+    """Every queued CLI run, CLI_WORKERS at a time, then each one's
+    checks and ``then`` in queue order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    queue = list(_DEFERRED_CLIS)
+    _DEFERRED_CLIS.clear()
+    if not queue:
+        return
+    with ThreadPoolExecutor(max_workers=CLI_WORKERS) as pool:
+        runs = list(pool.map(lambda q: _cli_run(q[0], q[1]), queue))
+    for (flags, _, then), (proc, seconds) in zip(queue, runs):
+        events = [json.loads(x) for x in proc.stdout.splitlines()
+                  if x.strip()]
+        done = {e["id"]: e for e in events if e.get("event") == "done"}
+        ok = (proc.returncode == 0 and set(done) == {"greedy", "sampled"}
+              and len(done["greedy"]["tokens"]) == 8
+              and len(done["sampled"]["tokens"]) == 6)
+        log("cli", flags=list(flags), returncode=proc.returncode,
+            done_events=len(done),
+            token_events=sum(e.get("event") == "token" for e in events),
+            seconds=round(seconds, 3), concurrent=min(len(queue),
+                                                      CLI_WORKERS), ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"CLI run failed: rc {proc.returncode}\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        if then is not None:
+            then(proc)
 
 
 def phase_cli(results):
@@ -3546,11 +3612,13 @@ def phase_serving_fused(results):
                          batch=2, **INT8_SERVING)
     del model
     torch.cuda.empty_cache()
-    proc = cli_check(("--quant-weights", "--decode-path", "fused",
-                      "--max-batch-size", "2"))
-    summary = json.loads(proc.stderr.split("serve summary: ")[1])
-    if summary["decode_path"] != "fused":
-        raise AssertionError(f"CLI summary: {summary}")
+    def fused_summary(proc):
+        summary = json.loads(proc.stderr.split("serve summary: ")[1])
+        if summary["decode_path"] != "fused":
+            raise AssertionError(f"CLI summary: {summary}")
+
+    cli_check(("--quant-weights", "--decode-path", "fused",
+               "--max-batch-size", "2"), then=fused_summary)
 
 
 # -- phase 16 -----------------------------------------------------------------
@@ -4487,15 +4555,18 @@ def phase_serving_prefix_spec(results):
                                "prefix_indexed_blocks"),
                               (("--spec", "ngram", "--spec-k", "4"),
                                CLI_LINES, "spec_draft_tokens")):
-        proc = cli_check(flags, lines)
-        summary = json.loads(proc.stderr.split("serve summary: ")[1])
-        gauges = {k: v for k, v in summary.items()
-                  if k.startswith(("prefix", "spec", "pool_evictable",
-                                   "mean_accepted", "prefill_tokens_saved"))}
-        log("cli_gauges", flags=list(flags), **gauges)
-        if key not in summary or (key == "prefix_indexed_blocks"
-                                  and summary[key] < 10):
-            raise AssertionError(f"CLI summary lacks {key}: {summary}")
+        def read_gauges(proc, flags=flags, key=key):
+            summary = json.loads(proc.stderr.split("serve summary: ")[1])
+            gauges = {k: v for k, v in summary.items()
+                      if k.startswith(("prefix", "spec", "pool_evictable",
+                                       "mean_accepted",
+                                       "prefill_tokens_saved"))}
+            log("cli_gauges", flags=list(flags), **gauges)
+            if key not in summary or (key == "prefix_indexed_blocks"
+                                      and summary[key] < 10):
+                raise AssertionError(f"CLI summary lacks {key}: {summary}")
+
+        cli_check(flags, lines, then=read_gauges)
 
     results["launches"] += added["k1"]
     results["int8_launches"]["k2"] += added["k2"]
@@ -4515,12 +4586,23 @@ def replay_vs_eager(engine):
     program and through one replay of its captured graph, the generator
     at the same state before each: logits, bundle and the generator's
     state after must be equal bit for bit. The engine commits neither;
-    both write the same K/V rows."""
+    both write the same K/V rows. A row whose next token opens a block
+    first gets that block, as the engine's own step gives it
+    (``_ensure_decode_capacity``), so the step writes into the row's own
+    page; ``boundary_rows`` counts them."""
     import torch
 
     from tnn_tpu_torch.serving import step_build, step_graph
     from tnn_tpu_torch.serving.kv_pool import PagedKVPool
 
+    running = list(engine.scheduler.running)
+    bs = engine.pool.block_size
+    boundary = sum(r.cache_len % bs == 0 for r in running)
+    events = []
+    engine._ensure_decode_capacity(events)
+    if events or list(engine.scheduler.running) != running:
+        raise AssertionError(f"replay check: growing the rows' tables "
+                             f"preempted or failed a row: {events}")
     graph = engine._decode_graph()
     step = step_build.pack_decode(
         list(engine.scheduler.running), b=engine.scheduler.max_batch_size,
@@ -4545,7 +4627,9 @@ def replay_vs_eager(engine):
                                            drawn),
             "max_abs_logit_diff": (graph.logits.float()
                                    - logits.float()).abs().max().item(),
-            "rows_sampled": int((step.temps > 0).sum())}
+            "rows_sampled": int((step.temps > 0).sum()),
+            "boundary_rows": boundary,
+            "cache_len_mod_block": [r.cache_len % bs for r in running]}
 
 
 def replay_times(engine, count=20):
@@ -4713,15 +4797,19 @@ def phase_serving_overlap(results):
     torch.cuda.empty_cache()
     # the CLI: overlap on by default, --no-overlap the same tokens
     tokens = []
+
+    def collect(proc):
+        tokens.append({e["id"]: e["tokens"]
+                       for e in map(json.loads, proc.stdout.splitlines())
+                       if e.get("event") == "done"})
+        if len(tokens) < 2:
+            return
+        log("serving_overlap_cli", identical=tokens[0] == tokens[1])
+        if tokens[0] != tokens[1]:
+            raise AssertionError(f"CLI --no-overlap differs: {tokens}")
+
     for flags in ((), ("--no-overlap",)):
-        proc = cli_check(flags)
-        done = {e["id"]: e["tokens"] for e in map(json.loads,
-                                                  proc.stdout.splitlines())
-                if e.get("event") == "done"}
-        tokens.append(done)
-    log("serving_overlap_cli", identical=tokens[0] == tokens[1])
-    if tokens[0] != tokens[1]:
-        raise AssertionError(f"CLI --no-overlap differs: {tokens}")
+        cli_check(flags, then=collect)
 
 
 # -- phase 20 -----------------------------------------------------------------
@@ -6129,7 +6217,8 @@ def fleet_replay_check(model, results):
     once both stream, each replica's next staged step through the graph
     is equal to its eager program bit for bit (``replay_vs_eager`` on the
     replica's own worker, between steps: synchronous engines, so no step
-    is in flight)."""
+    is in flight; a row whose next token opens a block gets it first, as
+    the engine's step gives it)."""
     import numpy as np
 
     from tnn_tpu_torch.serving import step_graph
@@ -6137,9 +6226,9 @@ def fleet_replay_check(model, results):
 
     engines, sups = fleet_engines(model, 2, overlap=False)
     rng = np.random.default_rng(11)
-    # prompts of 16k + 2 tokens: a row's next position opens a block (and
-    # the staged step, which grows no table, would write the scratch page)
-    # only 15 tokens in, well after the check
+    # prompts of 16k + 2 tokens: the check lands near a row's block
+    # boundary (about 14 tokens in), where replay_vs_eager grows the
+    # row's table first; boundary_rows says whether a check met one
     reqs = [(rng.integers(0, model.vocab_size, 66 + 16 * i), 48, {})
             for i in range(4)]
     sink = FleetSink(len(reqs), token_mark=12)
@@ -6150,6 +6239,7 @@ def fleet_replay_check(model, results):
         router.submit(p, m, **kw)
     if not sink.tokens_seen.wait(FLEET_WAIT_S):
         raise AssertionError("replay check: the replicas never streamed")
+
     def locked_check(engine):
         # replay_vs_eager synchronizes the device, which fails while the
         # other replica's worker is inside a capture: hold the capture
@@ -6380,11 +6470,10 @@ def tier_sequence(fp32, tier_bytes):
         tokens.append(engine.result(rid).out_tokens)
     back = np.concatenate([prefix, rng.integers(0, fp32.vocab_size, 16)])
     rid = engine.submit(back, 32)
-    # two tokens in: its next position lies in a block its table holds (at
-    # the first, position 528 opens a block the next step would grow, and
-    # a staged step would write it into the scratch page the padded rows
-    # share)
-    while len(engine.result(rid).out_tokens) < 2:
+    # one token in: its next position, 528, opens a block, which
+    # replay_vs_eager grows first as the engine's step would (a staged step
+    # without it would write the scratch page the padded rows share)
+    while len(engine.result(rid).out_tokens) < 1:
         engine.step()
     replay = replay_vs_eager(engine)
     engine.run_until_complete()
@@ -6398,8 +6487,8 @@ def fleet_tier(fp32):
     """Step 4: the host tier on one replica (64 blocks, 64 MiB of host
     RAM), tier on against off: the readmitted blocks, the tokens saved,
     the return's TTFT, token-exact streams, the demote cost per block,
-    the host gap and step time; a pdecode replay after the readmit equal
-    to the eager program."""
+    the host gap and step time; a pdecode replay after the readmit, its
+    row at a block boundary, equal to the eager program."""
     on, prompts, got, ttft_on, demotes, replay = tier_sequence(fp32, 64 << 20)
     off, _, ref, ttft_off, _, replay_off = tier_sequence(fp32, 0)
     s_on, s_off = on.stats(), off.stats()
@@ -6424,7 +6513,7 @@ def fleet_tier(fp32):
                 and s_on["prefill_tokens_saved"] >= 512
                 > s_off["prefill_tokens_saved"]
                 and replay["logits_equal"] and replay["bundle_equal"]
-                and replay["generator_equal"]
+                and replay["generator_equal"] and replay["boundary_rows"] == 1
                 and s_on["tier_corrupt_dropped"] == 0, fields)
 
 
@@ -7225,13 +7314,17 @@ def tp_spans(model):
 
 
 def tp_cli():
-    proc = cli_check(("--tp", "2", "--tp-devices", "cuda:0,cuda:0"))
-    line = next((x for x in proc.stderr.splitlines()
-                 if x.startswith("tensor parallel: tp=2")), "")
-    ok = "6 head(s)/shard" in line and "B/token" in line
-    log("serving_tp_cli", stderr_line=line, ok=ok)
-    if not ok:
-        raise AssertionError(f"TP CLI stderr line: {proc.stderr[-2000:]}")
+    def read_line(proc):
+        line = next((x for x in proc.stderr.splitlines()
+                     if x.startswith("tensor parallel: tp=2")), "")
+        ok = "6 head(s)/shard" in line and "B/token" in line
+        log("serving_tp_cli", stderr_line=line, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"TP CLI stderr line: {proc.stderr[-2000:]}")
+
+    cli_check(("--tp", "2", "--tp-devices", "cuda:0,cuda:0"),
+              then=read_line)
 
 
 def phase_serving_tp(results):
@@ -8311,6 +8404,519 @@ def phase_training_parallel(results):
     par_compiled_pipeline(card, results)
 
 
+# -- phase 29: tensor, sequence and expert parallelism, FSDP parameters -------
+
+PAX_STEPS = 2                       # steps a run; the last one timed
+PAX_TOL = PAR_TOL                   # relative loss gap; bf16's reported
+PAX_SGD_LR = 1.0                    # the FP32 gates' optimizer
+PAX_UPDATE_TOL = 1e-3               # a leaf's first update, FP32
+PAX_LONG_SEQ = LONG_SEQ             # Ulysses in bf16 (K5 + K6 at this S)
+PAX_FP32_SEQ = 4096                 # the FP32 gates of the Llama runs
+PAX_RING_SEQ = 8192                 # the ring in bf16 (f32 logits a block)
+PAX_MOE_BATCH = 4
+PAX_CLI_ARGS = ["--model", "gpt2_tiny", "--dataset", "openwebtext",
+                "--mesh", "data=2,seq=2", "--seq-parallel-method", "ulysses",
+                "--mesh-devices", "cuda:0,cuda:0,cuda:0,cuda:0",
+                "--epochs", "1", "--batch-size", "4", "--device", "cuda"]
+
+
+def pax_fp32():
+    """FP32 with TF32 off (matmuls and cuDNN), restored on exit."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    return ctx()
+
+
+def pax_run(model, start, axes, batches, method="ring", profile=False,
+            sgd=False, plant=None):
+    """PAX_STEPS steps of ``model`` (AdamW; with ``sgd`` SGD at
+    PAX_SGD_LR) from the weights ``start`` under ``axes`` (every position
+    on cuda:0; {} is the single-device step): losses, the four flash
+    wrappers' launches, the last step's time (CUDA events), the peak
+    allocated memory over the run, each position's bytes between steps,
+    with ``sgd`` each leaf's first update (its gradient times -lr) and,
+    with ``profile``, the last step's flash kernel names. ``plant(layout)``
+    plants a fault in the placed state (the update gate's own check)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    from tnn_tpu_torch import parallel
+    from tnn_tpu_torch.nn.attention import ring_context
+    from tnn_tpu_torch.nn.optimizers import SGD, AdamW
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import create_train_state, make_train_step
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.data = start[n].clone()
+    opt = SGD(lr=PAX_SGD_LR) if sgd else AdamW(lr=3e-4)
+    state = create_train_state(model, opt, seed=0)
+    ctx = contextlib.nullcontext()
+    if axes:
+        n = 1
+        for v in axes.values():
+            n *= v
+        mesh = parallel.make_mesh(**axes, devices=["cuda:0"] * n)
+        step, place_state, _ = parallel.make_dp_train_step(
+            model, opt, mesh, fsdp=axes.get("fsdp", 1) > 1,
+            tp=axes.get("model", 1) > 1, ep=axes.get("expert", 1) > 1,
+            compute_accuracy=False)
+        state = place_state(state)
+        if plant is not None:
+            plant(state.layout)
+        if axes.get("seq", 1) > 1:
+            batch_axes = tuple(a for a in ("data", "fsdp")
+                               if axes.get(a, 1) > 1)
+            ctx = ring_context(mesh, batch_axis=batch_axes or None,
+                               method=method)
+    else:
+        step = make_train_step(model, opt, compute_accuracy=False)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, names = [], []
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    held = update = None
+    with ctx:
+        for i, (x, y) in enumerate(batches[:PAX_STEPS]):
+            last = i == PAX_STEPS - 1
+            if last and axes:
+                held = state.layout.position_bytes(state.opt_state)
+            p = prof_ctx(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) \
+                if last and profile else contextlib.nullcontext()
+            with p:
+                if last:
+                    t0.record()
+                state, m = step(state, x, y)
+                if last:
+                    t1.record()
+                losses.append(float(m["loss"]))
+            if i == 0 and sgd:
+                now = state.layout.full_params() if axes else \
+                    {n: p.detach() for n, p in model.named_parameters()}
+                update = {n: now[n].float() - start[n].float()
+                          for n in start}
+                del now
+            if last and profile:
+                names = sorted({kernel_label(e.name) for e in p.events()
+                                if e.device_type
+                                == torch.autograd.DeviceType.CUDA
+                                and "flash" in e.name})
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    out = dict(losses=losses, launches=launches,
+               step_ms=t0.elapsed_time(t1),
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+               flash_kernels=names, update=update)
+    if held is not None:
+        out["bytes_per_position"] = {
+            "x".join(map(str, c)): v for c, v in held.items()}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def pax_batches(vocab, batch, seq, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(PAX_STEPS):
+        ids = rng.integers(0, vocab, (batch, seq + 1))
+        out.append((torch.from_numpy(ids[:, :-1]).cuda(),
+                    torch.from_numpy(ids[:, 1:]).cuda()))
+    return out
+
+
+def pax_update_gap(update, ref, start):
+    """The worst leaf's gap between two runs' first updates from the
+    weights ``start``: per leaf, the largest |u - u_ref| beyond the two
+    runs' own f32 rounding of the new weights (2^-22 |start + u_ref|), over
+    max |u_ref|; (gap, leaf)."""
+    worst = (0.0, None)
+    for n, r in ref.items():
+        rounding = (start[n].float() + r).abs() * 2.0 ** -22
+        diff = ((update[n] - r).abs() - rounding).clamp_min(0).max().item()
+        scale = r.abs().max().item()
+        gap = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+        if gap >= worst[0]:
+            worst = (gap, n)
+    return worst
+
+
+def pax_compare(card, results, what, model, runs, ref_key, policy, tol,
+                gate, start, extra=None):
+    """Log each run beside the reference run; with ``gate`` fail past the
+    relative loss gap ``tol`` or, for SGD runs, past PAX_UPDATE_TOL on the
+    worst leaf's first update. Adds the runs' launches to the kernels
+    line."""
+    ref = runs[ref_key]
+    bad = []
+    for key, run in runs.items():
+        if key == ref_key:
+            continue
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   ref["losses"])]
+        upd, leaf = (pax_update_gap(run["update"], ref["update"], start)
+                     if ref["update"] is not None else (None, None))
+        want = (extra or {}).get(key)
+        ok = (all(math.isfinite(x) for x in run["losses"])
+              and (not gate or max(rel) <= tol)
+              and (not gate or upd is None or upd <= PAX_UPDATE_TOL)
+              and (want is None or run["launches"] == want))
+        log("training_parallel_axes", card=card, case=what, model=model,
+            policy=policy, layout=key, losses=run["losses"],
+            ref_losses=ref["losses"], loss_rel_gap=rel,
+            loss_tolerance=tol if gate else None,
+            optimizer="sgd" if ref["update"] is not None else "adamw",
+            update_rel_gap=upd, update_worst_leaf=leaf,
+            update_tolerance=PAX_UPDATE_TOL if upd is not None else None,
+            launches_k4_k7_k5_k6=run["launches"],
+            expected_launches=want, step_ms=run["step_ms"],
+            ref_step_ms=ref["step_ms"], peak_mem_gb=run["peak_gb"],
+            ref_peak_mem_gb=ref["peak_gb"],
+            flash_kernels=run["flash_kernels"],
+            bytes_per_position=run.get("bytes_per_position"),
+            note="every position on cuda:0: code paths, not interconnect",
+            ok=ok)
+        if not ok:
+            bad.append((key, rel, upd, leaf, run["launches"], want))
+        fl = results["flash_launches"]
+        fl["flash_attention_fwd"] += run["launches"][0]
+        fl["flash_attention_bwd"] += run["launches"][1]
+        sl = results.setdefault("split_launches", {
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+        sl["flash_attention_bwd_dq"] += run["launches"][2]
+        sl["flash_attention_bwd_dkv"] += run["launches"][3]
+    if bad:
+        raise AssertionError(f"{what} ({policy}): {bad}")
+
+
+def pax_gpt2_tp(card, results):
+    """flash_gpt2_small at B=8, S=1024: "model" 2 and 4, data x model, and
+    data x model x seq (ring) against no mesh."""
+    from tnn_tpu_torch.core import dtypes as dt
+
+    seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
+    layers = TRAIN_ARGS["layers"]
+    layouts = {"model2": {"model": 2}, "model4": {"model": 4},
+               "data2_model2": {"data": 2, "model": 2},
+               "data2_model2_seq2_ring": {"data": 2, "model": 2, "seq": 2}}
+    for policy in (dt.FP32, dt.MIXED_BF16):
+        model = _flash_gpt2_small(policy)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batches = pax_batches(model.vocab_size, batch, seq)
+        fp32 = policy.compute == "float32"
+        ctx = pax_fp32() if fp32 else contextlib.nullcontext()
+        with ctx:
+            runs = {"none": pax_run(model, start, {}, batches, sgd=fp32)}
+            for key, axes in layouts.items():
+                runs[key] = pax_run(model, start, axes, batches, sgd=fp32)
+            if fp32:
+                pax_gate_check(card, model, start, batches, runs["none"])
+        # K4 / K7: 12 layers x the "model" positions x the data streams
+        # each forward / backward; the ring runs no kernel
+        want = {}
+        for key, axes in layouts.items():
+            pos = 0 if axes.get("seq", 1) > 1 else \
+                axes["model"] * axes.get("data", 1)
+            want[key] = [layers * pos * PAX_STEPS] * 2 + [0, 0]
+        pax_compare(card, results, "gpt2_tensor_parallel",
+                    "flash_gpt2_small", runs, "none", policy.compute,
+                    PAX_TOL[policy.compute], policy.compute == "float32",
+                    start, want)
+        del model, start
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def pax_plant_norm_fault(layout):
+    """The planted fault: every LayerNorm scale's gradient doubled at
+    every position that holds it, as if a replicated leaf's gradient were
+    summed over the "model" positions instead of taken once."""
+    for c in layout.coords:
+        for n, t in layout.held[c].items():
+            if ".ln" in n or n.startswith("ln_f"):
+                if n.endswith("scale"):
+                    t.register_hook(lambda g: 2 * g)
+
+
+def pax_gate_check(card, model, start, batches, ref):
+    """The FP32 gates' own check: flash_gpt2_small at {"model": 2} with
+    the planted fault must fail the update gate (its loss gaps logged
+    beside)."""
+    run = pax_run(model, start, {"model": 2}, batches, sgd=True,
+                  plant=pax_plant_norm_fault)
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                               ref["losses"])]
+    upd, leaf = pax_update_gap(run["update"], ref["update"], start)
+    caught = upd > PAX_UPDATE_TOL
+    log("training_parallel_axes_gate_check", card=card,
+        model="flash_gpt2_small", policy="float32", layout="model2",
+        fault="LayerNorm scale gradients doubled", loss_rel_gap=rel,
+        loss_tolerance=PAX_TOL["float32"],
+        loss_gate_caught=max(rel) > PAX_TOL["float32"],
+        update_rel_gap=upd, update_worst_leaf=leaf,
+        update_tolerance=PAX_UPDATE_TOL, update_gate_caught=caught,
+        ok=caught)
+    if not caught:
+        raise AssertionError(f"the update gate passed a planted fault: "
+                             f"{upd} at {leaf}")
+
+
+def pax_llama_seq(card, results):
+    """flash_llama_small: Ulysses at seq 2 and 4 (bf16 at S = 32,768, where
+    K5 + K6 take the backward; FP32 gate at S = 4,096) and the ring at seq
+    2 and 4 (FP32 at S = 4,096, bf16 at S = 8,192)."""
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    for policy, seq, cases in (
+            (dt.MIXED_BF16, PAX_LONG_SEQ, ("ulysses",)),
+            (dt.FP32, PAX_FP32_SEQ, ("ulysses", "ring")),
+            (dt.MIXED_BF16, PAX_RING_SEQ, ("ring",))):
+        model = zoo.create("flash_llama_small", max_len=seq, device="cuda",
+                           seed=0, policy=policy)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batches = pax_batches(model.vocab_size, 1, seq)
+        layers = model.num_layers
+        long_bf16 = seq == PAX_LONG_SEQ
+        ctx = pax_fp32() if policy.compute == "float32" else \
+            contextlib.nullcontext()
+        runs, want = {}, {}
+        fp32 = policy.compute == "float32"
+        with ctx:
+            runs["none"] = pax_run(model, start, {}, batches,
+                                   profile=long_bf16, sgd=fp32)
+            for method in cases:
+                for sp in (2, 4):
+                    key = f"seq{sp}_{method}"
+                    runs[key] = pax_run(model, start, {"seq": sp}, batches,
+                                        method=method, profile=long_bf16,
+                                        sgd=fp32)
+                    if method == "ring":
+                        want[key] = [0, 0, 0, 0]
+                    else:
+                        # one local attention a position a layer, over
+                        # the position's heads and the whole sequence
+                        n = layers * sp * PAX_STEPS
+                        q = torch.empty(1, model.num_heads // sp, seq,
+                                        model.d_model // model.num_heads,
+                                        dtype=policy.compute_dtype,
+                                        device="meta")
+                        split = not fa.use_fused_bwd(q, q)
+                        want[key] = [n, 0 if split else n,
+                                     n if split else 0, n if split else 0]
+        if long_bf16:
+            for key, run in runs.items():
+                if not key.startswith("seq"):
+                    continue
+                bodies = {b.split("<")[0] for b in run["flash_kernels"]}
+                if not {"flash_bwd_dq_wgmma_kernel",
+                        "flash_bwd_wgmma_kernel"} <= bodies:
+                    raise AssertionError(
+                        f"Ulysses {key} at S={seq}: K5 / K6 not in the "
+                        f"profiled step: {run['flash_kernels']}")
+        pax_compare(card, results, f"llama_seq_parallel_s{seq}",
+                    "flash_llama_small", runs, "none", policy.compute,
+                    PAX_TOL[policy.compute], policy.compute == "float32",
+                    start, want)
+        del model, start
+        torch.cuda.empty_cache()
+
+
+def pax_moe(card, results):
+    """moe_gpt2_small at B=4, S=1024: data 2 and data 2 x expert 4 against
+    no mesh (global routing: the same capacity and aux loss)."""
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.models import zoo
+
+    seq = TRAIN_ARGS["seq"]
+    for policy in (dt.FP32, dt.MIXED_BF16):
+        model = zoo.create("moe_gpt2_small", device="cuda", seed=0,
+                           policy=policy)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batches = pax_batches(model.vocab_size, PAX_MOE_BATCH, seq)
+        fp32 = policy.compute == "float32"
+        ctx = pax_fp32() if fp32 else contextlib.nullcontext()
+        with ctx:
+            runs = {"none": pax_run(model, start, {}, batches, sgd=fp32)}
+            for key, axes in (("data2", {"data": 2}),
+                              ("data2_expert4", {"data": 2, "expert": 4})):
+                runs[key] = pax_run(model, start, axes, batches, sgd=fp32)
+        pax_compare(card, results, "moe_data_expert", "moe_gpt2_small",
+                    runs, "none", policy.compute, PAX_TOL[policy.compute],
+                    policy.compute == "float32", start)
+        del model, start
+        torch.cuda.empty_cache()
+
+
+def pax_fsdp(card, results):
+    """flash_gpt2_small FP32 at data 2 x fsdp 2 against data 4 (the
+    replicated layout over the same positions, whose arithmetic the
+    optimizer-state-only FSDP shared: bit for bit) and data 2 (memory).
+    The backward takes K5 + K6 (``TNN_FLASH_FUSED_BWD=0``): K7 adds dQ
+    with atomics, whose order changes its low bits run to run, while K5
+    and K6 give the same bits on every run; data 4 runs twice to show
+    that the path repeats itself."""
+    import os
+
+    from tnn_tpu_torch.core import dtypes as dt
+
+    seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
+    model = _flash_gpt2_small(dt.FP32)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batches = pax_batches(model.vocab_size, batch, seq)
+    layouts = (("data4", {"data": 4}), ("data4_again", {"data": 4}),
+               ("data2_fsdp2", {"data": 2, "fsdp": 2}),
+               ("data2", {"data": 2}))
+    saved = os.environ.get("TNN_FLASH_FUSED_BWD")
+    os.environ["TNN_FLASH_FUSED_BWD"] = "0"
+    try:
+        with pax_fp32():
+            runs = {key: pax_run(model, start, axes, batches)
+                    for key, axes in layouts}
+    finally:
+        if saved is None:
+            del os.environ["TNN_FLASH_FUSED_BWD"]
+        else:
+            os.environ["TNN_FLASH_FUSED_BWD"] = saved
+    repeats = runs["data4_again"]["losses"] == runs["data4"]["losses"]
+    bits = runs["data2_fsdp2"]["losses"] == runs["data4"]["losses"]
+    layers = TRAIN_ARGS["layers"]
+    want = {}
+    for key, axes in layouts:
+        n = layers * math.prod(axes.values()) * PAX_STEPS
+        want[key] = [n, 0, n, n]
+    launches_ok = all(r["launches"] == want[k] for k, r in runs.items())
+    held = {k: max(v["params"] + v["moments"] for v in
+                   r["bytes_per_position"].values()) / 2**30
+            for k, r in runs.items()}
+    ok = repeats and bits and launches_ok and \
+        held["data2_fsdp2"] < held["data2"]
+    log("training_parallel_axes_fsdp", card=card, model="flash_gpt2_small",
+        policy="float32", batch=batch, seq=seq,
+        losses={k: r["losses"] for k, r in runs.items()},
+        fsdp_equals_data4_bit_for_bit=bits, data4_repeats_bit_for_bit=repeats,
+        backward="K5 + K6 (TNN_FLASH_FUSED_BWD=0)",
+        max_position_gb_between_steps=held,
+        bytes_per_position={k: r["bytes_per_position"]
+                            for k, r in runs.items()},
+        peak_mem_gb={k: r["peak_gb"] for k, r in runs.items()},
+        step_ms={k: r["step_ms"] for k, r in runs.items()},
+        launches_k4_k7_k5_k6={k: r["launches"] for k, r in runs.items()},
+        expected_launches=want,
+        note="every position on cuda:0: code paths, not interconnect",
+        ok=ok)
+    sl = results.setdefault("split_launches", {
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+    for r in runs.values():
+        results["flash_launches"]["flash_attention_fwd"] += r["launches"][0]
+        results["flash_launches"]["flash_attention_bwd"] += r["launches"][1]
+        sl["flash_attention_bwd_dq"] += r["launches"][2]
+        sl["flash_attention_bwd_dkv"] += r["launches"][3]
+    if not ok:
+        raise AssertionError(f"FSDP: bit for bit {bits}, data 4 repeats "
+                             f"{repeats}, launches {launches_ok}, held "
+                             f"{held}")
+    del model, start
+
+
+def pax_cli(tmp, card, results):
+    """``cli.trainer --mesh data=2,seq=2 --seq-parallel-method ulysses`` on
+    gpt2_tiny over a synthetic token file: the flag reaches the run (the
+    Ulysses body runs, and its local attention launches K4 on a model
+    whose own backend is "xla")."""
+    import torch
+
+    from tnn_tpu_torch.cli import trainer
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.parallel import data_parallel
+
+    # val.bin holds one batch of windows (one window a token past 1024)
+    synthetic_corpus(tmp, n_train=200_000, n_val=1024 + 4)
+    cfg = tmp / "pax_cli.json"
+    cfg.write_text(json.dumps({"max_steps": 2, "progress_print_interval": 1,
+                               "snapshot_dir": str(tmp / "pax_snaps")}))
+    calls = [0]
+    real = data_parallel.ulysses_attention_local
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    data_parallel.ulysses_attention_local = counted
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            state, history = trainer.main(
+                PAX_CLI_ARGS + ["--config", str(cfg), "--data-path",
+                                str(tmp / "train.bin")])
+    finally:
+        data_parallel.ulysses_attention_local = real
+    wall = time.perf_counter() - t0
+    k4, k7 = (c.launches for c in counters)
+    results["flash_launches"]["flash_attention_fwd"] += k4
+    results["flash_launches"]["flash_attention_bwd"] += k7
+    ok = (state.step == 2 and calls[0] > 0 and k4 > 0 and k7 > 0
+          and math.isfinite(history[0]["train_loss"]))
+    log("training_parallel_axes_cli", card=card,
+        command=["python", "-m", "tnn_tpu_torch.cli.trainer"]
+        + PAX_CLI_ARGS, steps=state.step, ulysses_calls=calls[0],
+        k4_launches=k4, k7_launches=k7, train_loss=history[0]["train_loss"],
+        wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError(f"cli --seq-parallel-method ulysses: steps "
+                             f"{state.step}, Ulysses calls {calls[0]}, K4 "
+                             f"{k4}, K7 {k7}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_training_parallel_axes(results):
+    import tempfile
+
+    train_logs_to_stderr()
+    card = results["card"]
+    pax_gpt2_tp(card, results)
+    pax_llama_seq(card, results)
+    pax_moe(card, results)
+    pax_fsdp(card, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        pax_cli(Path(tmp), card, results)
+
+
 def main() -> int:
     import torch
 
@@ -8335,7 +8941,7 @@ def main() -> int:
               phase_serving_whole_prompt, phase_attention_int8_rope,
               phase_serving_supervised, phase_serving_fleet,
               phase_serving_tp, phase_serving_moe, phase_training_image,
-              phase_training_parallel)
+              phase_training_parallel, phase_training_parallel_axes)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -8359,6 +8965,10 @@ def main() -> int:
         phase(results)
         log("phase_seconds", name=phase.__name__,
             seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    run_deferred_clis()
+    log("phase_seconds", name="deferred_clis",
+        seconds=round(time.perf_counter() - t0, 3))
     log("total_seconds", seconds=round(time.perf_counter() - t_start, 3))
     if only is not None:
         return 0

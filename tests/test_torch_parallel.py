@@ -173,6 +173,8 @@ def _dp_pair(jmodel, jopt, topt_, mesh_kw, fsdp, x, y, steps=2, **kw):
         tstate, m = tstep_fn(tstate, *tbatch(torch.from_numpy(x),
                                              torch.from_numpy(y).long()))
         tm.append(float(m["loss"]))
+    # sharded leaves live in the layout's pieces during the run
+    tstate.layout.write_back()
     return jstate, jm, model, tstate, tm
 
 
@@ -211,10 +213,13 @@ def test_dp_matches_jax(mesh_kw, fsdp):
             np.testing.assert_allclose(
                 _leaf(trees["opt_state"]["velocity"], path).numpy(),
                 _leaf(jm_tree, path), rtol=1e-5, atol=1e-6)
-    # every replica holds the same parameters
-    for rep in lay.replicas[1:]:
-        for a, b in zip(rep.parameters(), model.parameters()):
-            assert torch.equal(a, b)
+    # every position holds the owned copy of each replicated leaf and its
+    # own piece of each sharded one
+    for c in lay.coords:
+        for name, own in lay.owned.items():
+            want = own if lay.axis[name] is None else \
+                own[str(lay.piece_of(name, c))]
+            assert torch.equal(lay.held[c][name], want)
 
 
 def test_fsdp_spec_tree_matches_jax():
@@ -263,16 +268,31 @@ def test_dp_batchnorm_uses_global_batch_statistics(grad_accum):
 
 
 def test_dp_refusals():
+    """What the parallel step still refuses: a pipe axis (the pipelines'
+    layout), heads that do not split over "model", a sequence that does
+    not split over "seq", and the chunked head loss with accuracy."""
+    from tnn_tpu_torch.models.gpt2 import GPT2
+
     model = config_module(_mlp().get_config()).init((8,), device="cpu")
-    mesh = tpar.make_mesh(data=2, devices=CPU8)
-    for kw in ({"tp": True}, {"ep": True}):
-        with pytest.raises(NotImplementedError, match="item 11.4"):
-            tpar.make_dp_train_step(model, topt.SGD(), mesh, **kw)
-    moe = config_module(jnn.Sequential([jnn.MoE(2, policy=F32)],
-                                       policy=F32).get_config())
-    moe.init((4, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11.4"):
-        tpar.make_dp_train_step(moe, topt.SGD(), mesh)
+    with pytest.raises(ValueError, match="pipe axis"):
+        tpar.make_dp_train_step(model, topt.SGD(),
+                                tpar.make_mesh(data=2, pipe=2, devices=CPU8))
+    gpt = GPT2(vocab_size=32, max_len=8, num_layers=1, d_model=16,
+               num_heads=2, policy=tdt.FP32, device="cpu")
+    _, place_state, _ = tpar.make_dp_train_step(
+        gpt, topt.SGD(), tpar.make_mesh(model=4, devices=CPU8), tp=True)
+    with pytest.raises(ValueError, match="whole heads"):
+        place_state(tstep.create_train_state(gpt, topt.SGD()))
+    step, place_state, place_batch = tpar.make_dp_train_step(
+        gpt, topt.SGD(), tpar.make_mesh(seq=3, devices=CPU8))
+    state = place_state(tstep.create_train_state(gpt, topt.SGD()))
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="not divisible by the seq"):
+        step(state, ids, ids)
+    with pytest.raises(ValueError, match="compute_accuracy=False"):
+        tpar.make_dp_train_step(gpt, topt.SGD(),
+                                tpar.make_mesh(data=2, devices=CPU8),
+                                lm_head_chunk=8)
 
 
 def _dropout_mlp():

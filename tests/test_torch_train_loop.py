@@ -19,9 +19,11 @@ against the JAX package, on the tiny FP32 GPT-2 (2 layers, d 32, vocab
 - ``remat``: every policy with dropout 0.1 equal to no remat bit for bit;
   "full" runs the forward's products again in the backward, the "dots"
   policies do not (counted ops); a typo raises.
-- The profiler modes, and ``mesh_axes`` with an axis not ported yet
-  ("model", "seq", "expert": refused; data, fsdp and pipe run, see
-  ``test_torch_train_parallel.py``).
+- The profiler modes, and the ``mesh_axes`` layouts ``train_model``
+  refuses with the JAX loop's messages: an unknown axis, "pipe" with
+  "model", "seq" on a model with no attention, S not divisible by seq,
+  "expert" on a model with no MoE (the layouts themselves run in
+  ``test_torch_train_parallel.py`` and ``test_torch_parallel_axes.py``).
 """
 import json
 import os
@@ -319,8 +321,26 @@ def test_profiler_modes(tmp_path, mode):
         assert GlobalProfiler.summary() == {}
 
 
+def _no_attention_model():
+    from tnn_tpu_torch.nn import Dense, Embedding, Sequential
+
+    return Sequential([Embedding(128, 8, device=None),
+                       Dense(None, 128)]).init((16,), device="cpu")
+
+
 @pytest.mark.parametrize("axis", ["model", "seq", "expert"])
 def test_mesh_axes_refused(tmp_path, axis):
-    with pytest.raises(NotImplementedError, match="item 11.4"):
-        train_model(_port_model(), _cfg(tmp_path, mesh_axes={axis: 2}),
-                    *_loaders(ArrayDataLoader))
+    cases = {
+        "model": [(_port_model(), {"model": 2, "pipe": 2},
+                   "compose with 'data' only"),
+                  (_port_model(), {"tensor": 2}, "handles data/fsdp/model")],
+        "seq": [(_no_attention_model(), {"seq": 2},
+                 "no attention modules"),
+                (_port_model(), {"seq": 3}, "not divisible by")],
+        "expert": [(_port_model(), {"data": 2, "expert": 2},
+                    "no MoE expert parameters")],
+    }[axis]
+    for model, axes, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            train_model(model, _cfg(tmp_path, mesh_axes=axes),
+                        *_loaders(ArrayDataLoader), devices=["cpu"] * 4)

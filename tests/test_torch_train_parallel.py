@@ -359,6 +359,13 @@ def test_trainer_cli_mesh_on_cpu(tmp_path, monkeypatch):
     assert state.step == 2 and np.isfinite(history[0]["train_loss"])
     assert json.loads(history_out.read_text())["device"] == "cpu"
     assert train_state_trees(state)["params"].shape[0] == 2
-    with pytest.raises(NotImplementedError, match="item 11.4"):
-        trainer.main(["--model", "mnist_cnn", "--dataset", "synthetic",
-                      "--mesh", "model=2", "--device", "cpu"])
+    # "model" on a conv net: no leaf matches the TP rules, so every leaf
+    # replicates and the run trains (JAX's conv case)
+    state, history = trainer.main([
+        "--config", str(cfg), "--model", "mnist_cnn", "--dataset",
+        "synthetic", "--epochs", "1", "--batch-size", "8",
+        "--mesh", "data=2,model=2", "--mesh-devices",
+        ",".join(["cpu"] * 4), "--device", "cpu",
+        "--snapshot-dir", str(tmp_path / "tp")])
+    assert state.step == 2 and np.isfinite(history[0]["train_loss"])
+    assert state.layout.sharded_names() == []

@@ -10,14 +10,17 @@ environment <- ``--config`` JSON <- flags. The model runs on the card;
         --batch-size 128
 
 A vision model is sized for the loader's samples and its weights drawn
-from the config's seed. ``--dataset synthetic`` trains on fixed random
-data. Snapshots (``best/`` and per epoch) go to the config's
+from the config's seed; an LM (``--model gpt2_tiny``) trains on a token
+file with ``--dataset openwebtext --data-path DIR/train.bin`` (1024-token
+windows, ``DIR/val.bin`` validating). ``--dataset synthetic`` trains on
+fixed random data. Snapshots (``best/`` and per epoch) go to the config's
 ``snapshot_dir``; ``cli.inferencer`` reads their ``state.tnn``.
 
-``--mesh`` lays the run out over a mesh (``train.loop``): data, fsdp and
-pipe, with ``--num-microbatches`` and ``--pipeline-virtual`` for a
-pipeline; ``--mesh-devices`` names its devices, a card as often as it
-holds positions. The README's pipelined WRN on one card:
+``--mesh`` lays the run out over a mesh (``train.loop``): data, fsdp,
+model, seq (``--seq-parallel-method ring`` or ``ulysses``) and expert, or
+pipe with data (``--num-microbatches``, ``--pipeline-virtual``);
+``--mesh-devices`` names its devices, a card as often as it holds
+positions. The README's pipelined WRN on one card:
 
     python -m tnn_tpu_torch.cli.trainer --model cifar100_wrn16_8 \
         --dataset cifar100 --data-path data/cifar100 --mesh data=2,pipe=4 \
@@ -56,6 +59,18 @@ def build_loaders(cfg: TrainingConfig, synthetic_classes: int):
                                     synthetic_classes, seed=cfg.seed)
         val = SyntheticDataLoader(10 * cfg.batch_size, shape,
                                   synthetic_classes, seed=cfg.seed + 1)
+        return train, val
+    if cfg.dataset_name == "openwebtext":
+        # a token file (``cli.prepare_corpus``'s train.bin), with val.bin
+        # beside it as the validation stream; the token loader takes no
+        # ``train`` flag (the JAX trainer passes one and raises)
+        train = factory.create(cfg.dataset_name, cfg.dataset_path,
+                               seed=cfg.seed)
+        val_path = os.path.join(os.path.dirname(cfg.dataset_path),
+                                "val.bin")
+        val = factory.create(cfg.dataset_name, val_path) \
+            if os.path.basename(cfg.dataset_path) == "train.bin" \
+            and os.path.exists(val_path) else None
         return train, val
     # the JAX trainer's call: ImageFolderDataLoader takes no ``train``, so
     # tiny_imagenet / imagenet100 raise TypeError here as they do there
@@ -96,14 +111,17 @@ def main(argv=None):
                     help="classes for synthetic data")
     ap.add_argument("--mesh", default=None,
                     help="parallel layout, e.g. data=2,pipe=4 or "
-                         "data=2,fsdp=2 (axes: data fsdp pipe; model, seq "
-                         "and expert are not ported yet)")
+                         "data=2,model=2,seq=2 "
+                         "(axes: data fsdp model pipe seq expert)")
     ap.add_argument("--num-microbatches", type=int, default=None,
                     help="pipeline microbatches per step (with --mesh "
                          "pipe=N)")
     ap.add_argument("--pipeline-virtual", type=int, default=None,
                     help="interleaved virtual stages per pipe position "
                          "(v>1 splits the model into v*pp stages)")
+    ap.add_argument("--seq-parallel-method", default=None,
+                    choices=["ring", "ulysses"],
+                    help="context-parallel scheme for --mesh seq=N")
     ap.add_argument("--mesh-devices", default=None,
                     help="comma-separated devices of the mesh's positions, "
                          "e.g. cuda:0,cuda:0 (default: the first N cards, "
@@ -137,6 +155,8 @@ def main(argv=None):
         cfg.num_microbatches = args.num_microbatches
     if args.pipeline_virtual is not None:
         cfg.pipeline_virtual = args.pipeline_virtual
+    if args.seq_parallel_method is not None:
+        cfg.seq_parallel_method = args.seq_parallel_method
     devices = [d for d in args.mesh_devices.split(",") if d] \
         if args.mesh_devices else None
     if args.history_out:

@@ -13,6 +13,7 @@ from ..core.module import model_config, register_module
 from ..nn.embedding import Embedding, PositionalEmbedding
 from ..nn.layers import Dense, Dropout
 from ..nn.norms import LayerNorm
+from ..nn.run import LocalRun
 from ..nn.transformer import GPTBlock
 from ..ops.quant_matmul import qmatmul
 from ..utils.device import resolve_device
@@ -138,11 +139,15 @@ class GPT2(JaxParamModule):
         """(N, S) ids -> the post-ln_f hidden state (N, S, D), without the
         head: what ``nn.lm_loss.lm_head_loss`` contracts against
         ``head_table()`` in vocab tiles."""
-        x = self.drop(self.wpe(self.wte(ids)), train=train,
-                      generator=generator)
+        return self.run_hidden(ids, LocalRun(train, generator))
+
+    def run_hidden(self, ids, run):
+        """``apply_hidden`` under ``run`` (``nn.run``)."""
+        x = run.layer(self.wpe, run.layer(self.wte, ids))
+        x = run.layer(self.drop, x)
         for blk in self.blocks:
-            x = blk(x, train=train, generator=generator)
-        return self.ln_f(x)
+            x = run.layer(blk, x)
+        return run.layer(self.ln_f, x)
 
     def head_table(self) -> torch.Tensor:
         """The (V, D) matrix the head contracts against: the tied table or

@@ -21,6 +21,7 @@ from ..nn.attention import MultiHeadAttention
 from ..nn.embedding import Embedding
 from ..nn.layers import Dense
 from ..nn.norms import RMSNorm
+from ..nn.run import LocalRun
 from ..ops.quant_matmul import qmatmul
 from ..utils.device import resolve_device
 from .params import JaxParamModule
@@ -83,14 +84,24 @@ class LlamaBlock(Module):
             cfg["kv_cache_dtype"] = self.kv_cache_dtype
         return cfg
 
-    def _swiglu(self, h):
+    def _gate_up(self, h):
         u = self.up(h)
-        return self.down(F.silu(self.gate(h).float()).to(u.dtype) * u)
+        return F.silu(self.gate(h).float()).to(u.dtype) * u
+
+    def _swiglu(self, h):
+        return self.down(self._gate_up(h))
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), train=train, generator=generator)
-        return x + self._swiglu(self.ln2(x))
+        return self.run(x, LocalRun(train, generator))
+
+    def run(self, x, run):
+        """The forward under ``run`` (``nn.run``: one device, or the
+        parallel step's streams)."""
+        x = run.add(x, run.layer(self.attn, run.layer(self.ln1, x)))
+        h = run.mlp(self._gate_up, [self.gate, self.up], self.down,
+                    run.layer(self.ln2, x))
+        return run.add(x, h)
 
     def init_cache(self, batch: int, max_len: int):
         return self.attn.init_cache(batch, max_len)
@@ -201,10 +212,14 @@ class Llama(JaxParamModule):
                      ) -> torch.Tensor:
         """(N, S) ids -> the post-ln_f hidden state (N, S, D), without the
         head (``nn.lm_loss.lm_head_loss``)."""
-        x = self.wte(ids)
+        return self.run_hidden(ids, LocalRun(train, generator))
+
+    def run_hidden(self, ids, run):
+        """``apply_hidden`` under ``run`` (``nn.run``)."""
+        x = run.layer(self.wte, ids)
         for blk in self.blocks:
-            x = blk(x, train=train, generator=generator)
-        return self.ln_f(x)
+            x = run.layer(blk, x)
+        return run.layer(self.ln_f, x)
 
     def head_table(self) -> torch.Tensor:
         """The (V, D) matrix the head contracts against, in the compute

@@ -7,7 +7,8 @@ import importlib
 
 _EXPORTS = {
     "Activation": "activations", "MultiHeadAttention": "attention",
-    "sdpa": "attention", "Parallel": "blocks", "Residual": "blocks",
+    "sdpa": "attention", "ring_context": "attention",
+    "set_attention_backend": "attention", "Parallel": "blocks", "Residual": "blocks",
     "Sequential": "blocks", "LayerBuilder": "builder",
     "ClassToken": "embedding", "Embedding": "embedding",
     "PositionalEmbedding": "embedding", "Add": "graph", "Concat": "graph",

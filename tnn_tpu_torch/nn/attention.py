@@ -1,7 +1,16 @@
 """Multi-head attention (``tnn_tpu.nn.attention``): ``sdpa`` with its
 "xla" and "pallas" (flash kernel) backends, rotary position embedding
 (``apply_rope``), and the whole-sequence, cached and paged forms of
-``MultiHeadAttention``."""
+``MultiHeadAttention``.
+
+Sequence parallelism is a run-time context, not model configuration:
+inside ``with ring_context(mesh, method=...)`` every ``sdpa`` call that
+can run as a ring (no mask, no ``kv_offset``) runs as ``method`` ("ring":
+``parallel.ring_attention``, "ulysses": ``parallel.ulysses_attention``)
+over the mesh's seq positions, whatever the model's backend; the model is
+never mutated, so it decodes on one device after a seq-parallel run.
+``backend="ring"`` outside a context raises.
+"""
 from __future__ import annotations
 
 import math
@@ -18,6 +27,60 @@ from . import initializers
 from .layers import Dropout
 
 _MASK_VALUE = -1e9   # tnn_tpu.core.dtypes.neg_inf
+
+# the active sequence-parallel context (``ring_context``)
+_RING_CTX = {"mesh": None, "axis": "seq", "batch_axis": None,
+             "method": "ring"}
+
+
+class ring_context:
+    """``with ring_context(mesh, axis="seq"): step(...)``: seq-parallel
+    attention (the module docstring). ``batch_axis`` (a name or a tuple of
+    names) also cuts the batch, each batch shard running its own ring;
+    ``method`` is "ring" (K/V rotation, any head count) or "ulysses"
+    (all-to-all head re-sharding, num_heads % sp == 0)."""
+
+    def __init__(self, mesh, axis: str = "seq", batch_axis=None,
+                 method: str = "ring"):
+        if method not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq-parallel method {method!r}")
+        self.mesh, self.axis, self.batch_axis = mesh, axis, batch_axis
+        self.method = method
+
+    def __enter__(self):
+        self._prev = dict(_RING_CTX)
+        _RING_CTX.update(mesh=self.mesh, axis=self.axis,
+                         batch_axis=self.batch_axis, method=self.method)
+        return self
+
+    def __exit__(self, *exc):
+        _RING_CTX.update(self._prev)
+
+
+def active_ring_context() -> dict:
+    """The active context's mesh, axis, batch_axis and method (mesh None
+    outside any)."""
+    return dict(_RING_CTX)
+
+
+def count_attention_modules(module) -> int:
+    """How many submodules carry a switchable attention ``backend`` (what
+    a seq-parallel layout checks it has to parallelize); mutates
+    nothing."""
+    return set_attention_backend(module, None)
+
+
+def set_attention_backend(module, backend) -> int:
+    """Set ``backend`` on every submodule that has one (a model built with
+    "xla" runs the flash kernels after ``set_attention_backend(m,
+    "pallas")``); ``backend=None`` only counts. Returns the count."""
+    count = 0
+    for m in module.modules():
+        if hasattr(m, "backend"):
+            if backend is not None:
+                m.backend = backend
+            count += 1
+    return count
 
 
 def apply_rope(x, offset=0, theta: float = 10000.0):
@@ -51,6 +114,14 @@ def apply_rope(x, offset=0, theta: float = 10000.0):
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def local_xla_attention(q, k, v, *, causal: bool = False, mask=None,
+                        scale: Optional[float] = None, kv_offset=None):
+    """The plain attention math, bypassing the ring context: the JAX
+    package's name for ``local_attention``."""
+    return local_attention(q, k, v, causal=causal, mask=mask, scale=scale,
+                           kv_offset=kv_offset)
 
 
 def local_attention(q, k, v, *, causal: bool = False, mask=None,
@@ -102,13 +173,25 @@ def sdpa(q, k, v, *, causal: bool = False, mask=None,
     ``backend="pallas"`` runs the flash kernels (K4 forward, K7 backward)
     when ``kv_offset`` is absent or a scalar; a per-row (B,) ``kv_offset``
     (ragged cached decode) takes the plain "xla" path, as in the JAX
-    package. The port has no sequence-parallel context yet, so
-    ``backend="ring"`` raises, as the JAX package does outside one.
+    package. Inside a ``ring_context`` a call without mask and kv_offset
+    runs as the context's method over its mesh, whatever ``backend``;
+    ``backend="ring"`` outside one raises the JAX package's errors.
     """
+    ringable = mask is None and kv_offset is None
+    if _RING_CTX["mesh"] is not None and ringable:
+        ctx = _RING_CTX
+        if ctx["method"] == "ulysses":
+            from ..parallel.ulysses import ulysses_attention as par
+        else:
+            from ..parallel.ring_attention import ring_attention as par
+        return par(q, k, v, ctx["mesh"], axis=ctx["axis"], causal=causal,
+                   scale=scale, batch_axis=ctx["batch_axis"])
     if backend == "ring":
         raise RuntimeError(
-            "backend='ring' needs a sequence-parallel ring context, which "
-            "the port does not have yet (ROADMAP.md); use 'xla' or 'pallas'")
+            "backend='ring' needs an enclosing nn.attention.ring_context(mesh)"
+            " — e.g. train_model with mesh_axes={'seq': N}" if ringable else
+            "ring attention does not support mask/kv_offset (cached decode); "
+            "run decode outside the ring context with backend='xla'")
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown attention backend {backend!r}")
     ragged = kv_offset is not None and getattr(kv_offset, "ndim", 0) > 0
@@ -210,28 +293,42 @@ class MultiHeadAttention(Module):
         return {"qkv_kernel": name, "out_kernel": name}
 
     def _project_qkv(self, x):
-        """(B, S, D) -> q (B, S, H, Dh), k and v (B, S, H_kv, Dh)."""
+        """(B, S, D) -> q (B, S, h, Dh), k and v (B, S, h_kv, Dh): h = H
+        and h_kv = H_kv, or a tensor-parallel piece's heads when the
+        kernel holds only its columns (``parallel.tensor_parallel.
+        _permute_qkv``)."""
         x = self.policy.cast_in(x)
         w = self.policy.cast_param(self.qkv_kernel)
         qkv = qmatmul(x, w).to(x.dtype)
         if self.qkv_bias is not None:
             qkv = qkv + self.qkv_bias.to(x.dtype)
         b, s, _ = x.shape
-        d, kv_d, dh = self.d_model, self.kv_d, self.head_dim
-        q = qkv[..., :d].reshape(b, s, self.num_heads, dh)
-        k = qkv[..., d:d + kv_d].reshape(b, s, self.num_kv_heads, dh)
-        v = qkv[..., d + kv_d:].reshape(b, s, self.num_kv_heads, dh)
-        return q, k, v
+        dh = self.head_dim
+        heads = qkv.shape[-1] // dh
+        kv = heads // (self.num_heads // self.num_kv_heads + 2)
+        q, k, v = qkv.split([(heads - 2 * kv) * dh, kv * dh, kv * dh], -1)
+        return (q.reshape(b, s, -1, dh), k.reshape(b, s, kv, dh),
+                v.reshape(b, s, kv, dh))
+
+    def _out_product(self, attn):
+        """(B, S, h, Dh) -> attn @ out_kernel, (B, S, D) f32: the whole
+        product, or a tensor-parallel piece's partial one."""
+        y = attn.reshape(*attn.shape[:2], -1)
+        return qmatmul(y, self.policy.cast_param(self.out_kernel))
+
+    def _out_finish(self, y, dtype, train=False, generator=None):
+        """The out product in ``dtype`` (attention's), its bias and
+        dropout, in the io dtype."""
+        y = y.to(dtype)
+        if self.out_bias is not None:
+            y = y + self.out_bias.to(dtype)
+        y = self.drop(y, train=train, generator=generator)
+        return self.policy.cast_out(y)
 
     def _project_out(self, attn, train=False, generator=None):
         """(B, S, H, Dh) -> (B, S, D) in the io dtype."""
-        y = attn.reshape(*attn.shape[:2], self.d_model)
-        w = self.policy.cast_param(self.out_kernel)
-        y = qmatmul(y, w).to(y.dtype)
-        if self.out_bias is not None:
-            y = y + self.out_bias.to(y.dtype)
-        y = self.drop(y, train=train, generator=generator)
-        return self.policy.cast_out(y)
+        return self._out_finish(self._out_product(attn), attn.dtype, train,
+                                generator)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

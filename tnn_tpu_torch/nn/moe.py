@@ -20,8 +20,12 @@ rounded to the compute dtype, and the combine weights each kept row in f32.
 
 The capacity reads the token count of the whole call, padding rows
 included, so a serving step must hand MoE the (B, Q) shapes the JAX
-engine's step bodies hand it. The expert mesh axis (the JAX package's
-``ep_rules``) is not ported: every expert lives on the layer's device.
+engine's step bodies hand it. Under data, seq or expert parallelism the
+lockstep forward (``parallel.data_parallel``) concatenates every
+position's tokens into one call, so top-k, capacity and the aux loss
+count the global batch, as the JAX layer's do; ``ep_rules`` shards the
+expert stacks over the "expert" positions, which ``_route``'s
+``experts`` hook computes slice by slice.
 """
 from __future__ import annotations
 
@@ -149,7 +153,27 @@ class MoE(Module):
             self.pending_state = {"aux_loss": aux.detach()}
         return out
 
-    def _route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def expert_ffn(self, xe: torch.Tensor, w_in, b_in, w_out, b_out
+                   ) -> torch.Tensor:
+        """The experts of the stacks ``w_in`` (E', D, H), ``b_in`` (E', H),
+        ``w_out`` (E', H, D), ``b_out`` (E', D) over their (E', C, D)
+        inputs: (E', C, D) f32."""
+        p = self.policy
+        cd = p.compute_dtype
+        act = activations.get(self.activation)
+        w_in, w_out = p.cast_param(w_in), p.cast_param(w_out)
+        b_in, b_out = p.cast_param(b_in).float(), p.cast_param(b_out).float()
+        ye = []
+        for i in range(xe.shape[0]):
+            hmid = act(matmul_f32(xe[i], w_in[i]) + b_in[i]).to(cd)
+            ye.append(matmul_f32(hmid, w_out[i]) + b_out[i])
+        return torch.stack(ye)
+
+    def _route(self, x: torch.Tensor, experts=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(out, aux) of ``x``; ``experts(xe)`` maps the (E, C, D) expert
+        inputs to their f32 outputs (by default ``expert_ffn`` over the
+        layer's own stacks)."""
         n, s, d = x.shape
         t, e, k = n * s, self.num_experts, self.top_k
         cap = self._capacity(t)
@@ -172,15 +196,12 @@ class MoE(Module):
         xe = torch.zeros(e * cap + 1, d, dtype=cd, device=x.device)
         xe = xe.index_put((dest,), src)[:e * cap].reshape(e, cap, d)
 
-        act = activations.get(self.activation)
-        w_in, w_out = p.cast_param(self.w_in), p.cast_param(self.w_out)
-        b_in = p.cast_param(self.b_in).float()
-        b_out = p.cast_param(self.b_out).float()
-        ye = []
-        for i in range(e):
-            hmid = act(matmul_f32(xe[i], w_in[i]) + b_in[i]).to(cd)
-            ye.append(matmul_f32(hmid, w_out[i]) + b_out[i])
-        back = torch.stack(ye).reshape(e * cap, d)             # f32
+        if experts is None:
+            ye = self.expert_ffn(xe, self.w_in, self.b_in, self.w_out,
+                                 self.b_out)
+        else:
+            ye = experts(xe)
+        back = ye.reshape(e * cap, d)                           # f32
 
         weight = top_p * kept                                  # (T, k)
         out = (back[slot] * weight[..., None]).sum(1)          # (T, D) f32
@@ -191,3 +212,19 @@ class MoE(Module):
             .index_add(0, top_e.reshape(-1), ones) / (t * k)
         aux = self.aux_weight * e * (frac * probs.mean(0)).sum()
         return out, aux
+
+
+def ep_rules(axis: str = "expert"):
+    """Path rules for the expert stacks (``w_in``, ``b_in``, ``w_out``,
+    ``b_out`` carry a leading E dim; the router replicates), for
+    ``parallel.tensor_parallel.spec_tree``. By path, not shape: a gate
+    kernel whose input dim equals E must not shard."""
+    return [(r".*(^|/)(w_in|b_in|w_out|b_out)$", (axis,))]
+
+
+def shard_params_ep(params, mesh, axis: str = "expert"):
+    """The expert stacks placed over the expert axis, the rest
+    replicated (``place_by_specs``)."""
+    from ..parallel.tensor_parallel import shard_params_tp
+
+    return shard_params_tp(params, mesh, rules=ep_rules(axis))

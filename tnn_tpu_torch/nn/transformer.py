@@ -13,6 +13,7 @@ from .attention import MultiHeadAttention
 from .layers import Dense, Dropout
 from .moe import MoE
 from .norms import LayerNorm
+from .run import LocalRun
 
 
 @register_module("gpt_block")
@@ -134,10 +135,21 @@ class GPTBlock(Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.attn(self.ln1(x), train=train, generator=generator)
-        x = x + self.drop(h, train=train, generator=generator)
-        x, self.net_state = self._mlp(x, train, generator)
-        return x
+        return self.run(x, LocalRun(train, generator))
+
+    def run(self, x, run):
+        """The forward under ``run`` (``nn.run``: one device, or the
+        parallel step's streams)."""
+        h = run.layer(self.attn, run.layer(self.ln1, x))
+        x = run.add(x, run.layer(self.drop, h))
+        h = run.layer(self.ln2, x)
+        if self.moe is not None:
+            h = run.layer(self.moe, h)
+            self.net_state = {"aux_loss": self.moe.last_aux}
+        else:
+            h = run.mlp(self.fc, [self.fc], self.proj, h)
+            self.net_state = {}
+        return run.add(x, run.layer(self.drop, h))
 
     def init_cache(self, batch: int, max_len: int):
         return self.attn.init_cache(batch, max_len)

@@ -1,116 +1,180 @@
-"""Data parallelism and FSDP parameter sharding
-(``tnn_tpu.parallel.data_parallel``).
+"""Data, tensor, sequence and expert parallelism with FSDP parameter
+sharding (``tnn_tpu.parallel.data_parallel``).
 
-``make_dp_train_step`` runs the single-device step over the global batch
-with the batch cut over the mesh's data x fsdp positions (data major), one
-model replica a position, all in one thread and one autograd graph:
+In the JAX package every layout is a sharding annotation on the
+single-device step, so a layout's loss, gradients and parameters are the
+single-device step's up to the order of its sums. ``make_dp_train_step``
+holds the port to that in one process and one autograd graph, over the
+mesh's positions (data, fsdp, model, seq, expert; a position is a
+device, and a device may repeat):
 
-* each microbatch of ``grad_accum`` is cut from the global batch as
-  ``train.step.make_train_step`` cuts it, then split over the replicas;
-* the replicas' forwards run in lockstep (``lockstep``): containers child
-  by child, and a training BatchNorm normalizes every shard by the global
-  batch's statistics, summed over the replicas inside the graph, so its
-  running statistics are the single-device step's;
-* the loss is the global mean, its one backward fills each replica's
-  gradients, and ``mesh.all_reduce`` (``mesh.reduce_scatter`` for a
-  sharded leaf) reduces them once;
-* one optimizer update runs over the owned tree: each replicated leaf
-  once (the first position's), each FSDP leaf as its shards, shard f
-  being the slice of position (0, f)'s replica, its moments beside it;
-  the new values go back to every replica (``mesh.all_gather`` for the
-  shards).
+* **The layout.** Each parameter's spec merges the enabled rule sets in
+  the JAX order, first non-replicated wins: ``tp`` (``tensor_parallel.
+  DEFAULT_TP_RULES``, "model"), ``ep`` (``nn.moe.ep_rules``, "expert"),
+  ``fsdp`` (``fsdp_spec_tree``). Between steps every position holds its
+  own copy of each replicated leaf and only its piece of each sharded
+  one (``tensor_split`` along the spec's dim; the fused qkv columns are
+  taken per head first, ``tensor_parallel._permute_qkv``, so a "model"
+  position holds whole heads); the model's own tensors of sharded leaves
+  are emptied until ``write_back``. The optimizer state lives with the
+  first holder of each piece ("owned"), so moments follow their
+  parameter's sharding.
+* **Streams.** The batch is cut over the data x fsdp positions (data
+  major) and, for (B, S) token inputs, S over the seq positions: one
+  stream a (data, fsdp, seq) position, whose activations live on its
+  lead position (model and expert index 0). Math that every "model" or
+  "expert" position would repeat (embeddings, norms, residuals, a model
+  with no TP leaf) runs once a stream, on the lead, as ``serving/tp.py``
+  runs it.
+* **The lockstep forward** (``_Run``) walks containers child by child.
+  ``GPT2``, ``Llama`` and their blocks run their own forward with the
+  lockstep as its run (``nn.run``: ``layer``, ``add``, ``mlp``), so a
+  model has one forward; ``_Run`` supplies only the layers whose
+  products are sharded or whose inputs cross streams (attention, through
+  the layer's own projections; the MLP's column and row products; MoE;
+  the embeddings; BatchNorm) and the head. Any other module runs stream
+  by stream with its parameters as its lead position holds them. Its
+  collective points,
+  each a ``mesh`` function: a training BatchNorm normalizes by the global
+  batch's statistics; under "model" each position runs the column pieces
+  of qkv / fc / gate / up over its H/tp heads (K4 / K7 for a "pallas"
+  model on CUDA) and one ``all_reduce`` follows each row-parallel product
+  (out / proj / down), its bias added once; the token table is split over
+  the vocabulary, its lookup masked and all-reduced, and the tied head's
+  logits stay vocab-sharded into a cross entropy whose max and
+  sum-of-exp are reduced over the "model" positions (on the chunked head
+  loss too, ``lm_head_chunk``); under "seq" ``wpe`` and RoPE take the
+  stream's global offset and attention runs the active ``ring_context``'s
+  method ("ring" without one) over the seq positions of the same rows; at
+  a ``MoE`` every stream's tokens are concatenated in global (row,
+  position) order and routed once, so top-k, capacity and the aux loss
+  count the global batch, the experts of each "expert" position computed
+  there on its slice.
+* **FSDP's parameter sharding.** A leaf sharded over "fsdp" is whole
+  only while its layer runs: gathered at use, under a checkpoint that
+  gathers it again for the backward, so autograd keeps no gathered copy
+  between the two. Each position's gradient of the whole leaf is kept
+  (per microbatch, then summed as ``.grad`` accumulates) and
+  reduce-scattered in position order, the arithmetic of the replicated
+  layout: losses and parameters equal plain data parallelism over the
+  same positions bit for bit (the optimizer-state-only FSDP before it).
+* **The update.** The loss is the global mean over the streams plus the
+  MoE layers' aux loss (once); one backward; each piece's gradient is the
+  sum over its holders in position order; one optimizer update over the
+  owned tree; the new values copied to every other holder.
 
-FSDP here shards the optimizer state and its update only: every
-position's replica holds the whole parameters and the whole gradients
-between steps (the lockstep forward needs them), so a position's memory
-is plain data parallelism's less the moments of the shards it does not
-own. Sharding the parameters themselves (gathered layer by layer at use)
-is ROADMAP.md item 11.4.
+Dropout: every stream on the device of the state's generator draws from
+that generator, the streams in lockstep order; a stream on another device
+draws from a generator of that device seeded, each microbatch, from a
+digest of the state's generator. ``remat`` replays all of them. Under
+"model" and "seq" the masks are not the single-device step's.
 
-Dropout: every replica on the device of the state's generator draws from
-that generator, the replicas in lockstep order; a replica on another
-device draws from a generator of that device seeded, each microbatch,
-from a digest of the state's generator. So every mask follows from the
-run's seed and from the generator state a checkpoint keeps, and
-``remat`` replays all of them.
-
-``fsdp_spec_tree`` picks the sharded leaves as the JAX package does: a
-leaf of at least ``min_size`` elements shards its first dim divisible by
-the fsdp size. A spec is a tuple like JAX's ``PartitionSpec``: ``()``
-replicated, ``(None, "fsdp")`` sharded on dim 1.
-
-Not ported (ROADMAP.md item 11.4): ``tp=True`` and ``ep=True``, and MoE
-models under data parallelism (the JAX layer's capacity counts the global
-batch's tokens; per-replica routing would drop others).
+``TrainState.layout`` gathers every sharded leaf back to JAX's full
+layout (``trees``) and places a full-layout state (``load``), so a
+checkpoint of any layout loads into JAX's templates and back.
 """
 from __future__ import annotations
 
-import copy
+import contextlib
 import dataclasses
 import hashlib
-from typing import Any, Callable, Dict, List, Optional
+import itertools
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core.rng import make_generator
 from ..nn import losses as losses_lib
 from ..nn import metrics as metrics_lib
+from ..nn.attention import (MultiHeadAttention, active_ring_context,
+                            apply_rope, sdpa)
 from ..nn.blocks import Parallel, Residual, Sequential
+from ..nn.embedding import Embedding, PositionalEmbedding
+from ..nn.layers import Dropout
+from ..nn.lm_loss import lm_head_loss, lm_head_lse
+from ..nn.moe import MoE, ep_rules
 from ..nn.norms import BatchNorm
 from ..nn.schedulers import NoOp
+from ..nn.transformer import GPTBlock
+from ..ops.quant_matmul import qmatmul
 from ..train.step import TrainState, apply_update, has_moe, microbatches, \
-    remat_call, resolve_remat_policy, step_metrics, train_state_trees
+    moe_aux_loss, remat_call, resolve_remat_policy, step_metrics, \
+    train_state_trees
 from . import mesh as mesh_lib
 from .mesh import Mesh
+from .ring_attention import ring_attention_local
+from .tensor_parallel import _permute_qkv, _unpermute_qkv, spec_for
+from .ulysses import check_ulysses, ulysses_attention_local
 
-_NOT_PORTED = "not ported yet (ROADMAP.md item 11.4)"
+#: the layout's axes, in mesh order (a pipe axis runs ``parallel.pipeline``)
+AXES = ("data", "fsdp", "model", "seq", "expert")
+_AX = {a: i for i, a in enumerate(AXES)}
 
 
 def fsdp_spec_tree(params, mesh: Mesh, min_size: int = 2 ** 16):
     """A spec a leaf of ``params`` (nested dicts of anything with a
     ``shape``): ``("fsdp" at its first dim divisible by the fsdp size)``
     for a leaf of at least ``min_size`` elements, ``()`` else."""
-    fsdp = mesh_lib.axis_size(mesh, "fsdp")
-
-    def spec_for(x):
-        shape = tuple(x.shape)
-        size = 1
-        for d in shape:
-            size *= d
-        if fsdp <= 1 or size < min_size:
-            return ()
-        for dim, d in enumerate(shape):
-            if d % fsdp == 0:
-                spec = [None] * len(shape)
-                spec[dim] = "fsdp"
-                return tuple(spec)
-        return ()
-
     if isinstance(params, dict):
         return {k: fsdp_spec_tree(v, mesh, min_size)
                 for k, v in params.items()}
-    return spec_for(params)
+    return _fsdp_spec(tuple(params.shape), mesh_lib.axis_size(mesh, "fsdp"),
+                      min_size)
 
 
-def _fsdp_dim(spec) -> Optional[int]:
-    return spec.index("fsdp") if "fsdp" in spec else None
+def _fsdp_spec(shape, fsdp: int, min_size: int) -> Tuple:
+    size = 1
+    for d in shape:
+        size *= d
+    if fsdp <= 1 or size < min_size:
+        return ()
+    for dim, d in enumerate(shape):
+        if d % fsdp == 0:
+            spec = [None] * len(shape)
+            spec[dim] = "fsdp"
+            return tuple(spec)
+    return ()
+
+
+def _spec_axis(spec) -> Tuple[Optional[str], Optional[int]]:
+    """(axis, dim) of a leaf's spec; (None, None) when replicated."""
+    for dim, a in enumerate(spec):
+        if a is not None:
+            return a, dim
+    return None, None
+
+
+def _coords(mesh: Mesh) -> List[Tuple[int, ...]]:
+    """The (data, fsdp, model, seq, expert) coordinates of every position,
+    in mesh order."""
+    if mesh_lib.axis_size(mesh, "pipe") > 1:
+        raise ValueError("a pipe axis runs through parallel.pipeline "
+                         "(make_pipeline_train_step), not make_dp_train_step")
+    return list(itertools.product(*(range(mesh_lib.axis_size(mesh, a))
+                                    for a in AXES)))
+
+
+def _device(mesh: Mesh, c) -> torch.device:
+    d, f, m, s, e = c
+    return mesh.devices[d, f, m, 0, s, e]
 
 
 def place_by_specs(params, mesh: Mesh, specs):
-    """Each leaf placed per its spec: one tensor a data x fsdp position
-    (data major), the whole leaf where it is replicated, the position's
-    fsdp shard where it is sharded."""
+    """Each leaf placed per its spec: one tensor a mesh position (mesh
+    order), the whole leaf where it is replicated, the position's piece
+    (``tensor_split`` along the spec's dim) where it is sharded."""
     if isinstance(params, dict):
         return {k: place_by_specs(v, mesh, specs[k]) for k, v in
                 params.items()}
-    devices = _positions(mesh)
-    fsdp = mesh_lib.axis_size(mesh, "fsdp")
+    coords = _coords(mesh)
     x = torch.as_tensor(params)
-    dim = _fsdp_dim(specs)
-    if dim is None:
-        return [x.to(d) for d in devices]
-    pieces = x.chunk(fsdp, dim=dim)
-    return [pieces[i % fsdp].to(d) for i, d in enumerate(devices)]
+    axis, dim = _spec_axis(specs)
+    if axis is None:
+        return [x.to(_device(mesh, c)) for c in coords]
+    pieces = x.tensor_split(mesh_lib.axis_size(mesh, axis), dim=dim)
+    return [pieces[c[_AX[axis]]].to(_device(mesh, c)) for c in coords]
 
 
 def shard_params_fsdp(params, mesh: Mesh, min_size: int = 2 ** 16):
@@ -119,134 +183,347 @@ def shard_params_fsdp(params, mesh: Mesh, min_size: int = 2 ** 16):
                                                        min_size))
 
 
-def _positions(mesh: Mesh) -> List[torch.device]:
-    """The data x fsdp positions' devices, data major."""
-    other = {k: v for k, v in mesh.shape.items()
-             if k not in ("data", "fsdp") and v > 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} with data parallelism are {_NOT_PORTED}")
-    return list(mesh.devices.reshape(-1))
+class _Gather(torch.autograd.Function):
+    """A sharded leaf made whole at one position; its gradient (the whole
+    leaf's, at that position) is handed to the layout, which reduces it
+    in position order (``DataParallel.reduce_grads``)."""
 
+    @staticmethod
+    def forward(ctx, anchor, layout, name, c):
+        ctx.key = (layout, name, c)
+        return layout.join_at(name, c)
 
-# -- the replicas' lockstep forward ----------------------------------------
-
-
-def lockstep(mods, xs, train: bool, generators) -> List[torch.Tensor]:
-    """The forward of replica modules ``mods`` over their shards ``xs``,
-    one autograd graph: a ``Sequential`` child by child, a ``Residual``
-    or ``Parallel`` branch by branch, a training ``BatchNorm`` by the
-    statistics of all shards together; any other module replica by
-    replica. A training module that holds a BatchNorm elsewhere raises
-    (its statistics would be the shard's)."""
-    head = mods[0]
-    if isinstance(head, Sequential):
-        for children in zip(*(m.layers for m in mods)):
-            xs = lockstep(list(children), xs, train, generators)
-        return xs
-    if isinstance(head, Residual):
-        ys = lockstep([m.layers[0] for m in mods], xs, train, generators)
-        short = xs if len(head.layers) == 1 else lockstep(
-            [m.layers[1] for m in mods], xs, train, generators)
-        return [m.merge(y, s) for m, y, s in zip(mods, ys, short)]
-    if isinstance(head, Parallel):
-        branches = [lockstep([m.layers[i] for m in mods], xs, train,
-                             generators) for i in range(len(head.layers))]
-        return [m.merge([b[r] for b in branches])
-                for r, m in enumerate(mods)]
-    if isinstance(head, BatchNorm) and train:
-        return _global_batchnorm(mods, xs)
-    if train and any(isinstance(c, BatchNorm) for c in head.modules()):
-        raise NotImplementedError(
-            f"{type(head).__name__} holds a BatchNorm outside a "
-            "Sequential / Residual / Parallel: its data-parallel "
-            f"statistics are {_NOT_PORTED}")
-    return [m(x, train=train, generator=g)
-            for m, x, g in zip(mods, xs, generators)]
-
-
-def _global_batchnorm(mods, xs):
-    """Every shard normalized by the global batch's mean and variance:
-    the shards' sums added in position order (``mesh.all_reduce``)."""
-    dims = tuple(range(xs[0].ndim - 1))
-    count = sum(x.numel() // x.shape[-1] for x in xs)
-    s1 = mesh_lib.all_reduce([x.float().sum(dim=dims) for x in xs])
-    s2 = mesh_lib.all_reduce([(x.float() * x.float()).sum(dim=dims)
-                              for x in xs])
-    out = []
-    for m, x, a, b in zip(mods, xs, s1, s2):
-        mean = a / count
-        var = (b / count - mean * mean).clamp_min(0.0)
-        out.append(m.normalize(x, mean, var))
-    return out
+    @staticmethod
+    def backward(ctx, g):
+        layout, name, c = ctx.key
+        layout.stash_grad(name, c, g)
+        return None, None, None, None
 
 
 # -- the layout -------------------------------------------------------------
 
 
 class DataParallel:
-    """The replicas, the owned tree (replicated leaves and FSDP shards)
-    and its optimizer state of a data-parallel run. A ``TrainState``'s
-    ``layout``: it gives the JAX-layout trees (``trees``: shards
-    gathered) and loads them (``load``: placed again)."""
+    """What every position holds of a parallel run (the module
+    docstring): ``held[c][name]``, the owned pieces and their optimizer
+    state. A ``TrainState``'s ``layout``: it gives the JAX-layout trees
+    (``trees``: pieces gathered) and loads them (``load``: placed
+    again)."""
 
-    def __init__(self, model, mesh: Mesh, fsdp: bool,
+    def __init__(self, model, mesh: Mesh, fsdp: bool = False,
+                 tp: bool = False, ep: bool = False,
                  min_size: int = 2 ** 16):
         self.mesh = mesh
-        self.devices = _positions(mesh)
-        self.fsdp = mesh_lib.axis_size(mesh, "fsdp") if fsdp else 1
-        dev = next(model.parameters()).device
-        if dev != self.devices[0]:
+        self.coords = _coords(mesh)
+        self.size = {a: mesh_lib.axis_size(mesh, a) for a in AXES}
+        self.dev = {c: _device(mesh, c) for c in self.coords}
+        self.devices = [self.dev[c] for c in self.coords]
+        params = dict(model.named_parameters())
+        if any(p.numel() == 0 for p in params.values()):
+            raise ValueError("the model's sharded parameters are held by "
+                             "another layout: call its write_back() first")
+        first = self.devices[0]
+        dev = next(iter(params.values())).device
+        if dev != first:
             raise ValueError(f"the model lives on {dev}; the mesh's first "
-                             f"position is {self.devices[0]}")
+                             f"position is {first}")
         self.model = model
-        self.replicas = [model] + [copy.deepcopy(model).to(d)
-                                   for d in self.devices[1:]]
-        self.named = [dict(r.named_parameters()) for r in self.replicas]
-        params = self.named[0]
-        specs = fsdp_spec_tree(params, mesh, min_size) if fsdp else \
-            {n: () for n in params}
-        self.dims = {n: _fsdp_dim(s) for n, s in specs.items()}
-        # shard f of a sharded leaf lives on the device of position (0, f)
-        self.shard_devices = self.devices[:self.fsdp]
-        self.owned = {n: p if self.dims[n] is None else self._shards(n)
-                      for n, p in params.items()}
+        keys = {}
+        by_id = {id(p): n for n, p in params.items()}
+        for path, t in getattr(model, "jax_param_paths", list)():
+            if id(t) in by_id:
+                keys[by_id[id(t)]] = "/".join(path)
+        self.axis: Dict[str, Optional[str]] = {}
+        self.dim: Dict[str, Optional[int]] = {}
+        for n, p in params.items():
+            specs = []
+            if tp:
+                specs.append(spec_for(keys.get(n, n)))
+            if ep:
+                specs.append(spec_for(keys.get(n, n), ep_rules()))
+            if fsdp:
+                specs.append(_fsdp_spec(tuple(p.shape), self.size["fsdp"],
+                                        min_size))
+            spec = next((s for s in specs if s), ())
+            axis, dim = _spec_axis(spec)
+            if axis is not None and self.size[axis] == 1:
+                axis = dim = None
+            self.axis[n], self.dim[n] = axis, dim
+        self._qkv = {}
+        self._names: Dict[int, List[Tuple[str, str]]] = {}
+        for prefix, m in model.named_modules():
+            self._names[id(m)] = [
+                (rel, f"{prefix}.{rel}" if prefix else rel)
+                for rel, _ in m.named_parameters()]
+            if isinstance(m, MultiHeadAttention):
+                for rel in ("qkv_kernel", "qkv_bias"):
+                    n = f"{prefix}.{rel}" if prefix else rel
+                    if self.axis.get(n) == "model":
+                        self._check_heads(m)
+                        self._qkv[n] = (m.num_heads, m.num_kv_heads,
+                                        m.head_dim, self.size["model"])
+        self.held: Dict[Tuple, Dict[str, torch.Tensor]] = {
+            c: {} for c in self.coords}
+        self.starts: Dict[str, List[int]] = {}
+        self.shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self.anchor = torch.zeros((), requires_grad=True)
+        with torch.no_grad():
+            for n, p in params.items():
+                pieces = self._split(n, p.detach())
+                self.starts[n] = [0]
+                for piece in pieces[:-1]:
+                    d = self.dim[n] or 0
+                    self.starts[n].append(self.starts[n][-1]
+                                          + piece.shape[d])
+                for c in self.coords:
+                    if c == self.coords[0] and self.axis[n] is None:
+                        self.held[c][n] = p
+                        continue
+                    t = pieces[self.piece_of(n, c)].to(
+                        self.dev[c], copy=True).contiguous()
+                    self.held[c][n] = t.requires_grad_(p.requires_grad)
+                if self.axis[n] is not None:
+                    p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self.owners = {n: self._owners(n) for n in params}
+        self.owned = {n: self._owned(n) for n in params}
+        self._mb_grads: Dict[Tuple[str, Tuple], torch.Tensor] = {}
+        self._grads: Dict[Tuple[str, Tuple], torch.Tensor] = {}
 
-    def _shards(self, name: str) -> Dict[str, torch.Tensor]:
-        """Shard f of a sharded leaf: a view of its slice in replica f
-        (position (0, f)), which the update writes in place."""
-        return {str(f): self.named[f][name].detach().chunk(
-            self.fsdp, dim=self.dims[name])[f] for f in range(self.fsdp)}
+    def _check_heads(self, attn) -> None:
+        tp = self.size["model"]
+        if attn.num_heads % tp or attn.num_kv_heads % tp:
+            raise ValueError(
+                f"tensor parallelism over {tp} positions needs num_heads "
+                f"({attn.num_heads}) and num_kv_heads ({attn.num_kv_heads}) "
+                f"divisible by {tp}: each position holds whole heads")
 
-    def generators(self, generator: torch.Generator
+    # -- pieces ----------------------------------------------------------
+
+    def piece_of(self, n: str, c) -> int:
+        a = self.axis[n]
+        return 0 if a is None else c[_AX[a]]
+
+    def pieces(self, n: str) -> int:
+        a = self.axis[n]
+        return 1 if a is None else self.size[a]
+
+    def _split(self, n: str, full: torch.Tensor) -> List[torch.Tensor]:
+        if self.axis[n] is None:
+            return [full]
+        if n in self._qkv:
+            full = _permute_qkv(full, *self._qkv[n])
+        return list(full.tensor_split(self.pieces(n), dim=self.dim[n]))
+
+    def _join(self, n: str, pieces, device) -> torch.Tensor:
+        if self.axis[n] is None:
+            return pieces[0].to(device)
+        full = torch.cat([p.to(device) for p in pieces], dim=self.dim[n])
+        if n in self._qkv:
+            full = _unpermute_qkv(full, *self._qkv[n])
+        return full
+
+    def _at_piece(self, c, n: str, j: int):
+        a = self.axis[n]
+        c = list(c)
+        c[_AX[a]] = j
+        return tuple(c)
+
+    def join_at(self, n: str, c) -> torch.Tensor:
+        """Leaf ``n`` whole on position ``c``'s device, from the pieces of
+        the positions that share c's other coordinates."""
+        with torch.no_grad():
+            if self.axis[n] is None:
+                return self._join(n, [self.held[c][n]], self.dev[c])
+            return self._join(n, [self.held[self._at_piece(c, n, j)][n]
+                                  for j in range(self.pieces(n))],
+                              self.dev[c])
+
+    def _owners(self, n: str) -> List[Tuple]:
+        out = {}
+        for c in self.coords:
+            out.setdefault(self.piece_of(n, c), c)
+        return [out[j] for j in range(self.pieces(n))]
+
+    def _owned(self, n: str):
+        if self.axis[n] is None:
+            return self.held[self.coords[0]][n]
+        return {str(j): self.held[c][n].detach()
+                for j, c in enumerate(self.owners[n])}
+
+    def sharded_names(self) -> List[str]:
+        return [n for n, a in self.axis.items() if a is not None]
+
+    def names_of(self, module) -> List[Tuple[str, str]]:
+        """(name in ``module``, name in the model) of its parameters."""
+        return self._names[id(module)]
+
+    def leaf(self, n: str, c, whole: bool = True) -> torch.Tensor:
+        """Leaf ``n`` as position ``c`` uses it: its own copy (replicated),
+        its piece (``whole=False``), or made whole (``_Gather``)."""
+        if self.axis[n] is None or not whole:
+            return self.held[c][n]
+        if torch.is_grad_enabled():
+            return _Gather.apply(self.anchor, self, n, c)
+        return self.join_at(n, c)
+
+    def gathers(self, names) -> bool:
+        return any(self.axis[n] is not None for n in names)
+
+    def position_bytes(self, opt_state=None) -> Dict[Tuple, Dict[str, int]]:
+        """Per position, the bytes of the parameters it holds and (given
+        the state's ``opt_state``) of the moments of the pieces it owns."""
+        out = {c: {"params": sum(t.numel() * t.element_size()
+                                 for t in self.held[c].values()),
+                   "moments": 0} for c in self.coords}
+        for val in (opt_state or {}).values():
+            if not isinstance(val, dict):
+                continue
+            for n, t in val.items():
+                parts = t.values() if isinstance(t, dict) else [t]
+                for c, part in zip(self.owners[n], parts):
+                    out[c]["moments"] += part.numel() * part.element_size()
+        return out
+
+    # -- streams ---------------------------------------------------------
+
+    def lead(self, d: int, f: int, s: int) -> Tuple:
+        return (d, f, 0, s, 0)
+
+    def streams(self, seq_split: bool) -> List[Tuple[int, int, int]]:
+        seq = self.size["seq"] if seq_split else 1
+        return [(d, f, s) for d in range(self.size["data"])
+                for f in range(self.size["fsdp"]) for s in range(seq)]
+
+    def seq_split(self, x: torch.Tensor) -> bool:
+        """Whether a batch cuts over the seq positions: (B, S) token
+        ids."""
+        if self.size["seq"] == 1 or x.ndim != 2 or x.is_floating_point():
+            return False
+        if x.shape[1] % self.size["seq"]:
+            raise ValueError(f"sequence length {x.shape[1]} not divisible "
+                             f"by the seq mesh size {self.size['seq']}")
+        return True
+
+    def split(self, x: torch.Tensor, seq_split: bool) -> List[torch.Tensor]:
+        groups = self.size["data"] * self.size["fsdp"]
+        if x.shape[0] % groups:
+            raise ValueError(f"batch {x.shape[0]} not divisible by the "
+                             f"data x fsdp mesh size {groups}")
+        seq = self.size["seq"] if seq_split else 1
+        out = []
+        for (d, f, s) in self.streams(seq_split):
+            rows = x.chunk(groups)[d * self.size["fsdp"] + f]
+            if seq_split:
+                rows = rows.chunk(seq, dim=1)[s]
+            out.append(rows.to(self.dev[self.lead(d, f, s)]))
+        return out
+
+    def generators(self, generator: torch.Generator, streams
                    ) -> List[torch.Generator]:
-        """The generator each replica's forward draws from (the module
-        docstring): ``generator`` on its own device, elsewhere one a
-        device seeded from a digest of ``generator``'s state."""
+        """The generator each stream's forward draws from (the module
+        docstring): ``generator`` on its own device, elsewhere one a device
+        seeded from a digest of ``generator``'s state."""
         by_device = {generator.device: generator}
         digest = None
         out = []
-        for d in self.devices:
-            if d not in by_device:
+        for (d, f, s) in streams:
+            dev = self.dev[self.lead(d, f, s)]
+            if dev not in by_device:
                 if digest is None:
                     digest = hashlib.blake2b(
                         generator.get_state().numpy().tobytes(),
                         digest_size=8).digest()
-                seed = hashlib.blake2b(digest + str(d).encode(),
+                seed = hashlib.blake2b(digest + str(dev).encode(),
                                        digest_size=8).digest()
-                by_device[d] = make_generator(
-                    int.from_bytes(seed, "little") >> 1, d)
-            out.append(by_device[d])
+                by_device[dev] = make_generator(
+                    int.from_bytes(seed, "little") >> 1, dev)
+            out.append(by_device[dev])
         return out
 
-    def sharded_names(self) -> List[str]:
-        return [n for n, d in self.dims.items() if d is not None]
+    # -- gradients -------------------------------------------------------
 
-    # -- optimizer state between the owned and the full layouts -------------
+    def stash_grad(self, n: str, c, g: torch.Tensor) -> None:
+        key = (n, c)
+        prev = self._mb_grads.get(key)
+        self._mb_grads[key] = g if prev is None else prev + g
+
+    def fold_grads(self) -> None:
+        """After a microbatch's backward: its gradients of gathered leaves
+        added to the step's, as ``.grad`` accumulates."""
+        for key, g in self._mb_grads.items():
+            prev = self._grads.get(key)
+            self._grads[key] = g if prev is None else prev + g
+        self._mb_grads = {}
+
+    @torch.no_grad()
+    def reduce_grads(self, scale: float = 1.0) -> Dict[str, Any]:
+        """Every piece's gradient, summed over its holders in position
+        order (``mesh.all_reduce``; ``mesh.reduce_scatter`` for an fsdp
+        leaf), in the owned layout."""
+        grads = {}
+        for n, own in self.owned.items():
+            axis = self.axis[n]
+            if axis == "fsdp":
+                parts = []
+                for c in self.coords:
+                    g = self._grads.get((n, c))
+                    parts.append(g if g is not None else torch.zeros(
+                        self.shapes[n], dtype=self.held[c][n].dtype,
+                        device=self.dev[c]))
+                if scale != 1.0:
+                    parts = [g * scale for g in parts]
+                pieces = mesh_lib.reduce_scatter(
+                    parts, self.dim[n], [self.dev[c] for c in
+                                         self.owners[n]])
+                grads[n] = {str(j): g for j, g in enumerate(pieces)}
+                continue
+            by_piece: Dict[int, List[torch.Tensor]] = {}
+            for c in self.coords:
+                j = self.piece_of(n, c)
+                t = self.held[c][n]
+                parts = by_piece.setdefault(j, [])
+                if t.grad is not None:
+                    parts.append(t.grad)
+                g = self._grads.get((n, c))
+                if g is not None:
+                    for jj, piece in enumerate(self._split(n, g)):
+                        by_piece.setdefault(jj, []).append(piece)
+            out = {}
+            for j, owner in enumerate(self.owners[n]):
+                parts = by_piece.get(j) or [torch.zeros_like(
+                    self.held[owner][n])]
+                if scale != 1.0:
+                    parts = [g * scale for g in parts]
+                out[str(j)] = mesh_lib.all_reduce(parts)[0].to(
+                    self.dev[owner])
+            grads[n] = out["0"] if axis is None else out
+        for c in self.coords:
+            for t in self.held[c].values():
+                t.grad = None
+        self._grads, self._mb_grads = {}, {}
+        return grads
+
+    @torch.no_grad()
+    def broadcast(self) -> None:
+        """Every holder's copy from the owned tree."""
+        for n, own in self.owned.items():
+            for c in self.coords:
+                src = own if self.axis[n] is None else \
+                    own[str(self.piece_of(n, c))]
+                dst = self.held[c][n]
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+
+    # -- the full layout ---------------------------------------------------
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """Every leaf whole on the first position's device (new tensors)."""
+        first = self.coords[0]
+        return {n: self.join_at(n, first).detach().clone()
+                for n in self.axis}
 
     def full_opt_state(self, opt_state) -> Dict[str, Any]:
-        """The optimizer state with every sharded moment gathered (new
-        tensors on the first position's device)."""
+        """The optimizer state with every sharded moment gathered."""
         out = {}
         for key, val in opt_state.items():
             if not isinstance(val, dict):
@@ -255,9 +532,9 @@ class DataParallel:
             out[key] = {}
             for n, t in val.items():
                 if isinstance(t, dict):
-                    t = torch.cat([t[str(f)].to(self.devices[0])
-                                   for f in range(self.fsdp)],
-                                  dim=self.dims[n])
+                    t = self._join(n, [t[str(j)] for j in
+                                       range(self.pieces(n))],
+                                   self.devices[0])
                 out[key][n] = t
         return out
 
@@ -271,91 +548,461 @@ class DataParallel:
             for n, t in val.items():
                 src = torch.as_tensor(full[key][n])
                 if isinstance(t, dict):
-                    for f, piece in enumerate(src.chunk(self.fsdp,
-                                                        dim=self.dims[n])):
-                        t[str(f)].copy_(piece)
+                    for j, piece in enumerate(self._split(n, src)):
+                        t[str(j)].copy_(piece)
                 else:
                     t.copy_(src)
 
     @torch.no_grad()
-    def broadcast(self) -> None:
-        """Every replica's parameters and state buffers from the owned
-        tree: replicated leaves copied from the first replica, sharded
-        ones gathered (``mesh.all_gather``)."""
-        for n, own in self.owned.items():
-            if isinstance(own, dict):
-                fulls = mesh_lib.all_gather(
-                    [own[str(f)] for f in range(self.fsdp)], self.dims[n],
-                    self.devices)
-                for named, full in zip(self.named, fulls):
-                    named[n].copy_(full)
-            else:
-                for named in self.named[1:]:
-                    named[n].copy_(own)
-        buffers = dict(self.model.named_buffers())
-        for rep in self.replicas[1:]:
-            for n, b in rep.named_buffers():
-                b.copy_(buffers[n])
+    def set_params(self, full: Dict[str, torch.Tensor]) -> None:
+        """Every holder's copy from whole leaves."""
+        for n, t in full.items():
+            pieces = self._split(n, torch.as_tensor(t))
+            for c in self.coords:
+                self.held[c][n].copy_(pieces[self.piece_of(n, c)])
 
     @torch.no_grad()
-    def scatter_params(self) -> None:
-        """The owned shards from the first replica's full parameters."""
-        for n, own in self.owned.items():
-            if isinstance(own, dict):
-                pieces = self.named[0][n].chunk(self.fsdp, dim=self.dims[n])
-                for f, piece in enumerate(pieces):
-                    own[str(f)].copy_(piece)
-
-    # -- TrainState layout ------------------------------------------------
+    def write_back(self, model=None) -> None:
+        """Put every sharded leaf whole into the model's own tensors (they
+        are empty during the run)."""
+        params = dict((model or self.model).named_parameters())
+        for n in self.sharded_names():
+            params[n].data = self.join_at(n, self.coords[0]).detach()
 
     def trees(self, state: TrainState) -> Dict[str, Any]:
-        full = dataclasses.replace(state, layout=None,
-                                   opt_state=self.full_opt_state(
-                                       state.opt_state))
+        full = dataclasses.replace(
+            state, layout=None, params=self.full_params(),
+            opt_state=self.full_opt_state(state.opt_state))
         return train_state_trees(full)
 
     def load(self, state: TrainState, params=None, opt_state=None,
              net_state=None) -> None:
         from ..train.step import load_jax_train_state
 
+        full_params = self.full_params()
         full_opt = self.full_opt_state(state.opt_state)
-        plain = dataclasses.replace(state, layout=None, opt_state=full_opt)
+        plain = dataclasses.replace(state, layout=None, params=full_params,
+                                    opt_state=full_opt)
         load_jax_train_state(plain, params=params, opt_state=opt_state,
                              net_state=net_state)
         if opt_state is not None:
             self.set_opt_state(state.opt_state, full_opt)
-        self.scatter_params()
-        self.broadcast()
+        self.set_params(full_params)
 
-    # -- the pieces of a step ------------------------------------------------
 
-    def split(self, x: torch.Tensor) -> List[torch.Tensor]:
-        n = len(self.devices)
-        if x.shape[0] % n:
-            raise ValueError(f"batch {x.shape[0]} not divisible by the "
-                             f"data x fsdp mesh size {n}")
-        return [s.to(d) for s, d in zip(x.chunk(n), self.devices)]
+# -- the lockstep forward ---------------------------------------------------
 
-    @torch.no_grad()
-    def reduce_grads(self, scale: float = 1.0) -> Dict[str, Any]:
-        """The replicas' gradients reduced once, in the owned layout."""
-        grads = {}
-        for n, own in self.owned.items():
-            parts = [named[n].grad if named[n].grad is not None
-                     else torch.zeros_like(named[n])
-                     for named in self.named]
-            if scale != 1.0:
-                parts = [g * scale for g in parts]
-            if isinstance(own, dict):
-                pieces = mesh_lib.reduce_scatter(parts, self.dims[n],
-                                                 self.shard_devices)
-                grads[n] = {str(f): g for f, g in enumerate(pieces)}
+
+@contextlib.contextmanager
+def _using(pairs):
+    """Run with each module's parameters replaced (``(module, {name:
+    tensor})`` pairs)."""
+    with contextlib.ExitStack() as stack:
+        for mod, params in pairs:
+            stack.enter_context(_reparametrize_module(mod, params))
+        yield
+
+
+class _Run:
+    """One lockstep forward over the streams of ``layout`` (the module
+    docstring). Each handler maps a module and one activation a stream to
+    one output a stream."""
+
+    def __init__(self, layout: DataParallel, train: bool, streams,
+                 generators):
+        self.lay = layout
+        self.train = train
+        self.streams = streams
+        self.gens = generators
+        self.seq = len({s for (_, _, s) in streams})
+        ctx = active_ring_context()
+        self.method = ctx["method"] if ctx["mesh"] is not None else "ring"
+
+    # -- helpers ---------------------------------------------------------
+
+    def lead(self, i: int) -> Tuple:
+        d, f, s = self.streams[i]
+        return self.lay.lead(d, f, s)
+
+    def at(self, i: int, m: int = 0, e: int = 0) -> Tuple:
+        d, f, s = self.streams[i]
+        return (d, f, m, s, e)
+
+    def call(self, mods, c, fn, *args, rels=None, whole: bool = True):
+        """``fn(*args)`` with the parameters of ``mods`` (those named in
+        ``rels``, else all) as position ``c`` holds them: sharded ones made
+        whole, under a checkpoint, so the whole copies are gathered again
+        for the backward rather than kept; or, ``whole=False``, its
+        pieces."""
+        lay = self.lay
+        names = [(m, rel, full) for m in mods for rel, full in
+                 lay.names_of(m) if rels is None or rel in rels]
+
+        def body(*a):
+            pairs = []
+            for m in mods:
+                pairs.append((m, {rel: lay.leaf(full, c, whole) for mm, rel,
+                                  full in names if mm is m}))
+            with _using(pairs):
+                return fn(*a)
+
+        if whole and torch.is_grad_enabled() and \
+                lay.gathers(n for _, _, n in names):
+            return remat_call(body, None, self.gens, *args)
+        return body(*args)
+
+    def per_stream(self, mod, xs, fn=None):
+        fn = fn or (lambda x, g: mod(x, train=self.train, generator=g))
+        return [self.call([mod], self.lead(i), fn, x, g)
+                for i, (x, g) in enumerate(zip(xs, self.gens))]
+
+    def name(self, mod, rel: str) -> Optional[str]:
+        for r, full in self.lay.names_of(mod):
+            if r == rel:
+                return full
+        return None
+
+    def offset(self, i: int, x) -> int:
+        return self.streams[i][2] * x.shape[1]
+
+    # -- dispatch ------------------------------------------------------------
+
+    def forward(self, mod, xs, hidden: bool = False):
+        from ..models.gpt2 import GPT2
+        from ..models.llama import Llama, LlamaBlock
+
+        if isinstance(mod, (GPT2, Llama)):
+            h = mod.run_hidden(xs, self)
+            return h if hidden else [self.head(mod, t, i)
+                                     for i, t in enumerate(h)]
+        if isinstance(mod, Sequential):
+            for child in mod.layers:
+                xs = self.forward(child, xs)
+            return xs
+        if isinstance(mod, Residual):
+            ys = self.forward(mod.layers[0], xs)
+            short = xs if len(mod.layers) == 1 else self.forward(
+                mod.layers[1], xs)
+            return [mod.merge(y, s) for y, s in zip(ys, short)]
+        if isinstance(mod, Parallel):
+            branches = [self.forward(b, xs) for b in mod.layers]
+            return [mod.merge([b[i] for b in branches])
+                    for i in range(len(xs))]
+        if isinstance(mod, BatchNorm) and self.train:
+            return self.batchnorm(mod, xs)
+        if isinstance(mod, MoE):
+            return self.moe(mod, xs)
+        if isinstance(mod, (GPTBlock, LlamaBlock)):
+            return mod.run(xs, self)
+        if isinstance(mod, MultiHeadAttention):
+            return self.attention(mod, xs)
+        if isinstance(mod, Embedding):
+            return self.embed(mod, xs)
+        if isinstance(mod, PositionalEmbedding):
+            return self.positional(mod, xs)
+        if isinstance(mod, Dropout):
+            return [mod(x, train=self.train, generator=g)
+                    for x, g in zip(xs, self.gens)]
+        if self.train and any(isinstance(c, BatchNorm)
+                              for c in mod.modules()):
+            raise NotImplementedError(
+                f"{type(mod).__name__} holds a BatchNorm outside a "
+                "Sequential / Residual / Parallel: the lockstep forward "
+                "cannot give it the global batch's statistics")
+        if self.seq > 1 and any(isinstance(c, MultiHeadAttention)
+                                for c in mod.modules()):
+            raise ValueError(
+                f"{type(mod).__name__}: its attention would see one seq "
+                "position's slice; sequence parallelism runs the layers the "
+                "lockstep forward descends into (GPT2, Llama, blocks, "
+                "MultiHeadAttention in a Sequential)")
+        # a module the lockstep does not descend into sees its stream's
+        # whole input: attention inside it runs locally
+        with _no_ring():
+            return self.per_stream(mod, xs)
+
+    # -- handlers --------------------------------------------------------
+
+    def batchnorm(self, mod, xs):
+        """Every stream normalized by the global batch's statistics: the
+        streams' sums added in position order (``mesh.all_reduce``)."""
+        dims = tuple(range(xs[0].ndim - 1))
+        count = sum(x.numel() // x.shape[-1] for x in xs)
+        s1 = mesh_lib.all_reduce([x.float().sum(dim=dims) for x in xs])
+        s2 = mesh_lib.all_reduce([(x.float() * x.float()).sum(dim=dims)
+                                  for x in xs])
+        out = []
+        for i, (x, a, b) in enumerate(zip(xs, s1, s2)):
+            mean = a / count
+            var = (b / count - mean * mean).clamp_min(0.0)
+            out.append(self.call([mod], self.lead(i), mod.normalize, x, mean,
+                                 var))
+        return out
+
+    def moe(self, mod, xs):
+        """One routing over every stream's tokens in global (row,
+        position) order; the experts of each "expert" position computed on
+        its slice there; the output cut back into the streams."""
+        lay = self.lay
+        first = lay.coords[0]
+        dev = lay.dev[first]
+        groups = {}
+        for i, (d, f, s) in enumerate(self.streams):
+            groups.setdefault((d, f), []).append(xs[i])
+        rows = [torch.cat([x.to(dev) for x in g], dim=1)
+                for g in groups.values()]
+        x_all = torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
+        w_in = self.name(mod, "w_in")
+        stacks = [self.name(mod, r) for r in ("w_in", "b_in", "w_out",
+                                              "b_out")]
+        gate = [self.name(mod, "gate_kernel")]
+        ep = lay.axis[w_in] == "expert"
+
+        def route(x):
+            experts = None
+            if ep:
+                def experts(xe):
+                    outs = []
+                    for e, piece in enumerate(xe.tensor_split(
+                            lay.size["expert"])):
+                        c = (0, 0, 0, 0, e)
+                        w = [lay.leaf(n, c, whole=False) for n in stacks]
+                        outs.append(mod.expert_ffn(piece.to(lay.dev[c]), *w)
+                                    .to(xe.device))
+                    return torch.cat(outs)
             else:
-                grads[n] = mesh_lib.all_reduce(parts)[0]
-        for named in self.named:
-            for p in named.values():
-                p.grad = None
-        return grads
+                full = [lay.leaf(n, first) for n in stacks]
+
+                def experts(xe):
+                    return mod.expert_ffn(xe, *full)
+            with _using([(mod, {"gate_kernel": lay.leaf(gate[0], first)})]):
+                return mod._route(x, experts)
+
+        needs = gate + ([] if ep else stacks)
+        if torch.is_grad_enabled() and lay.gathers(needs):
+            out, aux = remat_call(route, None, self.gens, x_all)
+        else:
+            out, aux = route(x_all)
+        mod.last_aux = aux
+        if self.train:
+            mod.pending_state = {"aux_loss": aux.detach()}
+        outs = []
+        row_parts = out.chunk(len(rows), dim=0)
+        for i, (d, f, s) in enumerate(self.streams):
+            g = list(groups).index((d, f))
+            part = row_parts[g].chunk(self.seq, dim=1)[s] if self.seq > 1 \
+                else row_parts[g]
+            outs.append(part.to(xs[i].device))
+        return outs
+
+    def embed(self, mod, ids):
+        """The lookup; a vocab-sharded table masked on each "model"
+        position and all-reduced."""
+        lay = self.lay
+        n = self.name(mod, "table")
+        if lay.axis[n] != "model":
+            return self.per_stream(mod, ids)
+        out = []
+        for i, x in enumerate(ids):
+            parts = []
+            for m in range(lay.size["model"]):
+                c = self.at(i, m)
+                piece = lay.leaf(n, c, whole=False)
+                idx = x.to(lay.dev[c]) - lay.starts[n][m]
+                live = (idx >= 0) & (idx < piece.shape[0])
+                rows = mod.policy.cast_param(
+                    piece[idx.clamp(0, piece.shape[0] - 1)])
+                parts.append(torch.where(live[..., None], rows,
+                                         torch.zeros((), dtype=rows.dtype,
+                                                     device=rows.device)))
+            out.append(mesh_lib.all_reduce(parts)[0])
+        return out
+
+    def positional(self, mod, xs):
+        return [self.call([mod], self.lead(i),
+                          lambda x, o: mod(x, offset=o), x,
+                          self.offset(i, x))
+                for i, x in enumerate(xs)]
+
+    def head(self, model, h, i: int):
+        lay = self.lay
+        if model.head is None:
+            n = self.name(model.wte, "table")
+            if lay.axis[n] == "model":
+                return tuple(
+                    qmatmul(h.to(lay.dev[self.at(i, m)]),
+                            model.policy.cast_param(
+                                lay.leaf(n, self.at(i, m), whole=False)).t())
+                    for m in range(lay.size["model"]))
+            return self.call([model.wte], self.lead(i), model.wte.attend, h)
+        return self.call(
+            [model.head], self.lead(i),
+            lambda t: qmatmul(t, model.policy.cast_param(model.head.kernel),
+                              out_dtype=torch.float32), h)
+
+    # -- the run's operations (``nn.run``) -----------------------------------
+
+    layer = forward
+
+    @staticmethod
+    def add(xs, ys):
+        return [x + y for x, y in zip(xs, ys)]
+
+    def mlp(self, inner, cols, row, xs):
+        """``row(inner(x))``, ``inner`` computing the column layers
+        ``cols`` (GPT-2's fc, Llama's gate and up): under "model" each
+        position runs ``inner`` on its columns and the row layer's product
+        on its rows, one ``all_reduce`` sums them and the row bias is
+        added once; otherwise the layers as they are."""
+        lay = self.lay
+        w_row = self.name(row, "kernel")
+        if lay.axis[w_row] != "model":
+            return [self.call(cols + [row], self.lead(i),
+                              lambda h: row(inner(h)), x)
+                    for i, x in enumerate(xs)]
+        out = []
+        for i, x in enumerate(xs):
+            parts = []
+            for m in range(lay.size["model"]):
+                c = self.at(i, m)
+                a = self.call(cols, c, inner, x.to(lay.dev[c]), whole=False)
+                w = row.policy.cast_param(lay.leaf(w_row, c, whole=False))
+                parts.append(qmatmul(row.policy.cast_in(a), w))
+            y = mesh_lib.all_reduce(parts)[0]
+            b = self.name(row, "bias")
+            if b is not None:
+                y = y + lay.leaf(b, self.lead(i)).float()
+            out.append(row.policy.cast_out(y))
+        return out
+
+    def attention(self, mod, xs):
+        """``MultiHeadAttention``: each "model" position's heads projected
+        from its qkv columns, attention over the seq positions of the same
+        rows (ring or Ulysses) or locally, the out rows' partial products
+        all-reduced and the bias added once."""
+        lay = self.lay
+        tp = lay.axis[self.name(mod, "qkv_kernel")] == "model"
+        ranks = lay.size["model"] if tp else 1
+        proj = {}
+        for i, x in enumerate(xs):
+            for m in range(ranks):
+                c = self.at(i, m)
+                q, k, v = (t.transpose(1, 2) for t in self.call(
+                    [mod], c, mod._project_qkv, x.to(lay.dev[c]),
+                    rels=("qkv_kernel", "qkv_bias"), whole=not tp))
+                if mod.rope_theta:
+                    off = self.offset(i, x)
+                    q = apply_rope(q, off, mod.rope_theta)
+                    k = apply_rope(k, off, mod.rope_theta)
+                proj[(i, m)] = (q, k, v)
+        attn = {}
+        if self.seq > 1:
+            if self.method == "ulysses":
+                q, k, _ = proj[(0, 0)]
+                check_ulysses(q.shape[1], k.shape[1],
+                              xs[0].shape[1] * self.seq, self.seq)
+            ring = ulysses_attention_local if self.method == "ulysses" \
+                else ring_attention_local
+            groups = {}
+            for i, (d, f, s) in enumerate(self.streams):
+                groups.setdefault((d, f), []).append(i)
+            scale = 1.0 / math.sqrt(mod.head_dim)
+            for idx in groups.values():
+                for m in range(ranks):
+                    qs, ks, vs = zip(*(proj[(i, m)] for i in idx))
+                    outs = ring(qs, ks, vs, causal=mod.causal, scale=scale)
+                    for i, o in zip(idx, outs):
+                        attn[(i, m)] = o
+        else:
+            with _no_ring():
+                for key, (q, k, v) in proj.items():
+                    attn[key] = sdpa(q, k, v, causal=mod.causal,
+                                     backend=mod.backend)
+        out = []
+        for i, g in enumerate(self.gens):
+            dtype = attn[(i, 0)].dtype
+            if not tp:
+                out.append(self.call(
+                    [mod], self.lead(i),
+                    lambda t, gen: mod._project_out(t, self.train, gen),
+                    attn[(i, 0)].transpose(1, 2), g,
+                    rels=("out_kernel", "out_bias")))
+                continue
+            parts = [self.call([mod], self.at(i, m), mod._out_product,
+                               attn[(i, m)].transpose(1, 2),
+                               rels=("out_kernel",), whole=False)
+                     for m in range(ranks)]
+            y = mesh_lib.all_reduce(parts)[0]
+            out.append(self.call(
+                [mod], self.lead(i),
+                lambda t, gen: mod._out_finish(t, dtype, self.train, gen),
+                y, g, rels=("out_bias",)))
+        return out
+
+
+@contextlib.contextmanager
+def _no_ring():
+    from ..nn import attention
+
+    prev = dict(attention._RING_CTX)
+    attention._RING_CTX["mesh"] = None
+    try:
+        yield
+    finally:
+        attention._RING_CTX.update(prev)
+
+
+# -- the loss -----------------------------------------------------------------
+
+
+def sharded_cross_entropy(pieces: Sequence[torch.Tensor], starts,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """``softmax_cross_entropy`` of logits split over the vocabulary
+    (``pieces``, starting at vocab rows ``starts``) against integer
+    ``labels`` (< 0 ignored): the row max and the sum of exponentials
+    reduced over the pieces (``mesh.all_reduce``), the label's logit from
+    the piece that holds it."""
+    mx = mesh_lib.all_reduce([p.detach().float().amax(-1) for p in pieces],
+                             op="max")
+    se = mesh_lib.all_reduce([torch.exp(p.float() - m[..., None]).sum(-1)
+                              for p, m in zip(pieces, mx)])
+    zl = []
+    for p, start in zip(pieces, starts):
+        idx = labels.to(p.device).long() - start
+        live = (idx >= 0) & (idx < p.shape[-1])
+        z = p.float().gather(-1, idx.clamp(0, p.shape[-1] - 1)[..., None])
+        zl.append(torch.where(live, z[..., 0], 0.0))
+    zl = mesh_lib.all_reduce(zl)[0]
+    dev = zl.device
+    nll = mx[0].to(dev) + torch.log(se[0].to(dev)) - zl
+    mask = (labels.to(dev) >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _predictions(out, starts) -> torch.Tensor:
+    """The argmax over the vocabulary of whole or sharded logits (the
+    first maximum, as ``argmax``)."""
+    if not isinstance(out, tuple):
+        return out.argmax(dim=-1)
+    dev = out[0].device
+    best_v = best_i = None
+    for p, start in zip(out, starts):
+        v, i = p.float().max(dim=-1)
+        v, i = v.to(dev), i.to(dev) + start
+        if best_v is None:
+            best_v, best_i = v, i
+        else:
+            better = v > best_v
+            best_v = torch.where(better, v, best_v)
+            best_i = torch.where(better, i, best_i)
+    return best_i
+
+
+def _hits(out, labels, starts):
+    pred = _predictions(out, starts)
+    labels, mask = metrics_lib._labels_mask(labels.to(pred.device),
+                                            pred.ndim)
+    return ((pred == labels) & mask), mask
 
 
 def _global_mean(values, counts, device):
@@ -370,9 +1017,11 @@ class DPTrainStep:
     batch; ``layout`` is the run's ``DataParallel`` (set by
     ``place_state``)."""
 
-    def __init__(self, optimizer, loss_fn, scheduler, grad_accum: int,
-                 augment, remat, compute_accuracy: bool):
+    def __init__(self, model, optimizer, loss_fn, scheduler, grad_accum: int,
+                 augment, remat, compute_accuracy: bool,
+                 lm_head_chunk: Optional[int] = None):
         self.layout: Optional[DataParallel] = None
+        self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.scheduler = scheduler
@@ -381,31 +1030,103 @@ class DPTrainStep:
         self.remat = remat
         self.policy = resolve_remat_policy(remat) if remat else None
         self.compute_accuracy = compute_accuracy
+        self.lm_head_chunk = lm_head_chunk
+        self.moe = has_moe(model)
+
+    def _table(self):
+        """(name of the head's table, the model module that owns it)."""
+        model = self.model
+        if model.head is None:
+            return next(n for r, n in self.layout.names_of(model.wte)
+                        if r == "table"), model.wte
+        return None, model.head
+
+    def _loss(self, run: _Run, out, labels, i: int, loss_fn=None):
+        loss_fn = loss_fn or self.loss_fn
+        if isinstance(out, tuple):
+            if loss_fn is losses_lib.get("softmax_cross_entropy"):
+                return sharded_cross_entropy(out, self._vocab_starts(),
+                                             labels)
+            out = torch.cat([p.to(out[0].device) for p in out], dim=-1)
+        return loss_fn(out, labels)
+
+    def _vocab_starts(self):
+        n, _ = self._table()
+        return self.layout.starts[n]
+
+    def _chunked_loss(self, run: _Run, h, labels, i: int):
+        lay = self.layout
+        chunk = self.lm_head_chunk
+        n, owner = self._table()
+        if n is not None and lay.axis[n] == "model":
+            lse, zl = [], []
+            for m in range(lay.size["model"]):
+                c = run.at(i, m)
+                dev = lay.dev[c]
+                table = owner.policy.cast_param(lay.leaf(n, c, whole=False))
+                a, b = lm_head_lse(h.to(dev), table,
+                                   labels.to(dev) - lay.starts[n][m], chunk)
+                lse.append(a)
+                zl.append(b)
+            mx = mesh_lib.all_reduce([t.detach() for t in lse], op="max")
+            se = mesh_lib.all_reduce([torch.exp(t - m)
+                                      for t, m in zip(lse, mx)])
+            total = mx[0] + torch.log(se[0]) - mesh_lib.all_reduce(zl)[0]
+            return total.mean()
+        return run.call([owner], run.lead(i),
+                        lambda t: lm_head_loss(t, self.model.head_table(),
+                                               labels, chunk), h)
+
+    def _forward(self, state, xs, seq_split, train: bool):
+        lay = self.layout
+        streams = lay.streams(seq_split)
+        gens = lay.generators(state.generator, streams) if train else \
+            [None] * len(streams)
+        run = _Run(lay, train, streams, gens)
+        return run, gens
 
     def _microbatch(self, state, data, labels):
         lay = self.layout
-        xs, ls = lay.split(data), lay.split(labels)
-        gens = lay.generators(state.generator)
+        seq_split = lay.seq_split(data)
+        xs, ls = lay.split(data, seq_split), lay.split(labels, seq_split)
+        run, gens = self._forward(state, xs, seq_split, True)
+        hidden = self.lm_head_chunk is not None
 
         def fwd(*shards):
-            return tuple(lockstep(lay.replicas, list(shards), True, gens))
+            outs = run.forward(self.model, list(shards), hidden)
+            aux = moe_aux_loss(self.model) if self.moe else None
+            return tuple(outs), aux
 
-        outs = remat_call(fwd, self.policy, gens, *xs) if self.remat \
-            else fwd(*xs)
+        if self.remat:
+            outs, aux = remat_call(fwd, self.policy, gens, *xs)
+        else:
+            outs, aux = fwd(*xs)
         counts = [x.shape[0] for x in xs]
         dev = lay.devices[0]
-        loss = _global_mean([self.loss_fn(o, l) for o, l in zip(outs, ls)],
-                            counts, dev)
+        score = self._chunked_loss if hidden else self._loss
+        loss = _global_mean([score(run, o, l, i) for i, (o, l) in
+                             enumerate(zip(outs, ls))], counts, dev)
+        if aux is not None:
+            loss = loss + aux.to(dev)
+            aux = aux.detach().to(dev)
         loss.backward()
-        for rep in lay.replicas:
-            commit = getattr(rep, "commit_state", None)
-            if commit is not None:
-                commit()
+        lay.fold_grads()
+        commit = getattr(self.model, "commit_state", None)
+        if commit is not None:
+            commit()
         acc = None
         if self.compute_accuracy:
-            acc = _global_mean([metrics_lib.accuracy(o.detach(), l)
-                                for o, l in zip(outs, ls)], counts, dev)
-        return loss.detach(), acc
+            acc = _global_mean([self._accuracy(o, l) for o, l in
+                                zip(outs, ls)], counts, dev)
+        return loss.detach(), acc, aux
+
+    def _accuracy(self, out, labels):
+        out = out.detach() if not isinstance(out, tuple) else \
+            tuple(p.detach() for p in out)
+        hits, mask = _hits(out, labels, self._vocab_starts()
+                           if isinstance(out, tuple) else None)
+        return hits.sum(dtype=torch.float32) / mask.sum(
+            dtype=torch.float32).clamp_min(1.0)
 
     def __call__(self, state: TrainState, data, labels):
         lay = self.layout
@@ -415,38 +1136,46 @@ class DPTrainStep:
         if self.augment is not None:
             data = self.augment(state.generator, data)
         n = self.grad_accum
-        loss = acc = 0.0
+        loss = acc = aux = 0.0
         for d, l in microbatches(data, labels, n):
-            mb_loss, mb_acc = self._microbatch(state, d, l)
+            mb_loss, mb_acc, mb_aux = self._microbatch(state, d, l)
             loss = loss + mb_loss
             if mb_acc is not None:
                 acc = acc + mb_acc
+            if mb_aux is not None:
+                aux = aux + mb_aux
         grads = lay.reduce_grads(1.0 / n)
         lr_scale = apply_update(self.optimizer, self.scheduler, state, grads,
                                 lay.owned)
         lay.broadcast()
         return state, step_metrics(
-            loss / n, lr_scale, acc / n if self.compute_accuracy else None)
+            loss / n, lr_scale, acc / n if self.compute_accuracy else None,
+            aux / n if self.moe else None)
 
     def eval_step(self, loss_fn="softmax_cross_entropy",
                   compute_accuracy: bool = True):
-        """The eval step over the same replicas: each scores its shard,
-        the loss is the global mean and the corrects their sum."""
+        """The eval step over the same layout: each stream scores its
+        shard, the loss is the global mean and the corrects their sum."""
         if isinstance(loss_fn, (str, dict)):
             loss_fn = losses_lib.get(loss_fn)
 
         @torch.no_grad()
         def step(state, data, labels):
             lay = self.layout
-            xs, ls = lay.split(data), lay.split(labels)
-            outs = lockstep(lay.replicas, xs, False, [None] * len(xs))
+            seq_split = lay.seq_split(data)
+            xs = lay.split(data, seq_split)
+            ls = lay.split(labels, seq_split)
+            run, _ = self._forward(state, xs, seq_split, False)
+            outs = run.forward(self.model, xs)
+            vals = [self._loss(run, o, l, i, loss_fn) for i, (o, l) in
+                    enumerate(zip(outs, ls))]
             metrics = {"loss": _global_mean(
-                [loss_fn(o, l) for o, l in zip(outs, ls)],
-                [x.shape[0] for x in xs], lay.devices[0])}
+                vals, [x.shape[0] for x in xs], lay.devices[0])}
             if compute_accuracy:
                 metrics["corrects"] = mesh_lib.all_reduce(
-                    [metrics_lib.class_corrects(o, l) for o, l in
-                     zip(outs, ls)])[0]
+                    [_hits(o, l, self._vocab_starts()
+                           if isinstance(o, tuple) else None)[0]
+                     .sum(dtype=torch.int32) for o, l in zip(outs, ls)])[0]
             return metrics
 
         return step
@@ -458,37 +1187,42 @@ def make_dp_train_step(model, optimizer, mesh: Mesh,
                        ep: bool = False,
                        grad_accum: int = 1, augment: Optional[Callable] = None,
                        remat: "bool | str" = False,
-                       compute_accuracy: bool = True):
-    """A data-parallel train step over ``mesh`` (the module docstring).
+                       compute_accuracy: bool = True,
+                       lm_head_chunk: Optional[int] = None):
+    """A parallel train step over ``mesh`` (the module docstring):
+    ``fsdp``, ``tp`` and ``ep`` pick the rule sets that shard the
+    parameters; the mesh's seq positions cut (B, S) token batches.
 
     Returns ``(step, place_state, place_batch)``: ``place_state(state)``
-    builds the replicas and the owned tree from a ``create_train_state``
-    state of ``model`` and returns the state with its layout;
-    ``step(state, data, labels)`` takes the global batch;
+    places a ``create_train_state`` state of ``model`` and returns it with
+    its layout; ``step(state, data, labels)`` takes the global batch;
     ``place_batch(data, labels)`` puts it on the mesh's first position,
     where the step cuts it. ``step.eval_step(loss_fn)`` is the matching
-    eval step."""
-    if tp:
-        raise NotImplementedError("tensor-parallel training (tp=True) is "
-                                  + _NOT_PORTED)
-    if ep:
-        raise NotImplementedError("expert parallelism (ep=True) is "
-                                  + _NOT_PORTED)
-    if has_moe(model) and len(_positions(mesh)) > 1:
-        raise NotImplementedError(
-            "MoE under data parallelism is " + _NOT_PORTED + ": the JAX "
-            "layer's capacity counts the global batch")
+    eval step. ``lm_head_chunk`` computes the loss over the model's
+    hidden states in vocab tiles (``nn.lm_loss``) and needs
+    ``compute_accuracy=False``."""
+    if lm_head_chunk is not None:
+        from ..models.gpt2 import GPT2
+        from ..models.llama import Llama
+
+        if compute_accuracy:
+            raise ValueError("lm_head_chunk computes no logits; pass "
+                             "compute_accuracy=False")
+        if not isinstance(model, (GPT2, Llama)):
+            raise ValueError(f"{type(model).__name__}: the parallel step's "
+                             "lm_head_chunk takes a GPT2 or a Llama")
     if isinstance(loss_fn, (str, dict)):
         loss_fn = losses_lib.get(loss_fn)
-    step = DPTrainStep(optimizer, loss_fn, scheduler or NoOp(), grad_accum,
-                       augment, remat, compute_accuracy)
-    first = _positions(mesh)[0]
+    step = DPTrainStep(model, optimizer, loss_fn, scheduler or NoOp(),
+                       grad_accum, augment, remat, compute_accuracy,
+                       lm_head_chunk)
+    first = _device(mesh, _coords(mesh)[0])
 
     def place_state(state: TrainState) -> TrainState:
         if state.layout is not None:
             return state
-        layout = DataParallel(model, mesh, fsdp)
         full = state.opt_state
+        layout = DataParallel(model, mesh, fsdp=fsdp, tp=tp, ep=ep)
         state.opt_state = optimizer.init(layout.owned)
         layout.set_opt_state(state.opt_state, full)
         layout.broadcast()

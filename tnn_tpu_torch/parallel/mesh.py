@@ -8,17 +8,25 @@ position is a device, and a device may repeat (every position on
 ``cuda:0``, or N copies of ``"cpu"`` as the test suite's 8 virtual
 devices), so one card runs every code path of a multi-device layout.
 
-Every collective of the data-parallel and pipeline steps is here, in one
-place: ``all_reduce`` (summed in device order), ``all_gather``,
-``reduce_scatter``, ``hop`` (a stage's output to the next stage's device)
-and ``data_mean``. Each moves tensors with ``Tensor.to`` and adds them on
-one device; positions that share a card move nothing, so they measure
-code paths, not interconnect.
+Every collective of the parallel steps is here, in one place:
+``all_reduce`` (summed in position order, or the max), ``all_gather``,
+``reduce_scatter``, ``all_to_all`` (Ulysses' re-sharding), ``hop`` (a
+pipeline stage's output to the next stage's device), ``ring_hop`` (one
+step of the ring: part i to position i + 1) and ``data_mean``. Each moves
+tensors with ``Tensor.to`` and adds them on one device; positions that
+share a card move nothing, so they measure code paths, not interconnect.
+Each is differentiable where its inputs are: autograd carries the
+gradient back along the same moves.
+
+``seq_shard_map`` cuts (B, H, S, D) tensors over the seq positions (and
+the batch over ``batch_axis``), runs a per-group body on lists of shards
+and reassembles its output: the form ``ring_attention`` and
+``ulysses_attention`` take on whole tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +107,87 @@ def axis_size(mesh: Mesh, name: str) -> int:
     return int(mesh.shape.get(name, 1))
 
 
+def replicated(mesh: Mesh) -> Tuple:
+    """The spec of a leaf every position holds whole (JAX's
+    ``NamedSharding(mesh, P())``): the empty tuple."""
+    del mesh
+    return ()
+
+
+def batch_sharding(mesh: Mesh, extra_axes: Tuple[str, ...] = ()) -> Tuple:
+    """The spec of a batch cut over "data" and any live ``extra_axes``
+    (JAX's ``batch_sharding``): ``((axes...),)`` on dim 0, or ``()`` where
+    no such axis is live."""
+    axes = ["data"] + [a for a in extra_axes if a in AXES]
+    present = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    return (present,) if present else ()
+
+
+def _live_axes(mesh: Mesh, names) -> Tuple[str, ...]:
+    """The axes among ``names`` (one name, a sequence or None) of size > 1,
+    in mesh order."""
+    if names is None:
+        return ()
+    names = (names,) if isinstance(names, str) else tuple(names)
+    return tuple(a for a in AXES if a in names and axis_size(mesh, a) > 1)
+
+
+def seq_groups(mesh: Mesh, axis: str = "seq",
+               batch_axis=None) -> List[List[torch.device]]:
+    """The position groups of a context-parallel call: one group a batch
+    shard (over the live ``batch_axis`` axes, in mesh order), each the
+    devices of its ``axis`` positions in order. Every other axis is taken
+    at index 0, as a ``shard_map`` over these axes replicates over the
+    rest."""
+    batch = _live_axes(mesh, batch_axis)
+    names = list(AXES)
+    arr = mesh.devices
+    index = [0] * len(names)
+    groups = []
+    shape = [axis_size(mesh, a) for a in batch]
+    for flat in range(math.prod(shape) if shape else 1):
+        rest = flat
+        for a, size in reversed(list(zip(batch, shape))):
+            index[names.index(a)] = rest % size
+            rest //= size
+        group = []
+        for s in range(axis_size(mesh, axis)):
+            index[names.index(axis)] = s
+            group.append(arr[tuple(index)])
+        groups.append(group)
+    return groups
+
+
+def seq_shard_map(body: Callable, mesh: Mesh, axis: str = "seq",
+                  batch_axis=None) -> Callable:
+    """A per-group ``body(qs, ks, vs) -> outs`` (lists of (B_l, H, S_l, D)
+    shards, one a position of the group's ``axis``) as a function of whole
+    (B, H, S, D) tensors: B cut over the live ``batch_axis`` positions, S
+    over ``axis``'s, each shard moved to its position's device, the
+    outputs put back together on the first input's device (the JAX
+    package's ``seq_shard_map``)."""
+
+    def run(q, k, v):
+        groups = seq_groups(mesh, axis, batch_axis)
+        n_seq = len(groups[0])
+        for t in (q, k, v):
+            if t.shape[0] % len(groups):
+                raise ValueError(f"batch {t.shape[0]} not divisible by "
+                                 f"{len(groups)} batch shards")
+        rows = []
+        for g, (qb, kb, vb) in enumerate(zip(q.chunk(len(groups)),
+                                             k.chunk(len(groups)),
+                                             v.chunk(len(groups)))):
+            devs = groups[g]
+            cut = [[p.to(d) for p, d in zip(t.chunk(n_seq, dim=2), devs)]
+                   for t in (qb, kb, vb)]
+            outs = body(*cut)
+            rows.append(torch.cat([o.to(q.device) for o in outs], dim=2))
+        return torch.cat(rows, dim=0)
+
+    return run
+
+
 def local_mesh_info(device="cuda") -> Dict[str, object]:
     """The process's device census (``tnn_tpu.parallel.mesh``)."""
     dev = torch.device(device)
@@ -118,10 +207,19 @@ def _sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
-def all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum of ``parts`` (one tensor a position), added in position
-    order, one copy on each part's device."""
-    total = _sum(parts)
+def all_reduce(parts: Sequence[torch.Tensor],
+               op: str = "sum") -> List[torch.Tensor]:
+    """The sum (``op="max"``: the elementwise max) of ``parts`` (one tensor
+    a position), taken in position order, one copy on each part's
+    device."""
+    if op == "max":
+        total = parts[0]
+        for p in parts[1:]:
+            total = torch.maximum(total, p.to(total.device))
+    elif op == "sum":
+        total = _sum(parts)
+    else:
+        raise ValueError(f"unknown reduction {op!r}")
     return [total.to(p.device) for p in parts]
 
 
@@ -145,6 +243,30 @@ def hop(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A pipeline stage's output moved to the next stage's device
     (differentiable: its gradient hops back)."""
     return x.to(device)
+
+
+def ring_hop(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One step of a ring: part i moves to position (i + 1) % n (the JAX
+    package's ``ppermute`` with ``perm = [(i, i + 1 mod n)]``); the
+    positions' devices are those of ``parts``."""
+    n = len(parts)
+    return [hop(parts[(j - 1) % n], parts[j].device) for j in range(n)]
+
+
+def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
+               concat_dim: int) -> List[torch.Tensor]:
+    """The tiled all-to-all of ``jax.lax.all_to_all``: position i cuts its
+    part into n pieces along ``split_dim`` and sends piece j to position
+    j, which concatenates what it receives along ``concat_dim`` in
+    position order."""
+    n = len(parts)
+    for p in parts:
+        if p.shape[split_dim] % n:
+            raise ValueError(f"dim {split_dim} of size {p.shape[split_dim]}"
+                             f" not divisible by {n} positions")
+    pieces = [p.chunk(n, dim=split_dim) for p in parts]
+    return [torch.cat([pieces[i][j].to(parts[j].device) for i in range(n)],
+                      dim=concat_dim) for j in range(n)]
 
 
 def data_mean(values: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -217,9 +217,9 @@ class HeteroPipeline:
         other = {k: n for k, n in mesh.shape.items()
                  if k not in (axis, data_axis) and n > 1}
         if other:
-            raise NotImplementedError(
-                f"mesh axes {other} with a pipeline are not ported yet "
-                "(ROADMAP.md item 11.4)")
+            raise ValueError(
+                f"pipeline runs compose with '{data_axis or 'data'}' only; "
+                f"got mesh axes {other}")
         self.data_axis = data_axis if (
             data_axis and mesh_lib.axis_size(mesh, data_axis) > 1) else None
         self.dp = mesh_lib.axis_size(mesh, data_axis) if self.data_axis \

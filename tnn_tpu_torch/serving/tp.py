@@ -50,6 +50,7 @@ from ..nn import activations
 from ..nn.attention import apply_rope, sdpa
 from ..ops import paged_attention as pa
 from ..ops.quant_matmul import Int8Weight, qmatmul
+from ..parallel.tensor_parallel import _permute_qkv
 from . import kv_pool
 from .sp import default_devices
 
@@ -67,19 +68,6 @@ def _spec_for(path: Sequence[str]) -> Optional[str]:
         if name.endswith(suffix):
             return spec
     return None
-
-
-def _permute_qkv(w: torch.Tensor, num_heads: int, num_kv_heads: int,
-                 head_dim: int, tp: int) -> torch.Tensor:
-    """Reorder fused-qkv columns ``[q | k | v]`` into per-shard groups
-    ``[q_s | k_s | v_s]`` so that an even column split is head-aligned."""
-    d, kv_d = num_heads * head_dim, num_kv_heads * head_dim
-    lead = tuple(w.shape[:-1])
-    q, k, v = w[..., :d], w[..., d:d + kv_d], w[..., d + kv_d:]
-    q = q.reshape(lead + (tp, d // tp))
-    k = k.reshape(lead + (tp, kv_d // tp))
-    v = v.reshape(lead + (tp, kv_d // tp))
-    return torch.cat([q, k, v], dim=-1).reshape(lead + (-1,))
 
 
 def all_reduce(parts: Sequence[torch.Tensor],

@@ -19,17 +19,20 @@ only a running total (``tick``); both log a summary at the end.
 
 ``config.mesh_axes`` lays the run out over a mesh of ``devices`` (by
 default the first N cards, or N copies of the CPU for a model there; a
-card may be named several times, as in ``["cuda:0"] * 4``):
-``{"data": N}`` and ``{"data": N, "fsdp": M}`` run
-``parallel.make_dp_train_step`` (global-batch BatchNorm statistics; fsdp
-shards the large leaves' optimizer state, every replica keeping the whole
-parameters); ``{"pipe": N}`` and ``{"data": N, "pipe": M}``
-split the model (``partition_model``, "balanced") into ``pipeline_virtual
-x N`` stages of ``parallel.make_pipeline_train_step`` over
-``config.num_microbatches``, starting from the model's weights and writing
-the trained ones back into it at the end. A checkpoint of a pipeline run
-holds the JAX package's packed rows. The "model", "seq" and "expert" axes
-raise ``NotImplementedError`` (ROADMAP.md item 11.4).
+card may be named several times, as in ``["cuda:0"] * 4``), with the JAX
+loop's checks and messages. Any mix of "data", "fsdp", "model", "seq"
+and "expert" runs ``parallel.make_dp_train_step`` (fsdp shards the large
+leaves, "model" the transformer's TP leaves, "expert" the MoE expert
+stacks); with "seq" the steps and the evaluation run inside an
+``nn.attention.ring_context`` of ``config.seq_parallel_method`` whose
+batch axes are the live ones of ("data", "fsdp"). The trained weights
+are written back into the model at the end. ``{"pipe": N}`` and
+``{"data": N, "pipe": M}`` split the model (``partition_model``,
+"balanced") into ``pipeline_virtual x N`` stages of
+``parallel.make_pipeline_train_step`` over ``config.num_microbatches``,
+starting from the model's weights and writing the trained ones back into
+it at the end. A checkpoint of a pipeline run holds the JAX package's
+packed rows.
 """
 from __future__ import annotations
 
@@ -105,7 +108,8 @@ def evaluate(eval_step, state: TrainState, loader: DataLoader,
 def _mesh(axes, devices, model):
     from ..parallel import make_mesh
 
-    return make_mesh(**{k: axes.get(k, 1) for k in ("data", "fsdp", "pipe")},
+    return make_mesh(**{k: axes.get(k, 1) for k in
+                        ("data", "fsdp", "model", "pipe", "seq", "expert")},
                      devices=devices, device=next(model.parameters()).device)
 
 
@@ -154,32 +158,76 @@ def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
     return pipe, state, step_fn, make_pipeline_eval_step(pipe)
 
 
+def _has_expert_leaves(model) -> bool:
+    from ..nn.moe import ep_rules
+    from ..parallel.tensor_parallel import spec_for
+
+    return any(spec_for(path, ep_rules()) for path, _ in
+               getattr(model, "jax_param_paths", list)())
+
+
+def _in_context(fn, ring):
+    def run(*a):
+        with ring:
+            return fn(*a)
+
+    return run
+
+
 def _data_parallel_run(model, config, axes, optimizer, scheduler, augment,
-                       state, devices, log):
-    """The data-parallel (state, step, eval step)."""
+                       state, devices, sample_shape, log):
+    """The (state, step, eval step) of a data / fsdp / model / seq /
+    expert layout (the JAX loop's checks and messages)."""
+    from ..nn.attention import count_attention_modules, ring_context
     from ..parallel import make_dp_train_step
 
-    unsupported = set(axes) - {"data", "fsdp"}
+    unsupported = set(axes) - {"data", "fsdp", "model", "seq", "expert"}
     if unsupported:
-        raise ValueError(f"train_model auto-sharding handles data/fsdp/"
-                         f"pipe axes; got {axes}.")
+        raise ValueError(
+            f"train_model auto-sharding handles data/fsdp/model/seq/"
+            f"expert/pipe axes; got {axes}.")
     shard_ways = axes.get("data", 1) * axes.get("fsdp", 1)
     if int(config.batch_size) % shard_ways:
         raise ValueError(
             f"batch_size {config.batch_size} not divisible by the "
             f"data*fsdp mesh size {shard_ways} (mesh_axes={axes})")
+    if axes.get("expert", 1) > 1 and not _has_expert_leaves(model):
+        raise ValueError(
+            f"mesh_axes={{'expert': {axes['expert']}}} but the "
+            f"model has no MoE expert parameters — "
+            f"{axes['expert']}x devices would replicate work "
+            f"with zero speedup")
     mesh = _mesh(axes, devices, model)
+    ring = None
+    if axes.get("seq", 1) > 1:
+        if count_attention_modules(model) == 0:
+            raise ValueError(
+                f"mesh_axes={{'seq': {axes['seq']}}} but the model has "
+                f"no attention modules — {axes['seq']}x devices would "
+                f"replicate work with zero speedup")
+        if len(sample_shape) == 1 and sample_shape[0] % axes["seq"]:
+            raise ValueError(
+                f"sequence length {sample_shape[0]} not divisible by "
+                f"mesh_axes['seq'] = {axes['seq']}")
+        batch_axes = tuple(a for a in ("data", "fsdp") if axes.get(a, 1) > 1)
+        ring = ring_context(mesh, batch_axis=batch_axes or None,
+                            method=config.seq_parallel_method)
     if state is None:
         state = create_train_state(model, optimizer, seed=config.seed)
     step_fn, place_state, _ = make_dp_train_step(
         model, optimizer, mesh, loss_fn=config.loss, scheduler=scheduler,
-        fsdp=axes.get("fsdp", 1) > 1,
+        fsdp=axes.get("fsdp", 1) > 1, tp=axes.get("model", 1) > 1,
+        ep=axes.get("expert", 1) > 1,
         grad_accum=config.gradient_accumulation_steps, augment=augment,
         remat=config.remat)
     state = place_state(state)
+    eval_fn = step_fn.eval_step(config.loss)
+    if ring is not None:
+        step_fn, eval_fn = _in_context(step_fn, ring), \
+            _in_context(eval_fn, ring)
     log.info("mesh %s: batch sharded over %d positions",
              {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size)
-    return state, step_fn, step_fn.eval_step(config.loss)
+    return state, step_fn, eval_fn
 
 
 def train_model(
@@ -206,11 +254,6 @@ def train_model(
         log.set_file_sink(config.log_file)
     axes = {k: int(v) for k, v in (config.mesh_axes or {}).items()
             if int(v) > 1}
-    later = sorted(set(axes) & {"model", "seq", "expert"})
-    if later:
-        raise NotImplementedError(
-            f"mesh_axes={axes}: the {', '.join(later)} axis is not ported "
-            "yet (ROADMAP.md item 11.4); data, fsdp and pipe are")
     profiler_mode = config.profiler_type.upper()
     profiling_on = profiler_mode not in ("", "NONE")
     cumulative_prof = profiler_mode == "CUMULATIVE"
@@ -220,7 +263,7 @@ def train_model(
     batch_size = int(config.batch_size)
     device = next(model.parameters()).device
 
-    pipe = None
+    pipe = layout = None
     if "pipe" in axes:
         pipe, state, step_fn, eval_fn = _pipeline_run(
             model, config, axes, optimizer, scheduler, augment, state,
@@ -228,7 +271,8 @@ def train_model(
     elif axes:
         state, step_fn, eval_fn = _data_parallel_run(
             model, config, axes, optimizer, scheduler, augment, state,
-            devices, log)
+            devices, tuple(train_loader.data_shape), log)
+        layout = state.layout
     else:
         if state is None:
             state = create_train_state(model, optimizer, seed=config.seed)
@@ -350,6 +394,8 @@ def train_model(
         ckpt.wait()     # the last epoch's snapshot lands before the return
         if pipe is not None:
             pipe.write_back(model)
+        if layout is not None:
+            layout.write_back(model)
         if profiling_on:
             for name, s in sorted(GlobalProfiler.summary().items()):
                 log.info("profile %s: n=%d total=%.3fs mean=%.1fms", name,

@@ -5,9 +5,8 @@ fields as the JAX package's, so one JSON file configures either package;
 ``make_optimizer``, ``make_scheduler`` and ``make_policy`` build the
 port's optimizer, scheduler and ``core.dtypes.DTypePolicy``.
 ``mesh_axes`` lays a run out over a mesh (``train.loop``): "data",
-"fsdp" and "pipe" (with ``num_microbatches`` and ``pipeline_virtual``);
-"model", "seq" and "expert" raise until ROADMAP.md item 11.4's second
-half.
+"fsdp", "model", "seq" (with ``seq_parallel_method``) and "expert", or
+"pipe" (with ``num_microbatches`` and ``pipeline_virtual``).
 """
 from __future__ import annotations
 
