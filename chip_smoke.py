@@ -15,7 +15,8 @@ numbers on its own line:
    version's, a library call's and the card's bound;
 3. flash: the flash-attention forward (K4) and backward (K7) against their
    plain versions at the training shape and its variants and at
-   ``flash_vit``'s (B=128, H=6, S=65, D=64, non-causal, bf16 and f32),
+   ``flash_vit``'s (B=128, H=6, S=65, D=64, non-causal, bf16 and f32; and
+   S=17, its shape under ``cli.dist_worker``'s 32 x 32 images),
    with their times at the training shape and at flash_vit's bf16 shape
    beside the plain versions', the library's and the bound, and the
    backward call's time split by kernel (delta pre-pass, K7, the zero-fill
@@ -339,14 +340,40 @@ numbers on its own line:
    --seq-parallel-method ulysses`` on ``gpt2_tiny`` (the Ulysses body
    runs, and launches K4 on a model whose backend is "xla"). Its K4, K7,
    K5 and K6 launches join the kernels line.
+30. native: the host runtime (``tnn_tpu_torch.native``) built from
+   ``native/src`` into ``build/native`` (the phase fails if it does not
+   load), each entry point against the port's numpy path on the same
+   inputs, byte for byte, with both host times beside the card's name:
+   the row gather and the fused normalize over a 50,000 x 32 x 32 x 3 u8
+   set at B=128 (and the array loader's f32 gather), CIFAR-10 / CIFAR-100
+   files and an MNIST CSV written from a seed, BPE encode of 1 MB of the
+   stdlib's text with a vocab trained in the phase, 1,024-token windows
+   of a 4 M-token file; PNG (written here) and JPEG (PIL) files decoded
+   and resized to 64 x 64 against the numpy resize of the source pixels
+   (PNG, within 1 count) and of PIL's decode (JPEG, mean < 1, max <= 9),
+   and the image-folder loader against its PIL path;
+31. distributed: a ``Coordinator`` in this process on the native
+   transport drives two ``cli.dist_worker`` ranks on the one card, rank 0
+   on a thread here and rank 1 a ``python -m`` process: full-width
+   ``flash_vit`` on the worker's synthetic 32 x 32 x 3 images (S=17, the
+   cut from flash_vit's 64 x 64), B=128, 2 epochs of 20 steps; a mid-run
+   ``save_all`` whose two rank directories restore through
+   ``Checkpoint``, the "done" barrier, the merged profile holding
+   ``worker0`` and ``worker1``, an evaluation pass of 4 batches over the
+   initial weights and three restored snapshots (the loss falls), rank 0's
+   launches K4 = 6 x (40 + 16) and K7 = 6 x 40 (they join the kernels
+   line); then rank 1 is killed, seen by ``wait_failed``, a new rank 1
+   rejoins (``wait_alive``) and ``shutdown`` ends every live worker with
+   exit code 0.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
 build and those phases alone and prints no kernels line and no result.
 
 The serving CLI runs of phases 5, 10, 15, 17, 18, 19 and 25 are queued
-and made together after the last phase (``run_deferred_clis``, 8 at a
-time), each checked and read by its phase's code there.
+and started together before phase 31, which runs beside them
+(``start_deferred_clis``, 8 at a time); after the last phase each is
+checked and read by its phase's code (``finish_deferred_clis``).
 
 Any failure raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -469,15 +496,34 @@ def build_kernels():
 
     names = sorted(p.stem for p in runtime.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
         builds = [pool.submit(runtime.build, n) for n in names]
+        host = pool.submit(timed_native_build)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):
             x = torch.ones(64, 64, device="cuda")
             (x @ x).sum().item()
         libs = [b.result() for b in builds]
+        NATIVE_BUILD.update(host.result())
     log("build", seconds=round(time.perf_counter() - t0, 3),
-        libraries=[str(x) for x in libs])
+        libraries=[str(x) for x in libs], native=NATIVE_BUILD)
+
+
+# the native host runtime's build beside the kernels' (phase 30 reads it)
+NATIVE_BUILD = {}
+
+
+def timed_native_build():
+    """``g++`` of the native runtime (``native.build_native``): its
+    library and seconds."""
+    from tnn_tpu_torch import native
+
+    t0 = time.perf_counter()
+    try:
+        path = native.build_native()
+    except (RuntimeError, OSError) as e:    # phase 30 fails on it
+        return {"error": str(e)[-2000:]}
+    return {"library": path, "seconds": time.perf_counter() - t0}
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -884,7 +930,8 @@ def flash_check(name, args):
 
 def flash_cases():
     """The flash cases: gpt2_small's training shape (B=8, H=12, S=1024,
-    D=64) and its variants, and flash_vit's (B=128, H=6, S=65, D=64)."""
+    D=64) and its variants, flash_vit's (B=128, H=6, S=65, D=64) and
+    flash_vit's under cli.dist_worker (S=17)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -916,6 +963,12 @@ def flash_cases():
                          causal=False),
         "vit_f32": dict(b=128, h=6, hkv=6, sq=65, skv=65, d=64, dtype=f32,
                         causal=False),
+        # flash_vit under cli.dist_worker's 32 x 32 synthetic images: 16
+        # patches and the class token
+        "dist_vit_bf16": dict(b=128, h=6, hkv=6, sq=17, skv=17, d=64,
+                              dtype=bf16, causal=False),
+        "dist_vit_f32": dict(b=128, h=6, hkv=6, sq=17, skv=17, d=64,
+                             dtype=f32, causal=False),
     }
 
 
@@ -1364,10 +1417,11 @@ CLI_LINES = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
 
 
 # The serving CLI runs are queued where their phase asks for them and made
-# together at the end of the run (``run_deferred_clis``, CLI_WORKERS at a
-# time): each process spends seconds reaching the card, and one after
-# another they took a fifth of the run. Their checks, and each phase's own
-# reading of the output (``then``), run there in queue order.
+# together near the end of the run (``start_deferred_clis``, CLI_WORKERS at
+# a time, beside the last phase): each process spends seconds
+# reaching the card, and one after another they took a fifth of the run.
+# Their checks, and each phase's own reading of the output (``then``), run
+# after the last phase in queue order (``finish_deferred_clis``).
 CLI_WORKERS = 8
 _DEFERRED_CLIS = []
 
@@ -1389,17 +1443,24 @@ def _cli_run(flags, lines):
     return proc, time.perf_counter() - t0
 
 
-def run_deferred_clis():
-    """Every queued CLI run, CLI_WORKERS at a time, then each one's
-    checks and ``then`` in queue order."""
+def start_deferred_clis():
+    """Start every queued CLI run, CLI_WORKERS at a time, on a pool of
+    threads; ``finish_deferred_clis`` waits for them. The runs print
+    nothing until then."""
     from concurrent.futures import ThreadPoolExecutor
 
     queue = list(_DEFERRED_CLIS)
     _DEFERRED_CLIS.clear()
-    if not queue:
-        return
-    with ThreadPoolExecutor(max_workers=CLI_WORKERS) as pool:
-        runs = list(pool.map(lambda q: _cli_run(q[0], q[1]), queue))
+    pool = ThreadPoolExecutor(max_workers=CLI_WORKERS)
+    return queue, pool, [pool.submit(_cli_run, q[0], q[1]) for q in queue]
+
+
+def finish_deferred_clis(started):
+    """Wait for the runs ``start_deferred_clis`` started, then make each
+    one's checks and ``then`` in queue order."""
+    queue, pool, futures = started
+    runs = [f.result() for f in futures]
+    pool.shutdown()
     for (flags, _, then), (proc, seconds) in zip(queue, runs):
         events = [json.loads(x) for x in proc.stdout.splitlines()
                   if x.strip()]
@@ -7580,14 +7641,14 @@ VIT_STEP_TOLERANCE = {"float32": dict(loss=1e-5, grad=1e-4),
                       "bfloat16": dict(loss=5e-3, grad=5e-2)}
 
 
-def train_logs_to_stderr():
-    """Send the training loop's progress lines to stderr: stdout carries
-    the JSON lines."""
+def train_logs_to_stderr(name="tnn.train"):
+    """Send the training loop's progress lines (or logger ``name``'s) to
+    stderr: stdout carries the JSON lines."""
     import logging
 
     from tnn_tpu_torch.utils.logging import get_logger
 
-    for h in logging.getLogger(get_logger("tnn.train")._log.name).handlers:
+    for h in logging.getLogger(get_logger(name)._log.name).handlers:
         if isinstance(h, logging.StreamHandler) \
                 and not isinstance(h, logging.FileHandler):
             h.setStream(sys.stderr)
@@ -8917,6 +8978,541 @@ def phase_training_parallel_axes(results):
         pax_cli(Path(tmp), card, results)
 
 
+# -- phase 30 -----------------------------------------------------------------
+#
+# The native host runtime (``tnn_tpu_torch.native``): built from
+# ``native/src`` into ``build/native``, then each entry point held byte for
+# byte against the port's numpy path on the same inputs (the image decoders
+# against PIL's decode and the numpy bilinear resize, within the stated
+# limits), with both paths' host times.
+
+NATIVE_ROWS = 50_000            # a CIFAR train set
+NATIVE_BATCH = 128
+NATIVE_MNIST_ROWS = 10_000      # MNIST's test CSV
+NATIVE_BPE_BYTES = 1_000_000
+NATIVE_BPE_TRAIN_BYTES = 40_000
+NATIVE_BPE_VOCAB = 512
+NATIVE_TOKENS = 4_000_000       # uint16 tokens in the token file
+NATIVE_WINDOW = 1024
+NATIVE_IMAGES = (48, 96)        # files of each format, their side
+NATIVE_IMAGE_SIZE = (64, 64)
+CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR_STD = (0.2470, 0.2435, 0.2616)
+# PIL / libjpeg against the native JPEG decoder: IDCT and chroma upsampling
+# differ by a few counts between conforming decoders (tests/test_native.py)
+JPEG_LIMIT = dict(mean=1.0, max=8)
+RESIZE_LIMIT = 1                # the bilinear resize: float rounding
+
+
+def host_ms(fn, repeats=5):
+    """Median host-clock time of ``fn()`` over ``repeats`` calls, and the
+    last result."""
+    times, out = [], None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+@contextlib.contextmanager
+def numpy_path():
+    """The port's numpy paths: ``native.available()`` is False inside."""
+    from tnn_tpu_torch import native
+
+    was = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = was
+
+
+def native_case(card, name, native_fn, numpy_fn, equal, repeats=5, **fields):
+    """Time both paths, hold their results equal; log one line."""
+    nat_ms, got = host_ms(native_fn, repeats)
+    with numpy_path():
+        np_ms, ref = host_ms(numpy_fn, repeats)
+    ok, detail = equal(got, ref)
+    log("native", case=name, card=card, native_ms=nat_ms, numpy_ms=np_ms,
+        speedup=np_ms / nat_ms if nat_ms else None, ok=ok, **detail,
+        **fields)
+    if not ok:
+        raise AssertionError(f"native {name}: {detail}")
+
+
+def same_bytes(got, ref):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    ok = len(got) == len(ref) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and a.tobytes() == b.tobytes() for a, b in zip(got, ref))
+    return ok, {"equal_bytes": ok}
+
+
+def gather_normalize_numpy(src, idx, mean, std):
+    """The fused normalize's arithmetic in numpy: x * a + b per channel,
+    a = 1 / (255 std) and b = -mean / std in f32, as one fused
+    multiply-add (one rounding: g++ contracts it under -march=native with
+    FMA) and as a product and a sum (two roundings)."""
+    import numpy as np
+
+    a = np.float32(1.0) / (np.float32(255.0) * std)
+    b = -mean / std
+    x = src[idx]
+    fused = (x.astype(np.float64) * a.astype(np.float64)
+             + b.astype(np.float64)).astype(np.float32)
+    return fused, x.astype(np.float32) * a + b
+
+
+def same_bytes_as_either(got, ref):
+    """``got`` equal byte for byte to one of the two roundings."""
+    fused, two_step = ref
+    for name, r in (("fused", fused), ("two_step", two_step)):
+        if same_bytes(got, r)[0]:
+            return True, {"equal_bytes": True, "rounding": name}
+    return False, {"equal_bytes": False}
+
+
+def write_png(path, img):
+    """An 8-bit RGB PNG (filter 0 on every row) without PIL."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", w, h, 8, 2, 0, 0, 0)) + chunk(
+            b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def native_images(tmp, card, rng):
+    """A folder of PNG (written here) and JPEG (PIL, where it is
+    installed) images of side ``NATIVE_IMAGES[1]``, decoded and resized to
+    64 x 64 by the native runtime, against the source pixels (PNG is
+    lossless) or PIL's decode (JPEG), each resized by the numpy bilinear
+    resize; then the image-folder loader's batches native against its
+    numpy / PIL path."""
+    import numpy as np
+
+    from tnn_tpu_torch import native
+    from tnn_tpu_torch.data.datasets import (ImageFolderDataLoader,
+                                             _resize_bilinear)
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    n, side = NATIVE_IMAGES
+    y, x = np.mgrid[0:side, 0:side]
+    srcs, pngs, jpgs = [], [], []
+    for i in range(n):
+        noise = rng.normal(0, 24, (side, side, 3))
+        img = np.stack([x * 255 / side, y * 255 / side,
+                        (x + y) * 127 / side + 40 * (i % 3)], -1) + noise
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        srcs.append(img)
+        d = tmp / "images" / f"class{i % 4}"
+        d.mkdir(parents=True, exist_ok=True)
+        pngs.append(str(d / f"{i:03d}.png"))
+        write_png(pngs[-1], img)
+        if Image is not None:
+            jpgs.append(str(d / f"{i:03d}.jpg"))
+            Image.fromarray(img).save(jpgs[-1], "JPEG", quality=90)
+    size = NATIVE_IMAGE_SIZE
+    t0 = time.perf_counter()
+    out, ok = native.api.decode_image_batch(pngs, *size)
+    png_ms = (time.perf_counter() - t0) * 1e3
+    ref = _resize_bilinear(np.stack(srcs), size)
+    png_err = int(np.abs(out.astype(int) - ref.astype(int)).max())
+    fields = dict(png_files=n, png_native_ms=png_ms, png_max_err=png_err,
+                  png_ok=bool(ok.all()), side=side, size=list(size))
+    good = bool(ok.all()) and png_err <= RESIZE_LIMIT
+    if jpgs:
+        t0 = time.perf_counter()
+        out, ok = native.api.decode_image_batch(jpgs, *size)
+        fields["jpeg_native_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        full = np.stack([np.asarray(Image.open(p).convert("RGB"), np.uint8)
+                         for p in jpgs])
+        ref = _resize_bilinear(full, size)
+        fields["jpeg_pil_numpy_ms"] = (time.perf_counter() - t0) * 1e3
+        d = np.abs(out.astype(int) - ref.astype(int))
+        fields.update(jpeg_files=len(jpgs), jpeg_ok=bool(ok.all()),
+                      jpeg_mean_err=float(d.mean()),
+                      jpeg_max_err=int(d.max()))
+        good = good and bool(ok.all()) and d.mean() < JPEG_LIMIT["mean"] \
+            and d.max() <= JPEG_LIMIT["max"] + RESIZE_LIMIT
+        # the loader: native batches against its PIL path (another resize
+        # filter: the difference is reported)
+        loader = ImageFolderDataLoader(str(tmp / "images"), image_size=size)
+        idx = np.arange(len(loader))
+        nat_ms, (a, la) = host_ms(lambda: loader._get(idx), 3)
+        with numpy_path():
+            slow = ImageFolderDataLoader(str(tmp / "images"),
+                                         image_size=size)
+            pil_ms, (b, lb) = host_ms(lambda: slow._get(idx), 3)
+        fields.update(loader_native_ms=nat_ms, loader_pil_ms=pil_ms,
+                      loader_items=len(idx),
+                      loader_max_err_vs_pil=float(np.abs(a - b).max()),
+                      loader_native=loader._native_img,
+                      loader_labels_equal=bool(np.array_equal(la, lb)))
+        good = good and loader._native_img and np.array_equal(la, lb)
+    else:
+        fields["jpeg"] = "PIL is not installed: no JPEG writer"
+    log("native", case="image_folder", card=card, ok=good, **fields)
+    if not good:
+        raise AssertionError(f"native image_folder: {fields}")
+
+
+def phase_native(results):
+    import tempfile
+
+    import numpy as np
+
+    from tnn_tpu_torch import native
+    from tnn_tpu_torch.data import datasets, token_stream
+    from tnn_tpu_torch.data.loader import ArrayDataLoader
+    from tnn_tpu_torch.data.tokenizer import Tokenizer, train_bpe
+
+    card = results["card"]
+    if "library" not in NATIVE_BUILD or not native.available():
+        raise AssertionError(f"native: the library did not build or load "
+                             f"({NATIVE_BUILD})")
+    log("native_build", card=card, **NATIVE_BUILD,
+        sources=len(list(native.lib.SRC_DIR.glob("*.cpp"))))
+    rng = np.random.default_rng(0)
+
+    # batch assembly over a CIFAR-sized u8 set and its f32 copy
+    src = rng.integers(0, 256, (NATIVE_ROWS, 32, 32, 3), dtype=np.uint8)
+    idx = rng.integers(0, NATIVE_ROWS, NATIVE_BATCH)
+    mean = np.asarray(CIFAR_MEAN, np.float32)
+    std = np.asarray(CIFAR_STD, np.float32)
+    shape = dict(rows=NATIVE_ROWS, batch=NATIVE_BATCH, sample=[32, 32, 3])
+    native_case(card, "gather_rows_u8",
+                lambda: native.api.gather_rows(src, idx),
+                lambda: src[idx], same_bytes, repeats=20, **shape)
+    native_case(card, "gather_normalize",
+                lambda: native.api.gather_normalize(src, idx, mean, std),
+                lambda: gather_normalize_numpy(src, idx, mean, std),
+                same_bytes_as_either, repeats=20, **shape)
+    data = src.astype(np.float32) / 255.0
+    labels = rng.integers(0, 100, NATIVE_ROWS).astype(np.int32)
+    fast = ArrayDataLoader(data, labels)
+    with numpy_path():
+        slow = ArrayDataLoader(data, labels)
+    if not fast._native_gather or slow._native_gather:
+        raise AssertionError("native: the array loader took the wrong path")
+    native_case(card, "array_loader_f32", lambda: fast._get(idx),
+                lambda: slow._get(idx), same_bytes, repeats=20, **shape)
+    del data, fast, slow
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # CIFAR-10 (one 10,000-record batch file) and CIFAR-100 (train.bin)
+        c10 = tmp / "data_batch_1.bin"
+        np.concatenate([rng.integers(0, 10, (10_000, 1), dtype=np.uint8),
+                        rng.integers(0, 256, (10_000, 3072),
+                                     dtype=np.uint8)], 1).tofile(c10)
+        native_case(card, "cifar10_parse",
+                    lambda: datasets.load_cifar10_bin([str(c10)]),
+                    lambda: datasets.load_cifar10_bin([str(c10)]),
+                    same_bytes, repeats=2, records=10_000)
+        c100 = tmp / "train.bin"
+        np.concatenate([rng.integers(0, 20, (NATIVE_ROWS, 1), dtype=np.uint8),
+                        rng.integers(0, 100, (NATIVE_ROWS, 1), dtype=np.uint8),
+                        rng.integers(0, 256, (NATIVE_ROWS, 3072),
+                                     dtype=np.uint8)], 1).tofile(c100)
+        native_case(card, "cifar100_parse",
+                    lambda: datasets.load_cifar100_bin(str(c100)),
+                    lambda: datasets.load_cifar100_bin(str(c100)),
+                    same_bytes, repeats=1, records=NATIVE_ROWS)
+        # an MNIST CSV with its header line
+        csv = tmp / "mnist_test.csv"
+        rows = np.concatenate([rng.integers(0, 10, (NATIVE_MNIST_ROWS, 1)),
+                               rng.integers(0, 256, (NATIVE_MNIST_ROWS,
+                                                     784))], 1)
+        with open(csv, "w") as f:
+            f.write("label," + ",".join(f"p{i}" for i in range(784)) + "\n")
+            np.savetxt(f, rows, fmt="%d", delimiter=",")
+        native_case(card, "mnist_csv_parse",
+                    lambda: datasets.load_mnist_csv(str(csv)),
+                    lambda: datasets.load_mnist_csv(str(csv)),
+                    same_bytes, repeats=1, records=NATIVE_MNIST_ROWS)
+
+        # BPE: a vocab trained here on the stdlib's text, then ~1 MB encoded
+        text = stdlib_text(NATIVE_BPE_BYTES + NATIVE_BPE_TRAIN_BYTES)
+        t0 = time.perf_counter()
+        train_bpe([text[:NATIVE_BPE_TRAIN_BYTES]],
+                  vocab_size=NATIVE_BPE_VOCAB).save(str(tmp / "vocab.bin"))
+        vocab_s = time.perf_counter() - t0
+        body = text[NATIVE_BPE_TRAIN_BYTES:]
+        tok = Tokenizer().load(str(tmp / "vocab.bin"))
+        with numpy_path():
+            plain = Tokenizer().load(str(tmp / "vocab.bin"))
+        if tok._native is None or plain._native is not None:
+            raise AssertionError("native: the tokenizer took the wrong path")
+        native_case(card, "bpe_encode",
+                    lambda: np.asarray(tok.encode(body), np.int32),
+                    lambda: np.asarray(plain.encode(body), np.int32),
+                    same_bytes, repeats=1, chars=len(body),
+                    bytes=len(body.encode()), vocab=NATIVE_BPE_VOCAB,
+                    vocab_train_s=vocab_s)
+
+        # token windows: 1,024 tokens and their labels, a batch of 64
+        tokens = tmp / "train.bin"
+        rng.integers(0, 50257, NATIVE_TOKENS).astype(np.uint16).tofile(
+            tokens)
+        fast = token_stream.TokenStreamDataLoader(str(tokens), NATIVE_WINDOW)
+        with numpy_path():
+            slow = token_stream.TokenStreamDataLoader(str(tokens),
+                                                      NATIVE_WINDOW)
+        if fast._native_tokens is None or slow._native_tokens is not None:
+            raise AssertionError("native: the token loader took the wrong "
+                                 "path")
+        starts = rng.integers(0, NATIVE_TOKENS - NATIVE_WINDOW, 64)
+        native_case(card, "token_windows",
+                    lambda: tuple(np.ascontiguousarray(a)
+                                  for a in fast._get(starts)),
+                    lambda: slow._get(starts), same_bytes, repeats=20,
+                    tokens=NATIVE_TOKENS, window=NATIVE_WINDOW, batch=64)
+        fast._native_tokens.close()
+
+        native_images(tmp, card, rng)
+
+
+def stdlib_text(nbytes):
+    """The first ``nbytes`` of the Python stdlib's .py files, as text."""
+    import sysconfig
+
+    from tnn_tpu_torch.cli.prepare_corpus import iter_files
+
+    parts, total = [], 0
+    for f in iter_files([sysconfig.get_paths()["stdlib"]], "*.py", nbytes):
+        with open(f, encoding="utf-8", errors="ignore") as fh:
+            parts.append(fh.read())
+        total += len(parts[-1])
+        if total >= nbytes:
+            break
+    return "".join(parts)[:nbytes]
+
+
+# -- phase 31 -----------------------------------------------------------------
+#
+# The control plane (``tnn_tpu_torch.distributed``, ``cli.dist_worker``): a
+# coordinator in this process over the native transport drives two workers
+# on the one card, rank 0 on a thread of this process (its K4 / K7 launches
+# are this process's counters) and rank 1 a ``python -m
+# tnn_tpu_torch.cli.dist_worker`` process. They train the zoo's full-width
+# ``flash_vit`` (patch 8, 6 layers of H=6, D=64, 200 classes) on the worker's
+# synthetic 32 x 32 x 3 images (its own input shape, not flash_vit's 64 x 64:
+# S = 17), B=128, 2 epochs of 20 steps; a save mid-run restores through
+# ``Checkpoint``; then rank 1 is killed and a new rank 1 rejoins.
+
+DIST_CONFIG = dict(model_name="flash_vit", dataset_name="synthetic",
+                   batch_size=128, epochs=2, progress_print_interval=5,
+                   seed=0)
+DIST_LAYERS = 6             # flash_vit's blocks: one K4 (and K7) each a step
+DIST_SAVE_AFTER = 5         # rank 0's train steps before the save request
+DIST_EVAL_BATCHES = 4       # the evaluation pass over each restored state
+
+
+def dist_eval(model_name, state_dir, rank, fields, key):
+    """Loss of ``state_dir``'s newest snapshot (the initial weights where
+    None) on the first ``DIST_EVAL_BATCHES`` batches of ``rank``'s data;
+    returns the K4 launches it made."""
+    from tnn_tpu_torch.checkpoint import Checkpoint
+    from tnn_tpu_torch.cli import dist_worker
+    from tnn_tpu_torch.cli.trainer import create_model
+    from tnn_tpu_torch.data.loader import ArrayDataLoader
+    from tnn_tpu_torch.ops import flash_attention as fa
+    from tnn_tpu_torch.train import create_train_state, evaluate, \
+        make_eval_step
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    cfg = TrainingConfig().update(dict(DIST_CONFIG, model_name=model_name))
+    data = dist_worker.synthetic_loader(cfg, rank)
+    n = DIST_EVAL_BATCHES * cfg.batch_size
+    loader = ArrayDataLoader(data.data[:n], data.labels[:n])
+    model = create_model(cfg, data.data_shape, "cuda")
+    state = create_train_state(model, cfg.make_optimizer(), seed=cfg.seed)
+    if state_dir is not None:
+        state, meta = Checkpoint(str(state_dir)).restore(state)
+        fields[f"{key}_step"] = int(meta["step"])
+    before = fa.flash_attention_fwd.launches
+    fields[f"{key}_loss"] = evaluate(make_eval_step(model, cfg.loss), state,
+                                     loader, cfg.batch_size, cfg, "cuda")[
+                                         "loss"]
+    return fa.flash_attention_fwd.launches - before
+
+
+def dist_run(tmp, fields, while_rejoining):
+    """The coordinator's sequence; fills ``fields`` and returns rank 0's
+    history, its (K4, K7) launches and ``while_rejoining()``'s result,
+    called while the new rank 1 process starts."""
+    import signal
+    import threading
+
+    from tnn_tpu_torch.cli import dist_worker
+    from tnn_tpu_torch.distributed import Coordinator
+    from tnn_tpu_torch.distributed.transport import NativeTransport
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    def rank1(name):
+        out = open(tmp / f"{name}.log", "w")
+        return subprocess.Popen(
+            [sys.executable, "-m", "tnn_tpu_torch.cli.dist_worker",
+             "--coordinator", addr, "--rank", "1"], stdout=out,
+            stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+
+    coord = Coordinator(2)
+    procs = []
+    try:
+        if not isinstance(coord._t, NativeTransport):
+            raise AssertionError(f"distributed: the coordinator runs on "
+                                 f"{type(coord._t).__name__}")
+        addr = f"127.0.0.1:{coord.port()}"
+        rank0 = {}
+
+        def run_rank0():
+            try:
+                rank0["out"] = dist_worker.main(["--coordinator", addr,
+                                                 "--rank", "0"])
+            except BaseException as e:  # noqa: BLE001 — raised below
+                rank0["error"] = e
+
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=run_rank0, daemon=True)
+        thread.start()
+        procs.append(rank1("rank1"))
+        fields["ranks"] = coord.wait_for_workers(timeout=180)
+        fields["join_s"] = time.perf_counter() - t0
+        config = dict(DIST_CONFIG, ranks={
+            str(r): {"snapshot_dir": str(tmp / f"snap{r}")} for r in (0, 1)})
+        coord.deploy_config(config, timeout=60)
+        coord.start_profiling()
+        coord.barrier("start", timeout=600)
+        t_start = time.perf_counter()
+        deadline = t_start + 300
+        while fa.flash_attention_bwd.launches < DIST_LAYERS * DIST_SAVE_AFTER:
+            if time.perf_counter() > deadline or "error" in rank0:
+                raise AssertionError(f"distributed: rank 0 made "
+                                     f"{fa.flash_attention_bwd.launches} K7 "
+                                     f"launches in 300 s: {rank0}")
+            time.sleep(0.02)
+        t_save = time.perf_counter()
+        coord.save_all(str(tmp / "mid"), timeout=300)
+        fields["save_all_s"] = time.perf_counter() - t_save
+        coord.barrier("done", timeout=600)
+        fields["train_s"] = time.perf_counter() - t_start
+        launches = (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd.launches)
+        prof = coord.collect_profiles(timeout=60)
+        fields["profile_sources"] = sorted({e.source for e in prof.events})
+        fields["profile_events"] = len(prof.events)
+        fields["mid_dirs"] = sorted(p.name for p in (tmp / "mid").iterdir())
+
+        # rank 1 dies; a new rank 1 rejoins; every live worker shuts down
+        procs[0].send_signal(signal.SIGKILL)
+        fields["killed_rc"] = procs[0].wait(timeout=60)
+        t_kill = time.perf_counter()
+        coord.wait_failed(1, timeout=60)
+        fields["failure_seen_s"] = time.perf_counter() - t_kill
+        procs.append(rank1("rank1_rejoined"))
+        beside = while_rejoining()
+        coord.wait_alive(1, timeout=180)
+        fields["rejoin_s"] = time.perf_counter() - t_kill
+        coord.shutdown(timeout=60)
+        thread.join(timeout=120)
+        fields["rejoined_rc"] = procs[1].wait(timeout=120)
+        fields["rank0_alive"] = thread.is_alive()
+        if "error" in rank0:
+            raise rank0["error"]
+        fields["rank1_final"] = [line for line in (tmp / "rank1.log")
+                                 .read_text().splitlines()
+                                 if line.startswith("rank 1: trained")]
+        return rank0["out"][1], launches, beside
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        coord.close()
+
+
+def phase_distributed(results):
+    import tempfile
+
+    from tnn_tpu_torch.profiling import GlobalProfiler
+    from tnn_tpu_torch.profiling import profiler as prof_mod
+
+    card = results["card"]
+    for name in ("tnn.train", "tnn.dist.coord", "tnn.dist.worker"):
+        train_logs_to_stderr(name)
+    fields = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            # the workers' own lines ("joined as rank 0/2") keep off stdout
+            with contextlib.redirect_stdout(sys.stderr):
+                history, (k4, k7), eval_k4 = dist_run(
+                    tmp, fields, lambda: sum(dist_eval(
+                        DIST_CONFIG["model_name"], d, r, fields, key)
+                        for d, r, key in (
+                            (None, 0, "init"),
+                            (tmp / "mid" / "rank0", 0, "mid_rank0"),
+                            (tmp / "mid" / "rank1", 1, "mid_rank1"),
+                            (tmp / "snap0", 0, "final_rank0"))))
+        finally:
+            prof_mod.enable(False)
+            GlobalProfiler.clear()
+            GlobalProfiler.source = "main"
+            for name in ("rank1", "rank1_rejoined"):
+                path = tmp / f"{name}.log"
+                if path.exists():
+                    print(f"--- {name} ---\n" + path.read_text()[-4000:],
+                          file=sys.stderr)
+    steps = sum(h["batches"] for h in history)
+    eval_steps = 4 * DIST_EVAL_BATCHES
+    want = (DIST_LAYERS * steps, DIST_LAYERS * steps,
+            DIST_LAYERS * eval_steps)
+    fields.update(train_steps=steps, eval_steps=eval_steps,
+                  epoch_losses=[h["train_loss"] for h in history],
+                  k4_train=k4, k7_train=k7, k4_eval=eval_k4,
+                  launches_expected=list(want),
+                  step_ms=1e3 * fields["train_s"] / steps,
+                  seconds=time.perf_counter() - t0)
+    checks = {
+        "native_transport": True,
+        "ranks": fields["ranks"] == [0, 1],
+        "mid_dirs": fields["mid_dirs"] == ["rank0", "rank1"],
+        "mid_step": fields["mid_rank0_step"] > 0,
+        "profiles": {"worker0", "worker1"} <= set(fields["profile_sources"]),
+        "loss_falls": fields["final_rank0_loss"] < fields["init_loss"]
+        and fields["mid_rank0_loss"] < fields["init_loss"],
+        "launches": (k4, k7, eval_k4) == want,
+        "killed": fields["killed_rc"] == -9,
+        "shutdown": fields["rejoined_rc"] == 0 and not fields["rank0_alive"],
+        "rank1_trained": len(fields["rank1_final"]) == 1,
+    }
+    ok = all(checks.values())
+    log("distributed", card=card, model=DIST_CONFIG["model_name"],
+        batch=DIST_CONFIG["batch_size"], attention_shape=[
+            DIST_CONFIG["batch_size"], 6, 17, 64], checks=checks, ok=ok,
+        **fields)
+    if not ok:
+        raise AssertionError(f"distributed: {checks}")
+    results["flash_launches"]["flash_attention_fwd"] += k4 + eval_k4
+    results["flash_launches"]["flash_attention_bwd"] += k7
+
+
 def main() -> int:
     import torch
 
@@ -8941,7 +9537,8 @@ def main() -> int:
               phase_serving_whole_prompt, phase_attention_int8_rope,
               phase_serving_supervised, phase_serving_fleet,
               phase_serving_tp, phase_serving_moe, phase_training_image,
-              phase_training_parallel, phase_training_parallel_axes)
+              phase_training_parallel, phase_training_parallel_axes,
+              phase_native, phase_distributed)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -8960,15 +9557,25 @@ def main() -> int:
                            "flash_attention_bwd": 0}}
     results["card"] = info["nvidia_smi"]
     build_kernels()
-    for phase in phases:
+    # the control plane's phase runs beside the queued CLI processes: it
+    # waits on processes of its own most of its time (phase 30 runs
+    # before them: its host times would read the CLIs' load)
+    beside_clis = (phase_distributed,)
+    started = None
+    for phase in sorted(phases, key=lambda p: p in beside_clis):
+        if phase in beside_clis and started is None:
+            t_clis = time.perf_counter()
+            started = start_deferred_clis()
         t0 = time.perf_counter()
         phase(results)
         log("phase_seconds", name=phase.__name__,
             seconds=round(time.perf_counter() - t0, 3))
-    t0 = time.perf_counter()
-    run_deferred_clis()
+    if started is None:
+        t_clis = time.perf_counter()
+        started = start_deferred_clis()
+    finish_deferred_clis(started)
     log("phase_seconds", name="deferred_clis",
-        seconds=round(time.perf_counter() - t0, 3))
+        seconds=round(time.perf_counter() - t_clis, 3))
     log("total_seconds", seconds=round(time.perf_counter() - t_start, 3))
     if only is not None:
         return 0

@@ -301,3 +301,115 @@ def test_chip_smoke_defines_each_top_level_name_once():
              if isinstance(n, (ast.FunctionDef, ast.ClassDef))
              or isinstance(t, ast.Name)]
     assert sorted({n for n in names if names.count(n) > 1}) == []
+
+
+CONTROL_AND_HOST_MODULES = ["distributed", "distributed.protocol",
+                            "distributed.transport",
+                            "distributed.coordinator", "distributed.worker",
+                            "native", "native.lib", "native.api",
+                            "cli.dist_coordinator", "cli.dist_worker",
+                            "utils.affinity"]
+
+
+def test_control_plane_and_native_runtime_import_with_jax_unimportable():
+    """The control plane, the native runtime, the two distributed CLIs and
+    the affinity helpers import with jax and tnn_tpu blocked; a coordinator
+    and a worker of the port exchange a config and shut down."""
+    code = f"""
+import importlib, importlib.abc, sys, threading
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tnn_tpu"):
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+for name in {CONTROL_AND_HOST_MODULES!r}:
+    importlib.import_module("tnn_tpu_torch." + name)
+from tnn_tpu_torch.distributed import Coordinator, Worker
+coord = Coordinator(1)
+out = {{}}
+t = threading.Thread(target=lambda: out.setdefault(
+    "w", Worker("127.0.0.1", coord.port()).start()))
+t.start()
+coord.wait_for_workers(timeout=60)
+t.join(timeout=60)
+coord.deploy_config({{"model_name": "mnist_cnn"}}, timeout=60)
+assert out["w"].config == {{"model_name": "mnist_cnn"}}
+coord.shutdown()
+out["w"].join(timeout=30)
+print([m for m in sys.modules if m.split(".")[0] in ("jax", "tnn_tpu")])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+# names of a JAX ``__all__`` that have no port counterpart by design: the
+# Pallas subpackage (its modules are the port's ``ops``)
+JAX_ONLY_NAMES = {"tnn_tpu.ops": {"pallas"}}
+# where a JAX package's names live in the port, where the path differs
+PORT_HOME = {"tnn_tpu.ops.pallas": "tnn_tpu_torch.ops"}
+
+
+def test_every_jax_package_export_has_a_port_counterpart():
+    """Each name of each ``tnn_tpu`` package's ``__all__`` (read from its
+    source, not imported) is an attribute of the port's package at the
+    same path, with jax and tnn_tpu unimportable; ``JAX_ONLY_NAMES`` lists
+    the names left out by design."""
+    wants = {}
+    for init in sorted((ROOT / "tnn_tpu").rglob("__init__.py")):
+        tree = ast.parse(init.read_text())
+        names = next((ast.literal_eval(n.value) for n in tree.body
+                      if isinstance(n, ast.Assign)
+                      and getattr(n.targets[0], "id", "") == "__all__"),
+                     None)
+        if names is None:
+            continue
+        pkg = ".".join(init.parent.relative_to(ROOT).parts)
+        port = PORT_HOME.get(pkg, pkg.replace("tnn_tpu", "tnn_tpu_torch",
+                                              1))
+        wants[port] = sorted(set(names) - JAX_ONLY_NAMES.get(pkg, set()))
+    assert len(wants) >= 13 and "tnn_tpu_torch.native" in wants
+    code = f"""
+import importlib, importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tnn_tpu"):
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+missing = {{}}
+for pkg, names in {wants!r}.items():
+    mod = importlib.import_module(pkg)
+    gone = [n for n in names if not hasattr(mod, n)]
+    exported = set(getattr(mod, "__all__", ()))
+    unlisted = [n for n in names if n not in exported]
+    if gone or unlisted:
+        missing[pkg] = (gone, unlisted)
+print(missing)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "{}"
+
+
+def test_param_census_and_console_entries():
+    """``param_count`` / ``param_bytes`` count a module's parameters and a
+    tree's leaves; every CLI module has ``cli = console_entry(main)``,
+    which passes an int exit code on and drops any other return value."""
+    import numpy as np
+
+    import tnn_tpu_torch
+    from tnn_tpu_torch.cli import console_entry
+
+    lin = torch.nn.Linear(3, 4)
+    assert tnn_tpu_torch.param_count(lin) == 16
+    assert tnn_tpu_torch.param_bytes(lin) == 64
+    tree = {"a": np.zeros((2, 3), np.float16),
+            "b": [torch.zeros(5, dtype=torch.bfloat16), None]}
+    assert tnn_tpu_torch.param_count(tree) == 11
+    assert tnn_tpu_torch.param_bytes(tree) == 22
+    assert console_entry(lambda: 3)() == 3
+    assert console_entry(lambda: {"x": 1})() is None
+    assert console_entry(lambda: True)() is None
+    for path in sorted((ROOT / "tnn_tpu_torch" / "cli").glob("*.py")):
+        if path.name != "__init__.py":
+            assert "\ncli = console_entry(main)\n" in path.read_text(), path

@@ -11,4 +11,30 @@ hand-written CUDA kernel here (``csrc/``), built at first use by
 points run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 without a card they raise. On a CPU tensor a kernel wrapper computes its
 plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
+
+The top level exports what ``tnn_tpu``'s does (``Module``,
+``module_from_config``, ``param_count``, ...); the names load at first
+use, since the layer modules and ``core.module`` import each other.
 """
+import importlib
+
+__version__ = "0.1.0"
+
+_EXPORTS = {"nn": None, "dtypes": "core", "DTypePolicy": "core.dtypes",
+            "Module": "core.module", "module_from_config": "core.module",
+            "param_count": "core.module", "param_bytes": "core.module",
+            "register_module": "core.module"}
+
+__all__ = ["nn", "dtypes", "DTypePolicy", "Module", "module_from_config",
+           "param_count", "param_bytes", "register_module", "__version__"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    home = _EXPORTS[name]
+    value = importlib.import_module(f".{name}", __name__) if home is None \
+        else getattr(importlib.import_module(f".{home}", __name__), name)
+    globals()[name] = value
+    return value

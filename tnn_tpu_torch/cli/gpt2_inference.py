@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tnn_tpu_torch import checkpoint
+from tnn_tpu_torch.cli import console_entry
 from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.models.gpt2 import generate
@@ -107,6 +108,9 @@ def main(argv=None) -> int:
     print(f"{len(new_tokens)} tokens in {dt * 1e3:.0f} ms "
           f"({len(new_tokens) / dt:.1f} tok/s)")
     return 0
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

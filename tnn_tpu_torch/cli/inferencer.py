@@ -19,6 +19,7 @@ import time
 import torch
 
 from tnn_tpu_torch import checkpoint
+from tnn_tpu_torch.cli import console_entry
 from tnn_tpu_torch.data import factory
 from tnn_tpu_torch.data.loader import SyntheticDataLoader, prefetch
 from tnn_tpu_torch.train import make_predict
@@ -56,6 +57,9 @@ def main(argv=None):
           f"{total / seconds:.0f} samples/s")
     return {"accuracy": accuracy, "samples": total,
             "samples_per_s": total / seconds}
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ import os
 
 import numpy as np
 
+from tnn_tpu_torch.cli import console_entry
+
 BYTE_EOT = 256  # end-of-text id in byte mode (vocab_size = 257)
 
 
@@ -133,6 +135,9 @@ def main(argv=None):
         json.dump(meta, f, indent=2)
     print(json.dumps(meta))
     return meta
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

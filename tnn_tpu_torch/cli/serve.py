@@ -127,6 +127,7 @@ import sys
 import numpy as np
 
 from tnn_tpu_torch import checkpoint
+from tnn_tpu_torch.cli import console_entry
 from tnn_tpu_torch.data.tokenizer import Tokenizer
 from tnn_tpu_torch.models import zoo
 from tnn_tpu_torch.ops import runtime
@@ -765,6 +766,9 @@ def _print_summary(supervisor) -> None:
     print("serve summary: " + json.dumps(
         {k: round(v, 3) if isinstance(v, float) else v
          for k, v in supervisor.stats().items()}), file=sys.stderr)
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from tnn_tpu_torch.cli import console_entry
 from tnn_tpu_torch.data.token_stream import TokenStreamDataLoader
 from tnn_tpu_torch.models.gpt2 import GPT2, generate
 from tnn_tpu_torch.models.llama import Llama
@@ -183,6 +184,9 @@ def main(argv=None):
         json.dump(out, f, indent=2)
     print("results ->", path)
     return out
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

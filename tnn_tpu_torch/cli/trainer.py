@@ -39,6 +39,7 @@ import platform as host_platform
 
 import torch
 
+from tnn_tpu_torch.cli import console_entry
 from tnn_tpu_torch.data import factory
 from tnn_tpu_torch.data.loader import SyntheticDataLoader
 from tnn_tpu_torch.models import zoo
@@ -184,6 +185,9 @@ def main(argv=None):
           f"{final.get('train_loss', float('nan')):.4f}, "
           f"val acc {final.get('val_accuracy', 0.0):.4f}")
     return state, history
+
+
+cli = console_entry(main)
 
 
 if __name__ == "__main__":

@@ -218,3 +218,29 @@ class Module(JaxParamModule):
         cfg.pop("type", None)
         policy = dt.DTypePolicy.from_config(cfg.pop("policy", None))
         return cls(**cfg, policy=policy)
+
+
+# -- parameter census (``tnn_tpu.core.module.param_count`` / ``param_bytes``) --
+
+def _leaves(tree):
+    """The tensors and arrays of ``tree``: a module's parameters, or the
+    leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def param_count(tree) -> int:
+    """Elements over the leaves of ``tree`` (a module: its parameters)."""
+    return int(sum(x.numel() if isinstance(x, torch.Tensor) else x.size
+                   for x in _leaves(tree)))
+
+
+def param_bytes(tree) -> int:
+    """Bytes over the leaves of ``tree`` at their dtypes."""
+    return int(sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                   else x.nbytes for x in _leaves(tree)))

@@ -3,13 +3,14 @@ binaries, image folders, the bundled handwritten digits and regression
 CSVs.
 
 Every image reader gives NHWC float32 in [0, 1] and int32 class labels;
-normalization runs on the device (``data.augmentation``). The port reads
-with numpy only: the JAX package's native parsers and decoders
-(``tnn_tpu.native``) give the same arrays where they apply and are not
-ported (an image folder's PNG / JPEG files decode through PIL here).
-Loaders that need a package the card's image lacks (scikit-learn for the
-digits, PIL for image files) import it when they are used and raise a
-clear error without it.
+normalization runs on the device (``data.augmentation``). Where the native
+runtime is built (``native``), the MNIST CSV and CIFAR parsers, an image
+folder's PNG / JPEG decoding and its bilinear resizes run there, threaded,
+as in the JAX package; numpy (and PIL for other image files, or a variant
+the native decoders refuse) is the path without it. Loaders that need a
+package the card's image lacks (scikit-learn for the digits, PIL for
+image files off the native path) import it when they are used and raise
+a clear error without it.
 """
 from __future__ import annotations
 
@@ -19,13 +20,25 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
+from ..utils import affinity
 from .loader import ArrayDataLoader, DataLoader
 
 # -- MNIST (CSV: label,p0,...,p783 per row) ----------------------------------
 
 
 def load_mnist_csv(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    """(N, 28, 28, 1) float32 in [0, 1] and (N,) int32 labels."""
+    """(N, 28, 28, 1) float32 in [0, 1] and (N,) int32 labels: the native
+    parser's where the runtime is built (it declines float pixels, which
+    ``np.loadtxt`` reads)."""
+    if native.available():
+        try:
+            imgs, labels = native.api.mnist_csv(path,
+                                                header=bool(_has_header(path)))
+            return (imgs.astype(np.float32) / 255.0).reshape(-1, 28, 28, 1), \
+                labels
+        except ValueError:
+            pass
     raw = np.loadtxt(path, delimiter=",", skiprows=_has_header(path),
                      dtype=np.float32)
     labels = raw[:, 0].astype(np.int32)
@@ -65,6 +78,11 @@ def load_cifar10_bin(files: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
     """CIFAR-10 batches: 1 label byte + 3072 CHW pixel bytes a record."""
     datas, labels = [], []
     for f in files:
+        if native.available():
+            imgs, labs = native.api.cifar10(f)
+            datas.append(imgs.astype(np.float32) / 255.0)
+            labels.append(labs)
+            continue
         raw = np.fromfile(f, dtype=np.uint8).reshape(-1, 1 + _CIFAR_PIXELS)
         labels.append(raw[:, 0].astype(np.int32))
         datas.append(_chw_bytes_to_nhwc(raw[:, 1:]))
@@ -75,6 +93,10 @@ def load_cifar100_bin(file: str, fine_labels: bool = True
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """CIFAR-100: coarse byte + fine byte + 3072 CHW pixel bytes a
     record."""
+    if native.available():
+        imgs, coarse, fine = native.api.cifar100(file)
+        return imgs.astype(np.float32) / 255.0, \
+            (fine if fine_labels else coarse)
     raw = np.fromfile(file, dtype=np.uint8).reshape(-1, 2 + _CIFAR_PIXELS)
     labels = raw[:, 1 if fine_labels else 0].astype(np.int32)
     return _chw_bytes_to_nhwc(raw[:, 2:]), labels
@@ -116,6 +138,7 @@ class CIFAR100DataLoader(ArrayDataLoader):
 # -- Image folders (TinyImageNet layout) -------------------------------------
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
+_NATIVE_IMG_EXTS = (".png", ".jpg", ".jpeg")   # the native decoders' formats
 
 
 class ImageFolderDataLoader(DataLoader):
@@ -126,9 +149,12 @@ class ImageFolderDataLoader(DataLoader):
     batch (``eager=True`` caches the decoded uint8 set). Class order is
     ``class_names`` or the sorted directory names. Images of another size
     are resized to ``image_size`` (bilinear, align-corners off, or
-    nearest). The JAX package decodes PNG and JPEG natively where its
-    native library is built (``tnn_tpu.native``, not ported); here they
-    decode through PIL."""
+    nearest). Under bilinear sampling with the native runtime built, PNG
+    and JPEG files decode and resize natively, a batch's files in one
+    threaded call, and ``images.npy`` blocks resize there too; a file the
+    native decoders refuse, and every file otherwise, decodes through PIL
+    on a pool of threads pinned to the IO cpu set under ``TNN_PIN_IO=1``
+    (``utils.affinity``)."""
 
     def __init__(self, path: str, image_size: Tuple[int, int] = (64, 64),
                  seed: int = 0,
@@ -141,6 +167,7 @@ class ImageFolderDataLoader(DataLoader):
         self.num_workers = int(num_workers)
         self.resample = resample
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._native_img = native.available() and resample == "bilinear"
         names = list(class_names) if class_names is not None else sorted(
             d for d in os.listdir(path)
             if os.path.isdir(os.path.join(path, d)))
@@ -182,6 +209,8 @@ class ImageFolderDataLoader(DataLoader):
     def _resize(self, block: np.ndarray) -> np.ndarray:
         if block.shape[1:3] == self.image_size:
             return block
+        if self._native_img:
+            return native.api.resize_bilinear_batch(block, *self.image_size)
         resize = _resize_bilinear if self.resample == "bilinear" \
             else _resize_nearest
         return resize(block, self.image_size)
@@ -189,10 +218,13 @@ class ImageFolderDataLoader(DataLoader):
     def _decode_file(self, path: str) -> np.ndarray:
         return _decode_image_pil(path, self.image_size, self.resample)
 
+    def _native_file(self, path: str) -> bool:
+        return self._native_img and path.lower().endswith(_NATIVE_IMG_EXTS)
+
     def _decode_all(self, indices) -> np.ndarray:
         """uint8 (N, H, W, 3) of the samples at ``indices``: the rows of
-        each ``images.npy`` in one read and one resize, files on the
-        decode pool."""
+        each ``images.npy`` in one read and one resize, the native
+        runtime's files in one call, the rest on the decode pool."""
         idx = [int(i) for i in indices]
         slots: list = [None] * len(idx)
         by_file: dict = {}
@@ -207,12 +239,21 @@ class ImageFolderDataLoader(DataLoader):
                 block = np.clip(block * 255.0, 0, 255).astype(np.uint8)
             for (j, _), frame in zip(entries, self._resize(block)):
                 slots[j] = frame
+        nat = [j for j in range(len(idx)) if slots[j] is None
+               and self._native_file(self._items[idx[j]][1])]
+        if nat:
+            out, ok = native.api.decode_image_batch(
+                [self._items[idx[j]][1] for j in nat], *self.image_size)
+            for j, frame, good in zip(nat, out, ok):
+                if good:        # a refused variant decodes through PIL
+                    slots[j] = frame
         files = [j for j in range(len(idx)) if slots[j] is None]
         paths = [self._items[idx[j]][1] for j in files]
         if self.num_workers > 1 and len(files) > 1:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
-                    self.num_workers, thread_name_prefix="tnn-decode")
+                    self.num_workers, thread_name_prefix="tnn-decode",
+                    initializer=affinity.pin_io_thread)
             frames = list(self._pool.map(self._decode_file, paths))
         else:
             frames = [self._decode_file(p) for p in paths]

@@ -129,9 +129,14 @@ class DataLoader:
 
 
 class ArrayDataLoader(DataLoader):
-    """In-memory (data, labels) arrays."""
+    """In-memory (data, labels) arrays. A C-contiguous f32 or u8 array of
+    two or more dims gathers its batches on the native runtime's threads
+    where it is built (``native.api.gather_rows``: the same bytes as numpy's
+    indexing)."""
 
     def __init__(self, data: np.ndarray, labels: np.ndarray, seed: int = 0):
+        from .. import native
+
         super().__init__(seed)
         if len(data) != len(labels):
             raise ValueError(f"data/labels length mismatch: {len(data)} vs "
@@ -141,8 +146,16 @@ class ArrayDataLoader(DataLoader):
         self._num_samples = len(data)
         self._data_shape = tuple(data.shape[1:])
         self._label_shape = tuple(labels.shape[1:])
+        self._native_gather = (isinstance(data, np.ndarray) and data.ndim >= 2
+                               and data.dtype in (np.float32, np.uint8)
+                               and data.flags["C_CONTIGUOUS"]
+                               and native.available())
 
     def _get(self, indices):
+        if self._native_gather:
+            from ..native import api
+
+            return api.gather_rows(self.data, indices), self.labels[indices]
         return self.data[indices], self.labels[indices]
 
 
@@ -193,7 +206,8 @@ def prefetch(iterator: Iterator, size: int = 2, to_device=True) -> Iterator:
     (``"cuda"``, ``torch.device``) stages its numpy arrays there
     (``stage_batch``); True stages on the card ("cuda"); False or None
     stages nothing. A producer failure is raised in the consumer; a
-    consumer that stops early stops the producer."""
+    consumer that stops early stops the producer. Under ``TNN_PIN_IO=1``
+    the producer pins itself to the IO cpu set (``utils.affinity``)."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     sentinel = object()
     stop = threading.Event()
@@ -208,6 +222,9 @@ def prefetch(iterator: Iterator, size: int = 2, to_device=True) -> Iterator:
         place = None
 
     def producer():
+        from ..utils import affinity
+
+        affinity.pin_io_thread()
         try:
             for item in iterator:
                 if place is not None:

@@ -1,8 +1,9 @@
 """Memory-mapped token-stream loader for LM training
 (``tnn_tpu.data.token_stream``): (B, S) windows over a flat token file,
 with the shifted next-token labels as int32 ids, and the OpenWebText
-loader over a uint16 file. The numpy memmap path only; the JAX package's
-threaded native reader is not ported, and gives the same windows."""
+loader over a uint16 file. Windows are read on the native runtime's
+threads where it is built (``native.api.TokenFile`` over the same file:
+the same windows), from a numpy memmap otherwise."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -17,8 +18,18 @@ class TokenStreamDataLoader(DataLoader):
 
     def __init__(self, path: str, context_length: int, dtype=np.uint16,
                  seed: int = 0, pad_token_id: Optional[int] = None):
+        from .. import native
+
         super().__init__(seed)
         self.tokens = np.memmap(path, dtype=dtype, mode="r")
+        # dtypes the native reader does not take keep the numpy path
+        self._native_tokens = None
+        if np.dtype(dtype) in (np.uint16, np.int32, np.uint32) \
+                and native.available():
+            try:
+                self._native_tokens = native.api.TokenFile(path, dtype)
+            except (ValueError, OSError):
+                self._native_tokens = None
         self.context_length = int(context_length)
         self.pad_token_id = pad_token_id
         # valid starts are 0..L-S-1: S tokens plus one label lookahead
@@ -28,12 +39,22 @@ class TokenStreamDataLoader(DataLoader):
 
     def _get(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         s = self.context_length
-        data = np.empty((len(indices), s), np.int32)
-        labels = np.empty((len(indices), s), np.int32)
-        for b, start in enumerate(indices):
-            window = np.asarray(self.tokens[start:start + s + 1], np.int32)
-            data[b] = window[:-1]
-            labels[b] = window[1:]
+        if self._native_tokens is not None:
+            full = self._native_tokens.windows(
+                np.asarray(indices, np.int64), s + 1)
+            # data and labels are overlapping views of ``full``: masking
+            # the labels in place would reach the data
+            data, labels = full[:, :-1], full[:, 1:]
+            if self.pad_token_id is not None:
+                labels = labels.copy()
+        else:
+            data = np.empty((len(indices), s), np.int32)
+            labels = np.empty((len(indices), s), np.int32)
+            for b, start in enumerate(indices):
+                window = np.asarray(self.tokens[start:start + s + 1],
+                                    np.int32)
+                data[b] = window[:-1]
+                labels[b] = window[1:]
         if self.pad_token_id is not None:
             labels[labels == self.pad_token_id] = -1   # ignored by the loss
         return data, labels

@@ -7,8 +7,10 @@ in a vocabulary built in merge order (GPT-2's, and every ``train_bpe``
 output) id order is merge rank, so this is true BPE. Ids come out the
 same as the JAX package's on the same vocabulary and text.
 
-The JAX package's native encoder and ``from_tiktoken`` (a package and a
-download) are not ported; this module is framework-free Python.
+A loaded vocabulary encodes through the native runtime's BPE
+(``native.api.BpeTokenizer``) where the library is built: the same ids
+as the Python merge loop, which stays the path without it. The JAX
+package's ``from_tiktoken`` (a package and a download) is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class Tokenizer:
         self._vocab: List[bytes] = []
         self._encoder: Dict[bytes, int] = {}
         self._special: Dict[str, int] = {}
+        self._native = None     # the native encoder of a loaded vocab.bin
 
     def load(self, vocab_path: str) -> "Tokenizer":
         with open(vocab_path, "rb") as f:
@@ -43,6 +46,14 @@ class Tokenizer:
                 (n,) = struct.unpack("<I", f.read(4))
                 self._vocab.append(f.read(n) if n else b"")
         self._build_encoder()
+        from .. import native
+
+        self._native = None
+        if native.available():
+            try:
+                self._native = native.api.BpeTokenizer(vocab_path)
+            except (ValueError, OSError):
+                self._native = None
         return self
 
     def save(self, vocab_path: str) -> None:
@@ -81,6 +92,8 @@ class Tokenizer:
     def encode(self, text: str, allowed_special: bool = True) -> List[int]:
         if not self._vocab:
             raise RuntimeError("tokenizer not loaded")
+        if self._native is not None and allowed_special:
+            return self._native.encode(text).tolist()
         out: List[int] = []
         pieces = [text]
         if allowed_special and _END_OF_TEXT in self._special \

@@ -20,6 +20,16 @@ _EXPORTS = {
     "GroupNorm": "norms", "LayerNorm": "norms", "RMSNorm": "norms",
     "SGD": "optimizers", "Adam": "optimizers", "AdamW": "optimizers",
     "EncoderBlock": "transformer", "GPTBlock": "transformer",
+    **{name: "schedulers" for name in (
+        "CosineAnnealingLR", "CosineAnnealingWarmRestarts", "ExponentialLR",
+        "LinearWarmup", "MultiStepLR", "NoOp", "ReduceLROnPlateau", "StepLR",
+        "WarmupCosineAnnealing")},
+    "quantize_for_decode": "quant",
+    # the submodules themselves
+    **{name: None for name in (
+        "activations", "attention", "blocks", "embedding", "initializers",
+        "layers", "losses", "metrics", "norms", "optimizers", "quant",
+        "schedulers", "transformer")},
 }
 
 __all__ = sorted(_EXPORTS)
@@ -29,7 +39,8 @@ def __getattr__(name):
     if name not in _EXPORTS:
         raise AttributeError(f"module {__name__!r} has no attribute "
                              f"{name!r}")
-    value = getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
-                    name)
+    home = _EXPORTS[name]
+    value = importlib.import_module(f".{name}", __name__) if home is None \
+        else getattr(importlib.import_module(f".{home}", __name__), name)
     globals()[name] = value
     return value

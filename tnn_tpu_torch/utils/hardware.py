@@ -3,10 +3,11 @@
 ``memory_usage_kb`` is the process's resident set; ``device_memory_stats``
 reads the card's allocator through ``torch.cuda.memory_stats``, where the
 JAX package's ``hbm_stats`` reads the TPU's; ``cpu_info`` summarizes the
-host from ``/proc``, and ``device_info`` lists the CUDA cards with their
-memory, SM count and ``nvidia-smi`` power limit (``cli.hardware_info``).
-The JAX package's sysfs topology report (sockets, caches, P/E cores) and
-its IO cpu set (``utils.affinity``) are not ported.
+host from ``/proc`` and ``cpu_topology`` adds the sysfs report
+(sockets, physical cores, P / E cores, caches, clock range), as the JAX
+package's does; ``device_info`` lists the CUDA cards with their memory,
+SM count and ``nvidia-smi`` power limit (``cli.hardware_info``).
+``hbm_stats`` is the JAX package's name for ``device_memory_stats``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ def device_memory_stats(device=None) -> Dict[str, int]:
                 .total_memory)}
 
 
+def hbm_stats(device=None) -> Dict[str, int]:
+    """``device_memory_stats`` under the JAX package's name."""
+    return device_memory_stats(device)
+
+
 def cpu_info() -> Dict[str, Any]:
     """The host CPU's model, logical core count and memory (KiB), where
     ``/proc`` has them."""
@@ -63,6 +69,59 @@ def cpu_info() -> Dict[str, Any]:
         except OSError:
             pass
     return info
+
+
+def cpu_topology() -> Dict[str, Any]:
+    """Deep host topology (parity: HardwareInfo, hardware_info.hpp:13-168 —
+    sockets/cores/threads, P/E core census, cache hierarchy, frequency
+    range). ``cpu_info``'s fields plus what /proc and sysfs give; missing
+    files simply omit their fields."""
+    from . import affinity
+
+    sys_cpu = "/sys/devices/system/cpu"
+    cpus = affinity.available_cpus()
+    topo: Dict[str, Any] = dict(cpu_info())
+    packages, cores = set(), set()
+    for c in cpus:
+        base = f"{sys_cpu}/cpu{c}/topology"
+        pkg = affinity._read_int(f"{base}/physical_package_id")
+        core = affinity._read_int(f"{base}/core_id")
+        if pkg is not None:
+            packages.add(pkg)
+        if pkg is not None and core is not None:
+            cores.add((pkg, core))
+    if packages:
+        topo["sockets"] = len(packages)
+    if cores:
+        topo["physical_cores"] = len(cores)
+        topo["threads_per_core"] = round(len(cpus) / len(cores), 2)
+    types = affinity.core_types()
+    topo["p_cores"] = sum(1 for t in types.values() if t == "P")
+    topo["e_cores"] = sum(1 for t in types.values() if t == "E")
+    # cache hierarchy of cpu0 (uniform on every machine we care about)
+    caches = []
+    idx = 0
+    while True:
+        base = f"{sys_cpu}/cpu{cpus[0] if cpus else 0}/cache/index{idx}"
+        if not os.path.isdir(base):
+            break
+        entry = {}
+        for key in ("level", "type", "size"):
+            try:
+                with open(os.path.join(base, key)) as f:
+                    entry[key] = f.read().strip()
+            except OSError:
+                pass
+        if entry:
+            caches.append(entry)
+        idx += 1
+    if caches:
+        topo["caches"] = caches
+    fmin = affinity._read_int(f"{sys_cpu}/cpu0/cpufreq/cpuinfo_min_freq")
+    fmax = affinity._read_int(f"{sys_cpu}/cpu0/cpufreq/cpuinfo_max_freq")
+    if fmax:
+        topo["freq_khz"] = {"min": fmin or 0, "max": fmax}
+    return topo
 
 
 def _power_limits() -> List[str]:
