@@ -365,6 +365,27 @@ numbers on its own line:
    line); then rank 1 is killed, seen by ``wait_failed``, a new rank 1
    rejoins (``wait_alive``) and ``shutdown`` ends every live worker with
    exit code 0.
+32. debug_guards: the engine's debug knobs on full-width ``gpt2_small``
+   over the serving traffic (8 requests, prompts 16-768, 64 new tokens,
+   512 x 16-token blocks, 8 rows): ``TNN_DEBUG_SYNC=1`` (the step under
+   torch's sync-debug mode "error") against the guard off, token for
+   token with no trip, on the paged path and the overlapped graph step
+   (each in the order off, on, on, off: step times, K1 = 12 x paged
+   dispatches a run) and with n-gram and draft-model speculation on
+   cyclic prompts; ``_put_step`` planted as a blocking copy from pageable
+   memory, whose request must FAIL with the "synchronizing" error naming
+   the copy, and which decodes token-exact without the knob;
+   ``TNN_POOL_DEBUG=1`` over staggered shared-prefix traffic against the
+   knob off (tokens, saved prefill, step times); the int8 pages, int8
+   weights, whole-prompt, sp = 2, tp = 2, MoE and fused (K8) programs
+   under the guard once each, every trip printed with its line. Its
+   launches join the kernels line.
+33. tools: ``tools/torch_trace_step.py`` (``gpt2_decode`` and ``wrn``, 2
+   traced steps each: the window, the device operations' total, the gap
+   and the top 10 operations) and ``tools/torch_hbm_fit.py`` at the
+   card's memory, with ``gpt2_small``'s train state built on the card
+   beside the tool's exact bytes (``memory_allocated``, and
+   ``max_memory_allocated`` while it was built).
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -9513,6 +9534,360 @@ def phase_distributed(results):
     results["flash_launches"]["flash_attention_bwd"] += k7
 
 
+# -- phase 32 -----------------------------------------------------------------
+#
+# The engine's debug guards on full-width gpt2_small: TNN_DEBUG_SYNC (the
+# step under torch's sync-debug mode "error", serving/sync_guard.py) token
+# for token against the guard off on the default paged path, n-gram and
+# draft-model speculation and the overlapped graph step; a planted
+# blocking put from pageable memory that must fail its request (and decode
+# token-exact without the knob); TNN_POOL_DEBUG over staggered shared-
+# prefix traffic; the other programs under the guard once each, every
+# trip printed with the line that synchronized.
+
+GUARD_REQUESTS = 8            # the serving traffic: PERF.md section 4
+GUARD_TOKENS = 64
+GUARD_OTHER_REQUESTS = 4      # each other program, trips only
+GUARD_OTHER_TOKENS = 16
+
+
+@contextlib.contextmanager
+def knob_env(*names):
+    """Each environment variable of ``names`` set to "1" while engines are
+    made inside (the knobs are read at construction)."""
+    import os
+
+    old = {n: os.environ.get(n) for n in names}
+    os.environ.update({n: "1" for n in names})
+    try:
+        yield
+    finally:
+        for n, v in old.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def guard_prompts(vocab, n=GUARD_REQUESTS, seed=0):
+    """``serve_traffic``'s prompts: lengths 16-768 from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(16, 769)))
+            for _ in range(n)]
+
+
+def guard_run(model, prompts, knobs=(), new_tokens=GUARD_TOKENS,
+              stagger=False, **engine_kw):
+    """One engine over ``prompts`` (odd ones sampled, as the serving
+    traffic) made under ``knobs``. ``stagger``: the first request steps
+    until its 512-token prefix is resident before the rest join. Returns
+    the engine and, per request, (state, tokens, error)."""
+    import torch
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = dict(num_blocks=512, block_size=16, max_batch_size=8,
+               chunk_size=64, seed=0)
+    with knob_env(*knobs):
+        engine = InferenceEngine(model, device=model.device,
+                                 **{**cfg, **engine_kw})
+
+    def submit(i, prompt):
+        sampled = i % 2 == 1
+        return engine.submit(
+            prompt, new_tokens, temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 0.0)
+
+    rids = [submit(0, prompts[0])]
+    if stagger:
+        while engine.result(rids[0]).cache_len < PREFIX_LEN:
+            engine.step()
+    rids += [submit(i, p) for i, p in enumerate(prompts) if i]
+    t0 = time.perf_counter()
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    engine.wall_s = time.perf_counter() - t0
+    engine.check_invariants()
+    return engine, [(engine.result(r).state.value,
+                     list(engine.result(r).out_tokens),
+                     engine.result(r).error) for r in rids]
+
+
+def guard_trips(out):
+    """The distinct TNN_DEBUG_SYNC errors of a run's failed requests."""
+    return sorted({err for _, _, err in out
+                   if err and "TNN_DEBUG_SYNC" in err})
+
+
+def guard_pair(label, model, prompts, card, order=(False, True), **kw):
+    """The same traffic with the guard off and on in ``order`` (True: on):
+    every request FINISHED in every run, token for token, no trip; the
+    step times of each. Returns the engines in ``order`` and the first
+    run's requests."""
+    engines, outs = [], []
+    for on in order:
+        eng, out = guard_run(model, prompts, knobs=("TNN_DEBUG_SYNC",)
+                             if on else (), **kw)
+        engines.append(eng)
+        outs.append(out)
+    stats = [e.stats() for e in engines]
+    on_eng = engines[order.index(True)]
+
+    def times(key, on):
+        return [x for x, o in zip(key, order) if o == on]
+    step_ms = [st["step_latency_ms_mean"] for st in stats]
+    fields = dict(
+        card=card, program=label, requests=len(prompts),
+        order=["on" if o else "off" for o in order],
+        finished=[sum(st == "finished" for st, _, _ in o) for o in outs],
+        token_exact=all([a[1] for a in o] == [b[1] for b in outs[0]]
+                        for o in outs),
+        trips=sorted({t for o in outs for t in guard_trips(o)}),
+        armed=[e._sync_armed for e in engines],
+        step_ms_off=times(step_ms, False), step_ms_guarded=times(step_ms,
+                                                                 True),
+        wall_s_off=times([e.wall_s for e in engines], False),
+        wall_s_guarded=times([e.wall_s for e in engines], True),
+        program_steps=on_eng.stats()["program_steps"],
+        graph_replays=on_eng.stats()["graph_replays"],
+        spec_acceptance=on_eng.stats().get("spec_acceptance_rate"),
+        adopted=on_eng.metrics.overlap_adopted)
+    log("debug_guards", **fields)
+    if not (fields["armed"] == list(order) and fields["token_exact"]
+            and fields["finished"] == [len(prompts)] * len(order)):
+        raise AssertionError(f"TNN_DEBUG_SYNC on {label}: {fields}")
+    return engines, outs[0]
+
+
+def planted_blocking_put(self, arrays, tables=None):
+    """``_put_step`` as a blocking copy from pageable memory."""
+    import numpy as np
+    import torch
+
+    arrays = list(arrays) + ([tables] if tables is not None else [])
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in arrays]
+
+
+def guard_plant(model, prompts, base, card):
+    """The planted blocking put fails its request under the guard with a
+    "synchroniz" error naming the copy; without the knob the same plant
+    decodes the traffic token-exact."""
+    import numpy as np
+
+    from tnn_tpu_torch.serving.engine import InferenceEngine
+
+    real = InferenceEngine._put_step
+    InferenceEngine._put_step = planted_blocking_put
+    try:
+        eng, out = guard_run(model, [np.arange(5)], knobs=("TNN_DEBUG_SYNC",),
+                             new_tokens=4)
+        _, plain = guard_run(model, prompts)
+    finally:
+        InferenceEngine._put_step = real
+    state, _, error = out[0]
+    fields = dict(card=card, state=state, error=error,
+                  pool_allocated=eng.pool.num_allocated,
+                  unguarded_token_exact=[o[1] for o in plain]
+                  == [o[1] for o in base])
+    log("debug_guards_plant", **fields)
+    if state != "failed" or "synchroniz" not in (error or "").lower() \
+            or "planted_blocking_put" not in error \
+            or not fields["unguarded_token_exact"] \
+            or fields["pool_allocated"]:
+        raise AssertionError(f"planted blocking put: {fields}")
+
+
+def guard_pool_debug(model, card):
+    """TNN_POOL_DEBUG=1 over staggered shared-prefix traffic with the
+    prefix cache: token-exact against the knob off, the prefill it saved
+    and both step times."""
+    prompts = shared_prefix_prompts(model.vocab_size)
+    off_eng, off = guard_run(model, prompts, stagger=True)
+    on_eng, on = guard_run(model, prompts, knobs=("TNN_POOL_DEBUG",),
+                           stagger=True)
+    stats = (off_eng.stats(), on_eng.stats())
+    fields = dict(card=card, debug=on_eng.pool.debug,
+                  token_exact=[o[1] for o in off] == [o[1] for o in on],
+                  finished=sum(st == "finished" for st, _, _ in on),
+                  prefill_tokens_saved=stats[1]["prefill_tokens_saved"],
+                  step_ms_off=stats[0]["step_latency_ms_mean"],
+                  step_ms_pool_debug=stats[1]["step_latency_ms_mean"],
+                  wall_s_off=off_eng.wall_s, wall_s_pool_debug=on_eng.wall_s)
+    log("debug_guards_pool", **fields)
+    if not (fields["debug"] and fields["token_exact"]
+            and fields["finished"] == len(prompts)
+            and fields["prefill_tokens_saved"] > 0):
+        raise AssertionError(f"TNN_POOL_DEBUG: {fields}")
+
+
+def guard_other_programs(model, card):
+    """Every other program once under the guard: which tripped, on what
+    line. A request may end FINISHED or FAILED by a trip, nothing else."""
+    import numpy as np
+
+    from tnn_tpu_torch.models import zoo
+
+    prompts = guard_prompts(model.vocab_size, GUARD_OTHER_REQUESTS, seed=2)
+    rng = np.random.default_rng(3)
+    lockstep = [rng.integers(0, model.vocab_size, 128) for _ in range(4)]
+    moe = zoo.create("moe_gpt2_small", device="cuda", seed=0)
+    programs = [
+        ("int8_pages", model, prompts, dict(kv_dtype="int8")),
+        ("quant_weights", model, prompts, dict(quant_weights=True)),
+        ("whole_prompt", model, prompts, dict(chunked_prefill=False)),
+        ("sp2", model, prompts, dict(sp=2, sp_devices=SP_DEVICES)),
+        ("tp2", model, prompts, tp_kw(2)),
+        ("moe", moe, prompts, {}),
+        ("fused", model, lockstep, dict(FUSED_SERVING, seed=0))]
+    tripped = {}
+    for label, m, ps, kw in programs:
+        eng, out = guard_run(m, ps, knobs=("TNN_DEBUG_SYNC",),
+                             new_tokens=GUARD_OTHER_TOKENS, **kw)
+        trips = guard_trips(out)
+        other = [(st, err) for st, _, err in out
+                 if st != "finished" and not (err and "TNN_DEBUG_SYNC"
+                                              in err)]
+        log("debug_guards_program", card=card, program=label,
+            armed=eng._sync_armed, tripped=bool(trips), trips=trips,
+            finished=sum(st == "finished" for st, _, _ in out),
+            requests=len(out), program_steps=eng.stats()["program_steps"])
+        if other or not eng._sync_armed:
+            raise AssertionError(f"{label} under the guard: {other}")
+        tripped[label] = trips
+    del moe
+    return tripped
+
+
+def phase_debug_guards(results):
+    import torch
+
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.serving import sync_guard
+
+    card = results["card"]
+    t0 = time.perf_counter()
+    model = zoo.create("gpt2_small", device="cuda", seed=0)
+    vocab = model.vocab_size
+    prompts = guard_prompts(vocab)
+    cyclic = cyclic_prompts(vocab)
+    guard_run(model, prompts[:2], new_tokens=4)                # warm-up
+    reset_launches()
+    abba = (False, True, True, False)
+    engines, base = guard_pair("paged", model, prompts, card, order=abba)
+    k1 = read_launches()["k1"]
+    want = [model.num_layers * paged_dispatches(e) for e in engines]
+    log("debug_guards_launches", card=card, k1=k1, expected_per_run=want)
+    if k1 != sum(want) or not all(want):
+        raise AssertionError(f"K1 over the guard runs {k1}, expected "
+                             f"12 x paged dispatches {want}")
+    guard_pair("ngram", model, cyclic, card, spec="ngram", spec_k=4)
+    overlap_eng = guard_pair("overlap_graph", model, prompts, card,
+                             order=abba, overlap=True)[0][1]
+    if not (overlap_eng.stats()["graph_replays"]
+            and overlap_eng.metrics.overlap_adopted):
+        raise AssertionError("the overlapped guard run replayed no graph "
+                             "or adopted no speculative step")
+    draft = zoo.create("gpt2_tiny", vocab_size=vocab, max_len=1024,
+                       device="cuda", seed=1)
+    # the drafter runs a prefill a row a step: half the traffic
+    guard_pair("draft", model, cyclic[:4], card, spec="draft", spec_k=4,
+               draft_model=draft)
+    del draft
+    guard_plant(model, prompts, base, card)
+    guard_pool_debug(model, card)
+    tripped = guard_other_programs(model, card)
+    added = read_launches()
+    log("debug_guards_summary", card=card, launches=added,
+        programs_tripped=sorted(k for k, v in tripped.items() if v),
+        mode=sync_guard.mode(), torch_mode=torch.cuda.get_sync_debug_mode(),
+        seconds=round(time.perf_counter() - t0, 3))
+    if sync_guard.mode() != "default" or torch.cuda.get_sync_debug_mode():
+        raise AssertionError("the sync-debug mode stayed armed")
+    results["launches"] += added["k1"]
+    results["int8_launches"]["k2"] += added["k2"]
+    results["int8_launches"]["k3"] += added["k3"]
+    results["sp_launches"]["stats"] += added["k1s"]
+    results["sp_launches"]["int8_stats"] += added["k1s_int8"]
+    results["fused_launches"] += added["k8"]
+    del model, engines, overlap_eng
+    torch.cuda.empty_cache()
+
+
+# -- phase 33 -----------------------------------------------------------------
+#
+# The port's chip tools: tools/torch_trace_step.py (gpt2_decode and wrn, 2
+# traced steps each, the top 10 device operations) and tools/
+# torch_hbm_fit.py (the card's memory as the default), with the small row's
+# train state built on the card beside its exact bytes.
+
+def tool_output(fn, *args):
+    """``fn(*args)``'s return value and its printed lines."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args)
+    return value, buf.getvalue().strip().splitlines()
+
+
+def phase_tools(results):
+    import tempfile
+
+    import torch
+
+    from tnn_tpu_torch import nn
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.train.step import create_train_state
+    from tools import torch_hbm_fit, torch_trace_step
+
+    card = results["card"]
+    reset_all_launches()
+    for what in ("gpt2_decode", "wrn"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ops, lines = tool_output(torch_trace_step.main, [
+                "--what", what, "--steps", "2", "--top", "10", "--out",
+                tmp])
+        total = sum(ops.values())
+        log("tools_trace_step", card=card, what=what, steps=2,
+            window_ms=ops.window_us / 1e3, device_ops_ms=total / 1e3,
+            idle_share=1 - total / ops.window_us, events=ops.events,
+            seconds=round(time.perf_counter() - t0, 3), lines=lines)
+        if not (ops.events and 0 < total <= ops.window_us):
+            raise AssertionError(f"trace_step {what}: {ops.events} device "
+                                 f"ops, {total} of {ops.window_us} us")
+        torch.cuda.empty_cache()
+    rows, lines = tool_output(torch_hbm_fit.main, [])
+    exact = torch_hbm_fit.train_state_bytes(
+        zoo.create("gpt2_small", max_len=1024, device="meta", seed=None),
+        nn.AdamW(lr=1e-4))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = zoo.create("gpt2_small", max_len=1024, device="cuda", seed=0)
+    state = create_train_state(model, nn.AdamW(lr=1e-4))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    log("tools_hbm_fit", card=card, lines=lines,
+        hbm_gb=torch.cuda.get_device_properties(0).total_memory / 2**30,
+        small_train_state_gb=rows[0]["train_state_GB"],
+        small_exact_bytes=exact, small_held_on_card_bytes=held,
+        small_max_memory_allocated_bytes=peak)
+    if abs(held - exact) > 0.01 * exact:
+        raise AssertionError(f"gpt2_small's train state holds {held} bytes "
+                             f"on the card, the tool says {exact}")
+    added = read_all_launches()
+    results["launches"] += added["k1"]
+    results["int8_launches"]["k3"] += added["k3"]
+    results["flash_launches"]["flash_attention_fwd"] += added["k4"]
+    del model, state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -9538,7 +9913,8 @@ def main() -> int:
               phase_serving_supervised, phase_serving_fleet,
               phase_serving_tp, phase_serving_moe, phase_training_image,
               phase_training_parallel, phase_training_parallel_axes,
-              phase_native, phase_distributed)
+              phase_native, phase_distributed, phase_debug_guards,
+              phase_tools)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]

@@ -12,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tnn_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
 def _run(code, **kw):
@@ -34,6 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(tnn_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tools.torch_hbm_fit, tools.torch_trace_step
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tnn_tpu")]
 print(len(names), bad)
 """

@@ -144,9 +144,14 @@ def local_attention(q, k, v, *, causal: bool = False, mask=None,
     live = None
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None]
-        if kv_offset is not None:
+        if isinstance(kv_offset, torch.Tensor) \
+                or getattr(kv_offset, "ndim", 0):
             off = torch.as_tensor(kv_offset, device=q.device)
             qpos = qpos + (off[:, None, None, None] if off.ndim else off)
+        elif kv_offset is not None:
+            # a scalar stays on the host: a tensor made of it would be a
+            # blocking copy to the card
+            qpos = qpos + int(kv_offset)
         live = qpos >= torch.arange(skv, device=q.device)[None, :]
         logits = torch.where(live, logits, _MASK_VALUE)
     if mask is not None:

@@ -153,12 +153,22 @@ wrote the pages; ``adopt_prefix`` verifies and writes them into this
 pool's index; ``prefix_keys`` lists what this replica can export (the
 router's fleet directory). A block that fails its digest or geometry
 check is dropped and the request recomputes it: counted, never wrong.
+
+Debug guards, as in the JAX engine: ``TNN_DEBUG_SYNC=1`` (read at
+construction into ``debug_sync``) runs the step's build, its commit and
+the speculative dispatch under torch's sync-debug mode "error"
+(``serving/sync_guard.py``); the input put, the fetch's event wait and a
+graph's capture are its only exempt points, and a synchronizing call
+anywhere else FAILs the step's requests with an error naming its line.
+``TNN_POOL_DEBUG=1`` makes the pool check its invariants after every
+bookkeeping mutation (``kv_pool.PagedKVPool``).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import itertools
+import os
 import time
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
@@ -173,7 +183,7 @@ from ..ops.decode_stack import check_kernel_geometry, fused_decode_stack
 from ..profiling.profiler import EventType, Profiler, profiled
 from ..utils.bucketing import pow2_bucket
 from ..utils.device import resolve_device
-from . import kv_pool, spec_decode, step_build, step_graph
+from . import kv_pool, spec_decode, step_build, step_graph, sync_guard
 from .faults import FaultInjected, FaultPlan
 from .kv_pool import PagedKVPool, PoolExhausted
 from .kv_tier import HostKVTier, leaf_dtype_name, tier_digest
@@ -207,7 +217,7 @@ class StepInFlight:
     began (the stall clock)."""
 
     __slots__ = ("note", "fired_before", "gen_before", "latency_s", "t0",
-                 "events", "recs", "prefills", "fetch", "spec")
+                 "events", "recs", "prefills", "fetch", "spec", "sync_trip")
 
     def __init__(self, t0: float, note: Dict[str, Any],
                  fired_before: Optional[collections.Counter] = None):
@@ -222,6 +232,8 @@ class StepInFlight:
         self.prefills: List[Request] = []
         self.fetch: Optional[Dict[str, Any]] = None
         self.spec: Optional[Dict[str, Any]] = None
+        # a speculative dispatch's TNN_DEBUG_SYNC trip, failed at commit
+        self.sync_trip: Optional[str] = None
 
 
 class InferenceEngine:
@@ -527,6 +539,10 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.overlap = bool(overlap)
+        # TNN_DEBUG_SYNC=1: the step runs under torch's sync-debug mode
+        # (sync_guard), armed on a CUDA engine only
+        self.debug_sync = os.environ.get("TNN_DEBUG_SYNC", "") == "1"
+        self._sync_armed = self.debug_sync and self.device.type == "cuda"
         self._flight: Optional[StepInFlight] = None
         self._t_fetch_done: Optional[float] = None
         # the two pinned host buffers the steps' bundles land in, in turn
@@ -964,8 +980,15 @@ class InferenceEngine:
             if r.state is RequestState.RUNNING
             and r.cache_len >= r.prefill_len}
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._sync_guard():
                 self._build_step(flight)
+        except sync_guard.SyncTripped as e:
+            # as the JAX engine's transfer error: the step's requests
+            # FAIL, the pages are zeroed, the engine serves on
+            self._abort_batch(list(self.scheduler.running),
+                              f"step failed: {e}", flight.events,
+                              flight.prefills)
+            flight.recs, flight.fetch = [], None
         except BaseException as e:
             self._finalize_note(flight)
             self._abort_flight(flight, f"step failed: {e}")
@@ -981,12 +1004,17 @@ class InferenceEngine:
         if flight is None:
             raise RuntimeError("no step in flight")
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._sync_guard():
                 self._commit_step(flight)
+        except sync_guard.SyncTripped as e:
+            flight.sync_trip = f"step commit failed: {e}"
         finally:
             self._flight = None
             self._finalize_note(flight)
             self._finished_note = flight.note
+        if flight.sync_trip is not None:
+            self._abort_batch(list(self.scheduler.running),
+                              flight.sync_trip, flight.events)
         self.metrics.observe_step_latency(flight.latency_s)
         self._last_step_latency_s = flight.latency_s
         # a decode-phase row that survived the step without a token spent
@@ -1047,6 +1075,18 @@ class InferenceEngine:
             self._step_note["programs"].append(
                 {"kind": kind, "compile_key": list(key),
                  "rids": list(rids), "fill": round(fill, 4)})
+
+    def _sync_guard(self):
+        """The step's TNN_DEBUG_SYNC region (``sync_guard.guarded``) on an
+        armed engine, else nothing."""
+        return sync_guard.guarded() if self._sync_armed \
+            else contextlib.nullcontext()
+
+    def _sync_exempt(self):
+        """A deliberate transfer inside the step: the guard's exempt
+        point on an armed engine, else nothing."""
+        return sync_guard.exempt() if self._sync_armed \
+            else contextlib.nullcontext()
 
     # -- per-request latency clocks (JAX's _note_admit, _note_prefill_done,
     # _note_leave_running) ----------------------------------------------------
@@ -1190,7 +1230,8 @@ class InferenceEngine:
     def _fetch_bundle(self, fetch: Dict[str, Any]) -> List[np.ndarray]:
         """The step's one device-to-host fetch, split back into each
         record's results."""
-        with profiled("serve.fetch", EventType.COMPUTE, self.profiler):
+        with profiled("serve.fetch", EventType.COMPUTE, self.profiler), \
+                self._sync_exempt():
             if "ready" in fetch:
                 fetch["ready"].synchronize()
                 flat = fetch["host"].numpy().copy()
@@ -1308,16 +1349,20 @@ class InferenceEngine:
         gen_state = self.generator.get_state()
         t0 = time.perf_counter()
         try:
-            with torch.inference_mode(), \
+            with torch.inference_mode(), self._sync_guard(), \
                     profiled("serve.decode_spec", EventType.COMPUTE,
                              self.profiler):
                 nxt = self._decode_launch(live, step,
                                           toks=rec["dev"][0])
                 fetch = self._stage_fetch([nxt])
-        except BaseException:
+        except BaseException as e:
             undo()
             self.generator.set_state(gen_state)
-            raise
+            if not isinstance(e, sync_guard.SyncTripped):
+                raise
+            # step N commits; its rows then FAIL with the trip
+            flight.sync_trip = f"speculative dispatch failed: {e}"
+            return False
         b = self.scheduler.max_batch_size
         key = (step.program, b, self.blocks_per_seq) + self._kv_key
         self._compile_keys.add(key)
@@ -1523,8 +1568,11 @@ class InferenceEngine:
             if leaves is None:
                 break
             sources.append((key, None, leaves))
-        fetched = iter(self.pool.export_blocks(
-            [b for _, b, _ in sources if b is not None]))
+        # outside any step: another engine's guarded step must not trip
+        # this deliberate copy
+        with self._sync_exempt():
+            fetched = iter(self.pool.export_blocks(
+                [b for _, b, _ in sources if b is not None]))
         exports = []
         for i, (key, blk, leaves) in enumerate(sources):
             if blk is not None:
@@ -1609,8 +1657,10 @@ class InferenceEngine:
                 blk = self.pool.alloc(1, start=shard)
             except (PoolExhausted, FaultInjected):
                 break
-            payload_k, payload_v = self.pool.host_payload(leaves, blk[0])
-            self.pool.adopt_blocks([(blk[0], payload_k, payload_v)])
+            with self._sync_exempt():     # outside any step, as above
+                payload_k, payload_v = self.pool.host_payload(leaves,
+                                                              blk[0])
+                self.pool.adopt_blocks([(blk[0], payload_k, payload_v)])
             if not self.prefix_cache.adopt(key, blk[0]):
                 # raced a local publish of the same chain: served either way
                 self.pool.free(blk)
@@ -2117,10 +2167,12 @@ class InferenceEngine:
         key = (self.scheduler.max_batch_size, self.blocks_per_seq)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = step_graph.DecodeGraph(
-                self._pdecode, self.generator, batch=key[0],
-                blocks_per_seq=key[1], scratch=PagedKVPool.SCRATCH,
-                device=self.device)
+            # the capture waits for its side stream on purpose
+            with self._sync_exempt():
+                graph = self._graphs[key] = step_graph.DecodeGraph(
+                    self._pdecode, self.generator, batch=key[0],
+                    blocks_per_seq=key[1], scratch=PagedKVPool.SCRATCH,
+                    device=self.device)
         return graph
 
     # -- the assembled-cache programs (JAX's _mixed_standard_fn, _decode_fn,
@@ -2229,12 +2281,13 @@ class InferenceEngine:
         arrays = list(arrays)
         if tables is not None and self._sp is None:
             arrays.append(tables)
-        if self.device.type == "cuda":
-            flat = step_graph.stage(arrays).to(self.device,
-                                               non_blocking=True)
-            out = step_build.split_inputs(flat, arrays)
-        else:
-            out = [torch.from_numpy(a).to(self.device) for a in arrays]
+        with self._sync_exempt():
+            if self.device.type == "cuda":
+                flat = step_graph.stage(arrays).to(self.device,
+                                                   non_blocking=True)
+                out = step_build.split_inputs(flat, arrays)
+            else:
+                out = [torch.from_numpy(a).to(self.device) for a in arrays]
         if tables is not None and self._sp is not None:
             out.append(self._put_tables(tables))
         return out
@@ -2244,10 +2297,11 @@ class InferenceEngine:
         on its device."""
         local = step_build.shard_tables(tables, self.sp,
                                         self.pool.blocks_per_shard)
-        return [torch.from_numpy(t).pin_memory().to(d, non_blocking=True)
-                if torch.device(d).type == "cuda"
-                else torch.from_numpy(t).to(d)
-                for t, d in zip(local, self._sp.devices)]
+        with self._sync_exempt():
+            return [torch.from_numpy(t).pin_memory().to(d, non_blocking=True)
+                    if torch.device(d).type == "cuda"
+                    else torch.from_numpy(t).to(d)
+                    for t, d in zip(local, self._sp.devices)]
 
     def _sample(self, logits: torch.Tensor,
                 step: SampleInputs) -> torch.Tensor:

@@ -66,6 +66,7 @@ whose addresses the captured pdecode graphs hold.
 from __future__ import annotations
 
 import math
+import os
 from collections import Counter, OrderedDict
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
@@ -177,6 +178,9 @@ class PagedKVPool:
         # chaos hook (a serving.faults.FaultPlan): alloc() consults it and
         # may raise an injected PoolExhausted before any state changes
         self.fault_plan = None
+        # TNN_POOL_DEBUG=1: check_invariants after every bookkeeping
+        # mutation (O(blocks) host work), off by default
+        self.debug = os.environ.get("TNN_POOL_DEBUG", "") == "1"
 
     # -- bookkeeping ----------------------------------------------------------
 
@@ -295,7 +299,9 @@ class PagedKVPool:
 
     def _pick_free(self, shard: int) -> Optional[int]:
         """Pop the most recently freed block of ``shard`` (LIFO per
-        shard), or None."""
+        shard), or None. No ``_debug_check`` here: the popped block is in
+        no set until ``alloc`` gives it its reference, and a check between
+        the two would see a block missing from the partition."""
         for i in range(len(self._free) - 1, -1, -1):
             if self.owner(self._free[i]) == shard:
                 return self._free.pop(i)
@@ -311,6 +317,7 @@ class PagedKVPool:
             self.demote_hook([b])
         if self.reclaim_hook is not None:
             self.reclaim_hook([b])
+        self._debug_check()
 
     def _reclaim(self, n: int, demote: bool = True) -> List[int]:
         """Move the ``n`` LRU-oldest evictable blocks to the free list and
@@ -327,6 +334,7 @@ class PagedKVPool:
             self.demote_hook(taken)
         if taken and self.reclaim_hook is not None:
             self.reclaim_hook(taken)
+        self._debug_check()
         return taken
 
     def alloc(self, n: int, start: int = 0) -> List[int]:
@@ -352,6 +360,8 @@ class PagedKVPool:
             if n > len(self._free):
                 self._reclaim(n - len(self._free))
             blocks = [self._free.pop() for _ in range(n)]
+            for b in blocks:
+                self._ref[b] = 1
         else:
             for s, need in enumerate(self._shard_need(n, start)):
                 have = self._shard_avail(s)
@@ -369,9 +379,11 @@ class PagedKVPool:
                 if b is None:
                     self._reclaim_shard(s)
                     b = self._pick_free(s)
+                # referenced at once: a later pick's reclaim checks the
+                # partition, which must hold every block picked before it
+                self._ref[b] = 1
                 blocks.append(b)
-        for b in blocks:
-            self._ref[b] = 1
+        self._debug_check()
         return blocks
 
     def fork(self, blocks: Sequence[int]) -> List[int]:
@@ -386,6 +398,7 @@ class PagedKVPool:
                 self._ref[b] = 1
             else:
                 raise KeyError(f"block {b} is not allocated")
+        self._debug_check()
         return list(blocks)
 
     def free(self, blocks: Sequence[int]) -> None:
@@ -406,6 +419,14 @@ class PagedKVPool:
                     self._free.append(b)
             else:
                 self._ref[b] = r - 1
+        self._debug_check()
+
+    def _debug_check(self) -> None:
+        """Under TNN_POOL_DEBUG=1, ``check_invariants`` after a
+        bookkeeping mutation, so that a broken free / allocated /
+        evictable partition raises at the mutation that broke it."""
+        if self.debug:
+            self.check_invariants()
 
     def truncate(self, block_table: Sequence[int],
                  num_tokens: int) -> List[int]:

@@ -122,8 +122,12 @@ class DraftModelDrafter(Drafter):
         ids = np.zeros((1, width), np.int64)
         ids[0, :len(ctx)] = ctx
         caches = model.init_cache(1, width + k)
-        logits = model.apply_cached(
-            torch.from_numpy(ids).to(model.device), caches, 0)
+        ids = torch.from_numpy(ids)
+        if model.device.type == "cuda":
+            # an explicit put: pinned memory, no wait for the card (the
+            # step runs the drafter inside its TNN_DEBUG_SYNC guard)
+            ids = ids.pin_memory().to(model.device, non_blocking=True)
+        logits = model.apply_cached(ids.to(model.device), caches, 0)
         tok = logits[0, len(ctx) - 1].argmax()
         drafts = [tok]
         for j in range(k - 1):
