@@ -386,6 +386,31 @@ numbers on its own line:
    card's memory, with ``gpt2_small``'s train state built on the card
    beside the tool's exact bytes (``memory_allocated``, and
    ``max_memory_allocated`` while it was built).
+34. distributed_data: the data plane across processes. A ``Coordinator``
+   deploys configs with ``jax_coordinator`` to two ``cli.dist_worker``
+   ranks on the one card (this script's ``--data-rank`` runner, which
+   calls ``dist_worker.main`` once a deploy and records each step's loss
+   and CUDA-event time, the gradient all-reduce's and the batch check's
+   time, the flash launches and peak memory): they join one gloo group
+   (ranks that share a card) and train one ``{"data": 2}`` model on
+   CIFAR-100 files written from a seed, 2,560 train and 128 held-out
+   records. (a) Full-width ``flash_vit`` (S = 17 at 32 x 32), B=128,
+   bf16 AdamW, 2 epochs of 20 steps and one held-out batch an epoch:
+   both ranks' losses equal at each step, their parameters equal by
+   digest, K4 = 6 x (40 + 2) and K7 = 6 x 40 a rank (they join the
+   kernels line), the loss gap to the in-process ``{"data": 2}`` mesh
+   (``["cuda:0"] * 2``) on the same batches reported, with both step
+   times; (b) ``cifar100_wrn16_8`` in FP32 under SGD, 2 x 5 steps: both
+   ranks' BatchNorm statistics equal by digest and within rtol 1e-5 /
+   atol 1e-6 of the in-process mesh's; (c) the FP32 gate: flash_vit in
+   FP32 under SGD at lr 1 for 2 steps on K5 + K6
+   (``TNN_FLASH_FUSED_BWD=0``), its losses and each leaf's first update
+   equal bit for bit to the in-process mesh's (the group adds the same
+   two values), and (d) the same with rank 1's gradient
+   buffer doubled before the all-reduce, which must fail the gate; (e)
+   ``"synthetic"`` data (seeded per rank), which both ranks refuse at the
+   batch check, and (f) ``{"fsdp": 2}`` across the ranks, refused naming
+   ROADMAP item 9b-ii.
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -9534,6 +9559,516 @@ def phase_distributed(results):
     results["flash_launches"]["flash_attention_bwd"] += k7
 
 
+# -- phase 34 -----------------------------------------------------------------
+#
+# The data plane across processes (module docstring, item 34). The ranks run
+# ``dd_rank_main`` (``python3 chip_smoke.py --data-rank SPEC RANK``), which
+# connects to each deploy's coordinator in turn through
+# ``dist_worker.main``; the phase's own wrappers around the package's
+# functions record what the worker does not print, and put the gate's
+# fault in on rank 1.
+
+DD_BATCH = 128
+DD_STEPS = 20                 # the train file's batches: an epoch of (a)
+DD_EPOCHS = 2
+DD_WRN_STEPS = 5
+DD_GATE_STEPS = 2
+DD_FAULT = 2.0                # (d): rank 1's gradient buffer scale
+DD_TIMED = 2                  # the steps of (a) an epoch before timing
+DD_BN_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def dd_deploys(data):
+    """(name, config, runner options) of the phase's deploys, in order."""
+    base = dict(dataset_name="cifar100", dataset_path=str(data),
+                batch_size=DD_BATCH, mesh_axes={"data": 2}, seed=0,
+                progress_print_interval=10)
+    vit = dict(base, model_name="flash_vit")
+    gate = dict(vit, epochs=1, max_steps=DD_GATE_STEPS, io_dtype="float32",
+                optimizer={"type": "sgd", "lr": 1.0})
+    gate_opts = {"fp32": True, "split_bwd": True, "updates": True}
+    return [
+        ("main", dict(vit, epochs=DD_EPOCHS, optimizer={
+            "type": "adamw", "lr": 1e-3, "weight_decay": 0.05}),
+         {"val": True}),
+        ("wrn", dict(base, model_name="cifar100_wrn16_8", epochs=2,
+                     max_steps=DD_WRN_STEPS, io_dtype="float32",
+                     optimizer={"type": "sgd", "lr": 0.1}),
+         {"fp32": True, "buffers": True}),
+        ("gate", gate, gate_opts),
+        ("gate_fault", gate, dict(gate_opts, fault=DD_FAULT)),
+        ("synthetic", dict(vit, dataset_name="synthetic", epochs=1,
+                           max_steps=2), {"expect_error": True}),
+        ("fsdp", dict(vit, mesh_axes={"fsdp": 2}, epochs=1, max_steps=2),
+         {"expect_error": True}),
+    ]
+
+
+@contextlib.contextmanager
+def dd_numerics(opts):
+    """FP32 runs without TF32 and on cuDNN's deterministic algorithms;
+    the split backward (K5 + K6) where asked."""
+    import os
+
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             os.environ.get("TNN_FLASH_FUSED_BWD"))
+    if opts.get("fp32"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    if opts.get("split_bwd"):
+        os.environ["TNN_FLASH_FUSED_BWD"] = "0"
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic \
+            = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("TNN_FLASH_FUSED_BWD", None)
+        else:
+            os.environ["TNN_FLASH_FUSED_BWD"] = saved[2]
+
+
+@contextlib.contextmanager
+def dd_recording(opts, rec):
+    """The step wrapper (each step's loss and CUDA-event ms, the first
+    step's update of every parameter), ``zoo.create`` under FP32 where
+    asked, and ``train_model`` given the held-out file where asked; into
+    ``rec``."""
+    import torch
+
+    from tnn_tpu_torch import train as train_pkg
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.data import factory
+    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.parallel import data_parallel as dp
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    real = (dp.DPTrainStep.__call__, zoo.create, train_pkg.train_model)
+    rec.update(losses=[], step_ms=[])
+
+    def call(step, state, data, labels):
+        before = None
+        if opts.get("updates") and not rec["losses"]:
+            before = {n: p.detach().float().clone()
+                      for n, p in step.model.named_parameters()}
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real[0](step, state, data, labels)
+        b.record()
+        b.synchronize()
+        rec["step_ms"].append(a.elapsed_time(b))
+        rec["losses"].append(float(out[1]["loss"]))
+        if before is not None:
+            rec["start"] = before
+            rec["update"] = {n: p.detach().float() - before[n]
+                             for n, p in step.model.named_parameters()}
+        return out
+
+    def create(name, **kw):
+        if opts.get("fp32"):
+            kw["policy"] = dt.FP32
+        rec["model"] = real[1](name, **kw)
+        return rec["model"]
+
+    def train_model(model, cfg, loader, *a, **kw):
+        rec["backend"], rec["reason"] = pg.backend(), pg.backend_reason()
+        if opts.get("val"):
+            kw["val_loader"] = factory.create(cfg.dataset_name,
+                                              cfg.dataset_path, train=False)
+        state, history = real[2](model, cfg, loader, *a, **kw)
+        rec["history"] = history
+        return state, history
+
+    dp.DPTrainStep.__call__, zoo.create, train_pkg.train_model = \
+        call, create, train_model
+    try:
+        yield
+    finally:
+        dp.DPTrainStep.__call__, zoo.create, train_pkg.train_model = real
+
+
+def dd_launches():
+    from tnn_tpu_torch.ops import flash_attention as fa
+
+    return [f.launches for f in (fa.flash_attention_fwd,
+                                 fa.flash_attention_bwd,
+                                 fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkv)]
+
+
+def dd_rank_main(spec_path, rank):
+    """One rank of phase 34: every deploy of the spec through
+    ``dist_worker.main``, each one's record appended to the spec's
+    output file as a JSON line."""
+    import torch
+    import torch.distributed as tdist
+
+    from tnn_tpu_torch.cli import dist_worker
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    spec = json.loads(Path(spec_path).read_text())
+    out_path = Path(spec["out"]) / f"rank{rank}.jsonl"
+    real_flat, real_check, real_reduce = pg.all_reduce_flat, \
+        pg.assert_equal, tdist.all_reduce
+    for d in spec["deploys"]:
+        opts = d["opts"]
+        rec = {"name": d["name"], "rank": rank, "allreduce_ms": [],
+               "allreduce_bytes": 0, "check_ms": [],
+               "collective_devices": {}}
+
+        def flat(tensors):
+            if opts.get("fault") and rank == 1:
+                tensors = [t * opts["fault"] for t in tensors]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = real_flat(tensors)
+            torch.cuda.synchronize()
+            rec["allreduce_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["allreduce_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in tensors)
+            return got
+
+        def check(value, what):
+            t0 = time.perf_counter()
+            try:
+                return real_check(value, what)
+            finally:
+                rec["check_ms"].append((what, 1e3 * (time.perf_counter()
+                                                     - t0)))
+
+        def reduce(t, *a, **kw):
+            devs = rec["collective_devices"]
+            devs[str(t.device)] = devs.get(str(t.device), 0) + 1
+            return real_reduce(t, *a, **kw)
+
+        reset_flash_launches()
+        torch.cuda.reset_peak_memory_stats()
+        pg.all_reduce_flat, pg.assert_equal, tdist.all_reduce = \
+            flat, check, reduce
+        try:
+            with dd_numerics(opts), dd_recording(opts, rec):
+                dist_worker.main(["--coordinator", d["address"], "--rank",
+                                  str(rank)])
+        except Exception as e:  # noqa: BLE001 — a refusal's record
+            if not opts.get("expect_error"):
+                raise
+            rec["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            pg.all_reduce_flat, pg.assert_equal, tdist.all_reduce = \
+                real_flat, real_check, real_reduce
+        rec["launches"] = dd_launches()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        model = rec.pop("model", None)
+        if model is not None and "error" not in rec:
+            rec["param_digest"] = pg.digest(dict(model.named_parameters()))
+            rec["buffer_digest"] = pg.digest(dict(model.named_buffers()))
+            if opts.get("buffers") and rank == 0:
+                torch.save({n: b.cpu() for n, b in model.named_buffers()},
+                           Path(spec["out"]) / f"{d['name']}_buffers.pt")
+        if "update" in rec:
+            if rank == 0:
+                torch.save({"update": {n: u.cpu() for n, u in
+                                       rec["update"].items()},
+                            "start": {n: t.cpu() for n, t in
+                                      rec["start"].items()}},
+                           Path(spec["out"]) / f"{d['name']}_update.pt")
+            del rec["update"], rec["start"]
+        with open(out_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        del model
+        torch.cuda.empty_cache()
+    return 0
+
+
+def dd_in_process(name, config, opts):
+    """The deploy on the in-process mesh of two positions on the card, in
+    this process: its record (as a rank's) with the first update."""
+    import torch
+
+    from tnn_tpu_torch import train as train_pkg
+    from tnn_tpu_torch.cli.trainer import create_model
+    from tnn_tpu_torch.data import factory
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    rec = {"name": name}
+    cfg = TrainingConfig().update(config)
+    reset_flash_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with dd_numerics(opts), dd_recording(opts, rec):
+        loader = factory.create(cfg.dataset_name, cfg.dataset_path,
+                                train=True)
+        model = create_model(cfg, loader.data_shape, "cuda")
+        train_pkg.train_model(model, cfg, loader, devices=["cuda:0"] * 2)
+    rec["launches"] = dd_launches()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["buffers"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    for key in ("update", "start"):
+        if key in rec:
+            rec[key] = {n: t.cpu() for n, t in rec[key].items()}
+    del rec["model"], model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dd_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dd_run_ranks(tmp, deploys, fields):
+    """Both ranks through every deploy; returns each deploy's two records
+    ({name: [rank 0's, rank 1's]}). A rank that dies fails the phase
+    with its exit code and its log's tail."""
+    from tnn_tpu_torch.distributed import Coordinator
+
+    coords = [Coordinator(2) for _ in deploys]
+    procs, logs = [], []
+    try:
+        spec = {"out": str(tmp), "deploys": [
+            {"name": name, "opts": opts,
+             "address": f"127.0.0.1:{c.port()}"}
+            for (name, _, opts), c in zip(deploys, coords)]}
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        for r in (0, 1):
+            logs.append(tmp / f"data_rank{r}.log")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--data-rank", str(tmp / "spec.json"), str(r)],
+                stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent))
+
+        def alive():
+            for r, p in enumerate(procs):
+                if p.poll() is not None and p.returncode != 0:
+                    raise AssertionError(
+                        f"distributed_data: rank {r} exited "
+                        f"{p.returncode}:\n{logs[r].read_text()[-3000:]}")
+
+        t0 = time.perf_counter()
+        for (name, config, opts), coord in zip(deploys, coords):
+            alive()
+            coord.wait_for_workers(timeout=300)
+            if name == "main":
+                fields["join_s"] = time.perf_counter() - t0
+            config = dict(config, jax_coordinator=f"127.0.0.1:"
+                          f"{dd_free_port()}", ranks={
+                              str(r): {"snapshot_dir": str(
+                                  tmp / f"{name}_snap{r}")} for r in (0, 1)})
+            coord.deploy_config(config, timeout=120)
+            coord.barrier("start", timeout=300)
+            t_train = time.perf_counter()
+            if opts.get("expect_error"):
+                try:
+                    coord.barrier("done", timeout=300)
+                except RuntimeError as e:   # the ranks left: the refusal
+                    fields[f"{name}_coordinator"] = str(e)
+                else:
+                    raise AssertionError(f"distributed_data: {name} passed "
+                                         "the done barrier")
+            else:
+                coord.barrier("done", timeout=600)
+                fields[f"{name}_wall_s"] = time.perf_counter() - t_train
+                coord.shutdown(timeout=60)
+            alive()
+        for r, p in enumerate(procs):
+            p.wait(timeout=300)
+        alive()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for c in coords:
+            c.close()
+        for r, path in enumerate(logs):
+            if path.exists():
+                print(f"--- data rank {r} ---\n" + path.read_text()[-3000:],
+                      file=sys.stderr)
+    recs = {}
+    for r in (0, 1):
+        for line in (tmp / f"rank{r}.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            recs.setdefault(rec["name"], [None, None])[r] = rec
+    return recs
+
+
+def dd_mean(xs):
+    return sum(xs) / len(xs) if xs else float("nan")
+
+
+def dd_median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def dd_timed(step_ms, steps_an_epoch):
+    """The steps of each epoch after its first ``DD_TIMED``."""
+    return [t for i, t in enumerate(step_ms)
+            if i % steps_an_epoch >= DD_TIMED]
+
+
+def dd_gate(rank_update, ref, start, rank_losses, ref_losses):
+    """The FP32 gate: with one data position a rank the group adds the
+    same two values as the in-process mesh, so the losses and every
+    leaf's first update must be equal bit for bit; the gaps beside
+    phase 29's bounds are reported."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(rank_losses, ref_losses)]
+    upd, leaf = pax_update_gap(rank_update, ref["update"], start)
+    import torch
+
+    bit = len(rank_losses) == DD_GATE_STEPS and rank_losses == ref_losses \
+        and all(torch.equal(rank_update[n], ref["update"][n])
+                for n in ref["update"])
+    return {"loss_rel_gap": rel, "update_rel_gap": upd, "worst_leaf": leaf,
+            "within_phase29_bounds": max(rel) <= PAX_TOL["float32"]
+            and upd <= PAX_UPDATE_TOL, "bit_equal": bit, "passes": bit}
+
+
+def phase_distributed_data(results):
+    import tempfile
+
+    import torch
+
+    card = results["card"]
+    for name in ("tnn.train", "tnn.dist.coord", "tnn.dist.worker"):
+        train_logs_to_stderr(name)
+    fields = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "cifar100"
+        data.mkdir()
+        cifar100_files(data, records=(DD_BATCH * DD_STEPS, DD_BATCH))
+        deploys = dd_deploys(data)
+        with contextlib.redirect_stdout(sys.stderr):
+            ranks = dd_run_ranks(tmp, deploys, fields)
+            t_ref = time.perf_counter()
+            refs = {name: dd_in_process(
+                name, dict(config, snapshot_dir=str(tmp / f"{name}_ref")),
+                opts) for name, config, opts in deploys
+                    if name in ("main", "wrn", "gate")}
+            fields["in_process_s"] = time.perf_counter() - t_ref
+        gate_ref = torch.load(tmp / "gate_update.pt")
+        ref_gate = {"update": refs["gate"]["update"]}
+        start = refs["gate"]["start"]
+        gate = dd_gate(gate_ref["update"], ref_gate, start,
+                       ranks["gate"][0]["losses"], refs["gate"]["losses"])
+        fault_upd = torch.load(tmp / "gate_fault_update.pt")["update"]
+        fault = dd_gate(fault_upd, ref_gate, start,
+                        ranks["gate_fault"][0]["losses"],
+                        refs["gate"]["losses"])
+        wrn_buffers = torch.load(tmp / "wrn_buffers.pt")
+    main, wrn = ranks["main"], ranks["wrn"]
+    ref_main, ref_wrn = refs["main"], refs["wrn"]
+    layers = VIT_LAYERS
+    train_steps = DD_STEPS * DD_EPOCHS
+    eval_steps = DD_EPOCHS
+    want = {"main": [layers * (train_steps + eval_steps),
+                     layers * train_steps, 0, 0],
+            "wrn": [0, 0, 0, 0],
+            "gate": [layers * DD_GATE_STEPS, 0, layers * DD_GATE_STEPS,
+                     layers * DD_GATE_STEPS],
+            "synthetic": [0, 0, 0, 0], "fsdp": [0, 0, 0, 0]}
+    want["gate_fault"] = want["gate"]
+    bn_gap = max(((a - wrn_buffers[n]).abs() / (DD_BN_TOL["atol"]
+                  + DD_BN_TOL["rtol"] * wrn_buffers[n].abs())).max().item()
+                 for n, a in ref_wrn["buffers"].items()
+                 if a.is_floating_point())
+    bn_bit = all(torch.equal(a, wrn_buffers[n])
+                 for n, a in ref_wrn["buffers"].items())
+    loss_gap = [abs(a - b) / abs(b) for a, b in zip(main[0]["losses"],
+                                                    ref_main["losses"])]
+    timed = dd_timed(main[0]["step_ms"], DD_STEPS)
+    timed_ref = dd_timed(ref_main["step_ms"], DD_STEPS)
+    per_step = {r: {"allreduce_ms": dd_median(rec["allreduce_ms"]),
+                    "allreduce_calls": len(rec["allreduce_ms"]),
+                    "allreduce_mb": rec["allreduce_bytes"] / 2**20,
+                    "batch_check_ms": dd_median(
+                        [t for w, t in rec["check_ms"]
+                         if w == "the global batch"]),
+                    "param_check_ms": [t for w, t in rec["check_ms"]
+                                       if w == "the initial parameters"],
+                    "checks": len(rec["check_ms"]),
+                    "peak_gb": rec["peak_gb"]}
+                for r, rec in enumerate(main)}
+    refusal = {name: [rec.get("error") for rec in ranks[name]]
+               for name in ("synthetic", "fsdp")}
+    checks = {
+        "backend_gloo": all(rec.get("backend") == "gloo"
+                            for name in ("main", "wrn", "gate")
+                            for rec in ranks[name]),
+        "cuda_buffers": all(any(k.startswith("cuda") for k in
+                                rec["collective_devices"])
+                            for rec in main),
+        "losses_equal": all(len(ranks[name][0]["losses"]) > 0 and
+                            ranks[name][0]["losses"] ==
+                            ranks[name][1]["losses"]
+                            for name in ("main", "wrn", "gate")),
+        "main_steps": len(main[0]["losses"]) == train_steps
+        and all(math.isfinite(x) for x in main[0]["losses"]),
+        "params_equal": all(ranks[name][0]["param_digest"]
+                            == ranks[name][1]["param_digest"]
+                            for name in ("main", "wrn", "gate")),
+        "val_equal": [h["val_loss"] for h in main[0]["history"]]
+        == [h["val_loss"] for h in main[1]["history"]],
+        "bn_equal_ranks": wrn[0]["buffer_digest"] == wrn[1]["buffer_digest"],
+        "bn_vs_in_process": bn_gap <= 1.0,
+        "gate_passes": gate["passes"],
+        "fault_fails": not fault["passes"],
+        "synthetic_refused": all(e and "the global batch differs across "
+                                 "processes" in e
+                                 for e in refusal["synthetic"]),
+        "fsdp_refused": all(e and "ROADMAP item 9b-ii" in e
+                            for e in refusal["fsdp"]),
+        "launches": all(rec["launches"] == want[name]
+                        for name, recs in ranks.items() for rec in recs),
+    }
+    ok = all(checks.values())
+    fields.update(seconds=time.perf_counter() - t0)
+    log("distributed_data", card=card, model="flash_vit",
+        batch=DD_BATCH, attention_shape=[DD_BATCH // 2, 6, 17, 64],
+        backend=main[0].get("backend"), backend_reason=main[0].get("reason"),
+        collective_devices=[rec["collective_devices"] for rec in main],
+        param_digests={name: [rec.get("param_digest") for rec in recs]
+                       for name, recs in ranks.items()},
+        losses=main[0]["losses"], in_process_losses=ref_main["losses"],
+        bf16_loss_rel_gap_max=max(loss_gap), bf16_loss_rel_gap=loss_gap,
+        val_loss=[h["val_loss"] for h in main[0]["history"]],
+        val_accuracy=[h["val_accuracy"] for h in main[0]["history"]],
+        step_ms=dd_mean(timed), in_process_step_ms=dd_mean(timed_ref),
+        step_ms_rank1=dd_mean(dd_timed(main[1]["step_ms"], DD_STEPS)),
+        timed_steps=len(timed), per_rank=per_step,
+        in_process_peak_gb=ref_main["peak_gb"],
+        launches={name: [rec["launches"] for rec in recs]
+                  for name, recs in ranks.items()},
+        launches_expected=want, wrn_losses=wrn[0]["losses"],
+        wrn_in_process_losses=ref_wrn["losses"],
+        wrn_bn_gap_over_bound=bn_gap, wrn_bn_bit_equal=bn_bit,
+        bn_tolerance=DD_BN_TOL, gate=gate, gate_fault=fault,
+        fault=f"rank 1's gradient buffer x {DD_FAULT} before the all-reduce",
+        gate_losses=ranks["gate"][0]["losses"],
+        gate_in_process_losses=refs["gate"]["losses"],
+        update_tolerance=PAX_UPDATE_TOL, loss_tolerance=PAX_TOL["float32"],
+        refusals=refusal, checks=checks, ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"distributed_data: {checks}")
+    for rec in main + ranks["gate"] + ranks["gate_fault"]:
+        k4, k7, dq, dkv = rec["launches"]
+        results["flash_launches"]["flash_attention_fwd"] += k4
+        results["flash_launches"]["flash_attention_bwd"] += k7
+        split = results.setdefault("split_launches", {
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+        split["flash_attention_bwd_dq"] += dq
+        split["flash_attention_bwd_dkv"] += dkv
+
+
 # -- phase 32 -----------------------------------------------------------------
 #
 # The engine's debug guards on full-width gpt2_small: TNN_DEBUG_SYNC (the
@@ -9914,7 +10449,7 @@ def main() -> int:
               phase_serving_tp, phase_serving_moe, phase_training_image,
               phase_training_parallel, phase_training_parallel_axes,
               phase_native, phase_distributed, phase_debug_guards,
-              phase_tools)
+              phase_tools, phase_distributed_data)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -10007,4 +10542,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--data-rank"]:
+        sys.exit(dd_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -6,8 +6,8 @@ coordinator and its workers as threads of this process over loopback,
 the same framed protocol as a multi-process run. Then the two packages
 drive each other on either transport (Python or native, on each side),
 ``pack`` gives both packages' bytes, the worker CLI trains in a process
-of its own, a ``jax_coordinator`` config is refused, and the worker's
-synthetic loader draws JAX's batches.
+of its own, two workers with ``jax_coordinator`` train one model over a
+process group, and the worker's synthetic loader draws JAX's batches.
 """
 import json
 import os
@@ -576,27 +576,73 @@ def test_dist_worker_cli_trains_saves_and_exits(tmp_path):
     assert os.listdir(tmp_path / "snaps")    # train_model's own snapshot
 
 
-def test_dist_worker_refuses_jax_coordinator(monkeypatch):
-    from tnn_tpu_torch.cli import dist_worker
+def test_dist_worker_refuses_jax_coordinator(tmp_path):
+    """Named for the refusal it replaced: ``cli.dist_worker`` now accepts
+    ``jax_coordinator``. Two worker processes on the CPU join one gloo
+    group there and train one ``{"data": 2}`` mnist_cnn (BatchNorm's
+    statistics over the global batch) on the same MNIST file; both print
+    the backend, exit 0, and their final parameters and statistics are
+    equal bit for bit and moved from the initial ones."""
+    import socket
 
-    monkeypatch.setenv("TNN_PLATFORM", "cpu")
-    with Coordinator(num_workers=1) as coord:
-        out = {}
+    import torch
 
-        def run():
-            try:
-                dist_worker.main(["--coordinator",
-                                  f"127.0.0.1:{coord.port()}"])
-            except ValueError as e:
-                out["error"] = str(e)
+    from tnn_tpu_torch.checkpoint import Checkpoint
+    from tnn_tpu_torch.cli.trainer import create_model
+    from tnn_tpu_torch.train import create_train_state
+    from tnn_tpu_torch.utils.config import TrainingConfig
 
-        t = threading.Thread(target=run, daemon=True)
-        t.start()
-        coord.wait_for_workers(timeout=60)
-        coord.deploy_config({"model_name": "mnist_cnn",
-                             "jax_coordinator": "10.0.0.1:1234"}, timeout=60)
-        t.join(timeout=60)
-    assert "jax_coordinator" in out["error"] and "9b" in out["error"]
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([rng.integers(0, 10, (32, 1)),
+                           rng.integers(0, 256, (32, 784))], axis=1)
+    np.savetxt(tmp_path / "mnist_train.csv", rows, fmt="%d", delimiter=",")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        group_port = s.getsockname()[1]
+    config = {"model_name": "mnist_cnn", "dataset_name": "mnist",
+              "dataset_path": str(tmp_path), "batch_size": 8, "epochs": 1,
+              "max_steps": 2, "mesh_axes": {"data": 2}, "seed": 1,
+              "jax_coordinator": f"127.0.0.1:{group_port}",
+              "ranks": {str(r): {"snapshot_dir": str(tmp_path / f"snap{r}")}
+                        for r in (0, 1)}}
+    env = {**os.environ, "TNN_PLATFORM": "cpu"}
+    with Coordinator(num_workers=2) as coord:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tnn_tpu_torch.cli.dist_worker",
+             "--coordinator", f"127.0.0.1:{coord.port()}", "--rank", str(r)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        try:
+            assert coord.wait_for_workers(timeout=120) == [0, 1]
+            coord.deploy_config(config, timeout=60)
+            coord.barrier("start", timeout=180)
+            coord.barrier("done", timeout=180)
+            coord.shutdown(timeout=60)
+            outs = [p.communicate(timeout=60)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert f"rank {r}: process group of 2 over gloo (ranks on the " \
+            "CPU)" in out, out
+    cfg = TrainingConfig().update({k: v for k, v in config.items()
+                                   if k in TrainingConfig.__dataclass_fields__})
+    states = []
+    for r in (0, 1):
+        model = create_model(cfg, (28, 28, 1), "cpu")
+        state, meta = Checkpoint(str(tmp_path / f"snap{r}")).restore(
+            create_train_state(model, cfg.make_optimizer()))
+        assert meta["step"] == 2
+        states.append(state)
+    start = create_model(cfg, (28, 28, 1), "cpu")
+    for n, p in dict(start.named_parameters()).items():
+        assert torch.equal(states[0].params[n], states[1].params[n]), n
+    assert any(not torch.equal(states[0].params[n], p) for n, p in
+               start.named_parameters())
+    for n, b in states[0].buffers.items():
+        assert torch.equal(b, states[1].buffers[n]), n
 
 
 @pytest.mark.parametrize("model_name,rank", [("mnist_cnn", 0),

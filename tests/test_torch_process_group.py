@@ -1,0 +1,513 @@
+"""The data plane across processes (``tnn_tpu_torch.parallel.process_group``,
+the mesh and ``make_dp_train_step`` over it) against JAX's data mesh and
+the port's in-process mesh.
+
+Two ranks run as processes of their own on the CPU, over gloo (this file
+run as a script is the rank side). One pair of processes runs every
+case, first with one position a rank, then, after a second
+``initialize``, with two; the cases' inputs (JAX's initial weights and
+the batches, from numpy seeds) and the references are made once and
+shared by the tests, also across xdist workers (a lock file in the run's
+shared temporary directory).
+
+- A conv + BatchNorm net and a 2-layer GPT-2 (``gpt2_tiny``'s blocks at
+  vocab 64), 2 SGD steps at {"data": 2} (one position a rank) and
+  {"data": 4} (two), and the GPT-2 at {"data": 2, "model": 2} (the
+  "model" positions inside each rank): losses within 1e-5 relative and
+  parameters and BatchNorm statistics within rtol 1e-5 / atol 1e-6 of
+  JAX's ``make_dp_train_step`` on its forced CPU devices, JAX's own DP
+  bound; both ranks hold the same values bit for bit.
+- Against the port's in-process mesh of the same shape: bit for bit with
+  one data position a rank (the group's sum of two values is a + b either
+  way); at {"data": 4} the group adds (p0 + p1) + (p2 + p3) where the
+  in-process mesh adds ((p0 + p1) + p2) + p3, one f32 rounding apart on
+  each sum of gradients and statistics, so within rtol 1e-5 / atol 1e-7
+  after two steps (the readings are about 3e-8 absolute).
+- ``assert_equal`` refuses a batch that differs across the ranks, naming
+  it and the rank, as JAX's ``device_put`` refuses a host value that
+  differs across processes.
+- Axes other than "data" across the processes (fsdp, model, seq), MoE
+  routing under a data mesh that spans them and a pipeline raise a
+  ``ValueError`` naming ROADMAP item 9b-ii; a rank with no position of a
+  mesh is refused.
+- With no ``mesh_axes`` each rank trains its own replica on its own data,
+  equal bit for bit to a run of ``train_model`` in this process.
+"""
+import fcntl
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SPAWN_TIMEOUT = 240
+STEPS = 2
+LR = 0.1
+BATCH = 8
+VOCAB, SEQ = 64, 16
+#: (case, mesh axes, positions a rank)
+CASES = [("conv_bn", {"data": 2}, 1), ("gpt2", {"data": 2}, 1),
+         ("gpt2", {"data": 2, "model": 2}, 2), ("conv_bn", {"data": 4}, 2),
+         ("gpt2", {"data": 4}, 2)]
+REFUSALS = ("fsdp", "model", "seq", "moe", "train_fsdp", "train_pipe")
+
+
+def _case_id(case):
+    name, axes, _ = case
+    return name + "_" + "_".join(f"{k}{v}" for k, v in axes.items())
+
+
+# -- the rank side ------------------------------------------------------------
+
+
+def _port_model(inputs, name):
+    from tnn_tpu_torch.core import dtypes as tdt
+    from tnn_tpu_torch.core.module import config_module
+    from tnn_tpu_torch.models.gpt2 import GPT2
+
+    spec = inputs[name]
+    if name == "gpt2":
+        model = GPT2(**spec["kwargs"], policy=tdt.FP32, device="cpu",
+                     seed=None)
+    else:
+        model = config_module(spec["config"])
+        model.init(spec["x"].shape[1:], device="cpu", seed=None)
+    model.load_jax_params(spec["params"])
+    if spec["state"]:
+        model.load_jax_state(spec["state"])
+    return model
+
+
+def run_dp(inputs, name, axes, devices=None):
+    """``STEPS`` SGD steps of ``make_dp_train_step`` over ``axes``: the
+    losses and the JAX-layout params and net state, as numpy."""
+    import torch
+
+    from tnn_tpu_torch import parallel as tpar
+    from tnn_tpu_torch.nn import optimizers as topt
+    from tnn_tpu_torch.train import step as tstep
+
+    spec = inputs[name]
+    model = _port_model(inputs, name)
+    opt = topt.SGD(lr=LR)
+    mesh = tpar.make_mesh(**axes, devices=devices)
+    step, place_state, place_batch = tpar.make_dp_train_step(
+        model, opt, mesh, tp=axes.get("model", 1) > 1)
+    state = place_state(tstep.create_train_state(model, opt))
+    x, y = torch.from_numpy(spec["x"]), torch.from_numpy(spec["y"]).long()
+    losses = []
+    for _ in range(STEPS):
+        state, m = step(state, *place_batch(x, y))
+        losses.append(float(m["loss"]))
+    trees = tstep.train_state_trees(state)
+    return {"losses": losses, "params": _tree_np(trees["params"]),
+            "net_state": _tree_np(trees.get("net_state", {}))}
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return tree.detach().numpy().copy()
+
+
+def _error(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _refusal(inputs, what, tmp):
+    import torch
+
+    from tnn_tpu_torch import parallel as tpar
+    from tnn_tpu_torch.core import dtypes as tdt
+    from tnn_tpu_torch.data.loader import ArrayDataLoader
+    from tnn_tpu_torch.models.gpt2 import GPT2
+    from tnn_tpu_torch.nn import optimizers as topt
+    from tnn_tpu_torch.train import step as tstep
+    from tnn_tpu_torch.train import train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    spec = inputs["gpt2"]
+    if what.startswith("train_"):
+        axis = what[len("train_"):]
+        model = _port_model(inputs, "conv_bn")
+        data = inputs["conv_bn"]
+        cfg = TrainingConfig().update({
+            "epochs": 1, "batch_size": BATCH, "mesh_axes": {axis: 2},
+            "optimizer": {"type": "sgd", "lr": LR},
+            "snapshot_dir": str(tmp / what), "io_dtype": "float32"})
+        loader = ArrayDataLoader(data["x"], data["y"])
+        return _error(lambda: train_model(model, cfg, loader))
+    kw = dict(spec["kwargs"])
+    if what == "moe":
+        kw["moe_experts"] = 4
+    model = GPT2(**kw, policy=tdt.FP32, device="cpu", seed=0)
+    opt = topt.SGD(lr=LR)
+    mesh = tpar.make_mesh(**({"data": 2} if what == "moe" else {what: 2}))
+    step, place_state, _ = tpar.make_dp_train_step(
+        model, opt, mesh, fsdp=what == "fsdp", tp=what == "model")
+    ids = torch.from_numpy(spec["x"]).long()
+    return _error(lambda: step(place_state(tstep.create_train_state(
+        model, opt)), ids, ids))
+
+
+def _replica(inputs, rank, tmp):
+    """``train_model`` with no mesh_axes on this rank's own batches."""
+    from tnn_tpu_torch.data.loader import ArrayDataLoader
+    from tnn_tpu_torch.train import train_model
+
+    x, y = replica_data(rank)
+    model = _port_model(inputs, "conv_bn")
+    train_model(model, replica_config(tmp / f"replica{rank}"),
+                ArrayDataLoader(x, y))
+    return _tree_np({n: p for n, p in model.named_parameters()})
+
+
+def replica_data(rank):
+    rs = np.random.RandomState(100 + rank)
+    return (rs.randn(2 * BATCH, 8, 8, 3).astype(np.float32),
+            rs.randint(0, 10, 2 * BATCH).astype(np.int32))
+
+
+def replica_config(snapshots):
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    return TrainingConfig().update({
+        "epochs": 1, "batch_size": BATCH, "shuffle": False,
+        "optimizer": {"type": "sgd", "lr": LR}, "io_dtype": "float32",
+        "snapshot_dir": str(snapshots)})
+
+
+def rank_main(rank: int, port: int, workdir: Path) -> None:
+    import torch
+
+    from tnn_tpu_torch import parallel as tpar
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    torch.set_num_threads(1)
+    inputs = pickle.loads((workdir / "inputs.pkl").read_bytes())
+    out = {"runs": {}, "refusals": {}}
+    coord = f"127.0.0.1:{port}"
+    out["backend"] = pg.initialize(coord, 2, rank, "cpu")
+    out["reason"] = pg.backend_reason()
+    out["index"], out["count"] = pg.process_index(), pg.process_count()
+    out["mesh_info"] = tpar.local_mesh_info("cpu")
+    out["positions"] = [(p, str(d)) for p, d in pg.global_positions()]
+    x = torch.tensor(float(rank + 1), requires_grad=True)
+    (pg.all_reduce(x) * (rank + 1)).backward()
+    out["psum_grad"] = float(x.grad)
+    out["flat"] = [t.tolist() for t in pg.all_reduce_flat(
+        [torch.full((2,), rank + 1.0), torch.tensor([rank], dtype=torch.int64),
+         torch.full((3,), 0.5 * rank)])]
+    out["equal_digest"] = pg.assert_equal({"a": np.arange(4)}, "a value")
+    out["unequal"] = _error(lambda: pg.assert_equal(np.full(3, rank),
+                                                    "a per-rank array"))
+    out["no_position"] = _error(lambda: tpar.make_mesh(data=1))
+    for case in CASES:
+        if case[2] == 1:
+            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1])
+    spec = inputs["conv_bn"]
+    bad = dict(inputs, conv_bn=dict(spec, x=spec["x"] + rank))
+    out["batch_refused"] = _error(lambda: run_dp(bad, "conv_bn",
+                                                 {"data": 2}))
+    for what in REFUSALS:
+        out["refusals"][what] = _refusal(inputs, what, workdir / str(rank))
+    out["replica"] = _replica(inputs, rank, workdir / str(rank))
+    pg.shutdown()
+    pg.initialize(f"127.0.0.1:{port + 1}", 2, rank, "cpu",
+                  local_devices=["cpu", "cpu"])
+    out["mesh_info_2"] = tpar.local_mesh_info("cpu")
+    for case in CASES:
+        if case[2] == 2:
+            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1])
+    pg.shutdown()
+    (workdir / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+# -- the test side ------------------------------------------------------------
+
+
+def _free_ports(n=2):
+    """A base port with ``n`` free ports from it."""
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        try:
+            socks = []
+            for k in range(1, n):
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    raise RuntimeError("no free ports")
+
+
+def _inputs():
+    import jax
+
+    from tnn_tpu import models as jmodels
+    from tnn_tpu import nn as jnn
+    from tnn_tpu.core import dtypes as jdt
+    from tnn_tpu.train import create_train_state as jcreate
+
+    f32 = jdt.FP32
+    conv = jnn.Sequential([
+        jnn.Conv2D(4, 3, padding="same", use_bias=False, policy=f32),
+        jnn.BatchNorm(policy=f32), jnn.Activation("relu", policy=f32),
+        jnn.GlobalAvgPool(policy=f32), jnn.Dense(10, policy=f32)],
+        policy=f32)
+    kwargs = dict(vocab_size=VOCAB, max_len=SEQ)
+    gpt = jmodels.zoo.create("gpt2_tiny", **kwargs, policy=f32)
+    rs = np.random.RandomState(0)
+    x = rs.randn(BATCH, 8, 8, 3).astype(np.float32)
+    x[BATCH // 2:] *= 4.0       # the ranks' halves differ in scale
+    y = rs.randint(0, 10, BATCH).astype(np.int32)
+    ids = np.random.RandomState(1).randint(0, VOCAB, (BATCH, SEQ)) \
+        .astype(np.int32)
+    out = {}
+    for name, jmodel, a, b in (("conv_bn", conv, x, y),
+                               ("gpt2", gpt, ids, np.roll(ids, -1, 1))):
+        floating = a.dtype == np.float32
+        st = jcreate(jmodel, jnn.SGD(lr=LR), jax.random.PRNGKey(0), a.shape,
+                     input_dtype=jax.numpy.float32 if floating else None)
+        out[name] = {"jmodel": jmodel, "x": a, "y": b,
+                     "params": jax.tree.map(np.asarray, st.params),
+                     "state": jax.tree.map(np.asarray, st.net_state),
+                     "config": jmodel.get_config(),
+                     "kwargs": dict(kwargs, num_layers=2, d_model=128,
+                                    num_heads=2)}
+    return out
+
+
+def _jax_dp(spec, axes):
+    import jax
+    import jax.numpy as jnp
+
+    from tnn_tpu import nn as jnn
+    from tnn_tpu import parallel as jpar
+    from tnn_tpu.train import create_train_state as jcreate
+
+    jmodel, x = spec["jmodel"], spec["x"]
+    opt = jnn.SGD(lr=LR)
+    st = jcreate(jmodel, opt, jax.random.PRNGKey(0), x.shape,
+                 input_dtype=jnp.float32 if x.dtype == np.float32 else None)
+    step, place_state, place_batch = jpar.make_dp_train_step(
+        jmodel, opt, jpar.make_mesh(**axes), donate=False,
+        tp=axes.get("model", 1) > 1)
+    st = place_state(st)
+    losses = []
+    for _ in range(STEPS):
+        st, m = step(st, *place_batch(jnp.asarray(x),
+                                      jnp.asarray(spec["y"])))
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "params": jax.tree.map(np.asarray, st.params),
+            "net_state": jax.tree.map(np.asarray, st.net_state)}
+
+
+def _build(workdir: Path):
+    """Inputs, the two ranks' runs and every reference, in one pickle."""
+    import torch
+
+    inputs = _inputs()
+    shipped = {k: {kk: vv for kk, vv in v.items() if kk != "jmodel"}
+               for k, v in inputs.items()}
+    (workdir / "inputs.pkl").write_bytes(pickle.dumps(shipped))
+    port = _free_ports()
+    env = {**os.environ, "TNN_PLATFORM": "cpu", "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(port), str(workdir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+    # the references run while the ranks work
+    jax_runs = {_case_id(c): _jax_dp(inputs[c[0]], c[1]) for c in CASES}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        local = {_case_id(c): run_dp(shipped, c[0], c[1],
+                                     devices=["cpu"] * 4) for c in CASES}
+        replicas = []
+        for rank in (0, 1):
+            from tnn_tpu_torch.data.loader import ArrayDataLoader
+            from tnn_tpu_torch.train import train_model
+
+            model = _port_model(shipped, "conv_bn")
+            train_model(model, replica_config(workdir / f"ref{rank}"),
+                        ArrayDataLoader(*replica_data(rank)))
+            replicas.append(_tree_np(dict(model.named_parameters())))
+    finally:
+        torch.set_num_threads(threads)
+    logs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=SPAWN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        logs.append(out)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
+    ranks = [pickle.loads((workdir / f"rank{r}.pkl").read_bytes())
+             for r in (0, 1)]
+    return {"jax": jax_runs, "local": local, "replicas": replicas,
+            "ranks": ranks}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base = tmp_path_factory.getbasetemp()
+    shared = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    workdir = shared / "torch_process_group"
+    with open(shared / "torch_process_group.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        done = workdir / "runs.pkl"
+        if not done.exists():
+            workdir.mkdir(exist_ok=True)
+            t0 = time.perf_counter()
+            result = _build(workdir)
+            result["seconds"] = time.perf_counter() - t0
+            done.write_bytes(pickle.dumps(result))
+        return pickle.loads(done.read_bytes())
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], prefix + (k,))
+    else:
+        yield "/".join(prefix), np.asarray(tree)
+
+
+def _assert_trees(got, want, rtol, atol):
+    got, want = dict(_flat(got)), dict(_flat(want))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+def _assert_same(got, want):
+    got, want = dict(_flat(got)), dict(_flat(want))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
+def test_two_processes_match_jax_data_mesh(runs, case):
+    cid = _case_id(case)
+    a, b = (r["runs"][cid] for r in runs["ranks"])
+    assert a["losses"] == b["losses"]
+    _assert_same(a["params"], b["params"])
+    _assert_same(a["net_state"], b["net_state"])
+    ref = runs["jax"][cid]
+    np.testing.assert_allclose(a["losses"], ref["losses"], rtol=1e-5)
+    _assert_trees(a["params"], ref["params"], 1e-5, 1e-6)
+    if case[0] == "conv_bn":
+        _assert_trees(a["net_state"], ref["net_state"], 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
+def test_two_processes_match_in_process_mesh(runs, case):
+    cid = _case_id(case)
+    got, ref = runs["ranks"][1]["runs"][cid], runs["local"][cid]
+    if case[1]["data"] == 2:
+        assert got["losses"] == ref["losses"]
+        _assert_same(got["params"], ref["params"])
+        _assert_same(got["net_state"], ref["net_state"])
+    else:
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-6)
+        _assert_trees(got["params"], ref["params"], 1e-5, 1e-7)
+        _assert_trees(got["net_state"], ref["net_state"], 1e-5, 1e-7)
+
+
+def test_group_surface(runs):
+    for r, out in enumerate(runs["ranks"]):
+        assert out["backend"] == "gloo" and out["reason"] == \
+            "ranks on the CPU"
+        assert (out["index"], out["count"]) == (r, 2)
+        assert out["positions"] == [(0, "cpu"), (1, "cpu")]
+        assert out["mesh_info"] == {"device_count": 2,
+                                    "local_device_count": 1,
+                                    "process_count": 2, "platform": "cpu"}
+        assert out["mesh_info_2"]["device_count"] == 4
+        assert out["mesh_info_2"]["local_device_count"] == 2
+        assert out["psum_grad"] == 3.0      # d/dx_r of sum_r' (r'+1) * psum
+        assert out["flat"] == [[3.0, 3.0], [1], [0.5, 0.5, 0.5]]
+    assert runs["ranks"][0]["equal_digest"] == \
+        runs["ranks"][1]["equal_digest"]
+    assert runs["ranks"][0]["no_position"] is None
+    assert "process 1 holds no position" in runs["ranks"][1]["no_position"]
+
+
+def test_assert_equal_refuses_unequal_batches(runs):
+    for out in runs["ranks"]:
+        assert "a per-rank array differs across processes: rank(s) [1]" \
+            in out["unequal"]
+        assert "the global batch differs across processes: rank(s) [1]" \
+            in out["batch_refused"]
+
+
+@pytest.mark.parametrize("what", REFUSALS)
+def test_other_axes_across_processes_refused(runs, what):
+    for out in runs["ranks"]:
+        msg = out["refusals"][what]
+        assert msg is not None and "ROADMAP item 9b-ii" in msg, msg
+        if what in ("fsdp", "model", "seq", "train_fsdp"):
+            axis = what.split("_")[-1]
+            assert f"mesh axes ['{axis}'] cross a process boundary" in msg
+        elif what == "moe":
+            assert "MoE routing over the global batch" in msg
+        else:
+            assert "pipelines across processes" in msg
+
+
+def test_independent_replicas_without_mesh_axes(runs):
+    a, b = (out["replica"] for out in runs["ranks"])
+    assert any(not np.array_equal(a[k], b[k]) for k in a)
+    for got, ref in zip((a, b), runs["replicas"]):
+        _assert_same(got, ref)
+
+
+def test_choose_backend_and_outside_a_group():
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    assert pg.choose_backend([["cpu"], ["cpu"]])[0] == "gloo"
+    assert pg.choose_backend([["GPU-a"], ["GPU-b"]]) == (
+        "nccl", "every rank holds a card of its own")
+    assert pg.choose_backend([["GPU-a"], ["GPU-a"]])[1].startswith(
+        "ranks share a card")
+    assert pg.choose_backend([["GPU-a", "GPU-b"], ["GPU-c"]])[0] == "gloo"
+    assert not pg.is_initialized()
+    assert (pg.process_index(), pg.process_count()) == (0, 1)
+    d = pg.assert_equal(np.zeros(3, np.float32), "x")
+    assert d == pg.digest(np.zeros(3, np.float32))
+    assert d != pg.digest(np.zeros(3, np.float64))
+    assert d != pg.digest(np.zeros((1, 3), np.float32))
+    import torch
+
+    assert pg.digest(torch.zeros(3)) == pg.digest(torch.zeros(3))
+    assert pg.digest(torch.zeros(3, dtype=torch.bfloat16)) != \
+        pg.digest(torch.zeros(3))
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(ROOT))
+    rank_main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))

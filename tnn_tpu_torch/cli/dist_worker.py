@@ -16,10 +16,22 @@ a live state), into ``<path>/rank<r>`` (``checkpoint.Checkpoint``).
 (28 x 28 x 1 for an MNIST model, else 32 x 32 x 3; 100 classes where the
 model's name holds "100", else 10; seeded ``seed + rank``).
 
-Each worker trains its own replica: the port has no data plane across
-processes yet, so a config with ``jax_coordinator`` (the JAX package's
-cross-process collectives) is refused. A worker shut down before a config
-arrives (a rank that rejoined after training) returns.
+Without ``jax_coordinator`` each worker trains its own replica. With it
+(``"host:port"``, the JAX package's ``jax.distributed.initialize``
+address), every rank joins one ``torch.distributed`` group there before
+its model is built (``parallel.process_group.initialize``, rank 0 hosting
+the store), on the device ``TNN_PLATFORM`` gives and with
+``TNN_NUM_DEVICES`` positions of it (default 1), and a config's
+``mesh_axes`` lay one model over every rank's positions: ``{"data": N}``
+sums the step's gradients, BatchNorm statistics and metrics across the
+ranks. The backend, printed on the worker's first lines, is NCCL where
+every rank holds a card of its own and gloo where ranks share one or run
+on the CPU. Every rank must load the same data: the step checks each
+global batch equal across the ranks, as JAX's ``device_put`` does, so
+"synthetic" data (seeded per rank) fails at the first step there, as it
+does in the JAX package. The group shuts down after the "done" barrier.
+A worker shut down before a config arrives (a rank that rejoined after
+training) returns without joining a group.
 """
 import argparse
 import os
@@ -104,16 +116,34 @@ def main(argv=None):
     config = dict(w.config)
     per_rank = (config.pop("ranks", {}) or {}).get(str(w.rank), {})
     config.update(per_rank)
-    if "jax_coordinator" in config:
-        w.report_error("jax_coordinator is not supported by this worker")
-        w.close()
-        raise ValueError(
-            "config key 'jax_coordinator' asks for collectives across "
-            "processes (jax.distributed in the JAX package); the port has no "
-            "cross-process data plane until ROADMAP item 9b (a process per "
-            "card over NCCL), and will not train independent replicas in "
-            "its place")
+    grouped = bool(config.get("jax_coordinator"))
+    if grouped:
+        from tnn_tpu_torch.parallel import process_group
 
+        local = int(os.environ.get("TNN_NUM_DEVICES", "0") or 0) or 1
+        backend = process_group.initialize(
+            config["jax_coordinator"], num_processes=w.world,
+            process_id=w.rank, device=device, local_devices=[device] * local)
+        print(f"rank {w.rank}: process group of {w.world} over {backend} "
+              f"({process_group.backend_reason()}), {local} position(s) "
+              f"on {device}", flush=True)
+    try:
+        out = _train(w, config, device, state_hook, pending_lock, final,
+                     model_ref)
+    except BaseException as e:
+        w.report_error(f"{type(e).__name__}: {e}")
+        w.close()
+        raise
+    finally:
+        if grouped:
+            process_group.shutdown()
+    w.join(timeout=60)
+    return out
+
+
+def _train(w, config, device, state_hook, pending_lock, final, model_ref):
+    """Build the model and loader, train between the "start" and "done"
+    barriers."""
     from tnn_tpu_torch.cli.trainer import create_model
     from tnn_tpu_torch.train import train_model
     from tnn_tpu_torch.utils.config import TrainingConfig
@@ -139,7 +169,6 @@ def main(argv=None):
     print(f"rank {w.rank}: trained {len(history)} epochs, "
           f"final loss {history[-1]['train_loss']:.4f}", flush=True)
     w.barrier("done", timeout=600)
-    w.join(timeout=60)
     return state, history
 
 

@@ -72,6 +72,26 @@ digest of the state's generator. ``remat`` replays all of them. Under
 ``TrainState.layout`` gathers every sharded leaf back to JAX's full
 layout (``trees``) and places a full-layout state (``load``), so a
 checkpoint of any layout loads into JAX's templates and back.
+
+**Across processes** (a mesh over an initialized ``process_group``, JAX's
+mesh after ``jax.distributed.initialize``): only "data" may span
+processes (fsdp, model, seq and expert positions of one group stay in
+one process, and MoE routing over the global batch stays in one
+process: ROADMAP item 9b-ii). Each process holds only its own positions
+and streams, and runs the same optimizer update on its own copy. The
+step checks the global batch (and ``place_state`` the initial
+parameters) equal on every process with ``process_group.assert_equal``,
+as JAX's ``device_put`` does, and keeps the rows of its streams. Each
+sum over data positions adds this process's parts in position order,
+then the processes' sums over the group: the gradients in one flattened
+buffer a dtype (``process_group.all_reduce_flat``), BatchNorm's
+statistics through the differentiable all-reduce, the loss, accuracy and
+eval corrects. With one position a process the sums equal the in-process
+mesh's bit for bit; with more they are (p0 + p1) + (p2 + p3) where the
+in-process mesh adds ((p0 + p1) + p2) + p3. Each process's streams draw
+dropout from a generator seeded from a digest of the state's generator
+and the process index, and the state's generator is then reseeded from
+its digest alike on every process, so it stays equal on all of them.
 """
 from __future__ import annotations
 
@@ -103,6 +123,7 @@ from ..train.step import TrainState, apply_update, has_moe, microbatches, \
     moe_aux_loss, remat_call, resolve_remat_policy, step_metrics, \
     train_state_trees
 from . import mesh as mesh_lib
+from . import process_group
 from .mesh import Mesh
 from .ring_attention import ring_attention_local
 from .tensor_parallel import _permute_qkv, _unpermute_qkv, spec_for
@@ -156,9 +177,34 @@ def _coords(mesh: Mesh) -> List[Tuple[int, ...]]:
                                     for a in AXES)))
 
 
-def _device(mesh: Mesh, c) -> torch.device:
+def _index(c) -> Tuple[int, ...]:
     d, f, m, s, e = c
-    return mesh.devices[d, f, m, 0, s, e]
+    return (d, f, m, 0, s, e)
+
+
+def _device(mesh: Mesh, c) -> torch.device:
+    return mesh.devices[_index(c)]
+
+
+#: where the parallel layouts across processes are queued
+SPAN_ITEM = "ROADMAP item 9b-ii"
+
+
+def check_spans(mesh: Mesh, model=None) -> None:
+    """Refuse what may not span processes yet (the module docstring)."""
+    if not mesh.spans_processes:
+        return
+    crossing = [a for a in mesh.crossing_axes() if a != "data"]
+    if crossing:
+        raise ValueError(
+            f"mesh axes {crossing} cross a process boundary: only 'data' "
+            f"spans processes; the other axes across processes are queued "
+            f"as {SPAN_ITEM}")
+    if model is not None and has_moe(model):
+        raise ValueError(
+            f"MoE routing over the global batch cannot cross processes: "
+            f"the mesh spans {len(set(mesh.processes.flat))} processes; "
+            f"it waits for {SPAN_ITEM}")
 
 
 def place_by_specs(params, mesh: Mesh, specs):
@@ -214,7 +260,9 @@ class DataParallel:
                  tp: bool = False, ep: bool = False,
                  min_size: int = 2 ** 16):
         self.mesh = mesh
-        self.coords = _coords(mesh)
+        check_spans(mesh, model)
+        self.spans = mesh.spans_processes
+        self.coords = [c for c in _coords(mesh) if mesh.is_local(_index(c))]
         self.size = {a: mesh_lib.axis_size(mesh, a) for a in AXES}
         self.dev = {c: _device(mesh, c) for c in self.coords}
         self.devices = [self.dev[c] for c in self.coords]
@@ -390,9 +438,23 @@ class DataParallel:
         return (d, f, 0, s, 0)
 
     def streams(self, seq_split: bool) -> List[Tuple[int, int, int]]:
+        """This process's streams, in mesh order."""
         seq = self.size["seq"] if seq_split else 1
         return [(d, f, s) for d in range(self.size["data"])
-                for f in range(self.size["fsdp"]) for s in range(seq)]
+                for f in range(self.size["fsdp"]) for s in range(seq)
+                if self.lead(d, f, s) in self.dev]
+
+    def global_streams(self, seq_split: bool) -> int:
+        """The streams of every process."""
+        return self.size["data"] * self.size["fsdp"] * (
+            self.size["seq"] if seq_split else 1)
+
+    def across(self, value: torch.Tensor) -> torch.Tensor:
+        """This process's share of a sum, summed over the process group
+        where the layout spans processes (no gradient: each process's
+        backward runs on its own share)."""
+        return process_group.all_reduce(value.detach()) if self.spans \
+            else value
 
     def seq_split(self, x: torch.Tensor) -> bool:
         """Whether a batch cuts over the seq positions: (B, S) token
@@ -423,21 +485,22 @@ class DataParallel:
         """The generator each stream's forward draws from (the module
         docstring): ``generator`` on its own device, elsewhere one a device
         seeded from a digest of ``generator``'s state."""
-        by_device = {generator.device: generator}
-        digest = None
+        by_device = {} if self.spans else {generator.device: generator}
+        digest = hashlib.blake2b(generator.get_state().numpy().tobytes(),
+                                 digest_size=8).digest()
+        tag = f"{process_group.process_index()}/" if self.spans else ""
         out = []
         for (d, f, s) in streams:
             dev = self.dev[self.lead(d, f, s)]
             if dev not in by_device:
-                if digest is None:
-                    digest = hashlib.blake2b(
-                        generator.get_state().numpy().tobytes(),
-                        digest_size=8).digest()
-                seed = hashlib.blake2b(digest + str(dev).encode(),
+                seed = hashlib.blake2b(digest + f"{tag}{dev}".encode(),
                                        digest_size=8).digest()
                 by_device[dev] = make_generator(
                     int.from_bytes(seed, "little") >> 1, dev)
             out.append(by_device[dev])
+        if self.spans:
+            nxt = hashlib.blake2b(digest + b"next", digest_size=8).digest()
+            generator.manual_seed(int.from_bytes(nxt, "little") >> 1)
         return out
 
     # -- gradients -------------------------------------------------------
@@ -459,8 +522,10 @@ class DataParallel:
     def reduce_grads(self, scale: float = 1.0) -> Dict[str, Any]:
         """Every piece's gradient, summed over its holders in position
         order (``mesh.all_reduce``; ``mesh.reduce_scatter`` for an fsdp
-        leaf), in the owned layout."""
-        grads = {}
+        leaf), in the owned layout. Across processes each process's sums
+        are then summed over the group, all in one flattened buffer a
+        dtype."""
+        sums = {}
         for n, own in self.owned.items():
             axis = self.axis[n]
             if axis == "fsdp":
@@ -472,10 +537,7 @@ class DataParallel:
                         device=self.dev[c]))
                 if scale != 1.0:
                     parts = [g * scale for g in parts]
-                pieces = mesh_lib.reduce_scatter(
-                    parts, self.dim[n], [self.dev[c] for c in
-                                         self.owners[n]])
-                grads[n] = {str(j): g for j, g in enumerate(pieces)}
+                sums[(n, None)] = mesh_lib.position_sum(parts)
                 continue
             by_piece: Dict[int, List[torch.Tensor]] = {}
             for c in self.coords:
@@ -488,15 +550,27 @@ class DataParallel:
                 if g is not None:
                     for jj, piece in enumerate(self._split(n, g)):
                         by_piece.setdefault(jj, []).append(piece)
-            out = {}
             for j, owner in enumerate(self.owners[n]):
                 parts = by_piece.get(j) or [torch.zeros_like(
                     self.held[owner][n])]
                 if scale != 1.0:
                     parts = [g * scale for g in parts]
-                out[str(j)] = mesh_lib.all_reduce(parts)[0].to(
-                    self.dev[owner])
-            grads[n] = out["0"] if axis is None else out
+                sums[(n, j)] = mesh_lib.position_sum(parts)
+        if self.spans:
+            sums = dict(zip(sums, process_group.all_reduce_flat(
+                list(sums.values()))))
+        grads = {}
+        for (n, j), g in sums.items():
+            if j is None:
+                grads[n] = {str(k): piece.to(self.dev[c]) for k, (piece, c)
+                            in enumerate(zip(g.chunk(self.pieces(n),
+                                                     dim=self.dim[n]),
+                                             self.owners[n]))}
+            elif self.axis[n] is None:
+                grads[n] = g.to(self.dev[self.owners[n][0]])
+            else:
+                grads.setdefault(n, {})[str(j)] = g.to(
+                    self.dev[self.owners[n][j]])
         for c in self.coords:
             for t in self.held[c].values():
                 t.grad = None
@@ -609,10 +683,11 @@ class _Run:
     one output a stream."""
 
     def __init__(self, layout: DataParallel, train: bool, streams,
-                 generators):
+                 generators, global_streams: int):
         self.lay = layout
         self.train = train
         self.streams = streams
+        self.global_streams = global_streams
         self.gens = generators
         self.seq = len({s for (_, _, s) in streams})
         ctx = active_ring_context()
@@ -727,10 +802,13 @@ class _Run:
         """Every stream normalized by the global batch's statistics: the
         streams' sums added in position order (``mesh.all_reduce``)."""
         dims = tuple(range(xs[0].ndim - 1))
-        count = sum(x.numel() // x.shape[-1] for x in xs)
-        s1 = mesh_lib.all_reduce([x.float().sum(dim=dims) for x in xs])
+        count = sum(x.numel() // x.shape[-1] for x in xs) \
+            * self.global_streams // len(xs)
+        span = self.lay.spans
+        s1 = mesh_lib.all_reduce([x.float().sum(dim=dims) for x in xs],
+                                 processes=span)
         s2 = mesh_lib.all_reduce([(x.float() * x.float()).sum(dim=dims)
-                                  for x in xs])
+                                  for x in xs], processes=span)
         out = []
         for i, (x, a, b) in enumerate(zip(xs, s1, s2)):
             mean = a / count
@@ -1005,8 +1083,10 @@ def _hits(out, labels, starts):
     return ((pred == labels) & mask), mask
 
 
-def _global_mean(values, counts, device):
-    total = sum(counts)
+def _global_mean(values, counts, device, total):
+    """The mean of per-stream ``values`` weighted by their rows
+    (``counts``) of ``total`` rows in all: this process's share of it
+    where ``total`` counts every process's rows."""
     return mesh_lib.all_reduce([v.float() * (c / total)
                                 for v, c in zip(values, counts)])[0] \
         .to(device)
@@ -1082,7 +1162,7 @@ class DPTrainStep:
         streams = lay.streams(seq_split)
         gens = lay.generators(state.generator, streams) if train else \
             [None] * len(streams)
-        run = _Run(lay, train, streams, gens)
+        run = _Run(lay, train, streams, gens, lay.global_streams(seq_split))
         return run, gens
 
     def _microbatch(self, state, data, labels):
@@ -1102,10 +1182,11 @@ class DPTrainStep:
         else:
             outs, aux = fwd(*xs)
         counts = [x.shape[0] for x in xs]
+        total = counts[0] * lay.global_streams(seq_split)
         dev = lay.devices[0]
         score = self._chunked_loss if hidden else self._loss
         loss = _global_mean([score(run, o, l, i) for i, (o, l) in
-                             enumerate(zip(outs, ls))], counts, dev)
+                             enumerate(zip(outs, ls))], counts, dev, total)
         if aux is not None:
             loss = loss + aux.to(dev)
             aux = aux.detach().to(dev)
@@ -1116,9 +1197,10 @@ class DPTrainStep:
             commit()
         acc = None
         if self.compute_accuracy:
-            acc = _global_mean([self._accuracy(o, l) for o, l in
-                                zip(outs, ls)], counts, dev)
-        return loss.detach(), acc, aux
+            acc = lay.across(_global_mean([self._accuracy(o, l) for o, l in
+                                           zip(outs, ls)], counts, dev,
+                                          total))
+        return lay.across(loss.detach()), acc, aux
 
     def _accuracy(self, out, labels):
         out = out.detach() if not isinstance(out, tuple) else \
@@ -1132,6 +1214,8 @@ class DPTrainStep:
         lay = self.layout
         if lay is None or state.layout is not lay:
             raise ValueError("place the state first (place_state)")
+        if lay.spans:
+            process_group.assert_equal((data, labels), "the global batch")
         data, labels = data.to(lay.devices[0]), labels.to(lay.devices[0])
         if self.augment is not None:
             data = self.augment(state.generator, data)
@@ -1162,6 +1246,9 @@ class DPTrainStep:
         @torch.no_grad()
         def step(state, data, labels):
             lay = self.layout
+            if lay.spans:
+                process_group.assert_equal((data, labels),
+                                           "the global batch")
             seq_split = lay.seq_split(data)
             xs = lay.split(data, seq_split)
             ls = lay.split(labels, seq_split)
@@ -1169,13 +1256,15 @@ class DPTrainStep:
             outs = run.forward(self.model, xs)
             vals = [self._loss(run, o, l, i, loss_fn) for i, (o, l) in
                     enumerate(zip(outs, ls))]
-            metrics = {"loss": _global_mean(
-                vals, [x.shape[0] for x in xs], lay.devices[0])}
+            metrics = {"loss": lay.across(_global_mean(
+                vals, [x.shape[0] for x in xs], lay.devices[0],
+                xs[0].shape[0] * lay.global_streams(seq_split)))}
             if compute_accuracy:
                 metrics["corrects"] = mesh_lib.all_reduce(
                     [_hits(o, l, self._vocab_starts()
                            if isinstance(o, tuple) else None)[0]
-                     .sum(dtype=torch.int32) for o, l in zip(outs, ls)])[0]
+                     .sum(dtype=torch.int32) for o, l in zip(outs, ls)],
+                    processes=lay.spans)[0]
             return metrics
 
         return step
@@ -1216,13 +1305,17 @@ def make_dp_train_step(model, optimizer, mesh: Mesh,
     step = DPTrainStep(model, optimizer, loss_fn, scheduler or NoOp(),
                        grad_accum, augment, remat, compute_accuracy,
                        lm_head_chunk)
-    first = _device(mesh, _coords(mesh)[0])
+    first = _device(mesh, next(c for c in _coords(mesh)
+                               if mesh.is_local(_index(c))))
 
     def place_state(state: TrainState) -> TrainState:
         if state.layout is not None:
             return state
         full = state.opt_state
         layout = DataParallel(model, mesh, fsdp=fsdp, tp=tp, ep=ep)
+        if layout.spans:
+            process_group.assert_equal(layout.full_params(),
+                                       "the initial parameters")
         state.opt_state = optimizer.init(layout.owned)
         layout.set_opt_state(state.opt_state, full)
         layout.broadcast()

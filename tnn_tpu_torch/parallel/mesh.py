@@ -22,6 +22,15 @@ gradient back along the same moves.
 the batch over ``batch_axis``), runs a per-group body on lists of shards
 and reassembles its output: the form ``ring_attention`` and
 ``ulysses_attention`` take on whole tensors.
+
+Under an initialized ``process_group`` a mesh built without ``devices``
+spans processes: it takes the first prod(sizes) entries of the group's
+global position list, each position carrying its process
+(``Mesh.processes``), and a process that holds none of them is refused.
+A process reaches only its own positions; the sums (``all_reduce``,
+``reduce_scatter``, ``data_mean``) given ``processes=True`` add this
+process's parts in position order, then the processes' sums over the
+group.
 """
 from __future__ import annotations
 
@@ -31,20 +40,47 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import process_group
+
 AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
 
 
 class Mesh:
     """Devices laid out over ``AXES``; ``shape`` maps each axis to its
-    size, ``devices`` is the object array of ``torch.device``s."""
+    size, ``devices`` is the object array of ``torch.device``s and
+    ``processes`` (None for a mesh of this process alone) the int array
+    of each position's process."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray,
+                 processes: Optional[np.ndarray] = None):
         if devices.ndim != len(AXES):
             raise ValueError(f"a mesh has {len(AXES)} axes, got "
                              f"{devices.ndim}")
         self.devices = devices
+        self.processes = processes
+        self.process_index = process_group.process_index() \
+            if processes is not None else 0
         self.axis_names = AXES
         self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.processes is not None and \
+            len(set(self.processes.flat)) > 1
+
+    def is_local(self, index: Tuple[int, ...]) -> bool:
+        """Whether position ``index`` (one coordinate an axis of ``AXES``)
+        lives in this process."""
+        return self.processes is None or \
+            int(self.processes[index]) == self.process_index
+
+    def crossing_axes(self) -> Tuple[str, ...]:
+        """The axes along which positions of different processes meet."""
+        if self.processes is None:
+            return ()
+        return tuple(a for i, a in enumerate(AXES)
+                     if self.shape[a] > 1
+                     and np.any(np.diff(self.processes, axis=i) != 0))
 
     @property
     def size(self) -> int:
@@ -55,7 +91,10 @@ class Mesh:
 
     def __repr__(self):
         live = {k: v for k, v in self.shape.items() if v > 1}
-        return f"Mesh({live or {'data': 1}}, devices={self.device_list()})"
+        procs = "" if self.processes is None else \
+            f", processes={list(self.processes.flat)}"
+        return (f"Mesh({live or {'data': 1}}, devices={self.device_list()}"
+                f"{procs})")
 
 
 def default_devices(n: int, device="cuda") -> List[torch.device]:
@@ -83,9 +122,13 @@ def make_mesh(data: int = 1, fsdp: int = 1, model: int = 1, pipe: int = 1,
               devices: Optional[Sequence] = None, *,
               device="cuda") -> Mesh:
     """A mesh of the given axis sizes over ``devices`` (its first
-    prod(sizes) entries), by default ``default_devices(..., device)``."""
+    prod(sizes) entries), by default ``default_devices(..., device)``, or
+    under an initialized process group the group's positions (the
+    module docstring)."""
     sizes = (data, fsdp, model, pipe, seq, expert)
     need = math.prod(sizes)
+    if devices is None and process_group.is_initialized():
+        return _group_mesh(sizes, need)
     if devices is None:
         devices = default_devices(need, device)
     devices = [_indexed(torch.device(d)) for d in devices]
@@ -95,6 +138,24 @@ def make_mesh(data: int = 1, fsdp: int = 1, model: int = 1, pipe: int = 1,
     for i, d in enumerate(devices[:need]):
         arr[i] = d
     return Mesh(arr.reshape(sizes))
+
+
+def _group_mesh(sizes, need: int) -> Mesh:
+    positions = process_group.global_positions()
+    if need > len(positions):
+        raise ValueError(f"mesh needs {need} devices, have {len(positions)} "
+                         f"over {process_group.process_count()} processes")
+    me = process_group.process_index()
+    procs = [p for p, _ in positions[:need]]
+    if me not in procs:
+        raise ValueError(
+            f"process {me} holds no position of the mesh {sizes}: its "
+            f"positions come after the first {need} of the group's "
+            f"{len(positions)}")
+    devs = np.empty(need, dtype=object)
+    for i, (_, d) in enumerate(positions[:need]):
+        devs[i] = d
+    return Mesh(devs.reshape(sizes), np.array(procs).reshape(sizes))
 
 
 def data_mesh(n: Optional[int] = None, devices=None, *,
@@ -189,8 +250,16 @@ def seq_shard_map(body: Callable, mesh: Mesh, axis: str = "seq",
 
 
 def local_mesh_info(device="cuda") -> Dict[str, object]:
-    """The process's device census (``tnn_tpu.parallel.mesh``)."""
+    """The device census (``tnn_tpu.parallel.mesh``): the group's
+    positions and this process's under an initialized process group,
+    else this process's devices."""
     dev = torch.device(device)
+    if process_group.is_initialized():
+        local = process_group.local_devices()
+        return {"device_count": len(process_group.global_positions()),
+                "local_device_count": len(local),
+                "process_count": process_group.process_count(),
+                "platform": local[0].type}
     count = torch.cuda.device_count() if dev.type == "cuda" else 1
     return {"device_count": count, "local_device_count": count,
             "process_count": 1, "platform": dev.type}
@@ -199,25 +268,29 @@ def local_mesh_info(device="cuda") -> Dict[str, object]:
 # -- collectives ----------------------------------------------------------
 
 
-def _sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``parts`` added in position order on the first part's device."""
+def position_sum(parts: Sequence[torch.Tensor],
+                 processes: bool = False) -> torch.Tensor:
+    """``parts`` added in position order on the first part's device; with
+    ``processes``, that sum then summed over the process group."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
-    return total
+    return process_group.all_reduce(total) if processes else total
 
 
-def all_reduce(parts: Sequence[torch.Tensor],
-               op: str = "sum") -> List[torch.Tensor]:
+def all_reduce(parts: Sequence[torch.Tensor], op: str = "sum",
+               processes: bool = False) -> List[torch.Tensor]:
     """The sum (``op="max"``: the elementwise max) of ``parts`` (one tensor
-    a position), taken in position order, one copy on each part's
-    device."""
+    a position), taken in position order, then over the process group
+    with ``processes``, one copy on each part's device."""
     if op == "max":
         total = parts[0]
         for p in parts[1:]:
             total = torch.maximum(total, p.to(total.device))
+        if processes:
+            total = process_group.all_reduce(total, "max")
     elif op == "sum":
-        total = _sum(parts)
+        total = position_sum(parts, processes)
     else:
         raise ValueError(f"unknown reduction {op!r}")
     return [total.to(p.device) for p in parts]
@@ -232,10 +305,12 @@ def all_gather(shards: Sequence[torch.Tensor], dim: int,
 
 
 def reduce_scatter(parts: Sequence[torch.Tensor], dim: int,
-                   devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """The sum of ``parts`` cut into ``len(devices)`` equal pieces along
-    ``dim``, piece i on ``devices[i]``."""
-    pieces = _sum(parts).chunk(len(devices), dim=dim)
+                   devices: Sequence[torch.device],
+                   processes: bool = False) -> List[torch.Tensor]:
+    """The sum of ``parts`` (over the process group too with
+    ``processes``) cut into ``len(devices)`` equal pieces along ``dim``,
+    piece i on ``devices[i]``."""
+    pieces = position_sum(parts, processes).chunk(len(devices), dim=dim)
     return [p.to(d) for p, d in zip(pieces, devices)]
 
 
@@ -269,7 +344,10 @@ def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
                       dim=concat_dim) for j in range(n)]
 
 
-def data_mean(values: Sequence[torch.Tensor]) -> torch.Tensor:
+def data_mean(values: Sequence[torch.Tensor],
+              processes: bool = False) -> torch.Tensor:
     """The mean over the data axis of one value a replica, added in
-    replica order on the first value's device."""
-    return _sum(values) / len(values)
+    replica order on the first value's device (then over the process
+    group with ``processes``, each process holding as many replicas)."""
+    n = len(values) * (process_group.process_count() if processes else 1)
+    return position_sum(values, processes) / n

@@ -33,6 +33,16 @@ are written back into the model at the end. ``{"pipe": N}`` and
 starting from the model's weights and writing the trained ones back into
 it at the end. A checkpoint of a pipeline run holds the JAX package's
 packed rows.
+
+Under an initialized ``parallel.process_group`` (``cli.dist_worker`` with
+``jax_coordinator``) the mesh is the group's: its positions span the
+processes, each process runs its own positions' streams and the step's
+sums cross the group (``parallel.data_parallel``). Only "data" may span
+processes; an axis whose positions cross a process boundary, MoE routing
+and pipelines over a mesh that spans processes raise a ``ValueError``
+naming ROADMAP item 9b-ii. The evaluation's metrics are then the global
+batch's. With no ``mesh_axes`` each process trains its own replica on its
+own device.
 """
 from __future__ import annotations
 
@@ -138,6 +148,11 @@ def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
                          f"num_microbatches*data = {num_mb}*{dp}")
     mb_global = batch_size // num_mb
     mesh = _mesh(axes, devices, model)
+    if mesh.spans_processes:
+        raise ValueError(
+            f"mesh_axes={axes} spans {len(set(mesh.processes.flat))} "
+            f"processes: pipelines across processes wait for ROADMAP item "
+            f"9b-ii (only 'data' spans processes, without 'pipe')")
     virtual = max(1, int(getattr(config, "pipeline_virtual", 1)))
     stages = partitioner.partition_model(
         model, virtual * pp, (mb_global,) + sample_shape,
@@ -225,8 +240,10 @@ def _data_parallel_run(model, config, axes, optimizer, scheduler, augment,
     if ring is not None:
         step_fn, eval_fn = _in_context(step_fn, ring), \
             _in_context(eval_fn, ring)
-    log.info("mesh %s: batch sharded over %d positions",
-             {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size)
+    log.info("mesh %s: batch sharded over %d positions%s",
+             {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size,
+             f" of {len(set(mesh.processes.flat))} processes"
+             if mesh.spans_processes else "")
     return state, step_fn, eval_fn
 
 

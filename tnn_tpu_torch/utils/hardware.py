@@ -6,7 +6,8 @@ JAX package's ``hbm_stats`` reads the TPU's; ``cpu_info`` summarizes the
 host from ``/proc`` and ``cpu_topology`` adds the sysfs report
 (sockets, physical cores, P / E cores, caches, clock range), as the JAX
 package's does; ``device_info`` lists the CUDA cards with their memory,
-SM count and ``nvidia-smi`` power limit (``cli.hardware_info``).
+SM count, ``nvidia-smi`` power limit and the process group's
+``process_index`` (``cli.hardware_info``).
 ``hbm_stats`` is the JAX package's name for ``device_memory_stats``.
 """
 from __future__ import annotations
@@ -138,9 +139,12 @@ def _power_limits() -> List[str]:
 
 def device_info() -> List[Dict[str, Any]]:
     """One entry per CUDA card: index, name, memory in bytes, SM count,
-    compute capability and power limit (empty without a card)."""
+    compute capability, power limit and this process's index in its
+    process group (0 outside one; empty without a card)."""
     if not torch.cuda.is_available():
         return []
+    from ..parallel import process_group
+
     limits = _power_limits()
     out = []
     for i in range(torch.cuda.device_count()):
@@ -149,5 +153,6 @@ def device_info() -> List[Dict[str, Any]]:
                     "memory_bytes": int(props.total_memory),
                     "sm_count": int(props.multi_processor_count),
                     "compute_capability": f"{props.major}.{props.minor}",
-                    "power_limit": limits[i] if i < len(limits) else ""})
+                    "power_limit": limits[i] if i < len(limits) else "",
+                    "process_index": process_group.process_index()})
     return out
