@@ -298,20 +298,22 @@ numbers on its own line:
    data=2,pipe=4 --num-microbatches 8 --pipeline-virtual 2`` (8 stages)
    against the same command without ``--mesh``, 2 epochs of 10 steps on
    synthetic CIFAR-100 records: the loss falls, step time, images/s and
-   peak memory of both; (B) ``flash_gpt2_small`` (B=8, S=1024, AdamW)
-   through ``train_model`` at ``{"data": 2}`` and ``{"data": 2, "fsdp":
-   2}`` against no mesh, 3 steps and one validation batch: FP32 loss
-   within 1e-5, bf16 within 2e-2, K4 = 12 x replicas x (3 + 1), K7 = 12
-   x replicas x 3, the step time of steps 1-2 (CUDA events) and each
-   run's peak allocated memory; (C) a ``LayerBuilder`` LM at GPT-2 small's width
-   (embedding 50257 x 768, positional, 12 x ``flash_gpt_block(12)``,
-   layernorm, dense 50257) through ``StagePipeline`` on 4 stages from
-   ``partition_model``, 4 microbatches of 2 x 1024, 5 AdamW steps on a
-   repeating token stream: the loss falls, K4 = K7 = 12 x 4 a step; (D)
-   one ``make_pipeline_train_step`` step at ``{"pipe": 4}`` over a float
-   input (dense 768, 12 x ``flash_gpt_block(12)``, a 64-class head per
+   peak memory of both; (B) ``flash_gpt2_small``'s widths at 6 layers
+   (``PAR_LAYERS``: phases 28 and 29 cut the depth, since PR 24, for the
+   script's time limit; B=8, S=1024, AdamW) through ``train_model`` at
+   ``{"data": 2}`` and ``{"data": 2, "fsdp": 2}`` against no mesh, 3
+   steps and one validation batch: FP32 loss within 1e-5, bf16 within
+   2e-2, K4 = 6 x replicas x (3 + 1), K7 = 6 x replicas x 3, the step
+   time of steps 1-2 (CUDA events) and each run's peak allocated memory;
+   (C) a ``LayerBuilder`` LM at GPT-2 small's width (embedding 50257 x
+   768, positional, 6 x ``flash_gpt_block(12)``, layernorm, dense 50257)
+   through ``StagePipeline`` on 4 stages from ``partition_model``, 4
+   microbatches of 2 x 1024, 5 AdamW steps on a repeating token stream:
+   the loss falls, K4 = K7 = 6 x 4 a step; (D) one
+   ``make_pipeline_train_step`` step at ``{"pipe": 4}`` over a float
+   input (dense 768, 6 x ``flash_gpt_block(12)``, a 64-class head per
    position) against gradient accumulation from the same weights: K4 =
-   K7 = 12 x 4. The mesh runs' K4 and K7 join the kernels line.
+   K7 = 6 x 4. The mesh runs' K4 and K7 join the kernels line.
 29. training_parallel_axes: tensor, sequence and expert parallelism and
    FSDP's parameter sharding, every position on ``cuda:0`` (code paths,
    not interconnect), 2 steps a run from the same seeded weights and
@@ -324,14 +326,16 @@ numbers on its own line:
    gradient doubled, as if a replicated leaf's gradient were summed over
    the two "model" positions) at ``{"model": 2}`` must fail the update
    gate. Every run logs its step time (CUDA events) and peak memory:
-   ``flash_gpt2_small`` (B=8, S=1024) at ``{"model": 2}``, ``{"model":
-   4}``, ``{"data": 2, "model": 2}`` (K4 = K7 = 12 x positions x 2) and
+   ``flash_gpt2_small``'s widths at 6 layers (B=8, S=1024) at
+   ``{"model": 2}``, ``{"model": 4}``, ``{"data": 2, "model": 2}`` (K4 =
+   K7 = 6 x positions x 2) and
    ``{"data": 2, "model": 2, "seq": 2}`` with the ring (no kernel);
-   ``flash_llama_small`` (B=1) with Ulysses at seq 2 and 4, bf16 at S =
-   32,768 (K4 = K5 = K6 = 12 x sp x 2, K5 and K6's tensor-core bodies in
+   ``flash_llama_small``'s widths at 6 layers (B=1) with Ulysses at seq 2
+   and 4, bf16 at S = 32,768 (K4 = K5 = K6 = 6 x sp x 2, K5 and K6's
+   tensor-core bodies in
    the profiled step) and FP32 at 4,096 (K7), and with the ring at seq 2
    and 4 (FP32 at 4,096, bf16 at 8,192); ``moe_gpt2_small`` (B=4) at
-   ``{"data": 2}`` and ``{"data": 2, "expert": 4}``; ``flash_gpt2_small``
+   ``{"data": 2}`` and ``{"data": 2, "expert": 4}``; the 6-layer GPT-2
    FP32 at ``{"data": 2, "fsdp": 2}`` equal to ``{"data": 4}`` bit for
    bit (the backward on K5 + K6, which repeat their bits: K7's dQ
    atomics do not; data 4 twice), with the bytes each position holds
@@ -409,8 +413,36 @@ numbers on its own line:
    two values), and (d) the same with rank 1's gradient
    buffer doubled before the all-reduce, which must fail the gate; (e)
    ``"synthetic"`` data (seeded per rank), which both ranks refuse at the
-   batch check, and (f) ``{"fsdp": 2}`` across the ranks, refused naming
-   ROADMAP item 9b-ii.
+   batch check, and (f) full-width ``moe_gpt2_small`` at ``{"expert":
+   2}`` across the ranks, refused when its state is placed, before a
+   batch, naming the rest of ROADMAP item 9b-ii.
+35. distributed_axes: fsdp, model and seq across processes. Two ranks on
+   the one card (this script's ``--axes-rank`` runner) join one gloo
+   group once and run full-width ``flash_gpt2_small`` (12L/768d/12h,
+   vocab 50257, B=8, S=1024, batches from a seed) through
+   ``make_dp_train_step`` at ``{"fsdp": 2}``, ``{"model": 2}``,
+   ``{"seq": 2}`` by the ring and by Ulysses, one position a rank, each
+   layout also on the in-process mesh (``["cuda:0"] * 2``: its FP32
+   gates while the ranks start, its bf16 runs after them). (a) The FP32
+   gate: SGD at lr 1 for 2 steps on K5 + K6 (``TNN_FLASH_FUSED_BWD=0``,
+   TF32 off): both ranks' losses and parameters equal by digest and bit for
+   bit to the in-process mesh's, each leaf's first update within 1e-3 of
+   the in-process one's (every sum across the ranks adds the same two
+   values), and one planted fault (tensor parallelism's g summing the
+   gradient in the backward too, at ``{"model": 2}``) failing the gate. (b)
+   bf16 AdamW, 2 steps: the loss gap, the second step's time from CUDA
+   events beside the in-process mesh's, the first step's collectives (ms
+   and MB by kind), the bytes each position holds under fsdp beside the
+   in-process ``{"data": 2}``, and peak memory a rank. (c) Each rank's K4 /
+   K7 / K5 / K6 launches against PERF.md section 2's counts (12 a step a
+   rank: under "model" one call over its H/2 heads; the ring runs no
+   kernel), added to the kernels line. (d) One ``cli.dist_worker`` deploy
+   of full-width ``flash_vit`` at ``{"fsdp": 2}`` through ``train_model``
+   on CIFAR-100 files (B=128; the worker's loaders, as JAX's, take image
+   sets): both ranks take 2 steps with equal losses, K4 = 2 x 6 x 2 (the
+   ViT runs whole under FSDP's gathering checkpoint, its forward again in
+   the backward) and K7 = 6 x 2, then refuse the first snapshot (a leaf
+   sharded across the ranks, which JAX's ``device_get`` refuses too).
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -418,7 +450,7 @@ build and those phases alone and prints no kernels line and no result.
 
 The serving CLI runs of phases 5, 10, 15, 17, 18, 19 and 25 are queued
 and started together before phase 31, which runs beside them
-(``start_deferred_clis``, 8 at a time); after the last phase each is
+(``start_deferred_clis``, 9 at a time); after the last phase each is
 checked and read by its phase's code (``finish_deferred_clis``).
 
 Any failure raises and the script exits non-zero. Without a card, or
@@ -456,8 +488,9 @@ def log(phase: str, **fields) -> None:
 
 
 # how often ``time_ms`` and ``per_token_profile`` profile a window that
-# came back with no CUDA record (the profiler's loss, not the card's answer)
-PROFILE_ATTEMPTS = 3
+# came back with no CUDA record (the profiler's loss, not the card's answer;
+# three windows in a row came back empty once, K3's head8 in PR 24)
+PROFILE_ATTEMPTS = 5
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 10):
@@ -1467,8 +1500,10 @@ CLI_LINES = [{"id": "greedy", "tokens": [464, 3616, 286, 1204, 318],
 # a time, beside the last phase): each process spends seconds
 # reaching the card, and one after another they took a fifth of the run.
 # Their checks, and each phase's own reading of the output (``then``), run
-# after the last phase in queue order (``finish_deferred_clis``).
-CLI_WORKERS = 8
+# after the last phase in queue order (``finish_deferred_clis``). All nine
+# run at once: eight at a time left the ninth alone for a third of the
+# wait.
+CLI_WORKERS = 9
 _DEFERRED_CLIS = []
 
 
@@ -1536,6 +1571,9 @@ def phase_cli(results):
 TRAIN_STEPS = 30
 EVAL_STEPS = 10     # the trainer's held-out pass: 10 batches
 TRAIN_ARGS = dict(batch=8, seq=1024, layers=12, d_model=768, heads=12)
+# phases 28 and 29's GPT-2 runs: TRAIN_ARGS' widths at half the depth, so
+# the script stays within its time limit beside phase 35
+PAR_LAYERS = 6
 # one step with the kernels against the same step with the plain versions,
 # from the same weights and batch (AdamW, lr 3e-4, no schedule): the loss
 # within `loss` relative, and the parameter update (new - old over every
@@ -1579,12 +1617,18 @@ def model_flops_per_step(layers, d_model, vocab, batch, seq):
     return (6 * n + 6 * layers * seq * d_model) * batch * seq
 
 
-def _flash_gpt2_small(policy=None):
-    """Seeded full-width flash_gpt2_small on the card."""
+def _flash_gpt2_small(policy=None, layers=None):
+    """Seeded full-width flash_gpt2_small on the card (``layers`` of its
+    blocks, by default all 12)."""
     from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.models.gpt2 import GPT2
 
-    return zoo.create("flash_gpt2_small", device="cuda", seed=0,
-                      policy=policy)
+    if layers is None:
+        return zoo.create("flash_gpt2_small", device="cuda", seed=0,
+                          policy=policy)
+    return GPT2(num_layers=layers, d_model=TRAIN_ARGS["d_model"],
+                num_heads=TRAIN_ARGS["heads"], backend="pallas",
+                device="cuda", seed=0, policy=policy)
 
 
 def _fresh_step(model):
@@ -8295,7 +8339,7 @@ def par_lm_run(tmp, policy, axes, counters):
     seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = _flash_gpt2_small(policy)
+    model = _flash_gpt2_small(policy, PAR_LAYERS)
     cfg = TrainingConfig().update({
         "epochs": 1, "batch_size": batch, "max_steps": PAR_STEPS,
         "progress_print_interval": 1, "shuffle": False,
@@ -8343,7 +8387,7 @@ def par_lm(tmp, card, results):
     from tnn_tpu_torch.ops import flash_attention as fa
 
     seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
-    layers = TRAIN_ARGS["layers"]
+    layers = PAR_LAYERS
     synthetic_corpus(tmp, n_train=200_000, n_val=seq + batch)
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd)
     for policy in (dt.FP32, dt.MIXED_BF16):
@@ -8360,7 +8404,8 @@ def par_lm(tmp, card, results):
             ok = ([k4, k7] == want and len(losses) == PAR_STEPS
                   and all(math.isfinite(x) for x in losses)
                   and max(rel) <= tol)
-            log("training_parallel_dp", card=card, model="flash_gpt2_small",
+            log("training_parallel_dp", card=card,
+                model=f"flash_gpt2_small, {PAR_LAYERS} layers",
                 policy=policy.compute, batch=batch, seq=seq, mesh=axes,
                 devices=["cuda:0"] * r, losses=losses, no_mesh_losses=ref,
                 loss_rel_gap=rel, loss_tolerance=tol, launches=[k4, k7],
@@ -8385,7 +8430,7 @@ def par_builder_lm(card, results):
     from tnn_tpu_torch.parallel import StagePipeline, partition_model
 
     seq, mb = TRAIN_ARGS["seq"], 2
-    layers, width = TRAIN_ARGS["layers"], TRAIN_ARGS["d_model"]
+    layers, width = PAR_LAYERS, TRAIN_ARGS["d_model"]
     b = LayerBuilder((seq,)).embedding(50257, width).positional_embedding()
     for _ in range(layers):
         b = b.flash_gpt_block(TRAIN_ARGS["heads"])
@@ -8443,7 +8488,7 @@ def par_compiled_pipeline(card, results):
     from tnn_tpu_torch.train import create_train_state, make_train_step
 
     seq, mb, width = TRAIN_ARGS["seq"], 2, TRAIN_ARGS["d_model"]
-    layers = TRAIN_ARGS["layers"]
+    layers = PAR_LAYERS
     b = LayerBuilder((seq, width)).dense(width)
     for _ in range(layers):
         b = b.flash_gpt_block(TRAIN_ARGS["heads"])
@@ -8722,17 +8767,18 @@ def pax_compare(card, results, what, model, runs, ref_key, policy, tol,
 
 
 def pax_gpt2_tp(card, results):
-    """flash_gpt2_small at B=8, S=1024: "model" 2 and 4, data x model, and
-    data x model x seq (ring) against no mesh."""
+    """flash_gpt2_small's widths at PAR_LAYERS layers, B=8, S=1024:
+    "model" 2 and 4, data x model, and data x model x seq (ring) against
+    no mesh."""
     from tnn_tpu_torch.core import dtypes as dt
 
     seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
-    layers = TRAIN_ARGS["layers"]
+    layers = PAR_LAYERS
     layouts = {"model2": {"model": 2}, "model4": {"model": 4},
                "data2_model2": {"data": 2, "model": 2},
                "data2_model2_seq2_ring": {"data": 2, "model": 2, "seq": 2}}
     for policy in (dt.FP32, dt.MIXED_BF16):
-        model = _flash_gpt2_small(policy)
+        model = _flash_gpt2_small(policy, PAR_LAYERS)
         start = {n: p.detach().clone() for n, p in model.named_parameters()}
         batches = pax_batches(model.vocab_size, batch, seq)
         fp32 = policy.compute == "float32"
@@ -8743,7 +8789,7 @@ def pax_gpt2_tp(card, results):
                 runs[key] = pax_run(model, start, axes, batches, sgd=fp32)
             if fp32:
                 pax_gate_check(card, model, start, batches, runs["none"])
-        # K4 / K7: 12 layers x the "model" positions x the data streams
+        # K4 / K7: the layers x the "model" positions x the data streams
         # each forward / backward; the ring runs no kernel
         want = {}
         for key, axes in layouts.items():
@@ -8751,9 +8797,9 @@ def pax_gpt2_tp(card, results):
                 axes["model"] * axes.get("data", 1)
             want[key] = [layers * pos * PAX_STEPS] * 2 + [0, 0]
         pax_compare(card, results, "gpt2_tensor_parallel",
-                    "flash_gpt2_small", runs, "none", policy.compute,
-                    PAX_TOL[policy.compute], policy.compute == "float32",
-                    start, want)
+                    f"flash_gpt2_small, {PAR_LAYERS} layers", runs, "none",
+                    policy.compute, PAX_TOL[policy.compute],
+                    policy.compute == "float32", start, want)
         del model, start
     import torch
 
@@ -8782,7 +8828,8 @@ def pax_gate_check(card, model, start, batches, ref):
     upd, leaf = pax_update_gap(run["update"], ref["update"], start)
     caught = upd > PAX_UPDATE_TOL
     log("training_parallel_axes_gate_check", card=card,
-        model="flash_gpt2_small", policy="float32", layout="model2",
+        model=f"flash_gpt2_small, {PAR_LAYERS} layers", policy="float32",
+        layout="model2",
         fault="LayerNorm scale gradients doubled", loss_rel_gap=rel,
         loss_tolerance=PAX_TOL["float32"],
         loss_gate_caught=max(rel) > PAX_TOL["float32"],
@@ -8795,21 +8842,24 @@ def pax_gate_check(card, model, start, batches, ref):
 
 
 def pax_llama_seq(card, results):
-    """flash_llama_small: Ulysses at seq 2 and 4 (bf16 at S = 32,768, where
-    K5 + K6 take the backward; FP32 gate at S = 4,096) and the ring at seq
-    2 and 4 (FP32 at S = 4,096, bf16 at S = 8,192)."""
+    """flash_llama_small's widths at PAR_LAYERS layers: Ulysses at seq 2
+    and 4 (bf16 at S = 32,768, where K5 + K6 take the backward; FP32 gate
+    at S = 4,096) and the ring at seq 2 and 4 (FP32 at S = 4,096, bf16 at
+    S = 8,192)."""
     import torch
 
     from tnn_tpu_torch.core import dtypes as dt
-    from tnn_tpu_torch.models import zoo
+    from tnn_tpu_torch.models.llama import Llama
     from tnn_tpu_torch.ops import flash_attention as fa
 
     for policy, seq, cases in (
             (dt.MIXED_BF16, PAX_LONG_SEQ, ("ulysses",)),
             (dt.FP32, PAX_FP32_SEQ, ("ulysses", "ring")),
             (dt.MIXED_BF16, PAX_RING_SEQ, ("ring",))):
-        model = zoo.create("flash_llama_small", max_len=seq, device="cuda",
-                           seed=0, policy=policy)
+        model = Llama(num_layers=PAR_LAYERS, d_model=TRAIN_ARGS["d_model"],
+                      num_heads=TRAIN_ARGS["heads"], num_kv_heads=4,
+                      backend="pallas", max_len=seq, device="cuda", seed=0,
+                      policy=policy)
         start = {n: p.detach().clone() for n, p in model.named_parameters()}
         batches = pax_batches(model.vocab_size, 1, seq)
         layers = model.num_layers
@@ -8851,7 +8901,8 @@ def pax_llama_seq(card, results):
                         f"Ulysses {key} at S={seq}: K5 / K6 not in the "
                         f"profiled step: {run['flash_kernels']}")
         pax_compare(card, results, f"llama_seq_parallel_s{seq}",
-                    "flash_llama_small", runs, "none", policy.compute,
+                    f"flash_llama_small, {PAR_LAYERS} layers", runs, "none",
+                    policy.compute,
                     PAX_TOL[policy.compute], policy.compute == "float32",
                     start, want)
         del model, start
@@ -8899,7 +8950,7 @@ def pax_fsdp(card, results):
     from tnn_tpu_torch.core import dtypes as dt
 
     seq, batch = TRAIN_ARGS["seq"], TRAIN_ARGS["batch"]
-    model = _flash_gpt2_small(dt.FP32)
+    model = _flash_gpt2_small(dt.FP32, PAR_LAYERS)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     batches = pax_batches(model.vocab_size, batch, seq)
     layouts = (("data4", {"data": 4}), ("data4_again", {"data": 4}),
@@ -8918,7 +8969,7 @@ def pax_fsdp(card, results):
             os.environ["TNN_FLASH_FUSED_BWD"] = saved
     repeats = runs["data4_again"]["losses"] == runs["data4"]["losses"]
     bits = runs["data2_fsdp2"]["losses"] == runs["data4"]["losses"]
-    layers = TRAIN_ARGS["layers"]
+    layers = PAR_LAYERS
     want = {}
     for key, axes in layouts:
         n = layers * math.prod(axes.values()) * PAX_STEPS
@@ -8929,7 +8980,8 @@ def pax_fsdp(card, results):
             for k, r in runs.items()}
     ok = repeats and bits and launches_ok and \
         held["data2_fsdp2"] < held["data2"]
-    log("training_parallel_axes_fsdp", card=card, model="flash_gpt2_small",
+    log("training_parallel_axes_fsdp", card=card,
+        model=f"flash_gpt2_small, {PAR_LAYERS} layers",
         policy="float32", batch=batch, seq=seq,
         losses={k: r["losses"] for k, r in runs.items()},
         fsdp_equals_data4_bit_for_bit=bits, data4_repeats_bit_for_bit=repeats,
@@ -9599,7 +9651,8 @@ def dd_deploys(data):
         ("gate_fault", gate, dict(gate_opts, fault=DD_FAULT)),
         ("synthetic", dict(vit, dataset_name="synthetic", epochs=1,
                            max_steps=2), {"expect_error": True}),
-        ("fsdp", dict(vit, mesh_axes={"fsdp": 2}, epochs=1, max_steps=2),
+        ("expert", dict(base, model_name="moe_gpt2_small",
+                        mesh_axes={"expert": 2}, epochs=1, max_steps=2),
          {"expect_error": True}),
     ]
 
@@ -9720,12 +9773,12 @@ def dd_rank_main(spec_path, rank):
                "allreduce_bytes": 0, "check_ms": [],
                "collective_devices": {}}
 
-        def flat(tensors):
+        def flat(tensors, *a, **kw):
             if opts.get("fault") and rank == 1:
                 tensors = [t * opts["fault"] for t in tensors]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = real_flat(tensors)
+            got = real_flat(tensors, *a, **kw)
             torch.cuda.synchronize()
             rec["allreduce_ms"].append(1e3 * (time.perf_counter() - t0))
             rec["allreduce_bytes"] = sum(t.numel() * t.element_size()
@@ -9975,7 +10028,7 @@ def phase_distributed_data(results):
             "wrn": [0, 0, 0, 0],
             "gate": [layers * DD_GATE_STEPS, 0, layers * DD_GATE_STEPS,
                      layers * DD_GATE_STEPS],
-            "synthetic": [0, 0, 0, 0], "fsdp": [0, 0, 0, 0]}
+            "synthetic": [0, 0, 0, 0], "expert": [0, 0, 0, 0]}
     want["gate_fault"] = want["gate"]
     bn_gap = max(((a - wrn_buffers[n]).abs() / (DD_BN_TOL["atol"]
                   + DD_BN_TOL["rtol"] * wrn_buffers[n].abs())).max().item()
@@ -9999,7 +10052,7 @@ def phase_distributed_data(results):
                     "peak_gb": rec["peak_gb"]}
                 for r, rec in enumerate(main)}
     refusal = {name: [rec.get("error") for rec in ranks[name]]
-               for name in ("synthetic", "fsdp")}
+               for name in ("synthetic", "expert")}
     checks = {
         "backend_gloo": all(rec.get("backend") == "gloo"
                             for name in ("main", "wrn", "gate")
@@ -10025,8 +10078,8 @@ def phase_distributed_data(results):
         "synthetic_refused": all(e and "the global batch differs across "
                                  "processes" in e
                                  for e in refusal["synthetic"]),
-        "fsdp_refused": all(e and "ROADMAP item 9b-ii" in e
-                            for e in refusal["fsdp"]),
+        "expert_refused": all(e and "the rest of ROADMAP item 9b-ii" in e
+                              for e in refusal["expert"]),
         "launches": all(rec["launches"] == want[name]
                         for name, recs in ranks.items() for rec in recs),
     }
@@ -10067,6 +10120,587 @@ def phase_distributed_data(results):
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
         split["flash_attention_bwd_dq"] += dq
         split["flash_attention_bwd_dkv"] += dkv
+
+
+# -- phase 35 -----------------------------------------------------------------
+#
+# fsdp, model and seq across processes (module docstring, item 35). The
+# ranks (``python3 chip_smoke.py --axes-rank SPEC RANK``) join one gloo
+# group and build their models while this process runs each layout's FP32
+# gate on the in-process mesh and leaves its first update in the phase's
+# directory; then the ranks run every layout in turn with the same seeds,
+# checking themselves against those files, and last deploy
+# ``cli.dist_worker`` once. The in-process bf16 runs come after the ranks,
+# so no timed step shares the card.
+
+DA_LAYOUTS = (("fsdp2", {"fsdp": 2}, None), ("model2", {"model": 2}, None),
+              ("seq2_ring", {"seq": 2}, "ring"),
+              ("seq2_ulysses", {"seq": 2}, "ulysses"))
+DA_GATE_STEPS = 2             # (a): SGD at PAX_SGD_LR, FP32, K5 + K6
+DA_BF16_STEPS = 2             # (b): AdamW; step 1's collectives, step 2 timed
+DA_FAULT_LAYOUT = "model2"
+DA_CLI_STEPS = 2
+DA_CLI_BATCH = 128
+
+
+def da_batches(vocab, n):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (TRAIN_ARGS["batch"],
+                                      TRAIN_ARGS["seq"] + 1))
+        out.append((torch.from_numpy(ids[:, :-1]).cuda(),
+                    torch.from_numpy(ids[:, 1:]).cuda()))
+    return out
+
+
+def da_launches_expected(method, fp32, steps):
+    """PERF.md section 2's counts for one rank (one position of the
+    2-position mesh): 12 layers, one K4 a layer a step and one K7 (bf16)
+    or K5 and K6 (FP32); under "model" the call covers the rank's H/2
+    heads; the ring is plain torch and launches none."""
+    n = 0 if method == "ring" else TRAIN_ARGS["layers"] * steps
+    return [n, 0, n, n] if fp32 else [n, n, 0, 0]
+
+
+@contextlib.contextmanager
+def da_collectives(rec):
+    """Each collective of ``parallel.process_group`` timed (the card
+    synchronized on both sides) into ``rec``: {kind: [ms, bytes, calls]}."""
+    import torch
+
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    names = {"_reduce_": "all_reduce", "all_gather": "all_gather",
+             "reduce_scatter": "reduce_scatter",
+             "_all_to_all": "all_to_all", "_exchange": "exchange"}
+    real = {n: getattr(pg, n) for n in names}
+
+    def wrap(n):
+        def call(x, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[n](x, *a, **kw)
+            torch.cuda.synchronize()
+            row = rec.setdefault(names[n], [0.0, 0, 0])
+            row[0] += 1e3 * (time.perf_counter() - t0)
+            row[1] += x.numel() * x.element_size()
+            row[2] += 1
+            return out
+        return call
+
+    for n in names:
+        setattr(pg, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(pg, n, f)
+
+
+def da_run(model, start, axes, method, batches, fp32, devices=None,
+           fault=False, ref_update=None):
+    """``make_dp_train_step`` of ``model`` from the weights ``start`` at
+    ``axes`` (the process group's mesh, or ``devices``): FP32 SGD at
+    PAX_SGD_LR, else bf16 AdamW; one step a batch. Returns the record:
+    losses, launches, the last step's CUDA-event ms, peak memory, the
+    bytes each position holds and, FP32,
+    the first update (against ``ref_update``: the gap and whether every
+    leaf is equal) or, bf16, the first step's collectives. FP32 also
+    gives the final parameters' digest."""
+    import torch
+
+    from tnn_tpu_torch import parallel
+    from tnn_tpu_torch.nn.attention import ring_context
+    from tnn_tpu_torch.nn.optimizers import SGD, AdamW
+    from tnn_tpu_torch.parallel import process_group as pg
+    from tnn_tpu_torch.train import create_train_state
+
+    marks = {"start": time.perf_counter()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.data = start[n].clone()
+    opt = SGD(lr=PAX_SGD_LR) if fp32 else AdamW(lr=3e-4)
+    state = create_train_state(model, opt, seed=0)
+    mesh = parallel.make_mesh(**axes, devices=devices)
+    step, place_state, _ = parallel.make_dp_train_step(
+        model, opt, mesh, fsdp=axes.get("fsdp", 1) > 1,
+        tp=axes.get("model", 1) > 1, compute_accuracy=False)
+    state = place_state(state)
+    torch.cuda.synchronize()
+    marks["placed"] = time.perf_counter()
+    ctx = ring_context(mesh, method=method) if method else \
+        contextlib.nullcontext()
+    reset_flash_launches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"losses": [], "collectives": {}}
+    real_sum = pg.sum_forward
+    if fault:       # g with the all-reduce's summing backward
+        pg.sum_forward = lambda x, group=None: pg.all_reduce(x, group=group)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    try:
+        with ctx:
+            for i, (x, y) in enumerate(batches):
+                last = i == len(batches) - 1
+                watch = not fp32 and i == 0 and mesh.spans_processes
+                if last:
+                    rec["bytes_per_position"] = {
+                        "x".join(map(str, c)): v for c, v in
+                        state.layout.position_bytes(state.opt_state).items()}
+                    t0.record()
+                with (da_collectives(rec["collectives"]) if watch
+                      else contextlib.nullcontext()):
+                    state, m = step(state, x, y)
+                if last:
+                    t1.record()
+                rec["losses"].append(float(m["loss"]))
+                marks[f"step{i}"] = time.perf_counter()
+                if i == 0 and fp32:
+                    now = state.layout.full_params()
+                    update = {n: now[n].float() - start[n].float()
+                              for n in start}
+                    del now
+                    if ref_update is None:
+                        rec["update"] = update
+                    else:
+                        gap, leaf = pax_update_gap(update, ref_update, start)
+                        rec["update_gap"], rec["update_worst_leaf"] = \
+                            gap, leaf
+                        rec["update_equal"] = all(
+                            torch.equal(update[n], ref_update[n])
+                            for n in ref_update)
+                    del update
+                    torch.cuda.synchronize()
+                    marks["update"] = time.perf_counter()
+    finally:
+        pg.sum_forward = real_sum
+    torch.cuda.synchronize()
+    rec["step_ms"] = t0.elapsed_time(t1)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = dd_launches()
+    if fp32:
+        rec["param_digest"] = pg.digest(state.layout.full_params())
+    marks["end"] = time.perf_counter()
+    names = list(marks)
+    rec["seconds_by_part"] = {b: marks[b] - marks[a]
+                              for a, b in zip(names, names[1:])}
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def da_placed_bytes(model, start, axes, devices):
+    """The bytes each position holds once an AdamW state is placed at
+    ``axes`` (the moments exist from the start)."""
+    import torch
+
+    from tnn_tpu_torch import parallel
+    from tnn_tpu_torch.nn.optimizers import AdamW
+    from tnn_tpu_torch.train import create_train_state
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.data = start[n].clone()
+    opt = AdamW(lr=3e-4)
+    _, place_state, _ = parallel.make_dp_train_step(
+        model, opt, parallel.make_mesh(**axes, devices=devices))
+    state = place_state(create_train_state(model, opt, seed=0))
+    out = {"x".join(map(str, c)): v for c, v in
+           state.layout.position_bytes(state.opt_state).items()}
+    state.layout.write_back(model)
+    return out
+
+
+def da_models(policies):
+    from tnn_tpu_torch.core import dtypes as dt
+
+    out = {}
+    for key in policies:
+        model = _flash_gpt2_small(dt.FP32 if key == "fp32" else
+                                  dt.MIXED_BF16)
+        out[key] = (model, {n: p.detach().clone()
+                            for n, p in model.named_parameters()})
+    return out
+
+
+def da_rank_main(spec_path, rank):
+    """One rank of phase 35: every layout in one process group, then the
+    CLI deploy; one JSON line a run into the spec's output directory."""
+    import os
+
+    import torch
+
+    from tnn_tpu_torch.cli import dist_worker
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    spec = json.loads(Path(spec_path).read_text())
+    tmp = Path(spec["out"])
+    out_path = tmp / f"axes_rank{rank}.jsonl"
+
+    def emit(rec):
+        with open(out_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def step(name):     # what a hung rank was in (da_run_ranks)
+        (tmp / f"axes_rank{rank}.step").write_text(name)
+
+    t0 = time.perf_counter()
+    pg.initialize(spec["address"], 2, rank, "cuda:0")
+    joined = time.perf_counter() - t0
+    models = da_models(("fp32", "bf16"))
+    emit({"name": "group", "backend": pg.backend(),
+          "reason": pg.backend_reason(), "join_s": joined,
+          "models_s": time.perf_counter() - t0 - joined})
+    vocab = models["fp32"][0].vocab_size
+    gate_batches = da_batches(vocab, DA_GATE_STEPS)
+    bf16_batches = da_batches(vocab, DA_BF16_STEPS)
+    saved = os.environ.get("TNN_FLASH_FUSED_BWD")
+    for key, axes, method in DA_LAYOUTS:
+        step(f"{key}_waiting for the in-process update")
+        ref_path = tmp / f"axes_ref_update_{key}.pt"
+        t_wait = time.perf_counter()
+        while not ref_path.exists():
+            time.sleep(0.2)
+        waited = time.perf_counter() - t_wait
+        ref = torch.load(ref_path, map_location="cuda")
+        loaded = time.perf_counter() - t_wait - waited
+        os.environ["TNN_FLASH_FUSED_BWD"] = "0"
+        try:
+            with pax_fp32():
+                runs = [("gate", {}), ("fault", {"fault": True})] \
+                    if key == DA_FAULT_LAYOUT else [("gate", {})]
+                for kind, kw in runs:
+                    step(f"{key}_{kind}")
+                    t_run = time.perf_counter()
+                    rec = da_run(*models["fp32"], axes, method,
+                                 gate_batches[:1] if kind == "fault"
+                                 else gate_batches, True,
+                                 ref_update=ref, **kw)
+                    emit(dict(rec, name=f"{key}_{kind}", rank=rank,
+                              seconds=time.perf_counter() - t_run,
+                              ref_wait_s=waited, ref_load_s=loaded))
+        finally:
+            if saved is None:
+                os.environ.pop("TNN_FLASH_FUSED_BWD", None)
+            else:
+                os.environ["TNN_FLASH_FUSED_BWD"] = saved
+        del ref
+        step(f"{key}_bf16")
+        t_run = time.perf_counter()
+        rec = da_run(*models["bf16"], axes, method, bf16_batches, False)
+        emit(dict(rec, name=f"{key}_bf16", rank=rank,
+                  seconds=time.perf_counter() - t_run))
+    pg.shutdown()
+    del models
+    torch.cuda.empty_cache()
+    # (d): the CLI deploy; its losses through the step, its refusal caught
+    from tnn_tpu_torch.parallel import data_parallel as dp
+
+    rec = {"name": "cli", "rank": rank, "losses": []}
+    real_call = dp.DPTrainStep.__call__
+
+    def call(step, state, data, labels):
+        out = real_call(step, state, data, labels)
+        rec["losses"].append(float(out[1]["loss"]))
+        return out
+
+    reset_flash_launches()
+    dp.DPTrainStep.__call__ = call
+    step("cli")
+    t_run = time.perf_counter()
+    try:
+        dist_worker.main(["--coordinator", spec["cli_address"], "--rank",
+                          str(rank)])
+    except Exception as e:  # noqa: BLE001 — the snapshot's refusal
+        rec["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        dp.DPTrainStep.__call__ = real_call
+    rec["launches"] = dd_launches()
+    rec["seconds"] = time.perf_counter() - t_run
+    emit(rec)
+    return 0
+
+
+def da_in_process_gates(tmp):
+    """Every layout's FP32 gate on the in-process mesh of two positions on
+    the card: the records by name, each first update left in ``tmp`` for
+    the ranks (written under another name, then renamed)."""
+    import os
+
+    import torch
+
+    model, start = da_models(("fp32",))["fp32"]
+    gate_batches = da_batches(model.vocab_size, DA_GATE_STEPS)
+    recs = {}
+    saved = os.environ.get("TNN_FLASH_FUSED_BWD")
+    for key, axes, method in DA_LAYOUTS:
+        os.environ["TNN_FLASH_FUSED_BWD"] = "0"
+        try:
+            with pax_fp32():
+                rec = da_run(model, start, axes, method, gate_batches, True,
+                             devices=["cuda:0"] * 2)
+        finally:
+            if saved is None:
+                os.environ.pop("TNN_FLASH_FUSED_BWD", None)
+            else:
+                os.environ["TNN_FLASH_FUSED_BWD"] = saved
+        path = tmp / f"axes_ref_update_{key}.pt"
+        torch.save(rec.pop("update"), path.with_suffix(".part"))
+        os.replace(path.with_suffix(".part"), path)
+        recs[f"{key}_gate"] = rec
+    del model, start
+    torch.cuda.empty_cache()
+    return recs
+
+
+def da_in_process_bf16():
+    """Every layout's bf16 run on the in-process mesh, and the bytes each
+    position holds at ``{"data": 2}``."""
+    import torch
+
+    model, start = da_models(("bf16",))["bf16"]
+    batches = da_batches(model.vocab_size, DA_BF16_STEPS)
+    devices = ["cuda:0"] * 2
+    recs = {f"{key}_bf16": da_run(model, start, axes, method, batches,
+                                  False, devices=devices)
+            for key, axes, method in DA_LAYOUTS}
+    recs["data2_bytes"] = da_placed_bytes(model, start, {"data": 2}, devices)
+    del model, start
+    torch.cuda.empty_cache()
+    return recs
+
+
+def da_run_ranks(tmp, fields, meanwhile):
+    """Both ranks through every layout and the CLI deploy (this process
+    hosting the deploy's coordinator, running ``meanwhile()`` once the
+    ranks are started); each rank's records by name."""
+    from tnn_tpu_torch.distributed import Coordinator
+
+    data = tmp / "cifar100"
+    data.mkdir()
+    cifar100_files(data, records=(DA_CLI_BATCH * DA_CLI_STEPS,
+                                  DA_CLI_BATCH))
+    coord = Coordinator(2)
+    procs, logs = [], []
+    try:
+        spec = {"out": str(tmp), "address": f"127.0.0.1:{dd_free_port()}",
+                "cli_address": f"127.0.0.1:{coord.port()}"}
+        (tmp / "axes_spec.json").write_text(json.dumps(spec))
+        for r in (0, 1):
+            logs.append(tmp / f"axes_rank{r}.log")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--axes-rank", str(tmp / "axes_spec.json"), str(r)],
+                stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent))
+        t_gates = time.perf_counter()
+        meanwhile()
+        fields["in_process_gates_s"] = time.perf_counter() - t_gates
+
+        def alive():
+            for r, p in enumerate(procs):
+                if p.poll() is not None and p.returncode != 0:
+                    raise AssertionError(
+                        f"distributed_axes: rank {r} exited "
+                        f"{p.returncode}:\n{logs[r].read_text()[-3000:]}")
+
+        def hung(limit):
+            steps = [(tmp / f"axes_rank{r}.step").read_text()
+                     if (tmp / f"axes_rank{r}.step").exists() else "start-up"
+                     for r in (0, 1)]
+            return AssertionError(f"distributed_axes: the ranks ran past "
+                                  f"{limit} s in {steps}")
+
+        deadline = time.perf_counter() + 600
+        while True:     # the ranks join once their layouts are done
+            try:
+                coord.wait_for_workers(timeout=5)
+                break
+            except TimeoutError:
+                alive()
+                if time.perf_counter() > deadline:
+                    raise hung(600)
+
+        config = dict(
+            model_name="flash_vit", dataset_name="cifar100",
+            dataset_path=str(data), batch_size=DA_CLI_BATCH, epochs=1,
+            max_steps=DA_CLI_STEPS, seed=0,
+            mesh_axes={"fsdp": 2}, progress_print_interval=1,
+            jax_coordinator=f"127.0.0.1:{dd_free_port()}",
+            ranks={str(r): {"snapshot_dir": str(tmp / f"axes_snap{r}")}
+                   for r in (0, 1)})
+        t_cli = time.perf_counter()
+        coord.deploy_config(config, timeout=120)
+        coord.barrier("start", timeout=300)
+        try:
+            coord.barrier("done", timeout=300)
+        except RuntimeError as e:   # the ranks left: the snapshot's refusal
+            fields["cli_coordinator"] = str(e)
+        fields["cli_wall_s"] = time.perf_counter() - t_cli
+        for p in procs:
+            try:
+                p.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                raise hung(300) from None
+        alive()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        coord.close()
+        for r, path in enumerate(logs):
+            if path.exists():
+                print(f"--- axes rank {r} ---\n" + path.read_text()[-3000:],
+                      file=sys.stderr)
+    recs = [{}, {}]
+    for r in (0, 1):
+        for line in (tmp / f"axes_rank{r}.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            recs[r][rec["name"]] = rec
+    return recs
+
+
+def phase_distributed_axes(results):
+    import tempfile
+
+    card = results["card"]
+    for name in ("tnn.train", "tnn.dist.coord", "tnn.dist.worker"):
+        train_logs_to_stderr(name)
+    fields = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        refs = {}
+        with contextlib.redirect_stdout(sys.stderr):
+            t_ranks = time.perf_counter()
+            ranks = da_run_ranks(
+                tmp, fields, lambda: refs.update(da_in_process_gates(tmp)))
+            fields["ranks_s"] = time.perf_counter() - t_ranks
+            t_ref = time.perf_counter()
+            refs.update(da_in_process_bf16())
+            fields["in_process_bf16_s"] = time.perf_counter() - t_ref
+    layouts, checks, bad = {}, {}, []
+    for key, axes, method in DA_LAYOUTS:
+        gate = [r[f"{key}_gate"] for r in ranks]
+        bf16 = [r[f"{key}_bf16"] for r in ranks]
+        ref_gate, ref_bf16 = refs[f"{key}_gate"], refs[f"{key}_bf16"]
+        want = {kind: da_launches_expected(method, fp32, steps)
+                for kind, fp32, steps in (("gate", True, DA_GATE_STEPS),
+                                          ("bf16", False, DA_BF16_STEPS))}
+        row = {
+            "gate_losses": gate[0]["losses"],
+            "gate_in_process_losses": ref_gate["losses"],
+            "gate_update_gap": [g["update_gap"] for g in gate],
+            "gate_update_worst_leaf": gate[0]["update_worst_leaf"],
+            "bf16_losses": bf16[0]["losses"],
+            "bf16_in_process_losses": ref_bf16["losses"],
+            "bf16_loss_rel_gap": [abs(a - b) / abs(b) for a, b in
+                                  zip(bf16[0]["losses"],
+                                      ref_bf16["losses"])],
+            "bf16_step_ms": [b["step_ms"] for b in bf16],
+            "bf16_in_process_step_ms": ref_bf16["step_ms"],
+            "collectives_step2": [
+                {k: {"ms": v[0], "mb": v[1] / 2**20, "calls": v[2]}
+                 for k, v in b["collectives"].items()} for b in bf16],
+            "peak_gb_rank": [b["peak_gb"] for b in bf16],
+            "peak_gb_in_process": ref_bf16["peak_gb"],
+            "bytes_per_position": [b["bytes_per_position"] for b in bf16],
+            "launches": {"gate": [g["launches"] for g in gate],
+                         "bf16": [b["launches"] for b in bf16]},
+            "launches_expected": want,
+            "gate_seconds": [g["seconds"] for g in gate],
+            "bf16_seconds": [b["seconds"] for b in bf16],
+            "gate_seconds_by_part": gate[0]["seconds_by_part"],
+            "gate_ref_wait_load_s": [gate[0]["ref_wait_s"],
+                                     gate[0]["ref_load_s"]],
+            "bf16_seconds_by_part": bf16[0]["seconds_by_part"]}
+        checks[key] = {
+            "gate_ranks_equal": gate[0]["losses"] == gate[1]["losses"]
+            and gate[0]["param_digest"] == gate[1]["param_digest"],
+            "gate_bit_equal": gate[0]["losses"] == ref_gate["losses"]
+            and gate[0]["param_digest"] == ref_gate["param_digest"]
+            and all(g["update_equal"] for g in gate),
+            "gate_update": all(g["update_gap"] <= PAX_UPDATE_TOL
+                               for g in gate),
+            "bf16_ranks_equal": bf16[0]["losses"] == bf16[1]["losses"],
+            "bf16_finite": all(math.isfinite(x) for x in
+                               bf16[0]["losses"]),
+            "launches": all(g["launches"] == want["gate"] for g in gate)
+            and all(b["launches"] == want["bf16"] for b in bf16)}
+        layouts[key] = row
+        for rec in gate + bf16:
+            k4, k7, dq, dkv = rec["launches"]
+            results["flash_launches"]["flash_attention_fwd"] += k4
+            results["flash_launches"]["flash_attention_bwd"] += k7
+            split = results.setdefault("split_launches", {
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+            split["flash_attention_bwd_dq"] += dq
+            split["flash_attention_bwd_dkv"] += dkv
+    fault = [r[f"{DA_FAULT_LAYOUT}_fault"] for r in ranks]
+    for f in fault:
+        results["flash_launches"]["flash_attention_fwd"] += f["launches"][0]
+        results["split_launches"]["flash_attention_bwd_dq"] += \
+            f["launches"][2]
+        results["split_launches"]["flash_attention_bwd_dkv"] += \
+            f["launches"][3]
+    checks["fault_fails_gate"] = all(
+        f["update_gap"] > PAX_UPDATE_TOL and not f["update_equal"]
+        for f in fault)
+    fsdp_held = sum(ranks[0]["fsdp2_bf16"]["bytes_per_position"]
+                    ["0x0x0x0x0"].values())
+    data2_held = sum(refs["data2_bytes"]["0x0x0x0x0"].values())
+    checks["fsdp_holds_less"] = fsdp_held < data2_held
+    cli = [r["cli"] for r in ranks]
+    # the lockstep runs the ViT whole under FSDP's gathering checkpoint,
+    # so each backward runs its forward again: K4 twice a step
+    cli_want = [2 * VIT_LAYERS * DA_CLI_STEPS, VIT_LAYERS * DA_CLI_STEPS,
+                0, 0]
+    checks["cli"] = (
+        all(c.get("error") and "sharded over 'fsdp' across processes"
+            in c["error"] for c in cli)
+        and cli[0]["losses"] == cli[1]["losses"]
+        and len(cli[0]["losses"]) == DA_CLI_STEPS
+        and all(c["launches"] == cli_want for c in cli))
+    checks["backend_gloo"] = all(r["group"]["backend"] == "gloo"
+                                 for r in ranks)
+    for c in cli:
+        results["flash_launches"]["flash_attention_fwd"] += c["launches"][0]
+        results["flash_launches"]["flash_attention_bwd"] += c["launches"][1]
+    for key in layouts:
+        bad += [f"{key}.{k}" for k, v in checks[key].items() if not v]
+    bad += [k for k, v in checks.items() if v is False]
+    ok = not bad
+    fields.update(seconds=time.perf_counter() - t0)
+    log("distributed_axes", card=card, model="flash_gpt2_small",
+        cli_model="flash_vit", cli_batch=DA_CLI_BATCH,
+        batch=TRAIN_ARGS["batch"], seq=TRAIN_ARGS["seq"],
+        backend=ranks[0]["group"]["backend"],
+        backend_reason=ranks[0]["group"]["reason"],
+        join_s=[r["group"]["join_s"] for r in ranks],
+        models_s=[r["group"]["models_s"] for r in ranks], layouts=layouts,
+        fault="g (sum_forward) summing the gradient in the backward too, "
+              f"at {DA_FAULT_LAYOUT}",
+        fault_update_gap=[f["update_gap"] for f in fault],
+        fault_worst_leaf=fault[0]["update_worst_leaf"],
+        fault_losses=fault[0]["losses"],
+        fault_launches=[f["launches"] for f in fault],
+        update_tolerance=PAX_UPDATE_TOL,
+        fsdp_bytes_position=ranks[0]["fsdp2_bf16"]["bytes_per_position"],
+        data2_bytes_position=refs["data2_bytes"],
+        cli_losses=[c["losses"] for c in cli],
+        cli_errors=[c.get("error") for c in cli],
+        cli_launches=[c["launches"] for c in cli],
+        cli_launches_expected=cli_want,
+        cli_seconds=[c["seconds"] for c in cli],
+        checks=checks, failed=bad, ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"distributed_axes: {bad}")
 
 
 # -- phase 32 -----------------------------------------------------------------
@@ -10449,7 +11083,8 @@ def main() -> int:
               phase_serving_tp, phase_serving_moe, phase_training_image,
               phase_training_parallel, phase_training_parallel_axes,
               phase_native, phase_distributed, phase_debug_guards,
-              phase_tools, phase_distributed_data)
+              phase_tools, phase_distributed_data,
+              phase_distributed_axes)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -10544,4 +11179,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-rank"]:
         sys.exit(dd_rank_main(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--axes-rank"]:
+        sys.exit(da_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

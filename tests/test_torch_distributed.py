@@ -7,7 +7,9 @@ the same framed protocol as a multi-process run. Then the two packages
 drive each other on either transport (Python or native, on each side),
 ``pack`` gives both packages' bytes, the worker CLI trains in a process
 of its own, two workers with ``jax_coordinator`` train one model over a
-process group, and the worker's synthetic loader draws JAX's batches.
+process group (at {"data": 2}, and at {"fsdp": 2} up to the snapshot
+that JAX's loop refuses as well), and the worker's synthetic loader
+draws JAX's batches.
 """
 import json
 import os
@@ -643,6 +645,59 @@ def test_dist_worker_refuses_jax_coordinator(tmp_path):
                start.named_parameters())
     for n, b in states[0].buffers.items():
         assert torch.equal(b, states[1].buffers[n]), n
+
+
+def test_dist_worker_jax_coordinator_fsdp_stops_at_snapshot(tmp_path):
+    """Two worker processes with ``jax_coordinator`` train one mnist_cnn
+    at ``{"fsdp": 2}`` across them (its large dense kernel sharded over
+    the two ranks): both log the same losses for the steps they take,
+    then the first snapshot refuses the leaf sharded across the ranks,
+    as the JAX loop's ``device_get`` does, and both report it."""
+    import socket
+
+    rng = np.random.default_rng(4)
+    rows = np.concatenate([rng.integers(0, 10, (16, 1)),
+                           rng.integers(0, 256, (16, 784))], axis=1)
+    np.savetxt(tmp_path / "mnist_train.csv", rows, fmt="%d", delimiter=",")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        group_port = s.getsockname()[1]
+    config = {"model_name": "mnist_cnn", "dataset_name": "mnist",
+              "dataset_path": str(tmp_path), "batch_size": 8, "epochs": 1,
+              "max_steps": 2, "mesh_axes": {"fsdp": 2}, "seed": 1,
+              "progress_print_interval": 1,
+              "jax_coordinator": f"127.0.0.1:{group_port}",
+              "ranks": {str(r): {"snapshot_dir": str(tmp_path / f"snap{r}")}
+                        for r in (0, 1)}}
+    env = {**os.environ, "TNN_PLATFORM": "cpu"}
+    with Coordinator(num_workers=2) as coord:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tnn_tpu_torch.cli.dist_worker",
+             "--coordinator", f"127.0.0.1:{coord.port()}", "--rank", str(r)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        try:
+            assert coord.wait_for_workers(timeout=120) == [0, 1]
+            coord.deploy_config(config, timeout=60)
+            coord.barrier("start", timeout=180)
+            with pytest.raises(RuntimeError):
+                coord.barrier("done", timeout=180)
+            outs = [p.communicate(timeout=60)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    losses = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode != 0, out
+        assert "sharded over 'fsdp' across processes" in out, out
+        assert "crossing: fsdp" in out, out
+        losses.append([line.split("loss=")[1].split()[0] for line in
+                       out.splitlines() if "batch" in line and "loss=" in
+                       line])
+        assert not os.listdir(tmp_path / f"snap{r}") if \
+            (tmp_path / f"snap{r}").exists() else True
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
 
 
 @pytest.mark.parametrize("model_name,rank", [("mnist_cnn", 0),

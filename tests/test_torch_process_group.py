@@ -1,6 +1,6 @@
-"""The data plane across processes (``tnn_tpu_torch.parallel.process_group``,
-the mesh and ``make_dp_train_step`` over it) against JAX's data mesh and
-the port's in-process mesh.
+"""The parallel layouts across processes (``tnn_tpu_torch.parallel.
+process_group``, the mesh and ``make_dp_train_step`` over it) against
+JAX's meshes and the port's in-process mesh.
 
 Two ranks run as processes of their own on the CPU, over gloo (this file
 run as a script is the rank side). One pair of processes runs every
@@ -13,23 +13,37 @@ shared temporary directory).
 - A conv + BatchNorm net and a 2-layer GPT-2 (``gpt2_tiny``'s blocks at
   vocab 64), 2 SGD steps at {"data": 2} (one position a rank) and
   {"data": 4} (two), and the GPT-2 at {"data": 2, "model": 2} (the
-  "model" positions inside each rank): losses within 1e-5 relative and
-  parameters and BatchNorm statistics within rtol 1e-5 / atol 1e-6 of
-  JAX's ``make_dp_train_step`` on its forced CPU devices, JAX's own DP
-  bound; both ranks hold the same values bit for bit.
-- Against the port's in-process mesh of the same shape: bit for bit with
-  one data position a rank (the group's sum of two values is a + b either
-  way); at {"data": 4} the group adds (p0 + p1) + (p2 + p3) where the
+  "model" positions inside each rank); the GPT-2 with fsdp, model or seq
+  across the ranks: {"fsdp": 2}, {"model": 2}, {"seq": 2} by the ring
+  and by Ulysses (one position a rank), {"fsdp": 4}, {"model": 2,
+  "seq": 2} ("model" crossing) and {"fsdp": 2, "seq": 2} ("fsdp"
+  crossing; two a rank). Losses within 1e-5 relative and parameters and
+  BatchNorm statistics within rtol 1e-5 / atol 1e-6 of JAX's
+  ``make_dp_train_step`` over the same mesh on its forced CPU devices
+  (inside its ``ring_context`` for "seq"), JAX's own DP bound; both
+  ranks hold the same values bit for bit.
+- Against the port's in-process mesh of the same shape, the two train
+  steps and then one eval step (its loss and corrects): bit for bit with
+  one position a rank (each sum across the ranks adds two values, a + b
+  either way); with two the group adds (p0 + p1) + (p2 + p3) where the
   in-process mesh adds ((p0 + p1) + p2) + p3, one f32 rounding apart on
-  each sum of gradients and statistics, so within rtol 1e-5 / atol 1e-7
-  after two steps (the readings are about 3e-8 absolute).
+  each such sum, so within rtol 1e-5 / atol 1e-7 after two steps (the
+  readings are about 3e-8 absolute).
+- Under fsdp across the ranks each rank holds only its pieces between
+  steps: the bytes of its positions are those of the in-process mesh's
+  positions it stands for, half of every sharded leaf, and the model's
+  own tensors of sharded leaves are empty.
+- ``train_model`` at {"fsdp": 2} across the ranks trains until its first
+  snapshot and raises there, naming the first leaf sharded across the
+  ranks and JAX's condition: the JAX loop's ``Checkpoint.save`` fetches
+  every leaf with ``jax.device_get``, which refuses an array that spans
+  other processes' devices and is not fully replicated.
 - ``assert_equal`` refuses a batch that differs across the ranks, naming
   it and the rank, as JAX's ``device_put`` refuses a host value that
   differs across processes.
-- Axes other than "data" across the processes (fsdp, model, seq), MoE
-  routing under a data mesh that spans them and a pipeline raise a
-  ``ValueError`` naming ROADMAP item 9b-ii; a rank with no position of a
-  mesh is refused.
+- "expert" across the processes, MoE routing under a data mesh that spans
+  them and a pipeline raise a ``ValueError`` naming the rest of ROADMAP
+  item 9b-ii; a rank with no position of a mesh is refused.
 - With no ``mesh_axes`` each rank trains its own replica on its own data,
   equal bit for bit to a run of ``train_model`` in this process.
 """
@@ -51,16 +65,34 @@ STEPS = 2
 LR = 0.1
 BATCH = 8
 VOCAB, SEQ = 64, 16
-#: (case, mesh axes, positions a rank)
-CASES = [("conv_bn", {"data": 2}, 1), ("gpt2", {"data": 2}, 1),
-         ("gpt2", {"data": 2, "model": 2}, 2), ("conv_bn", {"data": 4}, 2),
-         ("gpt2", {"data": 4}, 2)]
-REFUSALS = ("fsdp", "model", "seq", "moe", "train_fsdp", "train_pipe")
+#: (case, mesh axes, positions a rank, the seq method)
+CASES = [("conv_bn", {"data": 2}, 1, None), ("gpt2", {"data": 2}, 1, None),
+         ("gpt2", {"data": 2, "model": 2}, 2, None),
+         ("conv_bn", {"data": 4}, 2, None), ("gpt2", {"data": 4}, 2, None),
+         ("gpt2", {"fsdp": 2}, 1, None), ("gpt2", {"model": 2}, 1, None),
+         ("gpt2", {"seq": 2}, 1, "ring"), ("gpt2", {"seq": 2}, 1, "ulysses"),
+         ("gpt2", {"fsdp": 4}, 2, None),
+         ("gpt2", {"model": 2, "seq": 2}, 2, "ring"),
+         ("gpt2", {"fsdp": 2, "seq": 2}, 2, "ring")]
+REFUSALS = ("expert", "moe", "train_pipe")
 
 
 def _case_id(case):
-    name, axes, _ = case
-    return name + "_" + "_".join(f"{k}{v}" for k, v in axes.items())
+    name, axes, _, method = case
+    return name + "_" + "_".join(f"{k}{v}" for k, v in axes.items()) + (
+        f"_{method}" if method else "")
+
+
+def _ring(attention, mesh, axes, method):
+    """The seq method's context from either package's ``nn.attention``
+    (a null one without "seq"), with the live batch axes as the loop's."""
+    import contextlib
+
+    if not method:
+        return contextlib.nullcontext()
+    batch = tuple(a for a in ("data", "fsdp") if axes.get(a, 1) > 1)
+    return attention.ring_context(mesh, batch_axis=batch or None,
+                                  method=method)
 
 
 # -- the rank side ------------------------------------------------------------
@@ -84,12 +116,14 @@ def _port_model(inputs, name):
     return model
 
 
-def run_dp(inputs, name, axes, devices=None):
+def run_dp(inputs, name, axes, devices=None, method=None):
     """``STEPS`` SGD steps of ``make_dp_train_step`` over ``axes``: the
-    losses and the JAX-layout params and net state, as numpy."""
+    losses, the JAX-layout params and net state, as numpy, and the bytes
+    of parameters each of this process's positions holds."""
     import torch
 
     from tnn_tpu_torch import parallel as tpar
+    from tnn_tpu_torch.nn import attention as tattn
     from tnn_tpu_torch.nn import optimizers as topt
     from tnn_tpu_torch.train import step as tstep
 
@@ -98,16 +132,25 @@ def run_dp(inputs, name, axes, devices=None):
     opt = topt.SGD(lr=LR)
     mesh = tpar.make_mesh(**axes, devices=devices)
     step, place_state, place_batch = tpar.make_dp_train_step(
-        model, opt, mesh, tp=axes.get("model", 1) > 1)
+        model, opt, mesh, fsdp=axes.get("fsdp", 1) > 1,
+        tp=axes.get("model", 1) > 1)
     state = place_state(tstep.create_train_state(model, opt))
     x, y = torch.from_numpy(spec["x"]), torch.from_numpy(spec["y"]).long()
     losses = []
-    for _ in range(STEPS):
-        state, m = step(state, *place_batch(x, y))
-        losses.append(float(m["loss"]))
+    with _ring(tattn, mesh, axes, method):
+        for _ in range(STEPS):
+            state, m = step(state, *place_batch(x, y))
+            losses.append(float(m["loss"]))
+        ev = step.eval_step()(state, *place_batch(x, y))
+    held = {c: b["params"] for c, b in
+            state.layout.position_bytes().items()}
+    empty = sorted(n for n, p in model.named_parameters() if p.numel() == 0)
     trees = tstep.train_state_trees(state)
     return {"losses": losses, "params": _tree_np(trees["params"]),
-            "net_state": _tree_np(trees.get("net_state", {}))}
+            "net_state": _tree_np(trees.get("net_state", {})),
+            "eval": [float(ev["loss"]), int(ev["corrects"])],
+            "position_bytes": held, "emptied": empty,
+            "sharded": sorted(state.layout.sharded_names())}
 
 
 def _tree_np(tree):
@@ -154,10 +197,40 @@ def _refusal(inputs, what, tmp):
     opt = topt.SGD(lr=LR)
     mesh = tpar.make_mesh(**({"data": 2} if what == "moe" else {what: 2}))
     step, place_state, _ = tpar.make_dp_train_step(
-        model, opt, mesh, fsdp=what == "fsdp", tp=what == "model")
+        model, opt, mesh, ep=what == "expert")
     ids = torch.from_numpy(spec["x"]).long()
     return _error(lambda: step(place_state(tstep.create_train_state(
         model, opt)), ids, ids))
+
+
+def _train_fsdp(inputs, tmp):
+    """``train_model`` of the GPT-2 at {"fsdp": 2} across the ranks: its
+    error, the losses of the steps it took and the bytes its rank
+    held."""
+    import torch
+
+    from tnn_tpu_torch.data.loader import ArrayDataLoader
+    from tnn_tpu_torch.train import train_model
+    from tnn_tpu_torch.utils.config import TrainingConfig
+
+    spec = inputs["gpt2"]
+    model = _port_model(inputs, "gpt2")
+    cfg = TrainingConfig().update({
+        "epochs": 1, "batch_size": BATCH // 2, "shuffle": False,
+        "mesh_axes": {"fsdp": 2}, "optimizer": {"type": "sgd", "lr": LR},
+        "snapshot_dir": str(tmp / "train_fsdp"), "io_dtype": "float32",
+        "progress_print_interval": 1})
+    losses = []
+    out = {"error": _error(lambda: train_model(
+        model, cfg, ArrayDataLoader(spec["x"], spec["y"]),
+        metric_hook=lambda step, m: losses.append(m["loss"])))}
+    out["losses"] = losses
+    out["snapshots"] = sorted(p.name for p in (tmp / "train_fsdp").glob("*")) \
+        if (tmp / "train_fsdp").exists() else []
+    out["whole_after"] = all(p.numel() > 0 for p in model.parameters())
+    out["digest"] = torch.cat([p.detach().reshape(-1) for p in
+                               model.parameters()]).sum().item()
+    return out
 
 
 def _replica(inputs, rank, tmp):
@@ -212,15 +285,20 @@ def rank_main(rank: int, port: int, workdir: Path) -> None:
     out["unequal"] = _error(lambda: pg.assert_equal(np.full(3, rank),
                                                     "a per-rank array"))
     out["no_position"] = _error(lambda: tpar.make_mesh(data=1))
+    progress = workdir / f"rank{rank}.case"
     for case in CASES:
         if case[2] == 1:
-            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1])
+            progress.write_text(_case_id(case))
+            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1],
+                                                 method=case[3])
+    progress.write_text("the refusals, the train_model run, the replica")
     spec = inputs["conv_bn"]
     bad = dict(inputs, conv_bn=dict(spec, x=spec["x"] + rank))
     out["batch_refused"] = _error(lambda: run_dp(bad, "conv_bn",
                                                  {"data": 2}))
     for what in REFUSALS:
         out["refusals"][what] = _refusal(inputs, what, workdir / str(rank))
+    out["train_fsdp"] = _train_fsdp(inputs, workdir / str(rank))
     out["replica"] = _replica(inputs, rank, workdir / str(rank))
     pg.shutdown()
     pg.initialize(f"127.0.0.1:{port + 1}", 2, rank, "cpu",
@@ -228,7 +306,9 @@ def rank_main(rank: int, port: int, workdir: Path) -> None:
     out["mesh_info_2"] = tpar.local_mesh_info("cpu")
     for case in CASES:
         if case[2] == 2:
-            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1])
+            progress.write_text(_case_id(case))
+            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1],
+                                                 method=case[3])
     pg.shutdown()
     (workdir / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
 
@@ -296,27 +376,32 @@ def _inputs():
     return out
 
 
-def _jax_dp(spec, axes):
+def _jax_dp(spec, axes, method=None):
     import jax
     import jax.numpy as jnp
 
     from tnn_tpu import nn as jnn
     from tnn_tpu import parallel as jpar
+    from tnn_tpu.nn import attention as jattn
     from tnn_tpu.train import create_train_state as jcreate
 
     jmodel, x = spec["jmodel"], spec["x"]
     opt = jnn.SGD(lr=LR)
     st = jcreate(jmodel, opt, jax.random.PRNGKey(0), x.shape,
                  input_dtype=jnp.float32 if x.dtype == np.float32 else None)
+    mesh = jpar.make_mesh(**axes)
     step, place_state, place_batch = jpar.make_dp_train_step(
-        jmodel, opt, jpar.make_mesh(**axes), donate=False,
+        jmodel, opt, mesh, donate=False, fsdp=axes.get("fsdp", 1) > 1,
         tp=axes.get("model", 1) > 1)
     st = place_state(st)
     losses = []
-    for _ in range(STEPS):
-        st, m = step(st, *place_batch(jnp.asarray(x),
-                                      jnp.asarray(spec["y"])))
-        losses.append(float(m["loss"]))
+    with _ring(jattn, mesh, axes, method):
+        for _ in range(STEPS):
+            # placed again: the step's own output shardings would compile
+            # it a second time
+            st, m = step(place_state(st), *place_batch(
+                jnp.asarray(x), jnp.asarray(spec["y"])))
+            losses.append(float(m["loss"]))
     return {"losses": losses, "params": jax.tree.map(np.asarray, st.params),
             "net_state": jax.tree.map(np.asarray, st.net_state)}
 
@@ -336,12 +421,14 @@ def _build(workdir: Path):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in (0, 1)]
     # the references run while the ranks work
-    jax_runs = {_case_id(c): _jax_dp(inputs[c[0]], c[1]) for c in CASES}
+    jax_runs = {_case_id(c): _jax_dp(inputs[c[0]], c[1], c[3])
+                for c in CASES}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         local = {_case_id(c): run_dp(shipped, c[0], c[1],
-                                     devices=["cpu"] * 4) for c in CASES}
+                                     devices=["cpu"] * 4, method=c[3])
+                 for c in CASES}
         replicas = []
         for rank in (0, 1):
             from tnn_tpu_torch.data.loader import ArrayDataLoader
@@ -360,7 +447,11 @@ def _build(workdir: Path):
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            raise
+            cases = [(workdir / f"rank{r}.case").read_text()
+                     if (workdir / f"rank{r}.case").exists() else "start-up"
+                     for r in (0, 1)]
+            raise AssertionError(f"the ranks ran past {SPAWN_TIMEOUT} s, "
+                                 f"in case {cases[0]!r} / {cases[1]!r}")
         logs.append(out)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
@@ -428,12 +519,16 @@ def test_two_processes_match_jax_data_mesh(runs, case):
 def test_two_processes_match_in_process_mesh(runs, case):
     cid = _case_id(case)
     got, ref = runs["ranks"][1]["runs"][cid], runs["local"][cid]
-    if case[1]["data"] == 2:
+    assert got["eval"][1] == ref["eval"][1]
+    if case[2] == 1:
+        assert got["eval"] == ref["eval"]
         assert got["losses"] == ref["losses"]
         _assert_same(got["params"], ref["params"])
         _assert_same(got["net_state"], ref["net_state"])
     else:
-        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-6)
+        np.testing.assert_allclose(got["losses"] + got["eval"][:1],
+                                   ref["losses"] + ref["eval"][:1],
+                                   rtol=1e-6)
         _assert_trees(got["params"], ref["params"], 1e-5, 1e-7)
         _assert_trees(got["net_state"], ref["net_state"], 1e-5, 1e-7)
 
@@ -465,14 +560,49 @@ def test_assert_equal_refuses_unequal_batches(runs):
             in out["batch_refused"]
 
 
+FSDP_CASES = [c for c in CASES if "fsdp" in c[1]]
+
+
+@pytest.mark.parametrize("case", FSDP_CASES,
+                         ids=[_case_id(c) for c in FSDP_CASES])
+def test_fsdp_across_processes_holds_pieces(runs, case):
+    cid = _case_id(case)
+    ref = runs["local"][cid]["position_bytes"]
+    whole = sum(np.asarray(v).nbytes for _, v in
+                _flat(runs["local"][cid]["params"]))
+    held = []
+    for out in runs["ranks"]:
+        got = out["runs"][cid]
+        assert got["sharded"] and got["emptied"] == got["sharded"]
+        assert len(got["position_bytes"]) == case[2]
+        for c, b in got["position_bytes"].items():
+            assert b == ref[c], c
+            assert b < whole
+        held.append(sum(got["position_bytes"].values()))
+    assert sum(held) == sum(ref.values())
+
+
+def test_train_model_fsdp_across_processes_stops_at_snapshot(runs):
+    a, b = (out["train_fsdp"] for out in runs["ranks"])
+    for out in (a, b):
+        msg = out["error"]
+        assert msg is not None and "is sharded over 'fsdp' across " \
+            "processes" in msg, msg
+        assert "Fetching value for jax.Array that spans non-addressable" \
+            in msg
+        assert len(out["losses"]) == 2 and out["snapshots"] == []
+        assert out["whole_after"]
+    assert a["losses"] == b["losses"] and a["digest"] == b["digest"]
+
+
 @pytest.mark.parametrize("what", REFUSALS)
 def test_other_axes_across_processes_refused(runs, what):
     for out in runs["ranks"]:
         msg = out["refusals"][what]
-        assert msg is not None and "ROADMAP item 9b-ii" in msg, msg
-        if what in ("fsdp", "model", "seq", "train_fsdp"):
-            axis = what.split("_")[-1]
-            assert f"mesh axes ['{axis}'] cross a process boundary" in msg
+        assert msg is not None and "the rest of ROADMAP item 9b-ii" in msg, \
+            msg
+        if what == "expert":
+            assert "mesh axes ['expert'] cross a process boundary" in msg
         elif what == "moe":
             assert "MoE routing over the global batch" in msg
         else:

@@ -254,9 +254,15 @@ class Checkpoint:
         place, so a writer that read them later would race the next step.
         ``block=False`` then writes the file on a thread (one save at a
         time; a new save joins the previous one); ``wait()`` joins it and
-        raises its failure."""
+        raises its failure. A parallel run's state whose leaves are
+        sharded across processes is refused (``ValueError``), as JAX's
+        ``device_get`` refuses such an array (``DataParallel.check_fetch``).
+        """
         from .train.step import train_state_trees
 
+        check = getattr(train_state.layout, "check_fetch", None)
+        if check is not None:
+            check(train_state)
         step = int(train_state.step)
         target = os.path.join(self.directory,
                               "best" if best else f"step_{step}")

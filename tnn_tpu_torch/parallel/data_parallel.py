@@ -74,24 +74,48 @@ layout (``trees``) and places a full-layout state (``load``), so a
 checkpoint of any layout loads into JAX's templates and back.
 
 **Across processes** (a mesh over an initialized ``process_group``, JAX's
-mesh after ``jax.distributed.initialize``): only "data" may span
-processes (fsdp, model, seq and expert positions of one group stay in
-one process, and MoE routing over the global batch stays in one
-process: ROADMAP item 9b-ii). Each process holds only its own positions
-and streams, and runs the same optimizer update on its own copy. The
-step checks the global batch (and ``place_state`` the initial
-parameters) equal on every process with ``process_group.assert_equal``,
-as JAX's ``device_put`` does, and keeps the rows of its streams. Each
-sum over data positions adds this process's parts in position order,
-then the processes' sums over the group: the gradients in one flattened
-buffer a dtype (``process_group.all_reduce_flat``), BatchNorm's
-statistics through the differentiable all-reduce, the loss, accuracy and
-eval corrects. With one position a process the sums equal the in-process
-mesh's bit for bit; with more they are (p0 + p1) + (p2 + p3) where the
-in-process mesh adds ((p0 + p1) + p2) + p3. Each process's streams draw
-dropout from a generator seeded from a digest of the state's generator
-and the process index, and the state's generator is then reseeded from
-its digest alike on every process, so it stays equal on all of them.
+mesh after ``jax.distributed.initialize``): "data", "fsdp", "model" and
+"seq" may span processes, alone or together; "expert" positions of one
+slice stay in one process and MoE routing over the global batch stays in
+one process (the rest of ROADMAP item 9b-ii), and each process must hold
+one block of the mesh, of the same shape on every process. Each process
+holds only its own positions and pieces and runs the same optimizer
+update on its own copy of what it holds. The step checks the global
+batch (and ``place_state`` the initial parameters) equal on every
+process with ``process_group.assert_equal``, as JAX's ``device_put``
+does, and keeps the rows of its streams. A stream runs on every process
+that holds a "model" position of it, its replicated math on that
+process's first such position (its lead here), so two processes compute
+one stream's loss. Every sum then runs over a ``mesh.Span``:
+
+* over a stream's "model" slice, tensor parallelism's conjugate pair
+  (``process_group.sum_backward`` where an activation enters the column
+  products, ``sum_forward`` after the row products, the masked lookup,
+  the sum of exponentials and the label's logit; the row max
+  ``all_reduce``'d with "max");
+* over its "seq" slice, the ring's K/V hops (``mesh.ring_hop``) and
+  Ulysses' re-sharding (``mesh.all_to_all``);
+* over a leaf's "fsdp" slice, the gathers at use and in the remat
+  backward (``join_at``) and the reduce-scatter of the whole-leaf
+  gradients, whose pieces are then summed over the data and seq
+  processes;
+* over the stream span (the processes of the data, fsdp and seq
+  positions through this process's lead: each stream counted once), the
+  loss, accuracy and eval corrects, BatchNorm's statistics and the
+  gradients of replicated leaves and "model" pieces, in one flattened
+  buffer a dtype (``process_group.all_reduce_flat``).
+
+With one position a process every sum adds the same two values as the
+in-process mesh, so the results equal it bit for bit; with more they
+add (p0 + p1) + (p2 + p3) where the in-process mesh adds ((p0 + p1) +
+p2) + p3. Each stream draws dropout from a generator seeded from a
+digest of the state's generator and the stream, so two processes that
+run one stream draw the same masks, and the state's generator is then
+reseeded from its digest alike on every process. ``TrainState.layout``'s
+``trees`` gather the pieces of every process, a collective every process
+calls at the same point (JAX's ``process_allgather``); a snapshot of a
+leaf sharded across processes raises, as JAX's ``device_get`` does
+(``check_fetch``).
 """
 from __future__ import annotations
 
@@ -102,6 +126,7 @@ import itertools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.nn.utils.stateless import _reparametrize_module
 
@@ -186,25 +211,41 @@ def _device(mesh: Mesh, c) -> torch.device:
     return mesh.devices[_index(c)]
 
 
-#: where the parallel layouts across processes are queued
-SPAN_ITEM = "ROADMAP item 9b-ii"
+#: where the rest of the parallel layouts across processes are queued
+SPAN_ITEM = ("the rest of ROADMAP item 9b-ii (expert with MoE routing "
+             "over the global batch across processes, then pipe)")
 
 
 def check_spans(mesh: Mesh, model=None) -> None:
     """Refuse what may not span processes yet (the module docstring)."""
     if not mesh.spans_processes:
         return
-    crossing = [a for a in mesh.crossing_axes() if a != "data"]
-    if crossing:
+    crossing = mesh.crossing_axes()
+    if "expert" in crossing:
         raise ValueError(
-            f"mesh axes {crossing} cross a process boundary: only 'data' "
-            f"spans processes; the other axes across processes are queued "
-            f"as {SPAN_ITEM}")
+            f"mesh axes ['expert'] cross a process boundary: data, fsdp, "
+            f"model and seq span processes; expert across processes waits "
+            f"for {SPAN_ITEM}")
     if model is not None and has_moe(model):
         raise ValueError(
             f"MoE routing over the global batch cannot cross processes: "
             f"the mesh spans {len(set(mesh.processes.flat))} processes; "
             f"it waits for {SPAN_ITEM}")
+    if set(crossing) - {"data"}:
+        shapes = set()
+        for p in sorted(set(int(q) for q in mesh.processes.flat)):
+            at = np.argwhere(mesh.processes == p)
+            lo, hi = at.min(0), at.max(0) + 1
+            if int(np.prod(hi - lo)) != len(at):
+                shapes = None
+                break
+            shapes.add(tuple(int(v) for v in hi - lo))
+        if not shapes or len(shapes) > 1:
+            raise ValueError(
+                f"mesh axes {list(crossing)} cross a process boundary but "
+                f"the processes' positions are not blocks of one shape "
+                f"({mesh!r}): give every process as many positions, a "
+                f"divisor of the mesh's trailing axes")
 
 
 def place_by_specs(params, mesh: Mesh, specs):
@@ -264,6 +305,13 @@ class DataParallel:
         self.spans = mesh.spans_processes
         self.coords = [c for c in _coords(mesh) if mesh.is_local(_index(c))]
         self.size = {a: mesh_lib.axis_size(mesh, a) for a in AXES}
+        # the "model" positions this process holds of each of its streams,
+        # and the spans its sums run over (None: this process alone)
+        self.model_run = sorted({c[_AX["model"]] for c in self.coords})
+        lead = _index(self.coords[0])
+        self.stream_span = mesh.span(("data", "fsdp", "seq"), lead)
+        self.fsdp_span = mesh.span("fsdp", lead)
+        self.rest_span = mesh.span(("data", "seq"), lead)
         self.dev = {c: _device(mesh, c) for c in self.coords}
         self.devices = [self.dev[c] for c in self.coords]
         params = dict(model.named_parameters())
@@ -376,27 +424,88 @@ class DataParallel:
         c[_AX[a]] = j
         return tuple(c)
 
+    def crossing(self, axis: Optional[str], c) -> Optional[mesh_lib.Span]:
+        """The slice along ``axis`` through position ``c`` where it crosses
+        processes, else None."""
+        if axis is None or not self.spans:
+            return None
+        over = self.mesh.span(axis, _index(c))
+        return over if over.crosses else None
+
+    def span_of(self, n: str, c) -> Optional[mesh_lib.Span]:
+        """The slice of leaf ``n``'s axis through ``c`` (``crossing``)."""
+        return self.crossing(self.axis[n], c)
+
     def join_at(self, n: str, c) -> torch.Tensor:
         """Leaf ``n`` whole on position ``c``'s device, from the pieces of
-        the positions that share c's other coordinates."""
+        the positions that share c's other coordinates (gathered from
+        the other processes of the slice where it crosses them)."""
         with torch.no_grad():
             if self.axis[n] is None:
                 return self._join(n, [self.held[c][n]], self.dev[c])
-            return self._join(n, [self.held[self._at_piece(c, n, j)][n]
-                                  for j in range(self.pieces(n))],
-                              self.dev[c])
+            over = self.span_of(n, c)
+            run = range(over.lo, over.hi) if over else range(self.pieces(n))
+            return self._whole(n, [self.held[self._at_piece(c, n, j)][n]
+                                   for j in run], over, self.dev[c])
 
-    def _owners(self, n: str) -> List[Tuple]:
+    def _whole(self, n: str, mine, over, device) -> torch.Tensor:
+        """Leaf ``n`` whole from this process's run of its pieces
+        (``mine``), the other processes' gathered over ``over``: each
+        piece padded to the widest along the leaf's dim (``tensor_split``
+        may cut unequal pieces), trimmed after."""
+        if over is None:
+            return self._join(n, mine, device)
+        dim = self.dim[n]
+        ends = self.starts[n][1:] + [self.shapes[n][dim]]
+        widths = [e - b for b, e in zip(self.starts[n], ends)]
+        wide = max(widths)
+
+        def pad(t):
+            extra = wide - t.shape[dim]
+            if not extra:
+                return t
+            shape = list(t.shape)
+            shape[dim] = extra
+            return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+        block = torch.cat([pad(t.to(device)) for t in mine], dim=dim)
+        got = process_group.all_gather(block, over.group)
+        pieces = []
+        for proc_block in got.unbind(0):
+            pieces.extend(proc_block.split(wide, dim=dim))
+        return self._join(n, [p.narrow(dim, 0, w) for p, w in
+                              zip(pieces, widths)], device)
+
+    def _owners(self, n: str) -> Dict[int, Tuple]:
+        """The first local holder of each piece of ``n`` this process
+        holds."""
         out = {}
         for c in self.coords:
             out.setdefault(self.piece_of(n, c), c)
-        return [out[j] for j in range(self.pieces(n))]
+        return dict(sorted(out.items()))
 
     def _owned(self, n: str):
         if self.axis[n] is None:
             return self.held[self.coords[0]][n]
         return {str(j): self.held[c][n].detach()
-                for j, c in enumerate(self.owners[n])}
+                for j, c in self.owners[n].items()}
+
+    def check_fetch(self, state: TrainState) -> None:
+        """Refuse to fetch a leaf sharded across processes to one host, as
+        JAX's ``device_get`` refuses (``Checkpoint.save``)."""
+        names = [n for n in self.sharded_names()
+                 if self.span_of(n, self.coords[0]) is not None]
+        if names:
+            n = names[0]
+            path = "/".join(state.jax_paths.get(n, (n,)))
+            raise ValueError(
+                f"params/{path} is sharded over {self.axis[n]!r} across "
+                f"processes: a snapshot fetches every leaf to this host, "
+                f"and JAX refuses to fetch an array that spans devices of "
+                f"other processes and is not fully replicated (jax.Array "
+                f"._value: 'Fetching value for jax.Array that spans "
+                f"non-addressable (non process local) devices is not "
+                f"possible'); {len(names)} leaves are sharded so")
 
     def sharded_names(self) -> List[str]:
         return [n for n, a in self.axis.items() if a is not None]
@@ -410,6 +519,11 @@ class DataParallel:
         its piece (``whole=False``), or made whole (``_Gather``)."""
         if self.axis[n] is None or not whole:
             return self.held[c][n]
+        if self.axis[n] == "model" and self.span_of(n, c) is not None:
+            raise ValueError(
+                f"{n} is sharded over 'model' across processes and used "
+                f"whole: the lockstep forward runs a 'model' leaf piece by "
+                f"piece (the attention, MLP, embedding and head handlers)")
         if torch.is_grad_enabled():
             return _Gather.apply(self.anchor, self, n, c)
         return self.join_at(n, c)
@@ -427,15 +541,18 @@ class DataParallel:
             if not isinstance(val, dict):
                 continue
             for n, t in val.items():
-                parts = t.values() if isinstance(t, dict) else [t]
-                for c, part in zip(self.owners[n], parts):
+                if not isinstance(t, dict):
+                    t = {"0": t}
+                for j, c in self.owners[n].items():
+                    part = t[str(j)]
                     out[c]["moments"] += part.numel() * part.element_size()
         return out
 
     # -- streams ---------------------------------------------------------
 
     def lead(self, d: int, f: int, s: int) -> Tuple:
-        return (d, f, 0, s, 0)
+        """Where this process runs a stream's replicated math."""
+        return (d, f, self.model_run[0], s, 0)
 
     def streams(self, seq_split: bool) -> List[Tuple[int, int, int]]:
         """This process's streams, in mesh order."""
@@ -450,11 +567,13 @@ class DataParallel:
             self.size["seq"] if seq_split else 1)
 
     def across(self, value: torch.Tensor) -> torch.Tensor:
-        """This process's share of a sum, summed over the process group
-        where the layout spans processes (no gradient: each process's
-        backward runs on its own share)."""
-        return process_group.all_reduce(value.detach()) if self.spans \
-            else value
+        """This process's share of a sum over the streams, summed over the
+        stream span where it crosses processes (no gradient: each
+        process's backward runs on its own share)."""
+        over = self.stream_span
+        if over is None or not over.crosses:
+            return value
+        return process_group.all_reduce(value.detach(), group=over.group)
 
     def seq_split(self, x: torch.Tensor) -> bool:
         """Whether a batch cuts over the seq positions: (B, S) token
@@ -483,21 +602,24 @@ class DataParallel:
     def generators(self, generator: torch.Generator, streams
                    ) -> List[torch.Generator]:
         """The generator each stream's forward draws from (the module
-        docstring): ``generator`` on its own device, elsewhere one a device
-        seeded from a digest of ``generator``'s state."""
-        by_device = {} if self.spans else {generator.device: generator}
+        docstring): in one process ``generator`` on its own device,
+        elsewhere one a device seeded from a digest of ``generator``'s
+        state; across processes one a stream, seeded from that digest and
+        the stream."""
+        by_key = {} if self.spans else {generator.device: generator}
         digest = hashlib.blake2b(generator.get_state().numpy().tobytes(),
                                  digest_size=8).digest()
-        tag = f"{process_group.process_index()}/" if self.spans else ""
         out = []
         for (d, f, s) in streams:
             dev = self.dev[self.lead(d, f, s)]
-            if dev not in by_device:
-                seed = hashlib.blake2b(digest + f"{tag}{dev}".encode(),
+            key = (d, f, s) if self.spans else dev
+            if key not in by_key:
+                tag = f"{d}/{f}/{s}" if self.spans else str(dev)
+                seed = hashlib.blake2b(digest + tag.encode(),
                                        digest_size=8).digest()
-                by_device[dev] = make_generator(
+                by_key[key] = make_generator(
                     int.from_bytes(seed, "little") >> 1, dev)
-            out.append(by_device[dev])
+            out.append(by_key[key])
         if self.spans:
             nxt = hashlib.blake2b(digest + b"next", digest_size=8).digest()
             generator.manual_seed(int.from_bytes(nxt, "little") >> 1)
@@ -522,10 +644,12 @@ class DataParallel:
     def reduce_grads(self, scale: float = 1.0) -> Dict[str, Any]:
         """Every piece's gradient, summed over its holders in position
         order (``mesh.all_reduce``; ``mesh.reduce_scatter`` for an fsdp
-        leaf), in the owned layout. Across processes each process's sums
-        are then summed over the group, all in one flattened buffer a
-        dtype."""
-        sums = {}
+        leaf), in the owned layout. Across processes (the module
+        docstring) the sums of replicated leaves and "model" pieces run
+        over the stream span in one flattened buffer a dtype, and the
+        whole-leaf sums of fsdp leaves are reduce-scattered over the fsdp
+        slice, then summed over the data and seq processes."""
+        sums, whole = {}, {}
         for n, own in self.owned.items():
             axis = self.axis[n]
             if axis == "fsdp":
@@ -537,7 +661,7 @@ class DataParallel:
                         device=self.dev[c]))
                 if scale != 1.0:
                     parts = [g * scale for g in parts]
-                sums[(n, None)] = mesh_lib.position_sum(parts)
+                whole[n] = mesh_lib.position_sum(parts)
                 continue
             by_piece: Dict[int, List[torch.Tensor]] = {}
             for c in self.coords:
@@ -550,32 +674,68 @@ class DataParallel:
                 if g is not None:
                     for jj, piece in enumerate(self._split(n, g)):
                         by_piece.setdefault(jj, []).append(piece)
-            for j, owner in enumerate(self.owners[n]):
+            for j, owner in self.owners[n].items():
                 parts = by_piece.get(j) or [torch.zeros_like(
                     self.held[owner][n])]
                 if scale != 1.0:
                     parts = [g * scale for g in parts]
                 sums[(n, j)] = mesh_lib.position_sum(parts)
-        if self.spans:
+        over = self.stream_span
+        if over is not None and over.crosses and sums:
             sums = dict(zip(sums, process_group.all_reduce_flat(
-                list(sums.values()))))
+                list(sums.values()), over.group)))
         grads = {}
         for (n, j), g in sums.items():
-            if j is None:
-                grads[n] = {str(k): piece.to(self.dev[c]) for k, (piece, c)
-                            in enumerate(zip(g.chunk(self.pieces(n),
-                                                     dim=self.dim[n]),
-                                             self.owners[n]))}
-            elif self.axis[n] is None:
+            if self.axis[n] is None:
                 grads[n] = g.to(self.dev[self.owners[n][0]])
             else:
                 grads.setdefault(n, {})[str(j)] = g.to(
                     self.dev[self.owners[n][j]])
+        for n, pieces in self._fsdp_pieces(whole).items():
+            grads[n] = {str(j): piece.to(self.dev[self.owners[n][j]])
+                        for j, piece in pieces.items()}
         for c in self.coords:
             for t in self.held[c].values():
                 t.grad = None
         self._grads, self._mb_grads = {}, {}
         return grads
+
+    def _fsdp_pieces(self, whole: Dict[str, torch.Tensor]
+                     ) -> Dict[str, Dict[int, torch.Tensor]]:
+        """This process's pieces of each fsdp leaf's whole-leaf gradient
+        sum: cut locally, or reduce-scattered over the fsdp slice where it
+        crosses processes (one buffer a dtype, each process's row its
+        pieces of every leaf), then summed over the data and seq
+        processes where they cross."""
+        fs, rest = self.fsdp_span, self.rest_span
+        out: Dict[str, Dict[int, torch.Tensor]] = {}
+        if fs is None or not fs.crosses:
+            for n, g in whole.items():
+                pieces = g.chunk(self.pieces(n), dim=self.dim[n])
+                out[n] = {j: pieces[j] for j in self.owners[n]}
+        else:
+            by_dtype: Dict[torch.dtype, List[str]] = {}
+            for n, g in whole.items():
+                by_dtype.setdefault(g.dtype, []).append(n)
+            for names in by_dtype.values():
+                cut = {n: whole[n].chunk(self.pieces(n), dim=self.dim[n])
+                       for n in names}
+                rows = [torch.cat([cut[n][j].reshape(-1) for n in names
+                                   for j, q in enumerate(fs.owners)
+                                   if q == p]) for p in fs.procs]
+                mine = process_group.reduce_scatter(
+                    torch.stack(rows), fs.group)
+                sizes = [(n, j) for n in names for j in self.owners[n]]
+                flat = mine.split([cut[n][j].numel() for n, j in sizes])
+                for (n, j), piece in zip(sizes, flat):
+                    out.setdefault(n, {})[j] = piece.view(cut[n][j].shape)
+        if rest is not None and rest.crosses and out:
+            keys = [(n, j) for n, pieces in out.items() for j in pieces]
+            summed = process_group.all_reduce_flat(
+                [out[n][j] for n, j in keys], rest.group)
+            for (n, j), g in zip(keys, summed):
+                out[n][j] = g
+        return out
 
     @torch.no_grad()
     def broadcast(self) -> None:
@@ -591,7 +751,8 @@ class DataParallel:
     # -- the full layout ---------------------------------------------------
 
     def full_params(self) -> Dict[str, torch.Tensor]:
-        """Every leaf whole on the first position's device (new tensors)."""
+        """Every leaf whole on the first position's device (new tensors;
+        across processes a collective: the module docstring)."""
         first = self.coords[0]
         return {n: self.join_at(n, first).detach().clone()
                 for n in self.axis}
@@ -606,9 +767,9 @@ class DataParallel:
             out[key] = {}
             for n, t in val.items():
                 if isinstance(t, dict):
-                    t = self._join(n, [t[str(j)] for j in
-                                       range(self.pieces(n))],
-                                   self.devices[0])
+                    t = self._whole(n, [t[str(j)] for j in self.owners[n]],
+                                    self.span_of(n, self.coords[0]),
+                                    self.devices[0])
                 out[key][n] = t
         return out
 
@@ -623,7 +784,8 @@ class DataParallel:
                 src = torch.as_tensor(full[key][n])
                 if isinstance(t, dict):
                     for j, piece in enumerate(self._split(n, src)):
-                        t[str(j)].copy_(piece)
+                        if str(j) in t:
+                            t[str(j)].copy_(piece)
                 else:
                     t.copy_(src)
 
@@ -683,13 +845,13 @@ class _Run:
     one output a stream."""
 
     def __init__(self, layout: DataParallel, train: bool, streams,
-                 generators, global_streams: int):
+                 generators, seq_split: bool):
         self.lay = layout
         self.train = train
         self.streams = streams
-        self.global_streams = global_streams
+        self.global_streams = layout.global_streams(seq_split)
         self.gens = generators
-        self.seq = len({s for (_, _, s) in streams})
+        self.seq = layout.size["seq"] if seq_split else 1
         ctx = active_ring_context()
         self.method = ctx["method"] if ctx["mesh"] is not None else "ring"
 
@@ -702,6 +864,13 @@ class _Run:
     def at(self, i: int, m: int = 0, e: int = 0) -> Tuple:
         d, f, s = self.streams[i]
         return (d, f, m, s, e)
+
+    def tp_input(self, i: int, x):
+        """Stream ``i``'s activation as it enters the column products of
+        its "model" positions: f over the stream's "model" slice."""
+        over = self.lay.crossing("model", self.lead(i))
+        return x if over is None else \
+            process_group.sum_backward(x, over.group)
 
     def call(self, mods, c, fn, *args, rels=None, whole: bool = True):
         """``fn(*args)`` with the parameters of ``mods`` (those named in
@@ -804,11 +973,11 @@ class _Run:
         dims = tuple(range(xs[0].ndim - 1))
         count = sum(x.numel() // x.shape[-1] for x in xs) \
             * self.global_streams // len(xs)
-        span = self.lay.spans
+        over = self.lay.stream_span
         s1 = mesh_lib.all_reduce([x.float().sum(dim=dims) for x in xs],
-                                 processes=span)
+                                 over=over)
         s2 = mesh_lib.all_reduce([(x.float() * x.float()).sum(dim=dims)
-                                  for x in xs], processes=span)
+                                  for x in xs], over=over)
         out = []
         for i, (x, a, b) in enumerate(zip(xs, s1, s2)):
             mean = a / count
@@ -883,7 +1052,7 @@ class _Run:
         out = []
         for i, x in enumerate(ids):
             parts = []
-            for m in range(lay.size["model"]):
+            for m in lay.model_run:
                 c = self.at(i, m)
                 piece = lay.leaf(n, c, whole=False)
                 idx = x.to(lay.dev[c]) - lay.starts[n][m]
@@ -893,7 +1062,9 @@ class _Run:
                 parts.append(torch.where(live[..., None], rows,
                                          torch.zeros((), dtype=rows.dtype,
                                                      device=rows.device)))
-            out.append(mesh_lib.all_reduce(parts)[0])
+            out.append(mesh_lib.all_reduce(
+                parts, over=self.lay.crossing("model", self.lead(i)),
+                grad="pass")[0])
         return out
 
     def positional(self, mod, xs):
@@ -907,11 +1078,12 @@ class _Run:
         if model.head is None:
             n = self.name(model.wte, "table")
             if lay.axis[n] == "model":
+                h = self.tp_input(i, h)
                 return tuple(
                     qmatmul(h.to(lay.dev[self.at(i, m)]),
                             model.policy.cast_param(
                                 lay.leaf(n, self.at(i, m), whole=False)).t())
-                    for m in range(lay.size["model"]))
+                    for m in lay.model_run)
             return self.call([model.wte], self.lead(i), model.wte.attend, h)
         return self.call(
             [model.head], self.lead(i),
@@ -941,12 +1113,14 @@ class _Run:
         out = []
         for i, x in enumerate(xs):
             parts = []
-            for m in range(lay.size["model"]):
+            x = self.tp_input(i, x)
+            for m in lay.model_run:
                 c = self.at(i, m)
                 a = self.call(cols, c, inner, x.to(lay.dev[c]), whole=False)
                 w = row.policy.cast_param(lay.leaf(w_row, c, whole=False))
                 parts.append(qmatmul(row.policy.cast_in(a), w))
-            y = mesh_lib.all_reduce(parts)[0]
+            y = mesh_lib.all_reduce(parts, over=self.lay.crossing(
+                "model", self.lead(i)), grad="pass")[0]
             b = self.name(row, "bias")
             if b is not None:
                 y = y + lay.leaf(b, self.lead(i)).float()
@@ -960,10 +1134,12 @@ class _Run:
         all-reduced and the bias added once."""
         lay = self.lay
         tp = lay.axis[self.name(mod, "qkv_kernel")] == "model"
-        ranks = lay.size["model"] if tp else 1
+        ranks = lay.model_run if tp else lay.model_run[:1]
         proj = {}
         for i, x in enumerate(xs):
-            for m in range(ranks):
+            if tp:
+                x = self.tp_input(i, x)
+            for m in ranks:
                 c = self.at(i, m)
                 q, k, v = (t.transpose(1, 2) for t in self.call(
                     [mod], c, mod._project_qkv, x.to(lay.dev[c]),
@@ -976,7 +1152,7 @@ class _Run:
         attn = {}
         if self.seq > 1:
             if self.method == "ulysses":
-                q, k, _ = proj[(0, 0)]
+                q, k, _ = proj[(0, ranks[0])]
                 check_ulysses(q.shape[1], k.shape[1],
                               xs[0].shape[1] * self.seq, self.seq)
             ring = ulysses_attention_local if self.method == "ulysses" \
@@ -986,9 +1162,11 @@ class _Run:
                 groups.setdefault((d, f), []).append(i)
             scale = 1.0 / math.sqrt(mod.head_dim)
             for idx in groups.values():
-                for m in range(ranks):
+                for m in ranks:
                     qs, ks, vs = zip(*(proj[(i, m)] for i in idx))
-                    outs = ring(qs, ks, vs, causal=mod.causal, scale=scale)
+                    over = self.lay.crossing("seq", self.at(idx[0], m))
+                    outs = ring(qs, ks, vs, causal=mod.causal, scale=scale,
+                                over=over)
                     for i, o in zip(idx, outs):
                         attn[(i, m)] = o
         else:
@@ -998,19 +1176,20 @@ class _Run:
                                      backend=mod.backend)
         out = []
         for i, g in enumerate(self.gens):
-            dtype = attn[(i, 0)].dtype
+            dtype = attn[(i, ranks[0])].dtype
             if not tp:
                 out.append(self.call(
                     [mod], self.lead(i),
                     lambda t, gen: mod._project_out(t, self.train, gen),
-                    attn[(i, 0)].transpose(1, 2), g,
+                    attn[(i, ranks[0])].transpose(1, 2), g,
                     rels=("out_kernel", "out_bias")))
                 continue
             parts = [self.call([mod], self.at(i, m), mod._out_product,
                                attn[(i, m)].transpose(1, 2),
                                rels=("out_kernel",), whole=False)
-                     for m in range(ranks)]
-            y = mesh_lib.all_reduce(parts)[0]
+                     for m in ranks]
+            y = mesh_lib.all_reduce(parts, over=self.lay.crossing(
+                "model", self.lead(i)), grad="pass")[0]
             out.append(self.call(
                 [mod], self.lead(i),
                 lambda t, gen: mod._out_finish(t, dtype, self.train, gen),
@@ -1034,39 +1213,53 @@ def _no_ring():
 
 
 def sharded_cross_entropy(pieces: Sequence[torch.Tensor], starts,
-                          labels: torch.Tensor) -> torch.Tensor:
+                          labels: torch.Tensor,
+                          over: Optional[mesh_lib.Span] = None
+                          ) -> torch.Tensor:
     """``softmax_cross_entropy`` of logits split over the vocabulary
     (``pieces``, starting at vocab rows ``starts``) against integer
     ``labels`` (< 0 ignored): the row max and the sum of exponentials
-    reduced over the pieces (``mesh.all_reduce``), the label's logit from
+    reduced over the pieces (``mesh.all_reduce``; then over the other
+    processes of ``over``, the "model" slice), the label's logit from
     the piece that holds it."""
     mx = mesh_lib.all_reduce([p.detach().float().amax(-1) for p in pieces],
-                             op="max")
+                             op="max", over=over)
     se = mesh_lib.all_reduce([torch.exp(p.float() - m[..., None]).sum(-1)
-                              for p, m in zip(pieces, mx)])
+                              for p, m in zip(pieces, mx)], over=over,
+                             grad="pass")
     zl = []
     for p, start in zip(pieces, starts):
         idx = labels.to(p.device).long() - start
         live = (idx >= 0) & (idx < p.shape[-1])
         z = p.float().gather(-1, idx.clamp(0, p.shape[-1] - 1)[..., None])
         zl.append(torch.where(live, z[..., 0], 0.0))
-    zl = mesh_lib.all_reduce(zl)[0]
+    zl = mesh_lib.all_reduce(zl, over=over, grad="pass")[0]
     dev = zl.device
     nll = mx[0].to(dev) + torch.log(se[0].to(dev)) - zl
     mask = (labels.to(dev) >= 0).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-def _predictions(out, starts) -> torch.Tensor:
+def _predictions(out, starts, over: Optional[mesh_lib.Span] = None
+                 ) -> torch.Tensor:
     """The argmax over the vocabulary of whole or sharded logits (the
-    first maximum, as ``argmax``)."""
+    first maximum, as ``argmax``; the pieces of the other processes of
+    ``over`` taken in slice order)."""
     if not isinstance(out, tuple):
         return out.argmax(dim=-1)
     dev = out[0].device
-    best_v = best_i = None
+    bests = []
     for p, start in zip(out, starts):
         v, i = p.float().max(dim=-1)
-        v, i = v.to(dev), i.to(dev) + start
+        bests.append((v.to(dev), i.to(dev) + start))
+    if over is not None and over.crosses:
+        vs, idx = zip(*bests)
+        vs = process_group.all_gather(torch.stack(vs), over.group)
+        idx = process_group.all_gather(torch.stack(idx), over.group)
+        bests = list(zip(vs.flatten(0, 1).unbind(0),
+                         idx.flatten(0, 1).unbind(0)))
+    best_v = best_i = None
+    for v, i in bests:
         if best_v is None:
             best_v, best_i = v, i
         else:
@@ -1076,8 +1269,8 @@ def _predictions(out, starts) -> torch.Tensor:
     return best_i
 
 
-def _hits(out, labels, starts):
-    pred = _predictions(out, starts)
+def _hits(out, labels, starts, over=None):
+    pred = _predictions(out, starts, over)
     labels, mask = metrics_lib._labels_mask(labels.to(pred.device),
                                             pred.ndim)
     return ((pred == labels) & mask), mask
@@ -1124,15 +1317,28 @@ class DPTrainStep:
     def _loss(self, run: _Run, out, labels, i: int, loss_fn=None):
         loss_fn = loss_fn or self.loss_fn
         if isinstance(out, tuple):
+            over = run.lay.crossing("model", run.lead(i))
             if loss_fn is losses_lib.get("softmax_cross_entropy"):
                 return sharded_cross_entropy(out, self._vocab_starts(),
-                                             labels)
+                                             labels, over)
+            if over is not None:
+                raise ValueError(
+                    f"{getattr(loss_fn, '__name__', loss_fn)}: the vocab-"
+                    f"sharded logits cross processes; only "
+                    f"softmax_cross_entropy reduces them there")
             out = torch.cat([p.to(out[0].device) for p in out], dim=-1)
         return loss_fn(out, labels)
 
     def _vocab_starts(self):
+        """The vocab row each of this process's logit pieces starts at."""
         n, _ = self._table()
-        return self.layout.starts[n]
+        return [self.layout.starts[n][m] for m in self.layout.model_run]
+
+    def _hits(self, run: _Run, out, labels, i: int):
+        if not isinstance(out, tuple):
+            return _hits(out, labels, None)
+        return _hits(out, labels, self._vocab_starts(),
+                     run.lay.crossing("model", run.lead(i)))
 
     def _chunked_loss(self, run: _Run, h, labels, i: int):
         lay = self.layout
@@ -1140,7 +1346,9 @@ class DPTrainStep:
         n, owner = self._table()
         if n is not None and lay.axis[n] == "model":
             lse, zl = [], []
-            for m in range(lay.size["model"]):
+            over = run.lay.crossing("model", run.lead(i))
+            h = run.tp_input(i, h)
+            for m in lay.model_run:
                 c = run.at(i, m)
                 dev = lay.dev[c]
                 table = owner.policy.cast_param(lay.leaf(n, c, whole=False))
@@ -1148,10 +1356,13 @@ class DPTrainStep:
                                    labels.to(dev) - lay.starts[n][m], chunk)
                 lse.append(a)
                 zl.append(b)
-            mx = mesh_lib.all_reduce([t.detach() for t in lse], op="max")
+            mx = mesh_lib.all_reduce([t.detach() for t in lse], op="max",
+                                     over=over)
             se = mesh_lib.all_reduce([torch.exp(t - m)
-                                      for t, m in zip(lse, mx)])
-            total = mx[0] + torch.log(se[0]) - mesh_lib.all_reduce(zl)[0]
+                                      for t, m in zip(lse, mx)], over=over,
+                                     grad="pass")
+            total = mx[0] + torch.log(se[0]) - mesh_lib.all_reduce(
+                zl, over=over, grad="pass")[0]
             return total.mean()
         return run.call([owner], run.lead(i),
                         lambda t: lm_head_loss(t, self.model.head_table(),
@@ -1162,7 +1373,7 @@ class DPTrainStep:
         streams = lay.streams(seq_split)
         gens = lay.generators(state.generator, streams) if train else \
             [None] * len(streams)
-        run = _Run(lay, train, streams, gens, lay.global_streams(seq_split))
+        run = _Run(lay, train, streams, gens, seq_split)
         return run, gens
 
     def _microbatch(self, state, data, labels):
@@ -1197,16 +1408,15 @@ class DPTrainStep:
             commit()
         acc = None
         if self.compute_accuracy:
-            acc = lay.across(_global_mean([self._accuracy(o, l) for o, l in
-                                           zip(outs, ls)], counts, dev,
-                                          total))
+            acc = lay.across(_global_mean(
+                [self._accuracy(run, o, l, i) for i, (o, l) in
+                 enumerate(zip(outs, ls))], counts, dev, total))
         return lay.across(loss.detach()), acc, aux
 
-    def _accuracy(self, out, labels):
+    def _accuracy(self, run: _Run, out, labels, i: int):
         out = out.detach() if not isinstance(out, tuple) else \
             tuple(p.detach() for p in out)
-        hits, mask = _hits(out, labels, self._vocab_starts()
-                           if isinstance(out, tuple) else None)
+        hits, mask = self._hits(run, out, labels, i)
         return hits.sum(dtype=torch.float32) / mask.sum(
             dtype=torch.float32).clamp_min(1.0)
 
@@ -1261,10 +1471,9 @@ class DPTrainStep:
                 xs[0].shape[0] * lay.global_streams(seq_split)))}
             if compute_accuracy:
                 metrics["corrects"] = mesh_lib.all_reduce(
-                    [_hits(o, l, self._vocab_starts()
-                           if isinstance(o, tuple) else None)[0]
-                     .sum(dtype=torch.int32) for o, l in zip(outs, ls)],
-                    processes=lay.spans)[0]
+                    [self._hits(run, o, l, i)[0].sum(dtype=torch.int32)
+                     for i, (o, l) in enumerate(zip(outs, ls))],
+                    over=lay.stream_span)[0]
             return metrics
 
         return step
@@ -1312,10 +1521,11 @@ def make_dp_train_step(model, optimizer, mesh: Mesh,
         if state.layout is not None:
             return state
         full = state.opt_state
-        layout = DataParallel(model, mesh, fsdp=fsdp, tp=tp, ep=ep)
-        if layout.spans:
-            process_group.assert_equal(layout.full_params(),
+        if mesh.spans_processes:
+            check_spans(mesh, model)
+            process_group.assert_equal(dict(model.named_parameters()),
                                        "the initial parameters")
+        layout = DataParallel(model, mesh, fsdp=fsdp, tp=tp, ep=ep)
         state.opt_state = optimizer.init(layout.owned)
         layout.set_opt_state(state.opt_state, full)
         layout.broadcast()

@@ -27,13 +27,25 @@ Under an initialized ``process_group`` a mesh built without ``devices``
 spans processes: it takes the first prod(sizes) entries of the group's
 global position list, each position carrying its process
 (``Mesh.processes``), and a process that holds none of them is refused.
-A process reaches only its own positions; the sums (``all_reduce``,
-``reduce_scatter``, ``data_mean``) given ``processes=True`` add this
-process's parts in position order, then the processes' sums over the
-group.
+A process reaches only its own positions. ``Mesh.span(axes, index)`` is
+the set of processes of the positions that differ from ``index`` along
+``axes`` alone (one axis: that axis's slice through ``index``, with each
+slice position's process); the mesh makes the subgroup of every span
+with more than one process when it is made, on every process in the
+same order (``process_group.subgroups``). Each collective takes the
+parts this process holds of one span (``over``), combines them in
+position order, then, where the span holds more than one process,
+combines the processes' results over its subgroup: ``position_sum``,
+``all_reduce`` and ``reduce_scatter`` sum them (in the backward, with
+``grad="sum"``, the gradients too, each process's loss using its share;
+with ``grad="pass"`` the gradient passes unchanged, the processes
+computing one loss: tensor parallelism's g), ``all_gather`` joins them,
+``ring_hop`` moves the run's last part to the next process and
+``all_to_all`` sends every piece to the process of its destination.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,6 +55,26 @@ import torch
 from . import process_group
 
 AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
+
+
+class Span:
+    """The processes of one span of a mesh (the module docstring):
+    ``procs`` in rank order, ``group`` their subgroup (None: the whole
+    process group), ``crosses`` whether it holds more than one process.
+    A span along one axis also has ``owners`` (each slice position's
+    process, in axis order) and ``lo`` / ``hi``, the run of slice
+    positions this process holds."""
+
+    def __init__(self, procs: Tuple[int, ...], owners=None,
+                 me: Optional[int] = None):
+        self.procs = procs
+        self.crosses = len(procs) > 1
+        self.group = process_group.group_of(procs) if self.crosses \
+            else None
+        self.owners = owners
+        if owners is not None:
+            mine = [i for i, p in enumerate(owners) if p == me]
+            self.lo, self.hi = (mine[0], mine[-1] + 1) if mine else (0, 0)
 
 
 class Mesh:
@@ -62,6 +94,7 @@ class Mesh:
             if processes is not None else 0
         self.axis_names = AXES
         self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
+        self._spans: Dict[Tuple, Span] = {}
 
     @property
     def spans_processes(self) -> bool:
@@ -81,6 +114,39 @@ class Mesh:
         return tuple(a for i, a in enumerate(AXES)
                      if self.shape[a] > 1
                      and np.any(np.diff(self.processes, axis=i) != 0))
+
+    def span(self, axes, index: Tuple[int, ...]) -> Optional[Span]:
+        """The span through position ``index`` (one coordinate an axis of
+        ``AXES``) along ``axes`` (a name or names); None for a mesh of
+        this process alone."""
+        if self.processes is None:
+            return None
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(None if a in axes else int(index[i])
+                    for i, a in enumerate(AXES))
+        if key not in self._spans:
+            cut = tuple(slice(None) if k is None else k for k in key)
+            owners = [int(p) for p in self.processes[cut].flat]
+            self._spans[key] = Span(tuple(sorted(set(owners))),
+                                    owners if len(axes) == 1 else None,
+                                    self.process_index)
+        return self._spans[key]
+
+    def make_groups(self) -> None:
+        """The subgroup of every span along any axes (the module
+        docstring), made on every process in one order."""
+        sets = []
+        for k in range(1, len(AXES) + 1):
+            for axes in itertools.combinations(range(len(AXES)), k):
+                keep = [i for i in range(len(AXES)) if i not in axes]
+                moved = np.moveaxis(self.processes, keep,
+                                    list(range(len(keep))))
+                for rest in np.ndindex(*moved.shape[:len(keep)]):
+                    procs = tuple(sorted(set(int(p) for p in
+                                             moved[rest].flat)))
+                    if procs not in sets:
+                        sets.append(procs)
+        process_group.subgroups(sets)
 
     @property
     def size(self) -> int:
@@ -155,7 +221,9 @@ def _group_mesh(sizes, need: int) -> Mesh:
     devs = np.empty(need, dtype=object)
     for i, (_, d) in enumerate(positions[:need]):
         devs[i] = d
-    return Mesh(devs.reshape(sizes), np.array(procs).reshape(sizes))
+    mesh = Mesh(devs.reshape(sizes), np.array(procs).reshape(sizes))
+    mesh.make_groups()
+    return mesh
 
 
 def data_mesh(n: Optional[int] = None, devices=None, *,
@@ -268,50 +336,73 @@ def local_mesh_info(device="cuda") -> Dict[str, object]:
 # -- collectives ----------------------------------------------------------
 
 
-def position_sum(parts: Sequence[torch.Tensor],
-                 processes: bool = False) -> torch.Tensor:
-    """``parts`` added in position order on the first part's device; with
-    ``processes``, that sum then summed over the process group."""
+def _crosses(over: Optional[Span]) -> bool:
+    return over is not None and over.crosses
+
+
+def position_sum(parts: Sequence[torch.Tensor], over: Optional[Span] = None,
+                 grad: str = "sum") -> torch.Tensor:
+    """``parts`` added in position order on the first part's device, then
+    summed over ``over``'s processes (the module docstring: ``grad``)."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
-    return process_group.all_reduce(total) if processes else total
+    if not _crosses(over):
+        return total
+    if grad == "pass":
+        return process_group.sum_forward(total, over.group)
+    return process_group.all_reduce(total, group=over.group)
 
 
 def all_reduce(parts: Sequence[torch.Tensor], op: str = "sum",
-               processes: bool = False) -> List[torch.Tensor]:
-    """The sum (``op="max"``: the elementwise max) of ``parts`` (one tensor
-    a position), taken in position order, then over the process group
-    with ``processes``, one copy on each part's device."""
+               over: Optional[Span] = None, grad: str = "sum"
+               ) -> List[torch.Tensor]:
+    """The sum (``op="max"``: the elementwise max, no gradient) of
+    ``parts`` (one tensor a position), taken in position order, then over
+    ``over``'s processes, one copy on each part's device."""
     if op == "max":
         total = parts[0]
         for p in parts[1:]:
             total = torch.maximum(total, p.to(total.device))
-        if processes:
-            total = process_group.all_reduce(total, "max")
+        if _crosses(over):
+            total = process_group.all_reduce(total, "max", over.group)
     elif op == "sum":
-        total = position_sum(parts, processes)
+        total = position_sum(parts, over, grad)
     else:
         raise ValueError(f"unknown reduction {op!r}")
     return [total.to(p.device) for p in parts]
 
 
 def all_gather(shards: Sequence[torch.Tensor], dim: int,
-               devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """The shards concatenated along ``dim``, one copy on each of
-    ``devices``."""
+               devices: Sequence[torch.device],
+               over: Optional[Span] = None) -> List[torch.Tensor]:
+    """The shards (this process's run of ``over``'s slice, equal shapes
+    across the processes) concatenated along ``dim`` in slice order, one
+    copy on each of ``devices`` (no gradient across processes)."""
     full = torch.cat([s.to(shards[0].device) for s in shards], dim=dim)
+    if _crosses(over):
+        got = process_group.all_gather(full, over.group)
+        full = torch.cat(got.unbind(0), dim=dim)
     return [full.to(d) for d in devices]
 
 
 def reduce_scatter(parts: Sequence[torch.Tensor], dim: int,
                    devices: Sequence[torch.device],
-                   processes: bool = False) -> List[torch.Tensor]:
-    """The sum of ``parts`` (over the process group too with
-    ``processes``) cut into ``len(devices)`` equal pieces along ``dim``,
-    piece i on ``devices[i]``."""
-    pieces = position_sum(parts, processes).chunk(len(devices), dim=dim)
-    return [p.to(d) for p, d in zip(pieces, devices)]
+                   over: Optional[Span] = None) -> List[torch.Tensor]:
+    """The sum of ``parts`` (over ``over``'s processes too) cut into one
+    equal piece a slice position along ``dim``: this process's pieces,
+    piece i on ``devices[i]`` (no gradient)."""
+    total = position_sum(parts)
+    if not _crosses(over):
+        pieces = total.chunk(len(devices), dim=dim)
+        return [p.to(d) for p, d in zip(pieces, devices)]
+    n = len(over.owners)
+    pieces = total.chunk(n, dim=dim)
+    rows = [torch.cat([pieces[i] for i in range(n) if over.owners[i] == p],
+                      dim=dim) for p in over.procs]
+    mine = process_group.reduce_scatter(torch.stack(rows), over.group)
+    return [p.to(d) for p, d in zip(mine.chunk(len(devices), dim=dim),
+                                    devices)]
 
 
 def hop(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -320,34 +411,72 @@ def hop(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-def ring_hop(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def ring_hop(parts: Sequence[torch.Tensor], over: Optional[Span] = None
+             ) -> List[torch.Tensor]:
     """One step of a ring: part i moves to position (i + 1) % n (the JAX
     package's ``ppermute`` with ``perm = [(i, i + 1 mod n)]``); the
-    positions' devices are those of ``parts``."""
+    positions' devices are those of ``parts``. Across processes
+    ``parts`` are this process's run of ``over``'s slice: its last part
+    goes to the process of the next position, and its first position
+    takes the previous position's part from that one's process."""
     n = len(parts)
-    return [hop(parts[(j - 1) % n], parts[j].device) for j in range(n)]
+    if not _crosses(over):
+        return [hop(parts[(j - 1) % n], parts[j].device) for j in range(n)]
+    size = len(over.owners)
+    dst = over.owners[over.hi % size]
+    src = over.owners[(over.lo - 1) % size]
+    first = process_group.exchange(parts[-1], dst, src, over.group)
+    return [hop(first, parts[0].device)] + \
+        [hop(parts[j - 1], parts[j].device) for j in range(1, n)]
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
-               concat_dim: int) -> List[torch.Tensor]:
+               concat_dim: int, over: Optional[Span] = None
+               ) -> List[torch.Tensor]:
     """The tiled all-to-all of ``jax.lax.all_to_all``: position i cuts its
     part into n pieces along ``split_dim`` and sends piece j to position
     j, which concatenates what it receives along ``concat_dim`` in
-    position order."""
-    n = len(parts)
+    position order. Across processes ``parts`` are this process's run of
+    ``over``'s slice (n its length): the pieces for each other process
+    travel in one ``process_group.all_to_all``."""
+    n = len(over.owners) if _crosses(over) else len(parts)
     for p in parts:
         if p.shape[split_dim] % n:
             raise ValueError(f"dim {split_dim} of size {p.shape[split_dim]}"
                              f" not divisible by {n} positions")
     pieces = [p.chunk(n, dim=split_dim) for p in parts]
-    return [torch.cat([pieces[i][j].to(parts[j].device) for i in range(n)],
-                      dim=concat_dim) for j in range(n)]
+    if not _crosses(over):
+        return [torch.cat([pieces[i][j].to(parts[j].device)
+                           for i in range(n)], dim=concat_dim)
+                for j in range(n)]
+    lo, hi = over.lo, over.hi
+    runs = {p: [j for j in range(n) if over.owners[j] == p]
+            for p in over.procs}
+    # to process p: pieces[i][j] for this process's i, p's j, (i, j) order
+    dev = parts[0].device
+    send = torch.stack([torch.stack([pieces[i][j].to(dev)
+                                     for i in range(hi - lo)
+                                     for j in runs[p]])
+                        for p in over.procs])
+    got = process_group.all_to_all(send, over.group)
+    # from process q: its i, this process's j, in (i, j) order
+    frm = {}
+    for q, block in zip(over.procs, got.unbind(0)):
+        entries = block.unbind(0)
+        for k, (i, j) in enumerate((i, j) for i in runs[q]
+                                   for j in range(lo, hi)):
+            frm[(i, j)] = entries[k]
+    out = []
+    for jl, j in enumerate(range(lo, hi)):
+        out.append(torch.cat([frm[(i, j)].to(parts[jl].device)
+                              for i in range(n)], dim=concat_dim))
+    return out
 
 
 def data_mean(values: Sequence[torch.Tensor],
-              processes: bool = False) -> torch.Tensor:
+              over: Optional[Span] = None) -> torch.Tensor:
     """The mean over the data axis of one value a replica, added in
-    replica order on the first value's device (then over the process
-    group with ``processes``, each process holding as many replicas)."""
-    n = len(values) * (process_group.process_count() if processes else 1)
-    return position_sum(values, processes) / n
+    replica order on the first value's device (then over ``over``'s
+    processes, each holding as many replicas)."""
+    n = len(values) * (len(over.procs) if _crosses(over) else 1)
+    return position_sum(values, over) / n

@@ -16,19 +16,40 @@ backend follows from them once, before the group exists
 gloo where ranks share a card (NCCL refuses two ranks on one device) or
 run on the CPU. A failed call never switches it.
 
-The collectives are ``all_reduce`` alone, which gloo runs on CUDA
-tensors too: ``all_reduce`` (differentiable: its backward all-reduces
-the gradient, JAX's ``psum`` transpose), ``all_reduce_flat`` (many
-tensors in one call a dtype, as a step's gradients travel) and
-``assert_equal`` (a digest of a value's host bytes compared over the
-group, the check JAX's ``device_put`` makes of a host value put onto a
-mesh that spans processes).
+Collectives run over the whole group or over a subgroup (``group``):
+``subgroups(sets)`` makes one ``dist.new_group`` for each set of ranks
+that holds more than one process and fewer than all (the whole group is
+``dist``'s default), in the order given, which must be the same on every
+process (``new_group`` requires it); ``parallel.mesh`` asks for the sets
+of its axis slices once, when the mesh is made on every process. The
+collectives: ``all_reduce`` (differentiable: its backward all-reduces
+the gradient, JAX's ``psum`` transpose, for a share of a value that
+every process's own loss uses), ``sum_forward`` and ``sum_backward``
+(tensor parallelism's conjugate pair, for processes that compute one
+loss: g sums in the forward and passes the gradient unchanged, f is the
+identity in the forward and sums the gradient), ``all_reduce_flat``
+(many tensors in one call a dtype, as a step's gradients travel),
+``all_gather``, ``reduce_scatter``, ``all_to_all`` (differentiable: the
+gradient goes back the way it came), ``exchange`` (one tensor to one
+rank and one from another, JAX's ``ppermute``; differentiable, the
+gradient hops back) and ``assert_equal`` (a digest of a value's host
+bytes compared over the group, the check JAX's ``device_put`` makes of a
+host value put onto a mesh that spans processes).
+
+Gloo (2.11) takes CUDA tensors in its collectives (all-reduce, gather,
+reduce-scatter, all-to-all), moving them through the host itself, but
+its send and receive write from the CUDA pointer and fail (``writev``:
+Bad address; ``scripts/torch_gloo_probe.py``), so under gloo
+``exchange`` copies a CUDA tensor to the host and its result back; that
+follows from the backend, once, at ``initialize``. NCCL takes every call
+on the card.
 """
 from __future__ import annotations
 
 import datetime
 import hashlib
 import json
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,6 +121,9 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
                       for n in i["names"]],
         # small control tensors (digests) travel on the host under gloo
         "control": device if backend == "nccl" else torch.device("cpu"),
+        # gloo's send / recv take host tensors only (module docstring)
+        "host_p2p": backend == "gloo",
+        "groups": {},
     }
     return backend
 
@@ -143,14 +167,44 @@ def global_positions() -> List[Tuple[int, torch.device]]:
     return [] if _STATE is None else list(_STATE["positions"])
 
 
+# -- subgroups ----------------------------------------------------------
+
+
+def subgroups(sets: Sequence[Sequence[int]]) -> None:
+    """Make the subgroup of each set of ranks not made yet, in the order
+    given (the same on every process: the module docstring)."""
+    if _STATE is None:
+        return
+    made = _STATE["groups"]
+    world = int(_STATE["world"])
+    for ranks in sets:
+        key = tuple(sorted(set(int(r) for r in ranks)))
+        if len(key) > 1 and len(key) < world and key not in made:
+            made[key] = dist.new_group(list(key))
+
+
+def group_of(ranks: Sequence[int]):
+    """The subgroup over ``ranks`` (made by ``subgroups``), or None for
+    the whole group."""
+    key = tuple(sorted(set(int(r) for r in ranks)))
+    if len(key) == int(_STATE["world"]):
+        return None
+    return _STATE["groups"][key]
+
+
+def _ranks(group) -> List[int]:
+    return list(range(int(_STATE["world"]))) if group is None \
+        else dist.get_process_group_ranks(group)
+
+
 # -- collectives ----------------------------------------------------------
 
 
-def _reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def _reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
     if op not in ops:
         raise ValueError(f"unknown reduction {op!r}")
-    dist.all_reduce(t, op=ops[op])
+    dist.all_reduce(t, op=ops[op], group=group)
     return t
 
 
@@ -159,24 +213,64 @@ class _AllReduce(torch.autograd.Function):
     gradient (each process's share of a value every process uses)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _reduce_(x.detach().contiguous().clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_(x.detach().contiguous().clone(), group=group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_(g.contiguous().clone())
+        return _reduce_(g.contiguous().clone(), group=ctx.group), None
 
 
-def all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """The sum (``op="max"``: the max, not differentiable) of ``x`` over
     the group, as a new tensor; differentiable where ``x`` requires
     grad."""
     if op == "sum" and torch.is_grad_enabled() and x.requires_grad:
-        return _AllReduce.apply(x)
-    return _reduce_(x.detach().contiguous().clone(), op)
+        return _AllReduce.apply(x, group)
+    return _reduce_(x.detach().contiguous().clone(), op, group)
 
 
-def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce_(x.detach().contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_(g.contiguous().clone(), group=ctx.group), None
+
+
+def sum_forward(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Tensor parallelism's g: the sum over ``group`` of each process's
+    part of one value, whose gradient every process already holds whole
+    (they compute the same loss): the gradient passes unchanged."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumForward.apply(x, group)
+    return _reduce_(x.detach().contiguous().clone(), group=group)
+
+
+def sum_backward(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Tensor parallelism's f: ``x`` itself, whose gradient is the sum
+    over ``group`` of each process's part of it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumBackward.apply(x, group)
+    return x
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None
+                    ) -> List[torch.Tensor]:
     """The group's sums of ``tensors`` (no grad), one collective a dtype:
     each dtype's tensors flattened into one buffer on its first tensor's
     device, since a collective's cost under gloo is mostly per call."""
@@ -187,11 +281,94 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     for idx in by_dtype.values():
         dev = tensors[idx[0]].device
         flat = _reduce_(torch.cat([tensors[i].detach().reshape(-1).to(dev)
-                                   for i in idx]))
+                                   for i in idx]), group=group)
         pieces = flat.split([tensors[i].numel() for i in idx])
         for i, piece in zip(idx, pieces):
             out[i] = piece.view(tensors[i].shape).to(tensors[i].device)
     return out
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``x`` (equal shapes), stacked on a new dim 0 in
+    rank order, on ``x``'s device (no grad)."""
+    t = x.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in _ranks(group)]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts)
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the group of ``x`` (dim 0 one entry a process, in
+    rank order), this process's entry of it (no grad)."""
+    t = x.detach().contiguous()
+    n = len(_ranks(group))
+    if t.shape[0] != n:
+        raise ValueError(f"reduce_scatter takes one entry a process on dim "
+                         f"0: {n}, got {t.shape[0]}")
+    out = torch.empty_like(t[0])
+    dist.reduce_scatter(out, list(t.unbind(0)), group=group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    t = x.detach().contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x``'s dim 0 (one entry a process, in rank order) sent entry j to
+    process j; entry i of the result came from process i. Differentiable:
+    the gradient of each entry goes back to where it came from."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, group)
+    return _all_to_all(x, group)
+
+
+def _exchange(x: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    t = x.detach().contiguous()
+    if t.is_cuda and _STATE["host_p2p"]:
+        t = t.cpu()
+    got = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t, dst, group),
+           dist.P2POp(dist.irecv, got, src, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return got.to(x.device)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dst, src, group):
+        ctx.route = (dst, src, group)
+        return _exchange(x, dst, src, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, src, group = ctx.route
+        return _exchange(g, src, dst, group), None, None, None
+
+
+def exchange(x: torch.Tensor, dst: int, src: int, group=None
+             ) -> torch.Tensor:
+    """``x`` sent to rank ``dst`` while a tensor of its shape comes from
+    rank ``src`` (global ranks of ``group``): one hop of a ring.
+    Differentiable: the gradient hops back."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Exchange.apply(x, dst, src, group)
+    return _exchange(x, dst, src, group)
 
 
 def _leaves(value):
@@ -206,22 +383,40 @@ def _leaves(value):
         yield value
 
 
+def _leaf_digest(leaf) -> bytes:
+    h = hashlib.blake2b(digest_size=16)
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu").contiguous()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+    else:
+        a = np.ascontiguousarray(leaf)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.digest()
+
+
+#: above this many bytes ``digest`` hashes the leaves on threads (hashlib
+#: and the copies to the host release the interpreter lock)
+_THREADED_BYTES = 1 << 24
+
+
 def digest(value) -> str:
     """A hex digest of ``value``'s host bytes (a tensor, an array, or
-    dicts / lists / tuples of them), shapes and dtypes included."""
+    dicts / lists / tuples of them), shapes and dtypes included: each
+    leaf's own digest, in order, hashed once more."""
+    leaves = list(_leaves(value))
+    arrays = [x for x in leaves if not isinstance(x, bytes)]
+    size = sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else np.asarray(x).nbytes for x in arrays)
+    if size > _THREADED_BYTES and len(arrays) > 1:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            done = iter(list(pool.map(_leaf_digest, arrays)))
+    else:
+        done = iter([_leaf_digest(x) for x in arrays])
     h = hashlib.blake2b(digest_size=8)
-    for leaf in _leaves(value):
-        if isinstance(leaf, bytes):
-            h.update(leaf)
-            continue
-        if isinstance(leaf, torch.Tensor):
-            t = leaf.detach().to("cpu").contiguous()
-            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
-            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
-        else:
-            a = np.ascontiguousarray(leaf)
-            h.update(f"{a.dtype}{a.shape}".encode())
-            h.update(a.tobytes())
+    for leaf in leaves:
+        h.update(leaf if isinstance(leaf, bytes) else next(done))
     return h.hexdigest()
 
 

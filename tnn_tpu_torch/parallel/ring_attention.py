@@ -10,6 +10,12 @@ are repeated to H only at compute (GQA). The causal mask uses global
 positions: after r hops position idx holds the block of
 ``owner = (idx - r) % ring``.
 
+Across processes (``over``, the seq slice's ``mesh.Span``) a process
+holds a run of the ring's positions: each hop moves its last block to
+the next process and takes the previous one's (``mesh.ring_hop``), the
+same blocks meeting the same queries in the same order as in one
+process.
+
 Plain torch, as the JAX package's ring is jnp ops: a Python loop takes the
 place of ``lax.scan``, and autograd carries the gradient back through the
 hops. Each block's update runs under a checkpoint, so the backward
@@ -50,11 +56,15 @@ def _attend(q, k_blk, v_blk, m, l, acc, owner: int, idx: int,  # noqa: E741
 def ring_attention_local(qs: Sequence[torch.Tensor],
                          ks: Sequence[torch.Tensor],
                          vs: Sequence[torch.Tensor], *, causal: bool,
-                         scale: float) -> List[torch.Tensor]:
+                         scale: float, over: Optional[mesh_lib.Span] = None
+                         ) -> List[torch.Tensor]:
     """The ring over one group: ``qs[i]`` (B, H, S_local, D) and
     ``ks[i]`` / ``vs[i]`` (B, H_kv, S_local, D) are position i's shards,
-    each on its device. Returns each position's output shard."""
-    ring = len(qs)
+    each on its device (across processes, this process's run of
+    ``over``'s positions). Returns each position's output shard."""
+    crosses = over is not None and over.crosses
+    ring = len(over.owners) if crosses else len(qs)
+    lo = over.lo if crosses else 0
     state = []
     for q in qs:
         b, h, s, d = q.shape
@@ -66,13 +76,13 @@ def ring_attention_local(qs: Sequence[torch.Tensor],
     k_blk, v_blk = list(ks), list(vs)
     for r in range(ring):
         for i, q in enumerate(qs):
-            owner = (i - r) % ring
+            owner = (lo + i - r) % ring
             state[i] = torch.utils.checkpoint.checkpoint(
-                _attend, q, k_blk[i], v_blk[i], *state[i], owner, i, causal,
-                scale, use_reentrant=False)
+                _attend, q, k_blk[i], v_blk[i], *state[i], owner, lo + i,
+                causal, scale, use_reentrant=False)
         if r < ring - 1:
-            k_blk = mesh_lib.ring_hop(k_blk)
-            v_blk = mesh_lib.ring_hop(v_blk)
+            k_blk = mesh_lib.ring_hop(k_blk, over)
+            v_blk = mesh_lib.ring_hop(v_blk, over)
     return [softmax_merge.finalize(*st, q.dtype) for st, q in zip(state, qs)]
 
 

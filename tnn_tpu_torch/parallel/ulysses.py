@@ -13,6 +13,10 @@ K7 backward, or K5 + K6 where ``ops.flash_attention.use_fused_bwd`` says
 split (Llama at S = 32,768); a build or launch failure is an error. On
 the CPU it is the plain ``nn.attention.local_attention``, which bypasses
 the ring context (``sdpa`` would route back here).
+
+Across processes (``over``, the seq slice's ``mesh.Span``) each
+all-to-all sends the pieces for another process's positions in one
+``process_group.all_to_all``.
 """
 from __future__ import annotations
 
@@ -39,15 +43,18 @@ def _local_full_attention(q, k, v, *, causal: bool, scale: float):
 def ulysses_attention_local(qs: Sequence[torch.Tensor],
                             ks: Sequence[torch.Tensor],
                             vs: Sequence[torch.Tensor], *, causal: bool,
-                            scale: float) -> List[torch.Tensor]:
+                            scale: float,
+                            over: Optional[mesh_lib.Span] = None
+                            ) -> List[torch.Tensor]:
     """Ulysses over one group of positions: (B, H, S/sp, D) shards in,
-    the same shards of the output out."""
-    qh = mesh_lib.all_to_all(qs, 1, 2)
-    kh = mesh_lib.all_to_all(ks, 1, 2)
-    vh = mesh_lib.all_to_all(vs, 1, 2)
+    the same shards of the output out (across processes, this process's
+    run of ``over``'s positions)."""
+    qh = mesh_lib.all_to_all(qs, 1, 2, over)
+    kh = mesh_lib.all_to_all(ks, 1, 2, over)
+    vh = mesh_lib.all_to_all(vs, 1, 2, over)
     oh = [_local_full_attention(q, k, v, causal=causal, scale=scale)
           for q, k, v in zip(qh, kh, vh)]
-    return mesh_lib.all_to_all(oh, 2, 1)
+    return mesh_lib.all_to_all(oh, 2, 1, over)
 
 
 def check_ulysses(heads: int, kv_heads: int, seq: int, sp: int) -> None:

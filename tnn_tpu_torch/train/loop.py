@@ -37,12 +37,16 @@ packed rows.
 Under an initialized ``parallel.process_group`` (``cli.dist_worker`` with
 ``jax_coordinator``) the mesh is the group's: its positions span the
 processes, each process runs its own positions' streams and the step's
-sums cross the group (``parallel.data_parallel``). Only "data" may span
-processes; an axis whose positions cross a process boundary, MoE routing
+sums cross the processes (``parallel.data_parallel``). "data", "fsdp",
+"model" and "seq" may span processes, alone or together, and the log
+line names the axes that cross; "expert" across processes, MoE routing
 and pipelines over a mesh that spans processes raise a ``ValueError``
-naming ROADMAP item 9b-ii. The evaluation's metrics are then the global
-batch's. With no ``mesh_axes`` each process trains its own replica on its
-own device.
+naming the rest of ROADMAP item 9b-ii. The evaluation's metrics are then
+the global batch's. A snapshot of a run whose leaves are sharded across
+processes raises at the first save, as the JAX loop's does (its
+``device_get`` cannot fetch such an array; ``DataParallel.check_fetch``).
+With no ``mesh_axes`` each process trains its own replica on its own
+device.
 """
 from __future__ import annotations
 
@@ -149,10 +153,11 @@ def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
     mb_global = batch_size // num_mb
     mesh = _mesh(axes, devices, model)
     if mesh.spans_processes:
+        from ..parallel.data_parallel import SPAN_ITEM
+
         raise ValueError(
             f"mesh_axes={axes} spans {len(set(mesh.processes.flat))} "
-            f"processes: pipelines across processes wait for ROADMAP item "
-            f"9b-ii (only 'data' spans processes, without 'pipe')")
+            f"processes: pipelines across processes wait for {SPAN_ITEM}")
     virtual = max(1, int(getattr(config, "pipeline_virtual", 1)))
     stages = partitioner.partition_model(
         model, virtual * pp, (mb_global,) + sample_shape,
@@ -242,7 +247,8 @@ def _data_parallel_run(model, config, axes, optimizer, scheduler, augment,
             _in_context(eval_fn, ring)
     log.info("mesh %s: batch sharded over %d positions%s",
              {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size,
-             f" of {len(set(mesh.processes.flat))} processes"
+             f" of {len(set(mesh.processes.flat))} processes (crossing: "
+             f"{', '.join(mesh.crossing_axes())})"
              if mesh.spans_processes else "")
     return state, step_fn, eval_fn
 
