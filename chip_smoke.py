@@ -397,11 +397,11 @@ numbers on its own line:
    and CUDA-event time, the gradient all-reduce's and the batch check's
    time, the flash launches and peak memory): they join one gloo group
    (ranks that share a card) and train one ``{"data": 2}`` model on
-   CIFAR-100 files written from a seed, 2,560 train and 128 held-out
+   CIFAR-100 files written from a seed, 1,280 train and 128 held-out
    records. (a) Full-width ``flash_vit`` (S = 17 at 32 x 32), B=128,
-   bf16 AdamW, 2 epochs of 20 steps and one held-out batch an epoch:
+   bf16 AdamW, 2 epochs of 10 steps and one held-out batch an epoch:
    both ranks' losses equal at each step, their parameters equal by
-   digest, K4 = 6 x (40 + 2) and K7 = 6 x 40 a rank (they join the
+   digest, K4 = 6 x (20 + 2) and K7 = 6 x 20 a rank (they join the
    kernels line), the loss gap to the in-process ``{"data": 2}`` mesh
    (``["cuda:0"] * 2``) on the same batches reported, with both step
    times; (b) ``cifar100_wrn16_8`` in FP32 under SGD, 2 x 5 steps: both
@@ -413,13 +413,14 @@ numbers on its own line:
    two values), and (d) the same with rank 1's gradient
    buffer doubled before the all-reduce, which must fail the gate; (e)
    ``"synthetic"`` data (seeded per rank), which both ranks refuse at the
-   batch check, and (f) full-width ``moe_gpt2_small`` at ``{"expert":
-   2}`` across the ranks, refused when its state is placed, before a
-   batch, naming the rest of ROADMAP item 9b-ii.
+   batch check, and (f) a ``{"pipe": 2, "model": 2}`` deploy, refused
+   before its mesh is made with the message both packages' loops share
+   ("pipeline runs compose with 'data' only").
 35. distributed_axes: fsdp, model and seq across processes. Two ranks on
    the one card (this script's ``--axes-rank`` runner) join one gloo
-   group once and run full-width ``flash_gpt2_small`` (12L/768d/12h,
-   vocab 50257, B=8, S=1024, batches from a seed) through
+   group once and run ``flash_gpt2_small``'s widths at ``PAR_LAYERS`` (6)
+   of its 12 layers (768d/12h, vocab 50257, B=8, S=1024, batches from a
+   seed; the depth cut for the script's time limit) through
    ``make_dp_train_step`` at ``{"fsdp": 2}``, ``{"model": 2}``,
    ``{"seq": 2}`` by the ring and by Ulysses, one position a rank, each
    layout also on the in-process mesh (``["cuda:0"] * 2``: its FP32
@@ -434,7 +435,7 @@ numbers on its own line:
    events beside the in-process mesh's, the first step's collectives (ms
    and MB by kind), the bytes each position holds under fsdp beside the
    in-process ``{"data": 2}``, and peak memory a rank. (c) Each rank's K4 /
-   K7 / K5 / K6 launches against PERF.md section 2's counts (12 a step a
+   K7 / K5 / K6 launches against PERF.md section 2's counts (6 a step a
    rank: under "model" one call over its H/2 heads; the ring runs no
    kernel), added to the kernels line. (d) One ``cli.dist_worker`` deploy
    of full-width ``flash_vit`` at ``{"fsdp": 2}`` through ``train_model``
@@ -443,6 +444,37 @@ numbers on its own line:
    ViT runs whole under FSDP's gathering checkpoint, its forward again in
    the backward) and K7 = 6 x 2, then refuse the first snapshot (a leaf
    sharded across the ranks, which JAX's ``device_get`` refuses too).
+36. distributed_moe_pipe: MoE routing, the expert axis and pipelines
+   across processes. Two ranks on the one card (this script's
+   ``--moe-pipe-rank`` runner) join one gloo group once. Each layout
+   runs on the ranks and, in each rank process, on the in-process mesh
+   or pipeline of the same shape (``["cuda:0"] * 2``), which the rank
+   holds itself against. (a) Full-width flash MoE GPT-2
+   (``gpt2_small(moe_experts=8, backend="pallas")``: 12L/768d/12h,
+   vocab 50257, 8 experts, top-2, B=4, S=1024) at ``{"data": 2}`` (the
+   token gather crosses) and ``{"expert": 2}`` (the experts cross),
+   one position a rank; (b) phase 28(D)'s float-input flash stack at
+   full depth (dense 768, 12 ``flash_gpt_block(12)``, dense 64; 4
+   microbatches of 2 x 1024) at ``{"pipe": 2}``, GPipe and interleaved
+   (``virtual=2``). The FP32 gate (SGD at lr 1, 2 steps, K5 + K6, TF32
+   off): both ranks' losses equal and each rank's parameters (every
+   piece and stage it holds) and losses equal bit for bit to the
+   in-process run's, each leaf's first update within 1e-3 of it; planted
+   faults fail it: ``gather_sum`` where ``gather_keep`` belongs (MoE,
+   ``{"data": 2}``) and a hop whose gradient is not returned (the
+   pipeline). F8: one ``{"expert": 2}`` FP32 AdamW run with a binding
+   ``grad_clip_norm``: the losses and each step's clip norm equal to the
+   in-process run's on both ranks. bf16 AdamW, 2 steps a layout,
+   reported: the loss gap to the in-process run (in this process after
+   the ranks), the second step's CUDA-event time beside it, each
+   collective's ms and MB a step, the bytes each position holds under
+   ``"expert"`` beside ``"data"``, peak memory a rank. Each rank's K4 /
+   K7 / K5 / K6 launches against PERF.md section 2's counts join the
+   kernels line. (c) One ``cli.dist_worker`` deploy of
+   ``cifar100_wrn16_8`` at ``{"pipe": 2}`` (flash_vit is no
+   ``Sequential``, which neither package's partitioner splits): both
+   ranks take 2 steps with equal losses, then refuse the first snapshot
+   (the packed rows are sharded over "pipe" across the ranks).
 
 ``python3 chip_smoke.py --only serving_whole_prompt`` (any phase names,
 comma-separated, without the ``phase_`` prefix) runs the device phase, the
@@ -1571,8 +1603,8 @@ def phase_cli(results):
 TRAIN_STEPS = 30
 EVAL_STEPS = 10     # the trainer's held-out pass: 10 batches
 TRAIN_ARGS = dict(batch=8, seq=1024, layers=12, d_model=768, heads=12)
-# phases 28 and 29's GPT-2 runs: TRAIN_ARGS' widths at half the depth, so
-# the script stays within its time limit beside phase 35
+# phases 28, 29 and 35's GPT-2 runs: TRAIN_ARGS' widths at half the depth,
+# so the script stays within its time limit beside phase 36
 PAR_LAYERS = 6
 # one step with the kernels against the same step with the plain versions,
 # from the same weights and batch (AdamW, lr 3e-4, no schedule): the loss
@@ -9621,7 +9653,7 @@ def phase_distributed(results):
 # fault in on rank 1.
 
 DD_BATCH = 128
-DD_STEPS = 20                 # the train file's batches: an epoch of (a)
+DD_STEPS = 10                 # the train file's batches: an epoch of (a)
 DD_EPOCHS = 2
 DD_WRN_STEPS = 5
 DD_GATE_STEPS = 2
@@ -9651,8 +9683,8 @@ def dd_deploys(data):
         ("gate_fault", gate, dict(gate_opts, fault=DD_FAULT)),
         ("synthetic", dict(vit, dataset_name="synthetic", epochs=1,
                            max_steps=2), {"expect_error": True}),
-        ("expert", dict(base, model_name="moe_gpt2_small",
-                        mesh_axes={"expert": 2}, epochs=1, max_steps=2),
+        ("pipe_model", dict(vit, mesh_axes={"pipe": 2, "model": 2},
+                            epochs=1, max_steps=2),
          {"expect_error": True}),
     ]
 
@@ -10028,7 +10060,7 @@ def phase_distributed_data(results):
             "wrn": [0, 0, 0, 0],
             "gate": [layers * DD_GATE_STEPS, 0, layers * DD_GATE_STEPS,
                      layers * DD_GATE_STEPS],
-            "synthetic": [0, 0, 0, 0], "expert": [0, 0, 0, 0]}
+            "synthetic": [0, 0, 0, 0], "pipe_model": [0, 0, 0, 0]}
     want["gate_fault"] = want["gate"]
     bn_gap = max(((a - wrn_buffers[n]).abs() / (DD_BN_TOL["atol"]
                   + DD_BN_TOL["rtol"] * wrn_buffers[n].abs())).max().item()
@@ -10052,7 +10084,7 @@ def phase_distributed_data(results):
                     "peak_gb": rec["peak_gb"]}
                 for r, rec in enumerate(main)}
     refusal = {name: [rec.get("error") for rec in ranks[name]]
-               for name in ("synthetic", "expert")}
+               for name in ("synthetic", "pipe_model")}
     checks = {
         "backend_gloo": all(rec.get("backend") == "gloo"
                             for name in ("main", "wrn", "gate")
@@ -10078,8 +10110,9 @@ def phase_distributed_data(results):
         "synthetic_refused": all(e and "the global batch differs across "
                                  "processes" in e
                                  for e in refusal["synthetic"]),
-        "expert_refused": all(e and "the rest of ROADMAP item 9b-ii" in e
-                              for e in refusal["expert"]),
+        "pipe_model_refused": all(
+            e and "pipeline runs compose with 'data' only" in e
+            for e in refusal["pipe_model"]),
         "launches": all(rec["launches"] == want[name]
                         for name, recs in ranks.items() for rec in recs),
     }
@@ -10159,24 +10192,25 @@ def da_batches(vocab, n):
 
 def da_launches_expected(method, fp32, steps):
     """PERF.md section 2's counts for one rank (one position of the
-    2-position mesh): 12 layers, one K4 a layer a step and one K7 (bf16)
-    or K5 and K6 (FP32); under "model" the call covers the rank's H/2
-    heads; the ring is plain torch and launches none."""
-    n = 0 if method == "ring" else TRAIN_ARGS["layers"] * steps
+    2-position mesh): PAR_LAYERS layers, one K4 a layer a step and one K7
+    (bf16) or K5 and K6 (FP32); under "model" the call covers the rank's
+    H/2 heads; the ring is plain torch and launches none."""
+    n = 0 if method == "ring" else PAR_LAYERS * steps
     return [n, 0, n, n] if fp32 else [n, n, 0, 0]
 
 
 @contextlib.contextmanager
-def da_collectives(rec):
-    """Each collective of ``parallel.process_group`` timed (the card
+def da_collectives(rec, names=None):
+    """Each collective of ``parallel.process_group`` (``names``: its
+    functions and the kinds they are counted as) timed (the card
     synchronized on both sides) into ``rec``: {kind: [ms, bytes, calls]}."""
     import torch
 
     from tnn_tpu_torch.parallel import process_group as pg
 
-    names = {"_reduce_": "all_reduce", "all_gather": "all_gather",
-             "reduce_scatter": "reduce_scatter",
-             "_all_to_all": "all_to_all", "_exchange": "exchange"}
+    names = names or {"_reduce_": "all_reduce", "all_gather": "all_gather",
+                      "reduce_scatter": "reduce_scatter",
+                      "_all_to_all": "all_to_all", "_exchange": "exchange"}
     real = {n: getattr(pg, n) for n in names}
 
     def wrap(n):
@@ -10187,7 +10221,8 @@ def da_collectives(rec):
             torch.cuda.synchronize()
             row = rec.setdefault(names[n], [0.0, 0, 0])
             row[0] += 1e3 * (time.perf_counter() - t0)
-            row[1] += x.numel() * x.element_size()
+            row[1] += x.numel() * x.element_size() if hasattr(x, "numel") \
+                else sum(t.numel() * t.element_size() for t, _ in x)
             row[2] += 1
             return out
         return call
@@ -10322,7 +10357,7 @@ def da_models(policies):
     out = {}
     for key in policies:
         model = _flash_gpt2_small(dt.FP32 if key == "fp32" else
-                                  dt.MIXED_BF16)
+                                  dt.MIXED_BF16, PAR_LAYERS)
         out[key] = (model, {n: p.detach().clone()
                             for n, p in model.named_parameters()})
     return out
@@ -10677,7 +10712,8 @@ def phase_distributed_axes(results):
     bad += [k for k, v in checks.items() if v is False]
     ok = not bad
     fields.update(seconds=time.perf_counter() - t0)
-    log("distributed_axes", card=card, model="flash_gpt2_small",
+    log("distributed_axes", card=card,
+        model=f"flash_gpt2_small, {PAR_LAYERS} layers",
         cli_model="flash_vit", cli_batch=DA_CLI_BATCH,
         batch=TRAIN_ARGS["batch"], seq=TRAIN_ARGS["seq"],
         backend=ranks[0]["group"]["backend"],
@@ -10701,6 +10737,662 @@ def phase_distributed_axes(results):
         checks=checks, failed=bad, ok=ok, **fields)
     if not ok:
         raise AssertionError(f"distributed_axes: {bad}")
+
+
+# -- phase 36 -----------------------------------------------------------------
+#
+# MoE routing, the expert axis and pipelines across processes (module
+# docstring, item 36). The ranks (``python3 chip_smoke.py --moe-pipe-rank
+# SPEC RANK``) join one gloo group and run every layout; each rank also
+# runs the layout's in-process mesh or pipeline on ``["cuda:0"] * 2`` and
+# holds its own pieces and stages against it, so no gigabytes of updates
+# travel between processes. This process hosts the CLI deploy's
+# coordinator, then runs the in-process bf16 runs once the ranks are done.
+
+MP_MOE_BATCH = 4              # B=8 would pass the phase's ~150 s budget
+MP_MOE_EXPERTS = 8
+MP_GATE_STEPS = 2             # FP32 SGD at PAX_SGD_LR, K5 + K6
+MP_BF16_STEPS = 2             # AdamW; step 1's collectives, step 2 timed
+MP_CLIP = 0.05                # F8's clip norm (the first norm is ~10x it)
+MP_MOE_LAYOUTS = (("data2", {"data": 2}), ("expert2", {"expert": 2}))
+MP_PIPE_LAYOUTS = (("pipe2", 1), ("pipe2_v2", 2))
+MP_PIPE_MB, MP_PIPE_NUM_MB = 2, 4
+MP_CLI_STEPS = 2
+MP_CLI_BATCH = 128
+MP_COLLECTIVES = {"_reduce_": "all_reduce", "_gather": "gather",
+                  "reduce_scatter": "reduce_scatter", "p2p": "hop"}
+
+
+def mp_moe_model(policy):
+    from tnn_tpu_torch.models import gpt2
+
+    return gpt2.gpt2_small(moe_experts=MP_MOE_EXPERTS, backend="pallas",
+                           device="cuda", seed=0, policy=policy)
+
+
+def mp_pipe_model(policy):
+    """Phase 28(D)'s float-input flash stack at full depth."""
+    from tnn_tpu_torch.nn.builder import LayerBuilder
+
+    seq, width = TRAIN_ARGS["seq"], TRAIN_ARGS["d_model"]
+    b = LayerBuilder((seq, width), policy=policy).dense(width)
+    for _ in range(TRAIN_ARGS["layers"]):
+        b = b.flash_gpt_block(TRAIN_ARGS["heads"])
+    model = b.dense(PAR_D_CLASSES).build(name="flash_stack")
+    model.init((seq, width), device="cuda", seed=0)
+    return model
+
+
+def mp_pipe_batches(dtype, n):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = MP_PIPE_MB * MP_PIPE_NUM_MB
+    shape = (rows, TRAIN_ARGS["seq"], TRAIN_ARGS["d_model"])
+    return [(torch.randn(shape, generator=gen, device="cuda").to(dtype),
+             torch.randint(0, PAR_D_CLASSES, shape[:2], generator=gen,
+                           device="cuda")) for _ in range(n)]
+
+
+def mp_bits(t):
+    """A checksum of a tensor's bits (equal tensors, equal sums)."""
+    import torch
+
+    t = t.detach().contiguous()
+    view = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    return int(t.view(view).to(torch.int64).sum())
+
+
+def mp_adamw(clip=None):
+    """AdamW that records each update's clip norm (the norm of the whole
+    tree: ``sq_norm`` where the layout gives it)."""
+    import torch
+
+    from tnn_tpu_torch.nn import optimizers as topt
+
+    class Recording(topt.AdamW):
+        def update(self, grads, state, params, lr_scale=1.0, sq_norm=None):
+            norm = topt.global_norm(grads) if sq_norm is None else \
+                torch.sqrt(sq_norm)
+            self.norms.append(float(norm))
+            return super().update(grads, state, params, lr_scale, sq_norm)
+
+    opt = Recording(lr=3e-4, grad_clip_norm=clip)
+    opt.norms = []
+    return opt
+
+
+def mp_held(kind, state, pipe=None):
+    """What this process holds, by key: the mesh layout's pieces
+    ("position/leaf") or the pipeline's stages ("stage/leaf")."""
+    if kind == "pipe":
+        return {f"{s}/{n}": p for s in range(pipe.L)
+                if pipe.mine(s) is not None
+                for n, p in pipe.mine(s).named_parameters()}
+    lay = state.layout
+    return {"x".join(map(str, c)) + "/" + n: t
+            for c in lay.coords for n, t in lay.held[c].items()}
+
+
+def mp_expected(kind, fp32, steps, attn):
+    """PERF.md section 2's counts for one rank: one K4 per attention call
+    and one K7 (bf16) or K5 and K6 (FP32) per backward; a MoE rank runs
+    all 12 layers of its stream (under "expert" the stream's replicated
+    math too), a pipeline rank its stages' blocks for every microbatch."""
+    calls = attn * steps * (MP_PIPE_NUM_MB if kind == "pipe" else 1)
+    return [calls, 0, calls, calls] if fp32 else [calls, calls, 0, 0]
+
+
+def mp_run(kind, model, start, layout, batches, fp32, devices=None,
+           fault=None, ref=None, clip=None, keep=None):
+    """One run of ``kind`` ("moe": ``make_dp_train_step`` at the axes
+    ``layout``; "pipe": ``make_pipeline_train_step`` at {"pipe": 2} with
+    ``virtual=layout``) from the weights ``start``, over the process
+    group (``devices`` None) or in process. FP32: SGD at PAX_SGD_LR (or,
+    ``clip``, the recording AdamW), the first update kept (``ref`` None)
+    or held against ``ref``'s, of the keys ``keep`` passes (by default
+    all this process holds); bf16: AdamW, the first step's collectives.
+    Returns the record."""
+    import torch
+
+    from tnn_tpu_torch import parallel
+    from tnn_tpu_torch.nn.attention import MultiHeadAttention
+    from tnn_tpu_torch.nn.optimizers import SGD
+    from tnn_tpu_torch.parallel import pipeline as pl
+    from tnn_tpu_torch.parallel import process_group as pg
+    from tnn_tpu_torch.train import create_train_state
+
+    marks = {"start": time.perf_counter()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.data = start[n].clone()
+    opt = (mp_adamw(clip) if clip else SGD(lr=PAX_SGD_LR)) if fp32 \
+        else mp_adamw()
+    pipe = None
+    if kind == "moe":
+        mesh = parallel.make_mesh(**layout, devices=devices)
+        step, place_state, _ = parallel.make_dp_train_step(
+            model, opt, mesh, ep=layout.get("expert", 1) > 1,
+            compute_accuracy=False)
+        state = place_state(create_train_state(model, opt, seed=0))
+        attn = TRAIN_ARGS["layers"]
+    else:
+        shape = (MP_PIPE_MB, TRAIN_ARGS["seq"], TRAIN_ARGS["d_model"])
+        stages = parallel.partition_model(model, 2 * layout, shape)
+        pipe, step, init = parallel.make_pipeline_train_step(
+            stages, opt, parallel.make_mesh(pipe=2, devices=devices), shape,
+            num_microbatches=MP_PIPE_NUM_MB, virtual=layout,
+            input_dtype=torch.float32 if fp32 else torch.bfloat16)
+        pipe.load_from(model)
+        state = init(None)
+        attn = sum(isinstance(m, MultiHeadAttention) for s in range(pipe.L)
+                   if pipe.mine(s) is not None for m in pipe.mine(s).modules())
+    before = {k: t.detach().clone() for k, t in
+              mp_held(kind, state, pipe).items()
+              if keep is None or keep(k)} if fp32 else None
+    torch.cuda.synchronize()
+    marks["placed"] = time.perf_counter()
+    reset_flash_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"losses": [], "collectives": {}, "attention_calls": attn}
+    real = {"gather_keep": pg.gather_keep, "backward": pl._Row.backward}
+    if fault == "gather_sum":
+        pg.gather_keep = pg.gather_sum
+    elif fault == "hop":        # every hop's gradient dropped on the way back
+        def backward(row, back, shape, dtype):
+            def dropped(s, m, g):
+                gx = back(s, m, g)
+                return None if gx is None else torch.zeros_like(gx)
+            return real["backward"](row, dropped, shape, dtype)
+        pl._Row.backward = backward
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    spans = devices is None
+    try:
+        for i, (x, y) in enumerate(batches):
+            last = i == len(batches) - 1
+            watch = not fp32 and i == 0 and spans
+            if last:
+                t0.record()
+            with (da_collectives(rec["collectives"], MP_COLLECTIVES) if watch
+                  else contextlib.nullcontext()):
+                state, m = step(state, x, y)
+            if last:
+                t1.record()
+            rec["losses"].append(float(m["loss"]))
+            marks[f"step{i}"] = time.perf_counter()
+            if i == 0 and fp32:
+                now = mp_held(kind, state, pipe)
+                update = {k: now[k].float() - before[k].float()
+                          for k in before}
+                if ref is None:
+                    rec["update"], rec["before"] = update, before
+                else:
+                    mine = {k: ref["update"][k] for k in update}
+                    gap, leaf = pax_update_gap(update, mine, before)
+                    rec["update_gap"], rec["update_worst_leaf"] = gap, leaf
+                    rec["update_equal"] = all(torch.equal(update[k], mine[k])
+                                              for k in update)
+                del update, now
+    finally:
+        pg.gather_keep, pl._Row.backward = real["gather_keep"], \
+            real["backward"]
+    torch.cuda.synchronize()
+    rec["step_ms"] = t0.elapsed_time(t1)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = dd_launches()
+    rec["launches_expected"] = mp_expected(kind, fp32, len(batches), attn)
+    held = mp_held(kind, state, pipe)
+    rec["bits"] = {k: mp_bits(t) for k, t in held.items()}
+    if kind == "moe":
+        lay = state.layout
+        rec["replicated_bits"] = {n: mp_bits(lay.held[lay.coords[0]][n])
+                                  for n in lay.axis if lay.axis[n] is None}
+        rec["bytes_per_position"] = {
+            "x".join(map(str, c)): v for c, v in
+            lay.position_bytes(state.opt_state).items()}
+    else:
+        rec["stages"] = [s for s in range(pipe.L) if pipe.mine(s) is not None]
+    rec["norms"] = list(getattr(opt, "norms", []))
+    if ref is not None:
+        rec["bits_equal"] = all(ref["bits"][k] == v
+                                for k, v in rec["bits"].items())
+        rec["losses_equal"] = rec["losses"] == ref["losses"]
+        rec["norms_equal"] = rec["norms"] == ref["norms"]
+    marks["end"] = time.perf_counter()
+    names = list(marks)
+    rec["seconds_by_part"] = {b: marks[b] - marks[a]
+                              for a, b in zip(names, names[1:])}
+    if kind == "moe":
+        state.layout.write_back(model)
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mp_keep(kind, layout, rank):
+    """The keys of this rank's own pieces or stages in the in-process
+    run of ``layout`` (one position a rank, 2 positions)."""
+    if kind == "pipe":
+        return lambda k: int(k.split("/")[0]) % 2 == rank
+    (axis,) = layout
+    at = ("data", "fsdp", "model", "seq", "expert").index(axis)
+    return lambda k: int(k.split("/")[0].split("x")[at]) == rank
+
+
+def mp_gates(kind, model, start, layouts, batches, emit, step, rank):
+    """Every layout's FP32 gate: the in-process run, then the run across
+    the ranks held against it, and the planted fault (1 step) against
+    the first layout's; F8 for MoE (AdamW with a binding clip at
+    ``{"expert": 2}``)."""
+    import os
+
+    saved = os.environ.get("TNN_FLASH_FUSED_BWD")
+    os.environ["TNN_FLASH_FUSED_BWD"] = "0"
+    try:
+        with pax_fp32():
+            for i, (key, layout) in enumerate(layouts):
+                step(f"{key}_in_process")
+                t_run = time.perf_counter()
+                ref = mp_run(kind, model, start, layout, batches, True,
+                             devices=["cuda:0"] * 2,
+                             keep=mp_keep(kind, layout, rank))
+                step(f"{key}_gate")
+                rec = mp_run(kind, model, start, layout, batches, True,
+                             ref=ref)
+                emit(dict(rec, name=f"{key}_gate",
+                          in_process_losses=ref["losses"],
+                          in_process_launches=ref["launches"],
+                          seconds=time.perf_counter() - t_run))
+                if i == 0:
+                    step(f"{key}_fault")
+                    t_run = time.perf_counter()
+                    rec = mp_run(kind, model, start, layout, batches[:1],
+                                 True, ref=ref, fault="gather_sum"
+                                 if kind == "moe" else "hop")
+                    emit(dict(rec, name=f"{kind}_fault", layout=key,
+                              seconds=time.perf_counter() - t_run))
+                del ref
+            if kind == "moe":
+                step("f8")
+                t_run = time.perf_counter()
+                ref = mp_run(kind, model, start, {"expert": 2}, batches,
+                             True, devices=["cuda:0"] * 2, clip=MP_CLIP,
+                             keep=mp_keep(kind, {"expert": 2}, rank))
+                rec = mp_run(kind, model, start, {"expert": 2}, batches,
+                             True, ref=ref, clip=MP_CLIP)
+                emit(dict(rec, name="f8", in_process_norms=ref["norms"],
+                          in_process_losses=ref["losses"],
+                          seconds=time.perf_counter() - t_run))
+                del ref
+    finally:
+        if saved is None:
+            os.environ.pop("TNN_FLASH_FUSED_BWD", None)
+        else:
+            os.environ["TNN_FLASH_FUSED_BWD"] = saved
+
+
+def mp_rank_main(spec_path, rank):
+    """One rank of phase 36: every layout in one process group, then the
+    CLI deploy; one JSON line a run into the spec's output directory."""
+    import torch
+
+    from tnn_tpu_torch.cli import dist_worker
+    from tnn_tpu_torch.core import dtypes as dt
+    from tnn_tpu_torch.parallel import pipeline as pl
+    from tnn_tpu_torch.parallel import process_group as pg
+
+    spec = json.loads(Path(spec_path).read_text())
+    tmp = Path(spec["out"])
+    out_path = tmp / f"mp_rank{rank}.jsonl"
+
+    def emit(rec):
+        rec = {k: v for k, v in rec.items() if k not in ("update", "before")}
+        with open(out_path, "a") as f:
+            f.write(json.dumps(dict(rec, rank=rank)) + "\n")
+
+    def step(name):     # what a hung rank was in (mp_run_ranks)
+        (tmp / f"mp_rank{rank}.step").write_text(name)
+
+    t0 = time.perf_counter()
+    pg.initialize(spec["address"], 2, rank, "cuda:0")
+    emit({"name": "group", "backend": pg.backend(),
+          "reason": pg.backend_reason(), "join_s": time.perf_counter() - t0})
+    for kind, layouts in (("moe", MP_MOE_LAYOUTS), ("pipe", MP_PIPE_LAYOUTS)):
+        step(f"{kind}_models")
+        t_models = time.perf_counter()
+        if kind == "moe":
+            model = mp_moe_model(dt.FP32)
+            vocab = model.vocab_size
+            gate = pax_batches(vocab, MP_MOE_BATCH, TRAIN_ARGS["seq"])[
+                :MP_GATE_STEPS]
+        else:
+            model = mp_pipe_model(dt.FP32)
+            gate = mp_pipe_batches(torch.float32, MP_GATE_STEPS)
+        emit({"name": f"{kind}_models", "seconds":
+              time.perf_counter() - t_models,
+              "params": sum(p.numel() for p in model.parameters())})
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        mp_gates(kind, model, start, layouts, gate, emit, step, rank)
+        del model, start, gate
+        torch.cuda.empty_cache()
+        model = mp_moe_model(dt.MIXED_BF16) if kind == "moe" else \
+            mp_pipe_model(dt.MIXED_BF16)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batches = pax_batches(vocab, MP_MOE_BATCH, TRAIN_ARGS["seq"])[
+            :MP_BF16_STEPS] if kind == "moe" else \
+            mp_pipe_batches(torch.bfloat16, MP_BF16_STEPS)
+        for key, layout in layouts:
+            step(f"{key}_bf16")
+            t_run = time.perf_counter()
+            rec = mp_run(kind, model, start, layout, batches, False)
+            emit(dict(rec, name=f"{key}_bf16",
+                      seconds=time.perf_counter() - t_run))
+        del model, start, batches
+        torch.cuda.empty_cache()
+    pg.shutdown()
+    # (c): the CLI deploy; its losses through the step, its refusal caught
+    rec = {"name": "cli", "losses": []}
+    real_make = pl.make_pipeline_train_step
+
+    def make(*a, **kw):
+        pipe, step_fn, init = real_make(*a, **kw)
+
+        def recording(state, data, labels):
+            state, m = step_fn(state, data, labels)
+            rec["losses"].append(float(m["loss"]))
+            return state, m
+
+        rec["stages"] = [s for s in range(pipe.L)
+                         if pipe.mine(s) is not None]
+        return pipe, recording, init
+
+    pl.make_pipeline_train_step = make
+    step("cli")
+    t_run = time.perf_counter()
+    try:
+        dist_worker.main(["--coordinator", spec["cli_address"], "--rank",
+                          str(rank)])
+    except Exception as e:  # noqa: BLE001 — the snapshot's refusal
+        rec["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        pl.make_pipeline_train_step = real_make
+    rec["seconds"] = time.perf_counter() - t_run
+    emit(rec)
+    return 0
+
+
+def mp_run_ranks(tmp, fields):
+    """Both ranks through every layout and the CLI deploy (this process
+    hosting the deploy's coordinator); each rank's records by name."""
+    from tnn_tpu_torch.distributed import Coordinator
+
+    data = tmp / "cifar100"
+    data.mkdir()
+    cifar100_files(data, records=(MP_CLI_BATCH * MP_CLI_STEPS,
+                                  MP_CLI_BATCH))
+    coord = Coordinator(2)
+    procs, logs = [], []
+    try:
+        spec = {"out": str(tmp), "address": f"127.0.0.1:{dd_free_port()}",
+                "cli_address": f"127.0.0.1:{coord.port()}"}
+        (tmp / "mp_spec.json").write_text(json.dumps(spec))
+        for r in (0, 1):
+            logs.append(tmp / f"mp_rank{r}.log")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--moe-pipe-rank", str(tmp / "mp_spec.json"), str(r)],
+                stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent))
+
+        def alive():
+            for r, p in enumerate(procs):
+                if p.poll() is not None and p.returncode != 0:
+                    raise AssertionError(
+                        f"distributed_moe_pipe: rank {r} exited "
+                        f"{p.returncode}:\n{logs[r].read_text()[-3000:]}")
+
+        def hung(limit):
+            steps = [(tmp / f"mp_rank{r}.step").read_text()
+                     if (tmp / f"mp_rank{r}.step").exists() else "start-up"
+                     for r in (0, 1)]
+            return AssertionError(f"distributed_moe_pipe: the ranks ran past "
+                                  f"{limit} s in {steps}")
+
+        deadline = time.perf_counter() + 600
+        while True:     # the ranks join once their layouts are done
+            try:
+                coord.wait_for_workers(timeout=5)
+                break
+            except TimeoutError:
+                alive()
+                if time.perf_counter() > deadline:
+                    raise hung(600)
+        fields["layouts_s"] = time.perf_counter() - fields["t0"]
+        config = dict(
+            model_name="cifar100_wrn16_8", dataset_name="cifar100",
+            dataset_path=str(data), batch_size=MP_CLI_BATCH, epochs=1,
+            max_steps=MP_CLI_STEPS, seed=0, mesh_axes={"pipe": 2},
+            num_microbatches=2, io_dtype="float32",
+            optimizer={"type": "sgd", "lr": 0.1}, progress_print_interval=1,
+            jax_coordinator=f"127.0.0.1:{dd_free_port()}",
+            ranks={str(r): {"snapshot_dir": str(tmp / f"mp_snap{r}")}
+                   for r in (0, 1)})
+        t_cli = time.perf_counter()
+        coord.deploy_config(config, timeout=120)
+        coord.barrier("start", timeout=300)
+        try:
+            coord.barrier("done", timeout=300)
+        except RuntimeError as e:   # the ranks left: the snapshot's refusal
+            fields["cli_coordinator"] = str(e)
+        fields["cli_wall_s"] = time.perf_counter() - t_cli
+        for p in procs:
+            try:
+                p.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                raise hung(300) from None
+        alive()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        coord.close()
+        for r, path in enumerate(logs):
+            if path.exists():
+                print(f"--- moe/pipe rank {r} ---\n"
+                      + path.read_text()[-3000:], file=sys.stderr)
+    recs = [{}, {}]
+    for r in (0, 1):
+        for line in (tmp / f"mp_rank{r}.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            recs[r][rec["name"]] = rec
+    return recs
+
+
+def mp_in_process_bf16():
+    """Every layout's bf16 run on the in-process mesh or pipeline, and the
+    bytes each position holds at ``{"data": 2}`` and ``{"expert": 2}``."""
+    import torch
+
+    from tnn_tpu_torch.core import dtypes as dt
+
+    out = {}
+    model = mp_moe_model(dt.MIXED_BF16)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batches = pax_batches(model.vocab_size, MP_MOE_BATCH,
+                          TRAIN_ARGS["seq"])[:MP_BF16_STEPS]
+    for key, axes in MP_MOE_LAYOUTS:
+        out[f"{key}_bf16"] = mp_run("moe", model, start, axes, batches,
+                                    False, devices=["cuda:0"] * 2)
+    del model, start, batches
+    torch.cuda.empty_cache()
+    model = mp_pipe_model(dt.MIXED_BF16)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batches = mp_pipe_batches(torch.bfloat16, MP_BF16_STEPS)
+    for key, virtual in MP_PIPE_LAYOUTS:
+        out[f"{key}_bf16"] = mp_run("pipe", model, start, virtual, batches,
+                                    False, devices=["cuda:0"] * 2)
+    del model, start, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_distributed_moe_pipe(results):
+    import tempfile
+
+    card = results["card"]
+    for name in ("tnn.train", "tnn.dist.coord", "tnn.dist.worker"):
+        train_logs_to_stderr(name)
+    t_phase = time.perf_counter()
+    fields = {"t0": t_phase}
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(sys.stderr):
+            ranks = mp_run_ranks(Path(tmp), fields)
+            t_ref = time.perf_counter()
+            refs = mp_in_process_bf16()
+            fields["in_process_bf16_s"] = time.perf_counter() - t_ref
+    layouts, checks = {}, {}
+    for key, _ in MP_MOE_LAYOUTS + MP_PIPE_LAYOUTS:
+        gate = [r[f"{key}_gate"] for r in ranks]
+        bf16 = [r[f"{key}_bf16"] for r in ranks]
+        ref = refs[f"{key}_bf16"]
+        layouts[key] = {
+            "gate_losses": gate[0]["losses"],
+            "gate_in_process_losses": gate[0]["in_process_losses"],
+            "gate_update_gap": [g["update_gap"] for g in gate],
+            "gate_update_worst_leaf": gate[0]["update_worst_leaf"],
+            "bf16_losses": [b["losses"] for b in bf16],
+            "bf16_in_process_losses": ref["losses"],
+            "bf16_loss_rel_gap": [abs(a - b) / abs(b) for a, b in
+                                  zip(bf16[0]["losses"], ref["losses"])],
+            "bf16_step_ms": [b["step_ms"] for b in bf16],
+            "bf16_in_process_step_ms": ref["step_ms"],
+            "collectives_step1": [
+                {k: {"ms": v[0], "mb": v[1] / 2**20, "calls": v[2]}
+                 for k, v in b["collectives"].items()} for b in bf16],
+            "peak_gb_rank": [b["peak_gb"] for b in bf16],
+            "peak_gb_in_process": ref["peak_gb"],
+            "launches": {"gate": [g["launches"] for g in gate],
+                         "bf16": [b["launches"] for b in bf16]},
+            "launches_expected": {"gate": [g["launches_expected"]
+                                           for g in gate],
+                                  "bf16": [b["launches_expected"]
+                                           for b in bf16]},
+            "attention_calls": [g["attention_calls"] for g in gate],
+            "gate_seconds": [g["seconds"] for g in gate],
+            "bf16_seconds": [b["seconds"] for b in bf16],
+            "gate_seconds_by_part": gate[0]["seconds_by_part"]}
+        if "bytes_per_position" in bf16[0]:
+            layouts[key]["bytes_per_position"] = [
+                b["bytes_per_position"] for b in bf16]
+        else:
+            layouts[key]["stages"] = [b["stages"] for b in bf16]
+        checks[key] = {
+            "gate_ranks_equal": gate[0]["losses"] == gate[1]["losses"]
+            and gate[0].get("replicated_bits") ==
+            gate[1].get("replicated_bits"),
+            "gate_bit_equal": all(g["losses_equal"] and g["bits_equal"]
+                                  and g["update_equal"] for g in gate),
+            "gate_update": all(g["update_gap"] <= PAX_UPDATE_TOL
+                               for g in gate),
+            "bf16_ranks_equal": bf16[0]["losses"] == bf16[1]["losses"],
+            "bf16_finite": all(math.isfinite(x) for x in
+                               bf16[0]["losses"]),
+            "launches": all(r["launches"] == r["launches_expected"]
+                            for r in gate + bf16)}
+        for rec in gate + bf16:
+            k4, k7, dq, dkv = rec["launches"]
+            results["flash_launches"]["flash_attention_fwd"] += k4
+            results["flash_launches"]["flash_attention_bwd"] += k7
+            split = results.setdefault("split_launches", {
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+            split["flash_attention_bwd_dq"] += dq
+            split["flash_attention_bwd_dkv"] += dkv
+    faults = {kind: [r[f"{kind}_fault"] for r in ranks]
+              for kind in ("moe", "pipe")}
+    for kind, recs in faults.items():
+        # the gate fails where any rank's update does (under "pipe" the
+        # last stage's own update does not see the dropped gradient)
+        checks[f"{kind}_fault_fails_gate"] = any(
+            f["update_gap"] > PAX_UPDATE_TOL and not f["update_equal"]
+            for f in recs)
+        for f in recs:
+            results["flash_launches"]["flash_attention_fwd"] += \
+                f["launches"][0]
+            results["split_launches"]["flash_attention_bwd_dq"] += \
+                f["launches"][2]
+            results["split_launches"]["flash_attention_bwd_dkv"] += \
+                f["launches"][3]
+    f8 = [r["f8"] for r in ranks]
+    checks["f8"] = all(f["norms_equal"] and f["losses_equal"]
+                       and f["bits_equal"] for f in f8) \
+        and f8[0]["norms"] == f8[1]["norms"] \
+        and all(n > MP_CLIP for n in f8[0]["norms"])
+    for f in f8:
+        results["flash_launches"]["flash_attention_fwd"] += f["launches"][0]
+        results["split_launches"]["flash_attention_bwd_dq"] += \
+            f["launches"][2]
+        results["split_launches"]["flash_attention_bwd_dkv"] += \
+            f["launches"][3]
+    expert_held = sum(ranks[0]["expert2_bf16"]["bytes_per_position"]
+                      ["0x0x0x0x0"].values())
+    data_held = sum(ranks[0]["data2_bf16"]["bytes_per_position"]
+                    ["0x0x0x0x0"].values())
+    checks["expert_holds_less"] = expert_held < data_held
+    cli = [r["cli"] for r in ranks]
+    checks["cli"] = (
+        all(c.get("error") and "sharded over 'pipe' across processes"
+            in c["error"] for c in cli)
+        and cli[0]["losses"] == cli[1]["losses"]
+        and len(cli[0]["losses"]) == MP_CLI_STEPS
+        and sorted(cli[0]["stages"] + cli[1]["stages"]) == [0, 1])
+    checks["backend_gloo"] = all(r["group"]["backend"] == "gloo"
+                                 for r in ranks)
+    bad = [f"{k}.{kk}" for k, v in checks.items() if isinstance(v, dict)
+           for kk, vv in v.items() if not vv]
+    bad += [k for k, v in checks.items() if v is False]
+    ok = not bad
+    fields.pop("t0")
+    log("distributed_moe_pipe", card=card,
+        moe_model=f"gpt2_small(moe_experts={MP_MOE_EXPERTS}, "
+                  f"backend='pallas'), top-2",
+        moe_params=ranks[0]["moe_models"]["params"],
+        moe_batch=MP_MOE_BATCH, seq=TRAIN_ARGS["seq"],
+        moe_batch_note="B=4: B=8 would pass the phase's budget",
+        pipe_model=f"dense {TRAIN_ARGS['d_model']} + "
+                   f"{TRAIN_ARGS['layers']} x flash_gpt_block("
+                   f"{TRAIN_ARGS['heads']}) + dense {PAR_D_CLASSES}",
+        pipe_params=ranks[0]["pipe_models"]["params"],
+        pipe_microbatches=[MP_PIPE_NUM_MB, MP_PIPE_MB],
+        backend=ranks[0]["group"]["backend"],
+        backend_reason=ranks[0]["group"]["reason"],
+        join_s=[r["group"]["join_s"] for r in ranks],
+        models_s={k: [r[f"{k}_models"]["seconds"] for r in ranks]
+                  for k in ("moe", "pipe")},
+        layouts=layouts,
+        faults={"moe": "gather_sum where gather_keep belongs, at data2",
+                "pipe": "every hop's gradient dropped, at pipe2"},
+        fault_update_gap={k: [f["update_gap"] for f in v]
+                          for k, v in faults.items()},
+        fault_worst_leaf={k: v[0]["update_worst_leaf"]
+                          for k, v in faults.items()},
+        f8_norms=[f["norms"] for f in f8],
+        f8_in_process_norms=f8[0]["in_process_norms"],
+        f8_losses=[f["losses"] for f in f8],
+        f8_in_process_losses=f8[0]["in_process_losses"], f8_clip=MP_CLIP,
+        update_tolerance=PAX_UPDATE_TOL,
+        expert_bytes_position=ranks[0]["expert2_bf16"]["bytes_per_position"],
+        data_bytes_position=ranks[0]["data2_bf16"]["bytes_per_position"],
+        cli_model="cifar100_wrn16_8", cli_batch=MP_CLI_BATCH,
+        cli_losses=[c["losses"] for c in cli],
+        cli_errors=[c.get("error") for c in cli],
+        cli_stages=[c.get("stages") for c in cli],
+        cli_seconds=[c["seconds"] for c in cli],
+        checks=checks, failed=bad, ok=ok, **fields,
+        seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"distributed_moe_pipe: {bad}")
 
 
 # -- phase 32 -----------------------------------------------------------------
@@ -11084,7 +11776,7 @@ def main() -> int:
               phase_training_parallel, phase_training_parallel_axes,
               phase_native, phase_distributed, phase_debug_guards,
               phase_tools, phase_distributed_data,
-              phase_distributed_axes)
+              phase_distributed_axes, phase_distributed_moe_pipe)
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         only = [f"phase_{n}" for n in sys.argv[2].split(",")]
@@ -11181,4 +11873,6 @@ if __name__ == "__main__":
         sys.exit(dd_rank_main(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--axes-rank"]:
         sys.exit(da_rank_main(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--moe-pipe-rank"]:
+        sys.exit(mp_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

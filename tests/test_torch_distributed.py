@@ -653,9 +653,24 @@ def test_dist_worker_jax_coordinator_fsdp_stops_at_snapshot(tmp_path):
     the two ranks): both log the same losses for the steps they take,
     then the first snapshot refuses the leaf sharded across the ranks,
     as the JAX loop's ``device_get`` does, and both report it."""
+    _stops_at_snapshot(tmp_path, {"fsdp": 2}, seed=4,
+                       refusal="sharded over 'fsdp' across processes")
+
+
+def test_dist_worker_jax_coordinator_pipe_stops_at_snapshot(tmp_path):
+    """The same two workers at ``{"pipe": 2}``: mnist_cnn split into two
+    stages, one a rank, the activations hopping between the processes;
+    both log the same losses, then the first snapshot refuses the packed
+    stage rows sharded over "pipe" across the ranks, as JAX's
+    ``device_get`` refuses them."""
+    _stops_at_snapshot(tmp_path, {"pipe": 2}, seed=5,
+                       refusal="sharded over 'pipe' across processes")
+
+
+def _stops_at_snapshot(tmp_path, mesh_axes, seed, refusal):
     import socket
 
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     rows = np.concatenate([rng.integers(0, 10, (16, 1)),
                            rng.integers(0, 256, (16, 784))], axis=1)
     np.savetxt(tmp_path / "mnist_train.csv", rows, fmt="%d", delimiter=",")
@@ -664,7 +679,7 @@ def test_dist_worker_jax_coordinator_fsdp_stops_at_snapshot(tmp_path):
         group_port = s.getsockname()[1]
     config = {"model_name": "mnist_cnn", "dataset_name": "mnist",
               "dataset_path": str(tmp_path), "batch_size": 8, "epochs": 1,
-              "max_steps": 2, "mesh_axes": {"fsdp": 2}, "seed": 1,
+              "max_steps": 2, "mesh_axes": mesh_axes, "seed": 1,
               "progress_print_interval": 1,
               "jax_coordinator": f"127.0.0.1:{group_port}",
               "ranks": {str(r): {"snapshot_dir": str(tmp_path / f"snap{r}")}
@@ -688,16 +703,33 @@ def test_dist_worker_jax_coordinator_fsdp_stops_at_snapshot(tmp_path):
                 if p.poll() is None:
                     p.kill()
     losses = []
+    crossing = next(iter(mesh_axes))
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode != 0, out
-        assert "sharded over 'fsdp' across processes" in out, out
-        assert "crossing: fsdp" in out, out
+        assert refusal in out, out
+        assert f"crossing: {crossing}" in out, out
         losses.append([line.split("loss=")[1].split()[0] for line in
                        out.splitlines() if "batch" in line and "loss=" in
                        line])
         assert not os.listdir(tmp_path / f"snap{r}") if \
             (tmp_path / f"snap{r}").exists() else True
     assert len(losses[0]) == 2 and losses[0] == losses[1]
+
+
+def test_lm_deploy_ends_at_the_corpus_loader_in_both_workers(tmp_path):
+    """Where a MoE or LM deploy ends in either package's worker: both
+    hand ``train=True`` to the LM corpus loader (``factory.create``),
+    which takes no such flag, so the deploy raises a ``TypeError`` there,
+    before its model is built and before the "start" barrier."""
+    from tnn_tpu.data import factory as jfactory
+
+    from tnn_tpu_torch.data import factory
+
+    (tmp_path / "train.bin").write_bytes(np.arange(64, dtype=np.uint16)
+                                         .tobytes())
+    for fac in (jfactory, factory):
+        with pytest.raises(TypeError, match="train"):
+            fac.create("openwebtext", str(tmp_path), train=True)
 
 
 @pytest.mark.parametrize("model_name,rank", [("mnist_cnn", 0),

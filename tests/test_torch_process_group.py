@@ -40,10 +40,27 @@ shared temporary directory).
   other processes' devices and is not fully replicated.
 - ``assert_equal`` refuses a batch that differs across the ranks, naming
   it and the rank, as JAX's ``device_put`` refuses a host value that
-  differs across processes.
-- "expert" across the processes, MoE routing under a data mesh that spans
-  them and a pipeline raise a ``ValueError`` naming the rest of ROADMAP
-  item 9b-ii; a rank with no position of a mesh is refused.
+  differs across processes; a rank with no position of a mesh is
+  refused.
+- F8: AdamW with a binding ``grad_clip_norm`` at {"fsdp": 2} and
+  {"model": 2} across the ranks clips by the norm of the whole gradient
+  tree, as JAX does: against JAX, and against the in-process mesh bit
+  for bit with the norm of each step.
+- A 2-layer, 4-expert, top-2 MoE GPT-2 at {"data": 2} and {"expert": 2}
+  (one position a rank), {"expert": 4} and {"data": 2, "expert": 2}
+  (two): losses, aux losses and parameters against JAX's and the
+  in-process mesh's; each routing's top-k equal on both ranks by
+  digest; under "expert" each rank holds its experts' pieces only.
+- The conv + BatchNorm net's pipeline at {"pipe": 2} (GPipe and
+  ``virtual=2``), {"pipe": 4} and {"data": 2, "pipe": 2}: losses and each
+  stage's parameters and statistics against JAX's pipeline step at lr /
+  (pp x data) (ROADMAP.md section 3) and against the in-process
+  pipeline; where "pipe" crosses each rank holds only its stages.
+  ``spmd_pipeline`` across the ranks against the in-process one.
+- ``train_model`` at {"pipe": 2} across the ranks trains, then its first
+  snapshot refuses the packed rows sharded over "pipe", as JAX's
+  ``device_get`` does; {"pipe": 2, "model": 2} is refused with the JAX
+  loop's message.
 - With no ``mesh_axes`` each rank trains its own replica on its own data,
   equal bit for bit to a run of ``train_model`` in this process.
 """
@@ -74,7 +91,29 @@ CASES = [("conv_bn", {"data": 2}, 1, None), ("gpt2", {"data": 2}, 1, None),
          ("gpt2", {"fsdp": 4}, 2, None),
          ("gpt2", {"model": 2, "seq": 2}, 2, "ring"),
          ("gpt2", {"fsdp": 2, "seq": 2}, 2, "ring")]
-REFUSALS = ("expert", "moe", "train_pipe")
+#: F8: AdamW whose global-norm clip binds (the first step's norm is
+#: about 1; the test checks it binds), fsdp and model across the ranks
+CLIP = 0.05
+#: an eps near the clipped gradient's entries, so Adam's update follows the
+#: clip's scale (at 1e-8 it would cancel it)
+CLIP_EPS = 1e-3
+CLIP_CASES = [("gpt2", {"fsdp": 2}, 1, None), ("gpt2", {"model": 2}, 1, None)]
+#: MoE (2 layers, 4 experts, top-2): the token gather crosses at "data",
+#: the experts at "expert"
+MOE_CASES = [("moe", {"data": 2}, 1, None), ("moe", {"expert": 2}, 1, None),
+             ("moe", {"expert": 4}, 2, None),
+             ("moe", {"data": 2, "expert": 2}, 2, None)]
+#: pipelines of the conv + BatchNorm net: (mesh axes, positions a rank,
+#: virtual), 2 microbatches of 4
+PIPE_CASES = [({"pipe": 2}, 1, 1), ({"pipe": 2}, 1, 2), ({"pipe": 4}, 2, 1),
+              ({"data": 2, "pipe": 2}, 2, 1)]
+PIPE_NUM_MB, PIPE_MB = 2, BATCH // 2
+
+
+def _pipe_id(case):
+    axes, _, virtual = case
+    return "pipe_" + "_".join(f"{k}{v}" for k, v in axes.items()) + \
+        f"_v{virtual}"
 
 
 def _case_id(case):
@@ -104,7 +143,7 @@ def _port_model(inputs, name):
     from tnn_tpu_torch.models.gpt2 import GPT2
 
     spec = inputs[name]
-    if name == "gpt2":
+    if name in ("gpt2", "moe"):
         model = GPT2(**spec["kwargs"], policy=tdt.FP32, device="cpu",
                      seed=None)
     else:
@@ -116,32 +155,66 @@ def _port_model(inputs, name):
     return model
 
 
-def run_dp(inputs, name, axes, devices=None, method=None):
-    """``STEPS`` SGD steps of ``make_dp_train_step`` over ``axes``: the
-    losses, the JAX-layout params and net state, as numpy, and the bytes
-    of parameters each of this process's positions holds."""
+def _clip_opt():
+    """AdamW clipping at ``CLIP`` that records the norm of each update."""
+    import torch
+
+    from tnn_tpu_torch.nn import optimizers as topt
+
+    class Recording(topt.AdamW):
+        norms = []
+
+        def update(self, grads, state, params, lr_scale=1.0, sq_norm=None):
+            norm = topt.global_norm(grads) if sq_norm is None else \
+                torch.sqrt(sq_norm)
+            self.norms.append(float(norm))
+            return super().update(grads, state, params, lr_scale, sq_norm)
+
+    return Recording(lr=1e-3, eps=CLIP_EPS, grad_clip_norm=CLIP)
+
+
+def run_dp(inputs, name, axes, devices=None, method=None, clip=False):
+    """``STEPS`` SGD steps (``clip``: the recording AdamW) of
+    ``make_dp_train_step`` over ``axes``: the losses, the JAX-layout
+    params and net state, as numpy, the bytes of parameters each of this
+    process's positions holds and, for a MoE, a digest of each routing's
+    top-k experts."""
     import torch
 
     from tnn_tpu_torch import parallel as tpar
     from tnn_tpu_torch.nn import attention as tattn
     from tnn_tpu_torch.nn import optimizers as topt
+    from tnn_tpu_torch.nn.moe import MoE
+    from tnn_tpu_torch.parallel import process_group as pg
     from tnn_tpu_torch.train import step as tstep
 
     spec = inputs[name]
     model = _port_model(inputs, name)
-    opt = topt.SGD(lr=LR)
+    opt = _clip_opt() if clip else topt.SGD(lr=LR)
     mesh = tpar.make_mesh(**axes, devices=devices)
     step, place_state, place_batch = tpar.make_dp_train_step(
         model, opt, mesh, fsdp=axes.get("fsdp", 1) > 1,
-        tp=axes.get("model", 1) > 1)
+        tp=axes.get("model", 1) > 1, ep=axes.get("expert", 1) > 1)
     state = place_state(tstep.create_train_state(model, opt))
     x, y = torch.from_numpy(spec["x"]), torch.from_numpy(spec["y"]).long()
-    losses = []
-    with _ring(tattn, mesh, axes, method):
-        for _ in range(STEPS):
-            state, m = step(state, *place_batch(x, y))
-            losses.append(float(m["loss"]))
-        ev = step.eval_step()(state, *place_batch(x, y))
+    losses, aux, routing = [], [], []
+    real = MoE._slots
+
+    def slots(self, top_e, t, cap):
+        routing.append(pg.digest(top_e))
+        return real(self, top_e, t, cap)
+
+    MoE._slots = slots
+    try:
+        with _ring(tattn, mesh, axes, method):
+            for _ in range(STEPS):
+                state, m = step(state, *place_batch(x, y))
+                losses.append(float(m["loss"]))
+                if "aux_loss" in m:
+                    aux.append(float(m["aux_loss"]))
+            ev = step.eval_step()(state, *place_batch(x, y))
+    finally:
+        MoE._slots = real
     held = {c: b["params"] for c, b in
             state.layout.position_bytes().items()}
     empty = sorted(n for n, p in model.named_parameters() if p.numel() == 0)
@@ -150,7 +223,79 @@ def run_dp(inputs, name, axes, devices=None, method=None):
             "net_state": _tree_np(trees.get("net_state", {})),
             "eval": [float(ev["loss"]), int(ev["corrects"])],
             "position_bytes": held, "emptied": empty,
-            "sharded": sorted(state.layout.sharded_names())}
+            "sharded": sorted(state.layout.sharded_names()),
+            "aux": aux, "routing": routing,
+            "norms": list(opt.norms) if clip else []}
+
+
+def run_pipe(inputs, case, devices=None):
+    """``STEPS`` SGD steps of ``make_pipeline_train_step`` of the conv +
+    BatchNorm net from JAX's packed rows, then one eval step: the losses,
+    each stage this process holds as {path: array} (params and state),
+    the eval loss and corrects, and the stages this process holds."""
+    import torch
+
+    from tnn_tpu_torch import parallel as tpar
+    from tnn_tpu_torch.core.module import config_module
+    from tnn_tpu_torch.nn import optimizers as topt
+    from tnn_tpu_torch.train import step as tstep
+
+    axes, _, virtual = case
+    spec = inputs["conv_bn"]
+    rows = inputs["pipe_rows"][_pipe_id(case)]
+    shape = (PIPE_MB,) + spec["x"].shape[1:]
+    stages = tpar.partition_model(config_module(spec["config"]),
+                                  axes["pipe"] * virtual, shape)
+    dp = axes.get("data", 1)
+    pipe, step_fn, init = tpar.make_pipeline_train_step(
+        stages, topt.SGD(lr=LR), tpar.make_mesh(**axes, devices=devices),
+        shape, num_microbatches=PIPE_NUM_MB, input_dtype=torch.float32,
+        data_axis="data" if dp > 1 else None, virtual=virtual)
+    state = init(None)
+    tstep.load_jax_train_state(state, params=rows[0], net_state=rows[1])
+    x, y = torch.from_numpy(spec["x"]), torch.from_numpy(spec["y"]).long()
+    losses, accs = [], []
+    for _ in range(STEPS):
+        state, m = step_fn(state, x, y)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+    ev = tpar.make_pipeline_eval_step(pipe)(state, x, y)
+    held = [s for s in range(pipe.L) if pipe.mine(s) is not None]
+    return {"losses": losses, "accuracy": accs,
+            "eval": [float(ev["loss"]), float(ev["corrects"])],
+            "held": held,
+            "meta": [s for s, st in enumerate(pipe.stages) if s not in held
+                     and all(t.is_meta for t in st.state_dict().values())],
+            "stages": {s: {"params": _tree_np(dict(
+                ("/".join(p), t) for p, t in pipe._paths(s))),
+                "state": _tree_np(dict(("/".join(p), t)
+                                       for p, t in pipe._paths(s, True)))}
+                for s in held}}
+
+
+def run_spmd(virtual, devices=None):
+    """``spmd_pipeline`` (``virtual`` > 1: the interleaved form) of a tanh
+    layer over 2 pipe positions, 4 microbatches: the outputs and the
+    gradients of a weighted sum of them."""
+    import functools
+
+    import torch
+
+    from tnn_tpu_torch import parallel as tpar
+
+    rs = np.random.RandomState(5)
+    w = torch.tensor(rs.randn(2 * virtual, 6, 6).astype(np.float32) * 0.5,
+                     requires_grad=True)
+    x = torch.tensor(rs.randn(4, 3, 6).astype(np.float32),
+                     requires_grad=True)
+    fn = tpar.spmd_pipeline if virtual == 1 else functools.partial(
+        tpar.spmd_pipeline_interleaved, virtual=virtual)
+    out = fn(lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x,
+             tpar.make_mesh(pipe=2, devices=devices))
+    (out * torch.from_numpy(rs.randn(*out.shape).astype(np.float32))) \
+        .sum().backward()
+    return {"out": out.detach().numpy(), "w": w.grad.numpy(),
+            "x": x.grad.numpy()}
 
 
 def _tree_np(tree):
@@ -167,40 +312,32 @@ def _error(fn):
     return None
 
 
-def _refusal(inputs, what, tmp):
-    import torch
-
-    from tnn_tpu_torch import parallel as tpar
-    from tnn_tpu_torch.core import dtypes as tdt
+def _train_pipe(inputs, tmp, axes):
+    """``train_model`` of the conv + BatchNorm net at ``axes`` across the
+    ranks on two batches: its error, the losses of the steps it took and
+    the snapshots it left."""
     from tnn_tpu_torch.data.loader import ArrayDataLoader
-    from tnn_tpu_torch.models.gpt2 import GPT2
-    from tnn_tpu_torch.nn import optimizers as topt
-    from tnn_tpu_torch.train import step as tstep
     from tnn_tpu_torch.train import train_model
     from tnn_tpu_torch.utils.config import TrainingConfig
 
-    spec = inputs["gpt2"]
-    if what.startswith("train_"):
-        axis = what[len("train_"):]
-        model = _port_model(inputs, "conv_bn")
-        data = inputs["conv_bn"]
-        cfg = TrainingConfig().update({
-            "epochs": 1, "batch_size": BATCH, "mesh_axes": {axis: 2},
-            "optimizer": {"type": "sgd", "lr": LR},
-            "snapshot_dir": str(tmp / what), "io_dtype": "float32"})
-        loader = ArrayDataLoader(data["x"], data["y"])
-        return _error(lambda: train_model(model, cfg, loader))
-    kw = dict(spec["kwargs"])
-    if what == "moe":
-        kw["moe_experts"] = 4
-    model = GPT2(**kw, policy=tdt.FP32, device="cpu", seed=0)
-    opt = topt.SGD(lr=LR)
-    mesh = tpar.make_mesh(**({"data": 2} if what == "moe" else {what: 2}))
-    step, place_state, _ = tpar.make_dp_train_step(
-        model, opt, mesh, ep=what == "expert")
-    ids = torch.from_numpy(spec["x"]).long()
-    return _error(lambda: step(place_state(tstep.create_train_state(
-        model, opt)), ids, ids))
+    spec = inputs["conv_bn"]
+    model = _port_model(inputs, "conv_bn")
+    snaps = tmp / ("train_" + "_".join(axes))
+    cfg = TrainingConfig().update({
+        "epochs": 1, "batch_size": BATCH, "shuffle": False,
+        "mesh_axes": axes, "num_microbatches": PIPE_NUM_MB,
+        "optimizer": {"type": "sgd", "lr": LR}, "snapshot_dir": str(snaps),
+        "io_dtype": "float32", "progress_print_interval": 1})
+    losses = []
+    loader = ArrayDataLoader(np.concatenate([spec["x"], spec["x"][::-1]]),
+                             np.concatenate([spec["y"], spec["y"][::-1]]))
+    out = {"error": _error(lambda: train_model(
+        model, cfg, loader,
+        metric_hook=lambda step, m: losses.append(m["loss"])))}
+    out["losses"] = losses
+    out["snapshots"] = sorted(p.name for p in snaps.glob("*")) \
+        if snaps.exists() else []
+    return out
 
 
 def _train_fsdp(inputs, tmp):
@@ -291,13 +428,22 @@ def rank_main(rank: int, port: int, workdir: Path) -> None:
             progress.write_text(_case_id(case))
             out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1],
                                                  method=case[3])
+    for case in CLIP_CASES:
+        progress.write_text("clip_" + _case_id(case))
+        out["runs"]["clip_" + _case_id(case)] = run_dp(
+            inputs, case[0], case[1], clip=True)
+    _one_layouts(inputs, out, progress, 1)
+    progress.write_text("spmd_pipeline")
+    out["spmd"] = {v: run_spmd(v) for v in (1, 2)}
     progress.write_text("the refusals, the train_model run, the replica")
     spec = inputs["conv_bn"]
     bad = dict(inputs, conv_bn=dict(spec, x=spec["x"] + rank))
     out["batch_refused"] = _error(lambda: run_dp(bad, "conv_bn",
                                                  {"data": 2}))
-    for what in REFUSALS:
-        out["refusals"][what] = _refusal(inputs, what, workdir / str(rank))
+    out["train_pipe"] = _train_pipe(inputs, workdir / str(rank),
+                                    {"pipe": 2})
+    out["refusals"]["pipe_model"] = _train_pipe(
+        inputs, workdir / str(rank), {"pipe": 2, "model": 2})["error"]
     out["train_fsdp"] = _train_fsdp(inputs, workdir / str(rank))
     out["replica"] = _replica(inputs, rank, workdir / str(rank))
     pg.shutdown()
@@ -309,8 +455,21 @@ def rank_main(rank: int, port: int, workdir: Path) -> None:
             progress.write_text(_case_id(case))
             out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1],
                                                  method=case[3])
+    _one_layouts(inputs, out, progress, 2)
     pg.shutdown()
     (workdir / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def _one_layouts(inputs, out, progress, per_rank):
+    """The MoE and pipeline cases of ``per_rank`` positions a rank."""
+    for case in MOE_CASES:
+        if case[2] == per_rank:
+            progress.write_text(_case_id(case))
+            out["runs"][_case_id(case)] = run_dp(inputs, case[0], case[1])
+    for case in PIPE_CASES:
+        if case[1] == per_rank:
+            progress.write_text(_pipe_id(case))
+            out["runs"][_pipe_id(case)] = run_pipe(inputs, case)
 
 
 # -- the test side ------------------------------------------------------------
@@ -361,9 +520,15 @@ def _inputs():
     y = rs.randint(0, 10, BATCH).astype(np.int32)
     ids = np.random.RandomState(1).randint(0, VOCAB, (BATCH, SEQ)) \
         .astype(np.int32)
+    moe = jmodels.GPT2(vocab_size=VOCAB, max_len=SEQ, num_layers=2,
+                       d_model=32, num_heads=4, moe_experts=4, policy=f32)
+    moe_ids = np.random.RandomState(3).randint(0, VOCAB, (BATCH, SEQ)) \
+        .astype(np.int32)
     out = {}
     for name, jmodel, a, b in (("conv_bn", conv, x, y),
-                               ("gpt2", gpt, ids, np.roll(ids, -1, 1))):
+                               ("gpt2", gpt, ids, np.roll(ids, -1, 1)),
+                               ("moe", moe, moe_ids,
+                                np.roll(moe_ids, -1, 1))):
         floating = a.dtype == np.float32
         st = jcreate(jmodel, jnn.SGD(lr=LR), jax.random.PRNGKey(0), a.shape,
                      input_dtype=jax.numpy.float32 if floating else None)
@@ -373,10 +538,56 @@ def _inputs():
                      "config": jmodel.get_config(),
                      "kwargs": dict(kwargs, num_layers=2, d_model=128,
                                     num_heads=2)}
+    out["moe"]["kwargs"] = dict(kwargs, num_layers=2, d_model=32,
+                                num_heads=4, moe_experts=4)
+    out["pipes"], out["pipe_rows"] = {}, {}
+    for case in PIPE_CASES:
+        jpipe, jstep, state = _jax_pipe_setup(conv, case)
+        out["pipes"][_pipe_id(case)] = (jpipe, jstep, state)
+        out["pipe_rows"][_pipe_id(case)] = (np.asarray(state.params),
+                                            np.asarray(state.net_state))
     return out
 
 
-def _jax_dp(spec, axes, method=None):
+def _jax_pipe_setup(jmodel, case):
+    """JAX's pipeline train step of ``case`` and its initial state, at
+    lr / (pp x data): its step's gradient is pp x data times the loss's
+    (ROADMAP.md section 3), so its update is the port's at lr."""
+    import jax
+    import jax.numpy as jnp
+
+    from tnn_tpu import nn as jnn
+    from tnn_tpu import parallel as jpar
+
+    axes, _, virtual = case
+    pp, dp = axes["pipe"], axes.get("data", 1)
+    shape = (PIPE_MB, 8, 8, 3)
+    stages = jpar.partition_model(jmodel, pp * virtual, shape)
+    jpipe, jstep, jinit = jpar.make_pipeline_train_step(
+        stages, jnn.SGD(lr=LR / (pp * dp)), jpar.make_mesh(**axes), shape,
+        num_microbatches=PIPE_NUM_MB, input_dtype=jnp.float32,
+        data_axis="data" if dp > 1 else None, virtual=virtual, donate=False)
+    return jpipe, jstep, jinit(jax.random.PRNGKey(0))
+
+
+def _jax_pipe(inputs, case):
+    """JAX's pipeline from the shipped rows: the losses and, per stage,
+    its params and state as {path: array} after ``STEPS`` steps."""
+    import jax.numpy as jnp
+
+    jpipe, jstep, st = inputs["pipes"][_pipe_id(case)]
+    spec = inputs["conv_bn"]
+    losses = []
+    for _ in range(STEPS):
+        st, m = jstep(st, jnp.asarray(spec["x"]), jnp.asarray(spec["y"]))
+        losses.append(float(m["loss"]))
+    stages = jpipe.unpack_stage_variables(st.params, st.net_state)
+    return {"losses": losses,
+            "stages": {s: {k: dict(_flat(v[k])) for k in ("params", "state")}
+                       for s, v in enumerate(stages)}}
+
+
+def _jax_dp(spec, axes, method=None, clip=False):
     import jax
     import jax.numpy as jnp
 
@@ -384,17 +595,19 @@ def _jax_dp(spec, axes, method=None):
     from tnn_tpu import parallel as jpar
     from tnn_tpu.nn import attention as jattn
     from tnn_tpu.train import create_train_state as jcreate
+    from tnn_tpu.train.step import aux_loss_sum
 
     jmodel, x = spec["jmodel"], spec["x"]
-    opt = jnn.SGD(lr=LR)
+    opt = jnn.AdamW(lr=1e-3, eps=CLIP_EPS, grad_clip_norm=CLIP) if clip \
+        else jnn.SGD(lr=LR)
     st = jcreate(jmodel, opt, jax.random.PRNGKey(0), x.shape,
                  input_dtype=jnp.float32 if x.dtype == np.float32 else None)
     mesh = jpar.make_mesh(**axes)
     step, place_state, place_batch = jpar.make_dp_train_step(
         jmodel, opt, mesh, donate=False, fsdp=axes.get("fsdp", 1) > 1,
-        tp=axes.get("model", 1) > 1)
+        tp=axes.get("model", 1) > 1, ep=axes.get("expert", 1) > 1)
     st = place_state(st)
-    losses = []
+    losses, aux = [], []
     with _ring(jattn, mesh, axes, method):
         for _ in range(STEPS):
             # placed again: the step's own output shardings would compile
@@ -402,7 +615,9 @@ def _jax_dp(spec, axes, method=None):
             st, m = step(place_state(st), *place_batch(
                 jnp.asarray(x), jnp.asarray(spec["y"])))
             losses.append(float(m["loss"]))
-    return {"losses": losses, "params": jax.tree.map(np.asarray, st.params),
+            aux.append(float(aux_loss_sum(st.net_state)))
+    return {"losses": losses, "aux": aux,
+            "params": jax.tree.map(np.asarray, st.params),
             "net_state": jax.tree.map(np.asarray, st.net_state)}
 
 
@@ -412,7 +627,7 @@ def _build(workdir: Path):
 
     inputs = _inputs()
     shipped = {k: {kk: vv for kk, vv in v.items() if kk != "jmodel"}
-               for k, v in inputs.items()}
+               for k, v in inputs.items() if k != "pipes"}
     (workdir / "inputs.pkl").write_bytes(pickle.dumps(shipped))
     port = _free_ports()
     env = {**os.environ, "TNN_PLATFORM": "cpu", "PYTHONPATH": str(ROOT)}
@@ -422,13 +637,24 @@ def _build(workdir: Path):
         text=True) for r in (0, 1)]
     # the references run while the ranks work
     jax_runs = {_case_id(c): _jax_dp(inputs[c[0]], c[1], c[3])
-                for c in CASES}
+                for c in CASES + MOE_CASES}
+    jax_runs.update({"clip_" + _case_id(c): _jax_dp(inputs[c[0]], c[1],
+                                                    clip=True)
+                     for c in CLIP_CASES})
+    jax_runs.update({_pipe_id(c): _jax_pipe(inputs, c) for c in PIPE_CASES})
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        local = {_case_id(c): run_dp(shipped, c[0], c[1],
-                                     devices=["cpu"] * 4, method=c[3])
-                 for c in CASES}
+        cpu4 = ["cpu"] * 4
+        local = {_case_id(c): run_dp(shipped, c[0], c[1], devices=cpu4,
+                                     method=c[3])
+                 for c in CASES + MOE_CASES}
+        local.update({"clip_" + _case_id(c): run_dp(
+            shipped, c[0], c[1], devices=cpu4, clip=True)
+            for c in CLIP_CASES})
+        local.update({_pipe_id(c): run_pipe(shipped, c, devices=cpu4)
+                      for c in PIPE_CASES})
+        local["spmd"] = {v: run_spmd(v, devices=cpu4[:2]) for v in (1, 2)}
         replicas = []
         for rank in (0, 1):
             from tnn_tpu_torch.data.loader import ArrayDataLoader
@@ -483,7 +709,7 @@ def _flat(tree, prefix=()):
         for k in sorted(tree):
             yield from _flat(tree[k], prefix + (k,))
     else:
-        yield "/".join(prefix), np.asarray(tree)
+        yield "/".join(map(str, prefix)), np.asarray(tree)
 
 
 def _assert_trees(got, want, rtol, atol):
@@ -595,18 +821,203 @@ def test_train_model_fsdp_across_processes_stops_at_snapshot(runs):
     assert a["losses"] == b["losses"] and a["digest"] == b["digest"]
 
 
-@pytest.mark.parametrize("what", REFUSALS)
-def test_other_axes_across_processes_refused(runs, what):
-    for out in runs["ranks"]:
-        msg = out["refusals"][what]
-        assert msg is not None and "the rest of ROADMAP item 9b-ii" in msg, \
-            msg
-        if what == "expert":
-            assert "mesh axes ['expert'] cross a process boundary" in msg
-        elif what == "moe":
-            assert "MoE routing over the global batch" in msg
+def _check_in_process(got, ref, per_rank):
+    """Bit for bit with one position a rank, else one f32 rounding apart
+    on each sum across the ranks (the module docstring)."""
+    if per_rank == 1:
+        assert got["losses"] == ref["losses"]
+        assert got["eval"] == ref["eval"]
+    else:
+        np.testing.assert_allclose(got["losses"] + got["eval"][:1],
+                                   ref["losses"] + ref["eval"][:1],
+                                   rtol=1e-6)
+        assert got["eval"][1] == ref["eval"][1]
+    for key in ("params", "net_state", "stages"):
+        if key not in ref:
+            continue
+        want = ref[key] if key != "stages" else \
+            {s: ref[key][s] for s in got[key]}
+        if per_rank == 1:
+            _assert_same(got[key], want)
         else:
-            assert "pipelines across processes" in msg
+            _assert_trees(got[key], want, 1e-5, 1e-7)
+
+
+CLIP_IDS = [_case_id(c) for c in CLIP_CASES]
+
+
+@pytest.mark.parametrize("case", CLIP_CASES, ids=CLIP_IDS)
+def test_clip_norm_across_processes_matches_jax(runs, case):
+    """F8: ``AdamW(grad_clip_norm)`` with fsdp or model across the ranks
+    clips by the global norm of the whole gradient tree, JAX's, not this
+    rank's pieces': the losses and parameters after 2 steps against
+    JAX's, the clip binding, both ranks alike."""
+    cid = "clip_" + _case_id(case)
+    a, b = (r["runs"][cid] for r in runs["ranks"])
+    assert a["losses"] == b["losses"] and a["norms"] == b["norms"]
+    _assert_same(a["params"], b["params"])
+    assert all(n > CLIP for n in a["norms"]), a["norms"]
+    ref = runs["jax"][cid]
+    np.testing.assert_allclose(a["losses"], ref["losses"], rtol=1e-5)
+    _assert_trees(a["params"], ref["params"], 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("case", CLIP_CASES, ids=CLIP_IDS)
+def test_clip_norm_across_processes_matches_in_process(runs, case):
+    """F8 against the port's in-process mesh, whose update sees the whole
+    tree: the norms each step clipped by and everything else bit for
+    bit."""
+    cid = "clip_" + _case_id(case)
+    got, ref = runs["ranks"][0]["runs"][cid], runs["local"][cid]
+    assert got["norms"] == ref["norms"]
+    _check_in_process(got, ref, 1)
+
+
+MOE_IDS = [_case_id(c) for c in MOE_CASES]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=MOE_IDS)
+def test_moe_across_processes_matches_jax(runs, case):
+    """A MoE GPT-2 with the token gather ("data") or the experts
+    ("expert") crossing the ranks: losses (the aux loss in them once),
+    aux losses and parameters against JAX's ``make_dp_train_step`` over
+    the same mesh; both ranks alike."""
+    cid = _case_id(case)
+    a, b = (r["runs"][cid] for r in runs["ranks"])
+    assert a["losses"] == b["losses"] and a["aux"] == b["aux"]
+    _assert_same(a["params"], b["params"])
+    ref = runs["jax"][cid]
+    np.testing.assert_allclose(a["losses"], ref["losses"], rtol=1e-5)
+    np.testing.assert_allclose(a["aux"], ref["aux"], rtol=1e-5)
+    _assert_trees(a["params"], ref["params"], 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=MOE_IDS)
+def test_moe_across_processes_matches_in_process(runs, case):
+    cid = _case_id(case)
+    got, ref = runs["ranks"][1]["runs"][cid], runs["local"][cid]
+    _check_in_process(got, ref, case[2])
+    if case[2] == 1:
+        assert got["aux"] == ref["aux"]
+
+
+EXPERT_CASES = [c for c in MOE_CASES if "expert" in c[1]]
+
+
+@pytest.mark.parametrize("case", EXPERT_CASES,
+                         ids=[_case_id(c) for c in EXPERT_CASES])
+def test_expert_across_processes_holds_pieces(runs, case):
+    """Each rank holds its positions' expert pieces only: the bytes of the
+    in-process mesh's positions it stands for, the stacks' share of its
+    experts, the model's own stacks emptied."""
+    cid = _case_id(case)
+    ref = runs["local"][cid]["position_bytes"]
+    whole = sum(np.asarray(v).nbytes for _, v in
+                _flat(runs["local"][cid]["params"]))
+    held = []
+    for out in runs["ranks"]:
+        got = out["runs"][cid]
+        assert got["sharded"] and all(n.endswith(("w_in", "b_in", "w_out",
+                                                  "b_out"))
+                                      for n in got["sharded"])
+        assert got["emptied"] == got["sharded"]
+        for c, nbytes in got["position_bytes"].items():
+            assert nbytes == ref[c] and nbytes < whole, c
+        held.append(sum(got["position_bytes"].values()))
+    assert sum(held) == sum(ref.values())
+
+
+def test_moe_routing_equal_on_both_ranks(runs):
+    """The router runs on every rank over the same gathered tokens: each
+    routing's top-k experts equal byte for byte on both ranks (digests)
+    and to the in-process mesh's."""
+    cid = _case_id(MOE_CASES[0])
+    a, b = (r["runs"][cid]["routing"] for r in runs["ranks"])
+    assert len(a) >= 2 * STEPS and a == b
+    assert a[:2 * STEPS] == runs["local"][cid]["routing"][:2 * STEPS]
+
+
+PIPE_IDS = [_pipe_id(c) for c in PIPE_CASES]
+
+
+@pytest.mark.parametrize("case", PIPE_CASES, ids=PIPE_IDS)
+def test_pipeline_across_processes_matches_jax(runs, case):
+    """The conv + BatchNorm pipeline with "pipe" or "data" crossing the
+    ranks (GPipe and interleaved): losses, and each stage's parameters
+    and BatchNorm statistics after 2 steps against JAX's pipeline step at
+    lr / (pp x data), whose gradient is pp x data times the loss's;
+    both ranks' losses alike, every stage held by a rank."""
+    cid = _pipe_id(case)
+    a, b = (r["runs"][cid] for r in runs["ranks"])
+    assert a["losses"] == b["losses"] and a["eval"] == b["eval"]
+    ref = runs["jax"][cid]
+    np.testing.assert_allclose(a["losses"], ref["losses"], rtol=1e-5)
+    seen = set()
+    for out in (a, b):
+        for s, st in out["stages"].items():
+            seen.add(s)
+            _assert_trees(st, ref["stages"][s], 1e-4, 1e-6)
+    assert seen == set(ref["stages"])
+
+
+@pytest.mark.parametrize("case", PIPE_CASES, ids=PIPE_IDS)
+def test_pipeline_across_processes_matches_in_process(runs, case):
+    """Against the port's in-process pipeline of the same shape; where
+    "pipe" crosses, each rank holds only its own stages (the others
+    released), where only "data" crosses every stage."""
+    cid = _pipe_id(case)
+    ref = runs["local"][cid]
+    for r, out in enumerate(runs["ranks"]):
+        got = out["runs"][cid]
+        _check_in_process(got, ref, case[1])
+        L = len(ref["stages"])
+        if "data" in case[0]:
+            assert got["held"] == list(range(L)) and got["meta"] == []
+        else:
+            assert 0 < len(got["held"]) < L
+            assert sorted(got["held"] + got["meta"]) == list(range(L))
+
+
+@pytest.mark.parametrize("virtual", [1, 2], ids=["gpipe", "interleaved"])
+def test_spmd_pipeline_across_processes(runs, virtual):
+    """``spmd_pipeline`` with its two pipe positions on the two ranks:
+    the outputs on both ranks bit for bit the in-process ones, the
+    gradients of the stacked weights and of the input within rounding
+    (the reverse schedule adds the microbatches' gradients in another
+    order than autograd's one graph)."""
+    a, b = (r["spmd"][virtual] for r in runs["ranks"])
+    ref = runs["local"]["spmd"][virtual]
+    for k in ("out", "w", "x"):
+        assert np.array_equal(a[k], b[k]), k
+    assert np.array_equal(a["out"], ref["out"])
+    for k in ("w", "x"):
+        np.testing.assert_allclose(a[k], ref[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_train_model_pipe_across_processes_stops_at_snapshot(runs):
+    """``train_model`` at {"pipe": 2} across the ranks trains its two
+    batches with equal losses on both ranks, then the first snapshot
+    refuses the packed rows sharded over "pipe" across the ranks, as
+    JAX's ``device_get`` refuses them."""
+    a, b = (out["train_pipe"] for out in runs["ranks"])
+    for out in (a, b):
+        msg = out["error"]
+        assert msg is not None and "sharded over 'pipe' across " \
+            "processes" in msg, msg
+        assert "Fetching value for jax.Array that spans non-addressable" \
+            in msg
+        assert len(out["losses"]) == 2 and out["snapshots"] == []
+    assert a["losses"] == b["losses"]
+
+
+def test_pipe_with_model_refused_as_in_jax(runs):
+    """A pipeline composed with "model" is refused on both ranks with the
+    JAX loop's message (``tnn_tpu/train/loop.py:142-144``)."""
+    for out in runs["ranks"]:
+        msg = out["refusals"]["pipe_model"]
+        assert msg is not None and msg.startswith(
+            "pipeline runs compose with 'data' only"), msg
 
 
 def test_independent_replicas_without_mesh_axes(runs):

@@ -24,10 +24,16 @@ the store), on the device ``TNN_PLATFORM`` gives and with
 ``TNN_NUM_DEVICES`` positions of it (default 1), and a config's
 ``mesh_axes`` lay one model over every rank's positions: ``{"data": N}``
 sums the step's gradients, BatchNorm statistics and metrics across the
-ranks; "fsdp", "model" and "seq" (with ``seq_parallel_method``) may
-cross the ranks too, alone or together (``parallel.data_parallel``).
-A run whose leaves are sharded across the ranks stops at its first
-snapshot, which JAX's loop refuses as well. The backend, printed on the worker's first lines, is NCCL where
+ranks; "fsdp", "model", "seq" (with ``seq_parallel_method``) and
+"expert" may cross the ranks too, alone or together, MoE models
+included (``parallel.data_parallel``), and so may "pipe" (with
+``num_microbatches`` and ``pipeline_virtual``; ``parallel.pipeline``),
+composed with "data" only, as in JAX's loop. A run whose leaves (or
+packed stage rows) are sharded across the ranks stops at its first
+snapshot, which JAX's loop refuses as well. An LM corpus
+(``dataset_name`` "openwebtext") fails at its loader, before the
+"start" barrier, in both packages' workers: ``factory.create(...,
+train=True)`` hands the loader a flag it does not take. The backend, printed on the worker's first lines, is NCCL where
 every rank holds a card of its own and gloo where ranks share one or run
 on the CPU. Every rank must load the same data: the step checks each
 global batch equal across the ranks, as JAX's ``device_put`` does, so

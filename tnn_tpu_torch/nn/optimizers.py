@@ -80,12 +80,15 @@ class Optimizer:
     def _init(self, params) -> Dict[str, Any]:
         return {}
 
-    def update(self, grads, state, params, lr_scale=1.0
+    def update(self, grads, state, params, lr_scale=1.0, sq_norm=None
                ) -> Tuple[Any, Dict[str, Any]]:
-        """One update of ``params`` (in place); returns (params, state)."""
+        """One update of ``params`` (in place); returns (params, state).
+        ``sq_norm`` (a float32 scalar) is the squared global norm the clip
+        scales by, where ``grads`` holds only part of the gradient tree (a
+        layout across processes); by default ``grads``' own."""
         grads = tree_map(lambda g: g.float(), grads)
         if self.grad_clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.grad_clip_norm)
+            grads = clip_by_global_norm(grads, self.grad_clip_norm, sq_norm)
         state["step"] += 1
         lr = self.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
                                        device=state["step"].device)
@@ -107,17 +110,24 @@ class Optimizer:
         return {}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squared entries, in float32."""
+def sum_leaves(tree) -> torch.Tensor:
+    """The leaves of a tree of scalars added in ``tree_leaves`` order."""
     total = 0
     for x in tree_leaves(tree):
-        total = total + x.float().square().sum()
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+        total = total + x
+    return torch.as_tensor(total, dtype=torch.float32)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale every leaf by min(1, max_norm / (norm + 1e-6))."""
-    norm = global_norm(grads)
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared entries, in float32."""
+    return torch.sqrt(sum_leaves(tree_map(lambda x: x.float().square().sum(),
+                                          tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float, sq_norm=None):
+    """Scale every leaf by min(1, max_norm / (norm + 1e-6)); ``sq_norm``
+    gives the squared norm where ``grads`` is part of the tree."""
+    norm = global_norm(grads) if sq_norm is None else torch.sqrt(sq_norm)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 

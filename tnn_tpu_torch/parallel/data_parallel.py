@@ -22,7 +22,7 @@ device, and a device may repeat):
 * **Streams.** The batch is cut over the data x fsdp positions (data
   major) and, for (B, S) token inputs, S over the seq positions: one
   stream a (data, fsdp, seq) position, whose activations live on its
-  lead position (model and expert index 0). Math that every "model" or
+  lead position (model and expert index 0 in one process). Math that every "model" or
   "expert" position would repeat (embeddings, norms, residuals, a model
   with no TP leaf) runs once a stream, on the lead, as ``serving/tp.py``
   runs it.
@@ -74,19 +74,19 @@ layout (``trees``) and places a full-layout state (``load``), so a
 checkpoint of any layout loads into JAX's templates and back.
 
 **Across processes** (a mesh over an initialized ``process_group``, JAX's
-mesh after ``jax.distributed.initialize``): "data", "fsdp", "model" and
-"seq" may span processes, alone or together; "expert" positions of one
-slice stay in one process and MoE routing over the global batch stays in
-one process (the rest of ROADMAP item 9b-ii), and each process must hold
-one block of the mesh, of the same shape on every process. Each process
-holds only its own positions and pieces and runs the same optimizer
-update on its own copy of what it holds. The step checks the global
-batch (and ``place_state`` the initial parameters) equal on every
+mesh after ``jax.distributed.initialize``): every axis may span
+processes, alone or together, MoE models included; each process must
+hold one block of the mesh, of the same shape on every process. Each
+process holds only its own positions and pieces and runs the same
+optimizer update on its own copy of what it holds. The step checks the
+global batch (and ``place_state`` the initial parameters) equal on every
 process with ``process_group.assert_equal``, as JAX's ``device_put``
 does, and keeps the rows of its streams. A stream runs on every process
-that holds a "model" position of it, its replicated math on that
-process's first such position (its lead here), so two processes compute
-one stream's loss. Every sum then runs over a ``mesh.Span``:
+that holds a "model" or "expert" position of it, its replicated math on
+that process's first such position (its lead here), so two processes
+compute one stream's loss. The optimizer's clip scales by the global
+norm of the whole gradient tree (``grad_sq_norm``), as JAX's does. Every
+sum then runs over a ``mesh.Span``:
 
 * over a stream's "model" slice, tensor parallelism's conjugate pair
   (``process_group.sum_backward`` where an activation enters the column
@@ -103,7 +103,22 @@ one stream's loss. Every sum then runs over a ``mesh.Span``:
   positions through this process's lead: each stream counted once), the
   loss, accuracy and eval corrects, BatchNorm's statistics and the
   gradients of replicated leaves and "model" pieces, in one flattened
-  buffer a dtype (``process_group.all_reduce_flat``).
+  buffer a dtype (``process_group.all_reduce_flat``);
+* over the expert span, where "expert" crosses and each process runs
+  its streams' replicated math whole, one copy of the replicated
+  leaves' gradients, the router's too (the span's first process's:
+  ``_one_copy``), so
+  kernels that add in a varying order cannot set the ranks apart;
+* at a ``MoE``, over the stream span too: every process gathers every
+  stream's tokens (``gather_keep``) and computes the whole layer alike,
+  the router included, then takes its own streams' output back
+  (``take_own``, whose backward gathers every stream's output gradient),
+  so the layer's gradients are whole on every process and are not summed
+  again (``complete``), and each process's loss adds the aux loss whole
+  while the loss metric adds it once, after the sum over the span; where
+  "expert" crosses, each process computes its own experts' slice, f
+  (``sum_backward``) over the expert span where the routed tokens enter
+  them and the outputs ``gather_keep``'d over it.
 
 With one position a process every sum adds the same two values as the
 in-process mesh, so the results equal it bit for bit; with more they
@@ -141,6 +156,7 @@ from ..nn.layers import Dropout
 from ..nn.lm_loss import lm_head_loss, lm_head_lse
 from ..nn.moe import MoE, ep_rules
 from ..nn.norms import BatchNorm
+from ..nn.optimizers import sum_leaves
 from ..nn.schedulers import NoOp
 from ..nn.transformer import GPTBlock
 from ..ops.quant_matmul import qmatmul
@@ -211,26 +227,12 @@ def _device(mesh: Mesh, c) -> torch.device:
     return mesh.devices[_index(c)]
 
 
-#: where the rest of the parallel layouts across processes are queued
-SPAN_ITEM = ("the rest of ROADMAP item 9b-ii (expert with MoE routing "
-             "over the global batch across processes, then pipe)")
-
-
-def check_spans(mesh: Mesh, model=None) -> None:
-    """Refuse what may not span processes yet (the module docstring)."""
+def check_spans(mesh: Mesh) -> None:
+    """Refuse processes whose positions are not blocks of one shape (the
+    module docstring)."""
     if not mesh.spans_processes:
         return
     crossing = mesh.crossing_axes()
-    if "expert" in crossing:
-        raise ValueError(
-            f"mesh axes ['expert'] cross a process boundary: data, fsdp, "
-            f"model and seq span processes; expert across processes waits "
-            f"for {SPAN_ITEM}")
-    if model is not None and has_moe(model):
-        raise ValueError(
-            f"MoE routing over the global batch cannot cross processes: "
-            f"the mesh spans {len(set(mesh.processes.flat))} processes; "
-            f"it waits for {SPAN_ITEM}")
     if set(crossing) - {"data"}:
         shapes = set()
         for p in sorted(set(int(q) for q in mesh.processes.flat)):
@@ -301,15 +303,17 @@ class DataParallel:
                  tp: bool = False, ep: bool = False,
                  min_size: int = 2 ** 16):
         self.mesh = mesh
-        check_spans(mesh, model)
+        check_spans(mesh)
         self.spans = mesh.spans_processes
         self.coords = [c for c in _coords(mesh) if mesh.is_local(_index(c))]
         self.size = {a: mesh_lib.axis_size(mesh, a) for a in AXES}
         # the "model" positions this process holds of each of its streams,
         # and the spans its sums run over (None: this process alone)
         self.model_run = sorted({c[_AX["model"]] for c in self.coords})
+        self.expert_run = sorted({c[_AX["expert"]] for c in self.coords})
         lead = _index(self.coords[0])
         self.stream_span = mesh.span(("data", "fsdp", "seq"), lead)
+        self.expert_span = mesh.span("expert", lead)
         self.fsdp_span = mesh.span("fsdp", lead)
         self.rest_span = mesh.span(("data", "seq"), lead)
         self.dev = {c: _device(mesh, c) for c in self.coords}
@@ -347,7 +351,13 @@ class DataParallel:
             self.axis[n], self.dim[n] = axis, dim
         self._qkv = {}
         self._names: Dict[int, List[Tuple[str, str]]] = {}
+        # leaves whose gradient every process of the stream span computes
+        # whole (MoE's, ``_Run.moe``): not summed across processes
+        self.complete = set()
         for prefix, m in model.named_modules():
+            if isinstance(m, MoE):
+                self.complete.update(f"{prefix}.{rel}" if prefix else rel
+                                     for rel, _ in m.named_parameters())
             self._names[id(m)] = [
                 (rel, f"{prefix}.{rel}" if prefix else rel)
                 for rel, _ in m.named_parameters()]
@@ -552,7 +562,7 @@ class DataParallel:
 
     def lead(self, d: int, f: int, s: int) -> Tuple:
         """Where this process runs a stream's replicated math."""
-        return (d, f, self.model_run[0], s, 0)
+        return (d, f, self.model_run[0], s, self.expert_run[0])
 
     def streams(self, seq_split: bool) -> List[Tuple[int, int, int]]:
         """This process's streams, in mesh order."""
@@ -560,6 +570,20 @@ class DataParallel:
         return [(d, f, s) for d in range(self.size["data"])
                 for f in range(self.size["fsdp"]) for s in range(seq)
                 if self.lead(d, f, s) in self.dev]
+
+    def span_streams(self, seq_split: bool) -> List[List[Tuple[int, int,
+                                                               int]]]:
+        """The streams of each process of the stream span, in rank order
+        (this process's are ``streams``)."""
+        seq = self.size["seq"] if seq_split else 1
+        _, _, m, _, e = self.lead(0, 0, 0)
+        out = {p: [] for p in self.stream_span.procs}
+        for d, f, s in itertools.product(range(self.size["data"]),
+                                         range(self.size["fsdp"]),
+                                         range(seq)):
+            p = int(self.mesh.processes[_index((d, f, m, s, e))])
+            out[p].append((d, f, s))
+        return [out[p] for p in self.stream_span.procs]
 
     def global_streams(self, seq_split: bool) -> int:
         """The streams of every process."""
@@ -681,9 +705,10 @@ class DataParallel:
                     parts = [g * scale for g in parts]
                 sums[(n, j)] = mesh_lib.position_sum(parts)
         over = self.stream_span
-        if over is not None and over.crosses and sums:
-            sums = dict(zip(sums, process_group.all_reduce_flat(
-                list(sums.values()), over.group)))
+        shared = [k for k in sums if k[0] not in self.complete]
+        if over is not None and over.crosses and shared:
+            sums.update(zip(shared, process_group.all_reduce_flat(
+                [sums[k] for k in shared], over.group)))
         grads = {}
         for (n, j), g in sums.items():
             if self.axis[n] is None:
@@ -694,11 +719,40 @@ class DataParallel:
         for n, pieces in self._fsdp_pieces(whole).items():
             grads[n] = {str(j): piece.to(self.dev[self.owners[n][j]])
                         for j, piece in pieces.items()}
+        self._one_copy(grads)
         for c in self.coords:
             for t in self.held[c].values():
                 t.grad = None
         self._grads, self._mb_grads = {}, {}
         return grads
+
+    def _one_copy(self, grads: Dict[str, Any]) -> None:
+        """Where "expert" crosses processes each process of the expert span
+        runs its streams' replicated math whole, and its gradients of the
+        replicated leaves (the router's too) agree with the others' but
+        for the bits of kernels that add in a varying order (K7's dQ):
+        every process takes the span's first process's (a sum in which
+        the others add zeros, so FP32 runs stay bit for bit)."""
+        ex = self.expert_span
+        if ex is None or not ex.crosses:
+            return
+        keys = [(n, k) for n, g in grads.items() if self.axis[n] != "expert"
+                for k in (g if isinstance(g, dict) else [None])]
+        if not keys:
+            return
+        first = self.mesh.process_index == ex.procs[0]
+
+        def get(n, k):
+            return grads[n] if k is None else grads[n][k]
+
+        got = process_group.all_reduce_flat(
+            [get(n, k) if first else torch.zeros_like(get(n, k))
+             for n, k in keys], ex.group)
+        for (n, k), g in zip(keys, got):
+            if k is None:
+                grads[n] = g
+            else:
+                grads[n][k] = g
 
     def _fsdp_pieces(self, whole: Dict[str, torch.Tensor]
                      ) -> Dict[str, Dict[int, torch.Tensor]]:
@@ -709,14 +763,16 @@ class DataParallel:
         processes where they cross."""
         fs, rest = self.fsdp_span, self.rest_span
         out: Dict[str, Dict[int, torch.Tensor]] = {}
-        if fs is None or not fs.crosses:
-            for n, g in whole.items():
-                pieces = g.chunk(self.pieces(n), dim=self.dim[n])
-                out[n] = {j: pieces[j] for j in self.owners[n]}
-        else:
+        local = whole if fs is None or not fs.crosses else \
+            {n: g for n, g in whole.items() if n in self.complete}
+        for n, g in local.items():
+            pieces = g.chunk(self.pieces(n), dim=self.dim[n])
+            out[n] = {j: pieces[j] for j in self.owners[n]}
+        if len(local) < len(whole):
             by_dtype: Dict[torch.dtype, List[str]] = {}
             for n, g in whole.items():
-                by_dtype.setdefault(g.dtype, []).append(n)
+                if n not in local:
+                    by_dtype.setdefault(g.dtype, []).append(n)
             for names in by_dtype.values():
                 cut = {n: whole[n].chunk(self.pieces(n), dim=self.dim[n])
                        for n in names}
@@ -729,13 +785,47 @@ class DataParallel:
                 flat = mine.split([cut[n][j].numel() for n, j in sizes])
                 for (n, j), piece in zip(sizes, flat):
                     out.setdefault(n, {})[j] = piece.view(cut[n][j].shape)
-        if rest is not None and rest.crosses and out:
-            keys = [(n, j) for n, pieces in out.items() for j in pieces]
+        keys = [(n, j) for n, pieces in out.items() for j in pieces
+                if n not in self.complete]
+        if rest is not None and rest.crosses and keys:
             summed = process_group.all_reduce_flat(
                 [out[n][j] for n, j in keys], rest.group)
             for (n, j), g in zip(keys, summed):
                 out[n][j] = g
         return out
+
+    @torch.no_grad()
+    def grad_sq_norm(self, grads) -> torch.Tensor:
+        """The squared global norm of the whole gradient tree, which the
+        optimizer's clip scales by (JAX's ``clip_by_global_norm`` over
+        the global tree), from this process's part ``grads`` (the owned
+        layout): each leaf's (piece's) sum of squares added in the order
+        of the one-process layout's tree, a piece this process does not
+        hold filled in by the process of its first holder in mesh order
+        (one all-reduce over the mesh's processes, every entry from one
+        process, so the sums are exact)."""
+        keys = [(n, j) for n in self.sharded_names()
+                for j in range(self.pieces(n))]
+        first = {}
+        for c in _coords(self.mesh):
+            for n in self.sharded_names():
+                first.setdefault((n, self.piece_of(n, c)),
+                                 int(self.mesh.processes[_index(c)]))
+        me = self.mesh.process_index
+        dev = self.devices[0]
+        vals = torch.zeros(len(keys), dtype=torch.float32, device=dev)
+        for k, (n, j) in enumerate(keys):
+            if first[(n, j)] == me:
+                vals[k] = grads[n][str(j)].float().square().sum()
+        everyone = self.mesh.span(mesh_lib.AXES, _index(self.coords[0]))
+        if everyone.crosses and keys:
+            vals = process_group.all_reduce(vals, group=everyone.group)
+        got = dict(zip(keys, vals.unbind(0)))
+        tree = {n: ({str(j): got[(n, j)] for j in range(self.pieces(n))}
+                    if self.axis[n] is not None
+                    else grads[n].float().square().sum())
+                for n in self.axis}
+        return sum_leaves(tree)
 
     @torch.no_grad()
     def broadcast(self) -> None:
@@ -861,9 +951,9 @@ class _Run:
         d, f, s = self.streams[i]
         return self.lay.lead(d, f, s)
 
-    def at(self, i: int, m: int = 0, e: int = 0) -> Tuple:
+    def at(self, i: int, m: int = 0, e: Optional[int] = None) -> Tuple:
         d, f, s = self.streams[i]
-        return (d, f, m, s, e)
+        return (d, f, m, s, self.lay.expert_run[0] if e is None else e)
 
     def tp_input(self, i: int, x):
         """Stream ``i``'s activation as it enters the column products of
@@ -989,14 +1079,34 @@ class _Run:
     def moe(self, mod, xs):
         """One routing over every stream's tokens in global (row,
         position) order; the experts of each "expert" position computed on
-        its slice there; the output cut back into the streams."""
+        its slice there; the output cut back into the streams. Across
+        processes every process of the stream span gathers every stream's
+        tokens (``gather_keep``) and routes them all alike, so its MoE
+        computes the whole layer, and takes its own streams' output back
+        (``take_own``: the backward gathers every stream's output
+        gradient), so the layer's gradients are whole on every process
+        (``DataParallel.complete``); where "expert" crosses, each process
+        computes its own experts, f (``sum_backward``) where the routed
+        tokens enter them and the outputs ``gather_keep``'d over the
+        expert span."""
         lay = self.lay
         first = lay.coords[0]
         dev = lay.dev[first]
+        over = lay.stream_span if lay.stream_span is not None and \
+            lay.stream_span.crosses else None
+        if over is None:
+            table = [list(self.streams)]
+            parts = [x.to(dev) for x in xs]
+        else:
+            table = lay.span_streams(self.seq > 1)
+            got = process_group.gather_keep(
+                torch.stack([x.to(dev) for x in xs]), over.group)
+            parts = [t for block in got.unbind(0) for t in block.unbind(0)]
+        by_stream = dict(zip([st for q in table for st in q], parts))
         groups = {}
-        for i, (d, f, s) in enumerate(self.streams):
-            groups.setdefault((d, f), []).append(xs[i])
-        rows = [torch.cat([x.to(dev) for x in g], dim=1)
+        for st in sorted(by_stream):
+            groups.setdefault(st[:2], []).append(st)
+        rows = [torch.cat([by_stream[st] for st in g], dim=1)
                 for g in groups.values()]
         x_all = torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
         w_in = self.name(mod, "w_in")
@@ -1004,19 +1114,27 @@ class _Run:
                                               "b_out")]
         gate = [self.name(mod, "gate_kernel")]
         ep = lay.axis[w_in] == "expert"
+        ex = lay.expert_span if ep and lay.expert_span is not None and \
+            lay.expert_span.crosses else None
 
         def route(x):
             experts = None
             if ep:
                 def experts(xe):
+                    if ex is not None:
+                        xe = process_group.sum_backward(xe, ex.group)
+                    pieces = xe.tensor_split(lay.size["expert"])
                     outs = []
-                    for e, piece in enumerate(xe.tensor_split(
-                            lay.size["expert"])):
-                        c = (0, 0, 0, 0, e)
+                    for e in lay.expert_run:
+                        c = first[:4] + (e,)
                         w = [lay.leaf(n, c, whole=False) for n in stacks]
-                        outs.append(mod.expert_ffn(piece.to(lay.dev[c]), *w)
-                                    .to(xe.device))
-                    return torch.cat(outs)
+                        outs.append(mod.expert_ffn(pieces[e].to(lay.dev[c]),
+                                                   *w).to(xe.device))
+                    ye = torch.cat(outs)
+                    if ex is not None:
+                        ye = process_group.gather_keep(ye, ex.group) \
+                            .flatten(0, 1)
+                    return ye
             else:
                 full = [lay.leaf(n, first) for n in stacks]
 
@@ -1033,14 +1151,17 @@ class _Run:
         mod.last_aux = aux
         if self.train:
             mod.pending_state = {"aux_loss": aux.detach()}
-        outs = []
-        row_parts = out.chunk(len(rows), dim=0)
-        for i, (d, f, s) in enumerate(self.streams):
-            g = list(groups).index((d, f))
-            part = row_parts[g].chunk(self.seq, dim=1)[s] if self.seq > 1 \
-                else row_parts[g]
-            outs.append(part.to(xs[i].device))
-        return outs
+        cut = {}
+        for seq, row in zip(groups.values(), out.chunk(len(rows), dim=0)):
+            for st, part in zip(seq, row.chunk(len(seq), dim=1)
+                                if len(seq) > 1 else [row]):
+                cut[st] = part
+        if over is not None:
+            mine = process_group.take_own(torch.stack(
+                [torch.stack([cut[st] for st in q]) for q in table]),
+                over.group)
+            return [mine[i].to(x.device) for i, x in enumerate(xs)]
+        return [cut[st].to(x.device) for st, x in zip(self.streams, xs)]
 
     def embed(self, mod, ids):
         """The lookup; a vocab-sharded table masked on each "model"
@@ -1398,9 +1519,14 @@ class DPTrainStep:
         score = self._chunked_loss if hidden else self._loss
         loss = _global_mean([score(run, o, l, i) for i, (o, l) in
                              enumerate(zip(outs, ls))], counts, dev, total)
+        # the aux loss once: every process of the stream span computes the
+        # whole MoE (``_Run.moe``), so each backward takes it whole and the
+        # metric adds it after the sum over the span
+        metric = lay.across(loss.detach())
         if aux is not None:
             loss = loss + aux.to(dev)
             aux = aux.detach().to(dev)
+            metric = metric + aux
         loss.backward()
         lay.fold_grads()
         commit = getattr(self.model, "commit_state", None)
@@ -1411,7 +1537,7 @@ class DPTrainStep:
             acc = lay.across(_global_mean(
                 [self._accuracy(run, o, l, i) for i, (o, l) in
                  enumerate(zip(outs, ls))], counts, dev, total))
-        return lay.across(loss.detach()), acc, aux
+        return metric, acc, aux
 
     def _accuracy(self, run: _Run, out, labels, i: int):
         out = out.detach() if not isinstance(out, tuple) else \
@@ -1440,7 +1566,8 @@ class DPTrainStep:
                 aux = aux + mb_aux
         grads = lay.reduce_grads(1.0 / n)
         lr_scale = apply_update(self.optimizer, self.scheduler, state, grads,
-                                lay.owned)
+                                lay.owned, sq_norm=lay.grad_sq_norm
+                                if lay.spans else None)
         lay.broadcast()
         return state, step_metrics(
             loss / n, lr_scale, acc / n if self.compute_accuracy else None,
@@ -1522,7 +1649,7 @@ def make_dp_train_step(model, optimizer, mesh: Mesh,
             return state
         full = state.opt_state
         if mesh.spans_processes:
-            check_spans(mesh, model)
+            check_spans(mesh)
             process_group.assert_equal(dict(model.named_parameters()),
                                        "the initial parameters")
         layout = DataParallel(model, mesh, fsdp=fsdp, tp=tp, ep=ep)

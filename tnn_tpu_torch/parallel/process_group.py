@@ -30,18 +30,25 @@ loss: g sums in the forward and passes the gradient unchanged, f is the
 identity in the forward and sums the gradient), ``all_reduce_flat``
 (many tensors in one call a dtype, as a step's gradients travel),
 ``all_gather``, ``reduce_scatter``, ``all_to_all`` (differentiable: the
-gradient goes back the way it came), ``exchange`` (one tensor to one
+gradient goes back the way it came), the differentiable gathers
+``gather_sum`` (its backward reduce-scatters: processes whose
+downstreams differ) and ``gather_keep`` (its backward keeps this
+process's entry: processes that compute the same downstream) and their
+transpose ``take_own`` (this process's entry of a value every process
+computes alike; its backward gathers), ``exchange`` (one tensor to one
 rank and one from another, JAX's ``ppermute``; differentiable, the
-gradient hops back) and ``assert_equal`` (a digest of a value's host
-bytes compared over the group, the check JAX's ``device_put`` makes of a
-host value put onto a mesh that spans processes).
+gradient hops back), ``p2p`` (one round of one-way hops, a pipeline
+tick's, every send and receive in flight at once; the pipeline drives
+their gradients back itself) and ``assert_equal`` (a digest of a value's
+host bytes compared over the group, the check JAX's ``device_put`` makes
+of a host value put onto a mesh that spans processes).
 
 Gloo (2.11) takes CUDA tensors in its collectives (all-reduce, gather,
 reduce-scatter, all-to-all), moving them through the host itself, but
 its send and receive write from the CUDA pointer and fail (``writev``:
-Bad address; ``scripts/torch_gloo_probe.py``), so under gloo
-``exchange`` copies a CUDA tensor to the host and its result back; that
-follows from the backend, once, at ``initialize``. NCCL takes every call
+Bad address; ``scripts/torch_gloo_probe.py``), so under gloo ``p2p``
+(and ``exchange`` through it) copies a CUDA tensor to the host and its
+result back; that follows from the backend, once, at ``initialize``. NCCL takes every call
 on the card.
 """
 from __future__ import annotations
@@ -291,10 +298,7 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every process's ``x`` (equal shapes), stacked on a new dim 0 in
     rank order, on ``x``'s device (no grad)."""
-    t = x.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in _ranks(group)]
-    dist.all_gather(parts, t, group=group)
-    return torch.stack(parts)
+    return _gather(x, group)
 
 
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -337,16 +341,110 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     return _all_to_all(x, group)
 
 
-def _exchange(x: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
     t = x.detach().contiguous()
-    if t.is_cuda and _STATE["host_p2p"]:
-        t = t.cpu()
-    got = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t, dst, group),
-           dist.P2POp(dist.irecv, got, src, group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return got.to(x.device)
+    parts = [torch.empty_like(t) for _ in _ranks(group)]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts)
+
+
+def _mine(group) -> int:
+    return _ranks(group).index(int(_STATE["rank"]))
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group), None
+
+
+class _GatherKeep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[_mine(ctx.group)].contiguous(), None
+
+
+class _TakeOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x[_mine(group)].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group), None
+
+
+def gather_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``x`` stacked on a new dim 0 in rank order; its
+    backward reduce-scatters: the gradient of this process's ``x`` is the
+    sum of every process's gradient of its entry, for processes whose
+    downstream computations differ (each holds a part of the loss)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSum.apply(x, group)
+    return _gather(x, group)
+
+
+def gather_keep(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``gather_sum``'s forward; its backward keeps this process's entry
+    of the gradient unsummed, for processes that all compute the same
+    downstream from the gathered value (each holds the whole gradient)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherKeep.apply(x, group)
+    return _gather(x, group)
+
+
+def take_own(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This process's entry (dim 0, rank order) of a value every process
+    of ``group`` computes alike; its backward gathers every process's
+    gradient of its own entry, so each process holds the gradient of the
+    whole value (``gather_keep``'s transpose)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TakeOwn.apply(x, group)
+    return x[_mine(group)].clone()
+
+
+def p2p(sends: Sequence[Tuple[torch.Tensor, int]],
+        recvs: Sequence[Tuple[Tuple[int, ...], torch.dtype, int,
+                              torch.device]],
+        group=None) -> List[torch.Tensor]:
+    """One round of point-to-point hops, every send and receive in
+    flight at once (a process may send to the process it receives from,
+    or only send, or only receive: a pipeline's tick):
+    ``sends`` are (tensor, global rank) pairs, ``recvs`` (shape, dtype,
+    global rank, device) of what comes back, in an order both sides
+    agree on. Under gloo through the host (the module docstring). No
+    gradient."""
+    host = bool(_STATE["host_p2p"])
+    ops, got = [], []
+    for t, dst in sends:
+        t = t.detach().contiguous()
+        if host and t.is_cuda:
+            t = t.cpu()
+        ops.append(dist.P2POp(dist.isend, t, int(dst), group))
+    for shape, dtype, src, device in recvs:
+        dev = torch.device("cpu") if host else torch.device(device)
+        buf = torch.empty(tuple(shape), dtype=dtype, device=dev)
+        got.append((buf, device))
+        ops.append(dist.P2POp(dist.irecv, buf, int(src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [buf.to(device) for buf, device in got]
+
+
+def _exchange(x: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    return p2p([(x, dst)], [(x.shape, x.dtype, src, x.device)], group)[0]
 
 
 class _Exchange(torch.autograd.Function):

@@ -36,15 +36,15 @@ packed rows.
 
 Under an initialized ``parallel.process_group`` (``cli.dist_worker`` with
 ``jax_coordinator``) the mesh is the group's: its positions span the
-processes, each process runs its own positions' streams and the step's
-sums cross the processes (``parallel.data_parallel``). "data", "fsdp",
-"model" and "seq" may span processes, alone or together, and the log
-line names the axes that cross; "expert" across processes, MoE routing
-and pipelines over a mesh that spans processes raise a ``ValueError``
-naming the rest of ROADMAP item 9b-ii. The evaluation's metrics are then
-the global batch's. A snapshot of a run whose leaves are sharded across
-processes raises at the first save, as the JAX loop's does (its
-``device_get`` cannot fetch such an array; ``DataParallel.check_fetch``).
+processes, each process runs its own positions' streams or stages and
+the step's sums and hops cross the processes (``parallel.data_parallel``,
+``parallel.pipeline``). Every axis may span processes, alone or
+together, MoE models too, and the log line names the axes that cross.
+The evaluation's metrics are then the global batch's. A snapshot of a
+run whose leaves (or packed stage rows, where "pipe" crosses) are
+sharded across processes raises at the first save, as the JAX loop's
+does (its ``device_get`` cannot fetch such an array;
+``DataParallel.check_fetch``, ``PipelineLayout.check_fetch``).
 With no ``mesh_axes`` each process trains its own replica on its own
 device.
 """
@@ -152,12 +152,6 @@ def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
                          f"num_microbatches*data = {num_mb}*{dp}")
     mb_global = batch_size // num_mb
     mesh = _mesh(axes, devices, model)
-    if mesh.spans_processes:
-        from ..parallel.data_parallel import SPAN_ITEM
-
-        raise ValueError(
-            f"mesh_axes={axes} spans {len(set(mesh.processes.flat))} "
-            f"processes: pipelines across processes wait for {SPAN_ITEM}")
     virtual = max(1, int(getattr(config, "pipeline_virtual", 1)))
     stages = partitioner.partition_model(
         model, virtual * pp, (mb_global,) + sample_shape,
@@ -172,9 +166,9 @@ def _pipeline_run(model, config, axes, optimizer, scheduler, augment, state,
     if state is None:
         state = init_fn(None)
         state.generator.manual_seed(int(config.seed))
-    log.info("pipeline mesh %s: %d stages x %d microbatches (dp=%d, v=%d)",
+    log.info("pipeline mesh %s: %d stages x %d microbatches (dp=%d, v=%d)%s",
              {k: v for k, v in mesh.shape.items() if v > 1}, virtual * pp,
-             num_mb, dp, virtual)
+             num_mb, dp, virtual, _crossing(mesh))
     return pipe, state, step_fn, make_pipeline_eval_step(pipe)
 
 
@@ -247,10 +241,17 @@ def _data_parallel_run(model, config, axes, optimizer, scheduler, augment,
             _in_context(eval_fn, ring)
     log.info("mesh %s: batch sharded over %d positions%s",
              {k: v for k, v in mesh.shape.items() if v > 1}, mesh.size,
-             f" of {len(set(mesh.processes.flat))} processes (crossing: "
-             f"{', '.join(mesh.crossing_axes())})"
-             if mesh.spans_processes else "")
+             _crossing(mesh))
     return state, step_fn, eval_fn
+
+
+def _crossing(mesh) -> str:
+    """The log's note of the processes a mesh spans and its axes that
+    cross them."""
+    if not mesh.spans_processes:
+        return ""
+    return (f" of {len(set(mesh.processes.flat))} processes (crossing: "
+            f"{', '.join(mesh.crossing_axes())})")
 
 
 def train_model(

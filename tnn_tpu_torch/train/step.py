@@ -348,16 +348,23 @@ def host_scale(scheduler) -> Optional[torch.Tensor]:
 
 
 def apply_update(optimizer: Optimizer, scheduler: Scheduler,
-                 state: TrainState, grads, params, lr_scale=None):
+                 state: TrainState, grads, params, lr_scale=None,
+                 sq_norm: Optional[Callable] = None):
     """One optimizer update of ``params`` by ``grads``, in place, at
     ``lr_scale`` (by default the scheduler's: ``host_scale`` or its scale
-    at ``state.step``); advances ``state.step``. Returns the scale."""
+    at ``state.step``); advances ``state.step``. Returns the scale.
+    ``sq_norm(grads)`` gives the clip's squared global norm where
+    ``grads`` is this process's part of the tree (a layout across
+    processes); it runs only where the optimizer clips."""
     if lr_scale is None:
         lr_scale = host_scale(scheduler)
     if lr_scale is None:
         lr_scale = scheduler.scale(state.step)
     with torch.no_grad():
-        optimizer.update(grads, state.opt_state, params, lr_scale=lr_scale)
+        norm = None if sq_norm is None or \
+            optimizer.grad_clip_norm is None else sq_norm(grads)
+        optimizer.update(grads, state.opt_state, params, lr_scale=lr_scale,
+                         sq_norm=norm)
     state.step += 1
     return lr_scale
 
